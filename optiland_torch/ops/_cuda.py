@@ -1,0 +1,122 @@
+"""Build and load the port's CUDA kernels.
+
+``optiland_torch/csrc/*.cu`` are compiled at first use with ``nvcc`` for
+sm_90a into one shared library with a plain C interface, which is loaded
+with ctypes. The library goes to ``optiland_torch/_build/`` (listed in
+.gitignore), named by a hash of the sources and flags, so a changed source
+is rebuilt and an unchanged one is not. Nothing here runs at import time,
+and nothing needs nvcc or a card until a kernel is launched.
+
+Every C entry launches on the stream it is given and returns
+``cudaGetLastError()``; :func:`check` raises when that is not 0.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+
+import torch
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(_PKG_DIR, "_build")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_LIB = None
+BUILD_SECONDS = None  # wall seconds of the nvcc run (0.0 when cached)
+BUILD_LOG = ""  # nvcc's output, including ptxas register and spill counts
+
+_VP, _I, _I64, _U64 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                       ctypes.c_ulonglong)
+_ARGTYPES = {
+    # seed, offset, R, px, py, u1, u2, stream
+    "prng_disk": [_U64, _I64, _I64, _VP, _VP, _VP, _VP, _VP],
+    # params, aim, flags, S, px, py, R, seed, offset, prng, rows, stream
+    "merit_fwd": [_VP, _VP, _VP, _I, _VP, _VP, _I64, _U64, _I64, _I, _VP, _VP],
+    # params, aim, stats, flags, S, nc, px, py, R, seed, offset, prng,
+    # partial, nblocks, block, out, stream
+    "merit_bwd": [_VP, _VP, _VP, _VP, _I, _I, _VP, _VP, _I64, _U64, _I64, _I,
+                  _VP, _I, _I, _VP, _VP],
+}
+_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or (
+        "/usr/local/cuda"
+    )
+    path = os.path.join(home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError(
+            "nvcc was not found (PATH, CUDA_HOME, /usr/local/cuda); it is "
+            "needed to build optiland_torch's CUDA kernels"
+        )
+    return path
+
+
+def _build() -> str:
+    global BUILD_SECONDS, BUILD_LOG
+    sources = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for src in sources:
+        with open(src, "rb") as f:
+            h.update(f.read())
+    out = os.path.join(BUILD_DIR, f"liboptiland_torch_{h.hexdigest()[:16]}.so")
+    if os.path.exists(out):
+        BUILD_SECONDS = 0.0
+        return out
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    BUILD_SECONDS = time.perf_counter() - t0
+    BUILD_LOG = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{BUILD_LOG}"
+        )
+    os.replace(tmp, out)
+    return out
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first call."""
+    global _LIB
+    if _LIB is None:
+        lib = ctypes.CDLL(_build())
+        for name, argtypes in _ARGTYPES.items():
+            for suf in _SUFFIX.values():
+                fn = getattr(lib, f"otc_{name}_{suf}")
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+        lib.otc_error_string.argtypes = [ctypes.c_int]
+        lib.otc_error_string.restype = ctypes.c_char_p
+        _LIB = lib
+    return _LIB
+
+
+def call(name: str, dtype: torch.dtype, *args) -> int:
+    """Launch entry ``otc_<name>_<f32|f64>``; returns its CUDA error code."""
+    return getattr(library(), f"otc_{name}_{_SUFFIX[dtype]}")(*args)
+
+
+def stream() -> int:
+    """PyTorch's current CUDA stream, as the pointer the C entries take."""
+    return torch.cuda.current_stream().cuda_stream
+
+
+def check(rc: int, name: str) -> None:
+    if rc != 0:
+        msg = library().otc_error_string(rc).decode()
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: {msg} ({rc})")
