@@ -2,16 +2,29 @@
 """Chip smoke test of optiland_torch's main path on one CUDA card.
 
 Builds the CUDA kernels of ``optiland_torch/csrc`` with nvcc, holds each
-kernel against its plain PyTorch version on the card, drives the optimizer
-step of the Cooke triplet's fused RMS-spot merit at full width (2^24 rays,
-float32, in-kernel PRNG pupil), and prints:
+kernel against its plain PyTorch version on the card, and drives three
+paths of the Cooke triplet at full width (2^24 rays, float32), each with
+the launch counts set to 0 just before it and read just after:
+
+  * the merit path (phase 7): the optimizer step of the fused RMS-spot
+    merit, ``spot_rms_fast_field``, in-kernel PRNG pupil (merit_fwd,
+    merit_bwd);
+  * the generic path (phase 10): the value and gradient of
+    ``analysis.spot.rms_spot_size`` (generate_rays, then ``trace`` on the
+    trace_fwd/trace_bwd kernels), pupil samples from prng_disk, and one
+    ``Optic.trace`` of ~2^24 hexapolar rays;
+  * the field path (phase 11): the value and gradient of the mean squared
+    spot radius through ``trace_fast_field`` (trace_field_fwd,
+    trace_field_bwd), as ``bench.py``'s ``pallas-field`` step.
+
+It prints:
 
   * the card's name and power limit (nvidia-smi);
   * one line per phase, each raising on a failed check;
-  * a ``{"kernels": [...]}`` JSON line: per kernel its time at the main
-    path's shape, the plain version's time, its launches on the main path,
-    and its bound (the larger of operations over the card's float32 peak
-    and bytes over its memory rate);
+  * a ``{"kernels": [...]}`` JSON line: per kernel its time at its path's
+    shape, the plain version's time, its launches on the paths, and its
+    bound (the larger of operations over the card's float32 peak and bytes
+    over its memory rate);
   * as the last line, ``{"ok": true, "device": {...}}``.
 
 Run it from the repository root on a machine with a CUDA card:
@@ -55,6 +68,12 @@ OPS_BWD_PLANE = 90  # recomputed forward 40 + adjoint 50
 OPS_STATS = 8  # block sums and centred squares per ray
 OPS_SEED = 6  # dL/dx, dL/dy seeds
 OPS_AIM_BWD = 10  # aim cotangents per ray (launch adjoint)
+# Added by the full step of csrc/step.cuh (intensity and OPD), per surface:
+OPS_FULL_FWD = 9  # OPD 3 (multiply, abs, add), clip 6 (r^2 3, ap^2, compare,
+#                   select)
+OPS_ABS_FWD = 5  # where the medium absorbs: 3 multiplies, exp, multiply
+OPS_FULL_BWD = 23  # the forward's 9, clip adjoint 6, OPD adjoint 8
+OPS_ABS_BWD = 18  # the forward's 5, exp and 12 multiplies/adds of its adjoint
 
 
 def log(msg):
@@ -116,9 +135,20 @@ def main(argv=None):
         return 1
 
     from optiland_torch import config
+    from optiland_torch.analysis import rms_spot_size
+    from optiland_torch.core import raygen
     from optiland_torch.ops import _cuda
+    from optiland_torch.ops import fast_trace as ftr
     from optiland_torch.ops import fused_trace as ft
+    from optiland_torch.optic import Optic
     from optiland_torch.samples import CookeTriplet
+
+    def reset_counts():
+        ft.reset_launch_counts()
+        ftr.reset_launch_counts()
+
+    def counts():
+        return {**ft.LAUNCHES, **ftr.LAUNCHES}
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -138,9 +168,13 @@ def main(argv=None):
     log(f"build: nvcc {_cuda.BUILD_SECONDS:.1f} s, load {build_s:.1f} s "
         f"({' '.join(_cuda.NVCC_FLAGS)})")
     for line in _cuda.BUILD_LOG.splitlines():
-        m = re.search(r"Compiling entry.*\d([a-z_]+_kernel)I([fd])E", line)
+        m = re.search(r"Compiling entry.*\d([a-z_]+_kernel)I([fd])(Lb([01])E)?E",
+                      line)
         if m:
-            log(f"  ptxas: {m.group(1)}<{'float' if m.group(2) == 'f' else 'double'}>")
+            flag = "" if m.group(3) is None else (
+                ", field" if m.group(4) == "1" else ", generic")
+            log(f"  ptxas: {m.group(1)}<{'float' if m.group(2) == 'f' else 'double'}"
+                f"{flag}>")
         elif "registers" in line or "spill" in line or "error" in line:
             log(f"  ptxas: {line.strip()}")
     report["build"] = {"seconds": build_s, "log": _cuda.BUILD_LOG}
@@ -334,7 +368,7 @@ def main(argv=None):
     # The main path: every value+grad step below, and nothing else, runs
     # between resetting the launch counts and reading them.
     torch.cuda.synchronize()
-    ft.reset_launch_counts()
+    reset_counts()
     t7 = time.perf_counter()
     # value and gradient with respect to every stack leaf
     s7, lv7 = leaf_system(base)
@@ -381,7 +415,7 @@ def main(argv=None):
         ev1.record()
         ev1.synchronize()
         times.append(ev0.elapsed_time(ev1))
-    launches = dict(ft.LAUNCHES)
+    launches = counts()
     main_s = time.perf_counter() - t7
     steps_run = 1 + 5 + 3 + args.steps
     step_ms = float(np.median(times))
@@ -394,7 +428,7 @@ def main(argv=None):
         f"{ {k: v / steps_run for k, v in launches.items()} }")
     # the merit kernels draw their samples in-kernel: the step launches
     # merit_fwd and merit_bwd once each and prng_disk never
-    check(launches == {"prng_disk": 0, "merit_fwd": steps_run,
+    check(launches == {**dict.fromkeys(counts(), 0), "merit_fwd": steps_run,
                        "merit_bwd": steps_run},
           f"main path launches {launches}, expected merit_fwd and merit_bwd "
           f"{steps_run} times each and prng_disk never")
@@ -413,6 +447,8 @@ def main(argv=None):
                                 "step_ms_all": times, "ray_surf_per_s": rs,
                                 "launches": launches, "steps": steps_run}
 
+    path_launches = {"merit": launches}
+
     # ---- phase 8: per-kernel times, plain times and bounds at full width --
     p32, a32 = tables(base)
     with torch.no_grad():
@@ -420,6 +456,19 @@ def main(argv=None):
         lf, xbf, ybf = ft._chan_combine(rows_f, Rf)
     stats32 = torch.stack([xbf, ybf, torch.tensor(1.0 / Rf, device=dev),
                            torch.zeros((), device=dev)])
+    # the trace kernels' full-width inputs: the generic path's launch bundle
+    # and pupil samples, and random output cotangents of a mean's size (the
+    # paths' losses are means over the rays), so that the summed gradients
+    # and their max_abs_err are of the size the paths see
+    spec32 = ftr.fast_spec(base)
+    gen8 = torch.Generator(device=dev).manual_seed(8)
+    Px8, Py8 = ft.prng_disk(8, Rf, 0, torch.float32, dev)
+    with torch.no_grad():
+        rays8 = raygen.generate_rays(base, *H, Px8, Py8, WL)
+    ins8 = [getattr(rays8, k).contiguous() for k in ftr.RAY_FIELDS]
+    cots8 = [torch.randn(Rf, generator=gen8, device=dev) / Rf
+             for _ in range(8)]
+    del rays8
 
     def time_ms(fn, reps, per_event=1):
         fn(0)
@@ -436,8 +485,30 @@ def main(argv=None):
             ms.append(ev0.elapsed_time(ev1) / per_event)
         return float(np.median(ms))
 
+    def max_abs(a, b):
+        return max(float((u - v).abs().max()) for u, v in zip(a, b))
+
+    def near32(a, b, what, flips=0):
+        """f32 ``a`` against ``b`` (f32 or f64), each array on its own:
+        2e-4 x max(1, max|b|), and finite where ``b`` is; ``flips`` rays
+        may differ in intensity (array 6), a ray whose radius falls within
+        rounding of a clip edge being clipped in one only."""
+        for j, (u, v) in enumerate(zip(a, b)):
+            u, v = u.double(), v.double()
+            check(torch.equal(torch.isfinite(u), torch.isfinite(v)),
+                  f"{what}: array {j}: finite in one and not the other")
+            bad = (u - v).abs() > 2e-4 * max(1.0, float(v.abs().max()))
+            n = int(bad.sum())
+            check(n <= (flips if j == 6 else 0),
+                  f"{what}: array {j}: {n} rays off by more than 2e-4")
+
+    def arr_err(a, b):
+        """Largest |a - b| of each array over that array's largest |b|."""
+        return max(float((u.double() - v.double()).abs().max())
+                   / max(float(v.abs().max()), 1e-300) for u, v in zip(a, b))
+
     with torch.no_grad():
-        # kernel vs plain at the main path's shapes (f32, PRNG, 2^24 rays)
+        # kernel vs plain at the paths' shapes (f32, 2^24 rays)
         k = ft.prng_disk(9, Rf, 0, torch.float32, dev, with_u=True)
         p = ft.prng_disk_plain(9, Rf, 0, torch.float32, dev, with_u=True)
         check(torch.equal(k[2], p[2]) and torch.equal(k[3], p[3]),
@@ -455,14 +526,53 @@ def main(argv=None):
         fk = ft.merit_bwd(p32, a32, stats32, spec, nc, Rf, seed=9)
         fp = ft.merit_bwd_plain(p32, a32, stats32, spec, nc, Rf, seed=9)
         kerr["merit_bwd"] = float((fk - fp).abs().max())
-        l2f = float(torch.linalg.vector_norm(fk.double() - fp.double())
-                    / torch.linalg.vector_norm(fp.double()))
+
+        def l2(a, b):
+            return float(torch.linalg.vector_norm(a.double() - b.double())
+                         / torch.linalg.vector_norm(b.double()))
+
+        l2f = l2(fk, fp)
         check(l2f <= 1e-3, f"merit_bwd full width: L2 rel err {l2f} > 1e-3")
         del fp
+        # the trace kernels: each of the 8 per-ray arrays on its own (the
+        # stock Cooke triplet clips no ray, so no intensity may flip), the
+        # per-ray input cotangents relative to each array's largest value,
+        # the summed gradients in L2
+        k5a = ftr.trace_fwd(p32, spec32, ins8)
+        ref = ftr.trace_fast_plain(p32, spec32, ins8)
+        kerr["trace_fwd"] = max_abs(k5a, ref)
+        near32(k5a, ref, "trace_fwd full width")
+        k1 = ftr.trace_field_fwd(p32, a32, spec32, Px8, Py8)
+        ref = ftr.trace_fast_field_plain(p32, a32, spec32, Px8, Py8)
+        kerr["trace_field_fwd"] = max_abs(k1, ref)
+        near32(k1, ref, "trace_field_fwd full width")
+        del k5a, k1, ref
+        din_k, flat_k = ftr.trace_bwd(p32, spec32, nc, ins8, cots8)
+        din_p, flat_p = ftr.trace_fast_bwd_plain(p32, spec32, nc, ins8, cots8)
+        kerr["trace_bwd"] = max(float((flat_k - flat_p).abs().max()),
+                                max_abs(din_k, din_p))
+        din_err = arr_err(din_k, din_p)
+        check(din_err <= 1e-3, f"trace_bwd full width: input cotangents, "
+              f"max |d| / max |ref| {din_err} > 1e-3")
+        l2_5b = l2(flat_k, flat_p)
+        del din_k, din_p
+        flat_k = ftr.trace_field_bwd(p32, a32, spec32, nc, Px8, Py8, cots8)
+        flat_p = ftr.trace_fast_field_bwd_plain(p32, a32, spec32, nc, Px8,
+                                                Py8, cots8)
+        kerr["trace_field_bwd"] = float((flat_k - flat_p).abs().max())
+        l2_4 = l2(flat_k, flat_p)
+        check(max(l2_5b, l2_4) <= 1e-3, f"trace_bwd/trace_field_bwd full "
+              f"width: L2 rel err {l2_5b}, {l2_4} > 1e-3")
+        del flat_k, flat_p
         torch.cuda.synchronize()
         log(f"phase 8 full-width kernel vs plain (f32): prng_disk max |dP| "
             f"{kerr['prng_disk']:.2e}, merit_fwd loss rel err "
-            f"{rel(lf, lp):.2e}, merit_bwd L2 rel err {l2f:.2e}")
+            f"{rel(lf, lp):.2e}, merit_bwd L2 rel err {l2f:.2e}; trace_fwd "
+            f"max |d| {kerr['trace_fwd']:.2e}, trace_field_fwd "
+            f"{kerr['trace_field_fwd']:.2e} (each array within 2e-4 x "
+            f"max(1, max |ref|)), trace_bwd input cotangents {din_err:.2e} "
+            f"of each array's largest (tol 1e-3), trace_bwd L2 rel err "
+            f"{l2_5b:.2e}, trace_field_bwd {l2_4:.2e}")
 
         ms = {
             "prng_disk": time_ms(
@@ -472,6 +582,16 @@ def main(argv=None):
             "merit_bwd": time_ms(
                 lambda i: ft.merit_bwd(p32, a32, stats32, spec, nc, Rf,
                                        seed=i), 10, 3),
+            "trace_fwd": time_ms(
+                lambda i: ftr.trace_fwd(p32, spec32, ins8), 10, 3),
+            "trace_bwd": time_ms(
+                lambda i: ftr.trace_bwd(p32, spec32, nc, ins8, cots8), 10, 3),
+            "trace_field_fwd": time_ms(
+                lambda i: ftr.trace_field_fwd(p32, a32, spec32, Px8, Py8),
+                10, 3),
+            "trace_field_bwd": time_ms(
+                lambda i: ftr.trace_field_bwd(p32, a32, spec32, nc, Px8, Py8,
+                                              cots8), 10, 3),
         }
         plain_ms = {
             "prng_disk": time_ms(
@@ -482,15 +602,37 @@ def main(argv=None):
             "merit_bwd": time_ms(
                 lambda i: ft.merit_bwd_plain(p32, a32, stats32, spec, nc, Rf,
                                              seed=i), 3),
+            "trace_fwd": time_ms(
+                lambda i: ftr.trace_fast_plain(p32, spec32, ins8), 3),
+            "trace_bwd": time_ms(
+                lambda i: ftr.trace_fast_bwd_plain(p32, spec32, nc, ins8,
+                                                   cots8), 3),
+            "trace_field_fwd": time_ms(
+                lambda i: ftr.trace_fast_field_plain(p32, a32, spec32, Px8,
+                                                     Py8), 3),
+            "trace_field_bwd": time_ms(
+                lambda i: ftr.trace_fast_field_bwd_plain(p32, a32, spec32, nc,
+                                                         Px8, Py8, cots8), 3),
         }
+    del ins8, cots8, Px8, Py8
+    log("phase 8 kernel ms at 2^%d rays (f32): %s; plain ms: %s" % (
+        args.full_log2, {k: round(v, 4) for k, v in ms.items()},
+        {k: round(v, 2) for k, v in plain_ms.items()}))
 
     codes = spec[0][1:]
     n_std = sum(c == 1 for c in codes)
     n_pl = len(codes) - n_std
+    n_abs = sum(spec32[2][1:])
     nb_f = -(-Rf // ft.FWD_BLOCK)
     nb_b = min(-(-Rf // ft.BWD_BLOCK), ft.BWD_MAX_BLOCKS)
     ncomp = S * len(ft.GRAD_COLS) + ft.N_AIM
+    ncomp_full = S * len(ftr.FULL_GRAD_COLS)
     table_bytes = (S * ft.NUM_P + ft.N_AIM + 2 * S) * 4
+    out_bytes = (S * (ft.NUM_P + nc) + ft.N_AIM) * 4
+    fwd_full = (n_std * OPS_FWD_STANDARD + n_pl * OPS_FWD_PLANE
+                + len(codes) * OPS_FULL_FWD + n_abs * OPS_ABS_FWD)
+    bwd_full = (n_std * OPS_BWD_STANDARD + n_pl * OPS_BWD_PLANE
+                + len(codes) * OPS_FULL_BWD + n_abs * OPS_ABS_BWD)
     work = {
         "prng_disk": (Rf * OPS_PRNG, Rf * 2 * 4),
         "merit_fwd": (Rf * (OPS_PRNG + OPS_LAUNCH + n_std * OPS_FWD_STANDARD
@@ -498,36 +640,305 @@ def main(argv=None):
                       table_bytes + nb_f * 5 * 4),
         "merit_bwd": (Rf * (OPS_PRNG + OPS_LAUNCH + OPS_SEED + OPS_AIM_BWD
                             + n_std * OPS_BWD_STANDARD + n_pl * OPS_BWD_PLANE),
-                      table_bytes + 16 + 2 * nb_b * ncomp * 4
-                      + (S * (ft.NUM_P + nc) + ft.N_AIM) * 4),
+                      table_bytes + 16 + 2 * nb_b * ncomp * 4 + out_bytes),
+        # 8 arrays in, 8 out
+        "trace_fwd": (Rf * fwd_full, table_bytes + Rf * 16 * 4),
+        # 8 arrays and 8 cotangents in, 8 input cotangents out
+        "trace_bwd": (Rf * bwd_full, table_bytes + Rf * 24 * 4
+                      + 2 * nb_b * ncomp_full * 4 + out_bytes),
+        # Px, Py in, 8 arrays out
+        "trace_field_fwd": (Rf * (OPS_LAUNCH + fwd_full),
+                            table_bytes + Rf * 10 * 4),
+        # Px, Py and 8 cotangents in
+        "trace_field_bwd": (Rf * (OPS_LAUNCH + OPS_AIM_BWD + bwd_full),
+                            table_bytes + Rf * 10 * 4
+                            + 2 * nb_b * (ncomp_full + ft.N_AIM) * 4
+                            + out_bytes),
     }
-    replaces = {
-        "prng_disk": "optiland_tpu/ops/pallas_trace.py:1100",
-        "merit_fwd": "optiland_tpu/ops/pallas_trace.py:1145",
-        "merit_bwd": "optiland_tpu/ops/pallas_trace.py:1196",
-    }
-    kernels = []
-    for name in ("merit_fwd", "merit_bwd", "prng_disk"):
-        ops, nbytes = work[name]
-        t_ops = ops / PEAK_F32_OPS * 1e3
-        t_bytes = nbytes / PEAK_BYTES * 1e3
-        kernels.append({
-            "name": name, "route": "cuda",
-            "source": "optiland_torch/csrc/fused_trace.cu",
-            "replaces": replaces[name], "launches": launches[name],
-            "max_abs_err": kerr[name], "ms": ms[name],
-            "plain_ms": plain_ms[name], "bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": None,
-        })
-    for name in ("merit_fwd", "merit_bwd", "prng_disk"):
-        ops, nbytes = work[name]
+    for name, (ops, nbytes) in work.items():
         b64 = max(ops / PEAK_F64_OPS, 2 * nbytes / PEAK_BYTES) * 1e3
         log(f"bound {name}: {ops / 1e9:.2f} Gop, {nbytes / 1e6:.1f} MB -> "
             f"f32 {max(ops / PEAK_F32_OPS, nbytes / PEAK_BYTES) * 1e3:.4f} ms,"
             f" f64 {b64:.4f} ms ("
             f"{'operations' if ops / PEAK_F64_OPS >= 2 * nbytes / PEAK_BYTES else 'bytes'})")
+
+    # ---- phase 9: the trace kernels against their plain versions ----
+    config.set_precision("float64")
+
+    def mirror_system():
+        """A concave conic mirror (the reflect branch)."""
+        lens = Optic()
+        lens.surfaces.add(index=0, radius=float("inf"), thickness=float("inf"))
+        lens.surfaces.add(index=1, radius=-200.0, thickness=-100.0,
+                          material="mirror", is_stop=True, conic=-0.5)
+        lens.surfaces.add(index=2)
+        lens.set_aperture(aperture_type="EPD", value=20)
+        lens.fields.set_type(field_type="angle")
+        lens.fields.add(y=0)
+        lens.fields.add(y=1)
+        lens.wavelengths.add(value=0.55, is_primary=True)
+        return lens.system
+
+    def vignetted_system():
+        """The Cooke triplet with a 2 mm semi-aperture at the stop."""
+        lens = CookeTriplet()
+        lens.surfaces.surfaces[4].aperture = 4.0
+        lens._invalidate()
+        return lens.system
+
+    def flat_err(a, b, rtol, what):
+        """|a - b| <= rtol |b| + 1e-12 max|b| wherever b is finite; returns
+        the worst relative error over the entries above 1e-6 max|b|."""
+        fin = torch.isfinite(b)
+        a, b = a[fin].double(), b[fin].double()
+        scale = float(b.abs().max())
+        d = (a - b).abs()
+        check(bool((d <= rtol * b.abs() + 1e-12 * scale).all()),
+              f"{what}: max |d| {float(d.max()):.3e} (largest |ref| "
+              f"{scale:.3e})")
+        big = b.abs() > 1e-6 * scale
+        return float((d[big] / b[big].abs()).max())
+
+    g9 = torch.Generator(device=dev).manual_seed(9)
+    res9 = {}
+    for kind, sysk in (("cooke", systems["f64"]), ("mirror", mirror_system()),
+                       ("vignetted", vignetted_system())):
+        spec_k = ftr.fast_spec(sysk)
+        pk, ak = tables(sysk)
+        nc_k, S_k = sysk.stack.coeffs.shape[1], len(spec_k[0])
+        with torch.no_grad():
+            rays = raygen.generate_rays(sysk, *H, Px64, Py64, WL)
+        ins = [getattr(rays, k).contiguous() for k in ftr.RAY_FIELDS]
+        ins[6] = 0.5 + 0.5 * torch.rand(Rc, generator=g9, device=dev,
+                                        dtype=torch.float64)
+        ins[7] = torch.rand(Rc, generator=g9, device=dev, dtype=torch.float64)
+        cots = [torch.randn(Rc, generator=g9, device=dev, dtype=torch.float64)
+                for _ in range(8)]
+        r = {}
+        # K5a, K5b against the plain versions and autograd of the plain trace
+        out_k = ftr.trace_fwd(pk, spec_k, ins)
+        r["trace_fwd"] = arr_err(out_k, ftr.trace_fast_plain(pk, spec_k, ins))
+        din_k, fl_k = ftr.trace_bwd(pk, spec_k, nc_k, ins, cots)
+        din_p, fl5_p = ftr.trace_fast_bwd_plain(pk, spec_k, nc_k, ins, cots)
+        pg = pk.clone().requires_grad_()
+        insg = [t.clone().requires_grad_() for t in ins]
+        out_a = ftr.trace_fast_plain(pg, spec_k, insg)
+        auto = torch.autograd.grad(
+            sum((o * c).sum() for o, c in zip(out_a, cots)), [pg] + insg)
+        fl_a = torch.cat([auto[0].reshape(-1), pk.new_zeros(S_k * nc_k)])
+        r["trace_bwd"] = flat_err(fl_k, fl5_p, 1e-9, f"trace_bwd {kind}")
+        r["trace_bwd_autograd"] = flat_err(fl_k, fl_a, 1e-9,
+                                           f"trace_bwd {kind} vs autograd")
+        r["trace_bwd_din"] = arr_err(din_k, din_p)
+        r["trace_bwd_din_autograd"] = arr_err(din_k, auto[1:])
+        del out_a, auto, insg
+        # K1, K4
+        out_f = ftr.trace_field_fwd(pk, ak, spec_k, Px64, Py64)
+        r["trace_field_fwd"] = arr_err(
+            out_f, ftr.trace_fast_field_plain(pk, ak, spec_k, Px64, Py64))
+        fl_k = ftr.trace_field_bwd(pk, ak, spec_k, nc_k, Px64, Py64, cots)
+        fl4_p = ftr.trace_fast_field_bwd_plain(pk, ak, spec_k, nc_k, Px64,
+                                               Py64, cots)
+        pg, ag = pk.clone().requires_grad_(), ak.clone().requires_grad_()
+        out_a = ftr.trace_fast_field_plain(pg, ag, spec_k, Px64, Py64)
+        gp, ga = torch.autograd.grad(
+            sum((o * c).sum() for o, c in zip(out_a, cots)), [pg, ag])
+        fl_a = torch.cat([gp.reshape(-1), pk.new_zeros(S_k * nc_k), ga])
+        r["trace_field_bwd"] = flat_err(fl_k, fl4_p, 1e-9,
+                                        f"trace_field_bwd {kind}")
+        r["trace_field_bwd_autograd"] = flat_err(
+            fl_k, fl_a, 1e-9, f"trace_field_bwd {kind} vs autograd")
+        del out_a
+        for key in ("trace_fwd", "trace_field_fwd", "trace_bwd_din",
+                    "trace_bwd_din_autograd"):
+            check(r[key] <= 1e-10, f"{key} {kind} f64: rel err {r[key]} > "
+                  f"1e-10")
+        if kind == "vignetted":
+            n_clip = int((out_f[6] == 0).sum())
+            check(0 < n_clip < Rc, f"vignetted: {n_clip} of {Rc} rays "
+                  "clipped; the clip did not run")
+            r["clipped"] = n_clip
+        # f32 against the f64 plain versions
+        if kind != "mirror":
+            p32k, a32k = pk.float(), ak.float()
+            ins32 = [t.float() for t in ins]
+            cots32 = [t.float() for t in cots]
+            flips = Rc // 10_000
+            near32(ftr.trace_fwd(p32k, spec_k, ins32),
+                   ftr.trace_fast_plain(pk, spec_k, ins), f"trace_fwd f32 "
+                   f"{kind}", flips)
+            near32(ftr.trace_field_fwd(p32k, a32k, spec_k, Px64.float(),
+                                       Py64.float()),
+                   out_f, f"trace_field_fwd f32 {kind}", flips)
+            din32, fl32 = ftr.trace_bwd(p32k, spec_k, nc_k, ins32, cots32)
+            near32(din32[:6], din_p[:6], f"trace_bwd f32 {kind}")
+            r["trace_bwd_f32_l2"] = l2(fl32, fl5_p)
+            fl32 = ftr.trace_field_bwd(p32k, a32k, spec_k, nc_k,
+                                       Px64.float(), Py64.float(), cots32)
+            r["trace_field_bwd_f32_l2"] = l2(fl32, fl4_p)
+            check(max(r["trace_bwd_f32_l2"], r["trace_field_bwd_f32_l2"])
+                  <= 1e-3, f"{kind} f32 gradients: L2 rel err "
+                  f"{r['trace_bwd_f32_l2']}, {r['trace_field_bwd_f32_l2']}"
+                  " > 1e-3")
+        torch.cuda.synchronize()
+        res9[kind] = r
+        log(f"phase 9 trace kernels {kind} (2^{args.check_log2} rays, f64 "
+            f"vs plain; per-ray arrays: max |d| / max |ref|, tol 1e-10; "
+            f"gradients: worst rel err over entries above 1e-6 x the "
+            f"largest, tol 1e-9): " + ", ".join(
+                f"{k} {v:.2e}" if isinstance(v, float) else f"{k} {v}"
+                for k, v in r.items()))
+    report["phases"]["trace_kernels"] = res9
+    del ins, cots, din_k, din_p
+
+    # ---- phase 10: the generic path at full width ----
+    config.set_precision("float32")
+
+    def timed(step_fn, seed0):
+        for i in range(3):  # warm-up
+            step_fn(seed0 - 1 - i)
+        torch.cuda.synchronize()
+        times = []
+        for i in range(args.steps):
+            ev0 = torch.cuda.Event(enable_timing=True)
+            ev1 = torch.cuda.Event(enable_timing=True)
+            ev0.record()
+            step_fn(seed0 + i)
+            ev1.record()
+            ev1.synchronize()
+            times.append(ev0.elapsed_time(ev1))
+        return times
+
+    def generic_loss(system, seed):
+        Px, Py = ft.prng_disk(seed, Rf, 0, torch.float32, dev)
+        return rms_spot_size(system, *H, Px, Py, WL)
+
+    def field_loss(system, seed):
+        Px, Py = ft.prng_disk(seed, Rf, 0, torch.float32, dev)
+        f = ftr.trace_fast_field(system, *H, Px, Py, WL)
+        return ((f.x - f.x.mean()) ** 2 + (f.y - f.y.mean()) ** 2).mean()
+
+    paths = {}
+    for name, loss_fn, seed0 in (("generic", generic_loss, 2000),
+                                 ("field", field_loss, 3000)):
+        phase = 10 if name == "generic" else 11
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        # value and gradient with respect to every stack leaf
+        sl, lv = leaf_system(base)
+        first = loss_fn(sl, seed0 - 100)
+        first.backward()
+        check(bool(torch.isfinite(first)), f"{name} path: value not finite")
+        check(bool(torch.isfinite(lv["radius"].grad[1:-1]).all()),
+              f"{name} path: radius gradient not finite")
+
+        def vg_path(i, loss_fn=loss_fn):
+            sysk, _ = system_of(r_inner)
+            loss = loss_fn(sysk, i)
+            loss.backward()
+
+        times_p = timed(vg_path, seed0)
+        got = counts()
+        wall = time.perf_counter() - t0
+        n_steps = 1 + 3 + args.steps
+        fwd, bwd = (("trace_fwd", "trace_bwd") if name == "generic"
+                    else ("trace_field_fwd", "trace_field_bwd"))
+        expect = {**dict.fromkeys(got, 0), fwd: n_steps, bwd: n_steps,
+                  "prng_disk": n_steps}
+        check(got == expect, f"{name} path launches {got}, expected {expect}")
+        path_launches[name] = got
+        step_p = float(np.median(times_p))
+        rs_p = Rf * n_surf / (step_p * 1e-3)
+        paths[name] = {"value": float(first.detach()), "step_ms": step_p,
+                       "step_ms_all": times_p, "ray_surf_per_s": rs_p,
+                       "launches": got, "steps": n_steps}
+        log(f"phase {phase} {name} path: {n_steps} value+grad steps in "
+            f"{wall:.1f} s; value over every stack leaf "
+            f"{float(first.detach()):.9e}; median value+grad step "
+            f"{step_p:.3f} ms over {args.steps} steps -> {rs_p:.4e} "
+            f"ray-surf/s; launches {got}, per step 1 {fwd}, 1 {bwd}, 1 "
+            f"prng_disk")
+        if name == "generic":
+            # Optic.trace of ~2^24 hexapolar rays, forward, no history
+            rings = int(round((np.sqrt(12 * Rf - 3) - 3) / 6))
+            lens32 = CookeTriplet()
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            res = lens32.trace(Hy=0.7, num_rays=rings, record=False)
+            torch.cuda.synchronize()
+            t_ot = time.perf_counter() - t0
+            got = counts()
+            n_rays = 1 + 3 * rings * (rings + 1)
+            check(got == {**dict.fromkeys(got, 0), "trace_fwd": 1},
+                  f"Optic.trace launches {got}, expected trace_fwd once")
+            check(res.x.shape == (n_rays,) and res.history is None,
+                  f"Optic.trace: shape {tuple(res.x.shape)}")
+            check(bool(torch.isfinite(res.x).all() and torch.isfinite(res.y)
+                       .all() and ((res.i >= 0) & (res.i <= 1)).all()),
+                  "Optic.trace: non-finite rays or intensity outside [0, 1]")
+            path_launches["optic_trace"] = got
+            paths["optic_trace"] = {"rays": n_rays, "rings": rings,
+                                    "host_s": t_ot, "launches": got}
+            log(f"phase 10 Optic.trace(Hy=0.7, num_rays={rings}, "
+                f"record=False): {n_rays} hexapolar rays in {t_ot:.2f} s "
+                f"host wall (rings, transfer, launch side, trace_fwd); "
+                f"launches {got}")
+            del res
+
+    # The three paths compute one function: the mean squared spot radius
+    # of the same pupil samples (outside the counted runs).
+    with torch.no_grad():
+        Pxc, Pyc = ft.prng_disk(77, Rf, 0, torch.float32, dev)
+        v_gen = rms_spot_size(base, *H, Pxc, Pyc, WL) ** 2
+        f = ftr.trace_fast_field(base, *H, Pxc, Pyc, WL)
+        v_field = ((f.x - f.x.mean()) ** 2 + (f.y - f.y.mean()) ** 2).mean()
+        v_merit = ft.spot_rms_fast_field(base, *H, WL, Px=Pxc, Py=Pyc)
+        del f, Pxc, Pyc
+    e_paths = max(rel(v_gen, v_merit), rel(v_field, v_merit))
+    check(e_paths <= 1e-4, f"the paths disagree on the mean squared spot "
+          f"radius: generic {float(v_gen)}, field {float(v_field)}, merit "
+          f"{float(v_merit)}")
+    log(f"phase 11 cross-check: the three paths agree on the mean squared spot radius of "
+        f"the same 2^{args.full_log2} samples: merit {float(v_merit):.9e}, "
+        f"rel err generic {rel(v_gen, v_merit):.2e}, field "
+        f"{rel(v_field, v_merit):.2e} (tol 1e-4, f32)")
+    report["phases"]["paths"] = paths
+
+    # ---- the kernels line ----
+    replaces = {
+        "prng_disk": "optiland_tpu/ops/pallas_trace.py:1100",
+        "merit_fwd": "optiland_tpu/ops/pallas_trace.py:1145",
+        "merit_bwd": "optiland_tpu/ops/pallas_trace.py:1196",
+        "trace_field_fwd": "optiland_tpu/ops/pallas_trace.py:803",
+        "trace_field_bwd": "optiland_tpu/ops/pallas_trace.py:847",
+        "trace_fwd": "optiland_tpu/ops/pallas_trace.py:538",
+        "trace_bwd": "optiland_tpu/ops/pallas_trace.py:622",
+    }
+    sources = {k: "optiland_torch/csrc/fused_trace.cu"
+               for k in ("prng_disk", "merit_fwd", "merit_bwd")}
+    sources.update({k: "optiland_torch/csrc/fast_trace.cu" for k in
+                    ("trace_field_fwd", "trace_field_bwd", "trace_fwd",
+                     "trace_bwd")})
+    kernels = []
+    for name in ("merit_fwd", "merit_bwd", "prng_disk", "trace_field_fwd",
+                 "trace_field_bwd", "trace_fwd", "trace_bwd"):
+        ops, nbytes = work[name]
+        t_ops = ops / PEAK_F32_OPS * 1e3
+        t_bytes = nbytes / PEAK_BYTES * 1e3
+        n_launch = sum(c[name] for c in path_launches.values())
+        check(n_launch > 0, f"kernel {name} was not launched on any path")
+        kernels.append({
+            "name": name, "route": "cuda", "source": sources[name],
+            "replaces": replaces[name], "launches": n_launch,
+            "max_abs_err": kerr[name], "ms": ms[name],
+            "plain_ms": plain_ms[name], "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": None,
+        })
     report["kernels"] = kernels
+    report["path_launches"] = path_launches
     report["work"] = {k: {"ops": v[0], "bytes": v[1]} for k, v in work.items()}
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", "chip_smoke.json"), "w") as f:

@@ -54,3 +54,7 @@ class RealRays:
     @property
     def num_rays(self) -> int:
         return self.x.shape[0]
+
+    def replace(self, **changes) -> "RealRays":
+        """A copy with the given components replaced (e.g. L0/M0/N0)."""
+        return dataclasses.replace(self, **changes)

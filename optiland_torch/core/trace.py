@@ -1,0 +1,171 @@
+"""Real-ray trace engine: an unrolled loop over the surfaces in PyTorch.
+
+Counterpart of ``optiland_tpu/core/trace.py`` (the unrolled engine; its
+XLA path). Each surface step localizes the bundle, intersects and
+propagates it, attenuates it in the medium before the surface
+(Beer-Lambert), accumulates the optical path, clips it on the surface's
+circular semi-aperture, refracts or reflects it, and globalizes it again.
+Vignetted and TIR rays are masked by intensity, never removed. Gradients
+come from autograd.
+
+``trace`` sends a bundle on a CUDA device to the fused kernels
+(``ops/fast_trace.trace_fast``) when no history is asked for and the
+wavelength is a concrete number, as the JAX package sends it to its Pallas
+kernels on the TPU; a system the port's kernels do not cover yet raises
+there instead of running this engine on the card. This slice covers
+PLANE and STANDARD surfaces with refraction and reflection; aperture
+objects, interactions (thin lens, phase, grating), coatings, BSDFs and
+polarization come in later slices and raise, and the scan engine
+(``trace_scan``) waits for ROADMAP Queue 1 item 8.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from optiland_torch.core import geometry as geom
+from optiland_torch.core.rays import RealRays
+from optiland_torch.core.system import System, k_of, n_of, positions
+from optiland_torch.ops import kernels
+
+HISTORY_FIELDS = ("x", "y", "z", "L", "M", "N", "intensity", "opd")
+
+
+def _check_structure(cfg):
+    """Raise for the per-surface objects that later slices port."""
+    for name, what in (
+        ("apertures", "physical aperture objects"),
+        ("interactions", "surface interactions (thin lens, phase, grating)"),
+        ("coatings", "coatings"),
+        ("bsdfs", "BSDF scattering"),
+    ):
+        vals = getattr(cfg, name)
+        if vals is not None and any(v is not None for v in vals):
+            raise NotImplementedError(f"{what} are ported in a later slice")
+    if cfg.polarized:
+        raise NotImplementedError(
+            "polarized traces are ported in a later slice"
+        )
+
+
+def _surface_step(stack, cfg, s, pos_s, state):
+    """Trace the ray bundle through surface ``s`` (static index)."""
+    x, y, z, L, M, N, inten, opd, w, n_pre = state
+    radius = stack.radius[s]
+    conic = stack.conic[s]
+    code = cfg.geom_codes[s]
+
+    # Localize (dz is the flattened z-decenter on top of the vertex)
+    x = x - stack.dx[s]
+    y = y - stack.dy[s]
+    z = z - (pos_s + stack.dz[s])
+    if cfg.has_tilts:
+        x, y, L, M = kernels.rotate_z(x, y, L, M, -stack.rz[s])
+        x, z, L, N = kernels.rotate_y(x, z, L, N, -stack.ry[s])
+        y, z, M, N = kernels.rotate_x(y, z, M, N, -stack.rx[s])
+
+    # Intersect + propagate
+    t = geom.distance_static(code, radius, conic, x, y, z, L, M, N)
+    x = x + t * L
+    y = y + t * M
+    z = z + t * N
+
+    # Absorption in the pre-surface medium (Beer-Lambert; t mm, w um)
+    if cfg.has_absorption:
+        k_pre = k_of(stack.ktab[s - 1], w)
+        inten = inten * torch.exp(-4 * np.pi * k_pre / w * t * 1e3)
+
+    # OPD accumulation
+    opd = opd + torch.abs(t * n_pre)
+
+    # Physical aperture clip (local frame)
+    ap = stack.ap_max[s]
+    inten = torch.where(x**2 + y**2 > ap**2, 0.0, inten)
+
+    # Normal + interaction
+    nx, ny, nz = geom.surface_normal_static(code, radius, conic, None, x, y)
+    if cfg.reflective[s]:
+        L, M, N = kernels.reflect(L, M, N, nx, ny, nz)
+        n_next = n_pre
+    else:
+        n_post = n_of(cfg.mat_formulas[s], stack.mat_coeffs[s],
+                      stack.ntab[s], w)
+        L, M, N = kernels.refract(L, M, N, nx, ny, nz, n_pre, n_post)
+        n_next = n_post
+
+    # Globalize
+    if cfg.has_tilts:
+        y, z, M, N = kernels.rotate_x(y, z, M, N, stack.rx[s])
+        x, z, L, N = kernels.rotate_y(x, z, L, N, stack.ry[s])
+        x, y, L, M = kernels.rotate_z(x, y, L, M, stack.rz[s])
+    x = x + stack.dx[s]
+    y = y + stack.dy[s]
+    z = z + pos_s + stack.dz[s]
+
+    return (x, y, z, L, M, N, inten, opd, w, n_next)
+
+
+def trace(system: System, rays: RealRays, record: bool = True, key=None,
+          wavelength=None):
+    """Trace a ray bundle through every surface of the system.
+
+    Args:
+        system: the compiled system.
+        rays: launch bundle (global coordinates, object space).
+        record: if True, also return the per-surface history stacked with
+            the launch state as row 0.
+        key: accepted for the JAX package's signature; it seeds BSDF
+            scattering, which a later slice ports.
+        wavelength: optional concrete scalar (Python/NumPy number). When it
+            is given, the bundle lies on a CUDA device and ``record`` is
+            False, the trace runs on the fused kernels
+            (``ops/fast_trace.trace_fast``), with the same semantics. For a
+            system they do not cover yet (tilts, more than 16 surfaces) it
+            raises NotImplementedError, as the JAX package's kernels cover
+            those: it never runs the plain engine on the card in their
+            place. With ``record``, or on the CPU, this engine traces
+            the bundle.
+
+    Returns:
+        (final_rays, history): history is a dict of (S, R) tensors (x, y, z,
+        L, M, N, intensity, opd), or None when record is False.
+    """
+    stack, cfg = system.stack, system.cfg
+    _check_structure(cfg)
+    if (
+        not record
+        and key is None
+        and isinstance(wavelength, (int, float, np.floating))
+        and rays.x.device.type == "cuda"
+    ):
+        from optiland_torch.ops import fast_trace
+
+        return fast_trace.trace_fast(system, rays, float(wavelength)), None
+
+    n0 = n_of(cfg.mat_formulas[0], stack.mat_coeffs[0], stack.ntab[0], rays.w)
+    state = (rays.x, rays.y, rays.z, rays.L, rays.M, rays.N, rays.i,
+             rays.opd, rays.w, n0)
+    pos = positions(stack)
+
+    recs = []
+    for s in range(1, cfg.num_surfaces):
+        state = _surface_step(stack, cfg, s, pos[s], state)
+        if record:
+            recs.append(state[:8])
+
+    x, y, z, L, M, N, inten, opd, w, _ = state
+    out = RealRays(x=x, y=y, z=z, L=L, M=M, N=N, i=inten, w=w, opd=opd)
+
+    history = None
+    if record:
+        launch = (rays.x, rays.y, rays.z, rays.L, rays.M, rays.N, rays.i,
+                  rays.opd)
+        history = {
+            name: torch.stack(
+                torch.broadcast_tensors(launch[k], *[r[k] for r in recs]),
+                dim=0,
+            )
+            for k, name in enumerate(HISTORY_FIELDS)
+        }
+    return out, history

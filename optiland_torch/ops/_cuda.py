@@ -1,11 +1,13 @@
 """Build and load the port's CUDA kernels.
 
 ``optiland_torch/csrc/*.cu`` are compiled at first use with ``nvcc`` for
-sm_90a into one shared library with a plain C interface, which is loaded
-with ctypes. The library goes to ``optiland_torch/_build/`` (listed in
-.gitignore), named by a hash of the sources and flags, so a changed source
-is rebuilt and an unchanged one is not. Nothing here runs at import time,
-and nothing needs nvcc or a card until a kernel is launched.
+sm_90a, one ``nvcc`` per source, all started together, and linked into one
+shared library with a plain C interface, which is loaded with ctypes. The
+library goes to ``optiland_torch/_build/`` (listed in .gitignore), named by
+a hash of every source the build reads (``*.cu`` and the ``*.cuh`` headers
+they include) and of the flags, so a changed source or header is rebuilt
+and an unchanged one is not. Nothing here runs at import time, and nothing
+needs nvcc or a card until a kernel is launched.
 
 Every C entry launches on the stream it is given and returns
 ``cudaGetLastError()``; :func:`check` raises when that is not 0.
@@ -27,7 +29,7 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIB = None
 BUILD_SECONDS = None  # wall seconds of the nvcc run (0.0 when cached)
@@ -35,6 +37,7 @@ BUILD_LOG = ""  # nvcc's output, including ptxas register and spill counts
 
 _VP, _I, _I64, _U64 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                        ctypes.c_ulonglong)
+_PP = ctypes.POINTER(ctypes.c_void_p)  # host array of device pointers
 _ARGTYPES = {
     # seed, offset, R, px, py, u1, u2, stream
     "prng_disk": [_U64, _I64, _I64, _VP, _VP, _VP, _VP, _VP],
@@ -44,6 +47,17 @@ _ARGTYPES = {
     # partial, nblocks, block, out, stream
     "merit_bwd": [_VP, _VP, _VP, _VP, _I, _I, _VP, _VP, _I64, _U64, _I64, _I,
                   _VP, _I, _I, _VP, _VP],
+    # params, flags, S, in[8], R, out[8], stream
+    "trace_fwd": [_VP, _VP, _I, _PP, _I64, _PP, _VP],
+    # params, aim, flags, S, px, py, R, out[8], stream
+    "trace_field_fwd": [_VP, _VP, _VP, _I, _VP, _VP, _I64, _PP, _VP],
+    # params, flags, S, nc, in[8], cot[8], R, din[8], partial, nblocks, out,
+    # stream
+    "trace_bwd": [_VP, _VP, _I, _I, _PP, _PP, _I64, _PP, _VP, _I, _VP, _VP],
+    # params, aim, flags, S, nc, px, py, cot[8], R, partial, nblocks, out,
+    # stream
+    "trace_field_bwd": [_VP, _VP, _VP, _I, _I, _VP, _VP, _PP, _I64, _VP, _I,
+                        _VP, _VP],
 }
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
@@ -67,8 +81,10 @@ def _nvcc() -> str:
 def _build() -> str:
     global BUILD_SECONDS, BUILD_LOG
     sources = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
+    headers = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
     h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in sources + headers:
+        h.update(os.path.basename(src).encode())
         with open(src, "rb") as f:
             h.update(f.read())
     out = os.path.join(BUILD_DIR, f"liboptiland_torch_{h.hexdigest()[:16]}.so")
@@ -76,17 +92,35 @@ def _build() -> str:
         BUILD_SECONDS = 0.0
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources]
+    tmp = f"{out}.{os.getpid()}"
+    nvcc = _nvcc()
+    objs = [f"{tmp}.{os.path.basename(src)}.o" for src in sources]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [
+        (cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                               stderr=subprocess.STDOUT, text=True))
+        for cmd in ([nvcc, *NVCC_FLAGS, "-c", src, "-o", obj]
+                    for src, obj in zip(sources, objs))
+    ]
+    logs, failed = [], []
+    for cmd, proc in procs:
+        logs.append(proc.communicate()[0])
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}")
+    BUILD_LOG = "".join(logs)
+    if not failed:
+        cmd = [nvcc, "-shared", "-o", f"{tmp}.so", *objs]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        BUILD_LOG += proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}")
     BUILD_SECONDS = time.perf_counter() - t0
-    BUILD_LOG = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{BUILD_LOG}"
-        )
-    os.replace(tmp, out)
+    for obj in objs:
+        if os.path.exists(obj):
+            os.remove(obj)
+    if failed:
+        raise RuntimeError("\n".join(failed) + "\n" + BUILD_LOG)
+    os.replace(f"{tmp}.so", out)
     return out
 
 
@@ -109,6 +143,12 @@ def library() -> ctypes.CDLL:
 def call(name: str, dtype: torch.dtype, *args) -> int:
     """Launch entry ``otc_<name>_<f32|f64>``; returns its CUDA error code."""
     return getattr(library(), f"otc_{name}_{_SUFFIX[dtype]}")(*args)
+
+
+def pointers(tensors) -> ctypes.Array:
+    """Host array of the tensors' device pointers, for a ``void* const*``
+    argument."""
+    return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
 
 
 def stream() -> int:

@@ -1,0 +1,409 @@
+"""Generic and field ray traces: Hopper kernels, their plain PyTorch versions,
+and the op layer around them.
+
+Counterpart of the ``trace_fast`` / ``trace_fast_field`` half of
+``optiland_tpu/ops/pallas_trace.py``. Four CUDA kernels written for sm_90a
+(``csrc/fast_trace.cu``) do the work on a CUDA device:
+
+  * ``trace_fwd`` (ports ``_make_fwd_kernel``, monochromatic mode, K5a):
+    trace 8 per-ray arrays (x, y, z, L, M, N, i, opd) through the surface
+    chain and write the 8 final arrays;
+  * ``trace_bwd`` (ports ``_make_bwd_kernel``, K5b): retrace and run the
+    hand-derived adjoint seeded with the 8 output cotangents; writes the 8
+    per-ray input cotangents and one partial row per block of the summed
+    parameter gradients, which a second launch sums in a fixed order;
+  * ``trace_field_fwd`` (ports ``_make_fwd_kernel_field``, K1): as
+    ``trace_fwd``, with each ray launched in-kernel from its pupil sample
+    (Px, Py) and the 8-scalar aim vector (intensity 1, OPD 0);
+  * ``trace_field_bwd`` (ports ``_make_bwd_kernel_field``, K4): the adjoint
+    of K1, which writes only the summed parameter and aim gradients.
+
+Beside each kernel sits its plain PyTorch version (``*_plain``), which the
+wrapper runs when, and only when, its tensors lie on the CPU, and a launch
+count in ``LAUNCHES``. On a CUDA tensor a wrapper launches its kernel or
+raises; nothing falls back.
+
+The step is the full form of ``ops/step.py``: absorption, OPD and the
+circular clip are traced. As in the JAX package's kernels, the
+Beer-Lambert factor is applied only where the medium before the surface
+absorbs, read from the k tables' values; when the k tables are
+differentiated (they require grad, the counterpart of JAX tracers), every
+surface applies it, so the gradient of every k table is formed as the JAX
+package forms it.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from optiland_torch.core.rays import RealRays
+from optiland_torch.core.system import scalar_like
+from optiland_torch.ops.fused_trace import aim_vector, build_param_table
+from optiland_torch.ops.launch import (
+    BWD_BLOCK, BWD_MAX_BLOCKS, N_AIM, check_cuda_inputs, covered, device_of,
+    flags, launch_from_pupil, unsupported,
+)
+from optiland_torch.ops.step import (
+    FULL_GRAD_COLS, NUM_P, P_NPOST, step_adjoint_plain, step_plain,
+)
+
+# Launch counts of the four kernels; each wrapper adds one where it launches
+# its kernel and nowhere else (a backward counts its partial-row launch
+# together with the fixed-order reduction launch that follows it).
+LAUNCHES = {"trace_fwd": 0, "trace_bwd": 0, "trace_field_fwd": 0,
+            "trace_field_bwd": 0}
+
+RAY_FIELDS = ("x", "y", "z", "L", "M", "N", "i", "opd")
+
+
+def reset_launch_counts():
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+# ---------------------------------------------------------------------------
+# Structure: masks, spec, support
+# ---------------------------------------------------------------------------
+
+
+def _masks(system):
+    """(tilted, absorbs) per surface from one read of the values: a surface
+    is tilted where a tilt angle is nonzero or not finite, and absorbs where
+    the medium before it (material_post of s - 1) has a nonzero k entry.
+    All surfaces absorb when the k tables are being differentiated, none
+    when the system has no absorbing material (``_absorption_mask`` of the
+    JAX package).
+
+    Like ``_absorption_mask``, which reads the k values on every call, the
+    absorb flags are read on every call, not cached per system: they share
+    the tilt check's host read, which the tilt values (optimization
+    variables) need on every call anyway, so they add no sync, and a cache
+    would have to notice a k table replaced or changed in place."""
+    st, cfg = system.stack, system.cfg
+    S = cfg.num_surfaces
+    tilt = (torch.stack([st.rx, st.ry, st.rz]).detach() != 0).any(dim=0)
+    kt = st.ktab
+    traced = kt.requires_grad and torch.is_grad_enabled()
+    if cfg.has_absorption and not traced and kt.shape[1] > 0:
+        mat = (kt[..., 1].detach() != 0).any(dim=1)
+    else:
+        mat = torch.full_like(tilt, bool(cfg.has_absorption))
+    vals = torch.cat([tilt, mat]).tolist()  # the one host read
+    tilted, mat = vals[:S], vals[S:]
+    absorbs = (False,) + tuple(bool(m) for m in mat[: S - 1])
+    return tilted, absorbs
+
+
+def fast_spec(system, field=False):
+    """The kernels' static spec (geometry codes, reflective flags, absorb
+    flags) when they cover this system, else None. ``field`` asks for the
+    field kernels, which also need an infinite-conjugate angle field.
+    Coverage is that of the merit kernels: PLANE and STANDARD surfaces, no
+    tilts, aperture objects, interactions, coatings, BSDFs or polarization
+    (the other families are kernel K6, a later slice)."""
+    cfg = system.cfg
+    if not covered(cfg, field):
+        return None
+    tilted, absorbs = _masks(system)
+    if any(tilted):
+        return None
+    return tuple(cfg.geom_codes), tuple(cfg.reflective), absorbs
+
+
+def fast_supported(system, field=False) -> bool:
+    """True when ``trace_fast`` (or, with ``field``, ``trace_fast_field``)
+    covers this system (counterpart of ``pallas_supported`` and
+    ``pallas_field_supported``, limited to what the port's kernels cover)."""
+    return fast_spec(system, field) is not None
+
+
+# ---------------------------------------------------------------------------
+# Plain versions
+# ---------------------------------------------------------------------------
+
+
+def _chain_plain(params, spec, st, keep=False):
+    """Final state of the full chain; with ``keep`` also the per-surface
+    input states and n_pre that the adjoint replays."""
+    codes, refl, absorbs = spec
+    n_pre = params[0, P_NPOST]
+    states = []
+    for s in range(1, len(codes)):
+        if keep:
+            states.append((st, n_pre))
+        st, n_pre = step_plain(codes[s], refl[s], params[s], n_pre, st,
+                               absorbs[s])
+    return (st, states) if keep else st
+
+
+def _field_launch(aim, Px, Py):
+    return launch_from_pupil(aim, Px, Py) + (torch.ones_like(Px),
+                                              torch.zeros_like(Px))
+
+
+def trace_fast_plain(params, spec, rays):
+    """Plain version of the trace_fwd kernel: the 8 final arrays of the 8
+    launch arrays ``rays``."""
+    return _chain_plain(params, spec, tuple(rays))
+
+
+def trace_fast_field_plain(params, aim, spec, Px, Py):
+    """Plain version of the trace_field_fwd kernel."""
+    return _chain_plain(params, spec, _field_launch(aim, Px, Py))
+
+
+def _sweep_plain(params, spec, st0, cots):
+    """The hand-derived reverse sweep from the 8 output cotangents: returns
+    the 8 per-ray cotangents of the launch state and the (S, NUM_P) param
+    table gradient."""
+    codes, refl, absorbs = spec
+    S = len(codes)
+    with torch.no_grad():
+        _, states = _chain_plain(params, spec, st0, keep=True)
+        g = tuple(cots[:6]) + (torch.zeros_like(st0[0]),) + tuple(cots[6:])
+        dparams = params.new_zeros((S, NUM_P))
+        for s in range(S - 1, 0, -1):
+            st, n_pre = states[s - 1]
+            g_in, g_npre, cols = step_adjoint_plain(
+                codes[s], refl[s], params[s], n_pre, st, g, absorbs[s]
+            )
+            for col, v in zip(FULL_GRAD_COLS, cols):
+                dparams[s, col] = v.sum()
+            g = g_in[:6] + (g_npre,) + g_in[6:]
+        # n_pre of surface 1 is the object row's n_post
+        dparams[0, P_NPOST] = g[6].sum()
+    return g[:6] + g[7:], dparams
+
+
+def trace_fast_bwd_plain(params, spec, nc, rays, cots):
+    """Plain version of the trace_bwd kernel: (the 8 per-ray input
+    cotangents, the flat gradient in the layout (S * NUM_P params, S * nc
+    coeffs))."""
+    din, dparams = _sweep_plain(params, spec, tuple(rays), cots)
+    dcoeffs = params.new_zeros(len(spec[0]) * nc)
+    return din, torch.cat([dparams.reshape(-1), dcoeffs])
+
+
+def trace_fast_field_bwd_plain(params, aim, spec, nc, Px, Py, cots):
+    """Plain version of the trace_field_bwd kernel: the flat gradient in the
+    layout (S * NUM_P params, S * nc coeffs, N_AIM aim). The pupil samples
+    get no cotangent."""
+    din, dparams = _sweep_plain(params, spec, _field_launch(aim, Px, Py),
+                                cots)
+    gx, gy, gz, gL, gM, gN = din[:6]
+    with torch.no_grad():
+        daim = torch.stack([
+            gx.sum(), gy.sum(), gz.sum(), gL.sum(), gM.sum(), gN.sum(),
+            (gx * Px).sum(), (gy * Py).sum(),
+        ])
+    dcoeffs = params.new_zeros(len(spec[0]) * nc)
+    return torch.cat([dparams.reshape(-1), dcoeffs, daim])
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+def _empty8(like):
+    return [torch.empty_like(like) for _ in range(8)]
+
+
+def _bwd_blocks(R):
+    return max(1, min(-(-R // BWD_BLOCK), BWD_MAX_BLOCKS))
+
+
+def trace_fwd(params, spec, rays):
+    """The 8 final arrays of the 8 launch arrays ``rays``: the trace_fwd
+    kernel on a CUDA device, its plain version on the CPU."""
+    if device_of(params.device, "trace_fwd") == "cpu":
+        return trace_fast_plain(params, spec, rays)
+    from optiland_torch.ops import _cuda
+
+    rays = tuple(rays)
+    check_cuda_inputs(params, spec, rays)
+    out = _empty8(rays[0])
+    with torch.cuda.device(params.device):
+        rc = _cuda.call(
+            "trace_fwd", params.dtype, params.data_ptr(),
+            flags(spec, params.device).data_ptr(), len(spec[0]),
+            _cuda.pointers(rays), rays[0].shape[0], _cuda.pointers(out),
+            _cuda.stream(),
+        )
+    _cuda.check(rc, "trace_fwd")
+    LAUNCHES["trace_fwd"] += 1
+    return tuple(out)
+
+
+def trace_bwd(params, spec, nc, rays, cots):
+    """(8 per-ray input cotangents, flat (S * NUM_P + S * nc) gradient) for
+    the 8 output cotangents ``cots``: the trace_bwd kernel and its
+    fixed-order reduction on a CUDA device, the plain version on the CPU."""
+    if device_of(params.device, "trace_bwd") == "cpu":
+        return trace_fast_bwd_plain(params, spec, nc, rays, cots)
+    from optiland_torch.ops import _cuda
+
+    rays, cots = tuple(rays), tuple(cots)
+    check_cuda_inputs(params, spec, rays + cots)
+    S, R = len(spec[0]), rays[0].shape[0]
+    nb = _bwd_blocks(R)
+    din = _empty8(rays[0])
+    partial = params.new_empty((nb, S * len(FULL_GRAD_COLS)))
+    out = params.new_zeros(S * (NUM_P + nc))
+    with torch.cuda.device(params.device):
+        rc = _cuda.call(
+            "trace_bwd", params.dtype, params.data_ptr(),
+            flags(spec, params.device).data_ptr(), S, nc,
+            _cuda.pointers(rays), _cuda.pointers(cots), R,
+            _cuda.pointers(din), partial.data_ptr(), nb, out.data_ptr(),
+            _cuda.stream(),
+        )
+    _cuda.check(rc, "trace_bwd")
+    LAUNCHES["trace_bwd"] += 1
+    return tuple(din), out
+
+
+def trace_field_fwd(params, aim, spec, Px, Py):
+    """The 8 final arrays of the rays launched from the pupil samples: the
+    trace_field_fwd kernel on a CUDA device, its plain version on the
+    CPU."""
+    if device_of(params.device, "trace_field_fwd") == "cpu":
+        return trace_fast_field_plain(params, aim, spec, Px, Py)
+    from optiland_torch.ops import _cuda
+
+    check_cuda_inputs(params, spec, (Px, Py), aim)
+    out = _empty8(Px)
+    with torch.cuda.device(params.device):
+        rc = _cuda.call(
+            "trace_field_fwd", params.dtype, params.data_ptr(),
+            aim.data_ptr(), flags(spec, params.device).data_ptr(),
+            len(spec[0]), Px.data_ptr(), Py.data_ptr(), Px.shape[0],
+            _cuda.pointers(out), _cuda.stream(),
+        )
+    _cuda.check(rc, "trace_field_fwd")
+    LAUNCHES["trace_field_fwd"] += 1
+    return tuple(out)
+
+
+def trace_field_bwd(params, aim, spec, nc, Px, Py, cots):
+    """Flat (S * NUM_P + S * nc + N_AIM) gradient for the 8 output
+    cotangents ``cots``: the trace_field_bwd kernel and its fixed-order
+    reduction on a CUDA device, the plain version on the CPU."""
+    if device_of(params.device, "trace_field_bwd") == "cpu":
+        return trace_fast_field_bwd_plain(params, aim, spec, nc, Px, Py, cots)
+    from optiland_torch.ops import _cuda
+
+    cots = tuple(cots)
+    check_cuda_inputs(params, spec, (Px, Py) + cots, aim)
+    S, R = len(spec[0]), Px.shape[0]
+    nb = _bwd_blocks(R)
+    partial = params.new_empty((nb, S * len(FULL_GRAD_COLS) + N_AIM))
+    out = params.new_zeros(S * (NUM_P + nc) + N_AIM)
+    with torch.cuda.device(params.device):
+        rc = _cuda.call(
+            "trace_field_bwd", params.dtype, params.data_ptr(),
+            aim.data_ptr(), flags(spec, params.device).data_ptr(), S, nc,
+            Px.data_ptr(), Py.data_ptr(), _cuda.pointers(cots), R,
+            partial.data_ptr(), nb, out.data_ptr(), _cuda.stream(),
+        )
+    _cuda.check(rc, "trace_field_bwd")
+    LAUNCHES["trace_field_bwd"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# autograd Functions and public entries
+# ---------------------------------------------------------------------------
+
+
+def _split(flat, S, nc):
+    dparams = flat[: S * NUM_P].reshape(S, NUM_P)
+    dcoeffs = flat[S * NUM_P : S * (NUM_P + nc)].reshape(S, nc)
+    return dparams, dcoeffs, flat[S * (NUM_P + nc) :]
+
+
+class _TraceFast(torch.autograd.Function):
+    """8 launch arrays -> 8 final arrays; backward = trace_bwd."""
+
+    @staticmethod
+    def forward(ctx, params, coeffs, spec, *rays):
+        out = trace_fwd(params, spec, rays)
+        ctx.save_for_backward(params, *rays)
+        ctx.spec, ctx.nc = spec, coeffs.shape[1]
+        return out
+
+    @staticmethod
+    def backward(ctx, *g):
+        params, *rays = ctx.saved_tensors
+        cots = [c.contiguous() for c in g]
+        din, flat = trace_bwd(params, ctx.spec, ctx.nc, rays, cots)
+        dparams, dcoeffs, _ = _split(flat, len(ctx.spec[0]), ctx.nc)
+        return (dparams, dcoeffs, None) + tuple(din)
+
+
+class _TraceFastField(torch.autograd.Function):
+    """Pupil samples -> 8 final arrays; backward = trace_field_bwd (the
+    samples get no gradient, as in the JAX package)."""
+
+    @staticmethod
+    def forward(ctx, params, coeffs, aim, Px, Py, spec):
+        out = trace_field_fwd(params, aim, spec, Px, Py)
+        ctx.save_for_backward(params, aim, Px, Py)
+        ctx.spec, ctx.nc = spec, coeffs.shape[1]
+        return out
+
+    @staticmethod
+    def backward(ctx, *g):
+        params, aim, Px, Py = ctx.saved_tensors
+        cots = [c.contiguous() for c in g]
+        flat = trace_field_bwd(params, aim, ctx.spec, ctx.nc, Px, Py, cots)
+        dparams, dcoeffs, daim = _split(flat, len(ctx.spec[0]), ctx.nc)
+        return dparams, dcoeffs, daim, None, None, None
+
+
+def _coeffs(system, dtype):
+    coeffs = system.stack.coeffs
+    if coeffs.shape[1] == 0:
+        coeffs = coeffs.new_zeros((coeffs.shape[0], 1))
+    return coeffs.to(dtype)
+
+
+def trace_fast(system, rays, wavelength):
+    """Fused trace of a ray bundle, monochromatic: the final state only.
+
+    Equivalent to ``core.trace.trace(..., record=False)`` for systems that
+    ``fast_supported`` covers; its gradient runs the hand-derived adjoint.
+    The bundle's dtype and device decide where it runs: the kernels on a
+    CUDA device, their plain versions on the CPU."""
+    spec = fast_spec(system)
+    if spec is None:
+        raise unsupported("trace_fast")
+    dt = rays.x.dtype
+    params = build_param_table(system, wavelength).to(dt)
+    ray_in = [getattr(rays, k).to(dt).contiguous() for k in RAY_FIELDS]
+    x, y, z, L, M, N, i, opd = _TraceFast.apply(
+        params, _coeffs(system, dt), spec, *ray_in
+    )
+    return RealRays(x=x, y=y, z=z, L=L, M=M, N=N, i=i, w=rays.w, opd=opd)
+
+
+def trace_fast_field(system, Hx, Hy, Px, Py, wavelength):
+    """Fused generate+trace for one (Hx, Hy) field of an infinite-conjugate
+    angle-field system: equivalent to ``generate_rays`` followed by
+    ``trace_fast``, with each ray launched from its pupil sample and the
+    8-scalar aim vector. The dtype is Px's when it is a tensor, else the
+    stack's; the device is the stack's."""
+    spec = fast_spec(system, field=True)
+    if spec is None:
+        raise unsupported("trace_fast_field")
+    params = build_param_table(system, wavelength)
+    aim = aim_vector(system, Hx, Hy)
+    dt = Px.dtype if torch.is_tensor(Px) else params.dtype
+    params, aim = params.to(dt), aim.to(dt)
+    Px = torch.as_tensor(Px, dtype=dt, device=params.device).contiguous()
+    Py = torch.as_tensor(Py, dtype=dt, device=params.device).contiguous()
+    x, y, z, L, M, N, i, opd = _TraceFastField.apply(
+        params, _coeffs(system, dt), aim, Px, Py, spec
+    )
+    w = torch.zeros_like(x) + scalar_like(wavelength, x)
+    return RealRays(x=x, y=y, z=z, L=L, M=M, N=N, i=i, w=w, opd=opd)

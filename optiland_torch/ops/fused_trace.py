@@ -40,37 +40,21 @@ import numpy as np
 import torch
 
 from optiland_torch import config
-from optiland_torch.core import geometry as geom
 from optiland_torch.core import paraxial, raygen
 from optiland_torch.core.system import (
     k_all, n_all, positions, scalar_like, static_tensor,
 )
-
-# param table columns (the JAX package's layout)
-(
-    P_RADIUS, P_CONIC, P_POS, P_NPOST, P_APMAX, P_KPRE,
-    P_DX, P_DY, P_RX, P_RY, P_RZ, P_G1, P_G2, P_APMIN,
-    P_MLAM,  # m * wavelength for grating surfaces (0 elsewhere)
-) = range(15)
-NUM_P = 15
-
-N_AIM = 8
-A_X0, A_Y0, A_Z0, A_L, A_M, A_N, A_SX, A_SY = range(N_AIM)
-
-# Columns of the param table that the merit's gradient reaches, in the
-# order the backward kernel accumulates them per surface. The tilt columns
-# carry the derivative at zero tilt (the kernels trace untilted systems).
-GRAD_COLS = (P_RADIUS, P_CONIC, P_POS, P_NPOST, P_DX, P_DY, P_RX, P_RY, P_RZ)
+from optiland_torch.ops.launch import (
+    BWD_BLOCK, BWD_MAX_BLOCKS, FWD_BLOCK, N_AIM, check_cuda_inputs, check_dtype,
+    covered, device_of, flags, launch_from_pupil, unsupported,
+)
+from optiland_torch.ops.step import (
+    GRAD_COLS, NUM_P, P_NPOST, step_adjoint_plain, step_plain,
+)
 
 # Unit of ``sub_offset``: the JAX package's PRNG sub-block (32 x 128 rays),
 # so a shard's offset means the same rays in both packages.
 SUB_RAYS = 4096
-
-# Launch shapes of the kernels (csrc/fused_trace.cu holds the same values).
-FWD_BLOCK = 256  # rays per block, one Chan row each
-BWD_BLOCK = 128
-BWD_MAX_BLOCKS = 1056  # fixed grid of the backward's grid-stride loop
-MAX_SURF = 16  # bound of the backward's per-ray surface-state array
 
 # Launch counts of the three kernels; each wrapper adds one where it
 # launches its kernel and nowhere else (merit_bwd counts its partial-row
@@ -107,31 +91,11 @@ def _spec_of(system):
 
 
 def fused_supported(system) -> bool:
-    """True when the fused merit kernels cover this system: PLANE and
-    STANDARD surfaces, no tilts, no aperture objects, interactions,
-    coatings, BSDFs or polarization, an infinite-conjugate angle field, and
-    at most MAX_SURF surfaces. The other families (tilts, Newton-sag
-    geometries, gratings, annular apertures, NURBS) are kernel K6, ported in
-    a later slice."""
-    cfg = system.cfg
-
-    def all_none(vals):
-        return vals is None or all(v is None for v in vals)
-
-    return (
-        all(c in geom.SUPPORTED_CODES for c in cfg.geom_codes)
-        and not any(_tilt_mask(system))
-        and all_none(cfg.apertures)
-        and all_none(cfg.interactions)
-        and all_none(cfg.coatings)
-        and all_none(cfg.bsdfs)
-        and all_none(cfg.geom_aux)
-        and not cfg.polarized
-        and cfg.field_type == "angle"
-        and bool(cfg.obj_infinite)
-        and not cfg.obj_telecentric
-        and cfg.num_surfaces <= MAX_SURF
-    )
+    """True when the fused merit kernels cover this system: what
+    ``launch.covered`` lists, and no tilts. The other families (tilts,
+    Newton-sag geometries, gratings, annular apertures, NURBS) are kernel
+    K6, ported in a later slice."""
+    return covered(system.cfg) and not any(_tilt_mask(system))
 
 
 # ---------------------------------------------------------------------------
@@ -207,16 +171,6 @@ def aim_vector(system, Hx, Hy):
     M = torch.where(bad, 0.0, -y00 / mag)
     N = torch.where(bad, 1.0, dz / mag)
     return torch.stack([x00, y00, z0, L, M, N, epd / 2 * vx, epd / 2 * vy])
-
-
-def _launch_from_pupil(aim, Px, Py):
-    x = Px * aim[A_SX] + aim[A_X0]
-    y = Py * aim[A_SY] + aim[A_Y0]
-    z = torch.zeros_like(Px) + aim[A_Z0]
-    L = torch.zeros_like(Px) + aim[A_L]
-    M = torch.zeros_like(Px) + aim[A_M]
-    N = torch.zeros_like(Px) + aim[A_N]
-    return x, y, z, L, M, N
 
 
 def _chan_combine(s, R):
@@ -300,11 +254,6 @@ def prng_disk_plain(seed, num_rays, offset=0, dtype=torch.float64,
     return (px, py, u1, u2) if with_u else (px, py)
 
 
-def _check_dtype(dtype):
-    if dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"the fused kernels take float32 or float64, not {dtype}")
-
-
 def prng_disk(seed, num_rays, offset=0, dtype=torch.float64, device="cuda",
               with_u=False):
     """Unit-disk pupil samples of rays offset .. offset + num_rays - 1.
@@ -312,11 +261,9 @@ def prng_disk(seed, num_rays, offset=0, dtype=torch.float64, device="cuda",
     On a CUDA device the prng_disk kernel writes them; on the CPU the plain
     version does. With ``with_u`` the raw uniforms (u1, u2) come too."""
     device = torch.device(device)
-    _check_dtype(dtype)
-    if device.type == "cpu":
+    check_dtype(dtype)
+    if device_of(device, "prng_disk") == "cpu":
         return prng_disk_plain(seed, num_rays, offset, dtype, device, with_u)
-    if device.type != "cuda":
-        raise ValueError(f"prng_disk runs on 'cuda' or 'cpu', not {device}")
     from optiland_torch.ops import _cuda
 
     R = int(num_rays)
@@ -355,91 +302,17 @@ def prng_pupil_samples(seed, num_rays, tile=None, sub_offset=0, *,
 # ---------------------------------------------------------------------------
 
 
-def _rotate_x(y, z, M, N, rx):
-    c, s = torch.cos(rx), torch.sin(rx)
-    return y * c - z * s, y * s + z * c, M * c - N * s, M * s + N * c
-
-
-def _rotate_y(x, z, L, N, ry):
-    c, s = torch.cos(ry), torch.sin(ry)
-    return x * c + z * s, -x * s + z * c, L * c + N * s, -L * s + N * c
-
-
-def _rotate_z(x, y, L, M, rz):
-    c, s = torch.cos(rz), torch.sin(rz)
-    return x * c - y * s, x * s + y * c, L * c - M * s, L * s + M * c
-
-
-def _rot_local(x, y, z, L, M, N, rx, ry, rz):
-    """Localize rotation R_x(-rx) R_y(-ry) R_z(-rz) of positions and
-    directions (the JAX package's order)."""
-    x, y, L, M = _rotate_z(x, y, L, M, -rz)
-    x, z, L, N = _rotate_y(x, z, L, N, -ry)
-    y, z, M, N = _rotate_x(y, z, M, N, -rx)
-    return x, y, z, L, M, N
-
-
-def _rot_global(x, y, z, L, M, N, rx, ry, rz):
-    y, z, M, N = _rotate_x(y, z, M, N, rx)
-    x, z, L, N = _rotate_y(x, z, L, N, ry)
-    x, y, L, M = _rotate_z(x, y, L, M, rz)
-    return x, y, z, L, M, N
-
-
-def _step_plain(code, refl, p, n_pre, st):
-    """One surface step on per-ray tensors (the PLANE/STANDARD branch of the
-    JAX package's ``_step_tile`` without intensity, OPD and clip).
-
-    The tilt rotations run as in the JAX package under ``jax.grad``, where
-    traced tilts keep the rotation code: at the zero tilts that the kernels
-    take they are exact identities, and autograd through them gives the
-    tilt derivatives that the hand adjoint reproduces."""
-    x, y, z, L, M, N = st
-    radius, conic, pos = p[P_RADIUS], p[P_CONIC], p[P_POS]
-    rot = (p[P_RX], p[P_RY], p[P_RZ])
-    x = x - p[P_DX]
-    y = y - p[P_DY]
-    zl = z - pos
-    x, y, zl, L, M, N = _rot_local(x, y, zl, L, M, N, *rot)
-    t = geom.distance_static(code, radius, conic, x, y, zl, L, M, N)
-    x = x + t * L
-    y = y + t * M
-    zl = zl + t * N
-    nx, ny, nz = geom.surface_normal_static(code, radius, conic, None, x, y)
-    dot = L * nx + M * ny + N * nz
-    sgn = torch.sign(dot)
-    nx, ny, nz = nx * sgn, ny * sgn, nz * sgn
-    adot = torch.abs(dot)
-    if refl:
-        L = L - 2 * adot * nx
-        M = M - 2 * adot * ny
-        N = N - 2 * adot * nz
-        n_next = n_pre
-    else:
-        n_post = p[P_NPOST]
-        u = n_pre / n_post
-        root = torch.sqrt(1 - u * u * (1 - adot * adot))
-        L = u * L + nx * (root - u * adot)
-        M = u * M + ny * (root - u * adot)
-        N = u * N + nz * (root - u * adot)
-        n_next = n_post
-    x, y, zl, L, M, N = _rot_global(x, y, zl, L, M, N, *rot)
-    x = x + p[P_DX]
-    y = y + p[P_DY]
-    return (x, y, zl + pos, L, M, N), n_next
-
-
 def trace_xy_plain(params, aim, spec, Px, Py, keep=False):
     """Final (x, y) of every ray; with ``keep`` also the per-surface input
     states (x, y, z, L, M, N, n_pre) that the adjoint replays."""
     codes, refl = spec[0], spec[1]
-    st = _launch_from_pupil(aim, Px, Py)
+    st = launch_from_pupil(aim, Px, Py)
     n_pre = params[0, P_NPOST]
     states = []
     for s in range(1, len(codes)):
         if keep:
             states.append((st, n_pre))
-        st, n_pre = _step_plain(codes[s], refl[s], params[s], n_pre, st)
+        st, n_pre = step_plain(codes[s], refl[s], params[s], n_pre, st)
     return (st[0], st[1], states) if keep else (st[0], st[1])
 
 
@@ -470,51 +343,22 @@ def merit_fwd_plain(params, aim, spec, R, seed=0, offset=0, Px=None, Py=None,
     return torch.stack([mx, my, m2x, m2y, n], dim=1)
 
 
-def _flags(spec, device):
-    """(2S,) int32 device tensor: geometry codes, then reflective flags."""
-    return static_tensor(spec[0] + tuple(int(r) for r in spec[1]),
-                         torch.int32, device)
-
-
-def _check_cuda_inputs(params, aim, spec, Px, Py):
-    S = len(spec[0])
-    _check_dtype(params.dtype)
-    if S > MAX_SURF:
-        raise ValueError(f"the merit kernels take at most {MAX_SURF} surfaces, "
-                         f"got {S}")
-    if any(c not in geom.SUPPORTED_CODES for c in spec[0]):
-        raise NotImplementedError(
-            f"geometry codes {spec[0]}: the kernels cover PLANE and STANDARD"
-        )
-    for name, t in (("params", params), ("aim", aim), ("Px", Px), ("Py", Py)):
-        if t is None:
-            continue
-        if t.device != params.device or t.dtype != params.dtype:
-            raise ValueError(f"{name} must be {params.dtype} on {params.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if tuple(params.shape) != (S, NUM_P) or tuple(aim.shape) != (N_AIM,):
-        raise ValueError("params must be (S, NUM_P) and aim (N_AIM,)")
-
-
 def merit_fwd(params, aim, spec, R, seed=0, offset=0, Px=None, Py=None):
     """(blocks, 5) per-block Chan rows of the traced spot. PRNG mode when
     ``Px`` is None. CUDA kernel on a CUDA device, plain version on the
     CPU."""
-    if params.device.type == "cpu":
+    if device_of(params.device, "merit_fwd") == "cpu":
         return merit_fwd_plain(params, aim, spec, R, seed, offset, Px, Py)
-    if params.device.type != "cuda":
-        raise ValueError(f"merit_fwd runs on 'cuda' or 'cpu', not {params.device}")
     from optiland_torch.ops import _cuda
 
-    _check_cuda_inputs(params, aim, spec, Px, Py)
+    check_cuda_inputs(params, spec, (Px, Py), aim)
     nb = -(-R // FWD_BLOCK)
     rows = torch.empty((nb, 5), dtype=params.dtype, device=params.device)
     prng = Px is None
     with torch.cuda.device(params.device):
         rc = _cuda.call(
             "merit_fwd", params.dtype, params.data_ptr(), aim.data_ptr(),
-            _flags(spec, params.device).data_ptr(), len(spec[0]),
+            flags(spec, params.device).data_ptr(), len(spec[0]),
             None if prng else Px.data_ptr(), None if prng else Py.data_ptr(),
             int(R), int(seed) & ((1 << 64) - 1), int(offset), int(prng),
             rows.data_ptr(), _cuda.stream(),
@@ -527,208 +371,6 @@ def merit_fwd(params, aim, spec, R, seed=0, offset=0, Px=None, Py=None):
 # ---------------------------------------------------------------------------
 # merit_bwd: hand-derived adjoint of the traced merit (ports K3)
 # ---------------------------------------------------------------------------
-
-
-def _step_adjoint_plain(code, refl, p, n_pre, st, g):
-    """Reverse sweep through one surface step.
-
-    ``st`` is the step's input state (x, y, z, L, M, N), ``g`` the
-    cotangents of its outputs (x, y, z, L, M, N, n_next). Returns the
-    cotangents of the inputs, of n_pre, and of the nine param columns
-    GRAD_COLS = (radius, conic, pos, n_post, dx, dy, rx, ry, rz), all per
-    ray; the tilt cotangents are those at zero tilt, where each rotation
-    contributes its generator. The CUDA kernel's reverse step is a
-    line-by-line transcription of this one."""
-    x, y, z, L, M, N = st
-    gx, gy, gz, gL_o, gM_o, gN_o, g_nn = g
-    R, k, pos = p[P_RADIUS], p[P_CONIC], p[P_POS]
-    dx, dy, npost = p[P_DX], p[P_DY], p[P_NPOST]
-    std = code == geom.STANDARD
-
-    # ---- recompute the forward intermediates ----
-    xl = x - dx
-    yl = y - dy
-    zl = z - pos
-    if std:
-        cu = 1.0 / R
-        A = k * N**2 + L**2 + M**2 + N**2
-        a = cu * A
-        Bq = k * N * zl + L * xl + M * yl + N * zl
-        b = 2 * (cu * Bq - N)
-        Cq = k * zl**2 + xl**2 + yl**2 + zl**2
-        c = cu * Cq - 2 * zl
-        d = b**2 - 4 * a * c
-        sqrt_d = torch.sqrt(torch.clamp(d, min=0.0))
-        sqrt_d = torch.where(d < 0, float("nan"), sqrt_d)
-        sg = torch.where(b >= 0, 1.0, -1.0).to(b.dtype)
-        q = -0.5 * (b + sg * sqrt_d)
-        a0 = a == 0
-        q0 = q == 0
-        t1 = torch.where(a0, float("inf"), q / torch.where(a0, 1.0, a))
-        t2 = torch.where(q0, 0.0, c / torch.where(q0, 1.0, q))
-        use1 = torch.abs(zl + t1 * N) <= torch.abs(zl + t2 * N)
-        t = torch.where(use1, t1, t2)
-    else:
-        big = torch.abs(N) > 1e-14
-        Ns = torch.where(big, N, 1e-14)
-        t = -zl / Ns
-    x1 = xl + t * L
-    y1 = yl + t * M
-    if std:
-        r2 = x1**2 + y1**2
-        qn = 1 - (1 + k) * cu**2 * r2
-        rq = torch.rsqrt(qn)
-        invd = cu * rq
-        fx = x1 * invd
-        fy = y1 * invd
-        im = torch.rsqrt(fx**2 + fy**2 + 1)
-        nx, ny, nz = fx * im, fy * im, -im
-    else:
-        nx, ny, nz = geom._normal_plane(x1)
-    dot = L * nx + M * ny + N * nz
-    sgn = torch.sign(dot)
-    nxs, nys, nzs = nx * sgn, ny * sgn, nz * sgn
-    adot = torch.abs(dot)
-
-    # ---- globalize: x = x1 + dx, y = y1 + dy, z = z1 + pos ----
-    g_dx = gx
-    g_dy = gy
-    g_pos = gz
-    g_x1, g_y1, g_z1 = gx, gy, gz
-
-    z1 = zl + t * N
-
-    # ---- interact ----
-    if refl:
-        Lo = L - 2 * adot * nxs
-        Mo = M - 2 * adot * nys
-        No = N - 2 * adot * nzs
-        gL, gM, gN = gL_o, gM_o, gN_o
-        g_nxs = -2 * adot * gL_o
-        g_nys = -2 * adot * gM_o
-        g_nzs = -2 * adot * gN_o
-        g_adot = -2 * (nxs * gL_o + nys * gM_o + nzs * gN_o)
-        g_npre = g_nn
-        g_npost = torch.zeros_like(gx)
-    else:
-        u = n_pre / npost
-        root = torch.sqrt(1 - u * u * (1 - adot * adot))
-        w = root - u * adot
-        Lo = u * L + nxs * w
-        Mo = u * M + nys * w
-        No = u * N + nzs * w
-        gL, gM, gN = u * gL_o, u * gM_o, u * gN_o
-        g_nxs = w * gL_o
-        g_nys = w * gM_o
-        g_nzs = w * gN_o
-        g_w = nxs * gL_o + nys * gM_o + nzs * gN_o
-        g_u = L * gL_o + M * gM_o + N * gN_o - adot * g_w
-        g_adot = -u * g_w
-        g_u = g_u - g_w * u * (1 - adot * adot) / root
-        g_adot = g_adot + g_w * u * u * adot / root
-        g_npre = g_u / npost
-        g_npost = g_nn - g_u * u / npost
-    # adot = L nxs + M nys + N nzs (the sign folded into the normal)
-    gL = gL + nxs * g_adot
-    gM = gM + nys * g_adot
-    gN = gN + nzs * g_adot
-    g_nxs = g_nxs + L * g_adot
-    g_nys = g_nys + M * g_adot
-    g_nzs = g_nzs + N * g_adot
-
-    g_k = torch.zeros_like(gx)
-    g_cu = torch.zeros_like(gx)
-    # ---- normal (STANDARD; the plane normal is constant) ----
-    if std:
-        g_nx, g_ny, g_nz = sgn * g_nxs, sgn * g_nys, sgn * g_nzs
-        g_fx = g_nx * im
-        g_fy = g_ny * im
-        g_im = g_nx * fx + g_ny * fy - g_nz
-        g_mg = -0.5 * g_im * im * im * im
-        g_fx = g_fx + 2 * fx * g_mg
-        g_fy = g_fy + 2 * fy * g_mg
-        g_x1 = g_x1 + g_fx * invd
-        g_y1 = g_y1 + g_fy * invd
-        g_invd = g_fx * x1 + g_fy * y1
-        g_cu = g_cu + g_invd * rq
-        g_qn = -0.5 * g_invd * cu * rq * rq * rq
-        g_k = g_k - g_qn * cu**2 * r2
-        g_cu = g_cu - g_qn * (1 + k) * 2 * cu * r2
-        g_r2 = -g_qn * (1 + k) * cu**2
-        g_x1 = g_x1 + 2 * x1 * g_r2
-        g_y1 = g_y1 + 2 * y1 * g_r2
-
-    # ---- propagate: x1 = xl + t L, y1 = yl + t M, z1 = zl + t N ----
-    g_xl, g_yl, g_zl = g_x1, g_y1, g_z1
-    g_t = g_x1 * L + g_y1 * M + g_z1 * N
-    gL = gL + g_x1 * t
-    gM = gM + g_y1 * t
-    gN = gN + g_z1 * t
-
-    # ---- intersect ----
-    if std:
-        # t = q/a (root 1, a != 0) or c/q (root 2, q != 0); 0 otherwise
-        ok1 = use1 & ~a0
-        ok2 = ~use1 & ~q0
-        a_s = torch.where(a0, 1.0, a)
-        q_s = torch.where(q0, 1.0, q)
-        g_q = torch.where(ok1, g_t / a_s, torch.where(ok2, -g_t * t2 / q_s, 0.0))
-        g_a = torch.where(ok1, -g_t * t1 / a_s, 0.0)
-        g_c = torch.where(ok2, g_t / q_s, 0.0)
-        g_b = -0.5 * g_q
-        g_sd = -0.5 * sg * g_q
-        g_d = g_sd * 0.5 / sqrt_d
-        g_b = g_b + 2 * b * g_d
-        g_a = g_a - 4 * c * g_d
-        g_c = g_c - 4 * a * g_d
-        # a = cu A
-        g_cu = g_cu + g_a * A
-        g_A = g_a * cu
-        g_k = g_k + g_A * N**2
-        gL = gL + 2 * L * g_A
-        gM = gM + 2 * M * g_A
-        gN = gN + 2 * N * (k + 1) * g_A
-        # b = 2 (cu B - N)
-        g_cu = g_cu + 2 * g_b * Bq
-        g_B = 2 * g_b * cu
-        gN = gN - 2 * g_b
-        g_k = g_k + g_B * N * zl
-        gN = gN + g_B * (k * zl + zl)
-        g_zl = g_zl + g_B * (k * N + N)
-        gL = gL + g_B * xl
-        g_xl = g_xl + g_B * L
-        gM = gM + g_B * yl
-        g_yl = g_yl + g_B * M
-        # c = cu C - 2 zl
-        g_cu = g_cu + g_c * Cq
-        g_C = g_c * cu
-        g_zl = g_zl - 2 * g_c
-        g_k = g_k + g_C * zl**2
-        g_xl = g_xl + 2 * xl * g_C
-        g_yl = g_yl + 2 * yl * g_C
-        g_zl = g_zl + 2 * zl * (k + 1) * g_C
-        g_R = -g_cu * cu**2
-    else:
-        g_zl = g_zl - g_t / Ns
-        gN = gN + torch.where(big, g_t * zl / (Ns * Ns), 0.0)
-        g_R = torch.zeros_like(gx)
-
-    # ---- tilts at zero: localize rotates by -angle, globalize by +angle;
-    # each rotation's derivative is its generator acting on the state ----
-    g_rx = (g_yl * zl - g_zl * yl + gM * N - gN * M
-            - gy * z1 + gz * y1 - gM_o * No + gN_o * Mo)
-    g_ry = (-g_xl * zl + g_zl * xl - gL * N + gN * L
-            + gx * z1 - gz * x1 + gL_o * No - gN_o * Lo)
-    g_rz = (g_xl * yl - g_yl * xl + gL * M - gM * L
-            - gx * y1 + gy * x1 - gL_o * Mo + gM_o * Lo)
-
-    # ---- localize: xl = x - dx, yl = y - dy, zl = z - pos ----
-    g_dx = g_dx - g_xl
-    g_dy = g_dy - g_yl
-    g_pos = g_pos - g_zl
-    g_in = (g_xl, g_yl, g_zl, gL, gM, gN)
-    return g_in, g_npre, (g_R, g_k, g_pos, g_npost, g_dx, g_dy, g_rx, g_ry,
-                          g_rz)
 
 
 def merit_bwd_plain(params, aim, stats, spec, nc, R, seed=0, offset=0,
@@ -749,7 +391,7 @@ def merit_bwd_plain(params, aim, stats, spec, nc, R, seed=0, offset=0,
                               device=params.device)
         for s in range(S - 1, 0, -1):
             st, n_pre = states[s - 1]
-            g_in, g_npre, g6 = _step_adjoint_plain(
+            g_in, g_npre, g6 = step_adjoint_plain(
                 codes[s], refl[s], params[s], n_pre, st, g
             )
             for col, v in zip(GRAD_COLS, g6):
@@ -782,14 +424,12 @@ def merit_bwd(params, aim, stats, spec, nc, R, seed=0, offset=0, Px=None,
     partial row per block of ``block`` rays, then a fixed-order sum of the
     rows), plain version on the CPU, where there are no blocks."""
     block = _bwd_block(block)
-    if params.device.type == "cpu":
+    if device_of(params.device, "merit_bwd") == "cpu":
         return merit_bwd_plain(params, aim, stats, spec, nc, R, seed, offset,
                                Px, Py)
-    if params.device.type != "cuda":
-        raise ValueError(f"merit_bwd runs on 'cuda' or 'cpu', not {params.device}")
     from optiland_torch.ops import _cuda
 
-    _check_cuda_inputs(params, aim, spec, Px, Py)
+    check_cuda_inputs(params, spec, (Px, Py), aim)
     S = len(spec[0])
     stats = stats.to(dtype=params.dtype).contiguous()
     ncomp = S * len(GRAD_COLS) + N_AIM
@@ -802,7 +442,7 @@ def merit_bwd(params, aim, stats, spec, nc, R, seed=0, offset=0, Px=None,
     with torch.cuda.device(params.device):
         rc = _cuda.call(
             "merit_bwd", params.dtype, params.data_ptr(), aim.data_ptr(),
-            stats.data_ptr(), _flags(spec, params.device).data_ptr(), S, nc,
+            stats.data_ptr(), flags(spec, params.device).data_ptr(), S, nc,
             None if prng else Px.data_ptr(), None if prng else Py.data_ptr(),
             int(R), int(seed) & ((1 << 64) - 1), int(offset), int(prng),
             partial.data_ptr(), nb, int(block), out.data_ptr(), _cuda.stream(),
@@ -865,12 +505,8 @@ def spot_rms_fast_field(system, Hx, Hy, wavelength, num_rays=None, seed=0,
     closed form, so nothing reads it.
     """
     if not fused_supported(system):
-        raise NotImplementedError(
-            "spot_rms_fast_field covers PLANE/STANDARD infinite-conjugate "
-            "angle-field systems without tilts, aperture objects, "
-            "interactions, coatings or polarization; the other families "
-            "(kernel K6) come in a later slice"
-        )
+        raise unsupported("spot_rms_fast_field (an infinite-conjugate angle "
+                          "field)")
     block = _bwd_block(bwd_tile)
     spec = _spec_of(system)
     params = build_param_table(system, wavelength)

@@ -1,0 +1,338 @@
+"""The surface step shared by the op modules: the plain PyTorch version of the
+device step in ``csrc/step.cuh`` and its hand-derived adjoint.
+
+Counterpart of the PLANE/STANDARD branch of ``_step_tile`` in
+``optiland_tpu/ops/pallas_trace.py``. Two forms, chosen by the length of
+the state:
+
+  * the merit form, state (x, y, z, L, M, N): geometry only, which is all
+    the fused merit reads (``ops/fused_trace.py``);
+  * the full form, state (x, y, z, L, M, N, i, opd): also Beer-Lambert
+    absorption in the medium before the surface (where its flag is set),
+    the optical path and the circular clip on ``P_APMAX``, as the generic
+    and field traces return them (``ops/fast_trace.py``).
+
+The CUDA device step is a line-by-line transcription of these two
+functions, instantiated once per form; change them together.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from optiland_torch.core import geometry as geom
+from optiland_torch.ops import kernels
+
+# param table columns (the JAX package's layout)
+(
+    P_RADIUS, P_CONIC, P_POS, P_NPOST, P_APMAX, P_KPRE,
+    P_DX, P_DY, P_RX, P_RY, P_RZ, P_G1, P_G2, P_APMIN,
+    P_MLAM,  # m * wavelength for grating surfaces (0 elsewhere)
+) = range(15)
+NUM_P = 15
+
+# Columns of the param table that the merit's gradient reaches, in the
+# order the backward kernels accumulate them per surface. The tilt columns
+# carry the derivative at zero tilt (the kernels trace untilted systems).
+GRAD_COLS = (P_RADIUS, P_CONIC, P_POS, P_NPOST, P_DX, P_DY, P_RX, P_RY, P_RZ)
+# The full step's gradient also reaches the absorption column.
+FULL_GRAD_COLS = GRAD_COLS + (P_KPRE,)
+
+# Beer-Lambert factor exp(ABS * k_pre * t): k_pre = k / wavelength (um), t mm
+ABS = -4 * np.pi
+
+
+def _rot_local(x, y, z, L, M, N, rx, ry, rz):
+    """Localize rotation R_x(-rx) R_y(-ry) R_z(-rz) of positions and
+    directions (the JAX package's order)."""
+    x, y, L, M = kernels.rotate_z(x, y, L, M, -rz)
+    x, z, L, N = kernels.rotate_y(x, z, L, N, -ry)
+    y, z, M, N = kernels.rotate_x(y, z, M, N, -rx)
+    return x, y, z, L, M, N
+
+
+def _rot_global(x, y, z, L, M, N, rx, ry, rz):
+    y, z, M, N = kernels.rotate_x(y, z, M, N, rx)
+    x, z, L, N = kernels.rotate_y(x, z, L, N, ry)
+    x, y, L, M = kernels.rotate_z(x, y, L, M, rz)
+    return x, y, z, L, M, N
+
+
+def step_plain(code, refl, p, n_pre, st, absorbs=False):
+    """One surface step on per-ray tensors; returns (state, n_next).
+
+    ``st`` is (x, y, z, L, M, N), or (x, y, z, L, M, N, i, opd) for the full
+    step; ``absorbs`` (full step only) applies the Beer-Lambert factor of
+    ``p[P_KPRE]``. The tilt rotations run as in the JAX package under
+    ``jax.grad``, where traced tilts keep the rotation code: at the zero
+    tilts that the kernels take they are exact identities, and autograd
+    through them gives the tilt derivatives that the hand adjoint
+    reproduces."""
+    full = len(st) == 8
+    x, y, z, L, M, N = st[:6]
+    radius, conic, pos = p[P_RADIUS], p[P_CONIC], p[P_POS]
+    rot = (p[P_RX], p[P_RY], p[P_RZ])
+    x = x - p[P_DX]
+    y = y - p[P_DY]
+    zl = z - pos
+    x, y, zl, L, M, N = _rot_local(x, y, zl, L, M, N, *rot)
+    t = geom.distance_static(code, radius, conic, x, y, zl, L, M, N)
+    x = x + t * L
+    y = y + t * M
+    zl = zl + t * N
+    extra = ()
+    if full:
+        i, opd = st[6], st[7]
+        if absorbs:
+            i = i * torch.exp(ABS * p[P_KPRE] * t * 1e3)
+        opd = opd + torch.abs(t * n_pre)
+        i = torch.where(x * x + y * y > p[P_APMAX] * p[P_APMAX], 0.0, i)
+        extra = (i, opd)
+    nx, ny, nz = geom.surface_normal_static(code, radius, conic, None, x, y)
+    dot = L * nx + M * ny + N * nz
+    sgn = torch.sign(dot)
+    nx, ny, nz = nx * sgn, ny * sgn, nz * sgn
+    adot = torch.abs(dot)
+    if refl:
+        L = L - 2 * adot * nx
+        M = M - 2 * adot * ny
+        N = N - 2 * adot * nz
+        n_next = n_pre
+    else:
+        n_post = p[P_NPOST]
+        u = n_pre / n_post
+        root = torch.sqrt(1 - u * u * (1 - adot * adot))
+        L = u * L + nx * (root - u * adot)
+        M = u * M + ny * (root - u * adot)
+        N = u * N + nz * (root - u * adot)
+        n_next = n_post
+    x, y, zl, L, M, N = _rot_global(x, y, zl, L, M, N, *rot)
+    x = x + p[P_DX]
+    y = y + p[P_DY]
+    return (x, y, zl + pos, L, M, N) + extra, n_next
+
+
+def step_adjoint_plain(code, refl, p, n_pre, st, g, absorbs=False):
+    """Reverse sweep through one surface step.
+
+    ``st`` is the step's input state, ``g`` the cotangents of its outputs:
+    (x, y, z, L, M, N, n_next) for the merit step, plus (i, opd) for the
+    full one. Returns the cotangents of the input state, of n_pre, and of
+    the param columns GRAD_COLS (FULL_GRAD_COLS for the full step), all per
+    ray; the tilt cotangents are those at zero tilt, where each rotation
+    contributes its generator. The clip passes no cotangent to a clipped
+    ray's intensity, and none to the positions that decide it. The CUDA
+    kernels' reverse step is a line-by-line transcription of this one."""
+    full = len(g) == 9
+    x, y, z, L, M, N = st[:6]
+    gx, gy, gz, gL_o, gM_o, gN_o, g_nn = g[:7]
+    R, k, pos = p[P_RADIUS], p[P_CONIC], p[P_POS]
+    dx, dy, npost = p[P_DX], p[P_DY], p[P_NPOST]
+    std = code == geom.STANDARD
+
+    # ---- recompute the forward intermediates ----
+    xl = x - dx
+    yl = y - dy
+    zl = z - pos
+    if std:
+        cu = 1.0 / R
+        A = k * N**2 + L**2 + M**2 + N**2
+        a = cu * A
+        Bq = k * N * zl + L * xl + M * yl + N * zl
+        b = 2 * (cu * Bq - N)
+        Cq = k * zl**2 + xl**2 + yl**2 + zl**2
+        c = cu * Cq - 2 * zl
+        d = b**2 - 4 * a * c
+        sqrt_d = torch.sqrt(torch.clamp(d, min=0.0))
+        sqrt_d = torch.where(d < 0, float("nan"), sqrt_d)
+        sg = torch.where(b >= 0, 1.0, -1.0).to(b.dtype)
+        q = -0.5 * (b + sg * sqrt_d)
+        a0 = a == 0
+        q0 = q == 0
+        t1 = torch.where(a0, float("inf"), q / torch.where(a0, 1.0, a))
+        t2 = torch.where(q0, 0.0, c / torch.where(q0, 1.0, q))
+        use1 = torch.abs(zl + t1 * N) <= torch.abs(zl + t2 * N)
+        t = torch.where(use1, t1, t2)
+    else:
+        big = torch.abs(N) > 1e-14
+        Ns = torch.where(big, N, 1e-14)
+        t = -zl / Ns
+    x1 = xl + t * L
+    y1 = yl + t * M
+    if std:
+        r2 = x1**2 + y1**2
+        qn = 1 - (1 + k) * cu**2 * r2
+        rq = torch.rsqrt(qn)
+        invd = cu * rq
+        fx = x1 * invd
+        fy = y1 * invd
+        im = torch.rsqrt(fx**2 + fy**2 + 1)
+        nx, ny, nz = fx * im, fy * im, -im
+    else:
+        nx, ny, nz = geom._normal_plane(x1)
+    dot = L * nx + M * ny + N * nz
+    sgn = torch.sign(dot)
+    nxs, nys, nzs = nx * sgn, ny * sgn, nz * sgn
+    adot = torch.abs(dot)
+
+    # ---- globalize: x = x1 + dx, y = y1 + dy, z = z1 + pos ----
+    g_dx = gx
+    g_dy = gy
+    g_pos = gz
+    g_x1, g_y1, g_z1 = gx, gy, gz
+
+    z1 = zl + t * N
+
+    # ---- interact ----
+    if refl:
+        Lo = L - 2 * adot * nxs
+        Mo = M - 2 * adot * nys
+        No = N - 2 * adot * nzs
+        gL, gM, gN = gL_o, gM_o, gN_o
+        g_nxs = -2 * adot * gL_o
+        g_nys = -2 * adot * gM_o
+        g_nzs = -2 * adot * gN_o
+        g_adot = -2 * (nxs * gL_o + nys * gM_o + nzs * gN_o)
+        g_npre = g_nn
+        g_npost = torch.zeros_like(gx)
+    else:
+        u = n_pre / npost
+        root = torch.sqrt(1 - u * u * (1 - adot * adot))
+        w = root - u * adot
+        Lo = u * L + nxs * w
+        Mo = u * M + nys * w
+        No = u * N + nzs * w
+        gL, gM, gN = u * gL_o, u * gM_o, u * gN_o
+        g_nxs = w * gL_o
+        g_nys = w * gM_o
+        g_nzs = w * gN_o
+        g_w = nxs * gL_o + nys * gM_o + nzs * gN_o
+        g_u = L * gL_o + M * gM_o + N * gN_o - adot * g_w
+        g_adot = -u * g_w
+        g_u = g_u - g_w * u * (1 - adot * adot) / root
+        g_adot = g_adot + g_w * u * u * adot / root
+        g_npre = g_u / npost
+        g_npost = g_nn - g_u * u / npost
+    # adot = L nxs + M nys + N nzs (the sign folded into the normal)
+    gL = gL + nxs * g_adot
+    gM = gM + nys * g_adot
+    gN = gN + nzs * g_adot
+    g_nxs = g_nxs + L * g_adot
+    g_nys = g_nys + M * g_adot
+    g_nzs = g_nzs + N * g_adot
+
+    g_k = torch.zeros_like(gx)
+    g_cu = torch.zeros_like(gx)
+    # ---- normal (STANDARD; the plane normal is constant) ----
+    if std:
+        g_nx, g_ny, g_nz = sgn * g_nxs, sgn * g_nys, sgn * g_nzs
+        g_fx = g_nx * im
+        g_fy = g_ny * im
+        g_im = g_nx * fx + g_ny * fy - g_nz
+        g_mg = -0.5 * g_im * im * im * im
+        g_fx = g_fx + 2 * fx * g_mg
+        g_fy = g_fy + 2 * fy * g_mg
+        g_x1 = g_x1 + g_fx * invd
+        g_y1 = g_y1 + g_fy * invd
+        g_invd = g_fx * x1 + g_fy * y1
+        g_cu = g_cu + g_invd * rq
+        g_qn = -0.5 * g_invd * cu * rq * rq * rq
+        g_k = g_k - g_qn * cu**2 * r2
+        g_cu = g_cu - g_qn * (1 + k) * 2 * cu * r2
+        g_r2 = -g_qn * (1 + k) * cu**2
+        g_x1 = g_x1 + 2 * x1 * g_r2
+        g_y1 = g_y1 + 2 * y1 * g_r2
+
+    # ---- propagate: x1 = xl + t L, y1 = yl + t M, z1 = zl + t N ----
+    g_xl, g_yl, g_zl = g_x1, g_y1, g_z1
+    g_t = g_x1 * L + g_y1 * M + g_z1 * N
+    gL = gL + g_x1 * t
+    gM = gM + g_y1 * t
+    gN = gN + g_z1 * t
+
+    # ---- clip, absorption, OPD (full step) ----
+    if full:
+        i_in = st[6]
+        g_i, g_opd = g[7], g[8]
+        clipped = x1 * x1 + y1 * y1 > p[P_APMAX] * p[P_APMAX]
+        g_i = torch.where(clipped, 0.0, g_i)
+        g_kpre = torch.zeros_like(gx)
+        if absorbs:
+            kpre = p[P_KPRE]
+            e = torch.exp(ABS * kpre * t * 1e3)
+            g_a = g_i * i_in * e
+            g_t = g_t + g_a * (ABS * kpre * 1e3)
+            g_kpre = g_a * (ABS * t * 1e3)
+            g_i = g_i * e
+        s_tn = torch.sign(t * n_pre)
+        g_t = g_t + g_opd * s_tn * n_pre
+        g_npre = g_npre + g_opd * s_tn * t
+
+    # ---- intersect ----
+    if std:
+        # t = q/a (root 1, a != 0) or c/q (root 2, q != 0); 0 otherwise
+        ok1 = use1 & ~a0
+        ok2 = ~use1 & ~q0
+        a_s = torch.where(a0, 1.0, a)
+        q_s = torch.where(q0, 1.0, q)
+        g_q = torch.where(ok1, g_t / a_s, torch.where(ok2, -g_t * t2 / q_s, 0.0))
+        g_a = torch.where(ok1, -g_t * t1 / a_s, 0.0)
+        g_c = torch.where(ok2, g_t / q_s, 0.0)
+        g_b = -0.5 * g_q
+        g_sd = -0.5 * sg * g_q
+        g_d = g_sd * 0.5 / sqrt_d
+        g_b = g_b + 2 * b * g_d
+        g_a = g_a - 4 * c * g_d
+        g_c = g_c - 4 * a * g_d
+        # a = cu A
+        g_cu = g_cu + g_a * A
+        g_A = g_a * cu
+        g_k = g_k + g_A * N**2
+        gL = gL + 2 * L * g_A
+        gM = gM + 2 * M * g_A
+        gN = gN + 2 * N * (k + 1) * g_A
+        # b = 2 (cu B - N)
+        g_cu = g_cu + 2 * g_b * Bq
+        g_B = 2 * g_b * cu
+        gN = gN - 2 * g_b
+        g_k = g_k + g_B * N * zl
+        gN = gN + g_B * (k * zl + zl)
+        g_zl = g_zl + g_B * (k * N + N)
+        gL = gL + g_B * xl
+        g_xl = g_xl + g_B * L
+        gM = gM + g_B * yl
+        g_yl = g_yl + g_B * M
+        # c = cu C - 2 zl
+        g_cu = g_cu + g_c * Cq
+        g_C = g_c * cu
+        g_zl = g_zl - 2 * g_c
+        g_k = g_k + g_C * zl**2
+        g_xl = g_xl + 2 * xl * g_C
+        g_yl = g_yl + 2 * yl * g_C
+        g_zl = g_zl + 2 * zl * (k + 1) * g_C
+        g_R = -g_cu * cu**2
+    else:
+        g_zl = g_zl - g_t / Ns
+        gN = gN + torch.where(big, g_t * zl / (Ns * Ns), 0.0)
+        g_R = torch.zeros_like(gx)
+
+    # ---- tilts at zero: localize rotates by -angle, globalize by +angle;
+    # each rotation's derivative is its generator acting on the state ----
+    g_rx = (g_yl * zl - g_zl * yl + gM * N - gN * M
+            - gy * z1 + gz * y1 - gM_o * No + gN_o * Mo)
+    g_ry = (-g_xl * zl + g_zl * xl - gL * N + gN * L
+            + gx * z1 - gz * x1 + gL_o * No - gN_o * Lo)
+    g_rz = (g_xl * yl - g_yl * xl + gL * M - gM * L
+            - gx * y1 + gy * x1 - gL_o * Mo + gM_o * Lo)
+
+    # ---- localize: xl = x - dx, yl = y - dy, zl = z - pos ----
+    g_dx = g_dx - g_xl
+    g_dy = g_dy - g_yl
+    g_pos = g_pos - g_zl
+    g_in = (g_xl, g_yl, g_zl, gL, gM, gN)
+    cols = (g_R, g_k, g_pos, g_npost, g_dx, g_dy, g_rx, g_ry, g_rz)
+    if full:
+        g_in = g_in + (g_i, g_opd)
+        cols = cols + (g_kpre,)
+    return g_in, g_npre, cols

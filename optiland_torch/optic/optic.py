@@ -4,9 +4,11 @@ Counterpart of ``optiland_tpu/optic/optic.py`` (a subset): ``SurfaceDef``,
 ``SurfaceGroup.add`` for the "standard" and "plane" surface types, the field,
 wavelength and aperture groups, and ``Optic`` with ``set_aperture``,
 ``system`` (compiled on the configured device and dtype, cached,
-invalidated on mutation) and a ``paraxial`` view with ``f2``. Pickups,
-solves, coatings, coordinate systems, the other surface types and ``trace``
-come in later slices and raise here.
+invalidated on mutation), a ``paraxial`` view with ``f2``, and the real-ray
+entry points ``trace`` and ``trace_generic`` with their ``TraceResult``.
+Pickups, solves, coatings, coordinate systems, ray aimers other than the
+paraxial one and the other surface types come in later slices and raise
+here.
 """
 
 from __future__ import annotations
@@ -20,6 +22,9 @@ import torch
 from optiland_torch import config
 from optiland_torch.core import geometry as geom
 from optiland_torch.core import paraxial as paraxial_core
+from optiland_torch.core import raygen
+from optiland_torch.core import trace as trace_core
+from optiland_torch.core.distributions import create_distribution
 from optiland_torch.core.system import SurfaceStack, System, SystemConfig
 from optiland_torch.materials import AIR, BaseMaterial, resolve_material
 
@@ -183,6 +188,10 @@ class WavelengthGroup:
     def get_wavelengths(self):
         return [w.value for w in self.wavelengths]
 
+    @property
+    def primary_wavelength(self) -> float:
+        return self.wavelengths[self.primary_index].value
+
 
 class Aperture:
     def __init__(self, ap_type: str, value: float):
@@ -199,6 +208,32 @@ class ParaxialView:
     def f2(self):
         """Back (effective) focal length."""
         return paraxial_core.f2(self._optic.system)
+
+
+class TraceResult:
+    """Traced rays and, when recorded, the per-surface history: ``x`` ..
+    ``opd``, ``w``, ``i`` (also ``intensity``), ``rays`` and ``history``
+    (a dict of (S, R) tensors, or None)."""
+
+    def __init__(self, final, history):
+        self.rays = final
+        self.history = history
+        for name in ("x", "y", "z", "L", "M", "N", "opd", "w"):
+            setattr(self, name, getattr(final, name))
+        self.i = final.i
+        self.intensity = final.i
+
+    def __repr__(self):
+        return f"TraceResult({self.x.shape[0]} rays)"
+
+
+def _concrete_wavelength(wavelength):
+    """float(wavelength) for a number or a one-element tensor that needs no
+    gradient; the tensor itself otherwise, which keeps the trace
+    differentiable with respect to it (and off the fused kernels)."""
+    if torch.is_tensor(wavelength) and wavelength.requires_grad:
+        return wavelength
+    return float(wavelength)
 
 
 class Optic:
@@ -338,5 +373,56 @@ class Optic:
             cfg=cfg,
         )
 
-    def trace(self, *args, **kwargs):
-        raise _later("Optic.trace (the reference trace, ROADMAP Queue 1 item 3)")
+    @property
+    def primary_wavelength(self) -> float:
+        return self.wavelengths.primary_wavelength
+
+    def _run_trace(self, Hx, Hy, Px, Py, wavelength, record):
+        system = self.system
+        like = system.stack.radius
+        Hx, Hy, Px, Py = (torch.as_tensor(v, dtype=like.dtype, device=like.device)
+                          for v in (Hx, Hy, Px, Py))
+        rays = raygen.generate_rays(system, Hx, Hy, Px, Py, wavelength)
+        # a concrete wavelength lets record=False traces run on the fused
+        # kernels on a CUDA device
+        final, history = trace_core.trace(system, rays, record=record,
+                                          wavelength=wavelength)
+        return TraceResult(final, history)
+
+    def trace(self, Hx=0.0, Hy=0.0, wavelength=None, num_rays: int = 100,
+              distribution="hexapolar", record: bool = True) -> TraceResult:
+        """Trace a pupil distribution of real rays for one or more fields.
+
+        ``num_rays`` is passed to the distribution's ``generate_points``
+        (for ``hexapolar``, the number of rings). Several fields repeat the
+        pupil pattern once per field."""
+        if wavelength is None:
+            wavelength = self.primary_wavelength
+        wavelength = _concrete_wavelength(wavelength)
+        if isinstance(distribution, str):
+            distribution = create_distribution(distribution)
+            distribution.generate_points(num_rays)
+        Px = np.atleast_1d(np.asarray(distribution.x, float))
+        Py = np.atleast_1d(np.asarray(distribution.y, float))
+        Hx = np.atleast_1d(np.asarray(Hx, float))
+        Hy = np.atleast_1d(np.asarray(Hy, float))
+        if len(Hx) > 1 or len(Hy) > 1:
+            nf, npup = len(Hx), len(Px)
+            Hx, Hy = np.repeat(Hx, npup), np.repeat(Hy, npup)
+            Px, Py = np.tile(Px, nf), np.tile(Py, nf)
+        # one field broadcasts against the pupil: the same values as
+        # repeating it per ray, computed once
+        return self._run_trace(Hx, Hy, Px, Py, wavelength, record)
+
+    def trace_generic(self, Hx, Hy, Px, Py, wavelength,
+                      record: bool = True) -> TraceResult:
+        """Trace rays at explicit field/pupil coordinates (broadcast against
+        each other)."""
+        Hx, Hy, Px, Py = np.broadcast_arrays(
+            np.atleast_1d(np.asarray(Hx, float)),
+            np.atleast_1d(np.asarray(Hy, float)),
+            np.atleast_1d(np.asarray(Px, float)),
+            np.atleast_1d(np.asarray(Py, float)),
+        )
+        return self._run_trace(Hx, Hy, Px, Py,
+                               _concrete_wavelength(wavelength), record)

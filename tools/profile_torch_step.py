@@ -1,15 +1,25 @@
 #!/usr/bin/env python3
 """Where the time of one optiland_torch optimizer step goes, on a CUDA card.
 
-The step is the main path of ``chip_smoke.py``: the value and gradient of
-``spot_rms_fast_field`` for the Cooke triplet (float32, in-kernel PRNG
-pupil, field (0, 0.7), 0.55 um) with respect to the inner radii. This
-script reports, for that step:
+The step is one of the paths of ``chip_smoke.py``, chosen by ``--path``:
+the value and gradient, with respect to the inner radii of the Cooke
+triplet (float32, field (0, 0.7), 0.55 um), of
+
+  * ``merit`` (the default): ``spot_rms_fast_field``, in-kernel PRNG pupil;
+  * ``generic``: ``analysis.spot.rms_spot_size`` (generate_rays, then the
+    trace on the trace_fwd/trace_bwd kernels), pupil samples from
+    ``prng_disk``;
+  * ``field``: the mean squared spot radius of ``trace_fast_field`` (the
+    trace_field_fwd/trace_field_bwd kernels), pupil samples from
+    ``prng_disk``.
+
+This script reports, for that step:
 
   * the median wall time of the step (CUDA events, as in chip_smoke.py);
   * the same step split into its parts with a synchronize after each
-    (the param table and aim vector alone, the whole forward, the
-    backward), host clock;
+    (the launch side alone: the param table and aim vector, or for the
+    generic path generate_rays; the whole forward; the backward), host
+    clock;
   * from ``torch.profiler`` over a few steps: the device time per step
     summed over all kernels, the device idle share of the step, the number
     of kernel launches, host syncs (``cudaStreamSynchronize``) and memcpy
@@ -17,13 +27,14 @@ script reports, for that step:
 
 Run on the card from the repository root:
 
-    python3 tools/profile_torch_step.py [--log2 24] [--steps 10]
+    python3 tools/profile_torch_step.py [--path merit] [--log2 24] [--steps 10]
 
 ``--root DIR`` profiles the optiland_torch of another checkout instead
 (for instance the parent commit unpacked with ``git archive``), so two
 versions can be compared in one run. It prints one JSON line last and
 writes a Chrome trace to ``chiprun_out/profile_torch_step.json`` (with
-``-<basename of DIR>`` before ``.json`` for another checkout).
+``-<path>`` for another path than the merit, and ``-<basename of DIR>``
+for another checkout, before ``.json``).
 """
 
 from __future__ import annotations
@@ -42,6 +53,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--path", choices=("merit", "generic", "field"),
+                    default="merit", help="which step is profiled")
     ap.add_argument("--log2", type=int, default=24, help="log2 of the rays")
     ap.add_argument("--steps", type=int, default=10, help="profiled steps")
     ap.add_argument("--root", default=ROOT,
@@ -59,6 +72,11 @@ def main(argv=None):
     from optiland_torch import config
     from optiland_torch.ops import fused_trace as ft
     from optiland_torch.samples import CookeTriplet
+
+    if args.path != "merit":
+        from optiland_torch.analysis import rms_spot_size
+        from optiland_torch.core import raygen
+        from optiland_torch.ops import fast_trace as ftr
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -80,10 +98,27 @@ def main(argv=None):
                                       stack.radius[-1:]])
         return base.replace(stack=stack.replace(**leaves))
 
+    def pupil(i):
+        return ft.prng_disk(i, R, 0, torch.float32, "cuda")
+
+    def launch_side(sysk, i):
+        """The path's launch side alone, under autograd."""
+        if args.path == "generic":
+            return raygen.generate_rays(sysk, *H, *pupil(i), WL)
+        return ft.build_param_table(sysk, WL), ft.aim_vector(sysk, *H)
+
+    def forward(i):
+        if args.path == "merit":
+            return ft.spot_rms_fast_field(system_of(), *H, WL, num_rays=R,
+                                          seed=i)
+        if args.path == "generic":
+            return rms_spot_size(system_of(), *H, *pupil(i), WL)
+        f = ftr.trace_fast_field(system_of(), *H, *pupil(i), WL)
+        return ((f.x - f.x.mean()) ** 2 + (f.y - f.y.mean()) ** 2).mean()
+
     def step(i):
         r_inner.grad = None
-        loss = ft.spot_rms_fast_field(system_of(), *H, WL, num_rays=R, seed=i)
-        loss.backward()
+        forward(i).backward()
 
     for i in range(3):
         step(10_000 + i)
@@ -101,27 +136,24 @@ def main(argv=None):
         walls.append(e0.elapsed_time(e1))
     wall_ms = float(np.median(walls))
 
-    # the same step in parts, synchronized after each: the launch side's
-    # tables alone (param table and aim vector, under autograd), then the
-    # whole forward (which builds them again), then the backward
-    parts = {"tables_fwd": [], "forward": [], "backward": []}
+    # the same step in parts, synchronized after each: the launch side
+    # alone (under autograd), then the whole forward (which builds it
+    # again), then the backward
+    parts = {"launch_side_fwd": [], "forward": [], "backward": []}
     for i in range(args.steps):
         r_inner.grad = None
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        sysk = system_of()
-        ft.build_param_table(sysk, WL)
-        ft.aim_vector(sysk, *H)
+        launch_side(system_of(), 20_000 + i)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        loss = ft.spot_rms_fast_field(system_of(), *H, WL, num_rays=R,
-                                      seed=20_000 + i)
+        loss = forward(20_000 + i)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
         loss.backward()
         torch.cuda.synchronize()
         t3 = time.perf_counter()
-        parts["tables_fwd"].append((t1 - t0) * 1e3)
+        parts["launch_side_fwd"].append((t1 - t0) * 1e3)
         parts["forward"].append((t2 - t1) * 1e3)
         parts["backward"].append((t3 - t2) * 1e3)
     parts_ms = {k: float(np.median(v)) for k, v in parts.items()}
@@ -141,7 +173,8 @@ def main(argv=None):
         e1.synchronize()
     prof_wall = e0.elapsed_time(e1) / n_prof
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
-    suffix = "" if root == ROOT else f"-{os.path.basename(root)}"
+    suffix = "" if args.path == "merit" else f"-{args.path}"
+    suffix += "" if root == ROOT else f"-{os.path.basename(root)}"
     trace_path = os.path.join(ROOT, "chiprun_out",
                               f"profile_torch_step{suffix}.json")
     prof.export_chrome_trace(trace_path)
@@ -165,7 +198,7 @@ def main(argv=None):
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
 
     print(f"optiland_torch from {os.path.dirname(os.path.dirname(ft.__file__))}"
-          f"; step wall {wall_ms:.3f} ms (median of {args.steps}); "
+          f", {args.path} path; step wall {wall_ms:.3f} ms (median of {args.steps}); "
           f"ray-surf/s {R * 7 / (wall_ms * 1e-3):.4e}; idle share of the "
           f"unprofiled step {1 - dev_us / 1e3 / wall_ms:.3f}", flush=True)
     print("synchronized parts (ms): " + ", ".join(
@@ -179,7 +212,7 @@ def main(argv=None):
         print(f"  {us / 1e3:9.4f} ms/step  {n / n_prof:6.1f} launches/step  "
               f"{name[:90]}", flush=True)
     print(json.dumps({
-        "card": card, "rays": R, "step_ms": wall_ms, "step_ms_all": walls,
+        "card": card, "path": args.path, "rays": R, "step_ms": wall_ms, "step_ms_all": walls,
         "parts_ms": parts_ms, "profiled_step_ms": prof_wall,
         "device_ms_per_step": dev_us / 1e3,
         "idle_share": 1 - dev_us / 1e3 / prof_wall,
