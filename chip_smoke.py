@@ -15,7 +15,12 @@ the launch counts set to 0 just before it and read just after:
     ``Optic.trace`` of ~2^24 hexapolar rays;
   * the field path (phase 11): the value and gradient of the mean squared
     spot radius through ``trace_fast_field`` (trace_field_fwd,
-    trace_field_bwd), as ``bench.py``'s ``pallas-field`` step.
+    trace_field_bwd), as ``bench.py``'s ``pallas-field`` step;
+  * the Huygens PSF path (phase 13): the value and gradient of the centre
+    pixel of ``psf.huygens_psf`` at its defaults (128 x 128 image points,
+    12,644 pupil points), with the wavefront and grid traces on
+    trace_fwd/trace_bwd and the field sums on huygens_fwd,
+    huygens_bwd_img and huygens_bwd_pup, whose parity phase 12 checks.
 
 It prints:
 
@@ -74,6 +79,16 @@ OPS_FULL_FWD = 9  # OPD 3 (multiply, abs, add), clip 6 (r^2 3, ap^2, compare,
 OPS_ABS_FWD = 5  # where the medium absorbs: 3 multiplies, exp, multiply
 OPS_FULL_BWD = 23  # the forward's 9, clip adjoint 6, OPD adjoint 8
 OPS_ABS_BWD = 18  # the forward's 5, exp and 12 multiplies/adds of its adjoint
+# Operations per (image point, pupil point) pair, counted from
+# csrc/huygens.cu (a sqrt, a divide and sincospi's sine and cosine count one
+# each, as above):
+OPS_PAIR = 27  # displacement 3, R^2 5, sqrt, 1/R, phase argument, sin, cos,
+#                n.d 5, obliquity 3, amplitude times phase 6
+OPS_FWD_ACC = 6  # two terms (2 multiplies each) and their sums
+OPS_ADJ = 39  # the pair's adjoint: cotangents of the phase, 1/R, obliquity
+#               and n.d 30, displacement cotangents 9
+OPS_IMG_ACC = 3  # image-coordinate sums
+OPS_PUP_EXTRA = 21  # normal cotangents 3, pre/pim cotangents 10, 8 sums
 
 
 def log(msg):
@@ -140,15 +155,18 @@ def main(argv=None):
     from optiland_torch.ops import _cuda
     from optiland_torch.ops import fast_trace as ftr
     from optiland_torch.ops import fused_trace as ft
+    from optiland_torch.ops import huygens as hu
     from optiland_torch.optic import Optic
+    from optiland_torch.psf import huygens_psf, pupil_grid_coords
     from optiland_torch.samples import CookeTriplet
 
     def reset_counts():
         ft.reset_launch_counts()
         ftr.reset_launch_counts()
+        hu.reset_launch_counts()
 
     def counts():
-        return {**ft.LAUNCHES, **ftr.LAUNCHES}
+        return {**ft.LAUNCHES, **ftr.LAUNCHES, **hu.LAUNCHES}
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -168,13 +186,13 @@ def main(argv=None):
     log(f"build: nvcc {_cuda.BUILD_SECONDS:.1f} s, load {build_s:.1f} s "
         f"({' '.join(_cuda.NVCC_FLAGS)})")
     for line in _cuda.BUILD_LOG.splitlines():
-        m = re.search(r"Compiling entry.*\d([a-z_]+_kernel)I([fd])(Lb([01])E)?E",
-                      line)
+        m = re.search(r"Compiling entry.*?\d([a-z_]+_kernel)I([fd])"
+                      r"(L[bi]\d)?E", line)
         if m:
-            flag = "" if m.group(3) is None else (
-                ", field" if m.group(4) == "1" else ", generic")
-            log(f"  ptxas: {m.group(1)}<{'float' if m.group(2) == 'f' else 'double'}"
-                f"{flag}>")
+            kind = {"Lb0": ", generic", "Lb1": ", field", "Li0": ", forward",
+                    "Li1": ", image adjoint"}.get(m.group(3) or "", "")
+            log(f"  ptxas: {m.group(1)}<"
+                f"{'float' if m.group(2) == 'f' else 'double'}{kind}>")
         elif "registers" in line or "spill" in line or "error" in line:
             log(f"  ptxas: {line.strip()}")
     report["build"] = {"seconds": build_s, "log": _cuda.BUILD_LOG}
@@ -906,6 +924,257 @@ def main(argv=None):
         f"{rel(v_field, v_merit):.2e} (tol 1e-4, f32)")
     report["phases"]["paths"] = paths
 
+    # ---- phase 12: the Huygens kernels against their plain versions ----
+    npix, c13 = 128, 64  # huygens_psf's default image_size; centre pixel
+    n_pup = int(pupil_grid_coords(128)[2].sum())  # the default num_rays
+
+    def huygens_case(P, Q, seed):
+        """Image points near the focus of a 52.45 mm reference sphere (the
+        Cooke triplet's at field (0, 0.7)), pupil points on it with normals
+        towards the image, random amplitudes, OPD and field cotangents: the
+        phase k R ~ 6e5 rad of the PSF path. Float64 arrays that hold
+        float32 values, so that the f32 kernels see the same inputs."""
+        g = torch.Generator(device=dev).manual_seed(seed)
+
+        def u(n, lo, hi):
+            return lo + (hi - lo) * torch.rand(n, generator=g, device=dev,
+                                               dtype=torch.float64)
+
+        Rp, k = 52.45, 2 * np.pi / (WL * 1e-3)
+        img = [u(P, -0.02, 0.02), u(P, -0.02, 0.02), u(P, -1e-3, 1e-3)]
+        r, th = 5.0 * u(Q, 0, 1).sqrt(), u(Q, 0, 2 * np.pi)
+        px, py = r * th.cos(), r * th.sin()
+        pz = -(Rp**2 - px**2 - py**2).sqrt()
+        pup = hu.pupil_arrays(px, py, pz, u(Q, 0.5, 1.0),
+                              1e-4 * torch.randn(Q, generator=g, device=dev,
+                                                 dtype=torch.float64), k, -Rp)
+        cots = [torch.randn(P, generator=g, device=dev, dtype=torch.float64)
+                for _ in range(2)]
+        return ([[t.float().double().contiguous() for t in grp]
+                 for grp in (img, pup, cots)] + [k])
+
+    def huygens_all(img, pup, cots, k, plain=False):
+        """(re, im), the 3 image and the 8 pupil gradients."""
+        if plain:
+            return (hu.huygens_fwd_plain(img, pup, k)
+                    + hu.huygens_bwd_img_plain(img, pup, *cots, k)
+                    + hu.huygens_bwd_pup_plain(img, pup, *cots, k))
+        return (hu.huygens_fwd(img, pup, k) + hu.huygens_bwd_img(img, pup,
+                                                                 *cots, k)
+                + hu.huygens_bwd_pup(img, pup, *cots, k))
+
+    def autograd_adjoints(img, pup, cots, k):
+        """The 11 input cotangents by autograd of the plain forward, over
+        chunks of image points (each chunk's graph freed before the next)."""
+        rows = max(1, hu.PLAIN_PAIRS // pup[0].shape[0])
+        pg = [t.clone().requires_grad_() for t in pup]
+        d_img, d_pup = [[] for _ in range(3)], [torch.zeros_like(t)
+                                                for t in pup]
+        for a in range(0, img[0].shape[0], rows):
+            ig = [t[a:a + rows].clone().requires_grad_() for t in img]
+            re_a, im_a = hu.huygens_fwd_plain(ig, pg, k)
+            g = torch.autograd.grad((re_a * cots[0][a:a + rows]).sum()
+                                    + (im_a * cots[1][a:a + rows]).sum(),
+                                    ig + pg)
+            for o, v in zip(d_img, g[:3]):
+                o.append(v)
+            for o, v in zip(d_pup, g[3:]):
+                o += v
+        return tuple(torch.cat(o) for o in d_img) + tuple(d_pup)
+
+    # the f64 kernels against the plain version and autograd, and the f32
+    # kernels on the same values against the f64 plain version, at odd
+    # sizes and at the PSF path's two shapes: the field sum (P = 16,384
+    # image points) and the normalization (P = 1), Q = 12,644
+    names13 = (("huygens_fwd", slice(0, 2)), ("huygens_bwd_img", slice(2, 5)),
+               ("huygens_bwd_pup", slice(5, 13)))
+    res12 = {}
+    for P12, Q12 in ((4099, 8191), (1, 8191), (npix * npix, n_pup),
+                     (1, n_pup)):
+        img, pup, cots, k = huygens_case(P12, Q12, 12)
+        out = huygens_all(img, pup, cots, k)
+        ref = huygens_all(img, pup, cots, k, plain=True)
+        scale = float(torch.hypot(ref[0], ref[1]).max())
+        e_f = max_abs(out[:2], ref[:2]) / scale
+        check(e_f <= 1e-9, f"huygens_fwd {P12}x{Q12} f64: |d| / max |field| "
+              f"{e_f} > 1e-9")
+        auto = autograd_adjoints(img, pup, cots, k)
+        e_hand, e_auto = arr_err(out[2:], ref[2:]), arr_err(out[2:], auto)
+        check(max(e_hand, e_auto) <= 1e-8, f"huygens adjoints {P12}x{Q12} "
+              f"f64: rel err vs plain {e_hand}, vs autograd {e_auto} > 1e-8")
+        del out, auto
+        lo = [[t.float() for t in grp] for grp in (img, pup, cots)]
+        out32 = huygens_all(*lo, k)
+        b32, kr = hu.f32_bound(img, pup, k)
+        r_worst, r_rms = hu.error_ratios(out32, ref,
+                                         *hu.term_sums(img, pup, *cots, k),
+                                         b32, kr)
+        check(max(r_worst, r_rms) <= 1.0, f"huygens kernels f32 {P12}x{Q12}"
+              f": error {r_worst} x the per-entry bound, RMS error {r_rms} "
+              f"x the RMS bound")
+        res = {"fwd": e_f, "bwd_vs_plain": e_hand, "bwd_vs_autograd": e_auto,
+               "f32_bound": b32, "f32_worst_ratio": r_worst,
+               "f32_rms_ratio": r_rms}
+        if P12 == npix * npix:
+            # the kernels line's max_abs_err: f32 kernel against the f32
+            # plain version at the PSF field sum's shape
+            with torch.no_grad():
+                plain32 = huygens_all(*lo, k, plain=True)
+            for name, sl in names13:
+                kerr[name] = max_abs(out32[sl], plain32[sl])
+            res["f32_max_abs_vs_plain32"] = {n: kerr[n] for n, _ in names13}
+            res["max_abs_ref"] = {n: max(float(v.abs().max()) for v in ref[sl])
+                                  for n, sl in names13}
+            del plain32
+        torch.cuda.synchronize()
+        res12[f"{P12}x{Q12}"] = res
+        log(f"phase 12 huygens kernels P={P12} Q={Q12}: f64 field |d| / max "
+            f"|field| {e_f:.2e} (tol 1e-9); f64 adjoints, per array |d| / "
+            f"max |ref|: vs plain {e_hand:.2e}, vs autograd of the plain "
+            f"forward {e_auto:.2e} (tol 1e-8); f32 vs f64 plain: worst "
+            f"entry {r_worst:.3e} x b sum |term|, RMS {r_rms:.3e} x (b RMS "
+            f"sqrt(sum |term|^2) + k R_max 2^-24 RMS |ref|), b = (6 k R_max "
+            f"+ 16) 2^-24 = {b32:.3e} (tol 1 each)")
+        del img, pup, cots, lo, ref, out32
+    report["phases"]["huygens_kernels"] = res12
+    log(f"phase 12 max |f32 kernel - f32 plain| at P={npix * npix}, "
+        f"Q={n_pup}: { {n: float(f'{kerr[n]:.4g}') for n, _ in names13} }, "
+        f"largest |f64 plain| "
+        f"{res12[f'{npix * npix}x{n_pup}']['max_abs_ref']}")
+
+    # ---- phase 13: the Huygens PSF path at full width ----
+    config.set_precision("float32")
+    psf_base = CookeTriplet().system
+
+    def psf_vg(_=None):
+        """Value and gradient of the centre pixel (Strehl x 100) with
+        respect to every stack leaf, at the entry point's defaults."""
+        sl, lv = leaf_system(psf_base)
+        psf, _, _ = huygens_psf(sl, *H, WL)
+        strehl = psf[c13, c13] / 100
+        strehl.backward()
+        return psf.detach(), strehl.detach(), lv
+
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    psf13, strehl13, lv13 = psf_vg()
+    check(tuple(psf13.shape) == (npix, npix)
+          and bool(torch.isfinite(psf13).all()), "PSF: not finite")
+    check(0.0 < float(strehl13) <= 1.2, f"PSF: Strehl {float(strehl13)}")
+    grads13 = {k: v.grad for k, v in lv13.items() if v.grad is not None}
+    check(bool(torch.isfinite(grads13["radius"][1:-1]).all()),
+          "PSF path: radius gradient not finite")
+    nan13 = {k: int((~torch.isfinite(g)).sum()) for k, g in grads13.items()
+             if not bool(torch.isfinite(g).all())}
+    times13 = timed(psf_vg, 0)
+    got13 = counts()
+    wall13 = time.perf_counter() - t0
+    n13 = 1 + 3 + args.steps
+    # per step: the field sum and the normalization's one-point sum, each
+    # with both adjoints (the image grid and the image plane's z depend on
+    # the lens); 6 traces forward and backward: chief ray, pupil, image
+    # grid and working F-number at (0, 0.7), chief ray and pupil on axis
+    expect13 = {**dict.fromkeys(got13, 0),
+                "huygens_fwd": 2 * n13, "huygens_bwd_img": 2 * n13,
+                "huygens_bwd_pup": 2 * n13, "trace_fwd": 6 * n13,
+                "trace_bwd": 6 * n13}
+    check(got13 == expect13, f"PSF path launches {got13}, expected "
+          f"{expect13}")
+    path_launches["huygens"] = got13
+    step13 = float(np.median(times13))
+    pairs13 = npix * npix * n_pup
+    log(f"phase 13 PSF path: {n13} value+grad steps in {wall13:.1f} s; "
+        f"Strehl {float(strehl13):.9e} ({npix}x{npix} image points, "
+        f"{n_pup} pupil points, {pairs13:.4e} pairs per field sum); median "
+        f"value+grad step {step13:.3f} ms over {args.steps} steps; "
+        f"non-finite gradient entries (reference behaviour): {nan13}; "
+        f"launches {got13}")
+    # one f64 call of the same PSF (outside the counted run). In f32 one
+    # rounding unit of a ~75 mm optical path, 7.6e-6 mm, is 0.014 waves of
+    # OPD (0.087 rad), and the wavefront gathers several per pupil point,
+    # partly common to neighbouring points (the chief ray and the reference
+    # sphere are shared), so the f32 PSF is not held to the sum's phase
+    # bound of phase 12: the check allows 3e-2 of the peak at every pixel
+    config.set_precision("float64")
+    with torch.no_grad():
+        psf64, _, _ = huygens_psf(CookeTriplet().system, *H, WL)
+    s64 = float(psf64[c13, c13]) / 100
+    peak = float(psf64.abs().max())
+    e_s = abs(float(strehl13) - s64) * 100 / peak
+    e_psf = float((psf13.double() - psf64).abs().max()) / peak
+    check(max(e_s, e_psf) <= 3e-2, f"PSF f32 vs f64: Strehl |d| {e_s}, "
+          f"max |d| {e_psf} of the peak > 3e-2")
+    log(f"phase 13 PSF f32 vs f64: Strehl {float(strehl13):.9e} vs "
+        f"{s64:.9e} (rel err {abs(float(strehl13) - s64) / s64:.2e}); "
+        f"|d| / peak: Strehl pixel {e_s:.2e}, worst pixel {e_psf:.2e} (tol "
+        f"3e-2)")
+    report["phases"]["huygens_psf"] = {
+        "strehl": float(strehl13), "strehl_f64": s64, "strehl_rel": e_s,
+        "psf_rel": e_psf, "step_ms": step13, "step_ms_all": times13,
+        "launches": got13, "steps": n13, "pupil_points": n_pup,
+        "pairs": pairs13, "nan_entries": nan13}
+    del psf13, psf64, lv13, grads13
+
+    # the Huygens kernels at bench.py's shape (P = 16,384, Q = 65,536, f32)
+    config.set_precision("float32")
+    Pb, Qb = 16384, 65536
+    *groups, k = huygens_case(Pb, Qb, 13)
+    img, pup, cots = ([t.float() for t in grp] for grp in groups)
+    del groups
+    with torch.no_grad():
+        got = huygens_all(img, pup, cots, k)
+        ref = huygens_all(img, pup, cots, k, plain=True)
+        # kernel and plain version, each within the bound of the exact sum
+        bb, kr = hu.f32_bound(img, pup, k)
+        rb, rr = hu.error_ratios(got, ref, *hu.term_sums(img, pup, *cots, k),
+                                 2 * bb, 2 * kr)
+        check(max(rb, rr) <= 1.0, f"huygens kernels at bench shape: error "
+              f"{rb} x the per-entry bound, RMS error {rr} x the RMS bound")
+        # the largest |kernel - plain| and |plain| of each kernel's outputs
+        err_b = {n: max_abs(got[sl], ref[sl]) for n, sl in names13}
+        ref_scale = {n: max(float(v.abs().max()) for v in ref[sl])
+                     for n, sl in names13}
+        del got, ref
+        ms.update({
+            "huygens_fwd": time_ms(lambda i: hu.huygens_fwd(img, pup, k), 10),
+            "huygens_bwd_img": time_ms(
+                lambda i: hu.huygens_bwd_img(img, pup, *cots, k), 10),
+            "huygens_bwd_pup": time_ms(
+                lambda i: hu.huygens_bwd_pup(img, pup, *cots, k), 10),
+        })
+        plain_ms.update({
+            "huygens_fwd": time_ms(
+                lambda i: hu.huygens_fwd_plain(img, pup, k), 3),
+            "huygens_bwd_img": time_ms(
+                lambda i: hu.huygens_bwd_img_plain(img, pup, *cots, k), 3),
+            "huygens_bwd_pup": time_ms(
+                lambda i: hu.huygens_bwd_pup_plain(img, pup, *cots, k), 3),
+        })
+    del img, pup, cots
+    pairs_b = Pb * Qb
+    work.update({
+        # 3 image arrays and 8 pupil arrays in; (re, im) out
+        "huygens_fwd": (pairs_b * (OPS_PAIR + OPS_FWD_ACC),
+                        (5 * Pb + 8 * Qb) * 4),
+        # and the 2 cotangents in; 3 image gradients out
+        "huygens_bwd_img": (pairs_b * (OPS_PAIR + OPS_ADJ + OPS_IMG_ACC),
+                            (8 * Pb + 8 * Qb) * 4),
+        # 5 image-side arrays and 8 pupil arrays in; 8 pupil gradients out
+        "huygens_bwd_pup": (pairs_b * (OPS_PAIR + OPS_ADJ + OPS_PUP_EXTRA),
+                            (5 * Pb + 16 * Qb) * 4),
+    })
+    report["phases"]["huygens_bench_shape"] = {
+        "bound_ratio": rb, "rms_ratio": rr, "max_abs_err": err_b,
+        "max_abs_ref": ref_scale}
+    log(f"phase 13 huygens kernels at P={Pb}, Q={Qb} (f32) against the f32 "
+        f"plain version: worst entry {rb:.3e} x twice the per-entry bound, "
+        f"RMS {rr:.3e} x twice the RMS bound; max |d| "
+        f"{ {k: float(f'{v:.4g}') for k, v in err_b.items()} } against "
+        f"largest |plain| {ref_scale}; ms "
+        f"{ {k: round(ms[k], 4) for k in hu.LAUNCHES} }; plain ms "
+        f"{ {k: round(plain_ms[k], 2) for k in hu.LAUNCHES} }")
+
     # ---- the kernels line ----
     replaces = {
         "prng_disk": "optiland_tpu/ops/pallas_trace.py:1100",
@@ -915,15 +1184,19 @@ def main(argv=None):
         "trace_field_bwd": "optiland_tpu/ops/pallas_trace.py:847",
         "trace_fwd": "optiland_tpu/ops/pallas_trace.py:538",
         "trace_bwd": "optiland_tpu/ops/pallas_trace.py:622",
+        "huygens_fwd": "optiland_tpu/ops/pallas_huygens.py:91",
+        "huygens_bwd_img": "optiland_tpu/ops/pallas_huygens.py:178",
+        "huygens_bwd_pup": "optiland_tpu/ops/pallas_huygens.py:204",
     }
     sources = {k: "optiland_torch/csrc/fused_trace.cu"
                for k in ("prng_disk", "merit_fwd", "merit_bwd")}
     sources.update({k: "optiland_torch/csrc/fast_trace.cu" for k in
                     ("trace_field_fwd", "trace_field_bwd", "trace_fwd",
                      "trace_bwd")})
+    sources.update({k: "optiland_torch/csrc/huygens.cu" for k in hu.LAUNCHES})
     kernels = []
     for name in ("merit_fwd", "merit_bwd", "prng_disk", "trace_field_fwd",
-                 "trace_field_bwd", "trace_fwd", "trace_bwd"):
+                 "trace_field_bwd", "trace_fwd", "trace_bwd", *hu.LAUNCHES):
         ops, nbytes = work[name]
         t_ops = ops / PEAK_F32_OPS * 1e3
         t_bytes = nbytes / PEAK_BYTES * 1e3

@@ -3,7 +3,8 @@ entrance-pupil scalars.
 
 Counterpart of ``optiland_tpu/core/paraxial.py`` for the launch side of the
 fused merit: ``_paraxial_arrays``, ``trace_generic``, ``abcd_prefix``,
-``pupil_scalars`` and ``f2``. The JAX package forms the prefix products with
+``pupil_scalars``, ``f2`` and the pupil functions ``EPL``, ``XPL`` and
+``EPD``. The JAX package forms the prefix products with
 ``jax.lax.associative_scan``; here a sequential product of 2x2 matrices does
 the same, and autograd runs through it. The remaining cardinal points come
 with the rest of the paraxial module in a later slice.
@@ -188,3 +189,52 @@ def f2(system: System):
     pos = positions(system.stack)
     y, u = trace_generic(system, 1.0, 0.0, pos[1] - 1)
     return (-y[0] / u[-1])[0]
+
+
+def EPL(system: System):
+    """Entrance pupil location relative to surface 1."""
+    stop_index = system.cfg.stop_index
+    pos = positions(system.stack)
+    if stop_index == 1:
+        return pos[1]
+    z0 = pos[-1] - pos[stop_index]
+    skip = system.cfg.num_surfaces - stop_index
+    y, u = trace_generic(system, 0.0, 0.1, z0, reverse=True, skip=skip)
+    return (y[-1] / u[-1])[0]
+
+
+def XPL(system: System):
+    """Exit pupil location relative to the image surface."""
+    stop_index = system.cfg.stop_index
+    pos = positions(system.stack)
+    y, u = trace_generic(system, 0.0, 0.1, pos[stop_index],
+                         skip=stop_index + 1)
+    return (-y[-1] / u[-1])[0]
+
+
+def EPD(system: System):
+    """Entrance pupil diameter, dispatched on the system aperture type."""
+    ap = system.cfg.aperture_type
+    v = system.aperture_value
+    if ap == "EPD":
+        return v
+    if ap == "imageFNO":
+        return f2(system) / v
+    pos = positions(system.stack)
+    if ap == "objectNA":
+        stack, cfg = system.stack, system.cfg
+        n0 = n_of(cfg.mat_formulas[0], stack.mat_coeffs[0], stack.ntab[0],
+                  system.primary_wavelength)
+        u0 = torch.arcsin(v / n0)
+        return 2 * (EPL(system) - pos[0]) * torch.tan(u0)
+    if ap == "float_by_stop_size":
+        stop_index = system.cfg.stop_index
+        if system.cfg.obj_infinite:
+            y, _ = trace_generic(system, 1.0, 0.0, -1.0)
+            return (v / y[stop_index])[0]
+        obj_z = pos[0]
+        epl = EPL(system)
+        y, _ = trace_generic(system, 0.0, 0.1, obj_z)
+        u0 = 0.1 * v / y[stop_index]
+        return (u0 * (epl - obj_z))[0]
+    raise ValueError(f"Unknown aperture type: {ap}")

@@ -35,8 +35,8 @@ _LIB = None
 BUILD_SECONDS = None  # wall seconds of the nvcc run (0.0 when cached)
 BUILD_LOG = ""  # nvcc's output, including ptxas register and spill counts
 
-_VP, _I, _I64, _U64 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                       ctypes.c_ulonglong)
+_VP, _I, _I64, _U64, _D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                           ctypes.c_ulonglong, ctypes.c_double)
 _PP = ctypes.POINTER(ctypes.c_void_p)  # host array of device pointers
 _ARGTYPES = {
     # seed, offset, R, px, py, u1, u2, stream
@@ -58,6 +58,10 @@ _ARGTYPES = {
     # stream
     "trace_field_bwd": [_VP, _VP, _VP, _I, _I, _VP, _VP, _PP, _I64, _VP, _I,
                         _VP, _VP],
+    # img[3], pup[8], cot[2] (null for the forward), P, Q, 2/lambda, k,
+    # chunk, nsplit, partial, out, stream
+    **{name: [_PP, _PP, _PP, _I64, _I64, _D, _D, _I64, _I, _VP, _VP, _VP]
+       for name in ("huygens_fwd", "huygens_bwd_img", "huygens_bwd_pup")},
 }
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 

@@ -4,8 +4,9 @@ Counterpart of ``optiland_tpu/optic/optic.py`` (a subset): ``SurfaceDef``,
 ``SurfaceGroup.add`` for the "standard" and "plane" surface types, the field,
 wavelength and aperture groups, and ``Optic`` with ``set_aperture``,
 ``system`` (compiled on the configured device and dtype, cached,
-invalidated on mutation), a ``paraxial`` view with ``f2``, and the real-ray
-entry points ``trace`` and ``trace_generic`` with their ``TraceResult``.
+invalidated on mutation), a ``paraxial`` view with ``f2``, ``EPL``, ``XPL``
+and ``EPD``, and the real-ray entry points ``trace`` and ``trace_generic``
+with their ``TraceResult``.
 Pickups, solves, coatings, coordinate systems, ray aimers other than the
 paraxial one and the other surface types come in later slices and raise
 here.
@@ -154,6 +155,19 @@ class FieldGroup:
     def y_fields(self):
         return np.array([f.y for f in self.fields])
 
+    @property
+    def max_field(self):
+        if not self.fields:
+            return 0.0
+        return float(np.max(np.sqrt(self.x_fields**2 + self.y_fields**2)))
+
+    def get_field_coords(self):
+        """Normalized (Hx, Hy) of every field."""
+        m = self.max_field
+        if m == 0:
+            return [(0.0, 0.0)]
+        return [(float(f.x / m), float(f.y / m)) for f in self.fields]
+
 
 @dataclasses.dataclass
 class Wavelength:
@@ -208,6 +222,18 @@ class ParaxialView:
     def f2(self):
         """Back (effective) focal length."""
         return paraxial_core.f2(self._optic.system)
+
+    def EPL(self):
+        """Entrance pupil location relative to surface 1."""
+        return paraxial_core.EPL(self._optic.system)
+
+    def XPL(self):
+        """Exit pupil location relative to the image surface."""
+        return paraxial_core.XPL(self._optic.system)
+
+    def EPD(self):
+        """Entrance pupil diameter."""
+        return paraxial_core.EPD(self._optic.system)
 
 
 class TraceResult:
@@ -376,6 +402,11 @@ class Optic:
     @property
     def primary_wavelength(self) -> float:
         return self.wavelengths.primary_wavelength
+
+    @property
+    def polarization_state(self):
+        """None: polarized systems come with the polarization slice."""
+        return None
 
     def _run_trace(self, Hx, Hy, Px, Py, wavelength, record):
         system = self.system

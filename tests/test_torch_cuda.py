@@ -17,10 +17,14 @@ the f64 plain version to 2e-4 x max(1, each array's largest entry) (the
 image-plane x and y of a focused bundle are ~0.02 mm, while f32 rounds the
 ~50 mm path to ~1e-5 mm), and to 1e-3 in the L2 norm of the gradients; a
 ray whose radius falls within rounding of a clip edge may be clipped in one
-and not the other, so at most 1 in 1e4 intensities may differ.
+and not the other, so at most 1 in 1e4 intensities may differ. The Huygens
+kernels (K10, K11a, K11b): f64 fields to 1e-9 of the largest |field| and
+gradients to 1e-8 of each array's largest entry; f32 within the phase
+rounding bound derived in its test.
 """
 
 import dataclasses
+import math
 
 import pytest
 import torch
@@ -32,6 +36,7 @@ from optiland_torch.core import trace as trace_core
 from optiland_torch.ops import _cuda
 from optiland_torch.ops import fast_trace as ftr
 from optiland_torch.ops import fused_trace as ft
+from optiland_torch.ops import huygens as hu
 from optiland_torch.optic import Optic
 from optiland_torch.samples import CookeTriplet
 
@@ -361,3 +366,130 @@ def test_trace_raises_where_the_kernels_do_not_cover_yet(cuda_device):
     final, hist = trace_core.trace(tilted, rays, record=True, wavelength=WL)
     assert hist is not None and torch.isfinite(final.x).all()
     assert sum(ftr.LAUNCHES.values()) == 0
+
+
+# ---------------------------------------------------------------------------
+# The Huygens kernels K10, K11a, K11b
+# ---------------------------------------------------------------------------
+
+
+def _huygens_case(P, Q, seed, device, dtype=torch.float64):
+    """Image points near the focus of a 52 mm reference sphere, pupil points
+    on it with normals towards the image, random amplitudes and OPD, random
+    field cotangents (the phase k R ~ 6e5 rad of the PSF path)."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+
+    def u(n, lo, hi):
+        return lo + (hi - lo) * torch.rand(n, generator=g, dtype=torch.float64)
+
+    Rp, wl = 52.45, 0.55e-3
+    k = 2 * math.pi / wl
+    img = [u(P, -0.02, 0.02), u(P, -0.02, 0.02), u(P, -1e-3, 1e-3)]
+    r, th = 5.0 * u(Q, 0, 1).sqrt(), u(Q, 0, 2 * math.pi)
+    px, py = r * th.cos(), r * th.sin()
+    pz = -(Rp**2 - px**2 - py**2).sqrt()
+    amp, opd = u(Q, 0.5, 1.0), 1e-4 * torch.randn(Q, generator=g,
+                                                 dtype=torch.float64)
+    pup = list(hu.pupil_arrays(px, py, pz, amp, opd, k, -Rp))
+    cots = [torch.randn(P, generator=g, dtype=torch.float64)
+            for _ in range(2)]
+    to = [[t.to(device=device, dtype=dtype).contiguous() for t in group]
+          for group in (img, pup, cots)]
+    return (*to, k)
+
+
+def _per_array(got, ref, rtol, what):
+    for j, (a, b) in enumerate(zip(got, ref)):
+        scale = float(b.abs().max())
+        torch.testing.assert_close(a, b, rtol=rtol, atol=rtol * scale,
+                                   msg=f"{what} array {j}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P, Q", [(1031, 2053), (1, 4099), (257, 1)])
+def test_huygens_kernels_match_plain_f64(cuda_device, P, Q):
+    img, pup, (g_re, g_im), k = _huygens_case(P, Q, 3, cuda_device)
+    re, im = hu.huygens_fwd(img, pup, k)
+    re_p, im_p = hu.huygens_fwd_plain(img, pup, k)
+    scale = float(torch.hypot(re_p, im_p).max())
+    torch.testing.assert_close(re, re_p, rtol=0, atol=1e-9 * scale)
+    torch.testing.assert_close(im, im_p, rtol=0, atol=1e-9 * scale)
+    dimg = hu.huygens_bwd_img(img, pup, g_re, g_im, k)
+    dpup = hu.huygens_bwd_pup(img, pup, g_re, g_im, k)
+    _per_array(dimg, hu.huygens_bwd_img_plain(img, pup, g_re, g_im, k),
+               1e-8, "huygens_bwd_img")
+    _per_array(dpup, hu.huygens_bwd_pup_plain(img, pup, g_re, g_im, k),
+               1e-8, "huygens_bwd_pup")
+
+
+@pytest.mark.cuda
+def test_huygens_kernels_f32_within_the_phase_rounding(cuda_device):
+    """f32 kernels against the f64 plain version of the same (f32-rounded)
+    inputs: each term's phase k R carries up to ~3 k R 2^-24 of rounding
+    (R, the product with 2/lambda) and its other factors a few 2^-24:
+    ``hu.error_ratios`` holds every entry to (6 k R_max + 16) 2^-24 times
+    its sum of term scales, and the RMS error to the RMS of the terms'
+    rounding."""
+    img, pup, cots, k = _huygens_case(2053, 4099, 4, cuda_device,
+                                      torch.float32)
+    img64, pup64, cots64 = ([t.double() for t in grp]
+                            for grp in (img, pup, cots))
+    got = (hu.huygens_fwd(img, pup, k) + hu.huygens_bwd_img(img, pup, *cots, k)
+           + hu.huygens_bwd_pup(img, pup, *cots, k))
+    ref = (hu.huygens_fwd_plain(img64, pup64, k)
+           + hu.huygens_bwd_img_plain(img64, pup64, *cots64, k)
+           + hu.huygens_bwd_pup_plain(img64, pup64, *cots64, k))
+    worst, rms = hu.error_ratios(got, ref,
+                                 *hu.term_sums(img64, pup64, *cots64, k),
+                                 *hu.f32_bound(img64, pup64, k))
+    assert worst <= 1.0 and rms <= 1.0, (worst, rms)
+
+
+@pytest.mark.cuda
+def test_huygens_psf_launches_its_kernels(cuda_device):
+    from optiland_torch.psf import HuygensPSF, huygens_psf
+
+    hu.reset_launch_counts()
+    ftr.reset_launch_counts()
+    h = HuygensPSF(CookeTriplet(), (0.0, 0.7), 0.55, num_rays=32,
+                   image_size=16)
+    torch.cuda.synchronize()
+    assert 0.0 < h.strehl_ratio() <= 1.2
+    # field and normalization sums; chief ray, pupil, image grid and
+    # working F-number traces at (0, 0.7), chief ray and pupil on axis
+    assert hu.LAUNCHES == {"huygens_fwd": 2, "huygens_bwd_img": 0,
+                           "huygens_bwd_pup": 0}
+    assert ftr.LAUNCHES == {"trace_fwd": 6, "trace_bwd": 0,
+                            "trace_field_fwd": 0, "trace_field_bwd": 0}
+    system = CookeTriplet().system
+    s2, leaves = _leaf_system(system)
+    hu.reset_launch_counts()
+    ftr.reset_launch_counts()
+    psf, _, _ = huygens_psf(s2, *H, WL, num_rays=32, image_size=16)
+    psf[8, 8].backward()
+    torch.cuda.synchronize()
+    assert hu.LAUNCHES == {"huygens_fwd": 2, "huygens_bwd_img": 2,
+                           "huygens_bwd_pup": 2}
+    assert ftr.LAUNCHES == {"trace_fwd": 6, "trace_bwd": 6,
+                            "trace_field_fwd": 0, "trace_field_bwd": 0}
+    assert torch.isfinite(leaves["radius"].grad[1:-1]).all()
+    # the same PSF on the CPU (plain sum and plain trace)
+    config.set_device("cpu")
+    ref, _, _ = huygens_psf(CookeTriplet().system, *H, WL, num_rays=32,
+                            image_size=16)
+    torch.testing.assert_close(psf.detach().cpu(), ref, rtol=0,
+                               atol=1e-9 * float(ref.max()))
+
+
+@pytest.mark.cuda
+def test_huygens_wrappers_raise_instead_of_falling_back(cuda_device):
+    img, pup, cots, k = _huygens_case(10, 20, 5, cuda_device)
+    with pytest.raises(TypeError, match="float32 or float64"):
+        hu.huygens_fwd([t.half() for t in img], [t.half() for t in pup], k)
+    with pytest.raises(ValueError, match="float64 on cuda"):
+        hu.huygens_fwd(img[:2] + [img[2].float()], pup, k)
+    with pytest.raises(ValueError, match="contiguous"):
+        strided = torch.stack([img[0], img[0]], dim=1)[:, 0]
+        hu.huygens_fwd([strided] + img[1:], pup, k)
+    with pytest.raises(ValueError, match="one length"):
+        hu.huygens_bwd_pup(img, pup, cots[0][:5], cots[1], k)

@@ -61,8 +61,8 @@ def jax_to_numpy(system):
 
 
 def test_import_blocks_jax_and_optiland_tpu():
-    """Every module of the port imports, CookeTriplet builds and traces,
-    with jax and optiland_tpu made unimportable."""
+    """Every module of the port imports, CookeTriplet builds, traces and
+    gives a Huygens PSF, with jax and optiland_tpu made unimportable."""
     code = textwrap.dedent(
         """
         import importlib, pkgutil, sys
@@ -84,6 +84,9 @@ def test_import_blocks_jax_and_optiland_tpu():
         assert lens.system.stack.radius.shape == (8,)
         res = lens.trace(num_rays=3)
         assert res.x.shape == (37,) and res.history["x"].shape == (8, 37)
+        from optiland_torch.psf import HuygensPSF
+        psf = HuygensPSF(lens, (0.0, 0.7), 0.55, num_rays=8, image_size=4)
+        assert psf.psf.shape == (4, 4) and 0 < psf.strehl_ratio() <= 1.2
         print(float(lens.paraxial.f2()))
         assert not any(k.split(".")[0] in ("jax", "optiland_tpu")
                        for k in sys.modules)

@@ -11,15 +11,18 @@ triplet (float32, field (0, 0.7), 0.55 um), of
     ``prng_disk``;
   * ``field``: the mean squared spot radius of ``trace_fast_field`` (the
     trace_field_fwd/trace_field_bwd kernels), pupil samples from
-    ``prng_disk``.
+    ``prng_disk``;
+  * ``huygens``: the centre pixel (Strehl) of ``psf.huygens_psf`` at its
+    defaults (128 x 128 image points, 12,644 pupil points): wavefronts and
+    image grid on the trace kernels, field sums on the Huygens kernels.
 
 This script reports, for that step:
 
   * the median wall time of the step (CUDA events, as in chip_smoke.py);
   * the same step split into its parts with a synchronize after each
-    (the launch side alone: the param table and aim vector, or for the
-    generic path generate_rays; the whole forward; the backward), host
-    clock;
+    (the launch side alone: the param table and aim vector, for the
+    generic path generate_rays, for the Huygens path the two wavefronts and
+    the image grid; the whole forward; the backward), host clock;
   * from ``torch.profiler`` over a few steps: the device time per step
     summed over all kernels, the device idle share of the step, the number
     of kernel launches, host syncs (``cudaStreamSynchronize``) and memcpy
@@ -53,7 +56,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--path", choices=("merit", "generic", "field"),
+    ap.add_argument("--path", choices=("merit", "generic", "field", "huygens"),
                     default="merit", help="which step is profiled")
     ap.add_argument("--log2", type=int, default=24, help="log2 of the rays")
     ap.add_argument("--steps", type=int, default=10, help="profiled steps")
@@ -77,6 +80,8 @@ def main(argv=None):
         from optiland_torch.analysis import rms_spot_size
         from optiland_torch.core import raygen
         from optiland_torch.ops import fast_trace as ftr
+        from optiland_torch.psf import huygens_fresnel as hf
+        from optiland_torch.wavefront import compute_wavefront_data
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -105,6 +110,12 @@ def main(argv=None):
         """The path's launch side alone, under autograd."""
         if args.path == "generic":
             return raygen.generate_rays(sysk, *H, *pupil(i), WL)
+        if args.path == "huygens":
+            xg, yg, mask = hf.pupil_grid_coords(128)
+            return (compute_wavefront_data(sysk, *H, WL, xg[mask], yg[mask]),
+                    compute_wavefront_data(sysk, 0.0, 0.0, WL, xg[mask],
+                                           yg[mask]),
+                    hf._image_grid(sysk, *H, WL, 128))
         return ft.build_param_table(sysk, WL), ft.aim_vector(sysk, *H)
 
     def forward(i):
@@ -113,6 +124,8 @@ def main(argv=None):
                                           seed=i)
         if args.path == "generic":
             return rms_spot_size(system_of(), *H, *pupil(i), WL)
+        if args.path == "huygens":
+            return hf.huygens_psf(system_of(), *H, WL)[0][64, 64] / 100
         f = ftr.trace_fast_field(system_of(), *H, *pupil(i), WL)
         return ((f.x - f.x.mean()) ** 2 + (f.y - f.y.mean()) ** 2).mean()
 
@@ -198,8 +211,11 @@ def main(argv=None):
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
 
     print(f"optiland_torch from {os.path.dirname(os.path.dirname(ft.__file__))}"
-          f", {args.path} path; step wall {wall_ms:.3f} ms (median of {args.steps}); "
-          f"ray-surf/s {R * 7 / (wall_ms * 1e-3):.4e}; idle share of the "
+          f", {args.path} path; step wall {wall_ms:.3f} ms (median of "
+          f"{args.steps}); "
+          + ("" if args.path == "huygens" else
+             f"ray-surf/s {R * 7 / (wall_ms * 1e-3):.4e}; ")
+          + f"idle share of the "
           f"unprofiled step {1 - dev_us / 1e3 / wall_ms:.3f}", flush=True)
     print("synchronized parts (ms): " + ", ".join(
         f"{k} {v:.3f}" for k, v in parts_ms.items()), flush=True)
