@@ -20,7 +20,18 @@ the launch counts set to 0 just before it and read just after:
     pixel of ``psf.huygens_psf`` at its defaults (128 x 128 image points,
     12,644 pupil points), with the wavefront and grid traces on
     trace_fwd/trace_bwd and the field sums on huygens_fwd,
-    huygens_bwd_img and huygens_bwd_pup, whose parity phase 12 checks.
+    huygens_bwd_img and huygens_bwd_pup, whose parity phase 12 checks;
+  * the polarized step (phase 15): ``bench.py``'s ``polarized`` class, the
+    Fresnel-coated N-BK7 singlet in H polarization at 2^24 rays, the value
+    and gradient of its merit through ``trace_fast_pol_intensity``
+    (pol_fwd_intensity, pol_bwd_intensity), with its ``polarized_axis``
+    and ``polarized_tmm`` classes and one polarized ``Optic.trace`` of
+    ~2^24 rays (pol_fwd); phase 14 holds the polarized kernels against
+    their plain versions;
+  * the vectorial Huygens PSF path (phase 16): the value and gradient of
+    the centre pixel of ``HuygensPSF`` of a polarized optic at its defaults
+    (the polarized traces on pol_fwd/pol_bwd, three field sums per state on
+    the Huygens kernels).
 
 It prints:
 
@@ -44,6 +55,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import re
 import subprocess
@@ -89,6 +101,44 @@ OPS_ADJ = 39  # the pair's adjoint: cotangents of the phase, 1/R, obliquity
 #               and n.d 30, displacement cotangents 9
 OPS_IMG_ACC = 3  # image-coordinate sums
 OPS_PUP_EXTRA = 21  # normal cotangents 3, pre/pim cotangents 10, 8 sums
+# Operations per ray and surface added by the polarized kernels, counted from
+# csrc/pol_trace.cu as above (a 3-term dot product 5, a complex multiply 6,
+# a complex divide 11). The backward is counted as the forward once plus the
+# adjoint of each part; what the kernel recomputes (the step's forward in
+# step_adjoint, the basis, the Jones matrix, q and r) is not work the
+# function needs and is not counted again.
+OPS_STEP_ADJ = {1: 170, 0: 50}  # the step's adjoint by geometry code
+#                                 (standard, plane): OPS_BWD_* less the
+#                                 recomputed forward
+OPS_FULL_ADJ = 14  # clip adjoint 6, OPD adjoint 8
+OPS_EXTRAS_ADJ = 10  # the cotangents of adot and of the pre/post directions
+#                      into the step's
+OPS_POL_BASIS = 46  # k0 x k1 9, the fallback test 4, |s| 6, 3 divides, two
+#                     cross products 18, the degenerate test and selects 6
+OPS_POL_BASIS_ADJ = 86  # 4 crosses added 48, s.g 5, the normalization 9,
+#                         the cross product's adjoint 24
+OPS_POL_UPDATE = 282  # q = O_in p 90, r = J q 102, O_out^T r 90
+OPS_POL_UPDATE_ADJ = 593  # g_r 90, g_Oout 99, g_q 102, g_J 110, g_Oin 99,
+#                           the cotangent of p 90, the basis rows 3
+OPS_POL_JONES = {"none": 0, "simple": 1, "fresnel": 35, "polarizer": 35,
+                 "retarder": 40}  # tmm: OPS_TMM_BASE + OPS_TMM_LAYER x L
+OPS_POL_JONES_ADJ = {"none": 0, "simple": 3, "fresnel": 93,
+                     "polarizer": 79, "retarder": 69}
+#  fresnel: two complex-divide adjoints 60, the rest 33; polarizer: 12, two
+#  unit-vector adjoints 30, the axis and basis cotangents 37; retarder: 30,
+#  a unit-vector adjoint 15, the axis and basis cotangents 24
+OPS_TMM_BASE = 50  # u2 3, cos in the substrate 5, 2 x (eta 2, den 6, out 13)
+OPS_TMM_LAYER = 42  # per layer, both polarizations: cos 5, delta 2, cos,
+#                     sin, eta 1, the layer product 12 (x 2 less shared)
+OPS_TMM_ADJ_BASE = 130  # per polarization the output's adjoint 23, the
+#                         eta/den cotangents 18, eta's adjoint 10; the
+#                         substrate cosine's adjoint and the coat row 27
+OPS_TMM_ADJ_LAYER = 141  # per layer, 2 x 57 (the product's adjoint), and
+#                          the phase and cosine adjoints 27
+OPS_POL_EXIT = (17, 96)  # (launch basis 15 and the scale 2, per state:
+#                           field 12, p E 72, |E|^2 12)
+OPS_POL_EXIT_ADJ = (41, 180)  # (the launch basis' adjoint 37 and 4, per
+#                               state: g_E 12, g_p 72, the field's 96)
 
 
 def log(msg):
@@ -119,6 +169,87 @@ def rel(a, b):
     a, b = (float(v.detach()) if hasattr(v, "detach") else float(v)
             for v in (a, b))
     return abs(a - b) / max(abs(b), 1e-300)
+
+
+# Roundings of a float32 OPD of the wavefront, each at most 2^-24 of the
+# path scale: per path (the ray's and the chief ray's) the three surface
+# segments (intersection distance, its product with n, the running sum),
+# the reference-sphere distance and the subtraction, ~13 each
+N_ROUND_WF = 26
+
+
+def psf_f32_bound(torch, hu, data, data32, img, norm, psf, wl_um, m=5.0):
+    """Per-pixel bound on |psf_f32 - psf| for the f64 vectorial PSF ``psf``
+    (normalized by ``norm``) of the f64 wavefront ``data`` on the image
+    points ``img``, given the f32 wavefront ``data32`` of the same pupil
+    points; returns (bound, sigma, parts).
+
+    Each term T_q of a field sum carries an error of relative RMS sigma:
+    the f32 wavefront's own (its phase 2 pi dOPD, its pupil points' k |dp|
+    and its fields' |dE| / |E|, measured against ``data`` as RMS values
+    weighted by |E|^2) and the sum's phase rounding k R_max 2^-24
+    (hu.f32_bound). For independent errors a sum F = sum_q T_q becomes
+    F e^(-sigma^2 / 2) plus a random part of RMS sigma sqrt(S2), S2 =
+    sum_q |T_q|^2, so
+
+        | |F_f32|^2 - |F|^2 | <= 2 sigma^2 |F|^2 + 2 m sigma |F| sqrt(S2)
+                                 + m^2 sigma^2 S2
+
+    (the coherent loss counted twice, the random part to m of its RMS),
+    summed over the components by Cauchy-Schwarz. The normalization, the
+    same sum at one point with zero OPD, gets the same bound; psf = 100
+    |F|^2 / norm then takes both."""
+    k = 2.0 * math.pi / (wl_um * 1e-3)
+    px, py, pz = data.pupil_x, data.pupil_y, data.pupil_z
+    _, kr = hu.f32_bound(img, (px, py, pz), k)
+    valid = data.intensity > 0
+    a2 = sum(torch.where(valid, E[:, c], 0).abs() ** 2
+             for E in data.E_exits for c in range(3))
+    w = a2 / a2.sum()
+
+    def rms(err):
+        err = torch.where(valid, err, 0)
+        return float(torch.sqrt((w * err**2).sum()))
+
+    def diff(u, v):
+        return (u.to(v.dtype) - v).abs()
+
+    dp = torch.sqrt(sum(diff(u, v) ** 2 for u, v in zip(
+        (data32.pupil_x, data32.pupil_y, data32.pupil_z), (px, py, pz))))
+    de = torch.sqrt(sum(diff(u, v) ** 2 for e32, e64 in zip(
+        data32.E_exits, data.E_exits) for u, v in zip(e32.T, e64.T)))
+    parts = {
+        "sigma_phase": rms(2 * math.pi * diff(data32.opd, data.opd)),
+        "sigma_pos": rms(k * dp),
+        "sigma_amp": rms(de / torch.sqrt(a2).clamp_min(1e-300)),
+        "sigma_sum": kr,
+    }
+    sigma = math.sqrt(sum(v * v for v in parts.values()))
+    nx, ny, nz = (v / data.radius for v in (px, py, pz))
+
+    def s2_of(ix, iy, iz):
+        out = []
+        rows = max(1, hu.PLAIN_PAIRS // px.shape[0])
+        for a in range(0, ix.shape[0], rows):
+            dx, dy, dz = (i[a:a + rows, None] - p[None, :]
+                          for i, p in ((ix, px), (iy, py), (iz, pz)))
+            R = torch.sqrt(dx * dx + dy * dy + dz * dz)
+            obl = 0.5 * (1.0 + (dx * nx + dy * ny + dz * nz) / R)
+            out.append(((obl / R) ** 2) @ a2)
+        return torch.cat(out)
+
+    def bound_of(f2, s2):
+        return (2 * sigma**2 * f2 + 2 * m * sigma * torch.sqrt(f2 * s2)
+                + (m * sigma) ** 2 * s2)
+
+    s2 = s2_of(*img).reshape(psf.shape)
+    zero = img[0].new_zeros(1)
+    s2_n = s2_of(zero, zero, img[2][:1])[0]
+    raw = psf * norm / 100.0
+    b_n = bound_of(norm, s2_n)
+    bound = 100.0 * (bound_of(raw, s2) + psf / 100.0 * b_n) / (norm - b_n)
+    parts["norm_rel"] = float(b_n / norm)
+    return bound, sigma, parts
 
 
 def main(argv=None):
@@ -156,17 +287,19 @@ def main(argv=None):
     from optiland_torch.ops import fast_trace as ftr
     from optiland_torch.ops import fused_trace as ft
     from optiland_torch.ops import huygens as hu
+    from optiland_torch.ops import pol_trace as pt
     from optiland_torch.optic import Optic
-    from optiland_torch.psf import huygens_psf, pupil_grid_coords
+    from optiland_torch.psf import HuygensPSF, huygens_psf, pupil_grid_coords
     from optiland_torch.samples import CookeTriplet
 
     def reset_counts():
         ft.reset_launch_counts()
         ftr.reset_launch_counts()
         hu.reset_launch_counts()
+        pt.reset_launch_counts()
 
     def counts():
-        return {**ft.LAUNCHES, **ftr.LAUNCHES, **hu.LAUNCHES}
+        return {**ft.LAUNCHES, **ftr.LAUNCHES, **hu.LAUNCHES, **pt.LAUNCHES}
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -191,6 +324,8 @@ def main(argv=None):
         if m:
             kind = {"Lb0": ", generic", "Lb1": ", field", "Li0": ", forward",
                     "Li1": ", image adjoint"}.get(m.group(3) or "", "")
+            if m.group(1).startswith("pol_"):
+                kind = {"Lb0": ", full", "Lb1": ", intensity"}[m.group(3)]
             log(f"  ptxas: {m.group(1)}<"
                 f"{'float' if m.group(2) == 'f' else 'double'}{kind}>")
         elif "registers" in line or "spill" in line or "error" in line:
@@ -520,10 +655,15 @@ def main(argv=None):
             check(n <= (flips if j == 6 else 0),
                   f"{what}: array {j}: {n} rays off by more than 2e-4")
 
-    def arr_err(a, b):
-        """Largest |a - b| of each array over that array's largest |b|."""
+    def arr_err(a, b, floor=0.0):
+        """Largest |a - b| of each array over that array's largest |b|, or
+        over ``floor`` x the largest |b| of all arrays where that is more
+        (an array that vanishes but for rounding has no scale of its
+        own)."""
+        top = floor * max(float(v.abs().max()) for v in b)
         return max(float((u.double() - v.double()).abs().max())
-                   / max(float(v.abs().max()), 1e-300) for u, v in zip(a, b))
+                   / max(float(v.abs().max()), top, 1e-300)
+                   for u, v in zip(a, b))
 
     with torch.no_grad():
         # kernel vs plain at the paths' shapes (f32, 2^24 rays)
@@ -546,8 +686,10 @@ def main(argv=None):
         kerr["merit_bwd"] = float((fk - fp).abs().max())
 
         def l2(a, b):
+            # against an all-zero reference: the absolute norm
+            nb = float(torch.linalg.vector_norm(b.double()))
             return float(torch.linalg.vector_norm(a.double() - b.double())
-                         / torch.linalg.vector_norm(b.double()))
+                         / (nb if nb > 0 else 1.0))
 
         l2f = l2(fk, fp)
         check(l2f <= 1e-3, f"merit_bwd full width: L2 rel err {l2f} > 1e-3")
@@ -715,7 +857,9 @@ def main(argv=None):
               f"{what}: max |d| {float(d.max()):.3e} (largest |ref| "
               f"{scale:.3e})")
         big = b.abs() > 1e-6 * scale
-        return float((d[big] / b[big].abs()).max())
+        # an all-zero reference (a trace whose outputs reach no loss) is
+        # matched exactly by the check above
+        return float((d[big] / b[big].abs()).max()) if bool(big.any()) else 0.0
 
     g9 = torch.Generator(device=dev).manual_seed(9)
     res9 = {}
@@ -1175,6 +1319,533 @@ def main(argv=None):
         f"{ {k: round(ms[k], 4) for k in hu.LAUNCHES} }; plain ms "
         f"{ {k: round(plain_ms[k], 2) for k in hu.LAUNCHES} }")
 
+    # ---- phase 14: the polarized kernels against their plain versions ----
+    config.set_precision("float64")
+    from optiland_torch.polarization import create_polarization
+    from optiland_torch.samples import polarized as pol_samples
+
+    STATE_H = create_polarization("H")
+    g14 = torch.Generator(device=dev).manual_seed(14)
+
+    def pol_err(a, b):
+        """arr_err of the 8 ray arrays; the p entries' largest |a - b| over
+        the largest |p| entry (some entries vanish exactly, and their
+        rounding noise has no scale of its own)."""
+        e = arr_err(a[:8], b[:8])
+        if len(b) > 8:
+            scale = max(float(v.abs().max()) for v in b[8:])
+            e = max(e, max(float((u - v).abs().max())
+                           for u, v in zip(a[8:], b[8:])) / scale)
+        return e
+
+    def pol_parity(pk, coat_k, spec_k, nc_k, ins, c, states, intensity,
+                   what):
+        """pol_fwd and pol_bwd (f64 inputs) against their plain versions,
+        and the f32 kernels on the same inputs rounded to f32 against the
+        f64 plain versions; raises on a failed check, returns the errors.
+        f64: the per-ray arrays to 1e-10 of each array's largest value (the
+        input cotangents: or of 1e-6 of the largest of all, where an array
+        is smaller, as the summed gradients' entries), the summed gradients
+        to 1e-9 of each entry. f32: p and the intensity are products of
+        S - 1 updates of ~400 rounded operations each, ~1e-5 of their O(1)
+        size; the per-ray arrays within 1e-4 x max(1, max |ref|), the input
+        cotangents within 1e-3 of each array's largest or of 1e-4 of the
+        largest of all (an array that analytically vanishes, as the launch
+        z's of a trace whose loss reads only x and y, carries the f32
+        rounding of the others, ~1e-7 of their size), the summed gradients
+        to 1e-3 in L2."""
+        r = {}
+        out_k = pt.pol_fwd(pk, coat_k, spec_k, ins, states, intensity)
+        out_p = pt.pol_fwd_plain(pk, coat_k, spec_k, ins, states, intensity)
+        din_k, fl_k = pt.pol_bwd(pk, coat_k, spec_k, nc_k, ins, c, states,
+                                 intensity)
+        din_p, fl_p = pt.pol_bwd_plain(pk, coat_k, spec_k, ins, c, states,
+                                       intensity)
+        S_k = len(spec_k[0])
+        fl_p = torch.cat([fl_p[: S_k * ft.NUM_P], pk.new_zeros(S_k * nc_k),
+                          fl_p[S_k * ft.NUM_P:]])
+        r["fwd"] = pol_err(out_k, out_p)
+        r["bwd_din"] = arr_err(din_k, din_p, 1e-6)
+        r["bwd"] = flat_err(fl_k, fl_p, 1e-9, f"pol_bwd {what}")
+        for key in ("fwd", "bwd_din"):
+            check(r[key] <= 1e-10, f"{key} {what} f64: rel err {r[key]} > "
+                  f"1e-10")
+        out32 = pt.pol_fwd(pk.float(), coat_k.float(), spec_k,
+                           [t.float() for t in ins], states, intensity)
+        r["f32"] = max(float((u.double() - v).abs().max())
+                       / max(1.0, float(v.abs().max()))
+                       for u, v in zip(out32, out_p))
+        din32, fl32 = pt.pol_bwd(pk.float(), coat_k.float(), spec_k, nc_k,
+                                 [t.float() for t in ins],
+                                 [t.float() for t in c], states, intensity)
+        r["f32_din"] = arr_err(din32, din_p, 1e-4)
+        r["f32_grad_l2"] = l2(fl32, fl_p)
+        check(r["f32"] <= 1e-4 and r["f32_din"] <= 1e-3
+              and r["f32_grad_l2"] <= 1e-3, f"pol kernels f32 {what}: "
+              f"per-ray error {r['f32']} > 1e-4, input cotangents "
+              f"{r['f32_din']} or gradient L2 {r['f32_grad_l2']} > 1e-3")
+        return r
+
+    res14 = {}
+    for kind in pol_samples.KINDS + pol_samples.BENCH_CLASSES[1:]:
+        lens_k = (pol_samples.bench_polarized(kind)
+                  if kind in pol_samples.BENCH_CLASSES
+                  else pol_samples.polarized_system(kind))
+        sysk = lens_k.system
+        spec_k = pt.pol_spec(sysk, WL)
+        check(spec_k is not None, f"phase 14 {kind}: not pol_supported")
+        nc_k = sysk.stack.coeffs.shape[1]
+        with torch.no_grad():
+            pk = ft.build_param_table(sysk, WL).contiguous()
+            rays = raygen.generate_rays(sysk, *H, Px64, Py64, WL)
+        coat_k = pt.build_coat_table(sysk, WL, torch.float64, dev)
+        ins = [getattr(rays, k).contiguous() for k in ftr.RAY_FIELDS]
+        ins[6] = 0.5 + 0.5 * torch.rand(Rc, generator=g14, device=dev,
+                                        dtype=torch.float64)
+        ins[7] = torch.rand(Rc, generator=g14, device=dev,
+                            dtype=torch.float64)
+        cots = [torch.randn(Rc, generator=g14, device=dev,
+                            dtype=torch.float64) for _ in range(pt.N_POL)]
+        r = {}
+        for mode, states, intensity in (
+                ("full", None, False),
+                ("H", pt.pol_states(STATE_H), True),
+                ("unpolarized", pt.pol_states(None), True)):
+            c = cots[:8] if intensity else cots
+            for key, v in pol_parity(pk, coat_k, spec_k, nc_k, ins, c,
+                                     states, intensity,
+                                     f"{kind} {mode}").items():
+                r[f"{key}_{mode}"] = v
+        torch.cuda.synchronize()
+        res14[kind] = r
+        log(f"phase 14 pol kernels {kind} (2^{args.check_log2} rays, f64 vs "
+            f"plain: per-ray arrays max |d| / max |ref| tol 1e-10, "
+            f"gradients worst rel err tol 1e-9; f32 vs f64 plain: per-ray "
+            f"tol 1e-4 x max(1, max |ref|), input cotangents tol 1e-3 of "
+            f"each array's largest, gradient L2 tol 1e-3): "
+            + ", ".join(f"{k} {v:.2e}" for k, v in r.items()))
+    report["phases"]["pol_kernels"] = res14
+    del ins, cots
+
+    # ---- phase 15: the polarized step at full width ----
+    config.set_precision("float32")
+
+    def pol_loss(system, seed):
+        """bench.py's polarized step: pupil from prng_disk, generate_rays,
+        the in-kernel exit intensity, the spread of (x i, y i)."""
+        Px, Py = ft.prng_disk(seed, Rf, 0, torch.float32, dev)
+        rays = raygen.generate_rays(system, *H, Px, Py, WL)
+        out = pt.trace_fast_pol_intensity(system, rays, WL, state=STATE_H)
+        x, y = out.x * out.i, out.y * out.i
+        return ((x - x.mean()) ** 2 + (y - y.mean()) ** 2).mean()
+
+    res15 = {}
+    for cls, steps in (("polarized", args.steps), ("polarized_axis", 3),
+                       ("polarized_tmm", 3)):
+        pbase = pol_samples.bench_polarized(cls).system
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        sl, lv = leaf_system(pbase)
+        first = pol_loss(sl, 4000)
+        first.backward()
+        check(bool(torch.isfinite(first)), f"{cls}: value not finite")
+        check(bool(torch.isfinite(lv["radius"].grad[1:-1]).all()),
+              f"{cls}: radius gradient not finite")
+        nan15 = {k: int((~torch.isfinite(v.grad)).sum())
+                 for k, v in lv.items()
+                 if v.grad is not None and not bool(torch.isfinite(v.grad)
+                                                    .all())}
+
+        def vg_pol(i, pbase=pbase):
+            sk, _ = leaf_system(pbase)
+            pol_loss(sk, i).backward()
+
+        if steps == args.steps:
+            times15 = timed(vg_pol, 4100)
+            n15 = 1 + 3 + args.steps
+        else:
+            for i in range(steps):
+                vg_pol(4100 + i)
+            torch.cuda.synchronize()
+            times15 = []
+            n15 = 1 + steps
+        got15 = counts()
+        wall15 = time.perf_counter() - t0
+        expect15 = {**dict.fromkeys(got15, 0), "prng_disk": n15,
+                    "pol_fwd_intensity": n15, "pol_bwd_intensity": n15}
+        check(got15 == expect15, f"{cls} launches {got15}, expected "
+              f"{expect15}")
+        path_launches[cls] = got15
+        step15 = float(np.median(times15)) if times15 else None
+        res15[cls] = {"value": float(first.detach()), "step_ms": step15,
+                      "step_ms_all": times15, "launches": got15,
+                      "steps": n15, "nan_entries": nan15}
+        log(f"phase 15 {cls}: {n15} value+grad steps over every stack leaf "
+            f"in {wall15:.1f} s, value {float(first.detach()):.9e}; "
+            + (f"median step {step15:.3f} ms over {args.steps} steps -> "
+               f"{Rf * 3 / (step15 * 1e-3):.4e} ray-surf/s; "
+               if step15 else "")
+            + f"non-finite gradient entries: {nan15}; launches {got15}")
+    # one polarized Optic.trace of ~2^24 hexapolar rays (pol_fwd)
+    rings = int(round((np.sqrt(12 * Rf - 3) - 3) / 6))
+    lens_pol = pol_samples.bench_polarized()
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    res = lens_pol.trace(Hy=0.7, num_rays=rings, record=False)
+    torch.cuda.synchronize()
+    t_pot = time.perf_counter() - t0
+    got = counts()
+    n_rays = 1 + 3 * rings * (rings + 1)
+    check(got == {**dict.fromkeys(got, 0), "pol_fwd": 1},
+          f"polarized Optic.trace launches {got}, expected pol_fwd once")
+    check(res.x.shape == (n_rays,) and tuple(res.p.shape) == (n_rays, 3, 3),
+          f"polarized Optic.trace: shapes {tuple(res.x.shape)}, "
+          f"{tuple(res.p.shape)}")
+    check(bool(torch.isfinite(res.x).all() and torch.isfinite(res.p).all()
+               and ((res.i >= 0) & (res.i <= 1)).all()),
+          "polarized Optic.trace: non-finite rays or p, or intensity "
+          "outside [0, 1]")
+    path_launches["pol_optic_trace"] = got
+    res15["optic_trace"] = {"rays": n_rays, "host_s": t_pot, "launches": got,
+                            "mean_i": float(res.i.mean())}
+    log(f"phase 15 polarized Optic.trace(Hy=0.7, num_rays={rings}, "
+        f"record=False): {n_rays} rays in {t_pot:.2f} s host wall; mean "
+        f"polarized intensity {float(res.i.mean()):.6f}; launches {got}")
+    del res
+    report["phases"]["pol_paths"] = res15
+
+    # the polarized kernels alone at the polarized step's shape (2^24 rays,
+    # f32): times, and the f32 kernels against the f32 plain versions, the
+    # plain versions over four chunks of 2^22 rays (their intermediates at
+    # 2^24 would not fit beside the rest)
+    pbase = pol_samples.bench_polarized().system
+    spec_p = pt.pol_spec(pbase, WL)
+    S_p, nc_p = len(spec_p[0]), pbase.stack.coeffs.shape[1]
+    with torch.no_grad():
+        pp = ft.build_param_table(pbase, WL).contiguous()
+        Pxp, Pyp = ft.prng_disk(15, Rf, 0, torch.float32, dev)
+        rays = raygen.generate_rays(pbase, *H, Pxp, Pyp, WL)
+    del Pxp, Pyp
+    coat_p = pt.build_coat_table(pbase, WL, torch.float32, dev)
+    ins_p = [getattr(rays, k).contiguous() for k in ftr.RAY_FIELDS]
+    del rays
+    gen15 = torch.Generator(device=dev).manual_seed(15)
+    cots_p = [torch.randn(Rf, generator=gen15, device=dev) / Rf
+              for _ in range(pt.N_POL)]
+    st_h = pt.pol_states(STATE_H)
+    nchunk = 4
+    cs = Rf // nchunk
+
+    def chunked_plain(kind, intensity, i=0):
+        """The plain version over the chunks: the outputs and the summed
+        flat gradient (fwd: per-ray arrays; bwd: (din, flat))."""
+        outs = []
+        for k in range(nchunk):
+            sl_ = slice(k * cs, (k + 1) * cs)
+            ins_c = [t[sl_] for t in ins_p]
+            if kind == "fwd":
+                outs.append(pt.pol_fwd_plain(pp, coat_p, spec_p, ins_c, st_h,
+                                             intensity))
+            else:
+                c = [t[sl_] for t in (cots_p[:8] if intensity else cots_p)]
+                outs.append(pt.pol_bwd_plain(pp, coat_p, spec_p, ins_c, c,
+                                             st_h, intensity))
+        return outs
+
+    # each chunk of the kernel's outputs against the plain version's: every
+    # array on its own within 2e-4 x max(1, max |ref|) and finite where the
+    # plain one is (near32; in the full mode a ray whose radius falls within
+    # rounding of the stop's edge may be clipped in one only, so up to 1 in
+    # 10^4 may differ in intensity); the input cotangents within 1e-3 of
+    # each array's largest value, the summed gradients to 1e-3 in L2
+    din_err15 = {}
+    with torch.no_grad():
+        for intensity in (False, True):
+            name = "pol_fwd_intensity" if intensity else "pol_fwd"
+            bname = "pol_bwd_intensity" if intensity else "pol_bwd"
+            c = cots_p[:8] if intensity else cots_p
+            out_k = pt.pol_fwd(pp, coat_p, spec_p, ins_p, st_h, intensity)
+            e = 0.0
+            for k, o in enumerate(chunked_plain("fwd", intensity)):
+                sl_ = slice(k * cs, (k + 1) * cs)
+                got_c = [a[sl_] for a in out_k]
+                near32(got_c, o, f"{name} full width, chunk {k}",
+                       0 if intensity else cs // 10_000)
+                e = max(e, max_abs(got_c, o))
+            kerr[name] = e
+            del out_k, got_c
+            din_k, fl_k = pt.pol_bwd(pp, coat_p, spec_p, nc_p, ins_p, c, st_h,
+                                     intensity)
+            fl_sum = None
+            d_max, r_max = [0.0] * 8, [0.0] * 8
+            for k, (din_c, fl_c) in enumerate(chunked_plain("bwd",
+                                                            intensity)):
+                sl_ = slice(k * cs, (k + 1) * cs)
+                for j, (a, b) in enumerate(zip(din_k, din_c)):
+                    d_max[j] = max(d_max[j], float((a[sl_] - b).abs().max()))
+                    r_max[j] = max(r_max[j], float(b.abs().max()))
+                fl_sum = fl_c if fl_sum is None else fl_sum + fl_c
+            fl_sum = torch.cat([fl_sum[: S_p * ft.NUM_P],
+                                pp.new_zeros(S_p * nc_p),
+                                fl_sum[S_p * ft.NUM_P:]])
+            din_err15[bname] = max(d / max(r, 1e-300)
+                                   for d, r in zip(d_max, r_max))
+            check(din_err15[bname] <= 1e-3, f"{bname} full width: input "
+                  f"cotangents, max |d| / max |ref| {din_err15[bname]} > "
+                  f"1e-3")
+            kerr[bname] = max(max(d_max),
+                              float((fl_k - fl_sum).abs().max()))
+            g_l2 = l2(fl_k, fl_sum)
+            check(g_l2 <= 1e-3, f"{bname} full width: gradient L2 rel err "
+                  f"{g_l2} > 1e-3")
+            din_err15[f"{bname}_l2"] = g_l2
+            del din_k
+            ms[name] = time_ms(lambda i, it=intensity: pt.pol_fwd(
+                pp, coat_p, spec_p, ins_p, st_h, it), 10, 3)
+            ms[bname] = time_ms(lambda i, it=intensity, c=c: pt.pol_bwd(
+                pp, coat_p, spec_p, nc_p, ins_p, c, st_h, it), 5)
+            plain_ms[name] = time_ms(
+                lambda i, it=intensity: chunked_plain("fwd", it), 2)
+            plain_ms[bname] = time_ms(
+                lambda i, it=intensity: chunked_plain("bwd", it), 2)
+        torch.cuda.synchronize()
+    report["phases"]["pol_full_width"] = din_err15
+    log("phase 15 polarized kernels at 2^%d rays (f32, the bench singlet) "
+        "against the f32 plain version: every output array within 2e-4 x "
+        "max(1, max |ref|); input cotangents (tol 1e-3 of each array's "
+        "largest) and gradient L2 (tol 1e-3) %s; ms %s; plain ms (4 chunks) "
+        "%s; max |kernel - plain| %s" % (
+            args.full_log2,
+            {k: float(f"{v:.3e}") for k, v in din_err15.items()},
+            {k: round(ms[k], 4) for k in pt.LAUNCHES},
+            {k: round(plain_ms[k], 2) for k in pt.LAUNCHES},
+            {k: float(f"{kerr[k]:.4g}") for k in pt.LAUNCHES}))
+    del ins_p, cots_p
+
+    def pol_ops(spec_k, n_states):
+        """Operations per ray of (pol_fwd, pol_fwd_intensity, pol_bwd,
+        pol_bwd_intensity) for the kernels' spec, surface by surface: its
+        geometry code (standard or plane), absorption and coat kind."""
+        codes, _, absorbs, kinds, layers = spec_k
+        names = {pt.NONE: "none", pt.SIMPLE: "simple", pt.FRESNEL: "fresnel",
+                 pt.POLARIZER: "polarizer", pt.RETARDER: "retarder"}
+        fwd = adj = 0
+        for s in range(1, len(codes)):
+            std = codes[s] == 1
+            if kinds[s] == pt.TMM:
+                jones = OPS_TMM_BASE + OPS_TMM_LAYER * layers[s]
+                jones_adj = OPS_TMM_ADJ_BASE + OPS_TMM_ADJ_LAYER * layers[s]
+            else:
+                jones = OPS_POL_JONES[names[kinds[s]]]
+                jones_adj = OPS_POL_JONES_ADJ[names[kinds[s]]]
+            fwd += ((OPS_FWD_STANDARD if std else OPS_FWD_PLANE)
+                    + OPS_FULL_FWD + OPS_ABS_FWD * bool(absorbs[s])
+                    + OPS_POL_BASIS + OPS_POL_UPDATE + jones)
+            adj += (OPS_STEP_ADJ[int(std)] + OPS_FULL_ADJ + OPS_EXTRAS_ADJ
+                    + (OPS_ABS_BWD - OPS_ABS_FWD) * bool(absorbs[s])
+                    + OPS_POL_BASIS_ADJ + OPS_POL_UPDATE_ADJ + jones_adj)
+        exit_f = OPS_POL_EXIT[0] + OPS_POL_EXIT[1] * n_states
+        exit_a = OPS_POL_EXIT_ADJ[0] + OPS_POL_EXIT_ADJ[1] * n_states
+        return fwd, fwd + exit_f, fwd + adj, fwd + exit_f + adj + exit_a
+
+    ops_f, ops_fi, ops_b, ops_bi = pol_ops(spec_p, len(st_h))
+    tbl = (S_p * (ft.NUM_P + 4) + 5 * S_p) * 4
+    red = 2 * ft.BWD_MAX_BLOCKS * S_p * (len(ftr.FULL_GRAD_COLS) + 4) * 4
+    work.update({
+        # 8 arrays in, 26 out
+        "pol_fwd": (Rf * ops_f, tbl + Rf * 34 * 4),
+        # 8 arrays in, 8 out, the exit intensity of one state
+        "pol_fwd_intensity": (Rf * ops_fi, tbl + Rf * 16 * 4),
+        # 8 arrays and 26 cotangents in, 8 input cotangents out
+        "pol_bwd": (Rf * ops_b, tbl + Rf * 42 * 4 + red),
+        # 8 arrays and 8 cotangents in, 8 out, the exit intensity's adjoint
+        "pol_bwd_intensity": (Rf * ops_bi, tbl + Rf * 24 * 4 + red),
+    })
+    log(f"phase 15 operations per ray (from the spec: codes {spec_p[0]}, "
+        f"coat kinds {spec_p[3]}): pol_fwd {ops_f}, pol_fwd_intensity "
+        f"{ops_fi}, pol_bwd {ops_b}, pol_bwd_intensity {ops_bi}")
+
+    # ---- phase 16: the vectorial Huygens PSF path ----
+    # examples/08's coated doublet in H polarization at EPD 4, without its
+    # image solve
+    lens16 = pol_samples.coated_doublet("H", epd=4.0)
+    psf16_base = lens16.system
+
+    def psf16_vg(system):
+        """Value and gradient of the centre pixel of the vectorial PSF with
+        respect to every stack leaf, at the entry point's defaults."""
+        sl, lv = leaf_system(system)
+        psf, _, norm = huygens_psf(sl, 0.0, 0.0, WL, pol_state=STATE_H,
+                                   vectorial=True)
+        strehl = psf[c13, c13] / 100
+        strehl.backward()
+        return psf.detach(), strehl.detach(), lv, norm.detach()
+
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    psf16, strehl16, lv16, norm16 = psf16_vg(psf16_base)
+    check(tuple(psf16.shape) == (npix, npix)
+          and bool(torch.isfinite(psf16).all()), "vectorial PSF: not finite")
+    check(0.0 < float(strehl16) <= 1.2, f"vectorial PSF: Strehl "
+          f"{float(strehl16)}")
+    grads16 = {k: v.grad for k, v in lv16.items() if v.grad is not None}
+    check(bool(torch.isfinite(grads16["radius"][1:-1]).all()),
+          "vectorial PSF path: radius gradient not finite")
+    nan16 = {k: int((~torch.isfinite(g)).sum()) for k, g in grads16.items()
+             if not bool(torch.isfinite(g).all())}
+    times16 = timed(lambda i: psf16_vg(psf16_base), 0)
+    got16 = counts()
+    wall16 = time.perf_counter() - t0
+    n16 = 1 + 3 + args.steps
+    # per step: 3 components x (the field sum, the normalization), each
+    # with both adjoints; 4 polarized traces forward and backward: chief
+    # ray, pupil, image grid, working F-number (field (0, 0): the
+    # normalization reuses the wavefront)
+    expect16 = {**dict.fromkeys(got16, 0),
+                "huygens_fwd": 6 * n16, "huygens_bwd_img": 6 * n16,
+                "huygens_bwd_pup": 6 * n16, "pol_fwd": 4 * n16,
+                "pol_bwd": 4 * n16}
+    check(got16 == expect16, f"vectorial PSF path launches {got16}, "
+          f"expected {expect16}")
+    path_launches["vectorial_psf"] = got16
+    # the entry point a user calls: HuygensPSF of the polarized optic
+    with torch.no_grad():
+        h16 = HuygensPSF(lens16, (0.0, 0.0), WL)
+    check(type(h16).__name__ == "VectorialHuygensPSF"
+          and abs(h16.strehl_ratio() - float(strehl16)) <= 1e-6,
+          f"HuygensPSF: {type(h16).__name__}, Strehl {h16.strehl_ratio()} "
+          f"vs {float(strehl16)}")
+    step16 = float(np.median(times16))
+
+    # the polarized kernels at the inputs this path gives them: one more
+    # f32 step and one f64 step (outside the counted run) with pol_bwd
+    # recording its arguments, the traces' inputs and output cotangents
+    def captured(fn):
+        calls, bwd = [], pt.pol_bwd
+
+        def record(*a):
+            calls.append(a)
+            return bwd(*a)
+
+        pt.pol_bwd = record
+        try:
+            out = fn()
+        finally:
+            pt.pol_bwd = bwd
+        return out, calls
+
+    _, calls32 = captured(lambda: psf16_vg(psf16_base))
+    config.set_precision("float64")
+    lens64 = pol_samples.coated_doublet("H", epd=4.0)
+    sys64 = lens64.system
+    (psf64, _, _, norm64), calls64 = captured(lambda: psf16_vg(sys64))
+    check(len(calls32) == len(calls64) == 4, f"vectorial PSF: "
+          f"{len(calls32)} f32 and {len(calls64)} f64 polarized traces "
+          f"recorded, expected 4 each")
+    res16 = {}
+    for prec, calls in (("f32", calls32), ("f64", calls64)):
+        for params, coat, spec_c, nc_c, rays_c, cots_c, states, inten in (
+                calls):
+            n_c = rays_c[0].shape[0]
+            what = f"vectorial PSF {prec} trace of {n_c} rays"
+            with torch.no_grad():
+                r = pol_parity(params.detach().double(), coat.double(),
+                               spec_c, nc_c, [t.double() for t in rays_c],
+                               [t.double() for t in cots_c], states, inten,
+                               what)
+            res16[f"{prec}_{n_c}"] = r
+    torch.cuda.synchronize()
+    log("phase 16 polarized kernels at the vectorial PSF path's inputs "
+        "(the f32 step's and the f64 step's traces; f64 kernels vs plain: "
+        "per-ray arrays tol 1e-10, gradients tol 1e-9; f32 kernels on the "
+        "f32 step's inputs vs the f64 plain versions: per-ray tol 1e-4 x "
+        "max(1, max |ref|), input cotangents tol 1e-3, gradient L2 tol "
+        "1e-3): " + "; ".join(
+            f"{k} rays: " + ", ".join(f"{n} {v:.2e}" for n, v in r.items())
+            for k, r in res16.items()))
+
+    # the f64 PSF with the plain polarized versions in place of the
+    # kernels, against the f64 PSF of the kernels
+    fwd_kernel = pt.pol_fwd
+    pt.pol_fwd = pt.pol_fwd_plain
+    try:
+        with torch.no_grad():
+            psf64_plain, _, _ = huygens_psf(sys64, 0.0, 0.0, WL,
+                                            pol_state=STATE_H,
+                                            vectorial=True)
+    finally:
+        pt.pol_fwd = fwd_kernel
+    peak64 = float(psf64.abs().max())
+    e_plain = float((psf64 - psf64_plain).abs().max()) / peak64
+    check(e_plain <= 1e-9, f"vectorial PSF f64, kernels vs plain polarized "
+          f"versions: max |d| {e_plain} of the peak > 1e-9")
+
+    # f32 against f64, every pixel within the bound derived from f32
+    # rounding (psf_f32_bound; PERF.md gives the derivation)
+    from optiland_torch.core import trace as trace_core
+    from optiland_torch.psf.huygens_fresnel import _image_grid
+    from optiland_torch.wavefront import compute_wavefront_data
+
+    with torch.no_grad():
+        xg, yg, mask = pupil_grid_coords(128)
+        data64 = compute_wavefront_data(sys64, 0.0, 0.0, WL, xg[mask],
+                                        yg[mask], pol_state=STATE_H)
+        gx, gy, gz, _ = _image_grid(sys64, 0.0, 0.0, WL, npix)
+        zc = torch.zeros(1, dtype=torch.float64, device=dev)
+        chief, _ = trace_core.trace(
+            sys64, raygen.generate_rays(sys64, 0.0, 0.0, zc, zc, WL),
+            record=False, wavelength=WL)
+        path_mm = float(chief.opd.abs().max() + data64.radius.abs())
+        config.set_precision("float32")
+        xg32, yg32, mask32 = pupil_grid_coords(128)
+        data32 = compute_wavefront_data(psf16_base, 0.0, 0.0, WL,
+                                        xg32[mask32], yg32[mask32],
+                                        pol_state=STATE_H)
+        config.set_precision("float64")
+        bound16, sigma16, parts16 = psf_f32_bound(
+            torch, hu, data64, data32, (gx.reshape(-1), gy.reshape(-1),
+                                        gz.reshape(-1)),
+            norm64, psf64, WL)
+    # the f32 wavefront's phase error against its rounding estimate
+    s_wf = (2 * math.pi / (WL * 1e-3) * path_mm * 2.0**-24
+            * math.sqrt(N_ROUND_WF / 3))
+    check(parts16["sigma_phase"] <= s_wf, f"vectorial PSF: f32 wavefront "
+          f"phase RMS error {parts16['sigma_phase']} rad > {s_wf}")
+    # and its exit fields against the per-ray tolerance of phase 14 (the
+    # products of S - 1 rounded updates, ~1e-5 of their size)
+    check(parts16["sigma_amp"] <= 1e-4, f"vectorial PSF: f32 exit fields' "
+          f"RMS relative error {parts16['sigma_amp']} > 1e-4")
+    d16 = (psf16.double() - psf64).abs()
+    ratio16 = float((d16 / bound16).max())
+    s64 = float(psf64[c13, c13]) / 100
+    e_s = abs(float(strehl16) - s64)
+    check(ratio16 <= 1.0, f"vectorial PSF f32 vs f64: a pixel off by "
+          f"{ratio16} x its bound")
+    log(f"phase 16 vectorial PSF path: {n16} value+grad steps in "
+        f"{wall16:.1f} s; Strehl {float(strehl16):.9e} (f64 {s64:.9e}, "
+        f"f64 with the plain polarized versions: max |d| {e_plain:.2e} of "
+        f"the peak, tol 1e-9); f32 vs f64: worst pixel {ratio16:.3e} x its "
+        f"bound (tol 1), |d| at the Strehl pixel {e_s * 100:.3e} against "
+        f"{float(bound16[c13, c13]):.3e} (peak {peak64:.4f}); per-term RMS "
+        f"error sigma {sigma16:.4e} ("
+        + ", ".join(f"{k} {v:.3e}" for k, v in parts16.items())
+        + f"; the wavefront phase's rounding estimate {s_wf:.3e} rad over "
+        f"{path_mm:.2f} mm); median value+grad step "
+        f"{step16:.3f} ms over {args.steps} steps; non-finite gradient "
+        f"entries: {nan16}; launches {got16}")
+    report["phases"]["vectorial_psf"] = {
+        "strehl": float(strehl16), "strehl_f64": s64, "strehl_abs_err": e_s,
+        "f64_plain_rel": e_plain, "f32_bound_ratio": ratio16,
+        "sigma": sigma16, **parts16, "sigma_phase_estimate": s_wf,
+        "path_mm": path_mm,
+        "pol_kernels": res16, "step_ms": step16, "step_ms_all": times16,
+        "launches": got16, "steps": n16, "nan_entries": nan16}
+    del psf16, psf64, psf64_plain, lv16, grads16, calls32, calls64
+    config.set_precision("float32")
+
     # ---- the kernels line ----
     replaces = {
         "prng_disk": "optiland_tpu/ops/pallas_trace.py:1100",
@@ -1187,6 +1858,10 @@ def main(argv=None):
         "huygens_fwd": "optiland_tpu/ops/pallas_huygens.py:91",
         "huygens_bwd_img": "optiland_tpu/ops/pallas_huygens.py:178",
         "huygens_bwd_pup": "optiland_tpu/ops/pallas_huygens.py:204",
+        "pol_fwd": "optiland_tpu/ops/pallas_pol.py:465",
+        "pol_fwd_intensity": "optiland_tpu/ops/pallas_pol.py:465",
+        "pol_bwd": "optiland_tpu/ops/pallas_pol.py:529",
+        "pol_bwd_intensity": "optiland_tpu/ops/pallas_pol.py:529",
     }
     sources = {k: "optiland_torch/csrc/fused_trace.cu"
                for k in ("prng_disk", "merit_fwd", "merit_bwd")}
@@ -1194,9 +1869,12 @@ def main(argv=None):
                     ("trace_field_fwd", "trace_field_bwd", "trace_fwd",
                      "trace_bwd")})
     sources.update({k: "optiland_torch/csrc/huygens.cu" for k in hu.LAUNCHES})
+    sources.update({k: "optiland_torch/csrc/pol_trace.cu"
+                    for k in pt.LAUNCHES})
     kernels = []
     for name in ("merit_fwd", "merit_bwd", "prng_disk", "trace_field_fwd",
-                 "trace_field_bwd", "trace_fwd", "trace_bwd", *hu.LAUNCHES):
+                 "trace_field_bwd", "trace_fwd", "trace_bwd", *hu.LAUNCHES,
+                 *pt.LAUNCHES):
         ops, nbytes = work[name]
         t_ops = ops / PEAK_F32_OPS * 1e3
         t_bytes = nbytes / PEAK_BYTES * 1e3

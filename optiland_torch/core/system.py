@@ -228,8 +228,8 @@ def n_all(stack: SurfaceStack, cfg: SystemConfig, w) -> torch.Tensor:
     ])
 
 
-# Config entries that hold per-surface objects this slice does not model.
-_OBJECT_FIELDS = ("geom_aux", "apertures", "interactions", "coatings", "bsdfs")
+# Config entries that hold per-surface objects the port does not model yet.
+_OBJECT_FIELDS = ("geom_aux", "apertures", "interactions", "bsdfs")
 
 
 def system_from_numpy(arrays: dict, cfg_fields: dict) -> System:
@@ -238,23 +238,29 @@ def system_from_numpy(arrays: dict, cfg_fields: dict) -> System:
     ``arrays`` maps every ``SurfaceStack`` field name and the system-level
     names (aperture_value, field_x, field_y, vig_x, vig_y, wavelengths) to
     numpy arrays; ``cfg_fields`` maps ``SystemConfig`` field names to their
-    values. The tensors take the configured dtype and device. Raises
-    ``NotImplementedError`` for per-surface config objects (apertures,
-    coatings, BSDFs, interactions, geometry extras) and polarization, which
-    this slice does not carry.
+    values. Coatings come as records (``coatings.coating_from_record``: the
+    kind and its numbers), one per surface or None, and ``polarized`` as a
+    bool. The tensors take the configured dtype and device. Raises
+    ``NotImplementedError`` for the per-surface config objects the port does
+    not carry yet (apertures, BSDFs, interactions, geometry extras) and for
+    a coating record of a kind it does not have.
     """
+    from optiland_torch.coatings import coating_from_record
+
     cfg_fields = dict(cfg_fields)
     for name in _OBJECT_FIELDS:
         vals = cfg_fields.get(name)
         if vals is not None and any(v is not None for v in vals):
             raise NotImplementedError(
                 f"system_from_numpy: config entry {name!r} holds objects "
-                f"{vals!r}; only None entries are carried in this slice"
+                f"{vals!r}; only None entries are carried so far"
             )
-    if cfg_fields.get("polarized", False):
-        raise NotImplementedError(
-            "system_from_numpy: polarized systems are ported in a later slice"
+    if cfg_fields.get("coatings") is not None:
+        cfg_fields["coatings"] = tuple(
+            None if c is None else coating_from_record(c)
+            for c in cfg_fields["coatings"]
         )
+    cfg_fields["polarized"] = bool(cfg_fields.get("polarized", False))
     for name in ("geom_codes", "mat_formulas", "reflective"):
         cfg_fields[name] = tuple(cfg_fields[name])
     cfg = SystemConfig(**cfg_fields)

@@ -8,15 +8,25 @@ circular semi-aperture, refracts or reflects it, and globalizes it again.
 Vignetted and TIR rays are masked by intensity, never removed. Gradients
 come from autograd.
 
-``trace`` sends a bundle on a CUDA device to the fused kernels
-(``ops/fast_trace.trace_fast``) when no history is asked for and the
-wavelength is a concrete number, as the JAX package sends it to its Pallas
-kernels on the TPU; a system the port's kernels do not cover yet raises
-there instead of running this engine on the card. This slice covers
-PLANE and STANDARD surfaces with refraction and reflection; aperture
-objects, interactions (thin lens, phase, grating), coatings, BSDFs and
-polarization come in later slices and raise, and the scan engine
-(``trace_scan``) waits for ROADMAP Queue 1 item 8.
+Coatings scale the intensity after the interaction. A polarized system
+also carries each ray's 3x3 complex polarization matrix p through the
+trace (``polarization.update_p`` with each coating's Jones matrix) and
+returns it in the history under "p".
+
+``trace`` sends a bundle on a CUDA device to the fused kernels when no
+history is asked for and the wavelength is a concrete number, as the JAX
+package sends it to its Pallas kernels on the TPU: a polarized system to
+``ops/pol_trace.trace_fast_pol``, an unpolarized uncoated one to
+``ops/fast_trace.trace_fast``. A system the JAX package's kernels would
+take but the port's do not cover yet (tilts, more than 16 surfaces) raises
+there instead of running this engine on the card; a polarized or coated
+system that the JAX package's kernels would not take either (a coating
+that is not kernel-eligible at the trace wavelength, an unpolarized system
+with coatings) runs this engine, as the JAX package runs its XLA path.
+The port covers PLANE and STANDARD surfaces; aperture objects,
+interactions (thin lens, phase, grating) and BSDFs come in later slices and
+raise, and the scan engine (``trace_scan``) waits for ROADMAP Queue 1 item
+8.
 """
 
 from __future__ import annotations
@@ -28,6 +38,7 @@ from optiland_torch.core import geometry as geom
 from optiland_torch.core.rays import RealRays
 from optiland_torch.core.system import System, k_of, n_of, positions
 from optiland_torch.ops import kernels
+from optiland_torch.polarization import complex_dtype, update_p
 
 HISTORY_FIELDS = ("x", "y", "z", "L", "M", "N", "intensity", "opd")
 
@@ -37,21 +48,16 @@ def _check_structure(cfg):
     for name, what in (
         ("apertures", "physical aperture objects"),
         ("interactions", "surface interactions (thin lens, phase, grating)"),
-        ("coatings", "coatings"),
         ("bsdfs", "BSDF scattering"),
     ):
         vals = getattr(cfg, name)
         if vals is not None and any(v is not None for v in vals):
             raise NotImplementedError(f"{what} are ported in a later slice")
-    if cfg.polarized:
-        raise NotImplementedError(
-            "polarized traces are ported in a later slice"
-        )
 
 
 def _surface_step(stack, cfg, s, pos_s, state):
     """Trace the ray bundle through surface ``s`` (static index)."""
-    x, y, z, L, M, N, inten, opd, w, n_pre = state
+    x, y, z, L, M, N, inten, opd, w, n_pre, p = state
     radius = stack.radius[s]
     conic = stack.conic[s]
     code = cfg.geom_codes[s]
@@ -85,6 +91,7 @@ def _surface_step(stack, cfg, s, pos_s, state):
 
     # Normal + interaction
     nx, ny, nz = geom.surface_normal_static(code, radius, conic, None, x, y)
+    L0, M0, N0 = L, M, N  # pre-interaction directions
     if cfg.reflective[s]:
         L, M, N = kernels.reflect(L, M, N, nx, ny, nz)
         n_next = n_pre
@@ -93,6 +100,20 @@ def _surface_step(stack, cfg, s, pos_s, state):
                       stack.ntab[s], w)
         L, M, N = kernels.refract(L, M, N, nx, ny, nz, n_pre, n_post)
         n_next = n_post
+
+    # Coating: intensity factor, then the Jones update of p
+    coat = cfg.coatings[s] if cfg.coatings is not None else None
+    if coat is not None:
+        inten = inten * coat.intensity_factor(bool(cfg.reflective[s]))
+    if p is not None:
+        jones = coat.jones() if coat is not None else None
+        jm = None
+        if jones is not None:
+            aoi = coat.compute_aoi(L0, M0, N0, nx, ny, nz)
+            jm = jones.calculate_matrix(L0, M0, N0, L, M, N, w,
+                                        reflect=bool(cfg.reflective[s]),
+                                        aoi=aoi)
+        p = update_p(p, L0, M0, N0, L, M, N, jm)
 
     # Globalize
     if cfg.has_tilts:
@@ -103,7 +124,7 @@ def _surface_step(stack, cfg, s, pos_s, state):
     y = y + stack.dy[s]
     z = z + pos_s + stack.dz[s]
 
-    return (x, y, z, L, M, N, inten, opd, w, n_next)
+    return (x, y, z, L, M, N, inten, opd, w, n_next, p)
 
 
 def trace(system: System, rays: RealRays, record: bool = True, key=None,
@@ -120,32 +141,50 @@ def trace(system: System, rays: RealRays, record: bool = True, key=None,
         wavelength: optional concrete scalar (Python/NumPy number). When it
             is given, the bundle lies on a CUDA device and ``record`` is
             False, the trace runs on the fused kernels
-            (``ops/fast_trace.trace_fast``), with the same semantics. For a
-            system they do not cover yet (tilts, more than 16 surfaces) it
-            raises NotImplementedError, as the JAX package's kernels cover
-            those: it never runs the plain engine on the card in their
-            place. With ``record``, or on the CPU, this engine traces
-            the bundle.
+            (``ops/pol_trace.trace_fast_pol`` for a polarized system whose
+            coatings are kernel-eligible at this wavelength,
+            ``ops/fast_trace.trace_fast`` for an uncoated unpolarized one),
+            with the same semantics. For a system they do not cover yet
+            (tilts, more than 16 surfaces) it raises NotImplementedError,
+            as the JAX package's kernels cover those: it never runs the
+            plain engine on the card in their place. With ``record``, on
+            the CPU, or for a system the JAX package's kernels would not
+            take either, this engine traces the bundle.
 
     Returns:
         (final_rays, history): history is a dict of (S, R) tensors (x, y, z,
-        L, M, N, intensity, opd), or None when record is False.
+        L, M, N, intensity, opd), or None when record is False. For a
+        polarized system it also holds the final (R, 3, 3) complex
+        polarization matrices under "p", and the final rays carry the
+        launch directions as L0, M0, N0.
     """
     stack, cfg = system.stack, system.cfg
     _check_structure(cfg)
+    coated = cfg.coatings is not None and any(
+        c is not None for c in cfg.coatings)
     if (
         not record
         and key is None
         and isinstance(wavelength, (int, float, np.floating))
         and rays.x.device.type == "cuda"
     ):
-        from optiland_torch.ops import fast_trace
+        from optiland_torch.ops import fast_trace, pol_trace
 
-        return fast_trace.trace_fast(system, rays, float(wavelength)), None
+        wl = float(wavelength)
+        if cfg.polarized and pol_trace.kernel_eligible(system, wl):
+            out, p = pol_trace.trace_fast_pol(system, rays, wl)
+            return out.replace(L0=rays.L, M0=rays.M, N0=rays.N), {"p": p}
+        if not cfg.polarized and not coated:
+            return fast_trace.trace_fast(system, rays, wl), None
 
     n0 = n_of(cfg.mat_formulas[0], stack.mat_coeffs[0], stack.ntab[0], rays.w)
+    p = None
+    if cfg.polarized:
+        R = rays.x.shape[0]
+        p = torch.eye(3, dtype=complex_dtype(rays.x.dtype),
+                      device=rays.x.device).expand(R, 3, 3)
     state = (rays.x, rays.y, rays.z, rays.L, rays.M, rays.N, rays.i,
-             rays.opd, rays.w, n0)
+             rays.opd, rays.w, n0, p)
     pos = positions(stack)
 
     recs = []
@@ -154,8 +193,10 @@ def trace(system: System, rays: RealRays, record: bool = True, key=None,
         if record:
             recs.append(state[:8])
 
-    x, y, z, L, M, N, inten, opd, w, _ = state
+    x, y, z, L, M, N, inten, opd, w, _, p = state
     out = RealRays(x=x, y=y, z=z, L=L, M=M, N=N, i=inten, w=w, opd=opd)
+    if cfg.polarized:
+        out = out.replace(L0=rays.L, M0=rays.M, N0=rays.N)
 
     history = None
     if record:
@@ -168,4 +209,8 @@ def trace(system: System, rays: RealRays, record: bool = True, key=None,
             )
             for k, name in enumerate(HISTORY_FIELDS)
         }
+        if cfg.polarized:
+            history["p"] = p
+    elif cfg.polarized:
+        history = {"p": p}
     return out, history

@@ -13,7 +13,14 @@
 //   FULL = true   also the intensity (Beer-Lambert absorption where the
 //                 surface's flag is set, the circular clip on P_APMAX) and
 //                 the optical path, as the generic and field traces return
-//                 them (fast_trace.cu).
+//                 them (fast_trace.cu, pol_trace.cu).
+//
+// The polarized traces (pol_trace.cu) also read the step's "extras": the
+// pre- and post-interaction directions, which for the untilted systems the
+// kernels take are the step's input and output directions, and adot, which
+// step_fwd writes to ``adot_out``; step_adjoint takes their cotangents in
+// ``gext``. Both pointers are null in the other kernels, whose code then
+// compiles as before.
 
 #pragma once
 
@@ -98,11 +105,13 @@ __device__ __forceinline__ T dist_plane(T z, T N) {
 }
 
 // One forward surface step; returns n of the medium after the surface.
-// ``inten`` and ``opd`` are read and written only in the FULL form.
+// ``inten`` and ``opd`` are read and written only in the FULL form;
+// ``adot_out``, when not null, receives |cos| of the angle of incidence.
 template <typename T, bool FULL>
 __device__ __forceinline__ T step_fwd(int code, int refl, int absorbs,
                                       const T* p, T n_pre, T& x, T& y, T& z,
-                                      T& L, T& M, T& N, T& inten, T& opd) {
+                                      T& L, T& M, T& N, T& inten, T& opd,
+                                      T* adot_out = nullptr) {
   const T R = p[P_RADIUS], k = p[P_CONIC], pos = p[P_POS];
   const T xl = x - p[P_DX], yl = y - p[P_DY], zl = z - pos;
   const T t = code == STANDARD ? dist_standard(R, k, xl, yl, zl, L, M, N)
@@ -131,6 +140,7 @@ __device__ __forceinline__ T step_fwd(int code, int refl, int absorbs,
   ny *= sg;
   nz *= sg;
   const T adot = abs_(dot);
+  if (adot_out) *adot_out = adot;
   T n_next;
   if (refl) {
     L = L - T(2) * adot * nx;
@@ -154,20 +164,27 @@ __device__ __forceinline__ T step_fwd(int code, int refl, int absorbs,
 
 // Reverse sweep through one surface step (transcribes
 // step.step_adjoint_plain). In: the step's input state (and, FULL, its input
-// intensity i_in) and the cotangents g of its outputs (x, y, z, L, M, N,
-// n_next, and FULL: i, opd). Out: g becomes the cotangents of the inputs
-// (x, y, z, L, M, N, n_pre, and FULL: i, opd), gc the cotangents of
-// (radius, conic, pos, n_post, dx, dy, rx, ry, rz, and FULL: k_pre).
+// intensity i_in), the cotangents g of its outputs (x, y, z, L, M, N,
+// n_next, and FULL: i, opd) and, when ``gext`` is not null, those of its
+// extras (L0, M0, N0, L1, M1, N1, adot). Out: g becomes the cotangents of
+// the inputs (x, y, z, L, M, N, n_pre, and FULL: i, opd), gc the cotangents
+// of (radius, conic, pos, n_post, dx, dy, rx, ry, rz, and FULL: k_pre).
 template <typename T, bool FULL>
 __device__ __forceinline__ void step_adjoint(int code, int refl, int absorbs,
                                              const T* p, T n_pre, T x, T y,
                                              T z, T L, T M, T N, T i_in, T* g,
-                                             T* gc) {
+                                             T* gc,
+                                             const T* gext = nullptr) {
   const T R = p[P_RADIUS], k = p[P_CONIC], pos = p[P_POS];
   const T dx = p[P_DX], dy = p[P_DY], npost = p[P_NPOST];
   const bool std_ = code == STANDARD;
   const T gx = g[0], gy = g[1], gz = g[2], gLo = g[3], gMo = g[4], gNo = g[5];
   const T g_nn = g[6];
+  // cotangents of the local post-interaction directions: the output's (at
+  // zero tilt) and the extras' L1, M1, N1
+  const T gLi = gext ? gLo + gext[3] : gLo;
+  const T gMi = gext ? gMo + gext[4] : gMo;
+  const T gNi = gext ? gNo + gext[5] : gNo;
 
   // ---- recompute the forward intermediates ----
   const T xl = x - dx, yl = y - dy, zl = z - pos;
@@ -226,13 +243,13 @@ __device__ __forceinline__ void step_adjoint(int code, int refl, int absorbs,
     Lo = L - T(2) * adot * nxs;
     Mo = M - T(2) * adot * nys;
     No = N - T(2) * adot * nzs;
-    gL = gLo;
-    gM = gMo;
-    gN = gNo;
-    g_nxs = T(-2) * adot * gLo;
-    g_nys = T(-2) * adot * gMo;
-    g_nzs = T(-2) * adot * gNo;
-    g_adot = T(-2) * (nxs * gLo + nys * gMo + nzs * gNo);
+    gL = gLi;
+    gM = gMi;
+    gN = gNi;
+    g_nxs = T(-2) * adot * gLi;
+    g_nys = T(-2) * adot * gMi;
+    g_nzs = T(-2) * adot * gNi;
+    g_adot = T(-2) * (nxs * gLi + nys * gMi + nzs * gNi);
     g_npre = g_nn;
     g_npost = T(0);
   } else {
@@ -242,19 +259,26 @@ __device__ __forceinline__ void step_adjoint(int code, int refl, int absorbs,
     Lo = u * L + nxs * w;
     Mo = u * M + nys * w;
     No = u * N + nzs * w;
-    gL = u * gLo;
-    gM = u * gMo;
-    gN = u * gNo;
-    g_nxs = w * gLo;
-    g_nys = w * gMo;
-    g_nzs = w * gNo;
-    const T g_w = nxs * gLo + nys * gMo + nzs * gNo;
-    T g_u = L * gLo + M * gMo + N * gNo - adot * g_w;
+    gL = u * gLi;
+    gM = u * gMi;
+    gN = u * gNi;
+    g_nxs = w * gLi;
+    g_nys = w * gMi;
+    g_nzs = w * gNi;
+    const T g_w = nxs * gLi + nys * gMi + nzs * gNi;
+    T g_u = L * gLi + M * gMi + N * gNi - adot * g_w;
     g_adot = -u * g_w;
     g_u = g_u - g_w * u * (T(1) - adot * adot) / root;
     g_adot = g_adot + g_w * u * u * adot / root;
     g_npre = g_u / npost;
     g_npost = g_nn - g_u * u / npost;
+  }
+  if (gext) {
+    // the extras' local pre-interaction directions and adot
+    gL += gext[0];
+    gM += gext[1];
+    gN += gext[2];
+    g_adot += gext[6];
   }
   gL += nxs * g_adot;
   gM += nys * g_adot;

@@ -5,20 +5,40 @@ lightweight descriptor that compiles down to numeric dispersion payloads (a
 formula code plus a padded coefficient vector, and optional tabulated n/k
 arrays) held as numpy arrays until ``Optic`` builds the system tensors.
 
-Ported here: ``BaseMaterial``, ``IdealMaterial``, ``Material`` (catalog by
-name), ``resolve_material`` and ``AIR``. The Abbe-number and YAML-file
-materials wait for a later slice.
+Ported here: ``BaseMaterial`` (with ``n`` and ``k`` at a wavelength, which
+the coatings and thin-film stacks evaluate), ``IdealMaterial``,
+``Material`` (catalog by name), ``resolve_material`` and ``AIR``. A
+material also converts to and from a plain record of its numbers
+(``record``, ``material_from_record``), the form in which
+``core.system.system_from_numpy`` carries coatings. The Abbe-number and
+YAML-file materials wait for a later slice.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from optiland_torch.materials import dispersion
 from optiland_torch.materials.catalog import get_catalog
-from optiland_torch.materials.dispersion import CONST_N, pad_coefficients
+from optiland_torch.materials.dispersion import (
+    CONST_N, TABULATED_N, pad_coefficients,
+)
 
 _EMPTY_TABLE = np.zeros((0, 2))
+
+
+def _wavelength_tensor(wavelength) -> torch.Tensor:
+    """A tensor wavelength as it is; a number or array as float64 on the
+    CPU."""
+    if torch.is_tensor(wavelength):
+        return wavelength
+    return torch.as_tensor(np.asarray(wavelength, dtype=np.float64))
+
+
+def _table(tab, like) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(tab, dtype=np.float64),
+                           dtype=like.dtype, device=like.device)
 
 
 class BaseMaterial:
@@ -40,9 +60,54 @@ class BaseMaterial:
     def padded_coefficients(self) -> np.ndarray:
         return pad_coefficients(np.asarray(self.coefficients, dtype=float))
 
+    def n(self, wavelength) -> torch.Tensor:
+        """Refractive index at wavelength(s) in micrometers, of the
+        wavelength's dtype and device (float64 on the CPU for a number)."""
+        from optiland_torch.core.system import interp
+
+        w = _wavelength_tensor(wavelength)
+        if self.formula_code == TABULATED_N:
+            tab = _table(self.n_table, w)
+            return interp(w, tab[:, 0], tab[:, 1])
+        return dispersion.n_formula_static(
+            self.formula_code, _table(self.padded_coefficients, w), w
+        )
+
+    def k(self, wavelength) -> torch.Tensor:
+        """Extinction coefficient at wavelength(s) in micrometers."""
+        from optiland_torch.core.system import interp
+
+        w = _wavelength_tensor(wavelength)
+        if self.k_table.shape[0] == 0:
+            return torch.zeros_like(w)
+        tab = _table(self.k_table, w)
+        return interp(w, tab[:, 0], tab[:, 1])
+
     @property
     def has_absorption(self) -> bool:
         return self.k_table.shape[0] > 0 and bool(np.any(self.k_table[:, 1] > 0))
+
+    def record(self) -> tuple:
+        """The material as a plain record: (formula code, coefficients,
+        n table rows, k table rows), numbers in nested tuples."""
+        def rows(tab):
+            return tuple(tuple(float(v) for v in r)
+                         for r in np.asarray(tab, dtype=float).reshape(-1, 2))
+
+        return (int(self.formula_code),
+                tuple(float(c) for c in np.ravel(self.coefficients)),
+                rows(self.n_table), rows(self.k_table))
+
+
+def material_from_record(rec) -> BaseMaterial:
+    """The material of a ``BaseMaterial.record``."""
+    code, coeffs, n_rows, k_rows = rec
+    m = BaseMaterial()
+    m.formula_code = int(code)
+    m.coefficients = np.asarray(coeffs, dtype=float)
+    m.n_table = np.asarray(n_rows, dtype=float).reshape(-1, 2)
+    m.k_table = np.asarray(k_rows, dtype=float).reshape(-1, 2)
+    return m
 
 
 class IdealMaterial(BaseMaterial):
@@ -117,5 +182,6 @@ __all__ = [
     "Material",
     "dispersion",
     "get_catalog",
+    "material_from_record",
     "resolve_material",
 ]

@@ -62,6 +62,14 @@ _ARGTYPES = {
     # chunk, nsplit, partial, out, stream
     **{name: [_PP, _PP, _PP, _I64, _I64, _D, _D, _I64, _I, _VP, _VP, _VP]
        for name in ("huygens_fwd", "huygens_bwd_img", "huygens_bwd_pup")},
+    # params, coat, flags, S, ncoat, in[8], R, out[26 or 8], intensity,
+    # 8 state coefficients, nstates, stream
+    "pol_fwd": [_VP, _VP, _VP, _I, _I, _PP, _I64, _PP, _I] + [_D] * 8
+    + [_I, _VP],
+    # params, coat, flags, S, nc, ncoat, in[8], cot[26 or 8], R, din[8],
+    # partial, nblocks, out, intensity, 8 state coefficients, nstates, stream
+    "pol_bwd": [_VP, _VP, _VP, _I, _I, _I, _PP, _PP, _I64, _PP, _VP, _I, _VP,
+                _I] + [_D] * 8 + [_I, _VP],
 }
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 

@@ -99,8 +99,9 @@ def fast_spec(system, field=False):
     flags) when they cover this system, else None. ``field`` asks for the
     field kernels, which also need an infinite-conjugate angle field.
     Coverage is that of the merit kernels: PLANE and STANDARD surfaces, no
-    tilts, aperture objects, interactions, coatings, BSDFs or polarization
-    (the other families are kernel K6, a later slice)."""
+    tilts, aperture objects, interactions or BSDFs (the other families are
+    kernel K6, a later slice), and no coatings or polarization (the
+    polarized kernels of ``ops/pol_trace.py`` take those)."""
     cfg = system.cfg
     if not covered(cfg, field):
         return None

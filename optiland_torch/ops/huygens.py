@@ -60,10 +60,16 @@ def reset_launch_counts():
 def pupil_arrays(px, py, pz, amp, opd_mm, k, Rp):
     """The eight per-pupil arrays of the sum: positions, unit normals of the
     reference sphere of radius ``Rp`` and the complex amplitude of
-    ``amp`` e^{-i k opd}."""
+    ``amp`` e^{-i k opd} (``amp`` real, or complex: a component of the exit
+    E-field of the vectorial PSF)."""
     ph = -k * opd_mm
-    return (px, py, pz, px / Rp, py / Rp, pz / Rp, amp * torch.cos(ph),
-            amp * torch.sin(ph))
+    c, s = torch.cos(ph), torch.sin(ph)
+    if torch.is_complex(amp):
+        a, b = amp.real, amp.imag
+        pre, pim = a * c - b * s, a * s + b * c
+    else:
+        pre, pim = amp * c, amp * s
+    return px, py, pz, px / Rp, py / Rp, pz / Rp, pre, pim
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,8 @@
-"""Launch side shared by the kernel op modules (``ops/fused_trace.py`` and
-``ops/fast_trace.py``): the kernels' launch shapes, the structure their
-step covers, the launch of a ray from its pupil sample and the aim vector,
-the per-surface flag table, and the checks a wrapper runs before it
-launches a kernel on a CUDA device."""
+"""Launch side shared by the kernel op modules (``ops/fused_trace.py``,
+``ops/fast_trace.py`` and ``ops/pol_trace.py``): the kernels' launch
+shapes, the structure their step covers, the launch of a ray from its
+pupil sample and the aim vector, the per-surface flag table, and the
+checks a wrapper runs before it launches a kernel on a CUDA device."""
 
 from __future__ import annotations
 
@@ -24,12 +24,14 @@ BWD_MAX_BLOCKS = 1056  # fixed grid of the backwards' grid-stride loop
 MAX_SURF = 16  # bound of the backwards' per-ray surface-state arrays
 
 
-def covered(cfg, field=True) -> bool:
+def covered(cfg, field=True, coated=False) -> bool:
     """True when the kernels' step covers this structure, tilts aside:
-    PLANE and STANDARD surfaces, no aperture objects, interactions,
-    coatings, BSDFs or polarization, at most MAX_SURF surfaces, and (with
-    ``field``) an infinite-conjugate angle field, which the aim vector
-    describes."""
+    PLANE and STANDARD surfaces, no aperture objects, interactions or
+    BSDFs, at most MAX_SURF surfaces, and (with ``field``) an
+    infinite-conjugate angle field, which the aim vector describes. The
+    unpolarized kernels take no coatings and no polarization; ``coated``
+    asks for the polarized kernels, which take both (their coat kinds are
+    checked by ``ops/pol_trace.py``)."""
 
     def all_none(vals):
         return vals is None or all(v is None for v in vals)
@@ -38,10 +40,10 @@ def covered(cfg, field=True) -> bool:
         all(c in geom.SUPPORTED_CODES for c in cfg.geom_codes)
         and all_none(cfg.apertures)
         and all_none(cfg.interactions)
-        and all_none(cfg.coatings)
+        and (coated or all_none(cfg.coatings))
         and all_none(cfg.bsdfs)
         and all_none(cfg.geom_aux)
-        and not cfg.polarized
+        and (coated or not cfg.polarized)
         and cfg.num_surfaces <= MAX_SURF
         and (not field or (cfg.field_type == "angle"
                            and bool(cfg.obj_infinite)
@@ -53,9 +55,8 @@ def unsupported(what):
     """The error for a system that the kernels do not cover yet."""
     return NotImplementedError(
         f"{what} covers PLANE/STANDARD systems of at most {MAX_SURF} surfaces "
-        "without tilts, aperture objects, interactions, coatings or "
-        "polarization; tilts and the other families (kernel K6) come in a "
-        "later slice"
+        "without tilts, aperture objects or interactions; tilts and the "
+        "other families (kernel K6) come in a later slice"
     )
 
 

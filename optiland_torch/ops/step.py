@@ -12,6 +12,10 @@ the state:
     the optical path and the circular clip on ``P_APMAX``, as the generic
     and field traces return them (``ops/fast_trace.py``).
 
+For the polarized traces (``ops/pol_trace.py``) the step also gives its
+"extras": the local pre- and post-interaction directions and adot, the
+cosine of the angle of incidence; and its adjoint takes their cotangents.
+
 The CUDA device step is a line-by-line transcription of these two
 functions, instantiated once per form; change them together.
 """
@@ -59,8 +63,11 @@ def _rot_global(x, y, z, L, M, N, rx, ry, rz):
     return x, y, z, L, M, N
 
 
-def step_plain(code, refl, p, n_pre, st, absorbs=False):
-    """One surface step on per-ray tensors; returns (state, n_next).
+def step_plain(code, refl, p, n_pre, st, absorbs=False, extras=False):
+    """One surface step on per-ray tensors; returns (state, n_next), and
+    with ``extras`` also (L0, M0, N0, L1, M1, N1, adot): the local-frame
+    pre- and post-interaction directions and |cos| of the angle of
+    incidence.
 
     ``st`` is (x, y, z, L, M, N), or (x, y, z, L, M, N, i, opd) for the full
     step; ``absorbs`` (full step only) applies the Beer-Lambert factor of
@@ -94,6 +101,7 @@ def step_plain(code, refl, p, n_pre, st, absorbs=False):
     sgn = torch.sign(dot)
     nx, ny, nz = nx * sgn, ny * sgn, nz * sgn
     adot = torch.abs(dot)
+    k0 = (L, M, N)
     if refl:
         L = L - 2 * adot * nx
         M = M - 2 * adot * ny
@@ -107,26 +115,37 @@ def step_plain(code, refl, p, n_pre, st, absorbs=False):
         M = u * M + ny * (root - u * adot)
         N = u * N + nz * (root - u * adot)
         n_next = n_post
+    ext = k0 + (L, M, N, adot)
     x, y, zl, L, M, N = _rot_global(x, y, zl, L, M, N, *rot)
     x = x + p[P_DX]
     y = y + p[P_DY]
-    return (x, y, zl + pos, L, M, N) + extra, n_next
+    out = (x, y, zl + pos, L, M, N) + extra
+    return (out, n_next, ext) if extras else (out, n_next)
 
 
-def step_adjoint_plain(code, refl, p, n_pre, st, g, absorbs=False):
+def step_adjoint_plain(code, refl, p, n_pre, st, g, absorbs=False,
+                       g_ext=None):
     """Reverse sweep through one surface step.
 
     ``st`` is the step's input state, ``g`` the cotangents of its outputs:
     (x, y, z, L, M, N, n_next) for the merit step, plus (i, opd) for the
-    full one. Returns the cotangents of the input state, of n_pre, and of
-    the param columns GRAD_COLS (FULL_GRAD_COLS for the full step), all per
-    ray; the tilt cotangents are those at zero tilt, where each rotation
-    contributes its generator. The clip passes no cotangent to a clipped
-    ray's intensity, and none to the positions that decide it. The CUDA
-    kernels' reverse step is a line-by-line transcription of this one."""
+    full one; ``g_ext``, when given, those of the step's extras (L0, M0,
+    N0, L1, M1, N1, adot). Returns the cotangents of the input state, of
+    n_pre, and of the param columns GRAD_COLS (FULL_GRAD_COLS for the full
+    step), all per ray; the tilt cotangents are those at zero tilt, where
+    each rotation contributes its generator (the extras are local-frame
+    directions, so theirs count too). The clip passes no cotangent to a
+    clipped ray's intensity, and none to the positions that decide it. The
+    CUDA kernels' reverse step is a line-by-line transcription of this
+    one."""
     full = len(g) == 9
     x, y, z, L, M, N = st[:6]
     gx, gy, gz, gL_o, gM_o, gN_o, g_nn = g[:7]
+    # cotangents of the local post-interaction directions: the output's
+    # (at zero tilt) and the extras' L1, M1, N1
+    gL_i, gM_i, gN_i = gL_o, gM_o, gN_o
+    if g_ext is not None:
+        gL_i, gM_i, gN_i = gL_o + g_ext[3], gM_o + g_ext[4], gN_o + g_ext[5]
     R, k, pos = p[P_RADIUS], p[P_CONIC], p[P_POS]
     dx, dy, npost = p[P_DX], p[P_DY], p[P_NPOST]
     std = code == geom.STANDARD
@@ -189,11 +208,11 @@ def step_adjoint_plain(code, refl, p, n_pre, st, g, absorbs=False):
         Lo = L - 2 * adot * nxs
         Mo = M - 2 * adot * nys
         No = N - 2 * adot * nzs
-        gL, gM, gN = gL_o, gM_o, gN_o
-        g_nxs = -2 * adot * gL_o
-        g_nys = -2 * adot * gM_o
-        g_nzs = -2 * adot * gN_o
-        g_adot = -2 * (nxs * gL_o + nys * gM_o + nzs * gN_o)
+        gL, gM, gN = gL_i, gM_i, gN_i
+        g_nxs = -2 * adot * gL_i
+        g_nys = -2 * adot * gM_i
+        g_nzs = -2 * adot * gN_i
+        g_adot = -2 * (nxs * gL_i + nys * gM_i + nzs * gN_i)
         g_npre = g_nn
         g_npost = torch.zeros_like(gx)
     else:
@@ -203,17 +222,21 @@ def step_adjoint_plain(code, refl, p, n_pre, st, g, absorbs=False):
         Lo = u * L + nxs * w
         Mo = u * M + nys * w
         No = u * N + nzs * w
-        gL, gM, gN = u * gL_o, u * gM_o, u * gN_o
-        g_nxs = w * gL_o
-        g_nys = w * gM_o
-        g_nzs = w * gN_o
-        g_w = nxs * gL_o + nys * gM_o + nzs * gN_o
-        g_u = L * gL_o + M * gM_o + N * gN_o - adot * g_w
+        gL, gM, gN = u * gL_i, u * gM_i, u * gN_i
+        g_nxs = w * gL_i
+        g_nys = w * gM_i
+        g_nzs = w * gN_i
+        g_w = nxs * gL_i + nys * gM_i + nzs * gN_i
+        g_u = L * gL_i + M * gM_i + N * gN_i - adot * g_w
         g_adot = -u * g_w
         g_u = g_u - g_w * u * (1 - adot * adot) / root
         g_adot = g_adot + g_w * u * u * adot / root
         g_npre = g_u / npost
         g_npost = g_nn - g_u * u / npost
+    if g_ext is not None:
+        # the extras' local pre-interaction directions and adot
+        gL, gM, gN = gL + g_ext[0], gM + g_ext[1], gN + g_ext[2]
+        g_adot = g_adot + g_ext[6]
     # adot = L nxs + M nys + N nzs (the sign folded into the normal)
     gL = gL + nxs * g_adot
     gM = gM + nys * g_adot

@@ -1,15 +1,16 @@
 """User-facing Optic builder with the JAX package's construction API.
 
 Counterpart of ``optiland_tpu/optic/optic.py`` (a subset): ``SurfaceDef``,
-``SurfaceGroup.add`` for the "standard" and "plane" surface types, the field,
+``SurfaceGroup.add`` for the "standard" and "plane" surface types with an
+optional coating (a coating object or the "fresnel" shorthand), the field,
 wavelength and aperture groups, and ``Optic`` with ``set_aperture``,
-``system`` (compiled on the configured device and dtype, cached,
-invalidated on mutation), a ``paraxial`` view with ``f2``, ``EPL``, ``XPL``
-and ``EPD``, and the real-ray entry points ``trace`` and ``trace_generic``
-with their ``TraceResult``.
-Pickups, solves, coatings, coordinate systems, ray aimers other than the
-paraxial one and the other surface types come in later slices and raise
-here.
+``set_polarization``, ``system`` (compiled on the configured device and
+dtype, cached, invalidated on mutation), a ``paraxial`` view with ``f2``,
+``EPL``, ``XPL`` and ``EPD``, and the real-ray entry points ``trace`` and
+``trace_generic`` with their ``TraceResult``; a polarized optic's trace
+gives the polarized exit intensity and the polarization matrix p.
+Pickups, solves, coordinate systems, ray aimers other than the paraxial
+one and the other surface types come in later slices and raise here.
 """
 
 from __future__ import annotations
@@ -28,6 +29,9 @@ from optiland_torch.core import trace as trace_core
 from optiland_torch.core.distributions import create_distribution
 from optiland_torch.core.system import SurfaceStack, System, SystemConfig
 from optiland_torch.materials import AIR, BaseMaterial, resolve_material
+from optiland_torch.polarization import (
+    create_polarization, exit_fields, polarized_intensity,
+)
 
 _GEOM_CODES = {
     "standard": geom.STANDARD,
@@ -57,6 +61,7 @@ class SurfaceDef:
     rz: float = 0.0
     aperture: float | None = None  # physical semi-diameter via diameter value
     comment: str = ""
+    coating: Any = None  # BaseCoating or "fresnel"
 
     # resolved at compile time
     _material_obj: BaseMaterial | None = None
@@ -87,9 +92,12 @@ class SurfaceGroup:
         rz: float = 0.0,
         aperture: float | None = None,
         comment: str = "",
+        coating=None,
         **kwargs,
     ):
-        """Add a "standard" or "plane" surface."""
+        """Add a "standard" or "plane" surface, optionally coated
+        (``coating`` a coating object or "fresnel", the bare interface
+        between the adjacent materials)."""
         if surface_type not in _GEOM_CODES:
             raise _later(f"surface_type {surface_type!r}")
         if kwargs:
@@ -100,7 +108,7 @@ class SurfaceGroup:
             radius=radius, thickness=thickness, conic=conic,
             material=material, is_stop=is_stop, surface_type=surface_type,
             dx=dx, dy=dy, dz=dz, rx=rx, ry=ry, rz=rz, aperture=aperture,
-            comment=comment,
+            comment=comment, coating=coating,
         )
         if index is None:
             index = len(self.surfaces)
@@ -239,7 +247,8 @@ class ParaxialView:
 class TraceResult:
     """Traced rays and, when recorded, the per-surface history: ``x`` ..
     ``opd``, ``w``, ``i`` (also ``intensity``), ``rays`` and ``history``
-    (a dict of (S, R) tensors, or None)."""
+    (a dict of (S, R) tensors, or None). A polarized trace also has ``p``,
+    the (R, 3, 3) complex polarization matrices, and ``get_exit_fields``."""
 
     def __init__(self, final, history):
         self.rays = final
@@ -248,6 +257,16 @@ class TraceResult:
             setattr(self, name, getattr(final, name))
         self.i = final.i
         self.intensity = final.i
+        if history is not None and "p" in history:
+            self.p = history["p"]
+            self._i0 = history.get("i0")
+
+    def get_exit_fields(self, state):
+        """The exit 3D E-field(s) of a polarized trace: a list of (R, 3)
+        complex tensors (``polarization.exit_fields``)."""
+        i0 = self._i0 if self._i0 is not None else torch.ones_like(self.x)
+        return exit_fields(self.p, state, self.rays.L0, self.rays.M0,
+                           self.rays.N0, i0)
 
     def __repr__(self):
         return f"TraceResult({self.x.shape[0]} rays)"
@@ -271,6 +290,7 @@ class Optic:
         self.fields = FieldGroup(self)
         self.wavelengths = WavelengthGroup(self)
         self.aperture: Aperture | None = None
+        self.polarization = "ignore"
         self._system_cache: System | None = None
 
     def set_aperture(self, aperture_type: str, value: float):
@@ -279,6 +299,15 @@ class Optic:
                                  "float_by_stop_size"):
             raise ValueError(f"Unknown aperture type {aperture_type}")
         self.aperture = Aperture(aperture_type, value)
+        self._invalidate()
+
+    def set_polarization(self, polarization):
+        """Set the polarization mode: "ignore", a PolarizationState, or a
+        named state ("unpolarized", "H", "V", "L+45", "L-45", "RCP",
+        "LCP")."""
+        if isinstance(polarization, str) and polarization != "ignore":
+            polarization = create_polarization(polarization)
+        self.polarization = polarization
         self._invalidate()
 
     def _invalidate(self):
@@ -321,6 +350,21 @@ class Optic:
             prev_mat = s._material_obj
 
         mats = [s._material_obj for s in surfs]
+        coatings = []
+        for i, s in enumerate(surfs):
+            c = s.coating
+            if isinstance(c, str) and c.lower() == "fresnel":
+                from optiland_torch.coatings import FresnelCoating
+
+                c = FresnelCoating(mats[i - 1] if i > 0 else AIR, mats[i])
+            coatings.append(c)
+        if self.polarization == "ignore" and any(
+            c is not None and c.polarization_dependent for c in coatings
+        ):
+            raise ValueError(
+                "Polarization must be set when surfaces have "
+                "polarization-dependent coatings."
+            )
         max_nt = max([m.n_table.shape[0] for m in mats] + [0])
         max_kt = max([m.k_table.shape[0] for m in mats] + [0])
 
@@ -377,9 +421,9 @@ class Optic:
             geom_aux=none,
             apertures=none,
             interactions=none,
-            coatings=none,
+            coatings=tuple(coatings),
             bsdfs=none,
-            polarized=False,
+            polarized=self.polarization != "ignore",
             has_tilts=any(v != 0 for s in surfs for v in (s.rx, s.ry, s.rz)),
             has_absorption=any(m.has_absorption for m in mats),
             aperture_type=self.aperture.ap_type,
@@ -405,8 +449,10 @@ class Optic:
 
     @property
     def polarization_state(self):
-        """None: polarized systems come with the polarization slice."""
-        return None
+        """The PolarizationState, or None when polarization is ignored."""
+        if self.polarization == "ignore":
+            return None
+        return self.polarization
 
     def _run_trace(self, Hx, Hy, Px, Py, wavelength, record):
         system = self.system
@@ -418,6 +464,13 @@ class Optic:
         # kernels on a CUDA device
         final, history = trace_core.trace(system, rays, record=record,
                                           wavelength=wavelength)
+        if system.cfg.polarized:
+            # the exit intensity of the polarization matrices, from the
+            # launch directions and the launch intensity
+            i_pol = polarized_intensity(history["p"], self.polarization_state,
+                                        rays.L, rays.M, rays.N, rays.i)
+            final = final.replace(i=i_pol)
+            history["i0"] = rays.i
         return TraceResult(final, history)
 
     def trace(self, Hx=0.0, Hy=0.0, wavelength=None, num_rays: int = 100,

@@ -8,8 +8,10 @@ kernels (K10 forward, K11a/K11b backward) and never the plain sum, on the
 CPU their plain versions with the hand adjoints. ``huygens_field`` is the
 plain pairwise sum over chunks of image points, differentiated by
 autograd: the oracle of the tests. On a card the wavefront and image-grid
-traces run on the trace kernels (K5a/K5b). The vectorial PSF of polarized
-systems comes with the polarization slice (kernels K8/K9) and raises.
+traces run on the trace kernels (K5a/K5b; K8/K9 for a polarized system).
+The vectorial PSF of a polarized system (``vectorial_huygens_psf_from_data``)
+sums |field|^2 over the Cartesian components of the exit E-field of each
+incoherent polarization state, each field through the same kernels.
 """
 
 from __future__ import annotations
@@ -28,13 +30,6 @@ from optiland_torch.ops.huygens import (
 )
 from optiland_torch.psf.fft import pupil_grid_coords
 from optiland_torch.wavefront import compute_wavefront_data
-
-
-def _vectorial_later() -> NotImplementedError:
-    return NotImplementedError(
-        "the vectorial Huygens PSF of polarized systems comes with the "
-        "polarization slice (kernels K8/K9)"
-    )
 
 
 def huygens_field(
@@ -73,8 +68,24 @@ def huygens_psf_from_data(data, image_x, image_y, image_z, wavelength_um):
 
 def vectorial_huygens_psf_from_data(data, image_x, image_y, image_z,
                                     wavelength_um):
-    """The vectorial PSF: comes with the polarization slice."""
-    raise _vectorial_later()
+    """Incoherent sum of |field|^2 over the Cartesian components of the exit
+    E-field of each incoherent polarization state (``data.E_exits``), the
+    rays of zero intensity masked; each field sum goes through the kernels
+    on a CUDA device, their plain versions on the CPU."""
+    wl_mm = wavelength_um * 1e-3
+    opd_mm = data.opd * wl_mm
+    is_valid = data.intensity > 0
+    shape = image_x.shape
+    img = (image_x.reshape(-1), image_y.reshape(-1), image_z.reshape(-1))
+    psf = torch.zeros(shape, dtype=image_x.dtype, device=image_x.device)
+    for E in data.E_exits:
+        for comp in range(3):
+            amp = torch.where(is_valid, E[:, comp], torch.zeros_like(E[:, 0]))
+            f = huygens_field_fast(*img, data.pupil_x, data.pupil_y,
+                                   data.pupil_z, amp, opd_mm, wl_mm,
+                                   data.radius)
+            psf = psf + torch.abs(f.reshape(shape)) ** 2
+    return psf
 
 
 def _image_grid(system, Hx, Hy, wavelength, image_size, oversample=None,
@@ -142,32 +153,43 @@ def huygens_psf(
     Returns (psf, pixel_pitch_mm, normalization), normalized so that a
     diffraction-limited system peaks at 100. Differentiable with respect to
     every leaf of the system. ``wavelength`` is a number (um).
+    ``vectorial=True`` sums the three Cartesian exit-field components per
+    incoherent polarization state of ``pol_state`` (a polarized system);
+    its normalization keeps the actual exit-field amplitudes.
     """
-    if vectorial or pol_state is not None:
-        raise _vectorial_later()
     xg, yg, mask = pupil_grid_coords(num_rays)
     data = compute_wavefront_data(system, Hx, Hy, wavelength, xg[mask],
-                                  yg[mask], strategy=strategy)
+                                  yg[mask], strategy=strategy,
+                                  pol_state=pol_state)
+    if vectorial and data.E_exits is None:
+        raise ValueError(
+            "E_exits must be populated in WavefrontData for the vectorial "
+            "Huygens PSF. Enable polarization on the optic."
+        )
+    psf_of = vectorial_huygens_psf_from_data if vectorial else (
+        huygens_psf_from_data)
     gx, gy, gz, pixel_pitch = _image_grid(
         system, Hx, Hy, wavelength, image_size,
         oversample=oversample, pixel_pitch=pixel_pitch,
     )
-    psf = huygens_psf_from_data(data, gx, gy, gz, wavelength)
+    psf = psf_of(data, gx, gy, gz, wavelength)
 
     if normalization is None:
-        # on-axis zero-OPD pupil of unit intensity, one image point on axis
+        # on-axis zero-OPD pupil, one image point on axis: of unit intensity
+        # (scalar) or with the actual exit fields (vectorial)
         if (Hx, Hy) != (0.0, 0.0):
             data0 = compute_wavefront_data(system, 0.0, 0.0, wavelength,
                                            xg[mask], yg[mask],
-                                           strategy=strategy)
+                                           strategy=strategy,
+                                           pol_state=pol_state)
         else:
             data0 = data
-        ideal = data0.replace(opd=torch.zeros_like(data0.opd),
-                              intensity=torch.ones_like(data0.intensity))
+        ideal = data0.replace(opd=torch.zeros_like(data0.opd))
+        if not vectorial:
+            ideal = ideal.replace(intensity=torch.ones_like(data0.intensity))
         zero = torch.zeros((1, 1), dtype=gx.dtype, device=gx.device)
         z_img = positions(system.stack)[-1] + zero
-        normalization = huygens_psf_from_data(ideal, zero, zero, z_img,
-                                              wavelength)[0, 0]
+        normalization = psf_of(ideal, zero, zero, z_img, wavelength)[0, 0]
     return psf / normalization * 100.0, pixel_pitch, normalization
 
 
@@ -229,10 +251,12 @@ class ScalarHuygensPSF:
 
 
 class HuygensPSF(ScalarHuygensPSF):
-    """Huygens PSF factory: scalar here; the vectorial PSF of an optic with
-    a polarization state comes with the polarization slice and raises."""
+    """Huygens PSF factory: vectorial when the optic carries a polarization
+    state, scalar otherwise."""
 
     def __new__(cls, optic, *args, **kwargs):
         if cls is HuygensPSF and optic.polarization_state is not None:
-            raise _vectorial_later()
+            from optiland_torch.psf.vectorial import VectorialHuygensPSF
+
+            return VectorialHuygensPSF(optic, *args, **kwargs)
         return super().__new__(cls)

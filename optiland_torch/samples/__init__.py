@@ -1,5 +1,7 @@
-"""Sample optical systems. This slice carries the Cooke triplet; the other
-hand-written and registry systems follow in later slices."""
+"""Sample optical systems: the Cooke triplet, and the polarized systems of
+``samples.polarized`` (examples/08's coated singlet, its coat-kind variants
+and bench.py's polarized classes). The other hand-written and registry
+systems follow in later slices."""
 
 from optiland_torch.samples.objectives import CookeTriplet
 

@@ -8,8 +8,9 @@ handled by weight masks, not by removing them, as in the JAX package.
 
 The traces pass their concrete wavelength to ``core.trace.trace``, so a
 bundle on a CUDA device runs on the trace kernels (K5a forward, K5b in the
-backward); on the CPU the plain engine traces it. Polarized systems come
-with the polarization slice and raise.
+backward; K8/K9 for a polarized system); on the CPU the plain engine traces
+it. For a polarized system (``pol_state``) the intensity is the polarized
+exit intensity and ``E_exits`` holds the exit E-fields.
 
 OPD is returned in waves; wavelengths are micrometers, lengths millimeters.
 """
@@ -25,6 +26,7 @@ from optiland_torch.core import paraxial, raygen
 from optiland_torch.core import trace as trace_core
 from optiland_torch.core.distributions import create_distribution
 from optiland_torch.core.system import System, n_all, positions, scalar_like
+from optiland_torch.polarization import exit_fields, polarized_intensity
 
 
 @dataclasses.dataclass
@@ -37,7 +39,8 @@ class WavefrontData:
     opd: torch.Tensor  # waves
     intensity: torch.Tensor
     radius: torch.Tensor  # reference sphere radius (inf for plane)
-    # the exit E-fields of polarized systems; None here (polarization slice)
+    # the exit E-fields of a polarized system: (R, 3) complex tensors, one
+    # per incoherent polarization state
     E_exits: tuple = None
     # reference center (cx, cy, cz) of the centroid and best-fit strategies
     center: tuple = None
@@ -92,12 +95,14 @@ def _tilt_correction(system: System, Hx, Hy, Px, Py):
 
 
 def _trace_field(system: System, Hx, Hy, Px, Py, wavelength):
-    """Final rays of pupil samples (Px, Py) of one field. The concrete
-    wavelength sends a CUDA bundle to the trace kernels."""
+    """Final rays of pupil samples (Px, Py) of one field, the polarization
+    matrices (None for an unpolarized system) and the launch intensity.
+    The concrete wavelength sends a CUDA bundle to the trace kernels."""
     rays = raygen.generate_rays(system, Hx, Hy, Px, Py, wavelength)
-    final, _ = trace_core.trace(system, rays, record=False,
-                                wavelength=wavelength)
-    return final
+    final, history = trace_core.trace(system, rays, record=False,
+                                      wavelength=wavelength)
+    p = history["p"] if history is not None and "p" in history else None
+    return final, p, rays.i
 
 
 def compute_wavefront_data(
@@ -116,13 +121,24 @@ def compute_wavefront_data(
 
     Differentiable with respect to every leaf of the system. ``strategy``
     in {"chief_ray", "centroid", "best_fit"}; ``reference_type`` in
-    {"sphere", "plane"}. ``wavelength`` is a number (um).
+    {"sphere", "plane"}. ``wavelength`` is a number (um). For a polarized
+    system the intensity is the polarized exit intensity of ``pol_state``
+    (None: unpolarized light) and ``E_exits`` the exit E-fields, both from
+    the launch intensity and directions.
     """
-    if pol_state is not None:
-        raise NotImplementedError(
-            "polarized wavefronts (E_exits, polarized intensity) come with "
-            "the polarization slice (kernels K8/K9)"
-        )
+
+    def pol_kwargs(rays, p, i0):
+        if p is None:
+            return {}
+        return {"E_exits": tuple(exit_fields(p, pol_state, rays.L0, rays.M0,
+                                             rays.N0, i0))}
+
+    def pol_intensity(rays, p, i0):
+        if p is None:
+            return rays.i
+        return polarized_intensity(p, pol_state, rays.L0, rays.M0, rays.N0,
+                                   i0)
+
     if strategy not in ("chief_ray", "centroid", "best_fit"):
         raise ValueError(f"Unknown wavefront strategy: {strategy}")
     like = system.stack.radius
@@ -133,7 +149,7 @@ def compute_wavefront_data(
     inf = torch.full((), float("inf"), dtype=like.dtype, device=like.device)
 
     if strategy == "chief_ray":
-        chief = _trace_field(system, Hx, Hy, 0.0, 0.0, wavelength)
+        chief, _, _ = _trace_field(system, Hx, Hy, 0.0, 0.0, wavelength)
         xc, yc, zc = chief.x[0], chief.y[0], chief.z[0]
         pupil_z = paraxial.XPL(system) + pos[-1]
         if reference_type == "sphere":
@@ -153,7 +169,7 @@ def compute_wavefront_data(
         opd_ref = chief.opd - ref_pl(chief)
         opd_ref = opd_ref + _tilt_correction(system, Hx, Hy, 0.0, 0.0)
 
-        rays = _trace_field(system, Hx, Hy, Px, Py, wavelength)
+        rays, p_mat, i0 = _trace_field(system, Hx, Hy, Px, Py, wavelength)
         opd_img = ref_pl(rays)
         opd = rays.opd - opd_img
         opd = opd + _tilt_correction(system, Hx, Hy, Px, Py)
@@ -165,11 +181,13 @@ def compute_wavefront_data(
             pupil_y=rays.y - t * rays.M,
             pupil_z=rays.z - t * rays.N,
             opd=opd_wv,
-            intensity=rays.i,
+            intensity=pol_intensity(rays, p_mat, i0),
             radius=R,
+            **pol_kwargs(rays, p_mat, i0),
         )
 
-    rays = _trace_field(system, Hx, Hy, Px, Py, wavelength)
+    rays, p_mat, i0 = _trace_field(system, Hx, Hy, Px, Py, wavelength)
+    rays = rays.replace(i=pol_intensity(rays, p_mat, i0))
     opd0 = rays.opd + _tilt_correction(system, Hx, Hy, Px, Py)
 
     finite = (
@@ -261,6 +279,7 @@ def compute_wavefront_data(
         intensity=rays.i,
         radius=R,
         center=center_out,
+        **pol_kwargs(rays, p_mat, i0),
     )
 
 

@@ -20,7 +20,9 @@ ray whose radius falls within rounding of a clip edge may be clipped in one
 and not the other, so at most 1 in 1e4 intensities may differ. The Huygens
 kernels (K10, K11a, K11b): f64 fields to 1e-9 of the largest |field| and
 gradients to 1e-8 of each array's largest entry; f32 within the phase
-rounding bound derived in its test.
+rounding bound derived in its test. The polarized kernels (K8, K9), both
+modes, every coat kind: as the trace kernels, p's entries against the
+largest entry (some vanish exactly).
 """
 
 import dataclasses
@@ -493,3 +495,190 @@ def test_huygens_wrappers_raise_instead_of_falling_back(cuda_device):
         hu.huygens_fwd([strided] + img[1:], pup, k)
     with pytest.raises(ValueError, match="one length"):
         hu.huygens_bwd_pup(img, pup, cots[0][:5], cots[1], k)
+
+
+# ---------------------------------------------------------------------------
+# The polarized kernels K8, K9
+# ---------------------------------------------------------------------------
+
+
+def _pol_case(kind, state, R, seed, device):
+    """A polarized system of one coat kind, its tables, a launch bundle with
+    random intensities and path lengths, and random output cotangents of
+    both modes (numpy seed)."""
+    import numpy as np
+
+    import torch_pol_systems as tps
+    from optiland_torch.ops import pol_trace as pt
+    from optiland_torch.polarization import create_polarization
+
+    system = tps.build(kind, "torch").system
+    spec = pt.pol_spec(system, WL)
+    assert spec is not None, kind
+    rng = np.random.default_rng(seed)
+    Px, Py = (torch.tensor(v, device=device) for v in tps.pupil(R, seed))
+    with torch.no_grad():
+        rays = raygen.generate_rays(system, 0.0, 0.0 if kind == "mirror"
+                                    else 0.5, Px, Py, WL)
+        ins = [getattr(rays, k).contiguous() for k in ftr.RAY_FIELDS]
+        params = ft.build_param_table(system, WL).contiguous()
+    ins[6] = torch.tensor(0.5 + 0.5 * rng.uniform(size=R), device=device)
+    ins[7] = torch.tensor(rng.uniform(size=R), device=device)
+    cots = [torch.tensor(rng.normal(size=R), device=device)
+            for _ in range(pt.N_POL)]
+    coat = pt.build_coat_table(system, WL, torch.float64, device)
+    states = pt.pol_states(None if state == "unpolarized"
+                           else create_polarization(state))
+    return system, spec, params, coat, ins, cots, states
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("state", ["H", "unpolarized"])
+@pytest.mark.parametrize("kind", ["fresnel", "none", "simple", "polarizer",
+                                  "retarder", "tmm", "mirror"])
+def test_pol_kernels_match_plain_f64(cuda_device, kind, state):
+    from optiland_torch.ops import pol_trace as pt
+
+    system, spec, params, coat, ins, cots, states = _pol_case(
+        kind, state, 20001, 7, cuda_device)
+    nc = system.stack.coeffs.shape[1]
+    for intensity in (False, True):
+        c = cots[:8] if intensity else cots
+        got = pt.pol_fwd(params, coat, spec, ins, states, intensity)
+        ref = pt.pol_fwd_plain(params, coat, spec, ins, states, intensity)
+        _close(got[:8], ref[:8], 1e-10, f"pol_fwd {kind} {intensity}")
+        # p's entries against the largest: some vanish exactly, and their
+        # rounding noise has no scale of its own
+        p_scale = max([float(v.abs().max()) for v in ref[8:]] + [0.0])
+        for k, (a, b) in enumerate(zip(got[8:], ref[8:])):
+            torch.testing.assert_close(a, b, rtol=1e-10, atol=1e-12 * p_scale,
+                                       msg=f"pol_fwd {kind} p entry {k}")
+        din, flat = pt.pol_bwd(params, coat, spec, nc, ins, c, states,
+                               intensity)
+        din_p, flat_p = pt.pol_bwd(params.cpu(), coat.cpu(), spec, nc,
+                                   [t.cpu() for t in ins],
+                                   [t.cpu() for t in c], states, intensity)
+        _close([t.cpu() for t in din], din_p, 1e-10,
+               f"pol_bwd {kind} {intensity} input cotangent")
+        torch.testing.assert_close(flat.cpu(), flat_p, rtol=1e-9,
+                                   atol=1e-12 * float(flat_p.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["fresnel", "tmm", "polarizer"])
+def test_pol_kernels_f32_match_f64(cuda_device, kind):
+    from optiland_torch.ops import pol_trace as pt
+
+    system, spec, params, coat, ins, cots, states = _pol_case(
+        kind, "H", 20001, 8, cuda_device)
+    nc = system.stack.coeffs.shape[1]
+    p32, c32 = params.float(), coat.float()
+    ins32 = [t.float() for t in ins]
+
+    def l2(a, b):
+        return float(torch.linalg.vector_norm(a.double() - b)
+                     / torch.linalg.vector_norm(b))
+
+    for intensity in (False, True):
+        c = cots[:8] if intensity else cots
+        _near(pt.pol_fwd(p32, c32, spec, ins32, states, intensity),
+              pt.pol_fwd_plain(params, coat, spec, ins, states, intensity),
+              f"pol_fwd f32 {intensity}")
+        din, flat = pt.pol_bwd(p32, c32, spec, nc, ins32,
+                               [t.float() for t in c], states, intensity)
+        din_p, flat_p = pt.pol_bwd(params, coat, spec, nc, ins, c, states,
+                                   intensity)
+        assert l2(flat, flat_p) <= 1e-3
+        _near(din[:6], din_p[:6], f"pol_bwd f32 {intensity}")
+
+
+@pytest.mark.cuda
+def test_pol_trace_dispatch(cuda_device):
+    import torch_pol_systems as tps
+    from optiland_torch.ops import pol_trace as pt
+
+    Px, Py = (torch.tensor(v, device=cuda_device) for v in tps.pupil(999, 4))
+    # a pol_supported system runs K8 (and K9 under autograd)
+    system = tps.build("fresnel", "torch").system
+    s2, leaves = _leaf_system(system)
+    pt.reset_launch_counts()
+    ftr.reset_launch_counts()
+    rays = raygen.generate_rays(s2, *H, Px, Py, WL)
+    out, hist = trace_core.trace(s2, rays, record=False, wavelength=WL)
+    p = hist["p"]
+    (out.y.square().mean() + (p.real.square() + p.imag.square()).mean()
+     ).backward()
+    torch.cuda.synchronize()
+    assert pt.LAUNCHES == {"pol_fwd": 1, "pol_bwd": 1, "pol_fwd_intensity": 0,
+                           "pol_bwd_intensity": 0}
+    assert sum(ftr.LAUNCHES.values()) == 0
+    assert torch.isfinite(leaves["radius"].grad[1:-1]).all()
+    # the same rays through the plain engine (with a history)
+    rays = raygen.generate_rays(system, *H, Px, Py, WL)
+    _, href = trace_core.trace(system, rays, record=True, wavelength=WL)
+    torch.testing.assert_close(p.detach(), href["p"], rtol=1e-9, atol=1e-12)
+    # a tilted one raises rather than running the plain engine on the card
+    rx = torch.zeros(system.cfg.num_surfaces, dtype=torch.float64,
+                     device=cuda_device)
+    rx[1] = 0.01
+    tilted = system.replace(
+        stack=system.stack.replace(rx=system.stack.rx + rx),
+        cfg=dataclasses.replace(system.cfg, has_tilts=True))
+    trays = raygen.generate_rays(tilted, *H, Px, Py, WL)
+    with pytest.raises(NotImplementedError, match="K6"):
+        trace_core.trace(tilted, trays, record=False, wavelength=WL)
+    # what the JAX package's kernels would not take either runs the plain
+    # engine: an absorbing thin-film stack, an unpolarized coated system
+    pt.reset_launch_counts()
+    absorbing = tps.pol_doublet("torch", coat=tps.tmm_coating(
+        "torch", absorbing=True)).system
+    assert not pt.kernel_eligible(absorbing, WL)
+    rays = raygen.generate_rays(absorbing, *H, Px, Py, WL)
+    out, hist = trace_core.trace(absorbing, rays, record=False, wavelength=WL)
+    assert torch.isfinite(hist["p"]).all()
+    from optiland_torch.coatings import SimpleCoating
+
+    plain = tps.pol_doublet("torch", pol=None, coat=SimpleCoating(0.9, 0.05))
+    rays = raygen.generate_rays(plain.system, *H, Px, Py, WL)
+    out, hist = trace_core.trace(plain.system, rays, record=False,
+                                 wavelength=WL)
+    assert hist is None and torch.isfinite(out.i).all()
+    assert sum(pt.LAUNCHES.values()) == 0 and sum(ftr.LAUNCHES.values()) == 0
+
+
+@pytest.mark.cuda
+def test_pol_intensity_entry_and_vectorial_psf_launches(cuda_device):
+    import torch_pol_systems as tps
+    from optiland_torch.ops import pol_trace as pt
+    from optiland_torch.polarization import (
+        create_polarization, polarized_intensity,
+    )
+    from optiland_torch.psf import HuygensPSF, VectorialHuygensPSF
+
+    system = tps.build("fresnel", "torch").system
+    state = create_polarization("H")
+    Px, Py = (torch.tensor(v, device=cuda_device) for v in tps.pupil(3001, 5))
+    s2, leaves = _leaf_system(system)
+    pt.reset_launch_counts()
+    rays = raygen.generate_rays(s2, *H, Px, Py, WL)
+    out = pt.trace_fast_pol_intensity(s2, rays, WL, state=state)
+    (out.x * out.i).square().mean().backward()
+    torch.cuda.synchronize()
+    assert pt.LAUNCHES == {"pol_fwd": 0, "pol_bwd": 0, "pol_fwd_intensity": 1,
+                           "pol_bwd_intensity": 1}
+    with torch.no_grad():
+        full, p = pt.trace_fast_pol(system, rays, WL)
+        i_ref = polarized_intensity(p, state, rays.L, rays.M, rays.N, rays.i)
+    torch.testing.assert_close(out.i.detach(), i_ref, rtol=1e-10, atol=1e-13)
+    hu.reset_launch_counts()
+    pt.reset_launch_counts()
+    psf = HuygensPSF(tps.pol_doublet("torch", epd=4.0), (0.0, 0.0), WL,
+                     num_rays=32, image_size=16)
+    torch.cuda.synchronize()
+    assert isinstance(psf, VectorialHuygensPSF)
+    # 3 components x (field sum, normalization); 4 traces (chief ray,
+    # pupil, image grid, working F-number)
+    assert hu.LAUNCHES == {"huygens_fwd": 6, "huygens_bwd_img": 0,
+                           "huygens_bwd_pup": 0}
+    assert pt.LAUNCHES["pol_fwd"] == 4 and pt.LAUNCHES["pol_bwd"] == 0
+    assert 0 < psf.strehl_ratio() <= 1.2

@@ -36,7 +36,6 @@ from optiland_torch.ops import huygens as hu
 from optiland_torch.psf import HuygensPSF as THuygensPSF
 from optiland_torch.psf import huygens_field as t_field
 from optiland_torch.psf import huygens_psf as t_psf
-from optiland_torch.psf import huygens_fresnel as t_hf
 from optiland_torch.samples import CookeTriplet as TCooke
 from optiland_tpu.ops.pallas_huygens import huygens_field_pallas
 from optiland_tpu.psf import HuygensPSF as JHuygensPSF
@@ -259,18 +258,40 @@ def test_huygens_psf_options_match_jax(monkeypatch, opts):
 
 
 def test_vectorial_and_polarized_raise():
+    # the vectorial PSF needs the exit fields of a polarized system
     lens = TCooke()
-    with pytest.raises(NotImplementedError, match="K8/K9"):
+    with pytest.raises(ValueError, match="E_exits"):
         t_psf(lens.system, 0.0, 0.0, 0.55, num_rays=8, image_size=4,
               vectorial=True)
-    with pytest.raises(NotImplementedError, match="K8/K9"):
-        t_hf.vectorial_huygens_psf_from_data(None, None, None, None, 0.55)
+    import torch_pol_systems as tps
+    from optiland_torch.psf import VectorialFFTPSF, VectorialHuygensPSF
 
-    class Polarized(TCooke):
-        polarization_state = "unpolarized"
+    pol = tps.pol_doublet("torch", "H", epd=4.0)
+    assert isinstance(THuygensPSF(pol, (0.0, 0.0), 0.55, num_rays=8,
+                                  image_size=4), VectorialHuygensPSF)
+    assert type(THuygensPSF(TCooke(), (0.0, 0.0), 0.55, num_rays=8,
+                            image_size=4)) is THuygensPSF
+    with pytest.raises(NotImplementedError, match="FFT PSF"):
+        VectorialFFTPSF(pol, (0.0, 0.0))
 
-    with pytest.raises(NotImplementedError, match="polarization slice"):
-        THuygensPSF(Polarized(), (0.0, 0.0), 0.55, num_rays=8, image_size=4)
+
+def test_vectorial_psf_matches_jax(monkeypatch):
+    """examples/08's coated doublet at EPD 4 (without its image solve):
+    the vectorial PSF against JAX's (its jnp path, jitted) to 1e-9 of the
+    peak."""
+    import torch_pol_systems as tps
+
+    monkeypatch.setenv("OPTILAND_TPU_NATIVE", "0")
+    to = tps.pol_doublet("torch", "H", epd=4.0)
+    jo = tps.pol_doublet("jax", "H", epd=4.0)
+    h = THuygensPSF(to, (0.0, 0.0), 0.55, num_rays=32, image_size=32)
+    ref = jax.jit(lambda s: j_psf(
+        s, 0.0, 0.0, 0.55, num_rays=32, image_size=32,
+        pol_state=jo.polarization_state, vectorial=True)[0])(jo.system)
+    peak = float(np.abs(np.asarray(ref)).max())
+    np.testing.assert_allclose(h.psf.numpy(), np.asarray(ref), rtol=0,
+                               atol=1e-9 * peak)
+    assert 0 < h.strehl_ratio() < 1
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,301 @@
+"""optiland_torch's polarization, coatings, thin-film stacks and their
+system records against the JAX package, on the CPU in float64 and
+complex128.
+
+The same inputs, made from numpy seeds, go through both packages; data
+passes between them as numpy arrays. Tolerance: rtol 1e-12 with atol 1e-14
+(the same formulas, evaluated in another order at most), except where
+noted.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import torch_pol_systems as tps
+from optiland_torch import coatings as tc
+from optiland_torch import config
+from optiland_torch import polarization as tpol
+from optiland_torch.core.system import STACK_FIELDS
+from optiland_torch.materials import IdealMaterial as TIdeal
+from optiland_torch.materials import Material as TMaterial
+from optiland_torch.materials import material_from_record
+from optiland_torch.thin_film import ThinFilmStack as TStack
+from optiland_torch.thin_film import tmm_coherent as t_tmm
+from optiland_tpu import coatings as jc
+from optiland_tpu import polarization as jpol
+from optiland_tpu.materials import IdealMaterial as JIdeal
+from optiland_tpu.materials import Material as JMaterial
+from optiland_tpu.thin_film import ThinFilmStack as JStack
+from optiland_tpu.thin_film import tmm_coherent as j_tmm
+
+RTOL, ATOL = 1e-12, 1e-14
+
+
+@pytest.fixture(autouse=True)
+def _cpu_f64():
+    config.set_device("cpu")
+    config.set_precision("float64")
+    yield
+    config.set_device("cpu")
+    config.set_precision("float64")
+
+
+def close(a, b, rtol=RTOL, atol=ATOL, msg=""):
+    a = a.detach().numpy() if torch.is_tensor(a) else np.asarray(a)
+    np.testing.assert_allclose(a, np.asarray(b), rtol=rtol, atol=atol,
+                               err_msg=msg)
+
+
+def unit(v):
+    return v / np.linalg.norm(v, axis=1, keepdims=True)
+
+
+def directions(seed, n=64):
+    """k0, k1 (n, 3): random pairs, then the degenerate ones: k1 = k0,
+    k1 = -k0, k0 along x (the second fallback), and near-parallel pairs."""
+    rng = np.random.default_rng(seed)
+    k0 = unit(rng.normal(size=(n, 3)) + [0, 0, 2])
+    k1 = unit(k0 + 0.3 * rng.normal(size=(n, 3)))
+    k0[:4] = [[0, 0, 1], [0, 0, 1], [1, 0, 0], [0.6, 0, 0.8]]
+    k1[:4] = [[0, 0, 1], [0, 0, -1], [1, 0, 0], [0.6, 0, 0.8]]
+    k1[4] = unit(k0[4:5] + 1e-14)[0]
+    return k0, k1
+
+
+def test_local_basis_matches_jax_with_degenerate_rays():
+    k0, k1 = directions(1)
+    t = tpol.local_basis(torch.tensor(k0), torch.tensor(k1))
+    j = jpol.local_basis(jnp.asarray(k0), jnp.asarray(k1))
+    for a, b, name in zip(t, j, ("s", "p0", "p1", "o_in", "o_out")):
+        close(a, b, msg=name)
+    # the fallback gives a unit s orthogonal to k0
+    s = t[0].numpy()
+    np.testing.assert_allclose(np.linalg.norm(s, axis=1), 1.0, rtol=1e-14)
+    assert np.abs(np.sum(s * k0, axis=1)).max() < 1e-14
+
+
+def random_p(rng, n):
+    return (rng.normal(size=(n, 3, 3)) + 1j * rng.normal(size=(n, 3, 3)))
+
+
+@pytest.mark.parametrize("with_jones", [False, True])
+def test_update_p_matches_jax(with_jones):
+    rng = np.random.default_rng(2)
+    k0, k1 = directions(3)
+    n = k0.shape[0]
+    p = random_p(rng, n)
+    J = random_p(rng, n) if with_jones else None
+    t = tpol.update_p(torch.tensor(p), *torch.tensor(k0).unbind(1),
+                      *torch.tensor(k1).unbind(1),
+                      None if J is None else torch.tensor(J))
+    j = jpol.update_p(jnp.asarray(p), *jnp.asarray(k0).T, *jnp.asarray(k1).T,
+                      None if J is None else jnp.asarray(J))
+    close(t, j)
+
+
+@pytest.mark.parametrize("state", ["H", "V", "L+45", "RCP", "LCP",
+                                   "unpolarized"])
+def test_intensity_and_exit_fields_match_jax(state):
+    rng = np.random.default_rng(4)
+    k0, _ = directions(5)
+    k0[5] = [1.0, 0.0, 0.0]  # k x xhat vanishes: the launch basis' guard
+    n = k0.shape[0]
+    p = random_p(rng, n)
+    i0 = rng.uniform(0.5, 1.0, n)
+    st_t, st_j = tpol.create_polarization(state), jpol.create_polarization(state)
+    args_t = (torch.tensor(p), st_t, *torch.tensor(k0).unbind(1),
+              torch.tensor(i0))
+    args_j = (jnp.asarray(p), st_j, *jnp.asarray(k0).T, jnp.asarray(i0))
+    close(tpol.polarized_intensity(*args_t), jpol.polarized_intensity(*args_j))
+    for a, b in zip(tpol.exit_fields(*args_t), jpol.exit_fields(*args_j)):
+        close(a, b)
+    if st_t.is_polarized:
+        close(tpol.get_3d_electric_field(st_t, *torch.tensor(k0).unbind(1)),
+              jpol.get_3d_electric_field(st_j, *jnp.asarray(k0).T))
+    assert str(st_t) == str(st_j)
+
+
+def test_polarization_state_errors():
+    with pytest.raises(ValueError):
+        tpol.PolarizationState(True, 1.0, None, 0.0, 0.0)
+    with pytest.raises(ValueError):
+        tpol.PolarizationState(False, Ex=1.0)
+    with pytest.raises(ValueError):
+        tpol.create_polarization("X")
+    assert tpol.complex_dtype(torch.float32) == torch.complex64
+
+
+def jones_pair(name):
+    """The same Jones model in both packages."""
+    if name == "fresnel":
+        return (tpol.JonesFresnel(TIdeal(1.5168), TIdeal(1.0)),
+                jpol.JonesFresnel(JIdeal(1.5168), JIdeal(1.0)))
+    if name == "fresnel_glass":
+        return (tpol.JonesFresnel(TMaterial("N-BK7"), TIdeal(1.0)),
+                jpol.JonesFresnel(JMaterial("N-BK7"), JIdeal(1.0)))
+    if name == "thin_film":
+        return (tpol.JonesThinFilm(thin_film_stack("torch", absorbing=True)),
+                jpol.JonesThinFilm(thin_film_stack("jax", absorbing=True)))
+    args = {
+        "base": (), "polarizer": ((1, 0.3, 0.2),), "H": (), "V": (),
+        "L45": (), "L135": (), "RCP": (), "LCP": (),
+        # entries exact in float32, which the JAX package's ConstantJones
+        # passes them through
+        "constant": (0.5, 0.25j, -0.125, 0.75 + 0.125j),
+        "diattenuator": (0.2, 0.9, (0.3, 1, 0)),
+        "retarder": (np.pi / 3, (1, 0.4, 0)),
+        "retarder_theta": (np.pi / 5, 0.7),
+        "quarter": ((0.2, 1, 0),), "half": (),
+    }[name]
+    cls = {"base": "BaseJones", "polarizer": "JonesLinearPolarizer",
+           "H": "JonesPolarizerH", "V": "JonesPolarizerV",
+           "L45": "JonesPolarizerL45", "L135": "JonesPolarizerL135",
+           "RCP": "JonesPolarizerRCP", "LCP": "JonesPolarizerLCP",
+           "constant": "ConstantJones",
+           "diattenuator": "JonesLinearDiattenuator",
+           "retarder": "JonesLinearRetarder",
+           "retarder_theta": "JonesLinearRetarder",
+           "quarter": "JonesQuarterWaveRetarder",
+           "half": "JonesHalfWaveRetarder"}[name]
+    return getattr(tpol, cls)(*args), getattr(jpol, cls)(*args)
+
+
+@pytest.mark.parametrize("reflect", [False, True])
+@pytest.mark.parametrize("name", [
+    "base", "fresnel", "fresnel_glass", "polarizer", "H", "V", "L45", "L135",
+    "RCP", "LCP", "constant", "diattenuator", "retarder", "retarder_theta",
+    "quarter", "half", "thin_film"])
+def test_jones_models_match_jax(name, reflect):
+    # glass to air across the critical angle (~41.2 deg): total internal
+    # reflection carries the evanescent phase
+    k0, k1 = directions(6, n=40)
+    aoi = np.linspace(0.0, 1.4, 40)
+    jt, jj = jones_pair(name)
+    w = np.full(40, 0.55)
+    t = jt.calculate_matrix(*torch.tensor(k0).unbind(1),
+                            *torch.tensor(k1).unbind(1), torch.tensor(w),
+                            reflect=reflect, aoi=torch.tensor(aoi))
+    j = jj.calculate_matrix(*jnp.asarray(k0).T, *jnp.asarray(k1).T,
+                            jnp.asarray(w), reflect=reflect,
+                            aoi=jnp.asarray(aoi))
+    close(t, j)
+    if name == "fresnel" and reflect:
+        tir = aoi > np.arcsin(1.0 / 1.5168)
+        rs = t[:, 0, 0].numpy()[tir]
+        np.testing.assert_allclose(np.abs(rs), 1.0, atol=1e-12)
+        assert np.abs(rs.imag).max() > 1e-3
+
+
+def thin_film_stack(package, absorbing=False):
+    Stack, Ideal = (TStack, TIdeal) if package == "torch" else (JStack, JIdeal)
+    st = Stack(Ideal(1.0), Ideal(1.52), reference_wl_um=0.55)
+    st.add_layer_qwot(Ideal(1.38))
+    st.add_layer(Ideal(2.35, 0.05 if absorbing else 0.0), 0.08)
+    st.add_layer_nm("N-BK7" if package == "torch" else "N-BK7", 120.0)
+    return st
+
+
+@pytest.mark.parametrize("pol", ["s", "p", "u"])
+@pytest.mark.parametrize("absorbing", [False, True])
+def test_compute_rtRTA_matches_jax(pol, absorbing):
+    wl = np.linspace(0.45, 0.7, 11)[:, None]
+    aoi = np.linspace(0.0, 1.3, 7)[None, :]
+    t = thin_film_stack("torch", absorbing).compute_rtRTA(
+        torch.tensor(wl), torch.tensor(aoi), pol)
+    j = thin_film_stack("jax", absorbing).compute_rtRTA(
+        jnp.asarray(wl), jnp.asarray(aoi), pol)
+    for a, b, name in zip(t, j, ("r", "t", "R", "T", "A")):
+        close(a, b, msg=name)
+    st = thin_film_stack("torch", absorbing)
+    assert len(st) == 3 and st.layers[0].thickness_um == pytest.approx(
+        0.55 / (4 * 1.38))
+    close(st.reflectance_nm_deg(550.0, 30.0, pol),
+          thin_film_stack("jax", absorbing).reflectance_nm_deg(550.0, 30.0,
+                                                               pol))
+
+
+def test_tmm_coherent_and_stack_edits_match_jax():
+    rng = np.random.default_rng(7)
+    n_l = [1.38 + 0.0j, 2.1 + 0.01j]
+    d_l = [0.1, 0.07]
+    aoi = rng.uniform(0, 1.2, 9)
+    for pol in ("s", "p"):
+        c128 = torch.complex128
+        t = t_tmm([torch.tensor(n, dtype=c128) for n in n_l], d_l,
+                  torch.tensor(1.0 + 0j, dtype=c128),
+                  torch.tensor(1.52 + 0j, dtype=c128),
+                  torch.tensor(0.55, dtype=torch.float64), torch.tensor(aoi),
+                  pol)
+        j = j_tmm([jnp.asarray(n) for n in n_l], d_l, jnp.asarray(1.0 + 0j),
+                  jnp.asarray(1.52 + 0j), 0.55, jnp.asarray(aoi), pol)
+        for a, b in zip(t, j):
+            close(a, b)
+    st = thin_film_stack("torch").split_layer(0, 0.25)
+    sj = thin_film_stack("jax").split_layer(0, 0.25)
+    st.insert_layer(1, TIdeal(1.6), 0.01)
+    sj.insert_layer(1, JIdeal(1.6), 0.01)
+    st.remove_layer(3)
+    sj.remove_layer(3)
+    close(st.copy().thicknesses(), sj.copy().thicknesses())
+    close(st.RTA(0.6, 0.2, "p")[0], sj.RTA(0.6, 0.2, "p")[0])
+
+
+@pytest.mark.parametrize("wl", [0.45, 0.55, 0.9])
+def test_material_n_and_k_match_jax(wl):
+    for t, j in ((TIdeal(1.7, 0.02), JIdeal(1.7, 0.02)),
+                 (TMaterial("N-BK7"), JMaterial("N-BK7")),
+                 (TMaterial("SF11"), JMaterial("SF11"))):
+        close(t.n(wl), j.n(wl))
+        close(t.k(wl), j.k(wl))
+        w = np.array([wl, wl * 1.1])
+        close(t.n(torch.tensor(w)), j.n(jnp.asarray(w)))
+        # the record carries the material's numbers
+        m = material_from_record(t.record())
+        close(m.n(w), j.n(jnp.asarray(w)))
+        assert m.record() == t.record()
+
+
+@pytest.mark.parametrize("kind", ["fresnel", "simple", "polarizer",
+                                  "retarder", "tmm", "mirror"])
+def test_system_from_numpy_carries_coatings(kind):
+    port = tps.build(kind, "torch").system
+    sys_c = tps.carried(tps.build(kind, "jax").system)
+    assert sys_c.cfg == port.cfg and sys_c.cfg.polarized
+    for k in STACK_FIELDS:
+        assert torch.equal(getattr(sys_c.stack, k), getattr(port.stack, k)), k
+    for c_t, c_c in zip(port.cfg.coatings, sys_c.cfg.coatings):
+        assert c_t == c_c
+        if c_t is not None:
+            assert tc.coating_from_record(c_t.record()) == c_t
+            assert hash(c_t) == hash(c_c)
+
+
+def test_coatings_match_jax():
+    k0, k1 = directions(8, n=30)
+    nrm = unit(k0 + np.array([0.1, -0.2, 0.3]))
+    args = [*torch.tensor(k0).unbind(1), *torch.tensor(nrm).unbind(1)]
+    close(tc.BaseCoating.compute_aoi(*args),
+          jc.BaseCoating.compute_aoi(*jnp.asarray(k0).T,
+                                     *jnp.asarray(nrm).T))
+    s_t, s_j = tc.SimpleCoating(0.8, 0.15), jc.SimpleCoating(0.8, 0.15)
+    for refl in (False, True):
+        assert s_t.intensity_factor(refl) == s_j.intensity_factor(refl)
+    assert s_t.absorptance == pytest.approx(s_j.absorptance)
+    assert tc.BaseCoating().jones() is None and not s_t.polarization_dependent
+    r_t = tc.RetarderCoating(np.pi / 2, theta=0.3)
+    assert r_t.polarization_dependent and r_t.jones().axis[2] == 0.0
+    with pytest.raises(NotImplementedError, match="coatings"):
+        tc.coating_from_record(("grating", 1))
+
+
+def test_optic_coatings_need_polarization():
+    o = tps.pol_doublet("torch", pol=None)
+    with pytest.raises(ValueError, match="Polarization must be set"):
+        o.system
+    o.set_polarization("H")
+    assert o.system.cfg.polarized
+    assert isinstance(o.system.cfg.coatings[1], tc.FresnelCoating)
+    o = tps.pol_doublet("torch", pol=None, coat=tc.SimpleCoating(0.9))
+    assert not o.system.cfg.polarized and o.polarization_state is None

@@ -62,7 +62,8 @@ def jax_to_numpy(system):
 
 def test_import_blocks_jax_and_optiland_tpu():
     """Every module of the port imports, CookeTriplet builds, traces and
-    gives a Huygens PSF, with jax and optiland_tpu made unimportable."""
+    gives a Huygens PSF, and a polarized optic traces and gives a vectorial
+    PSF, with jax and optiland_tpu made unimportable."""
     code = textwrap.dedent(
         """
         import importlib, pkgutil, sys
@@ -87,6 +88,23 @@ def test_import_blocks_jax_and_optiland_tpu():
         from optiland_torch.psf import HuygensPSF
         psf = HuygensPSF(lens, (0.0, 0.7), 0.55, num_rays=8, image_size=4)
         assert psf.psf.shape == (4, 4) and 0 < psf.strehl_ratio() <= 1.2
+        # the polarized path: a coated optic, its trace and vectorial PSF
+        from optiland_torch.optic import Optic
+        o = Optic()
+        o.surfaces.add(index=0, radius=float("inf"), thickness=float("inf"))
+        o.surfaces.add(index=1, radius=50.0, thickness=5.0,
+                       material="N-BK7", is_stop=True, coating="fresnel")
+        o.surfaces.add(index=2, radius=-50.0, thickness=45.0,
+                       coating="fresnel")
+        o.surfaces.add(index=3)
+        o.set_aperture("EPD", 4.0)
+        o.fields.add(y=0)
+        o.wavelengths.add(0.55, is_primary=True)
+        o.set_polarization("H")
+        r = o.trace(num_rays=3)
+        assert r.p.shape == (37, 3, 3)
+        vpsf = HuygensPSF(o, (0.0, 0.0), 0.55, num_rays=8, image_size=4)
+        assert type(vpsf).__name__ == "VectorialHuygensPSF"
         print(float(lens.paraxial.f2()))
         assert not any(k.split(".")[0] in ("jax", "optiland_tpu")
                        for k in sys.modules)

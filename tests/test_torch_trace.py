@@ -285,12 +285,20 @@ def test_record_false_traces_tilted_systems_on_the_cpu():
 def test_trace_later_slices_raise():
     system = TCooke().system
     rays = traygen.generate_rays(system, 0.0, 0.0, 0.0, 0.0, 0.55)
-    for name in ("apertures", "interactions", "coatings", "bsdfs"):
+    for name in ("apertures", "interactions", "bsdfs"):
         vals = (None,) * 7 + (("x",),)
         bad = system.replace(cfg=dataclasses.replace(system.cfg,
                                                      **{name: vals}))
         with pytest.raises(NotImplementedError, match="later slice"):
             ttrace.trace(bad, rays)
+    # coatings are ported (slice 4): a simple coating scales the intensity
+    from optiland_torch.coatings import SimpleCoating
+
+    coated = system.replace(cfg=dataclasses.replace(
+        system.cfg, coatings=(None,) * 7 + (SimpleCoating(0.5),)))
+    out, _ = ttrace.trace(coated, rays)
+    ref, _ = ttrace.trace(system, rays)
+    torch.testing.assert_close(out.i, 0.5 * ref.i)
 
 
 # ---------------------------------------------------------------------------

@@ -13,6 +13,7 @@ tolerances (``tests/test_wavefront_psf.py``). ``EPL``, ``XPL`` and ``EPD``
 for the four aperture types to rtol 1e-12.
 """
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -135,10 +136,34 @@ def test_wavefront_options_and_errors():
     with pytest.raises(ValueError, match="Unknown wavefront strategy"):
         t_wavefront(lens.system, 0.0, 0.0, 0.55, [0.0], [0.0],
                     strategy="zonal")
-    with pytest.raises(NotImplementedError, match="polarization"):
-        t_wavefront(lens.system, 0.0, 0.0, 0.55, [0.0], [0.0],
-                    pol_state=object())
+    # a polarization state on an unpolarized system changes nothing, as in
+    # the JAX package: no E_exits, the trace's own intensity
+    plain = t_wavefront(lens.system, 0.0, 0.5, 0.55, [0.1], [0.2])
+    with_state = t_wavefront(lens.system, 0.0, 0.5, 0.55, [0.1], [0.2],
+                             pol_state=object())
+    assert with_state.E_exits is None
+    assert torch.equal(with_state.intensity, plain.intensity)
     assert lens.polarization_state is None
+
+
+@pytest.mark.parametrize("strategy", ["chief_ray", "centroid", "best_fit"])
+def test_polarized_wavefront_matches_jax(strategy):
+    """The polarized doublet (Fresnel coatings, RCP) at full field: the
+    polarized intensity and the exit E-fields (one per state) to 1e-10."""
+    import torch_pol_systems as tps
+
+    Px, Py = _pupil(n=40, seed=3)
+    to, jo = tps.pol_doublet("torch", "RCP"), tps.pol_doublet("jax", "RCP")
+    got = t_wavefront(to.system, 0.0, 1.0, 0.55, Px, Py, strategy=strategy,
+                      pol_state=to.polarization_state)
+    ref = jax.jit(lambda s: j_wavefront(
+        s, 0.0, 1.0, 0.55, Px, Py, strategy=strategy,
+        pol_state=jo.polarization_state))(jo.system)
+    for k in ARRAYS:
+        _close(getattr(got, k), getattr(ref, k),
+               0.55e-3 if k == "opd" else 1.0, k)
+    assert len(got.E_exits) == len(ref.E_exits) == 1
+    _close(got.E_exits[0], ref.E_exits[0], what="E_exits")
 
 
 # ---------------------------------------------------------------------------

@@ -14,15 +14,21 @@ triplet (float32, field (0, 0.7), 0.55 um), of
     ``prng_disk``;
   * ``huygens``: the centre pixel (Strehl) of ``psf.huygens_psf`` at its
     defaults (128 x 128 image points, 12,644 pupil points): wavefronts and
-    image grid on the trace kernels, field sums on the Huygens kernels.
+    image grid on the trace kernels, field sums on the Huygens kernels;
+  * ``pol``: ``bench.py``'s polarized step on its Fresnel-coated N-BK7
+    singlet (H polarization) instead of the Cooke triplet: the spread of
+    (x i, y i) with the exit intensity formed in the kernel
+    (``trace_fast_pol_intensity``: pol_fwd_intensity, pol_bwd_intensity),
+    pupil samples from ``prng_disk``, gradient over the singlet's two radii.
 
 This script reports, for that step:
 
   * the median wall time of the step (CUDA events, as in chip_smoke.py);
   * the same step split into its parts with a synchronize after each
     (the launch side alone: the param table and aim vector, for the
-    generic path generate_rays, for the Huygens path the two wavefronts and
-    the image grid; the whole forward; the backward), host clock;
+    generic and polarized paths generate_rays, for the Huygens path the two
+    wavefronts and the image grid; the whole forward; the backward), host
+    clock;
   * from ``torch.profiler`` over a few steps: the device time per step
     summed over all kernels, the device idle share of the step, the number
     of kernel launches, host syncs (``cudaStreamSynchronize``) and memcpy
@@ -56,7 +62,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--path", choices=("merit", "generic", "field", "huygens"),
+    ap.add_argument("--path", choices=("merit", "generic", "field", "huygens",
+                                       "pol"),
                     default="merit", help="which step is profiled")
     ap.add_argument("--log2", type=int, default=24, help="log2 of the rays")
     ap.add_argument("--steps", type=int, default=10, help="profiled steps")
@@ -80,6 +87,7 @@ def main(argv=None):
         from optiland_torch.analysis import rms_spot_size
         from optiland_torch.core import raygen
         from optiland_torch.ops import fast_trace as ftr
+        from optiland_torch.ops import pol_trace as pt
         from optiland_torch.psf import huygens_fresnel as hf
         from optiland_torch.wavefront import compute_wavefront_data
 
@@ -93,7 +101,15 @@ def main(argv=None):
     config.set_precision("float32")
     R = 1 << args.log2
     H, WL = (0.0, 0.7), 0.55
-    base = CookeTriplet().system
+    if args.path == "pol":
+        from optiland_torch.polarization import create_polarization
+        from optiland_torch.samples.polarized import bench_polarized
+
+        state = create_polarization("H")
+        base = bench_polarized().system
+    else:
+        base = CookeTriplet().system
+    n_surf = base.cfg.num_surfaces - 1
     stack = base.stack
     r_inner = torch.nn.Parameter(stack.radius[1:-1].detach().clone())
 
@@ -108,7 +124,7 @@ def main(argv=None):
 
     def launch_side(sysk, i):
         """The path's launch side alone, under autograd."""
-        if args.path == "generic":
+        if args.path in ("generic", "pol"):
             return raygen.generate_rays(sysk, *H, *pupil(i), WL)
         if args.path == "huygens":
             xg, yg, mask = hf.pupil_grid_coords(128)
@@ -126,6 +142,12 @@ def main(argv=None):
             return rms_spot_size(system_of(), *H, *pupil(i), WL)
         if args.path == "huygens":
             return hf.huygens_psf(system_of(), *H, WL)[0][64, 64] / 100
+        if args.path == "pol":
+            sysk = system_of()
+            rays = raygen.generate_rays(sysk, *H, *pupil(i), WL)
+            out = pt.trace_fast_pol_intensity(sysk, rays, WL, state=state)
+            x, y = out.x * out.i, out.y * out.i
+            return ((x - x.mean()) ** 2 + (y - y.mean()) ** 2).mean()
         f = ftr.trace_fast_field(system_of(), *H, *pupil(i), WL)
         return ((f.x - f.x.mean()) ** 2 + (f.y - f.y.mean()) ** 2).mean()
 
@@ -214,7 +236,7 @@ def main(argv=None):
           f", {args.path} path; step wall {wall_ms:.3f} ms (median of "
           f"{args.steps}); "
           + ("" if args.path == "huygens" else
-             f"ray-surf/s {R * 7 / (wall_ms * 1e-3):.4e}; ")
+             f"ray-surf/s {R * n_surf / (wall_ms * 1e-3):.4e}; ")
           + f"idle share of the "
           f"unprofiled step {1 - dev_us / 1e3 / wall_ms:.3f}", flush=True)
     print("synchronized parts (ms): " + ", ".join(
