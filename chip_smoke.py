@@ -2,9 +2,9 @@
 """Chip smoke test of optiland_torch's main path on one CUDA card.
 
 Builds the CUDA kernels of ``optiland_torch/csrc`` with nvcc, holds each
-kernel against its plain PyTorch version on the card, and drives three
-paths of the Cooke triplet at full width (2^24 rays, float32), each with
-the launch counts set to 0 just before it and read just after:
+kernel against its plain PyTorch version on the card, and drives the paths
+below at full width (2^24 rays, float32), each with the launch counts set
+to 0 just before it and read just after:
 
   * the merit path (phase 7): the optimizer step of the fused RMS-spot
     merit, ``spot_rms_fast_field``, in-kernel PRNG pupil (merit_fwd,
@@ -32,6 +32,20 @@ the launch counts set to 0 just before it and read just after:
     the centre pixel of ``HuygensPSF`` of a polarized optic at its defaults
     (the polarized traces on pol_fwd/pol_bwd, three field sums per state on
     the Huygens kernels).
+  * the polychromatic step (phase 17): ``bench.py``'s poly class, the
+    Cooke triplet at 2^24 rays with wavelengths 0.48/0.55/0.65 um cycling by
+    ray, the value and gradient (``mat_coeffs`` included) of the RMS-spot
+    merit through ``trace_fast_poly`` (trace_fwd_poly, trace_bwd_poly);
+    the poly kernels against their plain versions before it, on the Cooke
+    triplet and on a variant whose media use every other formula code;
+  * the tilted steps (phase 18): a toleranced Cooke triplet (every lens
+    surface tilted by 0.5-2 mrad and decentred by 0.01-0.05 mm) through
+    the merit (merit_fwd, merit_bwd), field (trace_field_fwd,
+    trace_field_bwd) and generic (trace_fwd, trace_bwd) steps, and the
+    polarized step of bench.py's singlet with its first surface tilted
+    (pol_fwd_intensity, pol_bwd_intensity); every tilted kernel against its
+    plain version before them, and the general tilt adjoint at zero angles
+    against the untilted code.
 
 It prints:
 
@@ -139,6 +153,46 @@ OPS_POL_EXIT = (17, 96)  # (launch basis 15 and the scale 2, per state:
 #                           field 12, p E 72, |E|^2 12)
 OPS_POL_EXIT_ADJ = (41, 180)  # (the launch basis' adjoint 37 and 4, per
 #                               state: g_E 12, g_p 72, the field's 96)
+# Operations per ray added by a tilted surface in every kernel's TILT
+# instantiation, counted from csrc/step.cuh (a plane rotation rot_ab is 4
+# multiplies and 2 adds). A backward counts the forward's once and their
+# adjoint; the rotations it recomputes are not counted again.
+OPS_TILT_FWD = 72  # rot_local and rot_global, 6 plane rotations each
+OPS_TILT_ADJ = 147  # rot_global_adjoint and rot_local_adjoint: 6 angle
+#                     derivatives (4 multiplies, 3 adds) and their sums
+#                     48, 24 back-rotations of the state and its cotangents
+#                     144, less the zero-tilt generator terms they replace
+#                     (3 x 15)
+POL_NAMES = ("pol_fwd", "pol_fwd_intensity", "pol_bwd", "pol_bwd_intensity")
+
+
+# bench.py's poly class: wavelengths (um) cycling by ray index
+POLY_WLS = (0.48, 0.55, 0.65)
+
+
+def formula_ops(code, nm):
+    """(forward, adjoint) operations per ray of one evaluation of dispersion
+    formula ``code`` over ``nm`` coefficients, counted from step.cuh's
+    n_formula and dn_dcoef, a pow as 3 (log, multiply, exp), a divide, a
+    square root or a log as 1, every term of the fixed-width row (the
+    zero-padded ones run too): the forward's value; the adjoint's
+    derivative of each coefficient the formula reads, with its product by
+    the index cotangent."""
+    npair = (nm - 1) // 2
+    npair4 = (nm - 9) // 2 if nm > 9 else 0
+    return {
+        0: (0, 2),
+        1: (3 + 5 * npair, 2 + 14 * npair),
+        2: (3 + 4 * npair, 2 + 11 * npair),
+        3: (3 + 5 * npair, 2 + 14 * npair),
+        4: (22 + 5 * npair4, 122 + 14 * npair4),
+        5: (1 + 5 * npair, 2 + 14 * npair),
+        6: (3 + 3 * npair, 2 + 10 * npair),
+        7: (8 + 5 * (nm - 3), 8 + 5 * (nm - 3)),
+        8: (12, 40),
+        9: (14, 72),
+        11: (12, 60),
+    }[code]
 
 
 def log(msg):
@@ -288,9 +342,10 @@ def main(argv=None):
     from optiland_torch.ops import fused_trace as ft
     from optiland_torch.ops import huygens as hu
     from optiland_torch.ops import pol_trace as pt
+    from optiland_torch.ops.launch import launch_key
     from optiland_torch.optic import Optic
     from optiland_torch.psf import HuygensPSF, huygens_psf, pupil_grid_coords
-    from optiland_torch.samples import CookeTriplet
+    from optiland_torch.samples import CookeTriplet, perturbed
 
     def reset_counts():
         ft.reset_launch_counts()
@@ -1516,101 +1571,118 @@ def main(argv=None):
     del res
     report["phases"]["pol_paths"] = res15
 
-    # the polarized kernels alone at the polarized step's shape (2^24 rays,
-    # f32): times, and the f32 kernels against the f32 plain versions, the
-    # plain versions over four chunks of 2^22 rays (their intermediates at
-    # 2^24 would not fit beside the rest)
-    pbase = pol_samples.bench_polarized().system
-    spec_p = pt.pol_spec(pbase, WL)
-    S_p, nc_p = len(spec_p[0]), pbase.stack.coeffs.shape[1]
-    with torch.no_grad():
-        pp = ft.build_param_table(pbase, WL).contiguous()
-        Pxp, Pyp = ft.prng_disk(15, Rf, 0, torch.float32, dev)
-        rays = raygen.generate_rays(pbase, *H, Pxp, Pyp, WL)
-    del Pxp, Pyp
-    coat_p = pt.build_coat_table(pbase, WL, torch.float32, dev)
-    ins_p = [getattr(rays, k).contiguous() for k in ftr.RAY_FIELDS]
-    del rays
-    gen15 = torch.Generator(device=dev).manual_seed(15)
-    cots_p = [torch.randn(Rf, generator=gen15, device=dev) / Rf
-              for _ in range(pt.N_POL)]
-    st_h = pt.pol_states(STATE_H)
-    nchunk = 4
-    cs = Rf // nchunk
+    def pol_full_width(system, intensities, seed):
+        """The polarized kernels alone at the polarized step's shape (2^24
+        rays, f32) on ``system``, in the modes ``intensities``: times into
+        ms, plain times into plain_ms and max |kernel - plain| into kerr,
+        under each kernel's launch-count name (its TILT instantiation's
+        where the system has a tilted surface), and the f32 kernels held
+        against the f32 plain versions. The plain versions run over four
+        chunks of 2^22 rays (their intermediates at 2^24 would not fit
+        beside the rest). Returns the spec and the errors."""
+        spec_p = pt.pol_spec(system, WL)
+        check(spec_p is not None, "pol_full_width: not pol_supported")
+        S_p, nc_p = len(spec_p[0]), system.stack.coeffs.shape[1]
+        tilt = any(spec_p[5])
+        with torch.no_grad():
+            pp = ft.build_param_table(system, WL).contiguous()
+            Pxp, Pyp = ft.prng_disk(15, Rf, 0, torch.float32, dev)
+            rays = raygen.generate_rays(system, *H, Pxp, Pyp, WL)
+        del Pxp, Pyp
+        coat_p = pt.build_coat_table(system, WL, torch.float32, dev)
+        ins_p = [getattr(rays, k).contiguous() for k in ftr.RAY_FIELDS]
+        del rays
+        gen15 = torch.Generator(device=dev).manual_seed(seed)
+        cots_p = [torch.randn(Rf, generator=gen15, device=dev) / Rf
+                  for _ in range(pt.N_POL)]
+        st_h = pt.pol_states(STATE_H)
+        nchunk = 4
+        cs = Rf // nchunk
 
-    def chunked_plain(kind, intensity, i=0):
-        """The plain version over the chunks: the outputs and the summed
-        flat gradient (fwd: per-ray arrays; bwd: (din, flat))."""
-        outs = []
-        for k in range(nchunk):
-            sl_ = slice(k * cs, (k + 1) * cs)
-            ins_c = [t[sl_] for t in ins_p]
-            if kind == "fwd":
-                outs.append(pt.pol_fwd_plain(pp, coat_p, spec_p, ins_c, st_h,
-                                             intensity))
-            else:
-                c = [t[sl_] for t in (cots_p[:8] if intensity else cots_p)]
-                outs.append(pt.pol_bwd_plain(pp, coat_p, spec_p, ins_c, c,
-                                             st_h, intensity))
-        return outs
+        def chunked_plain(kind, intensity, i=0):
+            """The plain version over the chunks: the outputs and the
+            summed flat gradient (fwd: per-ray arrays; bwd: (din,
+            flat))."""
+            outs = []
+            for k in range(nchunk):
+                sl_ = slice(k * cs, (k + 1) * cs)
+                ins_c = [t[sl_] for t in ins_p]
+                if kind == "fwd":
+                    outs.append(pt.pol_fwd_plain(pp, coat_p, spec_p, ins_c,
+                                                 st_h, intensity))
+                else:
+                    c = [t[sl_] for t in (cots_p[:8] if intensity
+                                          else cots_p)]
+                    outs.append(pt.pol_bwd_plain(pp, coat_p, spec_p, ins_c,
+                                                 c, st_h, intensity))
+            return outs
 
-    # each chunk of the kernel's outputs against the plain version's: every
-    # array on its own within 2e-4 x max(1, max |ref|) and finite where the
-    # plain one is (near32; in the full mode a ray whose radius falls within
-    # rounding of the stop's edge may be clipped in one only, so up to 1 in
-    # 10^4 may differ in intensity); the input cotangents within 1e-3 of
-    # each array's largest value, the summed gradients to 1e-3 in L2
-    din_err15 = {}
-    with torch.no_grad():
-        for intensity in (False, True):
-            name = "pol_fwd_intensity" if intensity else "pol_fwd"
-            bname = "pol_bwd_intensity" if intensity else "pol_bwd"
-            c = cots_p[:8] if intensity else cots_p
-            out_k = pt.pol_fwd(pp, coat_p, spec_p, ins_p, st_h, intensity)
-            e = 0.0
-            for k, o in enumerate(chunked_plain("fwd", intensity)):
-                sl_ = slice(k * cs, (k + 1) * cs)
-                got_c = [a[sl_] for a in out_k]
-                near32(got_c, o, f"{name} full width, chunk {k}",
-                       0 if intensity else cs // 10_000)
-                e = max(e, max_abs(got_c, o))
-            kerr[name] = e
-            del out_k, got_c
-            din_k, fl_k = pt.pol_bwd(pp, coat_p, spec_p, nc_p, ins_p, c, st_h,
-                                     intensity)
-            fl_sum = None
-            d_max, r_max = [0.0] * 8, [0.0] * 8
-            for k, (din_c, fl_c) in enumerate(chunked_plain("bwd",
-                                                            intensity)):
-                sl_ = slice(k * cs, (k + 1) * cs)
-                for j, (a, b) in enumerate(zip(din_k, din_c)):
-                    d_max[j] = max(d_max[j], float((a[sl_] - b).abs().max()))
-                    r_max[j] = max(r_max[j], float(b.abs().max()))
-                fl_sum = fl_c if fl_sum is None else fl_sum + fl_c
-            fl_sum = torch.cat([fl_sum[: S_p * ft.NUM_P],
-                                pp.new_zeros(S_p * nc_p),
-                                fl_sum[S_p * ft.NUM_P:]])
-            din_err15[bname] = max(d / max(r, 1e-300)
-                                   for d, r in zip(d_max, r_max))
-            check(din_err15[bname] <= 1e-3, f"{bname} full width: input "
-                  f"cotangents, max |d| / max |ref| {din_err15[bname]} > "
-                  f"1e-3")
-            kerr[bname] = max(max(d_max),
-                              float((fl_k - fl_sum).abs().max()))
-            g_l2 = l2(fl_k, fl_sum)
-            check(g_l2 <= 1e-3, f"{bname} full width: gradient L2 rel err "
-                  f"{g_l2} > 1e-3")
-            din_err15[f"{bname}_l2"] = g_l2
-            del din_k
-            ms[name] = time_ms(lambda i, it=intensity: pt.pol_fwd(
-                pp, coat_p, spec_p, ins_p, st_h, it), 10, 3)
-            ms[bname] = time_ms(lambda i, it=intensity, c=c: pt.pol_bwd(
-                pp, coat_p, spec_p, nc_p, ins_p, c, st_h, it), 5)
-            plain_ms[name] = time_ms(
-                lambda i, it=intensity: chunked_plain("fwd", it), 2)
-            plain_ms[bname] = time_ms(
-                lambda i, it=intensity: chunked_plain("bwd", it), 2)
-        torch.cuda.synchronize()
+        # each chunk of the kernel's outputs against the plain version's:
+        # every array on its own within 2e-4 x max(1, max |ref|) and finite
+        # where the plain one is (near32; a ray whose radius falls within
+        # rounding of the stop's edge may be clipped in one only, so in the
+        # full mode, or on a tilted system, up to 1 in 10^4 may differ in
+        # intensity); the input cotangents within 1e-3 of each array's
+        # largest value, the summed gradients to 1e-3 in L2
+        errs = {}
+        with torch.no_grad():
+            for intensity in intensities:
+                name = launch_key(
+                    "pol_fwd_intensity" if intensity else "pol_fwd", tilt)
+                bname = launch_key(
+                    "pol_bwd_intensity" if intensity else "pol_bwd", tilt)
+                c = cots_p[:8] if intensity else cots_p
+                out_k = pt.pol_fwd(pp, coat_p, spec_p, ins_p, st_h,
+                                   intensity)
+                e = 0.0
+                for k, o in enumerate(chunked_plain("fwd", intensity)):
+                    sl_ = slice(k * cs, (k + 1) * cs)
+                    got_c = [a[sl_] for a in out_k]
+                    near32(got_c, o, f"{name} full width, chunk {k}",
+                           0 if intensity and not tilt else cs // 10_000)
+                    e = max(e, max_abs(got_c, o))
+                kerr[name] = e
+                del out_k, got_c
+                din_k, fl_k = pt.pol_bwd(pp, coat_p, spec_p, nc_p, ins_p, c,
+                                         st_h, intensity)
+                fl_sum = None
+                d_max, r_max = [0.0] * 8, [0.0] * 8
+                for k, (din_c, fl_c) in enumerate(chunked_plain("bwd",
+                                                                intensity)):
+                    sl_ = slice(k * cs, (k + 1) * cs)
+                    for j, (a, b) in enumerate(zip(din_k, din_c)):
+                        d_max[j] = max(d_max[j],
+                                       float((a[sl_] - b).abs().max()))
+                        r_max[j] = max(r_max[j], float(b.abs().max()))
+                    fl_sum = fl_c if fl_sum is None else fl_sum + fl_c
+                fl_sum = torch.cat([fl_sum[: S_p * ft.NUM_P],
+                                    pp.new_zeros(S_p * nc_p),
+                                    fl_sum[S_p * ft.NUM_P:]])
+                errs[bname] = max(d / max(r, 1e-300)
+                                  for d, r in zip(d_max, r_max))
+                check(errs[bname] <= 1e-3, f"{bname} full width: input "
+                      f"cotangents, max |d| / max |ref| {errs[bname]} > "
+                      f"1e-3")
+                kerr[bname] = max(max(d_max),
+                                  float((fl_k - fl_sum).abs().max()))
+                g_l2 = l2(fl_k, fl_sum)
+                check(g_l2 <= 1e-3, f"{bname} full width: gradient L2 rel "
+                      f"err {g_l2} > 1e-3")
+                errs[f"{bname}_l2"] = g_l2
+                del din_k
+                ms[name] = time_ms(lambda i, it=intensity: pt.pol_fwd(
+                    pp, coat_p, spec_p, ins_p, st_h, it), 10, 3)
+                ms[bname] = time_ms(lambda i, it=intensity, c=c: pt.pol_bwd(
+                    pp, coat_p, spec_p, nc_p, ins_p, c, st_h, it), 5)
+                plain_ms[name] = time_ms(
+                    lambda i, it=intensity: chunked_plain("fwd", it), 2)
+                plain_ms[bname] = time_ms(
+                    lambda i, it=intensity: chunked_plain("bwd", it), 2)
+            torch.cuda.synchronize()
+        return spec_p, errs
+
+    spec_p, din_err15 = pol_full_width(pol_samples.bench_polarized().system,
+                                       (False, True), 15)
     report["phases"]["pol_full_width"] = din_err15
     log("phase 15 polarized kernels at 2^%d rays (f32, the bench singlet) "
         "against the f32 plain version: every output array within 2e-4 x "
@@ -1619,16 +1691,16 @@ def main(argv=None):
         "%s; max |kernel - plain| %s" % (
             args.full_log2,
             {k: float(f"{v:.3e}") for k, v in din_err15.items()},
-            {k: round(ms[k], 4) for k in pt.LAUNCHES},
-            {k: round(plain_ms[k], 2) for k in pt.LAUNCHES},
-            {k: float(f"{kerr[k]:.4g}") for k in pt.LAUNCHES}))
-    del ins_p, cots_p
+            {k: round(ms[k], 4) for k in POL_NAMES},
+            {k: round(plain_ms[k], 2) for k in POL_NAMES},
+            {k: float(f"{kerr[k]:.4g}") for k in POL_NAMES}))
 
     def pol_ops(spec_k, n_states):
         """Operations per ray of (pol_fwd, pol_fwd_intensity, pol_bwd,
         pol_bwd_intensity) for the kernels' spec, surface by surface: its
-        geometry code (standard or plane), absorption and coat kind."""
-        codes, _, absorbs, kinds, layers = spec_k
+        geometry code (standard or plane), absorption, coat kind and
+        tilt."""
+        codes, _, absorbs, kinds, layers, tilted = spec_k
         names = {pt.NONE: "none", pt.SIMPLE: "simple", pt.FRESNEL: "fresnel",
                  pt.POLARIZER: "polarizer", pt.RETARDER: "retarder"}
         fwd = adj = 0
@@ -1646,12 +1718,17 @@ def main(argv=None):
             adj += (OPS_STEP_ADJ[int(std)] + OPS_FULL_ADJ + OPS_EXTRAS_ADJ
                     + (OPS_ABS_BWD - OPS_ABS_FWD) * bool(absorbs[s])
                     + OPS_POL_BASIS_ADJ + OPS_POL_UPDATE_ADJ + jones_adj)
+            if tilted[s]:
+                fwd += OPS_TILT_FWD
+                adj += OPS_TILT_ADJ
         exit_f = OPS_POL_EXIT[0] + OPS_POL_EXIT[1] * n_states
         exit_a = OPS_POL_EXIT_ADJ[0] + OPS_POL_EXIT_ADJ[1] * n_states
         return fwd, fwd + exit_f, fwd + adj, fwd + exit_f + adj + exit_a
 
-    ops_f, ops_fi, ops_b, ops_bi = pol_ops(spec_p, len(st_h))
-    tbl = (S_p * (ft.NUM_P + 4) + 5 * S_p) * 4
+    n_h = len(pt.pol_states(STATE_H))
+    ops_f, ops_fi, ops_b, ops_bi = pol_ops(spec_p, n_h)
+    S_p = len(spec_p[0])
+    tbl = (S_p * (ft.NUM_P + 4) + 6 * S_p) * 4
     red = 2 * ft.BWD_MAX_BLOCKS * S_p * (len(ftr.FULL_GRAD_COLS) + 4) * 4
     work.update({
         # 8 arrays in, 26 out
@@ -1846,6 +1923,574 @@ def main(argv=None):
     del psf16, psf64, psf64_plain, lv16, grads16, calls32, calls64
     config.set_precision("float32")
 
+    # ---- phase 17: the polychromatic kernels (K5a/K5b poly mode) ----
+    config.set_precision("float64")
+
+    def cycled(n, dtype):
+        """Wavelengths 0.48/0.55/0.65 um cycling by ray index, made on the
+        card (bench.py's poly class)."""
+        return torch.tensor(POLY_WLS, dtype=dtype, device=dev)[
+            torch.arange(n, device=dev) % 3]
+
+    g17 = torch.Generator(device=dev).manual_seed(17)
+    res17 = {}
+    for kind, sysk in (("cooke", systems["f64"]), ("zoo", perturbed.zoo_system(systems["f64"], POLY_WLS))):
+        spec_k = ftr.poly_spec(sysk)
+        check(spec_k is not None, f"phase 17 {kind}: no poly spec")
+        nc_k, S_k = sysk.stack.coeffs.shape[1], len(spec_k[0])
+        with torch.no_grad():
+            pk = ftr.build_poly_table(sysk).contiguous()
+            rays = raygen.generate_rays(sysk, *H, Px64, Py64, WL)
+        mk = sysk.stack.mat_coeffs.detach().contiguous()
+        ins = [getattr(rays, k).contiguous() for k in ftr.RAY_FIELDS]
+        ins[6] = 0.5 + 0.5 * torch.rand(Rc, generator=g17, device=dev,
+                                        dtype=torch.float64)
+        ins[7] = torch.rand(Rc, generator=g17, device=dev, dtype=torch.float64)
+        ins.append(cycled(Rc, torch.float64))
+        cots = [torch.randn(Rc, generator=g17, device=dev, dtype=torch.float64)
+                for _ in range(8)]
+        r = {}
+        out_k = ftr.trace_fwd_poly(pk, mk, spec_k, ins)
+        out_p = ftr.trace_fwd_poly_plain(pk, mk, spec_k, ins)
+        r["trace_fwd_poly"] = arr_err(out_k, out_p)
+        din_k, fl_k = ftr.trace_bwd_poly(pk, mk, spec_k, nc_k, ins, cots)
+        din_p, fl_p = ftr.trace_bwd_poly_plain(pk, mk, spec_k, nc_k, ins,
+                                               cots)
+        pg, mg = pk.clone().requires_grad_(), mk.clone().requires_grad_()
+        insg = [t.clone().requires_grad_() for t in ins[:8]]
+        out_a = ftr.trace_fwd_poly_plain(pg, mg, spec_k, insg + ins[8:])
+        auto = torch.autograd.grad(
+            sum((o * c).sum() for o, c in zip(out_a, cots)), [pg, mg] + insg)
+        fl_a = torch.cat([auto[0].reshape(-1), pk.new_zeros(S_k * nc_k),
+                          auto[1].reshape(-1)])
+        check(torch.equal(torch.isfinite(fl_k), torch.isfinite(fl_p)),
+              f"trace_bwd_poly {kind}: finite in one and not the other")
+        r["trace_bwd_poly"] = flat_err(fl_k, fl_p, 1e-9,
+                                       f"trace_bwd_poly {kind}")
+        # autograd of the plain forward where the hand adjoint is finite
+        # (d x^y / dx at x = y = 0 is NaN by JAX's rule, 0 by torch's)
+        fin_p = torch.isfinite(fl_p)
+        r["trace_bwd_poly_autograd"] = flat_err(
+            fl_k[fin_p], fl_a[fin_p], 1e-9,
+            f"trace_bwd_poly {kind} vs autograd")
+        r["trace_bwd_poly_din"] = arr_err(din_k, din_p)
+        r["trace_bwd_poly_din_autograd"] = arr_err(din_k, auto[2:])
+        dm_k = fl_k[-mk.numel():].reshape(mk.shape)
+        dm_p = fl_p[-mk.numel():].reshape(mk.shape)
+        check(torch.equal(dm_k != 0, dm_p != 0), f"trace_bwd_poly {kind}: "
+              "the nonzero coefficient gradients differ from the plain "
+              "version's")
+        r["dmats_nonzero"] = int((dm_k != 0).sum())
+        del out_a, auto, insg
+        for key in ("trace_fwd_poly", "trace_bwd_poly_din",
+                    "trace_bwd_poly_din_autograd"):
+            check(r[key] <= 1e-10, f"{key} {kind} f64: rel err {r[key]} > "
+                  "1e-10")
+        if kind == "cooke":
+            # f32 against the f64 plain versions
+            p32k, m32k = pk.float(), mk.float()
+            ins32 = [t.float() for t in ins]
+            cots32 = [t.float() for t in cots]
+            near32(ftr.trace_fwd_poly(p32k, m32k, spec_k, ins32), out_p,
+                   f"trace_fwd_poly f32 {kind}", Rc // 10_000)
+            din32, fl32 = ftr.trace_bwd_poly(p32k, m32k, spec_k, nc_k, ins32,
+                                             cots32)
+            near32(din32[:6], din_p[:6], f"trace_bwd_poly f32 {kind}")
+            r["trace_bwd_poly_f32_l2"] = l2(fl32, fl_p)
+            check(r["trace_bwd_poly_f32_l2"] <= 1e-3, f"trace_bwd_poly f32 "
+                  f"{kind}: L2 rel err {r['trace_bwd_poly_f32_l2']} > 1e-3")
+            # one wavelength for every ray: the monochromatic kernel's x, y
+            # (it also absorbs, which moves only the intensity)
+            ins1 = ins[:8] + [torch.full_like(ins[0], WL)]
+            pm, _ = tables(sysk)
+            mono = ftr.trace_fwd(pm, ftr.fast_spec(sysk), ins[:8])
+            one = ftr.trace_fwd_poly(pk, mk, spec_k, ins1)
+            r["mono_xy"] = max(float((a - b).abs().max())
+                               for a, b in zip(one[:2], mono[:2]))
+            check(r["mono_xy"] <= 1e-10, f"trace_fwd_poly at one wavelength "
+                  f"vs trace_fwd: |dx|, |dy| {r['mono_xy']} > 1e-10 mm")
+        torch.cuda.synchronize()
+        res17[kind] = r
+        log(f"phase 17 poly kernels {kind} (formulas {spec_k[4]}, "
+            f"2^{args.check_log2} rays at {POLY_WLS} um; f64 vs plain: "
+            f"per-ray arrays max |d| / max |ref| tol 1e-10, gradients "
+            f"(every coefficient column) worst rel err tol 1e-9): "
+            + ", ".join(f"{k} {v:.2e}" if isinstance(v, float) else
+                        f"{k} {v}" for k, v in r.items()))
+    report["phases"]["poly_kernels"] = res17
+    del ins, cots, din_k, din_p
+
+    # the poly step at full width: bench.py's poly class on the port
+    config.set_precision("float32")
+
+    def poly_loss(system, seed):
+        Px, Py = ft.prng_disk(seed, Rf, 0, torch.float32, dev)
+        rays = raygen.generate_rays(system, *H, Px, Py,
+                                    cycled(Rf, torch.float32))
+        f = ftr.trace_fast_poly(system, rays)
+        return ((f.x - f.x.mean()) ** 2 + (f.y - f.y.mean()) ** 2).mean()
+
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    sl, lv = leaf_system(base)
+    first = poly_loss(sl, 5000)
+    first.backward()
+    g_m = lv["mat_coeffs"].grad
+    check(bool(torch.isfinite(first)), "poly step: value not finite")
+    check(bool(torch.isfinite(lv["radius"].grad[1:-1]).all()),
+          "poly step: radius gradient not finite")
+    check(bool(torch.isfinite(g_m[1:-1]).all()) and bool((g_m != 0).any()),
+          "poly step: mat_coeffs gradient not finite or all zero")
+    nan17 = {k: int((~torch.isfinite(v.grad)).sum()) for k, v in lv.items()
+             if v.grad is not None and not bool(torch.isfinite(v.grad).all())}
+    def vg17(i):
+        s_, _ = leaf_system(base)
+        poly_loss(s_, i).backward()
+
+    times17 = timed(vg17, 5100)
+    got17 = counts()
+    wall17 = time.perf_counter() - t0
+    n17 = 1 + 3 + args.steps
+    expect17 = {**dict.fromkeys(got17, 0), "prng_disk": n17,
+                "trace_fwd_poly": n17, "trace_bwd_poly": n17}
+    check(got17 == expect17, f"poly step launches {got17}, expected "
+          f"{expect17}")
+    path_launches["poly"] = got17
+    step17 = float(np.median(times17))
+    log(f"phase 17 poly step (Cooke triplet, f32, 2^{args.full_log2} rays "
+        f"at {POLY_WLS} um cycling by ray): {n17} value+grad steps over "
+        f"every stack leaf in {wall17:.1f} s, value "
+        f"{float(first.detach()):.9e}; median step {step17:.3f} ms over "
+        f"{args.steps} steps -> {Rf * n_surf / (step17 * 1e-3):.4e} "
+        f"ray-surf/s; mat_coeffs gradient {int((g_m != 0).sum())} nonzero "
+        f"entries; non-finite gradient entries: {nan17}; launches {got17}")
+    report["phases"]["poly_step"] = {
+        "value": float(first.detach()), "step_ms": step17,
+        "step_ms_all": times17, "launches": got17, "steps": n17,
+        "nan_entries": nan17}
+    del lv, sl, first, g_m
+
+    # the poly kernels alone at the step's shape (2^24 rays, f32)
+    spec_q = ftr.poly_spec(base)
+    with torch.no_grad():
+        pq = ftr.build_poly_table(base).contiguous()
+        Pxq, Pyq = ft.prng_disk(17, Rf, 0, torch.float32, dev)
+        rays = raygen.generate_rays(base, *H, Pxq, Pyq, WL)
+    mq = base.stack.mat_coeffs.detach().contiguous()
+    ins_q = [getattr(rays, k).contiguous() for k in ftr.RAY_FIELDS]
+    ins_q.append(cycled(Rf, torch.float32))
+    del rays, Pxq, Pyq
+    gen17 = torch.Generator(device=dev).manual_seed(170)
+    cots_q = [torch.randn(Rf, generator=gen17, device=dev) / Rf
+              for _ in range(8)]
+    with torch.no_grad():
+        k5a = ftr.trace_fwd_poly(pq, mq, spec_q, ins_q)
+        ref = ftr.trace_fwd_poly_plain(pq, mq, spec_q, ins_q)
+        kerr["trace_fwd_poly"] = max_abs(k5a, ref)
+        near32(k5a, ref, "trace_fwd_poly full width")
+        del k5a, ref
+        din_k, flat_k = ftr.trace_bwd_poly(pq, mq, spec_q, nc, ins_q, cots_q)
+        din_p, flat_p = ftr.trace_bwd_poly_plain(pq, mq, spec_q, nc, ins_q,
+                                                 cots_q)
+        fin = torch.isfinite(flat_p)
+        kerr["trace_bwd_poly"] = max(float((flat_k[fin] - flat_p[fin]).abs()
+                                           .max()), max_abs(din_k, din_p))
+        din_err17 = arr_err(din_k, din_p)
+        l2_17 = l2(flat_k[fin], flat_p[fin])
+        check(din_err17 <= 1e-3 and l2_17 <= 1e-3, f"trace_bwd_poly full "
+              f"width: input cotangents {din_err17} or gradient L2 {l2_17} "
+              "> 1e-3")
+        del din_k, din_p, flat_k, flat_p
+        ms["trace_fwd_poly"] = time_ms(
+            lambda i: ftr.trace_fwd_poly(pq, mq, spec_q, ins_q), 10, 3)
+        ms["trace_bwd_poly"] = time_ms(
+            lambda i: ftr.trace_bwd_poly(pq, mq, spec_q, nc, ins_q, cots_q),
+            10, 3)
+        plain_ms["trace_fwd_poly"] = time_ms(
+            lambda i: ftr.trace_fwd_poly_plain(pq, mq, spec_q, ins_q), 3)
+        plain_ms["trace_bwd_poly"] = time_ms(
+            lambda i: ftr.trace_bwd_poly_plain(pq, mq, spec_q, nc, ins_q,
+                                               cots_q), 3)
+        # the monochromatic kernels on the same bundle, for the cost of
+        # the formulas
+        ms17_mono = {
+            "trace_fwd": time_ms(lambda i: ftr.trace_fwd(
+                p32, spec32, ins_q[:8]), 10, 3),
+            "trace_bwd": time_ms(lambda i: ftr.trace_bwd(
+                p32, spec32, nc, ins_q[:8], cots_q), 10, 3)}
+    # the formulas each ray evaluates: the object row's and each refracting
+    # surface's; the adjoint evaluates them again in its retrace and then
+    # the derivative of every coefficient each formula reads
+    nm_q = mq.shape[1]
+    evals = [0] + [s for s in range(1, S) if not spec_q[1][s]]
+    f_fwd = sum(formula_ops(spec_q[4][s], nm_q)[0] for s in evals)
+    f_bwd = f_fwd + sum(formula_ops(spec_q[4][s], nm_q)[1] for s in evals)
+    n_red = S * (len(ftr.FULL_GRAD_COLS) + nm_q)
+    work.update({
+        # 9 arrays in (the 8 and the wavelengths), 8 out; no absorption
+        "trace_fwd_poly": (Rf * (fwd_full - n_abs * OPS_ABS_FWD + f_fwd),
+                           table_bytes + S * nm_q * 4 + Rf * 17 * 4),
+        # 9 arrays and 8 cotangents in, 8 input cotangents out
+        "trace_bwd_poly": (Rf * (bwd_full - n_abs * OPS_ABS_BWD + f_bwd),
+                           table_bytes + S * nm_q * 4 + Rf * 25 * 4
+                           + 2 * nb_b * n_red * 4 + out_bytes
+                           + S * nm_q * 4),
+    })
+    report["phases"]["poly_full_width"] = {
+        "din_err": din_err17, "grad_l2": l2_17, "mono_ms": ms17_mono,
+        "formula_ops": {"fwd": f_fwd, "bwd": f_bwd}}
+    log(f"phase 17 poly kernels at 2^{args.full_log2} rays (f32, Cooke "
+        f"triplet) vs the f32 plain versions: every output array within 2e-4 "
+        f"x max(1, max |ref|), input cotangents {din_err17:.2e} (tol 1e-3), "
+        f"gradient L2 {l2_17:.2e} (tol 1e-3); ms trace_fwd_poly "
+        f"{ms['trace_fwd_poly']:.4f}, trace_bwd_poly "
+        f"{ms['trace_bwd_poly']:.4f} (mono kernels on the same bundle "
+        f"{ms17_mono}); plain ms {plain_ms['trace_fwd_poly']:.2f}, "
+        f"{plain_ms['trace_bwd_poly']:.2f}; formula operations per ray "
+        f"forward {f_fwd}, adjoint {f_bwd}")
+    del ins_q, cots_q
+
+    # ---- phase 18: tilted surfaces in every trace kernel (K6 tilts) ----
+    config.set_precision("float64")
+    tc64 = perturbed.toleranced_cooke().system
+    ts64 = perturbed.tilted_singlet().system
+    spec_t = ftr.fast_spec(tc64, field=True)
+    mspec_t = ft._spec_of(tc64)
+    check(spec_t[3] == (False,) + (True,) * 6 + (False,)
+          and mspec_t[2] == spec_t[3], f"phase 18: tilt flags {spec_t[3]}")
+    g18 = torch.Generator(device=dev).manual_seed(18)
+    nc_t = tc64.stack.coeffs.shape[1]
+    S_t = len(spec_t[0])
+    pk, ak = tables(tc64)
+    with torch.no_grad():
+        rays = raygen.generate_rays(tc64, *H, Px64, Py64, WL)
+    ins = [getattr(rays, k).contiguous() for k in ftr.RAY_FIELDS]
+    ins[6] = 0.5 + 0.5 * torch.rand(Rc, generator=g18, device=dev,
+                                    dtype=torch.float64)
+    ins[7] = torch.rand(Rc, generator=g18, device=dev, dtype=torch.float64)
+    cots = [torch.randn(Rc, generator=g18, device=dev, dtype=torch.float64)
+            for _ in range(pt.N_POL)]
+    r = {}
+    r["trace_fwd"] = arr_err(ftr.trace_fwd(pk, spec_t, ins),
+                             ftr.trace_fast_plain(pk, spec_t, ins))
+    din_k, fl_k = ftr.trace_bwd(pk, spec_t, nc_t, ins, cots[:8])
+    din_p, fl5_p = ftr.trace_fast_bwd_plain(pk, spec_t, nc_t, ins, cots[:8])
+    r["trace_bwd"] = flat_err(fl_k, fl5_p, 1e-9, "tilted trace_bwd")
+    r["trace_bwd_din"] = arr_err(din_k, din_p)
+    pg = pk.clone().requires_grad_()
+    insg = [t.clone().requires_grad_() for t in ins]
+    out_a = ftr.trace_fast_plain(pg, spec_t, insg)
+    auto = torch.autograd.grad(
+        sum((o * c).sum() for o, c in zip(out_a, cots)), [pg] + insg)
+    r["trace_bwd_autograd"] = flat_err(
+        fl_k, torch.cat([auto[0].reshape(-1), pk.new_zeros(S_t * nc_t)]),
+        1e-9, "tilted trace_bwd vs autograd")
+    del out_a, auto, insg
+    out_f = ftr.trace_field_fwd(pk, ak, spec_t, Px64, Py64)
+    r["trace_field_fwd"] = arr_err(
+        out_f, ftr.trace_fast_field_plain(pk, ak, spec_t, Px64, Py64))
+    fl4_k = ftr.trace_field_bwd(pk, ak, spec_t, nc_t, Px64, Py64, cots[:8])
+    fl4_p = ftr.trace_fast_field_bwd_plain(pk, ak, spec_t, nc_t, Px64, Py64,
+                                           cots[:8])
+    r["trace_field_bwd"] = flat_err(fl4_k, fl4_p, 1e-9,
+                                    "tilted trace_field_bwd")
+    rows_k = ft.merit_fwd(pk, ak, mspec_t, Rc, Px=Px64, Py=Py64)
+    rows_p = ft.merit_fwd_plain(pk, ak, mspec_t, Rc, Px=Px64, Py=Py64)
+    lk, xbt, ybt = ft._chan_combine(rows_k, Rc)
+    r["merit_fwd"] = rel(lk, ft._chan_combine(rows_p, Rc)[0])
+    st_t = torch.stack([xbt, ybt, torch.tensor(1.0 / Rc, device=dev,
+                                               dtype=torch.float64),
+                        torch.zeros((), device=dev, dtype=torch.float64)])
+    fm_k = ft.merit_bwd(pk, ak, st_t, mspec_t, nc_t, Rc, Px=Px64, Py=Py64)
+    fm_p = ft.merit_bwd_plain(pk, ak, st_t, mspec_t, nc_t, Rc, Px=Px64,
+                              Py=Py64)
+    r["merit_bwd"] = flat_err(fm_k, fm_p, 1e-9, "tilted merit_bwd")
+    for key in ("trace_fwd", "trace_bwd_din", "trace_field_fwd"):
+        check(r[key] <= 1e-10, f"tilted {key} f64: rel err {r[key]} > 1e-10")
+    check(r["merit_fwd"] <= 1e-12, f"tilted merit_fwd f64: loss rel err "
+          f"{r['merit_fwd']} > 1e-12")
+    # every tilt column of every tilted surface is reached
+    dp = fl_k[: S_t * ft.NUM_P].reshape(S_t, ft.NUM_P)
+    check(bool((dp[1:7, 8:11] != 0).all()), "tilted trace_bwd: a tilt "
+          "gradient of a tilted surface is zero")
+    # f32 against the f64 plain versions
+    p32t, a32t = pk.float(), ak.float()
+    ins32 = [t.float() for t in ins]
+    cots32 = [t.float() for t in cots[:8]]
+    near32(ftr.trace_fwd(p32t, spec_t, ins32),
+           ftr.trace_fast_plain(pk, spec_t, ins), "tilted trace_fwd f32",
+           Rc // 10_000)
+    near32(ftr.trace_field_fwd(p32t, a32t, spec_t, Px64.float(),
+                               Py64.float()), out_f,
+           "tilted trace_field_fwd f32", Rc // 10_000)
+    r["trace_bwd_f32_l2"] = l2(ftr.trace_bwd(p32t, spec_t, nc_t, ins32,
+                                             cots32)[1], fl5_p)
+    r["trace_field_bwd_f32_l2"] = l2(ftr.trace_field_bwd(
+        p32t, a32t, spec_t, nc_t, Px64.float(), Py64.float(), cots32), fl4_p)
+    r["merit_bwd_f32_l2"] = l2(ft.merit_bwd(
+        p32t, a32t, st_t.float(), mspec_t, nc_t, Rc, Px=Px64.float(),
+        Py=Py64.float()), fm_p)
+    check(max(r["trace_bwd_f32_l2"], r["trace_field_bwd_f32_l2"],
+              r["merit_bwd_f32_l2"]) <= 1e-3, f"tilted f32 gradients: L2 "
+          f"rel err above 1e-3: {r}")
+    # the zero tilt: every surface of the stock Cooke triplet flagged as
+    # tilted, at zero angles, against the untilted code, on the card
+    spec_c = ftr.fast_spec(systems["f64"], field=True)
+    forced = spec_c[:3] + ((True,) * S_t,)
+    pc, ac = tables(systems["f64"])
+    with torch.no_grad():
+        rays = raygen.generate_rays(systems["f64"], *H, Px64, Py64, WL)
+    ins_c = [getattr(rays, k).contiguous() for k in ftr.RAY_FIELDS]
+    a0 = ftr.trace_bwd(pc, spec_c, nc_t, ins_c, cots[:8])
+    a1 = ftr.trace_bwd(pc, forced, nc_t, ins_c, cots[:8])
+    r["zero_tilt_bwd"] = flat_err(a1[1], a0[1], 1e-12,
+                                  "trace_bwd, tilt flags forced on at zero")
+    r["zero_tilt_din"] = arr_err(a1[0], a0[0])
+    r["zero_tilt_fwd"] = arr_err(ftr.trace_fwd(pc, forced, ins_c),
+                                 ftr.trace_fwd(pc, spec_c, ins_c))
+    check(r["zero_tilt_din"] <= 1e-12 and r["zero_tilt_fwd"] <= 1e-12,
+          f"zero tilt forced on: {r['zero_tilt_din']}, {r['zero_tilt_fwd']}"
+          " > 1e-12")
+    del ins_c, a0, a1, din_k, din_p
+    # K8/K9 on the tilted singlet, both modes (pol_parity: f64 and f32)
+    spec_s = pt.pol_spec(ts64, WL)
+    check(spec_s is not None and spec_s[5][1], "phase 18: the tilted singlet "
+          "is not pol_supported or not flagged")
+    nc_s = ts64.stack.coeffs.shape[1]
+    with torch.no_grad():
+        pks = ft.build_param_table(ts64, WL).contiguous()
+        rays = raygen.generate_rays(ts64, *H, Px64, Py64, WL)
+    coat_s = pt.build_coat_table(ts64, WL, torch.float64, dev)
+    ins_s = [getattr(rays, k).contiguous() for k in ftr.RAY_FIELDS]
+    ins_s[6] = ins[6]
+    for mode, states, intensity in (("full", None, False),
+                                    ("H", pt.pol_states(STATE_H), True)):
+        c = cots[:8] if intensity else cots
+        for key, v in pol_parity(pks, coat_s, spec_s, nc_s, ins_s, c, states,
+                                 intensity, f"tilted singlet {mode}").items():
+            r[f"pol_{key}_{mode}"] = v
+    torch.cuda.synchronize()
+    res18 = {"parity": r}
+    log(f"phase 18 tilted kernels (toleranced Cooke triplet: K1-K5; tilted "
+        f"singlet: K8/K9; 2^{args.check_log2} rays, f64 vs plain: per-ray "
+        f"tol 1e-10, gradients tol 1e-9, zero tilt forced on vs untilted "
+        f"tol 1e-12; f32 vs f64 plain: L2 tol 1e-3): " + ", ".join(
+            f"{k} {v:.2e}" for k, v in r.items()))
+    del ins, ins_s, cots, fl_k, fl5_p, fl4_k, fl4_p, fm_k, fm_p
+
+    # the tilted steps at full width (f32): value+grad over every leaf
+    config.set_precision("float32")
+    tc32 = perturbed.toleranced_cooke().system
+    ts32 = perturbed.tilted_singlet().system
+
+    def tilted_merit_loss(system, seed):
+        return ft.spot_rms_fast_field(system, *H, WL, num_rays=Rf, seed=seed)
+
+    steps18 = {}
+    for name, sysk, loss_fn, kern, seed0 in (
+            ("tilted_merit", tc32, tilted_merit_loss,
+             ("merit_fwd_tilt", "merit_bwd_tilt"), 6000),
+            ("tilted_field", tc32, field_loss,
+             ("prng_disk", "trace_field_fwd_tilt", "trace_field_bwd_tilt"),
+             6100),
+            ("tilted_generic", tc32, generic_loss,
+             ("prng_disk", "trace_fwd_tilt", "trace_bwd_tilt"), 6200),
+            ("tilted_pol", ts32, pol_loss,
+             ("prng_disk", "pol_fwd_intensity_tilt",
+              "pol_bwd_intensity_tilt"), 6300)):
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        sl, lv = leaf_system(sysk)
+        first = loss_fn(sl, seed0 - 100)
+        first.backward()
+        check(bool(torch.isfinite(first)), f"{name}: value not finite")
+        tilted_rows = ([1] if name == "tilted_pol"
+                       else list(perturbed.TOLERANCES))
+        for k in ("radius", "rx", "ry", "rz", "dx", "dy"):
+            gk = lv[k].grad[tilted_rows]
+            check(bool(torch.isfinite(gk).all()) and bool((gk != 0).all()),
+                  f"{name}: {k} gradient of the tilted surfaces not finite "
+                  f"or zero: {gk.tolist()}")
+        nan18 = {k: int((~torch.isfinite(v.grad)).sum())
+                 for k, v in lv.items() if v.grad is not None
+                 and not bool(torch.isfinite(v.grad).all())}
+
+        def vg18(i, sysk=sysk, loss_fn=loss_fn):
+            s_, _ = leaf_system(sysk)
+            loss_fn(s_, i).backward()
+
+        times18 = timed(vg18, seed0)
+        got18 = counts()
+        wall18 = time.perf_counter() - t0
+        n18 = 1 + 3 + args.steps
+        expect18 = {**dict.fromkeys(got18, 0), **dict.fromkeys(kern, n18)}
+        check(got18 == expect18, f"{name} launches {got18}, expected "
+              f"{expect18}")
+        path_launches[name] = got18
+        step18 = float(np.median(times18))
+        steps18[name] = {"value": float(first.detach()), "step_ms": step18,
+                         "step_ms_all": times18, "launches": got18,
+                         "steps": n18, "nan_entries": nan18}
+        log(f"phase 18 {name}: {n18} value+grad steps over every stack leaf "
+            f"in {wall18:.1f} s, value {float(first.detach()):.9e}; median "
+            f"step {step18:.3f} ms over {args.steps} steps; non-finite "
+            f"gradient entries: {nan18}; launches {got18}")
+    res18["steps"] = steps18
+    # the three Cooke paths compute one function on the same samples
+    with torch.no_grad():
+        Pxc, Pyc = ft.prng_disk(78, Rf, 0, torch.float32, dev)
+        v_gen = rms_spot_size(tc32, *H, Pxc, Pyc, WL) ** 2
+        f = ftr.trace_fast_field(tc32, *H, Pxc, Pyc, WL)
+        v_field = ((f.x - f.x.mean()) ** 2 + (f.y - f.y.mean()) ** 2).mean()
+        v_merit = ft.spot_rms_fast_field(tc32, *H, WL, Px=Pxc, Py=Pyc)
+        del f, Pxc, Pyc
+    e18 = max(rel(v_gen, v_merit), rel(v_field, v_merit))
+    check(e18 <= 1e-4, f"tilted paths disagree: generic {float(v_gen)}, "
+          f"field {float(v_field)}, merit {float(v_merit)}")
+    res18["paths_rel"] = e18
+    # the tilted kernels (the TILT instantiations) at full width on the
+    # toleranced Cooke triplet: the generic path's launch bundle and pupil
+    # samples and cotangents of a mean's size, as phase 8 gives the
+    # untilted ones; each held against its f32 plain version on the inputs
+    # it is timed on, as phase 8 holds the untilted ones (a ray whose
+    # radius falls within rounding of a decentred clip edge may be clipped
+    # in one only: up to 1 in 10^4 may differ in intensity)
+    spec_t32 = ftr.fast_spec(tc32, field=True)
+    mspec_t32 = ft._spec_of(tc32)
+    check(spec_t32[:3] == spec32[:3], "phase 18: the toleranced triplet's "
+          "codes or absorption differ from the stock triplet's")
+    pt32, at32 = tables(tc32)
+    gen18 = torch.Generator(device=dev).manual_seed(180)
+    with torch.no_grad():
+        Px8, Py8 = ft.prng_disk(8, Rf, 0, torch.float32, dev)
+        rays8 = raygen.generate_rays(tc32, *H, Px8, Py8, WL)
+    ins8 = [getattr(rays8, k).contiguous() for k in ftr.RAY_FIELDS]
+    del rays8
+    cots8 = [torch.randn(Rf, generator=gen18, device=dev) / Rf
+             for _ in range(8)]
+    flips = Rf // 10_000
+    full18 = {}
+    with torch.no_grad():
+        rows_t = ft.merit_fwd(pt32, at32, mspec_t32, Rf, seed=9)
+        rows_p = ft.merit_fwd_plain(pt32, at32, mspec_t32, Rf, seed=9)
+        kerr["merit_fwd_tilt"] = float((rows_t - rows_p).abs().max())
+        lt, xbt, ybt = ft._chan_combine(rows_t, Rf)
+        full18["merit_fwd_loss_rel"] = rel(lt, ft._chan_combine(rows_p,
+                                                                Rf)[0])
+        check(full18["merit_fwd_loss_rel"] <= 1e-4, f"tilted merit_fwd full "
+              f"width: loss rel err {full18['merit_fwd_loss_rel']} > 1e-4")
+        del rows_t, rows_p
+        stats_t = torch.stack([xbt, ybt, torch.tensor(1.0 / Rf, device=dev),
+                               torch.zeros((), device=dev)])
+        fk = ft.merit_bwd(pt32, at32, stats_t, mspec_t32, nc, Rf, seed=9)
+        fp = ft.merit_bwd_plain(pt32, at32, stats_t, mspec_t32, nc, Rf,
+                                seed=9)
+        kerr["merit_bwd_tilt"] = float((fk - fp).abs().max())
+        full18["merit_bwd_l2"] = l2(fk, fp)
+        del fk, fp
+        k5a = ftr.trace_fwd(pt32, spec_t32, ins8)
+        ref = ftr.trace_fast_plain(pt32, spec_t32, ins8)
+        kerr["trace_fwd_tilt"] = max_abs(k5a, ref)
+        near32(k5a, ref, "tilted trace_fwd full width", flips)
+        k1 = ftr.trace_field_fwd(pt32, at32, spec_t32, Px8, Py8)
+        ref = ftr.trace_fast_field_plain(pt32, at32, spec_t32, Px8, Py8)
+        kerr["trace_field_fwd_tilt"] = max_abs(k1, ref)
+        near32(k1, ref, "tilted trace_field_fwd full width", flips)
+        del k5a, k1, ref
+        din_k, flat_k = ftr.trace_bwd(pt32, spec_t32, nc, ins8, cots8)
+        din_p, flat_p = ftr.trace_fast_bwd_plain(pt32, spec_t32, nc, ins8,
+                                                 cots8)
+        kerr["trace_bwd_tilt"] = max(float((flat_k - flat_p).abs().max()),
+                                     max_abs(din_k, din_p))
+        full18["trace_bwd_din"] = arr_err(din_k, din_p)
+        check(full18["trace_bwd_din"] <= 1e-3, f"tilted trace_bwd full "
+              f"width: input cotangents, max |d| / max |ref| "
+              f"{full18['trace_bwd_din']} > 1e-3")
+        full18["trace_bwd_l2"] = l2(flat_k, flat_p)
+        del din_k, din_p
+        flat_k = ftr.trace_field_bwd(pt32, at32, spec_t32, nc, Px8, Py8,
+                                     cots8)
+        flat_p = ftr.trace_fast_field_bwd_plain(pt32, at32, spec_t32, nc,
+                                                Px8, Py8, cots8)
+        kerr["trace_field_bwd_tilt"] = float((flat_k - flat_p).abs().max())
+        full18["trace_field_bwd_l2"] = l2(flat_k, flat_p)
+        del flat_k, flat_p
+        for key in ("merit_bwd_l2", "trace_bwd_l2", "trace_field_bwd_l2"):
+            check(full18[key] <= 1e-3, f"tilted {key} full width: gradient "
+                  f"L2 rel err {full18[key]} > 1e-3")
+        ms.update({
+            "merit_fwd_tilt": time_ms(lambda i: ft.merit_fwd(
+                pt32, at32, mspec_t32, Rf, seed=i), 10, 3),
+            "merit_bwd_tilt": time_ms(lambda i: ft.merit_bwd(
+                pt32, at32, stats_t, mspec_t32, nc, Rf, seed=i), 10, 3),
+            "trace_fwd_tilt": time_ms(lambda i: ftr.trace_fwd(
+                pt32, spec_t32, ins8), 10, 3),
+            "trace_bwd_tilt": time_ms(lambda i: ftr.trace_bwd(
+                pt32, spec_t32, nc, ins8, cots8), 10, 3),
+            "trace_field_fwd_tilt": time_ms(lambda i: ftr.trace_field_fwd(
+                pt32, at32, spec_t32, Px8, Py8), 10, 3),
+            "trace_field_bwd_tilt": time_ms(lambda i: ftr.trace_field_bwd(
+                pt32, at32, spec_t32, nc, Px8, Py8, cots8), 10, 3),
+        })
+        plain_ms.update({
+            "merit_fwd_tilt": time_ms(lambda i: ft.merit_fwd_plain(
+                pt32, at32, mspec_t32, Rf, seed=i), 3),
+            "merit_bwd_tilt": time_ms(lambda i: ft.merit_bwd_plain(
+                pt32, at32, stats_t, mspec_t32, nc, Rf, seed=i), 3),
+            "trace_fwd_tilt": time_ms(lambda i: ftr.trace_fast_plain(
+                pt32, spec_t32, ins8), 3),
+            "trace_bwd_tilt": time_ms(lambda i: ftr.trace_fast_bwd_plain(
+                pt32, spec_t32, nc, ins8, cots8), 3),
+            "trace_field_fwd_tilt": time_ms(
+                lambda i: ftr.trace_fast_field_plain(pt32, at32, spec_t32,
+                                                     Px8, Py8), 3),
+            "trace_field_bwd_tilt": time_ms(
+                lambda i: ftr.trace_fast_field_bwd_plain(
+                    pt32, at32, spec_t32, nc, Px8, Py8, cots8), 3),
+        })
+    del ins8, cots8, Px8, Py8
+    # the tilted polarized kernels in intensity mode (the tilted
+    # polarized step's) on the tilted singlet, as phase 15 holds the
+    # untilted ones
+    spec_ts, pol18 = pol_full_width(ts32, (True,), 181)
+    full18.update(pol18)
+    res18["full_width"] = full18
+    # bounds: the untilted kernels' work plus the rotations of each tilted
+    # surface
+    n_tilt = sum(spec_t32[3])
+    for name, extra in (("merit_fwd", OPS_TILT_FWD),
+                        ("merit_bwd", OPS_TILT_FWD + OPS_TILT_ADJ),
+                        ("trace_fwd", OPS_TILT_FWD),
+                        ("trace_bwd", OPS_TILT_FWD + OPS_TILT_ADJ),
+                        ("trace_field_fwd", OPS_TILT_FWD),
+                        ("trace_field_bwd", OPS_TILT_FWD + OPS_TILT_ADJ)):
+        ops, nbytes = work[name]
+        work[name + "_tilt"] = (ops + Rf * n_tilt * extra, nbytes)
+    _, ops_fi_t, _, ops_bi_t = pol_ops(spec_ts, n_h)
+    work["pol_fwd_intensity_tilt"] = (Rf * ops_fi_t,
+                                      work["pol_fwd_intensity"][1])
+    work["pol_bwd_intensity_tilt"] = (Rf * ops_bi_t,
+                                      work["pol_bwd_intensity"][1])
+    report["phases"]["tilts"] = res18
+    tilt_names = [k for k in ms if k.endswith("_tilt")]
+    log(f"phase 18 tilted kernels at 2^{args.full_log2} rays (f32; "
+        f"toleranced Cooke triplet, K1-K5; tilted singlet, K8/K9 intensity "
+        f"mode) against the f32 plain versions: every output array within "
+        f"2e-4 x max(1, max |ref|) ({flips} intensity flips allowed), "
+        f"merit_fwd loss rel err (tol 1e-4), input cotangents (tol 1e-3 of "
+        f"each array's largest) and gradient L2 (tol 1e-3) "
+        f"{ {k: float(f'{v:.3e}') for k, v in full18.items()} }; max "
+        f"|kernel - plain| "
+        f"{ {k: float(f'{kerr[k]:.4g}') for k in tilt_names} }; ms { {k: round(ms[k], 4) for k in tilt_names} } (untilted, "
+        f"stock triplet and bench singlet: "
+        f"{ {k[:-5]: round(ms[k[:-5]], 4) for k in tilt_names} }); plain ms "
+        f"{ {k: round(plain_ms[k], 2) for k in tilt_names} }; operations per "
+        f"ray added per tilted surface: forward {OPS_TILT_FWD}, backward "
+        f"{OPS_TILT_FWD + OPS_TILT_ADJ} ({n_tilt} tilted surfaces)")
+    config.set_precision("float32")
+
     # ---- the kernels line ----
     replaces = {
         "prng_disk": "optiland_tpu/ops/pallas_trace.py:1100",
@@ -1855,6 +2500,8 @@ def main(argv=None):
         "trace_field_bwd": "optiland_tpu/ops/pallas_trace.py:847",
         "trace_fwd": "optiland_tpu/ops/pallas_trace.py:538",
         "trace_bwd": "optiland_tpu/ops/pallas_trace.py:622",
+        "trace_fwd_poly": "optiland_tpu/ops/pallas_trace.py:538",
+        "trace_bwd_poly": "optiland_tpu/ops/pallas_trace.py:622",
         "huygens_fwd": "optiland_tpu/ops/pallas_huygens.py:91",
         "huygens_bwd_img": "optiland_tpu/ops/pallas_huygens.py:178",
         "huygens_bwd_pup": "optiland_tpu/ops/pallas_huygens.py:204",
@@ -1867,22 +2514,28 @@ def main(argv=None):
                for k in ("prng_disk", "merit_fwd", "merit_bwd")}
     sources.update({k: "optiland_torch/csrc/fast_trace.cu" for k in
                     ("trace_field_fwd", "trace_field_bwd", "trace_fwd",
-                     "trace_bwd")})
+                     "trace_bwd", "trace_fwd_poly", "trace_bwd_poly")})
     sources.update({k: "optiland_torch/csrc/huygens.cu" for k in hu.LAUNCHES})
     sources.update({k: "optiland_torch/csrc/pol_trace.cu"
-                    for k in pt.LAUNCHES})
+                    for k in POL_NAMES})
     kernels = []
+    # every kernel of the paths, the TILT instantiations the tilted paths
+    # launch (compiled apart from the untilted ones) as kernels of their own
     for name in ("merit_fwd", "merit_bwd", "prng_disk", "trace_field_fwd",
-                 "trace_field_bwd", "trace_fwd", "trace_bwd", *hu.LAUNCHES,
-                 *pt.LAUNCHES):
+                 "trace_field_bwd", "trace_fwd", "trace_bwd", "trace_fwd_poly",
+                 "trace_bwd_poly", *hu.LAUNCHES, *POL_NAMES,
+                 "merit_fwd_tilt", "merit_bwd_tilt", "trace_field_fwd_tilt",
+                 "trace_field_bwd_tilt", "trace_fwd_tilt", "trace_bwd_tilt",
+                 "pol_fwd_intensity_tilt", "pol_bwd_intensity_tilt"):
+        base_name = name.removesuffix("_tilt")
         ops, nbytes = work[name]
         t_ops = ops / PEAK_F32_OPS * 1e3
         t_bytes = nbytes / PEAK_BYTES * 1e3
         n_launch = sum(c[name] for c in path_launches.values())
         check(n_launch > 0, f"kernel {name} was not launched on any path")
         kernels.append({
-            "name": name, "route": "cuda", "source": sources[name],
-            "replaces": replaces[name], "launches": n_launch,
+            "name": name, "route": "cuda", "source": sources[base_name],
+            "replaces": replaces[base_name], "launches": n_launch,
             "max_abs_err": kerr[name], "ms": ms[name],
             "plain_ms": plain_ms[name], "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",

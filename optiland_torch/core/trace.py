@@ -18,8 +18,9 @@ history is asked for and the wavelength is a concrete number, as the JAX
 package sends it to its Pallas kernels on the TPU: a polarized system to
 ``ops/pol_trace.trace_fast_pol``, an unpolarized uncoated one to
 ``ops/fast_trace.trace_fast``. A system the JAX package's kernels would
-take but the port's do not cover yet (tilts, more than 16 surfaces) raises
-there instead of running this engine on the card; a polarized or coated
+take but the port's do not cover yet (more than 16 surfaces) raises there
+instead of running this engine on the card; tilted surfaces run on the
+kernels, as in the JAX package. A polarized or coated
 system that the JAX package's kernels would not take either (a coating
 that is not kernel-eligible at the trace wavelength, an unpolarized system
 with coatings) runs this engine, as the JAX package runs its XLA path.
@@ -144,8 +145,9 @@ def trace(system: System, rays: RealRays, record: bool = True, key=None,
             (``ops/pol_trace.trace_fast_pol`` for a polarized system whose
             coatings are kernel-eligible at this wavelength,
             ``ops/fast_trace.trace_fast`` for an uncoated unpolarized one),
-            with the same semantics. For a system they do not cover yet
-            (tilts, more than 16 surfaces) it raises NotImplementedError,
+            with the same semantics, tilted surfaces included. For a
+            system they do not cover yet (more than 16 surfaces) it raises
+            NotImplementedError,
             as the JAX package's kernels cover those: it never runs the
             plain engine on the card in their place. With ``record``, on
             the CPU, or for a system the JAX package's kernels would not

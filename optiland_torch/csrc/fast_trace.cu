@@ -9,6 +9,12 @@
 //   trace_field_bwd <- _make_bwd_kernel_field / _pallas_bwd_field (K4)
 //   trace_fwd       <- _make_fwd_kernel / _pallas_fwd, mono mode (K5a)
 //   trace_bwd       <- _make_bwd_kernel / _pallas_bwd, mono mode (K5b)
+//   trace_fwd_poly  <- _make_fwd_kernel / _pallas_fwd, poly mode (K5a)
+//   trace_bwd_poly  <- _make_bwd_kernel / _pallas_bwd, poly mode (K5b)
+// The poly mode (template flag POLY) reads a 9th per-ray array, the
+// wavelength, and the (S, nm) dispersion coefficients, evaluates each
+// surface's index per ray from its formula (step.cuh: n_formula), and its
+// adjoint also sums the coefficients' gradient (dn_dcoef).
 //
 // What bounds them on this card. Each ray-surface step is ~120 operations
 // forward and ~300 in the adjoint; a ray moves 40 bytes (field forward: Px,
@@ -17,9 +23,12 @@
 // the Cooke triplet the forward kernels sit near the line between the two
 // bounds and the adjoints are bound by operations. So, as for the merit:
 // one thread per ray with its whole state in registers, coalesced
-// structure-of-arrays loads and stores, the param table and the per-surface
-// flags (geometry code, reflect, absorb) in shared memory, uniform across
-// the block so the per-surface branches do not diverge. The adjoints keep
+// structure-of-arrays loads and stores, the param table, the tilts' cosines
+// and sines, the coefficient rows (poly) and the per-surface flags
+// (geometry code, reflect, absorb, tilted, formula) in shared memory,
+// uniform across the block so the per-surface branches do not diverge. A
+// formula is ~10 (Sellmeier) to ~60 (a pow per term) operations per ray
+// and surface, and its coefficient gradients as many per coefficient. The adjoints keep
 // each ray's per-surface input state in a local array bounded by MAX_SURF,
 // sum each surface's gradient columns with warp shuffles into per-warp
 // shared rows over a grid-stride loop, write one partial row per block, and
@@ -63,25 +72,56 @@ __device__ __forceinline__ void launch_state(int64_t i, const T* sa,
   }
 }
 
+// The flag rows of the spec (ops/fast_trace.py: fast_spec, poly_spec):
+// code, reflect, absorb, tilted, and in the polychromatic mode the
+// dispersion formula code.
+constexpr int F_ABS = 2, F_TILT = 3, F_FORMULA = 4;
+
+// Copy the polychromatic mode's (S, nm) coefficient rows into shared memory
+// (load_tables, which follows, synchronises).
+template <typename T, bool POLY>
+__device__ __forceinline__ void load_mats(const T* mats, int S, int nm,
+                                          T* sm) {
+  if constexpr (POLY)
+    for (int i = threadIdx.x; i < S * nm; i += blockDim.x) sm[i] = mats[i];
+}
+
 // Forward: trace each ray through surfaces 1 .. S-1 and write its 8 arrays.
-template <typename T, bool FIELD>
+// POLY: each index is its surface's formula at the ray's wavelength ``wl``,
+// and nothing absorbs (the JAX package's poly body).
+template <typename T, bool FIELD, bool POLY, bool TILT>
 __global__ void __launch_bounds__(FWD_BLOCK)
 trace_fwd_kernel(const T* __restrict__ params, const T* __restrict__ aim,
-                 const int* __restrict__ flags, int S, const T* px,
-                 const T* py, Rays8<const T*> in, int64_t R,
-                 Rays8<T*> out) {
+                 const T* __restrict__ mats, const int* __restrict__ flags,
+                 int S, int nm, const T* px, const T* py, Rays8<const T*> in,
+                 const T* wl, int64_t R, Rays8<T*> out) {
+  constexpr int NF = POLY ? 5 : 4;
   __shared__ T sp[MAX_SURF * NUM_P];
+  __shared__ T sr[MAX_SURF * N_ROT];
   __shared__ T sa[N_AIM];
-  __shared__ int sf[3 * MAX_SURF];
-  load_tables<T, 3, FIELD>(params, aim, flags, S, sp, sa, sf);
+  __shared__ T sm[POLY ? MAX_SURF * MAX_NM : 1];
+  __shared__ int sf[NF * MAX_SURF];
+  load_mats<T, POLY>(mats, S, nm, sm);
+  load_tables<T, NF, FIELD>(params, aim, flags, S, sp, sa, sf, sr);
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= R) return;
   T v[8], Px, Py;
   launch_state<T, FIELD>(i, sa, px, py, in, v, Px, Py);
-  T n = sp[P_NPOST];
-  for (int s = 1; s < S; ++s)
-    n = step_fwd<T, true>(sf[s], sf[S + s], sf[2 * S + s], sp + s * NUM_P, n,
-                          v[0], v[1], v[2], v[3], v[4], v[5], v[6], v[7]);
+  T w = T(0), n = sp[P_NPOST];
+  if constexpr (POLY) {
+    w = wl[i];
+    n = n_formula(sf[F_FORMULA * S], sm, nm, w);
+  }
+  for (int s = 1; s < S; ++s) {
+    const int refl = sf[S + s];
+    T npost = sp[s * NUM_P + P_NPOST];
+    if constexpr (POLY)
+      npost = refl ? n : n_formula(sf[F_FORMULA * S + s], sm + s * nm, nm, w);
+    n = step_fwd<T, true, TILT>(sf[s], refl, POLY ? 0 : sf[F_ABS * S + s],
+                          sf[F_TILT * S + s], sp + s * NUM_P, sr + s * N_ROT,
+                          n, npost, v[0], v[1], v[2], v[3], v[4], v[5], v[6],
+                          v[7]);
+  }
 #pragma unroll
   for (int k = 0; k < 8; ++k) out.p[k][i] = v[k];
 }
@@ -89,23 +129,39 @@ trace_fwd_kernel(const T* __restrict__ params, const T* __restrict__ aim,
 // Backward: retrace each ray keeping its per-surface input state, then run
 // the reverse sweep seeded with its 8 output cotangents. One partial row per
 // block over a grid-stride loop of ray chunks, compact layout [s * N_GF + j]
-// for surface s and slot j, then (FIELD) N_AIM aim entries; the generic mode
-// also writes the 8 per-ray input cotangents.
-template <typename T, bool FIELD>
+// for surface s and slot j, then (FIELD) N_AIM aim entries or (POLY) S * nm
+// coefficient entries [S * N_GF + s * nm + j]; the generic mode also writes
+// the 8 per-ray input cotangents.
+//
+// POLY keeps each ray's index before surface s in the slot of its surface
+// state that holds the input intensity in the monochromatic mode (the
+// polychromatic trace does not absorb, so the adjoint never reads that
+// intensity): the local array does not grow. The index after a refractive
+// surface is the next surface's n_pre, or the chain's last index. The index
+// cotangent of surface s goes to its coefficients through dn_dcoef, one
+// warp sum per coefficient the formula reads.
+template <typename T, bool FIELD, bool POLY, bool TILT>
 __global__ void __launch_bounds__(BWD_BLOCK)
 trace_bwd_kernel(const T* __restrict__ params, const T* __restrict__ aim,
-                 const int* __restrict__ flags, int S, const T* px,
-                 const T* py, Rays8<const T*> in, Rays8<const T*> cot,
-                 int64_t R, Rays8<T*> din, T* __restrict__ partial) {
+                 const T* __restrict__ mats, const int* __restrict__ flags,
+                 int S, int nm, const T* px, const T* py, Rays8<const T*> in,
+                 const T* wl, Rays8<const T*> cot, int64_t R, Rays8<T*> din,
+                 T* __restrict__ partial) {
+  constexpr int NF = POLY ? 5 : 4;
   constexpr int NW_MAX = BWD_BLOCK / 32;
-  constexpr int NCOMP_MAX = MAX_SURF * N_GF + N_AIM;
+  constexpr int NCOMP_MAX =
+      MAX_SURF * N_GF + (POLY ? MAX_SURF * MAX_NM : N_AIM);
   __shared__ T sp[MAX_SURF * NUM_P];
+  __shared__ T sr[MAX_SURF * N_ROT];
   __shared__ T sa[N_AIM];
-  __shared__ int sf[3 * MAX_SURF];
+  __shared__ T sm[POLY ? MAX_SURF * MAX_NM : 1];
+  __shared__ int sf[NF * MAX_SURF];
   __shared__ T acc[NW_MAX][NCOMP_MAX];
-  __shared__ T npre[MAX_SURF];  // n_pre of surface s (uniform across rays)
-  load_tables<T, 3, FIELD>(params, aim, flags, S, sp, sa, sf);
-  const int ncomp = S * N_GF + (FIELD ? N_AIM : 0);
+  __shared__ T npre[MAX_SURF];  // mono: n_pre of surface s (uniform)
+  load_mats<T, POLY>(mats, S, nm, sm);
+  load_tables<T, NF, FIELD>(params, aim, flags, S, sp, sa, sf, sr);
+  const int ncomp =
+      S * N_GF + (FIELD ? N_AIM : 0) + (POLY ? S * nm : 0);
   const int nw = blockDim.x >> 5;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   for (int j = threadIdx.x; j < NW_MAX * NCOMP_MAX; j += blockDim.x)
@@ -113,44 +169,93 @@ trace_bwd_kernel(const T* __restrict__ params, const T* __restrict__ aim,
   if (threadIdx.x == 0) fill_npre(sp, sf, S, npre);
   __syncthreads();
 
+  // the input state (x, y, z, L, M, N) of surface s, then its input
+  // intensity (mono) or its n_pre (POLY)
   T st[MAX_SURF][7];
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   for (int64_t base = (int64_t)blockIdx.x * blockDim.x; base < R;
        base += stride) {
     const int64_t i = base + threadIdx.x;
     const bool valid = i < R;
-    T Px = T(0), Py = T(0);
+    T Px = T(0), Py = T(0), w = T(1), n_last = T(1);
     // cotangents of (x, y, z, L, M, N, n, i, opd)
     T g[9] = {T(0), T(0), T(0), T(0), T(0), T(0), T(0), T(0), T(0)};
     if (valid) {
       T v[8];
       launch_state<T, FIELD>(i, sa, px, py, in, v, Px, Py);
-      for (int s = 1; s < S; ++s) {
-#pragma unroll
-        for (int k = 0; k < 7; ++k) st[s][k] = v[k];
-        step_fwd<T, true>(sf[s], sf[S + s], sf[2 * S + s], sp + s * NUM_P,
-                          npre[s], v[0], v[1], v[2], v[3], v[4], v[5], v[6],
-                          v[7]);
+      T n = T(0);
+      if constexpr (POLY) {
+        w = wl[i];
+        n = n_formula(sf[F_FORMULA * S], sm, nm, w);
       }
+      for (int s = 1; s < S; ++s) {
+        const int refl = sf[S + s];
+#pragma unroll
+        for (int k = 0; k < 6; ++k) st[s][k] = v[k];
+        st[s][6] = POLY ? n : v[6];
+        T npost = sp[s * NUM_P + P_NPOST];
+        if constexpr (POLY)
+          npost =
+              refl ? n : n_formula(sf[F_FORMULA * S + s], sm + s * nm, nm, w);
+        n = step_fwd<T, true, TILT>(sf[s], refl, POLY ? 0 : sf[F_ABS * S + s],
+                              sf[F_TILT * S + s], sp + s * NUM_P,
+                              sr + s * N_ROT, POLY ? n : npre[s], npost,
+                              v[0], v[1], v[2], v[3], v[4], v[5], v[6], v[7]);
+      }
+      n_last = n;
 #pragma unroll
       for (int k = 0; k < 6; ++k) g[k] = cot.p[k][i];
       g[7] = cot.p[6][i];
       g[8] = cot.p[7][i];
     }
     for (int s = S - 1; s >= 1; --s) {
+      const int refl = sf[S + s];
       T gc[N_GF] = {};
+      T n_pre = npre[s], npost = sp[s * NUM_P + P_NPOST];
+      if constexpr (POLY) {
+        n_pre = valid ? st[s][6] : T(1);
+        npost = refl ? n_pre : (s + 1 < S && valid ? st[s + 1][6] : n_last);
+      }
       if (valid)
-        step_adjoint<T, true>(sf[s], sf[S + s], sf[2 * S + s], sp + s * NUM_P,
-                              npre[s], st[s][0], st[s][1], st[s][2], st[s][3],
-                              st[s][4], st[s][5], st[s][6], g, gc);
+        step_adjoint<T, true, TILT>(sf[s], refl, POLY ? 0 : sf[F_ABS * S + s],
+                              sf[F_TILT * S + s], sp + s * NUM_P,
+                              sr + s * N_ROT, n_pre, npost, st[s][0],
+                              st[s][1], st[s][2], st[s][3], st[s][4],
+                              st[s][5], POLY ? T(0) : st[s][6], g, gc);
+      T g_np = T(0);  // POLY: the cotangent of npost, for the coefficients
+      if constexpr (POLY) {
+        g_np = gc[3];
+        gc[3] = T(0);
+      }
 #pragma unroll
       for (int j = 0; j < N_GF; ++j) {
         const T v = warp_sum(gc[j]);
         if (lane == 0) acc[warp][s * N_GF + j] += v;
       }
+      if constexpr (POLY) {
+        if (!refl) {
+          const int fc = sf[F_FORMULA * S + s];
+          for (int j = 0; j < nm; ++j) {
+            if (!dn_used(fc, nm, j)) continue;
+            T v = valid ? g_np * dn_dcoef(fc, sm + s * nm, nm, w, npost, j)
+                        : T(0);
+            v = warp_sum(v);
+            if (lane == 0) acc[warp][S * N_GF + s * nm + j] += v;
+          }
+        }
+      }
     }
-    // n_pre of surface 1 is the object row's n_post
-    {
+    // n_pre of surface 1 is the object row's n_post (POLY: its formula's)
+    if constexpr (POLY) {
+      const int fc = sf[F_FORMULA * S];
+      const T n0 = valid ? st[1][6] : T(1);
+      for (int j = 0; j < nm; ++j) {
+        if (!dn_used(fc, nm, j)) continue;
+        T v = valid ? g[6] * dn_dcoef(fc, sm, nm, w, n0, j) : T(0);
+        v = warp_sum(v);
+        if (lane == 0) acc[warp][S * N_GF + j] += v;
+      }
+    } else {
       const T v = warp_sum(g[6]);
       if (lane == 0) acc[warp][0 * N_GF + 3] += v;
     }
@@ -180,33 +285,45 @@ Rays8<P> rays8(void* const* ptrs) {
   return r;
 }
 
-template <typename T, bool FIELD>
-int fwd_launch(const T* params, const T* aim, const int* flags, int S,
-               const T* px, const T* py, void* const* in, int64_t R,
-               void* const* out, cudaStream_t stream) {
-  if (S > MAX_SURF || S < 2) return (int)cudaErrorInvalidValue;
+// TILT: the instantiation with the tilt rotations, launched when a surface
+// is tilted (``tilt``); the other keeps them out of the untilted systems'
+// code.
+template <typename T, bool FIELD, bool POLY>
+int fwd_launch(const T* params, const T* aim, const T* mats, const int* flags,
+               int S, int tilt, int nm, const T* px, const T* py,
+               void* const* in, int64_t R, void* const* out,
+               cudaStream_t stream) {
+  if (S > MAX_SURF || S < 2 || (POLY && (nm < 1 || nm > MAX_NM)))
+    return (int)cudaErrorInvalidValue;
   const int64_t blocks = (R + FWD_BLOCK - 1) / FWD_BLOCK;
+  const auto kernel = tilt ? trace_fwd_kernel<T, FIELD, POLY, true>
+                           : trace_fwd_kernel<T, FIELD, POLY, false>;
   if (blocks > 0)
-    trace_fwd_kernel<T, FIELD><<<(unsigned)blocks, FWD_BLOCK, 0, stream>>>(
-        params, aim, flags, S, px, py, rays8<const T*>(in), R,
-        rays8<T*>(out));
+    kernel<<<(unsigned)blocks, FWD_BLOCK, 0, stream>>>(
+        params, aim, mats, flags, S, nm, px, py, rays8<const T*>(in),
+        POLY ? (const T*)in[8] : nullptr, R, rays8<T*>(out));
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool FIELD>
-int bwd_launch(const T* params, const T* aim, const int* flags, int S, int nc,
-               const T* px, const T* py, void* const* in, void* const* cot,
-               int64_t R, void* const* din, T* partial, int nblocks, T* out,
-               cudaStream_t stream) {
-  if (S > MAX_SURF || S < 2 || nblocks < 1) return (int)cudaErrorInvalidValue;
-  trace_bwd_kernel<T, FIELD><<<nblocks, BWD_BLOCK, 0, stream>>>(
-      params, aim, flags, S, px, py, rays8<const T*>(in),
-      rays8<const T*>(cot), R, rays8<T*>(din), partial);
+template <typename T, bool FIELD, bool POLY>
+int bwd_launch(const T* params, const T* aim, const T* mats, const int* flags,
+               int S, int tilt, int nc, int nm, const T* px, const T* py,
+               void* const* in, void* const* cot, int64_t R, void* const* din,
+               T* partial, int nblocks, T* out, cudaStream_t stream) {
+  if (S > MAX_SURF || S < 2 || nblocks < 1 ||
+      (POLY && (nm < 1 || nm > MAX_NM)))
+    return (int)cudaErrorInvalidValue;
+  const auto kernel = tilt ? trace_bwd_kernel<T, FIELD, POLY, true>
+                           : trace_bwd_kernel<T, FIELD, POLY, false>;
+  kernel<<<nblocks, BWD_BLOCK, 0, stream>>>(
+      params, aim, mats, flags, S, nm, px, py, rays8<const T*>(in),
+      POLY ? (const T*)in[8] : nullptr, rays8<const T*>(cot), R,
+      rays8<T*>(din), partial);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  const int n_aim = FIELD ? N_AIM : 0;
-  grad_reduce_kernel<T, N_GF><<<S * N_GF + n_aim, RED_BLOCK, 0, stream>>>(
-      partial, nblocks, S, nc, n_aim, out);
+  const int n_extra = FIELD ? N_AIM : (POLY ? S * nm : 0);
+  grad_reduce_kernel<T, N_GF><<<S * N_GF + n_extra, RED_BLOCK, 0, stream>>>(
+      partial, nblocks, S, nc, n_extra, out);
   return (int)cudaGetLastError();
 }
 
@@ -214,37 +331,59 @@ int bwd_launch(const T* params, const T* aim, const int* flags, int S, int nc,
 
 // ---------------------------------------------------------------------------
 // C interface. Bundles of 8 per-ray arrays come as host arrays of 8 device
-// pointers (x, y, z, L, M, N, i, opd).
+// pointers (x, y, z, L, M, N, i, opd); the polychromatic launch bundles have
+// a 9th, the wavelengths (um), and their (S, nm) coefficient rows.
 // ---------------------------------------------------------------------------
 
 #define OTC_TRACE(SUF, T)                                                    \
   extern "C" int otc_trace_fwd_##SUF(const T* params, const int* flags,      \
-                                     int S, void* const* in, int64_t R,      \
-                                     void* const* out, void* stream) {       \
-    return fwd_launch<T, false>(params, nullptr, flags, S, nullptr, nullptr, \
-                                in, R, out, (cudaStream_t)stream);           \
+                                     int S, int tilt, void* const* in,       \
+                                     int64_t R, void* const* out,            \
+                                     void* stream) {                         \
+    return fwd_launch<T, false, false>(params, nullptr, nullptr, flags, S,   \
+                                       tilt, 0, nullptr, nullptr, in, R,     \
+                                       out, (cudaStream_t)stream);           \
   }                                                                          \
   extern "C" int otc_trace_field_fwd_##SUF(                                  \
-      const T* params, const T* aim, const int* flags, int S, const T* px,   \
-      const T* py, int64_t R, void* const* out, void* stream) {              \
-    return fwd_launch<T, true>(params, aim, flags, S, px, py, nullptr, R,    \
-                               out, (cudaStream_t)stream);                   \
+      const T* params, const T* aim, const int* flags, int S, int tilt,      \
+      const T* px, const T* py, int64_t R, void* const* out, void* stream) { \
+    return fwd_launch<T, true, false>(params, aim, nullptr, flags, S, tilt,  \
+                                      0, px, py, nullptr, R, out,            \
+                                      (cudaStream_t)stream);                 \
+  }                                                                          \
+  extern "C" int otc_trace_fwd_poly_##SUF(                                   \
+      const T* params, const T* mats, const int* flags, int S, int tilt,     \
+      int nm, void* const* in, int64_t R, void* const* out, void* stream) {  \
+    return fwd_launch<T, false, true>(params, nullptr, mats, flags, S, tilt, \
+                                      nm, nullptr, nullptr, in, R, out,      \
+                                      (cudaStream_t)stream);                 \
   }                                                                          \
   extern "C" int otc_trace_bwd_##SUF(                                        \
-      const T* params, const int* flags, int S, int nc, void* const* in,     \
-      void* const* cot, int64_t R, void* const* din, T* partial,             \
-      int nblocks, T* out, void* stream) {                                   \
-    return bwd_launch<T, false>(params, nullptr, flags, S, nc, nullptr,      \
-                                nullptr, in, cot, R, din, partial, nblocks,  \
-                                out, (cudaStream_t)stream);                  \
+      const T* params, const int* flags, int S, int tilt, int nc,            \
+      void* const* in, void* const* cot, int64_t R, void* const* din,        \
+      T* partial, int nblocks, T* out, void* stream) {                       \
+    return bwd_launch<T, false, false>(params, nullptr, nullptr, flags, S,   \
+                                       tilt, nc, 0, nullptr, nullptr, in,    \
+                                       cot, R, din, partial, nblocks, out,   \
+                                       (cudaStream_t)stream);                \
   }                                                                          \
   extern "C" int otc_trace_field_bwd_##SUF(                                  \
-      const T* params, const T* aim, const int* flags, int S, int nc,        \
-      const T* px, const T* py, void* const* cot, int64_t R, T* partial,     \
-      int nblocks, T* out, void* stream) {                                   \
-    return bwd_launch<T, true>(params, aim, flags, S, nc, px, py, nullptr,   \
-                               cot, R, nullptr, partial, nblocks, out,       \
-                               (cudaStream_t)stream);                        \
+      const T* params, const T* aim, const int* flags, int S, int tilt,      \
+      int nc, const T* px, const T* py, void* const* cot, int64_t R,         \
+      T* partial, int nblocks, T* out, void* stream) {                       \
+    return bwd_launch<T, true, false>(params, aim, nullptr, flags, S, tilt,  \
+                                      nc, 0, px, py, nullptr, cot, R,        \
+                                      nullptr, partial, nblocks, out,        \
+                                      (cudaStream_t)stream);                 \
+  }                                                                          \
+  extern "C" int otc_trace_bwd_poly_##SUF(                                   \
+      const T* params, const T* mats, const int* flags, int S, int tilt,     \
+      int nc, int nm, void* const* in, void* const* cot, int64_t R,          \
+      void* const* din, T* partial, int nblocks, T* out, void* stream) {     \
+    return bwd_launch<T, false, true>(params, nullptr, mats, flags, S, tilt, \
+                                      nc, nm, nullptr, nullptr, in, cot, R,  \
+                                      din, partial, nblocks, out,            \
+                                      (cudaStream_t)stream);                 \
   }
 
 OTC_TRACE(f32, float)

@@ -15,9 +15,11 @@
 // each ray-surface step is ~100 flops forward plus ~250 in the adjoint,
 // with two rsqrt, one sqrt and several divides. So the kernels are built
 // around keeping everything in registers: one thread per ray, the (S, 15)
-// parameter table, the aim vector and the geometry/reflect flags in shared
-// memory (uniform across the block, so the per-surface branch does not
-// diverge), block reductions with warp shuffles, and no float atomics.
+// parameter table, the tilts' cosines and sines, the aim vector and the
+// geometry/reflect/tilt flags in shared memory (uniform across the block, so
+// the per-surface branches do not diverge), block reductions with warp
+// shuffles, and no float atomics. A tilted surface adds its two rotations
+// to the step (~50 operations forward, ~150 in the adjoint).
 // The backward keeps each ray's per-surface input state in a local array
 // bounded by MAX_SURF for its reverse sweep instead of re-tracing.
 //
@@ -87,7 +89,7 @@ prng_disk_kernel(uint64_t seed, int64_t offset, int64_t R, T* px, T* py,
   }
 }
 
-template <typename T>
+template <typename T, bool TILT>
 __global__ void __launch_bounds__(FWD_BLOCK)
 merit_fwd_kernel(const T* __restrict__ params, const T* __restrict__ aim,
                  const int* __restrict__ flags, int S,
@@ -95,10 +97,11 @@ merit_fwd_kernel(const T* __restrict__ params, const T* __restrict__ aim,
                  int64_t R, uint64_t seed, int64_t offset, int prng,
                  T* __restrict__ rows) {
   __shared__ T sp[MAX_SURF * NUM_P];
+  __shared__ T sr[MAX_SURF * N_ROT];
   __shared__ T sa[N_AIM];
-  __shared__ int sf[2 * MAX_SURF];
+  __shared__ int sf[3 * MAX_SURF];  // code, reflect, tilted
   __shared__ T red[2][32];
-  load_tables<T, 2, true>(params, aim, flags, S, sp, sa, sf);
+  load_tables<T, 3, true>(params, aim, flags, S, sp, sa, sf, sr);
 
   const int64_t base = (int64_t)blockIdx.x * blockDim.x;
   const int64_t i = base + threadIdx.x;
@@ -119,8 +122,10 @@ merit_fwd_kernel(const T* __restrict__ params, const T* __restrict__ aim,
     T unused_i = T(0), unused_opd = T(0);  // the merit step traces geometry
     T n = sp[P_NPOST];
     for (int s = 1; s < S; ++s)
-      n = step_fwd<T, false>(sf[s], sf[S + s], 0, sp + s * NUM_P, n, x, y,
-                                z, L, M, N, unused_i, unused_opd);
+      n = step_fwd<T, false, TILT>(sf[s], sf[S + s], 0, sf[2 * S + s],
+                             sp + s * NUM_P, sr + s * N_ROT, n,
+                             sp[s * NUM_P + P_NPOST], x, y, z, L, M, N,
+                             unused_i, unused_opd);
   }
   const int64_t rem = R - base;
   const T cnt = T(rem < (int64_t)blockDim.x ? rem : (int64_t)blockDim.x);
@@ -143,7 +148,7 @@ merit_fwd_kernel(const T* __restrict__ params, const T* __restrict__ aim,
 // One partial gradient row per block over a grid-stride loop of ray chunks.
 // Compact row layout: [s * N_G + j] for surface s and slot j, then N_AIM
 // aim entries. The block holds 32 to BWD_BLOCK threads, a multiple of 32.
-template <typename T>
+template <typename T, bool TILT>
 __global__ void __launch_bounds__(BWD_BLOCK)
 merit_bwd_kernel(const T* __restrict__ params, const T* __restrict__ aim,
                  const T* __restrict__ stats, const int* __restrict__ flags,
@@ -153,11 +158,12 @@ merit_bwd_kernel(const T* __restrict__ params, const T* __restrict__ aim,
   constexpr int NW_MAX = BWD_BLOCK / 32;
   constexpr int NCOMP_MAX = MAX_SURF * N_G + N_AIM;
   __shared__ T sp[MAX_SURF * NUM_P];
+  __shared__ T sr[MAX_SURF * N_ROT];
   __shared__ T sa[N_AIM];
-  __shared__ int sf[2 * MAX_SURF];
+  __shared__ int sf[3 * MAX_SURF];  // code, reflect, tilted
   __shared__ T acc[NW_MAX][NCOMP_MAX];
   __shared__ T npre[MAX_SURF];  // n_pre of surface s (uniform across rays)
-  load_tables<T, 2, true>(params, aim, flags, S, sp, sa, sf);
+  load_tables<T, 3, true>(params, aim, flags, S, sp, sa, sf, sr);
   const int ncomp = S * N_G + N_AIM;
   const int nw = blockDim.x >> 5;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -194,8 +200,10 @@ merit_bwd_kernel(const T* __restrict__ params, const T* __restrict__ aim,
         st[s][3] = L;
         st[s][4] = M;
         st[s][5] = N;
-        step_fwd<T, false>(sf[s], sf[S + s], 0, sp + s * NUM_P, npre[s], x,
-                           y, z, L, M, N, unused_i, unused_opd);
+        step_fwd<T, false, TILT>(sf[s], sf[S + s], 0, sf[2 * S + s],
+                           sp + s * NUM_P, sr + s * N_ROT, npre[s],
+                           sp[s * NUM_P + P_NPOST], x, y, z, L, M, N,
+                           unused_i, unused_opd);
       }
       g[0] = T(2) * scale * (x - xbar);
       g[1] = T(2) * scale * (y - ybar);
@@ -203,9 +211,11 @@ merit_bwd_kernel(const T* __restrict__ params, const T* __restrict__ aim,
     for (int s = S - 1; s >= 1; --s) {
       T g6[N_G] = {};
       if (valid)
-        step_adjoint<T, false>(sf[s], sf[S + s], 0, sp + s * NUM_P, npre[s],
-                               st[s][0], st[s][1], st[s][2], st[s][3],
-                               st[s][4], st[s][5], T(0), g, g6);
+        step_adjoint<T, false, TILT>(sf[s], sf[S + s], 0, sf[2 * S + s],
+                               sp + s * NUM_P, sr + s * N_ROT, npre[s],
+                               sp[s * NUM_P + P_NPOST], st[s][0], st[s][1],
+                               st[s][2], st[s][3], st[s][4], st[s][5], T(0),
+                               g, g6);
 #pragma unroll
       for (int j = 0; j < N_G; ++j) {
         const T v = warp_sum(g6[j]);
@@ -241,26 +251,31 @@ int prng_disk_launch(uint64_t seed, int64_t offset, int64_t R, T* px, T* py,
 
 template <typename T>
 int merit_fwd_launch(const T* params, const T* aim, const int* flags, int S,
-                     const T* px, const T* py, int64_t R, uint64_t seed,
-                     int64_t offset, int prng, T* rows, cudaStream_t stream) {
+                     int tilt, const T* px, const T* py, int64_t R,
+                     uint64_t seed, int64_t offset, int prng, T* rows,
+                     cudaStream_t stream) {
   if (S > MAX_SURF || S < 2) return (int)cudaErrorInvalidValue;
   const int64_t blocks = (R + FWD_BLOCK - 1) / FWD_BLOCK;
+  const auto kernel =
+      tilt ? merit_fwd_kernel<T, true> : merit_fwd_kernel<T, false>;
   if (blocks > 0)
-    merit_fwd_kernel<T><<<(unsigned)blocks, FWD_BLOCK, 0, stream>>>(
+    kernel<<<(unsigned)blocks, FWD_BLOCK, 0, stream>>>(
         params, aim, flags, S, px, py, R, seed, offset, prng, rows);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int merit_bwd_launch(const T* params, const T* aim, const T* stats,
-                     const int* flags, int S, int nc, const T* px,
+                     const int* flags, int S, int tilt, int nc, const T* px,
                      const T* py, int64_t R, uint64_t seed, int64_t offset,
                      int prng, T* partial, int nblocks, int block, T* out,
                      cudaStream_t stream) {
   if (S > MAX_SURF || S < 2 || nblocks < 1 || block < 32 ||
       block > BWD_BLOCK || block % 32)
     return (int)cudaErrorInvalidValue;
-  merit_bwd_kernel<T><<<nblocks, block, 0, stream>>>(
+  const auto kernel =
+      tilt ? merit_bwd_kernel<T, true> : merit_bwd_kernel<T, false>;
+  kernel<<<nblocks, block, 0, stream>>>(
       params, aim, stats, flags, S, px, py, R, seed, offset, prng, partial);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
@@ -283,23 +298,22 @@ int merit_bwd_launch(const T* params, const T* aim, const T* stats,
                                (cudaStream_t)stream);                        \
   }
 #define OTC_FWD(SUF, T)                                                      \
-  extern "C" int otc_merit_fwd_##SUF(const T* params, const T* aim,          \
-                                     const int* flags, int S, const T* px,   \
-                                     const T* py, int64_t R, uint64_t seed,  \
-                                     int64_t offset, int prng, T* rows,      \
-                                     void* stream) {                         \
-    return merit_fwd_launch<T>(params, aim, flags, S, px, py, R, seed,       \
+  extern "C" int otc_merit_fwd_##SUF(                                        \
+      const T* params, const T* aim, const int* flags, int S, int tilt,      \
+      const T* px, const T* py, int64_t R, uint64_t seed, int64_t offset,    \
+      int prng, T* rows, void* stream) {                                     \
+    return merit_fwd_launch<T>(params, aim, flags, S, tilt, px, py, R, seed, \
                                offset, prng, rows, (cudaStream_t)stream);    \
   }
 #define OTC_BWD(SUF, T)                                                      \
   extern "C" int otc_merit_bwd_##SUF(                                        \
       const T* params, const T* aim, const T* stats, const int* flags,       \
-      int S, int nc, const T* px, const T* py, int64_t R, uint64_t seed,     \
-      int64_t offset, int prng, T* partial, int nblocks, int block, T* out,  \
-      void* stream) {                                                        \
-    return merit_bwd_launch<T>(params, aim, stats, flags, S, nc, px, py, R,  \
-                               seed, offset, prng, partial, nblocks, block,  \
-                               out, (cudaStream_t)stream);                   \
+      int S, int tilt, int nc, const T* px, const T* py, int64_t R,          \
+      uint64_t seed, int64_t offset, int prng, T* partial, int nblocks,      \
+      int block, T* out, void* stream) {                                     \
+    return merit_bwd_launch<T>(params, aim, stats, flags, S, tilt, nc, px,   \
+                               py, R, seed, offset, prng, partial, nblocks,  \
+                               block, out, (cudaStream_t)stream);            \
   }
 
 OTC_PRNG(f32, float)

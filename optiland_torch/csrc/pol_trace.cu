@@ -22,9 +22,13 @@
 // in a local array bounded by MAX_SURF. Both are bound by operations. So,
 // as the other trace kernels: one thread per ray with its state and p in
 // registers, coalesced structure-of-arrays loads and stores, the param
-// table, the coat table and the per-surface flags (geometry code, reflect,
-// absorb, coat kind, thin-film layers) in shared memory, uniform across the
-// block so the per-surface branches (coat kind included) do not diverge.
+// table, the tilts' cosines and sines, the coat table and the per-surface
+// flags (geometry code, reflect, absorb, coat kind, thin-film layers,
+// tilted) in shared memory, uniform across the block so the per-surface
+// branches (coat kind included) do not diverge. The p update of a tilted
+// surface takes the local-frame directions (the step's extras, as the JAX
+// package's kernels do); the adjoint rotates the stored global directions
+// into the surface's frame again rather than keep them.
 // The adjoint sums each surface's gradient columns with warp shuffles into
 // per-warp shared rows over a grid-stride loop, writes one partial row per
 // block, and a second launch (grad_reduce_kernel, its coat columns after the
@@ -42,7 +46,8 @@ constexpr int K_NONE = 0, K_SIMPLE = 1, K_FRESNEL = 2, K_POLARIZER = 3,
               K_RETARDER = 4, K_TMM = 5;
 constexpr int MAX_LAYERS = 15;
 constexpr int NCOAT_MAX = 2 + 2 * MAX_LAYERS;
-constexpr int NFLAG = 5;  // code, reflect, absorb, coat kind, layers
+constexpr int NFLAG = 6;  // code, reflect, absorb, coat kind, layers, tilted
+constexpr int F_TILT = 5;
 constexpr int N_POL = 26;
 
 template <typename P, int K>
@@ -825,16 +830,17 @@ __device__ __forceinline__ void exit_intensity_adjoint(
 // Kernels
 // ---------------------------------------------------------------------------
 
-// Copy the coat table, then (with the sync) the param table and the flags,
-// into shared memory.
+// Copy the coat table, then (with the sync) the param table, the tilts'
+// cosines and sines and the flags, into shared memory.
 template <typename T>
 __device__ __forceinline__ void load_pol_tables(const T* params,
                                                 const T* coat,
                                                 const int* flags, int S,
                                                 int ncoat, T* sp, T* sc,
-                                                int* sf) {
+                                                int* sf, T* sr) {
   for (int i = threadIdx.x; i < S * ncoat; i += blockDim.x) sc[i] = coat[i];
-  load_tables<T, NFLAG, false>(params, nullptr, flags, S, sp, nullptr, sf);
+  load_tables<T, NFLAG, false>(params, nullptr, flags, S, sp, nullptr, sf,
+                               sr);
 }
 
 // One surface's interaction with p (forward): the simple factor on the
@@ -858,16 +864,17 @@ __device__ __forceinline__ void pol_surface_fwd(const T* sc, const int* sf,
 // Forward: trace each ray through surfaces 1 .. S-1 with its p; write the
 // 8 ray arrays and p's 18 parts, or (INTENSITY) the 8 ray arrays with the
 // exit intensity of the launch intensity and directions.
-template <typename T, bool INTENSITY>
+template <typename T, bool INTENSITY, bool TILT>
 __global__ void __launch_bounds__(FWD_BLOCK)
 pol_fwd_kernel(const T* __restrict__ params, const T* __restrict__ coat,
                const int* __restrict__ flags, int S, int ncoat,
                Ptrs<const T*, 8> in, int64_t R, Ptrs<T*, N_POL> out,
                States<T> st) {
   __shared__ T sp[MAX_SURF * NUM_P];
+  __shared__ T sr[MAX_SURF * N_ROT];
   __shared__ T sc[MAX_SURF * NCOAT_MAX];
   __shared__ int sf[NFLAG * MAX_SURF];
-  load_pol_tables(params, coat, flags, S, ncoat, sp, sc, sf);
+  load_pol_tables(params, coat, flags, S, ncoat, sp, sc, sf, sr);
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= R) return;
   T v[8];
@@ -883,13 +890,12 @@ pol_fwd_kernel(const T* __restrict__ params, const T* __restrict__ coat,
   }
   T n = sp[P_NPOST];
   for (int s = 1; s < S; ++s) {
-    const T k0[3] = {v[3], v[4], v[5]};
-    T adot;
-    n = step_fwd<T, true>(sf[s], sf[S + s], sf[2 * S + s], sp + s * NUM_P, n,
-                          v[0], v[1], v[2], v[3], v[4], v[5], v[6], v[7],
-                          &adot);
-    const T k1[3] = {v[3], v[4], v[5]};
-    pol_surface_fwd(sc, sf, S, ncoat, s, k0, k1, adot, v[6], pr, pim);
+    T adot, kl[6];  // the local pre- (k0) and post-interaction (k1) directions
+    n = step_fwd<T, true, TILT>(sf[s], sf[S + s], sf[2 * S + s], sf[F_TILT * S + s],
+                          sp + s * NUM_P, sr + s * N_ROT, n,
+                          sp[s * NUM_P + P_NPOST], v[0], v[1], v[2], v[3],
+                          v[4], v[5], v[6], v[7], &adot, kl);
+    pol_surface_fwd(sc, sf, S, ncoat, s, kl, kl + 3, adot, v[6], pr, pim);
   }
   if constexpr (INTENSITY) {
     v[6] = exit_intensity(pr, pim, k_launch, i0, st);
@@ -912,7 +918,7 @@ pol_fwd_kernel(const T* __restrict__ params, const T* __restrict__ coat,
 // block over a grid-stride loop of ray chunks, compact layout: [s * N_GF +
 // j] for surface s and parameter slot j, then [S * N_GF + s * ncoat + c]
 // for its coat column c; the 8 per-ray input cotangents are written too.
-template <typename T, bool INTENSITY>
+template <typename T, bool INTENSITY, bool TILT>
 __global__ void __launch_bounds__(BWD_BLOCK)
 pol_bwd_kernel(const T* __restrict__ params, const T* __restrict__ coat,
                const int* __restrict__ flags, int S, int ncoat,
@@ -921,11 +927,12 @@ pol_bwd_kernel(const T* __restrict__ params, const T* __restrict__ coat,
   constexpr int NW_MAX = BWD_BLOCK / 32;
   constexpr int NCOMP_MAX = MAX_SURF * (N_GF + NCOAT_MAX);
   __shared__ T sp[MAX_SURF * NUM_P];
+  __shared__ T sr[MAX_SURF * N_ROT];
   __shared__ T sc[MAX_SURF * NCOAT_MAX];
   __shared__ int sf[NFLAG * MAX_SURF];
   __shared__ T acc[NW_MAX][NCOMP_MAX];
   __shared__ T npre[MAX_SURF];
-  load_pol_tables(params, coat, flags, S, ncoat, sp, sc, sf);
+  load_pol_tables(params, coat, flags, S, ncoat, sp, sc, sf, sr);
   const int ncomp = S * (N_GF + ncoat);
   const int nw = blockDim.x >> 5;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -969,13 +976,14 @@ pol_bwd_kernel(const T* __restrict__ params, const T* __restrict__ coat,
           ps[s][j] = pr[j];
           ps[s][9 + j] = pim[j];
         }
-        const T k0[3] = {v[3], v[4], v[5]};
-        step_fwd<T, true>(sf[s], sf[S + s], sf[2 * S + s], sp + s * NUM_P,
-                          npre[s], v[0], v[1], v[2], v[3], v[4], v[5], v[6],
-                          v[7], &ad[s]);
+        T kl[6];
+        step_fwd<T, true, TILT>(sf[s], sf[S + s], sf[2 * S + s],
+                          sf[F_TILT * S + s], sp + s * NUM_P, sr + s * N_ROT,
+                          npre[s], sp[s * NUM_P + P_NPOST], v[0], v[1], v[2],
+                          v[3], v[4], v[5], v[6], v[7], &ad[s], kl);
         istep[s] = v[6];
-        const T k1[3] = {v[3], v[4], v[5]};
-        pol_surface_fwd(sc, sf, S, ncoat, s, k0, k1, ad[s], v[6], pr, pim);
+        pol_surface_fwd(sc, sf, S, ncoat, s, kl, kl + 3, ad[s], v[6], pr,
+                        pim);
       }
       kfin[0] = v[3];
       kfin[1] = v[4];
@@ -1003,11 +1011,18 @@ pol_bwd_kernel(const T* __restrict__ params, const T* __restrict__ coat,
       for (int c = 0; c < ncoat; ++c) gco[c] = T(0);
       if (valid) {
         const int refl = sf[S + s], kind = sf[3 * S + s];
+        const int tilted = sf[F_TILT * S + s];
         const T* cr = sc + s * ncoat;
-        const T k0[3] = {st[s][3], st[s][4], st[s][5]};
+        // the local pre- and post-interaction directions: the step's input
+        // and output directions, rotated into a tilted surface's frame
+        T k0[3] = {st[s][3], st[s][4], st[s][5]};
         T k1[3];
         for (int c = 0; c < 3; ++c)
           k1[c] = s + 1 < S ? st[s + 1][3 + c] : kfin[c];
+        if (TILT && tilted) {
+          rot_local_dir(sr + s * N_ROT, k0);
+          rot_local_dir(sr + s * N_ROT, k1);
+        }
         const T adot = ad[s];
         Basis<T> b;
         basis_fwd(k0, k1, b);
@@ -1049,10 +1064,11 @@ pol_bwd_kernel(const T* __restrict__ params, const T* __restrict__ coat,
           gco[col] += g[7] * istep[s];
           g[7] *= cr[col];
         }
-        step_adjoint<T, true>(sf[s], refl, sf[2 * S + s], sp + s * NUM_P,
-                              npre[s], st[s][0], st[s][1], st[s][2],
-                              st[s][3], st[s][4], st[s][5], st[s][6], g, gc,
-                              gext);
+        step_adjoint<T, true, TILT>(sf[s], refl, sf[2 * S + s], tilted,
+                              sp + s * NUM_P, sr + s * N_ROT, npre[s],
+                              sp[s * NUM_P + P_NPOST], st[s][0], st[s][1],
+                              st[s][2], st[s][3], st[s][4], st[s][5],
+                              st[s][6], g, gc, gext);
       }
 #pragma unroll
       for (int j = 0; j < N_GF; ++j) {
@@ -1105,30 +1121,33 @@ int check_shape(int S, int ncoat, int nstates) {
   return 0;
 }
 
+// TILT: the instantiation with the tilt rotations, launched when a surface
+// is tilted (``tilt``); the other keeps them out of the untilted systems'
+// code.
 template <typename T>
 int fwd_launch(const T* params, const T* coat, const int* flags, int S,
-               int ncoat, void* const* in, int64_t R, void* const* out,
-               int intensity, const double* c, int nstates,
+               int tilt, int ncoat, void* const* in, int64_t R,
+               void* const* out, int intensity, const double* c, int nstates,
                cudaStream_t stream) {
   if (int e = check_shape(S, ncoat, nstates)) return e;
   if (intensity && nstates < 1) return (int)cudaErrorInvalidValue;
   const int64_t blocks = (R + FWD_BLOCK - 1) / FWD_BLOCK;
   if (blocks == 0) return (int)cudaGetLastError();
   const States<T> st = states_of<T>(c, nstates);
-  if (intensity)
-    pol_fwd_kernel<T, true><<<(unsigned)blocks, FWD_BLOCK, 0, stream>>>(
-        params, coat, flags, S, ncoat, ptrs<const T*, 8>(in, 8), R,
-        ptrs<T*, N_POL>(out, 8), st);
-  else
-    pol_fwd_kernel<T, false><<<(unsigned)blocks, FWD_BLOCK, 0, stream>>>(
-        params, coat, flags, S, ncoat, ptrs<const T*, 8>(in, 8), R,
-        ptrs<T*, N_POL>(out, N_POL), st);
+  const auto kernel =
+      intensity ? (tilt ? pol_fwd_kernel<T, true, true>
+                        : pol_fwd_kernel<T, true, false>)
+                : (tilt ? pol_fwd_kernel<T, false, true>
+                        : pol_fwd_kernel<T, false, false>);
+  kernel<<<(unsigned)blocks, FWD_BLOCK, 0, stream>>>(
+      params, coat, flags, S, ncoat, ptrs<const T*, 8>(in, 8), R,
+      ptrs<T*, N_POL>(out, intensity ? 8 : N_POL), st);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int bwd_launch(const T* params, const T* coat, const int* flags, int S,
-               int nc, int ncoat, void* const* in, void* const* cot,
+               int tilt, int nc, int ncoat, void* const* in, void* const* cot,
                int64_t R, void* const* din, T* partial, int nblocks, T* out,
                int intensity, const double* c, int nstates,
                cudaStream_t stream) {
@@ -1136,15 +1155,15 @@ int bwd_launch(const T* params, const T* coat, const int* flags, int S,
   if (nblocks < 1 || (intensity && nstates < 1))
     return (int)cudaErrorInvalidValue;
   const States<T> st = states_of<T>(c, nstates);
-  if (intensity)
-    pol_bwd_kernel<T, true><<<nblocks, BWD_BLOCK, 0, stream>>>(
-        params, coat, flags, S, ncoat, ptrs<const T*, 8>(in, 8),
-        ptrs<const T*, N_POL>(cot, 8), R, ptrs<T*, 8>(din, 8), partial, st);
-  else
-    pol_bwd_kernel<T, false><<<nblocks, BWD_BLOCK, 0, stream>>>(
-        params, coat, flags, S, ncoat, ptrs<const T*, 8>(in, 8),
-        ptrs<const T*, N_POL>(cot, N_POL), R, ptrs<T*, 8>(din, 8), partial,
-        st);
+  const auto kernel =
+      intensity ? (tilt ? pol_bwd_kernel<T, true, true>
+                        : pol_bwd_kernel<T, true, false>)
+                : (tilt ? pol_bwd_kernel<T, false, true>
+                        : pol_bwd_kernel<T, false, false>);
+  kernel<<<nblocks, BWD_BLOCK, 0, stream>>>(
+      params, coat, flags, S, ncoat, ptrs<const T*, 8>(in, 8),
+      ptrs<const T*, N_POL>(cot, intensity ? 8 : N_POL), R,
+      ptrs<T*, 8>(din, 8), partial, st);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   grad_reduce_kernel<T, N_GF><<<S * N_GF + S * ncoat, RED_BLOCK, 0, stream>>>(
@@ -1164,24 +1183,24 @@ int bwd_launch(const T* params, const T* coat, const int* flags, int S,
 
 #define OTC_POL(SUF, T)                                                      \
   extern "C" int otc_pol_fwd_##SUF(                                          \
-      const T* params, const T* coat, const int* flags, int S, int ncoat,    \
-      void* const* in, int64_t R, void* const* out, int intensity, double c0, \
-      double c1, double c2, double c3, double c4, double c5, double c6,      \
-      double c7, int nstates, void* stream) {                                \
+      const T* params, const T* coat, const int* flags, int S, int tilt,     \
+      int ncoat, void* const* in, int64_t R, void* const* out,               \
+      int intensity, double c0, double c1, double c2, double c3, double c4,  \
+      double c5, double c6, double c7, int nstates, void* stream) {          \
     const double c[8] = {c0, c1, c2, c3, c4, c5, c6, c7};                    \
-    return fwd_launch<T>(params, coat, flags, S, ncoat, in, R, out,         \
+    return fwd_launch<T>(params, coat, flags, S, tilt, ncoat, in, R, out,   \
                          intensity, c, nstates, (cudaStream_t)stream);       \
   }                                                                          \
   extern "C" int otc_pol_bwd_##SUF(                                          \
-      const T* params, const T* coat, const int* flags, int S, int nc,       \
-      int ncoat, void* const* in, void* const* cot, int64_t R,               \
+      const T* params, const T* coat, const int* flags, int S, int tilt,     \
+      int nc, int ncoat, void* const* in, void* const* cot, int64_t R,       \
       void* const* din, T* partial, int nblocks, T* out, int intensity,      \
       double c0, double c1, double c2, double c3, double c4, double c5,      \
       double c6, double c7, int nstates, void* stream) {                     \
     const double c[8] = {c0, c1, c2, c3, c4, c5, c6, c7};                    \
-    return bwd_launch<T>(params, coat, flags, S, nc, ncoat, in, cot, R, din, \
-                         partial, nblocks, out, intensity, c, nstates,       \
-                         (cudaStream_t)stream);                              \
+    return bwd_launch<T>(params, coat, flags, S, tilt, nc, ncoat, in, cot,  \
+                         R, din, partial, nblocks, out, intensity, c,        \
+                         nstates, (cudaStream_t)stream);                     \
   }
 
 OTC_POL(f32, float)

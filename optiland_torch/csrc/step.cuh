@@ -15,12 +15,30 @@
 //                 the optical path, as the generic and field traces return
 //                 them (fast_trace.cu, pol_trace.cu).
 //
+// A tilted surface (its flag set where a tilt angle is nonzero or not
+// finite) rotates the ray into its frame, z then y then x by the negated
+// angles, and back in reverse order after the interaction (_rot_local and
+// _rot_global); the cosines and sines of its angles come from the
+// shared-memory table that load_tables fills. step_adjoint routes every
+// cotangent through the rotations and gives the true d/d(rx, ry, rz); an
+// untilted surface runs no rotation and keeps the zero-tilt derivative, the
+// rotations' generators, which is what the general form gives at zero.
+// The TILT template flag of the step (and of every kernel) compiles the
+// rotations in; the launchers take TILT = false for a system without a
+// tilted surface, whose kernels then keep the registers and local memory
+// they had without the tilt code.
+//
 // The polarized traces (pol_trace.cu) also read the step's "extras": the
-// pre- and post-interaction directions, which for the untilted systems the
-// kernels take are the step's input and output directions, and adot, which
-// step_fwd writes to ``adot_out``; step_adjoint takes their cotangents in
-// ``gext``. Both pointers are null in the other kernels, whose code then
-// compiles as before.
+// local-frame pre- and post-interaction directions, which step_fwd writes
+// to ``kloc``, and adot, which it writes to ``adot_out``; step_adjoint
+// takes their cotangents in ``gext``. The pointers are null in the other
+// kernels.
+//
+// The index after the surface is an argument (``npost``): the param
+// table's P_NPOST column in the monochromatic traces, the per-ray value of
+// the surface's dispersion formula in the polychromatic one (n_formula,
+// and dn_dcoef for its adjoint: materials/dispersion.py's
+// n_formula_scalar_terms and n_formula_scalar_grad).
 
 #pragma once
 
@@ -42,14 +60,15 @@ constexpr double ABS = -12.566370614359172;  // -4 pi
 
 // launch shapes (optiland_torch/ops/launch.py holds the same values)
 constexpr int MAX_SURF = 16;
+constexpr int MAX_NM = 20;  // dispersion coefficients per surface (poly)
+constexpr int N_ROT = 6;    // cos rx, sin rx, cos ry, sin ry, cos rz, sin rz
 constexpr int FWD_BLOCK = 256;
 constexpr int BWD_BLOCK = 128;
 constexpr int RED_BLOCK = 256;
 
 // Per-surface gradient slots of the backwards and the param-table column of
-// each: radius, conic, pos, n_post, dx, dy, and the tilts rx, ry, rz (their
-// derivative at zero tilt: the kernels trace untilted systems) in both
-// forms, then k_pre in the FULL form (ops/step.py: GRAD_COLS,
+// each: radius, conic, pos, n_post, dx, dy, and the tilts rx, ry, rz in
+// both forms, then k_pre in the FULL form (ops/step.py: GRAD_COLS,
 // FULL_GRAD_COLS).
 constexpr int N_G = 9;
 constexpr int N_GF = 10;
@@ -68,6 +87,10 @@ __device__ __forceinline__ float sin_(float v) { return sinf(v); }
 __device__ __forceinline__ double sin_(double v) { return sin(v); }
 __device__ __forceinline__ float exp_(float v) { return expf(v); }
 __device__ __forceinline__ double exp_(double v) { return exp(v); }
+__device__ __forceinline__ float log_(float v) { return logf(v); }
+__device__ __forceinline__ double log_(double v) { return log(v); }
+__device__ __forceinline__ float pow_(float a, float b) { return powf(a, b); }
+__device__ __forceinline__ double pow_(double a, double b) { return pow(a, b); }
 template <typename T> __device__ __forceinline__ T nan_();
 template <> __device__ __forceinline__ float nan_<float>() { return __int_as_float(0x7fc00000); }
 template <> __device__ __forceinline__ double nan_<double>() { return __longlong_as_double(0x7ff8000000000000ULL); }
@@ -76,6 +99,313 @@ template <> __device__ __forceinline__ float inf_<float>() { return __int_as_flo
 template <> __device__ __forceinline__ double inf_<double>() { return __longlong_as_double(0x7ff0000000000000ULL); }
 template <typename T> __device__ __forceinline__ T sign_(T v) {
   return T((v > T(0)) - (v < T(0)));
+}
+
+// ---------------------------------------------------------------------------
+// Tilt rotations (_rot_local / _rot_global and their adjoints)
+// ---------------------------------------------------------------------------
+
+// (a, b) <- (a c - b s, a s + b c): rotate_z on (x, y) and rotate_x on
+// (y, z) by the angle of (c, s); rotate_y by theta is this on (x, z) with
+// (c, -s).
+template <typename T>
+__device__ __forceinline__ void rot_ab(T& a, T& b, T c, T s) {
+  const T a2 = a * c - b * s;
+  b = a * s + b * c;
+  a = a2;
+}
+
+// Into the surface's frame: R_x(-rx) R_y(-ry) R_z(-rz) of the position and
+// the direction.
+template <typename T>
+__device__ __forceinline__ void rot_local(const T* r, T& x, T& y, T& z, T& L,
+                                          T& M, T& N) {
+  rot_ab(x, y, r[4], -r[5]);
+  rot_ab(L, M, r[4], -r[5]);
+  rot_ab(x, z, r[2], r[3]);
+  rot_ab(L, N, r[2], r[3]);
+  rot_ab(y, z, r[0], -r[1]);
+  rot_ab(M, N, r[0], -r[1]);
+}
+
+// rot_local of a direction k[0..2] alone.
+template <typename T>
+__device__ __forceinline__ void rot_local_dir(const T* r, T* k) {
+  rot_ab(k[0], k[1], r[4], -r[5]);
+  rot_ab(k[0], k[2], r[2], r[3]);
+  rot_ab(k[1], k[2], r[0], -r[1]);
+}
+
+template <typename T>
+__device__ __forceinline__ void rot_global(const T* r, T& x, T& y, T& z,
+                                           T& L, T& M, T& N) {
+  rot_ab(y, z, r[0], r[1]);
+  rot_ab(M, N, r[0], r[1]);
+  rot_ab(x, z, r[2], -r[3]);
+  rot_ab(L, N, r[2], -r[3]);
+  rot_ab(x, y, r[4], r[5]);
+  rot_ab(L, M, r[4], r[5]);
+}
+
+// Reverse of one rot_ab by (c, s) of the pairs (a, b) and (A, B), given as
+// its outputs with their cotangents: returns the derivative with respect to
+// the angle, and rotates the pairs and their cotangents back to its inputs
+// (ops/step.py: _rot_ab_adjoint).
+template <typename T>
+__device__ __forceinline__ T rot_ab_adjoint(T& a, T& b, T& A, T& B, T& ga,
+                                            T& gb, T& gA, T& gB, T c, T s) {
+  const T d = -ga * b + gb * a - gA * B + gB * A;
+  rot_ab(a, b, c, -s);
+  rot_ab(A, B, c, -s);
+  rot_ab(ga, gb, c, -s);
+  rot_ab(gA, gB, c, -s);
+  return d;
+}
+
+// Reverse of rot_global at the local state (x .. N) it rotates: g (x, y, z,
+// L, M, N) becomes the cotangents of that state; d_r[0..2] += the
+// derivatives with respect to rx, ry, rz (ops/step.py: _rot_global_adjoint).
+template <typename T>
+__device__ __forceinline__ void rot_global_adjoint(const T* r, T x, T y, T z,
+                                                   T L, T M, T N, T* g,
+                                                   T* d_r) {
+  rot_global(r, x, y, z, L, M, N);
+  d_r[2] += rot_ab_adjoint(x, y, L, M, g[0], g[1], g[3], g[4], r[4], r[5]);
+  d_r[1] -= rot_ab_adjoint(x, z, L, N, g[0], g[2], g[3], g[5], r[2], -r[3]);
+  d_r[0] += rot_ab_adjoint(y, z, M, N, g[1], g[2], g[4], g[5], r[0], r[1]);
+}
+
+// Reverse of rot_local at its output, the local state (x .. N): g becomes
+// the cotangents of its input; d_r[0..2] += the angle derivatives
+// (ops/step.py: _rot_local_adjoint).
+template <typename T>
+__device__ __forceinline__ void rot_local_adjoint(const T* r, T x, T y, T z,
+                                                  T L, T M, T N, T* g,
+                                                  T* d_r) {
+  d_r[0] -= rot_ab_adjoint(y, z, M, N, g[1], g[2], g[4], g[5], r[0], -r[1]);
+  d_r[1] += rot_ab_adjoint(x, z, L, N, g[0], g[2], g[3], g[5], r[2], r[3]);
+  d_r[2] -= rot_ab_adjoint(x, y, L, M, g[0], g[1], g[3], g[4], r[4], -r[5]);
+}
+
+// ---------------------------------------------------------------------------
+// Dispersion formulas (materials/dispersion.py: n_formula_scalar_terms, and
+// its derivative n_formula_scalar_grad), per ray, from a surface's nm
+// coefficients cv. Codes 0-9 and 11; TABULATED_N (10) never reaches the
+// kernels. The (B, C) pairs run from cv[1] (codes 1, 2, 3, 5, 6) or cv[9]
+// (code 4); zero-padded pairs contribute exactly zero terms.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ int n_pairs(int nm) { return (nm - 1) / 2; }
+__device__ __forceinline__ int n_pairs4(int nm) {
+  return nm > 9 ? (nm - 9) / 2 : 0;
+}
+
+template <typename T>
+__device__ T n_formula(int code, const T* cv, int nm, T w) {
+  const T w2 = w * w;
+  const int np = n_pairs(nm);
+  switch (code) {
+    case 0:
+      return cv[0];
+    case 1:
+    case 2: {  // Sellmeier (w^2 - C^2), Sellmeier-2 (w^2 - C)
+      T n2 = T(1) + cv[0];
+      for (int k = 0; k < np; ++k) {
+        const T b = cv[1 + 2 * k], c = cv[2 + 2 * k];
+        n2 = n2 + b * w2 / (code == 1 ? w2 - c * c : w2 - c);
+      }
+      return sqrt_(n2);
+    }
+    case 3:
+    case 5: {  // polynomial (sqrt), Cauchy
+      T acc = cv[0];
+      for (int k = 0; k < np; ++k)
+        acc = acc + cv[1 + 2 * k] * pow_(w, cv[2 + 2 * k]);
+      return code == 3 ? sqrt_(acc) : acc;
+    }
+    case 4: {
+      T n2 = cv[0] + cv[1] * pow_(w, cv[2]) / (w2 - pow_(cv[3], cv[4])) +
+             cv[5] * pow_(w, cv[6]) / (w2 - pow_(cv[7], cv[8]));
+      for (int k = 0; k < n_pairs4(nm); ++k)
+        n2 = n2 + cv[9 + 2 * k] * pow_(w, cv[10 + 2 * k]);
+      return sqrt_(n2);
+    }
+    case 6: {  // gases
+      const T winv2 = T(1) / w2;
+      T n = T(1) + cv[0];
+      for (int k = 0; k < np; ++k)
+        n = n + cv[1 + 2 * k] / (cv[2 + 2 * k] - winv2);
+      return n;
+    }
+    case 7: {  // Herzberger
+      const T inv = T(1) / (w2 - T(0.028));
+      T n = cv[0] + cv[1] * inv + cv[2] * (inv * inv);
+      for (int k = 3; k < nm; ++k) n = n + cv[k] * pow_(w, T(2 * (k - 2)));
+      return n;
+    }
+    case 8: {  // retro
+      const T b = cv[0] + cv[1] * w2 / (w2 - cv[2]) + cv[3] * w2;
+      return sqrt_((T(1) + T(2) * b) / (T(1) - b));
+    }
+    case 9: {  // exotic
+      const T e = w - cv[4];
+      return sqrt_(cv[0] + cv[1] / (w2 - cv[2]) + cv[3] * e / (e * e + cv[5]));
+    }
+    case 11: {  // Buchdahl
+      const T d = w - cv[4];
+      const T om = d / (T(1) + cv[5] * d);
+      return cv[0] + cv[1] * om + cv[2] * (om * om) + cv[3] * (om * om * om);
+    }
+    default:
+      return nan_<T>();
+  }
+}
+
+// True where dn/d cv[j] can be nonzero (the columns the formula reads).
+__device__ __forceinline__ bool dn_used(int code, int nm, int j) {
+  switch (code) {
+    case 0:
+      return j == 0;
+    case 1:
+    case 2:
+    case 3:
+    case 5:
+    case 6:
+      return j <= 2 * n_pairs(nm);
+    case 4:
+      return j <= 8 || (j - 9) / 2 < n_pairs4(nm);
+    case 7:
+      return true;
+    case 8:
+      return j <= 3;
+    default:  // 9, 11
+      return j <= 5;
+  }
+}
+
+// d(x^y)/dx and d(x^y)/dy as JAX forms them for a float exponent:
+// y x^(y - 1) (NaN at x = y = 0), and log(x) x^y with 0 where x == 0.
+template <typename T>
+__device__ __forceinline__ T dpow_dbase(T x, T y) {
+  return y * pow_(x, y - T(1));
+}
+template <typename T>
+__device__ __forceinline__ T dpow_dexp(T x, T y) {
+  return log_(x == T(0) ? T(1) : x) * pow_(x, y);
+}
+
+// dn/d cv[j] at wavelength w, where n is the formula's value there.
+template <typename T>
+__device__ T dn_dcoef(int code, const T* cv, int nm, T w, T n, int j) {
+  const T w2 = w * w;
+  const T sq = T(0.5) / n;  // dn/d(n^2) of the square-root forms
+  switch (code) {
+    case 0:
+      return j == 0 ? T(1) : T(0);
+    case 1:
+    case 2: {
+      if (j == 0) return sq;
+      const int k = (j - 1) / 2;
+      const T b = cv[1 + 2 * k], c = cv[2 + 2 * k];
+      const T den = code == 1 ? w2 - c * c : w2 - c;
+      if (j % 2) return sq * w2 / den;
+      return sq * b * w2 * (code == 1 ? T(2) * c : T(1)) / (den * den);
+    }
+    case 3:
+    case 5: {
+      const T f = code == 3 ? sq : T(1);
+      if (j == 0) return f;
+      const int k = (j - 1) / 2;
+      const T c = cv[2 + 2 * k];
+      if (j % 2) return f * pow_(w, c);
+      return f * cv[1 + 2 * k] * dpow_dexp(w, c);
+    }
+    case 4: {
+      if (j == 0) return sq;
+      if (j <= 8) {
+        const int a = j < 5 ? 1 : 5;
+        const T ca = cv[a], ce = cv[a + 1], cb = cv[a + 2], cx = cv[a + 3];
+        const T den = w2 - pow_(cb, cx);
+        const T num = pow_(w, ce);
+        switch (j - a) {
+          case 0:
+            return sq * num / den;
+          case 1:
+            return sq * ca * dpow_dexp(w, ce) / den;
+          case 2:
+            return sq * ca * num / (den * den) * dpow_dbase(cb, cx);
+          default:
+            return sq * ca * num / (den * den) * dpow_dexp(cb, cx);
+        }
+      }
+      const int k = (j - 9) / 2;
+      const T c = cv[10 + 2 * k];
+      if ((j - 9) % 2 == 0) return sq * pow_(w, c);
+      return sq * cv[9 + 2 * k] * dpow_dexp(w, c);
+    }
+    case 6: {
+      if (j == 0) return T(1);
+      const int k = (j - 1) / 2;
+      const T den = cv[2 + 2 * k] - T(1) / w2;
+      if (j % 2) return T(1) / den;
+      return -cv[1 + 2 * k] / (den * den);
+    }
+    case 7: {
+      const T inv = T(1) / (w2 - T(0.028));
+      if (j == 0) return T(1);
+      if (j == 1) return inv;
+      if (j == 2) return inv * inv;
+      return pow_(w, T(2 * (j - 2)));
+    }
+    case 8: {
+      const T den = w2 - cv[2];
+      const T b = cv[0] + cv[1] * w2 / den + cv[3] * w2;
+      const T db = sq * T(3) / ((T(1) - b) * (T(1) - b));
+      if (j == 0) return db;
+      if (j == 1) return db * w2 / den;
+      if (j == 2) return db * cv[1] * w2 / (den * den);
+      return db * w2;
+    }
+    case 9: {
+      const T den = w2 - cv[2];
+      const T e = w - cv[4];
+      const T q = e * e + cv[5];
+      switch (j) {
+        case 0:
+          return sq;
+        case 1:
+          return sq / den;
+        case 2:
+          return sq * cv[1] / (den * den);
+        case 3:
+          return sq * e / q;
+        case 4:
+          return -sq * cv[3] * (q - T(2) * e * e) / (q * q);
+        default:
+          return -sq * cv[3] * e / (q * q);
+      }
+    }
+    default: {  // 11, Buchdahl
+      const T d = w - cv[4];
+      const T f = T(1) + cv[5] * d;
+      const T om = d / f;
+      const T dn_dom = cv[1] + T(2) * cv[2] * om + T(3) * cv[3] * (om * om);
+      switch (j) {
+        case 0:
+          return T(1);
+        case 1:
+          return om;
+        case 2:
+          return om * om;
+        case 3:
+          return om * om * om;
+        case 4:
+          return -dn_dom / (f * f);
+        default:
+          return -dn_dom * d * d / (f * f);
+      }
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -104,19 +434,26 @@ __device__ __forceinline__ T dist_plane(T z, T N) {
   return -z / Ns;
 }
 
-// One forward surface step; returns n of the medium after the surface.
-// ``inten`` and ``opd`` are read and written only in the FULL form;
-// ``adot_out``, when not null, receives |cos| of the angle of incidence.
-template <typename T, bool FULL>
+// One forward surface step; returns n of the medium after the surface
+// (``npost`` through a refractive surface). ``inten`` and ``opd`` are read
+// and written only in the FULL form; ``adot_out``, when not null, receives
+// |cos| of the angle of incidence, and ``kloc`` the local pre- and
+// post-interaction directions (L0, M0, N0, L1, M1, N1). ``rot`` holds the
+// surface's N_ROT cosines and sines, read where ``tilted`` is set; TILT =
+// false compiles the rotations out (a system without tilted surfaces).
+template <typename T, bool FULL, bool TILT>
 __device__ __forceinline__ T step_fwd(int code, int refl, int absorbs,
-                                      const T* p, T n_pre, T& x, T& y, T& z,
+                                      int tilted, const T* p, const T* rot,
+                                      T n_pre, T npost, T& x, T& y, T& z,
                                       T& L, T& M, T& N, T& inten, T& opd,
-                                      T* adot_out = nullptr) {
+                                      T* adot_out = nullptr,
+                                      T* kloc = nullptr) {
   const T R = p[P_RADIUS], k = p[P_CONIC], pos = p[P_POS];
-  const T xl = x - p[P_DX], yl = y - p[P_DY], zl = z - pos;
+  T xl = x - p[P_DX], yl = y - p[P_DY], zl = z - pos;
+  if (TILT && tilted) rot_local(rot, xl, yl, zl, L, M, N);
   const T t = code == STANDARD ? dist_standard(R, k, xl, yl, zl, L, M, N)
                                : dist_plane(zl, N);
-  const T x1 = xl + t * L, y1 = yl + t * M, z1 = zl + t * N;
+  T x1 = xl + t * L, y1 = yl + t * M, z1 = zl + t * N;
   if constexpr (FULL) {
     if (absorbs) inten = inten * exp_(T(ABS) * p[P_KPRE] * t * T(1e3));
     opd = opd + abs_(t * n_pre);
@@ -141,6 +478,11 @@ __device__ __forceinline__ T step_fwd(int code, int refl, int absorbs,
   nz *= sg;
   const T adot = abs_(dot);
   if (adot_out) *adot_out = adot;
+  if (kloc) {
+    kloc[0] = L;
+    kloc[1] = M;
+    kloc[2] = N;
+  }
   T n_next;
   if (refl) {
     L = L - T(2) * adot * nx;
@@ -148,7 +490,6 @@ __device__ __forceinline__ T step_fwd(int code, int refl, int absorbs,
     N = N - T(2) * adot * nz;
     n_next = n_pre;
   } else {
-    const T npost = p[P_NPOST];
     const T u = n_pre / npost;
     const T w = sqrt_(T(1) - u * u * (T(1) - adot * adot)) - u * adot;
     L = u * L + nx * w;
@@ -156,6 +497,12 @@ __device__ __forceinline__ T step_fwd(int code, int refl, int absorbs,
     N = u * N + nz * w;
     n_next = npost;
   }
+  if (kloc) {
+    kloc[3] = L;
+    kloc[4] = M;
+    kloc[5] = N;
+  }
+  if (TILT && tilted) rot_global(rot, x1, y1, z1, L, M, N);
   x = x1 + p[P_DX];
   y = y1 + p[P_DY];
   z = z1 + pos;
@@ -168,26 +515,23 @@ __device__ __forceinline__ T step_fwd(int code, int refl, int absorbs,
 // n_next, and FULL: i, opd) and, when ``gext`` is not null, those of its
 // extras (L0, M0, N0, L1, M1, N1, adot). Out: g becomes the cotangents of
 // the inputs (x, y, z, L, M, N, n_pre, and FULL: i, opd), gc the cotangents
-// of (radius, conic, pos, n_post, dx, dy, rx, ry, rz, and FULL: k_pre).
-template <typename T, bool FULL>
+// of (radius, conic, pos, n_post, dx, dy, rx, ry, rz, and FULL: k_pre); the
+// n_post slot is the cotangent of ``npost``.
+template <typename T, bool FULL, bool TILT>
 __device__ __forceinline__ void step_adjoint(int code, int refl, int absorbs,
-                                             const T* p, T n_pre, T x, T y,
-                                             T z, T L, T M, T N, T i_in, T* g,
-                                             T* gc,
+                                             int tilted, const T* p,
+                                             const T* rot, T n_pre, T npost,
+                                             T x, T y, T z, T L, T M, T N,
+                                             T i_in, T* g, T* gc,
                                              const T* gext = nullptr) {
   const T R = p[P_RADIUS], k = p[P_CONIC], pos = p[P_POS];
-  const T dx = p[P_DX], dy = p[P_DY], npost = p[P_NPOST];
+  const T dx = p[P_DX], dy = p[P_DY];
   const bool std_ = code == STANDARD;
-  const T gx = g[0], gy = g[1], gz = g[2], gLo = g[3], gMo = g[4], gNo = g[5];
   const T g_nn = g[6];
-  // cotangents of the local post-interaction directions: the output's (at
-  // zero tilt) and the extras' L1, M1, N1
-  const T gLi = gext ? gLo + gext[3] : gLo;
-  const T gMi = gext ? gMo + gext[4] : gMo;
-  const T gNi = gext ? gNo + gext[5] : gNo;
 
-  // ---- recompute the forward intermediates ----
-  const T xl = x - dx, yl = y - dy, zl = z - pos;
+  // ---- recompute the forward intermediates (in the surface's frame) ----
+  T xl = x - dx, yl = y - dy, zl = z - pos;
+  if (TILT && tilted) rot_local(rot, xl, yl, zl, L, M, N);
   T cu = T(0), A = T(0), a = T(0), Bq = T(0), b = T(0), Cq = T(0), c = T(0);
   T sd = T(0), sg = T(0), q = T(0), t1 = T(0), t2 = T(0), t, Ns = T(1);
   bool use1 = false, a0 = false, q0 = false, big = false;
@@ -233,16 +577,37 @@ __device__ __forceinline__ void step_adjoint(int code, int refl, int absorbs,
   const T nxs = nx * sgn, nys = ny * sgn, nzs = nz * sgn;
   const T adot = abs_(dot);
 
-  // ---- globalize ----
-  T g_dx = gx, g_dy = gy, g_pos = gz;
-  T g_x1 = gx, g_y1 = gy, g_z1 = gz;
-
-  // ---- interact ----
-  T gL, gM, gN, g_nxs, g_nys, g_nzs, g_adot, g_npre, g_npost, Lo, Mo, No;
+  // the local post-interaction directions
+  T Lo, Mo, No, u = T(0), root = T(1), w = T(0);
   if (refl) {
     Lo = L - T(2) * adot * nxs;
     Mo = M - T(2) * adot * nys;
     No = N - T(2) * adot * nzs;
+  } else {
+    u = n_pre / npost;
+    root = sqrt_(T(1) - u * u * (T(1) - adot * adot));
+    w = root - u * adot;
+    Lo = u * L + nxs * w;
+    Mo = u * M + nys * w;
+    No = u * N + nzs * w;
+  }
+
+  // ---- globalize: rotate back (tilted), then translate ----
+  T go[6] = {g[0], g[1], g[2], g[3], g[4], g[5]};
+  T d_r[3] = {T(0), T(0), T(0)};
+  if (TILT && tilted)
+    rot_global_adjoint(rot, x1, y1, z1, Lo, Mo, No, go, d_r);
+  T g_dx = g[0], g_dy = g[1], g_pos = g[2];
+  T g_x1 = go[0], g_y1 = go[1], g_z1 = go[2];
+  // cotangents of the local post-interaction directions: the output's and
+  // the extras' L1, M1, N1
+  const T gLi = gext ? go[3] + gext[3] : go[3];
+  const T gMi = gext ? go[4] + gext[4] : go[4];
+  const T gNi = gext ? go[5] + gext[5] : go[5];
+
+  // ---- interact ----
+  T gL, gM, gN, g_nxs, g_nys, g_nzs, g_adot, g_npre, g_npost;
+  if (refl) {
     gL = gLi;
     gM = gMi;
     gN = gNi;
@@ -253,12 +618,6 @@ __device__ __forceinline__ void step_adjoint(int code, int refl, int absorbs,
     g_npre = g_nn;
     g_npost = T(0);
   } else {
-    const T u = n_pre / npost;
-    const T root = sqrt_(T(1) - u * u * (T(1) - adot * adot));
-    const T w = root - u * adot;
-    Lo = u * L + nxs * w;
-    Mo = u * M + nys * w;
-    No = u * N + nzs * w;
     gL = u * gLi;
     gM = u * gMi;
     gN = u * gNi;
@@ -381,24 +740,26 @@ __device__ __forceinline__ void step_adjoint(int code, int refl, int absorbs,
     g_R = T(0);
   }
 
-  // ---- tilts at zero: each rotation's generator acting on the state ----
-  const T g_rx = g_yl * zl - g_zl * yl + gM * N - gN * M - gy * z1 + gz * y1
-                 - gMo * No + gNo * Mo;
-  const T g_ry = -g_xl * zl + g_zl * xl - gL * N + gN * L + gx * z1 - gz * x1
-                 + gLo * No - gNo * Lo;
-  const T g_rz = g_xl * yl - g_yl * xl + gL * M - gM * L - gx * y1 + gy * x1
-                 - gLo * Mo + gMo * Lo;
+  // ---- tilts: through the rotations (tilted), or at zero, where each
+  // rotation's generator acts on the state ----
+  T gi[6] = {g_xl, g_yl, g_zl, gL, gM, gN};
+  if (TILT && tilted) {
+    rot_local_adjoint(rot, xl, yl, zl, L, M, N, gi, d_r);
+  } else {
+    d_r[0] = g_yl * zl - g_zl * yl + gM * N - gN * M - go[1] * z1 +
+             go[2] * y1 - go[4] * No + go[5] * Mo;
+    d_r[1] = -g_xl * zl + g_zl * xl - gL * N + gN * L + go[0] * z1 -
+             go[2] * x1 + go[3] * No - go[5] * Lo;
+    d_r[2] = g_xl * yl - g_yl * xl + gL * M - gM * L - go[0] * y1 +
+             go[1] * x1 - go[3] * Mo + go[4] * Lo;
+  }
 
   // ---- localize ----
-  g_dx -= g_xl;
-  g_dy -= g_yl;
-  g_pos -= g_zl;
-  g[0] = g_xl;
-  g[1] = g_yl;
-  g[2] = g_zl;
-  g[3] = gL;
-  g[4] = gM;
-  g[5] = gN;
+  g_dx -= gi[0];
+  g_dy -= gi[1];
+  g_pos -= gi[2];
+#pragma unroll
+  for (int c2 = 0; c2 < 6; ++c2) g[c2] = gi[c2];
   g[6] = g_npre;
   gc[0] = g_R;
   gc[1] = g_k;
@@ -406,9 +767,9 @@ __device__ __forceinline__ void step_adjoint(int code, int refl, int absorbs,
   gc[3] = g_npost;
   gc[4] = g_dx;
   gc[5] = g_dy;
-  gc[6] = g_rx;
-  gc[7] = g_ry;
-  gc[8] = g_rz;
+  gc[6] = d_r[0];
+  gc[7] = d_r[1];
+  gc[8] = d_r[2];
   if constexpr (FULL) {
     g[7] = g_i;  // g[8], the opd cotangent, passes through unchanged
     gc[9] = g_kpre;
@@ -459,15 +820,21 @@ __device__ __forceinline__ void block_sum2(T& a, T& b, T (*red)[32]) {
 // ---------------------------------------------------------------------------
 
 // Copy the (S, NUM_P) param table, the aim vector (AIM) and NF rows of S
-// per-surface flags into shared memory.
+// per-surface flags into shared memory, and form each surface's N_ROT
+// cosines and sines of its tilts (read by tilted surfaces only).
 template <typename T, int NF, bool AIM>
 __device__ __forceinline__ void load_tables(const T* params, const T* aim,
                                             const int* flags, int S, T* sp,
-                                            T* sa, int* sf) {
+                                            T* sa, int* sf, T* srot) {
   for (int i = threadIdx.x; i < S * NUM_P; i += blockDim.x) sp[i] = params[i];
   if constexpr (AIM)
     for (int i = threadIdx.x; i < N_AIM; i += blockDim.x) sa[i] = aim[i];
   for (int i = threadIdx.x; i < NF * S; i += blockDim.x) sf[i] = flags[i];
+  for (int i = threadIdx.x; i < 3 * S; i += blockDim.x) {
+    const T ang = params[(i / 3) * NUM_P + P_RX + i % 3];
+    srot[2 * i] = cos_(ang);
+    srot[2 * i + 1] = sin_(ang);
+  }
   __syncthreads();
 }
 

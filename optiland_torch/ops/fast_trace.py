@@ -12,6 +12,11 @@ Counterpart of the ``trace_fast`` / ``trace_fast_field`` half of
     hand-derived adjoint seeded with the 8 output cotangents; writes the 8
     per-ray input cotangents and one partial row per block of the summed
     parameter gradients, which a second launch sums in a fixed order;
+  * ``trace_fwd_poly`` and ``trace_bwd_poly`` (the polychromatic mode of
+    K5a and K5b): the same with a 9th per-ray array, the wavelength; each
+    surface's index comes per ray from its dispersion formula and its
+    (S, nm) coefficient rows, and the adjoint also sums the gradient of
+    every coefficient;
   * ``trace_field_fwd`` (ports ``_make_fwd_kernel_field``, K1): as
     ``trace_fwd``, with each ray launched in-kernel from its pupil sample
     (Px, Py) and the 8-scalar aim vector (intensity 1, OPD 0);
@@ -24,12 +29,14 @@ count in ``LAUNCHES``. On a CUDA tensor a wrapper launches its kernel or
 raises; nothing falls back.
 
 The step is the full form of ``ops/step.py``: absorption, OPD and the
-circular clip are traced. As in the JAX package's kernels, the
+circular clip are traced, and a tilted surface's rotations (the spec's
+tilt flags). As in the JAX package's kernels, the
 Beer-Lambert factor is applied only where the medium before the surface
 absorbs, read from the k tables' values; when the k tables are
 differentiated (they require grad, the counterpart of JAX tracers), every
 surface applies it, so the gradient of every k table is formed as the JAX
-package forms it.
+package forms it. The polychromatic mode applies no absorption, whatever
+the flags, as the JAX package's poly body does not.
 """
 
 from __future__ import annotations
@@ -37,21 +44,31 @@ from __future__ import annotations
 import torch
 
 from optiland_torch.core.rays import RealRays
-from optiland_torch.core.system import scalar_like
-from optiland_torch.ops.fused_trace import aim_vector, build_param_table
+from optiland_torch.core.system import positions, scalar_like
+from optiland_torch.materials import dispersion
+from optiland_torch.ops.fused_trace import (
+    _aperture_columns, aim_vector, build_param_table,
+)
 from optiland_torch.ops.launch import (
     BWD_BLOCK, BWD_MAX_BLOCKS, N_AIM, check_cuda_inputs, covered, device_of,
-    flags, launch_from_pupil, unsupported,
+    flags, launch_from_pupil, launch_key, unsupported, with_tilt,
 )
 from optiland_torch.ops.step import (
     FULL_GRAD_COLS, NUM_P, P_NPOST, step_adjoint_plain, step_plain,
 )
 
-# Launch counts of the four kernels; each wrapper adds one where it launches
-# its kernel and nowhere else (a backward counts its partial-row launch
-# together with the fixed-order reduction launch that follows it).
-LAUNCHES = {"trace_fwd": 0, "trace_bwd": 0, "trace_field_fwd": 0,
-            "trace_field_bwd": 0}
+# Launch counts of the six kernels and of their TILT instantiations
+# ("_tilt"); each wrapper adds one where it launches its kernel and nowhere
+# else (a backward counts its partial-row launch together with the
+# fixed-order reduction launch that follows it).
+LAUNCHES = with_tilt(("trace_fwd", "trace_bwd", "trace_field_fwd",
+                      "trace_field_bwd", "trace_fwd_poly", "trace_bwd_poly"))
+
+# Formula codes the polychromatic kernels evaluate (all but TABULATED_N),
+# and the widest coefficient row they take (csrc/step.cuh: MAX_NM)
+POLY_FORMULAS = frozenset(range(dispersion.NUM_FORMULAS)) - {
+    dispersion.TABULATED_N}
+MAX_NM = dispersion.MAX_COEFFS
 
 RAY_FIELDS = ("x", "y", "z", "L", "M", "N", "i", "opd")
 
@@ -96,19 +113,19 @@ def _masks(system):
 
 def fast_spec(system, field=False):
     """The kernels' static spec (geometry codes, reflective flags, absorb
-    flags) when they cover this system, else None. ``field`` asks for the
-    field kernels, which also need an infinite-conjugate angle field.
-    Coverage is that of the merit kernels: PLANE and STANDARD surfaces, no
-    tilts, aperture objects, interactions or BSDFs (the other families are
-    kernel K6, a later slice), and no coatings or polarization (the
-    polarized kernels of ``ops/pol_trace.py`` take those)."""
+    flags, tilt flags) when they cover this system, else None. ``field``
+    asks for the field kernels, which also need an infinite-conjugate angle
+    field. Coverage is that of the merit kernels: PLANE and STANDARD
+    surfaces, tilted or not, no aperture objects, interactions or BSDFs
+    (the other families of kernel K6 come in a later slice), and no
+    coatings or polarization (the polarized kernels of ``ops/pol_trace.py``
+    take those)."""
     cfg = system.cfg
     if not covered(cfg, field):
         return None
     tilted, absorbs = _masks(system)
-    if any(tilted):
-        return None
-    return tuple(cfg.geom_codes), tuple(cfg.reflective), absorbs
+    return (tuple(cfg.geom_codes), tuple(cfg.reflective), absorbs,
+            tuple(bool(t) for t in tilted))
 
 
 def fast_supported(system, field=False) -> bool:
@@ -118,22 +135,57 @@ def fast_supported(system, field=False) -> bool:
     return fast_spec(system, field) is not None
 
 
+def poly_spec(system):
+    """The polychromatic kernels' spec: ``fast_spec``'s, then the
+    per-surface dispersion formula codes (the poly entries of the JAX
+    package's ``_spec_of``), or None when the kernels do not cover the
+    structure or a material is tabulated (TABULATED_N has no formula to
+    evaluate per ray). The absorb flags are kept and ignored: the
+    polychromatic trace applies no absorption. Nothing here reads
+    ``cfg.has_absorption``: as the JAX package's ``trace_fast_poly``, the
+    kernels trace an absorbing system without its absorption (see
+    ``poly_supported``)."""
+    spec = fast_spec(system)
+    formulas = tuple(int(f) for f in system.cfg.mat_formulas)
+    if spec is None or any(f not in POLY_FORMULAS for f in formulas):
+        return None
+    return spec + (formulas,)
+
+
+def poly_supported(system) -> bool:
+    """Counterpart of ``pallas_supported(system, poly=True)``: the
+    structure that ``poly_spec`` covers, and no absorbing material, which
+    the polychromatic trace would ignore. The Cooke triplet carries k data,
+    so this is False for it, as in the JAX package."""
+    return poly_spec(system) is not None and not system.cfg.has_absorption
+
+
 # ---------------------------------------------------------------------------
 # Plain versions
 # ---------------------------------------------------------------------------
 
 
-def _chain_plain(params, spec, st, keep=False):
+def _n_of(spec, mats, s, w):
+    """Per-ray index after surface s of a polychromatic trace."""
+    return dispersion.n_formula_scalar_terms(spec[4][s], mats[s].unbind(), w)
+
+
+def _chain_plain(params, spec, st, keep=False, mats=None, w=None):
     """Final state of the full chain; with ``keep`` also the per-surface
-    input states and n_pre that the adjoint replays."""
-    codes, refl, absorbs = spec
-    n_pre = params[0, P_NPOST]
+    input states and n_pre that the adjoint replays. With the per-ray
+    wavelengths ``w`` (and the coefficient rows ``mats``) the chain is
+    polychromatic: every index comes from its formula and nothing
+    absorbs."""
+    codes, refl, absorbs = spec[:3]
+    poly = w is not None
+    n_pre = _n_of(spec, mats, 0, w) if poly else params[0, P_NPOST]
     states = []
     for s in range(1, len(codes)):
         if keep:
             states.append((st, n_pre))
+        n_post = _n_of(spec, mats, s, w) if poly and not refl[s] else None
         st, n_pre = step_plain(codes[s], refl[s], params[s], n_pre, st,
-                               absorbs[s])
+                               absorbs[s] and not poly, n_post=n_post)
     return (st, states) if keep else st
 
 
@@ -153,27 +205,50 @@ def trace_fast_field_plain(params, aim, spec, Px, Py):
     return _chain_plain(params, spec, _field_launch(aim, Px, Py))
 
 
-def _sweep_plain(params, spec, st0, cots):
+def _sweep_plain(params, spec, st0, cots, mats=None, w=None):
     """The hand-derived reverse sweep from the 8 output cotangents: returns
     the 8 per-ray cotangents of the launch state and the (S, NUM_P) param
-    table gradient."""
-    codes, refl, absorbs = spec
+    table gradient, and for a polychromatic chain (``w`` given) also the
+    gradient of the coefficient rows ``mats``, which takes the index
+    cotangents (in the monochromatic chain the P_NPOST column's)."""
+    codes, refl, absorbs, tilted = spec[:4]
     S = len(codes)
+    poly = w is not None
     with torch.no_grad():
-        _, states = _chain_plain(params, spec, st0, keep=True)
+        _, states = _chain_plain(params, spec, st0, keep=True, mats=mats,
+                                 w=w)
         g = tuple(cots[:6]) + (torch.zeros_like(st0[0]),) + tuple(cots[6:])
         dparams = params.new_zeros((S, NUM_P))
+        dmats = mats.new_zeros(mats.shape) if poly else None
+
+        def index_grad(s, g_n):
+            # dmats[s, j] = sum over rays of g_n dn/dc_j
+            _, dn = dispersion.n_formula_scalar_grad(
+                spec[4][s], mats[s].unbind(), w)
+            for j, d in enumerate(dn):
+                if d is not None:
+                    dmats[s, j] = (g_n * d).sum()
+
         for s in range(S - 1, 0, -1):
             st, n_pre = states[s - 1]
+            n_post = _n_of(spec, mats, s, w) if poly and not refl[s] else None
             g_in, g_npre, cols = step_adjoint_plain(
-                codes[s], refl[s], params[s], n_pre, st, g, absorbs[s]
+                codes[s], refl[s], params[s], n_pre, st, g,
+                absorbs[s] and not poly, tilted=tilted[s], n_post=n_post,
             )
             for col, v in zip(FULL_GRAD_COLS, cols):
-                dparams[s, col] = v.sum()
+                if poly and col == P_NPOST:
+                    if not refl[s]:
+                        index_grad(s, v)
+                else:
+                    dparams[s, col] = v.sum()
             g = g_in[:6] + (g_npre,) + g_in[6:]
-        # n_pre of surface 1 is the object row's n_post
-        dparams[0, P_NPOST] = g[6].sum()
-    return g[:6] + g[7:], dparams
+        # n_pre of surface 1 is the object row's n_post (its formula's)
+        if poly:
+            index_grad(0, g[6])
+        else:
+            dparams[0, P_NPOST] = g[6].sum()
+    return (g[:6] + g[7:], dparams) + ((dmats,) if poly else ())
 
 
 def trace_fast_bwd_plain(params, spec, nc, rays, cots):
@@ -199,6 +274,24 @@ def trace_fast_field_bwd_plain(params, aim, spec, nc, Px, Py, cots):
         ])
     dcoeffs = params.new_zeros(len(spec[0]) * nc)
     return torch.cat([dparams.reshape(-1), dcoeffs, daim])
+
+
+def trace_fwd_poly_plain(params, mats, spec, rays):
+    """Plain version of the trace_fwd_poly kernel: the 8 final arrays of
+    the 9 launch arrays ``rays`` (the 8, then the wavelengths in um)."""
+    rays = tuple(rays)
+    return _chain_plain(params, spec, rays[:8], mats=mats, w=rays[8])
+
+
+def trace_bwd_poly_plain(params, mats, spec, nc, rays, cots):
+    """Plain version of the trace_bwd_poly kernel: (the 8 per-ray input
+    cotangents, the flat gradient in the layout (S * NUM_P params, S * nc
+    coeffs, S * nm coefficient rows)). The wavelengths get no cotangent."""
+    rays = tuple(rays)
+    din, dparams, dmats = _sweep_plain(params, spec, rays[:8], cots,
+                                       mats=mats, w=rays[8])
+    dcoeffs = params.new_zeros(len(spec[0]) * nc)
+    return din, torch.cat([dparams.reshape(-1), dcoeffs, dmats.reshape(-1)])
 
 
 # ---------------------------------------------------------------------------
@@ -228,11 +321,11 @@ def trace_fwd(params, spec, rays):
         rc = _cuda.call(
             "trace_fwd", params.dtype, params.data_ptr(),
             flags(spec, params.device).data_ptr(), len(spec[0]),
-            _cuda.pointers(rays), rays[0].shape[0], _cuda.pointers(out),
-            _cuda.stream(),
+            int(any(spec[3])), _cuda.pointers(rays), rays[0].shape[0],
+            _cuda.pointers(out), _cuda.stream(),
         )
     _cuda.check(rc, "trace_fwd")
-    LAUNCHES["trace_fwd"] += 1
+    LAUNCHES[launch_key("trace_fwd", any(spec[3]))] += 1
     return tuple(out)
 
 
@@ -254,13 +347,13 @@ def trace_bwd(params, spec, nc, rays, cots):
     with torch.cuda.device(params.device):
         rc = _cuda.call(
             "trace_bwd", params.dtype, params.data_ptr(),
-            flags(spec, params.device).data_ptr(), S, nc,
+            flags(spec, params.device).data_ptr(), S, int(any(spec[3])), nc,
             _cuda.pointers(rays), _cuda.pointers(cots), R,
             _cuda.pointers(din), partial.data_ptr(), nb, out.data_ptr(),
             _cuda.stream(),
         )
     _cuda.check(rc, "trace_bwd")
-    LAUNCHES["trace_bwd"] += 1
+    LAUNCHES[launch_key("trace_bwd", any(spec[3]))] += 1
     return tuple(din), out
 
 
@@ -278,11 +371,11 @@ def trace_field_fwd(params, aim, spec, Px, Py):
         rc = _cuda.call(
             "trace_field_fwd", params.dtype, params.data_ptr(),
             aim.data_ptr(), flags(spec, params.device).data_ptr(),
-            len(spec[0]), Px.data_ptr(), Py.data_ptr(), Px.shape[0],
-            _cuda.pointers(out), _cuda.stream(),
+            len(spec[0]), int(any(spec[3])), Px.data_ptr(), Py.data_ptr(),
+            Px.shape[0], _cuda.pointers(out), _cuda.stream(),
         )
     _cuda.check(rc, "trace_field_fwd")
-    LAUNCHES["trace_field_fwd"] += 1
+    LAUNCHES[launch_key("trace_field_fwd", any(spec[3]))] += 1
     return tuple(out)
 
 
@@ -303,13 +396,81 @@ def trace_field_bwd(params, aim, spec, nc, Px, Py, cots):
     with torch.cuda.device(params.device):
         rc = _cuda.call(
             "trace_field_bwd", params.dtype, params.data_ptr(),
-            aim.data_ptr(), flags(spec, params.device).data_ptr(), S, nc,
-            Px.data_ptr(), Py.data_ptr(), _cuda.pointers(cots), R,
-            partial.data_ptr(), nb, out.data_ptr(), _cuda.stream(),
+            aim.data_ptr(), flags(spec, params.device).data_ptr(), S,
+            int(any(spec[3])), nc, Px.data_ptr(), Py.data_ptr(),
+            _cuda.pointers(cots), R, partial.data_ptr(), nb, out.data_ptr(),
+            _cuda.stream(),
         )
     _cuda.check(rc, "trace_field_bwd")
-    LAUNCHES["trace_field_bwd"] += 1
+    LAUNCHES[launch_key("trace_field_bwd", any(spec[3]))] += 1
     return out
+
+
+def _check_poly(params, mats, spec, arrays):
+    check_cuda_inputs(params, spec, arrays)
+    if len(spec) != 5 or any(f not in POLY_FORMULAS for f in spec[4]):
+        raise ValueError("the polychromatic kernels take a spec with a "
+                         "formula code (not TABULATED_N) per surface")
+    if (mats.device != params.device or mats.dtype != params.dtype
+            or not mats.is_contiguous() or mats.dim() != 2
+            or mats.shape[0] != len(spec[0])
+            or not 1 <= mats.shape[1] <= MAX_NM):
+        raise ValueError(f"the coefficient rows must be a contiguous (S, nm) "
+                         f"{params.dtype} tensor on {params.device} with "
+                         f"1 <= nm <= {MAX_NM}")
+
+
+def trace_fwd_poly(params, mats, spec, rays):
+    """The 8 final arrays of the 9 launch arrays ``rays`` (the last the
+    per-ray wavelengths): the trace_fwd_poly kernel on a CUDA device, its
+    plain version on the CPU."""
+    if device_of(params.device, "trace_fwd_poly") == "cpu":
+        return trace_fwd_poly_plain(params, mats, spec, rays)
+    from optiland_torch.ops import _cuda
+
+    rays = tuple(rays)
+    _check_poly(params, mats, spec, rays)
+    out = _empty8(rays[0])
+    with torch.cuda.device(params.device):
+        rc = _cuda.call(
+            "trace_fwd_poly", params.dtype, params.data_ptr(),
+            mats.data_ptr(), flags(spec, params.device).data_ptr(),
+            len(spec[0]), int(any(spec[3])), mats.shape[1],
+            _cuda.pointers(rays), rays[0].shape[0], _cuda.pointers(out),
+            _cuda.stream(),
+        )
+    _cuda.check(rc, "trace_fwd_poly")
+    LAUNCHES[launch_key("trace_fwd_poly", any(spec[3]))] += 1
+    return tuple(out)
+
+
+def trace_bwd_poly(params, mats, spec, nc, rays, cots):
+    """(8 per-ray input cotangents, flat (S * NUM_P + S * nc + S * nm)
+    gradient) for the 8 output cotangents ``cots`` of a polychromatic
+    trace: the trace_bwd_poly kernel and its fixed-order reduction on a
+    CUDA device, the plain version on the CPU."""
+    if device_of(params.device, "trace_bwd_poly") == "cpu":
+        return trace_bwd_poly_plain(params, mats, spec, nc, rays, cots)
+    from optiland_torch.ops import _cuda
+
+    rays, cots = tuple(rays), tuple(cots)
+    _check_poly(params, mats, spec, rays + cots)
+    S, R, nm = len(spec[0]), rays[0].shape[0], mats.shape[1]
+    nb = _bwd_blocks(R)
+    din = _empty8(rays[0])
+    partial = params.new_empty((nb, S * (len(FULL_GRAD_COLS) + nm)))
+    out = params.new_zeros(S * (NUM_P + nc + nm))
+    with torch.cuda.device(params.device):
+        rc = _cuda.call(
+            "trace_bwd_poly", params.dtype, params.data_ptr(),
+            mats.data_ptr(), flags(spec, params.device).data_ptr(), S,
+            int(any(spec[3])), nc, nm, _cuda.pointers(rays),
+            _cuda.pointers(cots), R, _cuda.pointers(din), partial.data_ptr(),
+            nb, out.data_ptr(), _cuda.stream(),
+        )
+    _cuda.check(rc, "trace_bwd_poly")
+    LAUNCHES[launch_key("trace_bwd_poly", any(spec[3]))] += 1
+    return tuple(din), out
 
 
 # ---------------------------------------------------------------------------
@@ -408,3 +569,72 @@ def trace_fast_field(system, Hx, Hy, Px, Py, wavelength):
     )
     w = torch.zeros_like(x) + scalar_like(wavelength, x)
     return RealRays(x=x, y=y, z=z, L=L, M=M, N=N, i=i, w=w, opd=opd)
+
+
+class _TraceFastPoly(torch.autograd.Function):
+    """9 launch arrays (the 8 and the wavelengths) -> 8 final arrays;
+    backward = trace_bwd_poly (the wavelengths get a zero cotangent, as in
+    the JAX package, which treats them as sampling data)."""
+
+    @staticmethod
+    def forward(ctx, params, coeffs, mats, spec, *rays):
+        out = trace_fwd_poly(params, mats, spec, rays)
+        ctx.save_for_backward(params, mats, *rays)
+        ctx.spec, ctx.nc = spec, coeffs.shape[1]
+        return out
+
+    @staticmethod
+    def backward(ctx, *g):
+        params, mats, *rays = ctx.saved_tensors
+        cots = [c.contiguous() for c in g]
+        din, flat = trace_bwd_poly(params, mats, ctx.spec, ctx.nc, rays, cots)
+        S = len(ctx.spec[0])
+        dparams, dcoeffs, dmats = _split(flat, S, ctx.nc)
+        return ((dparams, dcoeffs, dmats.reshape(S, -1), None) + tuple(din)
+                + (torch.zeros_like(rays[8]),))
+
+
+def build_poly_table(system):
+    """The (S, NUM_P) param table of a polychromatic trace
+    (``_poly_param_table`` of the JAX package): the index and absorption
+    columns are unused, as the indices come per ray from the formulas."""
+    stack = system.stack
+    zero = torch.zeros_like(stack.radius)
+    ap_max, ap_min = _aperture_columns(system)
+    return torch.stack(
+        [
+            stack.radius, stack.conic, positions(stack) + stack.dz, zero,
+            ap_max, zero, stack.dx, stack.dy, stack.rx, stack.ry, stack.rz,
+            stack.geo_p1, stack.geo_p2, ap_min, zero,
+        ],
+        dim=1,
+    )
+
+
+def trace_fast_poly(system, rays, newton_iters: int = 10):
+    """Fused trace with a wavelength per ray (``rays.w``, um): the final
+    state only, differentiable with respect to every stack leaf, the
+    dispersion coefficients ``mat_coeffs`` included.
+
+    Each surface's index is evaluated per ray from its dispersion formula
+    and coefficient row, in one launch for any mix of wavelengths. As in
+    the JAX package, the trace applies no absorption (whatever the
+    system's k data) and passes no cotangent to the wavelengths. The
+    bundle's dtype and device decide where it runs: the kernels
+    (trace_fwd_poly, trace_bwd_poly) on a CUDA device, their plain versions
+    on the CPU. ``newton_iters`` is accepted only for the JAX package's
+    signature: PLANE and STANDARD surfaces intersect in closed form."""
+    spec = poly_spec(system)
+    if spec is None:
+        raise unsupported("trace_fast_poly (no tabulated material)")
+    dt = rays.x.dtype
+    params = build_poly_table(system).to(dt)
+    mats = system.stack.mat_coeffs.to(dt)
+    if mats.shape[1] == 0:
+        mats = mats.new_zeros((mats.shape[0], 1))
+    ray_in = [getattr(rays, k).to(dt).contiguous()
+              for k in RAY_FIELDS + ("w",)]
+    x, y, z, L, M, N, i, opd = _TraceFastPoly.apply(
+        params, _coeffs(system, dt), mats.contiguous(), spec, *ray_in
+    )
+    return RealRays(x=x, y=y, z=z, L=L, M=M, N=N, i=i, w=rays.w, opd=opd)

@@ -46,7 +46,8 @@ from optiland_torch.core.system import (
 )
 from optiland_torch.ops.launch import (
     BWD_BLOCK, BWD_MAX_BLOCKS, FWD_BLOCK, N_AIM, check_cuda_inputs, check_dtype,
-    covered, device_of, flags, launch_from_pupil, unsupported,
+    covered, device_of, flags, launch_from_pupil, launch_key, unsupported,
+    with_tilt,
 )
 from optiland_torch.ops.step import (
     GRAD_COLS, NUM_P, P_NPOST, step_adjoint_plain, step_plain,
@@ -56,10 +57,11 @@ from optiland_torch.ops.step import (
 # so a shard's offset means the same rays in both packages.
 SUB_RAYS = 4096
 
-# Launch counts of the three kernels; each wrapper adds one where it
-# launches its kernel and nowhere else (merit_bwd counts its partial-row
-# launch together with the fixed-order reduction launch that follows it).
-LAUNCHES = {"prng_disk": 0, "merit_fwd": 0, "merit_bwd": 0}
+# Launch counts of the three kernels and of the merit kernels' TILT
+# instantiations ("_tilt"); each wrapper adds one where it launches its
+# kernel and nowhere else (merit_bwd counts its partial-row launch together
+# with the fixed-order reduction launch that follows it).
+LAUNCHES = {"prng_disk": 0, **with_tilt(("merit_fwd", "merit_bwd"))}
 
 
 def reset_launch_counts():
@@ -81,21 +83,22 @@ def _tilt_mask(system):
 
 
 def _spec_of(system):
-    """The static kernel spec: (geometry codes, reflective flags), the part
-    of the JAX package's spec that the merit kernels read. Its other
-    entries (tilts, geometry extras, absorption, annular apertures,
+    """The static kernel spec: (geometry codes, reflective flags, tilt
+    flags), the part of the JAX package's spec that the merit kernels read.
+    Its other entries (geometry extras, absorption, annular apertures,
     gratings, polychromatic formulas) describe families that
     ``fused_supported`` refuses until a later slice ports them."""
     cfg = system.cfg
-    return tuple(cfg.geom_codes), tuple(cfg.reflective)
+    return (tuple(cfg.geom_codes), tuple(cfg.reflective),
+            tuple(bool(t) for t in _tilt_mask(system)))
 
 
 def fused_supported(system) -> bool:
     """True when the fused merit kernels cover this system: what
-    ``launch.covered`` lists, and no tilts. The other families (tilts,
-    Newton-sag geometries, gratings, annular apertures, NURBS) are kernel
-    K6, ported in a later slice."""
-    return covered(system.cfg) and not any(_tilt_mask(system))
+    ``launch.covered`` lists, tilted surfaces included. The other families
+    of kernel K6 (Newton-sag geometries, gratings, annular apertures,
+    NURBS) come in a later slice."""
+    return covered(system.cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -359,12 +362,13 @@ def merit_fwd(params, aim, spec, R, seed=0, offset=0, Px=None, Py=None):
         rc = _cuda.call(
             "merit_fwd", params.dtype, params.data_ptr(), aim.data_ptr(),
             flags(spec, params.device).data_ptr(), len(spec[0]),
-            None if prng else Px.data_ptr(), None if prng else Py.data_ptr(),
+            int(any(spec[2])), None if prng else Px.data_ptr(),
+            None if prng else Py.data_ptr(),
             int(R), int(seed) & ((1 << 64) - 1), int(offset), int(prng),
             rows.data_ptr(), _cuda.stream(),
         )
     _cuda.check(rc, "merit_fwd")
-    LAUNCHES["merit_fwd"] += 1
+    LAUNCHES[launch_key("merit_fwd", any(spec[2]))] += 1
     return rows
 
 
@@ -379,7 +383,7 @@ def merit_bwd_plain(params, aim, stats, spec, nc, R, seed=0, offset=0,
     in torch tensor ops, one tensor per ray quantity. Returns the flat
     gradient in the layout (S * NUM_P params, S * nc coeffs, N_AIM aim)."""
     S = len(spec[0])
-    codes, refl = spec[0], spec[1]
+    codes, refl, tilted = spec
     Px, Py = _pupil(R, seed, offset, Px, Py, params.dtype, params.device)
     with torch.no_grad():
         x, y, states = trace_xy_plain(params, aim, spec, Px, Py, keep=True)
@@ -392,7 +396,7 @@ def merit_bwd_plain(params, aim, stats, spec, nc, R, seed=0, offset=0,
         for s in range(S - 1, 0, -1):
             st, n_pre = states[s - 1]
             g_in, g_npre, g6 = step_adjoint_plain(
-                codes[s], refl[s], params[s], n_pre, st, g
+                codes[s], refl[s], params[s], n_pre, st, g, tilted=tilted[s]
             )
             for col, v in zip(GRAD_COLS, g6):
                 dparams[s, col] = v.sum()
@@ -442,13 +446,14 @@ def merit_bwd(params, aim, stats, spec, nc, R, seed=0, offset=0, Px=None,
     with torch.cuda.device(params.device):
         rc = _cuda.call(
             "merit_bwd", params.dtype, params.data_ptr(), aim.data_ptr(),
-            stats.data_ptr(), flags(spec, params.device).data_ptr(), S, nc,
-            None if prng else Px.data_ptr(), None if prng else Py.data_ptr(),
+            stats.data_ptr(), flags(spec, params.device).data_ptr(), S,
+            int(any(spec[2])), nc, None if prng else Px.data_ptr(),
+            None if prng else Py.data_ptr(),
             int(R), int(seed) & ((1 << 64) - 1), int(offset), int(prng),
             partial.data_ptr(), nb, int(block), out.data_ptr(), _cuda.stream(),
         )
     _cuda.check(rc, "merit_bwd")
-    LAUNCHES["merit_bwd"] += 1
+    LAUNCHES[launch_key("merit_bwd", any(spec[2]))] += 1
     return out
 
 

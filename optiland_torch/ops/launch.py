@@ -25,8 +25,8 @@ MAX_SURF = 16  # bound of the backwards' per-ray surface-state arrays
 
 
 def covered(cfg, field=True, coated=False) -> bool:
-    """True when the kernels' step covers this structure, tilts aside:
-    PLANE and STANDARD surfaces, no aperture objects, interactions or
+    """True when the kernels' step covers this structure: PLANE and
+    STANDARD surfaces, tilted or not, no aperture objects, interactions or
     BSDFs, at most MAX_SURF surfaces, and (with ``field``) an
     infinite-conjugate angle field, which the aim vector describes. The
     unpolarized kernels take no coatings and no polarization; ``coated``
@@ -55,8 +55,8 @@ def unsupported(what):
     """The error for a system that the kernels do not cover yet."""
     return NotImplementedError(
         f"{what} covers PLANE/STANDARD systems of at most {MAX_SURF} surfaces "
-        "without tilts, aperture objects or interactions; tilts and the "
-        "other families (kernel K6) come in a later slice"
+        "(tilted or not) without aperture objects or interactions; the "
+        "other families of kernel K6 come in a later slice"
     )
 
 
@@ -82,6 +82,18 @@ def flags(spec, device):
     other: geometry codes, reflective flags (and any further flags)."""
     return static_tensor(tuple(int(v) for part in spec for v in part),
                          torch.int32, device)
+
+
+def with_tilt(names):
+    """Launch-count keys for kernels ``names``: each kernel and its TILT
+    instantiation (``name + "_tilt"``), a separately compiled kernel
+    launched for a spec with a tilted surface."""
+    return {k: 0 for n in names for k in (n, n + "_tilt")}
+
+
+def launch_key(name, tilt):
+    """The launch-count key of kernel ``name`` launched with ``tilt``."""
+    return name + "_tilt" if tilt else name
 
 
 def device_of(device, name):

@@ -70,18 +70,19 @@ from optiland_torch.ops.fast_trace import (
 )
 from optiland_torch.ops.fused_trace import build_param_table
 from optiland_torch.ops.launch import (
-    check_cuda_inputs, covered, device_of, flags, unsupported,
+    check_cuda_inputs, covered, device_of, flags, launch_key, unsupported,
+    with_tilt,
 )
 from optiland_torch.ops.step import (
     FULL_GRAD_COLS, NUM_P, P_NPOST, step_adjoint_plain, step_plain,
 )
 from optiland_torch.polarization import basis_states
 
-# Launch counts of the kernels, per mode; each wrapper adds one where it
-# launches its kernel and nowhere else (a backward counts its partial-row
+# Launch counts of the kernels, per mode and TILT instantiation ("_tilt");
+# each wrapper adds one where it launches its kernel and nowhere else (a backward counts its partial-row
 # launch together with the fixed-order reduction launch that follows it).
-LAUNCHES = {"pol_fwd": 0, "pol_bwd": 0, "pol_fwd_intensity": 0,
-            "pol_bwd_intensity": 0}
+LAUNCHES = with_tilt(("pol_fwd", "pol_bwd", "pol_fwd_intensity",
+                      "pol_bwd_intensity"))
 
 # Per-surface coat kinds (the kernels' fourth flag row; csrc/pol_trace.cu
 # holds the same values)
@@ -168,10 +169,10 @@ def kernel_eligible(system, wavelength) -> bool:
 
 def pol_spec(system, wavelength):
     """The kernels' static spec (geometry codes, reflective flags, absorb
-    flags, coat kinds, tmm layer counts) when they cover this system at
-    ``wavelength``, else None: the structure of ``fast_trace.fast_spec``
-    with coatings and polarization, no tilts, coatings that are
-    kernel-eligible and tmm stacks of at most MAX_LAYERS layers."""
+    flags, coat kinds, tmm layer counts, tilt flags) when they cover this
+    system at ``wavelength``, else None: the structure of
+    ``fast_trace.fast_spec`` with coatings and polarization, coatings that
+    are kernel-eligible and tmm stacks of at most MAX_LAYERS layers."""
     cfg = system.cfg
     if not covered(cfg, field=False, coated=True):
         return None
@@ -180,13 +181,11 @@ def pol_spec(system, wavelength):
             isinstance(k, tuple) and k[1] > MAX_LAYERS for k in kinds):
         return None
     tilted, absorbs = _masks(system)
-    if any(tilted):
-        return None
     codes = tuple(TMM if isinstance(k, tuple) else _KIND_CODES[k]
                   for k in kinds)
     layers = tuple(k[1] if isinstance(k, tuple) else 0 for k in kinds)
     return (tuple(cfg.geom_codes), tuple(cfg.reflective), absorbs, codes,
-            layers)
+            layers, tuple(bool(t) for t in tilted))
 
 
 def pol_supported(system, wavelength) -> bool:
@@ -770,7 +769,7 @@ def _identity_p(like):
 def _chain(params, coat, spec, st, keep=False):
     """The polarized chain: final state, final p (re, im), and with
     ``keep`` per surface what the adjoint replays."""
-    codes, refl, absorbs, kinds, layers = spec
+    codes, refl, absorbs, kinds, layers = spec[:5]
     n_pre = params[0, P_NPOST]
     p = _identity_p(st[0])
     saved = []
@@ -830,7 +829,7 @@ def pol_bwd_plain(params, coat, spec, rays, cots, states=None,
     per-ray input cotangents and the flat gradient in the layout (S * NUM_P
     params, S * ncoat coat table), which the wrapper widens with the
     coefficient block."""
-    codes, refl, absorbs, kinds, layers = spec
+    codes, refl, absorbs, kinds, layers, tilted = spec
     S, ncoat = len(codes), coat.shape[1]
     rays, cots = tuple(rays), tuple(cots)
     with torch.no_grad():
@@ -887,7 +886,8 @@ def pol_bwd_plain(params, coat, spec, rays, cots, states=None,
                 g[7] = g[7] * coat[s, col]
             g_in, g_npre, cols = step_adjoint_plain(
                 codes[s], refl[s], params[s], sv["n_pre"], sv["st"],
-                tuple(g), absorbs[s], g_ext=g_k0 + g_k1 + (g_adot,))
+                tuple(g), absorbs[s], g_ext=g_k0 + g_k1 + (g_adot,),
+                tilted=tilted[s])
             for col, v in zip(FULL_GRAD_COLS, cols):
                 dparams[s, col] = v.sum()
             g = list(g_in[:6]) + [g_npre] + list(g_in[6:])
@@ -942,12 +942,12 @@ def pol_fwd(params, coat, spec, rays, states=None, intensity=False):
         rc = _cuda.call(
             "pol_fwd", params.dtype, params.data_ptr(), coat.data_ptr(),
             flags(spec, params.device).data_ptr(), len(spec[0]),
-            coat.shape[1], _cuda.pointers(rays), rays[0].shape[0],
-            _cuda.pointers(out), int(intensity), *_state_args(states),
-            _cuda.stream(),
+            int(any(spec[5])), coat.shape[1], _cuda.pointers(rays),
+            rays[0].shape[0], _cuda.pointers(out), int(intensity),
+            *_state_args(states), _cuda.stream(),
         )
     _cuda.check(rc, name)
-    LAUNCHES[name] += 1
+    LAUNCHES[launch_key(name, any(spec[5]))] += 1
     return tuple(out)
 
 
@@ -976,13 +976,13 @@ def pol_bwd(params, coat, spec, nc, rays, cots, states=None, intensity=False):
     with torch.cuda.device(params.device):
         rc = _cuda.call(
             "pol_bwd", params.dtype, params.data_ptr(), coat.data_ptr(),
-            flags(spec, params.device).data_ptr(), S, nc, ncoat,
-            _cuda.pointers(rays), _cuda.pointers(cots), R,
+            flags(spec, params.device).data_ptr(), S, int(any(spec[5])), nc,
+            ncoat, _cuda.pointers(rays), _cuda.pointers(cots), R,
             _cuda.pointers(din), partial.data_ptr(), nb, out.data_ptr(),
             int(intensity), *_state_args(states), _cuda.stream(),
         )
     _cuda.check(rc, name)
-    LAUNCHES[name] += 1
+    LAUNCHES[launch_key(name, any(spec[5]))] += 1
     return tuple(din), out
 
 

@@ -16,6 +16,19 @@ For the polarized traces (``ops/pol_trace.py``) the step also gives its
 "extras": the local pre- and post-interaction directions and adot, the
 cosine of the angle of incidence; and its adjoint takes their cotangents.
 
+A tilted surface (the ``tilted`` flag of the adjoint, set where a tilt
+angle is nonzero or not finite) rotates the ray into its frame, z then y
+then x by the negated angles, and back in reverse order after the
+interaction (``_rot_local``/``_rot_global`` of the JAX package); the
+adjoint routes every cotangent through those rotations and gives the true
+d/d(rx, ry, rz). An untilted surface keeps the zero-tilt form: each
+rotation contributes its generator, which is what the general form gives
+at zero angles.
+
+In the polychromatic traces the index after the surface is a per-ray
+tensor (``n_post``, from the surface's dispersion formula) instead of the
+table's P_NPOST column.
+
 The CUDA device step is a line-by-line transcription of these two
 functions, instantiated once per form; change them together.
 """
@@ -37,8 +50,7 @@ from optiland_torch.ops import kernels
 NUM_P = 15
 
 # Columns of the param table that the merit's gradient reaches, in the
-# order the backward kernels accumulate them per surface. The tilt columns
-# carry the derivative at zero tilt (the kernels trace untilted systems).
+# order the backward kernels accumulate them per surface.
 GRAD_COLS = (P_RADIUS, P_CONIC, P_POS, P_NPOST, P_DX, P_DY, P_RX, P_RY, P_RZ)
 # The full step's gradient also reaches the absorption column.
 FULL_GRAD_COLS = GRAD_COLS + (P_KPRE,)
@@ -63,7 +75,66 @@ def _rot_global(x, y, z, L, M, N, rx, ry, rz):
     return x, y, z, L, M, N
 
 
-def step_plain(code, refl, p, n_pre, st, absorbs=False, extras=False):
+def _rot_ab_adjoint(v, g, c, s):
+    """Reverse of one rotation (a, b) <- (a c - b s, a s + b c) by the
+    angle phi (cos c, sin s) of the pairs v = (a', b', A', B'), its outputs,
+    whose cotangents are g. Returns (d/d phi, the inputs, their
+    cotangents): both pairs rotated back by -phi."""
+    a, b, A, B = v
+    ga, gb, gA, gB = g
+    dphi = -ga * b + gb * a - gA * B + gB * A
+    back = (a * c + b * s, -a * s + b * c, A * c + B * s, -A * s + B * c)
+    gback = (ga * c + gb * s, -ga * s + gb * c, gA * c + gB * s,
+             -gA * s + gB * c)
+    return dphi, back, gback
+
+
+def _cos_sin(p):
+    """(cos rx, sin rx, cos ry, sin ry, cos rz, sin rz) of a param row."""
+    return tuple(f(p[c]) for c in (P_RX, P_RY, P_RZ)
+                 for f in (torch.cos, torch.sin))
+
+
+def _rot_global_adjoint(p, v, g):
+    """Reverse of ``_rot_global`` by the tilts of param row ``p`` at the
+    local state v = (x, y, z, L, M, N) it rotates, for the cotangents g of
+    its outputs: returns the cotangents of v and (d/drx, d/dry, d/drz). The
+    rotations run forward to the outputs, then back one by one (rotate_z is
+    the (x, y) rotation by rz, rotate_y the (x, z) rotation by -ry,
+    rotate_x the (y, z) rotation by rx)."""
+    cx, sx, cy, sy, cz, sz = _cos_sin(p)
+    x, y, z, L, M, N = _rot_global(*v, p[P_RX], p[P_RY], p[P_RZ])
+    gx, gy, gz, gL, gM, gN = g
+    d_rz, (x, y, L, M), (gx, gy, gL, gM) = _rot_ab_adjoint(
+        (x, y, L, M), (gx, gy, gL, gM), cz, sz)
+    d, (x, z, L, N), (gx, gz, gL, gN) = _rot_ab_adjoint(
+        (x, z, L, N), (gx, gz, gL, gN), cy, -sy)
+    d_ry = -d
+    d_rx, _, (gy, gz, gM, gN) = _rot_ab_adjoint(
+        (y, z, M, N), (gy, gz, gM, gN), cx, sx)
+    return (gx, gy, gz, gL, gM, gN), (d_rx, d_ry, d_rz)
+
+
+def _rot_local_adjoint(p, v, g):
+    """Reverse of ``_rot_local`` by the tilts of param row ``p`` at its
+    output, the local state v = (x, y, z, L, M, N), for the cotangents g of
+    v: returns the cotangents of its input and (d/drx, d/dry, d/drz)."""
+    cx, sx, cy, sy, cz, sz = _cos_sin(p)
+    x, y, z, L, M, N = v
+    gx, gy, gz, gL, gM, gN = g
+    d, (y, z, M, N), (gy, gz, gM, gN) = _rot_ab_adjoint(
+        (y, z, M, N), (gy, gz, gM, gN), cx, -sx)
+    d_rx = -d
+    d_ry, (x, z, L, N), (gx, gz, gL, gN) = _rot_ab_adjoint(
+        (x, z, L, N), (gx, gz, gL, gN), cy, sy)
+    d, _, (gx, gy, gL, gM) = _rot_ab_adjoint(
+        (x, y, L, M), (gx, gy, gL, gM), cz, -sz)
+    d_rz = -d
+    return (gx, gy, gz, gL, gM, gN), (d_rx, d_ry, d_rz)
+
+
+def step_plain(code, refl, p, n_pre, st, absorbs=False, extras=False,
+               n_post=None):
     """One surface step on per-ray tensors; returns (state, n_next), and
     with ``extras`` also (L0, M0, N0, L1, M1, N1, adot): the local-frame
     pre- and post-interaction directions and |cos| of the angle of
@@ -71,11 +142,12 @@ def step_plain(code, refl, p, n_pre, st, absorbs=False, extras=False):
 
     ``st`` is (x, y, z, L, M, N), or (x, y, z, L, M, N, i, opd) for the full
     step; ``absorbs`` (full step only) applies the Beer-Lambert factor of
-    ``p[P_KPRE]``. The tilt rotations run as in the JAX package under
-    ``jax.grad``, where traced tilts keep the rotation code: at the zero
-    tilts that the kernels take they are exact identities, and autograd
-    through them gives the tilt derivatives that the hand adjoint
-    reproduces."""
+    ``p[P_KPRE]``; ``n_post``, when given, is the per-ray index after the
+    surface (polychromatic traces), else ``p[P_NPOST]``. The tilt rotations
+    always run, as in the JAX package under ``jax.grad``, where traced
+    tilts keep the rotation code: at zero tilt they are exact identities
+    (the kernels skip them there), and autograd through them gives the tilt
+    derivatives that the hand adjoint reproduces."""
     full = len(st) == 8
     x, y, z, L, M, N = st[:6]
     radius, conic, pos = p[P_RADIUS], p[P_CONIC], p[P_POS]
@@ -108,7 +180,8 @@ def step_plain(code, refl, p, n_pre, st, absorbs=False, extras=False):
         N = N - 2 * adot * nz
         n_next = n_pre
     else:
-        n_post = p[P_NPOST]
+        if n_post is None:
+            n_post = p[P_NPOST]
         u = n_pre / n_post
         root = torch.sqrt(1 - u * u * (1 - adot * adot))
         L = u * L + nx * (root - u * adot)
@@ -124,7 +197,7 @@ def step_plain(code, refl, p, n_pre, st, absorbs=False, extras=False):
 
 
 def step_adjoint_plain(code, refl, p, n_pre, st, g, absorbs=False,
-                       g_ext=None):
+                       g_ext=None, tilted=False, n_post=None):
     """Reverse sweep through one surface step.
 
     ``st`` is the step's input state, ``g`` the cotangents of its outputs:
@@ -132,28 +205,30 @@ def step_adjoint_plain(code, refl, p, n_pre, st, g, absorbs=False,
     full one; ``g_ext``, when given, those of the step's extras (L0, M0,
     N0, L1, M1, N1, adot). Returns the cotangents of the input state, of
     n_pre, and of the param columns GRAD_COLS (FULL_GRAD_COLS for the full
-    step), all per ray; the tilt cotangents are those at zero tilt, where
-    each rotation contributes its generator (the extras are local-frame
-    directions, so theirs count too). The clip passes no cotangent to a
-    clipped ray's intensity, and none to the positions that decide it. The
-    CUDA kernels' reverse step is a line-by-line transcription of this
-    one."""
+    step), all per ray. With ``tilted`` the cotangents pass through the
+    surface's rotations and the tilt columns get the derivative at its
+    angles; without, those at zero tilt, where each rotation contributes its
+    generator (the extras are local-frame directions, so theirs count too).
+    ``n_post`` is the per-ray index after the surface of a polychromatic
+    trace (its cotangent is the P_NPOST column's). The clip passes no
+    cotangent to a clipped ray's intensity, and none to the positions that
+    decide it. The CUDA kernels' reverse step is a line-by-line
+    transcription of this one."""
     full = len(g) == 9
     x, y, z, L, M, N = st[:6]
     gx, gy, gz, gL_o, gM_o, gN_o, g_nn = g[:7]
-    # cotangents of the local post-interaction directions: the output's
-    # (at zero tilt) and the extras' L1, M1, N1
-    gL_i, gM_i, gN_i = gL_o, gM_o, gN_o
-    if g_ext is not None:
-        gL_i, gM_i, gN_i = gL_o + g_ext[3], gM_o + g_ext[4], gN_o + g_ext[5]
     R, k, pos = p[P_RADIUS], p[P_CONIC], p[P_POS]
-    dx, dy, npost = p[P_DX], p[P_DY], p[P_NPOST]
+    dx, dy = p[P_DX], p[P_DY]
+    npost = p[P_NPOST] if n_post is None else n_post
     std = code == geom.STANDARD
 
-    # ---- recompute the forward intermediates ----
+    # ---- recompute the forward intermediates (in the surface's frame) ----
     xl = x - dx
     yl = y - dy
     zl = z - pos
+    if tilted:
+        xl, yl, zl, L, M, N = _rot_local(xl, yl, zl, L, M, N, p[P_RX],
+                                         p[P_RY], p[P_RZ])
     if std:
         cu = 1.0 / R
         A = k * N**2 + L**2 + M**2 + N**2
@@ -195,19 +270,37 @@ def step_adjoint_plain(code, refl, p, n_pre, st, g, absorbs=False,
     nxs, nys, nzs = nx * sgn, ny * sgn, nz * sgn
     adot = torch.abs(dot)
 
-    # ---- globalize: x = x1 + dx, y = y1 + dy, z = z1 + pos ----
-    g_dx = gx
-    g_dy = gy
-    g_pos = gz
-    g_x1, g_y1, g_z1 = gx, gy, gz
-
     z1 = zl + t * N
-
-    # ---- interact ----
+    # the local post-interaction directions
     if refl:
         Lo = L - 2 * adot * nxs
         Mo = M - 2 * adot * nys
         No = N - 2 * adot * nzs
+    else:
+        u = n_pre / npost
+        root = torch.sqrt(1 - u * u * (1 - adot * adot))
+        w = root - u * adot
+        Lo = u * L + nxs * w
+        Mo = u * M + nys * w
+        No = u * N + nzs * w
+
+    # ---- globalize: rotate back (tilted), then x = x1 + dx, y = y1 + dy,
+    # z = z1 + pos ----
+    g_dx = gx
+    g_dy = gy
+    g_pos = gz
+    if tilted:
+        (gx, gy, gz, gL_o, gM_o, gN_o), g_glob = _rot_global_adjoint(
+            p, (x1, y1, z1, Lo, Mo, No), (gx, gy, gz, gL_o, gM_o, gN_o))
+    g_x1, g_y1, g_z1 = gx, gy, gz
+    # cotangents of the local post-interaction directions: the output's and
+    # the extras' L1, M1, N1
+    gL_i, gM_i, gN_i = gL_o, gM_o, gN_o
+    if g_ext is not None:
+        gL_i, gM_i, gN_i = gL_o + g_ext[3], gM_o + g_ext[4], gN_o + g_ext[5]
+
+    # ---- interact ----
+    if refl:
         gL, gM, gN = gL_i, gM_i, gN_i
         g_nxs = -2 * adot * gL_i
         g_nys = -2 * adot * gM_i
@@ -216,12 +309,6 @@ def step_adjoint_plain(code, refl, p, n_pre, st, g, absorbs=False,
         g_npre = g_nn
         g_npost = torch.zeros_like(gx)
     else:
-        u = n_pre / npost
-        root = torch.sqrt(1 - u * u * (1 - adot * adot))
-        w = root - u * adot
-        Lo = u * L + nxs * w
-        Mo = u * M + nys * w
-        No = u * N + nzs * w
         gL, gM, gN = u * gL_i, u * gM_i, u * gN_i
         g_nxs = w * gL_i
         g_nys = w * gM_i
@@ -340,14 +427,20 @@ def step_adjoint_plain(code, refl, p, n_pre, st, g, absorbs=False,
         gN = gN + torch.where(big, g_t * zl / (Ns * Ns), 0.0)
         g_R = torch.zeros_like(gx)
 
-    # ---- tilts at zero: localize rotates by -angle, globalize by +angle;
-    # each rotation's derivative is its generator acting on the state ----
-    g_rx = (g_yl * zl - g_zl * yl + gM * N - gN * M
-            - gy * z1 + gz * y1 - gM_o * No + gN_o * Mo)
-    g_ry = (-g_xl * zl + g_zl * xl - gL * N + gN * L
-            + gx * z1 - gz * x1 + gL_o * No - gN_o * Lo)
-    g_rz = (g_xl * yl - g_yl * xl + gL * M - gM * L
-            - gx * y1 + gy * x1 - gL_o * Mo + gM_o * Lo)
+    # ---- tilts: through the rotations (tilted), or at zero, where the
+    # localize rotates by -angle, the globalize by +angle and each
+    # rotation's derivative is its generator acting on the state ----
+    if tilted:
+        (g_xl, g_yl, g_zl, gL, gM, gN), g_loc = _rot_local_adjoint(
+            p, (xl, yl, zl, L, M, N), (g_xl, g_yl, g_zl, gL, gM, gN))
+        g_rx, g_ry, g_rz = (a + b for a, b in zip(g_glob, g_loc))
+    else:
+        g_rx = (g_yl * zl - g_zl * yl + gM * N - gN * M
+                - gy * z1 + gz * y1 - gM_o * No + gN_o * Mo)
+        g_ry = (-g_xl * zl + g_zl * xl - gL * N + gN * L
+                + gx * z1 - gz * x1 + gL_o * No - gN_o * Lo)
+        g_rz = (g_xl * yl - g_yl * xl + gL * M - gM * L
+                - gx * y1 + gy * x1 - gL_o * Mo + gM_o * Lo)
 
     # ---- localize: xl = x - dx, yl = y - dy, zl = z - pos ----
     g_dx = g_dx - g_xl

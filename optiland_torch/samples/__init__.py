@@ -1,7 +1,9 @@
 """Sample optical systems: the Cooke triplet, and the polarized systems of
 ``samples.polarized`` (examples/08's coated singlet, its coat-kind variants
-and bench.py's polarized classes). The other hand-written and registry
-systems follow in later slices."""
+and bench.py's polarized classes), and the tilted and re-dispersed variants
+of ``samples.perturbed`` (the toleranced Cooke triplet, the tilted singlet,
+the Cooke triplet with every other formula code). The other hand-written
+and registry systems follow in later slices."""
 
 from optiland_torch.samples.objectives import CookeTriplet
 

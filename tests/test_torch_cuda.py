@@ -22,7 +22,9 @@ kernels (K10, K11a, K11b): f64 fields to 1e-9 of the largest |field| and
 gradients to 1e-8 of each array's largest entry; f32 within the phase
 rounding bound derived in its test. The polarized kernels (K8, K9), both
 modes, every coat kind: as the trace kernels, p's entries against the
-largest entry (some vanish exactly).
+largest entry (some vanish exactly). The polychromatic mode of K5a/K5b and
+the tilted systems of every trace kernel (K1-K5, K8, K9): as the trace
+kernels, the coefficient gradients with the other summed gradients.
 """
 
 import dataclasses
@@ -40,7 +42,7 @@ from optiland_torch.ops import fast_trace as ftr
 from optiland_torch.ops import fused_trace as ft
 from optiland_torch.ops import huygens as hu
 from optiland_torch.optic import Optic
-from optiland_torch.samples import CookeTriplet
+from optiland_torch.samples import CookeTriplet, perturbed
 
 H = (0.0, 0.7)
 WL = 0.55
@@ -54,6 +56,12 @@ def cuda_device():
     config.set_precision("float64")
     yield torch.device("cuda")
     config.set_device("cpu")
+
+
+def _only(launches, **counts):
+    """The launch counts ``launches`` must equal: ``counts``, 0 elsewhere
+    (every kernel, its TILT instantiation ("_tilt") included)."""
+    return {**dict.fromkeys(launches, 0), **counts}
 
 
 def _mirror_system():
@@ -164,7 +172,7 @@ def test_entry_point_launches_both_kernels(cuda_device):
     loss = ft.spot_rms_fast_field(s2, *H, WL, num_rays=100000, seed=2)
     loss.backward()
     torch.cuda.synchronize()
-    assert ft.LAUNCHES == {"prng_disk": 0, "merit_fwd": 1, "merit_bwd": 1}
+    assert ft.LAUNCHES == _only(ft.LAUNCHES, merit_fwd=1, merit_bwd=1)
     assert torch.isfinite(leaves["radius"].grad[1:-1]).all()
 
 
@@ -295,16 +303,15 @@ def test_trace_entry_points_launch_their_kernels(cuda_device):
     out = ftr.trace_fast(s2, rays, WL)
     (out.x.square().mean() + out.opd.mean() + out.i.mean()).backward()
     torch.cuda.synchronize()
-    assert ftr.LAUNCHES == {"trace_fwd": 1, "trace_bwd": 1,
-                            "trace_field_fwd": 0, "trace_field_bwd": 0}
+    assert ftr.LAUNCHES == _only(ftr.LAUNCHES, trace_fwd=1, trace_bwd=1)
     assert torch.isfinite(leaves["radius"].grad[1:-1]).all()
     s2, leaves = _leaf_system(system)
     ftr.reset_launch_counts()
     out = ftr.trace_fast_field(s2, *H, Px, Py, WL)
     (out.y.square().mean() + out.opd.mean()).backward()
     torch.cuda.synchronize()
-    assert ftr.LAUNCHES == {"trace_fwd": 0, "trace_bwd": 0,
-                            "trace_field_fwd": 1, "trace_field_bwd": 1}
+    assert ftr.LAUNCHES == _only(ftr.LAUNCHES, trace_field_fwd=1,
+                                 trace_field_bwd=1)
     assert torch.isfinite(leaves["radius"].grad[1:-1]).all()
     # the reference trace dispatches to K5a without a history, never with
     ftr.reset_launch_counts()
@@ -336,38 +343,76 @@ def test_trace_wrappers_raise_instead_of_falling_back(cuda_device):
     bad = ((0, 2) + spec[0][2:],) + spec[1:]
     with pytest.raises(NotImplementedError):
         ftr.trace_field_bwd(params, aim, bad, 1, Px, Py, cots)
+    # a tilted system runs the kernels and agrees with their plain versions
     tilted = system.replace(stack=system.stack.replace(
         rx=system.stack.rx + torch.tensor([0, 0, 0.01, 0, 0, 0, 0, 0.0],
                                           device=cuda_device)))
     rays = raygen.generate_rays(tilted, *H, Px, Py, WL)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        ftr.trace_fast(tilted, rays, WL)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        ftr.trace_fast_field(tilted, *H, Px, Py, WL)
+    ftr.reset_launch_counts()
+    fast = ftr.trace_fast(tilted, rays, WL)
+    field = ftr.trace_fast_field(tilted, *H, Px, Py, WL)
+    assert ftr.LAUNCHES == _only(ftr.LAUNCHES, trace_fwd_tilt=1,
+                                 trace_field_fwd_tilt=1)
+    spec = ftr.fast_spec(tilted, field=True)
+    assert spec[3][2]
+    with torch.no_grad():
+        p_t = ft.build_param_table(tilted, WL)
+        a_t = ft.aim_vector(tilted, *H)
+    ins_t = [getattr(rays, k).contiguous() for k in ftr.RAY_FIELDS]
+    _close([getattr(fast, k) for k in ftr.RAY_FIELDS],
+           ftr.trace_fast_plain(p_t, spec, ins_t), 1e-10, "tilted trace_fast")
+    _close([getattr(field, k) for k in ftr.RAY_FIELDS],
+           ftr.trace_fast_field_plain(p_t, a_t, spec, Px, Py), 1e-10,
+           "tilted trace_fast_field")
+
+
+def _deep_system():
+    """18 surfaces: object, eight thin plates (16 surfaces), image; more
+    than the kernels' MAX_SURF."""
+    lens = Optic()
+    lens.surfaces.add(index=0, radius=float("inf"), thickness=float("inf"))
+    for k in range(8):
+        lens.surfaces.add(radius=float("inf"), thickness=1.0,
+                          material="N-BK7", is_stop=k == 0)
+        lens.surfaces.add(radius=-200.0 * (k + 1), thickness=2.0)
+    lens.surfaces.add()
+    lens.set_aperture(aperture_type="EPD", value=10)
+    lens.fields.set_type(field_type="angle")
+    lens.fields.add(y=0)
+    lens.fields.add(y=1)
+    lens.wavelengths.add(value=0.55, is_primary=True)
+    return lens.system
 
 
 @pytest.mark.cuda
 def test_trace_raises_where_the_kernels_do_not_cover_yet(cuda_device):
-    # the JAX package's kernels take tilts (K6, a later slice here): without
-    # a history a tilted system raises on the card instead of running the
-    # plain engine there; with a history the plain engine traces it
-    system = CookeTriplet().system
-    rx = torch.zeros(system.cfg.num_surfaces, dtype=torch.float64,
-                     device=cuda_device)
-    rx[2] = 0.01
-    tilted = system.replace(
-        stack=system.stack.replace(rx=system.stack.rx + rx),
-        cfg=dataclasses.replace(system.cfg, has_tilts=True))
+    # the JAX package's kernels take systems of more than 16 surfaces (the
+    # port's take at most MAX_SURF): without a history such a system raises
+    # on the card instead of running the plain engine there; with a history
+    # the plain engine traces it. A tilted system runs the kernels.
+    system = _deep_system()
+    assert system.cfg.num_surfaces == 18
     Px, Py = ft.prng_disk(3, 1000, 0, torch.float64, cuda_device)
-    rays = raygen.generate_rays(tilted, *H, Px, Py, WL)
+    rays = raygen.generate_rays(system, *H, Px, Py, WL)
     ftr.reset_launch_counts()
-    with pytest.raises(NotImplementedError, match="K6"):
-        trace_core.trace(tilted, rays, record=False, wavelength=WL)
-    with pytest.raises(NotImplementedError, match="K6"):
-        spot.rms_spot_size(tilted, *H, Px, Py, WL)
-    final, hist = trace_core.trace(tilted, rays, record=True, wavelength=WL)
+    with pytest.raises(NotImplementedError, match="at most 16"):
+        trace_core.trace(system, rays, record=False, wavelength=WL)
+    with pytest.raises(NotImplementedError, match="at most 16"):
+        spot.rms_spot_size(system, *H, Px, Py, WL)
+    final, hist = trace_core.trace(system, rays, record=True, wavelength=WL)
     assert hist is not None and torch.isfinite(final.x).all()
     assert sum(ftr.LAUNCHES.values()) == 0
+    tilted = perturbed.toleranced_cooke().system
+    rays = raygen.generate_rays(tilted, *H, Px, Py, WL)
+    fast, _ = trace_core.trace(tilted, rays, record=False, wavelength=WL)
+    ref, _ = trace_core.trace(tilted, rays, record=True, wavelength=WL)
+    assert ftr.LAUNCHES == _only(ftr.LAUNCHES, trace_fwd_tilt=1)
+    for k in ("x", "y", "L", "M", "opd", "i"):
+        torch.testing.assert_close(getattr(fast, k), getattr(ref, k),
+                                   rtol=1e-9, atol=1e-9)
+    v = spot.rms_spot_size(tilted, *H, Px, Py, WL)
+    assert torch.isfinite(v)
+    assert ftr.LAUNCHES == _only(ftr.LAUNCHES, trace_fwd_tilt=2)
 
 
 # ---------------------------------------------------------------------------
@@ -461,8 +506,7 @@ def test_huygens_psf_launches_its_kernels(cuda_device):
     # working F-number traces at (0, 0.7), chief ray and pupil on axis
     assert hu.LAUNCHES == {"huygens_fwd": 2, "huygens_bwd_img": 0,
                            "huygens_bwd_pup": 0}
-    assert ftr.LAUNCHES == {"trace_fwd": 6, "trace_bwd": 0,
-                            "trace_field_fwd": 0, "trace_field_bwd": 0}
+    assert ftr.LAUNCHES == _only(ftr.LAUNCHES, trace_fwd=6)
     system = CookeTriplet().system
     s2, leaves = _leaf_system(system)
     hu.reset_launch_counts()
@@ -472,8 +516,7 @@ def test_huygens_psf_launches_its_kernels(cuda_device):
     torch.cuda.synchronize()
     assert hu.LAUNCHES == {"huygens_fwd": 2, "huygens_bwd_img": 2,
                            "huygens_bwd_pup": 2}
-    assert ftr.LAUNCHES == {"trace_fwd": 6, "trace_bwd": 6,
-                            "trace_field_fwd": 0, "trace_field_bwd": 0}
+    assert ftr.LAUNCHES == _only(ftr.LAUNCHES, trace_fwd=6, trace_bwd=6)
     assert torch.isfinite(leaves["radius"].grad[1:-1]).all()
     # the same PSF on the CPU (plain sum and plain trace)
     config.set_device("cpu")
@@ -609,15 +652,15 @@ def test_pol_trace_dispatch(cuda_device):
     (out.y.square().mean() + (p.real.square() + p.imag.square()).mean()
      ).backward()
     torch.cuda.synchronize()
-    assert pt.LAUNCHES == {"pol_fwd": 1, "pol_bwd": 1, "pol_fwd_intensity": 0,
-                           "pol_bwd_intensity": 0}
+    assert pt.LAUNCHES == _only(pt.LAUNCHES, pol_fwd=1, pol_bwd=1)
     assert sum(ftr.LAUNCHES.values()) == 0
     assert torch.isfinite(leaves["radius"].grad[1:-1]).all()
     # the same rays through the plain engine (with a history)
     rays = raygen.generate_rays(system, *H, Px, Py, WL)
     _, href = trace_core.trace(system, rays, record=True, wavelength=WL)
     torch.testing.assert_close(p.detach(), href["p"], rtol=1e-9, atol=1e-12)
-    # a tilted one raises rather than running the plain engine on the card
+    # a tilted one runs the polarized kernel too, and agrees with the plain
+    # engine
     rx = torch.zeros(system.cfg.num_surfaces, dtype=torch.float64,
                      device=cuda_device)
     rx[1] = 0.01
@@ -625,8 +668,13 @@ def test_pol_trace_dispatch(cuda_device):
         stack=system.stack.replace(rx=system.stack.rx + rx),
         cfg=dataclasses.replace(system.cfg, has_tilts=True))
     trays = raygen.generate_rays(tilted, *H, Px, Py, WL)
-    with pytest.raises(NotImplementedError, match="K6"):
-        trace_core.trace(tilted, trays, record=False, wavelength=WL)
+    pt.reset_launch_counts()
+    out_t, hist_t = trace_core.trace(tilted, trays, record=False,
+                                     wavelength=WL)
+    _, href_t = trace_core.trace(tilted, trays, record=True, wavelength=WL)
+    assert pt.LAUNCHES == _only(pt.LAUNCHES, pol_fwd_tilt=1)
+    torch.testing.assert_close(hist_t["p"], href_t["p"], rtol=1e-9,
+                               atol=1e-12)
     # what the JAX package's kernels would not take either runs the plain
     # engine: an absorbing thin-film stack, an unpolarized coated system
     pt.reset_launch_counts()
@@ -664,8 +712,8 @@ def test_pol_intensity_entry_and_vectorial_psf_launches(cuda_device):
     out = pt.trace_fast_pol_intensity(s2, rays, WL, state=state)
     (out.x * out.i).square().mean().backward()
     torch.cuda.synchronize()
-    assert pt.LAUNCHES == {"pol_fwd": 0, "pol_bwd": 0, "pol_fwd_intensity": 1,
-                           "pol_bwd_intensity": 1}
+    assert pt.LAUNCHES == _only(pt.LAUNCHES, pol_fwd_intensity=1,
+                                pol_bwd_intensity=1)
     with torch.no_grad():
         full, p = pt.trace_fast_pol(system, rays, WL)
         i_ref = polarized_intensity(p, state, rays.L, rays.M, rays.N, rays.i)
@@ -680,5 +728,172 @@ def test_pol_intensity_entry_and_vectorial_psf_launches(cuda_device):
     # pupil, image grid, working F-number)
     assert hu.LAUNCHES == {"huygens_fwd": 6, "huygens_bwd_img": 0,
                            "huygens_bwd_pup": 0}
-    assert pt.LAUNCHES["pol_fwd"] == 4 and pt.LAUNCHES["pol_bwd"] == 0
+    assert pt.LAUNCHES == _only(pt.LAUNCHES, pol_fwd=4)
     assert 0 < psf.strehl_ratio() <= 1.2
+
+
+# ---------------------------------------------------------------------------
+# The polychromatic mode of K5a/K5b and the tilt branch of every kernel
+# ---------------------------------------------------------------------------
+
+
+def _poly_system(kind, device):
+    system = CookeTriplet().system
+    if kind == "zoo":
+        system = perturbed.zoo_system(system)
+    elif kind == "tilted":
+        system = perturbed.toleranced_cooke().system
+    return system
+
+
+def _poly_inputs(system, R, seed, device):
+    Px, Py = ft.prng_disk_plain(seed, R, 0, torch.float64, device)
+    ins, cots = _bundle(system, Px, Py, seed)
+    w = torch.tensor((0.48, 0.55, 0.65), dtype=torch.float64,
+                     device=device).repeat(-(-R // 3))[:R]
+    with torch.no_grad():
+        params = ftr.build_poly_table(system).contiguous()
+    mats = system.stack.mat_coeffs.detach().contiguous()
+    return params, mats, ins + [w], cots
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["cooke", "zoo", "tilted"])
+def test_poly_kernels_match_plain_f64(cuda_device, kind):
+    system = _poly_system(kind, cuda_device)
+    spec = ftr.poly_spec(system)
+    R, nc = 50001, system.stack.coeffs.shape[1]
+    params, mats, ins, cots = _poly_inputs(system, R, 4, cuda_device)
+    _close(ftr.trace_fwd_poly(params, mats, spec, ins),
+           ftr.trace_fwd_poly_plain(params, mats, spec, ins), 1e-10,
+           "trace_fwd_poly")
+    din, flat = ftr.trace_bwd_poly(params, mats, spec, nc, ins, cots)
+    din_p, flat_p = ftr.trace_bwd_poly_plain(params, mats, spec, nc, ins,
+                                             cots)
+    _close(din, din_p, 1e-10, "trace_bwd_poly input cotangent")
+    fin = torch.isfinite(flat_p)
+    assert torch.equal(fin, torch.isfinite(flat))
+    torch.testing.assert_close(flat[fin], flat_p[fin], rtol=1e-9,
+                               atol=1e-12 * float(flat_p[fin].abs().max()))
+    # every coefficient column of every refracting surface's row
+    dm = flat_p[-mats.numel():].reshape(mats.shape)
+    assert (dm[1] != 0).sum() > 1
+
+
+@pytest.mark.cuda
+def test_poly_kernels_f32_match_f64(cuda_device):
+    system = _poly_system("cooke", cuda_device)
+    spec = ftr.poly_spec(system)
+    R, nc = 50001, system.stack.coeffs.shape[1]
+    params, mats, ins, cots = _poly_inputs(system, R, 5, cuda_device)
+    ins32, cots32 = [t.float() for t in ins], [t.float() for t in cots]
+    _near(ftr.trace_fwd_poly(params.float(), mats.float(), spec, ins32),
+          ftr.trace_fwd_poly_plain(params, mats, spec, ins),
+          "trace_fwd_poly")
+    din, flat = ftr.trace_bwd_poly(params.float(), mats.float(), spec, nc,
+                                   ins32, cots32)
+    din_p, flat_p = ftr.trace_bwd_poly_plain(params, mats, spec, nc, ins,
+                                             cots)
+    _near(din[:6], din_p[:6], "trace_bwd_poly input cotangent")
+    fin = torch.isfinite(flat_p)
+    assert float(torch.linalg.vector_norm(flat[fin].double() - flat_p[fin])
+                 / torch.linalg.vector_norm(flat_p[fin])) <= 1e-3
+
+
+@pytest.mark.cuda
+def test_poly_entry_point_launches_its_kernels(cuda_device):
+    system = CookeTriplet().system
+    R = 3000
+    Px, Py = ft.prng_disk(6, R, 0, torch.float64, cuda_device)
+    w = torch.tensor((0.48, 0.55, 0.65), dtype=torch.float64,
+                     device=cuda_device).repeat(R // 3)
+    s2, leaves = _leaf_system(system)
+    ftr.reset_launch_counts()
+    rays = raygen.generate_rays(s2, *H, Px, Py, w)
+    out = ftr.trace_fast_poly(s2, rays)
+    ((out.x - out.x.mean()) ** 2 + (out.y - out.y.mean()) ** 2).mean(
+        ).backward()
+    torch.cuda.synchronize()
+    assert ftr.LAUNCHES == _only(ftr.LAUNCHES, trace_fwd_poly=1,
+                                 trace_bwd_poly=1)
+    assert torch.equal(out.w, w)
+    # the lens media's rows (the object and image rows reach the paraxial
+    # aim, where the reference's own gradient is not finite)
+    g = leaves["mat_coeffs"].grad[1:-1]
+    assert torch.isfinite(g).all() and (g != 0).any()
+    assert torch.isfinite(leaves["radius"].grad[1:-1]).all()
+
+
+@pytest.mark.cuda
+def test_tilted_kernels_match_plain_f64(cuda_device):
+    """K1-K5 on the toleranced Cooke triplet, K8/K9 (both modes) on the
+    tilted singlet, against their plain versions."""
+    from optiland_torch.ops import pol_trace as pt
+    from optiland_torch.polarization import create_polarization
+
+    system = perturbed.toleranced_cooke().system
+    spec = ftr.fast_spec(system, field=True)
+    assert spec[3] == (False,) + (True,) * 6 + (False,)
+    R, nc = 50001, system.stack.coeffs.shape[1]
+    with torch.no_grad():
+        params = ft.build_param_table(system, WL).contiguous()
+        aim = ft.aim_vector(system, *H).contiguous()
+    Px, Py = ft.prng_disk_plain(9, R, 0, torch.float64, cuda_device)
+    ins, cots = _bundle(system, Px, Py, 7)
+    _close(ftr.trace_fwd(params, spec, ins),
+           ftr.trace_fast_plain(params, spec, ins), 1e-10, "trace_fwd")
+    din, flat = ftr.trace_bwd(params, spec, nc, ins, cots)
+    din_p, flat_p = ftr.trace_fast_bwd_plain(params, spec, nc, ins, cots)
+    _close(din, din_p, 1e-10, "trace_bwd input cotangent")
+    torch.testing.assert_close(flat, flat_p, rtol=1e-9,
+                               atol=1e-12 * float(flat_p.abs().max()))
+    _close(ftr.trace_field_fwd(params, aim, spec, Px, Py),
+           ftr.trace_fast_field_plain(params, aim, spec, Px, Py), 1e-10,
+           "trace_field_fwd")
+    flat = ftr.trace_field_bwd(params, aim, spec, nc, Px, Py, cots)
+    flat_p = ftr.trace_fast_field_bwd_plain(params, aim, spec, nc, Px, Py,
+                                            cots)
+    torch.testing.assert_close(flat, flat_p, rtol=1e-9,
+                               atol=1e-12 * float(flat_p.abs().max()))
+    mspec = ft._spec_of(system)
+    rows = ft.merit_fwd(params, aim, mspec, R, Px=Px, Py=Py)
+    rows_p = ft.merit_fwd_plain(params, aim, mspec, R, Px=Px, Py=Py)
+    loss, xb, yb = ft._chan_combine(rows, R)
+    assert float(loss) == pytest.approx(float(ft._chan_combine(rows_p, R)[0]),
+                                        rel=1e-12)
+    stats = torch.stack([xb, yb, torch.tensor(1.0 / R, device=cuda_device,
+                                              dtype=torch.float64),
+                         torch.zeros((), device=cuda_device,
+                                     dtype=torch.float64)])
+    flat = ft.merit_bwd(params, aim, stats, mspec, nc, R, Px=Px, Py=Py)
+    flat_p = ft.merit_bwd_plain(params, aim, stats, mspec, nc, R, Px=Px,
+                                Py=Py)
+    torch.testing.assert_close(flat, flat_p, rtol=1e-9,
+                               atol=1e-12 * float(flat_p.abs().max()))
+    # the polarized kernels on the tilted singlet
+    singlet = perturbed.tilted_singlet().system
+    pspec = pt.pol_spec(singlet, WL)
+    assert pspec[5][1]
+    with torch.no_grad():
+        pp = ft.build_param_table(singlet, WL).contiguous()
+    coat = pt.build_coat_table(singlet, WL, torch.float64, cuda_device)
+    ins, _ = _bundle(singlet, Px, Py, 8)
+    g = torch.Generator().manual_seed(8)
+    cots = [torch.randn(R, generator=g, dtype=torch.float64).to(cuda_device)
+            for _ in range(pt.N_POL)]
+    states = pt.pol_states(create_polarization("H"))
+    S, nc = len(pspec[0]), singlet.stack.coeffs.shape[1]
+    for intensity in (False, True):
+        c = cots[:8] if intensity else cots
+        st = states if intensity else None
+        _close(pt.pol_fwd(pp, coat, pspec, ins, st, intensity),
+               pt.pol_fwd_plain(pp, coat, pspec, ins, st, intensity), 1e-10,
+               f"pol_fwd intensity={intensity}")
+        din, flat = pt.pol_bwd(pp, coat, pspec, nc, ins, c, st, intensity)
+        din_p, flat_p = pt.pol_bwd_plain(pp, coat, pspec, ins, c, st,
+                                         intensity)
+        flat_p = torch.cat([flat_p[: S * ft.NUM_P], pp.new_zeros(S * nc),
+                            flat_p[S * ft.NUM_P:]])
+        _close(din, din_p, 1e-10, f"pol_bwd din intensity={intensity}")
+        torch.testing.assert_close(flat, flat_p, rtol=1e-9,
+                                   atol=1e-12 * float(flat_p.abs().max()))

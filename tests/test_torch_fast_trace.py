@@ -261,7 +261,8 @@ def test_absorption_mask_follows_the_k_values():
     tables are not differentiated; every surface when they are. The other
     leaves' gradients do not depend on it."""
     system = build("cooke", "torch")
-    codes, refl, absorbs = ftr.fast_spec(system)
+    codes, refl, absorbs, tilted = ftr.fast_spec(system)
+    assert tilted == (False,) * 8
     jmask = jpt._absorption_mask(build("cooke", "jax"))
     assert absorbs == tuple(jmask) == (False, False, True, False, True,
                                        False, True, False)
@@ -292,14 +293,15 @@ def test_spec_and_support():
         rx=system.stack.rx + torch.tensor([0, 0, 0.01, 0, 0, 0, 0, 0.0])))
     nan_tilt = system.replace(stack=system.stack.replace(
         rz=system.stack.rz + torch.tensor([0, float("nan")] + [0.0] * 6)))
-    for bad in (tilted, nan_tilt):
-        assert ftr.fast_spec(bad) is None
+    # tilted surfaces are flagged (a nonzero or non-finite angle) and traced
+    assert ftr.fast_spec(tilted)[3] == (False, False, True) + (False,) * 5
+    assert ftr.fast_spec(nan_tilt)[3] == (False, True) + (False,) * 6
     Px = torch.zeros(4, dtype=torch.float64)
     rays = traygen.generate_rays(system, *H, Px, Px, WL)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        ftr.trace_fast(tilted, rays, WL)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        ftr.trace_fast_field(tilted, *H, Px, Px, WL)
+    ref, _ = ttrace.trace(tilted.replace(cfg=dataclasses.replace(
+        tilted.cfg, has_tilts=True)), rays, record=False)
+    assert_rays(ftr.trace_fast(tilted, rays, WL), ref)
+    assert ftr.fast_supported(tilted, True)
     lens = TOptic()
     lens.surfaces.add(index=0, radius=np.inf, thickness=80.0)
     lens.surfaces.add(index=1, radius=35.0, thickness=6.0, material="N-BK7",
@@ -312,6 +314,8 @@ def test_spec_and_support():
     lens.wavelengths.add(0.55, is_primary=True)
     finite = lens.system
     assert ftr.fast_supported(finite) and not ftr.fast_supported(finite, True)
+    with pytest.raises(NotImplementedError, match="later slice"):
+        ftr.trace_fast_field(finite, *H, Px, Px, WL)
 
 
 # ---------------------------------------------------------------------------
@@ -428,8 +432,10 @@ def test_cpu_wrappers_run_the_plain_versions():
     assert all(torch.equal(a, b) for a, b in
                zip(ftr.trace_fwd(params, spec, out),
                    ftr.trace_fast_plain(params, spec, out)))
-    assert ftr.LAUNCHES == {"trace_fwd": 0, "trace_bwd": 0,
-                            "trace_field_fwd": 0, "trace_field_bwd": 0}
+    assert ftr.LAUNCHES == {
+        k: 0 for n in ("trace_fwd", "trace_bwd", "trace_field_fwd",
+                       "trace_field_bwd", "trace_fwd_poly", "trace_bwd_poly")
+        for k in (n, n + "_tilt")}
     with pytest.raises(ValueError, match="'cuda' or 'cpu'"):
         ftr.trace_fwd(params.to("meta"), spec, out)
 

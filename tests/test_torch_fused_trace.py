@@ -177,18 +177,28 @@ def test_chan_combine_matches_jax():
 
 def test_spec_and_support():
     system = TorchCooke().system
-    assert ft._spec_of(system) == ((0, 1, 1, 1, 1, 1, 1, 0), (False,) * 8)
+    assert ft._spec_of(system) == ((0, 1, 1, 1, 1, 1, 1, 0), (False,) * 8,
+                                   (False,) * 8)
     assert ft._tilt_mask(system) == [False] * 8
     assert ft.fused_supported(system)
+    # tilted surfaces are flagged and covered (a nonzero or non-finite angle)
     tilted = system.replace(stack=system.stack.replace(
         rx=system.stack.rx + torch.tensor([0, 0, 0.01, 0, 0, 0, 0, 0.0])))
     assert ft._tilt_mask(tilted) == [False, False, True] + [False] * 5
-    assert not ft.fused_supported(tilted)
+    assert ft._spec_of(tilted)[2] == (False, False, True) + (False,) * 5
+    assert ft.fused_supported(tilted)
     nan_tilt = system.replace(stack=system.stack.replace(
         rz=system.stack.rz + torch.tensor([0, float("nan")] + [0.0] * 6)))
-    assert not ft.fused_supported(nan_tilt)
+    assert ft._spec_of(nan_tilt)[2] == (False, True) + (False,) * 6
+    assert ft.fused_supported(nan_tilt)
+    assert torch.isfinite(ft.spot_rms_fast_field(tilted, *H, WL,
+                                                 num_rays=64))
+    # a finite object is no angle field: the merit kernels do not take it
+    finite = system.replace(cfg=dataclasses.replace(system.cfg,
+                                                    obj_infinite=False))
+    assert not ft.fused_supported(finite)
     with pytest.raises(NotImplementedError, match="later slice"):
-        ft.spot_rms_fast_field(tilted, *H, WL, num_rays=64)
+        ft.spot_rms_fast_field(finite, *H, WL, num_rays=64)
     for tile in (48, 16, 256):
         with pytest.raises(ValueError, match="bwd_tile"):
             ft.spot_rms_fast_field(system, *H, WL, num_rays=64, bwd_tile=tile)
@@ -353,6 +363,8 @@ def test_cpu_wrappers_run_the_plain_versions():
     px, py = ft.prng_disk(1, 300, 0, torch.float64, "cpu")
     assert torch.equal(px, ft.prng_disk_plain(1, 300, 0, torch.float64,
                                               "cpu")[0])
-    assert ft.LAUNCHES == {"prng_disk": 0, "merit_fwd": 0, "merit_bwd": 0}
+    assert ft.LAUNCHES == {"prng_disk": 0, "merit_fwd": 0,
+                           "merit_fwd_tilt": 0, "merit_bwd": 0,
+                           "merit_bwd_tilt": 0}
     with pytest.raises(TypeError, match="float32 or float64"):
         ft.prng_disk(1, 10, 0, torch.float16, "cpu")

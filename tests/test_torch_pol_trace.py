@@ -343,8 +343,16 @@ def test_support_and_errors():
     # the plain engine traces it
     out, hist = ttrace.trace(absorbing, rays, record=False)
     assert torch.isfinite(hist["p"]).all()
+    # a tilted system runs on the kernels' plain versions, and agrees with
+    # the plain engine
     rx = torch.zeros(4, dtype=torch.float64)
     rx[1] = 0.01
     tilted = fresnel.replace(stack=fresnel.stack.replace(rx=rx))
-    with pytest.raises(NotImplementedError, match="K6"):
-        pt.trace_fast_pol(tilted, rays, WL)
+    assert pt.pol_spec(tilted, WL)[5] == (False, True, False, False)
+    frays = raygen.generate_rays(fresnel, 0.0, 0.5, torch.zeros(3),
+                                 torch.zeros(3), WL)
+    out, p = pt.trace_fast_pol(tilted, frays, WL)
+    ref, hist = ttrace.trace(tilted.replace(cfg=dataclasses.replace(
+        tilted.cfg, has_tilts=True)), frays, record=False)
+    torch.testing.assert_close(out.y, ref.y, rtol=1e-10, atol=1e-12)
+    torch.testing.assert_close(p, hist["p"], rtol=1e-10, atol=1e-12)

@@ -307,9 +307,19 @@ def test_dispersion_formulas_match_jax(code):
     np.testing.assert_allclose(b, a, rtol=1e-14)
 
 
-def test_scalar_term_dispersion_waits_for_its_slice():
-    with pytest.raises(NotImplementedError, match="later slice"):
-        t_disp.n_formula_scalar_terms(2, [1.0], torch.tensor(0.5))
+@pytest.mark.parametrize("code", sorted(_FORMULA_CASES))
+def test_scalar_term_dispersion_matches_jax(code):
+    """The per-term form the polychromatic kernels evaluate, on scalar
+    coefficients as the kernels read them, against the JAX package's."""
+    c = t_disp.pad_coefficients(_FORMULA_CASES[code])
+    w = np.array([0.45, 0.55, 0.7, 1.2])
+    a = np.asarray(j_disp.n_formula_scalar_terms(
+        code, [float(v) for v in c], jnp.asarray(w)))
+    b = t_disp.n_formula_scalar_terms(
+        code, torch.tensor(c).unbind(), torch.tensor(w)).numpy()
+    np.testing.assert_allclose(b, a, rtol=1e-14)
+    with pytest.raises(NotImplementedError, match="scalar-term"):
+        t_disp.n_formula_scalar_terms(t_disp.TABULATED_N, c, torch.tensor(w))
 
 
 def test_unported_surface_types_raise():

@@ -18,7 +18,7 @@ from optiland_torch.samples import polarized
 KINDS = polarized.KINDS
 
 
-def _classes(package):
+def classes(package):
     """The port's classes (None: the samples' default) or the JAX
     package's, for the samples' builders."""
     if package == "torch":
@@ -32,18 +32,18 @@ def _classes(package):
 def tmm_coating(package, n_layers=2, substrate=1.52, absorbing=False):
     """``samples.polarized.ar_coating`` in ``package``."""
     return polarized.ar_coating(n_layers, substrate, absorbing,
-                                classes=_classes(package))
+                                classes=classes(package))
 
 
 def pol_doublet(package, pol="H", coat="fresnel", coat2=None, epd=20.0):
     """``samples.polarized.coated_doublet`` in ``package``."""
     return polarized.coated_doublet(pol, coat, coat2, epd,
-                                    classes=_classes(package))
+                                    classes=classes(package))
 
 
 def build(kind, package, pol="H"):
     """The optic of one coat kind (``KINDS``) in ``package``."""
-    return polarized.polarized_system(kind, pol, classes=_classes(package))
+    return polarized.polarized_system(kind, pol, classes=classes(package))
 
 
 def pupil(n, seed, r_max=0.95):
