@@ -228,8 +228,9 @@ def n_all(stack: SurfaceStack, cfg: SystemConfig, w) -> torch.Tensor:
     ])
 
 
-# Config entries that hold per-surface objects the port does not model yet.
-_OBJECT_FIELDS = ("geom_aux", "apertures", "interactions", "bsdfs")
+# Config entries that hold per-surface objects the port does not model yet
+# (apertures: all but RadialAperture, checked apart).
+_OBJECT_FIELDS = ("geom_aux", "interactions", "bsdfs")
 
 
 def system_from_numpy(arrays: dict, cfg_fields: dict) -> System:
@@ -239,15 +240,31 @@ def system_from_numpy(arrays: dict, cfg_fields: dict) -> System:
     names (aperture_value, field_x, field_y, vig_x, vig_y, wavelengths) to
     numpy arrays; ``cfg_fields`` maps ``SystemConfig`` field names to their
     values. Coatings come as records (``coatings.coating_from_record``: the
-    kind and its numbers), one per surface or None, and ``polarized`` as a
-    bool. The tensors take the configured dtype and device. Raises
+    kind and its numbers), one per surface or None, and so do apertures
+    (``BaseAperture.to_dict`` of a ``RadialAperture``), and ``polarized``
+    as a bool. The tensors take the configured dtype and device. Raises
     ``NotImplementedError`` for the per-surface config objects the port does
-    not carry yet (apertures, BSDFs, interactions, geometry extras) and for
-    a coating record of a kind it does not have.
+    not carry yet (other apertures, BSDFs, interactions, geometry extras)
+    and for a coating record of a kind it does not have.
     """
     from optiland_torch.coatings import coating_from_record
+    from optiland_torch.physical_apertures import RadialAperture
 
     cfg_fields = dict(cfg_fields)
+    aps = cfg_fields.get("apertures")
+    if aps is not None:
+        if not all(a is None or (isinstance(a, dict)
+                                 and a.get("type") == "RadialAperture")
+                   for a in aps):
+            raise NotImplementedError(
+                f"system_from_numpy: config entry 'apertures' holds {aps!r}; "
+                "only None entries and RadialAperture records are carried "
+                "so far"
+            )
+        cfg_fields["apertures"] = tuple(
+            None if a is None else RadialAperture(float(a["r_max"]),
+                                                  float(a["r_min"]))
+            for a in aps)
     for name in _OBJECT_FIELDS:
         vals = cfg_fields.get(name)
         if vals is not None and any(v is not None for v in vals):

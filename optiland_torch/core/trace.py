@@ -18,16 +18,20 @@ history is asked for and the wavelength is a concrete number, as the JAX
 package sends it to its Pallas kernels on the TPU: a polarized system to
 ``ops/pol_trace.trace_fast_pol``, an unpolarized uncoated one to
 ``ops/fast_trace.trace_fast``. A system the JAX package's kernels would
-take but the port's do not cover yet (more than 16 surfaces) raises there
-instead of running this engine on the card; tilted surfaces run on the
-kernels, as in the JAX package. A polarized or coated
+take but the port's do not cover yet (a coefficient table wider than the
+kernels' NC_MAX, or more than their MAX_SURF surfaces) raises there
+instead of running this engine on the card; tilted surfaces, the radial
+aspheres and annular apertures run on the kernels, as in the JAX package.
+A polarized or coated
 system that the JAX package's kernels would not take either (a coating
 that is not kernel-eligible at the trace wavelength, an unpolarized system
 with coatings) runs this engine, as the JAX package runs its XLA path.
-The port covers PLANE and STANDARD surfaces; aperture objects,
-interactions (thin lens, phase, grating) and BSDFs come in later slices and
-raise, and the scan engine (``trace_scan``) waits for ROADMAP Queue 1 item
-8.
+The port covers PLANE, STANDARD, EVEN_ASPHERE and ODD_ASPHERE surfaces
+(the aspheres by Newton's method, ``geometry.NEWTON_ITERS`` steps, as the
+JAX package's XLA path) and ``RadialAperture`` objects, whose clip
+replaces the circular one; the other aperture objects, interactions (thin
+lens, phase, grating) and BSDFs come in later slices and raise, and the
+scan engine (``trace_scan``) waits for ROADMAP Queue 1 item 8.
 """
 
 from __future__ import annotations
@@ -39,15 +43,21 @@ from optiland_torch.core import geometry as geom
 from optiland_torch.core.rays import RealRays
 from optiland_torch.core.system import System, k_of, n_of, positions
 from optiland_torch.ops import kernels
+from optiland_torch.physical_apertures import radial_only
 from optiland_torch.polarization import complex_dtype, update_p
 
 HISTORY_FIELDS = ("x", "y", "z", "L", "M", "N", "intensity", "opd")
 
 
 def _check_structure(cfg):
-    """Raise for the per-surface objects that later slices port."""
+    """Raise for the per-surface objects that later slices port: every
+    aperture object but a ``RadialAperture`` (exactly that type), every
+    interaction and BSDF."""
+    if not radial_only(cfg.apertures):
+        raise NotImplementedError(
+            "physical aperture objects other than RadialAperture are ported "
+            "in a later slice")
     for name, what in (
-        ("apertures", "physical aperture objects"),
         ("interactions", "surface interactions (thin lens, phase, grating)"),
         ("bsdfs", "BSDF scattering"),
     ):
@@ -61,6 +71,7 @@ def _surface_step(stack, cfg, s, pos_s, state):
     x, y, z, L, M, N, inten, opd, w, n_pre, p = state
     radius = stack.radius[s]
     conic = stack.conic[s]
+    coeffs = stack.coeffs[s]
     code = cfg.geom_codes[s]
 
     # Localize (dz is the flattened z-decenter on top of the vertex)
@@ -73,7 +84,8 @@ def _surface_step(stack, cfg, s, pos_s, state):
         y, z, M, N = kernels.rotate_x(y, z, M, N, -stack.rx[s])
 
     # Intersect + propagate
-    t = geom.distance_static(code, radius, conic, x, y, z, L, M, N)
+    t = geom.distance_static(code, radius, conic, x, y, z, L, M, N,
+                             coeffs=coeffs)
     x = x + t * L
     y = y + t * M
     z = z + t * N
@@ -86,12 +98,17 @@ def _surface_step(stack, cfg, s, pos_s, state):
     # OPD accumulation
     opd = opd + torch.abs(t * n_pre)
 
-    # Physical aperture clip (local frame)
-    ap = stack.ap_max[s]
-    inten = torch.where(x**2 + y**2 > ap**2, 0.0, inten)
+    # Physical aperture clip (local frame): the aperture object's, else
+    # the circular semi-aperture
+    ap_obj = cfg.apertures[s] if cfg.apertures is not None else None
+    if ap_obj is not None:
+        inten = ap_obj.clip(inten, x, y)
+    else:
+        ap = stack.ap_max[s]
+        inten = torch.where(x**2 + y**2 > ap**2, 0.0, inten)
 
     # Normal + interaction
-    nx, ny, nz = geom.surface_normal_static(code, radius, conic, None, x, y)
+    nx, ny, nz = geom.surface_normal_static(code, radius, conic, coeffs, x, y)
     L0, M0, N0 = L, M, N  # pre-interaction directions
     if cfg.reflective[s]:
         L, M, N = kernels.reflect(L, M, N, nx, ny, nz)
@@ -146,8 +163,8 @@ def trace(system: System, rays: RealRays, record: bool = True, key=None,
             coatings are kernel-eligible at this wavelength,
             ``ops/fast_trace.trace_fast`` for an uncoated unpolarized one),
             with the same semantics, tilted surfaces included. For a
-            system they do not cover yet (more than 16 surfaces) it raises
-            NotImplementedError,
+            system they do not cover yet (past their MAX_SURF surfaces or
+            NC_MAX coefficient columns) it raises NotImplementedError,
             as the JAX package's kernels cover those: it never runs the
             plain engine on the card in their place. With ``record``, on
             the CPU, or for a system the JAX package's kernels would not

@@ -28,8 +28,11 @@
 // (geometry code, reflect, absorb, tilted, formula) in shared memory,
 // uniform across the block so the per-surface branches do not diverge. A
 // formula is ~10 (Sellmeier) to ~60 (a pow per term) operations per ray
-// and surface, and its coefficient gradients as many per coefficient. The adjoints keep
-// each ray's per-surface input state in a local array bounded by MAX_SURF,
+// and surface, and its coefficient gradients as many per coefficient; an
+// asphere is newton_iters + 1 sag evaluations forward (~25 + 4 nc
+// operations each) and two more with second derivatives in the adjoint. The
+// adjoints keep each ray's per-surface input state in a local array bounded
+// by the build's capacity (16 surfaces, 64 in the deep build),
 // sum each surface's gradient columns with warp shuffles into per-warp
 // shared rows over a grid-stride loop, write one partial row per block, and
 // a second launch sums the rows in a fixed order: no float atomics.
@@ -88,20 +91,25 @@ __device__ __forceinline__ void load_mats(const T* mats, int S, int nm,
 
 // Forward: trace each ray through surfaces 1 .. S-1 and write its 8 arrays.
 // POLY: each index is its surface's formula at the ray's wavelength ``wl``,
-// and nothing absorbs (the JAX package's poly body).
-template <typename T, bool FIELD, bool POLY, bool TILT>
+// and nothing absorbs (the JAX package's poly body). B is the build.
+template <typename T, bool FIELD, bool POLY, int B>
 __global__ void __launch_bounds__(FWD_BLOCK)
 trace_fwd_kernel(const T* __restrict__ params, const T* __restrict__ aim,
                  const T* __restrict__ mats, const int* __restrict__ flags,
-                 int S, int nm, const T* px, const T* py, Rays8<const T*> in,
-                 const T* wl, int64_t R, Rays8<T*> out) {
+                 int S, int nm, const T* __restrict__ cf, int nc, int niters,
+                 const T* px, const T* py, Rays8<const T*> in, const T* wl,
+                 int64_t R, Rays8<T*> out) {
+  using Bd = Build<B>;
+  constexpr int CAP = Bd::CAP;
   constexpr int NF = POLY ? 5 : 4;
-  __shared__ T sp[MAX_SURF * NUM_P];
-  __shared__ T sr[MAX_SURF * N_ROT];
+  __shared__ T sp[CAP * NUM_P];
+  __shared__ T sr[CAP * N_ROT];
   __shared__ T sa[N_AIM];
-  __shared__ T sm[POLY ? MAX_SURF * MAX_NM : 1];
-  __shared__ int sf[NF * MAX_SURF];
+  __shared__ T sm[POLY ? CAP * MAX_NM : 1];
+  __shared__ T scf[Bd::SAG ? CAP * NC_MAX : 1];
+  __shared__ int sf[NF * CAP];
   load_mats<T, POLY>(mats, S, nm, sm);
+  load_coefs<T, Bd::SAG>(cf, S, nc, scf);
   load_tables<T, NF, FIELD>(params, aim, flags, S, sp, sa, sf, sr);
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= R) return;
@@ -117,10 +125,10 @@ trace_fwd_kernel(const T* __restrict__ params, const T* __restrict__ aim,
     T npost = sp[s * NUM_P + P_NPOST];
     if constexpr (POLY)
       npost = refl ? n : n_formula(sf[F_FORMULA * S + s], sm + s * nm, nm, w);
-    n = step_fwd<T, true, TILT>(sf[s], refl, POLY ? 0 : sf[F_ABS * S + s],
-                          sf[F_TILT * S + s], sp + s * NUM_P, sr + s * N_ROT,
-                          n, npost, v[0], v[1], v[2], v[3], v[4], v[5], v[6],
-                          v[7]);
+    n = step_fwd<T, true, Bd::TILT, Bd::SAG>(
+        sf[s], refl, POLY ? 0 : sf[F_ABS * S + s], sf[F_TILT * S + s],
+        sp + s * NUM_P, sr + s * N_ROT, scf + s * nc, nc, niters, n, npost,
+        v[0], v[1], v[2], v[3], v[4], v[5], v[6], v[7]);
   }
 #pragma unroll
   for (int k = 0; k < 8; ++k) out.p[k][i] = v[k];
@@ -129,9 +137,11 @@ trace_fwd_kernel(const T* __restrict__ params, const T* __restrict__ aim,
 // Backward: retrace each ray keeping its per-surface input state, then run
 // the reverse sweep seeded with its 8 output cotangents. One partial row per
 // block over a grid-stride loop of ray chunks, compact layout [s * N_GF + j]
-// for surface s and slot j, then (FIELD) N_AIM aim entries or (POLY) S * nm
-// coefficient entries [S * N_GF + s * nm + j]; the generic mode also writes
-// the 8 per-ray input cotangents.
+// for surface s and slot j, then (SAG) nc coefficient columns for each of
+// the nsag Newton surfaces, then (FIELD) N_AIM aim entries or (POLY) S * nm
+// dispersion coefficient entries [.. + s * nm + j]; the generic mode also
+// writes the 8 per-ray input cotangents. The deep build keeps its per-warp
+// rows in dynamic shared memory.
 //
 // POLY keeps each ray's index before surface s in the slot of its surface
 // state that holds the input intensity in the monochromatic mode (the
@@ -140,38 +150,52 @@ trace_fwd_kernel(const T* __restrict__ params, const T* __restrict__ aim,
 // surface is the next surface's n_pre, or the chain's last index. The index
 // cotangent of surface s goes to its coefficients through dn_dcoef, one
 // warp sum per coefficient the formula reads.
-template <typename T, bool FIELD, bool POLY, bool TILT>
+template <typename T, bool FIELD, bool POLY, int B>
 __global__ void __launch_bounds__(BWD_BLOCK)
 trace_bwd_kernel(const T* __restrict__ params, const T* __restrict__ aim,
                  const T* __restrict__ mats, const int* __restrict__ flags,
-                 int S, int nm, const T* px, const T* py, Rays8<const T*> in,
+                 int S, int nm, const T* __restrict__ cf, int nc, int niters,
+                 int nsag, const T* px, const T* py, Rays8<const T*> in,
                  const T* wl, Rays8<const T*> cot, int64_t R, Rays8<T*> din,
                  T* __restrict__ partial) {
+  using Bd = Build<B>;
+  constexpr int CAP = Bd::CAP;
   constexpr int NF = POLY ? 5 : 4;
   constexpr int NW_MAX = BWD_BLOCK / 32;
-  constexpr int NCOMP_MAX =
-      MAX_SURF * N_GF + (POLY ? MAX_SURF * MAX_NM : N_AIM);
-  __shared__ T sp[MAX_SURF * NUM_P];
-  __shared__ T sr[MAX_SURF * N_ROT];
+  constexpr int NCOMP_MAX = CAP * N_GF + (Bd::SAG ? CAP * NC_MAX : 0) +
+                            (POLY ? CAP * MAX_NM : N_AIM);
+  __shared__ T sp[CAP * NUM_P];
+  __shared__ T sr[CAP * N_ROT];
   __shared__ T sa[N_AIM];
-  __shared__ T sm[POLY ? MAX_SURF * MAX_NM : 1];
-  __shared__ int sf[NF * MAX_SURF];
-  __shared__ T acc[NW_MAX][NCOMP_MAX];
-  __shared__ T npre[MAX_SURF];  // mono: n_pre of surface s (uniform)
+  __shared__ T sm[POLY ? CAP * MAX_NM : 1];
+  __shared__ T scf[Bd::SAG ? CAP * NC_MAX : 1];
+  __shared__ int sf[NF * CAP];
+  __shared__ int ssag[Bd::SAG ? CAP : 1];
+  __shared__ T acc_s[Bd::DEEP ? 1 : NW_MAX * NCOMP_MAX];
+  __shared__ T npre[CAP];  // mono: n_pre of surface s (uniform)
   load_mats<T, POLY>(mats, S, nm, sm);
+  load_coefs<T, Bd::SAG>(cf, S, nc, scf);
   load_tables<T, NF, FIELD>(params, aim, flags, S, sp, sa, sf, sr);
+  const int nsagc = Bd::SAG ? nsag * nc : 0;
   const int ncomp =
-      S * N_GF + (FIELD ? N_AIM : 0) + (POLY ? S * nm : 0);
+      S * N_GF + nsagc + (FIELD ? N_AIM : 0) + (POLY ? S * nm : 0);
   const int nw = blockDim.x >> 5;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int j = threadIdx.x; j < NW_MAX * NCOMP_MAX; j += blockDim.x)
-    (&acc[0][0])[j] = T(0);
-  if (threadIdx.x == 0) fill_npre(sp, sf, S, npre);
+  T* acc = acc_rows<T, Bd::DEEP>(acc_s);
+  const int astride = Bd::DEEP ? ncomp : NCOMP_MAX;
+  const int nacc = Bd::DEEP ? nw * ncomp : NW_MAX * NCOMP_MAX;
+  for (int j = threadIdx.x; j < nacc; j += blockDim.x) acc[j] = T(0);
+  if (threadIdx.x == 0) {
+    fill_npre(sp, sf, S, npre);
+    if constexpr (Bd::SAG) fill_sag(sf, S, ssag);
+  }
   __syncthreads();
+  T* row = acc + warp * astride;
+  const int xbase = S * N_GF + nsagc;  // the aim or dispersion columns
 
   // the input state (x, y, z, L, M, N) of surface s, then its input
   // intensity (mono) or its n_pre (POLY)
-  T st[MAX_SURF][7];
+  T st[CAP][7];
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   for (int64_t base = (int64_t)blockIdx.x * blockDim.x; base < R;
        base += stride) {
@@ -197,10 +221,11 @@ trace_bwd_kernel(const T* __restrict__ params, const T* __restrict__ aim,
         if constexpr (POLY)
           npost =
               refl ? n : n_formula(sf[F_FORMULA * S + s], sm + s * nm, nm, w);
-        n = step_fwd<T, true, TILT>(sf[s], refl, POLY ? 0 : sf[F_ABS * S + s],
-                              sf[F_TILT * S + s], sp + s * NUM_P,
-                              sr + s * N_ROT, POLY ? n : npre[s], npost,
-                              v[0], v[1], v[2], v[3], v[4], v[5], v[6], v[7]);
+        n = step_fwd<T, true, Bd::TILT, Bd::SAG>(
+            sf[s], refl, POLY ? 0 : sf[F_ABS * S + s], sf[F_TILT * S + s],
+            sp + s * NUM_P, sr + s * N_ROT, scf + s * nc, nc, niters,
+            POLY ? n : npre[s], npost, v[0], v[1], v[2], v[3], v[4], v[5],
+            v[6], v[7]);
       }
       n_last = n;
 #pragma unroll
@@ -211,17 +236,18 @@ trace_bwd_kernel(const T* __restrict__ params, const T* __restrict__ aim,
     for (int s = S - 1; s >= 1; --s) {
       const int refl = sf[S + s];
       T gc[N_GF] = {};
+      T gs[5] = {};
       T n_pre = npre[s], npost = sp[s * NUM_P + P_NPOST];
       if constexpr (POLY) {
         n_pre = valid ? st[s][6] : T(1);
         npost = refl ? n_pre : (s + 1 < S && valid ? st[s + 1][6] : n_last);
       }
       if (valid)
-        step_adjoint<T, true, TILT>(sf[s], refl, POLY ? 0 : sf[F_ABS * S + s],
-                              sf[F_TILT * S + s], sp + s * NUM_P,
-                              sr + s * N_ROT, n_pre, npost, st[s][0],
-                              st[s][1], st[s][2], st[s][3], st[s][4],
-                              st[s][5], POLY ? T(0) : st[s][6], g, gc);
+        step_adjoint<T, true, Bd::TILT, Bd::SAG>(
+            sf[s], refl, POLY ? 0 : sf[F_ABS * S + s], sf[F_TILT * S + s],
+            sp + s * NUM_P, sr + s * N_ROT, scf + s * nc, nc, niters, n_pre,
+            npost, st[s][0], st[s][1], st[s][2], st[s][3], st[s][4],
+            st[s][5], POLY ? T(0) : st[s][6], g, gc, gs);
       T g_np = T(0);  // POLY: the cotangent of npost, for the coefficients
       if constexpr (POLY) {
         g_np = gc[3];
@@ -230,8 +256,11 @@ trace_bwd_kernel(const T* __restrict__ params, const T* __restrict__ aim,
 #pragma unroll
       for (int j = 0; j < N_GF; ++j) {
         const T v = warp_sum(gc[j]);
-        if (lane == 0) acc[warp][s * N_GF + j] += v;
+        if (lane == 0) row[s * N_GF + j] += v;
       }
+      if constexpr (Bd::SAG)
+        if (is_newton(sf[s]))
+          add_coef_cols(gs, nc, lane, row, S * N_GF + ssag[s] * nc);
       if constexpr (POLY) {
         if (!refl) {
           const int fc = sf[F_FORMULA * S + s];
@@ -240,7 +269,7 @@ trace_bwd_kernel(const T* __restrict__ params, const T* __restrict__ aim,
             T v = valid ? g_np * dn_dcoef(fc, sm + s * nm, nm, w, npost, j)
                         : T(0);
             v = warp_sum(v);
-            if (lane == 0) acc[warp][S * N_GF + s * nm + j] += v;
+            if (lane == 0) row[xbase + s * nm + j] += v;
           }
         }
       }
@@ -253,11 +282,11 @@ trace_bwd_kernel(const T* __restrict__ params, const T* __restrict__ aim,
         if (!dn_used(fc, nm, j)) continue;
         T v = valid ? g[6] * dn_dcoef(fc, sm, nm, w, n0, j) : T(0);
         v = warp_sum(v);
-        if (lane == 0) acc[warp][S * N_GF + j] += v;
+        if (lane == 0) row[xbase + j] += v;
       }
     } else {
       const T v = warp_sum(g[6]);
-      if (lane == 0) acc[warp][0 * N_GF + 3] += v;
+      if (lane == 0) row[0 * N_GF + 3] += v;
     }
     if constexpr (FIELD) {
       const T ga[N_AIM] = {g[0], g[1], g[2], g[3], g[4], g[5], g[0] * Px,
@@ -265,7 +294,7 @@ trace_bwd_kernel(const T* __restrict__ params, const T* __restrict__ aim,
 #pragma unroll
       for (int j = 0; j < N_AIM; ++j) {
         const T v = warp_sum(ga[j]);
-        if (lane == 0) acc[warp][S * N_GF + j] += v;
+        if (lane == 0) row[xbase + j] += v;
       }
     } else if (valid) {
 #pragma unroll
@@ -275,7 +304,7 @@ trace_bwd_kernel(const T* __restrict__ params, const T* __restrict__ aim,
     }
   }
   __syncthreads();
-  store_partial_row<T, NCOMP_MAX>(acc, nw, ncomp, partial);
+  store_partial_row(acc, astride, nw, ncomp, partial);
 }
 
 template <typename P>
@@ -285,46 +314,54 @@ Rays8<P> rays8(void* const* ptrs) {
   return r;
 }
 
-// TILT: the instantiation with the tilt rotations, launched when a surface
-// is tilted (``tilt``); the other keeps them out of the untilted systems'
-// code.
+// ``build``: the instantiation the spec needs (ops/launch.py: build_of).
 template <typename T, bool FIELD, bool POLY>
 int fwd_launch(const T* params, const T* aim, const T* mats, const int* flags,
-               int S, int tilt, int nm, const T* px, const T* py,
-               void* const* in, int64_t R, void* const* out,
-               cudaStream_t stream) {
-  if (S > MAX_SURF || S < 2 || (POLY && (nm < 1 || nm > MAX_NM)))
-    return (int)cudaErrorInvalidValue;
-  const int64_t blocks = (R + FWD_BLOCK - 1) / FWD_BLOCK;
-  const auto kernel = tilt ? trace_fwd_kernel<T, FIELD, POLY, true>
-                           : trace_fwd_kernel<T, FIELD, POLY, false>;
-  if (blocks > 0)
-    kernel<<<(unsigned)blocks, FWD_BLOCK, 0, stream>>>(
-        params, aim, mats, flags, S, nm, px, py, rays8<const T*>(in),
-        POLY ? (const T*)in[8] : nullptr, R, rays8<T*>(out));
-  return (int)cudaGetLastError();
+               int S, int build, const T* cf, int nc, int niters, int nm,
+               const T* px, const T* py, void* const* in, int64_t R,
+               void* const* out, cudaStream_t stream) {
+  if (POLY && (nm < 1 || nm > MAX_NM)) return (int)cudaErrorInvalidValue;
+  return dispatch_build(build, [&](auto b) {
+    constexpr int B = decltype(b)::value;
+    if (!shape_ok<B>(S, nc, niters)) return (int)cudaErrorInvalidValue;
+    const int64_t blocks = (R + FWD_BLOCK - 1) / FWD_BLOCK;
+    if (blocks > 0)
+      trace_fwd_kernel<T, FIELD, POLY, B>
+          <<<(unsigned)blocks, FWD_BLOCK, 0, stream>>>(
+              params, aim, mats, flags, S, nm, cf, nc, niters, px, py,
+              rays8<const T*>(in), POLY ? (const T*)in[8] : nullptr, R,
+              rays8<T*>(out));
+    return (int)cudaGetLastError();
+  });
 }
 
 template <typename T, bool FIELD, bool POLY>
 int bwd_launch(const T* params, const T* aim, const T* mats, const int* flags,
-               int S, int tilt, int nc, int nm, const T* px, const T* py,
-               void* const* in, void* const* cot, int64_t R, void* const* din,
-               T* partial, int nblocks, T* out, cudaStream_t stream) {
-  if (S > MAX_SURF || S < 2 || nblocks < 1 ||
-      (POLY && (nm < 1 || nm > MAX_NM)))
+               int S, int build, const T* cf, int nc, int niters, int nsag,
+               int nm, const T* px, const T* py, void* const* in,
+               void* const* cot, int64_t R, void* const* din, T* partial,
+               int nblocks, T* out, cudaStream_t stream) {
+  if (nblocks < 1 || (POLY && (nm < 1 || nm > MAX_NM)) || nsag < 0 ||
+      nsag > S)
     return (int)cudaErrorInvalidValue;
-  const auto kernel = tilt ? trace_bwd_kernel<T, FIELD, POLY, true>
-                           : trace_bwd_kernel<T, FIELD, POLY, false>;
-  kernel<<<nblocks, BWD_BLOCK, 0, stream>>>(
-      params, aim, mats, flags, S, nm, px, py, rays8<const T*>(in),
-      POLY ? (const T*)in[8] : nullptr, rays8<const T*>(cot), R,
-      rays8<T*>(din), partial);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
+  const int nsagc = build >= B_SAG ? nsag * nc : 0;
   const int n_extra = FIELD ? N_AIM : (POLY ? S * nm : 0);
-  grad_reduce_kernel<T, N_GF><<<S * N_GF + n_extra, RED_BLOCK, 0, stream>>>(
-      partial, nblocks, S, nc, n_extra, out);
-  return (int)cudaGetLastError();
+  const int e = dispatch_build(build, [&](auto b) {
+    constexpr int B = decltype(b)::value;
+    if (!shape_ok<B>(S, nc, niters)) return (int)cudaErrorInvalidValue;
+    const auto kernel = trace_bwd_kernel<T, FIELD, POLY, B>;
+    const size_t dyn =
+        dyn_bytes<T, B>(BWD_BLOCK / 32, S * N_GF + nsagc + n_extra);
+    if (int e2 = set_dyn_smem<B>(kernel, dyn)) return e2;
+    kernel<<<nblocks, BWD_BLOCK, dyn, stream>>>(
+        params, aim, mats, flags, S, nm, cf, nc, niters, nsag, px, py,
+        rays8<const T*>(in), POLY ? (const T*)in[8] : nullptr,
+        rays8<const T*>(cot), R, rays8<T*>(din), partial);
+    return (int)cudaGetLastError();
+  });
+  if (e != 0) return e;
+  return reduce_launch<T, N_GF>(partial, nblocks, S, nc, nsagc, flags,
+                                n_extra, out, stream);
 }
 
 }  // namespace
@@ -336,54 +373,61 @@ int bwd_launch(const T* params, const T* aim, const T* mats, const int* flags,
 // ---------------------------------------------------------------------------
 
 #define OTC_TRACE(SUF, T)                                                    \
-  extern "C" int otc_trace_fwd_##SUF(const T* params, const int* flags,      \
-                                     int S, int tilt, void* const* in,       \
-                                     int64_t R, void* const* out,            \
-                                     void* stream) {                         \
+  extern "C" int otc_trace_fwd_##SUF(                                        \
+      const T* params, const int* flags, int S, int build, const T* cf,      \
+      int nc, int niters, void* const* in, int64_t R, void* const* out,      \
+      void* stream) {                                                        \
     return fwd_launch<T, false, false>(params, nullptr, nullptr, flags, S,   \
-                                       tilt, 0, nullptr, nullptr, in, R,     \
-                                       out, (cudaStream_t)stream);           \
+                                       build, cf, nc, niters, 0, nullptr,    \
+                                       nullptr, in, R, out,                  \
+                                       (cudaStream_t)stream);                \
   }                                                                          \
   extern "C" int otc_trace_field_fwd_##SUF(                                  \
-      const T* params, const T* aim, const int* flags, int S, int tilt,      \
-      const T* px, const T* py, int64_t R, void* const* out, void* stream) { \
-    return fwd_launch<T, true, false>(params, aim, nullptr, flags, S, tilt,  \
-                                      0, px, py, nullptr, R, out,            \
-                                      (cudaStream_t)stream);                 \
+      const T* params, const T* aim, const int* flags, int S, int build,     \
+      const T* cf, int nc, int niters, const T* px, const T* py, int64_t R,  \
+      void* const* out, void* stream) {                                      \
+    return fwd_launch<T, true, false>(params, aim, nullptr, flags, S, build, \
+                                      cf, nc, niters, 0, px, py, nullptr, R, \
+                                      out, (cudaStream_t)stream);            \
   }                                                                          \
   extern "C" int otc_trace_fwd_poly_##SUF(                                   \
-      const T* params, const T* mats, const int* flags, int S, int tilt,     \
-      int nm, void* const* in, int64_t R, void* const* out, void* stream) {  \
-    return fwd_launch<T, false, true>(params, nullptr, mats, flags, S, tilt, \
-                                      nm, nullptr, nullptr, in, R, out,      \
+      const T* params, const T* mats, const int* flags, int S, int build,    \
+      const T* cf, int nc, int niters, int nm, void* const* in, int64_t R,   \
+      void* const* out, void* stream) {                                      \
+    return fwd_launch<T, false, true>(params, nullptr, mats, flags, S,       \
+                                      build, cf, nc, niters, nm, nullptr,    \
+                                      nullptr, in, R, out,                   \
                                       (cudaStream_t)stream);                 \
   }                                                                          \
   extern "C" int otc_trace_bwd_##SUF(                                        \
-      const T* params, const int* flags, int S, int tilt, int nc,            \
-      void* const* in, void* const* cot, int64_t R, void* const* din,        \
-      T* partial, int nblocks, T* out, void* stream) {                       \
-    return bwd_launch<T, false, false>(params, nullptr, nullptr, flags, S,   \
-                                       tilt, nc, 0, nullptr, nullptr, in,    \
-                                       cot, R, din, partial, nblocks, out,   \
-                                       (cudaStream_t)stream);                \
+      const T* params, const int* flags, int S, int build, const T* cf,      \
+      int nc, int niters, int nsag, void* const* in, void* const* cot,       \
+      int64_t R, void* const* din, T* partial, int nblocks, T* out,          \
+      void* stream) {                                                        \
+    return bwd_launch<T, false, false>(                                      \
+        params, nullptr, nullptr, flags, S, build, cf, nc, niters, nsag, 0,  \
+        nullptr, nullptr, in, cot, R, din, partial, nblocks, out,            \
+        (cudaStream_t)stream);                                               \
   }                                                                          \
   extern "C" int otc_trace_field_bwd_##SUF(                                  \
-      const T* params, const T* aim, const int* flags, int S, int tilt,      \
-      int nc, const T* px, const T* py, void* const* cot, int64_t R,         \
-      T* partial, int nblocks, T* out, void* stream) {                       \
-    return bwd_launch<T, true, false>(params, aim, nullptr, flags, S, tilt,  \
-                                      nc, 0, px, py, nullptr, cot, R,        \
-                                      nullptr, partial, nblocks, out,        \
-                                      (cudaStream_t)stream);                 \
+      const T* params, const T* aim, const int* flags, int S, int build,     \
+      const T* cf, int nc, int niters, int nsag, const T* px, const T* py,   \
+      void* const* cot, int64_t R, T* partial, int nblocks, T* out,          \
+      void* stream) {                                                        \
+    return bwd_launch<T, true, false>(                                       \
+        params, aim, nullptr, flags, S, build, cf, nc, niters, nsag, 0, px,  \
+        py, nullptr, cot, R, nullptr, partial, nblocks, out,                 \
+        (cudaStream_t)stream);                                               \
   }                                                                          \
   extern "C" int otc_trace_bwd_poly_##SUF(                                   \
-      const T* params, const T* mats, const int* flags, int S, int tilt,     \
-      int nc, int nm, void* const* in, void* const* cot, int64_t R,          \
-      void* const* din, T* partial, int nblocks, T* out, void* stream) {     \
-    return bwd_launch<T, false, true>(params, nullptr, mats, flags, S, tilt, \
-                                      nc, nm, nullptr, nullptr, in, cot, R,  \
-                                      din, partial, nblocks, out,            \
-                                      (cudaStream_t)stream);                 \
+      const T* params, const T* mats, const int* flags, int S, int build,    \
+      const T* cf, int nc, int niters, int nsag, int nm, void* const* in,    \
+      void* const* cot, int64_t R, void* const* din, T* partial,             \
+      int nblocks, T* out, void* stream) {                                   \
+    return bwd_launch<T, false, true>(                                       \
+        params, nullptr, mats, flags, S, build, cf, nc, niters, nsag, nm,    \
+        nullptr, nullptr, in, cot, R, din, partial, nblocks, out,            \
+        (cudaStream_t)stream);                                               \
   }
 
 OTC_TRACE(f32, float)

@@ -19,9 +19,13 @@
 // geometry/reflect/tilt flags in shared memory (uniform across the block, so
 // the per-surface branches do not diverge), block reductions with warp
 // shuffles, and no float atomics. A tilted surface adds its two rotations
-// to the step (~50 operations forward, ~150 in the adjoint).
+// to the step (~50 operations forward, ~150 in the adjoint); an asphere
+// its newton_iters + 1 sag evaluations forward (~25 + 4 nc operations
+// each) and two more with their derivatives in the adjoint, and its nc
+// coefficient columns to the gradient rows.
 // The backward keeps each ray's per-surface input state in a local array
-// bounded by MAX_SURF for its reverse sweep instead of re-tracing.
+// bounded by the build's surface capacity (Build<B>::CAP) for its reverse
+// sweep instead of re-tracing.
 //
 // Every extern "C" entry launches on the caller's stream, does not
 // synchronise, and returns cudaGetLastError().
@@ -89,18 +93,23 @@ prng_disk_kernel(uint64_t seed, int64_t offset, int64_t R, T* px, T* py,
   }
 }
 
-template <typename T, bool TILT>
+template <typename T, int B>
 __global__ void __launch_bounds__(FWD_BLOCK)
 merit_fwd_kernel(const T* __restrict__ params, const T* __restrict__ aim,
                  const int* __restrict__ flags, int S,
+                 const T* __restrict__ cf, int nc, int niters,
                  const T* __restrict__ px, const T* __restrict__ py,
                  int64_t R, uint64_t seed, int64_t offset, int prng,
                  T* __restrict__ rows) {
-  __shared__ T sp[MAX_SURF * NUM_P];
-  __shared__ T sr[MAX_SURF * N_ROT];
+  using Bd = Build<B>;
+  constexpr int CAP = Bd::CAP;
+  __shared__ T sp[CAP * NUM_P];
+  __shared__ T sr[CAP * N_ROT];
   __shared__ T sa[N_AIM];
-  __shared__ int sf[3 * MAX_SURF];  // code, reflect, tilted
+  __shared__ T scf[Bd::SAG ? CAP * NC_MAX : 1];
+  __shared__ int sf[3 * CAP];  // code, reflect, tilted
   __shared__ T red[2][32];
+  load_coefs<T, Bd::SAG>(cf, S, nc, scf);
   load_tables<T, 3, true>(params, aim, flags, S, sp, sa, sf, sr);
 
   const int64_t base = (int64_t)blockIdx.x * blockDim.x;
@@ -122,10 +131,10 @@ merit_fwd_kernel(const T* __restrict__ params, const T* __restrict__ aim,
     T unused_i = T(0), unused_opd = T(0);  // the merit step traces geometry
     T n = sp[P_NPOST];
     for (int s = 1; s < S; ++s)
-      n = step_fwd<T, false, TILT>(sf[s], sf[S + s], 0, sf[2 * S + s],
-                             sp + s * NUM_P, sr + s * N_ROT, n,
-                             sp[s * NUM_P + P_NPOST], x, y, z, L, M, N,
-                             unused_i, unused_opd);
+      n = step_fwd<T, false, Bd::TILT, Bd::SAG>(
+          sf[s], sf[S + s], 0, sf[2 * S + s], sp + s * NUM_P, sr + s * N_ROT,
+          scf + s * nc, nc, niters, n, sp[s * NUM_P + P_NPOST], x, y, z, L,
+          M, N, unused_i, unused_opd);
   }
   const int64_t rem = R - base;
   const T cnt = T(rem < (int64_t)blockDim.x ? rem : (int64_t)blockDim.x);
@@ -146,34 +155,49 @@ merit_fwd_kernel(const T* __restrict__ params, const T* __restrict__ aim,
 }
 
 // One partial gradient row per block over a grid-stride loop of ray chunks.
-// Compact row layout: [s * N_G + j] for surface s and slot j, then N_AIM
+// Compact row layout: [s * N_G + j] for surface s and slot j, then nc
+// coefficient columns for each of the nsag Newton surfaces (SAG), then N_AIM
 // aim entries. The block holds 32 to BWD_BLOCK threads, a multiple of 32.
-template <typename T, bool TILT>
+// The deep build keeps its per-warp rows in dynamic shared memory.
+template <typename T, int B>
 __global__ void __launch_bounds__(BWD_BLOCK)
 merit_bwd_kernel(const T* __restrict__ params, const T* __restrict__ aim,
                  const T* __restrict__ stats, const int* __restrict__ flags,
-                 int S, const T* __restrict__ px, const T* __restrict__ py,
+                 int S, const T* __restrict__ cf, int nc, int niters, int nsag,
+                 const T* __restrict__ px, const T* __restrict__ py,
                  int64_t R, uint64_t seed, int64_t offset, int prng,
                  T* __restrict__ partial) {
+  using Bd = Build<B>;
+  constexpr int CAP = Bd::CAP;
   constexpr int NW_MAX = BWD_BLOCK / 32;
-  constexpr int NCOMP_MAX = MAX_SURF * N_G + N_AIM;
-  __shared__ T sp[MAX_SURF * NUM_P];
-  __shared__ T sr[MAX_SURF * N_ROT];
+  constexpr int NCOMP_MAX = CAP * N_G + (Bd::SAG ? CAP * NC_MAX : 0) + N_AIM;
+  __shared__ T sp[CAP * NUM_P];
+  __shared__ T sr[CAP * N_ROT];
   __shared__ T sa[N_AIM];
-  __shared__ int sf[3 * MAX_SURF];  // code, reflect, tilted
-  __shared__ T acc[NW_MAX][NCOMP_MAX];
-  __shared__ T npre[MAX_SURF];  // n_pre of surface s (uniform across rays)
+  __shared__ T scf[Bd::SAG ? CAP * NC_MAX : 1];
+  __shared__ int sf[3 * CAP];  // code, reflect, tilted
+  __shared__ int ssag[Bd::SAG ? CAP : 1];
+  __shared__ T acc_s[Bd::DEEP ? 1 : NW_MAX * NCOMP_MAX];
+  __shared__ T npre[CAP];  // n_pre of surface s (uniform across rays)
+  load_coefs<T, Bd::SAG>(cf, S, nc, scf);
   load_tables<T, 3, true>(params, aim, flags, S, sp, sa, sf, sr);
-  const int ncomp = S * N_G + N_AIM;
+  const int nsagc = Bd::SAG ? nsag * nc : 0;
+  const int ncomp = S * N_G + nsagc + N_AIM;
   const int nw = blockDim.x >> 5;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int j = threadIdx.x; j < NW_MAX * NCOMP_MAX; j += blockDim.x)
-    (&acc[0][0])[j] = T(0);
-  if (threadIdx.x == 0) fill_npre(sp, sf, S, npre);
+  T* acc = acc_rows<T, Bd::DEEP>(acc_s);
+  const int astride = Bd::DEEP ? ncomp : NCOMP_MAX;
+  const int nacc = Bd::DEEP ? nw * ncomp : NW_MAX * NCOMP_MAX;
+  for (int j = threadIdx.x; j < nacc; j += blockDim.x) acc[j] = T(0);
+  if (threadIdx.x == 0) {
+    fill_npre(sp, sf, S, npre);
+    if constexpr (Bd::SAG) fill_sag(sf, S, ssag);
+  }
   __syncthreads();
+  T* row = acc + warp * astride;
   const T xbar = stats[0], ybar = stats[1], scale = stats[2];
 
-  T st[MAX_SURF][6];
+  T st[CAP][6];
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   for (int64_t base = (int64_t)blockIdx.x * blockDim.x; base < R;
        base += stride) {
@@ -200,43 +224,47 @@ merit_bwd_kernel(const T* __restrict__ params, const T* __restrict__ aim,
         st[s][3] = L;
         st[s][4] = M;
         st[s][5] = N;
-        step_fwd<T, false, TILT>(sf[s], sf[S + s], 0, sf[2 * S + s],
-                           sp + s * NUM_P, sr + s * N_ROT, npre[s],
-                           sp[s * NUM_P + P_NPOST], x, y, z, L, M, N,
-                           unused_i, unused_opd);
+        step_fwd<T, false, Bd::TILT, Bd::SAG>(
+            sf[s], sf[S + s], 0, sf[2 * S + s], sp + s * NUM_P,
+            sr + s * N_ROT, scf + s * nc, nc, niters, npre[s],
+            sp[s * NUM_P + P_NPOST], x, y, z, L, M, N, unused_i, unused_opd);
       }
       g[0] = T(2) * scale * (x - xbar);
       g[1] = T(2) * scale * (y - ybar);
     }
     for (int s = S - 1; s >= 1; --s) {
       T g6[N_G] = {};
+      T gs[5] = {};
       if (valid)
-        step_adjoint<T, false, TILT>(sf[s], sf[S + s], 0, sf[2 * S + s],
-                               sp + s * NUM_P, sr + s * N_ROT, npre[s],
-                               sp[s * NUM_P + P_NPOST], st[s][0], st[s][1],
-                               st[s][2], st[s][3], st[s][4], st[s][5], T(0),
-                               g, g6);
+        step_adjoint<T, false, Bd::TILT, Bd::SAG>(
+            sf[s], sf[S + s], 0, sf[2 * S + s], sp + s * NUM_P,
+            sr + s * N_ROT, scf + s * nc, nc, niters, npre[s],
+            sp[s * NUM_P + P_NPOST], st[s][0], st[s][1], st[s][2], st[s][3],
+            st[s][4], st[s][5], T(0), g, g6, gs);
 #pragma unroll
       for (int j = 0; j < N_G; ++j) {
         const T v = warp_sum(g6[j]);
-        if (lane == 0) acc[warp][s * N_G + j] += v;
+        if (lane == 0) row[s * N_G + j] += v;
       }
+      if constexpr (Bd::SAG)
+        if (is_newton(sf[s]))
+          add_coef_cols(gs, nc, lane, row, S * N_G + ssag[s] * nc);
     }
     // n_pre of surface 1 is the object row's n_post
     {
       const T v = warp_sum(g[6]);
-      if (lane == 0) acc[warp][0 * N_G + 3] += v;
+      if (lane == 0) row[0 * N_G + 3] += v;
     }
     const T ga[N_AIM] = {g[0], g[1], g[2], g[3], g[4], g[5], g[0] * Px,
                          g[1] * Py};
 #pragma unroll
     for (int j = 0; j < N_AIM; ++j) {
       const T v = warp_sum(ga[j]);
-      if (lane == 0) acc[warp][S * N_G + j] += v;
+      if (lane == 0) row[S * N_G + nsagc + j] += v;
     }
   }
   __syncthreads();
-  store_partial_row<T, NCOMP_MAX>(acc, nw, ncomp, partial);
+  store_partial_row(acc, astride, nw, ncomp, partial);
 }
 
 template <typename T>
@@ -251,37 +279,45 @@ int prng_disk_launch(uint64_t seed, int64_t offset, int64_t R, T* px, T* py,
 
 template <typename T>
 int merit_fwd_launch(const T* params, const T* aim, const int* flags, int S,
-                     int tilt, const T* px, const T* py, int64_t R,
-                     uint64_t seed, int64_t offset, int prng, T* rows,
-                     cudaStream_t stream) {
-  if (S > MAX_SURF || S < 2) return (int)cudaErrorInvalidValue;
-  const int64_t blocks = (R + FWD_BLOCK - 1) / FWD_BLOCK;
-  const auto kernel =
-      tilt ? merit_fwd_kernel<T, true> : merit_fwd_kernel<T, false>;
-  if (blocks > 0)
-    kernel<<<(unsigned)blocks, FWD_BLOCK, 0, stream>>>(
-        params, aim, flags, S, px, py, R, seed, offset, prng, rows);
-  return (int)cudaGetLastError();
+                     int build, const T* cf, int nc, int niters, const T* px,
+                     const T* py, int64_t R, uint64_t seed, int64_t offset,
+                     int prng, T* rows, cudaStream_t stream) {
+  return dispatch_build(build, [&](auto b) {
+    constexpr int B = decltype(b)::value;
+    if (!shape_ok<B>(S, nc, niters)) return (int)cudaErrorInvalidValue;
+    const int64_t blocks = (R + FWD_BLOCK - 1) / FWD_BLOCK;
+    if (blocks > 0)
+      merit_fwd_kernel<T, B><<<(unsigned)blocks, FWD_BLOCK, 0, stream>>>(
+          params, aim, flags, S, cf, nc, niters, px, py, R, seed, offset,
+          prng, rows);
+    return (int)cudaGetLastError();
+  });
 }
 
 template <typename T>
 int merit_bwd_launch(const T* params, const T* aim, const T* stats,
-                     const int* flags, int S, int tilt, int nc, const T* px,
-                     const T* py, int64_t R, uint64_t seed, int64_t offset,
-                     int prng, T* partial, int nblocks, int block, T* out,
-                     cudaStream_t stream) {
-  if (S > MAX_SURF || S < 2 || nblocks < 1 || block < 32 ||
-      block > BWD_BLOCK || block % 32)
+                     const int* flags, int S, int build, const T* cf, int nc,
+                     int niters, int nsag, const T* px, const T* py, int64_t R,
+                     uint64_t seed, int64_t offset, int prng, T* partial,
+                     int nblocks, int block, T* out, cudaStream_t stream) {
+  if (nblocks < 1 || block < 32 || block > BWD_BLOCK || block % 32 ||
+      nsag < 0 || nsag > S)
     return (int)cudaErrorInvalidValue;
-  const auto kernel =
-      tilt ? merit_bwd_kernel<T, true> : merit_bwd_kernel<T, false>;
-  kernel<<<nblocks, block, 0, stream>>>(
-      params, aim, stats, flags, S, px, py, R, seed, offset, prng, partial);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  grad_reduce_kernel<T, N_G><<<S * N_G + N_AIM, RED_BLOCK, 0, stream>>>(
-      partial, nblocks, S, nc, N_AIM, out);
-  return (int)cudaGetLastError();
+  const int nsagc = build >= B_SAG ? nsag * nc : 0;
+  const int e = dispatch_build(build, [&](auto b) {
+    constexpr int B = decltype(b)::value;
+    if (!shape_ok<B>(S, nc, niters)) return (int)cudaErrorInvalidValue;
+    const auto kernel = merit_bwd_kernel<T, B>;
+    const size_t dyn = dyn_bytes<T, B>(block / 32, S * N_G + nsagc + N_AIM);
+    if (int e2 = set_dyn_smem<B>(kernel, dyn)) return e2;
+    kernel<<<nblocks, block, dyn, stream>>>(params, aim, stats, flags, S, cf,
+                                            nc, niters, nsag, px, py, R, seed,
+                                            offset, prng, partial);
+    return (int)cudaGetLastError();
+  });
+  if (e != 0) return e;
+  return reduce_launch<T, N_G>(partial, nblocks, S, nc, nsagc, flags, N_AIM,
+                               out, stream);
 }
 
 }  // namespace
@@ -299,21 +335,23 @@ int merit_bwd_launch(const T* params, const T* aim, const T* stats,
   }
 #define OTC_FWD(SUF, T)                                                      \
   extern "C" int otc_merit_fwd_##SUF(                                        \
-      const T* params, const T* aim, const int* flags, int S, int tilt,      \
-      const T* px, const T* py, int64_t R, uint64_t seed, int64_t offset,    \
-      int prng, T* rows, void* stream) {                                     \
-    return merit_fwd_launch<T>(params, aim, flags, S, tilt, px, py, R, seed, \
-                               offset, prng, rows, (cudaStream_t)stream);    \
+      const T* params, const T* aim, const int* flags, int S, int build,     \
+      const T* cf, int nc, int niters, const T* px, const T* py, int64_t R,  \
+      uint64_t seed, int64_t offset, int prng, T* rows, void* stream) {      \
+    return merit_fwd_launch<T>(params, aim, flags, S, build, cf, nc, niters, \
+                               px, py, R, seed, offset, prng, rows,          \
+                               (cudaStream_t)stream);                        \
   }
 #define OTC_BWD(SUF, T)                                                      \
   extern "C" int otc_merit_bwd_##SUF(                                        \
       const T* params, const T* aim, const T* stats, const int* flags,       \
-      int S, int tilt, int nc, const T* px, const T* py, int64_t R,          \
-      uint64_t seed, int64_t offset, int prng, T* partial, int nblocks,      \
-      int block, T* out, void* stream) {                                     \
-    return merit_bwd_launch<T>(params, aim, stats, flags, S, tilt, nc, px,   \
-                               py, R, seed, offset, prng, partial, nblocks,  \
-                               block, out, (cudaStream_t)stream);            \
+      int S, int build, const T* cf, int nc, int niters, int nsag,           \
+      const T* px, const T* py, int64_t R, uint64_t seed, int64_t offset,    \
+      int prng, T* partial, int nblocks, int block, T* out, void* stream) {  \
+    return merit_bwd_launch<T>(params, aim, stats, flags, S, build, cf, nc,  \
+                               niters, nsag, px, py, R, seed, offset, prng,  \
+                               partial, nblocks, block, out,                 \
+                               (cudaStream_t)stream);                        \
   }
 
 OTC_PRNG(f32, float)

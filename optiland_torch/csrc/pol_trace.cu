@@ -19,7 +19,8 @@
 // bytes in and 208 (full) or 64 (intensity) out in float32. The adjoint
 // does about three times the work and keeps each ray's per-surface state
 // (7 ray values, adot, the intensity before the coating and p's 18 reals)
-// in a local array bounded by MAX_SURF. Both are bound by operations. So,
+// in a local array bounded by the build's capacity (16 surfaces, 64 in the
+// deep build). Both are bound by operations. So,
 // as the other trace kernels: one thread per ray with its state and p in
 // registers, coalesced structure-of-arrays loads and stores, the param
 // table, the tilts' cosines and sines, the coat table and the per-surface
@@ -864,16 +865,21 @@ __device__ __forceinline__ void pol_surface_fwd(const T* sc, const int* sf,
 // Forward: trace each ray through surfaces 1 .. S-1 with its p; write the
 // 8 ray arrays and p's 18 parts, or (INTENSITY) the 8 ray arrays with the
 // exit intensity of the launch intensity and directions.
-template <typename T, bool INTENSITY, bool TILT>
+template <typename T, bool INTENSITY, int B>
 __global__ void __launch_bounds__(FWD_BLOCK)
 pol_fwd_kernel(const T* __restrict__ params, const T* __restrict__ coat,
                const int* __restrict__ flags, int S, int ncoat,
+               const T* __restrict__ cf, int nc, int niters,
                Ptrs<const T*, 8> in, int64_t R, Ptrs<T*, N_POL> out,
                States<T> st) {
-  __shared__ T sp[MAX_SURF * NUM_P];
-  __shared__ T sr[MAX_SURF * N_ROT];
-  __shared__ T sc[MAX_SURF * NCOAT_MAX];
-  __shared__ int sf[NFLAG * MAX_SURF];
+  using Bd = Build<B>;
+  constexpr int CAP = Bd::CAP;
+  __shared__ T sp[CAP * NUM_P];
+  __shared__ T sr[CAP * N_ROT];
+  __shared__ T sc[CAP * NCOAT_MAX];
+  __shared__ T scf[Bd::SAG ? CAP * NC_MAX : 1];
+  __shared__ int sf[NFLAG * CAP];
+  load_coefs<T, Bd::SAG>(cf, S, nc, scf);
   load_pol_tables(params, coat, flags, S, ncoat, sp, sc, sf, sr);
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= R) return;
@@ -891,10 +897,10 @@ pol_fwd_kernel(const T* __restrict__ params, const T* __restrict__ coat,
   T n = sp[P_NPOST];
   for (int s = 1; s < S; ++s) {
     T adot, kl[6];  // the local pre- (k0) and post-interaction (k1) directions
-    n = step_fwd<T, true, TILT>(sf[s], sf[S + s], sf[2 * S + s], sf[F_TILT * S + s],
-                          sp + s * NUM_P, sr + s * N_ROT, n,
-                          sp[s * NUM_P + P_NPOST], v[0], v[1], v[2], v[3],
-                          v[4], v[5], v[6], v[7], &adot, kl);
+    n = step_fwd<T, true, Bd::TILT, Bd::SAG>(
+        sf[s], sf[S + s], sf[2 * S + s], sf[F_TILT * S + s], sp + s * NUM_P,
+        sr + s * N_ROT, scf + s * nc, nc, niters, n, sp[s * NUM_P + P_NPOST],
+        v[0], v[1], v[2], v[3], v[4], v[5], v[6], v[7], &adot, kl);
     pol_surface_fwd(sc, sf, S, ncoat, s, kl, kl + 3, adot, v[6], pr, pim);
   }
   if constexpr (INTENSITY) {
@@ -916,35 +922,52 @@ pol_fwd_kernel(const T* __restrict__ params, const T* __restrict__ coat,
 // intensity before the coating and the p before the surface, then run the
 // reverse sweep seeded with its output cotangents. One partial row per
 // block over a grid-stride loop of ray chunks, compact layout: [s * N_GF +
-// j] for surface s and parameter slot j, then [S * N_GF + s * ncoat + c]
-// for its coat column c; the 8 per-ray input cotangents are written too.
-template <typename T, bool INTENSITY, bool TILT>
+// j] for surface s and parameter slot j, then (SAG) nc coefficient columns
+// for each of the nsag Newton surfaces, then [.. + s * ncoat + c] for its
+// coat column c; the 8 per-ray input cotangents are written too. The deep
+// build keeps its per-warp rows in dynamic shared memory.
+template <typename T, bool INTENSITY, int B>
 __global__ void __launch_bounds__(BWD_BLOCK)
 pol_bwd_kernel(const T* __restrict__ params, const T* __restrict__ coat,
                const int* __restrict__ flags, int S, int ncoat,
+               const T* __restrict__ cf, int nc, int niters, int nsag,
                Ptrs<const T*, 8> in, Ptrs<const T*, N_POL> cot, int64_t R,
                Ptrs<T*, 8> din, T* __restrict__ partial, States<T> stt) {
+  using Bd = Build<B>;
+  constexpr int CAP = Bd::CAP;
   constexpr int NW_MAX = BWD_BLOCK / 32;
-  constexpr int NCOMP_MAX = MAX_SURF * (N_GF + NCOAT_MAX);
-  __shared__ T sp[MAX_SURF * NUM_P];
-  __shared__ T sr[MAX_SURF * N_ROT];
-  __shared__ T sc[MAX_SURF * NCOAT_MAX];
-  __shared__ int sf[NFLAG * MAX_SURF];
-  __shared__ T acc[NW_MAX][NCOMP_MAX];
-  __shared__ T npre[MAX_SURF];
+  constexpr int NCOMP_MAX =
+      CAP * (N_GF + NCOAT_MAX) + (Bd::SAG ? CAP * NC_MAX : 0);
+  __shared__ T sp[CAP * NUM_P];
+  __shared__ T sr[CAP * N_ROT];
+  __shared__ T sc[CAP * NCOAT_MAX];
+  __shared__ T scf[Bd::SAG ? CAP * NC_MAX : 1];
+  __shared__ int sf[NFLAG * CAP];
+  __shared__ int ssag[Bd::SAG ? CAP : 1];
+  __shared__ T acc_s[Bd::DEEP ? 1 : NW_MAX * NCOMP_MAX];
+  __shared__ T npre[CAP];
+  load_coefs<T, Bd::SAG>(cf, S, nc, scf);
   load_pol_tables(params, coat, flags, S, ncoat, sp, sc, sf, sr);
-  const int ncomp = S * (N_GF + ncoat);
+  const int nsagc = Bd::SAG ? nsag * nc : 0;
+  const int ncomp = S * (N_GF + ncoat) + nsagc;
   const int nw = blockDim.x >> 5;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int j = threadIdx.x; j < NW_MAX * NCOMP_MAX; j += blockDim.x)
-    (&acc[0][0])[j] = T(0);
-  if (threadIdx.x == 0) fill_npre(sp, sf, S, npre);
+  T* acc = acc_rows<T, Bd::DEEP>(acc_s);
+  const int astride = Bd::DEEP ? ncomp : NCOMP_MAX;
+  const int nacc = Bd::DEEP ? nw * ncomp : NW_MAX * NCOMP_MAX;
+  for (int j = threadIdx.x; j < nacc; j += blockDim.x) acc[j] = T(0);
+  if (threadIdx.x == 0) {
+    fill_npre(sp, sf, S, npre);
+    if constexpr (Bd::SAG) fill_sag(sf, S, ssag);
+  }
   __syncthreads();
+  T* row = acc + warp * astride;
+  const int cbase = S * N_GF + nsagc;  // the coat columns
 
-  T st[MAX_SURF][7];    // input state (x, y, z, L, M, N, i) of surface s
-  T ps[MAX_SURF][18];   // p before surface s (9 real, 9 imaginary)
-  T ad[MAX_SURF];       // adot of surface s
-  T istep[MAX_SURF];    // intensity after the step, before the coating
+  T st[CAP][7];    // input state (x, y, z, L, M, N, i) of surface s
+  T ps[CAP][18];   // p before surface s (9 real, 9 imaginary)
+  T ad[CAP];       // adot of surface s
+  T istep[CAP];    // intensity after the step, before the coating
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   for (int64_t base = (int64_t)blockIdx.x * blockDim.x; base < R;
        base += stride) {
@@ -977,10 +1000,11 @@ pol_bwd_kernel(const T* __restrict__ params, const T* __restrict__ coat,
           ps[s][9 + j] = pim[j];
         }
         T kl[6];
-        step_fwd<T, true, TILT>(sf[s], sf[S + s], sf[2 * S + s],
-                          sf[F_TILT * S + s], sp + s * NUM_P, sr + s * N_ROT,
-                          npre[s], sp[s * NUM_P + P_NPOST], v[0], v[1], v[2],
-                          v[3], v[4], v[5], v[6], v[7], &ad[s], kl);
+        step_fwd<T, true, Bd::TILT, Bd::SAG>(
+            sf[s], sf[S + s], sf[2 * S + s], sf[F_TILT * S + s],
+            sp + s * NUM_P, sr + s * N_ROT, scf + s * nc, nc, niters, npre[s],
+            sp[s * NUM_P + P_NPOST], v[0], v[1], v[2], v[3], v[4], v[5], v[6],
+            v[7], &ad[s], kl);
         istep[s] = v[6];
         pol_surface_fwd(sc, sf, S, ncoat, s, kl, kl + 3, ad[s], v[6], pr,
                         pim);
@@ -1007,6 +1031,7 @@ pol_bwd_kernel(const T* __restrict__ params, const T* __restrict__ coat,
     }
     for (int s = S - 1; s >= 1; --s) {
       T gc[N_GF] = {};
+      T gs[5] = {};
       T gco[NCOAT_MAX];
       for (int c = 0; c < ncoat; ++c) gco[c] = T(0);
       if (valid) {
@@ -1019,7 +1044,7 @@ pol_bwd_kernel(const T* __restrict__ params, const T* __restrict__ coat,
         T k1[3];
         for (int c = 0; c < 3; ++c)
           k1[c] = s + 1 < S ? st[s + 1][3 + c] : kfin[c];
-        if (TILT && tilted) {
+        if (Bd::TILT && tilted) {
           rot_local_dir(sr + s * N_ROT, k0);
           rot_local_dir(sr + s * N_ROT, k1);
         }
@@ -1064,26 +1089,29 @@ pol_bwd_kernel(const T* __restrict__ params, const T* __restrict__ coat,
           gco[col] += g[7] * istep[s];
           g[7] *= cr[col];
         }
-        step_adjoint<T, true, TILT>(sf[s], refl, sf[2 * S + s], tilted,
-                              sp + s * NUM_P, sr + s * N_ROT, npre[s],
-                              sp[s * NUM_P + P_NPOST], st[s][0], st[s][1],
-                              st[s][2], st[s][3], st[s][4], st[s][5],
-                              st[s][6], g, gc, gext);
+        step_adjoint<T, true, Bd::TILT, Bd::SAG>(
+            sf[s], refl, sf[2 * S + s], tilted, sp + s * NUM_P,
+            sr + s * N_ROT, scf + s * nc, nc, niters, npre[s],
+            sp[s * NUM_P + P_NPOST], st[s][0], st[s][1], st[s][2], st[s][3],
+            st[s][4], st[s][5], st[s][6], g, gc, gs, gext);
       }
 #pragma unroll
       for (int j = 0; j < N_GF; ++j) {
         const T v = warp_sum(gc[j]);
-        if (lane == 0) acc[warp][s * N_GF + j] += v;
+        if (lane == 0) row[s * N_GF + j] += v;
       }
+      if constexpr (Bd::SAG)
+        if (is_newton(sf[s]))
+          add_coef_cols(gs, nc, lane, row, S * N_GF + ssag[s] * nc);
       for (int c = 0; c < ncoat; ++c) {
         const T v = warp_sum(gco[c]);
-        if (lane == 0) acc[warp][S * N_GF + s * ncoat + c] += v;
+        if (lane == 0) row[cbase + s * ncoat + c] += v;
       }
     }
     // n_pre of surface 1 is the object row's n_post
     {
       const T v = warp_sum(g[6]);
-      if (lane == 0) acc[warp][0 * N_GF + 3] += v;
+      if (lane == 0) row[0 * N_GF + 3] += v;
     }
     if (valid) {
 #pragma unroll
@@ -1095,7 +1123,7 @@ pol_bwd_kernel(const T* __restrict__ params, const T* __restrict__ coat,
     }
   }
   __syncthreads();
-  store_partial_row<T, NCOMP_MAX>(acc, nw, ncomp, partial);
+  store_partial_row(acc, astride, nw, ncomp, partial);
 }
 
 template <typename P, int K>
@@ -1114,61 +1142,66 @@ States<T> states_of(const double* c, int n) {
   return s;
 }
 
-int check_shape(int S, int ncoat, int nstates) {
-  if (S > MAX_SURF || S < 2 || ncoat < 4 || ncoat > NCOAT_MAX ||
-      nstates < 0 || nstates > 2)
+int check_shape(int ncoat, int nstates) {
+  if (ncoat < 4 || ncoat > NCOAT_MAX || nstates < 0 || nstates > 2)
     return (int)cudaErrorInvalidValue;
   return 0;
 }
 
-// TILT: the instantiation with the tilt rotations, launched when a surface
-// is tilted (``tilt``); the other keeps them out of the untilted systems'
-// code.
+// ``build``: the instantiation the spec needs (ops/launch.py: build_of).
 template <typename T>
 int fwd_launch(const T* params, const T* coat, const int* flags, int S,
-               int tilt, int ncoat, void* const* in, int64_t R,
-               void* const* out, int intensity, const double* c, int nstates,
-               cudaStream_t stream) {
-  if (int e = check_shape(S, ncoat, nstates)) return e;
+               int build, const T* cf, int nc, int niters, int ncoat,
+               void* const* in, int64_t R, void* const* out, int intensity,
+               const double* c, int nstates, cudaStream_t stream) {
+  if (int e = check_shape(ncoat, nstates)) return e;
   if (intensity && nstates < 1) return (int)cudaErrorInvalidValue;
   const int64_t blocks = (R + FWD_BLOCK - 1) / FWD_BLOCK;
   if (blocks == 0) return (int)cudaGetLastError();
   const States<T> st = states_of<T>(c, nstates);
-  const auto kernel =
-      intensity ? (tilt ? pol_fwd_kernel<T, true, true>
-                        : pol_fwd_kernel<T, true, false>)
-                : (tilt ? pol_fwd_kernel<T, false, true>
-                        : pol_fwd_kernel<T, false, false>);
-  kernel<<<(unsigned)blocks, FWD_BLOCK, 0, stream>>>(
-      params, coat, flags, S, ncoat, ptrs<const T*, 8>(in, 8), R,
-      ptrs<T*, N_POL>(out, intensity ? 8 : N_POL), st);
-  return (int)cudaGetLastError();
+  return dispatch_build(build, [&](auto b) {
+    constexpr int B = decltype(b)::value;
+    if (!shape_ok<B>(S, nc, niters)) return (int)cudaErrorInvalidValue;
+    const auto kernel =
+        intensity ? pol_fwd_kernel<T, true, B> : pol_fwd_kernel<T, false, B>;
+    kernel<<<(unsigned)blocks, FWD_BLOCK, 0, stream>>>(
+        params, coat, flags, S, ncoat, cf, nc, niters,
+        ptrs<const T*, 8>(in, 8), R,
+        ptrs<T*, N_POL>(out, intensity ? 8 : N_POL), st);
+    return (int)cudaGetLastError();
+  });
 }
 
 template <typename T>
 int bwd_launch(const T* params, const T* coat, const int* flags, int S,
-               int tilt, int nc, int ncoat, void* const* in, void* const* cot,
-               int64_t R, void* const* din, T* partial, int nblocks, T* out,
+               int build, const T* cf, int nc, int niters, int nsag,
+               int ncoat, void* const* in, void* const* cot, int64_t R,
+               void* const* din, T* partial, int nblocks, T* out,
                int intensity, const double* c, int nstates,
                cudaStream_t stream) {
-  if (int e = check_shape(S, ncoat, nstates)) return e;
-  if (nblocks < 1 || (intensity && nstates < 1))
+  if (int e = check_shape(ncoat, nstates)) return e;
+  if (nblocks < 1 || (intensity && nstates < 1) || nsag < 0 || nsag > S)
     return (int)cudaErrorInvalidValue;
   const States<T> st = states_of<T>(c, nstates);
-  const auto kernel =
-      intensity ? (tilt ? pol_bwd_kernel<T, true, true>
-                        : pol_bwd_kernel<T, true, false>)
-                : (tilt ? pol_bwd_kernel<T, false, true>
-                        : pol_bwd_kernel<T, false, false>);
-  kernel<<<nblocks, BWD_BLOCK, 0, stream>>>(
-      params, coat, flags, S, ncoat, ptrs<const T*, 8>(in, 8),
-      ptrs<const T*, N_POL>(cot, intensity ? 8 : N_POL), R,
-      ptrs<T*, 8>(din, 8), partial, st);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  grad_reduce_kernel<T, N_GF><<<S * N_GF + S * ncoat, RED_BLOCK, 0, stream>>>(
-      partial, nblocks, S, nc, S * ncoat, out);
-  return (int)cudaGetLastError();
+  const int nsagc = build >= B_SAG ? nsag * nc : 0;
+  const int e = dispatch_build(build, [&](auto b) {
+    constexpr int B = decltype(b)::value;
+    if (!shape_ok<B>(S, nc, niters)) return (int)cudaErrorInvalidValue;
+    const auto kernel =
+        intensity ? pol_bwd_kernel<T, true, B> : pol_bwd_kernel<T, false, B>;
+    const size_t dyn =
+        dyn_bytes<T, B>(BWD_BLOCK / 32, S * (N_GF + ncoat) + nsagc);
+    if (int e2 = set_dyn_smem<B>(kernel, dyn)) return e2;
+    kernel<<<nblocks, BWD_BLOCK, dyn, stream>>>(
+        params, coat, flags, S, ncoat, cf, nc, niters, nsag,
+        ptrs<const T*, 8>(in, 8),
+        ptrs<const T*, N_POL>(cot, intensity ? 8 : N_POL), R,
+        ptrs<T*, 8>(din, 8), partial, st);
+    return (int)cudaGetLastError();
+  });
+  if (e != 0) return e;
+  return reduce_launch<T, N_GF>(partial, nblocks, S, nc, nsagc, flags,
+                                S * ncoat, out, stream);
 }
 
 }  // namespace
@@ -1183,24 +1216,27 @@ int bwd_launch(const T* params, const T* coat, const int* flags, int S,
 
 #define OTC_POL(SUF, T)                                                      \
   extern "C" int otc_pol_fwd_##SUF(                                          \
-      const T* params, const T* coat, const int* flags, int S, int tilt,     \
-      int ncoat, void* const* in, int64_t R, void* const* out,               \
-      int intensity, double c0, double c1, double c2, double c3, double c4,  \
-      double c5, double c6, double c7, int nstates, void* stream) {          \
+      const T* params, const T* coat, const int* flags, int S, int build,    \
+      const T* cf, int nc, int niters, int ncoat, void* const* in,           \
+      int64_t R, void* const* out, int intensity, double c0, double c1,      \
+      double c2, double c3, double c4, double c5, double c6, double c7,      \
+      int nstates, void* stream) {                                           \
     const double c[8] = {c0, c1, c2, c3, c4, c5, c6, c7};                    \
-    return fwd_launch<T>(params, coat, flags, S, tilt, ncoat, in, R, out,   \
-                         intensity, c, nstates, (cudaStream_t)stream);       \
+    return fwd_launch<T>(params, coat, flags, S, build, cf, nc, niters,      \
+                         ncoat, in, R, out, intensity, c, nstates,           \
+                         (cudaStream_t)stream);                              \
   }                                                                          \
   extern "C" int otc_pol_bwd_##SUF(                                          \
-      const T* params, const T* coat, const int* flags, int S, int tilt,     \
-      int nc, int ncoat, void* const* in, void* const* cot, int64_t R,       \
-      void* const* din, T* partial, int nblocks, T* out, int intensity,      \
-      double c0, double c1, double c2, double c3, double c4, double c5,      \
-      double c6, double c7, int nstates, void* stream) {                     \
+      const T* params, const T* coat, const int* flags, int S, int build,    \
+      const T* cf, int nc, int niters, int nsag, int ncoat, void* const* in, \
+      void* const* cot, int64_t R, void* const* din, T* partial,             \
+      int nblocks, T* out, int intensity, double c0, double c1, double c2,   \
+      double c3, double c4, double c5, double c6, double c7, int nstates,    \
+      void* stream) {                                                        \
     const double c[8] = {c0, c1, c2, c3, c4, c5, c6, c7};                    \
-    return bwd_launch<T>(params, coat, flags, S, tilt, nc, ncoat, in, cot,  \
-                         R, din, partial, nblocks, out, intensity, c,        \
-                         nstates, (cudaStream_t)stream);                     \
+    return bwd_launch<T>(params, coat, flags, S, build, cf, nc, niters,      \
+                         nsag, ncoat, in, cot, R, din, partial, nblocks,     \
+                         out, intensity, c, nstates, (cudaStream_t)stream);  \
   }
 
 OTC_POL(f32, float)

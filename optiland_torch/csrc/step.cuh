@@ -1,10 +1,12 @@
-// Device code shared by the port's trace kernels (sm_90a): the PLANE and
-// STANDARD branches of _step_tile (optiland_tpu/ops/pallas_trace.py),
-// forward and hand-derived adjoint, and what the kernels around the step
-// share: the shared-memory table loader, the per-warp gradient rows of the
-// backwards, and their fixed-order reduction kernel. The step is a
-// line-by-line transcription of optiland_torch/ops/step.py (step_plain,
-// step_adjoint_plain); change them together.
+// Device code shared by the port's trace kernels (sm_90a): the PLANE,
+// STANDARD, tilt, annular-aperture and EVEN_ASPHERE/ODD_ASPHERE branches of
+// _step_tile (optiland_tpu/ops/pallas_trace.py), forward and hand-derived
+// adjoint, and what the kernels around the step share: the shared-memory
+// table loaders, the per-warp gradient rows of the backwards, and their
+// fixed-order reduction kernel. The step is a line-by-line transcription of
+// optiland_torch/ops/step.py (step_plain, step_adjoint_plain) and of the
+// radial sag terms of optiland_torch/core/geometry.py (sag_point); change
+// them together.
 //
 // The FULL flag instantiates the step in two forms:
 //   FULL = false  geometry only (x, y, z, L, M, N): the fused merit's step
@@ -23,10 +25,31 @@
 // cotangent through the rotations and gives the true d/d(rx, ry, rz); an
 // untilted surface runs no rotation and keeps the zero-tilt derivative, the
 // rotations' generators, which is what the general form gives at zero.
-// The TILT template flag of the step (and of every kernel) compiles the
-// rotations in; the launchers take TILT = false for a system without a
-// tilted surface, whose kernels then keep the registers and local memory
-// they had without the tilt code.
+// The TILT template flag of the step compiles the rotations in; the SAG
+// flag also the Newton-from-sag families and, in the FULL form, the annular
+// clip. Every kernel is compiled in four builds (Build<B> below): stock
+// (neither), tilt, sag (tilt and sag) and deep (tilt and sag, for up to
+// DEEP_SURF surfaces; its backwards keep their gradient rows in dynamic
+// shared memory). The launchers take the least build that covers the spec
+// (ops/launch.py: build_of), so a system without a tilted surface, an
+// asphere or an annulus runs the stock code, whose registers and local
+// memory are those it had before the other branches.
+//
+// K6b, the radial Newton families (s = conic(r^2) + sum_i C_i rho^(i+1),
+// rho = r^2 even, r odd): sag_point gives s and W (ds/dx = x W), and for
+// the adjoint dW/dr^2 and the radius, conic and coefficient derivatives.
+// The intersection starts at the conic's closed form (the plane's where that
+// is not finite) and takes newton_iters steps t <- t - f/f' on f(t) = z(t) -
+// s(x(t), y(t)), f' = N - W (X L + Y M) clamped to 1e-14, then one more:
+// the adjoint differentiates that last step at the stopped iterate (the
+// implicit-function gradient, with its f f'_theta / f'^2 term), and the
+// normal (x W, y W, -1) rsqrt(.) through the sag's second derivative. The
+// coefficient row's gradient comes back as five scalars per ray (a, b, c,
+// rho_s, rho_1: dC_i = a rho_s^(i+1) + (i+1) (b rho_s^i + c rho_1^i)),
+// which the backwards expand into nc columns for each Newton surface.
+// K6a, the annular clip: the FULL step of the sag build zeroes the
+// intensity of a ray with x^2 + y^2 < ap_min^2 on every surface (ap_min is
+// 0, which clips nothing, where no RadialAperture sets it).
 //
 // The polarized traces (pol_trace.cu) also read the step's "extras": the
 // local-frame pre- and post-interaction directions, which step_fwd writes
@@ -45,26 +68,86 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int NUM_P = 15;
 constexpr int P_RADIUS = 0, P_CONIC = 1, P_POS = 2, P_NPOST = 3;
 constexpr int P_APMAX = 4, P_KPRE = 5;
 constexpr int P_DX = 6, P_DY = 7, P_RX = 8, P_RY = 9, P_RZ = 10;
+constexpr int P_APMIN = 13;
 constexpr int N_AIM = 8;
 constexpr int A_X0 = 0, A_Y0 = 1, A_Z0 = 2, A_L = 3, A_M = 4, A_N = 5;
 constexpr int A_SX = 6, A_SY = 7;
-constexpr int PLANE = 0, STANDARD = 1;
+constexpr int PLANE = 0, STANDARD = 1, EVEN_ASPHERE = 2, ODD_ASPHERE = 3;
 // Beer-Lambert factor exp(ABS * k_pre * t * 1e3), k_pre = k / wavelength
 constexpr double ABS = -12.566370614359172;  // -4 pi
 
 // launch shapes (optiland_torch/ops/launch.py holds the same values)
-constexpr int MAX_SURF = 16;
+constexpr int STOCK_SURF = 16;  // surfaces of the stock, tilt and sag builds
+constexpr int DEEP_SURF = 64;   // surfaces of the deep build
+constexpr int NC_MAX = 16;      // geometry coefficients per surface
 constexpr int MAX_NM = 20;  // dispersion coefficients per surface (poly)
 constexpr int N_ROT = 6;    // cos rx, sin rx, cos ry, sin ry, cos rz, sin rz
 constexpr int FWD_BLOCK = 256;
 constexpr int BWD_BLOCK = 128;
 constexpr int RED_BLOCK = 256;
+
+// The builds of every kernel (ops/launch.py: STOCK, TILT, SAG, DEEP).
+constexpr int B_STOCK = 0, B_TILT = 1, B_SAG = 2, B_DEEP = 3;
+template <int B>
+struct Build {
+  static constexpr bool TILT = B >= B_TILT;
+  static constexpr bool SAG = B >= B_SAG;
+  static constexpr bool DEEP = B == B_DEEP;
+  static constexpr int CAP = B == B_DEEP ? DEEP_SURF : STOCK_SURF;
+};
+
+// Launch a launcher body for the build ``build``: f gets the build as an
+// std::integral_constant, so the body instantiates its kernels for it.
+template <typename F>
+int dispatch_build(int build, F&& f) {
+  switch (build) {
+    case B_STOCK:
+      return f(std::integral_constant<int, B_STOCK>{});
+    case B_TILT:
+      return f(std::integral_constant<int, B_TILT>{});
+    case B_SAG:
+      return f(std::integral_constant<int, B_SAG>{});
+    case B_DEEP:
+      return f(std::integral_constant<int, B_DEEP>{});
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The surface count, coefficient width and Newton steps a build takes.
+template <int B>
+bool shape_ok(int S, int nc, int niters) {
+  return S >= 2 && S <= Build<B>::CAP && nc >= 1 && nc <= NC_MAX &&
+         niters >= 0;
+}
+
+// Dynamic shared memory of a backward's per-warp rows: nw rows of ncomp in
+// the deep build, none in the others (their rows are static).
+template <typename T, int B>
+size_t dyn_bytes(int nw, int ncomp) {
+  return Build<B>::DEEP ? (size_t)nw * ncomp * sizeof(T) : 0;
+}
+
+template <int B, typename K>
+int set_dyn_smem(K kernel, size_t bytes) {
+  if constexpr (Build<B>::DEEP)
+    return (int)cudaFuncSetAttribute(
+        (const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)bytes);
+  return 0;
+}
+
+__device__ __forceinline__ bool is_newton(int code) {
+  return code == EVEN_ASPHERE || code == ODD_ASPHERE;
+}
 
 // Per-surface gradient slots of the backwards and the param-table column of
 // each: radius, conic, pos, n_post, dx, dy, and the tilts rx, ry, rz in
@@ -434,16 +517,100 @@ __device__ __forceinline__ T dist_plane(T z, T N) {
   return -z / Ns;
 }
 
+// The radial terms of a Newton family at r2 = x^2 + y^2 (geometry.py:
+// sag_point): s, W (ds/dx = x W), and with GRAD dW/dr2, ds/dcu, ds/dk,
+// dW/dcu, dW/dk, rho (r2 even, r odd) and beta (dW/dC_i = (i+1) beta
+// rho^i: 2 even, 1/r odd, 0 at r = 0, where the odd terms have no slope).
+template <typename T>
+struct SagPt {
+  T s, W, Wr, s_cu, s_k, W_cu, W_k, rho, beta;
+};
+
+template <typename T, bool GRAD>
+__device__ __forceinline__ void sag_point(int code, T cu, T k, const T* cf,
+                                          int nc, T r2, SagPt<T>& o) {
+  const T e = (T(1) + k) * (cu * cu);
+  const T q = sqrt_(T(1) - e * r2);
+  o.s = cu * r2 / (T(1) + q);
+  o.W = cu / q;
+  const bool even = code == EVEN_ASPHERE;
+  const bool at0 = r2 == T(0);
+  const T rho = even ? r2 : (at0 ? T(0) : sqrt_(r2));
+  const T rs = (even || at0) ? T(1) : rho;
+  T P = T(0), G1 = T(0);
+  for (int i = nc - 1; i >= 0; --i) {
+    P = P * rho + cf[i];
+    G1 = G1 * rho + T(i + 1) * cf[i];
+  }
+  o.s = o.s + P * rho;
+  if (even)
+    o.W = o.W + T(2) * G1;
+  else if (!at0)
+    o.W = o.W + G1 / rs;
+  if constexpr (GRAD) {
+    // 2 g''(r2) (even); sum (i+1)(i-1) C_i r^i, over 2 r^3 below (odd)
+    T H = T(0);
+    for (int i = nc - 1; i >= (even ? 1 : 0); --i)
+      H = H * rho + (even ? T(2 * i * (i + 1)) : T((i + 1) * (i - 1))) * cf[i];
+    const T q3 = q * q * q;
+    o.Wr = cu * e / (T(2) * q3);
+    if (even) {
+      o.Wr = o.Wr + H;
+      o.beta = T(2);
+    } else {
+      if (!at0) o.Wr = o.Wr + H / (T(2) * (rs * rs * rs));
+      o.beta = at0 ? T(0) : T(1) / rs;
+    }
+    const T cu3 = cu * cu * cu;
+    o.s_cu = r2 / (q * (T(1) + q));
+    o.s_k = cu3 * (r2 * r2) / (T(2) * q * ((T(1) + q) * (T(1) + q)));
+    o.W_cu = T(1) / q3;
+    o.W_k = cu3 * r2 / (T(2) * q3);
+    o.rho = rho;
+  }
+}
+
+// One Newton step t - f/f' (geometry.py: newton_step).
+template <typename T>
+__device__ __forceinline__ T newton_step(int code, T cu, T k, const T* cf,
+                                         int nc, T xl, T yl, T zl, T L, T M,
+                                         T N, T t) {
+  const T X = xl + t * L, Y = yl + t * M;
+  SagPt<T> sp;
+  sag_point<T, false>(code, cu, k, cf, nc, X * X + Y * Y, sp);
+  const T f = zl + t * N - sp.s;
+  T fp = N - sp.W * (X * L + Y * M);
+  fp = abs_(fp) > T(1e-14) ? fp : T(1e-14);
+  return t - f / fp;
+}
+
+// ``steps`` Newton steps from the conic's closed form, or the plane's where
+// that is not finite (geometry.py: newton_start).
+template <typename T>
+__device__ __forceinline__ T newton_t(int code, T R, T k, const T* cf, int nc,
+                                      int steps, T xl, T yl, T zl, T L, T M,
+                                      T N) {
+  T t = dist_standard(R, k, xl, yl, zl, L, M, N);
+  if (!isfinite(t)) t = dist_plane(zl, N);
+  const T cu = T(1) / R;
+  for (int it = 0; it < steps; ++it)
+    t = newton_step(code, cu, k, cf, nc, xl, yl, zl, L, M, N, t);
+  return t;
+}
+
 // One forward surface step; returns n of the medium after the surface
 // (``npost`` through a refractive surface). ``inten`` and ``opd`` are read
 // and written only in the FULL form; ``adot_out``, when not null, receives
 // |cos| of the angle of incidence, and ``kloc`` the local pre- and
 // post-interaction directions (L0, M0, N0, L1, M1, N1). ``rot`` holds the
 // surface's N_ROT cosines and sines, read where ``tilted`` is set; TILT =
-// false compiles the rotations out (a system without tilted surfaces).
-template <typename T, bool FULL, bool TILT>
+// false compiles the rotations out (a system without tilted surfaces). SAG
+// compiles in the Newton families, which read the surface's nc
+// coefficients ``cf`` and take ``niters`` steps, and the annular clip.
+template <typename T, bool FULL, bool TILT, bool SAG>
 __device__ __forceinline__ T step_fwd(int code, int refl, int absorbs,
                                       int tilted, const T* p, const T* rot,
+                                      const T* cf, int nc, int niters,
                                       T n_pre, T npost, T& x, T& y, T& z,
                                       T& L, T& M, T& N, T& inten, T& opd,
                                       T* adot_out = nullptr,
@@ -451,17 +618,33 @@ __device__ __forceinline__ T step_fwd(int code, int refl, int absorbs,
   const T R = p[P_RADIUS], k = p[P_CONIC], pos = p[P_POS];
   T xl = x - p[P_DX], yl = y - p[P_DY], zl = z - pos;
   if (TILT && tilted) rot_local(rot, xl, yl, zl, L, M, N);
-  const T t = code == STANDARD ? dist_standard(R, k, xl, yl, zl, L, M, N)
-                               : dist_plane(zl, N);
+  T t;
+  if (SAG && is_newton(code))
+    t = newton_t(code, R, k, cf, nc, niters + 1, xl, yl, zl, L, M, N);
+  else
+    t = code == STANDARD ? dist_standard(R, k, xl, yl, zl, L, M, N)
+                         : dist_plane(zl, N);
   T x1 = xl + t * L, y1 = yl + t * M, z1 = zl + t * N;
   if constexpr (FULL) {
     if (absorbs) inten = inten * exp_(T(ABS) * p[P_KPRE] * t * T(1e3));
     opd = opd + abs_(t * n_pre);
     const T ap = p[P_APMAX];
     if (x1 * x1 + y1 * y1 > ap * ap) inten = T(0);
+    if constexpr (SAG) {
+      const T am = p[P_APMIN];
+      if (x1 * x1 + y1 * y1 < am * am) inten = T(0);
+    }
   }
   T nx = T(0), ny = T(0), nz = T(-1);
-  if (code == STANDARD) {
+  if (SAG && is_newton(code)) {
+    SagPt<T> sp;
+    sag_point<T, false>(code, T(1) / R, k, cf, nc, x1 * x1 + y1 * y1, sp);
+    const T fx = x1 * sp.W, fy = y1 * sp.W;
+    const T im = rsqrt_(fx * fx + fy * fy + T(1));
+    nx = fx * im;
+    ny = fy * im;
+    nz = -im;
+  } else if (code == STANDARD) {
     const T cu = T(1) / R;
     const T r2 = x1 * x1 + y1 * y1;
     const T invd = cu * rsqrt_(T(1) - (T(1) + k) * (cu * cu) * r2);
@@ -516,17 +699,22 @@ __device__ __forceinline__ T step_fwd(int code, int refl, int absorbs,
 // extras (L0, M0, N0, L1, M1, N1, adot). Out: g becomes the cotangents of
 // the inputs (x, y, z, L, M, N, n_pre, and FULL: i, opd), gc the cotangents
 // of (radius, conic, pos, n_post, dx, dy, rx, ry, rz, and FULL: k_pre); the
-// n_post slot is the cotangent of ``npost``.
-template <typename T, bool FULL, bool TILT>
+// n_post slot is the cotangent of ``npost``. For a Newton surface (SAG)
+// ``gs`` receives (a, b, c, rho_s, rho_1) of its coefficient cotangents,
+// dC_i = a rho_s^(i+1) + (i+1) (b rho_s^i + c rho_1^i).
+template <typename T, bool FULL, bool TILT, bool SAG>
 __device__ __forceinline__ void step_adjoint(int code, int refl, int absorbs,
                                              int tilted, const T* p,
-                                             const T* rot, T n_pre, T npost,
-                                             T x, T y, T z, T L, T M, T N,
-                                             T i_in, T* g, T* gc,
+                                             const T* rot, const T* cf,
+                                             int nc, int niters, T n_pre,
+                                             T npost, T x, T y, T z, T L,
+                                             T M, T N, T i_in, T* g, T* gc,
+                                             T* gs = nullptr,
                                              const T* gext = nullptr) {
   const T R = p[P_RADIUS], k = p[P_CONIC], pos = p[P_POS];
   const T dx = p[P_DX], dy = p[P_DY];
   const bool std_ = code == STANDARD;
+  const bool newton = SAG && is_newton(code);
   const T g_nn = g[6];
 
   // ---- recompute the forward intermediates (in the surface's frame) ----
@@ -553,10 +741,28 @@ __device__ __forceinline__ void step_adjoint(int code, int refl, int absorbs,
     t2 = q0 ? T(0) : c / q;
     use1 = abs_(zl + t1 * N) <= abs_(zl + t2 * N);
     t = use1 ? t1 : t2;
+  } else if (newton) {
+    // the stopped iterate t_s, then the one step the gradient runs through
+    t = T(0);
   } else {
     big = abs_(N) > T(1e-14);
     Ns = big ? N : T(1e-14);
     t = -zl / Ns;
+  }
+  T t_s = T(0), Xs = T(0), Ys = T(0), fN = T(0), fpN = T(1);
+  bool okf = false;
+  SagPt<T> sps = {}, sp1 = {};
+  if (newton) {
+    cu = T(1) / R;
+    t_s = newton_t(code, R, k, cf, nc, niters, xl, yl, zl, L, M, N);
+    Xs = xl + t_s * L;
+    Ys = yl + t_s * M;
+    sag_point<T, true>(code, cu, k, cf, nc, Xs * Xs + Ys * Ys, sps);
+    fN = zl + t_s * N - sps.s;
+    const T fp = N - sps.W * (Xs * L + Ys * M);
+    okf = abs_(fp) > T(1e-14);
+    fpN = okf ? fp : T(1e-14);
+    t = t_s - fN / fpN;
   }
   const T x1 = xl + t * L, y1 = yl + t * M, z1 = zl + t * N;
   T r2 = T(0), rq = T(0), invd = T(0), fx = T(0), fy = T(0), im = T(1);
@@ -567,6 +773,14 @@ __device__ __forceinline__ void step_adjoint(int code, int refl, int absorbs,
     invd = cu * rq;
     fx = x1 * invd;
     fy = y1 * invd;
+    im = rsqrt_(fx * fx + fy * fy + T(1));
+    nx = fx * im;
+    ny = fy * im;
+    nz = -im;
+  } else if (newton) {
+    sag_point<T, true>(code, cu, k, cf, nc, x1 * x1 + y1 * y1, sp1);
+    fx = x1 * sp1.W;
+    fy = y1 * sp1.W;
     im = rsqrt_(fx * fx + fy * fy + T(1));
     nx = fx * im;
     ny = fy * im;
@@ -667,6 +881,26 @@ __device__ __forceinline__ void step_adjoint(int code, int refl, int absorbs,
     g_x1 += T(2) * x1 * g_r2;
     g_y1 += T(2) * y1 * g_r2;
   }
+  T c_sag = T(0);
+  if (newton) {
+    // n = (x1 W1, y1 W1, -1) rsqrt(.), W1 = W(x1^2 + y1^2)
+    const T g_nx = sgn * g_nxs, g_ny = sgn * g_nys, g_nz = sgn * g_nzs;
+    T g_fx = g_nx * im;
+    T g_fy = g_ny * im;
+    const T g_im = g_nx * fx + g_ny * fy - g_nz;
+    const T g_mg = T(-0.5) * g_im * im * im * im;
+    g_fx += T(2) * fx * g_mg;
+    g_fy += T(2) * fy * g_mg;
+    g_x1 += g_fx * sp1.W;
+    g_y1 += g_fy * sp1.W;
+    const T g_W1 = g_fx * x1 + g_fy * y1;
+    const T g_r2 = g_W1 * sp1.Wr;
+    g_x1 += T(2) * x1 * g_r2;
+    g_y1 += T(2) * y1 * g_r2;
+    g_cu += g_W1 * sp1.W_cu;
+    g_k += g_W1 * sp1.W_k;
+    c_sag = g_W1 * sp1.beta;
+  }
 
   // ---- propagate ----
   T g_xl = g_x1, g_yl = g_y1, g_zl = g_z1;
@@ -680,6 +914,10 @@ __device__ __forceinline__ void step_adjoint(int code, int refl, int absorbs,
   if constexpr (FULL) {
     const T ap = p[P_APMAX];
     g_i = x1 * x1 + y1 * y1 > ap * ap ? T(0) : g[7];
+    if constexpr (SAG) {
+      const T am = p[P_APMIN];
+      if (x1 * x1 + y1 * y1 < am * am) g_i = T(0);
+    }
     if (absorbs) {
       const T kpre = p[P_KPRE];
       const T e = exp_(T(ABS) * kpre * t * T(1e3));
@@ -734,6 +972,34 @@ __device__ __forceinline__ void step_adjoint(int code, int refl, int absorbs,
     g_yl += T(2) * yl * g_C;
     g_zl += T(2) * zl * (k + T(1)) * g_C;
     g_R = -g_cu * (cu * cu);
+  } else if (newton) {
+    // t = t_s - f / f' at the stopped t_s: f = zl + t_s N - s(X, Y),
+    // f' = N - W (X L + Y M), X = xl + t_s L, Y = yl + t_s M
+    const T g_f = -g_t / fpN;
+    const T g_fp = okf ? g_t * fN / (fpN * fpN) : T(0);
+    g_zl += g_f;
+    gN += g_f * t_s + g_fp;
+    const T g_s = -g_f;
+    const T g_W = -g_fp * (Xs * L + Ys * M);
+    gL -= g_fp * sps.W * Xs;
+    gM -= g_fp * sps.W * Ys;
+    T g_X = -g_fp * sps.W * L;
+    T g_Y = -g_fp * sps.W * M;
+    const T g_r2 = g_s * sps.W * T(0.5) + g_W * sps.Wr;  // ds/dr2 = W / 2
+    g_X += T(2) * Xs * g_r2;
+    g_Y += T(2) * Ys * g_r2;
+    g_cu += g_s * sps.s_cu + g_W * sps.W_cu;
+    g_k += g_s * sps.s_k + g_W * sps.W_k;
+    g_xl += g_X;
+    g_yl += g_Y;
+    gL += g_X * t_s;
+    gM += g_Y * t_s;
+    g_R = -g_cu * (cu * cu);
+    gs[0] = g_s;
+    gs[1] = g_W * sps.beta;
+    gs[2] = c_sag;
+    gs[3] = sps.rho;
+    gs[4] = sp1.rho;
   } else {
     g_zl -= g_t / Ns;
     if (big) gN += g_t * zl / (Ns * Ns);
@@ -848,29 +1114,81 @@ __device__ __forceinline__ void fill_npre(const T* sp, const int* sf, int S,
     npre[s + 1] = sf[S + s] ? npre[s] : sp[s * NUM_P + P_NPOST];
 }
 
+// Copy the (S, nc) geometry coefficient table into shared memory (SAG;
+// load_tables, which follows, synchronises).
+template <typename T, bool SAG>
+__device__ __forceinline__ void load_coefs(const T* cf, int S, int nc,
+                                           T* scf) {
+  if constexpr (SAG)
+    for (int i = threadIdx.x; i < S * nc; i += blockDim.x) scf[i] = cf[i];
+}
+
+// The Newton surfaces' column blocks of a backward's partial row: ssag[s]
+// the index of surface s among them; returns how many there are.
+__device__ __forceinline__ int fill_sag(const int* sf, int S, int* ssag) {
+  int n = 0;
+  for (int s = 0; s < S; ++s) {
+    ssag[s] = n;
+    if (is_newton(sf[s])) ++n;
+  }
+  return n;
+}
+
+// The per-warp gradient rows of a backward: static shared memory of
+// NW_MAX x NCOMP rows, or (DYN, the deep build) the dynamic shared memory,
+// nw rows of the launch's ncomp.
+template <typename T, bool DYN>
+__device__ __forceinline__ T* acc_rows(T* acc_static) {
+  if constexpr (DYN) {
+    extern __shared__ __align__(16) unsigned char dyn_smem[];
+    return reinterpret_cast<T*>(dyn_smem);
+  } else {
+    return acc_static;
+  }
+}
+
+// Expand a Newton surface's five coefficient scalars gs (step_adjoint) into
+// its nc columns, warp sums in column order, added by lane 0 to the warp's
+// row ``row`` from column ``base``.
+template <typename T>
+__device__ __forceinline__ void add_coef_cols(const T* gs, int nc, int lane,
+                                              T* row, int base) {
+  T ps = T(1), p1 = T(1);
+  for (int j = 0; j < nc; ++j) {
+    T v = gs[0] * ps * gs[3] + T(j + 1) * (gs[1] * ps + gs[2] * p1);
+    ps *= gs[3];
+    p1 *= gs[4];
+    v = warp_sum(v);
+    if (lane == 0) row[base + j] += v;
+  }
+}
+
 // The block's partial row of the summed gradients: the sum of the nw
-// per-warp rows of acc, in warp order.
-template <typename T, int NCOMP_MAX>
-__device__ __forceinline__ void store_partial_row(T (*acc)[NCOMP_MAX],
+// per-warp rows of acc (``stride`` apart), in warp order.
+template <typename T>
+__device__ __forceinline__ void store_partial_row(const T* acc, int stride,
                                                   int nw, int ncomp,
                                                   T* partial) {
   for (int j = threadIdx.x; j < ncomp; j += blockDim.x) {
     T v = T(0);
-    for (int w = 0; w < nw; ++w) v += acc[w][j];
+    for (int w = 0; w < nw; ++w) v += acc[w * stride + j];
     partial[(int64_t)blockIdx.x * ncomp + j] = v;
   }
 }
 
 // Fixed-order sum of a backward's partial rows (compact layout: NG slots per
-// surface, then n_aim aim entries), one block per compact column. The sum is
-// scattered into the (S*NUM_P + S*nc [+ N_AIM]) layout, whose other entries
-// the caller has zeroed.
+// surface, then nc coefficient columns for each Newton surface (nsagc in
+// all; ``codes`` are the surfaces' geometry codes), then n_extra entries),
+// one block per compact column. The sum is scattered into the
+// (S*NUM_P + S*nc [+ extras]) layout, whose other entries the caller has
+// zeroed.
 template <typename T, int NG>
 __global__ void __launch_bounds__(RED_BLOCK)
 grad_reduce_kernel(const T* __restrict__ partial, int nblocks, int S, int nc,
-                   int n_aim, T* __restrict__ out) {
+                   int nsagc, const int* __restrict__ codes, int n_extra,
+                   T* __restrict__ out) {
   __shared__ T red[2][32];
-  const int ncomp = S * NG + n_aim;
+  const int ncomp = S * NG + nsagc + n_extra;
   const int col = blockIdx.x;
   T v = T(0), unused = T(0);
   for (int b = threadIdx.x; b < nblocks; b += blockDim.x)
@@ -878,12 +1196,29 @@ grad_reduce_kernel(const T* __restrict__ partial, int nblocks, int S, int nc,
   block_sum2(v, unused, red);
   if (threadIdx.x == 0) {
     int dst;
-    if (col < S * NG)
+    if (col < S * NG) {
       dst = (col / NG) * NUM_P + kGradCol[col % NG];
-    else
-      dst = S * (NUM_P + nc) + (col - S * NG);
+    } else if (col < S * NG + nsagc) {
+      const int kk = (col - S * NG) / nc, j = (col - S * NG) % nc;
+      int s = 0, seen = -1;
+      for (; s < S; ++s)
+        if (is_newton(codes[s]) && ++seen == kk) break;
+      dst = S * NUM_P + s * nc + j;
+    } else {
+      dst = S * (NUM_P + nc) + (col - S * NG - nsagc);
+    }
     out[dst] = v;
   }
+}
+
+// Launch the reduction of a backward's partial rows (launchers' tail).
+template <typename T, int NG>
+int reduce_launch(const T* partial, int nblocks, int S, int nc, int nsagc,
+                  const int* codes, int n_extra, T* out, cudaStream_t stream) {
+  grad_reduce_kernel<T, NG><<<S * NG + nsagc + n_extra, RED_BLOCK, 0,
+                              stream>>>(partial, nblocks, S, nc, nsagc, codes,
+                                        n_extra, out);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace

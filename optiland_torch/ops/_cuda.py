@@ -41,45 +41,49 @@ _PP = ctypes.POINTER(ctypes.c_void_p)  # host array of device pointers
 _ARGTYPES = {
     # seed, offset, R, px, py, u1, u2, stream
     "prng_disk": [_U64, _I64, _I64, _VP, _VP, _VP, _VP, _VP],
-    # params, aim, flags, S, tilt, px, py, R, seed, offset, prng, rows,
+    # params, aim, flags, S, build, coeffs, nc, niters, px, py, R, seed,
+    # offset, prng, rows, stream
+    "merit_fwd": [_VP, _VP, _VP, _I, _I, _VP, _I, _I, _VP, _VP, _I64, _U64,
+                  _I64, _I, _VP, _VP],
+    # params, aim, stats, flags, S, build, coeffs, nc, niters, nsag, px, py,
+    # R, seed, offset, prng, partial, nblocks, block, out, stream
+    "merit_bwd": [_VP, _VP, _VP, _VP, _I, _I, _VP, _I, _I, _I, _VP, _VP,
+                  _I64, _U64, _I64, _I, _VP, _I, _I, _VP, _VP],
+    # params, flags, S, build, coeffs, nc, niters, in[8], R, out[8], stream
+    "trace_fwd": [_VP, _VP, _I, _I, _VP, _I, _I, _PP, _I64, _PP, _VP],
+    # params, aim, flags, S, build, coeffs, nc, niters, px, py, R, out[8],
     # stream
-    "merit_fwd": [_VP, _VP, _VP, _I, _I, _VP, _VP, _I64, _U64, _I64, _I, _VP,
-                  _VP],
-    # params, aim, stats, flags, S, tilt, nc, px, py, R, seed, offset, prng,
-    # partial, nblocks, block, out, stream
-    "merit_bwd": [_VP, _VP, _VP, _VP, _I, _I, _I, _VP, _VP, _I64, _U64, _I64,
-                  _I, _VP, _I, _I, _VP, _VP],
-    # params, flags, S, tilt, in[8], R, out[8], stream
-    "trace_fwd": [_VP, _VP, _I, _I, _PP, _I64, _PP, _VP],
-    # params, aim, flags, S, tilt, px, py, R, out[8], stream
-    "trace_field_fwd": [_VP, _VP, _VP, _I, _I, _VP, _VP, _I64, _PP, _VP],
-    # params, flags, S, tilt, nc, in[8], cot[8], R, din[8], partial,
-    # nblocks, out, stream
-    "trace_bwd": [_VP, _VP, _I, _I, _I, _PP, _PP, _I64, _PP, _VP, _I, _VP,
-                  _VP],
-    # params, aim, flags, S, tilt, nc, px, py, cot[8], R, partial, nblocks,
-    # out, stream
-    "trace_field_bwd": [_VP, _VP, _VP, _I, _I, _I, _VP, _VP, _PP, _I64, _VP,
-                        _I, _VP, _VP],
-    # params, mats, flags, S, tilt, nm, in[9], R, out[8], stream
-    "trace_fwd_poly": [_VP, _VP, _VP, _I, _I, _I, _PP, _I64, _PP, _VP],
-    # params, mats, flags, S, tilt, nc, nm, in[9], cot[8], R, din[8],
-    # partial, nblocks, out, stream
-    "trace_bwd_poly": [_VP, _VP, _VP, _I, _I, _I, _I, _PP, _PP, _I64, _PP,
-                       _VP, _I, _VP, _VP],
+    "trace_field_fwd": [_VP, _VP, _VP, _I, _I, _VP, _I, _I, _VP, _VP, _I64,
+                        _PP, _VP],
+    # params, flags, S, build, coeffs, nc, niters, nsag, in[8], cot[8], R,
+    # din[8], partial, nblocks, out, stream
+    "trace_bwd": [_VP, _VP, _I, _I, _VP, _I, _I, _I, _PP, _PP, _I64, _PP,
+                  _VP, _I, _VP, _VP],
+    # params, aim, flags, S, build, coeffs, nc, niters, nsag, px, py,
+    # cot[8], R, partial, nblocks, out, stream
+    "trace_field_bwd": [_VP, _VP, _VP, _I, _I, _VP, _I, _I, _I, _VP, _VP,
+                        _PP, _I64, _VP, _I, _VP, _VP],
+    # params, mats, flags, S, build, coeffs, nc, niters, nm, in[9], R,
+    # out[8], stream
+    "trace_fwd_poly": [_VP, _VP, _VP, _I, _I, _VP, _I, _I, _I, _PP, _I64,
+                       _PP, _VP],
+    # params, mats, flags, S, build, coeffs, nc, niters, nsag, nm, in[9],
+    # cot[8], R, din[8], partial, nblocks, out, stream
+    "trace_bwd_poly": [_VP, _VP, _VP, _I, _I, _VP, _I, _I, _I, _I, _PP, _PP,
+                       _I64, _PP, _VP, _I, _VP, _VP],
     # img[3], pup[8], cot[2] (null for the forward), P, Q, 2/lambda, k,
     # chunk, nsplit, partial, out, stream
     **{name: [_PP, _PP, _PP, _I64, _I64, _D, _D, _I64, _I, _VP, _VP, _VP]
        for name in ("huygens_fwd", "huygens_bwd_img", "huygens_bwd_pup")},
-    # params, coat, flags, S, tilt, ncoat, in[8], R, out[26 or 8],
-    # intensity, 8 state coefficients, nstates, stream
-    "pol_fwd": [_VP, _VP, _VP, _I, _I, _I, _PP, _I64, _PP, _I] + [_D] * 8
-    + [_I, _VP],
-    # params, coat, flags, S, tilt, nc, ncoat, in[8], cot[26 or 8], R,
-    # din[8], partial, nblocks, out, intensity, 8 state coefficients,
-    # nstates, stream
-    "pol_bwd": [_VP, _VP, _VP, _I, _I, _I, _I, _PP, _PP, _I64, _PP, _VP, _I,
-                _VP, _I] + [_D] * 8 + [_I, _VP],
+    # params, coat, flags, S, build, coeffs, nc, niters, ncoat, in[8], R,
+    # out[26 or 8], intensity, 8 state coefficients, nstates, stream
+    "pol_fwd": [_VP, _VP, _VP, _I, _I, _VP, _I, _I, _I, _PP, _I64, _PP, _I]
+    + [_D] * 8 + [_I, _VP],
+    # params, coat, flags, S, build, coeffs, nc, niters, nsag, ncoat, in[8],
+    # cot[26 or 8], R, din[8], partial, nblocks, out, intensity, 8 state
+    # coefficients, nstates, stream
+    "pol_bwd": [_VP, _VP, _VP, _I, _I, _VP, _I, _I, _I, _I, _PP, _PP, _I64,
+                _PP, _VP, _I, _VP, _I] + [_D] * 8 + [_I, _VP],
 }
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 

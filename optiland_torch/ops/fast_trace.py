@@ -29,8 +29,11 @@ count in ``LAUNCHES``. On a CUDA tensor a wrapper launches its kernel or
 raises; nothing falls back.
 
 The step is the full form of ``ops/step.py``: absorption, OPD and the
-circular clip are traced, and a tilted surface's rotations (the spec's
-tilt flags). As in the JAX package's kernels, the
+circular clip are traced, a tilted surface's rotations (the spec's tilt
+flags), the annular clip of a RadialAperture with r_min > 0 (the spec's
+``inner`` flags) and the Newton intersection of the radial aspheres, which
+read the (S, nc) coefficient table; the backwards give its gradient. As in
+the JAX package's kernels, the
 Beer-Lambert factor is applied only where the medium before the surface
 absorbs, read from the k tables' values; when the k tables are
 differentiated (they require grad, the counterpart of JAX tracers), every
@@ -47,22 +50,25 @@ from optiland_torch.core.rays import RealRays
 from optiland_torch.core.system import positions, scalar_like
 from optiland_torch.materials import dispersion
 from optiland_torch.ops.fused_trace import (
-    _aperture_columns, aim_vector, build_param_table,
+    _aperture_columns, _coeffs_or_zeros, aim_vector, build_param_table,
+    coef_row,
 )
 from optiland_torch.ops.launch import (
-    BWD_BLOCK, BWD_MAX_BLOCKS, N_AIM, check_cuda_inputs, covered, device_of,
-    flags, launch_from_pupil, launch_key, unsupported, with_tilt,
+    BWD_BLOCK, BWD_MAX_BLOCKS, N_AIM, build_of, check_cuda_inputs, covered,
+    device_of, flags, inner_flags, launch_from_pupil, launch_key,
+    sag_surfaces, unsupported, with_builds,
 )
 from optiland_torch.ops.step import (
     FULL_GRAD_COLS, NUM_P, P_NPOST, step_adjoint_plain, step_plain,
 )
 
-# Launch counts of the six kernels and of their TILT instantiations
-# ("_tilt"); each wrapper adds one where it launches its kernel and nowhere
-# else (a backward counts its partial-row launch together with the
-# fixed-order reduction launch that follows it).
-LAUNCHES = with_tilt(("trace_fwd", "trace_bwd", "trace_field_fwd",
-                      "trace_field_bwd", "trace_fwd_poly", "trace_bwd_poly"))
+# Launch counts of the six kernels per build (``launch.launch_key``); each
+# wrapper adds one where it launches its kernel and nowhere else (a backward
+# counts its partial-row launch together with the fixed-order reduction
+# launch that follows it).
+LAUNCHES = with_builds(("trace_fwd", "trace_bwd", "trace_field_fwd",
+                        "trace_field_bwd", "trace_fwd_poly",
+                        "trace_bwd_poly"))
 
 # Formula codes the polychromatic kernels evaluate (all but TABULATED_N),
 # and the widest coefficient row they take (csrc/step.cuh: MAX_NM)
@@ -111,21 +117,29 @@ def _masks(system):
     return tilted, absorbs
 
 
-def fast_spec(system, field=False):
+def fast_spec(system, field=False, newton_iters=10):
     """The kernels' static spec (geometry codes, reflective flags, absorb
-    flags, tilt flags) when they cover this system, else None. ``field``
-    asks for the field kernels, which also need an infinite-conjugate angle
-    field. Coverage is that of the merit kernels: PLANE and STANDARD
-    surfaces, tilted or not, no aperture objects, interactions or BSDFs
-    (the other families of kernel K6 come in a later slice), and no
-    coatings or polarization (the polarized kernels of ``ops/pol_trace.py``
-    take those)."""
+    flags, tilt flags, annular flags, Newton iterations) when they cover
+    this system, else None; the first four rows go to the kernels as
+    flags. ``field`` asks for the field kernels, which also need an
+    infinite-conjugate angle field. Coverage is that of the merit kernels:
+    PLANE, STANDARD, EVEN_ASPHERE and ODD_ASPHERE surfaces, tilted or not,
+    RadialAperture objects and no others, no interactions or BSDFs (the
+    other families of kernel K6 come in a later slice), and no coatings or
+    polarization (the polarized kernels of ``ops/pol_trace.py`` take
+    those)."""
     cfg = system.cfg
     if not covered(cfg, field):
         return None
     tilted, absorbs = _masks(system)
     return (tuple(cfg.geom_codes), tuple(cfg.reflective), absorbs,
-            tuple(bool(t) for t in tilted))
+            tuple(bool(t) for t in tilted), inner_flags(cfg),
+            int(newton_iters))
+
+
+def _build(spec):
+    """The build a fast or poly spec launches."""
+    return build_of(spec[0], spec[3], spec[-2])
 
 
 def fast_supported(system, field=False) -> bool:
@@ -135,21 +149,22 @@ def fast_supported(system, field=False) -> bool:
     return fast_spec(system, field) is not None
 
 
-def poly_spec(system):
-    """The polychromatic kernels' spec: ``fast_spec``'s, then the
-    per-surface dispersion formula codes (the poly entries of the JAX
-    package's ``_spec_of``), or None when the kernels do not cover the
+def poly_spec(system, newton_iters=10):
+    """The polychromatic kernels' spec: ``fast_spec``'s four flag rows,
+    the per-surface dispersion formula codes (the poly entries of the JAX
+    package's ``_spec_of``; a fifth flag row), then the annular flags and
+    the Newton iterations, or None when the kernels do not cover the
     structure or a material is tabulated (TABULATED_N has no formula to
     evaluate per ray). The absorb flags are kept and ignored: the
     polychromatic trace applies no absorption. Nothing here reads
     ``cfg.has_absorption``: as the JAX package's ``trace_fast_poly``, the
     kernels trace an absorbing system without its absorption (see
     ``poly_supported``)."""
-    spec = fast_spec(system)
+    spec = fast_spec(system, newton_iters=newton_iters)
     formulas = tuple(int(f) for f in system.cfg.mat_formulas)
     if spec is None or any(f not in POLY_FORMULAS for f in formulas):
         return None
-    return spec + (formulas,)
+    return spec[:4] + (formulas,) + spec[4:]
 
 
 def poly_supported(system) -> bool:
@@ -170,13 +185,15 @@ def _n_of(spec, mats, s, w):
     return dispersion.n_formula_scalar_terms(spec[4][s], mats[s].unbind(), w)
 
 
-def _chain_plain(params, spec, st, keep=False, mats=None, w=None):
+def _chain_plain(params, spec, st, keep=False, mats=None, w=None,
+                 coeffs=None):
     """Final state of the full chain; with ``keep`` also the per-surface
     input states and n_pre that the adjoint replays. With the per-ray
     wavelengths ``w`` (and the coefficient rows ``mats``) the chain is
     polychromatic: every index comes from its formula and nothing
-    absorbs."""
+    absorbs. ``coeffs`` is the geometry coefficient table."""
     codes, refl, absorbs = spec[:3]
+    inner, niters = spec[-2], spec[-1]
     poly = w is not None
     n_pre = _n_of(spec, mats, 0, w) if poly else params[0, P_NPOST]
     states = []
@@ -185,7 +202,9 @@ def _chain_plain(params, spec, st, keep=False, mats=None, w=None):
             states.append((st, n_pre))
         n_post = _n_of(spec, mats, s, w) if poly and not refl[s] else None
         st, n_pre = step_plain(codes[s], refl[s], params[s], n_pre, st,
-                               absorbs[s] and not poly, n_post=n_post)
+                               absorbs[s] and not poly, n_post=n_post,
+                               c=coef_row(coeffs, s), newton_iters=niters,
+                               inner=inner[s])
     return (st, states) if keep else st
 
 
@@ -194,31 +213,37 @@ def _field_launch(aim, Px, Py):
                                               torch.zeros_like(Px))
 
 
-def trace_fast_plain(params, spec, rays):
+def trace_fast_plain(params, spec, rays, coeffs=None):
     """Plain version of the trace_fwd kernel: the 8 final arrays of the 8
     launch arrays ``rays``."""
-    return _chain_plain(params, spec, tuple(rays))
+    return _chain_plain(params, spec, tuple(rays), coeffs=coeffs)
 
 
-def trace_fast_field_plain(params, aim, spec, Px, Py):
+def trace_fast_field_plain(params, aim, spec, Px, Py, coeffs=None):
     """Plain version of the trace_field_fwd kernel."""
-    return _chain_plain(params, spec, _field_launch(aim, Px, Py))
+    return _chain_plain(params, spec, _field_launch(aim, Px, Py),
+                        coeffs=coeffs)
 
 
-def _sweep_plain(params, spec, st0, cots, mats=None, w=None):
+def _sweep_plain(params, spec, st0, cots, mats=None, w=None, coeffs=None,
+                 nc=1):
     """The hand-derived reverse sweep from the 8 output cotangents: returns
-    the 8 per-ray cotangents of the launch state and the (S, NUM_P) param
-    table gradient, and for a polychromatic chain (``w`` given) also the
-    gradient of the coefficient rows ``mats``, which takes the index
-    cotangents (in the monochromatic chain the P_NPOST column's)."""
+    the 8 per-ray cotangents of the launch state, the (S, NUM_P) param
+    table gradient and the (S, nc) gradient of the coefficient table
+    ``coeffs`` (nonzero in the rows of the Newton families), and for a
+    polychromatic chain (``w`` given) also the gradient of the coefficient
+    rows ``mats``, which takes the index cotangents (in the monochromatic
+    chain the P_NPOST column's)."""
     codes, refl, absorbs, tilted = spec[:4]
+    inner, niters = spec[-2], spec[-1]
     S = len(codes)
     poly = w is not None
     with torch.no_grad():
         _, states = _chain_plain(params, spec, st0, keep=True, mats=mats,
-                                 w=w)
+                                 w=w, coeffs=coeffs)
         g = tuple(cots[:6]) + (torch.zeros_like(st0[0]),) + tuple(cots[6:])
         dparams = params.new_zeros((S, NUM_P))
+        dcoeffs = params.new_zeros((S, nc))
         dmats = mats.new_zeros(mats.shape) if poly else None
 
         def index_grad(s, g_n):
@@ -235,7 +260,10 @@ def _sweep_plain(params, spec, st0, cots, mats=None, w=None):
             g_in, g_npre, cols = step_adjoint_plain(
                 codes[s], refl[s], params[s], n_pre, st, g,
                 absorbs[s] and not poly, tilted=tilted[s], n_post=n_post,
+                c=coef_row(coeffs, s), newton_iters=niters, inner=inner[s],
             )
+            for j, v in enumerate(cols[len(FULL_GRAD_COLS):]):
+                dcoeffs[s, j] = v.sum()
             for col, v in zip(FULL_GRAD_COLS, cols):
                 if poly and col == P_NPOST:
                     if not refl[s]:
@@ -248,50 +276,52 @@ def _sweep_plain(params, spec, st0, cots, mats=None, w=None):
             index_grad(0, g[6])
         else:
             dparams[0, P_NPOST] = g[6].sum()
-    return (g[:6] + g[7:], dparams) + ((dmats,) if poly else ())
+    return (g[:6] + g[7:], dparams, dcoeffs) + ((dmats,) if poly else ())
 
 
-def trace_fast_bwd_plain(params, spec, nc, rays, cots):
+def trace_fast_bwd_plain(params, spec, nc, rays, cots, coeffs=None):
     """Plain version of the trace_bwd kernel: (the 8 per-ray input
     cotangents, the flat gradient in the layout (S * NUM_P params, S * nc
     coeffs))."""
-    din, dparams = _sweep_plain(params, spec, tuple(rays), cots)
-    dcoeffs = params.new_zeros(len(spec[0]) * nc)
-    return din, torch.cat([dparams.reshape(-1), dcoeffs])
+    din, dparams, dcoeffs = _sweep_plain(params, spec, tuple(rays), cots,
+                                         coeffs=coeffs, nc=nc)
+    return din, torch.cat([dparams.reshape(-1), dcoeffs.reshape(-1)])
 
 
-def trace_fast_field_bwd_plain(params, aim, spec, nc, Px, Py, cots):
+def trace_fast_field_bwd_plain(params, aim, spec, nc, Px, Py, cots,
+                               coeffs=None):
     """Plain version of the trace_field_bwd kernel: the flat gradient in the
     layout (S * NUM_P params, S * nc coeffs, N_AIM aim). The pupil samples
     get no cotangent."""
-    din, dparams = _sweep_plain(params, spec, _field_launch(aim, Px, Py),
-                                cots)
+    din, dparams, dcoeffs = _sweep_plain(
+        params, spec, _field_launch(aim, Px, Py), cots, coeffs=coeffs, nc=nc)
     gx, gy, gz, gL, gM, gN = din[:6]
     with torch.no_grad():
         daim = torch.stack([
             gx.sum(), gy.sum(), gz.sum(), gL.sum(), gM.sum(), gN.sum(),
             (gx * Px).sum(), (gy * Py).sum(),
         ])
-    dcoeffs = params.new_zeros(len(spec[0]) * nc)
-    return torch.cat([dparams.reshape(-1), dcoeffs, daim])
+    return torch.cat([dparams.reshape(-1), dcoeffs.reshape(-1), daim])
 
 
-def trace_fwd_poly_plain(params, mats, spec, rays):
+def trace_fwd_poly_plain(params, mats, spec, rays, coeffs=None):
     """Plain version of the trace_fwd_poly kernel: the 8 final arrays of
     the 9 launch arrays ``rays`` (the 8, then the wavelengths in um)."""
     rays = tuple(rays)
-    return _chain_plain(params, spec, rays[:8], mats=mats, w=rays[8])
+    return _chain_plain(params, spec, rays[:8], mats=mats, w=rays[8],
+                        coeffs=coeffs)
 
 
-def trace_bwd_poly_plain(params, mats, spec, nc, rays, cots):
+def trace_bwd_poly_plain(params, mats, spec, nc, rays, cots, coeffs=None):
     """Plain version of the trace_bwd_poly kernel: (the 8 per-ray input
     cotangents, the flat gradient in the layout (S * NUM_P params, S * nc
     coeffs, S * nm coefficient rows)). The wavelengths get no cotangent."""
     rays = tuple(rays)
-    din, dparams, dmats = _sweep_plain(params, spec, rays[:8], cots,
-                                       mats=mats, w=rays[8])
-    dcoeffs = params.new_zeros(len(spec[0]) * nc)
-    return din, torch.cat([dparams.reshape(-1), dcoeffs, dmats.reshape(-1)])
+    din, dparams, dcoeffs, dmats = _sweep_plain(
+        params, spec, rays[:8], cots, mats=mats, w=rays[8], coeffs=coeffs,
+        nc=nc)
+    return din, torch.cat([dparams.reshape(-1), dcoeffs.reshape(-1),
+                           dmats.reshape(-1)])
 
 
 # ---------------------------------------------------------------------------
@@ -307,108 +337,120 @@ def _bwd_blocks(R):
     return max(1, min(-(-R // BWD_BLOCK), BWD_MAX_BLOCKS))
 
 
-def trace_fwd(params, spec, rays):
+def _launch(name, params, spec, coeffs, before, rest):
+    """Launch kernel ``name`` with (params, ``before``, flags, S, build,
+    coeffs, nc, newton_iters, ``rest``)."""
+    from optiland_torch.ops import _cuda
+
+    build = _build(spec)
+    with torch.cuda.device(params.device):
+        rc = _cuda.call(
+            name, params.dtype, params.data_ptr(), *before,
+            # the flag rows: all but the annular flags and newton_iters
+            flags(spec[:-2], params.device).data_ptr(), len(spec[0]), build,
+            coeffs.data_ptr(), coeffs.shape[1], spec[-1], *rest,
+            _cuda.stream(),
+        )
+    _cuda.check(rc, name)
+    LAUNCHES[launch_key(name, build)] += 1
+
+
+def _partial(params, spec, nc, n_extra, R):
+    """A backward's per-block partial rows, their count, and the count of
+    Newton-family surfaces: FULL_GRAD_COLS per surface, nc coefficient
+    columns per Newton-family surface, then ``n_extra``."""
+    S, nsag = len(spec[0]), len(sag_surfaces(spec[0]))
+    ncomp = S * len(FULL_GRAD_COLS) + nsag * nc + n_extra
+    nb = _bwd_blocks(R)
+    return params.new_empty((nb, ncomp)), nb, nsag
+
+
+def trace_fwd(params, spec, rays, coeffs=None):
     """The 8 final arrays of the 8 launch arrays ``rays``: the trace_fwd
-    kernel on a CUDA device, its plain version on the CPU."""
+    kernel on a CUDA device, its plain version on the CPU. ``coeffs`` is
+    the (S, nc) coefficient table (None: zeros)."""
     if device_of(params.device, "trace_fwd") == "cpu":
-        return trace_fast_plain(params, spec, rays)
+        return trace_fast_plain(params, spec, rays, coeffs)
     from optiland_torch.ops import _cuda
 
     rays = tuple(rays)
-    check_cuda_inputs(params, spec, rays)
+    coeffs = _coeffs_or_zeros(coeffs, params)
+    check_cuda_inputs(params, spec, rays, coeffs=coeffs)
     out = _empty8(rays[0])
-    with torch.cuda.device(params.device):
-        rc = _cuda.call(
-            "trace_fwd", params.dtype, params.data_ptr(),
-            flags(spec, params.device).data_ptr(), len(spec[0]),
-            int(any(spec[3])), _cuda.pointers(rays), rays[0].shape[0],
-            _cuda.pointers(out), _cuda.stream(),
-        )
-    _cuda.check(rc, "trace_fwd")
-    LAUNCHES[launch_key("trace_fwd", any(spec[3]))] += 1
+    _launch("trace_fwd", params, spec, coeffs, (),
+            (_cuda.pointers(rays), rays[0].shape[0], _cuda.pointers(out)))
     return tuple(out)
 
 
-def trace_bwd(params, spec, nc, rays, cots):
+def trace_bwd(params, spec, nc, rays, cots, coeffs=None):
     """(8 per-ray input cotangents, flat (S * NUM_P + S * nc) gradient) for
     the 8 output cotangents ``cots``: the trace_bwd kernel and its
     fixed-order reduction on a CUDA device, the plain version on the CPU."""
     if device_of(params.device, "trace_bwd") == "cpu":
-        return trace_fast_bwd_plain(params, spec, nc, rays, cots)
+        return trace_fast_bwd_plain(params, spec, nc, rays, cots, coeffs)
     from optiland_torch.ops import _cuda
 
     rays, cots = tuple(rays), tuple(cots)
-    check_cuda_inputs(params, spec, rays + cots)
+    coeffs = _coeffs_or_zeros(coeffs, params)
+    check_cuda_inputs(params, spec, rays + cots, coeffs=coeffs)
+    _check_nc(coeffs, nc)
     S, R = len(spec[0]), rays[0].shape[0]
-    nb = _bwd_blocks(R)
+    partial, nb, nsag = _partial(params, spec, nc, 0, R)
     din = _empty8(rays[0])
-    partial = params.new_empty((nb, S * len(FULL_GRAD_COLS)))
     out = params.new_zeros(S * (NUM_P + nc))
-    with torch.cuda.device(params.device):
-        rc = _cuda.call(
-            "trace_bwd", params.dtype, params.data_ptr(),
-            flags(spec, params.device).data_ptr(), S, int(any(spec[3])), nc,
-            _cuda.pointers(rays), _cuda.pointers(cots), R,
-            _cuda.pointers(din), partial.data_ptr(), nb, out.data_ptr(),
-            _cuda.stream(),
-        )
-    _cuda.check(rc, "trace_bwd")
-    LAUNCHES[launch_key("trace_bwd", any(spec[3]))] += 1
+    _launch("trace_bwd", params, spec, coeffs, (),
+            (nsag, _cuda.pointers(rays), _cuda.pointers(cots), R,
+             _cuda.pointers(din), partial.data_ptr(), nb, out.data_ptr()))
     return tuple(din), out
 
 
-def trace_field_fwd(params, aim, spec, Px, Py):
+def trace_field_fwd(params, aim, spec, Px, Py, coeffs=None):
     """The 8 final arrays of the rays launched from the pupil samples: the
     trace_field_fwd kernel on a CUDA device, its plain version on the
     CPU."""
     if device_of(params.device, "trace_field_fwd") == "cpu":
-        return trace_fast_field_plain(params, aim, spec, Px, Py)
+        return trace_fast_field_plain(params, aim, spec, Px, Py, coeffs)
     from optiland_torch.ops import _cuda
 
-    check_cuda_inputs(params, spec, (Px, Py), aim)
+    coeffs = _coeffs_or_zeros(coeffs, params)
+    check_cuda_inputs(params, spec, (Px, Py), aim, coeffs)
     out = _empty8(Px)
-    with torch.cuda.device(params.device):
-        rc = _cuda.call(
-            "trace_field_fwd", params.dtype, params.data_ptr(),
-            aim.data_ptr(), flags(spec, params.device).data_ptr(),
-            len(spec[0]), int(any(spec[3])), Px.data_ptr(), Py.data_ptr(),
-            Px.shape[0], _cuda.pointers(out), _cuda.stream(),
-        )
-    _cuda.check(rc, "trace_field_fwd")
-    LAUNCHES[launch_key("trace_field_fwd", any(spec[3]))] += 1
+    _launch("trace_field_fwd", params, spec, coeffs, (aim.data_ptr(),),
+            (Px.data_ptr(), Py.data_ptr(), Px.shape[0], _cuda.pointers(out)))
     return tuple(out)
 
 
-def trace_field_bwd(params, aim, spec, nc, Px, Py, cots):
+def trace_field_bwd(params, aim, spec, nc, Px, Py, cots, coeffs=None):
     """Flat (S * NUM_P + S * nc + N_AIM) gradient for the 8 output
     cotangents ``cots``: the trace_field_bwd kernel and its fixed-order
     reduction on a CUDA device, the plain version on the CPU."""
     if device_of(params.device, "trace_field_bwd") == "cpu":
-        return trace_fast_field_bwd_plain(params, aim, spec, nc, Px, Py, cots)
+        return trace_fast_field_bwd_plain(params, aim, spec, nc, Px, Py, cots,
+                                          coeffs)
     from optiland_torch.ops import _cuda
 
     cots = tuple(cots)
-    check_cuda_inputs(params, spec, (Px, Py) + cots, aim)
+    coeffs = _coeffs_or_zeros(coeffs, params)
+    check_cuda_inputs(params, spec, (Px, Py) + cots, aim, coeffs)
+    _check_nc(coeffs, nc)
     S, R = len(spec[0]), Px.shape[0]
-    nb = _bwd_blocks(R)
-    partial = params.new_empty((nb, S * len(FULL_GRAD_COLS) + N_AIM))
+    partial, nb, nsag = _partial(params, spec, nc, N_AIM, R)
     out = params.new_zeros(S * (NUM_P + nc) + N_AIM)
-    with torch.cuda.device(params.device):
-        rc = _cuda.call(
-            "trace_field_bwd", params.dtype, params.data_ptr(),
-            aim.data_ptr(), flags(spec, params.device).data_ptr(), S,
-            int(any(spec[3])), nc, Px.data_ptr(), Py.data_ptr(),
-            _cuda.pointers(cots), R, partial.data_ptr(), nb, out.data_ptr(),
-            _cuda.stream(),
-        )
-    _cuda.check(rc, "trace_field_bwd")
-    LAUNCHES[launch_key("trace_field_bwd", any(spec[3]))] += 1
+    _launch("trace_field_bwd", params, spec, coeffs, (aim.data_ptr(),),
+            (nsag, Px.data_ptr(), Py.data_ptr(), _cuda.pointers(cots), R,
+             partial.data_ptr(), nb, out.data_ptr()))
     return out
 
 
-def _check_poly(params, mats, spec, arrays):
-    check_cuda_inputs(params, spec, arrays)
-    if len(spec) != 5 or any(f not in POLY_FORMULAS for f in spec[4]):
+def _check_nc(coeffs, nc):
+    if coeffs.shape[1] != nc:
+        raise ValueError(f"nc ({nc}) must be the coefficient table's width "
+                         f"({coeffs.shape[1]})")
+
+
+def _check_poly(params, mats, spec, arrays, coeffs):
+    check_cuda_inputs(params, spec, arrays, coeffs=coeffs)
+    if len(spec) != 7 or any(f not in POLY_FORMULAS for f in spec[4]):
         raise ValueError("the polychromatic kernels take a spec with a "
                          "formula code (not TABULATED_N) per surface")
     if (mats.device != params.device or mats.dtype != params.dtype
@@ -420,56 +462,45 @@ def _check_poly(params, mats, spec, arrays):
                          f"1 <= nm <= {MAX_NM}")
 
 
-def trace_fwd_poly(params, mats, spec, rays):
+def trace_fwd_poly(params, mats, spec, rays, coeffs=None):
     """The 8 final arrays of the 9 launch arrays ``rays`` (the last the
     per-ray wavelengths): the trace_fwd_poly kernel on a CUDA device, its
     plain version on the CPU."""
     if device_of(params.device, "trace_fwd_poly") == "cpu":
-        return trace_fwd_poly_plain(params, mats, spec, rays)
+        return trace_fwd_poly_plain(params, mats, spec, rays, coeffs)
     from optiland_torch.ops import _cuda
 
     rays = tuple(rays)
-    _check_poly(params, mats, spec, rays)
+    coeffs = _coeffs_or_zeros(coeffs, params)
+    _check_poly(params, mats, spec, rays, coeffs)
     out = _empty8(rays[0])
-    with torch.cuda.device(params.device):
-        rc = _cuda.call(
-            "trace_fwd_poly", params.dtype, params.data_ptr(),
-            mats.data_ptr(), flags(spec, params.device).data_ptr(),
-            len(spec[0]), int(any(spec[3])), mats.shape[1],
-            _cuda.pointers(rays), rays[0].shape[0], _cuda.pointers(out),
-            _cuda.stream(),
-        )
-    _cuda.check(rc, "trace_fwd_poly")
-    LAUNCHES[launch_key("trace_fwd_poly", any(spec[3]))] += 1
+    _launch("trace_fwd_poly", params, spec, coeffs, (mats.data_ptr(),),
+            (mats.shape[1], _cuda.pointers(rays), rays[0].shape[0],
+             _cuda.pointers(out)))
     return tuple(out)
 
 
-def trace_bwd_poly(params, mats, spec, nc, rays, cots):
+def trace_bwd_poly(params, mats, spec, nc, rays, cots, coeffs=None):
     """(8 per-ray input cotangents, flat (S * NUM_P + S * nc + S * nm)
     gradient) for the 8 output cotangents ``cots`` of a polychromatic
     trace: the trace_bwd_poly kernel and its fixed-order reduction on a
     CUDA device, the plain version on the CPU."""
     if device_of(params.device, "trace_bwd_poly") == "cpu":
-        return trace_bwd_poly_plain(params, mats, spec, nc, rays, cots)
+        return trace_bwd_poly_plain(params, mats, spec, nc, rays, cots,
+                                    coeffs)
     from optiland_torch.ops import _cuda
 
     rays, cots = tuple(rays), tuple(cots)
-    _check_poly(params, mats, spec, rays + cots)
+    coeffs = _coeffs_or_zeros(coeffs, params)
+    _check_poly(params, mats, spec, rays + cots, coeffs)
+    _check_nc(coeffs, nc)
     S, R, nm = len(spec[0]), rays[0].shape[0], mats.shape[1]
-    nb = _bwd_blocks(R)
+    partial, nb, nsag = _partial(params, spec, nc, S * nm, R)
     din = _empty8(rays[0])
-    partial = params.new_empty((nb, S * (len(FULL_GRAD_COLS) + nm)))
     out = params.new_zeros(S * (NUM_P + nc + nm))
-    with torch.cuda.device(params.device):
-        rc = _cuda.call(
-            "trace_bwd_poly", params.dtype, params.data_ptr(),
-            mats.data_ptr(), flags(spec, params.device).data_ptr(), S,
-            int(any(spec[3])), nc, nm, _cuda.pointers(rays),
-            _cuda.pointers(cots), R, _cuda.pointers(din), partial.data_ptr(),
-            nb, out.data_ptr(), _cuda.stream(),
-        )
-    _cuda.check(rc, "trace_bwd_poly")
-    LAUNCHES[launch_key("trace_bwd_poly", any(spec[3]))] += 1
+    _launch("trace_bwd_poly", params, spec, coeffs, (mats.data_ptr(),),
+            (nsag, nm, _cuda.pointers(rays), _cuda.pointers(cots), R,
+             _cuda.pointers(din), partial.data_ptr(), nb, out.data_ptr()))
     return tuple(din), out
 
 
@@ -489,16 +520,16 @@ class _TraceFast(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, params, coeffs, spec, *rays):
-        out = trace_fwd(params, spec, rays)
-        ctx.save_for_backward(params, *rays)
+        out = trace_fwd(params, spec, rays, coeffs)
+        ctx.save_for_backward(params, coeffs, *rays)
         ctx.spec, ctx.nc = spec, coeffs.shape[1]
         return out
 
     @staticmethod
     def backward(ctx, *g):
-        params, *rays = ctx.saved_tensors
+        params, coeffs, *rays = ctx.saved_tensors
         cots = [c.contiguous() for c in g]
-        din, flat = trace_bwd(params, ctx.spec, ctx.nc, rays, cots)
+        din, flat = trace_bwd(params, ctx.spec, ctx.nc, rays, cots, coeffs)
         dparams, dcoeffs, _ = _split(flat, len(ctx.spec[0]), ctx.nc)
         return (dparams, dcoeffs, None) + tuple(din)
 
@@ -509,16 +540,17 @@ class _TraceFastField(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, params, coeffs, aim, Px, Py, spec):
-        out = trace_field_fwd(params, aim, spec, Px, Py)
-        ctx.save_for_backward(params, aim, Px, Py)
+        out = trace_field_fwd(params, aim, spec, Px, Py, coeffs)
+        ctx.save_for_backward(params, coeffs, aim, Px, Py)
         ctx.spec, ctx.nc = spec, coeffs.shape[1]
         return out
 
     @staticmethod
     def backward(ctx, *g):
-        params, aim, Px, Py = ctx.saved_tensors
+        params, coeffs, aim, Px, Py = ctx.saved_tensors
         cots = [c.contiguous() for c in g]
-        flat = trace_field_bwd(params, aim, ctx.spec, ctx.nc, Px, Py, cots)
+        flat = trace_field_bwd(params, aim, ctx.spec, ctx.nc, Px, Py, cots,
+                               coeffs)
         dparams, dcoeffs, daim = _split(flat, len(ctx.spec[0]), ctx.nc)
         return dparams, dcoeffs, daim, None, None, None
 
@@ -527,17 +559,18 @@ def _coeffs(system, dtype):
     coeffs = system.stack.coeffs
     if coeffs.shape[1] == 0:
         coeffs = coeffs.new_zeros((coeffs.shape[0], 1))
-    return coeffs.to(dtype)
+    return coeffs.to(dtype).contiguous()
 
 
-def trace_fast(system, rays, wavelength):
+def trace_fast(system, rays, wavelength, newton_iters: int = 10):
     """Fused trace of a ray bundle, monochromatic: the final state only.
 
     Equivalent to ``core.trace.trace(..., record=False)`` for systems that
-    ``fast_supported`` covers; its gradient runs the hand-derived adjoint.
-    The bundle's dtype and device decide where it runs: the kernels on a
-    CUDA device, their plain versions on the CPU."""
-    spec = fast_spec(system)
+    ``fast_supported`` covers (the aspheres by ``newton_iters`` Newton
+    steps, the plain engine's by 16); its gradient runs the hand-derived
+    adjoint. The bundle's dtype and device decide where it runs: the
+    kernels on a CUDA device, their plain versions on the CPU."""
+    spec = fast_spec(system, newton_iters=newton_iters)
     if spec is None:
         raise unsupported("trace_fast")
     dt = rays.x.dtype
@@ -549,13 +582,14 @@ def trace_fast(system, rays, wavelength):
     return RealRays(x=x, y=y, z=z, L=L, M=M, N=N, i=i, w=rays.w, opd=opd)
 
 
-def trace_fast_field(system, Hx, Hy, Px, Py, wavelength):
+def trace_fast_field(system, Hx, Hy, Px, Py, wavelength,
+                     newton_iters: int = 10):
     """Fused generate+trace for one (Hx, Hy) field of an infinite-conjugate
     angle-field system: equivalent to ``generate_rays`` followed by
     ``trace_fast``, with each ray launched from its pupil sample and the
     8-scalar aim vector. The dtype is Px's when it is a tensor, else the
     stack's; the device is the stack's."""
-    spec = fast_spec(system, field=True)
+    spec = fast_spec(system, field=True, newton_iters=newton_iters)
     if spec is None:
         raise unsupported("trace_fast_field")
     params = build_param_table(system, wavelength)
@@ -578,16 +612,17 @@ class _TraceFastPoly(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, params, coeffs, mats, spec, *rays):
-        out = trace_fwd_poly(params, mats, spec, rays)
-        ctx.save_for_backward(params, mats, *rays)
+        out = trace_fwd_poly(params, mats, spec, rays, coeffs)
+        ctx.save_for_backward(params, coeffs, mats, *rays)
         ctx.spec, ctx.nc = spec, coeffs.shape[1]
         return out
 
     @staticmethod
     def backward(ctx, *g):
-        params, mats, *rays = ctx.saved_tensors
+        params, coeffs, mats, *rays = ctx.saved_tensors
         cots = [c.contiguous() for c in g]
-        din, flat = trace_bwd_poly(params, mats, ctx.spec, ctx.nc, rays, cots)
+        din, flat = trace_bwd_poly(params, mats, ctx.spec, ctx.nc, rays, cots,
+                                   coeffs)
         S = len(ctx.spec[0])
         dparams, dcoeffs, dmats = _split(flat, S, ctx.nc)
         return ((dparams, dcoeffs, dmats.reshape(S, -1), None) + tuple(din)
@@ -622,9 +657,8 @@ def trace_fast_poly(system, rays, newton_iters: int = 10):
     system's k data) and passes no cotangent to the wavelengths. The
     bundle's dtype and device decide where it runs: the kernels
     (trace_fwd_poly, trace_bwd_poly) on a CUDA device, their plain versions
-    on the CPU. ``newton_iters`` is accepted only for the JAX package's
-    signature: PLANE and STANDARD surfaces intersect in closed form."""
-    spec = poly_spec(system)
+    on the CPU. ``newton_iters`` is the aspheres' Newton step count."""
+    spec = poly_spec(system, newton_iters)
     if spec is None:
         raise unsupported("trace_fast_poly (no tabulated material)")
     dt = rays.x.dtype

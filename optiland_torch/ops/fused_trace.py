@@ -30,8 +30,10 @@ forward pass's rays, which the exactness of the seeded gradient needs
 bits cannot be reproduced, so comparisons with it use explicit samples.
 
 The merit reads only the final x and y of each ray, so intensity, OPD,
-absorption and the aperture clip are not traced: as in the JAX package,
-every in-range ray counts in the statistics whatever its intensity.
+absorption and the aperture clips are not traced: as in the JAX package,
+every in-range ray counts in the statistics whatever its intensity. A
+surface of a Newton family (EVEN_ASPHERE, ODD_ASPHERE) reads its row of
+the coefficient table, and the backward gives that row's gradient.
 """
 
 from __future__ import annotations
@@ -45,23 +47,25 @@ from optiland_torch.core.system import (
     k_all, n_all, positions, scalar_like, static_tensor,
 )
 from optiland_torch.ops.launch import (
-    BWD_BLOCK, BWD_MAX_BLOCKS, FWD_BLOCK, N_AIM, check_cuda_inputs, check_dtype,
-    covered, device_of, flags, launch_from_pupil, launch_key, unsupported,
-    with_tilt,
+    BWD_BLOCK, BWD_MAX_BLOCKS, FWD_BLOCK, N_AIM, build_of, check_cuda_inputs,
+    check_dtype, covered, device_of, flags, launch_from_pupil, launch_key,
+    sag_surfaces, unsupported, with_builds,
 )
 from optiland_torch.ops.step import (
     GRAD_COLS, NUM_P, P_NPOST, step_adjoint_plain, step_plain,
 )
+from optiland_torch.physical_apertures import radial_only
 
 # Unit of ``sub_offset``: the JAX package's PRNG sub-block (32 x 128 rays),
 # so a shard's offset means the same rays in both packages.
 SUB_RAYS = 4096
 
-# Launch counts of the three kernels and of the merit kernels' TILT
-# instantiations ("_tilt"); each wrapper adds one where it launches its
-# kernel and nowhere else (merit_bwd counts its partial-row launch together
-# with the fixed-order reduction launch that follows it).
-LAUNCHES = {"prng_disk": 0, **with_tilt(("merit_fwd", "merit_bwd"))}
+# Launch counts of the three kernels, the merit kernels per build
+# (``launch.launch_key``: "", "_tilt", "_sag", "_deep"); each wrapper adds
+# one where it launches its kernel and nowhere else (merit_bwd counts its
+# partial-row launch together with the fixed-order reduction launch that
+# follows it).
+LAUNCHES = {"prng_disk": 0, **with_builds(("merit_fwd", "merit_bwd"))}
 
 
 def reset_launch_counts():
@@ -82,22 +86,28 @@ def _tilt_mask(system):
     return (r != 0).any(dim=0).tolist()
 
 
-def _spec_of(system):
+def _spec_of(system, newton_iters=10):
     """The static kernel spec: (geometry codes, reflective flags, tilt
-    flags), the part of the JAX package's spec that the merit kernels read.
-    Its other entries (geometry extras, absorption, annular apertures,
-    gratings, polychromatic formulas) describe families that
-    ``fused_supported`` refuses until a later slice ports them."""
+    flags, Newton iterations), the part of the JAX package's spec that the
+    merit kernels read; the three flag rows go to the kernels. Its other
+    entries (geometry extras, absorption, annular apertures, gratings,
+    polychromatic formulas) the merit does not read, or describe families
+    that ``fused_supported`` refuses until a later slice ports them."""
     cfg = system.cfg
     return (tuple(cfg.geom_codes), tuple(cfg.reflective),
-            tuple(bool(t) for t in _tilt_mask(system)))
+            tuple(bool(t) for t in _tilt_mask(system)), int(newton_iters))
+
+
+def _build(spec):
+    return build_of(spec[0], spec[2])
 
 
 def fused_supported(system) -> bool:
     """True when the fused merit kernels cover this system: what
-    ``launch.covered`` lists, tilted surfaces included. The other families
-    of kernel K6 (Newton-sag geometries, gratings, annular apertures,
-    NURBS) come in a later slice."""
+    ``launch.covered`` lists, tilted surfaces, the radial aspheres and
+    RadialAperture objects included. The other families of kernel K6
+    (the other Newton-sag geometries, gratings, NURBS) come in a later
+    slice."""
     return covered(system.cfg)
 
 
@@ -107,15 +117,25 @@ def fused_supported(system) -> bool:
 
 
 def _aperture_columns(system):
-    """(ap_max, ap_min) per surface. Aperture objects (which override the
-    stack's circular semi-aperture in the JAX package) come in a later
-    slice."""
+    """(ap_max, ap_min) per surface: a RadialAperture's r_max and r_min
+    override the stack's circular semi-aperture and 0 (the JAX package's
+    ``_aperture_columns``); any other aperture object raises."""
     stack, cfg = system.stack, system.cfg
-    if cfg.apertures is not None and any(a is not None for a in cfg.apertures):
-        raise NotImplementedError(
-            "physical aperture objects are ported in a later slice"
-        )
-    return stack.ap_max, torch.zeros_like(stack.ap_max)
+    ap_max, ap_min = stack.ap_max, torch.zeros_like(stack.ap_max)
+    aps = cfg.apertures
+    if aps is None or all(a is None for a in aps):
+        return ap_max, ap_min
+    if not radial_only(aps):
+        raise NotImplementedError("physical aperture objects other than "
+                                  "RadialAperture are ported in a later "
+                                  "slice")
+    dt, dev = ap_max.dtype, ap_max.device
+    mask = static_tensor(tuple(a is not None for a in aps), torch.bool, dev)
+    rmax = static_tensor(tuple(float(a.r_max) if a is not None else 0.0
+                               for a in aps), dt, dev)
+    rmin = static_tensor(tuple(float(a.r_min) if a is not None else 0.0
+                               for a in aps), dt, dev)
+    return torch.where(mask, rmax, ap_max), torch.where(mask, rmin, ap_min)
 
 
 def build_param_table(system, wavelength):
@@ -305,9 +325,15 @@ def prng_pupil_samples(seed, num_rays, tile=None, sub_offset=0, *,
 # ---------------------------------------------------------------------------
 
 
-def trace_xy_plain(params, aim, spec, Px, Py, keep=False):
+def coef_row(coeffs, s):
+    """Row s of the coefficient table, or None without one."""
+    return None if coeffs is None else coeffs[s]
+
+
+def trace_xy_plain(params, aim, spec, Px, Py, keep=False, coeffs=None):
     """Final (x, y) of every ray; with ``keep`` also the per-surface input
-    states (x, y, z, L, M, N, n_pre) that the adjoint replays."""
+    states (x, y, z, L, M, N, n_pre) that the adjoint replays. ``coeffs``
+    is the (S, nc) coefficient table the Newton families read."""
     codes, refl = spec[0], spec[1]
     st = launch_from_pupil(aim, Px, Py)
     n_pre = params[0, P_NPOST]
@@ -315,7 +341,8 @@ def trace_xy_plain(params, aim, spec, Px, Py, keep=False):
     for s in range(1, len(codes)):
         if keep:
             states.append((st, n_pre))
-        st, n_pre = step_plain(codes[s], refl[s], params[s], n_pre, st)
+        st, n_pre = step_plain(codes[s], refl[s], params[s], n_pre, st,
+                               c=coef_row(coeffs, s), newton_iters=spec[-1])
     return (st[0], st[1], states) if keep else (st[0], st[1])
 
 
@@ -326,11 +353,11 @@ def _pupil(R, seed, offset, Px, Py, dtype, device):
 
 
 def merit_fwd_plain(params, aim, spec, R, seed=0, offset=0, Px=None, Py=None,
-                    block=FWD_BLOCK):
+                    block=FWD_BLOCK, coeffs=None):
     """Plain version of the merit_fwd kernel: (blocks, 5) rows of
     (mean_x, mean_y, M2x, M2y, n) about each block's own centroid."""
     Px, Py = _pupil(R, seed, offset, Px, Py, params.dtype, params.device)
-    x, y = trace_xy_plain(params, aim, spec, Px, Py)
+    x, y = trace_xy_plain(params, aim, spec, Px, Py, coeffs=coeffs)
     nb = -(-R // block)
     pad = nb * block - R
     valid = torch.arange(nb * block, device=x.device) < R
@@ -346,29 +373,40 @@ def merit_fwd_plain(params, aim, spec, R, seed=0, offset=0, Px=None, Py=None,
     return torch.stack([mx, my, m2x, m2y, n], dim=1)
 
 
-def merit_fwd(params, aim, spec, R, seed=0, offset=0, Px=None, Py=None):
+def _coeffs_or_zeros(coeffs, params):
+    """The kernels' coefficient table: ``coeffs``, or one zero column."""
+    if coeffs is None:
+        return params.new_zeros((params.shape[0], 1))
+    return coeffs
+
+
+def merit_fwd(params, aim, spec, R, seed=0, offset=0, Px=None, Py=None,
+              coeffs=None):
     """(blocks, 5) per-block Chan rows of the traced spot. PRNG mode when
     ``Px`` is None. CUDA kernel on a CUDA device, plain version on the
-    CPU."""
+    CPU. ``coeffs`` is the (S, nc) coefficient table (None: zeros)."""
     if device_of(params.device, "merit_fwd") == "cpu":
-        return merit_fwd_plain(params, aim, spec, R, seed, offset, Px, Py)
+        return merit_fwd_plain(params, aim, spec, R, seed, offset, Px, Py,
+                               coeffs=coeffs)
     from optiland_torch.ops import _cuda
 
-    check_cuda_inputs(params, spec, (Px, Py), aim)
+    coeffs = _coeffs_or_zeros(coeffs, params)
+    check_cuda_inputs(params, spec, (Px, Py), aim, coeffs)
     nb = -(-R // FWD_BLOCK)
     rows = torch.empty((nb, 5), dtype=params.dtype, device=params.device)
     prng = Px is None
+    build = _build(spec)
     with torch.cuda.device(params.device):
         rc = _cuda.call(
             "merit_fwd", params.dtype, params.data_ptr(), aim.data_ptr(),
-            flags(spec, params.device).data_ptr(), len(spec[0]),
-            int(any(spec[2])), None if prng else Px.data_ptr(),
-            None if prng else Py.data_ptr(),
+            flags(spec[:-1], params.device).data_ptr(), len(spec[0]), build,
+            coeffs.data_ptr(), coeffs.shape[1], spec[-1],
+            None if prng else Px.data_ptr(), None if prng else Py.data_ptr(),
             int(R), int(seed) & ((1 << 64) - 1), int(offset), int(prng),
             rows.data_ptr(), _cuda.stream(),
         )
     _cuda.check(rc, "merit_fwd")
-    LAUNCHES[launch_key("merit_fwd", any(spec[2]))] += 1
+    LAUNCHES[launch_key("merit_fwd", build)] += 1
     return rows
 
 
@@ -378,15 +416,17 @@ def merit_fwd(params, aim, spec, R, seed=0, offset=0, Px=None, Py=None):
 
 
 def merit_bwd_plain(params, aim, stats, spec, nc, R, seed=0, offset=0,
-                    Px=None, Py=None):
+                    Px=None, Py=None, coeffs=None):
     """Plain version of the merit_bwd kernel: the hand-derived reverse sweep
     in torch tensor ops, one tensor per ray quantity. Returns the flat
     gradient in the layout (S * NUM_P params, S * nc coeffs, N_AIM aim)."""
     S = len(spec[0])
-    codes, refl, tilted = spec
+    codes, refl, tilted, niters = spec
     Px, Py = _pupil(R, seed, offset, Px, Py, params.dtype, params.device)
+    dcoeffs = torch.zeros((S, nc), dtype=params.dtype, device=params.device)
     with torch.no_grad():
-        x, y, states = trace_xy_plain(params, aim, spec, Px, Py, keep=True)
+        x, y, states = trace_xy_plain(params, aim, spec, Px, Py, keep=True,
+                                      coeffs=coeffs)
         xbar, ybar, scale = stats[0], stats[1], stats[2]
         zero = torch.zeros_like(x)
         g = (2 * scale * (x - xbar), 2 * scale * (y - ybar),
@@ -396,10 +436,13 @@ def merit_bwd_plain(params, aim, stats, spec, nc, R, seed=0, offset=0,
         for s in range(S - 1, 0, -1):
             st, n_pre = states[s - 1]
             g_in, g_npre, g6 = step_adjoint_plain(
-                codes[s], refl[s], params[s], n_pre, st, g, tilted=tilted[s]
+                codes[s], refl[s], params[s], n_pre, st, g, tilted=tilted[s],
+                c=coef_row(coeffs, s), newton_iters=niters,
             )
             for col, v in zip(GRAD_COLS, g6):
                 dparams[s, col] = v.sum()
+            for j, v in enumerate(g6[len(GRAD_COLS):]):
+                dcoeffs[s, j] = v.sum()
             g = g_in + (g_npre,)
         gx, gy, gz, gL, gM, gN, g_n0 = g
         dparams[0, P_NPOST] = g_n0.sum()
@@ -407,7 +450,6 @@ def merit_bwd_plain(params, aim, stats, spec, nc, R, seed=0, offset=0,
             gx.sum(), gy.sum(), gz.sum(), gL.sum(), gM.sum(), gN.sum(),
             (gx * Px).sum(), (gy * Py).sum(),
         ])
-        dcoeffs = torch.zeros((S, nc), dtype=params.dtype, device=params.device)
     return torch.cat([dparams.reshape(-1), dcoeffs.reshape(-1), daim])
 
 
@@ -422,38 +464,44 @@ def _bwd_block(tile):
 
 
 def merit_bwd(params, aim, stats, spec, nc, R, seed=0, offset=0, Px=None,
-              Py=None, block=None):
+              Py=None, block=None, coeffs=None):
     """Flat merit gradient (S * NUM_P + S * nc + N_AIM) for the seed
     ``stats`` = [xbar, ybar, g / R, 0]. CUDA kernels on a CUDA device (one
     partial row per block of ``block`` rays, then a fixed-order sum of the
-    rows), plain version on the CPU, where there are no blocks."""
+    rows), plain version on the CPU, where there are no blocks. ``coeffs``
+    is the (S, nc) coefficient table (None: zeros); the rows sum nc
+    coefficient columns for each Newton-family surface only."""
     block = _bwd_block(block)
     if device_of(params.device, "merit_bwd") == "cpu":
         return merit_bwd_plain(params, aim, stats, spec, nc, R, seed, offset,
-                               Px, Py)
+                               Px, Py, coeffs=coeffs)
     from optiland_torch.ops import _cuda
 
-    check_cuda_inputs(params, spec, (Px, Py), aim)
+    coeffs = _coeffs_or_zeros(coeffs, params)
+    check_cuda_inputs(params, spec, (Px, Py), aim, coeffs)
+    if coeffs.shape[1] != nc:
+        raise ValueError("nc must be the coefficient table's width")
     S = len(spec[0])
     stats = stats.to(dtype=params.dtype).contiguous()
-    ncomp = S * len(GRAD_COLS) + N_AIM
+    ncomp = S * len(GRAD_COLS) + len(sag_surfaces(spec[0])) * nc + N_AIM
     # the grid keeps BWD_MAX_BLOCKS x BWD_BLOCK threads whatever the block
     nb = min(-(-R // block), BWD_MAX_BLOCKS * (BWD_BLOCK // block))
     partial = torch.empty((nb, ncomp), dtype=params.dtype, device=params.device)
     out = torch.zeros(S * (NUM_P + nc) + N_AIM, dtype=params.dtype,
                       device=params.device)
     prng = Px is None
+    build = _build(spec)
     with torch.cuda.device(params.device):
         rc = _cuda.call(
             "merit_bwd", params.dtype, params.data_ptr(), aim.data_ptr(),
-            stats.data_ptr(), flags(spec, params.device).data_ptr(), S,
-            int(any(spec[2])), nc, None if prng else Px.data_ptr(),
-            None if prng else Py.data_ptr(),
+            stats.data_ptr(), flags(spec[:-1], params.device).data_ptr(), S,
+            build, coeffs.data_ptr(), nc, spec[-1], len(sag_surfaces(spec[0])),
+            None if prng else Px.data_ptr(), None if prng else Py.data_ptr(),
             int(R), int(seed) & ((1 << 64) - 1), int(offset), int(prng),
             partial.data_ptr(), nb, int(block), out.data_ptr(), _cuda.stream(),
         )
     _cuda.check(rc, "merit_bwd")
-    LAUNCHES[launch_key("merit_bwd", any(spec[2]))] += 1
+    LAUNCHES[launch_key("merit_bwd", build)] += 1
     return out
 
 
@@ -470,21 +518,21 @@ class _SpotMerit(torch.autograd.Function):
     @staticmethod
     def forward(ctx, params, coeffs, aim, problem):
         spec, R, seed, offset, Px, Py, _ = problem
-        rows = merit_fwd(params, aim, spec, R, seed, offset, Px, Py)
+        rows = merit_fwd(params, aim, spec, R, seed, offset, Px, Py,
+                         coeffs=coeffs)
         loss, xbar, ybar = _chan_combine(rows, R)
-        ctx.save_for_backward(params, aim, xbar, ybar)
+        ctx.save_for_backward(params, coeffs, aim, xbar, ybar)
         ctx.problem = problem
-        ctx.nc = coeffs.shape[1]
         return loss
 
     @staticmethod
     def backward(ctx, gl):
-        params, aim, xbar, ybar = ctx.saved_tensors
+        params, coeffs, aim, xbar, ybar = ctx.saved_tensors
         spec, R, seed, offset, Px, Py, block = ctx.problem
-        S, nc = len(spec[0]), ctx.nc
+        S, nc = len(spec[0]), coeffs.shape[1]
         stats = torch.stack([xbar, ybar, gl / R, 0.0 * xbar]).to(params.dtype)
         flat = merit_bwd(params, aim, stats, spec, nc, R, seed, offset, Px, Py,
-                         block)
+                         block, coeffs=coeffs)
         dparams = flat[: S * NUM_P].reshape(S, NUM_P)
         dcoeffs = flat[S * NUM_P : S * (NUM_P + nc)].reshape(S, nc)
         daim = flat[S * (NUM_P + nc) :]
@@ -505,15 +553,15 @@ def spot_rms_fast_field(system, Hx, Hy, wavelength, num_rays=None, seed=0,
     CUDA device and their plain versions on the CPU. ``bwd_tile`` is the
     backward kernel's block size in rays (a multiple of 32 up to
     BWD_BLOCK, which is the default); the samples and the result do not
-    depend on it beyond rounding. ``newton_iters`` is accepted only for
-    the JAX package's signature: PLANE and STANDARD surfaces intersect in
-    closed form, so nothing reads it.
+    depend on it beyond rounding. ``newton_iters`` is the Newton step
+    count of the aspheres' intersection (the closed-form families do not
+    read it).
     """
     if not fused_supported(system):
         raise unsupported("spot_rms_fast_field (an infinite-conjugate angle "
                           "field)")
     block = _bwd_block(bwd_tile)
-    spec = _spec_of(system)
+    spec = _spec_of(system, newton_iters)
     params = build_param_table(system, wavelength)
     aim = aim_vector(system, Hx, Hy)
     dt, dev = params.dtype, params.device
@@ -528,5 +576,6 @@ def spot_rms_fast_field(system, Hx, Hy, wavelength, num_rays=None, seed=0,
     coeffs = system.stack.coeffs
     if coeffs.shape[1] == 0:
         coeffs = coeffs.new_zeros((coeffs.shape[0], 1))
+    coeffs = coeffs.to(dt).contiguous()
     problem = (spec, R, int(seed), 0, Px, Py, block)
     return _SpotMerit.apply(params, coeffs, aim, problem)

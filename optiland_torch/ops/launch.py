@@ -1,8 +1,22 @@
 """Launch side shared by the kernel op modules (``ops/fused_trace.py``,
 ``ops/fast_trace.py`` and ``ops/pol_trace.py``): the kernels' launch
-shapes, the structure their step covers, the launch of a ray from its
-pupil sample and the aim vector, the per-surface flag table, and the
-checks a wrapper runs before it launches a kernel on a CUDA device."""
+shapes, the structure their step covers, the build each spec launches,
+the launch of a ray from its pupil sample and the aim vector, the
+per-surface flag table, and the checks a wrapper runs before it launches
+a kernel on a CUDA device.
+
+Every trace kernel is compiled in four builds (``csrc/step.cuh``), and a
+launch takes the least one that covers its spec (``build_of``):
+
+  * stock: PLANE and STANDARD surfaces, untilted, at most STOCK_SURF;
+  * tilt: also the tilt rotations;
+  * sag: also the Newton-from-sag families (EVEN_ASPHERE, ODD_ASPHERE),
+    whose coefficient rows the kernels read, and in the full traces the
+    annular clip on P_APMIN (a RadialAperture with r_min > 0);
+  * deep: all of that, for up to MAX_SURF surfaces.
+
+A kernel counts its launches under ``launch_key(name, build)``: the name,
+then "_tilt", "_sag" or "_deep" for the three other builds."""
 
 from __future__ import annotations
 
@@ -11,6 +25,7 @@ import torch
 from optiland_torch.core import geometry as geom
 from optiland_torch.core.system import static_tensor
 from optiland_torch.ops.step import NUM_P
+from optiland_torch.physical_apertures import radial_only
 
 # The 8-scalar aim vector of an infinite-conjugate angle field: launch point,
 # direction cosines and the pupil's semi-axes
@@ -21,24 +36,37 @@ A_X0, A_Y0, A_Z0, A_L, A_M, A_N, A_SX, A_SY = range(N_AIM)
 FWD_BLOCK = 256  # rays per forward block
 BWD_BLOCK = 128
 BWD_MAX_BLOCKS = 1056  # fixed grid of the backwards' grid-stride loop
-MAX_SURF = 16  # bound of the backwards' per-ray surface-state arrays
+STOCK_SURF = 16  # surfaces of the stock, tilt and sag builds
+MAX_SURF = 64  # surfaces of the deep build: the kernels' bound
+NC_MAX = 16  # coefficient columns the kernels take
+
+# the builds (csrc/step.cuh: B_STOCK .. B_DEEP) and their launch-key suffixes
+STOCK, TILT, SAG, DEEP = range(4)
+BUILD_SUFFIX = ("", "_tilt", "_sag", "_deep")
+
+
+def inner_flags(cfg):
+    """Per surface: True where a RadialAperture has r_min > 0 (the JAX
+    package's ``inner`` spec entry)."""
+    return tuple(a is not None and float(getattr(a, "r_min", 0.0)) > 0.0
+                 for a in (cfg.apertures or (None,) * cfg.num_surfaces))
 
 
 def covered(cfg, field=True, coated=False) -> bool:
-    """True when the kernels' step covers this structure: PLANE and
-    STANDARD surfaces, tilted or not, no aperture objects, interactions or
-    BSDFs, at most MAX_SURF surfaces, and (with ``field``) an
-    infinite-conjugate angle field, which the aim vector describes. The
-    unpolarized kernels take no coatings and no polarization; ``coated``
-    asks for the polarized kernels, which take both (their coat kinds are
-    checked by ``ops/pol_trace.py``)."""
+    """True when the kernels' step covers this structure: PLANE, STANDARD,
+    EVEN_ASPHERE and ODD_ASPHERE surfaces, tilted or not, RadialAperture
+    objects and no others, no interactions or BSDFs, at most MAX_SURF
+    surfaces, and (with ``field``) an infinite-conjugate angle field, which
+    the aim vector describes. The unpolarized kernels take no coatings and
+    no polarization; ``coated`` asks for the polarized kernels, which take
+    both (their coat kinds are checked by ``ops/pol_trace.py``)."""
 
     def all_none(vals):
         return vals is None or all(v is None for v in vals)
 
     return (
         all(c in geom.SUPPORTED_CODES for c in cfg.geom_codes)
-        and all_none(cfg.apertures)
+        and radial_only(cfg.apertures)
         and all_none(cfg.interactions)
         and (coated or all_none(cfg.coatings))
         and all_none(cfg.bsdfs)
@@ -54,10 +82,28 @@ def covered(cfg, field=True, coated=False) -> bool:
 def unsupported(what):
     """The error for a system that the kernels do not cover yet."""
     return NotImplementedError(
-        f"{what} covers PLANE/STANDARD systems of at most {MAX_SURF} surfaces "
-        "(tilted or not) without aperture objects or interactions; the "
-        "other families of kernel K6 come in a later slice"
+        f"{what} covers PLANE, STANDARD, EVEN_ASPHERE and ODD_ASPHERE "
+        f"systems of at most {MAX_SURF} surfaces (tilted or not) with no "
+        "aperture objects but RadialAperture and no interactions; the other "
+        "families of kernel K6 come in a later slice"
     )
+
+
+def sag_surfaces(codes):
+    """The surfaces of a Newton family, in order: the k-th of them owns the
+    k-th block of nc coefficient columns of a backward's partial rows."""
+    return tuple(s for s, c in enumerate(codes) if c in geom.NEWTON_CODES)
+
+
+def build_of(codes, tilted, inner=()):
+    """The build a spec launches: DEEP past STOCK_SURF surfaces, else SAG
+    with a Newton-family surface or an annular clip (``inner``), else TILT
+    with a tilted surface, else STOCK."""
+    if len(codes) > STOCK_SURF:
+        return DEEP
+    if any(c in geom.NEWTON_CODES for c in codes) or any(inner):
+        return SAG
+    return TILT if any(tilted) else STOCK
 
 
 def launch_from_pupil(aim, Px, Py):
@@ -77,23 +123,22 @@ def check_dtype(dtype):
         raise TypeError(f"the kernels take float32 or float64, not {dtype}")
 
 
-def flags(spec, device):
-    """int32 device tensor of the spec's per-surface entries, one after the
+def flags(rows, device):
+    """int32 device tensor of a spec's per-surface flag rows, one after the
     other: geometry codes, reflective flags (and any further flags)."""
-    return static_tensor(tuple(int(v) for part in spec for v in part),
+    return static_tensor(tuple(int(v) for part in rows for v in part),
                          torch.int32, device)
 
 
-def with_tilt(names):
-    """Launch-count keys for kernels ``names``: each kernel and its TILT
-    instantiation (``name + "_tilt"``), a separately compiled kernel
-    launched for a spec with a tilted surface."""
-    return {k: 0 for n in names for k in (n, n + "_tilt")}
+def with_builds(names):
+    """Launch-count keys for kernels ``names``: each kernel in each build
+    (``launch_key``), each a separately compiled kernel."""
+    return {n + suf: 0 for n in names for suf in BUILD_SUFFIX}
 
 
-def launch_key(name, tilt):
-    """The launch-count key of kernel ``name`` launched with ``tilt``."""
-    return name + "_tilt" if tilt else name
+def launch_key(name, build):
+    """The launch-count key of kernel ``name`` launched in ``build``."""
+    return name + BUILD_SUFFIX[build]
 
 
 def device_of(device, name):
@@ -103,23 +148,39 @@ def device_of(device, name):
     return device.type
 
 
-def check_cuda_inputs(params, spec, arrays=(), aim=None):
+def check_cuda_inputs(params, spec, arrays=(), aim=None, coeffs=None):
     """Raise unless the kernels can take these inputs: a float32 or float64
     (S, NUM_P) param table, one spec entry per surface of a covered
-    geometry, and the aim vector and flat per-ray arrays (None entries
-    skipped) of the table's dtype and device, contiguous."""
+    geometry (and a nonnegative Newton iteration count, the spec's last
+    entry), the aim vector and flat per-ray arrays (None entries skipped)
+    of the table's dtype and device, contiguous, and the (S, nc)
+    coefficient table, 1 <= nc <= NC_MAX."""
     S = len(spec[0])
     check_dtype(params.dtype)
     if S > MAX_SURF:
-        raise ValueError(f"the kernels take at most {MAX_SURF} surfaces, "
-                         f"got {S}")
-    if any(len(part) != S for part in spec):
+        raise NotImplementedError(f"the kernels take at most {MAX_SURF} "
+                                  f"surfaces, got {S}")
+    if any(len(part) != S for part in spec[:-1]) or not (
+            isinstance(spec[-1], int) and spec[-1] >= 0):
         raise ValueError("the spec must hold one entry per surface in each "
-                         "of its parts")
+                         "of its parts, then the Newton iteration count")
     if any(c not in geom.SUPPORTED_CODES for c in spec[0]):
         raise NotImplementedError(
-            f"geometry codes {spec[0]}: the kernels cover PLANE and STANDARD"
+            f"geometry codes {spec[0]}: the kernels cover PLANE, STANDARD, "
+            "EVEN_ASPHERE and ODD_ASPHERE"
         )
+    if coeffs is None:
+        return
+    if (coeffs.device != params.device or coeffs.dtype != params.dtype
+            or not coeffs.is_contiguous() or coeffs.dim() != 2
+            or coeffs.shape[0] != S or coeffs.shape[1] < 1):
+        raise ValueError(f"the coefficient table must be a contiguous "
+                         f"(S, nc) {params.dtype} tensor on {params.device}, "
+                         "nc >= 1")
+    if coeffs.shape[1] > NC_MAX:
+        raise NotImplementedError(
+            f"the kernels take at most NC_MAX = {NC_MAX} coefficient "
+            f"columns, got {coeffs.shape[1]}")
     arrays = [a for a in arrays if a is not None]
     named = [("params", params), ("aim", aim)] + [
         (f"ray array {k}", a) for k, a in enumerate(arrays)

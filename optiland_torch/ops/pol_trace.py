@@ -66,23 +66,26 @@ from optiland_torch.coatings import (
 from optiland_torch.core.rays import RealRays
 from optiland_torch.core.system import static_tensor
 from optiland_torch.ops.fast_trace import (
-    RAY_FIELDS, _bwd_blocks, _coeffs, _masks, _split,
+    RAY_FIELDS, _bwd_blocks, _check_nc, _coeffs, _masks, _split,
 )
-from optiland_torch.ops.fused_trace import build_param_table
+from optiland_torch.ops.fused_trace import (
+    _coeffs_or_zeros, build_param_table, coef_row,
+)
 from optiland_torch.ops.launch import (
-    check_cuda_inputs, covered, device_of, flags, launch_key, unsupported,
-    with_tilt,
+    build_of, check_cuda_inputs, covered, device_of, flags, inner_flags,
+    launch_key, sag_surfaces, unsupported, with_builds,
 )
 from optiland_torch.ops.step import (
     FULL_GRAD_COLS, NUM_P, P_NPOST, step_adjoint_plain, step_plain,
 )
 from optiland_torch.polarization import basis_states
 
-# Launch counts of the kernels, per mode and TILT instantiation ("_tilt");
-# each wrapper adds one where it launches its kernel and nowhere else (a backward counts its partial-row
-# launch together with the fixed-order reduction launch that follows it).
-LAUNCHES = with_tilt(("pol_fwd", "pol_bwd", "pol_fwd_intensity",
-                      "pol_bwd_intensity"))
+# Launch counts of the kernels, per mode and build (``launch.launch_key``);
+# each wrapper adds one where it launches its kernel and nowhere else (a
+# backward counts its partial-row launch together with the fixed-order
+# reduction launch that follows it).
+LAUNCHES = with_builds(("pol_fwd", "pol_bwd", "pol_fwd_intensity",
+                        "pol_bwd_intensity"))
 
 # Per-surface coat kinds (the kernels' fourth flag row; csrc/pol_trace.cu
 # holds the same values)
@@ -167,9 +170,10 @@ def kernel_eligible(system, wavelength) -> bool:
     return "unsupported" not in _coat_kinds(system, wavelength)
 
 
-def pol_spec(system, wavelength):
+def pol_spec(system, wavelength, newton_iters=10):
     """The kernels' static spec (geometry codes, reflective flags, absorb
-    flags, coat kinds, tmm layer counts, tilt flags) when they cover this
+    flags, coat kinds, tmm layer counts, tilt flags: the kernels' six flag
+    rows; then annular flags and Newton iterations) when they cover this
     system at ``wavelength``, else None: the structure of
     ``fast_trace.fast_spec`` with coatings and polarization, coatings that
     are kernel-eligible and tmm stacks of at most MAX_LAYERS layers."""
@@ -185,7 +189,8 @@ def pol_spec(system, wavelength):
                   for k in kinds)
     layers = tuple(k[1] if isinstance(k, tuple) else 0 for k in kinds)
     return (tuple(cfg.geom_codes), tuple(cfg.reflective), absorbs, codes,
-            layers, tuple(bool(t) for t in tilted))
+            layers, tuple(bool(t) for t in tilted), inner_flags(cfg),
+            int(newton_iters))
 
 
 def pol_supported(system, wavelength) -> bool:
@@ -766,17 +771,20 @@ def _identity_p(like):
     return eye, torch.zeros_like(eye)
 
 
-def _chain(params, coat, spec, st, keep=False):
+def _chain(params, coat, spec, st, keep=False, coeffs=None):
     """The polarized chain: final state, final p (re, im), and with
     ``keep`` per surface what the adjoint replays."""
     codes, refl, absorbs, kinds, layers = spec[:5]
+    inner, niters = spec[-2], spec[-1]
     n_pre = params[0, P_NPOST]
     p = _identity_p(st[0])
     saved = []
     for s in range(1, len(codes)):
         st_in = st
         st, n_next, ext = step_plain(codes[s], refl[s], params[s], n_pre, st,
-                                     absorbs[s], extras=True)
+                                     absorbs[s], extras=True,
+                                     c=coef_row(coeffs, s),
+                                     newton_iters=niters, inner=inner[s])
         k0, k1, adot = ext[:3], ext[3:6], ext[6]
         i_step = st[6]
         if kinds[s] == SIMPLE:
@@ -806,14 +814,15 @@ def _chain(params, coat, spec, st, keep=False):
     return st, p, saved
 
 
-def pol_fwd_plain(params, coat, spec, rays, states=None, intensity=False):
+def pol_fwd_plain(params, coat, spec, rays, states=None, intensity=False,
+                  coeffs=None):
     """Plain version of the pol_fwd kernel: 26 arrays (the 8 ray arrays,
     then p's 9 real and 9 imaginary parts, row-major) of the 8 launch
     arrays ``rays``; with ``intensity``, the 8 ray arrays with the
     intensity replaced by the exit intensity of the polarization ``states``
     (``pol_states``) from the launch intensity and directions."""
     rays = tuple(rays)
-    st, p, _ = _chain(params, coat, spec, rays)
+    st, p, _ = _chain(params, coat, spec, rays, coeffs=coeffs)
     if intensity:
         i_pol, _ = _exit_intensity(p, rays[3], rays[4], rays[5], rays[6],
                                    states)
@@ -823,17 +832,19 @@ def pol_fwd_plain(params, coat, spec, rays, states=None, intensity=False):
 
 
 def pol_bwd_plain(params, coat, spec, rays, cots, states=None,
-                  intensity=False):
+                  intensity=False, coeffs=None, nc=1, with_coeffs=False):
     """Plain version of the pol_bwd kernel, the adjoint by hand: for the
     output cotangents ``cots`` (26, or 8 in the intensity mode), the 8
     per-ray input cotangents and the flat gradient in the layout (S * NUM_P
     params, S * ncoat coat table), which the wrapper widens with the
-    coefficient block."""
-    codes, refl, absorbs, kinds, layers, tilted = spec
+    (S, nc) block of the coefficient table ``coeffs``; with
+    ``with_coeffs`` that block comes back too."""
+    codes, refl, absorbs, kinds, layers, tilted, inner, niters = spec
     S, ncoat = len(codes), coat.shape[1]
     rays, cots = tuple(rays), tuple(cots)
     with torch.no_grad():
-        st, p, saved = _chain(params, coat, spec, rays, keep=True)
+        st, p, saved = _chain(params, coat, spec, rays, keep=True,
+                              coeffs=coeffs)
         zero = torch.zeros_like(rays[0])
         g_launch = [zero] * 8
         if intensity:
@@ -851,6 +862,7 @@ def pol_bwd_plain(params, coat, spec, rays, cots, states=None,
         # g: cotangents of (x, y, z, L, M, N, n, i, opd) after surface s
         dparams = params.new_zeros((S, NUM_P))
         dcoat = coat.new_zeros((S, ncoat))
+        dcoeffs = params.new_zeros((S, nc))
         for s in range(S - 1, 0, -1):
             sv = saved[s - 1]
             k0, k1, adot, basis = sv["k0"], sv["k1"], sv["adot"], sv["basis"]
@@ -887,14 +899,19 @@ def pol_bwd_plain(params, coat, spec, rays, cots, states=None,
             g_in, g_npre, cols = step_adjoint_plain(
                 codes[s], refl[s], params[s], sv["n_pre"], sv["st"],
                 tuple(g), absorbs[s], g_ext=g_k0 + g_k1 + (g_adot,),
-                tilted=tilted[s])
+                tilted=tilted[s], c=coef_row(coeffs, s), newton_iters=niters,
+                inner=inner[s])
             for col, v in zip(FULL_GRAD_COLS, cols):
                 dparams[s, col] = v.sum()
+            for j, v in enumerate(cols[len(FULL_GRAD_COLS):]):
+                dcoeffs[s, j] = v.sum()
             g = list(g_in[:6]) + [g_npre] + list(g_in[6:])
         # n_pre of surface 1 is the object row's n_post
         dparams[0, P_NPOST] = g[6].sum()
         din = [a + b for a, b in zip(g[:6] + g[7:], g_launch)]
-    return tuple(din), torch.cat([dparams.reshape(-1), dcoat.reshape(-1)])
+    block = (dcoeffs.reshape(-1),) if with_coeffs else ()
+    return tuple(din), torch.cat((dparams.reshape(-1),) + block
+                                 + (dcoat.reshape(-1),))
 
 
 # ---------------------------------------------------------------------------
@@ -902,8 +919,8 @@ def pol_bwd_plain(params, coat, spec, rays, cots, states=None,
 # ---------------------------------------------------------------------------
 
 
-def _check_pol(params, coat, spec, arrays, n_arrays):
-    check_cuda_inputs(params, spec, arrays)
+def _check_pol(params, coat, spec, arrays, n_arrays, coeffs):
+    check_cuda_inputs(params, spec, arrays, coeffs=coeffs)
     S = len(spec[0])
     if len(arrays) != n_arrays:
         raise ValueError(f"expected {n_arrays} per-ray arrays, got "
@@ -926,32 +943,42 @@ def _state_args(states):
     return vals[:8] + [len(states or ())]
 
 
-def pol_fwd(params, coat, spec, rays, states=None, intensity=False):
+def _build(spec):
+    return build_of(spec[0], spec[5], spec[-2])
+
+
+def pol_fwd(params, coat, spec, rays, states=None, intensity=False,
+            coeffs=None):
     """The 26 (or, with ``intensity``, 8) output arrays of the 8 launch
     arrays ``rays``: the pol_fwd kernel on a CUDA device, its plain version
-    on the CPU."""
+    on the CPU. ``coeffs`` is the (S, nc) coefficient table (None:
+    zeros)."""
     name = "pol_fwd_intensity" if intensity else "pol_fwd"
     if device_of(params.device, name) == "cpu":
-        return pol_fwd_plain(params, coat, spec, rays, states, intensity)
+        return pol_fwd_plain(params, coat, spec, rays, states, intensity,
+                             coeffs)
     from optiland_torch.ops import _cuda
 
     rays = tuple(rays)
-    _check_pol(params, coat, spec, rays, 8)
+    coeffs = _coeffs_or_zeros(coeffs, params)
+    _check_pol(params, coat, spec, rays, 8, coeffs)
     out = [torch.empty_like(rays[0]) for _ in range(8 if intensity else N_POL)]
+    build = _build(spec)
     with torch.cuda.device(params.device):
         rc = _cuda.call(
             "pol_fwd", params.dtype, params.data_ptr(), coat.data_ptr(),
-            flags(spec, params.device).data_ptr(), len(spec[0]),
-            int(any(spec[5])), coat.shape[1], _cuda.pointers(rays),
-            rays[0].shape[0], _cuda.pointers(out), int(intensity),
-            *_state_args(states), _cuda.stream(),
+            flags(spec[:-2], params.device).data_ptr(), len(spec[0]), build,
+            coeffs.data_ptr(), coeffs.shape[1], spec[-1], coat.shape[1],
+            _cuda.pointers(rays), rays[0].shape[0], _cuda.pointers(out),
+            int(intensity), *_state_args(states), _cuda.stream(),
         )
     _cuda.check(rc, name)
-    LAUNCHES[launch_key(name, any(spec[5]))] += 1
+    LAUNCHES[launch_key(name, build)] += 1
     return tuple(out)
 
 
-def pol_bwd(params, coat, spec, nc, rays, cots, states=None, intensity=False):
+def pol_bwd(params, coat, spec, nc, rays, cots, states=None, intensity=False,
+            coeffs=None):
     """(8 per-ray input cotangents, flat (S * NUM_P + S * nc + S * ncoat)
     gradient) for the output cotangents ``cots``: the pol_bwd kernel and
     its fixed-order reduction on a CUDA device, the plain version on the
@@ -959,30 +986,35 @@ def pol_bwd(params, coat, spec, nc, rays, cots, states=None, intensity=False):
     name = "pol_bwd_intensity" if intensity else "pol_bwd"
     S, ncoat = len(spec[0]), coat.shape[1]
     if device_of(params.device, name) == "cpu":
-        din, flat = pol_bwd_plain(params, coat, spec, rays, cots, states,
-                                  intensity)
-        return din, torch.cat([flat[: S * NUM_P], params.new_zeros(S * nc),
-                               flat[S * NUM_P:]])
+        return pol_bwd_plain(params, coat, spec, rays, cots, states,
+                             intensity, coeffs, nc, with_coeffs=True)
     from optiland_torch.ops import _cuda
 
     rays, cots = tuple(rays), tuple(cots)
+    coeffs = _coeffs_or_zeros(coeffs, params)
     _check_pol(params, coat, spec, rays + cots,
-               8 + (8 if intensity else N_POL))
+               8 + (8 if intensity else N_POL), coeffs)
+    _check_nc(coeffs, nc)
     R = rays[0].shape[0]
     nb = _bwd_blocks(R)
     din = [torch.empty_like(rays[0]) for _ in range(8)]
-    partial = params.new_empty((nb, S * (len(FULL_GRAD_COLS) + ncoat)))
+    partial = params.new_empty(
+        (nb, S * (len(FULL_GRAD_COLS) + ncoat)
+         + len(sag_surfaces(spec[0])) * nc))
     out = params.new_zeros(S * (NUM_P + nc + ncoat))
+    build = _build(spec)
     with torch.cuda.device(params.device):
         rc = _cuda.call(
             "pol_bwd", params.dtype, params.data_ptr(), coat.data_ptr(),
-            flags(spec, params.device).data_ptr(), S, int(any(spec[5])), nc,
-            ncoat, _cuda.pointers(rays), _cuda.pointers(cots), R,
-            _cuda.pointers(din), partial.data_ptr(), nb, out.data_ptr(),
-            int(intensity), *_state_args(states), _cuda.stream(),
+            flags(spec[:-2], params.device).data_ptr(), S, build,
+            coeffs.data_ptr(), nc, spec[-1], len(sag_surfaces(spec[0])),
+            ncoat, _cuda.pointers(rays),
+            _cuda.pointers(cots), R, _cuda.pointers(din), partial.data_ptr(),
+            nb, out.data_ptr(), int(intensity), *_state_args(states),
+            _cuda.stream(),
         )
     _cuda.check(rc, name)
-    LAUNCHES[launch_key(name, any(spec[5]))] += 1
+    LAUNCHES[launch_key(name, build)] += 1
     return tuple(din), out
 
 
@@ -996,18 +1028,18 @@ class _TracePol(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, params, coeffs, coat, spec, states, intensity, *rays):
-        out = pol_fwd(params, coat, spec, rays, states, intensity)
-        ctx.save_for_backward(params, coat, *rays)
+        out = pol_fwd(params, coat, spec, rays, states, intensity, coeffs)
+        ctx.save_for_backward(params, coeffs, coat, *rays)
         ctx.spec, ctx.nc = spec, coeffs.shape[1]
         ctx.states, ctx.intensity = states, intensity
         return out
 
     @staticmethod
     def backward(ctx, *g):
-        params, coat, *rays = ctx.saved_tensors
+        params, coeffs, coat, *rays = ctx.saved_tensors
         cots = [c.contiguous() for c in g]
         din, flat = pol_bwd(params, coat, ctx.spec, ctx.nc, rays, cots,
-                            ctx.states, ctx.intensity)
+                            ctx.states, ctx.intensity, coeffs)
         S = len(ctx.spec[0])
         dparams, dcoeffs, dcoat = _split(flat, S, ctx.nc)
         return (dparams, dcoeffs, dcoat.reshape(S, -1), None, None,

@@ -1,9 +1,9 @@
 """The surface step shared by the op modules: the plain PyTorch version of the
 device step in ``csrc/step.cuh`` and its hand-derived adjoint.
 
-Counterpart of the PLANE/STANDARD branch of ``_step_tile`` in
-``optiland_tpu/ops/pallas_trace.py``. Two forms, chosen by the length of
-the state:
+Counterpart of ``_step_tile`` in ``optiland_tpu/ops/pallas_trace.py``:
+its PLANE, STANDARD, tilt, annular-aperture and EVEN_ASPHERE/ODD_ASPHERE
+branches. Two forms, chosen by the length of the state:
 
   * the merit form, state (x, y, z, L, M, N): geometry only, which is all
     the fused merit reads (``ops/fused_trace.py``);
@@ -11,6 +11,18 @@ the state:
     absorption in the medium before the surface (where its flag is set),
     the optical path and the circular clip on ``P_APMAX``, as the generic
     and field traces return them (``ops/fast_trace.py``).
+
+A surface of a Newton family (``geom.NEWTON_CODES``) intersects by
+``newton_iters`` Newton steps on f(t) = z(t) - sag(x(t), y(t)) from the
+conic (or plane) guess, then one more step from that point held fixed,
+through which the gradient runs (the implicit-function gradient of the
+JAX package's kernels); its normal is the sag's derivative. Its adjoint
+takes the cotangent through that one step, the f f'_theta / f'^2 term
+included, and through the normal with the sag's second derivative
+(``geom.sag_point``), and gives the cotangents of the surface's
+coefficient row after the param columns. With the ``inner`` flag (an
+annular aperture) the full step also zeroes the intensity of a ray with
+x^2 + y^2 < ap_min^2, after the circular clip.
 
 For the polarized traces (``ops/pol_trace.py``) the step also gives its
 "extras": the local pre- and post-interaction directions and adot, the
@@ -134,7 +146,7 @@ def _rot_local_adjoint(p, v, g):
 
 
 def step_plain(code, refl, p, n_pre, st, absorbs=False, extras=False,
-               n_post=None):
+               n_post=None, c=None, newton_iters=10, inner=False):
     """One surface step on per-ray tensors; returns (state, n_next), and
     with ``extras`` also (L0, M0, N0, L1, M1, N1, adot): the local-frame
     pre- and post-interaction directions and |cos| of the angle of
@@ -143,7 +155,10 @@ def step_plain(code, refl, p, n_pre, st, absorbs=False, extras=False,
     ``st`` is (x, y, z, L, M, N), or (x, y, z, L, M, N, i, opd) for the full
     step; ``absorbs`` (full step only) applies the Beer-Lambert factor of
     ``p[P_KPRE]``; ``n_post``, when given, is the per-ray index after the
-    surface (polychromatic traces), else ``p[P_NPOST]``. The tilt rotations
+    surface (polychromatic traces), else ``p[P_NPOST]``. ``c`` is the
+    surface's coefficient row (read by the Newton families, which take
+    ``newton_iters`` steps); ``inner`` (full step only) applies the annular
+    clip on ``p[P_APMIN]``. The tilt rotations
     always run, as in the JAX package under ``jax.grad``, where traced
     tilts keep the rotation code: at zero tilt they are exact identities
     (the kernels skip them there), and autograd through them gives the tilt
@@ -156,7 +171,8 @@ def step_plain(code, refl, p, n_pre, st, absorbs=False, extras=False,
     y = y - p[P_DY]
     zl = z - pos
     x, y, zl, L, M, N = _rot_local(x, y, zl, L, M, N, *rot)
-    t = geom.distance_static(code, radius, conic, x, y, zl, L, M, N)
+    t = geom.distance_static(code, radius, conic, x, y, zl, L, M, N,
+                             coeffs=c, newton_iters=newton_iters)
     x = x + t * L
     y = y + t * M
     zl = zl + t * N
@@ -166,9 +182,12 @@ def step_plain(code, refl, p, n_pre, st, absorbs=False, extras=False,
         if absorbs:
             i = i * torch.exp(ABS * p[P_KPRE] * t * 1e3)
         opd = opd + torch.abs(t * n_pre)
-        i = torch.where(x * x + y * y > p[P_APMAX] * p[P_APMAX], 0.0, i)
+        r2 = x * x + y * y
+        i = torch.where(r2 > p[P_APMAX] * p[P_APMAX], 0.0, i)
+        if inner:
+            i = torch.where(r2 < p[P_APMIN] * p[P_APMIN], 0.0, i)
         extra = (i, opd)
-    nx, ny, nz = geom.surface_normal_static(code, radius, conic, None, x, y)
+    nx, ny, nz = geom.surface_normal_static(code, radius, conic, c, x, y)
     dot = L * nx + M * ny + N * nz
     sgn = torch.sign(dot)
     nx, ny, nz = nx * sgn, ny * sgn, nz * sgn
@@ -197,7 +216,8 @@ def step_plain(code, refl, p, n_pre, st, absorbs=False, extras=False,
 
 
 def step_adjoint_plain(code, refl, p, n_pre, st, g, absorbs=False,
-                       g_ext=None, tilted=False, n_post=None):
+                       g_ext=None, tilted=False, n_post=None, c=None,
+                       newton_iters=10, inner=False):
     """Reverse sweep through one surface step.
 
     ``st`` is the step's input state, ``g`` the cotangents of its outputs:
@@ -210,10 +230,12 @@ def step_adjoint_plain(code, refl, p, n_pre, st, g, absorbs=False,
     angles; without, those at zero tilt, where each rotation contributes its
     generator (the extras are local-frame directions, so theirs count too).
     ``n_post`` is the per-ray index after the surface of a polychromatic
-    trace (its cotangent is the P_NPOST column's). The clip passes no
-    cotangent to a clipped ray's intensity, and none to the positions that
-    decide it. The CUDA kernels' reverse step is a line-by-line
-    transcription of this one."""
+    trace (its cotangent is the P_NPOST column's). The clip (and with
+    ``inner`` the annular clip) passes no cotangent to a clipped ray's
+    intensity, and none to the positions that decide it. For a Newton
+    family the param columns are followed by the cotangents of the
+    coefficient row ``c`` (one per coefficient). The CUDA kernels' reverse
+    step is a line-by-line transcription of this one."""
     full = len(g) == 9
     x, y, z, L, M, N = st[:6]
     gx, gy, gz, gL_o, gM_o, gN_o, g_nn = g[:7]
@@ -221,6 +243,7 @@ def step_adjoint_plain(code, refl, p, n_pre, st, g, absorbs=False,
     dx, dy = p[P_DX], p[P_DY]
     npost = p[P_NPOST] if n_post is None else n_post
     std = code == geom.STANDARD
+    newton = code in geom.NEWTON_CODES
 
     # ---- recompute the forward intermediates (in the surface's frame) ----
     xl = x - dx
@@ -248,6 +271,21 @@ def step_adjoint_plain(code, refl, p, n_pre, st, g, absorbs=False,
         t2 = torch.where(q0, 0.0, c / torch.where(q0, 1.0, q))
         use1 = torch.abs(zl + t1 * N) <= torch.abs(zl + t2 * N)
         t = torch.where(use1, t1, t2)
+    elif newton:
+        # the stopped iterate t_s, then the one step through which the
+        # gradient runs
+        t_s = geom.newton_start(R, k, xl, yl, zl, L, M, N)
+        for _ in range(newton_iters):
+            t_s = geom.newton_step(code, R, k, c, xl, yl, zl, L, M, N, t_s)
+        cu = 1.0 / R
+        Xs, Ys = xl + t_s * L, yl + t_s * M
+        (s_s, W_s, Wr_s, scu_s, sk_s, Wcu_s, Wk_s, rho_s,
+         beta_s) = geom.sag_point(code, R, k, c, Xs**2 + Ys**2, grad=True)
+        f = zl + t_s * N - s_s
+        fp = N - W_s * (Xs * L + Ys * M)
+        okf = fp.abs() > 1e-14
+        fp = torch.where(okf, fp, 1e-14)
+        t = t_s - f / fp
     else:
         big = torch.abs(N) > 1e-14
         Ns = torch.where(big, N, 1e-14)
@@ -261,6 +299,13 @@ def step_adjoint_plain(code, refl, p, n_pre, st, g, absorbs=False,
         invd = cu * rq
         fx = x1 * invd
         fy = y1 * invd
+        im = torch.rsqrt(fx**2 + fy**2 + 1)
+        nx, ny, nz = fx * im, fy * im, -im
+    elif newton:
+        (_, W1, Wr1, _, _, Wcu1, Wk1, rho1,
+         beta1) = geom.sag_point(code, R, k, c, x1**2 + y1**2, grad=True)
+        fx = x1 * W1
+        fy = y1 * W1
         im = torch.rsqrt(fx**2 + fy**2 + 1)
         nx, ny, nz = fx * im, fy * im, -im
     else:
@@ -353,6 +398,24 @@ def step_adjoint_plain(code, refl, p, n_pre, st, g, absorbs=False,
         g_r2 = -g_qn * (1 + k) * cu**2
         g_x1 = g_x1 + 2 * x1 * g_r2
         g_y1 = g_y1 + 2 * y1 * g_r2
+    elif newton:
+        # n = (x1 W1, y1 W1, -1) rsqrt(.), W1 = W(x1^2 + y1^2)
+        g_nx, g_ny, g_nz = sgn * g_nxs, sgn * g_nys, sgn * g_nzs
+        g_fx = g_nx * im
+        g_fy = g_ny * im
+        g_im = g_nx * fx + g_ny * fy - g_nz
+        g_mg = -0.5 * g_im * im * im * im
+        g_fx = g_fx + 2 * fx * g_mg
+        g_fy = g_fy + 2 * fy * g_mg
+        g_x1 = g_x1 + g_fx * W1
+        g_y1 = g_y1 + g_fy * W1
+        g_W1 = g_fx * x1 + g_fy * y1
+        g_r2 = g_W1 * Wr1
+        g_x1 = g_x1 + 2 * x1 * g_r2
+        g_y1 = g_y1 + 2 * y1 * g_r2
+        g_cu = g_cu + g_W1 * Wcu1
+        g_k = g_k + g_W1 * Wk1
+        cc1 = g_W1 * beta1
 
     # ---- propagate: x1 = xl + t L, y1 = yl + t M, z1 = zl + t N ----
     g_xl, g_yl, g_zl = g_x1, g_y1, g_z1
@@ -365,7 +428,10 @@ def step_adjoint_plain(code, refl, p, n_pre, st, g, absorbs=False,
     if full:
         i_in = st[6]
         g_i, g_opd = g[7], g[8]
-        clipped = x1 * x1 + y1 * y1 > p[P_APMAX] * p[P_APMAX]
+        r2c = x1 * x1 + y1 * y1
+        clipped = r2c > p[P_APMAX] * p[P_APMAX]
+        if inner:
+            clipped = clipped | (r2c < p[P_APMIN] * p[P_APMIN])
         g_i = torch.where(clipped, 0.0, g_i)
         g_kpre = torch.zeros_like(gx)
         if absorbs:
@@ -422,6 +488,40 @@ def step_adjoint_plain(code, refl, p, n_pre, st, g, absorbs=False,
         g_yl = g_yl + 2 * yl * g_C
         g_zl = g_zl + 2 * zl * (k + 1) * g_C
         g_R = -g_cu * cu**2
+    elif newton:
+        # t = t_s - f / f' at the stopped t_s: f = zl + t_s N - s(X, Y),
+        # f' = N - W (X L + Y M), X = xl + t_s L, Y = yl + t_s M
+        g_f = -g_t / fp
+        g_fp = torch.where(okf, g_t * f / (fp * fp), 0.0)
+        g_zl = g_zl + g_f
+        gN = gN + g_f * t_s + g_fp
+        g_s = -g_f
+        g_W = -g_fp * (Xs * L + Ys * M)
+        gL = gL - g_fp * W_s * Xs
+        gM = gM - g_fp * W_s * Ys
+        g_X = -g_fp * W_s * L
+        g_Y = -g_fp * W_s * M
+        # ds/dr^2 = W / 2
+        g_r2 = g_s * W_s * 0.5 + g_W * Wr_s
+        g_X = g_X + 2 * Xs * g_r2
+        g_Y = g_Y + 2 * Ys * g_r2
+        g_cu = g_cu + g_s * scu_s + g_W * Wcu_s
+        g_k = g_k + g_s * sk_s + g_W * Wk_s
+        g_xl = g_xl + g_X
+        g_yl = g_yl + g_Y
+        gL = gL + g_X * t_s
+        gM = gM + g_Y * t_s
+        g_R = -g_cu * cu**2
+        # dC_i = g_s rho_s^(i+1) + (i+1) (g_W beta_s rho_s^i + cc1 rho1^i)
+        cs = g_W * beta_s
+        pw_s = torch.ones_like(rho_s)
+        pw_1 = torch.ones_like(rho1)
+        g_coef = []
+        for i in range(c.shape[-1]):
+            g_coef.append(g_s * pw_s * rho_s + (i + 1) * (cs * pw_s
+                                                          + cc1 * pw_1))
+            pw_s = pw_s * rho_s
+            pw_1 = pw_1 * rho1
     else:
         g_zl = g_zl - g_t / Ns
         gN = gN + torch.where(big, g_t * zl / (Ns * Ns), 0.0)
@@ -451,4 +551,6 @@ def step_adjoint_plain(code, refl, p, n_pre, st, g, absorbs=False,
     if full:
         g_in = g_in + (g_i, g_opd)
         cols = cols + (g_kpre,)
+    if newton:
+        cols = cols + tuple(g_coef)
     return g_in, g_npre, cols

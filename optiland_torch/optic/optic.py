@@ -1,7 +1,9 @@
 """User-facing Optic builder with the JAX package's construction API.
 
 Counterpart of ``optiland_tpu/optic/optic.py`` (a subset): ``SurfaceDef``,
-``SurfaceGroup.add`` for the "standard" and "plane" surface types with an
+``SurfaceGroup.add`` for the "standard", "plane", "even_asphere" and
+"odd_asphere" surface types (the aspheres with their ``coefficients``),
+a semi-diameter or a ``RadialAperture`` as the physical aperture, and an
 optional coating (a coating object or the "fresnel" shorthand), the field,
 wavelength and aperture groups, and ``Optic`` with ``set_aperture``,
 ``set_polarization``, ``system`` (compiled on the configured device and
@@ -36,6 +38,8 @@ from optiland_torch.polarization import (
 _GEOM_CODES = {
     "standard": geom.STANDARD,
     "plane": geom.PLANE,
+    "even_asphere": geom.EVEN_ASPHERE,
+    "odd_asphere": geom.ODD_ASPHERE,
 }
 
 
@@ -53,13 +57,14 @@ class SurfaceDef:
     material: Any = "air"
     is_stop: bool = False
     surface_type: str = "standard"
+    coefficients: tuple = ()
     dx: float = 0.0
     dy: float = 0.0
     dz: float = 0.0  # z-decenter on top of the cumulative-thickness vertex
     rx: float = 0.0
     ry: float = 0.0
     rz: float = 0.0
-    aperture: float | None = None  # physical semi-diameter via diameter value
+    aperture: Any = None  # a diameter (float) or a RadialAperture
     comment: str = ""
     coating: Any = None  # BaseCoating or "fresnel"
 
@@ -84,29 +89,39 @@ class SurfaceGroup:
         material: Any = "air",
         is_stop: bool = False,
         surface_type: str = "standard",
+        coefficients=(),
         dx: float = 0.0,
         dy: float = 0.0,
         dz: float = 0.0,
         rx: float = 0.0,
         ry: float = 0.0,
         rz: float = 0.0,
-        aperture: float | None = None,
+        aperture=None,
         comment: str = "",
         coating=None,
         **kwargs,
     ):
-        """Add a "standard" or "plane" surface, optionally coated
-        (``coating`` a coating object or "fresnel", the bare interface
-        between the adjacent materials)."""
+        """Add a "standard", "plane", "even_asphere" or "odd_asphere"
+        surface (an asphere's polynomial ``coefficients``: C_i of r^(2i+2)
+        even, of r^(i+1) odd), optionally with a physical ``aperture`` (a
+        diameter or a ``RadialAperture``) and a coating (``coating`` a
+        coating object or "fresnel", the bare interface between the
+        adjacent materials)."""
+        from optiland_torch.physical_apertures import RadialAperture
+
         if surface_type not in _GEOM_CODES:
             raise _later(f"surface_type {surface_type!r}")
         if kwargs:
             raise _later(f"surface argument(s) {sorted(kwargs)}")
-        if aperture is not None and not isinstance(aperture, (int, float)):
-            raise _later("physical aperture objects")
+        if aperture is not None and not isinstance(
+                aperture, (int, float, RadialAperture)):
+            raise _later("physical aperture objects other than "
+                         "RadialAperture")
+        coefficients = tuple(float(c) for c in np.ravel(coefficients))
         sd = SurfaceDef(
             radius=radius, thickness=thickness, conic=conic,
             material=material, is_stop=is_stop, surface_type=surface_type,
+            coefficients=coefficients,
             dx=dx, dy=dy, dz=dz, rx=rx, ry=ry, rz=rz, aperture=aperture,
             comment=comment, coating=coating,
         )
@@ -392,17 +407,26 @@ class Optic:
         def col(attr):
             return tensor([float(getattr(s, attr)) for s in surfs])
 
+        # geometry coefficients, zero-padded to the widest surface's
+        max_nc = max([len(s.coefficients) for s in surfs] + [1])
+        coeffs = np.zeros((S, max_nc))
+        for i, s in enumerate(surfs):
+            coeffs[i, : len(s.coefficients)] = s.coefficients
+
+        def numeric_ap(s):
+            return isinstance(s.aperture, (int, float))
+
         stack = SurfaceStack(
             radius=col("radius"),
             conic=col("conic"),
-            coeffs=tensor(np.zeros((S, 1))),
+            coeffs=tensor(coeffs),
             geo_p1=tensor(np.ones(S)),
             geo_p2=tensor(np.ones(S)),
             thickness=col("thickness"),
             dx=col("dx"), dy=col("dy"), dz=col("dz"),
             rx=col("rx"), ry=col("ry"), rz=col("rz"),
             ap_max=tensor([
-                float(s.aperture) / 2 if s.aperture is not None else np.inf
+                float(s.aperture) / 2 if numeric_ap(s) else np.inf
                 for s in surfs
             ]),
             mat_coeffs=tensor(np.stack([m.padded_coefficients for m in mats])),
@@ -419,7 +443,8 @@ class Optic:
             mat_formulas=tuple(int(m.formula_code) for m in mats),
             reflective=tuple(bool(s._is_reflective) for s in surfs),
             geom_aux=none,
-            apertures=none,
+            apertures=tuple(None if s.aperture is None or numeric_ap(s)
+                            else s.aperture for s in surfs),
             interactions=none,
             coatings=tuple(coatings),
             bsdfs=none,

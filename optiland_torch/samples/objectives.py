@@ -1,8 +1,9 @@
 """Sample objective lens systems.
 
 Counterpart of ``optiland_tpu/samples/objectives.py``: the same published
-prescriptions, built with the port's ``Optic``. This slice carries the Cooke
-triplet, the system of the main path.
+prescriptions, built with the port's ``Optic``: the Cooke triplet, the
+system of the main path, and the aspheric singlet. The registry systems
+(``samples.registry``) are read from the JAX package's ``samples.json``.
 """
 
 from __future__ import annotations
@@ -37,3 +38,27 @@ class CookeTriplet(Optic):
         self.wavelengths.add(value=0.48)
         self.wavelengths.add(value=0.55, is_primary=True)
         self.wavelengths.add(value=0.65)
+
+
+class AsphericSinglet(Optic):
+    """Aspheric singlet: an N-SF11 even asphere, EPD 20, on axis."""
+
+    def __init__(self):
+        super().__init__()
+        self.surfaces.add(index=0, radius=np.inf, thickness=np.inf)
+        self.surfaces.add(
+            index=1,
+            thickness=7,
+            radius=20.0,
+            is_stop=True,
+            material="N-SF11",
+            surface_type="even_asphere",
+            conic=0.0,
+            coefficients=[-2.248851e-4, -4.690412e-6, -6.404376e-8],
+        )
+        self.surfaces.add(index=2, thickness=21.56201105)
+        self.surfaces.add(index=3)
+        self.set_aperture(aperture_type="EPD", value=20.0)
+        self.fields.set_type(field_type="angle")
+        self.fields.add(y=0)
+        self.wavelengths.add(value=0.587, is_primary=True)

@@ -13,6 +13,10 @@ decentred (``SINGLET_TILT``). ``zoo_system`` gives the Cooke triplet's
 system with each medium's dispersion replaced by a catalog row of another
 formula code (``ZOO_CODES``), so that with the Cooke glasses' codes 0, 2
 and 3 a trace evaluates every code the polychromatic kernels take.
+``tilted_asphere`` is ``bench.py``'s class of that name: the aspheric
+singlet with its asphere tilted by 1 degree about x; ``odd_asphere`` the
+aspheric singlet with its surface an ODD_ASPHERE (``ODD_COEFFS``);
+``coated_asphere`` the singlet with Fresnel coatings, polarized.
 
 The builders take the classes they build with (the port's by default), so
 another package with the same API builds the same prescription from them.
@@ -71,6 +75,49 @@ def tilted_singlet(zero=False, classes=None):
     as ``samples.polarized``'s builders take them."""
     lens = polarized.bench_polarized("polarized", classes=classes)
     return perturb(lens, {1: (0.0,) * 5 if zero else SINGLET_TILT})
+
+
+# ODD_ASPHERE variant of the aspheric singlet: the even surface's r^4 and
+# r^6 terms as odd-power coefficients (C_i of r^(i+1)), with r^3 and r^5
+# terms added and no cone (r^1) term
+ODD_COEFFS = (0.0, -2.248851e-4, 2.0e-6, -4.690412e-6, 1.0e-8, -6.404376e-8)
+
+
+def _singlet(cls):
+    if cls is None:
+        from optiland_torch.samples.objectives import AsphericSinglet as cls
+    return cls()
+
+
+def tilted_asphere(singlet=None):
+    """``bench.py``'s tilted_asphere: the aspheric singlet (``singlet``:
+    its class, the port's by default) with surface 1 tilted by 1 degree
+    about x."""
+    lens = _singlet(singlet)
+    lens.surfaces.surfaces[1].rx = float(np.radians(1.0))
+    lens._invalidate()
+    return lens
+
+
+def odd_asphere(singlet=None):
+    """The aspheric singlet with its asphere an ODD_ASPHERE of
+    ``ODD_COEFFS``."""
+    lens = _singlet(singlet)
+    surf = lens.surfaces.surfaces[1]
+    surf.surface_type = "odd_asphere"
+    surf.coefficients = ODD_COEFFS
+    lens._invalidate()
+    return lens
+
+
+def coated_asphere(polarization="H", singlet=None):
+    """The aspheric singlet with Fresnel coatings on both lens surfaces, in
+    ``polarization``."""
+    lens = _singlet(singlet)
+    for k in (1, 2):
+        lens.surfaces.surfaces[k].coating = "fresnel"
+    lens.set_polarization(polarization)
+    return lens
 
 
 def catalog_row(code, wavelengths, n_range=(1.0, 3.5)):

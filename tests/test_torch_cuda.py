@@ -24,7 +24,11 @@ rounding bound derived in its test. The polarized kernels (K8, K9), both
 modes, every coat kind: as the trace kernels, p's entries against the
 largest entry (some vanish exactly). The polychromatic mode of K5a/K5b and
 the tilted systems of every trace kernel (K1-K5, K8, K9): as the trace
-kernels, the coefficient gradients with the other summed gradients.
+kernels, the coefficient gradients with the other summed gradients. The
+sag and deep builds (radial aspheres, annular apertures, more than 16
+surfaces): as the trace kernels; their f32 kernels against the f32 plain
+versions (the f32 Newton iteration converges to ~1e-7 relative), to 2e-4
+of each array's scale and 1e-3 in the gradients' L2 norm.
 """
 
 import dataclasses
@@ -42,7 +46,10 @@ from optiland_torch.ops import fast_trace as ftr
 from optiland_torch.ops import fused_trace as ft
 from optiland_torch.ops import huygens as hu
 from optiland_torch.optic import Optic
-from optiland_torch.samples import CookeTriplet, perturbed
+from optiland_torch.polarization import create_polarization
+from optiland_torch.samples import (
+    AsphericSinglet, CookeTriplet, perturbed, registry,
+)
 
 H = (0.0, 0.7)
 WL = 0.55
@@ -179,7 +186,7 @@ def test_entry_point_launches_both_kernels(cuda_device):
 @pytest.mark.cuda
 def test_wrapper_raises_instead_of_falling_back(cuda_device):
     _, params, aim, spec = _setup()
-    bad = ((0, 2) + spec[0][2:],) + spec[1:]
+    bad = ((0, 4) + spec[0][2:],) + spec[1:]  # POLYNOMIAL_XY: not yet
     with pytest.raises(NotImplementedError):
         ft.merit_fwd(params, aim, bad, 100, seed=1)
     with pytest.raises(ValueError, match="float64 on cuda"):
@@ -209,11 +216,20 @@ def _bundle(system, Px, Py, seed):
     return ins, cots
 
 
-def _close(got, ref, rtol, what):
+def _close(got, ref, rtol, what, metre=False, positions=True):
+    """Array by array, to ``rtol`` with atol 1e-12 x the array's largest
+    entry; a system at the metre scale (``metre``) has its positions and
+    OPD (arrays 0-2 and 7 of a trace's 8; with ``positions``) to 2e-8 mm
+    absolute and its other arrays to atol 1e-9 x their largest entry, the
+    rounding of metre-long paths."""
     for k, (a, b) in enumerate(zip(got, ref)):
         scale = float(b.abs().max())
-        torch.testing.assert_close(a, b, rtol=rtol, atol=1e-12 * scale,
-                                   msg=f"{what} array {k}")
+        pos = positions and k in (0, 1, 2, 7)
+        atol = (2e-8 if pos else 1e-9 * scale) if metre else 1e-12 * scale
+        d = float((a - b).abs().max())
+        torch.testing.assert_close(a, b, rtol=rtol, atol=atol,
+                                   msg=f"{what} array {k}: max |d| {d:.3e}, "
+                                   f"max |ref| {scale:.3e}")
 
 
 @pytest.mark.cuda
@@ -245,12 +261,15 @@ def test_trace_kernels_match_plain_f64(cuda_device, kind):
                                atol=1e-12 * float(flat_p.abs().max()))
 
 
-def _near(a, b, what):
+def _near(a, b, what, metre=False):
     """f32 kernel output ``a`` against the f64 plain ``b``; a few
-    intensities may differ where a ray sits on a clip edge."""
+    intensities may differ where a ray sits on a clip edge. At the metre
+    scale (``metre``) the positions share the scale of the largest."""
+    pos = max(float(b[k].abs().max()) for k in range(3))
     for k, (u, v) in enumerate(zip(a, b)):
         d = (u.double() - v).abs()
-        bad = d > 2e-4 * max(1.0, float(v.abs().max()))
+        top = max(1.0, float(v.abs().max()), pos if metre and k < 3 else 0)
+        bad = d > 2e-4 * top
         limit = 1e-4 * v.shape[0] if k == 6 else 0
         assert int(bad.sum()) <= limit, (what, k, float(d.max()))
 
@@ -340,7 +359,7 @@ def test_trace_wrappers_raise_instead_of_falling_back(cuda_device):
     with pytest.raises(ValueError, match="contiguous"):
         strided = torch.stack([cots[0], cots[0]], dim=1)[:, 0]
         ftr.trace_bwd(params, spec, 1, ins, [strided] + cots[1:])
-    bad = ((0, 2) + spec[0][2:],) + spec[1:]
+    bad = ((0, 4) + spec[0][2:],) + spec[1:]  # POLYNOMIAL_XY: not yet
     with pytest.raises(NotImplementedError):
         ftr.trace_field_bwd(params, aim, bad, 1, Px, Py, cots)
     # a tilted system runs the kernels and agrees with their plain versions
@@ -366,12 +385,11 @@ def test_trace_wrappers_raise_instead_of_falling_back(cuda_device):
            "tilted trace_fast_field")
 
 
-def _deep_system():
-    """18 surfaces: object, eight thin plates (16 surfaces), image; more
-    than the kernels' MAX_SURF."""
+def _plates(n):
+    """2 n + 2 surfaces: object, n thin plates (2 n surfaces), image."""
     lens = Optic()
     lens.surfaces.add(index=0, radius=float("inf"), thickness=float("inf"))
-    for k in range(8):
+    for k in range(n):
         lens.surfaces.add(radius=float("inf"), thickness=1.0,
                           material="N-BK7", is_stop=k == 0)
         lens.surfaces.add(radius=-200.0 * (k + 1), thickness=2.0)
@@ -386,20 +404,35 @@ def _deep_system():
 
 @pytest.mark.cuda
 def test_trace_raises_where_the_kernels_do_not_cover_yet(cuda_device):
-    # the JAX package's kernels take systems of more than 16 surfaces (the
-    # port's take at most MAX_SURF): without a history such a system raises
-    # on the card instead of running the plain engine there; with a history
-    # the plain engine traces it. A tilted system runs the kernels.
-    system = _deep_system()
+    # 18 surfaces run on the deep build of the kernels and match the plain
+    # engine; past the kernels' MAX_SURF (64) a system raises on the card
+    # without a history instead of running the plain engine there, and with
+    # a history the plain engine traces it. A tilted system runs the kernels.
+    from optiland_torch.ops.launch import MAX_SURF
+
+    system = _plates(8)
     assert system.cfg.num_surfaces == 18
     Px, Py = ft.prng_disk(3, 1000, 0, torch.float64, cuda_device)
     rays = raygen.generate_rays(system, *H, Px, Py, WL)
     ftr.reset_launch_counts()
-    with pytest.raises(NotImplementedError, match="at most 16"):
-        trace_core.trace(system, rays, record=False, wavelength=WL)
-    with pytest.raises(NotImplementedError, match="at most 16"):
-        spot.rms_spot_size(system, *H, Px, Py, WL)
-    final, hist = trace_core.trace(system, rays, record=True, wavelength=WL)
+    fast, hist = trace_core.trace(system, rays, record=False, wavelength=WL)
+    assert hist is None
+    assert ftr.LAUNCHES == _only(ftr.LAUNCHES, trace_fwd_deep=1)
+    ref, _ = trace_core.trace(system, rays, record=True, wavelength=WL)
+    for k in ("x", "y", "L", "M", "opd", "i"):
+        torch.testing.assert_close(getattr(fast, k), getattr(ref, k),
+                                   rtol=1e-9, atol=1e-9)
+    assert torch.isfinite(spot.rms_spot_size(system, *H, Px, Py, WL))
+    assert ftr.LAUNCHES == _only(ftr.LAUNCHES, trace_fwd_deep=2)
+    too_deep = _plates(MAX_SURF // 2)
+    assert too_deep.cfg.num_surfaces == MAX_SURF + 2
+    rays = raygen.generate_rays(too_deep, *H, Px, Py, WL)
+    ftr.reset_launch_counts()
+    with pytest.raises(NotImplementedError, match=f"at most {MAX_SURF}"):
+        trace_core.trace(too_deep, rays, record=False, wavelength=WL)
+    with pytest.raises(NotImplementedError, match=f"at most {MAX_SURF}"):
+        spot.rms_spot_size(too_deep, *H, Px, Py, WL)
+    final, hist = trace_core.trace(too_deep, rays, record=True, wavelength=WL)
     assert hist is not None and torch.isfinite(final.x).all()
     assert sum(ftr.LAUNCHES.values()) == 0
     tilted = perturbed.toleranced_cooke().system
@@ -413,6 +446,319 @@ def test_trace_raises_where_the_kernels_do_not_cover_yet(cuda_device):
     v = spot.rms_spot_size(tilted, *H, Px, Py, WL)
     assert torch.isfinite(v)
     assert ftr.LAUNCHES == _only(ftr.LAUNCHES, trace_fwd_tilt=2)
+
+
+# ---------------------------------------------------------------------------
+# K6a (annular apertures), K6b (EVEN/ODD_ASPHERE) and the deep build
+# ---------------------------------------------------------------------------
+
+# system -> (the build its full traces launch, its field (Hx, Hy))
+K6_SYSTEMS = {
+    "asphere": ("_sag", (0.0, 0.0)),
+    "tilted_asphere": ("_sag", (0.0, 0.0)),
+    "odd_asphere": ("_sag", (0.0, 0.0)),
+    "hubble": ("_sag", (0.0, 1.0)),
+    "objective26": ("_deep", (0.0, 0.7)),
+}
+
+
+def _k6_system(kind):
+    return {
+        "asphere": lambda: AsphericSinglet().system,
+        "tilted_asphere": lambda: perturbed.tilted_asphere().system,
+        "odd_asphere": lambda: perturbed.odd_asphere().system,
+        "hubble": lambda: registry.build_sample("HubbleTelescope").system,
+        "objective26": lambda: registry.build_sample(
+            "ObjectiveUS008879901").system,
+    }[kind]()
+
+
+def _k6_inputs(system, field, R, seed, dtype=torch.float64):
+    wl = float(system.wavelengths[system.cfg.primary_index])
+    with torch.no_grad():
+        params = ft.build_param_table(system, wl).contiguous()
+        aim = ft.aim_vector(system, *field).contiguous()
+    coeffs = system.stack.coeffs.contiguous()
+    Px, Py = ft.prng_disk_plain(seed, R, 0, torch.float64, params.device)
+    Px, Py = Px * 0.98, Py * 0.98
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    with torch.no_grad():
+        rays = raygen.generate_rays(system, *field, Px, Py, wl)
+        ins = [getattr(rays, k).contiguous() for k in ftr.RAY_FIELDS]
+    ins[6] = (0.5 + 0.5 * torch.rand(R, generator=g, dtype=ins[0].dtype)
+              ).to(ins[0].device)
+    cots = [torch.randn(R, generator=g, dtype=ins[0].dtype).to(ins[0].device)
+            for _ in range(8)]
+    cast = (lambda t: t.to(dtype).contiguous())
+    return (wl, cast(params), cast(aim), cast(coeffs), cast(Px), cast(Py),
+            [cast(t) for t in ins], [cast(t) for t in cots])
+
+
+def _pol_out_close(got, ref, what):
+    """pol_fwd's outputs: the 8 ray arrays as ``_close``; p's entries (the
+    full mode) against the largest of them, as some vanish exactly."""
+    _close(got[:8], ref[:8], 1e-10, what)
+    p_scale = max([float(v.abs().max()) for v in ref[8:]] + [0.0])
+    for k, (a, b) in enumerate(zip(got[8:], ref[8:])):
+        torch.testing.assert_close(a, b, rtol=1e-10, atol=1e-12 * p_scale,
+                                   msg=f"{what} p entry {k}")
+
+
+def _flat_close(a, b, what, metre=False):
+    """Summed gradients to rtol 1e-9 with atol 1e-12 x the largest entry;
+    at the metre scale (``metre``) atol 1e-8 x the largest entry, the
+    rounding of metre-long paths."""
+    d, top = float((a - b).abs().max()), float(b.abs().max())
+    torch.testing.assert_close(a, b, rtol=1e-9,
+                               atol=(1e-8 if metre else 1e-12) * top,
+                               msg=f"{what}: max |d| {d:.3e} of {top:.3e}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", list(K6_SYSTEMS))
+def test_k6_kernels_match_plain_f64(cuda_device, kind):
+    system = _k6_system(kind)
+    suffix, field = K6_SYSTEMS[kind]
+    R = 20001
+    wl, params, aim, coeffs, Px, Py, ins, cots = _k6_inputs(system, field,
+                                                             R, 5)
+    nc = coeffs.shape[1]
+    spec = ftr.fast_spec(system, field=True)
+    ftr.reset_launch_counts()
+    ft.reset_launch_counts()
+    # K5a, K5b
+    metre = kind == "hubble"
+    _close(ftr.trace_fwd(params, spec, ins, coeffs),
+           ftr.trace_fast_plain(params, spec, ins, coeffs), 1e-10,
+           f"{kind} trace_fwd", metre)
+    din, flat = ftr.trace_bwd(params, spec, nc, ins, cots, coeffs)
+    din_p, flat_p = ftr.trace_fast_bwd_plain(params, spec, nc, ins, cots,
+                                             coeffs)
+    _close(din, din_p, 1e-10, f"{kind} trace_bwd input cotangent", metre,
+           positions=False)
+    _flat_close(flat, flat_p, f"{kind} trace_bwd", metre)
+    S = len(spec[0])
+    dco = flat_p[S * 15:].reshape(S, nc)
+    if "asphere" in kind:
+        assert float(dco[1].abs().min()) > 0
+    else:
+        assert float(dco.abs().max()) == 0
+    # K1, K4
+    out = ftr.trace_field_fwd(params, aim, spec, Px, Py, coeffs)
+    _close(out, ftr.trace_fast_field_plain(params, aim, spec, Px, Py, coeffs),
+           1e-10, f"{kind} trace_field_fwd", metre)
+    if kind == "hubble":  # the obscuration clips rays
+        assert 0 < int((out[6] == 0).sum()) < R
+    _flat_close(ftr.trace_field_bwd(params, aim, spec, nc, Px, Py, cots,
+                                    coeffs),
+                ftr.trace_fast_field_bwd_plain(params, aim, spec, nc, Px, Py,
+                                               cots, coeffs),
+                f"{kind} trace_field_bwd", metre)
+    # K2, K3
+    mspec = ft._spec_of(system)
+    rows = ft.merit_fwd(params, aim, mspec, R, Px=Px, Py=Py, coeffs=coeffs)
+    rows_p = ft.merit_fwd_plain(params, aim, mspec, R, Px=Px, Py=Py,
+                                coeffs=coeffs)
+    loss, xbar, ybar = ft._chan_combine(rows, R)
+    assert float(loss) == pytest.approx(
+        float(ft._chan_combine(rows_p, R)[0]), rel=1e-12)
+    stats = torch.stack([xbar, ybar, 1.0 / R + 0 * xbar, 0 * xbar])
+    _flat_close(ft.merit_bwd(params, aim, stats, mspec, nc, R, Px=Px, Py=Py,
+                             coeffs=coeffs),
+                ft.merit_bwd_plain(params, aim, stats, mspec, nc, R, Px=Px,
+                                   Py=Py, coeffs=coeffs),
+                f"{kind} merit_bwd", metre)
+    names = ("trace_fwd", "trace_bwd", "trace_field_fwd", "trace_field_bwd")
+    assert ftr.LAUNCHES == _only(ftr.LAUNCHES,
+                                 **{n + suffix: 1 for n in names})
+    msuf = "_deep" if suffix == "_deep" else (
+        "_sag" if "asphere" in kind else "")
+    assert ft.LAUNCHES == _only(ft.LAUNCHES, **{"merit_fwd" + msuf: 1,
+                                                "merit_bwd" + msuf: 1})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["tilted_asphere", "hubble", "objective26"])
+def test_k6_kernels_f32_match_plain_f32(cuda_device, kind):
+    system = _k6_system(kind)
+    _, field = K6_SYSTEMS[kind]
+    R = 20001
+    wl, params, aim, coeffs, Px, Py, ins, cots = _k6_inputs(
+        system, field, R, 6, torch.float32)
+    nc = coeffs.shape[1]
+    spec = ftr.fast_spec(system, field=True)
+
+    def l2(a, b):
+        return float(torch.linalg.vector_norm(a.double() - b.double())
+                     / torch.linalg.vector_norm(b.double()))
+
+    for a, b in ((ftr.trace_fwd(params, spec, ins, coeffs),
+                  ftr.trace_fast_plain(params, spec, ins, coeffs)),
+                 (ftr.trace_field_fwd(params, aim, spec, Px, Py, coeffs),
+                  ftr.trace_fast_field_plain(params, aim, spec, Px, Py,
+                                             coeffs))):
+        _near([u.double() for u in a], [v.double() for v in b], kind,
+              kind == "hubble")
+    din, flat = ftr.trace_bwd(params, spec, nc, ins, cots, coeffs)
+    din_p, flat_p = ftr.trace_fast_bwd_plain(params, spec, nc, ins, cots,
+                                             coeffs)
+    assert l2(flat, flat_p) <= 1e-3
+    assert l2(ftr.trace_field_bwd(params, aim, spec, nc, Px, Py, cots,
+                                  coeffs),
+              ftr.trace_fast_field_bwd_plain(params, aim, spec, nc, Px, Py,
+                                             cots, coeffs)) <= 1e-3
+
+
+@pytest.mark.cuda
+def test_k6_poly_and_pol_kernels_match_plain(cuda_device):
+    from optiland_torch.ops import pol_trace as pt
+
+    # the poly mode of K5a/K5b on the tilted asphere
+    system = perturbed.tilted_asphere().system
+    R = 20001
+    wl, params, _, coeffs, _, _, ins, cots = _k6_inputs(system, (0.0, 0.0),
+                                                        R, 7)
+    nc = coeffs.shape[1]
+    spec = ftr.poly_spec(system)
+    pm = ftr.build_poly_table(system).contiguous()
+    mats = system.stack.mat_coeffs.contiguous()
+    w = torch.tensor([0.48, 0.55, 0.65], dtype=torch.float64,
+                     device=cuda_device).repeat(R // 3 + 1)[:R].contiguous()
+    rays9 = ins + [w]
+    ftr.reset_launch_counts()
+    _close(ftr.trace_fwd_poly(pm, mats, spec, rays9, coeffs),
+           ftr.trace_fwd_poly_plain(pm, mats, spec, rays9, coeffs), 1e-10,
+           "trace_fwd_poly")
+    din, flat = ftr.trace_bwd_poly(pm, mats, spec, nc, rays9, cots, coeffs)
+    din_p, flat_p = ftr.trace_bwd_poly_plain(pm, mats, spec, nc, rays9, cots,
+                                             coeffs)
+    _close(din, din_p, 1e-10, "trace_bwd_poly input cotangent")
+    _flat_close(flat, flat_p, "trace_bwd_poly")
+    assert ftr.LAUNCHES == _only(ftr.LAUNCHES, trace_fwd_poly_sag=1,
+                                 trace_bwd_poly_sag=1)
+    # K8, K9: the coated asphere, H, both modes
+    system = perturbed.coated_asphere("H").system
+    wl, params, _, coeffs, _, _, ins, cots = _k6_inputs(system, (0.0, 0.0),
+                                                        R, 8)
+    spec = pt.pol_spec(system, wl)
+    coat = pt.build_coat_table(system, wl, torch.float64, cuda_device)
+    g = torch.Generator(device="cpu").manual_seed(9)
+    cots26 = [torch.randn(R, generator=g, dtype=torch.float64).to(
+        cuda_device) for _ in range(pt.N_POL)]
+    pt.reset_launch_counts()
+    for intensity, states in (
+            (False, None), (True, pt.pol_states(create_polarization("H")))):
+        c = cots26[:8] if intensity else cots26
+        _pol_out_close(
+            pt.pol_fwd(params, coat, spec, ins, states, intensity, coeffs),
+            pt.pol_fwd_plain(params, coat, spec, ins, states, intensity,
+                             coeffs), f"pol_fwd {intensity}")
+        din, flat = pt.pol_bwd(params, coat, spec, nc, ins, c, states,
+                               intensity, coeffs)
+        din_p, flat_p = pt.pol_bwd(params.cpu(), coat.cpu(), spec, nc,
+                                   [t.cpu() for t in ins],
+                                   [t.cpu() for t in c], states, intensity,
+                                   coeffs.cpu())
+        _close([t.cpu() for t in din], din_p, 1e-10, "pol_bwd input cot")
+        _flat_close(flat.cpu(), flat_p, f"pol_bwd {intensity}")
+    assert pt.LAUNCHES == _only(pt.LAUNCHES, pol_fwd_sag=1, pol_bwd_sag=1,
+                                pol_fwd_intensity_sag=1,
+                                pol_bwd_intensity_sag=1)
+
+
+@pytest.mark.cuda
+def test_deep_poly_and_pol_kernels_match_plain(cuda_device):
+    """The deep builds of the poly mode (K5a/K5b) and of the polarized
+    kernels (K8/K9, both modes) on 18 surfaces: eight thin plates, Fresnel
+    coated and polarized for K8/K9."""
+    from optiland_torch.ops import pol_trace as pt
+
+    system = _plates(8)
+    R = 20001
+    _, _, _, coeffs, _, _, ins, cots = _k6_inputs(system, H, R, 10)
+    nc = coeffs.shape[1]
+    spec = ftr.poly_spec(system)
+    pm = ftr.build_poly_table(system).contiguous()
+    mats = system.stack.mat_coeffs.contiguous()
+    w = torch.tensor([0.48, 0.55, 0.65], dtype=torch.float64,
+                     device=cuda_device).repeat(R // 3 + 1)[:R].contiguous()
+    rays9 = ins + [w]
+    ftr.reset_launch_counts()
+    _close(ftr.trace_fwd_poly(pm, mats, spec, rays9, coeffs),
+           ftr.trace_fwd_poly_plain(pm, mats, spec, rays9, coeffs), 1e-10,
+           "deep trace_fwd_poly")
+    din, flat = ftr.trace_bwd_poly(pm, mats, spec, nc, rays9, cots, coeffs)
+    din_p, flat_p = ftr.trace_bwd_poly_plain(pm, mats, spec, nc, rays9, cots,
+                                             coeffs)
+    _close(din, din_p, 1e-10, "deep trace_bwd_poly input cotangent")
+    _flat_close(flat, flat_p, "deep trace_bwd_poly")
+    assert ftr.LAUNCHES == _only(ftr.LAUNCHES, trace_fwd_poly_deep=1,
+                                 trace_bwd_poly_deep=1)
+    lens = Optic()
+    lens.surfaces.add(index=0, radius=float("inf"), thickness=float("inf"))
+    for k in range(8):
+        lens.surfaces.add(radius=float("inf"), thickness=1.0,
+                          material="N-BK7", is_stop=k == 0, coating="fresnel")
+        lens.surfaces.add(radius=-200.0 * (k + 1), thickness=2.0,
+                          coating="fresnel")
+    lens.surfaces.add()
+    lens.set_aperture(aperture_type="EPD", value=10)
+    lens.fields.add(y=0)
+    lens.wavelengths.add(value=0.55, is_primary=True)
+    lens.set_polarization("H")
+    system = lens.system
+    spec = pt.pol_spec(system, WL)
+    params = ft.build_param_table(system, WL).contiguous()
+    coat = pt.build_coat_table(system, WL, torch.float64, cuda_device)
+    g = torch.Generator(device="cpu").manual_seed(11)
+    cots26 = [torch.randn(R, generator=g, dtype=torch.float64).to(
+        cuda_device) for _ in range(pt.N_POL)]
+    pt.reset_launch_counts()
+    for intensity, states in (
+            (False, None), (True, pt.pol_states(create_polarization("H")))):
+        c = cots26[:8] if intensity else cots26
+        _pol_out_close(
+            pt.pol_fwd(params, coat, spec, ins, states, intensity, coeffs),
+            pt.pol_fwd_plain(params, coat, spec, ins, states, intensity,
+                             coeffs), f"deep pol_fwd {intensity}")
+        din, flat = pt.pol_bwd(params, coat, spec, nc, ins, c, states,
+                               intensity, coeffs)
+        din_p, flat_p = pt.pol_bwd_plain(params, coat, spec, ins, c, states,
+                                         intensity, coeffs, nc,
+                                         with_coeffs=True)
+        _close(din, din_p, 1e-10, "deep pol_bwd input cotangent")
+        _flat_close(flat, flat_p, f"deep pol_bwd {intensity}")
+    assert pt.LAUNCHES == _only(pt.LAUNCHES, pol_fwd_deep=1, pol_bwd_deep=1,
+                                pol_fwd_intensity_deep=1,
+                                pol_bwd_intensity_deep=1)
+
+
+@pytest.mark.cuda
+def test_asphere_path_launches_sag_builds(cuda_device):
+    """The entry points on the tilted asphere run the sag builds and none
+    of the stock ones, with every stack leaf's gradient finite, the
+    coefficients' nonzero."""
+    system = perturbed.tilted_asphere().system
+    Px, Py = ft.prng_disk(3, 4097, 0, torch.float64, cuda_device)
+    ft.reset_launch_counts()
+    ftr.reset_launch_counts()
+    s2, leaves = _leaf_system(system)
+    ft.spot_rms_fast_field(s2, 0.0, 0.0, 0.587, num_rays=4097,
+                           seed=2).backward()
+    assert float(leaves["coeffs"].grad[1].abs().min()) > 0
+    s2, leaves = _leaf_system(system)
+    out = ftr.trace_fast_field(s2, 0.0, 0.0, Px, Py, 0.587)
+    (out.y.square().mean() + out.opd.mean()).backward()
+    assert float(leaves["coeffs"].grad[1].abs().min()) > 0
+    s2, leaves = _leaf_system(system)
+    spot.rms_spot_size(s2, 0.0, 0.0, Px, Py, 0.587).backward()
+    assert float(leaves["coeffs"].grad[1].abs().min()) > 0
+    torch.cuda.synchronize()
+    assert ft.LAUNCHES == _only(ft.LAUNCHES, prng_disk=0, merit_fwd_sag=1,
+                                merit_bwd_sag=1)
+    assert ftr.LAUNCHES == _only(ftr.LAUNCHES, trace_field_fwd_sag=1,
+                                 trace_field_bwd_sag=1, trace_fwd_sag=1,
+                                 trace_bwd_sag=1)
 
 
 # ---------------------------------------------------------------------------

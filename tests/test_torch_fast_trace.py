@@ -261,7 +261,7 @@ def test_absorption_mask_follows_the_k_values():
     tables are not differentiated; every surface when they are. The other
     leaves' gradients do not depend on it."""
     system = build("cooke", "torch")
-    codes, refl, absorbs, tilted = ftr.fast_spec(system)
+    codes, refl, absorbs, tilted = ftr.fast_spec(system)[:4]
     assert tilted == (False,) * 8
     jmask = jpt._absorption_mask(build("cooke", "jax"))
     assert absorbs == tuple(jmask) == (False, False, True, False, True,
@@ -435,7 +435,7 @@ def test_cpu_wrappers_run_the_plain_versions():
     assert ftr.LAUNCHES == {
         k: 0 for n in ("trace_fwd", "trace_bwd", "trace_field_fwd",
                        "trace_field_bwd", "trace_fwd_poly", "trace_bwd_poly")
-        for k in (n, n + "_tilt")}
+        for k in (n, n + "_tilt", n + "_sag", n + "_deep")}
     with pytest.raises(ValueError, match="'cuda' or 'cpu'"):
         ftr.trace_fwd(params.to("meta"), spec, out)
 

@@ -178,7 +178,7 @@ def test_chan_combine_matches_jax():
 def test_spec_and_support():
     system = TorchCooke().system
     assert ft._spec_of(system) == ((0, 1, 1, 1, 1, 1, 1, 0), (False,) * 8,
-                                   (False,) * 8)
+                                   (False,) * 8, 10)
     assert ft._tilt_mask(system) == [False] * 8
     assert ft.fused_supported(system)
     # tilted surfaces are flagged and covered (a nonzero or non-finite angle)
@@ -363,8 +363,8 @@ def test_cpu_wrappers_run_the_plain_versions():
     px, py = ft.prng_disk(1, 300, 0, torch.float64, "cpu")
     assert torch.equal(px, ft.prng_disk_plain(1, 300, 0, torch.float64,
                                               "cpu")[0])
-    assert ft.LAUNCHES == {"prng_disk": 0, "merit_fwd": 0,
-                           "merit_fwd_tilt": 0, "merit_bwd": 0,
-                           "merit_bwd_tilt": 0}
+    assert ft.LAUNCHES == {"prng_disk": 0, **{
+        n + suf: 0 for n in ("merit_fwd", "merit_bwd")
+        for suf in ("", "_tilt", "_sag", "_deep")}}
     with pytest.raises(TypeError, match="float32 or float64"):
         ft.prng_disk(1, 10, 0, torch.float16, "cpu")

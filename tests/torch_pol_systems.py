@@ -85,7 +85,8 @@ def jax_coating_record(c):
 
 
 def carried(jsys):
-    """The JAX system through system_from_numpy, coatings as records."""
+    """The JAX system through system_from_numpy, coatings and apertures as
+    records."""
     from optiland_torch.core.system import (
         STACK_FIELDS, SYSTEM_FIELDS, system_from_numpy,
     )
@@ -95,4 +96,7 @@ def carried(jsys):
     cfg = {f.name: getattr(jsys.cfg, f.name)
            for f in dataclasses.fields(jsys.cfg)}
     cfg["coatings"] = tuple(jax_coating_record(c) for c in cfg["coatings"])
+    if cfg["apertures"] is not None:
+        cfg["apertures"] = tuple(None if a is None else a.to_dict()
+                                 for a in cfg["apertures"])
     return system_from_numpy(arrays, cfg)

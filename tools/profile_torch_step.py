@@ -2,7 +2,7 @@
 """Where the time of one optiland_torch optimizer step goes, on a CUDA card.
 
 The step is one of the paths of ``chip_smoke.py``, chosen by ``--path``:
-the value and gradient, with respect to the inner radii of the Cooke
+the value and gradient, with respect to every stack leaf of the Cooke
 triplet (float32, field (0, 0.7), 0.55 um), of
 
   * ``merit`` (the default): ``spot_rms_fast_field``, in-kernel PRNG pupil;
@@ -19,7 +19,8 @@ triplet (float32, field (0, 0.7), 0.55 um), of
     singlet (H polarization) instead of the Cooke triplet: the spread of
     (x i, y i) with the exit intensity formed in the kernel
     (``trace_fast_pol_intensity``: pol_fwd_intensity, pol_bwd_intensity),
-    pupil samples from ``prng_disk``, gradient over the singlet's two radii.
+    pupil samples from ``prng_disk``, gradient over the singlet's stack
+    leaves.
 
 This script reports, for that step:
 
@@ -111,12 +112,12 @@ def main(argv=None):
         base = CookeTriplet().system
     n_surf = base.cfg.num_surfaces - 1
     stack = base.stack
-    r_inner = torch.nn.Parameter(stack.radius[1:-1].detach().clone())
 
     def system_of():
-        leaves = dict(stack.leaves())
-        leaves["radius"] = torch.cat([stack.radius[:1], r_inner,
-                                      stack.radius[-1:]])
+        """The system with every stack leaf a fresh tensor that requires
+        grad, as chip_smoke.py's timed steps take them."""
+        leaves = {k: v.detach().clone().requires_grad_(v.numel() > 0)
+                  for k, v in stack.leaves().items()}
         return base.replace(stack=stack.replace(**leaves))
 
     def pupil(i):
@@ -152,7 +153,6 @@ def main(argv=None):
         return ((f.x - f.x.mean()) ** 2 + (f.y - f.y.mean()) ** 2).mean()
 
     def step(i):
-        r_inner.grad = None
         forward(i).backward()
 
     for i in range(3):
@@ -176,7 +176,6 @@ def main(argv=None):
     # again), then the backward
     parts = {"launch_side_fwd": [], "forward": [], "backward": []}
     for i in range(args.steps):
-        r_inner.grad = None
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         launch_side(system_of(), 20_000 + i)
