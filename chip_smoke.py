@@ -56,7 +56,18 @@ to 0 just before it and read just after:
     merit, field and generic value+grad steps of bench.py's tilted_asphere,
     HubbleTelescope and ObjectiveUS008879901 at full width over every stack
     leaf, and the sag and deep kernels timed against their plain versions
-    with their bounds.
+    with their bounds;
+  * the freeform steps (phases 21-22): the free build of every trace kernel
+    (the Cartesian families POLYNOMIAL_XY, CHEBYSHEV, TOROIDAL, BICONIC)
+    against its plain version at check size in f64, per ray and per
+    gradient column (P_G1, P_G2 and each coefficient column) to 1e-11, on
+    the freeform singlets of ``samples/freeform.py`` at (Hx, Hy) = (0.3,
+    0.7), the tilted XY singlet and a 5 x 5 XY table, and K8/K9 on the
+    Fresnel-coated XY singlet; then the merit, field and generic
+    value+grad steps of the XY and toroidal singlets and the merit steps
+    of the Chebyshev and biconic ones at full width over every stack leaf,
+    the poly and polarized steps of the XY singlet, and the free kernels
+    timed against their f32 plain versions with their bounds.
 
 It prints:
 
@@ -192,14 +203,92 @@ OPS_NEWTON_ADJ_COEF = 14  # per coefficient: two Horner steps of the second
 #                           derivative 6, the column and its sum 8
 OPS_ANNULAR = 6  # the annular clip of the full step (sag and deep builds,
 #                  every surface): r^2 3, ap_min^2, compare, select
+# Operations per ray of a surface of a Cartesian family (POLYNOMIAL_XY 4,
+# CHEBYSHEV 5, TOROIDAL 7, BICONIC 8) in the FREE and DEEP_FREE builds:
+# what the function needs, not the port's explicit-basis recurrences. A
+# table of side n = ceil(sqrt(nc)) is summed as the radial families' are,
+# by Horner's rule (CHEBYSHEV by Clenshaw's): each table entry is one step
+# of its row's inner sums, each row (or each index of a one-dimensional
+# basis) one step of the outer sums; an FMA counts 2, as above. Each entry
+# is (base, per entry, per row); the step adds 15 (X, Y 4, f 3, f' 4,
+# clamp 2, t - f/f' 2), the normal its normalization 8.
+OPS_CART_POINT = {  # s, sx, sy at a point
+    4: (19, 4, 6),  # the conic base 19; per entry the row's value and its
+    #                 y-derivative (2 FMAs); per row s, sx, sy (3 FMAs)
+    5: (23, 7, 10),  # base and t = X / p1, Y / p2 with the slopes' 1 / p1,
+    #                  1 / p2 (4); per entry Clenshaw's step of the row (FMA,
+    #                  add) and of its derivative (2 FMAs); per row the outer
+    #                  steps of s 3, sx 4, sy 3
+    7: (33, 5, 0),  # the toroid's profile and rotation 33; per coefficient
+    #                 two Horner steps of z_y and z_y' (as OPS_NEWTON_COEF)
+    8: (30, 0, 0)}  # the two conic profiles
+OPS_CART_NORMAL = {  # the normal's slopes at a point
+    4: OPS_CART_POINT[4], 7: OPS_CART_POINT[7], 8: OPS_CART_POINT[8],
+    5: (35, 4, 16)}  # the reference's dT convention: base 19, t 2, clip,
+#                      acos, max and sqrt of each direction 14; per entry
+#                      the row's sums over T_j and dT_j (2 FMAs); per row
+#                      T_i 2 and dT_i = i sin(i th) / D 4 in each direction
+#                      and the outer sums of sx, sy (2 FMAs)
+OPS_CART_GRAD = {  # the adjoint's point at the Newton iterate: s, sx, sy,
+    #                the Hessian and their radius, conic, p1, p2 derivatives
+    4: (45, 6, 12),  # per entry the row's value, first and second
+    #                  y-derivatives (3 FMAs); per row the outer sums s, sx,
+    #                  sxx, sy, sxy, syy (6 FMAs)
+    5: (61, 11, 21),  # base and the normalization 4, the p1, p2
+    #                   derivatives from the slopes and the Hessian (d/dp1 =
+    #                   -(X / p1) d/dX and its chain) 12; per entry
+    #                   Clenshaw's steps of the value 3 and of both
+    #                   derivatives 4 + 4; per row the outer steps of s, sx,
+    #                   sxx (3, 4, 4), sy, sxy (3, 4) and syy 3
+    7: (110, 7, 0),  # per coefficient the Horner steps of z_y, z_y' and
+    #                  z_y'' (2, 2, 3)
+    8: (60, 0, 0)}
+OPS_CART_GRAD_NORMAL = {  # the same at the normal's point, for its slopes
+    4: OPS_CART_GRAD[4], 7: OPS_CART_GRAD[7], 8: OPS_CART_GRAD[8],
+    5: (71, 8, 48)}  # base 45, the dT convention's clip, acos, sqrt 14 and
+#                      the p1, p2 derivatives 12; per entry the row's sums
+#                      over T_j, dT_j, T_j', dT_j' (4 FMAs); per row T_i 2,
+#                      T_i' 4, dT_i 4 and its derivative 8 in each direction,
+#                      and the outer sums of the two slopes and their four
+#                      derivatives (6 FMAs)
+OPS_CART_COL = {  # each coefficient column: (per column, per row)
+    4: (15, 8),  # per column at the Newton point three basis products and
+    #              a phi + b phi_x + c phi_y (3 + 5), at the normal's point
+    #              two products and their weights (2 + 3), the sum of both
+    #              1, the warp sum 1; per row x^i, i x^(i-1) at both points
+    #              in both directions (2 x 2 x 2)
+    5: (15, 24),  # per row T_i 2 and T_i' 4 at the Newton point, T_i 2
+    #               and dT_i 4 at the normal's, in both directions
+    7: (12, 0),  # per coefficient and point the power y^(2i+2), its
+    #              derivative term and their weights (1 + 1 + 3), the sum
+    #              of both 1, the warp sum 1
+    8: (0, 0)}
+OPS_CART_ADJ = 96  # the normal's adjoint 25, the step's 45, the weights 6,
+#                    the P_G1 and P_G2 columns 20
 POL_NAMES = ("pol_fwd", "pol_fwd_intensity", "pol_bwd", "pol_bwd_intensity")
+NEWTON_CODES = (2, 3, 4, 5, 7, 8)  # the radial and Cartesian families
 
 
 def geo_ops(code, nc, niters):
     """(forward, adjoint) operations per ray of one surface step's geometry
     by its code: PLANE and STANDARD as counted above, a Newton family
-    (codes 2, 3) with its newton_iters + 1 steps and nc coefficients. The
-    adjoint excludes the recomputed forward (OPS_STEP_ADJ)."""
+    (codes 2, 3 radial; 4, 5, 7, 8 Cartesian) with its newton_iters + 1
+    steps and nc coefficients. The adjoint excludes the recomputed forward
+    (OPS_STEP_ADJ)."""
+    if code in OPS_CART_POINT:
+        side = math.isqrt(nc) + (math.isqrt(nc) ** 2 < nc)
+
+        def cost(table):
+            base, entry, row = table[code]
+            return base + entry * nc + row * side
+
+        fwd = (OPS_FWD_STANDARD - 20 + OPS_NEWTON_START
+               + (niters + 1) * (cost(OPS_CART_POINT) + 15)
+               + cost(OPS_CART_NORMAL) + 8)
+        col, col_row = OPS_CART_COL[code]
+        return fwd, (OPS_STEP_ADJ[1] + cost(OPS_CART_GRAD)
+                     + cost(OPS_CART_GRAD_NORMAL) + OPS_CART_ADJ
+                     + col * nc + col_row * side)
     if code in (2, 3):
         fwd = (OPS_FWD_STANDARD - 20 + OPS_NEWTON_START
                + (niters + 1) * (OPS_NEWTON_STEP + OPS_NEWTON_COEF * nc)
@@ -388,8 +477,9 @@ def main(argv=None):
     from optiland_torch.ops.launch import BUILD_SUFFIX, launch_key
     from optiland_torch.optic import Optic
     from optiland_torch.psf import HuygensPSF, huygens_psf, pupil_grid_coords
+    from optiland_torch.ops import launch as launch_build
     from optiland_torch.samples import (
-        AsphericSinglet, CookeTriplet, perturbed, registry,
+        AsphericSinglet, CookeTriplet, freeform, perturbed, registry,
     )
 
     def reset_counts():
@@ -418,17 +508,33 @@ def main(argv=None):
     build_s = time.perf_counter() - t0
     log(f"build: nvcc {_cuda.BUILD_SECONDS:.1f} s, load {build_s:.1f} s "
         f"({' '.join(_cuda.NVCC_FLAGS)})")
+    builds = ("stock", "tilt", "sag", "free", "deep", "deep_free")
     for line in _cuda.BUILD_LOG.splitlines():
         m = re.search(r"Compiling entry.*?\d([a-z_]+_kernel)I([fd])"
-                      r"(L[bi]\d)?E", line)
+                      r"((?:L[bi]\d+E)*)E", line)
         if m:
-            kind = {"Lb0": ", generic", "Lb1": ", field", "Li0": ", forward",
-                    "Li1": ", image adjoint"}.get(m.group(3) or "", "")
-            if m.group(1).startswith("pol_"):
-                kind = {"Lb0": ", full", "Lb1": ", intensity"}[m.group(3)]
-            log(f"  ptxas: {m.group(1)}<"
-                f"{'float' if m.group(2) == 'f' else 'double'}{kind}>")
-        elif "registers" in line or "spill" in line or "error" in line:
+            name, targs = m.group(1), re.findall(r"L[bi]\d+", m.group(3))
+            labels = {"huygens_img_kernel": {"Li0": "forward",
+                                             "Li1": "image adjoint"},
+                      "pol_fwd_kernel": {"Lb0": "full", "Lb1": "intensity"},
+                      "pol_bwd_kernel": {"Lb0": "full", "Lb1": "intensity"},
+                      "trace_fwd_kernel": {"Lb0": "", "Lb1": ""},
+                      "trace_bwd_kernel": {"Lb0": "", "Lb1": ""}}
+            kind = [labels.get(name, {}).get(a, "") for a in targs]
+            if name.startswith("trace_"):
+                kind = [("field" if targs[0] == "Lb1" else "generic")
+                        + (", poly" if targs[1] == "Lb1" else "")]
+                targs = targs[2:]
+            elif name.startswith("pol_"):
+                targs = targs[1:]
+            if name.startswith(("trace_", "pol_", "merit_")) and targs:
+                kind.append(builds[int(targs[-1][2:])])
+            kind = [k for k in kind if k]
+            log(f"  ptxas: {name}<"
+                f"{'float' if m.group(2) == 'f' else 'double'}"
+                f"{''.join(', ' + k for k in kind)}>")
+        elif ("registers" in line or "spill" in line or "error" in line
+              or line.startswith("nvcc ")):
             log(f"  ptxas: {line.strip()}")
     report["build"] = {"seconds": build_s, "log": _cuda.BUILD_LOG}
 
@@ -2563,13 +2669,14 @@ def main(argv=None):
         suf = launch_suffix(build)
         msuf = launch_suffix(ft._build(mspec_k))
         S_k = len(codes)
-        n_sag = sum(c in (2, 3) for c in codes)
+        n_sag = sum(c in NEWTON_CODES for c in codes)
+        ncb = launch_build.block_width(nc_k, build)
 
         def fwd(c):
             return geo_ops(c, nc_k, niters)[0]
 
         def bwd(c):
-            if c in (2, 3):
+            if c in NEWTON_CODES:
                 return sum(geo_ops(c, nc_k, niters))
             return OPS_BWD_STANDARD if c == 1 else OPS_BWD_PLANE
 
@@ -2584,8 +2691,8 @@ def main(argv=None):
             + OPS_ABS_BWD * sum(absorbs[1:])
         nb_f = -(-R // ft.FWD_BLOCK)
         nb_b = min(-(-R // ft.BWD_BLOCK), ft.BWD_MAX_BLOCKS)
-        ncomp_m = S_k * len(ft.GRAD_COLS) + n_sag * nc_k + ft.N_AIM
-        ncomp_f = S_k * len(ftr.FULL_GRAD_COLS) + n_sag * nc_k
+        ncomp_m = S_k * len(ft.GRAD_COLS) + n_sag * ncb + ft.N_AIM
+        ncomp_f = S_k * len(ftr.FULL_GRAD_COLS) + n_sag * ncb
         tb = (S_k * ft.NUM_P + ft.N_AIM + 2 * S_k + S_k * nc_k) * 4
         ob = (S_k * (ft.NUM_P + nc_k) + ft.N_AIM) * 4
         return {
@@ -2761,7 +2868,8 @@ def main(argv=None):
         torch.cuda.synchronize()
         res19[kname] = r
         log(f"phase 19 {kname} ({S_k} surfaces, codes {spec_k[0]}, build "
-            f"{['stock', 'tilt', 'sag', 'deep'][ftr._build(spec_k)]}; "
+            f"{['stock', 'tilt', 'sag', 'free', 'deep'][ftr._build(spec_k)]}"
+            "; "
             f"2^{args.check_log2} rays, f64 vs plain: per-ray tol 1e-10, "
             f"gradients tol 1e-9; f32 vs f64 plain: L2 tol 1e-3): "
             + ", ".join(f"{k} {v:.2e}" if isinstance(v, float)
@@ -2920,40 +3028,42 @@ def main(argv=None):
     # of each kernel at full width, on the generic path's launch bundle and
     # cotangents of a mean's size: held against the f32 plain versions on
     # the inputs they are timed on, timed, with their bounds
-    gen20 = torch.Generator(device=dev).manual_seed(200)
-    for kname, suf in (("tilted_asphere", "_sag"), ("objective26", "_deep")):
-        sys32 = k6_sys32[kname]
-        _, field = K6[kname]
+    def kernels_full_width(sys32, field, suf, gen, full):
+        """The merit and trace kernels of ``sys32``'s build (launch suffix
+        ``suf``) at full width, on the generic path's launch bundle and
+        cotangents of a mean's size: held against the f32 plain versions on
+        the inputs they are timed on (errors into ``full`` and kerr), timed
+        (ms, plain_ms), with their bounds (work)."""
         spec_k = ftr.fast_spec(sys32, field=True)
         mspec_k = ft._spec_of(sys32)
         check(launch_suffix(ftr._build(spec_k)) == suf,
-              f"{kname}: build {ftr._build(spec_k)}")
+              f"{suf}: build {ftr._build(spec_k)}")
         with torch.no_grad():
             Px8, Py8 = ft.prng_disk(8, Rf, 0, torch.float32, dev)
-        _, pk, ak, ck, ins8, cots8 = k6_inputs(sys32, field, Px8, Py8, gen20)
+        _, pk, ak, ck, ins8, cots8 = k6_inputs(sys32, field, Px8, Py8, gen)
         nck = ck.shape[1]
+        mname = "merit_fwd" + launch_suffix(ft._build(mspec_k))
+        bname = "merit_bwd" + launch_suffix(ft._build(mspec_k))
         with torch.no_grad():
             rows_t = ft.merit_fwd(pk, ak, mspec_k, Rf, seed=9, coeffs=ck)
             rows_p = ft.merit_fwd_plain(pk, ak, mspec_k, Rf, seed=9,
                                         coeffs=ck)
-            mname = "merit_fwd" + launch_suffix(ft._build(mspec_k))
             kerr[mname] = float((rows_t - rows_p).abs().max())
             lt, xbt, ybt = ft._chan_combine(rows_t, Rf)
-            full20[f"{mname}_loss_rel"] = rel(lt, ft._chan_combine(
+            full[f"{mname}_loss_rel"] = rel(lt, ft._chan_combine(
                 rows_p, Rf)[0])
-            check(full20[f"{mname}_loss_rel"] <= 1e-4, f"{mname} full width:"
-                  f" loss rel err {full20[f'{mname}_loss_rel']} > 1e-4")
+            check(full[f"{mname}_loss_rel"] <= 1e-4, f"{mname} full width:"
+                  f" loss rel err {full[f'{mname}_loss_rel']} > 1e-4")
             del rows_t, rows_p
             stats_t = torch.stack([xbt, ybt, torch.tensor(1.0 / Rf,
                                                           device=dev),
                                    torch.zeros((), device=dev)])
-            bname = "merit_bwd" + launch_suffix(ft._build(mspec_k))
             fk = ft.merit_bwd(pk, ak, stats_t, mspec_k, nck, Rf, seed=9,
                               coeffs=ck)
             fp = ft.merit_bwd_plain(pk, ak, stats_t, mspec_k, nck, Rf,
                                     seed=9, coeffs=ck)
             kerr[bname] = float((fk - fp).abs().max())
-            full20[f"{bname}_l2"] = l2(fk, fp)
+            full[f"{bname}_l2"] = l2(fk, fp)
             del fk, fp
             k5a = ftr.trace_fwd(pk, spec_k, ins8, ck)
             ref = ftr.trace_fast_plain(pk, spec_k, ins8, ck)
@@ -2970,11 +3080,11 @@ def main(argv=None):
                                                      cots8, ck)
             kerr["trace_bwd" + suf] = max(float((flat_k - flat_p).abs().max()),
                                           max_abs(din_k, din_p))
-            full20[f"trace_bwd{suf}_din"] = arr_err(din_k, din_p, 1e-6)
-            check(full20[f"trace_bwd{suf}_din"] <= 1e-3, f"trace_bwd{suf} "
+            full[f"trace_bwd{suf}_din"] = arr_err(din_k, din_p, 1e-6)
+            check(full[f"trace_bwd{suf}_din"] <= 1e-3, f"trace_bwd{suf} "
                   f"full width: input cotangents, max |d| / max |ref| "
-                  f"{full20[f'trace_bwd{suf}_din']} > 1e-3")
-            full20[f"trace_bwd{suf}_l2"] = l2(flat_k, flat_p)
+                  f"{full[f'trace_bwd{suf}_din']} > 1e-3")
+            full[f"trace_bwd{suf}_l2"] = l2(flat_k, flat_p)
             del din_k, din_p
             flat_k = ftr.trace_field_bwd(pk, ak, spec_k, nck, Px8, Py8,
                                          cots8, ck)
@@ -2982,12 +3092,12 @@ def main(argv=None):
                                                     Py8, cots8, ck)
             kerr["trace_field_bwd" + suf] = float(
                 (flat_k - flat_p).abs().max())
-            full20[f"trace_field_bwd{suf}_l2"] = l2(flat_k, flat_p)
+            full[f"trace_field_bwd{suf}_l2"] = l2(flat_k, flat_p)
             del flat_k, flat_p
             for key in (f"{bname}_l2", f"trace_bwd{suf}_l2",
                         f"trace_field_bwd{suf}_l2"):
-                check(full20[key] <= 1e-3, f"{key} full width: gradient L2 "
-                      f"rel err {full20[key]} > 1e-3")
+                check(full[key] <= 1e-3, f"{key} full width: gradient L2 "
+                      f"rel err {full[key]} > 1e-3")
             ms.update({
                 mname: time_ms(lambda i: ft.merit_fwd(
                     pk, ak, mspec_k, Rf, seed=i, coeffs=ck), 10, 3),
@@ -3026,99 +3136,112 @@ def main(argv=None):
         work.update(trace_work(spec_k, mspec_k, nck, Rf))
         del ins8, cots8, Px8, Py8
         torch.cuda.synchronize()
+
+    def poly_pol_full_width(sys_q, sys_c, suf, field, gen, names, steps,
+                            seed, pol_seed, full):
+        """The poly mode and the polarized kernels (intensity mode) of build
+        ``suf``: bench's poly step on ``sys_q`` and its polarized step on
+        ``sys_c``, three counted value+grad steps each over every leaf
+        (``names``: their keys in path_launches and ``steps``); then the
+        kernels at full width against their f32 plain versions (errors into
+        ``full`` and kerr), timed, with their bounds."""
+        for name, sysk, loss_fn, kern in (
+                (names[0], sys_q, poly_loss,
+                 ("prng_disk", "trace_fwd_poly" + suf,
+                  "trace_bwd_poly" + suf)),
+                (names[1], sys_c, pol_loss,
+                 ("prng_disk", "pol_fwd_intensity" + suf,
+                  "pol_bwd_intensity" + suf))):
+            torch.cuda.synchronize()
+            reset_counts()
+            for i in range(3):
+                s_, lv_ = leaf_system(sysk)
+                v_ = loss_fn(s_, seed + i)
+                v_.backward()
+                gc1 = lv_["coeffs"].grad[1]
+                check(bool(torch.isfinite(v_))
+                      and bool(torch.isfinite(gc1).all())
+                      and bool((gc1 != 0).all()), f"{name}: value "
+                      f"{float(v_)} or coefficient gradient {gc1.tolist()}")
+            got = counts()
+            expect = {**dict.fromkeys(got, 0), **dict.fromkeys(kern, 3)}
+            check(got == expect, f"{name} launches {got}, expected {expect}")
+            path_launches[name] = got
+            steps[name] = {"value": float(v_.detach()),
+                           "launches": {k: v for k, v in got.items() if v}}
+        spec_q = ftr.poly_spec(sys_q)
+        ncq = sys_q.stack.coeffs.shape[1]
+        fname, bname = "trace_fwd_poly" + suf, "trace_bwd_poly" + suf
+        with torch.no_grad():
+            pq = ftr.build_poly_table(sys_q).contiguous()
+            Pxq, Pyq = ft.prng_disk(17, Rf, 0, torch.float32, dev)
+            rays = raygen.generate_rays(sys_q, *field, Pxq, Pyq, WL)
+            mq = sys_q.stack.mat_coeffs.contiguous()
+            cq = sys_q.stack.coeffs.contiguous()
+            ins_q = [getattr(rays, k).contiguous() for k in ftr.RAY_FIELDS]
+            ins_q.append(cycled(Rf, torch.float32))
+            del rays, Pxq, Pyq
+            cots_q = [torch.randn(Rf, generator=gen, device=dev) / Rf
+                      for _ in range(8)]
+            k5a = ftr.trace_fwd_poly(pq, mq, spec_q, ins_q, cq)
+            ref = ftr.trace_fwd_poly_plain(pq, mq, spec_q, ins_q, cq)
+            kerr[fname] = max_abs(k5a, ref)
+            near32(k5a, ref, f"{fname} full width")
+            del k5a, ref
+            din_k, flat_k = ftr.trace_bwd_poly(pq, mq, spec_q, ncq, ins_q,
+                                               cots_q, cq)
+            din_p, flat_p = ftr.trace_bwd_poly_plain(pq, mq, spec_q, ncq,
+                                                     ins_q, cots_q, cq)
+            kerr[bname] = max(float((flat_k - flat_p).abs().max()),
+                              max_abs(din_k, din_p))
+            full[f"{bname}_din"] = arr_err(din_k, din_p, 1e-6)
+            full[f"{bname}_l2"] = l2(flat_k, flat_p)
+            check(full[f"{bname}_din"] <= 1e-3 and full[f"{bname}_l2"] <= 1e-3,
+                  f"{bname} full width: {full}")
+            del din_k, din_p, flat_k, flat_p
+            ms[fname] = time_ms(lambda i: ftr.trace_fwd_poly(
+                pq, mq, spec_q, ins_q, cq), 10, 3)
+            ms[bname] = time_ms(lambda i: ftr.trace_bwd_poly(
+                pq, mq, spec_q, ncq, ins_q, cots_q, cq), 10, 3)
+            plain_ms[fname] = time_ms(lambda i: ftr.trace_fwd_poly_plain(
+                pq, mq, spec_q, ins_q, cq), 2)
+            plain_ms[bname] = time_ms(lambda i: ftr.trace_bwd_poly_plain(
+                pq, mq, spec_q, ncq, ins_q, cots_q, cq), 2)
+        del ins_q, cots_q
+        # the formulas' operations as phase 17 counts them, over the build's
+        # geometry (no absorption in the poly mode)
+        nm = mq.shape[1]
+        S_q = len(spec_q[0])
+        evals = [0] + [s_ for s_ in range(1, S_q) if not spec_q[1][s_]]
+        f_f = sum(formula_ops(spec_q[4][s_], nm)[0] for s_ in evals)
+        f_b = f_f + sum(formula_ops(spec_q[4][s_], nm)[1] for s_ in evals)
+        tw = trace_work(spec_q, ft._spec_of(sys_q), ncq, Rf)
+        n_abs = sum(spec_q[2][1:])
+        work[fname] = (tw["trace_fwd" + suf][0] + Rf * (f_f - n_abs
+                                                        * OPS_ABS_FWD),
+                       tw["trace_fwd" + suf][1] + S_q * nm * 4 + Rf * 4)
+        work[bname] = (tw["trace_bwd" + suf][0] + Rf * (f_b - n_abs
+                                                        * OPS_ABS_BWD),
+                       tw["trace_bwd" + suf][1] + 2 * S_q * nm * 4 + Rf * 4)
+        spec_c, pol_errs = pol_full_width(sys_c, (True,), pol_seed)
+        full.update(pol_errs)
+        _, ops_fi, _, ops_bi = pol_ops(spec_c, n_h,
+                                       sys_c.stack.coeffs.shape[1])
+        work["pol_fwd_intensity" + suf] = (Rf * ops_fi,
+                                           work["pol_fwd_intensity"][1])
+        work["pol_bwd_intensity" + suf] = (Rf * ops_bi,
+                                           work["pol_bwd_intensity"][1])
+
+    gen20 = torch.Generator(device=dev).manual_seed(200)
+    for kname, suf in (("tilted_asphere", "_sag"), ("objective26", "_deep")):
+        kernels_full_width(k6_sys32[kname], K6[kname][1], suf, gen20, full20)
     # the sag builds of the poly mode and of the polarized kernels: bench's
     # poly step on the tilted asphere and its polarized step on the
-    # Fresnel-coated asphere, three counted value+grad steps each over
-    # every leaf; then the kernels at full width against their f32 plain
-    # versions, timed
-    ta32 = k6_sys32["tilted_asphere"]
-    ca32 = perturbed.coated_asphere("H").system
-    for name, sysk, loss_fn, kern in (
-            ("tilted_asphere_poly", ta32, poly_loss,
-             ("prng_disk", "trace_fwd_poly_sag", "trace_bwd_poly_sag")),
-            ("coated_asphere_pol", ca32, pol_loss,
-             ("prng_disk", "pol_fwd_intensity_sag",
-              "pol_bwd_intensity_sag"))):
-        torch.cuda.synchronize()
-        reset_counts()
-        for i in range(3):
-            s_, lv_ = leaf_system(sysk)
-            v_ = loss_fn(s_, 7300 + i)
-            v_.backward()
-            gc1 = lv_["coeffs"].grad[1]
-            check(bool(torch.isfinite(v_)) and bool(torch.isfinite(gc1).all())
-                  and bool((gc1 != 0).all()), f"{name}: value {float(v_)} or "
-                  f"coefficient gradient {gc1.tolist()}")
-        got20 = counts()
-        expect20 = {**dict.fromkeys(got20, 0), **dict.fromkeys(kern, 3)}
-        check(got20 == expect20, f"{name} launches {got20}, expected "
-              f"{expect20}")
-        path_launches[name] = got20
-        steps20[name] = {"value": float(v_.detach()),
-                         "launches": {k: v for k, v in got20.items() if v}}
-    spec_qa = ftr.poly_spec(ta32)
-    nca = ta32.stack.coeffs.shape[1]
-    with torch.no_grad():
-        pqa = ftr.build_poly_table(ta32).contiguous()
-        Pxq, Pyq = ft.prng_disk(17, Rf, 0, torch.float32, dev)
-        rays = raygen.generate_rays(ta32, *H, Pxq, Pyq, WL)
-        mqa = ta32.stack.mat_coeffs.contiguous()
-        cqa = ta32.stack.coeffs.contiguous()
-        ins_q = [getattr(rays, k).contiguous() for k in ftr.RAY_FIELDS]
-        ins_q.append(cycled(Rf, torch.float32))
-        del rays, Pxq, Pyq
-        cots_q = [torch.randn(Rf, generator=gen20, device=dev) / Rf
-                  for _ in range(8)]
-        k5a = ftr.trace_fwd_poly(pqa, mqa, spec_qa, ins_q, cqa)
-        ref = ftr.trace_fwd_poly_plain(pqa, mqa, spec_qa, ins_q, cqa)
-        kerr["trace_fwd_poly_sag"] = max_abs(k5a, ref)
-        near32(k5a, ref, "trace_fwd_poly_sag full width")
-        del k5a, ref
-        din_k, flat_k = ftr.trace_bwd_poly(pqa, mqa, spec_qa, nca, ins_q,
-                                           cots_q, cqa)
-        din_p, flat_p = ftr.trace_bwd_poly_plain(pqa, mqa, spec_qa, nca,
-                                                 ins_q, cots_q, cqa)
-        kerr["trace_bwd_poly_sag"] = max(
-            float((flat_k - flat_p).abs().max()), max_abs(din_k, din_p))
-        full20["trace_bwd_poly_sag_din"] = arr_err(din_k, din_p, 1e-6)
-        full20["trace_bwd_poly_sag_l2"] = l2(flat_k, flat_p)
-        check(full20["trace_bwd_poly_sag_din"] <= 1e-3
-              and full20["trace_bwd_poly_sag_l2"] <= 1e-3,
-              f"trace_bwd_poly_sag full width: {full20}")
-        del din_k, din_p, flat_k, flat_p
-        ms["trace_fwd_poly_sag"] = time_ms(lambda i: ftr.trace_fwd_poly(
-            pqa, mqa, spec_qa, ins_q, cqa), 10, 3)
-        ms["trace_bwd_poly_sag"] = time_ms(lambda i: ftr.trace_bwd_poly(
-            pqa, mqa, spec_qa, nca, ins_q, cots_q, cqa), 10, 3)
-        plain_ms["trace_fwd_poly_sag"] = time_ms(
-            lambda i: ftr.trace_fwd_poly_plain(pqa, mqa, spec_qa, ins_q,
-                                               cqa), 2)
-        plain_ms["trace_bwd_poly_sag"] = time_ms(
-            lambda i: ftr.trace_bwd_poly_plain(pqa, mqa, spec_qa, nca, ins_q,
-                                               cots_q, cqa), 2)
-    del ins_q, cots_q
-    # the formulas' operations as phase 17 counts them, over the sag
-    # build's geometry (no absorption in the poly mode)
-    nm_a = mqa.shape[1]
-    S_a = len(spec_qa[0])
-    evals = [0] + [s_ for s_ in range(1, S_a) if not spec_qa[1][s_]]
-    fa_f = sum(formula_ops(spec_qa[4][s_], nm_a)[0] for s_ in evals)
-    fa_b = fa_f + sum(formula_ops(spec_qa[4][s_], nm_a)[1] for s_ in evals)
-    tw = trace_work(spec_qa, ft._spec_of(ta32), nca, Rf)
-    n_abs_a = sum(spec_qa[2][1:])
-    work["trace_fwd_poly_sag"] = (
-        tw["trace_fwd_sag"][0] + Rf * (fa_f - n_abs_a * OPS_ABS_FWD),
-        tw["trace_fwd_sag"][1] + S_a * nm_a * 4 + Rf * 4)
-    work["trace_bwd_poly_sag"] = (
-        tw["trace_bwd_sag"][0] + Rf * (fa_b - n_abs_a * OPS_ABS_BWD),
-        tw["trace_bwd_sag"][1] + 2 * S_a * nm_a * 4 + Rf * 4)
-    spec_ca, pol20 = pol_full_width(ca32, (True,), 201)
-    full20.update(pol20)
-    _, ops_fi_c, _, ops_bi_c = pol_ops(spec_ca, n_h, ca32.stack.coeffs.shape[1])
-    work["pol_fwd_intensity_sag"] = (Rf * ops_fi_c,
-                                     work["pol_fwd_intensity"][1])
-    work["pol_bwd_intensity_sag"] = (Rf * ops_bi_c,
-                                     work["pol_bwd_intensity"][1])
+    # Fresnel-coated asphere
+    poly_pol_full_width(k6_sys32["tilted_asphere"],
+                        perturbed.coated_asphere("H").system, "_sag", H,
+                        gen20, ("tilted_asphere_poly", "coated_asphere_pol"),
+                        steps20, 7300, 201, full20)
     report["phases"]["k6_full_width"] = full20
     k6_names = [n + s for s in ("_sag", "_deep")
                 for n in ("merit_fwd", "merit_bwd", "trace_fwd", "trace_bwd",
@@ -3135,6 +3258,252 @@ def main(argv=None):
         f"; ms { {k: round(ms[k], 4) for k in k6_names} }; plain ms "
         f"{ {k: round(plain_ms[k], 2) for k in k6_names} }; bounds ms "
         f"{ {k: round(bound_ms_of(*work[k]), 4) for k in k6_names} }")
+
+    # ---- phase 21: K6b's Cartesian families at check size (f64) ----
+    # the free build of every trace kernel against its plain version on the
+    # freeform singlets (samples/freeform.py) at (Hx, Hy) = (0.3, 0.7), the
+    # tilted XY singlet and the 5 x 5 XY table: merit fwd/bwd, trace
+    # fwd/bwd, field fwd/bwd, poly fwd/bwd; pol fwd/bwd in both modes on the
+    # Fresnel-coated XY singlet. Per-ray arrays and every gradient column
+    # (P_G1, P_G2 and each coefficient column included) to 1e-11 relative.
+    t21 = time.perf_counter()
+    config.set_precision("float64")
+    FREE = {
+        "polynomial": lambda: freeform.freeform_singlet("polynomial"),
+        "chebyshev": lambda: freeform.freeform_singlet("chebyshev"),
+        "toroidal": lambda: freeform.freeform_singlet("toroidal"),
+        "biconic": lambda: freeform.freeform_singlet("biconic"),
+        "polynomial_tilted": lambda: freeform.freeform_singlet(
+            "polynomial", tilted=True),
+        "polynomial_5x5": lambda: freeform.freeform_singlet(
+            "polynomial", coefficients=freeform.CMAT5),
+    }
+    HF = freeform.H
+    g21 = torch.Generator(device=dev).manual_seed(21)
+    res21 = {}
+
+    def col_errs(fk, fp, S_k, nc_k, rows, what, tol=1e-11):
+        """Every gradient column of the Newton rows ``rows`` (P_G1, P_G2,
+        then each coefficient column) and the whole flat gradient: |d| <=
+        tol |ref| + 1e-13 max|ref|; returns the worst relative errors."""
+        e = {"all": flat_err(fk, fp, tol, what, 1e-13)}
+        dpk = fk[:S_k * ft.NUM_P].reshape(S_k, ft.NUM_P)
+        dpp = fp[:S_k * ft.NUM_P].reshape(S_k, ft.NUM_P)
+        dck = fk[S_k * ft.NUM_P:S_k * (ft.NUM_P + nc_k)].reshape(S_k, nc_k)
+        dcp = fp[S_k * ft.NUM_P:S_k * (ft.NUM_P + nc_k)].reshape(S_k, nc_k)
+        cols = [("p1", dpk[rows, 11], dpp[rows, 11]),
+                ("p2", dpk[rows, 12], dpp[rows, 12])] + [
+            (f"c{j}", dck[rows, j], dcp[rows, j]) for j in range(nc_k)]
+        for key, a, b in cols:
+            d = float((a - b).abs().max())
+            top = float(b.abs().max())
+            check(d <= tol * top + 1e-13 * float(fp.abs().max()),
+                  f"{what} column {key}: |d| {d:.3e}, |ref| {top:.3e}")
+            e[key] = d / top if top > 0 else d
+        return e
+
+    for fname, builder in FREE.items():
+        sysk = builder().system
+        spec_k = ftr.fast_spec(sysk, field=True)
+        mspec_k = ft._spec_of(sysk)
+        check(ftr._build(spec_k) == launch_build.FREE and ft._build(mspec_k)
+              == launch_build.FREE, f"phase 21 {fname}: build "
+              f"{ftr._build(spec_k)}")
+        S_k = len(spec_k[0])
+        _, pk, ak, ck, ins, cots = k6_inputs(sysk, HF, Px64, Py64, g21)
+        nck = ck.shape[1]
+        rows = [s for s, c in enumerate(spec_k[0]) if c in (4, 5, 7, 8)]
+        r = {"trace_fwd": arr_err(ftr.trace_fwd(pk, spec_k, ins, ck),
+                                  ftr.trace_fast_plain(pk, spec_k, ins, ck))}
+        din_k, fl_k = ftr.trace_bwd(pk, spec_k, nck, ins, cots, ck)
+        din_p, fl_p = ftr.trace_fast_bwd_plain(pk, spec_k, nck, ins, cots, ck)
+        r["trace_bwd_din"] = arr_err(din_k, din_p, 1e-6)
+        r["trace_bwd"] = col_errs(fl_k, fl_p, S_k, nck, rows,
+                                  f"{fname} trace_bwd")
+        r["trace_field_fwd"] = arr_err(
+            ftr.trace_field_fwd(pk, ak, spec_k, Px64, Py64, ck),
+            ftr.trace_fast_field_plain(pk, ak, spec_k, Px64, Py64, ck))
+        r["trace_field_bwd"] = col_errs(
+            ftr.trace_field_bwd(pk, ak, spec_k, nck, Px64, Py64, cots, ck),
+            ftr.trace_fast_field_bwd_plain(pk, ak, spec_k, nck, Px64, Py64,
+                                           cots, ck),
+            S_k, nck, rows, f"{fname} trace_field_bwd")
+        rows_k = ft.merit_fwd(pk, ak, mspec_k, Rc, Px=Px64, Py=Py64,
+                              coeffs=ck)
+        lk, xbk, ybk = ft._chan_combine(rows_k, Rc)
+        r["merit_fwd"] = rel(lk, ft._chan_combine(ft.merit_fwd_plain(
+            pk, ak, mspec_k, Rc, Px=Px64, Py=Py64, coeffs=ck), Rc)[0])
+        st_k = torch.stack([xbk, ybk, torch.tensor(1.0 / Rc, device=dev,
+                                                   dtype=torch.float64),
+                            torch.zeros((), device=dev, dtype=torch.float64)])
+        r["merit_bwd"] = col_errs(
+            ft.merit_bwd(pk, ak, st_k, mspec_k, nck, Rc, Px=Px64, Py=Py64,
+                         coeffs=ck),
+            ft.merit_bwd_plain(pk, ak, st_k, mspec_k, nck, Rc, Px=Px64,
+                               Py=Py64, coeffs=ck),
+            S_k, nck, rows, f"{fname} merit_bwd")
+        spec_q = ftr.poly_spec(sysk)
+        pq = ftr.build_poly_table(sysk).contiguous()
+        mq = sysk.stack.mat_coeffs.contiguous()
+        ins9 = ins + [cycled(Rc, torch.float64)]
+        r["trace_fwd_poly"] = arr_err(
+            ftr.trace_fwd_poly(pq, mq, spec_q, ins9, ck),
+            ftr.trace_fwd_poly_plain(pq, mq, spec_q, ins9, ck))
+        din_k, fl_k = ftr.trace_bwd_poly(pq, mq, spec_q, nck, ins9, cots, ck)
+        din_p, fl_p = ftr.trace_bwd_poly_plain(pq, mq, spec_q, nck, ins9,
+                                               cots, ck)
+        r["trace_bwd_poly_din"] = arr_err(din_k, din_p, 1e-6)
+        r["trace_bwd_poly"] = col_errs(fl_k, fl_p, S_k, nck, rows,
+                                       f"{fname} trace_bwd_poly")
+        for key in ("trace_fwd", "trace_bwd_din", "trace_field_fwd",
+                    "trace_fwd_poly", "trace_bwd_poly_din", "merit_fwd"):
+            check(r[key] <= 1e-11, f"{fname} {key} f64: rel err {r[key]} > "
+                  "1e-11")
+        torch.cuda.synchronize()
+        res21[fname] = r
+        log(f"phase 21 {fname} (codes {spec_k[0]}, nc {nck}, free build; "
+            f"2^{args.check_log2} rays, f64 vs plain, tol 1e-11 per ray and "
+            f"per gradient column): " + ", ".join(
+                f"{k} {v:.2e}" if isinstance(v, float) else
+                f"{k} max {max(v.values()):.2e} (p1 {v['p1']:.1e}, p2 "
+                f"{v['p2']:.1e}, coefficient columns "
+                f"{max(v[c] for c in v if c.startswith('c')):.1e})"
+                for k, v in r.items()))
+        del ins, cots, ins9, din_k, din_p, fl_k, fl_p
+    # K8/K9 on the Fresnel-coated XY singlet, both modes
+    sys_c = freeform.coated_freeform("polynomial", "H").system
+    wl_c, pkc, _, cc, ins, cots = k6_inputs(sys_c, HF, Px64, Py64, g21,
+                                            pt.N_POL)
+    spec_pc = pt.pol_spec(sys_c, wl_c)
+    check(spec_pc is not None and pt._build(spec_pc) == launch_build.FREE,
+          "phase 21: the coated XY singlet is not on the free build")
+    coat_c = pt.build_coat_table(sys_c, wl_c, torch.float64, dev)
+    r = {}
+    for mode, states, intensity in (("full", None, False),
+                                    ("H", pt.pol_states(STATE_H), True)):
+        c = cots[:8] if intensity else cots
+        for key, v in pol_parity(pkc, coat_c, spec_pc, cc.shape[1], ins, c,
+                                 states, intensity, f"coated XY {mode}",
+                                 coeffs=cc).items():
+            r[f"pol_{key}_{mode}"] = v
+        check(max(r[f"pol_{k}_{mode}"] for k in ("fwd", "bwd_din", "bwd"))
+              <= 1e-11, f"coated XY {mode}: {r}")
+    res21["coated_polynomial"] = r
+    report["phases"]["free_parity"] = res21
+    del ins, cots
+    torch.cuda.synchronize()
+    log(f"phase 21 K8/K9 (coated XY singlet, f64 vs plain tol 1e-11; f32 as "
+        f"phase 14): " + ", ".join(f"{k} {v:.2e}" for k, v in r.items())
+        + f"; phase 21 wall {time.perf_counter() - t21:.1f} s")
+
+    # ---- phase 22: the freeform steps at full width (f32) ----
+    # the merit, field and generic value+grad steps of the XY-polynomial
+    # and toroidal singlets and the merit steps of the Chebyshev and
+    # biconic ones at (Hx, Hy) = (0.3, 0.7), every stack leaf; the poly
+    # step of the XY singlet and the polarized step of the coated one
+    # (three counted steps each); then the free build of each kernel at
+    # full width against its f32 plain version, timed, with its bound
+    t22 = time.perf_counter()
+    config.set_precision("float32")
+    steps22, full22 = {}, {}
+    free32 = {}
+    for fname, paths in (("polynomial", ("merit", "field", "generic")),
+                         ("toroidal", ("merit", "field", "generic")),
+                         ("chebyshev", ("merit",)), ("biconic", ("merit",))):
+        sys32 = FREE[fname]().system
+        free32[fname] = sys32
+
+        def merit22(system, seed):
+            return ft.spot_rms_fast_field(system, *HF, WL, num_rays=Rf,
+                                          seed=seed)
+
+        def field22(system, seed):
+            Px, Py = ft.prng_disk(seed, Rf, 0, torch.float32, dev)
+            f = ftr.trace_fast_field(system, *HF, Px, Py, WL)
+            return ((f.x - f.x.mean()) ** 2 + (f.y - f.y.mean()) ** 2).mean()
+
+        def generic22(system, seed):
+            Px, Py = ft.prng_disk(seed, Rf, 0, torch.float32, dev)
+            return rms_spot_size(system, *HF, Px, Py, WL)
+
+        fns = {"merit": (merit22, ("merit_fwd_free", "merit_bwd_free")),
+               "field": (field22, ("prng_disk", "trace_field_fwd_free",
+                                   "trace_field_bwd_free")),
+               "generic": (generic22, ("prng_disk", "trace_fwd_free",
+                                       "trace_bwd_free"))}
+        for pname in paths:
+            loss_fn, kern = fns[pname]
+            name = f"{fname}_{pname}"
+            seed0 = 8000 + 100 * len(steps22)
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            sl, lv = leaf_system(sys32)
+            first = loss_fn(sl, seed0 - 100)
+            first.backward()
+            check(bool(torch.isfinite(first)), f"{name}: value not finite")
+            g_r = lv["radius"].grad[1]
+            g_c = lv["coeffs"].grad[1]
+            g_p = lv["geo_p1"].grad[1]
+            check(bool(torch.isfinite(g_r) and torch.isfinite(g_c).all()
+                       and torch.isfinite(g_p)), f"{name}: gradient not "
+                  f"finite: radius {float(g_r)}, p1 {float(g_p)}, "
+                  f"coeffs {g_c.tolist()}")
+            check(fname == "biconic" or bool((g_c != 0).any()),
+                  f"{name}: coefficient gradient {g_c.tolist()}")
+            check(fname == "polynomial" or float(g_p) != 0,
+                  f"{name}: geo_p1 gradient 0")
+
+            def vg22(i, sysk=sys32, loss_fn=loss_fn):
+                s_, _ = leaf_system(sysk)
+                loss_fn(s_, i).backward()
+
+            times22 = timed(vg22, seed0)
+            got22 = counts()
+            n22 = 1 + 3 + args.steps
+            expect22 = {**dict.fromkeys(got22, 0),
+                        **dict.fromkeys(kern, n22)}
+            check(got22 == expect22, f"{name} launches {got22}, expected "
+                  f"{expect22}")
+            path_launches[name] = got22
+            step22 = float(np.median(times22))
+            steps22[name] = {"value": float(first.detach()),
+                             "step_ms": step22, "step_ms_all": times22,
+                             "launches": {k: v for k, v in got22.items()
+                                          if v},
+                             "steps": n22}
+            log(f"phase 22 {name}: {n22} value+grad steps over every stack "
+                f"leaf in {time.perf_counter() - t0:.1f} s, value "
+                f"{float(first.detach()):.9e}; median step {step22:.3f} ms "
+                f"over {args.steps} steps; launches "
+                f"{ {k: v for k, v in got22.items() if v} }")
+    xy32 = free32["polynomial"]
+    report["phases"]["free_steps"] = steps22
+    # the free build of each kernel at full width on the XY singlet, its
+    # poly mode and the polarized kernels on the coated one
+    gen22 = torch.Generator(device=dev).manual_seed(220)
+    kernels_full_width(xy32, HF, "_free", gen22, full22)
+    poly_pol_full_width(xy32, freeform.coated_freeform("polynomial",
+                                                       "H").system,
+                        "_free", HF, gen22,
+                        ("polynomial_poly", "coated_polynomial_pol"),
+                        steps22, 8900, 221, full22)
+    report["phases"]["free_full_width"] = full22
+    free_names = [n + "_free" for n in (
+        "merit_fwd", "merit_bwd", "trace_fwd", "trace_bwd", "trace_field_fwd",
+        "trace_field_bwd", "trace_fwd_poly", "trace_bwd_poly",
+        "pol_fwd_intensity", "pol_bwd_intensity")]
+    log(f"phase 22 free kernels at 2^{args.full_log2} rays (f32; XY singlet, "
+        f"coated for K8/K9) against the f32 plain versions: forwards within "
+        f"2e-4 x max(1, max |ref|), input cotangents (tol 1e-3) and "
+        f"gradient L2 (tol 1e-3) "
+        f"{ {k: float(f'{v:.3e}') for k, v in full22.items()} }; max "
+        f"|kernel - plain| "
+        f"{ {k: float(f'{kerr[k]:.4g}') for k in free_names} }; ms "
+        f"{ {k: round(ms[k], 4) for k in free_names} }; plain ms "
+        f"{ {k: round(plain_ms[k], 2) for k in free_names} }; bounds ms "
+        f"{ {k: round(bound_ms_of(*work[k]), 4) for k in free_names} }; "
+        f"phase 22 wall {time.perf_counter() - t22:.1f} s")
 
     # ---- the kernels line ----
     replaces = {
@@ -3164,16 +3533,16 @@ def main(argv=None):
     sources.update({k: "optiland_torch/csrc/pol_trace.cu"
                     for k in POL_NAMES})
     kernels = []
-    # every kernel of the paths, the builds the tilted, asphere and deep
-    # paths launch (TILT, SAG, DEEP: compiled apart from the stock ones) as
-    # kernels of their own
+    # every kernel of the paths, the builds the tilted, asphere, freeform
+    # and deep paths launch (TILT, SAG, FREE, DEEP: compiled apart from the
+    # stock ones) as kernels of their own
     for name in ("merit_fwd", "merit_bwd", "prng_disk", "trace_field_fwd",
                  "trace_field_bwd", "trace_fwd", "trace_bwd", "trace_fwd_poly",
                  "trace_bwd_poly", *hu.LAUNCHES, *POL_NAMES,
                  "merit_fwd_tilt", "merit_bwd_tilt", "trace_field_fwd_tilt",
                  "trace_field_bwd_tilt", "trace_fwd_tilt", "trace_bwd_tilt",
                  "pol_fwd_intensity_tilt", "pol_bwd_intensity_tilt",
-                 *k6_names):
+                 *k6_names, *free_names):
         base_name = name
         for suf in BUILD_SUFFIX[1:]:
             base_name = base_name.removesuffix(suf)

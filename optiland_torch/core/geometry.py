@@ -1,6 +1,7 @@
 """Geometry: sag, surface normal and ray-surface intersection, PLANE,
-STANDARD (conic) and the radial Newton-from-sag families EVEN_ASPHERE and
-ODD_ASPHERE.
+STANDARD (conic), the radial Newton-from-sag families EVEN_ASPHERE and
+ODD_ASPHERE, and the Cartesian ones POLYNOMIAL_XY, CHEBYSHEV, TOROIDAL and
+BICONIC.
 
 Counterpart of ``optiland_tpu/core/geometry.py``, with the same integer
 codes and the same formulas (curvature-form conic, closed-form root choice,
@@ -11,15 +12,45 @@ C_i rho^(i+1), rho = r^2 (even) or r (odd). Their normal is the sag's
 derivative, ds/dx = x W and ds/dy = y W, written out (``sag_point``)
 where the JAX package takes it by forward-mode AD; the values agree to
 rounding. The odd family's terms have zero slope at exactly r = 0, as the
-JAX package's guarded square root gives them. Their intersection is
-Newton's method from the conic (or plane) guess, with the clamp on
-|f'| and the one stopped-then-differentiable correction step that gives
-the implicit-function gradient (``distance_static``). The other
-Newton-from-sag families, grid sag and NURBS are ported with the rest of
-kernel K6 in a later slice; asking for them raises.
+JAX package's guarded square root gives them.
+
+The Cartesian families have separate x and y slopes (``cart_point``: s,
+s_x, s_y, and for the hand adjoints the Hessian and the derivatives with
+respect to the radius, the conic, p1 and p2):
+
+  * POLYNOMIAL_XY: conic + sum_ij C[i, j] x^i y^j, the coefficient row a
+    row-major square of side ceil(sqrt(nc)) of the system-wide padded width
+    nc (so a narrower table is read with the widest surface's side, as in
+    the JAX package);
+  * CHEBYSHEV: conic + sum_ij C[i, j] T_i(x / p1) T_j(y / p2), same layout.
+    Its normal is the reference's, not the sag's derivative: dT_n(t) =
+    n sin(n acos(clip(t))) / sqrt(max(1 - t^2, 1e-14)) with no 1 / p
+    chain-rule factor, normalized with 1 / sqrt; Newton's f' takes the true
+    derivative. Outside |t| < 1 the clip's zero derivative meets acos's
+    infinite one, and the gradient through the normal is NaN, as JAX's is;
+  * TOROIDAL: the y-z profile z_y(y) (radius p1, conic p2, even polynomial
+    sum_i C_i y^(2i+2)) rotated about an axis at the radius R; NaN where
+    (R - z_y)^2 < x^2, and z_y alone where R is infinite (a cylinder, whose
+    gradient is NaN in JAX: the branch not taken sends 0 inf into it);
+  * BICONIC: cx x^2 / (1 + qx) + cy y^2 / (1 + qy) (radius R and conic k in
+    x, p1 and p2 in y), the roots clamped at 0.
+
+Where the JAX package clamps a root at 0 (the toroid's profile and the
+biconic), its forward-mode slope past the clamp is 0 inf = NaN; so are the
+slopes here, and the ray through it is NaN.
+
+Every Newton family intersects by Newton's method from the conic (or
+plane) guess of the surface's radius and conic, with the clamp on |f'|,
+f' = N - (s_x L + s_y M), and the one stopped-then-differentiable
+correction step that gives the implicit-function gradient
+(``distance_static``). ZERNIKE_SAG, the Forbes families, grid sag and NURBS
+are ported in a later slice; asking for them raises.
 """
 
 from __future__ import annotations
+
+import math
+from types import SimpleNamespace
 
 import torch
 
@@ -38,8 +69,11 @@ FORBES_Q2D = 10
 GRID_SAG = 11
 NURBS = 12
 
-# Families the port covers, and those of them solved by Newton's method.
-NEWTON_CODES = frozenset({EVEN_ASPHERE, ODD_ASPHERE})
+# Families the port covers, and those of them solved by Newton's method:
+# the radial ones (``sag_point``) and the Cartesian ones (``cart_point``).
+RADIAL_CODES = frozenset({EVEN_ASPHERE, ODD_ASPHERE})
+CART_CODES = frozenset({POLYNOMIAL_XY, CHEBYSHEV, TOROIDAL, BICONIC})
+NEWTON_CODES = RADIAL_CODES | CART_CODES
 SUPPORTED_CODES = frozenset({PLANE, STANDARD}) | NEWTON_CODES
 
 # Newton iterations of the plain engine's intersection (the JAX package's
@@ -49,9 +83,8 @@ NEWTON_ITERS = 16
 
 def _unsupported(code):
     return NotImplementedError(
-        f"geometry code {code} is ported with the other Newton-sag, grid-sag "
-        "and NURBS families (ROADMAP Queue 1 item 3, kernel K6) in a later "
-        "slice"
+        f"geometry code {code} (ZERNIKE_SAG, the Forbes families, grid sag "
+        "or NURBS) is ported in a later slice (ROADMAP Queue 2, kernel K6)"
     )
 
 
@@ -118,22 +151,391 @@ def sag_point(code, radius, conic, coeffs, r2, grad=False):
     return s, W, Wr, s_cu, s_k, 1.0 / q3, cu**3 * r2 / (2 * q3), rho, beta
 
 
-def sag_static(code: int, radius, conic, coeffs, x, y):
+# ---------------------------------------------------------------------------
+# Cartesian families: the JAX package's sags, transcribed (the reference of
+# ``sag_static``), and ``cart_point``, their slopes and derivatives
+# ---------------------------------------------------------------------------
+
+
+def table_side(nc):
+    """Side of the square coefficient table of a POLYNOMIAL_XY or CHEBYSHEV
+    surface: ceil(sqrt(nc)) of the padded width nc."""
+    side = math.isqrt(nc)
+    return side + 1 if side * side < nc else side
+
+
+def _inv_radius(r):
+    """1 / r, exactly 0 for an infinite r, with derivative -1 / r^2 (0 at
+    infinity): the JAX package's double-where curvature."""
+    r = torch.as_tensor(r)
+    inf = torch.isinf(r)
+    return torch.where(inf, 0.0, 1.0 / torch.where(inf, 1.0, r))
+
+
+def _sag_polynomial_xy(radius, conic, coeffs, x, y):
+    z = _conic_sag(radius, conic, x**2 + y**2)
+    nc = coeffs.shape[-1]
+    side = table_side(nc)
+    acc = torch.zeros_like(x)
+    for i in range(side - 1, -1, -1):
+        row = torch.zeros_like(y)
+        for j in range(side - 1, -1, -1):
+            idx = i * side + j
+            row = row * y + (coeffs[idx] if idx < nc else 0.0)
+        acc = acc * x + row
+    return z + acc
+
+
+def _chebyshev_eval(n_max, t):
+    """T_0 .. T_n_max at t by the recurrence."""
+    terms = [torch.ones_like(t)]
+    if n_max >= 1:
+        terms.append(t)
+    for _ in range(2, n_max + 1):
+        terms.append(2 * t * terms[-1] - terms[-2])
+    return terms
+
+
+def _sag_chebyshev(radius, conic, coeffs, p1, p2, x, y):
+    z = _conic_sag(radius, conic, x**2 + y**2)
+    nc = coeffs.shape[-1]
+    side = table_side(nc)
+    tx = _chebyshev_eval(side - 1, x / p1)
+    ty = _chebyshev_eval(side - 1, y / p2)
+    acc = torch.zeros_like(x)
+    for i in range(side):
+        for j in range(side):
+            idx = i * side + j
+            if idx < nc:
+                acc = acc + coeffs[idx] * tx[i] * ty[j]
+    return z + acc
+
+
+def _toroidal_zy(p1, p2, coeffs, y):
+    y2 = y**2
+    c = _inv_radius(p1)
+    root = torch.clamp(1.0 - (1.0 + p2) * c**2 * y2, min=0.0)
+    z_y = c * y2 / (1.0 + torch.sqrt(root))
+    acc = torch.zeros_like(y)
+    for i in range(coeffs.shape[-1] - 1, -1, -1):
+        acc = acc * y2 + coeffs[i]
+    return z_y + acc * y2
+
+
+def _sag_toroidal(radius, conic, coeffs, p1, p2, x, y):
+    z_y = _toroidal_zy(p1, p2, coeffs, y)
+    R = torch.as_tensor(radius)
+    inside = (R - z_y) ** 2 - x**2
+    z = z_y + (R - z_y) - torch.sign(R - z_y) * torch.sqrt(
+        torch.where(inside < 0, float("nan"), inside))
+    return torch.where(torch.isinf(R), z_y, z)
+
+
+def _sag_biconic(radius, conic, coeffs, p1, p2, x, y):
+    cx = _inv_radius(radius)
+    cy = _inv_radius(p1)
+    rx = torch.clamp(1.0 - (1.0 + conic) * cx**2 * x**2, min=0.0)
+    ry = torch.clamp(1.0 - (1.0 + p2) * cy**2 * y**2, min=0.0)
+    return (cx * x**2 / (1.0 + torch.sqrt(rx))
+            + cy * y**2 / (1.0 + torch.sqrt(ry)))
+
+
+def _clip_unit(t):
+    """clip(t, -1, 1) with the JAX package's derivative: 1 inside, 0
+    outside by a multiplicative mask, so that an infinite derivative
+    downstream (acos' at +-1) gives NaN there as in the reference."""
+    m = (t.abs() < 1).to(t.dtype)
+    return m * t + (1 - m) * torch.sign(t)
+
+
+def _basis_1d(code, v, p, n, normal=False):
+    """The n one-dimensional basis functions of a coefficient table along
+    one coordinate v (x or y) and their derivatives, by recurrence: lists
+    f, f1, f2 (value, d/dv, d^2/dv^2) and fp, f1p (d/dp of f and f1, p the
+    normalization). POLYNOMIAL_XY's are the powers v^i (f_{i+1} = v f_i,
+    f1_{i+1} = v f1_i + f_i, f2_{i+1} = v f2_i + 2 f1_i; no p); CHEBYSHEV's
+    T_i(t), t = v / p, by the three-term recurrences of T, T' and T''. With
+    ``normal`` also g, g1, gp: the reference's normal term dT_i(t) (no
+    1 / p factor) and its d/dv and d/dp."""
+    zero = torch.zeros_like(v)
+    f, f1, f2 = [torch.ones_like(v)], [zero], [zero]
+    if code == POLYNOMIAL_XY:
+        for _ in range(1, n):
+            f, f1, f2 = (f + [v * f[-1]], f1 + [v * f1[-1] + f[-1]],
+                         f2 + [v * f2[-1] + 2 * f1[-1]])
+        return SimpleNamespace(f=f, f1=f1, f2=f2, fp=[zero] * n,
+                               f1p=[zero] * n)
+    t = v / p
+    # T, T', T'' in t, from T_-1 = t, T'_-1 = 1, T''_-1 = 0 (so T_1 = t)
+    T, T1, T2 = f, [zero], [zero]
+    P, P1, P2 = t, torch.ones_like(v), zero
+    for _ in range(1, n):
+        T, T1, T2, P, P1, P2 = (
+            T + [2 * t * T[-1] - P], T1 + [2 * T[-1] + 2 * t * T1[-1] - P1],
+            T2 + [4 * T1[-1] + 2 * t * T2[-1] - P2], T[-1], T1[-1], T2[-1])
+    f1 = [d / p for d in T1]
+    f2 = [d / (p * p) for d in T2]
+    b = SimpleNamespace(f=T, f1=f1, f2=f2, fp=[-t * d for d in f1],
+                        f1p=[-t * d2 - d1 / p for d1, d2 in zip(f1, f2)])
+    if normal:
+        c = _clip_unit(t)
+        th = torch.acos(c)
+        omt = 1 - t * t
+        D = torch.sqrt(torch.clamp(omt, min=1e-14))
+        dD = torch.where(omt > 1e-14, -t / D, 0.0)
+        dth = -torch.rsqrt(1 - c * c) * (t.abs() < 1).to(t.dtype)
+        b.g, b.g1, b.gp = [zero], [zero], [zero]
+        for i in range(1, n):
+            num = i * torch.sin(i * th)
+            dd = i * i * torch.cos(i * th) * dth / D - num * dD / (D * D)
+            b.g.append(num / D)
+            b.g1.append(dd / p)
+            b.gp.append(-t * b.g1[-1])
+    return b
+
+
+def _table_sums(code, coeffs, p1, p2, X, Y, grad, normal):
+    """The coefficient table's sums at (X, Y): P, Px, Py and with ``grad``
+    the Hessian (Pxx, Pxy = d Px/dY, Pyx = d Py/dX, Pyy) and the p1, p2
+    derivatives; with ``normal`` (CHEBYSHEV) the reference's normal terms
+    in place of Px and Py. Row by row: each row i of the table is summed
+    over j with the y basis, then weighted by the x basis at i (rows
+    past the padded width nc are skipped)."""
+    nc = coeffs.shape[-1]
+    side = table_side(nc)
+    nx = normal and code == CHEBYSHEV
+    bx = _basis_1d(code, X, p1, side, nx)
+    by = _basis_1d(code, Y, p2, side, nx)
+    keys = ("P", "Px", "Py", "Pxx", "Pxy", "Pyx", "Pyy", "Pp1", "Pp2",
+            "Pxp1", "Pxp2", "Pyp1", "Pyp2")
+    o = dict.fromkeys(keys, torch.zeros_like(X))
+    kinds = ("f", "f1", "f2", "fp", "f1p") + (("g", "g1", "gp") if nx
+                                             else ())
+    for i in range(side):
+        if i * side >= nc:
+            break
+        r = dict.fromkeys(kinds, torch.zeros_like(Y))
+        for j in range(min(side, nc - i * side)):
+            C = coeffs[i * side + j]
+            for kd in kinds:
+                r[kd] = r[kd] + C * getattr(by, kd)[j]
+        ax = {kd: getattr(bx, kd)[i] for kd in kinds}
+        if nx:
+            terms = (("P", "f", "f"), ("Px", "g", "f"), ("Py", "f", "g"),
+                     ("Pxx", "g1", "f"), ("Pxy", "g", "f1"),
+                     ("Pyx", "f1", "g"), ("Pyy", "f", "g1"),
+                     ("Pp1", "fp", "f"), ("Pp2", "f", "fp"),
+                     ("Pxp1", "gp", "f"), ("Pxp2", "g", "fp"),
+                     ("Pyp1", "fp", "g"), ("Pyp2", "f", "gp"))
+        else:
+            terms = (("P", "f", "f"), ("Px", "f1", "f"), ("Py", "f", "f1"),
+                     ("Pxx", "f2", "f"), ("Pxy", "f1", "f1"),
+                     ("Pyx", "f1", "f1"), ("Pyy", "f", "f2"),
+                     ("Pp1", "fp", "f"), ("Pp2", "f", "fp"),
+                     ("Pxp1", "f1p", "f"), ("Pxp2", "f1", "fp"),
+                     ("Pyp1", "fp", "f1"), ("Pyp2", "f", "f1p"))
+        for k, a, b in terms[:3] + (terms[3:] if grad else ()):
+            o[k] = o[k] + ax[a] * r[b]
+    return o
+
+
+def cart_point(code, radius, conic, coeffs, p1, p2, X, Y, grad=False,
+               normal=False):
+    """A Cartesian family's sag and slopes at (X, Y): s, sx, sy. With
+    ``normal`` the slopes are those of the normal (CHEBYSHEV's reference
+    convention; the true slopes for the others). With ``grad`` also what
+    the hand adjoints read: the slopes' derivatives hxx = d sx/dX, hxy =
+    d sx/dY, hyx = d sy/dX, hyy = d sy/dY, and the triples (d s, d sx,
+    d sy) with respect to the radius (dR), the conic (dk), p1 (dp1) and p2
+    (dp2); TOROIDAL adds zy = (ds, dsx, dsy, dsy') of its profile z_y and
+    of z_y' (what its coefficients reach)."""
+    zero = torch.zeros_like(X)
+    if code in (POLYNOMIAL_XY, CHEBYSHEV):
+        cu = 1.0 / radius
+        e = (1 + conic) * cu**2
+        r2 = X**2 + Y**2
+        q = torch.sqrt(1 - e * r2)
+        W = cu / q
+        t = _table_sums(code, coeffs, p1, p2, X, Y, grad, normal)
+        o = SimpleNamespace(s=cu * r2 / (1 + q) + t["P"], sx=X * W + t["Px"],
+                            sy=Y * W + t["Py"])
+        if not grad:
+            return o
+        Wr = cu * e / (2 * q**3)
+        o.hxx = W + 2 * X * X * Wr + t["Pxx"]
+        o.hxy = 2 * X * Y * Wr + t["Pxy"]
+        o.hyx = 2 * X * Y * Wr + t["Pyx"]
+        o.hyy = W + 2 * Y * Y * Wr + t["Pyy"]
+        mcu2 = -cu * cu  # d cu / dR
+        o.dR = (mcu2 * r2 / (q * (1 + q)), mcu2 * X / q**3, mcu2 * Y / q**3)
+        Wk = cu**3 * r2 / (2 * q**3)
+        o.dk = (cu**3 * r2**2 / (2 * q * (1 + q) ** 2), X * Wk, Y * Wk)
+        o.dp1 = (t["Pp1"], t["Pxp1"], t["Pyp1"])
+        o.dp2 = (t["Pp2"], t["Pxp2"], t["Pyp2"])
+        return o
+    if code == BICONIC:
+        cx, cy = _inv_radius(radius), _inv_radius(p1)
+        qx = torch.sqrt(torch.clamp(1 - (1 + conic) * cx**2 * X**2, min=0.0))
+        qy = torch.sqrt(torch.clamp(1 - (1 + p2) * cy**2 * Y**2, min=0.0))
+        clamped = (qx == 0) | (qy == 0)
+        o = SimpleNamespace(
+            s=cx * X**2 / (1 + qx) + cy * Y**2 / (1 + qy),
+            sx=torch.where(clamped, float("nan"), cx * X / qx),
+            sy=torch.where(clamped, float("nan"), cy * Y / qy))
+        if not grad:
+            return o
+        o.hxx, o.hxy, o.hyx, o.hyy = cx / qx**3, zero, zero, cy / qy**3
+        mcx2, mcy2 = -cx * cx, -cy * cy
+        o.dR = (mcx2 * X**2 / (qx * (1 + qx)), mcx2 * X / qx**3, zero)
+        o.dk = (cx**3 * X**4 / (2 * qx * (1 + qx) ** 2),
+                X * cx**3 * X**2 / (2 * qx**3), zero)
+        o.dp1 = (mcy2 * Y**2 / (qy * (1 + qy)), zero, mcy2 * Y / qy**3)
+        o.dp2 = (cy**3 * Y**4 / (2 * qy * (1 + qy) ** 2), zero,
+                 Y * cy**3 * Y**2 / (2 * qy**3))
+        return o
+    if code != TOROIDAL:
+        raise _unsupported(code)
+    # the profile z_y(Y), its derivatives, and theirs in cy, p2
+    cy = _inv_radius(p1)
+    Y2 = Y * Y
+    qy = torch.sqrt(torch.clamp(1 - (1 + p2) * cy**2 * Y2, min=0.0))
+    A = torch.zeros_like(Y)
+    A1 = torch.zeros_like(Y)
+    A2 = torch.zeros_like(Y)
+    for i in range(coeffs.shape[-1] - 1, -1, -1):
+        A = A * Y2 + coeffs[i]
+        A1 = A1 * Y2 + (2 * i + 2) * coeffs[i]
+        A2 = A2 * Y2 + (2 * i + 2) * (2 * i + 1) * coeffs[i]
+    zy = cy * Y2 / (1 + qy) + A * Y2
+    zy1 = torch.where(qy == 0, float("nan"), cy * Y / qy) + A1 * Y
+    R = torch.as_tensor(radius, dtype=X.dtype, device=X.device)
+    cyl = torch.isinf(R)
+    D = R - zy
+    inside = D**2 - X**2
+    sq = torch.sqrt(torch.where(inside < 0, float("nan"), inside))
+    sg = torch.sign(D)
+    G = sg * D / sq
+    sxv = sg * X / sq
+    o = SimpleNamespace(
+        s=torch.where(cyl, zy, zy + D - sg * sq),
+        sx=torch.where(qy == 0, float("nan"), torch.where(cyl, 0.0, sxv)),
+        sy=torch.where(cyl, zy1, G * zy1))
+    if not grad:
+        return o
+    zy2 = cy / qy**3 + A2
+    sq3 = sq**3
+    o.zy = (G, sg * X * D / sq3, sg * X * X * zy1 / sq3, G)
+    o.hxx = sg * D * D / sq3
+    o.hxy = o.hyx = sg * X * D * zy1 / sq3
+    o.hyy = zy2 * G + sg * X * X * zy1 * zy1 / sq3
+    o.dR = (1 - G, -o.zy[1], -o.zy[2])
+    o.dk = (zero, zero, zero)
+    # through z_y: d/dcy, then dcy/dp1 = -cy^2; d/dp2
+    zy_cy, zy1_cy = Y2 / (qy * (1 + qy)), Y / qy**3
+    zy_p2 = cy**3 * Y2**2 / (2 * qy * (1 + qy) ** 2)
+    zy1_p2 = Y * cy**3 * Y2 / (2 * qy**3)
+    mcy2 = -cy * cy
+    o.dp1 = tuple(mcy2 * v for v in (
+        o.zy[0] * zy_cy, o.zy[1] * zy_cy, o.zy[2] * zy_cy + o.zy[3] * zy1_cy))
+    o.dp2 = (o.zy[0] * zy_p2, o.zy[1] * zy_p2,
+             o.zy[2] * zy_p2 + o.zy[3] * zy1_p2)
+    # a cylinder: the JAX package's branch not taken gives 0 inf = NaN in
+    # every derivative that reaches R or z_y
+    nan = torch.full_like(X, float("nan"))
+    if bool(cyl):
+        o.zy = (nan,) * 4
+        o.hxx = o.hxy = o.hyx = o.hyy = nan
+        o.dR = o.dp1 = o.dp2 = (nan,) * 3
+    return o
+
+
+def cart_reads(code):
+    """(conic, p1 and p2): whether a Cartesian family's sag reads them
+    beyond the Newton start. The JAX package gives a parameter the sag does
+    not read no cotangent at all, not 0 x a NaN one, so the adjoints give
+    it none either (POLYNOMIAL_XY reads no p1, p2; TOROIDAL no conic)."""
+    return code != TOROIDAL, code != POLYNOMIAL_XY
+
+
+def coef_weights(code, pt, g_s, g_sx, g_sy):
+    """The per-ray weights (a, b, c) of a Cartesian family's coefficient
+    cotangents at a point, from the cotangents of its s, sx and sy
+    (``coef_columns`` expands them): the cotangents themselves for the
+    coefficient tables, those of z_y and z_y' for TOROIDAL, none for
+    BICONIC."""
+    if code == TOROIDAL:
+        zs, zx, zy, zyp = pt.zy
+        return g_s * zs + g_sx * zx + g_sy * zy, g_sy * zyp, 0.0 * g_s
+    if code == BICONIC:
+        return 0.0 * g_s, 0.0 * g_s, 0.0 * g_s
+    return g_s, g_sx, g_sy
+
+
+def coef_columns(code, nc, p1, p2, Xs, Ys, ws, X1, Y1, w1):
+    """The nc per-ray coefficient cotangents of a Cartesian surface from
+    its weights ``ws`` = (a, b, c) at the Newton point (Xs, Ys) and ``w1``
+    at the normal's point (X1, Y1): column (i, j) of a table takes
+    a phi + b d phi/dx + c d phi/dy there (at (X1, Y1) the normal's basis,
+    CHEBYSHEV's reference convention); TOROIDAL's column i takes
+    a y^(2i+2) + b (2i+2) y^(2i+1) at each point; BICONIC has none."""
+    cols = [torch.zeros_like(Xs) for _ in range(nc)]
+    if code == BICONIC:
+        return cols
+    if code == TOROIDAL:
+        for Y, (a, b, _) in ((Ys, ws), (Y1, w1)):
+            pw = Y
+            for i in range(nc):
+                cols[i] = cols[i] + (a * pw * Y + b * (2 * i + 2) * pw)
+                pw = pw * (Y * Y)
+        return cols
+    side = table_side(nc)
+    for X, Y, (a, b, c), normal in ((Xs, Ys, ws, False), (X1, Y1, w1, True)):
+        nx = normal and code == CHEBYSHEV
+        bx = _basis_1d(code, X, p1, side, nx)
+        by = _basis_1d(code, Y, p2, side, nx)
+        dx, dy = (bx.g, by.g) if nx else (bx.f1, by.f1)
+        for idx in range(nc):
+            i, j = divmod(idx, side)
+            cols[idx] = cols[idx] + (a * (bx.f[i] * by.f[j])
+                                     + b * (dx[i] * by.f[j])
+                                     + c * (bx.f[i] * dy[j]))
+    return cols
+
+
+def sag_static(code: int, radius, conic, coeffs, x, y, p1=1.0, p2=1.0):
     """Surface sag at local coordinates (x, y)."""
     if code == PLANE:
         return torch.zeros_like(x)
     if code == STANDARD:
         return _conic_sag(radius, conic, x**2 + y**2)
-    if code in NEWTON_CODES:
+    if code in RADIAL_CODES:
         return sag_point(code, radius, conic, coeffs, x**2 + y**2)[0]
+    if code == POLYNOMIAL_XY:
+        return _sag_polynomial_xy(radius, conic, coeffs, x, y)
+    if code == CHEBYSHEV:
+        return _sag_chebyshev(radius, conic, coeffs, p1, p2, x, y)
+    if code == TOROIDAL:
+        return _sag_toroidal(radius, conic, coeffs, p1, p2, x, y)
+    if code == BICONIC:
+        return _sag_biconic(radius, conic, coeffs, p1, p2, x, y)
     raise _unsupported(code)
 
 
-def _normal_newton(code, radius, conic, coeffs, x, y):
-    # the sag's derivative (x W, y W), normalized in the rsqrt form
-    _, W = sag_point(code, radius, conic, coeffs, x**2 + y**2)
-    dfdx, dfdy = x * W, y * W
-    inv_mag = torch.rsqrt(dfdx**2 + dfdy**2 + 1)
+def _normal_newton(code, radius, conic, coeffs, x, y, p1, p2):
+    """The sag's derivative (x W, y W) of a radial family, (sx, sy) of a
+    Cartesian one (CHEBYSHEV's reference convention), normalized in the
+    rsqrt form (CHEBYSHEV: 1 / sqrt, as the reference)."""
+    if code in RADIAL_CODES:
+        _, W = sag_point(code, radius, conic, coeffs, x**2 + y**2)
+        dfdx, dfdy = x * W, y * W
+    else:
+        pt = cart_point(code, radius, conic, coeffs, p1, p2, x, y,
+                        normal=True)
+        dfdx, dfdy = pt.sx, pt.sy
+    if code == CHEBYSHEV:
+        inv_mag = 1.0 / torch.sqrt(dfdx**2 + dfdy**2 + 1)
+    else:
+        inv_mag = torch.rsqrt(dfdx**2 + dfdy**2 + 1)
     return dfdx * inv_mag, dfdy * inv_mag, -inv_mag
 
 
@@ -162,7 +564,7 @@ def surface_normal_static(code: int, radius, conic, coeffs, x, y, p1=1.0,
     if code == STANDARD:
         return _normal_standard(radius, conic, x, y)
     if code in NEWTON_CODES:
-        return _normal_newton(code, radius, conic, coeffs, x, y)
+        return _normal_newton(code, radius, conic, coeffs, x, y, p1, p2)
     raise _unsupported(code)
 
 
@@ -194,13 +596,20 @@ def _distance_standard(radius, conic, x, y, z, L, M, N):
     return torch.where(z1.abs() <= z2.abs(), t1, t2)
 
 
-def newton_step(code, radius, conic, coeffs, x, y, z, L, M, N, t):
+def newton_step(code, radius, conic, coeffs, x, y, z, L, M, N, t, p1=1.0,
+                p2=1.0):
     """One Newton step t - f/f' on f(t) = z + t N - s(x + t L, y + t M),
-    with f' = N - (s_x L + s_y M) clamped to 1e-14 where |f'| <= 1e-14."""
+    with f' = N - (s_x L + s_y M) clamped to 1e-14 where |f'| <= 1e-14 (a
+    radial family's s_x = X W, s_y = Y W)."""
     X, Y = x + t * L, y + t * M
-    s, W = sag_point(code, radius, conic, coeffs, X**2 + Y**2)
+    if code in RADIAL_CODES:
+        s, W = sag_point(code, radius, conic, coeffs, X**2 + Y**2)
+        dfdt = N - W * (X * L + Y * M)
+    else:
+        pt = cart_point(code, radius, conic, coeffs, p1, p2, X, Y)
+        s = pt.s
+        dfdt = N - (pt.sx * L + pt.sy * M)
     f = z + t * N - s
-    dfdt = N - W * (X * L + Y * M)
     dfdt = torch.where(dfdt.abs() > 1e-14, dfdt, 1e-14)
     return t - f / dfdt
 
@@ -214,21 +623,22 @@ def newton_start(radius, conic, x, y, z, L, M, N):
 
 
 def distance_static(code: int, radius, conic, x, y, z, L, M, N, coeffs=None,
-                    newton_iters=NEWTON_ITERS):
+                    newton_iters=NEWTON_ITERS, p1=1.0, p2=1.0):
     """Ray parameter t to the surface in its local frame. The Newton
-    families take ``newton_iters`` steps from ``newton_start`` without a
-    gradient, then one differentiable step: the implicit-function gradient
-    dt/dtheta = -f_theta / f_t (plus the f f'_theta / f'^2 term of that
-    step), as the JAX package forms it."""
+    families take ``newton_iters`` steps from ``newton_start`` (the
+    surface's radius and conic) without a gradient, then one
+    differentiable step: the implicit-function gradient dt/dtheta =
+    -f_theta / f_t (plus the f f'_theta / f'^2 term of that step), as the
+    JAX package forms it."""
     if code == PLANE:
         return _distance_plane(x, y, z, L, M, N)
     if code == STANDARD:
         return _distance_standard(radius, conic, x, y, z, L, M, N)
     if code not in NEWTON_CODES:
         raise _unsupported(code)
+    args = (code, radius, conic, coeffs, x, y, z, L, M, N)
     with torch.no_grad():
         t = newton_start(radius, conic, x, y, z, L, M, N)
         for _ in range(newton_iters):
-            t = newton_step(code, radius, conic, coeffs, x, y, z, L, M, N, t)
-    return newton_step(code, radius, conic, coeffs, x, y, z, L, M, N,
-                       t.detach())
+            t = newton_step(*args, t, p1, p2)
+    return newton_step(*args, t.detach(), p1, p2)

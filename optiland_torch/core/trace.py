@@ -20,15 +20,17 @@ package sends it to its Pallas kernels on the TPU: a polarized system to
 ``ops/fast_trace.trace_fast``. A system the JAX package's kernels would
 take but the port's do not cover yet (a coefficient table wider than the
 kernels' NC_MAX, or more than their MAX_SURF surfaces) raises there
-instead of running this engine on the card; tilted surfaces, the radial
-aspheres and annular apertures run on the kernels, as in the JAX package.
+instead of running this engine on the card; tilted surfaces, the Newton
+families and annular apertures run on the kernels, as in the JAX package.
 A polarized or coated
 system that the JAX package's kernels would not take either (a coating
 that is not kernel-eligible at the trace wavelength, an unpolarized system
 with coatings) runs this engine, as the JAX package runs its XLA path.
-The port covers PLANE, STANDARD, EVEN_ASPHERE and ODD_ASPHERE surfaces
-(the aspheres by Newton's method, ``geometry.NEWTON_ITERS`` steps, as the
-JAX package's XLA path) and ``RadialAperture`` objects, whose clip
+The port covers PLANE, STANDARD, the radial aspheres (EVEN_ASPHERE,
+ODD_ASPHERE) and the Cartesian freeforms (POLYNOMIAL_XY, CHEBYSHEV,
+TOROIDAL, BICONIC) surfaces (the Newton families by Newton's method,
+``geometry.NEWTON_ITERS`` steps, as the JAX package's XLA path) and
+``RadialAperture`` objects, whose clip
 replaces the circular one; the other aperture objects, interactions (thin
 lens, phase, grating) and BSDFs come in later slices and raise, and the
 scan engine (``trace_scan``) waits for ROADMAP Queue 1 item 8.
@@ -84,8 +86,9 @@ def _surface_step(stack, cfg, s, pos_s, state):
         y, z, M, N = kernels.rotate_x(y, z, M, N, -stack.rx[s])
 
     # Intersect + propagate
+    p1, p2 = stack.geo_p1[s], stack.geo_p2[s]
     t = geom.distance_static(code, radius, conic, x, y, z, L, M, N,
-                             coeffs=coeffs)
+                             coeffs=coeffs, p1=p1, p2=p2)
     x = x + t * L
     y = y + t * M
     z = z + t * N
@@ -108,7 +111,8 @@ def _surface_step(stack, cfg, s, pos_s, state):
         inten = torch.where(x**2 + y**2 > ap**2, 0.0, inten)
 
     # Normal + interaction
-    nx, ny, nz = geom.surface_normal_static(code, radius, conic, coeffs, x, y)
+    nx, ny, nz = geom.surface_normal_static(code, radius, conic, coeffs, x, y,
+                                            p1, p2)
     L0, M0, N0 = L, M, N  # pre-interaction directions
     if cfg.reflective[s]:
         L, M, N = kernels.reflect(L, M, N, nx, ny, nz)

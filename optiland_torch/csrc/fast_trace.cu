@@ -30,7 +30,9 @@
 // formula is ~10 (Sellmeier) to ~60 (a pow per term) operations per ray
 // and surface, and its coefficient gradients as many per coefficient; an
 // asphere is newton_iters + 1 sag evaluations forward (~25 + 4 nc
-// operations each) and two more with second derivatives in the adjoint. The
+// operations each) and two more with second derivatives in the adjoint; a
+// Cartesian freeform the same count of evaluations of ~35 + 13 nc (XY) to
+// 22 nc (Chebyshev) operations, and its nc + 2 gradient columns. The
 // adjoints keep each ray's per-surface input state in a local array bounded
 // by the build's capacity (16 surfaces, 64 in the deep build),
 // sum each surface's gradient columns with warp shuffles into per-warp
@@ -125,7 +127,7 @@ trace_fwd_kernel(const T* __restrict__ params, const T* __restrict__ aim,
     T npost = sp[s * NUM_P + P_NPOST];
     if constexpr (POLY)
       npost = refl ? n : n_formula(sf[F_FORMULA * S + s], sm + s * nm, nm, w);
-    n = step_fwd<T, true, Bd::TILT, Bd::SAG>(
+    n = step_fwd<T, true, Bd::TILT, Bd::SAG, Bd::FREE, Bd::DEEP>(
         sf[s], refl, POLY ? 0 : sf[F_ABS * S + s], sf[F_TILT * S + s],
         sp + s * NUM_P, sr + s * N_ROT, scf + s * nc, nc, niters, n, npost,
         v[0], v[1], v[2], v[3], v[4], v[5], v[6], v[7]);
@@ -140,8 +142,8 @@ trace_fwd_kernel(const T* __restrict__ params, const T* __restrict__ aim,
 // for surface s and slot j, then (SAG) nc coefficient columns for each of
 // the nsag Newton surfaces, then (FIELD) N_AIM aim entries or (POLY) S * nm
 // dispersion coefficient entries [.. + s * nm + j]; the generic mode also
-// writes the 8 per-ray input cotangents. The deep build keeps its per-warp
-// rows in dynamic shared memory.
+// writes the 8 per-ray input cotangents. The free and deep builds keep their
+// per-warp rows in dynamic shared memory.
 //
 // POLY keeps each ray's index before surface s in the slot of its surface
 // state that holds the input intensity in the monochromatic mode (the
@@ -171,19 +173,21 @@ trace_bwd_kernel(const T* __restrict__ params, const T* __restrict__ aim,
   __shared__ T scf[Bd::SAG ? CAP * NC_MAX : 1];
   __shared__ int sf[NF * CAP];
   __shared__ int ssag[Bd::SAG ? CAP : 1];
-  __shared__ T acc_s[Bd::DEEP ? 1 : NW_MAX * NCOMP_MAX];
+  // the per-warp rows in dynamic shared memory
+  constexpr bool DYN = Bd::DYN;
+  __shared__ T acc_s[DYN ? 1 : NW_MAX * NCOMP_MAX];
   __shared__ T npre[CAP];  // mono: n_pre of surface s (uniform)
   load_mats<T, POLY>(mats, S, nm, sm);
   load_coefs<T, Bd::SAG>(cf, S, nc, scf);
   load_tables<T, NF, FIELD>(params, aim, flags, S, sp, sa, sf, sr);
-  const int nsagc = Bd::SAG ? nsag * nc : 0;
+  const int nsagc = Bd::SAG ? nsag * Bd::block(nc) : 0;
   const int ncomp =
       S * N_GF + nsagc + (FIELD ? N_AIM : 0) + (POLY ? S * nm : 0);
   const int nw = blockDim.x >> 5;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  T* acc = acc_rows<T, Bd::DEEP>(acc_s);
-  const int astride = Bd::DEEP ? ncomp : NCOMP_MAX;
-  const int nacc = Bd::DEEP ? nw * ncomp : NW_MAX * NCOMP_MAX;
+  T* acc = acc_rows<T, DYN>(acc_s);
+  const int astride = DYN ? ncomp : NCOMP_MAX;
+  const int nacc = DYN ? nw * ncomp : NW_MAX * NCOMP_MAX;
   for (int j = threadIdx.x; j < nacc; j += blockDim.x) acc[j] = T(0);
   if (threadIdx.x == 0) {
     fill_npre(sp, sf, S, npre);
@@ -221,7 +225,7 @@ trace_bwd_kernel(const T* __restrict__ params, const T* __restrict__ aim,
         if constexpr (POLY)
           npost =
               refl ? n : n_formula(sf[F_FORMULA * S + s], sm + s * nm, nm, w);
-        n = step_fwd<T, true, Bd::TILT, Bd::SAG>(
+        n = step_fwd<T, true, Bd::TILT, Bd::SAG, Bd::FREE, Bd::DEEP>(
             sf[s], refl, POLY ? 0 : sf[F_ABS * S + s], sf[F_TILT * S + s],
             sp + s * NUM_P, sr + s * N_ROT, scf + s * nc, nc, niters,
             POLY ? n : npre[s], npost, v[0], v[1], v[2], v[3], v[4], v[5],
@@ -236,14 +240,14 @@ trace_bwd_kernel(const T* __restrict__ params, const T* __restrict__ aim,
     for (int s = S - 1; s >= 1; --s) {
       const int refl = sf[S + s];
       T gc[N_GF] = {};
-      T gs[5] = {};
+      T gs[Bd::FREE ? N_GS_CART : N_GS_RAD] = {};
       T n_pre = npre[s], npost = sp[s * NUM_P + P_NPOST];
       if constexpr (POLY) {
         n_pre = valid ? st[s][6] : T(1);
         npost = refl ? n_pre : (s + 1 < S && valid ? st[s + 1][6] : n_last);
       }
       if (valid)
-        step_adjoint<T, true, Bd::TILT, Bd::SAG>(
+        step_adjoint<T, true, Bd::TILT, Bd::SAG, Bd::FREE, Bd::DEEP>(
             sf[s], refl, POLY ? 0 : sf[F_ABS * S + s], sf[F_TILT * S + s],
             sp + s * NUM_P, sr + s * N_ROT, scf + s * nc, nc, niters, n_pre,
             npost, st[s][0], st[s][1], st[s][2], st[s][3], st[s][4],
@@ -258,9 +262,19 @@ trace_bwd_kernel(const T* __restrict__ params, const T* __restrict__ aim,
         const T v = warp_sum(gc[j]);
         if (lane == 0) row[s * N_GF + j] += v;
       }
-      if constexpr (Bd::SAG)
-        if (is_newton(sf[s]))
-          add_coef_cols(gs, nc, lane, row, S * N_GF + ssag[s] * nc);
+      if constexpr (Bd::SAG) {
+        const int cb = S * N_GF + ssag[s] * Bd::block(nc);
+        if (Bd::FREE && is_cart(sf[s])) {
+          if constexpr (Bd::DEEP)
+            add_cart_cols_call(sf[s], gs, nc, sp[s * NUM_P + P_G1],
+                               sp[s * NUM_P + P_G2], lane, row, cb);
+          else
+            add_cart_cols(sf[s], gs, nc, sp[s * NUM_P + P_G1],
+                          sp[s * NUM_P + P_G2], lane, row, cb);
+        }
+        else if (is_newton(sf[s]))
+          add_coef_cols(gs, nc, lane, row, cb);
+      }
       if constexpr (POLY) {
         if (!refl) {
           const int fc = sf[F_FORMULA * S + s];
@@ -344,15 +358,17 @@ int bwd_launch(const T* params, const T* aim, const T* mats, const int* flags,
   if (nblocks < 1 || (POLY && (nm < 1 || nm > MAX_NM)) || nsag < 0 ||
       nsag > S)
     return (int)cudaErrorInvalidValue;
-  const int nsagc = build >= B_SAG ? nsag * nc : 0;
+  const int ncb = block_cols(build, nc);
+  const int nsagc = build >= B_SAG ? nsag * ncb : 0;
   const int n_extra = FIELD ? N_AIM : (POLY ? S * nm : 0);
   const int e = dispatch_build(build, [&](auto b) {
     constexpr int B = decltype(b)::value;
     if (!shape_ok<B>(S, nc, niters)) return (int)cudaErrorInvalidValue;
     const auto kernel = trace_bwd_kernel<T, FIELD, POLY, B>;
     const size_t dyn =
-        dyn_bytes<T, B>(BWD_BLOCK / 32, S * N_GF + nsagc + n_extra);
-    if (int e2 = set_dyn_smem<B>(kernel, dyn)) return e2;
+        dyn_bytes<T, Build<B>::DYN>(BWD_BLOCK / 32,
+                                    S * N_GF + nsagc + n_extra);
+    if (int e2 = set_dyn_smem<Build<B>::DYN>(kernel, dyn)) return e2;
     kernel<<<nblocks, BWD_BLOCK, dyn, stream>>>(
         params, aim, mats, flags, S, nm, cf, nc, niters, nsag, px, py,
         rays8<const T*>(in), POLY ? (const T*)in[8] : nullptr,
@@ -360,7 +376,7 @@ int bwd_launch(const T* params, const T* aim, const T* mats, const int* flags,
     return (int)cudaGetLastError();
   });
   if (e != 0) return e;
-  return reduce_launch<T, N_GF>(partial, nblocks, S, nc, nsagc, flags,
+  return reduce_launch<T, N_GF>(partial, nblocks, S, nc, ncb, nsagc, flags,
                                 n_extra, out, stream);
 }
 

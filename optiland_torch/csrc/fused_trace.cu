@@ -22,7 +22,9 @@
 // to the step (~50 operations forward, ~150 in the adjoint); an asphere
 // its newton_iters + 1 sag evaluations forward (~25 + 4 nc operations
 // each) and two more with their derivatives in the adjoint, and its nc
-// coefficient columns to the gradient rows.
+// coefficient columns to the gradient rows; a Cartesian freeform as many
+// evaluations of its table (~35 + 13 to 22 operations per coefficient) and
+// its nc + 2 columns (the coefficients, P_G1, P_G2).
 // The backward keeps each ray's per-surface input state in a local array
 // bounded by the build's surface capacity (Build<B>::CAP) for its reverse
 // sweep instead of re-tracing.
@@ -131,7 +133,7 @@ merit_fwd_kernel(const T* __restrict__ params, const T* __restrict__ aim,
     T unused_i = T(0), unused_opd = T(0);  // the merit step traces geometry
     T n = sp[P_NPOST];
     for (int s = 1; s < S; ++s)
-      n = step_fwd<T, false, Bd::TILT, Bd::SAG>(
+      n = step_fwd<T, false, Bd::TILT, Bd::SAG, Bd::FREE, Bd::DEEP>(
           sf[s], sf[S + s], 0, sf[2 * S + s], sp + s * NUM_P, sr + s * N_ROT,
           scf + s * nc, nc, niters, n, sp[s * NUM_P + P_NPOST], x, y, z, L,
           M, N, unused_i, unused_opd);
@@ -158,7 +160,7 @@ merit_fwd_kernel(const T* __restrict__ params, const T* __restrict__ aim,
 // Compact row layout: [s * N_G + j] for surface s and slot j, then nc
 // coefficient columns for each of the nsag Newton surfaces (SAG), then N_AIM
 // aim entries. The block holds 32 to BWD_BLOCK threads, a multiple of 32.
-// The deep build keeps its per-warp rows in dynamic shared memory.
+// The free and deep builds keep their per-warp rows in dynamic shared memory.
 template <typename T, int B>
 __global__ void __launch_bounds__(BWD_BLOCK)
 merit_bwd_kernel(const T* __restrict__ params, const T* __restrict__ aim,
@@ -177,17 +179,19 @@ merit_bwd_kernel(const T* __restrict__ params, const T* __restrict__ aim,
   __shared__ T scf[Bd::SAG ? CAP * NC_MAX : 1];
   __shared__ int sf[3 * CAP];  // code, reflect, tilted
   __shared__ int ssag[Bd::SAG ? CAP : 1];
-  __shared__ T acc_s[Bd::DEEP ? 1 : NW_MAX * NCOMP_MAX];
+  // the per-warp rows in dynamic shared memory
+  constexpr bool DYN = Bd::DYN;
+  __shared__ T acc_s[DYN ? 1 : NW_MAX * NCOMP_MAX];
   __shared__ T npre[CAP];  // n_pre of surface s (uniform across rays)
   load_coefs<T, Bd::SAG>(cf, S, nc, scf);
   load_tables<T, 3, true>(params, aim, flags, S, sp, sa, sf, sr);
-  const int nsagc = Bd::SAG ? nsag * nc : 0;
+  const int nsagc = Bd::SAG ? nsag * Bd::block(nc) : 0;
   const int ncomp = S * N_G + nsagc + N_AIM;
   const int nw = blockDim.x >> 5;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  T* acc = acc_rows<T, Bd::DEEP>(acc_s);
-  const int astride = Bd::DEEP ? ncomp : NCOMP_MAX;
-  const int nacc = Bd::DEEP ? nw * ncomp : NW_MAX * NCOMP_MAX;
+  T* acc = acc_rows<T, DYN>(acc_s);
+  const int astride = DYN ? ncomp : NCOMP_MAX;
+  const int nacc = DYN ? nw * ncomp : NW_MAX * NCOMP_MAX;
   for (int j = threadIdx.x; j < nacc; j += blockDim.x) acc[j] = T(0);
   if (threadIdx.x == 0) {
     fill_npre(sp, sf, S, npre);
@@ -224,7 +228,7 @@ merit_bwd_kernel(const T* __restrict__ params, const T* __restrict__ aim,
         st[s][3] = L;
         st[s][4] = M;
         st[s][5] = N;
-        step_fwd<T, false, Bd::TILT, Bd::SAG>(
+        step_fwd<T, false, Bd::TILT, Bd::SAG, Bd::FREE, Bd::DEEP>(
             sf[s], sf[S + s], 0, sf[2 * S + s], sp + s * NUM_P,
             sr + s * N_ROT, scf + s * nc, nc, niters, npre[s],
             sp[s * NUM_P + P_NPOST], x, y, z, L, M, N, unused_i, unused_opd);
@@ -234,9 +238,9 @@ merit_bwd_kernel(const T* __restrict__ params, const T* __restrict__ aim,
     }
     for (int s = S - 1; s >= 1; --s) {
       T g6[N_G] = {};
-      T gs[5] = {};
+      T gs[Bd::FREE ? N_GS_CART : N_GS_RAD] = {};
       if (valid)
-        step_adjoint<T, false, Bd::TILT, Bd::SAG>(
+        step_adjoint<T, false, Bd::TILT, Bd::SAG, Bd::FREE, Bd::DEEP>(
             sf[s], sf[S + s], 0, sf[2 * S + s], sp + s * NUM_P,
             sr + s * N_ROT, scf + s * nc, nc, niters, npre[s],
             sp[s * NUM_P + P_NPOST], st[s][0], st[s][1], st[s][2], st[s][3],
@@ -246,9 +250,19 @@ merit_bwd_kernel(const T* __restrict__ params, const T* __restrict__ aim,
         const T v = warp_sum(g6[j]);
         if (lane == 0) row[s * N_G + j] += v;
       }
-      if constexpr (Bd::SAG)
-        if (is_newton(sf[s]))
-          add_coef_cols(gs, nc, lane, row, S * N_G + ssag[s] * nc);
+      if constexpr (Bd::SAG) {
+        const int cb = S * N_G + ssag[s] * Bd::block(nc);
+        if (Bd::FREE && is_cart(sf[s])) {
+          if constexpr (Bd::DEEP)
+            add_cart_cols_call(sf[s], gs, nc, sp[s * NUM_P + P_G1],
+                               sp[s * NUM_P + P_G2], lane, row, cb);
+          else
+            add_cart_cols(sf[s], gs, nc, sp[s * NUM_P + P_G1],
+                          sp[s * NUM_P + P_G2], lane, row, cb);
+        }
+        else if (is_newton(sf[s]))
+          add_coef_cols(gs, nc, lane, row, cb);
+      }
     }
     // n_pre of surface 1 is the object row's n_post
     {
@@ -303,21 +317,23 @@ int merit_bwd_launch(const T* params, const T* aim, const T* stats,
   if (nblocks < 1 || block < 32 || block > BWD_BLOCK || block % 32 ||
       nsag < 0 || nsag > S)
     return (int)cudaErrorInvalidValue;
-  const int nsagc = build >= B_SAG ? nsag * nc : 0;
+  const int ncb = block_cols(build, nc);
+  const int nsagc = build >= B_SAG ? nsag * ncb : 0;
   const int e = dispatch_build(build, [&](auto b) {
     constexpr int B = decltype(b)::value;
     if (!shape_ok<B>(S, nc, niters)) return (int)cudaErrorInvalidValue;
     const auto kernel = merit_bwd_kernel<T, B>;
-    const size_t dyn = dyn_bytes<T, B>(block / 32, S * N_G + nsagc + N_AIM);
-    if (int e2 = set_dyn_smem<B>(kernel, dyn)) return e2;
+    const size_t dyn =
+        dyn_bytes<T, Build<B>::DYN>(block / 32, S * N_G + nsagc + N_AIM);
+    if (int e2 = set_dyn_smem<Build<B>::DYN>(kernel, dyn)) return e2;
     kernel<<<nblocks, block, dyn, stream>>>(params, aim, stats, flags, S, cf,
                                             nc, niters, nsag, px, py, R, seed,
                                             offset, prng, partial);
     return (int)cudaGetLastError();
   });
   if (e != 0) return e;
-  return reduce_launch<T, N_G>(partial, nblocks, S, nc, nsagc, flags, N_AIM,
-                               out, stream);
+  return reduce_launch<T, N_G>(partial, nblocks, S, nc, ncb, nsagc, flags,
+                               N_AIM, out, stream);
 }
 
 }  // namespace

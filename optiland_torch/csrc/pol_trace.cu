@@ -897,7 +897,7 @@ pol_fwd_kernel(const T* __restrict__ params, const T* __restrict__ coat,
   T n = sp[P_NPOST];
   for (int s = 1; s < S; ++s) {
     T adot, kl[6];  // the local pre- (k0) and post-interaction (k1) directions
-    n = step_fwd<T, true, Bd::TILT, Bd::SAG>(
+    n = step_fwd<T, true, Bd::TILT, Bd::SAG, Bd::FREE, Bd::DEEP>(
         sf[s], sf[S + s], sf[2 * S + s], sf[F_TILT * S + s], sp + s * NUM_P,
         sr + s * N_ROT, scf + s * nc, nc, niters, n, sp[s * NUM_P + P_NPOST],
         v[0], v[1], v[2], v[3], v[4], v[5], v[6], v[7], &adot, kl);
@@ -944,17 +944,20 @@ pol_bwd_kernel(const T* __restrict__ params, const T* __restrict__ coat,
   __shared__ T scf[Bd::SAG ? CAP * NC_MAX : 1];
   __shared__ int sf[NFLAG * CAP];
   __shared__ int ssag[Bd::SAG ? CAP : 1];
-  __shared__ T acc_s[Bd::DEEP ? 1 : NW_MAX * NCOMP_MAX];
+  // the per-warp rows in dynamic shared memory from the sag build up: at
+  // NC_MAX = 36 the sag build's static rows would pass 48 KB
+  constexpr bool DYN = Bd::SAG;
+  __shared__ T acc_s[DYN ? 1 : NW_MAX * NCOMP_MAX];
   __shared__ T npre[CAP];
   load_coefs<T, Bd::SAG>(cf, S, nc, scf);
   load_pol_tables(params, coat, flags, S, ncoat, sp, sc, sf, sr);
-  const int nsagc = Bd::SAG ? nsag * nc : 0;
+  const int nsagc = Bd::SAG ? nsag * Bd::block(nc) : 0;
   const int ncomp = S * (N_GF + ncoat) + nsagc;
   const int nw = blockDim.x >> 5;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  T* acc = acc_rows<T, Bd::DEEP>(acc_s);
-  const int astride = Bd::DEEP ? ncomp : NCOMP_MAX;
-  const int nacc = Bd::DEEP ? nw * ncomp : NW_MAX * NCOMP_MAX;
+  T* acc = acc_rows<T, DYN>(acc_s);
+  const int astride = DYN ? ncomp : NCOMP_MAX;
+  const int nacc = DYN ? nw * ncomp : NW_MAX * NCOMP_MAX;
   for (int j = threadIdx.x; j < nacc; j += blockDim.x) acc[j] = T(0);
   if (threadIdx.x == 0) {
     fill_npre(sp, sf, S, npre);
@@ -1000,7 +1003,7 @@ pol_bwd_kernel(const T* __restrict__ params, const T* __restrict__ coat,
           ps[s][9 + j] = pim[j];
         }
         T kl[6];
-        step_fwd<T, true, Bd::TILT, Bd::SAG>(
+        step_fwd<T, true, Bd::TILT, Bd::SAG, Bd::FREE, Bd::DEEP>(
             sf[s], sf[S + s], sf[2 * S + s], sf[F_TILT * S + s],
             sp + s * NUM_P, sr + s * N_ROT, scf + s * nc, nc, niters, npre[s],
             sp[s * NUM_P + P_NPOST], v[0], v[1], v[2], v[3], v[4], v[5], v[6],
@@ -1031,7 +1034,7 @@ pol_bwd_kernel(const T* __restrict__ params, const T* __restrict__ coat,
     }
     for (int s = S - 1; s >= 1; --s) {
       T gc[N_GF] = {};
-      T gs[5] = {};
+      T gs[Bd::FREE ? N_GS_CART : N_GS_RAD] = {};
       T gco[NCOAT_MAX];
       for (int c = 0; c < ncoat; ++c) gco[c] = T(0);
       if (valid) {
@@ -1089,7 +1092,7 @@ pol_bwd_kernel(const T* __restrict__ params, const T* __restrict__ coat,
           gco[col] += g[7] * istep[s];
           g[7] *= cr[col];
         }
-        step_adjoint<T, true, Bd::TILT, Bd::SAG>(
+        step_adjoint<T, true, Bd::TILT, Bd::SAG, Bd::FREE, Bd::DEEP>(
             sf[s], refl, sf[2 * S + s], tilted, sp + s * NUM_P,
             sr + s * N_ROT, scf + s * nc, nc, niters, npre[s],
             sp[s * NUM_P + P_NPOST], st[s][0], st[s][1], st[s][2], st[s][3],
@@ -1100,9 +1103,19 @@ pol_bwd_kernel(const T* __restrict__ params, const T* __restrict__ coat,
         const T v = warp_sum(gc[j]);
         if (lane == 0) row[s * N_GF + j] += v;
       }
-      if constexpr (Bd::SAG)
-        if (is_newton(sf[s]))
-          add_coef_cols(gs, nc, lane, row, S * N_GF + ssag[s] * nc);
+      if constexpr (Bd::SAG) {
+        const int cb = S * N_GF + ssag[s] * Bd::block(nc);
+        if (Bd::FREE && is_cart(sf[s])) {
+          if constexpr (Bd::DEEP)
+            add_cart_cols_call(sf[s], gs, nc, sp[s * NUM_P + P_G1],
+                               sp[s * NUM_P + P_G2], lane, row, cb);
+          else
+            add_cart_cols(sf[s], gs, nc, sp[s * NUM_P + P_G1],
+                          sp[s * NUM_P + P_G2], lane, row, cb);
+        }
+        else if (is_newton(sf[s]))
+          add_coef_cols(gs, nc, lane, row, cb);
+      }
       for (int c = 0; c < ncoat; ++c) {
         const T v = warp_sum(gco[c]);
         if (lane == 0) row[cbase + s * ncoat + c] += v;
@@ -1183,15 +1196,17 @@ int bwd_launch(const T* params, const T* coat, const int* flags, int S,
   if (nblocks < 1 || (intensity && nstates < 1) || nsag < 0 || nsag > S)
     return (int)cudaErrorInvalidValue;
   const States<T> st = states_of<T>(c, nstates);
-  const int nsagc = build >= B_SAG ? nsag * nc : 0;
+  const int ncb = block_cols(build, nc);
+  const int nsagc = build >= B_SAG ? nsag * ncb : 0;
   const int e = dispatch_build(build, [&](auto b) {
     constexpr int B = decltype(b)::value;
     if (!shape_ok<B>(S, nc, niters)) return (int)cudaErrorInvalidValue;
     const auto kernel =
         intensity ? pol_bwd_kernel<T, true, B> : pol_bwd_kernel<T, false, B>;
     const size_t dyn =
-        dyn_bytes<T, B>(BWD_BLOCK / 32, S * (N_GF + ncoat) + nsagc);
-    if (int e2 = set_dyn_smem<B>(kernel, dyn)) return e2;
+        dyn_bytes<T, Build<B>::SAG>(BWD_BLOCK / 32,
+                                    S * (N_GF + ncoat) + nsagc);
+    if (int e2 = set_dyn_smem<Build<B>::SAG>(kernel, dyn)) return e2;
     kernel<<<nblocks, BWD_BLOCK, dyn, stream>>>(
         params, coat, flags, S, ncoat, cf, nc, niters, nsag,
         ptrs<const T*, 8>(in, 8),
@@ -1200,7 +1215,7 @@ int bwd_launch(const T* params, const T* coat, const int* flags, int S,
     return (int)cudaGetLastError();
   });
   if (e != 0) return e;
-  return reduce_launch<T, N_GF>(partial, nblocks, S, nc, nsagc, flags,
+  return reduce_launch<T, N_GF>(partial, nblocks, S, nc, ncb, nsagc, flags,
                                 S * ncoat, out, stream);
 }
 

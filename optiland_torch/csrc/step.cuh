@@ -1,12 +1,13 @@
 // Device code shared by the port's trace kernels (sm_90a): the PLANE,
-// STANDARD, tilt, annular-aperture and EVEN_ASPHERE/ODD_ASPHERE branches of
-// _step_tile (optiland_tpu/ops/pallas_trace.py), forward and hand-derived
-// adjoint, and what the kernels around the step share: the shared-memory
-// table loaders, the per-warp gradient rows of the backwards, and their
+// STANDARD, tilt, annular-aperture, EVEN_ASPHERE/ODD_ASPHERE and
+// POLYNOMIAL_XY/CHEBYSHEV/TOROIDAL/BICONIC branches of _step_tile
+// (optiland_tpu/ops/pallas_trace.py), forward and hand-derived adjoint,
+// and what the kernels around the step share: the shared-memory table
+// loaders, the per-warp gradient rows of the backwards, and their
 // fixed-order reduction kernel. The step is a line-by-line transcription of
 // optiland_torch/ops/step.py (step_plain, step_adjoint_plain) and of the
-// radial sag terms of optiland_torch/core/geometry.py (sag_point); change
-// them together.
+// sag terms of optiland_torch/core/geometry.py (sag_point, cart_point);
+// change them together.
 //
 // The FULL flag instantiates the step in two forms:
 //   FULL = false  geometry only (x, y, z, L, M, N): the fused merit's step
@@ -26,14 +27,19 @@
 // untilted surface runs no rotation and keeps the zero-tilt derivative, the
 // rotations' generators, which is what the general form gives at zero.
 // The TILT template flag of the step compiles the rotations in; the SAG
-// flag also the Newton-from-sag families and, in the FULL form, the annular
-// clip. Every kernel is compiled in four builds (Build<B> below): stock
-// (neither), tilt, sag (tilt and sag) and deep (tilt and sag, for up to
-// DEEP_SURF surfaces; its backwards keep their gradient rows in dynamic
-// shared memory). The launchers take the least build that covers the spec
-// (ops/launch.py: build_of), so a system without a tilted surface, an
-// asphere or an annulus runs the stock code, whose registers and local
-// memory are those it had before the other branches.
+// flag also the radial Newton families and, in the FULL form, the annular
+// clip; the CART flag the Cartesian families. Every kernel is compiled in
+// six builds (Build<B> below): stock (none), tilt, sag (tilt and sag),
+// free (tilt, sag and the Cartesian families), deep (tilt and sag for up
+// to DEEP_SURF surfaces) and deep_free (deep with the Cartesian families).
+// The launchers take the least build that covers the spec (ops/launch.py:
+// build_of), so a system without a tilted surface, an asphere, a freeform
+// or an annulus runs the stock code, whose registers and local memory are
+// those it had before the other branches, and a radial asphere, shallow or
+// deep, the sag or deep code, which carries no Cartesian branch. The free
+// and both deep backwards keep their per-warp gradient rows in dynamic
+// shared memory (the polarized backward's sag build too: at NC_MAX = 36
+// its static rows would pass 48 KB).
 //
 // K6b, the radial Newton families (s = conic(r^2) + sum_i C_i rho^(i+1),
 // rho = r^2 even, r odd): sag_point gives s and W (ds/dx = x W), and for
@@ -47,6 +53,19 @@
 // coefficient row's gradient comes back as five scalars per ray (a, b, c,
 // rho_s, rho_1: dC_i = a rho_s^(i+1) + (i+1) (b rho_s^i + c rho_1^i)),
 // which the backwards expand into nc columns for each Newton surface.
+// K6b, the Cartesian families: cart_point gives s and the separate slopes
+// (sx, sy), and for the adjoint their Hessian and their derivatives with
+// respect to the radius, the conic, p1 and p2 (P_G1, P_G2). The tables
+// (POLYNOMIAL_XY x^i y^j, CHEBYSHEV T_i(x/p1) T_j(y/p2), row-major squares
+// of side ceil(sqrt(nc))) are summed row by row with running
+// one-dimensional recurrences (Basis1), no per-ray arrays; CHEBYSHEV's
+// normal is the reference's dT convention (ChebN), not its sag's
+// derivative. Newton's f' = N - (sx L + sy M). The adjoint returns
+// N_GS_CART scalars per ray: the coefficient weights (a, b, c) at the
+// Newton point and at the normal's point, both points, and the p1 and p2
+// cotangents; add_cart_cols expands them into the nc coefficient columns
+// and the P_G1, P_G2 columns of the surface's block (nc + 2 columns in the
+// free and deep_free builds), warp sums in column order, no float atomics.
 // K6a, the annular clip: the FULL step of the sag build zeroes the
 // intensity of a ray with x^2 + y^2 < ap_min^2 on every surface (ap_min is
 // 0, which clips nothing, where no RadialAperture sets it).
@@ -76,33 +95,52 @@ constexpr int NUM_P = 15;
 constexpr int P_RADIUS = 0, P_CONIC = 1, P_POS = 2, P_NPOST = 3;
 constexpr int P_APMAX = 4, P_KPRE = 5;
 constexpr int P_DX = 6, P_DY = 7, P_RX = 8, P_RY = 9, P_RZ = 10;
-constexpr int P_APMIN = 13;
+constexpr int P_G1 = 11, P_G2 = 12, P_APMIN = 13;
 constexpr int N_AIM = 8;
 constexpr int A_X0 = 0, A_Y0 = 1, A_Z0 = 2, A_L = 3, A_M = 4, A_N = 5;
 constexpr int A_SX = 6, A_SY = 7;
 constexpr int PLANE = 0, STANDARD = 1, EVEN_ASPHERE = 2, ODD_ASPHERE = 3;
+constexpr int POLYNOMIAL_XY = 4, CHEBYSHEV = 5, TOROIDAL = 7, BICONIC = 8;
 // Beer-Lambert factor exp(ABS * k_pre * t * 1e3), k_pre = k / wavelength
 constexpr double ABS = -12.566370614359172;  // -4 pi
 
 // launch shapes (optiland_torch/ops/launch.py holds the same values)
 constexpr int STOCK_SURF = 16;  // surfaces of the stock, tilt and sag builds
 constexpr int DEEP_SURF = 64;   // surfaces of the deep build
-constexpr int NC_MAX = 16;      // geometry coefficients per surface
+constexpr int NC_MAX = 36;      // geometry coefficients per surface
+// the per-ray record of a Newton surface's coefficient cotangents
+// (step_adjoint's gs): 5 scalars of a radial family, 12 of a Cartesian one
+constexpr int N_GS_RAD = 5, N_GS_CART = 12;
 constexpr int MAX_NM = 20;  // dispersion coefficients per surface (poly)
 constexpr int N_ROT = 6;    // cos rx, sin rx, cos ry, sin ry, cos rz, sin rz
 constexpr int FWD_BLOCK = 256;
 constexpr int BWD_BLOCK = 128;
 constexpr int RED_BLOCK = 256;
 
-// The builds of every kernel (ops/launch.py: STOCK, TILT, SAG, DEEP).
-constexpr int B_STOCK = 0, B_TILT = 1, B_SAG = 2, B_DEEP = 3;
+// The builds of every kernel (ops/launch.py: STOCK .. DEEP_FREE). The
+// Cartesian branch (FREE) is its own flag beside the surface reach (DEEP),
+// so a deep system without a freeform runs the deep code that carries no
+// Cartesian branch. DYN: the backwards keep their per-warp gradient rows
+// in dynamic shared memory (the free and both deep builds; the polarized
+// backward's sag build too, see pol_trace.cu).
+constexpr int B_STOCK = 0, B_TILT = 1, B_SAG = 2, B_FREE = 3, B_DEEP = 4,
+              B_DEEP_FREE = 5;
 template <int B>
 struct Build {
   static constexpr bool TILT = B >= B_TILT;
   static constexpr bool SAG = B >= B_SAG;
-  static constexpr bool DEEP = B == B_DEEP;
-  static constexpr int CAP = B == B_DEEP ? DEEP_SURF : STOCK_SURF;
+  static constexpr bool FREE = B == B_FREE || B == B_DEEP_FREE;
+  static constexpr bool DEEP = B >= B_DEEP;
+  static constexpr bool DYN = B >= B_FREE;
+  static constexpr int CAP = DEEP ? DEEP_SURF : STOCK_SURF;
+  static __host__ __device__ int block(int nc) { return FREE ? nc + 2 : nc; }
 };
+
+// Columns of a Newton surface's block of a backward's partial row in build
+// ``build`` (Build<B>::block): nc coefficients, then (FREE) P_G1 and P_G2.
+inline int block_cols(int build, int nc) {
+  return build == B_FREE || build == B_DEEP_FREE ? nc + 2 : nc;
+}
 
 // Launch a launcher body for the build ``build``: f gets the build as an
 // std::integral_constant, so the body instantiates its kernels for it.
@@ -115,8 +153,12 @@ int dispatch_build(int build, F&& f) {
       return f(std::integral_constant<int, B_TILT>{});
     case B_SAG:
       return f(std::integral_constant<int, B_SAG>{});
+    case B_FREE:
+      return f(std::integral_constant<int, B_FREE>{});
     case B_DEEP:
       return f(std::integral_constant<int, B_DEEP>{});
+    case B_DEEP_FREE:
+      return f(std::integral_constant<int, B_DEEP_FREE>{});
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -129,24 +171,32 @@ bool shape_ok(int S, int nc, int niters) {
          niters >= 0;
 }
 
-// Dynamic shared memory of a backward's per-warp rows: nw rows of ncomp in
-// the deep build, none in the others (their rows are static).
-template <typename T, int B>
+// Dynamic shared memory of a backward's per-warp rows: nw rows of ncomp
+// where they are dynamic (DYN), none where they are static.
+template <typename T, bool DYN>
 size_t dyn_bytes(int nw, int ncomp) {
-  return Build<B>::DEEP ? (size_t)nw * ncomp * sizeof(T) : 0;
+  return DYN ? (size_t)nw * ncomp * sizeof(T) : 0;
 }
 
-template <int B, typename K>
+template <bool DYN, typename K>
 int set_dyn_smem(K kernel, size_t bytes) {
-  if constexpr (Build<B>::DEEP)
+  if constexpr (DYN)
     return (int)cudaFuncSetAttribute(
         (const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)bytes);
   return 0;
 }
 
-__device__ __forceinline__ bool is_newton(int code) {
+// The Newton families: radial (sag_point) and Cartesian (cart_point).
+__device__ __forceinline__ bool is_radial(int code) {
   return code == EVEN_ASPHERE || code == ODD_ASPHERE;
+}
+__device__ __forceinline__ bool is_cart(int code) {
+  return code == POLYNOMIAL_XY || code == CHEBYSHEV || code == TOROIDAL ||
+         code == BICONIC;
+}
+__device__ __forceinline__ bool is_newton(int code) {
+  return is_radial(code) || is_cart(code);
 }
 
 // Per-surface gradient slots of the backwards and the param-table column of
@@ -172,6 +222,8 @@ __device__ __forceinline__ float exp_(float v) { return expf(v); }
 __device__ __forceinline__ double exp_(double v) { return exp(v); }
 __device__ __forceinline__ float log_(float v) { return logf(v); }
 __device__ __forceinline__ double log_(double v) { return log(v); }
+__device__ __forceinline__ float acos_(float v) { return acosf(v); }
+__device__ __forceinline__ double acos_(double v) { return acos(v); }
 __device__ __forceinline__ float pow_(float a, float b) { return powf(a, b); }
 __device__ __forceinline__ double pow_(double a, double b) { return pow(a, b); }
 template <typename T> __device__ __forceinline__ T nan_();
@@ -598,6 +650,443 @@ __device__ __forceinline__ T newton_t(int code, T R, T k, const T* cf, int nc,
   return t;
 }
 
+// ---------------------------------------------------------------------------
+// K6b, the Cartesian Newton families (geometry.py: cart_point, the basis
+// recurrences _basis_1d, the row sums _table_sums, coef_weights and
+// coef_columns)
+// ---------------------------------------------------------------------------
+
+// Side of a POLYNOMIAL_XY or CHEBYSHEV table: ceil(sqrt(nc)).
+__device__ __forceinline__ int table_side(int nc) {
+  int s = 0;
+  while (s * s < nc) ++s;
+  return s;
+}
+
+// The reference's Chebyshev normal term dT_n(t) = n sin(n th) / D, th =
+// acos(clip(t)), D = sqrt(max(1 - t^2, 1e-14)), and what its derivative
+// reads: dD/dt and dth/dt, which is -rsqrt(1 - c^2) inside |t| < 1 and
+// 0 inf = NaN outside (the clip's zero derivative times acos' infinite one,
+// as in JAX).
+template <typename T>
+struct ChebN {
+  T th, D, dD, dth;
+};
+
+template <typename T>
+__device__ __forceinline__ void cheb_norm_prep(T t, ChebN<T>& c) {
+  const bool in = abs_(t) < T(1);
+  const T cl = in ? t : sign_(t);
+  c.th = acos_(cl);
+  const T omt = T(1) - t * t;
+  c.D = sqrt_(omt > T(1e-14) ? omt : T(1e-14));
+  c.dD = omt > T(1e-14) ? -t / c.D : T(0);
+  c.dth = -rsqrt_(T(1) - cl * cl) * (in ? T(1) : T(0));
+}
+
+// The one-dimensional basis along one coordinate v, index by index
+// (geometry.py: _basis_1d): f, f1, f2 (value, d/dv, d^2/dv^2); fp, f1p
+// (d/dp of f and f1); with a ChebN, g, g1, gp (the normal term dT_n(t) and
+// its d/dv, d/dp). POLYNOMIAL_XY: v^n by f_{n+1} = v f_n, f1_{n+1} = v f1_n
+// + f_n, f2_{n+1} = v f2_n + 2 f1_n; CHEBYSHEV: T_n(t), t = v / p, by the
+// recurrences of T, T', T'' from T_-1 = t, T'_-1 = 1, T''_-1 = 0.
+template <typename T>
+struct Basis1 {
+  bool cheb;
+  int n;
+  T v, p, t;
+  T c0, c1, c2;  // f, f1, f2 (CHEBYSHEV: T, T', T'' in t)
+  T q0, q1, q2;  // the previous index's (CHEBYSHEV)
+
+  __device__ __forceinline__ void start(bool ch, T v_, T p_) {
+    cheb = ch;
+    n = 0;
+    v = v_;
+    p = p_;
+    t = ch ? v_ / p_ : T(0);
+    c0 = T(1);
+    c1 = T(0);
+    c2 = T(0);
+    q0 = t;
+    q1 = T(1);
+    q2 = T(0);
+  }
+  __device__ __forceinline__ void next() {
+    if (cheb) {
+      const T n0 = T(2) * t * c0 - q0;
+      const T n1 = T(2) * c0 + T(2) * t * c1 - q1;
+      const T n2 = T(4) * c1 + T(2) * t * c2 - q2;
+      q0 = c0;
+      q1 = c1;
+      q2 = c2;
+      c0 = n0;
+      c1 = n1;
+      c2 = n2;
+    } else {
+      const T n2 = v * c2 + T(2) * c1;
+      c1 = v * c1 + c0;
+      c0 = v * c0;
+      c2 = n2;
+    }
+    ++n;
+  }
+  __device__ __forceinline__ T f() const { return c0; }
+  __device__ __forceinline__ T f1() const { return cheb ? c1 / p : c1; }
+  __device__ __forceinline__ T f2() const { return cheb ? c2 / (p * p) : c2; }
+  __device__ __forceinline__ T fp() const { return cheb ? -t * f1() : T(0); }
+  __device__ __forceinline__ T f1p() const {
+    return cheb ? -t * f2() - f1() / p : T(0);
+  }
+  // the normal term and its derivatives (CHEBYSHEV)
+  __device__ __forceinline__ T g(const ChebN<T>& c) const {
+    return n == 0 ? T(0) : T(n) * sin_(T(n) * c.th) / c.D;
+  }
+  __device__ __forceinline__ T g1(const ChebN<T>& c) const {
+    if (n == 0) return T(0);
+    const T num = T(n) * sin_(T(n) * c.th);
+    const T dd = T(n * n) * cos_(T(n) * c.th) * c.dth / c.D -
+                 num * c.dD / (c.D * c.D);
+    return dd / p;
+  }
+  __device__ __forceinline__ T gp(const ChebN<T>& c) const {
+    return -t * g1(c);
+  }
+};
+
+// The table's sums at (X, Y) (geometry.py: _table_sums), row by row: each
+// row i summed over j with the y basis, then weighted by the x basis at i.
+// NORMAL (CHEBYSHEV): the reference's normal terms in place of Px, Py.
+template <typename T>
+struct TabS {
+  T P, Px, Py, Pxx, Pxy, Pyx, Pyy, Pp1, Pp2, Pxp1, Pxp2, Pyp1, Pyp2;
+};
+
+template <typename T, bool GRAD, bool NORMAL>
+__device__ __forceinline__ void table_sums(int code, const T* cf, int nc,
+                                           T p1, T p2, T X, T Y, TabS<T>& o) {
+  const int side = table_side(nc);
+  const bool cheb = code == CHEBYSHEV;
+  const bool nx = NORMAL && cheb;
+  ChebN<T> chx = {}, chy = {};
+  if (nx) {
+    cheb_norm_prep(X / p1, chx);
+    cheb_norm_prep(Y / p2, chy);
+  }
+  o = TabS<T>{};
+  Basis1<T> bx;
+  bx.start(cheb, X, p1);
+  for (int i = 0; i < side && i * side < nc; ++i) {
+    T rf = T(0), rf1 = T(0), rf2 = T(0), rfp = T(0), rf1p = T(0);
+    T rg = T(0), rg1 = T(0), rgp = T(0);
+    Basis1<T> by;
+    by.start(cheb, Y, p2);
+    for (int j = 0; j < side && i * side + j < nc; ++j) {
+      const T C = cf[i * side + j];
+      rf = rf + C * by.f();
+      rf1 = rf1 + C * by.f1();
+      if (GRAD) {
+        rf2 = rf2 + C * by.f2();
+        rfp = rfp + C * by.fp();
+        rf1p = rf1p + C * by.f1p();
+      }
+      if (nx) {
+        rg = rg + C * by.g(chy);
+        if (GRAD) {
+          rg1 = rg1 + C * by.g1(chy);
+          rgp = rgp + C * by.gp(chy);
+        }
+      }
+      by.next();
+    }
+    o.P = o.P + bx.f() * rf;
+    if (nx) {
+      const T gx = bx.g(chx);
+      o.Px = o.Px + gx * rf;
+      o.Py = o.Py + bx.f() * rg;
+      if (GRAD) {
+        o.Pxx = o.Pxx + bx.g1(chx) * rf;
+        o.Pxy = o.Pxy + gx * rf1;
+        o.Pyx = o.Pyx + bx.f1() * rg;
+        o.Pyy = o.Pyy + bx.f() * rg1;
+        o.Pp1 = o.Pp1 + bx.fp() * rf;
+        o.Pp2 = o.Pp2 + bx.f() * rfp;
+        o.Pxp1 = o.Pxp1 + bx.gp(chx) * rf;
+        o.Pxp2 = o.Pxp2 + gx * rfp;
+        o.Pyp1 = o.Pyp1 + bx.fp() * rg;
+        o.Pyp2 = o.Pyp2 + bx.f() * rgp;
+      }
+    } else {
+      o.Px = o.Px + bx.f1() * rf;
+      o.Py = o.Py + bx.f() * rf1;
+      if (GRAD) {
+        o.Pxx = o.Pxx + bx.f2() * rf;
+        o.Pxy = o.Pxy + bx.f1() * rf1;
+        o.Pyx = o.Pyx + bx.f1() * rf1;
+        o.Pyy = o.Pyy + bx.f() * rf2;
+        o.Pp1 = o.Pp1 + bx.fp() * rf;
+        o.Pp2 = o.Pp2 + bx.f() * rfp;
+        o.Pxp1 = o.Pxp1 + bx.f1p() * rf;
+        o.Pxp2 = o.Pxp2 + bx.f1() * rfp;
+        o.Pyp1 = o.Pyp1 + bx.fp() * rf1;
+        o.Pyp2 = o.Pyp2 + bx.f() * rf1p;
+      }
+    }
+    bx.next();
+  }
+}
+
+// A Cartesian family's sag and slopes at (X, Y) (geometry.py:
+// cart_point): s, sx, sy; NORMAL: the normal's slopes (CHEBYSHEV's
+// reference convention). GRAD: hxx = d sx/dX, hxy = d sx/dY, hyx = d sy/dX,
+// hyy = d sy/dY, the (s, sx, sy) derivatives with respect to the radius,
+// the conic, p1 and p2, and TOROIDAL's zy = (ds, dsx, dsy, dsy') of its
+// profile z_y and of z_y'.
+template <typename T>
+struct CartPt {
+  T s, sx, sy;
+  T hxx, hxy, hyx, hyy;
+  T dR[3], dk[3], dp1[3], dp2[3];
+  T zy[4];
+};
+
+template <typename T>
+__device__ __forceinline__ T inv_radius(T r) {
+  return isinf(r) ? T(0) : T(1) / r;
+}
+
+template <typename T, bool GRAD, bool NORMAL>
+__device__ __forceinline__ void cart_point(int code, T R, T k, T p1, T p2,
+                                           const T* cf, int nc, T X, T Y,
+                                           CartPt<T>& o) {
+  const T nan = nan_<T>();
+  if (code == POLYNOMIAL_XY || code == CHEBYSHEV) {
+    const T cu = T(1) / R;
+    const T e = (T(1) + k) * (cu * cu);
+    const T r2 = X * X + Y * Y;
+    const T q = sqrt_(T(1) - e * r2);
+    const T W = cu / q;
+    TabS<T> tb;
+    table_sums<T, GRAD, NORMAL>(code, cf, nc, p1, p2, X, Y, tb);
+    o.s = cu * r2 / (T(1) + q) + tb.P;
+    o.sx = X * W + tb.Px;
+    o.sy = Y * W + tb.Py;
+    if constexpr (GRAD) {
+      const T q3 = q * q * q;
+      const T Wr = cu * e / (T(2) * q3);
+      o.hxx = W + T(2) * X * X * Wr + tb.Pxx;
+      o.hxy = T(2) * X * Y * Wr + tb.Pxy;
+      o.hyx = T(2) * X * Y * Wr + tb.Pyx;
+      o.hyy = W + T(2) * Y * Y * Wr + tb.Pyy;
+      const T mcu2 = -cu * cu;
+      o.dR[0] = mcu2 * r2 / (q * (T(1) + q));
+      o.dR[1] = mcu2 * X / q3;
+      o.dR[2] = mcu2 * Y / q3;
+      const T cu3 = cu * cu * cu;
+      const T Wk = cu3 * r2 / (T(2) * q3);
+      o.dk[0] = cu3 * (r2 * r2) / (T(2) * q * ((T(1) + q) * (T(1) + q)));
+      o.dk[1] = X * Wk;
+      o.dk[2] = Y * Wk;
+      o.dp1[0] = tb.Pp1;
+      o.dp1[1] = tb.Pxp1;
+      o.dp1[2] = tb.Pyp1;
+      o.dp2[0] = tb.Pp2;
+      o.dp2[1] = tb.Pxp2;
+      o.dp2[2] = tb.Pyp2;
+    }
+    return;
+  }
+  if (code == BICONIC) {
+    const T cx = inv_radius(R), cy = inv_radius(p1);
+    const T vx = T(1) - (T(1) + k) * (cx * cx) * (X * X);
+    const T vy = T(1) - (T(1) + p2) * (cy * cy) * (Y * Y);
+    const T qx = sqrt_(vx > T(0) ? vx : T(0));
+    const T qy = sqrt_(vy > T(0) ? vy : T(0));
+    const bool clamped = qx == T(0) || qy == T(0);
+    o.s = cx * (X * X) / (T(1) + qx) + cy * (Y * Y) / (T(1) + qy);
+    o.sx = clamped ? nan : cx * X / qx;
+    o.sy = clamped ? nan : cy * Y / qy;
+    if constexpr (GRAD) {
+      const T qx3 = qx * qx * qx, qy3 = qy * qy * qy;
+      o.hxx = cx / qx3;
+      o.hxy = T(0);
+      o.hyx = T(0);
+      o.hyy = cy / qy3;
+      const T mcx2 = -cx * cx, mcy2 = -cy * cy;
+      const T cx3 = cx * cx * cx, cy3 = cy * cy * cy;
+      const T X2 = X * X, Y2 = Y * Y;
+      o.dR[0] = mcx2 * X2 / (qx * (T(1) + qx));
+      o.dR[1] = mcx2 * X / qx3;
+      o.dR[2] = T(0);
+      o.dk[0] = cx3 * (X2 * X2) / (T(2) * qx * ((T(1) + qx) * (T(1) + qx)));
+      o.dk[1] = X * cx3 * X2 / (T(2) * qx3);
+      o.dk[2] = T(0);
+      o.dp1[0] = mcy2 * Y2 / (qy * (T(1) + qy));
+      o.dp1[1] = T(0);
+      o.dp1[2] = mcy2 * Y / qy3;
+      o.dp2[0] = cy3 * (Y2 * Y2) / (T(2) * qy * ((T(1) + qy) * (T(1) + qy)));
+      o.dp2[1] = T(0);
+      o.dp2[2] = Y * cy3 * Y2 / (T(2) * qy3);
+    }
+    return;
+  }
+  // TOROIDAL: the profile z_y(Y), its derivatives, and theirs in cy, p2
+  const T cy = inv_radius(p1);
+  const T Y2 = Y * Y;
+  const T vy = T(1) - (T(1) + p2) * (cy * cy) * Y2;
+  const T qy = sqrt_(vy > T(0) ? vy : T(0));
+  T A = T(0), A1 = T(0), A2 = T(0);
+  for (int i = nc - 1; i >= 0; --i) {
+    A = A * Y2 + cf[i];
+    A1 = A1 * Y2 + T(2 * i + 2) * cf[i];
+    A2 = A2 * Y2 + T((2 * i + 2) * (2 * i + 1)) * cf[i];
+  }
+  const T zy = cy * Y2 / (T(1) + qy) + A * Y2;
+  const T zy1 = (qy == T(0) ? nan : cy * Y / qy) + A1 * Y;
+  const bool cyl = isinf(R);
+  const T D = R - zy;
+  const T inside = D * D - X * X;
+  const T sq = sqrt_(inside < T(0) ? nan : inside);
+  const T sg = sign_(D);
+  const T G = sg * D / sq;
+  o.s = cyl ? zy : zy + D - sg * sq;
+  o.sx = qy == T(0) ? nan : (cyl ? T(0) : sg * X / sq);
+  o.sy = cyl ? zy1 : G * zy1;
+  if constexpr (GRAD) {
+    if (cyl) {
+      // the JAX package's branch not taken: 0 inf = NaN in every
+      // derivative that reaches R or z_y
+      o.hxx = o.hxy = o.hyx = o.hyy = nan;
+      for (int c = 0; c < 3; ++c) {
+        o.dR[c] = o.dp1[c] = o.dp2[c] = nan;
+        o.dk[c] = T(0);
+      }
+      for (int c = 0; c < 4; ++c) o.zy[c] = nan;
+      return;
+    }
+    const T qy3 = qy * qy * qy;
+    const T zy2 = cy / qy3 + A2;
+    const T sq3 = sq * sq * sq;
+    o.zy[0] = G;
+    o.zy[1] = sg * X * D / sq3;
+    o.zy[2] = sg * X * X * zy1 / sq3;
+    o.zy[3] = G;
+    o.hxx = sg * D * D / sq3;
+    o.hxy = sg * X * D * zy1 / sq3;
+    o.hyx = o.hxy;
+    o.hyy = zy2 * G + sg * X * X * zy1 * zy1 / sq3;
+    o.dR[0] = T(1) - G;
+    o.dR[1] = -o.zy[1];
+    o.dR[2] = -o.zy[2];
+    o.dk[0] = o.dk[1] = o.dk[2] = T(0);
+    const T cy3 = cy * cy * cy;
+    const T zy_cy = Y2 / (qy * (T(1) + qy)), zy1_cy = Y / qy3;
+    const T zy_p2 =
+        cy3 * (Y2 * Y2) / (T(2) * qy * ((T(1) + qy) * (T(1) + qy)));
+    const T zy1_p2 = Y * cy3 * Y2 / (T(2) * qy3);
+    const T mcy2 = -cy * cy;
+    o.dp1[0] = mcy2 * (o.zy[0] * zy_cy);
+    o.dp1[1] = mcy2 * (o.zy[1] * zy_cy);
+    o.dp1[2] = mcy2 * (o.zy[2] * zy_cy + o.zy[3] * zy1_cy);
+    o.dp2[0] = o.zy[0] * zy_p2;
+    o.dp2[1] = o.zy[1] * zy_p2;
+    o.dp2[2] = o.zy[2] * zy_p2 + o.zy[3] * zy1_p2;
+  }
+}
+
+// One Newton step t - f/f' of a Cartesian family, f' = N - (sx L + sy M)
+// (geometry.py: newton_step).
+template <typename T>
+__device__ __forceinline__ T cart_newton_step(int code, T R, T k, T p1,
+                                              T p2, const T* cf, int nc,
+                                              T xl, T yl, T zl, T L, T M,
+                                              T N, T t) {
+  const T X = xl + t * L, Y = yl + t * M;
+  CartPt<T> cp;
+  cart_point<T, false, false>(code, R, k, p1, p2, cf, nc, X, Y, cp);
+  T fp = N - (cp.sx * L + cp.sy * M);
+  const T f = zl + t * N - cp.s;
+  fp = abs_(fp) > T(1e-14) ? fp : T(1e-14);
+  return t - f / fp;
+}
+
+// ``steps`` Newton steps of a Cartesian family from the conic's closed form
+// of the surface's radius and conic (the plane's where not finite).
+template <typename T>
+__device__ __forceinline__ T cart_newton_t(int code, T R, T k, T p1, T p2,
+                                           const T* cf, int nc, int steps,
+                                           T xl, T yl, T zl, T L, T M, T N) {
+  T t = dist_standard(R, k, xl, yl, zl, L, M, N);
+  if (!isfinite(t)) t = dist_plane(zl, N);
+  for (int it = 0; it < steps; ++it)
+    t = cart_newton_step(code, R, k, p1, p2, cf, nc, xl, yl, zl, L, M, N, t);
+  return t;
+}
+
+// The weights (a, b, c) of a Cartesian family's coefficient cotangents at
+// a point from the cotangents of its s, sx, sy (geometry.py: coef_weights).
+template <typename T>
+__device__ __forceinline__ void coef_weights(int code, const CartPt<T>& cp,
+                                             T g_s, T g_sx, T g_sy, T* w) {
+  if (code == TOROIDAL) {
+    w[0] = g_s * cp.zy[0] + g_sx * cp.zy[1] + g_sy * cp.zy[2];
+    w[1] = g_sy * cp.zy[3];
+    w[2] = T(0);
+  } else if (code == BICONIC) {
+    w[0] = w[1] = w[2] = T(0);
+  } else {
+    w[0] = g_s;
+    w[1] = g_sx;
+    w[2] = g_sy;
+  }
+}
+
+
+// The Cartesian work of the deep_free build's step sits out of line (CALL):
+// one copy per kernel instead of one inlined at each of the deep step's
+// call sites, which halves nvcc's time (202 s to 105 s for five builds on
+// the H100 machine, PERF.md). ptxas still sizes a kernel for its callees,
+// so the deep_free adjoints hold more registers than the deep ones, which
+// carry no Cartesian branch.
+template <typename T, bool GRAD, bool NORMAL>
+__device__ __noinline__ void cart_point_call(int code, T R, T k, T p1, T p2,
+                                             const T* cf, int nc, T X, T Y,
+                                             CartPt<T>* o) {
+  cart_point<T, GRAD, NORMAL>(code, R, k, p1, p2, cf, nc, X, Y, *o);
+}
+
+template <typename T>
+__device__ __noinline__ T cart_newton_t_call(int code, T R, T k, T p1, T p2,
+                                             const T* cf, int nc, int steps,
+                                             T xl, T yl, T zl, T L, T M,
+                                             T N) {
+  return cart_newton_t(code, R, k, p1, p2, cf, nc, steps, xl, yl, zl, L, M,
+                       N);
+}
+
+// cart_point, in line or (CALL) out of line.
+template <typename T, bool GRAD, bool NORMAL, bool CALL>
+__device__ __forceinline__ void cart_point_at(int code, T R, T k, T p1, T p2,
+                                              const T* cf, int nc, T X, T Y,
+                                              CartPt<T>& o) {
+  if constexpr (CALL)
+    cart_point_call<T, GRAD, NORMAL>(code, R, k, p1, p2, cf, nc, X, Y, &o);
+  else
+    cart_point<T, GRAD, NORMAL>(code, R, k, p1, p2, cf, nc, X, Y, o);
+}
+
+// cart_newton_t, in line or (CALL) out of line.
+template <typename T, bool CALL>
+__device__ __forceinline__ T cart_newton_at(int code, T R, T k, T p1, T p2,
+                                            const T* cf, int nc, int steps,
+                                            T xl, T yl, T zl, T L, T M, T N) {
+  if constexpr (CALL)
+    return cart_newton_t_call(code, R, k, p1, p2, cf, nc, steps, xl, yl, zl,
+                              L, M, N);
+  else
+    return cart_newton_t(code, R, k, p1, p2, cf, nc, steps, xl, yl, zl, L, M,
+                         N);
+}
+
 // One forward surface step; returns n of the medium after the surface
 // (``npost`` through a refractive surface). ``inten`` and ``opd`` are read
 // and written only in the FULL form; ``adot_out``, when not null, receives
@@ -605,9 +1094,11 @@ __device__ __forceinline__ T newton_t(int code, T R, T k, const T* cf, int nc,
 // post-interaction directions (L0, M0, N0, L1, M1, N1). ``rot`` holds the
 // surface's N_ROT cosines and sines, read where ``tilted`` is set; TILT =
 // false compiles the rotations out (a system without tilted surfaces). SAG
-// compiles in the Newton families, which read the surface's nc
-// coefficients ``cf`` and take ``niters`` steps, and the annular clip.
-template <typename T, bool FULL, bool TILT, bool SAG>
+// compiles in the radial Newton families, which read the surface's nc
+// coefficients ``cf`` and take ``niters`` steps, and the annular clip; CART
+// the Cartesian ones, which also read P_G1 and P_G2 (CALL: out of line).
+template <typename T, bool FULL, bool TILT, bool SAG, bool CART = false,
+          bool CALL = false>
 __device__ __forceinline__ T step_fwd(int code, int refl, int absorbs,
                                       int tilted, const T* p, const T* rot,
                                       const T* cf, int nc, int niters,
@@ -619,8 +1110,11 @@ __device__ __forceinline__ T step_fwd(int code, int refl, int absorbs,
   T xl = x - p[P_DX], yl = y - p[P_DY], zl = z - pos;
   if (TILT && tilted) rot_local(rot, xl, yl, zl, L, M, N);
   T t;
-  if (SAG && is_newton(code))
+  if (SAG && is_radial(code))
     t = newton_t(code, R, k, cf, nc, niters + 1, xl, yl, zl, L, M, N);
+  else if (CART && is_cart(code))
+    t = cart_newton_at<T, CALL>(code, R, k, p[P_G1], p[P_G2], cf, nc,
+                                niters + 1, xl, yl, zl, L, M, N);
   else
     t = code == STANDARD ? dist_standard(R, k, xl, yl, zl, L, M, N)
                          : dist_plane(zl, N);
@@ -636,7 +1130,17 @@ __device__ __forceinline__ T step_fwd(int code, int refl, int absorbs,
     }
   }
   T nx = T(0), ny = T(0), nz = T(-1);
-  if (SAG && is_newton(code)) {
+  if (CART && is_cart(code)) {
+    // the normal's slopes (CHEBYSHEV: the reference's, and 1 / sqrt)
+    CartPt<T> cp;
+    cart_point_at<T, false, true, CALL>(code, R, k, p[P_G1], p[P_G2], cf, nc,
+                                        x1, y1, cp);
+    const T m2 = cp.sx * cp.sx + cp.sy * cp.sy + T(1);
+    const T im = code == CHEBYSHEV ? T(1) / sqrt_(m2) : rsqrt_(m2);
+    nx = cp.sx * im;
+    ny = cp.sy * im;
+    nz = -im;
+  } else if (SAG && is_radial(code)) {
     SagPt<T> sp;
     sag_point<T, false>(code, T(1) / R, k, cf, nc, x1 * x1 + y1 * y1, sp);
     const T fx = x1 * sp.W, fy = y1 * sp.W;
@@ -699,10 +1203,15 @@ __device__ __forceinline__ T step_fwd(int code, int refl, int absorbs,
 // extras (L0, M0, N0, L1, M1, N1, adot). Out: g becomes the cotangents of
 // the inputs (x, y, z, L, M, N, n_pre, and FULL: i, opd), gc the cotangents
 // of (radius, conic, pos, n_post, dx, dy, rx, ry, rz, and FULL: k_pre); the
-// n_post slot is the cotangent of ``npost``. For a Newton surface (SAG)
-// ``gs`` receives (a, b, c, rho_s, rho_1) of its coefficient cotangents,
-// dC_i = a rho_s^(i+1) + (i+1) (b rho_s^i + c rho_1^i).
-template <typename T, bool FULL, bool TILT, bool SAG>
+// n_post slot is the cotangent of ``npost``. For a radial Newton surface
+// (SAG) ``gs`` receives (a, b, c, rho_s, rho_1) of its coefficient
+// cotangents, dC_i = a rho_s^(i+1) + (i+1) (b rho_s^i + c rho_1^i); for a
+// Cartesian one (CART) the N_GS_CART scalars add_cart_cols expands: the
+// weights (a, b, c) at the Newton point (Xs, Ys), those at the normal's
+// point (x1, y1), and the cotangents of p1 and p2. CALL: the Cartesian work
+// out of line.
+template <typename T, bool FULL, bool TILT, bool SAG, bool CART = false,
+          bool CALL = false>
 __device__ __forceinline__ void step_adjoint(int code, int refl, int absorbs,
                                              int tilted, const T* p,
                                              const T* rot, const T* cf,
@@ -714,7 +1223,9 @@ __device__ __forceinline__ void step_adjoint(int code, int refl, int absorbs,
   const T R = p[P_RADIUS], k = p[P_CONIC], pos = p[P_POS];
   const T dx = p[P_DX], dy = p[P_DY];
   const bool std_ = code == STANDARD;
-  const bool newton = SAG && is_newton(code);
+  const bool newton = SAG && is_radial(code);
+  const bool cart = CART && is_cart(code);
+  const T p1 = p[P_G1], p2 = p[P_G2];
   const T g_nn = g[6];
 
   // ---- recompute the forward intermediates (in the surface's frame) ----
@@ -741,7 +1252,7 @@ __device__ __forceinline__ void step_adjoint(int code, int refl, int absorbs,
     t2 = q0 ? T(0) : c / q;
     use1 = abs_(zl + t1 * N) <= abs_(zl + t2 * N);
     t = use1 ? t1 : t2;
-  } else if (newton) {
+  } else if (newton || cart) {
     // the stopped iterate t_s, then the one step the gradient runs through
     t = T(0);
   } else {
@@ -764,6 +1275,23 @@ __device__ __forceinline__ void step_adjoint(int code, int refl, int absorbs,
     fpN = okf ? fp : T(1e-14);
     t = t_s - fN / fpN;
   }
+  T sxs = T(0), sys = T(0);  // the slopes at the Newton point (CART)
+  if (cart) {
+    t_s = cart_newton_at<T, CALL>(code, R, k, p1, p2, cf, nc, niters, xl, yl,
+                                  zl, L, M, N);
+    Xs = xl + t_s * L;
+    Ys = yl + t_s * M;
+    CartPt<T> cp;
+    cart_point_at<T, false, false, CALL>(code, R, k, p1, p2, cf, nc, Xs, Ys,
+                                         cp);
+    fN = zl + t_s * N - cp.s;
+    sxs = cp.sx;
+    sys = cp.sy;
+    const T fp = N - (sxs * L + sys * M);
+    okf = abs_(fp) > T(1e-14);
+    fpN = okf ? fp : T(1e-14);
+    t = t_s - fN / fpN;
+  }
   const T x1 = xl + t * L, y1 = yl + t * M, z1 = zl + t * N;
   T r2 = T(0), rq = T(0), invd = T(0), fx = T(0), fy = T(0), im = T(1);
   T nx = T(0), ny = T(0), nz = T(-1);
@@ -782,6 +1310,18 @@ __device__ __forceinline__ void step_adjoint(int code, int refl, int absorbs,
     fx = x1 * sp1.W;
     fy = y1 * sp1.W;
     im = rsqrt_(fx * fx + fy * fy + T(1));
+    nx = fx * im;
+    ny = fy * im;
+    nz = -im;
+  } else if (cart) {
+    // the normal's slopes (CHEBYSHEV: the reference's, and 1 / sqrt)
+    CartPt<T> cp;
+    cart_point_at<T, false, true, CALL>(code, R, k, p1, p2, cf, nc, x1, y1,
+                                        cp);
+    fx = cp.sx;
+    fy = cp.sy;
+    const T m2 = fx * fx + fy * fy + T(1);
+    im = code == CHEBYSHEV ? T(1) / sqrt_(m2) : rsqrt_(m2);
     nx = fx * im;
     ny = fy * im;
     nz = -im;
@@ -901,6 +1441,29 @@ __device__ __forceinline__ void step_adjoint(int code, int refl, int absorbs,
     g_k += g_W1 * sp1.W_k;
     c_sag = g_W1 * sp1.beta;
   }
+  // CART: the radius, p1 and p2 cotangents of the normal, and its
+  // coefficient weights
+  T g_Rd = T(0), g_p1 = T(0), g_p2 = T(0), w1[3] = {T(0), T(0), T(0)};
+  if (cart) {
+    // n = (fx, fy, -1) im, (fx, fy) the normal's slopes at (x1, y1)
+    const T g_nx = sgn * g_nxs, g_ny = sgn * g_nys, g_nz = sgn * g_nzs;
+    T g_fx = g_nx * im;
+    T g_fy = g_ny * im;
+    const T g_im = g_nx * fx + g_ny * fy - g_nz;
+    const T g_mg = T(-0.5) * g_im * im * im * im;
+    g_fx += T(2) * fx * g_mg;
+    g_fy += T(2) * fy * g_mg;
+    CartPt<T> cp;
+    cart_point_at<T, true, true, CALL>(code, R, k, p1, p2, cf, nc, x1, y1,
+                                       cp);
+    g_x1 += g_fx * cp.hxx + g_fy * cp.hyx;
+    g_y1 += g_fx * cp.hxy + g_fy * cp.hyy;
+    g_Rd = g_fx * cp.dR[1] + g_fy * cp.dR[2];
+    g_k += g_fx * cp.dk[1] + g_fy * cp.dk[2];
+    g_p1 = g_fx * cp.dp1[1] + g_fy * cp.dp1[2];
+    g_p2 = g_fx * cp.dp2[1] + g_fy * cp.dp2[2];
+    coef_weights(code, cp, T(0) * g_fx, g_fx, g_fy, w1);
+  }
 
   // ---- propagate ----
   T g_xl = g_x1, g_yl = g_y1, g_zl = g_z1;
@@ -1000,6 +1563,45 @@ __device__ __forceinline__ void step_adjoint(int code, int refl, int absorbs,
     gs[2] = c_sag;
     gs[3] = sps.rho;
     gs[4] = sp1.rho;
+  } else if (cart) {
+    // t = t_s - f / f' at the stopped t_s: f = zl + t_s N - s(X, Y),
+    // f' = N - (sx L + sy M), X = xl + t_s L, Y = yl + t_s M
+    const T g_f = -g_t / fpN;
+    const T g_fp = okf ? g_t * fN / (fpN * fpN) : T(0);
+    g_zl += g_f;
+    gN += g_f * t_s + g_fp;
+    const T g_s = -g_f;
+    const T g_sx = -g_fp * L;
+    const T g_sy = -g_fp * M;
+    gL -= g_fp * sxs;
+    gM -= g_fp * sys;
+    CartPt<T> cp;
+    cart_point_at<T, true, false, CALL>(code, R, k, p1, p2, cf, nc, Xs, Ys,
+                                        cp);
+    const T g_X = g_s * cp.sx + g_sx * cp.hxx + g_sy * cp.hyx;
+    const T g_Y = g_s * cp.sy + g_sx * cp.hxy + g_sy * cp.hyy;
+    g_R = g_Rd + g_s * cp.dR[0] + g_sx * cp.dR[1] + g_sy * cp.dR[2];
+    g_k += g_s * cp.dk[0] + g_sx * cp.dk[1] + g_sy * cp.dk[2];
+    g_p1 += g_s * cp.dp1[0] + g_sx * cp.dp1[1] + g_sy * cp.dp1[2];
+    g_p2 += g_s * cp.dp2[0] + g_sx * cp.dp2[1] + g_sy * cp.dp2[2];
+    coef_weights(code, cp, g_s, g_sx, g_sy, gs);
+    // a parameter the family's sag does not read gets no cotangent
+    // (geometry.py: cart_reads)
+    if (code == TOROIDAL) g_k = T(0);
+    if (code == POLYNOMIAL_XY) g_p1 = g_p2 = T(0);
+    g_xl += g_X;
+    g_yl += g_Y;
+    gL += g_X * t_s;
+    gM += g_Y * t_s;
+    gs[3] = Xs;
+    gs[4] = Ys;
+    gs[5] = w1[0];
+    gs[6] = w1[1];
+    gs[7] = w1[2];
+    gs[8] = x1;
+    gs[9] = y1;
+    gs[10] = g_p1;
+    gs[11] = g_p2;
   } else {
     g_zl -= g_t / Ns;
     if (big) gN += g_t * zl / (Ns * Ns);
@@ -1135,7 +1737,8 @@ __device__ __forceinline__ int fill_sag(const int* sf, int S, int* ssag) {
 }
 
 // The per-warp gradient rows of a backward: static shared memory of
-// NW_MAX x NCOMP rows, or (DYN, the deep build) the dynamic shared memory,
+// NW_MAX x NCOMP rows, or (DYN: Build::DYN, or the polarized sag build) the
+// dynamic shared memory,
 // nw rows of the launch's ncomp.
 template <typename T, bool DYN>
 __device__ __forceinline__ T* acc_rows(T* acc_static) {
@@ -1163,6 +1766,73 @@ __device__ __forceinline__ void add_coef_cols(const T* gs, int nc, int lane,
   }
 }
 
+// Expand a Cartesian surface's per-ray record gs (step_adjoint: the weights
+// (a, b, c) at the Newton point (Xs, Ys), those at the normal's point
+// (X1, Y1), then the cotangents of p1 and p2) into its nc coefficient
+// columns and its P_G1 and P_G2 columns (geometry.py: coef_columns), warp
+// sums in column order, added by lane 0 to the warp's row ``row`` from
+// column ``base``.
+template <typename T>
+__device__ __forceinline__ void add_cart_cols(int code, const T* gs, int nc,
+                                              T p1, T p2, int lane, T* row,
+                                              int base) {
+  if (code == TOROIDAL) {
+    T pw_s = gs[4], pw_1 = gs[9];
+    for (int i = 0; i < nc; ++i) {
+      T v = gs[0] * pw_s * gs[4] + gs[1] * T(2 * i + 2) * pw_s;
+      v = v + (gs[5] * pw_1 * gs[9] + gs[6] * T(2 * i + 2) * pw_1);
+      pw_s = pw_s * (gs[4] * gs[4]);
+      pw_1 = pw_1 * (gs[9] * gs[9]);
+      v = warp_sum(v);
+      if (lane == 0) row[base + i] += v;
+    }
+  } else if (code != BICONIC) {
+    const int side = table_side(nc);
+    const bool cheb = code == CHEBYSHEV;
+    ChebN<T> chx = {}, chy = {};
+    if (cheb) {
+      cheb_norm_prep(gs[8] / p1, chx);
+      cheb_norm_prep(gs[9] / p2, chy);
+    }
+    Basis1<T> bxs, bx1;
+    bxs.start(cheb, gs[3], p1);
+    bx1.start(cheb, gs[8], p1);
+    for (int i = 0; i < side && i * side < nc; ++i) {
+      Basis1<T> bys, by1;
+      bys.start(cheb, gs[4], p2);
+      by1.start(cheb, gs[9], p2);
+      const T dx1 = cheb ? bx1.g(chx) : bx1.f1();
+      for (int j = 0; j < side && i * side + j < nc; ++j) {
+        const T dy1 = cheb ? by1.g(chy) : by1.f1();
+        T v = gs[0] * (bxs.f() * bys.f()) + gs[1] * (bxs.f1() * bys.f()) +
+              gs[2] * (bxs.f() * bys.f1());
+        v = v + (gs[5] * (bx1.f() * by1.f()) + gs[6] * (dx1 * by1.f()) +
+                 gs[7] * (bx1.f() * dy1));
+        v = warp_sum(v);
+        if (lane == 0) row[base + i * side + j] += v;
+        bys.next();
+        by1.next();
+      }
+      bxs.next();
+      bx1.next();
+    }
+  }
+  const T v1 = warp_sum(gs[10]);
+  const T v2 = warp_sum(gs[11]);
+  if (lane == 0) {
+    row[base + nc] += v1;
+    row[base + nc + 1] += v2;
+  }
+}
+
+// add_cart_cols out of line (the deep_free build, see cart_point_call).
+template <typename T>
+__device__ __noinline__ void add_cart_cols_call(int code, const T* gs, int nc,
+                                                T p1, T p2, int lane, T* row,
+                                                int base) {
+  add_cart_cols(code, gs, nc, p1, p2, lane, row, base);
+}
+
 // The block's partial row of the summed gradients: the sum of the nw
 // per-warp rows of acc (``stride`` apart), in warp order.
 template <typename T>
@@ -1177,16 +1847,17 @@ __device__ __forceinline__ void store_partial_row(const T* acc, int stride,
 }
 
 // Fixed-order sum of a backward's partial rows (compact layout: NG slots per
-// surface, then nc coefficient columns for each Newton surface (nsagc in
-// all; ``codes`` are the surfaces' geometry codes), then n_extra entries),
-// one block per compact column. The sum is scattered into the
-// (S*NUM_P + S*nc [+ extras]) layout, whose other entries the caller has
-// zeroed.
+// surface, then a block of ncb columns for each Newton surface (nsagc in
+// all; ``codes`` are the surfaces' geometry codes): its nc coefficient
+// columns, and where ncb = nc + 2 (the free and deep_free builds) its P_G1
+// and P_G2 columns; then n_extra entries), one block per compact column. The
+// sum is scattered into the (S*NUM_P + S*nc [+ extras]) layout, whose other
+// entries the caller has zeroed.
 template <typename T, int NG>
 __global__ void __launch_bounds__(RED_BLOCK)
 grad_reduce_kernel(const T* __restrict__ partial, int nblocks, int S, int nc,
-                   int nsagc, const int* __restrict__ codes, int n_extra,
-                   T* __restrict__ out) {
+                   int ncb, int nsagc, const int* __restrict__ codes,
+                   int n_extra, T* __restrict__ out) {
   __shared__ T red[2][32];
   const int ncomp = S * NG + nsagc + n_extra;
   const int col = blockIdx.x;
@@ -1199,11 +1870,12 @@ grad_reduce_kernel(const T* __restrict__ partial, int nblocks, int S, int nc,
     if (col < S * NG) {
       dst = (col / NG) * NUM_P + kGradCol[col % NG];
     } else if (col < S * NG + nsagc) {
-      const int kk = (col - S * NG) / nc, j = (col - S * NG) % nc;
+      const int kk = (col - S * NG) / ncb, j = (col - S * NG) % ncb;
       int s = 0, seen = -1;
       for (; s < S; ++s)
         if (is_newton(codes[s]) && ++seen == kk) break;
-      dst = S * NUM_P + s * nc + j;
+      dst = j < nc ? S * NUM_P + s * nc + j
+                   : s * NUM_P + (j == nc ? P_G1 : P_G2);
     } else {
       dst = S * (NUM_P + nc) + (col - S * NG - nsagc);
     }
@@ -1213,11 +1885,12 @@ grad_reduce_kernel(const T* __restrict__ partial, int nblocks, int S, int nc,
 
 // Launch the reduction of a backward's partial rows (launchers' tail).
 template <typename T, int NG>
-int reduce_launch(const T* partial, int nblocks, int S, int nc, int nsagc,
-                  const int* codes, int n_extra, T* out, cudaStream_t stream) {
+int reduce_launch(const T* partial, int nblocks, int S, int nc, int ncb,
+                  int nsagc, const int* codes, int n_extra, T* out,
+                  cudaStream_t stream) {
   grad_reduce_kernel<T, NG><<<S * NG + nsagc + n_extra, RED_BLOCK, 0,
-                              stream>>>(partial, nblocks, S, nc, nsagc, codes,
-                                        n_extra, out);
+                              stream>>>(partial, nblocks, S, nc, ncb, nsagc,
+                                        codes, n_extra, out);
   return (int)cudaGetLastError();
 }
 

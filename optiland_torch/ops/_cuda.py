@@ -33,7 +33,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _LIB = None
 BUILD_SECONDS = None  # wall seconds of the nvcc run (0.0 when cached)
-BUILD_LOG = ""  # nvcc's output, including ptxas register and spill counts
+BUILD_LOG = ""  # nvcc's output (ptxas register and spill counts) and the
+# wall seconds of each source's nvcc
 
 _VP, _I, _I64, _U64, _D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                            ctypes.c_ulonglong, ctypes.c_double)
@@ -121,16 +122,27 @@ def _build() -> str:
     tmp = f"{out}.{os.getpid()}"
     nvcc = _nvcc()
     objs = [f"{tmp}.{os.path.basename(src)}.o" for src in sources]
+    outs = [f"{obj}.log" for obj in objs]
     t0 = time.perf_counter()
-    procs = [
-        (cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                               stderr=subprocess.STDOUT, text=True))
-        for cmd in ([nvcc, *NVCC_FLAGS, "-c", src, "-o", obj]
-                    for src, obj in zip(sources, objs))
-    ]
+    procs = []
+    for src, obj, out in zip(sources, objs, outs):
+        cmd = [nvcc, *NVCC_FLAGS, "-c", src, "-o", obj]
+        with open(out, "w") as f:
+            procs.append((cmd, subprocess.Popen(cmd, stdout=f,
+                                                stderr=subprocess.STDOUT)))
+    # each source's wall seconds, from the common start
+    secs = [None] * len(procs)
+    while any(v is None for v in secs):
+        for k, (_, proc) in enumerate(procs):
+            if secs[k] is None and proc.poll() is not None:
+                secs[k] = time.perf_counter() - t0
+        time.sleep(0.05)
     logs, failed = [], []
-    for cmd, proc in procs:
-        logs.append(proc.communicate()[0])
+    for (cmd, proc), out, src, sec in zip(procs, outs, sources, secs):
+        with open(out) as f:
+            logs.append(f.read())
+        os.remove(out)
+        logs.append(f"nvcc {os.path.basename(src)}: {sec:.1f} s\n")
         if proc.returncode != 0:
             failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}")
     BUILD_LOG = "".join(logs)

@@ -31,8 +31,10 @@ raises; nothing falls back.
 The step is the full form of ``ops/step.py``: absorption, OPD and the
 circular clip are traced, a tilted surface's rotations (the spec's tilt
 flags), the annular clip of a RadialAperture with r_min > 0 (the spec's
-``inner`` flags) and the Newton intersection of the radial aspheres, which
-read the (S, nc) coefficient table; the backwards give its gradient. As in
+``inner`` flags) and the Newton intersection of the radial aspheres and
+the Cartesian freeforms, which read the (S, nc) coefficient table (and
+the freeforms the P_G1 and P_G2 columns); the backwards give their
+gradients. As in
 the JAX package's kernels, the
 Beer-Lambert factor is applied only where the medium before the surface
 absorbs, read from the k tables' values; when the k tables are
@@ -56,10 +58,11 @@ from optiland_torch.ops.fused_trace import (
 from optiland_torch.ops.launch import (
     BWD_BLOCK, BWD_MAX_BLOCKS, N_AIM, build_of, check_cuda_inputs, covered,
     device_of, flags, inner_flags, launch_from_pupil, launch_key,
-    sag_surfaces, unsupported, with_builds,
+    sag_columns, sag_surfaces, unsupported, with_builds,
 )
 from optiland_torch.ops.step import (
-    FULL_GRAD_COLS, NUM_P, P_NPOST, step_adjoint_plain, step_plain,
+    FULL_GRAD_COLS, NUM_P, P_NPOST, split_cols, step_adjoint_plain,
+    step_plain,
 )
 
 # Launch counts of the six kernels per build (``launch.launch_key``); each
@@ -123,7 +126,8 @@ def fast_spec(system, field=False, newton_iters=10):
     this system, else None; the first four rows go to the kernels as
     flags. ``field`` asks for the field kernels, which also need an
     infinite-conjugate angle field. Coverage is that of the merit kernels:
-    PLANE, STANDARD, EVEN_ASPHERE and ODD_ASPHERE surfaces, tilted or not,
+    PLANE, STANDARD and the Newton families (EVEN_ASPHERE, ODD_ASPHERE,
+    POLYNOMIAL_XY, CHEBYSHEV, TOROIDAL, BICONIC) surfaces, tilted or not,
     RadialAperture objects and no others, no interactions or BSDFs (the
     other families of kernel K6 come in a later slice), and no coatings or
     polarization (the polarized kernels of ``ops/pol_trace.py`` take
@@ -262,9 +266,10 @@ def _sweep_plain(params, spec, st0, cots, mats=None, w=None, coeffs=None,
                 absorbs[s] and not poly, tilted=tilted[s], n_post=n_post,
                 c=coef_row(coeffs, s), newton_iters=niters, inner=inner[s],
             )
-            for j, v in enumerate(cols[len(FULL_GRAD_COLS):]):
+            pairs, coef = split_cols(codes[s], cols, FULL_GRAD_COLS, nc)
+            for j, v in enumerate(coef):
                 dcoeffs[s, j] = v.sum()
-            for col, v in zip(FULL_GRAD_COLS, cols):
+            for col, v in pairs:
                 if poly and col == P_NPOST:
                     if not refl[s]:
                         index_grad(s, v)
@@ -357,10 +362,11 @@ def _launch(name, params, spec, coeffs, before, rest):
 
 def _partial(params, spec, nc, n_extra, R):
     """A backward's per-block partial rows, their count, and the count of
-    Newton-family surfaces: FULL_GRAD_COLS per surface, nc coefficient
-    columns per Newton-family surface, then ``n_extra``."""
+    Newton-family surfaces: FULL_GRAD_COLS per surface, the block of each
+    Newton-family surface (``launch.block_width``), then ``n_extra``."""
     S, nsag = len(spec[0]), len(sag_surfaces(spec[0]))
-    ncomp = S * len(FULL_GRAD_COLS) + nsag * nc + n_extra
+    ncomp = (S * len(FULL_GRAD_COLS) + sag_columns(spec[0], nc, _build(spec))
+             + n_extra)
     nb = _bwd_blocks(R)
     return params.new_empty((nb, ncomp)), nb, nsag
 
@@ -566,7 +572,7 @@ def trace_fast(system, rays, wavelength, newton_iters: int = 10):
     """Fused trace of a ray bundle, monochromatic: the final state only.
 
     Equivalent to ``core.trace.trace(..., record=False)`` for systems that
-    ``fast_supported`` covers (the aspheres by ``newton_iters`` Newton
+    ``fast_supported`` covers (the Newton families by ``newton_iters`` Newton
     steps, the plain engine's by 16); its gradient runs the hand-derived
     adjoint. The bundle's dtype and device decide where it runs: the
     kernels on a CUDA device, their plain versions on the CPU."""
@@ -657,7 +663,7 @@ def trace_fast_poly(system, rays, newton_iters: int = 10):
     system's k data) and passes no cotangent to the wavelengths. The
     bundle's dtype and device decide where it runs: the kernels
     (trace_fwd_poly, trace_bwd_poly) on a CUDA device, their plain versions
-    on the CPU. ``newton_iters`` is the aspheres' Newton step count."""
+    on the CPU. ``newton_iters`` is the Newton families' step count."""
     spec = poly_spec(system, newton_iters)
     if spec is None:
         raise unsupported("trace_fast_poly (no tabulated material)")

@@ -32,8 +32,10 @@ bits cannot be reproduced, so comparisons with it use explicit samples.
 The merit reads only the final x and y of each ray, so intensity, OPD,
 absorption and the aperture clips are not traced: as in the JAX package,
 every in-range ray counts in the statistics whatever its intensity. A
-surface of a Newton family (EVEN_ASPHERE, ODD_ASPHERE) reads its row of
-the coefficient table, and the backward gives that row's gradient.
+surface of a Newton family (EVEN_ASPHERE, ODD_ASPHERE, POLYNOMIAL_XY,
+CHEBYSHEV, TOROIDAL, BICONIC) reads its row of the coefficient table (the
+Cartesian ones also P_G1 and P_G2), and the backward gives their
+gradients.
 """
 
 from __future__ import annotations
@@ -49,10 +51,10 @@ from optiland_torch.core.system import (
 from optiland_torch.ops.launch import (
     BWD_BLOCK, BWD_MAX_BLOCKS, FWD_BLOCK, N_AIM, build_of, check_cuda_inputs,
     check_dtype, covered, device_of, flags, launch_from_pupil, launch_key,
-    sag_surfaces, unsupported, with_builds,
+    sag_columns, sag_surfaces, unsupported, with_builds,
 )
 from optiland_torch.ops.step import (
-    GRAD_COLS, NUM_P, P_NPOST, step_adjoint_plain, step_plain,
+    GRAD_COLS, NUM_P, P_NPOST, split_cols, step_adjoint_plain, step_plain,
 )
 from optiland_torch.physical_apertures import radial_only
 
@@ -61,10 +63,10 @@ from optiland_torch.physical_apertures import radial_only
 SUB_RAYS = 4096
 
 # Launch counts of the three kernels, the merit kernels per build
-# (``launch.launch_key``: "", "_tilt", "_sag", "_deep"); each wrapper adds
-# one where it launches its kernel and nowhere else (merit_bwd counts its
-# partial-row launch together with the fixed-order reduction launch that
-# follows it).
+# (``launch.launch_key``: "", "_tilt", "_sag", "_free", "_deep",
+# "_deep_free"); each wrapper adds one where it launches its kernel and
+# nowhere else (merit_bwd counts its partial-row launch together with the
+# fixed-order reduction launch that follows it).
 LAUNCHES = {"prng_disk": 0, **with_builds(("merit_fwd", "merit_bwd"))}
 
 
@@ -104,10 +106,10 @@ def _build(spec):
 
 def fused_supported(system) -> bool:
     """True when the fused merit kernels cover this system: what
-    ``launch.covered`` lists, tilted surfaces, the radial aspheres and
-    RadialAperture objects included. The other families of kernel K6
-    (the other Newton-sag geometries, gratings, NURBS) come in a later
-    slice."""
+    ``launch.covered`` lists, tilted surfaces, the radial aspheres, the
+    Cartesian freeforms and RadialAperture objects included. The other
+    families of kernel K6 (ZERNIKE_SAG, the Forbes families, gratings,
+    NURBS) come in a later slice."""
     return covered(system.cfg)
 
 
@@ -439,9 +441,10 @@ def merit_bwd_plain(params, aim, stats, spec, nc, R, seed=0, offset=0,
                 codes[s], refl[s], params[s], n_pre, st, g, tilted=tilted[s],
                 c=coef_row(coeffs, s), newton_iters=niters,
             )
-            for col, v in zip(GRAD_COLS, g6):
+            pairs, coef = split_cols(codes[s], g6, GRAD_COLS, nc)
+            for col, v in pairs:
                 dparams[s, col] = v.sum()
-            for j, v in enumerate(g6[len(GRAD_COLS):]):
+            for j, v in enumerate(coef):
                 dcoeffs[s, j] = v.sum()
             g = g_in + (g_npre,)
         gx, gy, gz, gL, gM, gN, g_n0 = g
@@ -483,7 +486,8 @@ def merit_bwd(params, aim, stats, spec, nc, R, seed=0, offset=0, Px=None,
         raise ValueError("nc must be the coefficient table's width")
     S = len(spec[0])
     stats = stats.to(dtype=params.dtype).contiguous()
-    ncomp = S * len(GRAD_COLS) + len(sag_surfaces(spec[0])) * nc + N_AIM
+    ncomp = (S * len(GRAD_COLS) + sag_columns(spec[0], nc, _build(spec))
+             + N_AIM)
     # the grid keeps BWD_MAX_BLOCKS x BWD_BLOCK threads whatever the block
     nb = min(-(-R // block), BWD_MAX_BLOCKS * (BWD_BLOCK // block))
     partial = torch.empty((nb, ncomp), dtype=params.dtype, device=params.device)
@@ -554,7 +558,7 @@ def spot_rms_fast_field(system, Hx, Hy, wavelength, num_rays=None, seed=0,
     backward kernel's block size in rays (a multiple of 32 up to
     BWD_BLOCK, which is the default); the samples and the result do not
     depend on it beyond rounding. ``newton_iters`` is the Newton step
-    count of the aspheres' intersection (the closed-form families do not
+    count of the Newton families' intersection (the closed-form ones do not
     read it).
     """
     if not fused_supported(system):

@@ -5,18 +5,24 @@ the launch of a ray from its pupil sample and the aim vector, the
 per-surface flag table, and the checks a wrapper runs before it launches
 a kernel on a CUDA device.
 
-Every trace kernel is compiled in four builds (``csrc/step.cuh``), and a
+Every trace kernel is compiled in six builds (``csrc/step.cuh``), and a
 launch takes the least one that covers its spec (``build_of``):
 
   * stock: PLANE and STANDARD surfaces, untilted, at most STOCK_SURF;
   * tilt: also the tilt rotations;
-  * sag: also the Newton-from-sag families (EVEN_ASPHERE, ODD_ASPHERE),
-    whose coefficient rows the kernels read, and in the full traces the
-    annular clip on P_APMIN (a RadialAperture with r_min > 0);
-  * deep: all of that, for up to MAX_SURF surfaces.
+  * sag: also the radial Newton-from-sag families (EVEN_ASPHERE,
+    ODD_ASPHERE), whose coefficient rows the kernels read, and in the full
+    traces the annular clip on P_APMIN (a RadialAperture with r_min > 0);
+  * free: also the Cartesian families (POLYNOMIAL_XY, CHEBYSHEV, TOROIDAL,
+    BICONIC), whose backwards also sum the P_G1 and P_G2 columns;
+  * deep: tilt and sag, for up to MAX_SURF surfaces;
+  * deep_free: deep with the Cartesian families.
 
-A kernel counts its launches under ``launch_key(name, build)``: the name,
-then "_tilt", "_sag" or "_deep" for the three other builds."""
+The Cartesian branch is a flag of its own beside the surface reach, so a
+deep system without a freeform runs the deep code, which carries none of
+it. A kernel counts its launches under ``launch_key(name, build)``: the
+name, then "_tilt", "_sag", "_free", "_deep" or "_deep_free" for the five
+other builds."""
 
 from __future__ import annotations
 
@@ -38,11 +44,13 @@ BWD_BLOCK = 128
 BWD_MAX_BLOCKS = 1056  # fixed grid of the backwards' grid-stride loop
 STOCK_SURF = 16  # surfaces of the stock, tilt and sag builds
 MAX_SURF = 64  # surfaces of the deep build: the kernels' bound
-NC_MAX = 16  # coefficient columns the kernels take
+NC_MAX = 36  # coefficient columns the kernels take (a 6 x 6 table)
 
-# the builds (csrc/step.cuh: B_STOCK .. B_DEEP) and their launch-key suffixes
-STOCK, TILT, SAG, DEEP = range(4)
-BUILD_SUFFIX = ("", "_tilt", "_sag", "_deep")
+# the builds (csrc/step.cuh: B_STOCK .. B_DEEP_FREE) and their launch-key
+# suffixes
+STOCK, TILT, SAG, FREE, DEEP, DEEP_FREE = range(6)
+BUILD_SUFFIX = ("", "_tilt", "_sag", "_free", "_deep", "_deep_free")
+CART_BUILDS = (FREE, DEEP_FREE)  # the builds with the Cartesian branch
 
 
 def inner_flags(cfg):
@@ -53,8 +61,9 @@ def inner_flags(cfg):
 
 
 def covered(cfg, field=True, coated=False) -> bool:
-    """True when the kernels' step covers this structure: PLANE, STANDARD,
-    EVEN_ASPHERE and ODD_ASPHERE surfaces, tilted or not, RadialAperture
+    """True when the kernels' step covers this structure: PLANE, STANDARD
+    and the Newton families (the radial aspheres and the Cartesian
+    freeforms) surfaces, tilted or not, RadialAperture
     objects and no others, no interactions or BSDFs, at most MAX_SURF
     surfaces, and (with ``field``) an infinite-conjugate angle field, which
     the aim vector describes. The unpolarized kernels take no coatings and
@@ -82,26 +91,44 @@ def covered(cfg, field=True, coated=False) -> bool:
 def unsupported(what):
     """The error for a system that the kernels do not cover yet."""
     return NotImplementedError(
-        f"{what} covers PLANE, STANDARD, EVEN_ASPHERE and ODD_ASPHERE "
-        f"systems of at most {MAX_SURF} surfaces (tilted or not) with no "
-        "aperture objects but RadialAperture and no interactions; the other "
-        "families of kernel K6 come in a later slice"
+        f"{what} covers PLANE, STANDARD, EVEN_ASPHERE, ODD_ASPHERE, "
+        "POLYNOMIAL_XY, CHEBYSHEV, TOROIDAL and BICONIC systems of at most "
+        f"{MAX_SURF} surfaces (tilted or not) with no aperture objects but "
+        "RadialAperture and no interactions; the other families of kernel "
+        "K6 come in a later slice (ROADMAP Queue 2)"
     )
 
 
 def sag_surfaces(codes):
     """The surfaces of a Newton family, in order: the k-th of them owns the
-    k-th block of nc coefficient columns of a backward's partial rows."""
+    k-th block of coefficient columns of a backward's partial rows."""
     return tuple(s for s, c in enumerate(codes) if c in geom.NEWTON_CODES)
 
 
+def block_width(nc, build):
+    """Columns of a Newton surface's block in a backward's partial rows:
+    its nc coefficient columns, then in the free and deep_free builds its
+    P_G1 and P_G2 columns."""
+    return nc + 2 if build in CART_BUILDS else nc
+
+
+def sag_columns(codes, nc, build):
+    """Columns of all the Newton surfaces' blocks of a backward's partial
+    rows."""
+    return len(sag_surfaces(codes)) * block_width(nc, build)
+
+
 def build_of(codes, tilted, inner=()):
-    """The build a spec launches: DEEP past STOCK_SURF surfaces, else SAG
-    with a Newton-family surface or an annular clip (``inner``), else TILT
-    with a tilted surface, else STOCK."""
+    """The build a spec launches: past STOCK_SURF surfaces DEEP_FREE with
+    a Cartesian surface, else DEEP; else FREE with a Cartesian surface,
+    else SAG with a radial asphere or an annular clip (``inner``), else
+    TILT with a tilted surface, else STOCK."""
+    cart = any(c in geom.CART_CODES for c in codes)
     if len(codes) > STOCK_SURF:
-        return DEEP
-    if any(c in geom.NEWTON_CODES for c in codes) or any(inner):
+        return DEEP_FREE if cart else DEEP
+    if cart:
+        return FREE
+    if any(c in geom.RADIAL_CODES for c in codes) or any(inner):
         return SAG
     return TILT if any(tilted) else STOCK
 
@@ -167,7 +194,8 @@ def check_cuda_inputs(params, spec, arrays=(), aim=None, coeffs=None):
     if any(c not in geom.SUPPORTED_CODES for c in spec[0]):
         raise NotImplementedError(
             f"geometry codes {spec[0]}: the kernels cover PLANE, STANDARD, "
-            "EVEN_ASPHERE and ODD_ASPHERE"
+            "EVEN_ASPHERE, ODD_ASPHERE, POLYNOMIAL_XY, CHEBYSHEV, TOROIDAL "
+            "and BICONIC (the other families: ROADMAP Queue 2)"
         )
     if coeffs is None:
         return

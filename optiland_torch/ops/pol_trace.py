@@ -73,10 +73,11 @@ from optiland_torch.ops.fused_trace import (
 )
 from optiland_torch.ops.launch import (
     build_of, check_cuda_inputs, covered, device_of, flags, inner_flags,
-    launch_key, sag_surfaces, unsupported, with_builds,
+    launch_key, sag_columns, sag_surfaces, unsupported, with_builds,
 )
 from optiland_torch.ops.step import (
-    FULL_GRAD_COLS, NUM_P, P_NPOST, step_adjoint_plain, step_plain,
+    FULL_GRAD_COLS, NUM_P, P_NPOST, split_cols, step_adjoint_plain,
+    step_plain,
 )
 from optiland_torch.polarization import basis_states
 
@@ -841,6 +842,8 @@ def pol_bwd_plain(params, coat, spec, rays, cots, states=None,
     ``with_coeffs`` that block comes back too."""
     codes, refl, absorbs, kinds, layers, tilted, inner, niters = spec
     S, ncoat = len(codes), coat.shape[1]
+    if coeffs is not None:
+        nc = coeffs.shape[1]
     rays, cots = tuple(rays), tuple(cots)
     with torch.no_grad():
         st, p, saved = _chain(params, coat, spec, rays, keep=True,
@@ -901,9 +904,10 @@ def pol_bwd_plain(params, coat, spec, rays, cots, states=None,
                 tuple(g), absorbs[s], g_ext=g_k0 + g_k1 + (g_adot,),
                 tilted=tilted[s], c=coef_row(coeffs, s), newton_iters=niters,
                 inner=inner[s])
-            for col, v in zip(FULL_GRAD_COLS, cols):
+            pairs, coef = split_cols(codes[s], cols, FULL_GRAD_COLS, nc)
+            for col, v in pairs:
                 dparams[s, col] = v.sum()
-            for j, v in enumerate(cols[len(FULL_GRAD_COLS):]):
+            for j, v in enumerate(coef):
                 dcoeffs[s, j] = v.sum()
             g = list(g_in[:6]) + [g_npre] + list(g_in[6:])
         # n_pre of surface 1 is the object row's n_post
@@ -1000,7 +1004,7 @@ def pol_bwd(params, coat, spec, nc, rays, cots, states=None, intensity=False,
     din = [torch.empty_like(rays[0]) for _ in range(8)]
     partial = params.new_empty(
         (nb, S * (len(FULL_GRAD_COLS) + ncoat)
-         + len(sag_surfaces(spec[0])) * nc))
+         + sag_columns(spec[0], nc, _build(spec))))
     out = params.new_zeros(S * (NUM_P + nc + ncoat))
     build = _build(spec)
     with torch.cuda.device(params.device):

@@ -2,8 +2,9 @@
 device step in ``csrc/step.cuh`` and its hand-derived adjoint.
 
 Counterpart of ``_step_tile`` in ``optiland_tpu/ops/pallas_trace.py``:
-its PLANE, STANDARD, tilt, annular-aperture and EVEN_ASPHERE/ODD_ASPHERE
-branches. Two forms, chosen by the length of the state:
+its PLANE, STANDARD, tilt, annular-aperture, EVEN_ASPHERE/ODD_ASPHERE and
+POLYNOMIAL_XY/CHEBYSHEV/TOROIDAL/BICONIC branches. Two forms, chosen by the
+length of the state:
 
   * the merit form, state (x, y, z, L, M, N): geometry only, which is all
     the fused merit reads (``ops/fused_trace.py``);
@@ -19,8 +20,12 @@ through which the gradient runs (the implicit-function gradient of the
 JAX package's kernels); its normal is the sag's derivative. Its adjoint
 takes the cotangent through that one step, the f f'_theta / f'^2 term
 included, and through the normal with the sag's second derivative
-(``geom.sag_point``), and gives the cotangents of the surface's
-coefficient row after the param columns. With the ``inner`` flag (an
+(``geom.sag_point``; for a Cartesian family ``geom.cart_point``: the
+slopes' Hessian and their radius, conic, p1 and p2 derivatives, with
+CHEBYSHEV's normal the reference's convention), and gives the cotangents
+of the surface's coefficient row after the param columns (a Cartesian
+family's from its per-ray weights, ``geom.coef_columns``, then those of
+P_G1 and P_G2). With the ``inner`` flag (an
 annular aperture) the full step also zeroes the intensity of a ray with
 x^2 + y^2 < ap_min^2, after the circular clip.
 
@@ -69,6 +74,22 @@ FULL_GRAD_COLS = GRAD_COLS + (P_KPRE,)
 
 # Beer-Lambert factor exp(ABS * k_pre * t): k_pre = k / wavelength (um), t mm
 ABS = -4 * np.pi
+
+# The columns a Cartesian family's cotangents reach after its coefficient
+# row: p1 and p2.
+CART_COLS = (P_G1, P_G2)
+
+
+def split_cols(code, cols, base, nc):
+    """``step_adjoint_plain``'s cotangents as ((param column, value) pairs,
+    coefficient cotangents): the ``base`` columns (GRAD_COLS or
+    FULL_GRAD_COLS), then for a Cartesian family P_G1 and P_G2; the nc
+    coefficient cotangents of a Newton family, else none."""
+    pairs = list(zip(base, cols))
+    coef = cols[len(base):len(base) + nc]
+    if code in geom.CART_CODES:
+        pairs += list(zip(CART_COLS, cols[len(base) + nc:]))
+    return pairs, coef
 
 
 def _rot_local(x, y, z, L, M, N, rx, ry, rz):
@@ -171,8 +192,10 @@ def step_plain(code, refl, p, n_pre, st, absorbs=False, extras=False,
     y = y - p[P_DY]
     zl = z - pos
     x, y, zl, L, M, N = _rot_local(x, y, zl, L, M, N, *rot)
+    p1, p2 = p[P_G1], p[P_G2]
     t = geom.distance_static(code, radius, conic, x, y, zl, L, M, N,
-                             coeffs=c, newton_iters=newton_iters)
+                             coeffs=c, newton_iters=newton_iters, p1=p1,
+                             p2=p2)
     x = x + t * L
     y = y + t * M
     zl = zl + t * N
@@ -187,7 +210,8 @@ def step_plain(code, refl, p, n_pre, st, absorbs=False, extras=False,
         if inner:
             i = torch.where(r2 < p[P_APMIN] * p[P_APMIN], 0.0, i)
         extra = (i, opd)
-    nx, ny, nz = geom.surface_normal_static(code, radius, conic, c, x, y)
+    nx, ny, nz = geom.surface_normal_static(code, radius, conic, c, x, y,
+                                            p1, p2)
     dot = L * nx + M * ny + N * nz
     sgn = torch.sign(dot)
     nx, ny, nz = nx * sgn, ny * sgn, nz * sgn
@@ -234,8 +258,9 @@ def step_adjoint_plain(code, refl, p, n_pre, st, g, absorbs=False,
     ``inner`` the annular clip) passes no cotangent to a clipped ray's
     intensity, and none to the positions that decide it. For a Newton
     family the param columns are followed by the cotangents of the
-    coefficient row ``c`` (one per coefficient). The CUDA kernels' reverse
-    step is a line-by-line transcription of this one."""
+    coefficient row ``c`` (one per coefficient), for a Cartesian one then
+    by those of P_G1 and P_G2 (``split_cols`` takes them apart). The CUDA
+    kernels' reverse step is a line-by-line transcription of this one."""
     full = len(g) == 9
     x, y, z, L, M, N = st[:6]
     gx, gy, gz, gL_o, gM_o, gN_o, g_nn = g[:7]
@@ -243,7 +268,9 @@ def step_adjoint_plain(code, refl, p, n_pre, st, g, absorbs=False,
     dx, dy = p[P_DX], p[P_DY]
     npost = p[P_NPOST] if n_post is None else n_post
     std = code == geom.STANDARD
-    newton = code in geom.NEWTON_CODES
+    newton = code in geom.RADIAL_CODES
+    cart = code in geom.CART_CODES
+    p1, p2 = p[P_G1], p[P_G2]
 
     # ---- recompute the forward intermediates (in the surface's frame) ----
     xl = x - dx
@@ -286,6 +313,20 @@ def step_adjoint_plain(code, refl, p, n_pre, st, g, absorbs=False,
         okf = fp.abs() > 1e-14
         fp = torch.where(okf, fp, 1e-14)
         t = t_s - f / fp
+    elif cart:
+        # the stopped iterate, then the one step through which the gradient
+        # runs: f' = N - (sx L + sy M) at (Xs, Ys)
+        t_s = geom.newton_start(R, k, xl, yl, zl, L, M, N)
+        for _ in range(newton_iters):
+            t_s = geom.newton_step(code, R, k, c, xl, yl, zl, L, M, N, t_s,
+                                   p1, p2)
+        Xs, Ys = xl + t_s * L, yl + t_s * M
+        ps = geom.cart_point(code, R, k, c, p1, p2, Xs, Ys, grad=True)
+        f = zl + t_s * N - ps.s
+        fp = N - (ps.sx * L + ps.sy * M)
+        okf = fp.abs() > 1e-14
+        fp = torch.where(okf, fp, 1e-14)
+        t = t_s - f / fp
     else:
         big = torch.abs(N) > 1e-14
         Ns = torch.where(big, N, 1e-14)
@@ -307,6 +348,16 @@ def step_adjoint_plain(code, refl, p, n_pre, st, g, absorbs=False,
         fx = x1 * W1
         fy = y1 * W1
         im = torch.rsqrt(fx**2 + fy**2 + 1)
+        nx, ny, nz = fx * im, fy * im, -im
+    elif cart:
+        # the normal's slopes (CHEBYSHEV: the reference's, and 1 / sqrt)
+        p1n = geom.cart_point(code, R, k, c, p1, p2, x1, y1, grad=True,
+                              normal=True)
+        fx, fy = p1n.sx, p1n.sy
+        if code == geom.CHEBYSHEV:
+            im = 1.0 / torch.sqrt(fx**2 + fy**2 + 1)
+        else:
+            im = torch.rsqrt(fx**2 + fy**2 + 1)
         nx, ny, nz = fx * im, fy * im, -im
     else:
         nx, ny, nz = geom._normal_plane(x1)
@@ -416,6 +467,22 @@ def step_adjoint_plain(code, refl, p, n_pre, st, g, absorbs=False,
         g_cu = g_cu + g_W1 * Wcu1
         g_k = g_k + g_W1 * Wk1
         cc1 = g_W1 * beta1
+    elif cart:
+        # n = (fx, fy, -1) im, (fx, fy) the normal's slopes at (x1, y1)
+        g_nx, g_ny, g_nz = sgn * g_nxs, sgn * g_nys, sgn * g_nzs
+        g_fx = g_nx * im
+        g_fy = g_ny * im
+        g_im = g_nx * fx + g_ny * fy - g_nz
+        g_mg = -0.5 * g_im * im * im * im
+        g_fx = g_fx + 2 * fx * g_mg
+        g_fy = g_fy + 2 * fy * g_mg
+        g_x1 = g_x1 + g_fx * p1n.hxx + g_fy * p1n.hyx
+        g_y1 = g_y1 + g_fx * p1n.hxy + g_fy * p1n.hyy
+        g_Rd = g_fx * p1n.dR[1] + g_fy * p1n.dR[2]
+        g_k = g_k + g_fx * p1n.dk[1] + g_fy * p1n.dk[2]
+        g_p1 = g_fx * p1n.dp1[1] + g_fy * p1n.dp1[2]
+        g_p2 = g_fx * p1n.dp2[1] + g_fy * p1n.dp2[2]
+        w1 = geom.coef_weights(code, p1n, 0.0 * g_fx, g_fx, g_fy)
 
     # ---- propagate: x1 = xl + t L, y1 = yl + t M, z1 = zl + t N ----
     g_xl, g_yl, g_zl = g_x1, g_y1, g_z1
@@ -522,6 +589,36 @@ def step_adjoint_plain(code, refl, p, n_pre, st, g, absorbs=False,
                                                           + cc1 * pw_1))
             pw_s = pw_s * rho_s
             pw_1 = pw_1 * rho1
+    elif cart:
+        # t = t_s - f / f' at the stopped t_s: f = zl + t_s N - s(X, Y),
+        # f' = N - (sx L + sy M), X = xl + t_s L, Y = yl + t_s M
+        g_f = -g_t / fp
+        g_fp = torch.where(okf, g_t * f / (fp * fp), 0.0)
+        g_zl = g_zl + g_f
+        gN = gN + g_f * t_s + g_fp
+        g_s = -g_f
+        g_sx = -g_fp * L
+        g_sy = -g_fp * M
+        gL = gL - g_fp * ps.sx
+        gM = gM - g_fp * ps.sy
+        g_X = g_s * ps.sx + g_sx * ps.hxx + g_sy * ps.hyx
+        g_Y = g_s * ps.sy + g_sx * ps.hxy + g_sy * ps.hyy
+        g_R = g_Rd + g_s * ps.dR[0] + g_sx * ps.dR[1] + g_sy * ps.dR[2]
+        g_k = g_k + g_s * ps.dk[0] + g_sx * ps.dk[1] + g_sy * ps.dk[2]
+        g_p1 = g_p1 + g_s * ps.dp1[0] + g_sx * ps.dp1[1] + g_sy * ps.dp1[2]
+        g_p2 = g_p2 + g_s * ps.dp2[0] + g_sx * ps.dp2[1] + g_sy * ps.dp2[2]
+        ws = geom.coef_weights(code, ps, g_s, g_sx, g_sy)
+        reads_k, reads_p = geom.cart_reads(code)
+        if not reads_k:
+            g_k = torch.zeros_like(g_k)
+        if not reads_p:
+            g_p1, g_p2 = torch.zeros_like(g_p1), torch.zeros_like(g_p2)
+        g_xl = g_xl + g_X
+        g_yl = g_yl + g_Y
+        gL = gL + g_X * t_s
+        gM = gM + g_Y * t_s
+        g_coef = geom.coef_columns(code, c.shape[-1], p1, p2, Xs, Ys, ws, x1,
+                                   y1, w1) + [g_p1, g_p2]
     else:
         g_zl = g_zl - g_t / Ns
         gN = gN + torch.where(big, g_t * zl / (Ns * Ns), 0.0)
@@ -551,6 +648,6 @@ def step_adjoint_plain(code, refl, p, n_pre, st, g, absorbs=False,
     if full:
         g_in = g_in + (g_i, g_opd)
         cols = cols + (g_kpre,)
-    if newton:
+    if newton or cart:
         cols = cols + tuple(g_coef)
     return g_in, g_npre, cols

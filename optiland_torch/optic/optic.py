@@ -1,8 +1,9 @@
 """User-facing Optic builder with the JAX package's construction API.
 
 Counterpart of ``optiland_tpu/optic/optic.py`` (a subset): ``SurfaceDef``,
-``SurfaceGroup.add`` for the "standard", "plane", "even_asphere" and
-"odd_asphere" surface types (the aspheres with their ``coefficients``),
+``SurfaceGroup.add`` for the "standard", "plane", "even_asphere",
+"odd_asphere", "polynomial", "chebyshev", "toroidal" and "biconic"
+surface types (with the JAX package's arguments),
 a semi-diameter or a ``RadialAperture`` as the physical aperture, and an
 optional coating (a coating object or the "fresnel" shorthand), the field,
 wavelength and aperture groups, and ``Optic`` with ``set_aperture``,
@@ -40,7 +41,14 @@ _GEOM_CODES = {
     "plane": geom.PLANE,
     "even_asphere": geom.EVEN_ASPHERE,
     "odd_asphere": geom.ODD_ASPHERE,
+    "polynomial": geom.POLYNOMIAL_XY,
+    "chebyshev": geom.CHEBYSHEV,
+    "toroidal": geom.TOROIDAL,
+    "biconic": geom.BICONIC,
 }
+# the JAX package's other surface types, and what they wait for
+_QUEUE2_TYPES = ("zernike", "forbes_qbfs", "forbes_q2d", "grating",
+                 "nurbs", "grid_sag")
 
 
 def _later(what: str) -> NotImplementedError:
@@ -67,6 +75,10 @@ class SurfaceDef:
     aperture: Any = None  # a diameter (float) or a RadialAperture
     comment: str = ""
     coating: Any = None  # BaseCoating or "fresnel"
+    # extended geometry parameters (the JAX package's): the y radius and
+    # conic (biconic, toroidal) or the normalization radii (chebyshev)
+    geo_p1: float = 1.0
+    geo_p2: float = 1.0
 
     # resolved at compile time
     _material_obj: BaseMaterial | None = None
@@ -101,29 +113,72 @@ class SurfaceGroup:
         coating=None,
         **kwargs,
     ):
-        """Add a "standard", "plane", "even_asphere" or "odd_asphere"
-        surface (an asphere's polynomial ``coefficients``: C_i of r^(2i+2)
-        even, of r^(i+1) odd), optionally with a physical ``aperture`` (a
+        """Add a surface, optionally with a physical ``aperture`` (a
         diameter or a ``RadialAperture``) and a coating (``coating`` a
         coating object or "fresnel", the bare interface between the
-        adjacent materials)."""
+        adjacent materials). Surface types, with the JAX package's
+        arguments:
+
+          * "standard", "plane";
+          * "even_asphere", "odd_asphere": ``coefficients`` C_i of
+            r^(2i+2) (even) or r^(i+1) (odd);
+          * "polynomial": ``coefficients`` C[i, j] of x^i y^j, a 2-D table
+            embedded in a square, row-major (a flat one is read as such);
+          * "chebyshev": the same of T_i(x / norm_x) T_j(y / norm_y);
+          * "toroidal": ``radius_x`` the radius of rotation, ``radius_y``
+            and ``conic`` the y-z profile's, ``toroidal_coeffs_poly_y`` its
+            terms of y^2, y^4, ...;
+          * "biconic": ``radius_x``, ``conic_x``, ``radius_y``,
+            ``conic_y``.
+
+        The other types of the JAX package ("zernike", the Forbes types,
+        "grating", "nurbs", "grid_sag") come in a later slice (ROADMAP
+        Queue 2) and raise."""
         from optiland_torch.physical_apertures import RadialAperture
 
+        if surface_type in _QUEUE2_TYPES:
+            raise NotImplementedError(
+                f"surface_type {surface_type!r} is ported in a later slice "
+                "(ROADMAP Queue 2)")
         if surface_type not in _GEOM_CODES:
             raise _later(f"surface_type {surface_type!r}")
+        geo_p1, geo_p2 = 1.0, 1.0
+        coeff_arr = np.asarray(coefficients, dtype=float)
+        if surface_type in ("polynomial", "chebyshev") and coeff_arr.ndim == 2:
+            # embed the (i, j) table in a square, row-major
+            side = max(coeff_arr.shape)
+            sq = np.zeros((side, side))
+            sq[: coeff_arr.shape[0], : coeff_arr.shape[1]] = coeff_arr
+            coeff_arr = sq
+        if surface_type == "chebyshev":
+            geo_p1 = kwargs.pop("norm_x", None) or 1.0
+            geo_p2 = kwargs.pop("norm_y", None) or 1.0
+        elif surface_type == "biconic":
+            radius = kwargs.pop("radius_x", radius)
+            conic = kwargs.pop("conic_x", conic)
+            geo_p1 = kwargs.pop("radius_y", np.inf)
+            geo_p2 = kwargs.pop("conic_y", 0.0)
+        elif surface_type == "toroidal":
+            radius = kwargs.pop("radius_x", radius)
+            geo_p1 = kwargs.pop("radius_y", np.inf)
+            geo_p2 = conic  # the conic of the y-z profile
+            tor = kwargs.pop("toroidal_coeffs_poly_y", None)
+            if tor is not None and np.size(tor):
+                coeff_arr = np.asarray(tor, dtype=float)
         if kwargs:
             raise _later(f"surface argument(s) {sorted(kwargs)}")
         if aperture is not None and not isinstance(
                 aperture, (int, float, RadialAperture)):
             raise _later("physical aperture objects other than "
                          "RadialAperture")
-        coefficients = tuple(float(c) for c in np.ravel(coefficients))
+        coefficients = tuple(float(c) for c in np.ravel(coeff_arr))
         sd = SurfaceDef(
             radius=radius, thickness=thickness, conic=conic,
             material=material, is_stop=is_stop, surface_type=surface_type,
             coefficients=coefficients,
             dx=dx, dy=dy, dz=dz, rx=rx, ry=ry, rz=rz, aperture=aperture,
-            comment=comment, coating=coating,
+            comment=comment, coating=coating, geo_p1=float(geo_p1),
+            geo_p2=float(geo_p2),
         )
         if index is None:
             index = len(self.surfaces)
@@ -420,8 +475,8 @@ class Optic:
             radius=col("radius"),
             conic=col("conic"),
             coeffs=tensor(coeffs),
-            geo_p1=tensor(np.ones(S)),
-            geo_p2=tensor(np.ones(S)),
+            geo_p1=col("geo_p1"),
+            geo_p2=col("geo_p2"),
             thickness=col("thickness"),
             dx=col("dx"), dy=col("dy"), dz=col("dz"),
             rx=col("rx"), ry=col("ry"), rz=col("rz"),

@@ -28,7 +28,9 @@ kernels, the coefficient gradients with the other summed gradients. The
 sag and deep builds (radial aspheres, annular apertures, more than 16
 surfaces): as the trace kernels; their f32 kernels against the f32 plain
 versions (the f32 Newton iteration converges to ~1e-7 relative), to 2e-4
-of each array's scale and 1e-3 in the gradients' L2 norm.
+of each array's scale and 1e-3 in the gradients' L2 norm. The free build
+(the Cartesian freeforms): as the trace kernels, every gradient column,
+P_G1, P_G2 and each coefficient column included.
 """
 
 import dataclasses
@@ -48,7 +50,7 @@ from optiland_torch.ops import huygens as hu
 from optiland_torch.optic import Optic
 from optiland_torch.polarization import create_polarization
 from optiland_torch.samples import (
-    AsphericSinglet, CookeTriplet, perturbed, registry,
+    AsphericSinglet, CookeTriplet, freeform, perturbed, registry,
 )
 
 H = (0.0, 0.7)
@@ -186,7 +188,7 @@ def test_entry_point_launches_both_kernels(cuda_device):
 @pytest.mark.cuda
 def test_wrapper_raises_instead_of_falling_back(cuda_device):
     _, params, aim, spec = _setup()
-    bad = ((0, 4) + spec[0][2:],) + spec[1:]  # POLYNOMIAL_XY: not yet
+    bad = ((0, 6) + spec[0][2:],) + spec[1:]  # ZERNIKE_SAG: not yet
     with pytest.raises(NotImplementedError):
         ft.merit_fwd(params, aim, bad, 100, seed=1)
     with pytest.raises(ValueError, match="float64 on cuda"):
@@ -359,7 +361,7 @@ def test_trace_wrappers_raise_instead_of_falling_back(cuda_device):
     with pytest.raises(ValueError, match="contiguous"):
         strided = torch.stack([cots[0], cots[0]], dim=1)[:, 0]
         ftr.trace_bwd(params, spec, 1, ins, [strided] + cots[1:])
-    bad = ((0, 4) + spec[0][2:],) + spec[1:]  # POLYNOMIAL_XY: not yet
+    bad = ((0, 6) + spec[0][2:],) + spec[1:]  # ZERNIKE_SAG: not yet
     with pytest.raises(NotImplementedError):
         ftr.trace_field_bwd(params, aim, bad, 1, Px, Py, cots)
     # a tilted system runs the kernels and agrees with their plain versions
@@ -434,6 +436,14 @@ def test_trace_raises_where_the_kernels_do_not_cover_yet(cuda_device):
         spot.rms_spot_size(too_deep, *H, Px, Py, WL)
     final, hist = trace_core.trace(too_deep, rays, record=True, wavelength=WL)
     assert hist is not None and torch.isfinite(final.x).all()
+    assert sum(ftr.LAUNCHES.values()) == 0
+    # a coefficient table wider than NC_MAX = 36 columns raises on the card
+    wide = freeform.freeform_singlet(
+        "polynomial", coefficients=[[1e-9] * 7] * 7).system
+    assert wide.stack.coeffs.shape[1] == 49
+    rays = raygen.generate_rays(wide, *H, Px, Py, WL)
+    with pytest.raises(NotImplementedError, match="NC_MAX = 36"):
+        trace_core.trace(wide, rays, record=False, wavelength=WL)
     assert sum(ftr.LAUNCHES.values()) == 0
     tilted = perturbed.toleranced_cooke().system
     rays = raygen.generate_rays(tilted, *H, Px, Py, WL)
@@ -1243,3 +1253,213 @@ def test_tilted_kernels_match_plain_f64(cuda_device):
         _close(din, din_p, 1e-10, f"pol_bwd din intensity={intensity}")
         torch.testing.assert_close(flat, flat_p, rtol=1e-9,
                                    atol=1e-12 * float(flat_p.abs().max()))
+
+
+# ---------------------------------------------------------------------------
+# K6b, the Cartesian freeforms: the free build
+# ---------------------------------------------------------------------------
+
+FREEFORMS = {
+    "polynomial": {}, "chebyshev": {}, "toroidal": {}, "biconic": {},
+    "polynomial_tilted": {"tilted": True},
+    "polynomial_5x5": {"coefficients": freeform.CMAT5},
+}
+
+
+def _free_system(kind):
+    return freeform.freeform_singlet(kind.split("_")[0],
+                                     **FREEFORMS[kind]).system
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", list(FREEFORMS))
+def test_free_kernels_match_plain_f64(cuda_device, kind):
+    system = _free_system(kind)
+    R = 20001
+    wl, params, aim, coeffs, Px, Py, ins, cots = _k6_inputs(
+        system, freeform.H, R, 7)
+    nc = coeffs.shape[1]
+    spec = ftr.fast_spec(system, field=True)
+    S = len(spec[0])
+    ftr.reset_launch_counts()
+    ft.reset_launch_counts()
+    _close(ftr.trace_fwd(params, spec, ins, coeffs),
+           ftr.trace_fast_plain(params, spec, ins, coeffs), 1e-10,
+           f"{kind} trace_fwd")
+    din, flat = ftr.trace_bwd(params, spec, nc, ins, cots, coeffs)
+    din_p, flat_p = ftr.trace_fast_bwd_plain(params, spec, nc, ins, cots,
+                                             coeffs)
+    _close(din, din_p, 1e-10, f"{kind} trace_bwd input cotangent",
+           positions=False)
+    _flat_close(flat, flat_p, f"{kind} trace_bwd")
+    # the P_G1 and P_G2 columns (zero for POLYNOMIAL_XY) and the
+    # coefficient columns (zero for BICONIC)
+    dp = flat_p[:S * 15].reshape(S, 15)
+    dco = flat_p[S * 15:].reshape(S, nc)
+    assert (float(dp[1, 11:13].abs().min()) > 0) == (
+        not kind.startswith("polynomial"))
+    assert (float(dco[1].abs().max()) > 0) == (kind != "biconic")
+    out = ftr.trace_field_fwd(params, aim, spec, Px, Py, coeffs)
+    _close(out, ftr.trace_fast_field_plain(params, aim, spec, Px, Py, coeffs),
+           1e-10, f"{kind} trace_field_fwd")
+    _flat_close(ftr.trace_field_bwd(params, aim, spec, nc, Px, Py, cots,
+                                    coeffs),
+                ftr.trace_fast_field_bwd_plain(params, aim, spec, nc, Px, Py,
+                                               cots, coeffs),
+                f"{kind} trace_field_bwd")
+    mspec = ft._spec_of(system)
+    rows = ft.merit_fwd(params, aim, mspec, R, Px=Px, Py=Py, coeffs=coeffs)
+    rows_p = ft.merit_fwd_plain(params, aim, mspec, R, Px=Px, Py=Py,
+                                coeffs=coeffs)
+    loss, xbar, ybar = ft._chan_combine(rows, R)
+    assert float(loss) == pytest.approx(
+        float(ft._chan_combine(rows_p, R)[0]), rel=1e-12)
+    stats = torch.stack([xbar, ybar, 1.0 / R + 0 * xbar, 0 * xbar])
+    _flat_close(ft.merit_bwd(params, aim, stats, mspec, nc, R, Px=Px, Py=Py,
+                             coeffs=coeffs),
+                ft.merit_bwd_plain(params, aim, stats, mspec, nc, R, Px=Px,
+                                   Py=Py, coeffs=coeffs),
+                f"{kind} merit_bwd")
+    names = ("trace_fwd", "trace_bwd", "trace_field_fwd", "trace_field_bwd")
+    assert ftr.LAUNCHES == _only(ftr.LAUNCHES,
+                                 **{n + "_free": 1 for n in names})
+    assert ft.LAUNCHES == _only(ft.LAUNCHES, merit_fwd_free=1,
+                                merit_bwd_free=1)
+
+
+@pytest.mark.cuda
+def test_free_poly_and_pol_kernels_match_plain(cuda_device):
+    """The free build's poly mode on the Chebyshev singlet and K8/K9 (both
+    modes) on the Fresnel-coated XY singlet."""
+    system = _free_system("chebyshev")
+    R = 20001
+    wl, _, _, coeffs, _, _, ins, cots = _k6_inputs(system, freeform.H, R, 8)
+    nc = coeffs.shape[1]
+    spec = ftr.poly_spec(system)
+    params = ftr.build_poly_table(system).contiguous()
+    mats = system.stack.mat_coeffs.contiguous()
+    w = torch.tensor([0.48, 0.55, 0.65], dtype=torch.float64,
+                     device=cuda_device)[torch.arange(R, device=cuda_device)
+                                         % 3]
+    ins9 = ins + [w]
+    ftr.reset_launch_counts()
+    _close(ftr.trace_fwd_poly(params, mats, spec, ins9, coeffs),
+           ftr.trace_fwd_poly_plain(params, mats, spec, ins9, coeffs), 1e-10,
+           "chebyshev trace_fwd_poly")
+    din, flat = ftr.trace_bwd_poly(params, mats, spec, nc, ins9, cots, coeffs)
+    din_p, flat_p = ftr.trace_bwd_poly_plain(params, mats, spec, nc, ins9,
+                                             cots, coeffs)
+    _close(din, din_p, 1e-10, "chebyshev trace_bwd_poly input cotangent",
+           positions=False)
+    _flat_close(flat, flat_p, "chebyshev trace_bwd_poly")
+    assert ftr.LAUNCHES == _only(ftr.LAUNCHES, trace_fwd_poly_free=1,
+                                 trace_bwd_poly_free=1)
+    from optiland_torch.ops import pol_trace as pt
+
+    csys = freeform.coated_freeform("polynomial", "H").system
+    wl, params, _, coeffs, _, _, ins, _ = _k6_inputs(csys, freeform.H, R, 9)
+    pspec = pt.pol_spec(csys, wl)
+    coat = pt.build_coat_table(csys, wl, torch.float64, cuda_device)
+    g = torch.Generator(device="cpu").manual_seed(9)
+    cots = [torch.randn(R, generator=g, dtype=torch.float64).to(cuda_device)
+            for _ in range(pt.N_POL)]
+    pt.reset_launch_counts()
+    for states, intensity in ((None, False),
+                              (pt.pol_states(create_polarization("H")),
+                               True)):
+        c = cots[:8] if intensity else cots
+        _pol_out_close(pt.pol_fwd(params, coat, pspec, ins, states,
+                                  intensity, coeffs),
+                       pt.pol_fwd_plain(params, coat, pspec, ins, states,
+                                        intensity, coeffs), "coated XY")
+        din, flat = pt.pol_bwd(params, coat, pspec, nc, ins, c, states,
+                               intensity, coeffs)
+        din_p, flat_p = pt.pol_bwd_plain(params, coat, pspec, ins, c, states,
+                                         intensity, coeffs, nc,
+                                         with_coeffs=True)
+        _close(din, din_p, 1e-10, "coated XY pol_bwd input cotangent",
+               positions=False)
+        _flat_close(flat, flat_p, "coated XY pol_bwd")
+    assert pt.LAUNCHES == _only(pt.LAUNCHES, pol_fwd_free=1, pol_bwd_free=1,
+                                pol_fwd_intensity_free=1,
+                                pol_bwd_intensity_free=1)
+
+
+@pytest.mark.cuda
+def test_free_entry_points_launch_the_free_build(cuda_device):
+    """spot_rms_fast_field, trace_fast_field and Optic.trace of the XY
+    singlet run the free build, with the gradient of every leaf finite and
+    matching the plain versions on the CPU."""
+    lens = freeform.freeform_singlet("polynomial")
+    system = lens.system
+    ftr.reset_launch_counts()
+    ft.reset_launch_counts()
+    Px, Py = ft.prng_disk(5, 4001, 0, torch.float64, cuda_device)
+    loss = ft.spot_rms_fast_field(system, *freeform.H, WL, Px=Px, Py=Py)
+    f = ftr.trace_fast_field(system, *freeform.H, Px, Py, WL)
+    res = lens.trace(Hx=0.3, Hy=0.7, num_rays=8, record=False)
+    assert torch.isfinite(loss) and torch.isfinite(f.x).all()
+    assert torch.isfinite(res.x).all()
+    assert ft.LAUNCHES == _only(ft.LAUNCHES, prng_disk=1, merit_fwd_free=1)
+    assert ftr.LAUNCHES == _only(ftr.LAUNCHES, trace_field_fwd_free=1,
+                                 trace_fwd_free=1)
+    config.set_device("cpu")
+    ref = freeform.freeform_singlet("polynomial").system
+    loss_p = ft.spot_rms_fast_field(ref, *freeform.H, WL, Px=Px.cpu(),
+                                    Py=Py.cpu())
+    assert float(loss) == pytest.approx(float(loss_p), rel=1e-12)
+
+
+@pytest.mark.cuda
+def test_deep_build_takes_the_freeforms(cuda_device):
+    """Past 16 surfaces a system with a freeform runs the deep_free build,
+    the deep build with the Cartesian families: nine plates, the first
+    surface an XY table and the second a toroid, against the plain
+    versions."""
+    lens = Optic()
+    lens.surfaces.add(index=0, radius=float("inf"), thickness=float("inf"))
+    lens.surfaces.add(surface_type="polynomial", radius=50.0, conic=-0.5,
+                      coefficients=freeform.CMAT, thickness=1.0,
+                      material="N-BK7", is_stop=True)
+    lens.surfaces.add(surface_type="toroidal", radius_x=-300.0,
+                      radius_y=-200.0, conic=-0.5,
+                      toroidal_coeffs_poly_y=(1e-6,), thickness=2.0)
+    for k in range(1, 9):
+        lens.surfaces.add(radius=float("inf"), thickness=1.0,
+                          material="N-BK7")
+        lens.surfaces.add(radius=-200.0 * (k + 1), thickness=2.0)
+    lens.surfaces.add()
+    lens.set_aperture(aperture_type="EPD", value=10)
+    lens.fields.set_type(field_type="angle")
+    lens.fields.add(y=0)
+    lens.fields.add(y=1)
+    lens.wavelengths.add(value=0.55, is_primary=True)
+    system = lens.system
+    assert system.cfg.num_surfaces == 20
+    R = 8001
+    wl, params, aim, coeffs, Px, Py, ins, cots = _k6_inputs(system, H, R, 11)
+    nc = coeffs.shape[1]
+    spec = ftr.fast_spec(system, field=True)
+    ftr.reset_launch_counts()
+    _close(ftr.trace_fwd(params, spec, ins, coeffs),
+           ftr.trace_fast_plain(params, spec, ins, coeffs), 1e-10,
+           "deep freeform trace_fwd")
+    din, flat = ftr.trace_bwd(params, spec, nc, ins, cots, coeffs)
+    din_p, flat_p = ftr.trace_fast_bwd_plain(params, spec, nc, ins, cots,
+                                             coeffs)
+    _close(din, din_p, 1e-10, "deep freeform trace_bwd input cotangent",
+           positions=False)
+    _flat_close(flat, flat_p, "deep freeform trace_bwd")
+    dp = flat_p[:20 * 15].reshape(20, 15)
+    assert float(dp[2, 11:13].abs().min()) > 0  # the toroid's p1, p2
+    mspec = ft._spec_of(system)
+    rows = ft.merit_fwd(params, aim, mspec, R, Px=Px, Py=Py, coeffs=coeffs)
+    loss, xbar, ybar = ft._chan_combine(rows, R)
+    stats = torch.stack([xbar, ybar, 1.0 / R + 0 * xbar, 0 * xbar])
+    _flat_close(ft.merit_bwd(params, aim, stats, mspec, nc, R, Px=Px, Py=Py,
+                             coeffs=coeffs),
+                ft.merit_bwd_plain(params, aim, stats, mspec, nc, R, Px=Px,
+                                   Py=Py, coeffs=coeffs),
+                "deep freeform merit_bwd")
+    assert ftr.LAUNCHES == _only(ftr.LAUNCHES, trace_fwd_deep_free=1,
+                                 trace_bwd_deep_free=1)

@@ -435,7 +435,8 @@ def test_cpu_wrappers_run_the_plain_versions():
     assert ftr.LAUNCHES == {
         k: 0 for n in ("trace_fwd", "trace_bwd", "trace_field_fwd",
                        "trace_field_bwd", "trace_fwd_poly", "trace_bwd_poly")
-        for k in (n, n + "_tilt", n + "_sag", n + "_deep")}
+        for k in (n, n + "_tilt", n + "_sag", n + "_free", n + "_deep",
+                  n + "_deep_free")}
     with pytest.raises(ValueError, match="'cuda' or 'cpu'"):
         ftr.trace_fwd(params.to("meta"), spec, out)
 

@@ -365,6 +365,6 @@ def test_cpu_wrappers_run_the_plain_versions():
                                               "cpu")[0])
     assert ft.LAUNCHES == {"prng_disk": 0, **{
         n + suf: 0 for n in ("merit_fwd", "merit_bwd")
-        for suf in ("", "_tilt", "_sag", "_deep")}}
+        for suf in ("", "_tilt", "_sag", "_free", "_deep", "_deep_free")}}
     with pytest.raises(TypeError, match="float32 or float64"):
         ft.prng_disk(1, 10, 0, torch.float16, "cpu")
