@@ -67,7 +67,21 @@ to 0 just before it and read just after:
     value+grad steps of the XY and toroidal singlets and the merit steps
     of the Chebyshev and biconic ones at full width over every stack leaf,
     the poly and polarized steps of the XY singlet, and the free kernels
-    timed against their f32 plain versions with their bounds.
+    timed against their f32 plain versions with their bounds;
+  * the aux-bearing steps (phases 23-24): the aux build of every trace
+    kernel (the free build with their evaluator) on the ZERNIKE_SAG, FORBES_QBFS and FORBES_Q2D singlets of
+    ``samples/freeform.py`` (their coefficient rows laid out, with the
+    layout table), the tilted Zernike singlet and a 36-term fringe Zernike
+    (a table of NC_MAX columns), and the deep_aux build on a 20-surface
+    system behind a Zernike and a Q2d surface, against the plain versions
+    at check size in f64 to 1e-11 per ray and per gradient column, and in
+    f32 against the f64 plain versions; K8/K9 on the coated Zernike
+    singlet; the poly and polarized kernels of each family timed at check
+    size; then the merit, field and generic value+grad steps of the three
+    singlets at full width over every stack leaf, the poly step of the Q2d
+    singlet and the polarized step of the coated Zernike one, and the
+    aux merit and trace kernels on each singlet timed against their f32
+    plain versions with their bounds (kernel rows tagged with the family).
 
 It prints:
 
@@ -265,16 +279,44 @@ OPS_CART_COL = {  # each coefficient column: (per column, per row)
     8: (0, 0)}
 OPS_CART_ADJ = 96  # the normal's adjoint 25, the step's 45, the weights 6,
 #                    the P_G1 and P_G2 columns 20
+# The aux-bearing Cartesian families (ZERNIKE_SAG 6, FORBES_QBFS 9,
+# FORBES_Q2D 10) over the nc slots of their laid-out row: per point (base,
+# per slot). Per slot the three-term recurrence of phi and phi' (the
+# constant a + b v, then 2 + 3 FMAs: 11), the angular factor Re or Im of
+# z^m and its slopes (4, the power's update amortized over a block), the
+# slot's terms of s, sx, sy (15); a Forbes slot 2 more, the v (1 - v)
+# factor of its m = 0 blocks. The base: the conic 19, v, its slopes and z
+# 8, the slopes' sums 3 (ZERNIKE_SAG); Forbes' clamped conic 21, v and z
+# 8, the conic factor Phi and Phi_r 25, the cut 2, the sums with Phi 6.
+OPS_AUX_POINT = {6: (30, 30), 9: (62, 32), 10: (62, 32)}
+# the adjoint's points (s, sx, sy, the Hessian and the radius, conic and
+# p1 derivatives): per slot also phi'' 5, the v (1 - v) factor's F'' 2,
+# the angular second derivatives 4, the Hessian's three sums 24 and the p1
+# sums 30; the base the Hessian's conic terms 12, dR and dk 20, the
+# weights 4 (ZERNIKE_SAG 66); Forbes also Phi's five derivatives in r^2,
+# k and cu^2 40 and their products with the sums 34
+OPS_AUX_GRAD = {6: (66, 95), 9: (140, 97), 10: (140, 97)}
+OPS_AUX_COL = 48  # per slot column: the recurrences and angular factors at
+#                   both points (2 x 15), the three weighted terms at each
+#                   (2 x 8), the sum of both 1, the warp sum 1
 POL_NAMES = ("pol_fwd", "pol_fwd_intensity", "pol_bwd", "pol_bwd_intensity")
-NEWTON_CODES = (2, 3, 4, 5, 7, 8)  # the radial and Cartesian families
+NEWTON_CODES = (2, 3, 4, 5, 6, 7, 8, 9, 10)  # radial and Cartesian families
 
 
 def geo_ops(code, nc, niters):
     """(forward, adjoint) operations per ray of one surface step's geometry
     by its code: PLANE and STANDARD as counted above, a Newton family
-    (codes 2, 3 radial; 4, 5, 7, 8 Cartesian) with its newton_iters + 1
-    steps and nc coefficients. The adjoint excludes the recomputed forward
+    (codes 2, 3 radial; 4, 5, 7, 8 Cartesian; 6, 9, 10 aux-bearing, nc the
+    slots of the laid-out table) with its newton_iters + 1 steps and nc
+    coefficients. The adjoint excludes the recomputed forward
     (OPS_STEP_ADJ)."""
+    if code in OPS_AUX_POINT:
+        (bp, sp), (bg, sg) = OPS_AUX_POINT[code], OPS_AUX_GRAD[code]
+        point, grad = bp + sp * nc, bg + sg * nc
+        fwd = (OPS_FWD_STANDARD - 20 + OPS_NEWTON_START
+               + (niters + 1) * (point + 15) + point + 8)
+        return fwd, (OPS_STEP_ADJ[1] + 2 * grad + OPS_CART_ADJ
+                     + OPS_AUX_COL * nc)
     if code in OPS_CART_POINT:
         side = math.isqrt(nc) + (math.isqrt(nc) ** 2 < nc)
 
@@ -469,6 +511,7 @@ def main(argv=None):
     from optiland_torch import config
     from optiland_torch.analysis import rms_spot_size
     from optiland_torch.core import raygen
+    from optiland_torch.core.geometry import CART_CODES
     from optiland_torch.ops import _cuda
     from optiland_torch.ops import fast_trace as ftr
     from optiland_torch.ops import fused_trace as ft
@@ -508,7 +551,7 @@ def main(argv=None):
     build_s = time.perf_counter() - t0
     log(f"build: nvcc {_cuda.BUILD_SECONDS:.1f} s, load {build_s:.1f} s "
         f"({' '.join(_cuda.NVCC_FLAGS)})")
-    builds = ("stock", "tilt", "sag", "free", "deep", "deep_free")
+    builds = {b: suf[1:] or "stock" for b, suf in BUILD_SUFFIX.items()}
     for line in _cuda.BUILD_LOG.splitlines():
         m = re.search(r"Compiling entry.*?\d([a-z_]+_kernel)I([fd])"
                       r"((?:L[bi]\d+E)*)E", line)
@@ -1554,7 +1597,7 @@ def main(argv=None):
         return e
 
     def pol_parity(pk, coat_k, spec_k, nc_k, ins, c, states, intensity,
-                   what, coeffs=None):
+                   what, coeffs=None, lay=None, f32_plain=False):
         """pol_fwd and pol_bwd (f64 inputs) against their plain versions,
         and the f32 kernels on the same inputs rounded to f32 against the
         f64 plain versions; raises on a failed check, returns the errors.
@@ -1568,16 +1611,23 @@ def main(argv=None):
         largest of all (an array that analytically vanishes, as the launch
         z's of a trace whose loss reads only x and y, carries the f32
         rounding of the others, ~1e-7 of their size), the summed gradients
-        to 1e-3 in L2."""
+        to 1e-3 in L2. ``f32_plain``: the f32 plain version runs on the
+        same rounded inputs too, and the input cotangents are held within
+        1e-3 or within 4x the plain version's own error, whichever is more:
+        K9's f32 adjoint, as the reference's, divides a cancelling sum by
+        |k0 x k1| (ROADMAP Queue 3), so near normal incidence the plain
+        version errs past 1e-3 as well; 4x leaves room for the kernel's
+        other rounding order and contractions."""
         r = {}
-        out_k = pt.pol_fwd(pk, coat_k, spec_k, ins, states, intensity, coeffs)
+        out_k = pt.pol_fwd(pk, coat_k, spec_k, ins, states, intensity, coeffs,
+                           lay)
         out_p = pt.pol_fwd_plain(pk, coat_k, spec_k, ins, states, intensity,
-                                 coeffs)
+                                 coeffs, lay)
         din_k, fl_k = pt.pol_bwd(pk, coat_k, spec_k, nc_k, ins, c, states,
-                                 intensity, coeffs)
+                                 intensity, coeffs, lay)
         din_p, fl_p = pt.pol_bwd_plain(pk, coat_k, spec_k, ins, c, states,
                                        intensity, coeffs, nc_k,
-                                       with_coeffs=True)
+                                       with_coeffs=True, lay=lay)
         r["fwd"] = pol_err(out_k, out_p)
         r["bwd_din"] = arr_err(din_k, din_p, 1e-6)
         r["bwd"] = flat_err(fl_k, fl_p, 1e-9, f"pol_bwd {what}")
@@ -1585,21 +1635,34 @@ def main(argv=None):
             check(r[key] <= 1e-10, f"{key} {what} f64: rel err {r[key]} > "
                   f"1e-10")
         c32 = None if coeffs is None else coeffs.float()
+        l32 = None if lay is None else lay.float()
         out32 = pt.pol_fwd(pk.float(), coat_k.float(), spec_k,
-                           [t.float() for t in ins], states, intensity, c32)
+                           [t.float() for t in ins], states, intensity, c32,
+                           l32)
         r["f32"] = max(float((u.double() - v).abs().max())
                        / max(1.0, float(v.abs().max()))
                        for u, v in zip(out32, out_p))
         din32, fl32 = pt.pol_bwd(pk.float(), coat_k.float(), spec_k, nc_k,
                                  [t.float() for t in ins],
                                  [t.float() for t in c], states, intensity,
-                                 c32)
+                                 c32, l32)
         r["f32_din"] = arr_err(din32, din_p, 1e-4)
         r["f32_grad_l2"] = l2(fl32, fl_p)
-        check(r["f32"] <= 1e-4 and r["f32_din"] <= 1e-3
-              and r["f32_grad_l2"] <= 1e-3, f"pol kernels f32 {what}: "
+        tol_din = 1e-3
+        if f32_plain:
+            din32p, _ = pt.pol_bwd_plain(
+                pk.float(), coat_k.float(), spec_k, [t.float() for t in ins],
+                [t.float() for t in c], states, intensity, c32, nc_k,
+                with_coeffs=True, lay=l32)
+            r["f32_plain_din"] = arr_err(din32p, din_p, 1e-4)
+            tol_din = max(tol_din, 4 * r["f32_plain_din"])
+            del din32p
+        check(r["f32"] <= 1e-4 and r["f32_din"] <= tol_din
+              and r["f32_grad_l2"] <= 1e-3,
+              f"pol kernels f32 {what}: "
               f"per-ray error {r['f32']} > 1e-4, input cotangents "
-              f"{r['f32_din']} or gradient L2 {r['f32_grad_l2']} > 1e-3")
+              f"{r['f32_din']} > {tol_din} or gradient L2 "
+              f"{r['f32_grad_l2']} > 1e-3")
         return r
 
     res14 = {}
@@ -1732,19 +1795,21 @@ def main(argv=None):
     del res
     report["phases"]["pol_paths"] = res15
 
-    def pol_full_width(system, intensities, seed):
+    def pol_full_width(system, intensities, seed, tag=""):
         """The polarized kernels alone at the polarized step's shape (2^24
         rays, f32) on ``system``, in the modes ``intensities``: times into
         ms, plain times into plain_ms and max |kernel - plain| into kerr,
-        under each kernel's launch-count name (its TILT instantiation's
-        where the system has a tilted surface), and the f32 kernels held
+        under each kernel's launch-count name (its build's) and ``tag``,
+        with the coefficient and layout tables of launch.kernel_tables,
+        and the f32 kernels held
         against the f32 plain versions. The plain versions run over four
         chunks of 2^22 rays (their intermediates at 2^24 would not fit
         beside the rest). Returns the spec and the errors."""
         spec_p = pt.pol_spec(system, WL)
         check(spec_p is not None, "pol_full_width: not pol_supported")
-        S_p, nc_p = len(spec_p[0]), system.stack.coeffs.shape[1]
-        cf_p = system.stack.coeffs.detach().float().contiguous()
+        with torch.no_grad():
+            cf_p, lay_p = launch_build.kernel_tables(system, torch.float32)
+        S_p, nc_p = len(spec_p[0]), cf_p.shape[1]
         tilt = any(spec_p[5])
         build = pt._build(spec_p)
         with torch.no_grad():
@@ -1772,13 +1837,15 @@ def main(argv=None):
                 ins_c = [t[sl_] for t in ins_p]
                 if kind == "fwd":
                     outs.append(pt.pol_fwd_plain(pp, coat_p, spec_p, ins_c,
-                                                 st_h, intensity, cf_p))
+                                                 st_h, intensity, cf_p,
+                                                 lay_p))
                 else:
                     c = [t[sl_] for t in (cots_p[:8] if intensity
                                           else cots_p)]
                     outs.append(pt.pol_bwd_plain(pp, coat_p, spec_p, ins_c,
                                                  c, st_h, intensity, cf_p,
-                                                 nc_p, with_coeffs=True))
+                                                 nc_p, with_coeffs=True,
+                                                 lay=lay_p))
             return outs
 
         # each chunk of the kernel's outputs against the plain version's:
@@ -1792,12 +1859,14 @@ def main(argv=None):
         with torch.no_grad():
             for intensity in intensities:
                 name = launch_key(
-                    "pol_fwd_intensity" if intensity else "pol_fwd", build)
+                    "pol_fwd_intensity" if intensity else "pol_fwd",
+                    build) + tag
                 bname = launch_key(
-                    "pol_bwd_intensity" if intensity else "pol_bwd", build)
+                    "pol_bwd_intensity" if intensity else "pol_bwd",
+                    build) + tag
                 c = cots_p[:8] if intensity else cots_p
                 out_k = pt.pol_fwd(pp, coat_p, spec_p, ins_p, st_h,
-                                   intensity, cf_p)
+                                   intensity, cf_p, lay_p)
                 e = 0.0
                 for k, o in enumerate(chunked_plain("fwd", intensity)):
                     sl_ = slice(k * cs, (k + 1) * cs)
@@ -1808,7 +1877,7 @@ def main(argv=None):
                 kerr[name] = e
                 del out_k, got_c
                 din_k, fl_k = pt.pol_bwd(pp, coat_p, spec_p, nc_p, ins_p, c,
-                                         st_h, intensity, cf_p)
+                                         st_h, intensity, cf_p, lay_p)
                 fl_sum = None
                 d_max, r_max = [0.0] * 8, [0.0] * 8
                 for k, (din_c, fl_c) in enumerate(chunked_plain("bwd",
@@ -1832,9 +1901,10 @@ def main(argv=None):
                 errs[f"{bname}_l2"] = g_l2
                 del din_k
                 ms[name] = time_ms(lambda i, it=intensity: pt.pol_fwd(
-                    pp, coat_p, spec_p, ins_p, st_h, it, cf_p), 10, 3)
+                    pp, coat_p, spec_p, ins_p, st_h, it, cf_p, lay_p), 10, 3)
                 ms[bname] = time_ms(lambda i, it=intensity, c=c: pt.pol_bwd(
-                    pp, coat_p, spec_p, nc_p, ins_p, c, st_h, it, cf_p), 5)
+                    pp, coat_p, spec_p, nc_p, ins_p, c, st_h, it, cf_p,
+                    lay_p), 5)
                 plain_ms[name] = time_ms(
                     lambda i, it=intensity: chunked_plain("fwd", it), 2)
                 plain_ms[bname] = time_ms(
@@ -1985,14 +2055,15 @@ def main(argv=None):
     res16 = {}
     for prec, calls in (("f32", calls32), ("f64", calls64)):
         for (params, coat, spec_c, nc_c, rays_c, cots_c, states, inten,
-             coeffs_c) in calls:
+             coeffs_c, lay_c) in calls:
             n_c = rays_c[0].shape[0]
             what = f"vectorial PSF {prec} trace of {n_c} rays"
             with torch.no_grad():
                 r = pol_parity(params.detach().double(), coat.double(),
                                spec_c, nc_c, [t.double() for t in rays_c],
                                [t.double() for t in cots_c], states, inten,
-                               what, coeffs=coeffs_c.double())
+                               what, coeffs=coeffs_c.double(),
+                               lay=None if lay_c is None else lay_c.double())
             res16[f"{prec}_{n_c}"] = r
     torch.cuda.synchronize()
     log("phase 16 polarized kernels at the vectorial PSF path's inputs "
@@ -2684,7 +2755,7 @@ def main(argv=None):
                     for c, t in zip(codes[1:], tilted[1:]))
         geo_b = sum(bwd(c) + (OPS_TILT_FWD + OPS_TILT_ADJ) * t
                     for c, t in zip(codes[1:], tilted[1:]))
-        ann = OPS_ANNULAR if build >= 2 else 0
+        ann = OPS_ANNULAR if build & launch_build.BIT_SAG else 0
         full_f = geo_f + (S_k - 1) * (OPS_FULL_FWD + ann) + OPS_ABS_FWD * sum(
             absorbs[1:])
         full_b = geo_b + (S_k - 1) * (OPS_FULL_BWD + 2 * ann) \
@@ -2868,7 +2939,7 @@ def main(argv=None):
         torch.cuda.synchronize()
         res19[kname] = r
         log(f"phase 19 {kname} ({S_k} surfaces, codes {spec_k[0]}, build "
-            f"{['stock', 'tilt', 'sag', 'free', 'deep'][ftr._build(spec_k)]}"
+            f"{BUILD_SUFFIX[ftr._build(spec_k)][1:] or 'stock'}"
             "; "
             f"2^{args.check_log2} rays, f64 vs plain: per-ray tol 1e-10, "
             f"gradients tol 1e-9; f32 vs f64 plain: L2 tol 1e-3): "
@@ -3028,26 +3099,30 @@ def main(argv=None):
     # of each kernel at full width, on the generic path's launch bundle and
     # cotangents of a mean's size: held against the f32 plain versions on
     # the inputs they are timed on, timed, with their bounds
-    def kernels_full_width(sys32, field, suf, gen, full):
+    def kernels_full_width(sys32, field, suf, gen, full, tag=""):
         """The merit and trace kernels of ``sys32``'s build (launch suffix
         ``suf``) at full width, on the generic path's launch bundle and
         cotangents of a mean's size: held against the f32 plain versions on
         the inputs they are timed on (errors into ``full`` and kerr), timed
-        (ms, plain_ms), with their bounds (work)."""
+        (ms, plain_ms), with their bounds (work), under each kernel's launch
+        key and ``tag``."""
         spec_k = ftr.fast_spec(sys32, field=True)
         mspec_k = ft._spec_of(sys32)
         check(launch_suffix(ftr._build(spec_k)) == suf,
               f"{suf}: build {ftr._build(spec_k)}")
         with torch.no_grad():
             Px8, Py8 = ft.prng_disk(8, Rf, 0, torch.float32, dev)
-        _, pk, ak, ck, ins8, cots8 = k6_inputs(sys32, field, Px8, Py8, gen)
+        _, pk, ak, _, ins8, cots8 = k6_inputs(sys32, field, Px8, Py8, gen)
+        ck, lk = launch_build.kernel_tables(sys32, torch.float32)
         nck = ck.shape[1]
-        mname = "merit_fwd" + launch_suffix(ft._build(mspec_k))
-        bname = "merit_bwd" + launch_suffix(ft._build(mspec_k))
+        mname = "merit_fwd" + launch_suffix(ft._build(mspec_k)) + tag
+        bname = "merit_bwd" + launch_suffix(ft._build(mspec_k)) + tag
+        suf = suf + tag
         with torch.no_grad():
-            rows_t = ft.merit_fwd(pk, ak, mspec_k, Rf, seed=9, coeffs=ck)
+            rows_t = ft.merit_fwd(pk, ak, mspec_k, Rf, seed=9, coeffs=ck,
+                                  lay=lk)
             rows_p = ft.merit_fwd_plain(pk, ak, mspec_k, Rf, seed=9,
-                                        coeffs=ck)
+                                        coeffs=ck, lay=lk)
             kerr[mname] = float((rows_t - rows_p).abs().max())
             lt, xbt, ybt = ft._chan_combine(rows_t, Rf)
             full[f"{mname}_loss_rel"] = rel(lt, ft._chan_combine(
@@ -3059,25 +3134,26 @@ def main(argv=None):
                                                           device=dev),
                                    torch.zeros((), device=dev)])
             fk = ft.merit_bwd(pk, ak, stats_t, mspec_k, nck, Rf, seed=9,
-                              coeffs=ck)
+                              coeffs=ck, lay=lk)
             fp = ft.merit_bwd_plain(pk, ak, stats_t, mspec_k, nck, Rf,
-                                    seed=9, coeffs=ck)
+                                    seed=9, coeffs=ck, lay=lk)
             kerr[bname] = float((fk - fp).abs().max())
             full[f"{bname}_l2"] = l2(fk, fp)
             del fk, fp
-            k5a = ftr.trace_fwd(pk, spec_k, ins8, ck)
-            ref = ftr.trace_fast_plain(pk, spec_k, ins8, ck)
+            k5a = ftr.trace_fwd(pk, spec_k, ins8, ck, lk)
+            ref = ftr.trace_fast_plain(pk, spec_k, ins8, ck, lk)
             kerr["trace_fwd" + suf] = max_abs(k5a, ref)
             near32(k5a, ref, f"trace_fwd{suf} full width", Rf // 10_000)
-            k1 = ftr.trace_field_fwd(pk, ak, spec_k, Px8, Py8, ck)
-            ref = ftr.trace_fast_field_plain(pk, ak, spec_k, Px8, Py8, ck)
+            k1 = ftr.trace_field_fwd(pk, ak, spec_k, Px8, Py8, ck, lk)
+            ref = ftr.trace_fast_field_plain(pk, ak, spec_k, Px8, Py8, ck, lk)
             kerr["trace_field_fwd" + suf] = max_abs(k1, ref)
             near32(k1, ref, f"trace_field_fwd{suf} full width",
                    Rf // 10_000)
             del k5a, k1, ref
-            din_k, flat_k = ftr.trace_bwd(pk, spec_k, nck, ins8, cots8, ck)
+            din_k, flat_k = ftr.trace_bwd(pk, spec_k, nck, ins8, cots8, ck,
+                                          lk)
             din_p, flat_p = ftr.trace_fast_bwd_plain(pk, spec_k, nck, ins8,
-                                                     cots8, ck)
+                                                     cots8, ck, lk)
             kerr["trace_bwd" + suf] = max(float((flat_k - flat_p).abs().max()),
                                           max_abs(din_k, din_p))
             full[f"trace_bwd{suf}_din"] = arr_err(din_k, din_p, 1e-6)
@@ -3087,9 +3163,9 @@ def main(argv=None):
             full[f"trace_bwd{suf}_l2"] = l2(flat_k, flat_p)
             del din_k, din_p
             flat_k = ftr.trace_field_bwd(pk, ak, spec_k, nck, Px8, Py8,
-                                         cots8, ck)
+                                         cots8, ck, lk)
             flat_p = ftr.trace_fast_field_bwd_plain(pk, ak, spec_k, nck, Px8,
-                                                    Py8, cots8, ck)
+                                                    Py8, cots8, ck, lk)
             kerr["trace_field_bwd" + suf] = float(
                 (flat_k - flat_p).abs().max())
             full[f"trace_field_bwd{suf}_l2"] = l2(flat_k, flat_p)
@@ -3100,58 +3176,65 @@ def main(argv=None):
                       f"rel err {full[key]} > 1e-3")
             ms.update({
                 mname: time_ms(lambda i: ft.merit_fwd(
-                    pk, ak, mspec_k, Rf, seed=i, coeffs=ck), 10, 3),
+                    pk, ak, mspec_k, Rf, seed=i, coeffs=ck, lay=lk), 10, 3),
                 bname: time_ms(lambda i: ft.merit_bwd(
-                    pk, ak, stats_t, mspec_k, nck, Rf, seed=i, coeffs=ck),
-                    10, 3),
+                    pk, ak, stats_t, mspec_k, nck, Rf, seed=i, coeffs=ck,
+                    lay=lk), 10, 3),
                 "trace_fwd" + suf: time_ms(lambda i: ftr.trace_fwd(
-                    pk, spec_k, ins8, ck), 10, 3),
+                    pk, spec_k, ins8, ck, lk), 10, 3),
                 "trace_bwd" + suf: time_ms(lambda i: ftr.trace_bwd(
-                    pk, spec_k, nck, ins8, cots8, ck), 10, 3),
+                    pk, spec_k, nck, ins8, cots8, ck, lk), 10, 3),
                 "trace_field_fwd" + suf: time_ms(
                     lambda i: ftr.trace_field_fwd(pk, ak, spec_k, Px8, Py8,
-                                                  ck), 10, 3),
+                                                  ck, lk), 10, 3),
                 "trace_field_bwd" + suf: time_ms(
                     lambda i: ftr.trace_field_bwd(pk, ak, spec_k, nck, Px8,
-                                                  Py8, cots8, ck), 10, 3),
+                                                  Py8, cots8, ck, lk), 10, 3),
             })
             plain_ms.update({
                 mname: time_ms(lambda i: ft.merit_fwd_plain(
-                    pk, ak, mspec_k, Rf, seed=i, coeffs=ck), 2),
+                    pk, ak, mspec_k, Rf, seed=i, coeffs=ck, lay=lk), 2),
                 bname: time_ms(lambda i: ft.merit_bwd_plain(
-                    pk, ak, stats_t, mspec_k, nck, Rf, seed=i, coeffs=ck),
-                    2),
+                    pk, ak, stats_t, mspec_k, nck, Rf, seed=i, coeffs=ck,
+                    lay=lk), 2),
                 "trace_fwd" + suf: time_ms(lambda i: ftr.trace_fast_plain(
-                    pk, spec_k, ins8, ck), 2),
+                    pk, spec_k, ins8, ck, lk), 2),
                 "trace_bwd" + suf: time_ms(
                     lambda i: ftr.trace_fast_bwd_plain(pk, spec_k, nck, ins8,
-                                                       cots8, ck), 2),
+                                                       cots8, ck, lk), 2),
                 "trace_field_fwd" + suf: time_ms(
                     lambda i: ftr.trace_fast_field_plain(pk, ak, spec_k, Px8,
-                                                         Py8, ck), 2),
+                                                         Py8, ck, lk), 2),
                 "trace_field_bwd" + suf: time_ms(
                     lambda i: ftr.trace_fast_field_bwd_plain(
-                        pk, ak, spec_k, nck, Px8, Py8, cots8, ck), 2),
+                        pk, ak, spec_k, nck, Px8, Py8, cots8, ck, lk), 2),
             })
-        work.update(trace_work(spec_k, mspec_k, nck, Rf))
+        work.update({k + tag: v for k, v in
+                     trace_work(spec_k, mspec_k, nck, Rf).items()})
         del ins8, cots8, Px8, Py8
         torch.cuda.synchronize()
 
     def poly_pol_full_width(sys_q, sys_c, suf, field, gen, names, steps,
-                            seed, pol_seed, full):
+                            seed, pol_seed, full, tag=""):
         """The poly mode and the polarized kernels (intensity mode) of build
-        ``suf``: bench's poly step on ``sys_q`` and its polarized step on
-        ``sys_c``, three counted value+grad steps each over every leaf
-        (``names``: their keys in path_launches and ``steps``); then the
-        kernels at full width against their f32 plain versions (errors into
-        ``full`` and kerr), timed, with their bounds."""
-        for name, sysk, loss_fn, kern in (
-                (names[0], sys_q, poly_loss,
-                 ("prng_disk", "trace_fwd_poly" + suf,
-                  "trace_bwd_poly" + suf)),
-                (names[1], sys_c, pol_loss,
+        ``suf``: bench's poly step on ``sys_q`` (None: none) and its
+        polarized step on ``sys_c``, three counted value+grad steps each
+        over every leaf (``names``: their keys in path_launches and
+        ``steps``); then the kernels at full width, with the coefficient
+        and layout tables of launch.kernel_tables, against their f32 plain
+        versions (errors into ``full`` and kerr), timed, with their bounds,
+        under each kernel's launch key and ``tag``. A tagged (aux-bearing)
+        system's step needs a nonzero coefficient gradient somewhere (a
+        Forbes slot past its surface's terms gets none), the others
+        everywhere."""
+        runs = [(names[1], sys_c, pol_loss,
                  ("prng_disk", "pol_fwd_intensity" + suf,
-                  "pol_bwd_intensity" + suf))):
+                  "pol_bwd_intensity" + suf))]
+        if sys_q is not None:
+            runs.insert(0, (names[0], sys_q, poly_loss,
+                            ("prng_disk", "trace_fwd_poly" + suf,
+                             "trace_bwd_poly" + suf)))
+        for name, sysk, loss_fn, kern in runs:
             torch.cuda.synchronize()
             reset_counts()
             for i in range(3):
@@ -3159,39 +3242,57 @@ def main(argv=None):
                 v_ = loss_fn(s_, seed + i)
                 v_.backward()
                 gc1 = lv_["coeffs"].grad[1]
+                nz = (gc1 != 0).any() if tag else (gc1 != 0).all()
                 check(bool(torch.isfinite(v_))
-                      and bool(torch.isfinite(gc1).all())
-                      and bool((gc1 != 0).all()), f"{name}: value "
-                      f"{float(v_)} or coefficient gradient {gc1.tolist()}")
+                      and bool(torch.isfinite(gc1).all()) and bool(nz),
+                      f"{name}: value {float(v_)} or coefficient gradient "
+                      f"{gc1.tolist()}")
             got = counts()
             expect = {**dict.fromkeys(got, 0), **dict.fromkeys(kern, 3)}
             check(got == expect, f"{name} launches {got}, expected {expect}")
             path_launches[name] = got
             steps[name] = {"value": float(v_.detach()),
                            "launches": {k: v for k, v in got.items() if v}}
+        if sys_q is not None:
+            poly_full_width(sys_q, suf, field, gen, full, tag)
+        spec_c, pol_errs = pol_full_width(sys_c, (True,), pol_seed, tag)
+        full.update(pol_errs)
+        with torch.no_grad():
+            nc_c = launch_build.kernel_tables(sys_c, torch.float32)[0].shape[1]
+        _, ops_fi, _, ops_bi = pol_ops(spec_c, n_h, nc_c)
+        work["pol_fwd_intensity" + suf + tag] = (
+            Rf * ops_fi, work["pol_fwd_intensity"][1])
+        work["pol_bwd_intensity" + suf + tag] = (
+            Rf * ops_bi, work["pol_bwd_intensity"][1])
+
+    def poly_full_width(sys_q, suf, field, gen, full, tag=""):
+        """The poly mode's kernels of build ``suf`` at full width on
+        ``sys_q`` against their f32 plain versions, timed, with their
+        bounds (poly_pol_full_width)."""
         spec_q = ftr.poly_spec(sys_q)
-        ncq = sys_q.stack.coeffs.shape[1]
-        fname, bname = "trace_fwd_poly" + suf, "trace_bwd_poly" + suf
+        fname = "trace_fwd_poly" + suf + tag
+        bname = "trace_bwd_poly" + suf + tag
         with torch.no_grad():
             pq = ftr.build_poly_table(sys_q).contiguous()
             Pxq, Pyq = ft.prng_disk(17, Rf, 0, torch.float32, dev)
             rays = raygen.generate_rays(sys_q, *field, Pxq, Pyq, WL)
             mq = sys_q.stack.mat_coeffs.contiguous()
-            cq = sys_q.stack.coeffs.contiguous()
+            cq, lq = launch_build.kernel_tables(sys_q, torch.float32)
+            ncq = cq.shape[1]
             ins_q = [getattr(rays, k).contiguous() for k in ftr.RAY_FIELDS]
             ins_q.append(cycled(Rf, torch.float32))
             del rays, Pxq, Pyq
             cots_q = [torch.randn(Rf, generator=gen, device=dev) / Rf
                       for _ in range(8)]
-            k5a = ftr.trace_fwd_poly(pq, mq, spec_q, ins_q, cq)
-            ref = ftr.trace_fwd_poly_plain(pq, mq, spec_q, ins_q, cq)
+            k5a = ftr.trace_fwd_poly(pq, mq, spec_q, ins_q, cq, lq)
+            ref = ftr.trace_fwd_poly_plain(pq, mq, spec_q, ins_q, cq, lq)
             kerr[fname] = max_abs(k5a, ref)
             near32(k5a, ref, f"{fname} full width")
             del k5a, ref
             din_k, flat_k = ftr.trace_bwd_poly(pq, mq, spec_q, ncq, ins_q,
-                                               cots_q, cq)
+                                               cots_q, cq, lq)
             din_p, flat_p = ftr.trace_bwd_poly_plain(pq, mq, spec_q, ncq,
-                                                     ins_q, cots_q, cq)
+                                                     ins_q, cots_q, cq, lq)
             kerr[bname] = max(float((flat_k - flat_p).abs().max()),
                               max_abs(din_k, din_p))
             full[f"{bname}_din"] = arr_err(din_k, din_p, 1e-6)
@@ -3200,13 +3301,13 @@ def main(argv=None):
                   f"{bname} full width: {full}")
             del din_k, din_p, flat_k, flat_p
             ms[fname] = time_ms(lambda i: ftr.trace_fwd_poly(
-                pq, mq, spec_q, ins_q, cq), 10, 3)
+                pq, mq, spec_q, ins_q, cq, lq), 10, 3)
             ms[bname] = time_ms(lambda i: ftr.trace_bwd_poly(
-                pq, mq, spec_q, ncq, ins_q, cots_q, cq), 10, 3)
+                pq, mq, spec_q, ncq, ins_q, cots_q, cq, lq), 10, 3)
             plain_ms[fname] = time_ms(lambda i: ftr.trace_fwd_poly_plain(
-                pq, mq, spec_q, ins_q, cq), 2)
+                pq, mq, spec_q, ins_q, cq, lq), 2)
             plain_ms[bname] = time_ms(lambda i: ftr.trace_bwd_poly_plain(
-                pq, mq, spec_q, ncq, ins_q, cots_q, cq), 2)
+                pq, mq, spec_q, ncq, ins_q, cots_q, cq, lq), 2)
         del ins_q, cots_q
         # the formulas' operations as phase 17 counts them, over the build's
         # geometry (no absorption in the poly mode)
@@ -3223,14 +3324,6 @@ def main(argv=None):
         work[bname] = (tw["trace_bwd" + suf][0] + Rf * (f_b - n_abs
                                                         * OPS_ABS_BWD),
                        tw["trace_bwd" + suf][1] + 2 * S_q * nm * 4 + Rf * 4)
-        spec_c, pol_errs = pol_full_width(sys_c, (True,), pol_seed)
-        full.update(pol_errs)
-        _, ops_fi, _, ops_bi = pol_ops(spec_c, n_h,
-                                       sys_c.stack.coeffs.shape[1])
-        work["pol_fwd_intensity" + suf] = (Rf * ops_fi,
-                                           work["pol_fwd_intensity"][1])
-        work["pol_bwd_intensity" + suf] = (Rf * ops_bi,
-                                           work["pol_bwd_intensity"][1])
 
     gen20 = torch.Generator(device=dev).manual_seed(200)
     for kname, suf in (("tilted_asphere", "_sag"), ("objective26", "_deep")):
@@ -3302,56 +3395,82 @@ def main(argv=None):
             e[key] = d / top if top > 0 else d
         return e
 
-    for fname, builder in FREE.items():
-        sysk = builder().system
+    def free_parity(fname, sysk, build, what, f32=False):
+        """The free (or deep_free) build of every trace kernel but the
+        polarized ones against its plain version on ``sysk`` (f64, the
+        coefficient and layout tables of launch.kernel_tables): per-ray
+        arrays to 1e-11 and every gradient column of the Cartesian
+        surfaces (col_errs); with ``f32`` also trace_fwd and trace_bwd in
+        f32 on the same inputs against the f64 plain versions (near32, the
+        input cotangents within 1e-3, the gradient to 1e-3 in L2)."""
         spec_k = ftr.fast_spec(sysk, field=True)
         mspec_k = ft._spec_of(sysk)
-        check(ftr._build(spec_k) == launch_build.FREE and ft._build(mspec_k)
-              == launch_build.FREE, f"phase 21 {fname}: build "
-              f"{ftr._build(spec_k)}")
+        check(ftr._build(spec_k) == build and ft._build(mspec_k) == build,
+              f"{what} {fname}: build {ftr._build(spec_k)}")
         S_k = len(spec_k[0])
-        _, pk, ak, ck, ins, cots = k6_inputs(sysk, HF, Px64, Py64, g21)
+        _, pk, ak, _, ins, cots = k6_inputs(sysk, HF, Px64, Py64, g21)
+        ck, lk = launch_build.kernel_tables(sysk, torch.float64)
         nck = ck.shape[1]
-        rows = [s for s, c in enumerate(spec_k[0]) if c in (4, 5, 7, 8)]
-        r = {"trace_fwd": arr_err(ftr.trace_fwd(pk, spec_k, ins, ck),
-                                  ftr.trace_fast_plain(pk, spec_k, ins, ck))}
-        din_k, fl_k = ftr.trace_bwd(pk, spec_k, nck, ins, cots, ck)
-        din_p, fl_p = ftr.trace_fast_bwd_plain(pk, spec_k, nck, ins, cots, ck)
+        rows = [s for s, c in enumerate(spec_k[0]) if c in CART_CODES]
+        r = {"trace_fwd": arr_err(ftr.trace_fwd(pk, spec_k, ins, ck, lk),
+                                  ftr.trace_fast_plain(pk, spec_k, ins, ck,
+                                                       lk))}
+        din_k, fl_k = ftr.trace_bwd(pk, spec_k, nck, ins, cots, ck, lk)
+        din_p, fl_p = ftr.trace_fast_bwd_plain(pk, spec_k, nck, ins, cots, ck,
+                                               lk)
         r["trace_bwd_din"] = arr_err(din_k, din_p, 1e-6)
         r["trace_bwd"] = col_errs(fl_k, fl_p, S_k, nck, rows,
                                   f"{fname} trace_bwd")
+        if f32:
+            p32, c32 = pk.float(), ck.float()
+            l32 = None if lk is None else lk.float()
+            ins32 = [t.float() for t in ins]
+            near32(ftr.trace_fwd(p32, spec_k, ins32, c32, l32),
+                   ftr.trace_fast_plain(pk, spec_k, ins, ck, lk),
+                   f"{fname} trace_fwd f32 vs f64")
+            din32, fl32 = ftr.trace_bwd(p32, spec_k, nck, ins32,
+                                        [t.float() for t in cots], c32, l32)
+            r["f32_din"] = arr_err(din32, din_p, 1e-4)
+            r["f32_grad_l2"] = l2(fl32, fl_p)
+            check(r["f32_din"] <= 1e-3 and r["f32_grad_l2"] <= 1e-3,
+                  f"{fname} trace_bwd f32 vs f64: input cotangents "
+                  f"{r['f32_din']}, gradient L2 {r['f32_grad_l2']}")
+            del ins32, din32, fl32
         r["trace_field_fwd"] = arr_err(
-            ftr.trace_field_fwd(pk, ak, spec_k, Px64, Py64, ck),
-            ftr.trace_fast_field_plain(pk, ak, spec_k, Px64, Py64, ck))
+            ftr.trace_field_fwd(pk, ak, spec_k, Px64, Py64, ck, lk),
+            ftr.trace_fast_field_plain(pk, ak, spec_k, Px64, Py64, ck, lk))
         r["trace_field_bwd"] = col_errs(
-            ftr.trace_field_bwd(pk, ak, spec_k, nck, Px64, Py64, cots, ck),
+            ftr.trace_field_bwd(pk, ak, spec_k, nck, Px64, Py64, cots, ck,
+                                lk),
             ftr.trace_fast_field_bwd_plain(pk, ak, spec_k, nck, Px64, Py64,
-                                           cots, ck),
+                                           cots, ck, lk),
             S_k, nck, rows, f"{fname} trace_field_bwd")
         rows_k = ft.merit_fwd(pk, ak, mspec_k, Rc, Px=Px64, Py=Py64,
-                              coeffs=ck)
-        lk, xbk, ybk = ft._chan_combine(rows_k, Rc)
-        r["merit_fwd"] = rel(lk, ft._chan_combine(ft.merit_fwd_plain(
-            pk, ak, mspec_k, Rc, Px=Px64, Py=Py64, coeffs=ck), Rc)[0])
+                              coeffs=ck, lay=lk)
+        lk_, xbk, ybk = ft._chan_combine(rows_k, Rc)
+        r["merit_fwd"] = rel(lk_, ft._chan_combine(ft.merit_fwd_plain(
+            pk, ak, mspec_k, Rc, Px=Px64, Py=Py64, coeffs=ck, lay=lk),
+            Rc)[0])
         st_k = torch.stack([xbk, ybk, torch.tensor(1.0 / Rc, device=dev,
                                                    dtype=torch.float64),
                             torch.zeros((), device=dev, dtype=torch.float64)])
         r["merit_bwd"] = col_errs(
             ft.merit_bwd(pk, ak, st_k, mspec_k, nck, Rc, Px=Px64, Py=Py64,
-                         coeffs=ck),
+                         coeffs=ck, lay=lk),
             ft.merit_bwd_plain(pk, ak, st_k, mspec_k, nck, Rc, Px=Px64,
-                               Py=Py64, coeffs=ck),
+                               Py=Py64, coeffs=ck, lay=lk),
             S_k, nck, rows, f"{fname} merit_bwd")
         spec_q = ftr.poly_spec(sysk)
         pq = ftr.build_poly_table(sysk).contiguous()
         mq = sysk.stack.mat_coeffs.contiguous()
         ins9 = ins + [cycled(Rc, torch.float64)]
         r["trace_fwd_poly"] = arr_err(
-            ftr.trace_fwd_poly(pq, mq, spec_q, ins9, ck),
-            ftr.trace_fwd_poly_plain(pq, mq, spec_q, ins9, ck))
-        din_k, fl_k = ftr.trace_bwd_poly(pq, mq, spec_q, nck, ins9, cots, ck)
+            ftr.trace_fwd_poly(pq, mq, spec_q, ins9, ck, lk),
+            ftr.trace_fwd_poly_plain(pq, mq, spec_q, ins9, ck, lk))
+        din_k, fl_k = ftr.trace_bwd_poly(pq, mq, spec_q, nck, ins9, cots, ck,
+                                         lk)
         din_p, fl_p = ftr.trace_bwd_poly_plain(pq, mq, spec_q, nck, ins9,
-                                               cots, ck)
+                                               cots, ck, lk)
         r["trace_bwd_poly_din"] = arr_err(din_k, din_p, 1e-6)
         r["trace_bwd_poly"] = col_errs(fl_k, fl_p, S_k, nck, rows,
                                        f"{fname} trace_bwd_poly")
@@ -3360,16 +3479,20 @@ def main(argv=None):
             check(r[key] <= 1e-11, f"{fname} {key} f64: rel err {r[key]} > "
                   "1e-11")
         torch.cuda.synchronize()
-        res21[fname] = r
-        log(f"phase 21 {fname} (codes {spec_k[0]}, nc {nck}, free build; "
-            f"2^{args.check_log2} rays, f64 vs plain, tol 1e-11 per ray and "
-            f"per gradient column): " + ", ".join(
+        log(f"{what} {fname} (codes {spec_k[0]}, nc {nck}, "
+            f"{BUILD_SUFFIX[build][1:]} build; 2^{args.check_log2} rays, f64 "
+            f"vs plain, tol 1e-11 per ray and per gradient column): "
+            + ", ".join(
                 f"{k} {v:.2e}" if isinstance(v, float) else
                 f"{k} max {max(v.values()):.2e} (p1 {v['p1']:.1e}, p2 "
                 f"{v['p2']:.1e}, coefficient columns "
                 f"{max(v[c] for c in v if c.startswith('c')):.1e})"
                 for k, v in r.items()))
-        del ins, cots, ins9, din_k, din_p, fl_k, fl_p
+        return r
+
+    for fname, builder in FREE.items():
+        res21[fname] = free_parity(fname, builder().system, launch_build.FREE,
+                                   "phase 21")
     # K8/K9 on the Fresnel-coated XY singlet, both modes
     sys_c = freeform.coated_freeform("polynomial", "H").system
     wl_c, pkc, _, cc, ins, cots = k6_inputs(sys_c, HF, Px64, Py64, g21,
@@ -3505,6 +3628,208 @@ def main(argv=None):
         f"{ {k: round(bound_ms_of(*work[k]), 4) for k in free_names} }; "
         f"phase 22 wall {time.perf_counter() - t22:.1f} s")
 
+    # ---- phase 23: K6b's aux-bearing families at check size (f64) ----
+    # the aux build of every trace kernel against its plain version on the
+    # Zernike, Qbfs and Q2d singlets (samples/freeform.py) at (Hx, Hy) =
+    # (0.3, 0.7), the tilted Zernike singlet and a 36-term fringe Zernike
+    # (the coefficient table at NC_MAX), and the deep_aux build on a
+    # 20-surface system behind a Zernike and a Q2d surface: per-ray arrays
+    # and every gradient column (P_G1, P_G2, each slot column) to 1e-11,
+    # trace_fwd/trace_bwd in f32 against the f64 plain versions; K8/K9 on
+    # each family's Fresnel-coated singlet; then the poly and polarized
+    # kernels of each family timed at check size (f32)
+    t23 = time.perf_counter()
+    config.set_precision("float64")
+
+    AUXF = {
+        "zernike": lambda: freeform.freeform_singlet("zernike"),
+        "forbes_qbfs": lambda: freeform.freeform_singlet("forbes_qbfs"),
+        "forbes_q2d": lambda: freeform.freeform_singlet("forbes_q2d"),
+        "zernike_tilted": lambda: freeform.freeform_singlet(
+            "zernike", tilted=True),
+        "zernike_36": lambda: freeform.freeform_singlet(
+            "zernike", coefficients=freeform.ZC36),
+    }
+    res23 = {}
+    for fname, builder in AUXF.items():
+        res23[fname] = free_parity(fname, builder().system, launch_build.AUX,
+                                   "phase 23", f32=True)
+    check(launch_build.kernel_tables(AUXF["zernike_36"]().system,
+                                     torch.float64)[0].shape[1]
+          == launch_build.NC_MAX, "phase 23: the 36-term Zernike table")
+    res23["deep_aux"] = free_parity("deep_aux", freeform.deep_aux().system,
+                                    launch_build.DEEP_AUX, "phase 23",
+                                    f32=True)
+    # K8/K9 on each family's Fresnel-coated singlet, both modes. The f32
+    # input cotangents are held against the f32 plain version's own error
+    # too: K9's f32 adjoint loses accuracy as 1 / |k0 x k1| near normal
+    # incidence, and a ray of the coated Qbfs singlet meets its Forbes
+    # surface at |k0 x k1| ~ 8e-5 (ROADMAP Queue 3)
+    for fam in freeform.AUX_FAMILIES:
+        sys_z = freeform.coated_freeform(fam, "H").system
+        wl_z, pkz, _, _, ins, cots = k6_inputs(sys_z, HF, Px64, Py64, g21,
+                                               pt.N_POL)
+        cz, lz = launch_build.kernel_tables(sys_z, torch.float64)
+        spec_pz = pt.pol_spec(sys_z, wl_z)
+        check(spec_pz is not None and pt._build(spec_pz) == launch_build.AUX,
+              f"phase 23: the coated {fam} singlet is not on the aux build")
+        coat_z = pt.build_coat_table(sys_z, wl_z, torch.float64, dev)
+        r = {}
+        for mode, states, intensity in (("full", None, False),
+                                        ("H", pt.pol_states(STATE_H), True)):
+            c = cots[:8] if intensity else cots
+            for key, v in pol_parity(
+                    pkz, coat_z, spec_pz, cz.shape[1], ins, c, states,
+                    intensity, f"coated {fam} {mode}", coeffs=cz, lay=lz,
+                    f32_plain=True).items():
+                r[f"pol_{key}_{mode}"] = v
+            check(max(r[f"pol_{k}_{mode}"] for k in ("fwd", "bwd_din", "bwd"))
+                  <= 1e-11, f"coated {fam} {mode}: {r}")
+        res23[f"coated_{fam}"] = r
+        del ins, cots
+        log(f"phase 23 K8/K9 (coated {fam} singlet, f64 vs plain tol 1e-11; "
+            "f32 as phase 14, input cotangents within 1e-3 or 4x the f32 "
+            "plain version's error): "
+            + ", ".join(f"{k} {v:.2e}" for k, v in r.items()))
+    # the poly kernels on each family's singlet and the polarized kernels
+    # (intensity mode) on its Fresnel-coated one at check size, f32, timed
+    config.set_precision("float32")
+    check_ms = {}
+    for fam in freeform.AUX_FAMILIES:
+        sq = freeform.freeform_singlet(fam).system
+        spec_q = ftr.poly_spec(sq)
+        cq, lq = launch_build.kernel_tables(sq, torch.float32)
+        with torch.no_grad():
+            pq = ftr.build_poly_table(sq).contiguous()
+            mq = sq.stack.mat_coeffs.contiguous()
+            Pxq, Pyq = ft.prng_disk(23, Rc, 0, torch.float32, dev)
+            rays = raygen.generate_rays(sq, *HF, Pxq, Pyq, WL)
+            ins_q = [getattr(rays, k).contiguous() for k in ftr.RAY_FIELDS]
+            ins_q.append(cycled(Rc, torch.float32))
+            cots_q = [torch.randn(Rc, generator=g21, device=dev) / Rc
+                      for _ in range(8)]
+            ncq = cq.shape[1]
+            check_ms[f"trace_fwd_poly_aux_{fam}"] = time_ms(
+                lambda i: ftr.trace_fwd_poly(pq, mq, spec_q, ins_q, cq, lq),
+                10, 3)
+            check_ms[f"trace_bwd_poly_aux_{fam}"] = time_ms(
+                lambda i: ftr.trace_bwd_poly(pq, mq, spec_q, ncq, ins_q,
+                                             cots_q, cq, lq), 10, 3)
+            sc = freeform.coated_freeform(fam, "H").system
+            spec_c = pt.pol_spec(sc, WL)
+            cc_, lc_ = launch_build.kernel_tables(sc, torch.float32)
+            pc = ft.build_param_table(sc, WL).contiguous()
+            coat_c = pt.build_coat_table(sc, WL, torch.float32, dev)
+            rays = raygen.generate_rays(sc, *HF, Pxq, Pyq, WL)
+            ins_c = [getattr(rays, k).contiguous() for k in ftr.RAY_FIELDS]
+            st_h = pt.pol_states(STATE_H)
+            check_ms[f"pol_fwd_intensity_aux_{fam}"] = time_ms(
+                lambda i: pt.pol_fwd(pc, coat_c, spec_c, ins_c, st_h, True,
+                                     cc_, lc_), 10, 3)
+            check_ms[f"pol_bwd_intensity_aux_{fam}"] = time_ms(
+                lambda i: pt.pol_bwd(pc, coat_c, spec_c, cc_.shape[1], ins_c,
+                                     cots_q, st_h, True, cc_, lc_), 10, 3)
+            del rays, ins_q, ins_c, cots_q
+    report["phases"]["aux_parity"] = res23
+    report["phases"]["aux_check_ms"] = check_ms
+    torch.cuda.synchronize()
+    log(f"phase 23 poly and polarized kernels at 2^{args.check_log2} rays "
+        f"(f32, ms): { {k: round(v, 4) for k, v in check_ms.items()} }; "
+        f"phase 23 wall {time.perf_counter() - t23:.1f} s")
+
+    # ---- phase 24: the aux-bearing singlets' steps at full width (f32) ----
+    # the merit, field and generic value+grad steps of the Zernike, Qbfs
+    # and Q2d singlets at (Hx, Hy) = (0.3, 0.7) over every stack leaf, the
+    # poly step of the Q2d singlet and the polarized step of each coated
+    # singlet (three counted steps each); then the aux build of each merit,
+    # trace, poly (Q2d) and polarized kernel at full width against its f32
+    # plain version, timed, with its bound (rows tagged with the family)
+    t24 = time.perf_counter()
+    steps24, full24 = {}, {}
+    aux32 = {}
+    for fname in freeform.AUX_FAMILIES:
+        sys32 = AUXF[fname]().system
+        aux32[fname] = sys32
+        for pname in ("merit", "field", "generic"):
+            loss_fn, kern = {
+                "merit": (merit22, ("merit_fwd_aux", "merit_bwd_aux")),
+                "field": (field22, ("prng_disk", "trace_field_fwd_aux",
+                                    "trace_field_bwd_aux")),
+                "generic": (generic22, ("prng_disk", "trace_fwd_aux",
+                                        "trace_bwd_aux"))}[pname]
+            name = f"{fname}_{pname}"
+            seed0 = 9600 + 100 * len(steps24)
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            sl, lv = leaf_system(sys32)
+            first = loss_fn(sl, seed0 - 100)
+            first.backward()
+            g_c = lv["coeffs"].grad[1]
+            g_p = lv["geo_p1"].grad[1]
+            check(bool(torch.isfinite(first)) and bool(torch.isfinite(
+                lv["radius"].grad[1])) and bool(torch.isfinite(g_c).all())
+                and bool(torch.isfinite(g_p)), f"{name}: value or gradient "
+                f"not finite: p1 {float(g_p)}, coeffs {g_c.tolist()}")
+            check(bool((g_c != 0).any()) and float(g_p) != 0,
+                  f"{name}: coefficient or geo_p1 gradient 0")
+
+            def vg24(i, sysk=sys32, loss_fn=loss_fn):
+                s_, _ = leaf_system(sysk)
+                loss_fn(s_, i).backward()
+
+            times24 = timed(vg24, seed0)
+            got24 = counts()
+            n24 = 1 + 3 + args.steps
+            expect24 = {**dict.fromkeys(got24, 0),
+                        **dict.fromkeys(kern, n24)}
+            check(got24 == expect24, f"{name} launches {got24}, expected "
+                  f"{expect24}")
+            path_launches[name] = got24
+            step24 = float(np.median(times24))
+            steps24[name] = {"value": float(first.detach()),
+                             "step_ms": step24, "step_ms_all": times24,
+                             "launches": {k: v for k, v in got24.items()
+                                          if v},
+                             "steps": n24}
+            log(f"phase 24 {name}: {n24} value+grad steps over every stack "
+                f"leaf in {time.perf_counter() - t0:.1f} s, value "
+                f"{float(first.detach()):.9e}; median step {step24:.3f} ms "
+                f"over {args.steps} steps; launches "
+                f"{ {k: v for k, v in got24.items() if v} }")
+    # each family's kernels at full width; the poly step of the Q2d
+    # singlet and the polarized step of each coated singlet (three counted
+    # steps each), their kernels at full width
+    gen24 = torch.Generator(device=dev).manual_seed(240)
+    for k, fname in enumerate(freeform.AUX_FAMILIES):
+        kernels_full_width(aux32[fname], HF, "_aux", gen24, full24,
+                           tag=f"_{fname}")
+        poly_pol_full_width(
+            aux32[fname] if fname == "forbes_q2d" else None,
+            freeform.coated_freeform(fname, "H").system, "_aux", HF, gen24,
+            (f"{fname}_poly", f"{fname}_coated_pol"), steps24,
+            9900 + 10 * k, 241 + k, full24, tag=f"_{fname}")
+    report["phases"]["aux_steps"] = steps24
+    report["phases"]["aux_full_width"] = full24
+    aux_names = [n + "_aux_" + fam for fam in freeform.AUX_FAMILIES
+                 for n in ("merit_fwd", "merit_bwd", "trace_fwd",
+                           "trace_bwd", "trace_field_fwd",
+                           "trace_field_bwd", "pol_fwd_intensity",
+                           "pol_bwd_intensity")] + [
+        "trace_fwd_poly_aux_forbes_q2d", "trace_bwd_poly_aux_forbes_q2d"]
+    log(f"phase 24 aux kernels at 2^{args.full_log2} rays on the Zernike, "
+        f"Qbfs and Q2d singlets (f32; poly mode on the Q2d singlet, "
+        f"intensity mode on the coated ones) against the f32 plain versions: "
+        f"forwards within 2e-4 x max(1, max |ref|), input cotangents (tol "
+        f"1e-3) and gradient L2 (tol 1e-3) "
+        f"{ {k: float(f'{v:.3e}') for k, v in full24.items()} }; max "
+        f"|kernel - plain| "
+        f"{ {k: float(f'{kerr[k]:.4g}') for k in aux_names} }; ms "
+        f"{ {k: round(ms[k], 4) for k in aux_names} }; plain ms "
+        f"{ {k: round(plain_ms[k], 2) for k in aux_names} }; bounds ms "
+        f"{ {k: round(bound_ms_of(*work[k]), 4) for k in aux_names} }; "
+        f"phase 24 wall {time.perf_counter() - t24:.1f} s")
+
     # ---- the kernels line ----
     replaces = {
         "prng_disk": "optiland_tpu/ops/pallas_trace.py:1100",
@@ -3542,14 +3867,21 @@ def main(argv=None):
                  "merit_fwd_tilt", "merit_bwd_tilt", "trace_field_fwd_tilt",
                  "trace_field_bwd_tilt", "trace_fwd_tilt", "trace_bwd_tilt",
                  "pol_fwd_intensity_tilt", "pol_bwd_intensity_tilt",
-                 *k6_names, *free_names):
-        base_name = name
-        for suf in BUILD_SUFFIX[1:]:
-            base_name = base_name.removesuffix(suf)
+                 *k6_names, *free_names, *aux_names):
+        # a row of an aux-bearing family (phase 24) counts the launches of
+        # its family's paths
+        fam = next((f for f in freeform.AUX_FAMILIES
+                    if name.endswith("_" + f)), None)
+        key = name if fam is None else name.removesuffix("_" + fam)
+        base_name = key.removesuffix(max(
+            (suf for suf in BUILD_SUFFIX.values() if suf and key.endswith(suf)),
+            key=len,
+            default=""))
         ops, nbytes = work[name]
         t_ops = ops / PEAK_F32_OPS * 1e3
         t_bytes = nbytes / PEAK_BYTES * 1e3
-        n_launch = sum(c[name] for c in path_launches.values())
+        n_launch = sum(c[key] for p_, c in path_launches.items()
+                       if fam is None or p_.startswith(fam + "_"))
         check(n_launch > 0, f"kernel {name} was not launched on any path")
         kernels.append({
             "name": name, "route": "cuda", "source": sources[base_name],

@@ -229,8 +229,29 @@ def n_all(stack: SurfaceStack, cfg: SystemConfig, w) -> torch.Tensor:
 
 
 # Config entries that hold per-surface objects the port does not model yet
-# (apertures: all but RadialAperture, checked apart).
-_OBJECT_FIELDS = ("geom_aux", "interactions", "bsdfs")
+# (apertures: all but RadialAperture, and geometry extras but those of the
+# aux-bearing families, checked apart).
+_OBJECT_FIELDS = ("interactions", "bsdfs")
+
+
+def carried_aux(code, aux):
+    """True for the geometry extras the port carries: a Zernike scheme
+    ``(scheme,)``, ``("qbfs", n_terms)`` and ``("q2d", nms)`` on a surface
+    of that family (None anywhere)."""
+    from optiland_torch.core import geometry as geom
+    from optiland_torch.zernike import ZERNIKE_CLASSES
+
+    if aux is None:
+        return True
+    if not isinstance(aux, tuple) or not aux:
+        return False
+    if code == geom.ZERNIKE_SAG:
+        return len(aux) == 1 and aux[0] in ZERNIKE_CLASSES
+    if code == geom.FORBES_QBFS:
+        return len(aux) == 2 and aux[0] == "qbfs"
+    if code == geom.FORBES_Q2D:
+        return len(aux) == 2 and aux[0] == "q2d"
+    return False
 
 
 def system_from_numpy(arrays: dict, cfg_fields: dict) -> System:
@@ -245,7 +266,9 @@ def system_from_numpy(arrays: dict, cfg_fields: dict) -> System:
     as a bool. The tensors take the configured dtype and device. Raises
     ``NotImplementedError`` for the per-surface config objects the port does
     not carry yet (other apertures, BSDFs, interactions, geometry extras)
-    and for a coating record of a kind it does not have.
+    and for a coating record of a kind it does not have. Geometry extras
+    are carried for the aux-bearing families (a Zernike scheme, a Qbfs
+    term count, a Q2d (n, m) layout), as tuples.
     """
     from optiland_torch.coatings import coating_from_record
     from optiland_torch.physical_apertures import RadialAperture
@@ -265,6 +288,17 @@ def system_from_numpy(arrays: dict, cfg_fields: dict) -> System:
             None if a is None else RadialAperture(float(a["r_max"]),
                                                   float(a["r_min"]))
             for a in aps)
+    aux = cfg_fields.get("geom_aux")
+    if aux is not None:
+        aux = tuple(aux)
+        if not all(carried_aux(c, a)
+                   for c, a in zip(cfg_fields["geom_codes"], aux)):
+            raise NotImplementedError(
+                f"system_from_numpy: config entry 'geom_aux' holds {aux!r}; "
+                "only None entries and the extras of ZERNIKE_SAG, "
+                "FORBES_QBFS and FORBES_Q2D surfaces are carried so far"
+            )
+        cfg_fields["geom_aux"] = aux
     for name in _OBJECT_FIELDS:
         vals = cfg_fields.get(name)
         if vals is not None and any(v is not None for v in vals):

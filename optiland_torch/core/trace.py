@@ -28,7 +28,8 @@ that is not kernel-eligible at the trace wavelength, an unpolarized system
 with coatings) runs this engine, as the JAX package runs its XLA path.
 The port covers PLANE, STANDARD, the radial aspheres (EVEN_ASPHERE,
 ODD_ASPHERE) and the Cartesian freeforms (POLYNOMIAL_XY, CHEBYSHEV,
-TOROIDAL, BICONIC) surfaces (the Newton families by Newton's method,
+TOROIDAL, BICONIC, and ZERNIKE_SAG, FORBES_QBFS, FORBES_Q2D with their
+``geom_aux`` extras) surfaces (the Newton families by Newton's method,
 ``geometry.NEWTON_ITERS`` steps, as the JAX package's XLA path) and
 ``RadialAperture`` objects, whose clip
 replaces the circular one; the other aperture objects, interactions (thin
@@ -87,8 +88,9 @@ def _surface_step(stack, cfg, s, pos_s, state):
 
     # Intersect + propagate
     p1, p2 = stack.geo_p1[s], stack.geo_p2[s]
+    aux = cfg.geom_aux[s] if cfg.geom_aux is not None else None
     t = geom.distance_static(code, radius, conic, x, y, z, L, M, N,
-                             coeffs=coeffs, p1=p1, p2=p2)
+                             coeffs=coeffs, p1=p1, p2=p2, aux=aux)
     x = x + t * L
     y = y + t * M
     z = z + t * N
@@ -112,7 +114,7 @@ def _surface_step(stack, cfg, s, pos_s, state):
 
     # Normal + interaction
     nx, ny, nz = geom.surface_normal_static(code, radius, conic, coeffs, x, y,
-                                            p1, p2)
+                                            p1, p2, aux=aux)
     L0, M0, N0 = L, M, N  # pre-interaction directions
     if cfg.reflective[s]:
         L, M, N = kernels.reflect(L, M, N, nx, ny, nz)

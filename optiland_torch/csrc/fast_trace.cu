@@ -112,6 +112,8 @@ trace_fwd_kernel(const T* __restrict__ params, const T* __restrict__ aim,
   __shared__ int sf[NF * CAP];
   load_mats<T, POLY>(mats, S, nm, sm);
   load_coefs<T, Bd::SAG>(cf, S, nc, scf);
+  // the layout rows of the aux-bearing surfaces follow the table (AUX)
+  const T* lay = Bd::AUX ? cf + (int64_t)S * nc : nullptr;
   load_tables<T, NF, FIELD>(params, aim, flags, S, sp, sa, sf, sr);
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= R) return;
@@ -127,9 +129,10 @@ trace_fwd_kernel(const T* __restrict__ params, const T* __restrict__ aim,
     T npost = sp[s * NUM_P + P_NPOST];
     if constexpr (POLY)
       npost = refl ? n : n_formula(sf[F_FORMULA * S + s], sm + s * nm, nm, w);
-    n = step_fwd<T, true, Bd::TILT, Bd::SAG, Bd::FREE, Bd::DEEP>(
+    n = step_fwd<T, true, Bd::TILT, Bd::SAG, Bd::FREE, Bd::DEEP, Bd::AUX>(
         sf[s], refl, POLY ? 0 : sf[F_ABS * S + s], sf[F_TILT * S + s],
-        sp + s * NUM_P, sr + s * N_ROT, scf + s * nc, nc, niters, n, npost,
+        sp + s * NUM_P, sr + s * N_ROT, scf + s * nc, lay_of(lay, s, nc), nc,
+        niters, n, npost,
         v[0], v[1], v[2], v[3], v[4], v[5], v[6], v[7]);
   }
 #pragma unroll
@@ -179,6 +182,8 @@ trace_bwd_kernel(const T* __restrict__ params, const T* __restrict__ aim,
   __shared__ T npre[CAP];  // mono: n_pre of surface s (uniform)
   load_mats<T, POLY>(mats, S, nm, sm);
   load_coefs<T, Bd::SAG>(cf, S, nc, scf);
+  // the layout rows of the aux-bearing surfaces follow the table (AUX)
+  const T* lay = Bd::AUX ? cf + (int64_t)S * nc : nullptr;
   load_tables<T, NF, FIELD>(params, aim, flags, S, sp, sa, sf, sr);
   const int nsagc = Bd::SAG ? nsag * Bd::block(nc) : 0;
   const int ncomp =
@@ -191,7 +196,7 @@ trace_bwd_kernel(const T* __restrict__ params, const T* __restrict__ aim,
   for (int j = threadIdx.x; j < nacc; j += blockDim.x) acc[j] = T(0);
   if (threadIdx.x == 0) {
     fill_npre(sp, sf, S, npre);
-    if constexpr (Bd::SAG) fill_sag(sf, S, ssag);
+    if constexpr (Bd::SAG) fill_sag<Bd::AUX>(sf, S, ssag);
   }
   __syncthreads();
   T* row = acc + warp * astride;
@@ -225,9 +230,10 @@ trace_bwd_kernel(const T* __restrict__ params, const T* __restrict__ aim,
         if constexpr (POLY)
           npost =
               refl ? n : n_formula(sf[F_FORMULA * S + s], sm + s * nm, nm, w);
-        n = step_fwd<T, true, Bd::TILT, Bd::SAG, Bd::FREE, Bd::DEEP>(
+        n = step_fwd<T, true, Bd::TILT, Bd::SAG, Bd::FREE, Bd::DEEP, Bd::AUX>(
             sf[s], refl, POLY ? 0 : sf[F_ABS * S + s], sf[F_TILT * S + s],
-            sp + s * NUM_P, sr + s * N_ROT, scf + s * nc, nc, niters,
+            sp + s * NUM_P, sr + s * N_ROT, scf + s * nc, lay_of(lay, s, nc),
+            nc, niters,
             POLY ? n : npre[s], npost, v[0], v[1], v[2], v[3], v[4], v[5],
             v[6], v[7]);
       }
@@ -247,9 +253,10 @@ trace_bwd_kernel(const T* __restrict__ params, const T* __restrict__ aim,
         npost = refl ? n_pre : (s + 1 < S && valid ? st[s + 1][6] : n_last);
       }
       if (valid)
-        step_adjoint<T, true, Bd::TILT, Bd::SAG, Bd::FREE, Bd::DEEP>(
+        step_adjoint<T, true, Bd::TILT, Bd::SAG, Bd::FREE, Bd::DEEP, Bd::AUX>(
             sf[s], refl, POLY ? 0 : sf[F_ABS * S + s], sf[F_TILT * S + s],
-            sp + s * NUM_P, sr + s * N_ROT, scf + s * nc, nc, niters, n_pre,
+            sp + s * NUM_P, sr + s * N_ROT, scf + s * nc, lay_of(lay, s, nc),
+            nc, niters, n_pre,
             npost, st[s][0], st[s][1], st[s][2], st[s][3], st[s][4],
             st[s][5], POLY ? T(0) : st[s][6], g, gc, gs);
       T g_np = T(0);  // POLY: the cotangent of npost, for the coefficients
@@ -264,15 +271,11 @@ trace_bwd_kernel(const T* __restrict__ params, const T* __restrict__ aim,
       }
       if constexpr (Bd::SAG) {
         const int cb = S * N_GF + ssag[s] * Bd::block(nc);
-        if (Bd::FREE && is_cart(sf[s])) {
-          if constexpr (Bd::DEEP)
-            add_cart_cols_call(sf[s], gs, nc, sp[s * NUM_P + P_G1],
-                               sp[s * NUM_P + P_G2], lane, row, cb);
-          else
-            add_cart_cols(sf[s], gs, nc, sp[s * NUM_P + P_G1],
-                          sp[s * NUM_P + P_G2], lane, row, cb);
-        }
-        else if (is_newton(sf[s]))
+        if (Bd::FREE && is_cart_of<Bd::AUX>(sf[s]))
+          add_cart_cols_at<T, Bd::DEEP, Bd::AUX>(
+              sf[s], gs, lay_of(lay, s, nc), nc, sp[s * NUM_P + P_G1],
+              sp[s * NUM_P + P_G2], lane, row, cb);
+        else if (is_newton_of<Bd::AUX>(sf[s]))
           add_coef_cols(gs, nc, lane, row, cb);
       }
       if constexpr (POLY) {
@@ -359,7 +362,7 @@ int bwd_launch(const T* params, const T* aim, const T* mats, const int* flags,
       nsag > S)
     return (int)cudaErrorInvalidValue;
   const int ncb = block_cols(build, nc);
-  const int nsagc = build >= B_SAG ? nsag * ncb : 0;
+  const int nsagc = build & BIT_SAG ? nsag * ncb : 0;
   const int n_extra = FIELD ? N_AIM : (POLY ? S * nm : 0);
   const int e = dispatch_build(build, [&](auto b) {
     constexpr int B = decltype(b)::value;

@@ -112,6 +112,8 @@ merit_fwd_kernel(const T* __restrict__ params, const T* __restrict__ aim,
   __shared__ int sf[3 * CAP];  // code, reflect, tilted
   __shared__ T red[2][32];
   load_coefs<T, Bd::SAG>(cf, S, nc, scf);
+  // the layout rows of the aux-bearing surfaces follow the table (AUX)
+  const T* lay = Bd::AUX ? cf + (int64_t)S * nc : nullptr;
   load_tables<T, 3, true>(params, aim, flags, S, sp, sa, sf, sr);
 
   const int64_t base = (int64_t)blockIdx.x * blockDim.x;
@@ -133,9 +135,10 @@ merit_fwd_kernel(const T* __restrict__ params, const T* __restrict__ aim,
     T unused_i = T(0), unused_opd = T(0);  // the merit step traces geometry
     T n = sp[P_NPOST];
     for (int s = 1; s < S; ++s)
-      n = step_fwd<T, false, Bd::TILT, Bd::SAG, Bd::FREE, Bd::DEEP>(
+      n = step_fwd<T, false, Bd::TILT, Bd::SAG, Bd::FREE, Bd::DEEP, Bd::AUX>(
           sf[s], sf[S + s], 0, sf[2 * S + s], sp + s * NUM_P, sr + s * N_ROT,
-          scf + s * nc, nc, niters, n, sp[s * NUM_P + P_NPOST], x, y, z, L,
+          scf + s * nc, lay_of(lay, s, nc), nc, niters, n,
+          sp[s * NUM_P + P_NPOST], x, y, z, L,
           M, N, unused_i, unused_opd);
   }
   const int64_t rem = R - base;
@@ -184,6 +187,8 @@ merit_bwd_kernel(const T* __restrict__ params, const T* __restrict__ aim,
   __shared__ T acc_s[DYN ? 1 : NW_MAX * NCOMP_MAX];
   __shared__ T npre[CAP];  // n_pre of surface s (uniform across rays)
   load_coefs<T, Bd::SAG>(cf, S, nc, scf);
+  // the layout rows of the aux-bearing surfaces follow the table (AUX)
+  const T* lay = Bd::AUX ? cf + (int64_t)S * nc : nullptr;
   load_tables<T, 3, true>(params, aim, flags, S, sp, sa, sf, sr);
   const int nsagc = Bd::SAG ? nsag * Bd::block(nc) : 0;
   const int ncomp = S * N_G + nsagc + N_AIM;
@@ -195,7 +200,7 @@ merit_bwd_kernel(const T* __restrict__ params, const T* __restrict__ aim,
   for (int j = threadIdx.x; j < nacc; j += blockDim.x) acc[j] = T(0);
   if (threadIdx.x == 0) {
     fill_npre(sp, sf, S, npre);
-    if constexpr (Bd::SAG) fill_sag(sf, S, ssag);
+    if constexpr (Bd::SAG) fill_sag<Bd::AUX>(sf, S, ssag);
   }
   __syncthreads();
   T* row = acc + warp * astride;
@@ -228,9 +233,10 @@ merit_bwd_kernel(const T* __restrict__ params, const T* __restrict__ aim,
         st[s][3] = L;
         st[s][4] = M;
         st[s][5] = N;
-        step_fwd<T, false, Bd::TILT, Bd::SAG, Bd::FREE, Bd::DEEP>(
+        step_fwd<T, false, Bd::TILT, Bd::SAG, Bd::FREE, Bd::DEEP, Bd::AUX>(
             sf[s], sf[S + s], 0, sf[2 * S + s], sp + s * NUM_P,
-            sr + s * N_ROT, scf + s * nc, nc, niters, npre[s],
+            sr + s * N_ROT, scf + s * nc, lay_of(lay, s, nc), nc, niters,
+            npre[s],
             sp[s * NUM_P + P_NPOST], x, y, z, L, M, N, unused_i, unused_opd);
       }
       g[0] = T(2) * scale * (x - xbar);
@@ -240,9 +246,10 @@ merit_bwd_kernel(const T* __restrict__ params, const T* __restrict__ aim,
       T g6[N_G] = {};
       T gs[Bd::FREE ? N_GS_CART : N_GS_RAD] = {};
       if (valid)
-        step_adjoint<T, false, Bd::TILT, Bd::SAG, Bd::FREE, Bd::DEEP>(
+        step_adjoint<T, false, Bd::TILT, Bd::SAG, Bd::FREE, Bd::DEEP, Bd::AUX>(
             sf[s], sf[S + s], 0, sf[2 * S + s], sp + s * NUM_P,
-            sr + s * N_ROT, scf + s * nc, nc, niters, npre[s],
+            sr + s * N_ROT, scf + s * nc, lay_of(lay, s, nc), nc, niters,
+            npre[s],
             sp[s * NUM_P + P_NPOST], st[s][0], st[s][1], st[s][2], st[s][3],
             st[s][4], st[s][5], T(0), g, g6, gs);
 #pragma unroll
@@ -252,15 +259,11 @@ merit_bwd_kernel(const T* __restrict__ params, const T* __restrict__ aim,
       }
       if constexpr (Bd::SAG) {
         const int cb = S * N_G + ssag[s] * Bd::block(nc);
-        if (Bd::FREE && is_cart(sf[s])) {
-          if constexpr (Bd::DEEP)
-            add_cart_cols_call(sf[s], gs, nc, sp[s * NUM_P + P_G1],
-                               sp[s * NUM_P + P_G2], lane, row, cb);
-          else
-            add_cart_cols(sf[s], gs, nc, sp[s * NUM_P + P_G1],
-                          sp[s * NUM_P + P_G2], lane, row, cb);
-        }
-        else if (is_newton(sf[s]))
+        if (Bd::FREE && is_cart_of<Bd::AUX>(sf[s]))
+          add_cart_cols_at<T, Bd::DEEP, Bd::AUX>(
+              sf[s], gs, lay_of(lay, s, nc), nc, sp[s * NUM_P + P_G1],
+              sp[s * NUM_P + P_G2], lane, row, cb);
+        else if (is_newton_of<Bd::AUX>(sf[s]))
           add_coef_cols(gs, nc, lane, row, cb);
       }
     }
@@ -318,7 +321,7 @@ int merit_bwd_launch(const T* params, const T* aim, const T* stats,
       nsag < 0 || nsag > S)
     return (int)cudaErrorInvalidValue;
   const int ncb = block_cols(build, nc);
-  const int nsagc = build >= B_SAG ? nsag * ncb : 0;
+  const int nsagc = build & BIT_SAG ? nsag * ncb : 0;
   const int e = dispatch_build(build, [&](auto b) {
     constexpr int B = decltype(b)::value;
     if (!shape_ok<B>(S, nc, niters)) return (int)cudaErrorInvalidValue;

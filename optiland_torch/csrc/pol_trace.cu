@@ -880,6 +880,8 @@ pol_fwd_kernel(const T* __restrict__ params, const T* __restrict__ coat,
   __shared__ T scf[Bd::SAG ? CAP * NC_MAX : 1];
   __shared__ int sf[NFLAG * CAP];
   load_coefs<T, Bd::SAG>(cf, S, nc, scf);
+  // the layout rows of the aux-bearing surfaces follow the table (AUX)
+  const T* lay = Bd::AUX ? cf + (int64_t)S * nc : nullptr;
   load_pol_tables(params, coat, flags, S, ncoat, sp, sc, sf, sr);
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= R) return;
@@ -897,9 +899,10 @@ pol_fwd_kernel(const T* __restrict__ params, const T* __restrict__ coat,
   T n = sp[P_NPOST];
   for (int s = 1; s < S; ++s) {
     T adot, kl[6];  // the local pre- (k0) and post-interaction (k1) directions
-    n = step_fwd<T, true, Bd::TILT, Bd::SAG, Bd::FREE, Bd::DEEP>(
+    n = step_fwd<T, true, Bd::TILT, Bd::SAG, Bd::FREE, Bd::DEEP, Bd::AUX>(
         sf[s], sf[S + s], sf[2 * S + s], sf[F_TILT * S + s], sp + s * NUM_P,
-        sr + s * N_ROT, scf + s * nc, nc, niters, n, sp[s * NUM_P + P_NPOST],
+        sr + s * N_ROT, scf + s * nc, lay_of(lay, s, nc), nc, niters, n,
+        sp[s * NUM_P + P_NPOST],
         v[0], v[1], v[2], v[3], v[4], v[5], v[6], v[7], &adot, kl);
     pol_surface_fwd(sc, sf, S, ncoat, s, kl, kl + 3, adot, v[6], pr, pim);
   }
@@ -950,6 +953,8 @@ pol_bwd_kernel(const T* __restrict__ params, const T* __restrict__ coat,
   __shared__ T acc_s[DYN ? 1 : NW_MAX * NCOMP_MAX];
   __shared__ T npre[CAP];
   load_coefs<T, Bd::SAG>(cf, S, nc, scf);
+  // the layout rows of the aux-bearing surfaces follow the table (AUX)
+  const T* lay = Bd::AUX ? cf + (int64_t)S * nc : nullptr;
   load_pol_tables(params, coat, flags, S, ncoat, sp, sc, sf, sr);
   const int nsagc = Bd::SAG ? nsag * Bd::block(nc) : 0;
   const int ncomp = S * (N_GF + ncoat) + nsagc;
@@ -961,7 +966,7 @@ pol_bwd_kernel(const T* __restrict__ params, const T* __restrict__ coat,
   for (int j = threadIdx.x; j < nacc; j += blockDim.x) acc[j] = T(0);
   if (threadIdx.x == 0) {
     fill_npre(sp, sf, S, npre);
-    if constexpr (Bd::SAG) fill_sag(sf, S, ssag);
+    if constexpr (Bd::SAG) fill_sag<Bd::AUX>(sf, S, ssag);
   }
   __syncthreads();
   T* row = acc + warp * astride;
@@ -1003,9 +1008,10 @@ pol_bwd_kernel(const T* __restrict__ params, const T* __restrict__ coat,
           ps[s][9 + j] = pim[j];
         }
         T kl[6];
-        step_fwd<T, true, Bd::TILT, Bd::SAG, Bd::FREE, Bd::DEEP>(
+        step_fwd<T, true, Bd::TILT, Bd::SAG, Bd::FREE, Bd::DEEP, Bd::AUX>(
             sf[s], sf[S + s], sf[2 * S + s], sf[F_TILT * S + s],
-            sp + s * NUM_P, sr + s * N_ROT, scf + s * nc, nc, niters, npre[s],
+            sp + s * NUM_P, sr + s * N_ROT, scf + s * nc, lay_of(lay, s, nc),
+            nc, niters, npre[s],
             sp[s * NUM_P + P_NPOST], v[0], v[1], v[2], v[3], v[4], v[5], v[6],
             v[7], &ad[s], kl);
         istep[s] = v[6];
@@ -1092,9 +1098,10 @@ pol_bwd_kernel(const T* __restrict__ params, const T* __restrict__ coat,
           gco[col] += g[7] * istep[s];
           g[7] *= cr[col];
         }
-        step_adjoint<T, true, Bd::TILT, Bd::SAG, Bd::FREE, Bd::DEEP>(
+        step_adjoint<T, true, Bd::TILT, Bd::SAG, Bd::FREE, Bd::DEEP, Bd::AUX>(
             sf[s], refl, sf[2 * S + s], tilted, sp + s * NUM_P,
-            sr + s * N_ROT, scf + s * nc, nc, niters, npre[s],
+            sr + s * N_ROT, scf + s * nc, lay_of(lay, s, nc), nc, niters,
+            npre[s],
             sp[s * NUM_P + P_NPOST], st[s][0], st[s][1], st[s][2], st[s][3],
             st[s][4], st[s][5], st[s][6], g, gc, gs, gext);
       }
@@ -1105,15 +1112,11 @@ pol_bwd_kernel(const T* __restrict__ params, const T* __restrict__ coat,
       }
       if constexpr (Bd::SAG) {
         const int cb = S * N_GF + ssag[s] * Bd::block(nc);
-        if (Bd::FREE && is_cart(sf[s])) {
-          if constexpr (Bd::DEEP)
-            add_cart_cols_call(sf[s], gs, nc, sp[s * NUM_P + P_G1],
-                               sp[s * NUM_P + P_G2], lane, row, cb);
-          else
-            add_cart_cols(sf[s], gs, nc, sp[s * NUM_P + P_G1],
-                          sp[s * NUM_P + P_G2], lane, row, cb);
-        }
-        else if (is_newton(sf[s]))
+        if (Bd::FREE && is_cart_of<Bd::AUX>(sf[s]))
+          add_cart_cols_at<T, Bd::DEEP, Bd::AUX>(
+              sf[s], gs, lay_of(lay, s, nc), nc, sp[s * NUM_P + P_G1],
+              sp[s * NUM_P + P_G2], lane, row, cb);
+        else if (is_newton_of<Bd::AUX>(sf[s]))
           add_coef_cols(gs, nc, lane, row, cb);
       }
       for (int c = 0; c < ncoat; ++c) {
@@ -1197,7 +1200,7 @@ int bwd_launch(const T* params, const T* coat, const int* flags, int S,
     return (int)cudaErrorInvalidValue;
   const States<T> st = states_of<T>(c, nstates);
   const int ncb = block_cols(build, nc);
-  const int nsagc = build >= B_SAG ? nsag * ncb : 0;
+  const int nsagc = build & BIT_SAG ? nsag * ncb : 0;
   const int e = dispatch_build(build, [&](auto b) {
     constexpr int B = decltype(b)::value;
     if (!shape_ok<B>(S, nc, niters)) return (int)cudaErrorInvalidValue;

@@ -1,6 +1,7 @@
 // Device code shared by the port's trace kernels (sm_90a): the PLANE,
-// STANDARD, tilt, annular-aperture, EVEN_ASPHERE/ODD_ASPHERE and
-// POLYNOMIAL_XY/CHEBYSHEV/TOROIDAL/BICONIC branches of _step_tile
+// STANDARD, tilt, annular-aperture, EVEN_ASPHERE/ODD_ASPHERE,
+// POLYNOMIAL_XY/CHEBYSHEV/TOROIDAL/BICONIC and ZERNIKE_SAG/FORBES_QBFS/
+// FORBES_Q2D branches of _step_tile
 // (optiland_tpu/ops/pallas_trace.py), forward and hand-derived adjoint,
 // and what the kernels around the step share: the shared-memory table
 // loaders, the per-warp gradient rows of the backwards, and their
@@ -28,18 +29,21 @@
 // rotations' generators, which is what the general form gives at zero.
 // The TILT template flag of the step compiles the rotations in; the SAG
 // flag also the radial Newton families and, in the FULL form, the annular
-// clip; the CART flag the Cartesian families. Every kernel is compiled in
-// six builds (Build<B> below): stock (none), tilt, sag (tilt and sag),
-// free (tilt, sag and the Cartesian families), deep (tilt and sag for up
-// to DEEP_SURF surfaces) and deep_free (deep with the Cartesian families).
-// The launchers take the least build that covers the spec (ops/launch.py:
-// build_of), so a system without a tilted surface, an asphere, a freeform
-// or an annulus runs the stock code, whose registers and local memory are
-// those it had before the other branches, and a radial asphere, shallow or
-// deep, the sag or deep code, which carries no Cartesian branch. The free
-// and both deep backwards keep their per-warp gradient rows in dynamic
-// shared memory (the polarized backward's sag build too: at NC_MAX = 36
-// its static rows would pass 48 KB).
+// clip; the CART flag the Cartesian families, the AUX flag their
+// aux-bearing ones. Every kernel is compiled in eight builds (Build<B>
+// below, each an OR of flag bits): stock (none), tilt, sag (tilt and
+// sag), free (tilt, sag and the Cartesian families), aux (free with the
+// aux-bearing families), and deep, deep_free and deep_aux (sag, free and
+// aux for up to DEEP_SURF surfaces). The launchers take the least build
+// that covers the spec (ops/launch.py: build_of), so a system without a
+// tilted surface, an asphere, a freeform or an annulus runs the stock
+// code, whose registers and local memory are those it had before the
+// other branches, a radial asphere, shallow or deep, the sag or deep code,
+// which carries no Cartesian branch, and a freeform without an
+// aux-bearing surface code without their evaluator. The Cartesian and
+// deep backwards keep their per-warp gradient rows in dynamic shared
+// memory (the polarized backward's sag build too: at NC_MAX = 36 its
+// static rows would pass 48 KB).
 //
 // K6b, the radial Newton families (s = conic(r^2) + sum_i C_i rho^(i+1),
 // rho = r^2 even, r odd): sag_point gives s and W (ds/dx = x W), and for
@@ -66,6 +70,10 @@
 // cotangents; add_cart_cols expands them into the nc coefficient columns
 // and the P_G1, P_G2 columns of the surface's block (nc + 2 columns in the
 // free and deep_free builds), warp sums in column order, no float atomics.
+// The aux-bearing families (ZERNIKE_SAG, FORBES_QBFS, FORBES_Q2D) are
+// Cartesian families of the AUX builds whose row comes laid out in slots,
+// read with the surface's rows of the layout table ``lay`` (aux_point_call,
+// add_aux_cols; out of line, so the four others keep their registers).
 // K6a, the annular clip: the FULL step of the sag build zeroes the
 // intensity of a ray with x^2 + y^2 < ap_min^2 on every surface (ap_min is
 // 0, which clips nothing, where no RadialAperture sets it).
@@ -101,6 +109,12 @@ constexpr int A_X0 = 0, A_Y0 = 1, A_Z0 = 2, A_L = 3, A_M = 4, A_N = 5;
 constexpr int A_SX = 6, A_SY = 7;
 constexpr int PLANE = 0, STANDARD = 1, EVEN_ASPHERE = 2, ODD_ASPHERE = 3;
 constexpr int POLYNOMIAL_XY = 4, CHEBYSHEV = 5, TOROIDAL = 7, BICONIC = 8;
+constexpr int ZERNIKE_SAG = 6, FORBES_QBFS = 9, FORBES_Q2D = 10;
+// an aux-bearing surface's layout table row per slot: the recurrence
+// constants (a, b, c, e), then the flag 4 |m| + 2 sin + pre
+// (geometry.py: LAY_COLS, Q2D_EPS)
+constexpr int LAY_COLS = 5;
+constexpr double Q2D_EPS = 1e-12;
 // Beer-Lambert factor exp(ABS * k_pre * t * 1e3), k_pre = k / wavelength
 constexpr double ABS = -12.566370614359172;  // -4 pi
 
@@ -117,51 +131,55 @@ constexpr int FWD_BLOCK = 256;
 constexpr int BWD_BLOCK = 128;
 constexpr int RED_BLOCK = 256;
 
-// The builds of every kernel (ops/launch.py: STOCK .. DEEP_FREE). The
-// Cartesian branch (FREE) is its own flag beside the surface reach (DEEP),
-// so a deep system without a freeform runs the deep code that carries no
-// Cartesian branch. DYN: the backwards keep their per-warp gradient rows
-// in dynamic shared memory (the free and both deep builds; the polarized
-// backward's sag build too, see pol_trace.cu).
-constexpr int B_STOCK = 0, B_TILT = 1, B_SAG = 2, B_FREE = 3, B_DEEP = 4,
-              B_DEEP_FREE = 5;
+// The builds of every kernel (ops/launch.py: STOCK .. DEEP_AUX): a build
+// is an OR of flags, each a branch of the step or the surface reach. TILT
+// the rotations, SAG the radial Newton families and the annular clip, CART
+// the Cartesian families, AUX their aux-bearing ones (ZERNIKE_SAG,
+// FORBES_QBFS, FORBES_Q2D), DEEP the reach of DEEP_SURF surfaces. Each flag
+// is its own, so a deep system without a freeform runs the deep code that
+// carries no Cartesian branch, and a freeform without an aux-bearing
+// surface the code without their evaluator. DYN: the backwards keep their
+// per-warp gradient rows in dynamic shared memory (the Cartesian and the
+// deep builds; the polarized backward's sag build too, see pol_trace.cu).
+constexpr int BIT_TILT = 1, BIT_SAG = 2, BIT_CART = 4, BIT_AUX = 8,
+              BIT_DEEP = 16;
+constexpr int B_STOCK = 0, B_TILT = BIT_TILT, B_SAG = B_TILT | BIT_SAG,
+              B_FREE = B_SAG | BIT_CART, B_DEEP = B_SAG | BIT_DEEP,
+              B_DEEP_FREE = B_FREE | BIT_DEEP, B_AUX = B_FREE | BIT_AUX,
+              B_DEEP_AUX = B_DEEP_FREE | BIT_AUX;
 template <int B>
 struct Build {
-  static constexpr bool TILT = B >= B_TILT;
-  static constexpr bool SAG = B >= B_SAG;
-  static constexpr bool FREE = B == B_FREE || B == B_DEEP_FREE;
-  static constexpr bool DEEP = B >= B_DEEP;
-  static constexpr bool DYN = B >= B_FREE;
+  static constexpr bool TILT = B & BIT_TILT;
+  static constexpr bool SAG = B & BIT_SAG;
+  static constexpr bool FREE = B & BIT_CART;
+  static constexpr bool AUX = B & BIT_AUX;
+  static constexpr bool DEEP = B & BIT_DEEP;
+  static constexpr bool DYN = FREE || DEEP;
   static constexpr int CAP = DEEP ? DEEP_SURF : STOCK_SURF;
   static __host__ __device__ int block(int nc) { return FREE ? nc + 2 : nc; }
 };
 
 // Columns of a Newton surface's block of a backward's partial row in build
-// ``build`` (Build<B>::block): nc coefficients, then (FREE) P_G1 and P_G2.
+// ``build`` (Build<B>::block): nc coefficients, then (CART) P_G1 and P_G2.
 inline int block_cols(int build, int nc) {
-  return build == B_FREE || build == B_DEEP_FREE ? nc + 2 : nc;
+  return build & BIT_CART ? nc + 2 : nc;
 }
 
-// Launch a launcher body for the build ``build``: f gets the build as an
-// std::integral_constant, so the body instantiates its kernels for it.
+// Launch a launcher body for the build ``build``, one of Bs (the compiled
+// builds): f gets the build as an std::integral_constant, so the body
+// instantiates its kernels for it.
+template <int B0, int... Bs, typename F>
+int dispatch_in(int build, F&& f) {
+  if (build == B0) return f(std::integral_constant<int, B0>{});
+  if constexpr (sizeof...(Bs) > 0)
+    return dispatch_in<Bs...>(build, static_cast<F&&>(f));
+  else
+    return (int)cudaErrorInvalidValue;
+}
 template <typename F>
 int dispatch_build(int build, F&& f) {
-  switch (build) {
-    case B_STOCK:
-      return f(std::integral_constant<int, B_STOCK>{});
-    case B_TILT:
-      return f(std::integral_constant<int, B_TILT>{});
-    case B_SAG:
-      return f(std::integral_constant<int, B_SAG>{});
-    case B_FREE:
-      return f(std::integral_constant<int, B_FREE>{});
-    case B_DEEP:
-      return f(std::integral_constant<int, B_DEEP>{});
-    case B_DEEP_FREE:
-      return f(std::integral_constant<int, B_DEEP_FREE>{});
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return dispatch_in<B_STOCK, B_TILT, B_SAG, B_FREE, B_DEEP, B_DEEP_FREE,
+                     B_AUX, B_DEEP_AUX>(build, static_cast<F&&>(f));
 }
 
 // The surface count, coefficient width and Newton steps a build takes.
@@ -191,12 +209,39 @@ int set_dyn_smem(K kernel, size_t bytes) {
 __device__ __forceinline__ bool is_radial(int code) {
   return code == EVEN_ASPHERE || code == ODD_ASPHERE;
 }
-__device__ __forceinline__ bool is_cart(int code) {
+// The aux-bearing families, Cartesian too: their row is laid out
+// (geometry.py: aux_layout) and read with the surface's layout rows.
+__device__ __forceinline__ bool is_aux(int code) {
+  return code == ZERNIKE_SAG || code == FORBES_QBFS || code == FORBES_Q2D;
+}
+__device__ __forceinline__ bool is_cart4(int code) {
   return code == POLYNOMIAL_XY || code == CHEBYSHEV || code == TOROIDAL ||
          code == BICONIC;
 }
+__device__ __forceinline__ bool is_cart(int code) {
+  return is_cart4(code) || is_aux(code);
+}
+// The Cartesian families a build's step takes: the aux-bearing ones only
+// where it has their evaluator (AUX).
+template <bool AUX>
+__device__ __forceinline__ bool is_cart_of(int code) {
+  return AUX ? is_cart(code) : is_cart4(code);
+}
+
+// Surface s's rows of the (S, nc, LAY_COLS) layout table (null without
+// one: no aux-bearing surface).
+template <typename T>
+__device__ __forceinline__ const T* lay_of(const T* lay, int s, int nc) {
+  return lay ? lay + (int64_t)s * nc * LAY_COLS : nullptr;
+}
 __device__ __forceinline__ bool is_newton(int code) {
   return is_radial(code) || is_cart(code);
+}
+// The Newton families a build's step takes (the aux-bearing ones where
+// AUX), so the other builds compile to the code they had before them.
+template <bool AUX>
+__device__ __forceinline__ bool is_newton_of(int code) {
+  return is_radial(code) || is_cart_of<AUX>(code);
 }
 
 // Per-surface gradient slots of the backwards and the param-table column of
@@ -854,11 +899,250 @@ __device__ __forceinline__ T inv_radius(T r) {
   return isinf(r) ? T(0) : T(1) / r;
 }
 
-template <typename T, bool GRAD, bool NORMAL>
+// K6b, the aux-bearing families (geometry.py: _aux_point, _slot_terms,
+// _conic_factor_terms). The surface's laid-out row cf holds nc slots, read
+// with its layout rows ``lay`` (global memory, the same entry for every
+// lane: one broadcast read through the read-only cache). Slot j's radial
+// function phi_j(v) follows phi_j = (a + b v) phi_(j-1) - c phi_(j-2) + e
+// (times v (1 - v) where its flag says ``pre``), its angular factor is Re
+// or Im of z^m, z = (X + iY) / p1, v = (X^2 + Y^2 + eps) / p1^2; the powers
+// of z run up with the blocks' m, which come in order. A Forbes surface
+// multiplies the slots' sum by its conic factor Phi(r^2) and cuts it past
+// v = 1, on its clamped base conic; a Zernike surface has the
+// curvature-form conic and no Zernike slope at exactly r = 0 (the
+// reference's guarded origin).
+
+template <typename T>
+__device__ __forceinline__ T ldg_(const T* p) {
+  return __ldg(p);
+}
+
+// The running slot recurrences at one point: start(), then next() per slot
+// in order gives the slot's A = (A, Ax, Ay[, Axx, Axy, Ayy]) and F = (F,
+// F1[, F2]), the derivatives of F in v.
+template <typename T, bool GRAD>
+struct AuxSlots {
+  T v, ip, zr, zi;
+  T P0r, P0i, P1r, P1i, P2r, P2i;  // z^m, z^(m-1), z^(m-2)
+  T f1, f2, d1, d2, e1, e2;        // phi, phi', phi'' of j-1, j-2
+  int mc, m;
+  T A[6], F[3];
+  __device__ __forceinline__ void start(T X, T Y, T p1, T eps) {
+    v = (X * X + Y * Y + eps) / (p1 * p1);
+    ip = T(1) / p1;
+    zr = X * ip;
+    zi = Y * ip;
+    P0r = T(1);
+    P0i = P1r = P1i = P2r = P2i = T(0);
+    f1 = f2 = d1 = d2 = e1 = e2 = T(0);
+    mc = 0;
+  }
+  __device__ __forceinline__ void next(const T* lrow) {
+    const T a = ldg_(lrow), b = ldg_(lrow + 1), c = ldg_(lrow + 2),
+            e = ldg_(lrow + 3);
+    const int flag = (int)ldg_(lrow + 4);
+    m = flag >> 2;
+    while (mc < m) {
+      P2r = P1r;
+      P2i = P1i;
+      P1r = P0r;
+      P1i = P0i;
+      const T r = P0r * zr - P0i * zi;
+      P0i = P0r * zi + P0i * zr;
+      P0r = r;
+      ++mc;
+    }
+    const T g = a + b * v;
+    const T ph = g * f1 - c * f2 + e;
+    const T dph = b * f1 + g * d1 - c * d2;
+    T ddph = T(0);
+    if constexpr (GRAD) {
+      ddph = T(2) * b * d1 + g * e1 - c * e2;
+      e2 = e1;
+      e1 = ddph;
+    }
+    f2 = f1;
+    f1 = ph;
+    d2 = d1;
+    d1 = dph;
+    if (flag & 1) {
+      const T w = v * (T(1) - v), w1 = T(1) - T(2) * v;
+      F[0] = w * ph;
+      F[1] = w1 * ph + w * dph;
+      if constexpr (GRAD) F[2] = T(-2) * ph + T(2) * w1 * dph + w * ddph;
+    } else {
+      F[0] = ph;
+      F[1] = dph;
+      if constexpr (GRAD) F[2] = ddph;
+    }
+    const T k1 = T(m) * ip, k2 = T(m * (m - 1)) * ip * ip;
+    if (flag & 2) {
+      A[0] = P0i;
+      A[1] = k1 * P1i;
+      A[2] = k1 * P1r;
+      if constexpr (GRAD) {
+        A[3] = k2 * P2i;
+        A[4] = k2 * P2r;
+        A[5] = -k2 * P2i;
+      }
+    } else {
+      A[0] = P0r;
+      A[1] = k1 * P1r;
+      A[2] = -k1 * P1i;
+      if constexpr (GRAD) {
+        A[3] = k2 * P2r;
+        A[4] = -k2 * P2i;
+        A[5] = -k2 * P2r;
+      }
+    }
+  }
+};
+
+// The Forbes conic factor Phi(r^2) = sqrt(num / den) and its derivatives
+// (Phi, Phi_r, Phi_rr, Phi_k, Phi_rk, Phi_c, Phi_rc; r for r^2, c for
+// cu^2); a radicand clamped at 1e-12 passes no derivative.
+template <typename T>
+__device__ __forceinline__ void conic_factor_terms(T cu, T k, T r2, T* o) {
+  const T c2 = cu * cu;
+  const T nr = T(1) - k * c2 * r2, dr = T(1) - (k + T(1)) * c2 * r2;
+  const T mn = nr > T(1e-12) ? T(1) : T(0), md = dr > T(1e-12) ? T(1) : T(0);
+  const T num = nr > T(1e-12) ? nr : T(1e-12);
+  const T den = dr > T(1e-12) ? dr : T(1e-12);
+  const T Phi = sqrt_(num) / sqrt_(den);
+  const T n_r = -k * c2 * mn, d_r = -(k + T(1)) * c2 * md;
+  const T a = n_r / num, b = d_r / den;
+  const T g = (a - b) / T(2);
+  o[0] = Phi;
+  o[1] = Phi * g;
+  o[2] = Phi * (g * g + (b * b - a * a) / T(2));
+  // d/dk, then d/d(cu^2)
+  const T nv[2] = {-c2 * r2 * mn, -k * r2 * mn};
+  const T dv[2] = {-c2 * r2 * md, -(k + T(1)) * r2 * md};
+  const T nrv[2] = {-c2 * mn, -k * mn};
+  const T drv[2] = {-c2 * md, -(k + T(1)) * md};
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const T gv = (nv[i] / num - dv[i] / den) / T(2);
+    const T g_v =
+        (nrv[i] / num - a * nv[i] / num - drv[i] / den + b * dv[i] / den) /
+        T(2);
+    o[3 + 2 * i] = Phi * gv;
+    o[4 + 2 * i] = Phi * (gv * g + g_v);
+  }
+}
+
+// cart_point of an aux-bearing family, out of line: the four other
+// Cartesian families do not carry its registers. o.zy holds the weights
+// coef_weights reads: of s, then 2 X Phi_r and 2 Y Phi_r, then of the
+// slopes.
+template <typename T, bool GRAD>
+__device__ __noinline__ void aux_point_call(int code, T R, T k, T p1,
+                                            const T* cf, const T* lay,
+                                            int nc, T X, T Y, CartPt<T>* out) {
+  CartPt<T>& o = *out;
+  const bool zern = code == ZERNIKE_SAG;
+  const T r2 = X * X + Y * Y;
+  const T cu = zern ? T(1) / R : inv_radius(R);
+  const T e = (T(1) + k) * (cu * cu);
+  const T vq = T(1) - e * r2;
+  const T q0 = sqrt_(zern || vq > T(0) ? vq : T(0));
+  const T W = !zern && q0 == T(0) ? nan_<T>() : cu / q0;
+  const T eps = code == FORBES_Q2D ? T(Q2D_EPS) : T(0);
+  const T p12 = p1 * p1;
+  const T vx = T(2) * X / p12, vy = T(2) * Y / p12, vxx = T(2) / p12;
+  AuxSlots<T, GRAD> sl;
+  sl.start(X, Y, p1, eps);
+  const T v = sl.v;
+  T S = T(0), Sx = T(0), Sy = T(0), Sxx = T(0), Sxy = T(0), Syy = T(0);
+  T Sp = T(0), Sxp = T(0), Syp = T(0);
+  for (int j = 0; j < nc; ++j) {
+    sl.next(lay + j * LAY_COLS);
+    const T c = cf[j];
+    const T* A = sl.A;
+    const T* F = sl.F;
+    S += c * (A[0] * F[0]);
+    Sx += c * (A[1] * F[0] + A[0] * F[1] * vx);
+    Sy += c * (A[2] * F[0] + A[0] * F[1] * vy);
+    if constexpr (GRAD) {
+      Sxx += c * (A[3] * F[0] + T(2) * A[1] * F[1] * vx +
+                  A[0] * F[2] * vx * vx + A[0] * F[1] * vxx);
+      Sxy += c * (A[4] * F[0] + A[1] * F[1] * vy + A[2] * F[1] * vx +
+                  A[0] * F[2] * vx * vy);
+      Syy += c * (A[5] * F[0] + T(2) * A[2] * F[1] * vy +
+                  A[0] * F[2] * vy * vy + A[0] * F[1] * vxx);
+      const T m = T(sl.m);
+      Sp -= c * (m * A[0] * F[0] + T(2) * v * A[0] * F[1]) / p1;
+      Sxp -= c *
+             (m * A[1] * F[0] + T(2) * v * A[1] * F[1] + m * A[0] * F[1] * vx +
+              T(2) * v * A[0] * F[2] * vx + T(2) * A[0] * F[1] * vx) /
+             p1;
+      Syp -= c *
+             (m * A[2] * F[0] + T(2) * v * A[2] * F[1] + m * A[0] * F[1] * vy +
+              T(2) * v * A[0] * F[2] * vy + T(2) * A[0] * F[1] * vy) /
+             p1;
+    }
+  }
+  const bool at0 = zern && r2 == T(0);
+  if (at0) Sx = Sy = Sxx = Sxy = Syy = Sxp = Syp = T(0);
+  T ph[7] = {T(1), T(0), T(0), T(0), T(0), T(0), T(0)};
+  if (!zern) {
+    conic_factor_terms(cu, k, r2, ph);
+    const T keep = v <= T(1) ? T(1) : T(0);
+#pragma unroll
+    for (int i = 0; i < 7; ++i) ph[i] *= keep;
+  }
+  const T Phi = ph[0], Pr = ph[1];
+  o.s = cu * r2 / (T(1) + q0) + Phi * S;
+  o.sx = X * W + T(2) * X * Pr * S + Phi * Sx;
+  o.sy = Y * W + T(2) * Y * Pr * S + Phi * Sy;
+  if constexpr (GRAD) {
+    const T Prr = ph[2], Pk = ph[3], Prk = ph[4], Pc = ph[5], Prc = ph[6];
+    o.zy[0] = Phi;
+    o.zy[1] = T(2) * X * Pr;
+    o.zy[2] = T(2) * Y * Pr;
+    o.zy[3] = at0 ? T(0) : Phi;
+    const T q3 = q0 * q0 * q0;
+    const T Wr = cu * e / (T(2) * q3);
+    o.hxx = W + T(2) * X * X * Wr + T(2) * Pr * S + T(4) * X * X * Prr * S +
+            T(4) * X * Pr * Sx + Phi * Sxx;
+    o.hxy = T(2) * X * Y * Wr + T(4) * X * Y * Prr * S + T(2) * X * Pr * Sy +
+            T(2) * Y * Pr * Sx + Phi * Sxy;
+    o.hyx = o.hxy;
+    o.hyy = W + T(2) * Y * Y * Wr + T(2) * Pr * S + T(4) * Y * Y * Prr * S +
+            T(4) * Y * Pr * Sy + Phi * Syy;
+    const T mcu2 = -cu * cu;      // d cu / dR
+    const T dc2 = T(2) * cu * mcu2;  // d cu^2 / dR
+    o.dR[0] = mcu2 * r2 / (q0 * (T(1) + q0)) + dc2 * Pc * S;
+    o.dR[1] = mcu2 * X / q3 + dc2 * (T(2) * X * Prc * S + Pc * Sx);
+    o.dR[2] = mcu2 * Y / q3 + dc2 * (T(2) * Y * Prc * S + Pc * Sy);
+    const T cu3 = cu * cu * cu;
+    const T Wk = cu3 * r2 / (T(2) * q3);
+    o.dk[0] = cu3 * (r2 * r2) / (T(2) * q0 * ((T(1) + q0) * (T(1) + q0))) +
+              Pk * S;
+    o.dk[1] = X * Wk + T(2) * X * Prk * S + Pk * Sx;
+    o.dk[2] = Y * Wk + T(2) * Y * Prk * S + Pk * Sy;
+    o.dp1[0] = Phi * Sp;
+    o.dp1[1] = T(2) * X * Pr * Sp + Phi * Sxp;
+    o.dp1[2] = T(2) * Y * Pr * Sp + Phi * Syp;
+    o.dp2[0] = o.dp2[1] = o.dp2[2] = T(0);
+  }
+}
+
+template <typename T, bool GRAD, bool NORMAL, bool AUX = false>
 __device__ __forceinline__ void cart_point(int code, T R, T k, T p1, T p2,
-                                           const T* cf, int nc, T X, T Y,
-                                           CartPt<T>& o) {
+                                           const T* cf, const T* lay, int nc,
+                                           T X, T Y, CartPt<T>& o) {
   const T nan = nan_<T>();
+  if constexpr (AUX) {
+    if (is_aux(code)) {
+      // through a copy of its own: ``o`` stays out of local memory for the
+      // other families when cart_point is inlined
+      CartPt<T> ao;
+      aux_point_call<T, GRAD>(code, R, k, p1, cf, lay, nc, X, Y, &ao);
+      o = ao;
+      return;
+    }
+  }
   if (code == POLYNOMIAL_XY || code == CHEBYSHEV) {
     const T cu = T(1) / R;
     const T e = (T(1) + k) * (cu * cu);
@@ -995,14 +1279,16 @@ __device__ __forceinline__ void cart_point(int code, T R, T k, T p1, T p2,
 
 // One Newton step t - f/f' of a Cartesian family, f' = N - (sx L + sy M)
 // (geometry.py: newton_step).
-template <typename T>
+template <typename T, bool AUX = false>
 __device__ __forceinline__ T cart_newton_step(int code, T R, T k, T p1,
-                                              T p2, const T* cf, int nc,
-                                              T xl, T yl, T zl, T L, T M,
-                                              T N, T t) {
+                                              T p2, const T* cf,
+                                              const T* lay, int nc, T xl,
+                                              T yl, T zl, T L, T M, T N,
+                                              T t) {
   const T X = xl + t * L, Y = yl + t * M;
   CartPt<T> cp;
-  cart_point<T, false, false>(code, R, k, p1, p2, cf, nc, X, Y, cp);
+  cart_point<T, false, false, AUX>(code, R, k, p1, p2, cf, lay, nc, X, Y,
+                                   cp);
   T fp = N - (cp.sx * L + cp.sy * M);
   const T f = zl + t * N - cp.s;
   fp = abs_(fp) > T(1e-14) ? fp : T(1e-14);
@@ -1011,26 +1297,32 @@ __device__ __forceinline__ T cart_newton_step(int code, T R, T k, T p1,
 
 // ``steps`` Newton steps of a Cartesian family from the conic's closed form
 // of the surface's radius and conic (the plane's where not finite).
-template <typename T>
+template <typename T, bool AUX = false>
 __device__ __forceinline__ T cart_newton_t(int code, T R, T k, T p1, T p2,
-                                           const T* cf, int nc, int steps,
-                                           T xl, T yl, T zl, T L, T M, T N) {
+                                           const T* cf, const T* lay, int nc,
+                                           int steps, T xl, T yl, T zl, T L,
+                                           T M, T N) {
   T t = dist_standard(R, k, xl, yl, zl, L, M, N);
   if (!isfinite(t)) t = dist_plane(zl, N);
   for (int it = 0; it < steps; ++it)
-    t = cart_newton_step(code, R, k, p1, p2, cf, nc, xl, yl, zl, L, M, N, t);
+    t = cart_newton_step<T, AUX>(code, R, k, p1, p2, cf, lay, nc, xl, yl, zl,
+                                 L, M, N, t);
   return t;
 }
 
 // The weights (a, b, c) of a Cartesian family's coefficient cotangents at
 // a point from the cotangents of its s, sx, sy (geometry.py: coef_weights).
-template <typename T>
+template <typename T, bool AUX = false>
 __device__ __forceinline__ void coef_weights(int code, const CartPt<T>& cp,
                                              T g_s, T g_sx, T g_sy, T* w) {
   if (code == TOROIDAL) {
     w[0] = g_s * cp.zy[0] + g_sx * cp.zy[1] + g_sy * cp.zy[2];
     w[1] = g_sy * cp.zy[3];
     w[2] = T(0);
+  } else if (AUX && is_aux(code)) {
+    w[0] = g_s * cp.zy[0] + g_sx * cp.zy[1] + g_sy * cp.zy[2];
+    w[1] = g_sx * cp.zy[3];
+    w[2] = g_sy * cp.zy[3];
   } else if (code == BICONIC) {
     w[0] = w[1] = w[2] = T(0);
   } else {
@@ -1047,11 +1339,22 @@ __device__ __forceinline__ void coef_weights(int code, const CartPt<T>& cp,
 // the H100 machine, PERF.md). ptxas still sizes a kernel for its callees,
 // so the deep_free adjoints hold more registers than the deep ones, which
 // carry no Cartesian branch.
+// The aux builds' calls take the layout rows too (the *_aux_call
+// functions); the deep_free build's keep the signature they had before the
+// aux-bearing families, so it compiles to the same code.
 template <typename T, bool GRAD, bool NORMAL>
 __device__ __noinline__ void cart_point_call(int code, T R, T k, T p1, T p2,
                                              const T* cf, int nc, T X, T Y,
                                              CartPt<T>* o) {
-  cart_point<T, GRAD, NORMAL>(code, R, k, p1, p2, cf, nc, X, Y, *o);
+  cart_point<T, GRAD, NORMAL>(code, R, k, p1, p2, cf, nullptr, nc, X, Y, *o);
+}
+template <typename T, bool GRAD, bool NORMAL>
+__device__ __noinline__ void cart_point_aux_call(int code, T R, T k, T p1,
+                                                 T p2, const T* cf,
+                                                 const T* lay, int nc, T X,
+                                                 T Y, CartPt<T>* o) {
+  cart_point<T, GRAD, NORMAL, true>(code, R, k, p1, p2, cf, lay, nc, X, Y,
+                                    *o);
 }
 
 template <typename T>
@@ -1059,32 +1362,50 @@ __device__ __noinline__ T cart_newton_t_call(int code, T R, T k, T p1, T p2,
                                              const T* cf, int nc, int steps,
                                              T xl, T yl, T zl, T L, T M,
                                              T N) {
-  return cart_newton_t(code, R, k, p1, p2, cf, nc, steps, xl, yl, zl, L, M,
-                       N);
+  return cart_newton_t<T>(code, R, k, p1, p2, cf, nullptr, nc, steps, xl, yl,
+                          zl, L, M, N);
+}
+template <typename T>
+__device__ __noinline__ T cart_newton_t_aux_call(int code, T R, T k, T p1,
+                                                 T p2, const T* cf,
+                                                 const T* lay, int nc,
+                                                 int steps, T xl, T yl, T zl,
+                                                 T L, T M, T N) {
+  return cart_newton_t<T, true>(code, R, k, p1, p2, cf, lay, nc, steps, xl,
+                                yl, zl, L, M, N);
 }
 
 // cart_point, in line or (CALL) out of line.
-template <typename T, bool GRAD, bool NORMAL, bool CALL>
+template <typename T, bool GRAD, bool NORMAL, bool CALL, bool AUX>
 __device__ __forceinline__ void cart_point_at(int code, T R, T k, T p1, T p2,
-                                              const T* cf, int nc, T X, T Y,
+                                              const T* cf, const T* lay,
+                                              int nc, T X, T Y,
                                               CartPt<T>& o) {
-  if constexpr (CALL)
+  if constexpr (CALL && AUX)
+    cart_point_aux_call<T, GRAD, NORMAL>(code, R, k, p1, p2, cf, lay, nc, X,
+                                         Y, &o);
+  else if constexpr (CALL)
     cart_point_call<T, GRAD, NORMAL>(code, R, k, p1, p2, cf, nc, X, Y, &o);
   else
-    cart_point<T, GRAD, NORMAL>(code, R, k, p1, p2, cf, nc, X, Y, o);
+    cart_point<T, GRAD, NORMAL, AUX>(code, R, k, p1, p2, cf, lay, nc, X, Y,
+                                     o);
 }
 
 // cart_newton_t, in line or (CALL) out of line.
-template <typename T, bool CALL>
+template <typename T, bool CALL, bool AUX>
 __device__ __forceinline__ T cart_newton_at(int code, T R, T k, T p1, T p2,
-                                            const T* cf, int nc, int steps,
-                                            T xl, T yl, T zl, T L, T M, T N) {
-  if constexpr (CALL)
+                                            const T* cf, const T* lay,
+                                            int nc, int steps, T xl, T yl,
+                                            T zl, T L, T M, T N) {
+  if constexpr (CALL && AUX)
+    return cart_newton_t_aux_call(code, R, k, p1, p2, cf, lay, nc, steps, xl,
+                                  yl, zl, L, M, N);
+  else if constexpr (CALL)
     return cart_newton_t_call(code, R, k, p1, p2, cf, nc, steps, xl, yl, zl,
                               L, M, N);
   else
-    return cart_newton_t(code, R, k, p1, p2, cf, nc, steps, xl, yl, zl, L, M,
-                         N);
+    return cart_newton_t<T, AUX>(code, R, k, p1, p2, cf, lay, nc, steps, xl,
+                                 yl, zl, L, M, N);
 }
 
 // One forward surface step; returns n of the medium after the surface
@@ -1098,10 +1419,11 @@ __device__ __forceinline__ T cart_newton_at(int code, T R, T k, T p1, T p2,
 // coefficients ``cf`` and take ``niters`` steps, and the annular clip; CART
 // the Cartesian ones, which also read P_G1 and P_G2 (CALL: out of line).
 template <typename T, bool FULL, bool TILT, bool SAG, bool CART = false,
-          bool CALL = false>
+          bool CALL = false, bool AUX = false>
 __device__ __forceinline__ T step_fwd(int code, int refl, int absorbs,
                                       int tilted, const T* p, const T* rot,
-                                      const T* cf, int nc, int niters,
+                                      const T* cf, const T* lay, int nc,
+                                      int niters,
                                       T n_pre, T npost, T& x, T& y, T& z,
                                       T& L, T& M, T& N, T& inten, T& opd,
                                       T* adot_out = nullptr,
@@ -1112,8 +1434,8 @@ __device__ __forceinline__ T step_fwd(int code, int refl, int absorbs,
   T t;
   if (SAG && is_radial(code))
     t = newton_t(code, R, k, cf, nc, niters + 1, xl, yl, zl, L, M, N);
-  else if (CART && is_cart(code))
-    t = cart_newton_at<T, CALL>(code, R, k, p[P_G1], p[P_G2], cf, nc,
+  else if (CART && is_cart_of<AUX>(code))
+    t = cart_newton_at<T, CALL, AUX>(code, R, k, p[P_G1], p[P_G2], cf, lay, nc,
                                 niters + 1, xl, yl, zl, L, M, N);
   else
     t = code == STANDARD ? dist_standard(R, k, xl, yl, zl, L, M, N)
@@ -1130,10 +1452,11 @@ __device__ __forceinline__ T step_fwd(int code, int refl, int absorbs,
     }
   }
   T nx = T(0), ny = T(0), nz = T(-1);
-  if (CART && is_cart(code)) {
+  if (CART && is_cart_of<AUX>(code)) {
     // the normal's slopes (CHEBYSHEV: the reference's, and 1 / sqrt)
     CartPt<T> cp;
-    cart_point_at<T, false, true, CALL>(code, R, k, p[P_G1], p[P_G2], cf, nc,
+    cart_point_at<T, false, true, CALL, AUX>(code, R, k, p[P_G1], p[P_G2], cf,
+                                             lay, nc,
                                         x1, y1, cp);
     const T m2 = cp.sx * cp.sx + cp.sy * cp.sy + T(1);
     const T im = code == CHEBYSHEV ? T(1) / sqrt_(m2) : rsqrt_(m2);
@@ -1211,11 +1534,12 @@ __device__ __forceinline__ T step_fwd(int code, int refl, int absorbs,
 // point (x1, y1), and the cotangents of p1 and p2. CALL: the Cartesian work
 // out of line.
 template <typename T, bool FULL, bool TILT, bool SAG, bool CART = false,
-          bool CALL = false>
+          bool CALL = false, bool AUX = false>
 __device__ __forceinline__ void step_adjoint(int code, int refl, int absorbs,
                                              int tilted, const T* p,
                                              const T* rot, const T* cf,
-                                             int nc, int niters, T n_pre,
+                                             const T* lay, int nc,
+                                             int niters, T n_pre,
                                              T npost, T x, T y, T z, T L,
                                              T M, T N, T i_in, T* g, T* gc,
                                              T* gs = nullptr,
@@ -1224,7 +1548,7 @@ __device__ __forceinline__ void step_adjoint(int code, int refl, int absorbs,
   const T dx = p[P_DX], dy = p[P_DY];
   const bool std_ = code == STANDARD;
   const bool newton = SAG && is_radial(code);
-  const bool cart = CART && is_cart(code);
+  const bool cart = CART && is_cart_of<AUX>(code);
   const T p1 = p[P_G1], p2 = p[P_G2];
   const T g_nn = g[6];
 
@@ -1277,12 +1601,14 @@ __device__ __forceinline__ void step_adjoint(int code, int refl, int absorbs,
   }
   T sxs = T(0), sys = T(0);  // the slopes at the Newton point (CART)
   if (cart) {
-    t_s = cart_newton_at<T, CALL>(code, R, k, p1, p2, cf, nc, niters, xl, yl,
+    t_s = cart_newton_at<T, CALL, AUX>(code, R, k, p1, p2, cf, lay, nc, niters,
+                                       xl, yl,
                                   zl, L, M, N);
     Xs = xl + t_s * L;
     Ys = yl + t_s * M;
     CartPt<T> cp;
-    cart_point_at<T, false, false, CALL>(code, R, k, p1, p2, cf, nc, Xs, Ys,
+    cart_point_at<T, false, false, CALL, AUX>(code, R, k, p1, p2, cf, lay, nc,
+                                              Xs, Ys,
                                          cp);
     fN = zl + t_s * N - cp.s;
     sxs = cp.sx;
@@ -1316,7 +1642,8 @@ __device__ __forceinline__ void step_adjoint(int code, int refl, int absorbs,
   } else if (cart) {
     // the normal's slopes (CHEBYSHEV: the reference's, and 1 / sqrt)
     CartPt<T> cp;
-    cart_point_at<T, false, true, CALL>(code, R, k, p1, p2, cf, nc, x1, y1,
+    cart_point_at<T, false, true, CALL, AUX>(code, R, k, p1, p2, cf, lay, nc,
+                                             x1, y1,
                                         cp);
     fx = cp.sx;
     fy = cp.sy;
@@ -1454,7 +1781,8 @@ __device__ __forceinline__ void step_adjoint(int code, int refl, int absorbs,
     g_fx += T(2) * fx * g_mg;
     g_fy += T(2) * fy * g_mg;
     CartPt<T> cp;
-    cart_point_at<T, true, true, CALL>(code, R, k, p1, p2, cf, nc, x1, y1,
+    cart_point_at<T, true, true, CALL, AUX>(code, R, k, p1, p2, cf, lay, nc,
+                                            x1, y1,
                                        cp);
     g_x1 += g_fx * cp.hxx + g_fy * cp.hyx;
     g_y1 += g_fx * cp.hxy + g_fy * cp.hyy;
@@ -1462,7 +1790,7 @@ __device__ __forceinline__ void step_adjoint(int code, int refl, int absorbs,
     g_k += g_fx * cp.dk[1] + g_fy * cp.dk[2];
     g_p1 = g_fx * cp.dp1[1] + g_fy * cp.dp1[2];
     g_p2 = g_fx * cp.dp2[1] + g_fy * cp.dp2[2];
-    coef_weights(code, cp, T(0) * g_fx, g_fx, g_fy, w1);
+    coef_weights<T, AUX>(code, cp, T(0) * g_fx, g_fx, g_fy, w1);
   }
 
   // ---- propagate ----
@@ -1576,7 +1904,8 @@ __device__ __forceinline__ void step_adjoint(int code, int refl, int absorbs,
     gL -= g_fp * sxs;
     gM -= g_fp * sys;
     CartPt<T> cp;
-    cart_point_at<T, true, false, CALL>(code, R, k, p1, p2, cf, nc, Xs, Ys,
+    cart_point_at<T, true, false, CALL, AUX>(code, R, k, p1, p2, cf, lay, nc,
+                                             Xs, Ys,
                                         cp);
     const T g_X = g_s * cp.sx + g_sx * cp.hxx + g_sy * cp.hyx;
     const T g_Y = g_s * cp.sy + g_sx * cp.hxy + g_sy * cp.hyy;
@@ -1584,11 +1913,12 @@ __device__ __forceinline__ void step_adjoint(int code, int refl, int absorbs,
     g_k += g_s * cp.dk[0] + g_sx * cp.dk[1] + g_sy * cp.dk[2];
     g_p1 += g_s * cp.dp1[0] + g_sx * cp.dp1[1] + g_sy * cp.dp1[2];
     g_p2 += g_s * cp.dp2[0] + g_sx * cp.dp2[1] + g_sy * cp.dp2[2];
-    coef_weights(code, cp, g_s, g_sx, g_sy, gs);
+    coef_weights<T, AUX>(code, cp, g_s, g_sx, g_sy, gs);
     // a parameter the family's sag does not read gets no cotangent
     // (geometry.py: cart_reads)
     if (code == TOROIDAL) g_k = T(0);
     if (code == POLYNOMIAL_XY) g_p1 = g_p2 = T(0);
+    if (AUX && is_aux(code)) g_p2 = T(0);
     g_xl += g_X;
     g_yl += g_Y;
     gL += g_X * t_s;
@@ -1727,11 +2057,12 @@ __device__ __forceinline__ void load_coefs(const T* cf, int S, int nc,
 
 // The Newton surfaces' column blocks of a backward's partial row: ssag[s]
 // the index of surface s among them; returns how many there are.
+template <bool AUX>
 __device__ __forceinline__ int fill_sag(const int* sf, int S, int* ssag) {
   int n = 0;
   for (int s = 0; s < S; ++s) {
     ssag[s] = n;
-    if (is_newton(sf[s])) ++n;
+    if (is_newton_of<AUX>(sf[s])) ++n;
   }
   return n;
 }
@@ -1772,11 +2103,43 @@ __device__ __forceinline__ void add_coef_cols(const T* gs, int nc, int lane,
 // columns and its P_G1 and P_G2 columns (geometry.py: coef_columns), warp
 // sums in column order, added by lane 0 to the warp's row ``row`` from
 // column ``base``.
+// Expand an aux-bearing surface's weights gs (at the Newton point and at
+// the normal's point) into its nc slot columns (geometry.py: coef_columns):
+// slot j takes a psi_j + b d psi_j/dx + c d psi_j/dy at each point, warp
+// sums in column order, added by lane 0 to ``row`` from column ``base``.
+// Out of line, as aux_point_call.
 template <typename T>
-__device__ __forceinline__ void add_cart_cols(int code, const T* gs, int nc,
-                                              T p1, T p2, int lane, T* row,
+__device__ __noinline__ void add_aux_cols(int code, const T* gs, const T* lay,
+                                          int nc, T p1, int lane, T* row,
+                                          int base) {
+  const T eps = code == FORBES_Q2D ? T(Q2D_EPS) : T(0);
+  const T p12 = p1 * p1;
+  AuxSlots<T, false> ss, s1;
+  ss.start(gs[3], gs[4], p1, eps);
+  s1.start(gs[8], gs[9], p1, eps);
+  const T vxs = T(2) * gs[3] / p12, vys = T(2) * gs[4] / p12;
+  const T vx1 = T(2) * gs[8] / p12, vy1 = T(2) * gs[9] / p12;
+  for (int j = 0; j < nc; ++j) {
+    ss.next(lay + j * LAY_COLS);
+    s1.next(lay + j * LAY_COLS);
+    T v = gs[0] * (ss.A[0] * ss.F[0]) +
+          gs[1] * (ss.A[1] * ss.F[0] + ss.A[0] * ss.F[1] * vxs) +
+          gs[2] * (ss.A[2] * ss.F[0] + ss.A[0] * ss.F[1] * vys);
+    v = v + (gs[5] * (s1.A[0] * s1.F[0]) +
+             gs[6] * (s1.A[1] * s1.F[0] + s1.A[0] * s1.F[1] * vx1) +
+             gs[7] * (s1.A[2] * s1.F[0] + s1.A[0] * s1.F[1] * vy1));
+    v = warp_sum(v);
+    if (lane == 0) row[base + j] += v;
+  }
+}
+template <typename T, bool AUX = false>
+__device__ __forceinline__ void add_cart_cols(int code, const T* gs,
+                                              const T* lay, int nc, T p1,
+                                              T p2, int lane, T* row,
                                               int base) {
-  if (code == TOROIDAL) {
+  if (AUX && is_aux(code)) {
+    add_aux_cols(code, gs, lay, nc, p1, lane, row, base);
+  } else if (code == TOROIDAL) {
     T pw_s = gs[4], pw_1 = gs[9];
     for (int i = 0; i < nc; ++i) {
       T v = gs[0] * pw_s * gs[4] + gs[1] * T(2 * i + 2) * pw_s;
@@ -1825,12 +2188,33 @@ __device__ __forceinline__ void add_cart_cols(int code, const T* gs, int nc,
   }
 }
 
-// add_cart_cols out of line (the deep_free build, see cart_point_call).
+// add_cart_cols out of line (the deep builds, see cart_point_call).
 template <typename T>
 __device__ __noinline__ void add_cart_cols_call(int code, const T* gs, int nc,
                                                 T p1, T p2, int lane, T* row,
                                                 int base) {
-  add_cart_cols(code, gs, nc, p1, p2, lane, row, base);
+  add_cart_cols<T>(code, gs, nullptr, nc, p1, p2, lane, row, base);
+}
+template <typename T>
+__device__ __noinline__ void add_cart_cols_aux_call(int code, const T* gs,
+                                                    const T* lay, int nc,
+                                                    T p1, T p2, int lane,
+                                                    T* row, int base) {
+  add_cart_cols<T, true>(code, gs, lay, nc, p1, p2, lane, row, base);
+}
+
+// add_cart_cols, in line or (CALL) out of line.
+template <typename T, bool CALL, bool AUX>
+__device__ __forceinline__ void add_cart_cols_at(int code, const T* gs,
+                                                 const T* lay, int nc, T p1,
+                                                 T p2, int lane, T* row,
+                                                 int base) {
+  if constexpr (CALL && AUX)
+    add_cart_cols_aux_call(code, gs, lay, nc, p1, p2, lane, row, base);
+  else if constexpr (CALL)
+    add_cart_cols_call(code, gs, nc, p1, p2, lane, row, base);
+  else
+    add_cart_cols<T, AUX>(code, gs, lay, nc, p1, p2, lane, row, base);
 }
 
 // The block's partial row of the summed gradients: the sum of the nw

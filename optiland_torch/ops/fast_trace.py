@@ -33,7 +33,9 @@ circular clip are traced, a tilted surface's rotations (the spec's tilt
 flags), the annular clip of a RadialAperture with r_min > 0 (the spec's
 ``inner`` flags) and the Newton intersection of the radial aspheres and
 the Cartesian freeforms, which read the (S, nc) coefficient table (and
-the freeforms the P_G1 and P_G2 columns); the backwards give their
+the freeforms the P_G1 and P_G2 columns; the aux-bearing ones their
+laid-out rows and the layout table, ``launch.kernel_tables``); the
+backwards give their
 gradients. As in
 the JAX package's kernels, the
 Beer-Lambert factor is applied only where the medium before the surface
@@ -57,8 +59,9 @@ from optiland_torch.ops.fused_trace import (
 )
 from optiland_torch.ops.launch import (
     BWD_BLOCK, BWD_MAX_BLOCKS, N_AIM, build_of, check_cuda_inputs, covered,
-    device_of, flags, inner_flags, launch_from_pupil, launch_key,
-    sag_columns, sag_surfaces, unsupported, with_builds,
+    device_of, device_table, flags, inner_flags, kernel_tables,
+    launch_from_pupil, launch_key, lay_row, sag_columns, sag_surfaces,
+    unsupported, with_builds,
 )
 from optiland_torch.ops.step import (
     FULL_GRAD_COLS, NUM_P, P_NPOST, split_cols, step_adjoint_plain,
@@ -127,7 +130,8 @@ def fast_spec(system, field=False, newton_iters=10):
     flags. ``field`` asks for the field kernels, which also need an
     infinite-conjugate angle field. Coverage is that of the merit kernels:
     PLANE, STANDARD and the Newton families (EVEN_ASPHERE, ODD_ASPHERE,
-    POLYNOMIAL_XY, CHEBYSHEV, TOROIDAL, BICONIC) surfaces, tilted or not,
+    POLYNOMIAL_XY, CHEBYSHEV, TOROIDAL, BICONIC, ZERNIKE_SAG, FORBES_QBFS,
+    FORBES_Q2D) surfaces, tilted or not,
     RadialAperture objects and no others, no interactions or BSDFs (the
     other families of kernel K6 come in a later slice), and no coatings or
     polarization (the polarized kernels of ``ops/pol_trace.py`` take
@@ -190,12 +194,13 @@ def _n_of(spec, mats, s, w):
 
 
 def _chain_plain(params, spec, st, keep=False, mats=None, w=None,
-                 coeffs=None):
+                 coeffs=None, lay=None):
     """Final state of the full chain; with ``keep`` also the per-surface
     input states and n_pre that the adjoint replays. With the per-ray
     wavelengths ``w`` (and the coefficient rows ``mats``) the chain is
     polychromatic: every index comes from its formula and nothing
-    absorbs. ``coeffs`` is the geometry coefficient table."""
+    absorbs. ``coeffs`` is the geometry coefficient table, ``lay`` the
+    layout table of its aux-bearing rows (``launch.kernel_tables``)."""
     codes, refl, absorbs = spec[:3]
     inner, niters = spec[-2], spec[-1]
     poly = w is not None
@@ -208,7 +213,7 @@ def _chain_plain(params, spec, st, keep=False, mats=None, w=None,
         st, n_pre = step_plain(codes[s], refl[s], params[s], n_pre, st,
                                absorbs[s] and not poly, n_post=n_post,
                                c=coef_row(coeffs, s), newton_iters=niters,
-                               inner=inner[s])
+                               inner=inner[s], lay=lay_row(lay, codes[s], s))
     return (st, states) if keep else st
 
 
@@ -217,20 +222,20 @@ def _field_launch(aim, Px, Py):
                                               torch.zeros_like(Px))
 
 
-def trace_fast_plain(params, spec, rays, coeffs=None):
+def trace_fast_plain(params, spec, rays, coeffs=None, lay=None):
     """Plain version of the trace_fwd kernel: the 8 final arrays of the 8
     launch arrays ``rays``."""
-    return _chain_plain(params, spec, tuple(rays), coeffs=coeffs)
+    return _chain_plain(params, spec, tuple(rays), coeffs=coeffs, lay=lay)
 
 
-def trace_fast_field_plain(params, aim, spec, Px, Py, coeffs=None):
+def trace_fast_field_plain(params, aim, spec, Px, Py, coeffs=None, lay=None):
     """Plain version of the trace_field_fwd kernel."""
     return _chain_plain(params, spec, _field_launch(aim, Px, Py),
-                        coeffs=coeffs)
+                        coeffs=coeffs, lay=lay)
 
 
 def _sweep_plain(params, spec, st0, cots, mats=None, w=None, coeffs=None,
-                 nc=1):
+                 nc=1, lay=None):
     """The hand-derived reverse sweep from the 8 output cotangents: returns
     the 8 per-ray cotangents of the launch state, the (S, NUM_P) param
     table gradient and the (S, nc) gradient of the coefficient table
@@ -244,7 +249,7 @@ def _sweep_plain(params, spec, st0, cots, mats=None, w=None, coeffs=None,
     poly = w is not None
     with torch.no_grad():
         _, states = _chain_plain(params, spec, st0, keep=True, mats=mats,
-                                 w=w, coeffs=coeffs)
+                                 w=w, coeffs=coeffs, lay=lay)
         g = tuple(cots[:6]) + (torch.zeros_like(st0[0]),) + tuple(cots[6:])
         dparams = params.new_zeros((S, NUM_P))
         dcoeffs = params.new_zeros((S, nc))
@@ -265,6 +270,7 @@ def _sweep_plain(params, spec, st0, cots, mats=None, w=None, coeffs=None,
                 codes[s], refl[s], params[s], n_pre, st, g,
                 absorbs[s] and not poly, tilted=tilted[s], n_post=n_post,
                 c=coef_row(coeffs, s), newton_iters=niters, inner=inner[s],
+                lay=lay_row(lay, codes[s], s),
             )
             pairs, coef = split_cols(codes[s], cols, FULL_GRAD_COLS, nc)
             for j, v in enumerate(coef):
@@ -284,22 +290,24 @@ def _sweep_plain(params, spec, st0, cots, mats=None, w=None, coeffs=None,
     return (g[:6] + g[7:], dparams, dcoeffs) + ((dmats,) if poly else ())
 
 
-def trace_fast_bwd_plain(params, spec, nc, rays, cots, coeffs=None):
+def trace_fast_bwd_plain(params, spec, nc, rays, cots, coeffs=None,
+                         lay=None):
     """Plain version of the trace_bwd kernel: (the 8 per-ray input
     cotangents, the flat gradient in the layout (S * NUM_P params, S * nc
     coeffs))."""
     din, dparams, dcoeffs = _sweep_plain(params, spec, tuple(rays), cots,
-                                         coeffs=coeffs, nc=nc)
+                                         coeffs=coeffs, nc=nc, lay=lay)
     return din, torch.cat([dparams.reshape(-1), dcoeffs.reshape(-1)])
 
 
 def trace_fast_field_bwd_plain(params, aim, spec, nc, Px, Py, cots,
-                               coeffs=None):
+                               coeffs=None, lay=None):
     """Plain version of the trace_field_bwd kernel: the flat gradient in the
     layout (S * NUM_P params, S * nc coeffs, N_AIM aim). The pupil samples
     get no cotangent."""
     din, dparams, dcoeffs = _sweep_plain(
-        params, spec, _field_launch(aim, Px, Py), cots, coeffs=coeffs, nc=nc)
+        params, spec, _field_launch(aim, Px, Py), cots, coeffs=coeffs, nc=nc,
+        lay=lay)
     gx, gy, gz, gL, gM, gN = din[:6]
     with torch.no_grad():
         daim = torch.stack([
@@ -309,22 +317,23 @@ def trace_fast_field_bwd_plain(params, aim, spec, nc, Px, Py, cots,
     return torch.cat([dparams.reshape(-1), dcoeffs.reshape(-1), daim])
 
 
-def trace_fwd_poly_plain(params, mats, spec, rays, coeffs=None):
+def trace_fwd_poly_plain(params, mats, spec, rays, coeffs=None, lay=None):
     """Plain version of the trace_fwd_poly kernel: the 8 final arrays of
     the 9 launch arrays ``rays`` (the 8, then the wavelengths in um)."""
     rays = tuple(rays)
     return _chain_plain(params, spec, rays[:8], mats=mats, w=rays[8],
-                        coeffs=coeffs)
+                        coeffs=coeffs, lay=lay)
 
 
-def trace_bwd_poly_plain(params, mats, spec, nc, rays, cots, coeffs=None):
+def trace_bwd_poly_plain(params, mats, spec, nc, rays, cots, coeffs=None,
+                         lay=None):
     """Plain version of the trace_bwd_poly kernel: (the 8 per-ray input
     cotangents, the flat gradient in the layout (S * NUM_P params, S * nc
     coeffs, S * nm coefficient rows)). The wavelengths get no cotangent."""
     rays = tuple(rays)
     din, dparams, dcoeffs, dmats = _sweep_plain(
         params, spec, rays[:8], cots, mats=mats, w=rays[8], coeffs=coeffs,
-        nc=nc)
+        nc=nc, lay=lay)
     return din, torch.cat([dparams.reshape(-1), dcoeffs.reshape(-1),
                            dmats.reshape(-1)])
 
@@ -342,18 +351,19 @@ def _bwd_blocks(R):
     return max(1, min(-(-R // BWD_BLOCK), BWD_MAX_BLOCKS))
 
 
-def _launch(name, params, spec, coeffs, before, rest):
+def _launch(name, params, spec, coeffs, lay, before, rest):
     """Launch kernel ``name`` with (params, ``before``, flags, S, build,
-    coeffs, nc, newton_iters, ``rest``)."""
+    the coefficient and layout tables, nc, newton_iters, ``rest``)."""
     from optiland_torch.ops import _cuda
 
     build = _build(spec)
+    table = device_table(coeffs, lay)  # held until the launch is queued
     with torch.cuda.device(params.device):
         rc = _cuda.call(
             name, params.dtype, params.data_ptr(), *before,
             # the flag rows: all but the annular flags and newton_iters
             flags(spec[:-2], params.device).data_ptr(), len(spec[0]), build,
-            coeffs.data_ptr(), coeffs.shape[1], spec[-1], *rest,
+            table.data_ptr(), coeffs.shape[1], spec[-1], *rest,
             _cuda.stream(),
         )
     _cuda.check(rc, name)
@@ -371,78 +381,80 @@ def _partial(params, spec, nc, n_extra, R):
     return params.new_empty((nb, ncomp)), nb, nsag
 
 
-def trace_fwd(params, spec, rays, coeffs=None):
+def trace_fwd(params, spec, rays, coeffs=None, lay=None):
     """The 8 final arrays of the 8 launch arrays ``rays``: the trace_fwd
     kernel on a CUDA device, its plain version on the CPU. ``coeffs`` is
-    the (S, nc) coefficient table (None: zeros)."""
+    the (S, nc) coefficient table (None: zeros), ``lay`` the layout table
+    of its aux-bearing rows (``launch.kernel_tables``)."""
     if device_of(params.device, "trace_fwd") == "cpu":
-        return trace_fast_plain(params, spec, rays, coeffs)
+        return trace_fast_plain(params, spec, rays, coeffs, lay)
     from optiland_torch.ops import _cuda
 
     rays = tuple(rays)
     coeffs = _coeffs_or_zeros(coeffs, params)
-    check_cuda_inputs(params, spec, rays, coeffs=coeffs)
+    check_cuda_inputs(params, spec, rays, coeffs=coeffs, lay=lay)
     out = _empty8(rays[0])
-    _launch("trace_fwd", params, spec, coeffs, (),
+    _launch("trace_fwd", params, spec, coeffs, lay, (),
             (_cuda.pointers(rays), rays[0].shape[0], _cuda.pointers(out)))
     return tuple(out)
 
 
-def trace_bwd(params, spec, nc, rays, cots, coeffs=None):
+def trace_bwd(params, spec, nc, rays, cots, coeffs=None, lay=None):
     """(8 per-ray input cotangents, flat (S * NUM_P + S * nc) gradient) for
     the 8 output cotangents ``cots``: the trace_bwd kernel and its
     fixed-order reduction on a CUDA device, the plain version on the CPU."""
     if device_of(params.device, "trace_bwd") == "cpu":
-        return trace_fast_bwd_plain(params, spec, nc, rays, cots, coeffs)
+        return trace_fast_bwd_plain(params, spec, nc, rays, cots, coeffs, lay)
     from optiland_torch.ops import _cuda
 
     rays, cots = tuple(rays), tuple(cots)
     coeffs = _coeffs_or_zeros(coeffs, params)
-    check_cuda_inputs(params, spec, rays + cots, coeffs=coeffs)
+    check_cuda_inputs(params, spec, rays + cots, coeffs=coeffs, lay=lay)
     _check_nc(coeffs, nc)
     S, R = len(spec[0]), rays[0].shape[0]
     partial, nb, nsag = _partial(params, spec, nc, 0, R)
     din = _empty8(rays[0])
     out = params.new_zeros(S * (NUM_P + nc))
-    _launch("trace_bwd", params, spec, coeffs, (),
+    _launch("trace_bwd", params, spec, coeffs, lay, (),
             (nsag, _cuda.pointers(rays), _cuda.pointers(cots), R,
              _cuda.pointers(din), partial.data_ptr(), nb, out.data_ptr()))
     return tuple(din), out
 
 
-def trace_field_fwd(params, aim, spec, Px, Py, coeffs=None):
+def trace_field_fwd(params, aim, spec, Px, Py, coeffs=None, lay=None):
     """The 8 final arrays of the rays launched from the pupil samples: the
     trace_field_fwd kernel on a CUDA device, its plain version on the
     CPU."""
     if device_of(params.device, "trace_field_fwd") == "cpu":
-        return trace_fast_field_plain(params, aim, spec, Px, Py, coeffs)
+        return trace_fast_field_plain(params, aim, spec, Px, Py, coeffs, lay)
     from optiland_torch.ops import _cuda
 
     coeffs = _coeffs_or_zeros(coeffs, params)
-    check_cuda_inputs(params, spec, (Px, Py), aim, coeffs)
+    check_cuda_inputs(params, spec, (Px, Py), aim, coeffs, lay)
     out = _empty8(Px)
-    _launch("trace_field_fwd", params, spec, coeffs, (aim.data_ptr(),),
+    _launch("trace_field_fwd", params, spec, coeffs, lay, (aim.data_ptr(),),
             (Px.data_ptr(), Py.data_ptr(), Px.shape[0], _cuda.pointers(out)))
     return tuple(out)
 
 
-def trace_field_bwd(params, aim, spec, nc, Px, Py, cots, coeffs=None):
+def trace_field_bwd(params, aim, spec, nc, Px, Py, cots, coeffs=None,
+                    lay=None):
     """Flat (S * NUM_P + S * nc + N_AIM) gradient for the 8 output
     cotangents ``cots``: the trace_field_bwd kernel and its fixed-order
     reduction on a CUDA device, the plain version on the CPU."""
     if device_of(params.device, "trace_field_bwd") == "cpu":
         return trace_fast_field_bwd_plain(params, aim, spec, nc, Px, Py, cots,
-                                          coeffs)
+                                          coeffs, lay)
     from optiland_torch.ops import _cuda
 
     cots = tuple(cots)
     coeffs = _coeffs_or_zeros(coeffs, params)
-    check_cuda_inputs(params, spec, (Px, Py) + cots, aim, coeffs)
+    check_cuda_inputs(params, spec, (Px, Py) + cots, aim, coeffs, lay)
     _check_nc(coeffs, nc)
     S, R = len(spec[0]), Px.shape[0]
     partial, nb, nsag = _partial(params, spec, nc, N_AIM, R)
     out = params.new_zeros(S * (NUM_P + nc) + N_AIM)
-    _launch("trace_field_bwd", params, spec, coeffs, (aim.data_ptr(),),
+    _launch("trace_field_bwd", params, spec, coeffs, lay, (aim.data_ptr(),),
             (nsag, Px.data_ptr(), Py.data_ptr(), _cuda.pointers(cots), R,
              partial.data_ptr(), nb, out.data_ptr()))
     return out
@@ -454,8 +466,8 @@ def _check_nc(coeffs, nc):
                          f"({coeffs.shape[1]})")
 
 
-def _check_poly(params, mats, spec, arrays, coeffs):
-    check_cuda_inputs(params, spec, arrays, coeffs=coeffs)
+def _check_poly(params, mats, spec, arrays, coeffs, lay):
+    check_cuda_inputs(params, spec, arrays, coeffs=coeffs, lay=lay)
     if len(spec) != 7 or any(f not in POLY_FORMULAS for f in spec[4]):
         raise ValueError("the polychromatic kernels take a spec with a "
                          "formula code (not TABULATED_N) per surface")
@@ -468,43 +480,44 @@ def _check_poly(params, mats, spec, arrays, coeffs):
                          f"1 <= nm <= {MAX_NM}")
 
 
-def trace_fwd_poly(params, mats, spec, rays, coeffs=None):
+def trace_fwd_poly(params, mats, spec, rays, coeffs=None, lay=None):
     """The 8 final arrays of the 9 launch arrays ``rays`` (the last the
     per-ray wavelengths): the trace_fwd_poly kernel on a CUDA device, its
     plain version on the CPU."""
     if device_of(params.device, "trace_fwd_poly") == "cpu":
-        return trace_fwd_poly_plain(params, mats, spec, rays, coeffs)
+        return trace_fwd_poly_plain(params, mats, spec, rays, coeffs, lay)
     from optiland_torch.ops import _cuda
 
     rays = tuple(rays)
     coeffs = _coeffs_or_zeros(coeffs, params)
-    _check_poly(params, mats, spec, rays, coeffs)
+    _check_poly(params, mats, spec, rays, coeffs, lay)
     out = _empty8(rays[0])
-    _launch("trace_fwd_poly", params, spec, coeffs, (mats.data_ptr(),),
+    _launch("trace_fwd_poly", params, spec, coeffs, lay, (mats.data_ptr(),),
             (mats.shape[1], _cuda.pointers(rays), rays[0].shape[0],
              _cuda.pointers(out)))
     return tuple(out)
 
 
-def trace_bwd_poly(params, mats, spec, nc, rays, cots, coeffs=None):
+def trace_bwd_poly(params, mats, spec, nc, rays, cots, coeffs=None,
+                   lay=None):
     """(8 per-ray input cotangents, flat (S * NUM_P + S * nc + S * nm)
     gradient) for the 8 output cotangents ``cots`` of a polychromatic
     trace: the trace_bwd_poly kernel and its fixed-order reduction on a
     CUDA device, the plain version on the CPU."""
     if device_of(params.device, "trace_bwd_poly") == "cpu":
         return trace_bwd_poly_plain(params, mats, spec, nc, rays, cots,
-                                    coeffs)
+                                    coeffs, lay)
     from optiland_torch.ops import _cuda
 
     rays, cots = tuple(rays), tuple(cots)
     coeffs = _coeffs_or_zeros(coeffs, params)
-    _check_poly(params, mats, spec, rays + cots, coeffs)
+    _check_poly(params, mats, spec, rays + cots, coeffs, lay)
     _check_nc(coeffs, nc)
     S, R, nm = len(spec[0]), rays[0].shape[0], mats.shape[1]
     partial, nb, nsag = _partial(params, spec, nc, S * nm, R)
     din = _empty8(rays[0])
     out = params.new_zeros(S * (NUM_P + nc + nm))
-    _launch("trace_bwd_poly", params, spec, coeffs, (mats.data_ptr(),),
+    _launch("trace_bwd_poly", params, spec, coeffs, lay, (mats.data_ptr(),),
             (nsag, nm, _cuda.pointers(rays), _cuda.pointers(cots), R,
              _cuda.pointers(din), partial.data_ptr(), nb, out.data_ptr()))
     return tuple(din), out
@@ -525,19 +538,20 @@ class _TraceFast(torch.autograd.Function):
     """8 launch arrays -> 8 final arrays; backward = trace_bwd."""
 
     @staticmethod
-    def forward(ctx, params, coeffs, spec, *rays):
-        out = trace_fwd(params, spec, rays, coeffs)
+    def forward(ctx, params, coeffs, lay, spec, *rays):
+        out = trace_fwd(params, spec, rays, coeffs, lay)
         ctx.save_for_backward(params, coeffs, *rays)
-        ctx.spec, ctx.nc = spec, coeffs.shape[1]
+        ctx.spec, ctx.nc, ctx.lay = spec, coeffs.shape[1], lay
         return out
 
     @staticmethod
     def backward(ctx, *g):
         params, coeffs, *rays = ctx.saved_tensors
         cots = [c.contiguous() for c in g]
-        din, flat = trace_bwd(params, ctx.spec, ctx.nc, rays, cots, coeffs)
+        din, flat = trace_bwd(params, ctx.spec, ctx.nc, rays, cots, coeffs,
+                              ctx.lay)
         dparams, dcoeffs, _ = _split(flat, len(ctx.spec[0]), ctx.nc)
-        return (dparams, dcoeffs, None) + tuple(din)
+        return (dparams, dcoeffs, None, None) + tuple(din)
 
 
 class _TraceFastField(torch.autograd.Function):
@@ -545,10 +559,10 @@ class _TraceFastField(torch.autograd.Function):
     samples get no gradient, as in the JAX package)."""
 
     @staticmethod
-    def forward(ctx, params, coeffs, aim, Px, Py, spec):
-        out = trace_field_fwd(params, aim, spec, Px, Py, coeffs)
+    def forward(ctx, params, coeffs, lay, aim, Px, Py, spec):
+        out = trace_field_fwd(params, aim, spec, Px, Py, coeffs, lay)
         ctx.save_for_backward(params, coeffs, aim, Px, Py)
-        ctx.spec, ctx.nc = spec, coeffs.shape[1]
+        ctx.spec, ctx.nc, ctx.lay = spec, coeffs.shape[1], lay
         return out
 
     @staticmethod
@@ -556,16 +570,9 @@ class _TraceFastField(torch.autograd.Function):
         params, coeffs, aim, Px, Py = ctx.saved_tensors
         cots = [c.contiguous() for c in g]
         flat = trace_field_bwd(params, aim, ctx.spec, ctx.nc, Px, Py, cots,
-                               coeffs)
+                               coeffs, ctx.lay)
         dparams, dcoeffs, daim = _split(flat, len(ctx.spec[0]), ctx.nc)
-        return dparams, dcoeffs, daim, None, None, None
-
-
-def _coeffs(system, dtype):
-    coeffs = system.stack.coeffs
-    if coeffs.shape[1] == 0:
-        coeffs = coeffs.new_zeros((coeffs.shape[0], 1))
-    return coeffs.to(dtype).contiguous()
+        return dparams, dcoeffs, None, daim, None, None, None
 
 
 def trace_fast(system, rays, wavelength, newton_iters: int = 10):
@@ -583,7 +590,7 @@ def trace_fast(system, rays, wavelength, newton_iters: int = 10):
     params = build_param_table(system, wavelength).to(dt)
     ray_in = [getattr(rays, k).to(dt).contiguous() for k in RAY_FIELDS]
     x, y, z, L, M, N, i, opd = _TraceFast.apply(
-        params, _coeffs(system, dt), spec, *ray_in
+        params, *kernel_tables(system, dt), spec, *ray_in
     )
     return RealRays(x=x, y=y, z=z, L=L, M=M, N=N, i=i, w=rays.w, opd=opd)
 
@@ -605,7 +612,7 @@ def trace_fast_field(system, Hx, Hy, Px, Py, wavelength,
     Px = torch.as_tensor(Px, dtype=dt, device=params.device).contiguous()
     Py = torch.as_tensor(Py, dtype=dt, device=params.device).contiguous()
     x, y, z, L, M, N, i, opd = _TraceFastField.apply(
-        params, _coeffs(system, dt), aim, Px, Py, spec
+        params, *kernel_tables(system, dt), aim, Px, Py, spec
     )
     w = torch.zeros_like(x) + scalar_like(wavelength, x)
     return RealRays(x=x, y=y, z=z, L=L, M=M, N=N, i=i, w=w, opd=opd)
@@ -617,10 +624,10 @@ class _TraceFastPoly(torch.autograd.Function):
     the JAX package, which treats them as sampling data)."""
 
     @staticmethod
-    def forward(ctx, params, coeffs, mats, spec, *rays):
-        out = trace_fwd_poly(params, mats, spec, rays, coeffs)
+    def forward(ctx, params, coeffs, lay, mats, spec, *rays):
+        out = trace_fwd_poly(params, mats, spec, rays, coeffs, lay)
         ctx.save_for_backward(params, coeffs, mats, *rays)
-        ctx.spec, ctx.nc = spec, coeffs.shape[1]
+        ctx.spec, ctx.nc, ctx.lay = spec, coeffs.shape[1], lay
         return out
 
     @staticmethod
@@ -628,11 +635,11 @@ class _TraceFastPoly(torch.autograd.Function):
         params, coeffs, mats, *rays = ctx.saved_tensors
         cots = [c.contiguous() for c in g]
         din, flat = trace_bwd_poly(params, mats, ctx.spec, ctx.nc, rays, cots,
-                                   coeffs)
+                                   coeffs, ctx.lay)
         S = len(ctx.spec[0])
         dparams, dcoeffs, dmats = _split(flat, S, ctx.nc)
-        return ((dparams, dcoeffs, dmats.reshape(S, -1), None) + tuple(din)
-                + (torch.zeros_like(rays[8]),))
+        return ((dparams, dcoeffs, None, dmats.reshape(S, -1), None)
+                + tuple(din) + (torch.zeros_like(rays[8]),))
 
 
 def build_poly_table(system):
@@ -675,6 +682,6 @@ def trace_fast_poly(system, rays, newton_iters: int = 10):
     ray_in = [getattr(rays, k).to(dt).contiguous()
               for k in RAY_FIELDS + ("w",)]
     x, y, z, L, M, N, i, opd = _TraceFastPoly.apply(
-        params, _coeffs(system, dt), mats.contiguous(), spec, *ray_in
+        params, *kernel_tables(system, dt), mats.contiguous(), spec, *ray_in
     )
     return RealRays(x=x, y=y, z=z, L=L, M=M, N=N, i=i, w=rays.w, opd=opd)

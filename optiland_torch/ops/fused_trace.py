@@ -33,7 +33,9 @@ The merit reads only the final x and y of each ray, so intensity, OPD,
 absorption and the aperture clips are not traced: as in the JAX package,
 every in-range ray counts in the statistics whatever its intensity. A
 surface of a Newton family (EVEN_ASPHERE, ODD_ASPHERE, POLYNOMIAL_XY,
-CHEBYSHEV, TOROIDAL, BICONIC) reads its row of the coefficient table (the
+CHEBYSHEV, TOROIDAL, BICONIC, ZERNIKE_SAG, FORBES_QBFS, FORBES_Q2D; the
+last three laid out, with the layout table ``lay``) reads its row of the
+coefficient table (the
 Cartesian ones also P_G1 and P_G2), and the backward gives their
 gradients.
 """
@@ -50,8 +52,9 @@ from optiland_torch.core.system import (
 )
 from optiland_torch.ops.launch import (
     BWD_BLOCK, BWD_MAX_BLOCKS, FWD_BLOCK, N_AIM, build_of, check_cuda_inputs,
-    check_dtype, covered, device_of, flags, launch_from_pupil, launch_key,
-    sag_columns, sag_surfaces, unsupported, with_builds,
+    check_dtype, covered, device_of, device_table, flags, kernel_tables,
+    launch_from_pupil, launch_key, lay_row, sag_columns, sag_surfaces,
+    unsupported, with_builds,
 )
 from optiland_torch.ops.step import (
     GRAD_COLS, NUM_P, P_NPOST, split_cols, step_adjoint_plain, step_plain,
@@ -107,9 +110,9 @@ def _build(spec):
 def fused_supported(system) -> bool:
     """True when the fused merit kernels cover this system: what
     ``launch.covered`` lists, tilted surfaces, the radial aspheres, the
-    Cartesian freeforms and RadialAperture objects included. The other
-    families of kernel K6 (ZERNIKE_SAG, the Forbes families, gratings,
-    NURBS) come in a later slice."""
+    Cartesian freeforms (the aux-bearing ZERNIKE_SAG and Forbes families
+    among them) and RadialAperture objects included. The other families
+    of kernel K6 (gratings, NURBS) come in a later slice."""
     return covered(system.cfg)
 
 
@@ -332,10 +335,12 @@ def coef_row(coeffs, s):
     return None if coeffs is None else coeffs[s]
 
 
-def trace_xy_plain(params, aim, spec, Px, Py, keep=False, coeffs=None):
+def trace_xy_plain(params, aim, spec, Px, Py, keep=False, coeffs=None,
+                   lay=None):
     """Final (x, y) of every ray; with ``keep`` also the per-surface input
     states (x, y, z, L, M, N, n_pre) that the adjoint replays. ``coeffs``
-    is the (S, nc) coefficient table the Newton families read."""
+    is the (S, nc) coefficient table the Newton families read, ``lay``
+    the layout table of its aux-bearing rows (``launch.kernel_tables``)."""
     codes, refl = spec[0], spec[1]
     st = launch_from_pupil(aim, Px, Py)
     n_pre = params[0, P_NPOST]
@@ -344,7 +349,8 @@ def trace_xy_plain(params, aim, spec, Px, Py, keep=False, coeffs=None):
         if keep:
             states.append((st, n_pre))
         st, n_pre = step_plain(codes[s], refl[s], params[s], n_pre, st,
-                               c=coef_row(coeffs, s), newton_iters=spec[-1])
+                               c=coef_row(coeffs, s), newton_iters=spec[-1],
+                               lay=lay_row(lay, codes[s], s))
     return (st[0], st[1], states) if keep else (st[0], st[1])
 
 
@@ -355,11 +361,11 @@ def _pupil(R, seed, offset, Px, Py, dtype, device):
 
 
 def merit_fwd_plain(params, aim, spec, R, seed=0, offset=0, Px=None, Py=None,
-                    block=FWD_BLOCK, coeffs=None):
+                    block=FWD_BLOCK, coeffs=None, lay=None):
     """Plain version of the merit_fwd kernel: (blocks, 5) rows of
     (mean_x, mean_y, M2x, M2y, n) about each block's own centroid."""
     Px, Py = _pupil(R, seed, offset, Px, Py, params.dtype, params.device)
-    x, y = trace_xy_plain(params, aim, spec, Px, Py, coeffs=coeffs)
+    x, y = trace_xy_plain(params, aim, spec, Px, Py, coeffs=coeffs, lay=lay)
     nb = -(-R // block)
     pad = nb * block - R
     valid = torch.arange(nb * block, device=x.device) < R
@@ -383,26 +389,28 @@ def _coeffs_or_zeros(coeffs, params):
 
 
 def merit_fwd(params, aim, spec, R, seed=0, offset=0, Px=None, Py=None,
-              coeffs=None):
+              coeffs=None, lay=None):
     """(blocks, 5) per-block Chan rows of the traced spot. PRNG mode when
     ``Px`` is None. CUDA kernel on a CUDA device, plain version on the
-    CPU. ``coeffs`` is the (S, nc) coefficient table (None: zeros)."""
+    CPU. ``coeffs`` is the (S, nc) coefficient table (None: zeros), ``lay``
+    the layout table of its aux-bearing rows."""
     if device_of(params.device, "merit_fwd") == "cpu":
         return merit_fwd_plain(params, aim, spec, R, seed, offset, Px, Py,
-                               coeffs=coeffs)
+                               coeffs=coeffs, lay=lay)
     from optiland_torch.ops import _cuda
 
     coeffs = _coeffs_or_zeros(coeffs, params)
-    check_cuda_inputs(params, spec, (Px, Py), aim, coeffs)
+    check_cuda_inputs(params, spec, (Px, Py), aim, coeffs, lay)
     nb = -(-R // FWD_BLOCK)
     rows = torch.empty((nb, 5), dtype=params.dtype, device=params.device)
     prng = Px is None
     build = _build(spec)
+    table = device_table(coeffs, lay)  # held until the launch is queued
     with torch.cuda.device(params.device):
         rc = _cuda.call(
             "merit_fwd", params.dtype, params.data_ptr(), aim.data_ptr(),
             flags(spec[:-1], params.device).data_ptr(), len(spec[0]), build,
-            coeffs.data_ptr(), coeffs.shape[1], spec[-1],
+            table.data_ptr(), coeffs.shape[1], spec[-1],
             None if prng else Px.data_ptr(), None if prng else Py.data_ptr(),
             int(R), int(seed) & ((1 << 64) - 1), int(offset), int(prng),
             rows.data_ptr(), _cuda.stream(),
@@ -418,7 +426,7 @@ def merit_fwd(params, aim, spec, R, seed=0, offset=0, Px=None, Py=None,
 
 
 def merit_bwd_plain(params, aim, stats, spec, nc, R, seed=0, offset=0,
-                    Px=None, Py=None, coeffs=None):
+                    Px=None, Py=None, coeffs=None, lay=None):
     """Plain version of the merit_bwd kernel: the hand-derived reverse sweep
     in torch tensor ops, one tensor per ray quantity. Returns the flat
     gradient in the layout (S * NUM_P params, S * nc coeffs, N_AIM aim)."""
@@ -428,7 +436,7 @@ def merit_bwd_plain(params, aim, stats, spec, nc, R, seed=0, offset=0,
     dcoeffs = torch.zeros((S, nc), dtype=params.dtype, device=params.device)
     with torch.no_grad():
         x, y, states = trace_xy_plain(params, aim, spec, Px, Py, keep=True,
-                                      coeffs=coeffs)
+                                      coeffs=coeffs, lay=lay)
         xbar, ybar, scale = stats[0], stats[1], stats[2]
         zero = torch.zeros_like(x)
         g = (2 * scale * (x - xbar), 2 * scale * (y - ybar),
@@ -440,6 +448,7 @@ def merit_bwd_plain(params, aim, stats, spec, nc, R, seed=0, offset=0,
             g_in, g_npre, g6 = step_adjoint_plain(
                 codes[s], refl[s], params[s], n_pre, st, g, tilted=tilted[s],
                 c=coef_row(coeffs, s), newton_iters=niters,
+                lay=lay_row(lay, codes[s], s),
             )
             pairs, coef = split_cols(codes[s], g6, GRAD_COLS, nc)
             for col, v in pairs:
@@ -467,7 +476,7 @@ def _bwd_block(tile):
 
 
 def merit_bwd(params, aim, stats, spec, nc, R, seed=0, offset=0, Px=None,
-              Py=None, block=None, coeffs=None):
+              Py=None, block=None, coeffs=None, lay=None):
     """Flat merit gradient (S * NUM_P + S * nc + N_AIM) for the seed
     ``stats`` = [xbar, ybar, g / R, 0]. CUDA kernels on a CUDA device (one
     partial row per block of ``block`` rays, then a fixed-order sum of the
@@ -477,11 +486,11 @@ def merit_bwd(params, aim, stats, spec, nc, R, seed=0, offset=0, Px=None,
     block = _bwd_block(block)
     if device_of(params.device, "merit_bwd") == "cpu":
         return merit_bwd_plain(params, aim, stats, spec, nc, R, seed, offset,
-                               Px, Py, coeffs=coeffs)
+                               Px, Py, coeffs=coeffs, lay=lay)
     from optiland_torch.ops import _cuda
 
     coeffs = _coeffs_or_zeros(coeffs, params)
-    check_cuda_inputs(params, spec, (Px, Py), aim, coeffs)
+    check_cuda_inputs(params, spec, (Px, Py), aim, coeffs, lay)
     if coeffs.shape[1] != nc:
         raise ValueError("nc must be the coefficient table's width")
     S = len(spec[0])
@@ -495,11 +504,12 @@ def merit_bwd(params, aim, stats, spec, nc, R, seed=0, offset=0, Px=None,
                       device=params.device)
     prng = Px is None
     build = _build(spec)
+    table = device_table(coeffs, lay)  # held until the launch is queued
     with torch.cuda.device(params.device):
         rc = _cuda.call(
             "merit_bwd", params.dtype, params.data_ptr(), aim.data_ptr(),
             stats.data_ptr(), flags(spec[:-1], params.device).data_ptr(), S,
-            build, coeffs.data_ptr(), nc, spec[-1], len(sag_surfaces(spec[0])),
+            build, table.data_ptr(), nc, spec[-1], len(sag_surfaces(spec[0])),
             None if prng else Px.data_ptr(), None if prng else Py.data_ptr(),
             int(R), int(seed) & ((1 << 64) - 1), int(offset), int(prng),
             partial.data_ptr(), nb, int(block), out.data_ptr(), _cuda.stream(),
@@ -521,9 +531,9 @@ class _SpotMerit(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, params, coeffs, aim, problem):
-        spec, R, seed, offset, Px, Py, _ = problem
+        spec, R, seed, offset, Px, Py, _, lay = problem
         rows = merit_fwd(params, aim, spec, R, seed, offset, Px, Py,
-                         coeffs=coeffs)
+                         coeffs=coeffs, lay=lay)
         loss, xbar, ybar = _chan_combine(rows, R)
         ctx.save_for_backward(params, coeffs, aim, xbar, ybar)
         ctx.problem = problem
@@ -532,11 +542,11 @@ class _SpotMerit(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gl):
         params, coeffs, aim, xbar, ybar = ctx.saved_tensors
-        spec, R, seed, offset, Px, Py, block = ctx.problem
+        spec, R, seed, offset, Px, Py, block, lay = ctx.problem
         S, nc = len(spec[0]), coeffs.shape[1]
         stats = torch.stack([xbar, ybar, gl / R, 0.0 * xbar]).to(params.dtype)
         flat = merit_bwd(params, aim, stats, spec, nc, R, seed, offset, Px, Py,
-                         block, coeffs=coeffs)
+                         block, coeffs=coeffs, lay=lay)
         dparams = flat[: S * NUM_P].reshape(S, NUM_P)
         dcoeffs = flat[S * NUM_P : S * (NUM_P + nc)].reshape(S, nc)
         daim = flat[S * (NUM_P + nc) :]
@@ -577,9 +587,6 @@ def spot_rms_fast_field(system, Hx, Hy, wavelength, num_rays=None, seed=0,
         Px = torch.as_tensor(Px, dtype=dt, device=dev).contiguous()
         Py = torch.as_tensor(Py, dtype=dt, device=dev).contiguous()
         R = int(Px.shape[0])
-    coeffs = system.stack.coeffs
-    if coeffs.shape[1] == 0:
-        coeffs = coeffs.new_zeros((coeffs.shape[0], 1))
-    coeffs = coeffs.to(dt).contiguous()
-    problem = (spec, R, int(seed), 0, Px, Py, block)
+    coeffs, lay = kernel_tables(system, dt)
+    problem = (spec, R, int(seed), 0, Px, Py, block, lay)
     return _SpotMerit.apply(params, coeffs, aim, problem)

@@ -5,31 +5,44 @@ the launch of a ray from its pupil sample and the aim vector, the
 per-surface flag table, and the checks a wrapper runs before it launches
 a kernel on a CUDA device.
 
-Every trace kernel is compiled in six builds (``csrc/step.cuh``), and a
-launch takes the least one that covers its spec (``build_of``):
+Every trace kernel is compiled in eight builds (``csrc/step.cuh``), each an
+OR of flag bits, and a launch takes the least one that covers its spec
+(``build_of``):
 
   * stock: PLANE and STANDARD surfaces, untilted, at most STOCK_SURF;
-  * tilt: also the tilt rotations;
-  * sag: also the radial Newton-from-sag families (EVEN_ASPHERE,
+  * tilt (BIT_TILT): also the tilt rotations;
+  * sag (BIT_SAG): also the radial Newton-from-sag families (EVEN_ASPHERE,
     ODD_ASPHERE), whose coefficient rows the kernels read, and in the full
     traces the annular clip on P_APMIN (a RadialAperture with r_min > 0);
-  * free: also the Cartesian families (POLYNOMIAL_XY, CHEBYSHEV, TOROIDAL,
-    BICONIC), whose backwards also sum the P_G1 and P_G2 columns;
-  * deep: tilt and sag, for up to MAX_SURF surfaces;
-  * deep_free: deep with the Cartesian families.
+  * free (BIT_CART): also the Cartesian families (POLYNOMIAL_XY,
+    CHEBYSHEV, TOROIDAL, BICONIC), whose backwards also sum the P_G1 and
+    P_G2 columns;
+  * aux (BIT_AUX): free with the aux-bearing Cartesian families too
+    (ZERNIKE_SAG, FORBES_QBFS, FORBES_Q2D);
+  * deep, deep_free and deep_aux (BIT_DEEP): sag, free and aux for up to
+    MAX_SURF surfaces.
 
-The Cartesian branch is a flag of its own beside the surface reach, so a
-deep system without a freeform runs the deep code, which carries none of
-it. A kernel counts its launches under ``launch_key(name, build)``: the
-name, then "_tilt", "_sag", "_free", "_deep" or "_deep_free" for the five
-other builds."""
+Each branch is a flag of its own, so a system runs code that carries no
+branch it does not use (the free builds compile to the code they had
+before the aux-bearing families). A kernel counts its launches under
+``launch_key(name, build)``: the name, then the build's suffix
+(``BUILD_SUFFIX``: "_tilt", "_sag", "_free", "_aux", "_deep",
+"_deep_free" or "_deep_aux"; none for the stock build).
+
+An aux-bearing surface reads its coefficient row laid out
+(``geom.aux_layout``) and the layout table that says how: ``kernel_tables``
+forms both for a system, in one buffer, the row by a differentiable linear
+map of the surface's own coefficients (so autograd takes the kernels'
+coefficient gradient back through it), the table once per structure."""
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from optiland_torch.core import geometry as geom
-from optiland_torch.core.system import static_tensor
+from optiland_torch.core.system import carried_aux, static_tensor
 from optiland_torch.ops.step import NUM_P
 from optiland_torch.physical_apertures import radial_only
 
@@ -46,11 +59,21 @@ STOCK_SURF = 16  # surfaces of the stock, tilt and sag builds
 MAX_SURF = 64  # surfaces of the deep build: the kernels' bound
 NC_MAX = 36  # coefficient columns the kernels take (a 6 x 6 table)
 
-# the builds (csrc/step.cuh: B_STOCK .. B_DEEP_FREE) and their launch-key
-# suffixes
-STOCK, TILT, SAG, FREE, DEEP, DEEP_FREE = range(6)
-BUILD_SUFFIX = ("", "_tilt", "_sag", "_free", "_deep", "_deep_free")
-CART_BUILDS = (FREE, DEEP_FREE)  # the builds with the Cartesian branch
+# the builds (csrc/step.cuh: B_STOCK .. B_DEEP_AUX): each an OR of the
+# flag bits of the branches it compiles in and of its reach
+BIT_TILT, BIT_SAG, BIT_CART, BIT_AUX, BIT_DEEP = 1, 2, 4, 8, 16
+STOCK = 0
+TILT = BIT_TILT
+SAG = TILT | BIT_SAG
+FREE = SAG | BIT_CART
+DEEP = SAG | BIT_DEEP
+DEEP_FREE = FREE | BIT_DEEP
+AUX = FREE | BIT_AUX
+DEEP_AUX = DEEP_FREE | BIT_AUX
+# the launch-key suffix of each build
+BUILD_SUFFIX = {STOCK: "", TILT: "_tilt", SAG: "_sag", FREE: "_free",
+                DEEP: "_deep", DEEP_FREE: "_deep_free", AUX: "_aux",
+                DEEP_AUX: "_deep_aux"}
 
 
 def inner_flags(cfg):
@@ -73,13 +96,14 @@ def covered(cfg, field=True, coated=False) -> bool:
     def all_none(vals):
         return vals is None or all(v is None for v in vals)
 
+    aux = cfg.geom_aux or (None,) * cfg.num_surfaces
     return (
         all(c in geom.SUPPORTED_CODES for c in cfg.geom_codes)
+        and all(carried_aux(c, a) for c, a in zip(cfg.geom_codes, aux))
         and radial_only(cfg.apertures)
         and all_none(cfg.interactions)
         and (coated or all_none(cfg.coatings))
         and all_none(cfg.bsdfs)
-        and all_none(cfg.geom_aux)
         and (coated or not cfg.polarized)
         and cfg.num_surfaces <= MAX_SURF
         and (not field or (cfg.field_type == "angle"
@@ -88,15 +112,98 @@ def covered(cfg, field=True, coated=False) -> bool:
     )
 
 
+# The geometry families the kernels cover, as the errors name them
+FAMILY_NAMES = ("PLANE, STANDARD, EVEN_ASPHERE, ODD_ASPHERE, POLYNOMIAL_XY, "
+                "CHEBYSHEV, TOROIDAL, BICONIC, ZERNIKE_SAG, FORBES_QBFS and "
+                "FORBES_Q2D")
+
+
 def unsupported(what):
     """The error for a system that the kernels do not cover yet."""
     return NotImplementedError(
-        f"{what} covers PLANE, STANDARD, EVEN_ASPHERE, ODD_ASPHERE, "
-        "POLYNOMIAL_XY, CHEBYSHEV, TOROIDAL and BICONIC systems of at most "
-        f"{MAX_SURF} surfaces (tilted or not) with no aperture objects but "
+        f"{what} covers {FAMILY_NAMES} systems of at most {MAX_SURF} "
+        "surfaces (tilted or not) with no aperture objects but "
         "RadialAperture and no interactions; the other families of kernel "
-        "K6 come in a later slice (ROADMAP Queue 2)"
+        "K6 (grating, NURBS, grid sag) come in a later slice (ROADMAP "
+        "Queue 2)"
     )
+
+
+def lay_row(lay, code, s):
+    """The slots of surface s's layout in the layout table ``lay`` for an
+    aux-bearing ``code`` (which needs one), else None."""
+    if code not in geom.AUX_CODES:
+        return None
+    if lay is None:
+        raise ValueError("an aux-bearing surface needs the layout table of "
+                         "its laid-out row (kernel_tables)")
+    return geom.slots_of(lay[s].tolist())
+
+
+def device_table(coeffs, lay):
+    """The buffer a kernel reads at its coefficient table's pointer: the
+    (S, nc) table, then the layout table's rows where there is one (the
+    aux builds read them from there). The tables of ``kernel_tables`` lie
+    so in one buffer already; others are copied into one."""
+    if lay is None or lay.data_ptr() == (
+            coeffs.data_ptr() + coeffs.numel() * coeffs.element_size()):
+        return coeffs
+    return torch.cat([coeffs.reshape(-1), lay.reshape(-1)])
+
+
+@functools.lru_cache(maxsize=64)
+def _layout_table(codes, aux, nc, W, dtype, device):
+    """The (S, W, LAY_COLS) layout table of a structure's aux-bearing rows
+    (every other row zero)."""
+    vals = [v for s, c in enumerate(codes)
+            for row in geom.layout_rows(
+                geom.aux_layout(c, aux[s], nc)[0]
+                if c in geom.AUX_CODES else (), W)
+            for v in row]
+    return torch.tensor(vals, dtype=dtype, device=device).reshape(
+        len(codes), W, geom.LAY_COLS)
+
+
+def kernel_tables(system, dtype):
+    """(coeffs, lay): the (S, W) coefficient table the kernels read and
+    the (S, W, LAY_COLS) layout table of its aux-bearing rows (None
+    without one), the two back to back in one buffer (``device_table``).
+    An aux-bearing row is its surface's coefficients laid out
+    (``geom.aux_row``, differentiable), every other row the stack's own,
+    zero-padded to W: the padded width nc, or the widest layout where a
+    Q2d one is wider. Raises NotImplementedError past NC_MAX columns, and
+    where a wider layout would change the table side of a POLYNOMIAL_XY or
+    CHEBYSHEV surface (read from W)."""
+    cfg = system.cfg
+    coeffs = system.stack.coeffs.to(dtype)
+    S, nc = coeffs.shape
+    aux = tuple(cfg.geom_aux or (None,) * S)
+    lays = {s: geom.aux_layout(c, aux[s], nc)
+            for s, c in enumerate(cfg.geom_codes) if c in geom.AUX_CODES}
+    if not lays:
+        if nc == 0:
+            coeffs = coeffs.new_zeros((S, 1))
+        return coeffs.contiguous(), None
+    W = max([nc, 1] + [len(slots) for slots, _ in lays.values()])
+    if W > NC_MAX:
+        raise NotImplementedError(
+            f"the kernels take at most NC_MAX = {NC_MAX} coefficient "
+            f"columns; an aux-bearing surface's layout needs {W}")
+    if W > nc and any(c in (geom.POLYNOMIAL_XY, geom.CHEBYSHEV)
+                      for c in cfg.geom_codes):
+        raise NotImplementedError(
+            f"a Q2d layout of {W} slots beside a POLYNOMIAL_XY or CHEBYSHEV "
+            f"table of width {nc}: the kernels read both from one width")
+    rows = []
+    for s in range(S):
+        row = coeffs[s]
+        if s in lays:
+            row = row.new_tensor(lays[s][1]) @ row
+        rows.append(torch.nn.functional.pad(row, (0, W - row.shape[0])))
+    lay = _layout_table(tuple(cfg.geom_codes), aux, nc, W, dtype,
+                        coeffs.device)
+    buf = torch.cat(rows + [lay.reshape(-1)])
+    return buf[:S * W].view(S, W), buf[S * W:].view(S, W, geom.LAY_COLS)
 
 
 def sag_surfaces(codes):
@@ -107,9 +214,9 @@ def sag_surfaces(codes):
 
 def block_width(nc, build):
     """Columns of a Newton surface's block in a backward's partial rows:
-    its nc coefficient columns, then in the free and deep_free builds its
-    P_G1 and P_G2 columns."""
-    return nc + 2 if build in CART_BUILDS else nc
+    its nc coefficient columns, then in the builds with the Cartesian
+    branch its P_G1 and P_G2 columns."""
+    return nc + 2 if build & BIT_CART else nc
 
 
 def sag_columns(codes, nc, build):
@@ -119,18 +226,20 @@ def sag_columns(codes, nc, build):
 
 
 def build_of(codes, tilted, inner=()):
-    """The build a spec launches: past STOCK_SURF surfaces DEEP_FREE with
-    a Cartesian surface, else DEEP; else FREE with a Cartesian surface,
-    else SAG with a radial asphere or an annular clip (``inner``), else
-    TILT with a tilted surface, else STOCK."""
-    cart = any(c in geom.CART_CODES for c in codes)
-    if len(codes) > STOCK_SURF:
-        return DEEP_FREE if cart else DEEP
-    if cart:
-        return FREE
+    """The build a spec launches: the least one that compiles in each
+    branch it takes (TILT a tilted surface, SAG a radial asphere or an
+    annular clip (``inner``), FREE a Cartesian surface, AUX an aux-bearing
+    one) and, past STOCK_SURF surfaces, the deep reach."""
+    build = TILT if any(tilted) else STOCK
     if any(c in geom.RADIAL_CODES for c in codes) or any(inner):
-        return SAG
-    return TILT if any(tilted) else STOCK
+        build |= SAG
+    if any(c in geom.CART_CODES for c in codes):
+        build |= FREE
+    if any(c in geom.AUX_CODES for c in codes):
+        build |= AUX
+    if len(codes) > STOCK_SURF:
+        build |= DEEP
+    return build
 
 
 def launch_from_pupil(aim, Px, Py):
@@ -160,7 +269,7 @@ def flags(rows, device):
 def with_builds(names):
     """Launch-count keys for kernels ``names``: each kernel in each build
     (``launch_key``), each a separately compiled kernel."""
-    return {n + suf: 0 for n in names for suf in BUILD_SUFFIX}
+    return {n + suf: 0 for n in names for suf in BUILD_SUFFIX.values()}
 
 
 def launch_key(name, build):
@@ -175,13 +284,15 @@ def device_of(device, name):
     return device.type
 
 
-def check_cuda_inputs(params, spec, arrays=(), aim=None, coeffs=None):
+def check_cuda_inputs(params, spec, arrays=(), aim=None, coeffs=None,
+                      lay=None):
     """Raise unless the kernels can take these inputs: a float32 or float64
     (S, NUM_P) param table, one spec entry per surface of a covered
     geometry (and a nonnegative Newton iteration count, the spec's last
     entry), the aim vector and flat per-ray arrays (None entries skipped)
-    of the table's dtype and device, contiguous, and the (S, nc)
-    coefficient table, 1 <= nc <= NC_MAX."""
+    of the table's dtype and device, contiguous, the (S, nc)
+    coefficient table, 1 <= nc <= NC_MAX, and with an aux-bearing surface
+    the (S, nc, LAY_COLS) layout table ``lay``."""
     S = len(spec[0])
     check_dtype(params.dtype)
     if S > MAX_SURF:
@@ -193,9 +304,8 @@ def check_cuda_inputs(params, spec, arrays=(), aim=None, coeffs=None):
                          "of its parts, then the Newton iteration count")
     if any(c not in geom.SUPPORTED_CODES for c in spec[0]):
         raise NotImplementedError(
-            f"geometry codes {spec[0]}: the kernels cover PLANE, STANDARD, "
-            "EVEN_ASPHERE, ODD_ASPHERE, POLYNOMIAL_XY, CHEBYSHEV, TOROIDAL "
-            "and BICONIC (the other families: ROADMAP Queue 2)"
+            f"geometry codes {spec[0]}: the kernels cover {FAMILY_NAMES} "
+            "(the other families: ROADMAP Queue 2)"
         )
     if coeffs is None:
         return
@@ -209,6 +319,13 @@ def check_cuda_inputs(params, spec, arrays=(), aim=None, coeffs=None):
         raise NotImplementedError(
             f"the kernels take at most NC_MAX = {NC_MAX} coefficient "
             f"columns, got {coeffs.shape[1]}")
+    if any(c in geom.AUX_CODES for c in spec[0]) and (
+            lay is None or lay.device != params.device
+            or lay.dtype != params.dtype or not lay.is_contiguous()
+            or tuple(lay.shape) != (S, coeffs.shape[1], geom.LAY_COLS)):
+        raise ValueError(f"an aux-bearing surface needs the contiguous (S, "
+                         f"nc, {geom.LAY_COLS}) {params.dtype} layout table "
+                         f"on {params.device} (kernel_tables)")
     arrays = [a for a in arrays if a is not None]
     named = [("params", params), ("aim", aim)] + [
         (f"ray array {k}", a) for k, a in enumerate(arrays)

@@ -66,14 +66,15 @@ from optiland_torch.coatings import (
 from optiland_torch.core.rays import RealRays
 from optiland_torch.core.system import static_tensor
 from optiland_torch.ops.fast_trace import (
-    RAY_FIELDS, _bwd_blocks, _check_nc, _coeffs, _masks, _split,
+    RAY_FIELDS, _bwd_blocks, _check_nc, _masks, _split,
 )
 from optiland_torch.ops.fused_trace import (
     _coeffs_or_zeros, build_param_table, coef_row,
 )
 from optiland_torch.ops.launch import (
-    build_of, check_cuda_inputs, covered, device_of, flags, inner_flags,
-    launch_key, sag_columns, sag_surfaces, unsupported, with_builds,
+    build_of, check_cuda_inputs, covered, device_of, device_table, flags,
+    inner_flags, kernel_tables, launch_key, lay_row, sag_columns,
+    sag_surfaces, unsupported, with_builds,
 )
 from optiland_torch.ops.step import (
     FULL_GRAD_COLS, NUM_P, P_NPOST, split_cols, step_adjoint_plain,
@@ -772,7 +773,7 @@ def _identity_p(like):
     return eye, torch.zeros_like(eye)
 
 
-def _chain(params, coat, spec, st, keep=False, coeffs=None):
+def _chain(params, coat, spec, st, keep=False, coeffs=None, lay=None):
     """The polarized chain: final state, final p (re, im), and with
     ``keep`` per surface what the adjoint replays."""
     codes, refl, absorbs, kinds, layers = spec[:5]
@@ -785,7 +786,8 @@ def _chain(params, coat, spec, st, keep=False, coeffs=None):
         st, n_next, ext = step_plain(codes[s], refl[s], params[s], n_pre, st,
                                      absorbs[s], extras=True,
                                      c=coef_row(coeffs, s),
-                                     newton_iters=niters, inner=inner[s])
+                                     newton_iters=niters, inner=inner[s],
+                                     lay=lay_row(lay, codes[s], s))
         k0, k1, adot = ext[:3], ext[3:6], ext[6]
         i_step = st[6]
         if kinds[s] == SIMPLE:
@@ -816,14 +818,14 @@ def _chain(params, coat, spec, st, keep=False, coeffs=None):
 
 
 def pol_fwd_plain(params, coat, spec, rays, states=None, intensity=False,
-                  coeffs=None):
+                  coeffs=None, lay=None):
     """Plain version of the pol_fwd kernel: 26 arrays (the 8 ray arrays,
     then p's 9 real and 9 imaginary parts, row-major) of the 8 launch
     arrays ``rays``; with ``intensity``, the 8 ray arrays with the
     intensity replaced by the exit intensity of the polarization ``states``
     (``pol_states``) from the launch intensity and directions."""
     rays = tuple(rays)
-    st, p, _ = _chain(params, coat, spec, rays, coeffs=coeffs)
+    st, p, _ = _chain(params, coat, spec, rays, coeffs=coeffs, lay=lay)
     if intensity:
         i_pol, _ = _exit_intensity(p, rays[3], rays[4], rays[5], rays[6],
                                    states)
@@ -833,7 +835,8 @@ def pol_fwd_plain(params, coat, spec, rays, states=None, intensity=False,
 
 
 def pol_bwd_plain(params, coat, spec, rays, cots, states=None,
-                  intensity=False, coeffs=None, nc=1, with_coeffs=False):
+                  intensity=False, coeffs=None, nc=1, with_coeffs=False,
+                  lay=None):
     """Plain version of the pol_bwd kernel, the adjoint by hand: for the
     output cotangents ``cots`` (26, or 8 in the intensity mode), the 8
     per-ray input cotangents and the flat gradient in the layout (S * NUM_P
@@ -847,7 +850,7 @@ def pol_bwd_plain(params, coat, spec, rays, cots, states=None,
     rays, cots = tuple(rays), tuple(cots)
     with torch.no_grad():
         st, p, saved = _chain(params, coat, spec, rays, keep=True,
-                              coeffs=coeffs)
+                              coeffs=coeffs, lay=lay)
         zero = torch.zeros_like(rays[0])
         g_launch = [zero] * 8
         if intensity:
@@ -903,7 +906,7 @@ def pol_bwd_plain(params, coat, spec, rays, cots, states=None,
                 codes[s], refl[s], params[s], sv["n_pre"], sv["st"],
                 tuple(g), absorbs[s], g_ext=g_k0 + g_k1 + (g_adot,),
                 tilted=tilted[s], c=coef_row(coeffs, s), newton_iters=niters,
-                inner=inner[s])
+                inner=inner[s], lay=lay_row(lay, codes[s], s))
             pairs, coef = split_cols(codes[s], cols, FULL_GRAD_COLS, nc)
             for col, v in pairs:
                 dparams[s, col] = v.sum()
@@ -923,8 +926,8 @@ def pol_bwd_plain(params, coat, spec, rays, cots, states=None,
 # ---------------------------------------------------------------------------
 
 
-def _check_pol(params, coat, spec, arrays, n_arrays, coeffs):
-    check_cuda_inputs(params, spec, arrays, coeffs=coeffs)
+def _check_pol(params, coat, spec, arrays, n_arrays, coeffs, lay):
+    check_cuda_inputs(params, spec, arrays, coeffs=coeffs, lay=lay)
     S = len(spec[0])
     if len(arrays) != n_arrays:
         raise ValueError(f"expected {n_arrays} per-ray arrays, got "
@@ -952,27 +955,28 @@ def _build(spec):
 
 
 def pol_fwd(params, coat, spec, rays, states=None, intensity=False,
-            coeffs=None):
+            coeffs=None, lay=None):
     """The 26 (or, with ``intensity``, 8) output arrays of the 8 launch
     arrays ``rays``: the pol_fwd kernel on a CUDA device, its plain version
     on the CPU. ``coeffs`` is the (S, nc) coefficient table (None:
-    zeros)."""
+    zeros), ``lay`` the layout table of its aux-bearing rows."""
     name = "pol_fwd_intensity" if intensity else "pol_fwd"
     if device_of(params.device, name) == "cpu":
         return pol_fwd_plain(params, coat, spec, rays, states, intensity,
-                             coeffs)
+                             coeffs, lay)
     from optiland_torch.ops import _cuda
 
     rays = tuple(rays)
     coeffs = _coeffs_or_zeros(coeffs, params)
-    _check_pol(params, coat, spec, rays, 8, coeffs)
+    _check_pol(params, coat, spec, rays, 8, coeffs, lay)
     out = [torch.empty_like(rays[0]) for _ in range(8 if intensity else N_POL)]
     build = _build(spec)
+    table = device_table(coeffs, lay)  # held until the launch is queued
     with torch.cuda.device(params.device):
         rc = _cuda.call(
             "pol_fwd", params.dtype, params.data_ptr(), coat.data_ptr(),
             flags(spec[:-2], params.device).data_ptr(), len(spec[0]), build,
-            coeffs.data_ptr(), coeffs.shape[1], spec[-1], coat.shape[1],
+            table.data_ptr(), coeffs.shape[1], spec[-1], coat.shape[1],
             _cuda.pointers(rays), rays[0].shape[0], _cuda.pointers(out),
             int(intensity), *_state_args(states), _cuda.stream(),
         )
@@ -982,7 +986,7 @@ def pol_fwd(params, coat, spec, rays, states=None, intensity=False,
 
 
 def pol_bwd(params, coat, spec, nc, rays, cots, states=None, intensity=False,
-            coeffs=None):
+            coeffs=None, lay=None):
     """(8 per-ray input cotangents, flat (S * NUM_P + S * nc + S * ncoat)
     gradient) for the output cotangents ``cots``: the pol_bwd kernel and
     its fixed-order reduction on a CUDA device, the plain version on the
@@ -991,13 +995,14 @@ def pol_bwd(params, coat, spec, nc, rays, cots, states=None, intensity=False,
     S, ncoat = len(spec[0]), coat.shape[1]
     if device_of(params.device, name) == "cpu":
         return pol_bwd_plain(params, coat, spec, rays, cots, states,
-                             intensity, coeffs, nc, with_coeffs=True)
+                             intensity, coeffs, nc, with_coeffs=True,
+                             lay=lay)
     from optiland_torch.ops import _cuda
 
     rays, cots = tuple(rays), tuple(cots)
     coeffs = _coeffs_or_zeros(coeffs, params)
     _check_pol(params, coat, spec, rays + cots,
-               8 + (8 if intensity else N_POL), coeffs)
+               8 + (8 if intensity else N_POL), coeffs, lay)
     _check_nc(coeffs, nc)
     R = rays[0].shape[0]
     nb = _bwd_blocks(R)
@@ -1007,11 +1012,12 @@ def pol_bwd(params, coat, spec, nc, rays, cots, states=None, intensity=False,
          + sag_columns(spec[0], nc, _build(spec))))
     out = params.new_zeros(S * (NUM_P + nc + ncoat))
     build = _build(spec)
+    table = device_table(coeffs, lay)  # held until the launch is queued
     with torch.cuda.device(params.device):
         rc = _cuda.call(
             "pol_bwd", params.dtype, params.data_ptr(), coat.data_ptr(),
             flags(spec[:-2], params.device).data_ptr(), S, build,
-            coeffs.data_ptr(), nc, spec[-1], len(sag_surfaces(spec[0])),
+            table.data_ptr(), nc, spec[-1], len(sag_surfaces(spec[0])),
             ncoat, _cuda.pointers(rays),
             _cuda.pointers(cots), R, _cuda.pointers(din), partial.data_ptr(),
             nb, out.data_ptr(), int(intensity), *_state_args(states),
@@ -1031,10 +1037,12 @@ class _TracePol(torch.autograd.Function):
     """8 launch arrays -> 26 (or 8) arrays; backward = pol_bwd."""
 
     @staticmethod
-    def forward(ctx, params, coeffs, coat, spec, states, intensity, *rays):
-        out = pol_fwd(params, coat, spec, rays, states, intensity, coeffs)
+    def forward(ctx, params, coeffs, lay, coat, spec, states, intensity,
+                *rays):
+        out = pol_fwd(params, coat, spec, rays, states, intensity, coeffs,
+                      lay)
         ctx.save_for_backward(params, coeffs, coat, *rays)
-        ctx.spec, ctx.nc = spec, coeffs.shape[1]
+        ctx.spec, ctx.nc, ctx.lay = spec, coeffs.shape[1], lay
         ctx.states, ctx.intensity = states, intensity
         return out
 
@@ -1043,10 +1051,10 @@ class _TracePol(torch.autograd.Function):
         params, coeffs, coat, *rays = ctx.saved_tensors
         cots = [c.contiguous() for c in g]
         din, flat = pol_bwd(params, coat, ctx.spec, ctx.nc, rays, cots,
-                            ctx.states, ctx.intensity, coeffs)
+                            ctx.states, ctx.intensity, coeffs, ctx.lay)
         S = len(ctx.spec[0])
         dparams, dcoeffs, dcoat = _split(flat, S, ctx.nc)
-        return (dparams, dcoeffs, dcoat.reshape(S, -1), None, None,
+        return (dparams, dcoeffs, None, dcoat.reshape(S, -1), None, None,
                 None) + tuple(din)
 
 
@@ -1064,7 +1072,7 @@ def _pol_inputs(system, rays, wavelength, what):
     params = build_param_table(system, wavelength).to(dt)
     coat = build_coat_table(system, wavelength, dt, params.device)
     ray_in = [getattr(rays, k).to(dt).contiguous() for k in RAY_FIELDS]
-    return spec, params, _coeffs(system, dt), coat, ray_in
+    return spec, params, kernel_tables(system, dt), coat, ray_in
 
 
 def trace_fast_pol(system, rays, wavelength):
@@ -1078,9 +1086,9 @@ def trace_fast_pol(system, rays, wavelength):
     state, rays.L, rays.M, rays.N, rays.i)``, as ``Optic.trace`` forms it.
     The bundle's dtype and device decide where it runs: the kernels on a
     CUDA device, their plain versions on the CPU."""
-    spec, params, coeffs, coat, ray_in = _pol_inputs(
+    spec, params, tables, coat, ray_in = _pol_inputs(
         system, rays, wavelength, "trace_fast_pol")
-    out = _TracePol.apply(params, coeffs, coat, spec, None, False, *ray_in)
+    out = _TracePol.apply(params, *tables, coat, spec, None, False, *ray_in)
     x, y, z, L, M, N, i, opd = out[:8]
     R = x.shape[0]
     p = torch.complex(torch.stack(out[8:17], 1),
@@ -1095,8 +1103,8 @@ def trace_fast_pol_intensity(system, rays, wavelength, state=None):
     state, rays.L, rays.M, rays.N, rays.i)``, but p never leaves the
     kernel: the 8 ray arrays come back with ``i`` already polarized.
     ``state`` None is unpolarized light."""
-    spec, params, coeffs, coat, ray_in = _pol_inputs(
+    spec, params, tables, coat, ray_in = _pol_inputs(
         system, rays, wavelength, "trace_fast_pol_intensity")
     x, y, z, L, M, N, i, opd = _TracePol.apply(
-        params, coeffs, coat, spec, pol_states(state), True, *ray_in)
+        params, *tables, coat, spec, pol_states(state), True, *ray_in)
     return RealRays(x=x, y=y, z=z, L=L, M=M, N=N, i=i, w=rays.w, opd=opd)

@@ -2,8 +2,11 @@
 device step in ``csrc/step.cuh`` and its hand-derived adjoint.
 
 Counterpart of ``_step_tile`` in ``optiland_tpu/ops/pallas_trace.py``:
-its PLANE, STANDARD, tilt, annular-aperture, EVEN_ASPHERE/ODD_ASPHERE and
-POLYNOMIAL_XY/CHEBYSHEV/TOROIDAL/BICONIC branches. Two forms, chosen by the
+its PLANE, STANDARD, tilt, annular-aperture, EVEN_ASPHERE/ODD_ASPHERE,
+POLYNOMIAL_XY/CHEBYSHEV/TOROIDAL/BICONIC and ZERNIKE_SAG/FORBES_QBFS/
+FORBES_Q2D branches. An aux-bearing surface (the last three) reads its
+laid-out coefficient row ``c`` and the slots ``lay`` of its layout
+(``geom.aux_layout``: the static extras JAX keeps in ``geom_aux``). Two forms, chosen by the
 length of the state:
 
   * the merit form, state (x, y, z, L, M, N): geometry only, which is all
@@ -167,7 +170,7 @@ def _rot_local_adjoint(p, v, g):
 
 
 def step_plain(code, refl, p, n_pre, st, absorbs=False, extras=False,
-               n_post=None, c=None, newton_iters=10, inner=False):
+               n_post=None, c=None, newton_iters=10, inner=False, lay=None):
     """One surface step on per-ray tensors; returns (state, n_next), and
     with ``extras`` also (L0, M0, N0, L1, M1, N1, adot): the local-frame
     pre- and post-interaction directions and |cos| of the angle of
@@ -178,7 +181,8 @@ def step_plain(code, refl, p, n_pre, st, absorbs=False, extras=False,
     ``p[P_KPRE]``; ``n_post``, when given, is the per-ray index after the
     surface (polychromatic traces), else ``p[P_NPOST]``. ``c`` is the
     surface's coefficient row (read by the Newton families, which take
-    ``newton_iters`` steps); ``inner`` (full step only) applies the annular
+    ``newton_iters`` steps; an aux-bearing family's laid-out row, whose
+    slots are ``lay``); ``inner`` (full step only) applies the annular
     clip on ``p[P_APMIN]``. The tilt rotations
     always run, as in the JAX package under ``jax.grad``, where traced
     tilts keep the rotation code: at zero tilt they are exact identities
@@ -195,7 +199,7 @@ def step_plain(code, refl, p, n_pre, st, absorbs=False, extras=False,
     p1, p2 = p[P_G1], p[P_G2]
     t = geom.distance_static(code, radius, conic, x, y, zl, L, M, N,
                              coeffs=c, newton_iters=newton_iters, p1=p1,
-                             p2=p2)
+                             p2=p2, lay=lay)
     x = x + t * L
     y = y + t * M
     zl = zl + t * N
@@ -211,7 +215,7 @@ def step_plain(code, refl, p, n_pre, st, absorbs=False, extras=False,
             i = torch.where(r2 < p[P_APMIN] * p[P_APMIN], 0.0, i)
         extra = (i, opd)
     nx, ny, nz = geom.surface_normal_static(code, radius, conic, c, x, y,
-                                            p1, p2)
+                                            p1, p2, lay=lay)
     dot = L * nx + M * ny + N * nz
     sgn = torch.sign(dot)
     nx, ny, nz = nx * sgn, ny * sgn, nz * sgn
@@ -241,7 +245,7 @@ def step_plain(code, refl, p, n_pre, st, absorbs=False, extras=False,
 
 def step_adjoint_plain(code, refl, p, n_pre, st, g, absorbs=False,
                        g_ext=None, tilted=False, n_post=None, c=None,
-                       newton_iters=10, inner=False):
+                       newton_iters=10, inner=False, lay=None):
     """Reverse sweep through one surface step.
 
     ``st`` is the step's input state, ``g`` the cotangents of its outputs:
@@ -319,9 +323,10 @@ def step_adjoint_plain(code, refl, p, n_pre, st, g, absorbs=False,
         t_s = geom.newton_start(R, k, xl, yl, zl, L, M, N)
         for _ in range(newton_iters):
             t_s = geom.newton_step(code, R, k, c, xl, yl, zl, L, M, N, t_s,
-                                   p1, p2)
+                                   p1, p2, lay)
         Xs, Ys = xl + t_s * L, yl + t_s * M
-        ps = geom.cart_point(code, R, k, c, p1, p2, Xs, Ys, grad=True)
+        ps = geom.cart_point(code, R, k, c, p1, p2, Xs, Ys, grad=True,
+                             lay=lay)
         f = zl + t_s * N - ps.s
         fp = N - (ps.sx * L + ps.sy * M)
         okf = fp.abs() > 1e-14
@@ -352,7 +357,7 @@ def step_adjoint_plain(code, refl, p, n_pre, st, g, absorbs=False,
     elif cart:
         # the normal's slopes (CHEBYSHEV: the reference's, and 1 / sqrt)
         p1n = geom.cart_point(code, R, k, c, p1, p2, x1, y1, grad=True,
-                              normal=True)
+                              normal=True, lay=lay)
         fx, fy = p1n.sx, p1n.sy
         if code == geom.CHEBYSHEV:
             im = 1.0 / torch.sqrt(fx**2 + fy**2 + 1)
@@ -608,17 +613,19 @@ def step_adjoint_plain(code, refl, p, n_pre, st, g, absorbs=False,
         g_p1 = g_p1 + g_s * ps.dp1[0] + g_sx * ps.dp1[1] + g_sy * ps.dp1[2]
         g_p2 = g_p2 + g_s * ps.dp2[0] + g_sx * ps.dp2[1] + g_sy * ps.dp2[2]
         ws = geom.coef_weights(code, ps, g_s, g_sx, g_sy)
-        reads_k, reads_p = geom.cart_reads(code)
+        reads_k, reads_p1, reads_p2 = geom.cart_reads(code)
         if not reads_k:
             g_k = torch.zeros_like(g_k)
-        if not reads_p:
-            g_p1, g_p2 = torch.zeros_like(g_p1), torch.zeros_like(g_p2)
+        if not reads_p1:
+            g_p1 = torch.zeros_like(g_p1)
+        if not reads_p2:
+            g_p2 = torch.zeros_like(g_p2)
         g_xl = g_xl + g_X
         g_yl = g_yl + g_Y
         gL = gL + g_X * t_s
         gM = gM + g_Y * t_s
         g_coef = geom.coef_columns(code, c.shape[-1], p1, p2, Xs, Ys, ws, x1,
-                                   y1, w1) + [g_p1, g_p2]
+                                   y1, w1, lay) + [g_p1, g_p2]
     else:
         g_zl = g_zl - g_t / Ns
         gN = gN + torch.where(big, g_t * zl / (Ns * Ns), 0.0)

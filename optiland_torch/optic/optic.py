@@ -2,8 +2,9 @@
 
 Counterpart of ``optiland_tpu/optic/optic.py`` (a subset): ``SurfaceDef``,
 ``SurfaceGroup.add`` for the "standard", "plane", "even_asphere",
-"odd_asphere", "polynomial", "chebyshev", "toroidal" and "biconic"
-surface types (with the JAX package's arguments),
+"odd_asphere", "polynomial", "chebyshev", "toroidal", "biconic",
+"zernike", "forbes_qbfs" and "forbes_q2d" surface types (with the JAX
+package's arguments),
 a semi-diameter or a ``RadialAperture`` as the physical aperture, and an
 optional coating (a coating object or the "fresnel" shorthand), the field,
 wavelength and aperture groups, and ``Optic`` with ``set_aperture``,
@@ -45,10 +46,12 @@ _GEOM_CODES = {
     "chebyshev": geom.CHEBYSHEV,
     "toroidal": geom.TOROIDAL,
     "biconic": geom.BICONIC,
+    "zernike": geom.ZERNIKE_SAG,
+    "forbes_qbfs": geom.FORBES_QBFS,
+    "forbes_q2d": geom.FORBES_Q2D,
 }
 # the JAX package's other surface types, and what they wait for
-_QUEUE2_TYPES = ("zernike", "forbes_qbfs", "forbes_q2d", "grating",
-                 "nurbs", "grid_sag")
+_QUEUE2_TYPES = ("grating", "nurbs", "grid_sag")
 
 
 def _later(what: str) -> NotImplementedError:
@@ -79,6 +82,9 @@ class SurfaceDef:
     # conic (biconic, toroidal) or the normalization radii (chebyshev)
     geo_p1: float = 1.0
     geo_p2: float = 1.0
+    # static extras (the JAX package's geom_aux): a Zernike scheme, a Qbfs
+    # term count, a Q2d (n, m) layout
+    geo_aux: Any = None
 
     # resolved at compile time
     _material_obj: BaseMaterial | None = None
@@ -129,11 +135,16 @@ class SurfaceGroup:
             and ``conic`` the y-z profile's, ``toroidal_coeffs_poly_y`` its
             terms of y^2, y^4, ...;
           * "biconic": ``radius_x``, ``conic_x``, ``radius_y``,
-            ``conic_y``.
+            ``conic_y``;
+          * "zernike": ``coefficients`` of the scheme's terms,
+            ``norm_radius``, ``zernike_type`` ("fringe" by default,
+            "standard", "noll");
+          * "forbes_qbfs": ``radial_terms`` {n: a_n}, ``norm_radius``;
+          * "forbes_q2d": ``freeform_coeffs`` {("a" | "b", m, n): c},
+            ``norm_radius``.
 
-        The other types of the JAX package ("zernike", the Forbes types,
-        "grating", "nurbs", "grid_sag") come in a later slice (ROADMAP
-        Queue 2) and raise."""
+        The other types of the JAX package ("grating", "nurbs",
+        "grid_sag") come in a later slice (ROADMAP Queue 2) and raise."""
         from optiland_torch.physical_apertures import RadialAperture
 
         if surface_type in _QUEUE2_TYPES:
@@ -142,7 +153,7 @@ class SurfaceGroup:
                 "(ROADMAP Queue 2)")
         if surface_type not in _GEOM_CODES:
             raise _later(f"surface_type {surface_type!r}")
-        geo_p1, geo_p2 = 1.0, 1.0
+        geo_p1, geo_p2, geo_aux = 1.0, 1.0, None
         coeff_arr = np.asarray(coefficients, dtype=float)
         if surface_type in ("polynomial", "chebyshev") and coeff_arr.ndim == 2:
             # embed the (i, j) table in a square, row-major
@@ -165,6 +176,31 @@ class SurfaceGroup:
             tor = kwargs.pop("toroidal_coeffs_poly_y", None)
             if tor is not None and np.size(tor):
                 coeff_arr = np.asarray(tor, dtype=float)
+        elif surface_type == "zernike":
+            geo_p1 = kwargs.pop("norm_radius", None) or 1.0
+            geo_aux = (kwargs.pop("zernike_type", "fringe"),)
+        elif surface_type == "forbes_qbfs":
+            # radial_terms {n: a_n} -> the dense coefficient row
+            terms = kwargs.pop("radial_terms", None) or {}
+            geo_p1 = kwargs.pop("norm_radius", None) or 1.0
+            n_terms = (max(terms) + 1) if terms else 0
+            coeff_arr = np.zeros(n_terms)
+            for n, v in terms.items():
+                coeff_arr[n] = v
+            geo_aux = ("qbfs", n_terms)
+        elif surface_type == "forbes_q2d":
+            # freeform_coeffs {("a" | "b", m, n): c} -> the coefficient row
+            # and its (n, m_signed) layout, sorted by (n, m, a/b)
+            terms = kwargs.pop("freeform_coeffs", None) or {}
+            geo_p1 = kwargs.pop("norm_radius", None) or 1.0
+            nms, vals = [], []
+            for (ab, m, n), v in sorted(
+                    terms.items(), key=lambda kv: (kv[0][2], kv[0][1],
+                                                   kv[0][0])):
+                nms.append((n, m if ab.lower() == "a" else -m))
+                vals.append(v)
+            coeff_arr = np.asarray(vals, float)
+            geo_aux = ("q2d", tuple(nms))
         if kwargs:
             raise _later(f"surface argument(s) {sorted(kwargs)}")
         if aperture is not None and not isinstance(
@@ -178,7 +214,7 @@ class SurfaceGroup:
             coefficients=coefficients,
             dx=dx, dy=dy, dz=dz, rx=rx, ry=ry, rz=rz, aperture=aperture,
             comment=comment, coating=coating, geo_p1=float(geo_p1),
-            geo_p2=float(geo_p2),
+            geo_p2=float(geo_p2), geo_aux=geo_aux,
         )
         if index is None:
             index = len(self.surfaces)
@@ -497,7 +533,7 @@ class Optic:
             geom_codes=tuple(geom_code),
             mat_formulas=tuple(int(m.formula_code) for m in mats),
             reflective=tuple(bool(s._is_reflective) for s in surfs),
-            geom_aux=none,
+            geom_aux=tuple(s.geo_aux for s in surfs),
             apertures=tuple(None if s.aperture is None or numeric_ap(s)
                             else s.aperture for s in surfs),
             interactions=none,

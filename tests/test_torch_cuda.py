@@ -188,7 +188,7 @@ def test_entry_point_launches_both_kernels(cuda_device):
 @pytest.mark.cuda
 def test_wrapper_raises_instead_of_falling_back(cuda_device):
     _, params, aim, spec = _setup()
-    bad = ((0, 6) + spec[0][2:],) + spec[1:]  # ZERNIKE_SAG: not yet
+    bad = ((0, 12) + spec[0][2:],) + spec[1:]  # NURBS: not yet
     with pytest.raises(NotImplementedError):
         ft.merit_fwd(params, aim, bad, 100, seed=1)
     with pytest.raises(ValueError, match="float64 on cuda"):
@@ -361,7 +361,7 @@ def test_trace_wrappers_raise_instead_of_falling_back(cuda_device):
     with pytest.raises(ValueError, match="contiguous"):
         strided = torch.stack([cots[0], cots[0]], dim=1)[:, 0]
         ftr.trace_bwd(params, spec, 1, ins, [strided] + cots[1:])
-    bad = ((0, 6) + spec[0][2:],) + spec[1:]  # ZERNIKE_SAG: not yet
+    bad = ((0, 12) + spec[0][2:],) + spec[1:]  # NURBS: not yet
     with pytest.raises(NotImplementedError):
         ftr.trace_field_bwd(params, aim, bad, 1, Px, Py, cots)
     # a tilted system runs the kernels and agrees with their plain versions
@@ -1463,3 +1463,215 @@ def test_deep_build_takes_the_freeforms(cuda_device):
                 "deep freeform merit_bwd")
     assert ftr.LAUNCHES == _only(ftr.LAUNCHES, trace_fwd_deep_free=1,
                                  trace_bwd_deep_free=1)
+
+
+# ---------------------------------------------------------------------------
+# K6b, the aux-bearing families (ZERNIKE_SAG, FORBES_QBFS, FORBES_Q2D): the
+# aux build, with the laid-out rows and the layout table
+# ---------------------------------------------------------------------------
+
+AUX_SYSTEMS = {
+    "zernike": {}, "forbes_qbfs": {}, "forbes_q2d": {},
+    "zernike_tilted": {"tilted": True},
+    "zernike_36": {"coefficients": freeform.ZC36},
+}
+
+
+def _aux_system(kind):
+    fam = "zernike" if kind.startswith("zernike") else kind
+    return freeform.freeform_singlet(fam, **AUX_SYSTEMS[kind]).system
+
+
+def _aux_tables(system, dtype=torch.float64):
+    from optiland_torch.ops import launch
+
+    with torch.no_grad():
+        return launch.kernel_tables(system, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", list(AUX_SYSTEMS))
+def test_aux_kernels_match_plain_f64(cuda_device, kind):
+    system = _aux_system(kind)
+    R = 20001
+    wl, params, aim, _, Px, Py, ins, cots = _k6_inputs(
+        system, freeform.H, R, 7)
+    coeffs, lay = _aux_tables(system)
+    nc = coeffs.shape[1]
+    if kind == "zernike_36":
+        assert nc == 36  # NC_MAX
+    spec = ftr.fast_spec(system, field=True)
+    S = len(spec[0])
+    ftr.reset_launch_counts()
+    ft.reset_launch_counts()
+    _close(ftr.trace_fwd(params, spec, ins, coeffs, lay),
+           ftr.trace_fast_plain(params, spec, ins, coeffs, lay), 1e-10,
+           f"{kind} trace_fwd")
+    din, flat = ftr.trace_bwd(params, spec, nc, ins, cots, coeffs, lay)
+    din_p, flat_p = ftr.trace_fast_bwd_plain(params, spec, nc, ins, cots,
+                                             coeffs, lay)
+    _close(din, din_p, 1e-10, f"{kind} trace_bwd input cotangent",
+           positions=False)
+    _flat_close(flat, flat_p, f"{kind} trace_bwd")
+    # the P_G1 column (norm radius) and the slot columns; no P_G2
+    dp = flat_p[:S * 15].reshape(S, 15)
+    assert float(dp[1, 11].abs()) > 0 and float(dp[1, 12]) == 0
+    assert float(flat_p[S * 15:].reshape(S, nc)[1].abs().max()) > 0
+    out = ftr.trace_field_fwd(params, aim, spec, Px, Py, coeffs, lay)
+    _close(out, ftr.trace_fast_field_plain(params, aim, spec, Px, Py, coeffs,
+                                           lay), 1e-10,
+           f"{kind} trace_field_fwd")
+    _flat_close(ftr.trace_field_bwd(params, aim, spec, nc, Px, Py, cots,
+                                    coeffs, lay),
+                ftr.trace_fast_field_bwd_plain(params, aim, spec, nc, Px, Py,
+                                               cots, coeffs, lay),
+                f"{kind} trace_field_bwd")
+    mspec = ft._spec_of(system)
+    rows = ft.merit_fwd(params, aim, mspec, R, Px=Px, Py=Py, coeffs=coeffs,
+                        lay=lay)
+    rows_p = ft.merit_fwd_plain(params, aim, mspec, R, Px=Px, Py=Py,
+                                coeffs=coeffs, lay=lay)
+    loss, xbar, ybar = ft._chan_combine(rows, R)
+    assert float(loss) == pytest.approx(
+        float(ft._chan_combine(rows_p, R)[0]), rel=1e-12)
+    stats = torch.stack([xbar, ybar, 1.0 / R + 0 * xbar, 0 * xbar])
+    _flat_close(ft.merit_bwd(params, aim, stats, mspec, nc, R, Px=Px, Py=Py,
+                             coeffs=coeffs, lay=lay),
+                ft.merit_bwd_plain(params, aim, stats, mspec, nc, R, Px=Px,
+                                   Py=Py, coeffs=coeffs, lay=lay),
+                f"{kind} merit_bwd")
+    names = ("trace_fwd", "trace_bwd", "trace_field_fwd", "trace_field_bwd")
+    assert ftr.LAUNCHES == _only(ftr.LAUNCHES,
+                                 **{n + "_aux": 1 for n in names})
+    assert ft.LAUNCHES == _only(ft.LAUNCHES, merit_fwd_aux=1,
+                                merit_bwd_aux=1)
+
+
+@pytest.mark.cuda
+def test_aux_poly_and_pol_kernels_match_plain(cuda_device):
+    """The aux build's poly mode on the Q2d singlet and K8/K9 (both modes)
+    on each family's Fresnel-coated singlet."""
+    system = _aux_system("forbes_q2d")
+    R = 20001
+    wl, _, _, _, _, _, ins, cots = _k6_inputs(system, freeform.H, R, 8)
+    coeffs, lay = _aux_tables(system)
+    nc = coeffs.shape[1]
+    spec = ftr.poly_spec(system)
+    params = ftr.build_poly_table(system).contiguous()
+    mats = system.stack.mat_coeffs.contiguous()
+    w = torch.tensor([0.48, 0.55, 0.65], dtype=torch.float64,
+                     device=cuda_device)[torch.arange(R, device=cuda_device)
+                                         % 3]
+    ins9 = ins + [w]
+    ftr.reset_launch_counts()
+    _close(ftr.trace_fwd_poly(params, mats, spec, ins9, coeffs, lay),
+           ftr.trace_fwd_poly_plain(params, mats, spec, ins9, coeffs, lay),
+           1e-10, "q2d trace_fwd_poly")
+    din, flat = ftr.trace_bwd_poly(params, mats, spec, nc, ins9, cots,
+                                   coeffs, lay)
+    din_p, flat_p = ftr.trace_bwd_poly_plain(params, mats, spec, nc, ins9,
+                                             cots, coeffs, lay)
+    _close(din, din_p, 1e-10, "q2d trace_bwd_poly input cotangent",
+           positions=False)
+    _flat_close(flat, flat_p, "q2d trace_bwd_poly")
+    assert ftr.LAUNCHES == _only(ftr.LAUNCHES, trace_fwd_poly_aux=1,
+                                 trace_bwd_poly_aux=1)
+    from optiland_torch.ops import pol_trace as pt
+
+    for fam in freeform.AUX_FAMILIES:
+        csys = freeform.coated_freeform(fam, "H").system
+        wl, params, _, _, _, _, ins, _ = _k6_inputs(csys, freeform.H, R, 9)
+        coeffs, lay = _aux_tables(csys)
+        nc = coeffs.shape[1]
+        pspec = pt.pol_spec(csys, wl)
+        coat = pt.build_coat_table(csys, wl, torch.float64, cuda_device)
+        g = torch.Generator(device="cpu").manual_seed(9)
+        cots = [torch.randn(R, generator=g, dtype=torch.float64).to(
+            cuda_device) for _ in range(pt.N_POL)]
+        pt.reset_launch_counts()
+        for states, intensity in ((None, False),
+                                  (pt.pol_states(create_polarization("H")),
+                                   True)):
+            c = cots[:8] if intensity else cots
+            _pol_out_close(pt.pol_fwd(params, coat, pspec, ins, states,
+                                      intensity, coeffs, lay),
+                           pt.pol_fwd_plain(params, coat, pspec, ins, states,
+                                            intensity, coeffs, lay),
+                           f"coated {fam}")
+            din, flat = pt.pol_bwd(params, coat, pspec, nc, ins, c, states,
+                                   intensity, coeffs, lay)
+            din_p, flat_p = pt.pol_bwd_plain(params, coat, pspec, ins, c,
+                                             states, intensity, coeffs, nc,
+                                             with_coeffs=True, lay=lay)
+            _close(din, din_p, 1e-10, f"coated {fam} pol_bwd input cotangent",
+                   positions=False)
+            _flat_close(flat, flat_p, f"coated {fam} pol_bwd")
+        assert pt.LAUNCHES == _only(pt.LAUNCHES, pol_fwd_aux=1, pol_bwd_aux=1,
+                                    pol_fwd_intensity_aux=1,
+                                    pol_bwd_intensity_aux=1)
+
+
+@pytest.mark.cuda
+def test_aux_entry_points_launch_the_aux_build(cuda_device):
+    """spot_rms_fast_field, trace_fast_field and Optic.trace of the Qbfs
+    singlet run the aux build and match the plain versions on the CPU; a
+    wrapper given no layout table for an aux-bearing spec raises."""
+    lens = freeform.freeform_singlet("forbes_qbfs")
+    system = lens.system
+    ftr.reset_launch_counts()
+    ft.reset_launch_counts()
+    Px, Py = ft.prng_disk(5, 4001, 0, torch.float64, cuda_device)
+    loss = ft.spot_rms_fast_field(system, *freeform.H, WL, Px=Px, Py=Py)
+    f = ftr.trace_fast_field(system, *freeform.H, Px, Py, WL)
+    res = lens.trace(Hx=0.3, Hy=0.7, num_rays=8, record=False)
+    assert torch.isfinite(loss) and torch.isfinite(f.x).all()
+    assert torch.isfinite(res.x).all()
+    assert ft.LAUNCHES == _only(ft.LAUNCHES, prng_disk=1, merit_fwd_aux=1)
+    assert ftr.LAUNCHES == _only(ftr.LAUNCHES, trace_field_fwd_aux=1,
+                                 trace_fwd_aux=1)
+    coeffs, _ = _aux_tables(system)
+    spec = ftr.fast_spec(system, field=True)
+    params = ft.build_param_table(system, WL)
+    aim = ft.aim_vector(system, *freeform.H)
+    with pytest.raises(ValueError, match="layout table"):
+        ftr.trace_field_fwd(params, aim, spec, Px, Py, coeffs)
+    config.set_device("cpu")
+    ref = freeform.freeform_singlet("forbes_qbfs").system
+    loss_p = ft.spot_rms_fast_field(ref, *freeform.H, WL, Px=Px.cpu(),
+                                    Py=Py.cpu())
+    assert float(loss) == pytest.approx(float(loss_p), rel=1e-12)
+
+
+@pytest.mark.cuda
+def test_deep_build_takes_the_aux_families(cuda_device):
+    """Past 16 surfaces a system with an aux-bearing surface runs the
+    deep_aux build, against the plain versions."""
+    system = freeform.deep_aux().system
+    assert system.cfg.num_surfaces == 20
+    R = 8001
+    wl, params, aim, _, Px, Py, ins, cots = _k6_inputs(system, H, R, 11)
+    coeffs, lay = _aux_tables(system)
+    nc = coeffs.shape[1]
+    spec = ftr.fast_spec(system, field=True)
+    ftr.reset_launch_counts()
+    _close(ftr.trace_fwd(params, spec, ins, coeffs, lay),
+           ftr.trace_fast_plain(params, spec, ins, coeffs, lay), 1e-10,
+           "deep aux trace_fwd")
+    din, flat = ftr.trace_bwd(params, spec, nc, ins, cots, coeffs, lay)
+    din_p, flat_p = ftr.trace_fast_bwd_plain(params, spec, nc, ins, cots,
+                                             coeffs, lay)
+    _close(din, din_p, 1e-10, "deep aux trace_bwd input cotangent",
+           positions=False)
+    _flat_close(flat, flat_p, "deep aux trace_bwd")
+    mspec = ft._spec_of(system)
+    rows = ft.merit_fwd(params, aim, mspec, R, Px=Px, Py=Py, coeffs=coeffs,
+                        lay=lay)
+    loss, xbar, ybar = ft._chan_combine(rows, R)
+    stats = torch.stack([xbar, ybar, 1.0 / R + 0 * xbar, 0 * xbar])
+    _flat_close(ft.merit_bwd(params, aim, stats, mspec, nc, R, Px=Px, Py=Py,
+                             coeffs=coeffs, lay=lay),
+                ft.merit_bwd_plain(params, aim, stats, mspec, nc, R, Px=Px,
+                                   Py=Py, coeffs=coeffs, lay=lay),
+                "deep aux merit_bwd")
+    assert ftr.LAUNCHES == _only(ftr.LAUNCHES, trace_fwd_deep_aux=1,
+                                 trace_bwd_deep_aux=1)

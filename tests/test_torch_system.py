@@ -324,8 +324,8 @@ def test_scalar_term_dispersion_matches_jax(code):
 
 def test_unported_surface_types_raise():
     lens = TorchCooke()
-    with pytest.raises(NotImplementedError, match="zernike"):
-        lens.surfaces.add(index=2, surface_type="zernike")
+    with pytest.raises(NotImplementedError, match="nurbs"):
+        lens.surfaces.add(index=2, surface_type="nurbs")
     # Optic.trace is ported; the image-height field types are not yet
     lens.fields.set_type("paraxial_image_height")
     with pytest.raises(NotImplementedError, match="later slice"):
@@ -376,7 +376,6 @@ def test_unsupported_geometry_codes_raise():
 
     x = torch.zeros(3, dtype=torch.float64)
     with pytest.raises(NotImplementedError, match="K6"):
-        t_geom.surface_normal_static(t_geom.ZERNIKE_SAG, 10.0, 0.0, None, x,
-                                     x)
+        t_geom.surface_normal_static(t_geom.NURBS, 10.0, 0.0, None, x, x)
     with pytest.raises(NotImplementedError, match="K6"):
         t_geom.distance_static(t_geom.NURBS, 10.0, 0.0, x, x, x, x, x, x + 1)
