@@ -81,7 +81,19 @@ to 0 just before it and read just after:
     singlets at full width over every stack leaf, the poly step of the Q2d
     singlet and the polarized step of the coated Zernike one, and the
     aux merit and trace kernels on each singlet timed against their f32
-    plain versions with their bounds (kernel rows tagged with the family).
+    plain versions with their bounds (kernel rows tagged with the family);
+  * the grating steps (phases 25-26): the grat build of the six
+    monochromatic kernels (K6c, grating diffraction) on the three golden
+    grating lenses and the tilted one of ``samples/grating.py`` against
+    their plain versions at check size in f64 to 1e-11 per ray and per
+    gradient column (the grating's P_G1 and P_G2 included) and in f32
+    against the f64 plain versions; a grating beside an asphere raising on
+    the card with no launch; a polychromatic and a polarized grating trace
+    on the plain engine on the card against the CPU; then the merit, field
+    and generic value+grad steps of the three golden lenses at full width
+    over every stack leaf (the period's and groove angle's gradients
+    finite and nonzero), and the grat kernels on each lens timed against
+    their f32 plain versions with their bounds (rows tagged with the lens).
 
 It prints:
 
@@ -299,17 +311,43 @@ OPS_AUX_GRAD = {6: (66, 95), 9: (140, 97), 10: (140, 97)}
 OPS_AUX_COL = 48  # per slot column: the recurrences and angular factors at
 #                   both points (2 x 15), the three weighted terms at each
 #                   (2 x 8), the sum of both 1, the warp sum 1
+# Operations per ray of a grating surface (K6c) in the GRAT build, counted
+# from csrc/step.cuh (grat_fwd, grat_adjoint) as above; they take the place
+# of the refraction (its 19 forward, 35 in the adjoint) on that surface.
+OPS_REFRACT = (19, 35)
+OPS_GRAT_FWD = {0: 62,  # plane: the groove vector 3 (sin, cos, negate);
+                #          d_eff 7, n_post 1, f.n 5, k - adot n 6, P 16, D 1,
+                #          rad 7, the propagation test 1, root 2, the sign 1,
+                #          the directions 12
+                1: 101}  # conic: its groove frame 42 (r^2 3, the root's
+#                          argument 5, clamp 2, sqrt, R x, tan, dz/dxi 3, the
+#                          tangent's norm 5 and 3 divides, n x t 9, |n x t|
+#                          6, f 3) and the 59 above
+OPS_GRAT_ADJ = {0: 114,  # the diffraction's adjoint 109 (the cotangents of
+                #           P, n, root, D, rad, d_eff, the indices, f and
+                #           the clamp), the groove vector's 5
+                1: 203}  # and the groove frame's 94 (|g| normalization 20,
+#                          two cross products 18, the tangent's norm 13, dz/
+#                          dxi 11, tan 3, the root and its clamp 20, the raw
+#                          normal's cotangent 3)
 POL_NAMES = ("pol_fwd", "pol_fwd_intensity", "pol_bwd", "pol_bwd_intensity")
+# the golden grating lenses of phase 26 (samples/grating.py)
+GRAT_NAMES = ("plane_grating", "curved_grating", "refl_grating")
 NEWTON_CODES = (2, 3, 4, 5, 6, 7, 8, 9, 10)  # radial and Cartesian families
 
 
-def geo_ops(code, nc, niters):
+def geo_ops(code, nc, niters, grating=False):
     """(forward, adjoint) operations per ray of one surface step's geometry
-    by its code: PLANE and STANDARD as counted above, a Newton family
+    by its code: PLANE and STANDARD as counted above (a ``grating`` one
+    diffracting in place of the refraction), a Newton family
     (codes 2, 3 radial; 4, 5, 7, 8 Cartesian; 6, 9, 10 aux-bearing, nc the
     slots of the laid-out table) with its newton_iters + 1 steps and nc
     coefficients. The adjoint excludes the recomputed forward
     (OPS_STEP_ADJ)."""
+    if grating:
+        fwd, adj = geo_ops(code, nc, niters)
+        return (fwd - OPS_REFRACT[0] + OPS_GRAT_FWD[code],
+                adj - OPS_REFRACT[1] + OPS_GRAT_ADJ[code])
     if code in OPS_AUX_POINT:
         (bp, sp), (bg, sg) = OPS_AUX_POINT[code], OPS_AUX_GRAD[code]
         point, grad = bp + sp * nc, bg + sg * nc
@@ -521,8 +559,10 @@ def main(argv=None):
     from optiland_torch.optic import Optic
     from optiland_torch.psf import HuygensPSF, huygens_psf, pupil_grid_coords
     from optiland_torch.ops import launch as launch_build
+    from optiland_torch.core import trace as trace_core
     from optiland_torch.samples import (
-        AsphericSinglet, CookeTriplet, freeform, perturbed, registry,
+        AsphericSinglet, CookeTriplet, freeform, grating, perturbed,
+        registry,
     )
 
     def reset_counts():
@@ -2735,26 +2775,29 @@ def main(argv=None):
         stock triplet's; a Newton surface counts its newton_iters + 1
         forward steps and its adjoint (OPS_NEWTON_*)."""
         codes, absorbs, tilted = spec_k[0], spec_k[2], spec_k[3]
-        niters = spec_k[-1]
+        niters, grat = spec_k[-1], ftr._grat(spec_k)
         build = ftr._build(spec_k)
         suf = launch_suffix(build)
         msuf = launch_suffix(ft._build(mspec_k))
         S_k = len(codes)
-        n_sag = sum(c in NEWTON_CODES for c in codes)
+        n_sag = len(launch_build.sag_surfaces(codes, build, grat))
         ncb = launch_build.block_width(nc_k, build)
 
-        def fwd(c):
-            return geo_ops(c, nc_k, niters)[0]
+        def fwd(c, g):
+            return geo_ops(c, nc_k, niters, g)[0]
 
-        def bwd(c):
+        def bwd(c, g):
             if c in NEWTON_CODES:
                 return sum(geo_ops(c, nc_k, niters))
-            return OPS_BWD_STANDARD if c == 1 else OPS_BWD_PLANE
+            base = OPS_BWD_STANDARD if c == 1 else OPS_BWD_PLANE
+            # a grating: its forward and adjoint for the refraction's
+            return base + ((OPS_GRAT_FWD[c] + OPS_GRAT_ADJ[c]
+                            - sum(OPS_REFRACT)) if g else 0)
 
-        geo_f = sum(fwd(c) + OPS_TILT_FWD * t
-                    for c, t in zip(codes[1:], tilted[1:]))
-        geo_b = sum(bwd(c) + (OPS_TILT_FWD + OPS_TILT_ADJ) * t
-                    for c, t in zip(codes[1:], tilted[1:]))
+        geo_f = sum(fwd(c, g) + OPS_TILT_FWD * t
+                    for c, t, g in zip(codes[1:], tilted[1:], grat[1:]))
+        geo_b = sum(bwd(c, g) + (OPS_TILT_FWD + OPS_TILT_ADJ) * t
+                    for c, t, g in zip(codes[1:], tilted[1:], grat[1:]))
         ann = OPS_ANNULAR if build & launch_build.BIT_SAG else 0
         full_f = geo_f + (S_k - 1) * (OPS_FULL_FWD + ann) + OPS_ABS_FWD * sum(
             absorbs[1:])
@@ -3395,14 +3438,17 @@ def main(argv=None):
             e[key] = d / top if top > 0 else d
         return e
 
-    def free_parity(fname, sysk, build, what, f32=False):
-        """The free (or deep_free) build of every trace kernel but the
-        polarized ones against its plain version on ``sysk`` (f64, the
+    def free_parity(fname, sysk, build, what, f32=False, rows=None,
+                    poly=True):
+        """The free (or deep_free, aux, grat) build of every trace kernel
+        but the polarized ones (and with ``poly`` False the polychromatic
+        ones) against its plain version on ``sysk`` (f64, the
         coefficient and layout tables of launch.kernel_tables): per-ray
         arrays to 1e-11 and every gradient column of the Cartesian
-        surfaces (col_errs); with ``f32`` also trace_fwd and trace_bwd in
-        f32 on the same inputs against the f64 plain versions (near32, the
-        input cotangents within 1e-3, the gradient to 1e-3 in L2)."""
+        surfaces, or of ``rows`` (col_errs); with ``f32`` also trace_fwd
+        and trace_bwd in f32 on the same inputs against the f64 plain
+        versions (near32, the input cotangents within 1e-3, the gradient
+        to 1e-3 in L2)."""
         spec_k = ftr.fast_spec(sysk, field=True)
         mspec_k = ft._spec_of(sysk)
         check(ftr._build(spec_k) == build and ft._build(mspec_k) == build,
@@ -3411,7 +3457,8 @@ def main(argv=None):
         _, pk, ak, _, ins, cots = k6_inputs(sysk, HF, Px64, Py64, g21)
         ck, lk = launch_build.kernel_tables(sysk, torch.float64)
         nck = ck.shape[1]
-        rows = [s for s, c in enumerate(spec_k[0]) if c in CART_CODES]
+        if rows is None:
+            rows = [s for s, c in enumerate(spec_k[0]) if c in CART_CODES]
         r = {"trace_fwd": arr_err(ftr.trace_fwd(pk, spec_k, ins, ck, lk),
                                   ftr.trace_fast_plain(pk, spec_k, ins, ck,
                                                        lk))}
@@ -3460,24 +3507,25 @@ def main(argv=None):
             ft.merit_bwd_plain(pk, ak, st_k, mspec_k, nck, Rc, Px=Px64,
                                Py=Py64, coeffs=ck, lay=lk),
             S_k, nck, rows, f"{fname} merit_bwd")
-        spec_q = ftr.poly_spec(sysk)
-        pq = ftr.build_poly_table(sysk).contiguous()
-        mq = sysk.stack.mat_coeffs.contiguous()
-        ins9 = ins + [cycled(Rc, torch.float64)]
-        r["trace_fwd_poly"] = arr_err(
-            ftr.trace_fwd_poly(pq, mq, spec_q, ins9, ck, lk),
-            ftr.trace_fwd_poly_plain(pq, mq, spec_q, ins9, ck, lk))
-        din_k, fl_k = ftr.trace_bwd_poly(pq, mq, spec_q, nck, ins9, cots, ck,
-                                         lk)
-        din_p, fl_p = ftr.trace_bwd_poly_plain(pq, mq, spec_q, nck, ins9,
-                                               cots, ck, lk)
-        r["trace_bwd_poly_din"] = arr_err(din_k, din_p, 1e-6)
-        r["trace_bwd_poly"] = col_errs(fl_k, fl_p, S_k, nck, rows,
-                                       f"{fname} trace_bwd_poly")
+        if poly:
+            spec_q = ftr.poly_spec(sysk)
+            pq = ftr.build_poly_table(sysk).contiguous()
+            mq = sysk.stack.mat_coeffs.contiguous()
+            ins9 = ins + [cycled(Rc, torch.float64)]
+            r["trace_fwd_poly"] = arr_err(
+                ftr.trace_fwd_poly(pq, mq, spec_q, ins9, ck, lk),
+                ftr.trace_fwd_poly_plain(pq, mq, spec_q, ins9, ck, lk))
+            din_k, fl_k = ftr.trace_bwd_poly(pq, mq, spec_q, nck, ins9, cots,
+                                             ck, lk)
+            din_p, fl_p = ftr.trace_bwd_poly_plain(pq, mq, spec_q, nck, ins9,
+                                                   cots, ck, lk)
+            r["trace_bwd_poly_din"] = arr_err(din_k, din_p, 1e-6)
+            r["trace_bwd_poly"] = col_errs(fl_k, fl_p, S_k, nck, rows,
+                                           f"{fname} trace_bwd_poly")
         for key in ("trace_fwd", "trace_bwd_din", "trace_field_fwd",
                     "trace_fwd_poly", "trace_bwd_poly_din", "merit_fwd"):
-            check(r[key] <= 1e-11, f"{fname} {key} f64: rel err {r[key]} > "
-                  "1e-11")
+            check(r.get(key, 0.0) <= 1e-11, f"{fname} {key} f64: rel err "
+                  f"{r.get(key)} > 1e-11")
         torch.cuda.synchronize()
         log(f"{what} {fname} (codes {spec_k[0]}, nc {nck}, "
             f"{BUILD_SUFFIX[build][1:]} build; 2^{args.check_log2} rays, f64 "
@@ -3830,6 +3878,171 @@ def main(argv=None):
         f"{ {k: round(bound_ms_of(*work[k]), 4) for k in aux_names} }; "
         f"phase 24 wall {time.perf_counter() - t24:.1f} s")
 
+    # ---- phase 25: K6c, gratings, at check size (f64) ----
+    # the grat build of the six monochromatic kernels against their plain
+    # versions on the three golden grating lenses and the tilted one
+    # (samples/grating.py) at (Hx, Hy) = (0.3, 0.7): per-ray arrays and
+    # every gradient column (the grating's P_G1 and P_G2 included) to
+    # 1e-11, trace_fwd/trace_bwd in f32 against the f64 plain versions;
+    # a grating beside an asphere raises on the card and launches nothing;
+    # a polychromatic and a polarized grating trace run the plain engine
+    # on the card, as in the JAX package, against the f64 plain engine on
+    # the CPU
+    t25 = time.perf_counter()
+    config.set_precision("float64")
+    res25 = {}
+    for gname in grating.NAMES:
+        sysg = grating.BUILDERS[gname]().system
+        grows = [s_ for s_, g_ in enumerate(ftr._grat(ftr.fast_spec(sysg)))
+                 if g_]
+        res25[gname] = free_parity(gname, sysg, launch_build.GRAT,
+                                   "phase 25", f32=True, rows=grows,
+                                   poly=False)
+    # the refusal: a grating beside an even asphere
+    lens_a = grating.plane_grating()
+    s1 = lens_a.surfaces.surfaces[1]
+    s1.surface_type, s1.coefficients = "even_asphere", (1e-5, -2e-8)
+    lens_a._invalidate()
+    sys_a = lens_a.system
+    rays_a = raygen.generate_rays(sys_a, *HF, Px64[:4096], Py64[:4096], WL)
+    reset_counts()
+    refused = 0
+    for call in (lambda: trace_core.trace(sys_a, rays_a, record=False,
+                                          wavelength=WL),
+                 lambda: ft.spot_rms_fast_field(sys_a, *HF, WL,
+                                                Px=Px64[:4096],
+                                                Py=Py64[:4096])):
+        try:
+            call()
+        except NotImplementedError as e:
+            refused += "grating beside EVEN_ASPHERE" in str(e)
+    check(refused == 2 and not any(counts().values()),
+          f"phase 25: a grating beside an asphere ran on the card: "
+          f"{refused} refusals, launches "
+          f"{ {k: v for k, v in counts().items() if v} }")
+    # a wavelength per ray and a polarized coated grating: the plain
+    # engine on the card, against the plain engine on the CPU
+    w25 = torch.tensor(POLY_WLS, dtype=torch.float64,
+                       device=dev)[torch.arange(4096, device=dev) % 3]
+    sys_p = grating.plane_grating().system
+    rays_p = raygen.generate_rays(sys_p, *HF, Px64[:4096], Py64[:4096],
+                                  WL).replace(w=w25)
+    out_poly, _ = trace_core.trace(sys_p, rays_p, record=False)
+    out_pol = grating.coated_grating("H").trace(Hx=0.3, Hy=0.7, num_rays=12,
+                                                record=False).rays
+    check(not any(counts().values()), "phase 25: the poly or polarized "
+          f"grating launched { {k: v for k, v in counts().items() if v} }")
+    config.set_device("cpu")
+    ref_poly, _ = trace_core.trace(grating.plane_grating().system,
+                                   rays_p.replace(**{
+                                       k: getattr(rays_p, k).cpu() for k in
+                                       ftr.RAY_FIELDS + ("w",)}),
+                                   record=False)
+    ref_pol = grating.coated_grating("H").trace(Hx=0.3, Hy=0.7, num_rays=12,
+                                                record=False).rays
+    config.set_device("cuda")
+    for what, got, ref in (("poly", out_poly, ref_poly),
+                           ("polarized", out_pol, ref_pol)):
+        a_ = [getattr(got, k).cpu() for k in ftr.RAY_FIELDS]
+        b_ = [getattr(ref, k) for k in ftr.RAY_FIELDS]
+        check(all(bool(torch.isfinite(u).all()) for u in a_),
+              f"phase 25 {what} grating on the card: not finite")
+        res25[f"{what}_plain_engine"] = arr_err(a_, b_)
+        check(res25[f"{what}_plain_engine"] <= 1e-12, f"phase 25 {what} "
+              f"grating: card vs CPU {res25[f'{what}_plain_engine']}")
+    report["phases"]["grat_parity"] = res25
+    torch.cuda.synchronize()
+    log(f"phase 25 refusal beside an asphere on the card: {refused} of 2 "
+        f"entry points raise, no launch; poly and polarized gratings on the "
+        f"plain engine, card vs CPU (f64, tol 1e-12): poly "
+        f"{res25['poly_plain_engine']:.2e}, polarized "
+        f"{res25['polarized_plain_engine']:.2e}; phase 25 wall "
+        f"{time.perf_counter() - t25:.1f} s")
+
+    # ---- phase 26: the grating lenses' steps at full width (f32) ----
+    # the merit, field and generic value+grad steps of the three golden
+    # grating lenses at (Hx, Hy) = (0.3, 0.7) over every stack leaf (the
+    # grating's geo_p1 and geo_p2 gradients finite and nonzero); then the
+    # grat build of each merit and trace kernel at full width against its
+    # f32 plain version, timed, with its bound (rows tagged with the lens)
+    t26 = time.perf_counter()
+    config.set_precision("float32")
+    steps26, full26 = {}, {}
+    grat32 = {}
+    for gname in GRAT_NAMES:
+        sys32 = grating.BUILDERS[gname]().system
+        grat32[gname] = sys32
+        gs26 = ftr._grat(ftr.fast_spec(sys32)).index(True)
+        for pname in ("merit", "field", "generic"):
+            loss_fn, kern = {
+                "merit": (merit22, ("merit_fwd_grat", "merit_bwd_grat")),
+                "field": (field22, ("prng_disk", "trace_field_fwd_grat",
+                                    "trace_field_bwd_grat")),
+                "generic": (generic22, ("prng_disk", "trace_fwd_grat",
+                                        "trace_bwd_grat"))}[pname]
+            name = f"{gname}_{pname}"
+            seed0 = 9800 + 100 * len(steps26)
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            sl, lv = leaf_system(sys32)
+            first = loss_fn(sl, seed0 - 100)
+            first.backward()
+            g_p1 = lv["geo_p1"].grad[gs26]
+            g_p2 = lv["geo_p2"].grad[gs26]
+            check(bool(torch.isfinite(first)) and bool(torch.isfinite(g_p1))
+                  and bool(torch.isfinite(g_p2)) and float(g_p1) != 0
+                  and float(g_p2) != 0, f"{name}: value or grating "
+                  f"gradient: {float(first)}, p1 {float(g_p1)}, p2 "
+                  f"{float(g_p2)}")
+
+            def vg26(i, sysk=sys32, loss_fn=loss_fn):
+                s_, _ = leaf_system(sysk)
+                loss_fn(s_, i).backward()
+
+            times26 = timed(vg26, seed0)
+            got26 = counts()
+            n26 = 1 + 3 + args.steps
+            expect26 = {**dict.fromkeys(got26, 0),
+                        **dict.fromkeys(kern, n26)}
+            check(got26 == expect26, f"{name} launches {got26}, expected "
+                  f"{expect26}")
+            path_launches[name] = got26
+            step26 = float(np.median(times26))
+            steps26[name] = {"value": float(first.detach()),
+                             "step_ms": step26, "step_ms_all": times26,
+                             "launches": {k: v for k, v in got26.items()
+                                          if v},
+                             "steps": n26,
+                             "grating_grads": [float(g_p1), float(g_p2)]}
+            log(f"phase 26 {name}: {n26} value+grad steps over every stack "
+                f"leaf in {time.perf_counter() - t0:.1f} s, value "
+                f"{float(first.detach()):.9e}, d/d(period, groove angle) "
+                f"({float(g_p1):.6e}, {float(g_p2):.6e}); median step "
+                f"{step26:.3f} ms over {args.steps} steps; launches "
+                f"{ {k: v for k, v in got26.items() if v} }")
+    gen26 = torch.Generator(device=dev).manual_seed(260)
+    for gname in GRAT_NAMES:
+        kernels_full_width(grat32[gname], HF, "_grat", gen26, full26,
+                           tag=f"_{gname}")
+    report["phases"]["grat_steps"] = steps26
+    report["phases"]["grat_full_width"] = full26
+    grat_names = [n + "_grat_" + g for g in GRAT_NAMES
+                  for n in ("merit_fwd", "merit_bwd", "trace_fwd",
+                            "trace_bwd", "trace_field_fwd",
+                            "trace_field_bwd")]
+    log(f"phase 26 grat kernels at 2^{args.full_log2} rays on the three "
+        f"golden grating lenses (f32) against the f32 plain versions: "
+        f"forwards within 2e-4 x max(1, max |ref|), input cotangents (tol "
+        f"1e-3) and gradient L2 (tol 1e-3) "
+        f"{ {k: float(f'{v:.3e}') for k, v in full26.items()} }; max "
+        f"|kernel - plain| "
+        f"{ {k: float(f'{kerr[k]:.4g}') for k in grat_names} }; ms "
+        f"{ {k: round(ms[k], 4) for k in grat_names} }; plain ms "
+        f"{ {k: round(plain_ms[k], 2) for k in grat_names} }; bounds ms "
+        f"{ {k: round(bound_ms_of(*work[k]), 4) for k in grat_names} }; "
+        f"phase 26 wall {time.perf_counter() - t26:.1f} s")
+
     # ---- the kernels line ----
     replaces = {
         "prng_disk": "optiland_tpu/ops/pallas_trace.py:1100",
@@ -3867,10 +4080,10 @@ def main(argv=None):
                  "merit_fwd_tilt", "merit_bwd_tilt", "trace_field_fwd_tilt",
                  "trace_field_bwd_tilt", "trace_fwd_tilt", "trace_bwd_tilt",
                  "pol_fwd_intensity_tilt", "pol_bwd_intensity_tilt",
-                 *k6_names, *free_names, *aux_names):
-        # a row of an aux-bearing family (phase 24) counts the launches of
-        # its family's paths
-        fam = next((f for f in freeform.AUX_FAMILIES
+                 *k6_names, *free_names, *aux_names, *grat_names):
+        # a row of an aux-bearing family (phase 24) or a grating lens
+        # (phase 26) counts the launches of its own paths
+        fam = next((f for f in freeform.AUX_FAMILIES + GRAT_NAMES
                     if name.endswith("_" + f)), None)
         key = name if fam is None else name.removesuffix("_" + fam)
         base_name = key.removesuffix(max(

@@ -229,15 +229,25 @@ def n_all(stack: SurfaceStack, cfg: SystemConfig, w) -> torch.Tensor:
 
 
 # Config entries that hold per-surface objects the port does not model yet
-# (apertures: all but RadialAperture, and geometry extras but those of the
-# aux-bearing families, checked apart).
-_OBJECT_FIELDS = ("interactions", "bsdfs")
+# (apertures: all but RadialAperture, geometry extras but those of the
+# aux-bearing families and gratings, and interactions but gratings, checked
+# apart).
+_OBJECT_FIELDS = ("bsdfs",)
+
+
+def is_grating(entry):
+    """True for a grating's extras or interaction, ``("grating", m)`` with
+    an integer diffraction order m."""
+    return (isinstance(entry, tuple) and len(entry) == 2
+            and entry[0] == "grating"
+            and isinstance(entry[1], (int, np.integer)))
 
 
 def carried_aux(code, aux):
     """True for the geometry extras the port carries: a Zernike scheme
     ``(scheme,)``, ``("qbfs", n_terms)`` and ``("q2d", nms)`` on a surface
-    of that family (None anywhere)."""
+    of that family, ``("grating", m)`` on a PLANE or STANDARD surface (None
+    anywhere)."""
     from optiland_torch.core import geometry as geom
     from optiland_torch.zernike import ZERNIKE_CLASSES
 
@@ -245,6 +255,8 @@ def carried_aux(code, aux):
         return True
     if not isinstance(aux, tuple) or not aux:
         return False
+    if is_grating(aux):
+        return code in (geom.PLANE, geom.STANDARD)
     if code == geom.ZERNIKE_SAG:
         return len(aux) == 1 and aux[0] in ZERNIKE_CLASSES
     if code == geom.FORBES_QBFS:
@@ -265,10 +277,12 @@ def system_from_numpy(arrays: dict, cfg_fields: dict) -> System:
     (``BaseAperture.to_dict`` of a ``RadialAperture``), and ``polarized``
     as a bool. The tensors take the configured dtype and device. Raises
     ``NotImplementedError`` for the per-surface config objects the port does
-    not carry yet (other apertures, BSDFs, interactions, geometry extras)
-    and for a coating record of a kind it does not have. Geometry extras
-    are carried for the aux-bearing families (a Zernike scheme, a Qbfs
-    term count, a Q2d (n, m) layout), as tuples.
+    not carry yet (other apertures, BSDFs, interactions but gratings,
+    geometry extras) and for a coating record of a kind it does not have.
+    Geometry extras are carried for the aux-bearing families (a Zernike
+    scheme, a Qbfs term count, a Q2d (n, m) layout) and gratings, as
+    tuples; interactions only as gratings, ``("grating", m)`` (the thin
+    lens and phase interactions come in a later slice).
     """
     from optiland_torch.coatings import coating_from_record
     from optiland_torch.physical_apertures import RadialAperture
@@ -295,10 +309,21 @@ def system_from_numpy(arrays: dict, cfg_fields: dict) -> System:
                    for c, a in zip(cfg_fields["geom_codes"], aux)):
             raise NotImplementedError(
                 f"system_from_numpy: config entry 'geom_aux' holds {aux!r}; "
-                "only None entries and the extras of ZERNIKE_SAG, "
-                "FORBES_QBFS and FORBES_Q2D surfaces are carried so far"
+                "only None entries, the extras of ZERNIKE_SAG, "
+                "FORBES_QBFS and FORBES_Q2D surfaces and gratings on PLANE "
+                "and STANDARD ones are carried so far"
             )
         cfg_fields["geom_aux"] = aux
+    inter = cfg_fields.get("interactions")
+    if inter is not None:
+        inter = tuple(inter)
+        if not all(i is None or is_grating(i) for i in inter):
+            raise NotImplementedError(
+                f"system_from_numpy: config entry 'interactions' holds "
+                f"{inter!r}; only None entries and gratings ('grating', m) "
+                "are carried so far (thin lens and phase: a later slice)"
+            )
+        cfg_fields["interactions"] = inter
     for name in _OBJECT_FIELDS:
         vals = cfg_fields.get(name)
         if vals is not None and any(v is not None for v in vals):

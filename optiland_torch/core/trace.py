@@ -30,11 +30,17 @@ The port covers PLANE, STANDARD, the radial aspheres (EVEN_ASPHERE,
 ODD_ASPHERE) and the Cartesian freeforms (POLYNOMIAL_XY, CHEBYSHEV,
 TOROIDAL, BICONIC, and ZERNIKE_SAG, FORBES_QBFS, FORBES_Q2D with their
 ``geom_aux`` extras) surfaces (the Newton families by Newton's method,
-``geometry.NEWTON_ITERS`` steps, as the JAX package's XLA path) and
-``RadialAperture`` objects, whose clip
-replaces the circular one; the other aperture objects, interactions (thin
-lens, phase, grating) and BSDFs come in later slices and raise, and the
-scan engine (``trace_scan``) waits for ROADMAP Queue 1 item 8.
+``geometry.NEWTON_ITERS`` steps, as the JAX package's XLA path),
+``RadialAperture`` objects, whose clip replaces the circular one, and
+grating interactions ``("grating", m)`` on PLANE and STANDARD substrates:
+vector diffraction of order m (``kernels.grating_diffract``), evanescent
+orders masked to zero intensity, for a wavelength per ray too and under
+polarization. A mono grating system runs on the kernels' grating build;
+a polychromatic or polarized one runs this engine, as in the JAX package,
+whose poly and polarized kernels take no interaction either. The other
+aperture objects, the thin lens and phase interactions and BSDFs come in
+later slices and raise, and the scan engine (``trace_scan``) waits for
+ROADMAP Queue 1 item 8.
 """
 
 from __future__ import annotations
@@ -44,7 +50,9 @@ import torch
 
 from optiland_torch.core import geometry as geom
 from optiland_torch.core.rays import RealRays
-from optiland_torch.core.system import System, k_of, n_of, positions
+from optiland_torch.core.system import (
+    System, is_grating, k_of, n_of, positions,
+)
 from optiland_torch.ops import kernels
 from optiland_torch.physical_apertures import radial_only
 from optiland_torch.polarization import complex_dtype, update_p
@@ -55,18 +63,19 @@ HISTORY_FIELDS = ("x", "y", "z", "L", "M", "N", "intensity", "opd")
 def _check_structure(cfg):
     """Raise for the per-surface objects that later slices port: every
     aperture object but a ``RadialAperture`` (exactly that type), every
-    interaction and BSDF."""
+    interaction but a grating (thin lens, phase), and every BSDF."""
     if not radial_only(cfg.apertures):
         raise NotImplementedError(
             "physical aperture objects other than RadialAperture are ported "
             "in a later slice")
-    for name, what in (
-        ("interactions", "surface interactions (thin lens, phase, grating)"),
-        ("bsdfs", "BSDF scattering"),
-    ):
-        vals = getattr(cfg, name)
-        if vals is not None and any(v is not None for v in vals):
-            raise NotImplementedError(f"{what} are ported in a later slice")
+    if cfg.interactions is not None and not all(
+            i is None or is_grating(i) for i in cfg.interactions):
+        raise NotImplementedError(
+            "surface interactions other than gratings (thin lens, phase) "
+            "are ported in a later slice")
+    if cfg.bsdfs is not None and any(b is not None for b in cfg.bsdfs):
+        raise NotImplementedError("BSDF scattering is ported in a later "
+                                  "slice")
 
 
 def _surface_step(stack, cfg, s, pos_s, state):
@@ -116,7 +125,22 @@ def _surface_step(stack, cfg, s, pos_s, state):
     nx, ny, nz = geom.surface_normal_static(code, radius, conic, coeffs, x, y,
                                             p1, p2, aux=aux)
     L0, M0, N0 = L, M, N  # pre-interaction directions
-    if cfg.reflective[s]:
+    inter = cfg.interactions[s] if cfg.interactions is not None else None
+    if inter is not None:
+        # grating diffraction of order m: period p1 (um), groove angle p2;
+        # the groove frame reads the raw normal, the diffraction the one
+        # aligned against the rays
+        refl = bool(cfg.reflective[s])
+        n_post = n_pre if refl else n_of(cfg.mat_formulas[s],
+                                         stack.mat_coeffs[s], stack.ntab[s], w)
+        f = kernels.grating_vector(code, radius, conic, p2, x, y, nx, ny, nz)
+        nax, nay, naz, adot = kernels.align_normal(L, M, N, nx, ny, nz)
+        L, M, N, ok = kernels.grating_diffract(
+            L, M, N, nax, nay, naz, adot, f, p1, inter[1] * w, n_pre, n_post,
+            refl)
+        inten = torch.where(ok, inten, 0.0)  # evanescent orders
+        n_next = n_post
+    elif cfg.reflective[s]:
         L, M, N = kernels.reflect(L, M, N, nx, ny, nz)
         n_next = n_pre
     else:
@@ -194,9 +218,12 @@ def trace(system: System, rays: RealRays, record: bool = True, key=None,
         and rays.x.device.type == "cuda"
     ):
         from optiland_torch.ops import fast_trace, pol_trace
+        from optiland_torch.ops.launch import grating_flags
 
         wl = float(wavelength)
-        if cfg.polarized and pol_trace.kernel_eligible(system, wl):
+        # the polarized kernels take no grating, as the JAX package's
+        if (cfg.polarized and not any(grating_flags(cfg))
+                and pol_trace.kernel_eligible(system, wl)):
             out, p = pol_trace.trace_fast_pol(system, rays, wl)
             return out.replace(L0=rays.L, M0=rays.M, N0=rays.N), {"p": p}
         if not cfg.polarized and not coated:

@@ -14,7 +14,10 @@
 // The poly mode (template flag POLY) reads a 9th per-ray array, the
 // wavelength, and the (S, nm) dispersion coefficients, evaluates each
 // surface's index per ray from its formula (step.cuh: n_formula), and its
-// adjoint also sums the coefficients' gradient (dn_dcoef).
+// adjoint also sums the coefficients' gradient (dn_dcoef). The mono mode
+// also has the grating build (K6c; step.cuh: B_GRAT), which reads a fifth
+// flag row, the grating flags, and sums each grating surface's P_G1 and
+// P_G2 columns; the poly mode takes no grating, as the JAX package's.
 //
 // What bounds them on this card. Each ray-surface step is ~120 operations
 // forward and ~300 in the adjoint; a ray moves 40 bytes (field forward: Px,
@@ -79,8 +82,8 @@ __device__ __forceinline__ void launch_state(int64_t i, const T* sa,
 
 // The flag rows of the spec (ops/fast_trace.py: fast_spec, poly_spec):
 // code, reflect, absorb, tilted, and in the polychromatic mode the
-// dispersion formula code.
-constexpr int F_ABS = 2, F_TILT = 3, F_FORMULA = 4;
+// dispersion formula code, in the grating build the grating flag.
+constexpr int F_ABS = 2, F_TILT = 3, F_FORMULA = 4, F_GRAT = 4;
 
 // Copy the polychromatic mode's (S, nm) coefficient rows into shared memory
 // (load_tables, which follows, synchronises).
@@ -103,7 +106,8 @@ trace_fwd_kernel(const T* __restrict__ params, const T* __restrict__ aim,
                  int64_t R, Rays8<T*> out) {
   using Bd = Build<B>;
   constexpr int CAP = Bd::CAP;
-  constexpr int NF = POLY ? 5 : 4;
+  constexpr bool GR = Bd::GRAT && !POLY;
+  constexpr int NF = POLY || GR ? 5 : 4;
   __shared__ T sp[CAP * NUM_P];
   __shared__ T sr[CAP * N_ROT];
   __shared__ T sa[N_AIM];
@@ -129,6 +133,13 @@ trace_fwd_kernel(const T* __restrict__ params, const T* __restrict__ aim,
     T npost = sp[s * NUM_P + P_NPOST];
     if constexpr (POLY)
       npost = refl ? n : n_formula(sf[F_FORMULA * S + s], sm + s * nm, nm, w);
+    if constexpr (GR)
+      n = step_fwd_grat<T, true>(sf[s], refl, sf[F_ABS * S + s],
+                                 sf[F_TILT * S + s], sp + s * NUM_P,
+                                 sr + s * N_ROT, n, npost, v[0], v[1], v[2],
+                                 v[3], v[4], v[5], v[6], v[7],
+                                 sf[F_GRAT * S + s]);
+    else
     n = step_fwd<T, true, Bd::TILT, Bd::SAG, Bd::FREE, Bd::DEEP, Bd::AUX>(
         sf[s], refl, POLY ? 0 : sf[F_ABS * S + s], sf[F_TILT * S + s],
         sp + s * NUM_P, sr + s * N_ROT, scf + s * nc, lay_of(lay, s, nc), nc,
@@ -143,7 +154,8 @@ trace_fwd_kernel(const T* __restrict__ params, const T* __restrict__ aim,
 // the reverse sweep seeded with its 8 output cotangents. One partial row per
 // block over a grid-stride loop of ray chunks, compact layout [s * N_GF + j]
 // for surface s and slot j, then (SAG) nc coefficient columns for each of
-// the nsag Newton surfaces, then (FIELD) N_AIM aim entries or (POLY) S * nm
+// the nsag Newton surfaces (GRAT: P_G1 and P_G2 for each of the nsag
+// grating surfaces), then (FIELD) N_AIM aim entries or (POLY) S * nm
 // dispersion coefficient entries [.. + s * nm + j]; the generic mode also
 // writes the 8 per-ray input cotangents. The free and deep builds keep their
 // per-warp rows in dynamic shared memory.
@@ -165,9 +177,11 @@ trace_bwd_kernel(const T* __restrict__ params, const T* __restrict__ aim,
                  T* __restrict__ partial) {
   using Bd = Build<B>;
   constexpr int CAP = Bd::CAP;
-  constexpr int NF = POLY ? 5 : 4;
+  constexpr bool GR = Bd::GRAT && !POLY;
+  constexpr int NF = POLY || GR ? 5 : 4;
   constexpr int NW_MAX = BWD_BLOCK / 32;
   constexpr int NCOMP_MAX = CAP * N_GF + (Bd::SAG ? CAP * NC_MAX : 0) +
+                            (GR ? CAP * N_GRAT_COLS : 0) +
                             (POLY ? CAP * MAX_NM : N_AIM);
   __shared__ T sp[CAP * NUM_P];
   __shared__ T sr[CAP * N_ROT];
@@ -175,7 +189,7 @@ trace_bwd_kernel(const T* __restrict__ params, const T* __restrict__ aim,
   __shared__ T sm[POLY ? CAP * MAX_NM : 1];
   __shared__ T scf[Bd::SAG ? CAP * NC_MAX : 1];
   __shared__ int sf[NF * CAP];
-  __shared__ int ssag[Bd::SAG ? CAP : 1];
+  __shared__ int ssag[Bd::SAG || GR ? CAP : 1];
   // the per-warp rows in dynamic shared memory
   constexpr bool DYN = Bd::DYN;
   __shared__ T acc_s[DYN ? 1 : NW_MAX * NCOMP_MAX];
@@ -185,7 +199,8 @@ trace_bwd_kernel(const T* __restrict__ params, const T* __restrict__ aim,
   // the layout rows of the aux-bearing surfaces follow the table (AUX)
   const T* lay = Bd::AUX ? cf + (int64_t)S * nc : nullptr;
   load_tables<T, NF, FIELD>(params, aim, flags, S, sp, sa, sf, sr);
-  const int nsagc = Bd::SAG ? nsag * Bd::block(nc) : 0;
+  const int nsagc =
+      Bd::SAG ? nsag * Bd::block(nc) : (GR ? nsag * N_GRAT_COLS : 0);
   const int ncomp =
       S * N_GF + nsagc + (FIELD ? N_AIM : 0) + (POLY ? S * nm : 0);
   const int nw = blockDim.x >> 5;
@@ -197,6 +212,7 @@ trace_bwd_kernel(const T* __restrict__ params, const T* __restrict__ aim,
   if (threadIdx.x == 0) {
     fill_npre(sp, sf, S, npre);
     if constexpr (Bd::SAG) fill_sag<Bd::AUX>(sf, S, ssag);
+    if constexpr (GR) fill_grat(sf + F_GRAT * S, S, ssag);
   }
   __syncthreads();
   T* row = acc + warp * astride;
@@ -230,6 +246,13 @@ trace_bwd_kernel(const T* __restrict__ params, const T* __restrict__ aim,
         if constexpr (POLY)
           npost =
               refl ? n : n_formula(sf[F_FORMULA * S + s], sm + s * nm, nm, w);
+        if constexpr (GR)
+          n = step_fwd_grat<T, true>(sf[s], refl, sf[F_ABS * S + s],
+                                     sf[F_TILT * S + s], sp + s * NUM_P,
+                                     sr + s * N_ROT, npre[s], npost, v[0],
+                                     v[1], v[2], v[3], v[4], v[5], v[6],
+                                     v[7], sf[F_GRAT * S + s]);
+        else
         n = step_fwd<T, true, Bd::TILT, Bd::SAG, Bd::FREE, Bd::DEEP, Bd::AUX>(
             sf[s], refl, POLY ? 0 : sf[F_ABS * S + s], sf[F_TILT * S + s],
             sp + s * NUM_P, sr + s * N_ROT, scf + s * nc, lay_of(lay, s, nc),
@@ -252,6 +275,14 @@ trace_bwd_kernel(const T* __restrict__ params, const T* __restrict__ aim,
         n_pre = valid ? st[s][6] : T(1);
         npost = refl ? n_pre : (s + 1 < S && valid ? st[s + 1][6] : n_last);
       }
+      if constexpr (GR) {
+        if (valid)
+          step_adjoint_grat<T, true>(
+              sf[s], refl, sf[F_ABS * S + s], sf[F_TILT * S + s],
+              sp + s * NUM_P, sr + s * N_ROT, n_pre, npost, st[s][0],
+              st[s][1], st[s][2], st[s][3], st[s][4], st[s][5], st[s][6], g,
+              gc, gs, sf[F_GRAT * S + s]);
+      } else {
       if (valid)
         step_adjoint<T, true, Bd::TILT, Bd::SAG, Bd::FREE, Bd::DEEP, Bd::AUX>(
             sf[s], refl, POLY ? 0 : sf[F_ABS * S + s], sf[F_TILT * S + s],
@@ -259,6 +290,7 @@ trace_bwd_kernel(const T* __restrict__ params, const T* __restrict__ aim,
             nc, niters, n_pre,
             npost, st[s][0], st[s][1], st[s][2], st[s][3], st[s][4],
             st[s][5], POLY ? T(0) : st[s][6], g, gc, gs);
+      }
       T g_np = T(0);  // POLY: the cotangent of npost, for the coefficients
       if constexpr (POLY) {
         g_np = gc[3];
@@ -278,6 +310,9 @@ trace_bwd_kernel(const T* __restrict__ params, const T* __restrict__ aim,
         else if (is_newton_of<Bd::AUX>(sf[s]))
           add_coef_cols(gs, nc, lane, row, cb);
       }
+      if constexpr (GR)
+        if (sf[F_GRAT * S + s])
+          add_grat_cols(gs, lane, row, S * N_GF + ssag[s] * N_GRAT_COLS);
       if constexpr (POLY) {
         if (!refl) {
           const int fc = sf[F_FORMULA * S + s];
@@ -338,7 +373,7 @@ int fwd_launch(const T* params, const T* aim, const T* mats, const int* flags,
                const T* px, const T* py, void* const* in, int64_t R,
                void* const* out, cudaStream_t stream) {
   if (POLY && (nm < 1 || nm > MAX_NM)) return (int)cudaErrorInvalidValue;
-  return dispatch_build(build, [&](auto b) {
+  return dispatch_build<!POLY>(build, [&](auto b) {
     constexpr int B = decltype(b)::value;
     if (!shape_ok<B>(S, nc, niters)) return (int)cudaErrorInvalidValue;
     const int64_t blocks = (R + FWD_BLOCK - 1) / FWD_BLOCK;
@@ -362,9 +397,9 @@ int bwd_launch(const T* params, const T* aim, const T* mats, const int* flags,
       nsag > S)
     return (int)cudaErrorInvalidValue;
   const int ncb = block_cols(build, nc);
-  const int nsagc = build & BIT_SAG ? nsag * ncb : 0;
+  const int nsagc = build & (BIT_SAG | BIT_GRAT) ? nsag * ncb : 0;
   const int n_extra = FIELD ? N_AIM : (POLY ? S * nm : 0);
-  const int e = dispatch_build(build, [&](auto b) {
+  const int e = dispatch_build<!POLY>(build, [&](auto b) {
     constexpr int B = decltype(b)::value;
     if (!shape_ok<B>(S, nc, niters)) return (int)cudaErrorInvalidValue;
     const auto kernel = trace_bwd_kernel<T, FIELD, POLY, B>;
@@ -379,6 +414,10 @@ int bwd_launch(const T* params, const T* aim, const T* mats, const int* flags,
     return (int)cudaGetLastError();
   });
   if (e != 0) return e;
+  if (build & BIT_GRAT)
+    return reduce_launch<T, N_GF, true>(partial, nblocks, S, nc, ncb, nsagc,
+                                        flags + F_GRAT * S, n_extra, out,
+                                        stream);
   return reduce_launch<T, N_GF>(partial, nblocks, S, nc, ncb, nsagc, flags,
                                 n_extra, out, stream);
 }

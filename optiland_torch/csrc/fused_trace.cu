@@ -24,7 +24,11 @@
 // each) and two more with their derivatives in the adjoint, and its nc
 // coefficient columns to the gradient rows; a Cartesian freeform as many
 // evaluations of its table (~35 + 13 to 22 operations per coefficient) and
-// its nc + 2 columns (the coefficients, P_G1, P_G2).
+// its nc + 2 columns (the coefficients, P_G1, P_G2); a grating (K6c, the
+// grating build, which reads a fourth flag row, F_GRAT) its groove vector
+// (~60 operations on a conic substrate: a square root, a tan and two cross
+// products) and its diffraction in place of the refraction, and its P_G1
+// and P_G2 columns.
 // The backward keeps each ray's per-surface input state in a local array
 // bounded by the build's surface capacity (Build<B>::CAP) for its reverse
 // sweep instead of re-tracing.
@@ -35,6 +39,9 @@
 #include "step.cuh"
 
 namespace {
+
+// the grating build's flag row after code, reflect, tilted
+constexpr int F_GRAT = 3;
 
 // ---------------------------------------------------------------------------
 // Philox4x32-10 (Salmon et al., SC'11): counter (ray index, 0, 0), key = seed
@@ -105,16 +112,17 @@ merit_fwd_kernel(const T* __restrict__ params, const T* __restrict__ aim,
                  T* __restrict__ rows) {
   using Bd = Build<B>;
   constexpr int CAP = Bd::CAP;
+  constexpr int NF = Bd::GRAT ? 4 : 3;
   __shared__ T sp[CAP * NUM_P];
   __shared__ T sr[CAP * N_ROT];
   __shared__ T sa[N_AIM];
   __shared__ T scf[Bd::SAG ? CAP * NC_MAX : 1];
-  __shared__ int sf[3 * CAP];  // code, reflect, tilted
+  __shared__ int sf[NF * CAP];  // code, reflect, tilted (GRAT: grating)
   __shared__ T red[2][32];
   load_coefs<T, Bd::SAG>(cf, S, nc, scf);
   // the layout rows of the aux-bearing surfaces follow the table (AUX)
   const T* lay = Bd::AUX ? cf + (int64_t)S * nc : nullptr;
-  load_tables<T, 3, true>(params, aim, flags, S, sp, sa, sf, sr);
+  load_tables<T, NF, true>(params, aim, flags, S, sp, sa, sf, sr);
 
   const int64_t base = (int64_t)blockIdx.x * blockDim.x;
   const int64_t i = base + threadIdx.x;
@@ -135,6 +143,13 @@ merit_fwd_kernel(const T* __restrict__ params, const T* __restrict__ aim,
     T unused_i = T(0), unused_opd = T(0);  // the merit step traces geometry
     T n = sp[P_NPOST];
     for (int s = 1; s < S; ++s)
+      if constexpr (Bd::GRAT)
+        n = step_fwd_grat<T, false>(sf[s], sf[S + s], 0, sf[2 * S + s],
+                                    sp + s * NUM_P, sr + s * N_ROT, n,
+                                    sp[s * NUM_P + P_NPOST], x, y, z, L, M,
+                                    N, unused_i, unused_opd,
+                                    sf[F_GRAT * S + s]);
+      else
       n = step_fwd<T, false, Bd::TILT, Bd::SAG, Bd::FREE, Bd::DEEP, Bd::AUX>(
           sf[s], sf[S + s], 0, sf[2 * S + s], sp + s * NUM_P, sr + s * N_ROT,
           scf + s * nc, lay_of(lay, s, nc), nc, niters, n,
@@ -174,14 +189,16 @@ merit_bwd_kernel(const T* __restrict__ params, const T* __restrict__ aim,
                  T* __restrict__ partial) {
   using Bd = Build<B>;
   constexpr int CAP = Bd::CAP;
+  constexpr int NF = Bd::GRAT ? 4 : 3;
   constexpr int NW_MAX = BWD_BLOCK / 32;
-  constexpr int NCOMP_MAX = CAP * N_G + (Bd::SAG ? CAP * NC_MAX : 0) + N_AIM;
+  constexpr int NCOMP_MAX = CAP * N_G + (Bd::SAG ? CAP * NC_MAX : 0) +
+                            (Bd::GRAT ? CAP * N_GRAT_COLS : 0) + N_AIM;
   __shared__ T sp[CAP * NUM_P];
   __shared__ T sr[CAP * N_ROT];
   __shared__ T sa[N_AIM];
   __shared__ T scf[Bd::SAG ? CAP * NC_MAX : 1];
-  __shared__ int sf[3 * CAP];  // code, reflect, tilted
-  __shared__ int ssag[Bd::SAG ? CAP : 1];
+  __shared__ int sf[NF * CAP];  // code, reflect, tilted (GRAT: grating)
+  __shared__ int ssag[Bd::SAG || Bd::GRAT ? CAP : 1];
   // the per-warp rows in dynamic shared memory
   constexpr bool DYN = Bd::DYN;
   __shared__ T acc_s[DYN ? 1 : NW_MAX * NCOMP_MAX];
@@ -189,8 +206,9 @@ merit_bwd_kernel(const T* __restrict__ params, const T* __restrict__ aim,
   load_coefs<T, Bd::SAG>(cf, S, nc, scf);
   // the layout rows of the aux-bearing surfaces follow the table (AUX)
   const T* lay = Bd::AUX ? cf + (int64_t)S * nc : nullptr;
-  load_tables<T, 3, true>(params, aim, flags, S, sp, sa, sf, sr);
-  const int nsagc = Bd::SAG ? nsag * Bd::block(nc) : 0;
+  load_tables<T, NF, true>(params, aim, flags, S, sp, sa, sf, sr);
+  const int nsagc =
+      Bd::SAG ? nsag * Bd::block(nc) : (Bd::GRAT ? nsag * N_GRAT_COLS : 0);
   const int ncomp = S * N_G + nsagc + N_AIM;
   const int nw = blockDim.x >> 5;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -201,6 +219,7 @@ merit_bwd_kernel(const T* __restrict__ params, const T* __restrict__ aim,
   if (threadIdx.x == 0) {
     fill_npre(sp, sf, S, npre);
     if constexpr (Bd::SAG) fill_sag<Bd::AUX>(sf, S, ssag);
+    if constexpr (Bd::GRAT) fill_grat(sf + F_GRAT * S, S, ssag);
   }
   __syncthreads();
   T* row = acc + warp * astride;
@@ -233,6 +252,12 @@ merit_bwd_kernel(const T* __restrict__ params, const T* __restrict__ aim,
         st[s][3] = L;
         st[s][4] = M;
         st[s][5] = N;
+        if constexpr (Bd::GRAT)
+          step_fwd_grat<T, false>(sf[s], sf[S + s], 0, sf[2 * S + s],
+                                  sp + s * NUM_P, sr + s * N_ROT, npre[s],
+                                  sp[s * NUM_P + P_NPOST], x, y, z, L, M, N,
+                                  unused_i, unused_opd, sf[F_GRAT * S + s]);
+        else
         step_fwd<T, false, Bd::TILT, Bd::SAG, Bd::FREE, Bd::DEEP, Bd::AUX>(
             sf[s], sf[S + s], 0, sf[2 * S + s], sp + s * NUM_P,
             sr + s * N_ROT, scf + s * nc, lay_of(lay, s, nc), nc, niters,
@@ -245,6 +270,14 @@ merit_bwd_kernel(const T* __restrict__ params, const T* __restrict__ aim,
     for (int s = S - 1; s >= 1; --s) {
       T g6[N_G] = {};
       T gs[Bd::FREE ? N_GS_CART : N_GS_RAD] = {};
+      if constexpr (Bd::GRAT) {
+        if (valid)
+          step_adjoint_grat<T, false>(
+              sf[s], sf[S + s], 0, sf[2 * S + s], sp + s * NUM_P,
+              sr + s * N_ROT, npre[s], sp[s * NUM_P + P_NPOST], st[s][0],
+              st[s][1], st[s][2], st[s][3], st[s][4], st[s][5], T(0), g, g6,
+              gs, sf[F_GRAT * S + s]);
+      } else {
       if (valid)
         step_adjoint<T, false, Bd::TILT, Bd::SAG, Bd::FREE, Bd::DEEP, Bd::AUX>(
             sf[s], sf[S + s], 0, sf[2 * S + s], sp + s * NUM_P,
@@ -252,6 +285,7 @@ merit_bwd_kernel(const T* __restrict__ params, const T* __restrict__ aim,
             npre[s],
             sp[s * NUM_P + P_NPOST], st[s][0], st[s][1], st[s][2], st[s][3],
             st[s][4], st[s][5], T(0), g, g6, gs);
+      }
 #pragma unroll
       for (int j = 0; j < N_G; ++j) {
         const T v = warp_sum(g6[j]);
@@ -266,6 +300,9 @@ merit_bwd_kernel(const T* __restrict__ params, const T* __restrict__ aim,
         else if (is_newton_of<Bd::AUX>(sf[s]))
           add_coef_cols(gs, nc, lane, row, cb);
       }
+      if constexpr (Bd::GRAT)
+        if (sf[F_GRAT * S + s])
+          add_grat_cols(gs, lane, row, S * N_G + ssag[s] * N_GRAT_COLS);
     }
     // n_pre of surface 1 is the object row's n_post
     {
@@ -299,7 +336,7 @@ int merit_fwd_launch(const T* params, const T* aim, const int* flags, int S,
                      int build, const T* cf, int nc, int niters, const T* px,
                      const T* py, int64_t R, uint64_t seed, int64_t offset,
                      int prng, T* rows, cudaStream_t stream) {
-  return dispatch_build(build, [&](auto b) {
+  return dispatch_build<true>(build, [&](auto b) {
     constexpr int B = decltype(b)::value;
     if (!shape_ok<B>(S, nc, niters)) return (int)cudaErrorInvalidValue;
     const int64_t blocks = (R + FWD_BLOCK - 1) / FWD_BLOCK;
@@ -321,8 +358,8 @@ int merit_bwd_launch(const T* params, const T* aim, const T* stats,
       nsag < 0 || nsag > S)
     return (int)cudaErrorInvalidValue;
   const int ncb = block_cols(build, nc);
-  const int nsagc = build & BIT_SAG ? nsag * ncb : 0;
-  const int e = dispatch_build(build, [&](auto b) {
+  const int nsagc = build & (BIT_SAG | BIT_GRAT) ? nsag * ncb : 0;
+  const int e = dispatch_build<true>(build, [&](auto b) {
     constexpr int B = decltype(b)::value;
     if (!shape_ok<B>(S, nc, niters)) return (int)cudaErrorInvalidValue;
     const auto kernel = merit_bwd_kernel<T, B>;
@@ -335,6 +372,9 @@ int merit_bwd_launch(const T* params, const T* aim, const T* stats,
     return (int)cudaGetLastError();
   });
   if (e != 0) return e;
+  if (build & BIT_GRAT)
+    return reduce_launch<T, N_G, true>(partial, nblocks, S, nc, ncb, nsagc,
+                                       flags + F_GRAT * S, N_AIM, out, stream);
   return reduce_launch<T, N_G>(partial, nblocks, S, nc, ncb, nsagc, flags,
                                N_AIM, out, stream);
 }

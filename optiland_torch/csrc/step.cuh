@@ -103,7 +103,7 @@ constexpr int NUM_P = 15;
 constexpr int P_RADIUS = 0, P_CONIC = 1, P_POS = 2, P_NPOST = 3;
 constexpr int P_APMAX = 4, P_KPRE = 5;
 constexpr int P_DX = 6, P_DY = 7, P_RX = 8, P_RY = 9, P_RZ = 10;
-constexpr int P_G1 = 11, P_G2 = 12, P_APMIN = 13;
+constexpr int P_G1 = 11, P_G2 = 12, P_APMIN = 13, P_MLAM = 14;
 constexpr int N_AIM = 8;
 constexpr int A_X0 = 0, A_Y0 = 1, A_Z0 = 2, A_L = 3, A_M = 4, A_N = 5;
 constexpr int A_SX = 6, A_SY = 7;
@@ -141,12 +141,24 @@ constexpr int RED_BLOCK = 256;
 // surface the code without their evaluator. DYN: the backwards keep their
 // per-warp gradient rows in dynamic shared memory (the Cartesian and the
 // deep builds; the polarized backward's sag build too, see pol_trace.cu).
+//
+// GRAT (the ninth build, B_GRAT: the tilts and K6c, grating diffraction)
+// is compiled for the monochromatic kernels only (fast_trace.cu's mono
+// mode and fused_trace.cu; dispatch_build<true>): a grating surface (a
+// flag row of its own, F_GRAT) diffracts instead of refracting or
+// reflecting, and the backwards sum its P_G1 and P_G2 columns in a block
+// of N_GRAT_COLS after the per-surface slots (grad_reduce_kernel, GR). Its
+// PLANE and STANDARD substrates need no other branch; the launchers refuse
+// a grating beside a Newton family, an annular clip or past STOCK_SURF
+// surfaces (ops/launch.py: build_of).
 constexpr int BIT_TILT = 1, BIT_SAG = 2, BIT_CART = 4, BIT_AUX = 8,
-              BIT_DEEP = 16;
+              BIT_DEEP = 16, BIT_GRAT = 32;
 constexpr int B_STOCK = 0, B_TILT = BIT_TILT, B_SAG = B_TILT | BIT_SAG,
               B_FREE = B_SAG | BIT_CART, B_DEEP = B_SAG | BIT_DEEP,
               B_DEEP_FREE = B_FREE | BIT_DEEP, B_AUX = B_FREE | BIT_AUX,
-              B_DEEP_AUX = B_DEEP_FREE | BIT_AUX;
+              B_DEEP_AUX = B_DEEP_FREE | BIT_AUX, B_GRAT = B_TILT | BIT_GRAT;
+// a grating surface's block of a backward's partial row: P_G1, P_G2
+constexpr int N_GRAT_COLS = 2;
 template <int B>
 struct Build {
   static constexpr bool TILT = B & BIT_TILT;
@@ -154,14 +166,17 @@ struct Build {
   static constexpr bool FREE = B & BIT_CART;
   static constexpr bool AUX = B & BIT_AUX;
   static constexpr bool DEEP = B & BIT_DEEP;
+  static constexpr bool GRAT = B & BIT_GRAT;
   static constexpr bool DYN = FREE || DEEP;
   static constexpr int CAP = DEEP ? DEEP_SURF : STOCK_SURF;
   static __host__ __device__ int block(int nc) { return FREE ? nc + 2 : nc; }
 };
 
 // Columns of a Newton surface's block of a backward's partial row in build
-// ``build`` (Build<B>::block): nc coefficients, then (CART) P_G1 and P_G2.
+// ``build`` (Build<B>::block): nc coefficients, then (CART) P_G1 and P_G2;
+// a grating's in the grating build: P_G1 and P_G2.
 inline int block_cols(int build, int nc) {
+  if (build & BIT_GRAT) return N_GRAT_COLS;
   return build & BIT_CART ? nc + 2 : nc;
 }
 
@@ -176,10 +191,16 @@ int dispatch_in(int build, F&& f) {
   else
     return (int)cudaErrorInvalidValue;
 }
-template <typename F>
+// The builds of every kernel, and (WITH_GRAT: the monochromatic kernels)
+// the grating build.
+template <bool WITH_GRAT = false, typename F>
 int dispatch_build(int build, F&& f) {
-  return dispatch_in<B_STOCK, B_TILT, B_SAG, B_FREE, B_DEEP, B_DEEP_FREE,
-                     B_AUX, B_DEEP_AUX>(build, static_cast<F&&>(f));
+  if constexpr (WITH_GRAT)
+    return dispatch_in<B_STOCK, B_TILT, B_SAG, B_FREE, B_DEEP, B_DEEP_FREE,
+                       B_AUX, B_DEEP_AUX, B_GRAT>(build, static_cast<F&&>(f));
+  else
+    return dispatch_in<B_STOCK, B_TILT, B_SAG, B_FREE, B_DEEP, B_DEEP_FREE,
+                       B_AUX, B_DEEP_AUX>(build, static_cast<F&&>(f));
 }
 
 // The surface count, coefficient width and Newton steps a build takes.
@@ -270,6 +291,8 @@ __device__ __forceinline__ double log_(double v) { return log(v); }
 __device__ __forceinline__ float acos_(float v) { return acosf(v); }
 __device__ __forceinline__ double acos_(double v) { return acos(v); }
 __device__ __forceinline__ float pow_(float a, float b) { return powf(a, b); }
+__device__ __forceinline__ float tan_(float v) { return tanf(v); }
+__device__ __forceinline__ double tan_(double v) { return tan(v); }
 __device__ __forceinline__ double pow_(double a, double b) { return pow(a, b); }
 template <typename T> __device__ __forceinline__ T nan_();
 template <> __device__ __forceinline__ float nan_<float>() { return __int_as_float(0x7fc00000); }
@@ -1408,6 +1431,185 @@ __device__ __forceinline__ T cart_newton_at(int code, T R, T k, T p1, T p2,
                                  yl, zl, L, M, N);
 }
 
+// ---------------------------------------------------------------------------
+// K6c: grating diffraction (ops/step.py's grating branch, kernels.py's
+// grating_vector and grating_diffract)
+// ---------------------------------------------------------------------------
+
+// The forward intermediates of a grating surface, which its adjoint reads.
+template <typename T>
+struct Grat {
+  T f[3];                 // the groove vector
+  T t[3], g[3], gmag;     // STANDARD: the groove tangent, n x t, |n x t|
+  T tmag, ta, dzd, den, sqq, qg, r2;
+  T ff, ffc, deff, fn, kv[3], P[3], D, rad, root, npost;
+  bool ok;                // the order propagates
+};
+
+// max(v, lo) with a NaN kept (jnp.maximum, torch.clamp)
+template <typename T>
+__device__ __forceinline__ T clamp_lo(T v, T lo) {
+  return v < lo ? lo : v;
+}
+
+// The groove vector of a grating of groove angle p[P_G2] at local (x1, y1)
+// (n0: the raw, unflipped normal), d_eff, the tangential momentum P, its
+// root and D = d_eff n_post (n_post = n_pre on a reflective grating), and
+// the diffracted directions (Lo, Mo, No); (nx, ny, nz) is the normal
+// aligned against the ray.
+template <typename T>
+__device__ __forceinline__ void grat_fwd(int code, int refl, T R, T k,
+                                         const T* p, T x1, T y1, T nx0,
+                                         T ny0, T nz0, T L, T M, T N, T nx,
+                                         T ny, T nz, T adot, T n_pre,
+                                         T npost, Grat<T>& G, T& Lo, T& Mo,
+                                         T& No) {
+  const T al = p[P_G2];
+  if (code == STANDARD) {
+    G.r2 = x1 * x1 + y1 * y1;
+    G.qg = T(1) - (T(1) + k) * G.r2 / (R * R);
+    G.sqq = sqrt_(clamp_lo(G.qg, T(1e-14)));
+    G.den = R * G.sqq;
+    G.ta = tan_(al);
+    G.dzd = (x1 + y1 * G.ta) / G.den;
+    G.tmag = sqrt_(T(1) + G.ta * G.ta + G.dzd * G.dzd);
+    G.t[0] = T(1) / G.tmag;
+    G.t[1] = G.ta / G.tmag;
+    G.t[2] = G.dzd / G.tmag;
+    G.g[0] = ny0 * G.t[2] - nz0 * G.t[1];
+    G.g[1] = -nx0 * G.t[2] + nz0 * G.t[0];
+    G.g[2] = nx0 * G.t[1] - ny0 * G.t[0];
+    G.gmag = sqrt_(G.g[0] * G.g[0] + G.g[1] * G.g[1] + G.g[2] * G.g[2]);
+    G.f[0] = -G.g[0] / G.gmag;
+    G.f[1] = -G.g[1] / G.gmag;
+    G.f[2] = -G.g[2] / G.gmag;
+  } else {
+    G.f[0] = -sin_(al);
+    G.f[1] = cos_(al);
+    G.f[2] = T(0);
+  }
+  G.ff = G.f[0] * G.f[0] + G.f[1] * G.f[1];
+  G.ffc = clamp_lo(G.ff, T(1e-12));
+  G.deff = p[P_G1] / sqrt_(G.ffc);
+  G.npost = refl ? n_pre : npost;
+  G.fn = G.f[0] * nx + G.f[1] * ny + G.f[2] * nz;
+  const T mlam = p[P_MLAM];
+  const T n[3] = {nx, ny, nz};
+  G.kv[0] = L - adot * nx;
+  G.kv[1] = M - adot * ny;
+  G.kv[2] = N - adot * nz;
+#pragma unroll
+  for (int j = 0; j < 3; ++j)
+    G.P[j] = G.deff * n_pre * G.kv[j] + mlam * (G.f[j] - G.fn * n[j]);
+  G.D = G.deff * G.npost;
+  G.rad = G.D * G.D - (G.P[0] * G.P[0] + G.P[1] * G.P[1] + G.P[2] * G.P[2]);
+  G.ok = G.rad >= T(0);
+  G.root = G.ok ? sqrt_(G.rad) : T(0);
+  const T sp = refl ? T(-1) : T(1);
+  Lo = (sp * G.P[0] + nx * G.root) / G.D;
+  Mo = (sp * G.P[1] + ny * G.root) / G.D;
+  No = (sp * G.P[2] + nz * G.root) / G.D;
+}
+
+// Reverse of grat_fwd for the cotangents gi of (Lo, Mo, No) and g_nn of
+// n_next: gk the cotangents of (L, M, N), gn those of the aligned normal
+// (the raw normal's, through the STANDARD groove frame, in gn0), g_adot,
+// g_npre and g_npost (the table's P_NPOST; none on a reflective grating);
+// the groove frame's cotangents of x1, y1, the conic and the radius are
+// added to g_x1, g_y1, g_k and g_R; g_p1 and g_p2 are the period's and the
+// groove angle's.
+template <typename T>
+__device__ __forceinline__ void grat_adjoint(
+    int code, int refl, T R, T k, const T* p, T x1, T y1, T nx0, T ny0,
+    T nz0, T nx, T ny, T nz, T adot, T n_pre, const Grat<T>& G, T Lo, T Mo,
+    T No, const T* gi, T g_nn, T* gk, T* gn, T* gn0, T& g_adot, T& g_npre,
+    T& g_npost, T& g_x1, T& g_y1, T& g_k, T& g_R, T& g_p1, T& g_p2) {
+  const T mlam = p[P_MLAM];
+  const T n[3] = {nx, ny, nz};
+  const T sp = refl ? T(-1) : T(1);
+  // k_out = (sp P + n root) / D
+  T gP[3];
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    gP[j] = sp * gi[j] / G.D;
+    gn[j] = gi[j] * G.root / G.D;
+  }
+  const T g_root = (gi[0] * nx + gi[1] * ny + gi[2] * nz) / G.D;
+  T g_D = -(gi[0] * Lo + gi[1] * Mo + gi[2] * No) / G.D;
+  // root = sqrt(rad) where the order propagates, else 0
+  const T g_rad = G.ok ? g_root * T(0.5) / G.root : T(0);
+  g_D += T(2) * G.D * g_rad;
+#pragma unroll
+  for (int j = 0; j < 3; ++j) gP[j] -= T(2) * G.P[j] * g_rad;
+  // D = d_eff n_post; P = d_eff n_pre (k - adot n) + mlam (f - fn n)
+  const T gPk = gP[0] * G.kv[0] + gP[1] * G.kv[1] + gP[2] * G.kv[2];
+  const T g_deff = g_D * G.npost + n_pre * gPk;
+  const T g_npost_g = g_D * G.deff;
+  g_npre = G.deff * gPk;
+#pragma unroll
+  for (int j = 0; j < 3; ++j) gk[j] = G.deff * n_pre * gP[j];
+  const T gPn = gP[0] * nx + gP[1] * ny + gP[2] * nz;
+  g_adot = -G.deff * n_pre * gPn;
+  const T g_fn = -mlam * gPn;
+  const T c_n = G.deff * n_pre * adot + mlam * G.fn;
+  T gf[3];
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    gn[j] -= c_n * gP[j];
+    gf[j] = mlam * gP[j] + g_fn * n[j];
+    gn[j] += g_fn * G.f[j];
+  }
+  // d_eff = d / sqrt(max(fx^2 + fy^2, 1e-12))
+  g_p1 = g_deff / sqrt_(G.ffc);
+  const T g_ff =
+      G.ff > T(1e-12) ? T(-0.5) * g_deff * G.deff / G.ffc : T(0);
+  gf[0] += T(2) * G.f[0] * g_ff;
+  gf[1] += T(2) * G.f[1] * g_ff;
+  if (refl) {
+    g_npre = g_npre + g_nn + g_npost_g;
+    g_npost = T(0);
+  } else {
+    g_npost = g_nn + g_npost_g;
+  }
+  gn0[0] = gn0[1] = gn0[2] = T(0);
+  if (code == STANDARD) {
+    // f = -g / |g|, g = n0 x t, t = (1, ta, dzd) / tmag
+    T gh[3], ggh[3];
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      ggh[j] = -gf[j];
+      gh[j] = G.g[j] / G.gmag;
+    }
+    const T ghd = gh[0] * ggh[0] + gh[1] * ggh[1] + gh[2] * ggh[2];
+    T gg[3];
+#pragma unroll
+    for (int j = 0; j < 3; ++j) gg[j] = (ggh[j] - gh[j] * ghd) / G.gmag;
+    gn0[0] = G.t[1] * gg[2] - G.t[2] * gg[1];
+    gn0[1] = G.t[2] * gg[0] - G.t[0] * gg[2];
+    gn0[2] = G.t[0] * gg[1] - G.t[1] * gg[0];
+    const T gt[3] = {gg[1] * nz0 - gg[2] * ny0, gg[2] * nx0 - gg[0] * nz0,
+                     gg[0] * ny0 - gg[1] * nx0};
+    const T gtd = G.t[0] * gt[0] + G.t[1] * gt[1] + G.t[2] * gt[2];
+    T g_ta = (gt[1] - G.t[1] * gtd) / G.tmag;
+    const T g_dzd = (gt[2] - G.t[2] * gtd) / G.tmag;
+    // dzd = (x1 + y1 ta) / den, den = R sqrt(max(qg, 1e-14))
+    g_x1 += g_dzd / G.den;
+    g_y1 += g_dzd * G.ta / G.den;
+    g_ta += g_dzd * y1 / G.den;
+    const T g_den = -g_dzd * G.dzd / G.den;
+    g_p2 = g_ta * (T(1) + G.ta * G.ta);
+    g_R += g_den * G.sqq;
+    const T g_qg = G.qg > T(1e-14) ? g_den * R * T(0.5) / G.sqq : T(0);
+    g_k -= g_qg * G.r2 / (R * R);
+    g_R += g_qg * T(2) * (T(1) + k) * G.r2 / (R * R * R);
+    g_x1 -= T(2) * x1 * g_qg * (T(1) + k) / (R * R);
+    g_y1 -= T(2) * y1 * g_qg * (T(1) + k) / (R * R);
+  } else {
+    // f = (-sin p2, cos p2, 0)
+    g_p2 = -cos_(p[P_G2]) * gf[0] - sin_(p[P_G2]) * gf[1];
+  }
+}
+
 // One forward surface step; returns n of the medium after the surface
 // (``npost`` through a refractive surface). ``inten`` and ``opd`` are read
 // and written only in the FULL form; ``adot_out``, when not null, receives
@@ -1513,6 +1715,73 @@ __device__ __forceinline__ T step_fwd(int code, int refl, int absorbs,
     kloc[5] = N;
   }
   if (TILT && tilted) rot_global(rot, x1, y1, z1, L, M, N);
+  x = x1 + p[P_DX];
+  y = y1 + p[P_DY];
+  z = z1 + pos;
+  return n_next;
+}
+
+// The grating build's forward step (GRAT): step_fwd's PLANE and STANDARD
+// branches with the tilts, and on a grating surface (``grat``) the
+// diffraction (grat_fwd) in place of the refraction or reflection, whose
+// evanescent orders the FULL form gives zero intensity. A function of its
+// own, as step_adjoint_grat.
+template <typename T, bool FULL>
+__device__ __forceinline__ T step_fwd_grat(int code, int refl, int absorbs,
+                                           int tilted, const T* p,
+                                           const T* rot, T n_pre, T npost,
+                                           T& x, T& y, T& z, T& L, T& M,
+                                           T& N, T& inten, T& opd, int grat) {
+  const T R = p[P_RADIUS], k = p[P_CONIC], pos = p[P_POS];
+  T xl = x - p[P_DX], yl = y - p[P_DY], zl = z - pos;
+  if (tilted) rot_local(rot, xl, yl, zl, L, M, N);
+  const T t = code == STANDARD ? dist_standard(R, k, xl, yl, zl, L, M, N)
+                               : dist_plane(zl, N);
+  T x1 = xl + t * L, y1 = yl + t * M, z1 = zl + t * N;
+  if constexpr (FULL) {
+    if (absorbs) inten = inten * exp_(T(ABS) * p[P_KPRE] * t * T(1e3));
+    opd = opd + abs_(t * n_pre);
+    const T ap = p[P_APMAX];
+    if (x1 * x1 + y1 * y1 > ap * ap) inten = T(0);
+  }
+  T nx = T(0), ny = T(0), nz = T(-1);
+  if (code == STANDARD) {
+    const T cu = T(1) / R;
+    const T r2 = x1 * x1 + y1 * y1;
+    const T invd = cu * rsqrt_(T(1) - (T(1) + k) * (cu * cu) * r2);
+    const T fx = x1 * invd, fy = y1 * invd;
+    const T im = rsqrt_(fx * fx + fy * fy + T(1));
+    nx = fx * im;
+    ny = fy * im;
+    nz = -im;
+  }
+  const T dot = L * nx + M * ny + N * nz;
+  const T sg = sign_(dot);
+  const T nxs = nx * sg, nys = ny * sg, nzs = nz * sg;
+  const T adot = abs_(dot);
+  T n_next;
+  if (grat) {
+    // the groove frame reads the raw normal (nx, ny, nz)
+    Grat<T> G;
+    grat_fwd(code, refl, R, k, p, x1, y1, nx, ny, nz, L, M, N, nxs, nys, nzs,
+             adot, n_pre, npost, G, L, M, N);
+    if constexpr (FULL)
+      if (!G.ok) inten = T(0);  // an evanescent order
+    n_next = G.npost;
+  } else if (refl) {
+    L = L - T(2) * adot * nxs;
+    M = M - T(2) * adot * nys;
+    N = N - T(2) * adot * nzs;
+    n_next = n_pre;
+  } else {
+    const T u = n_pre / npost;
+    const T w = sqrt_(T(1) - u * u * (T(1) - adot * adot)) - u * adot;
+    L = u * L + nxs * w;
+    M = u * M + nys * w;
+    N = u * N + nzs * w;
+    n_next = npost;
+  }
+  if (tilted) rot_global(rot, x1, y1, z1, L, M, N);
   x = x1 + p[P_DX];
   y = y1 + p[P_DY];
   z = z1 + pos;
@@ -1974,6 +2243,288 @@ __device__ __forceinline__ void step_adjoint(int code, int refl, int absorbs,
   }
 }
 
+// The grating build's reverse step (GRAT: ops/step.py's
+// step_adjoint_plain with ``grating``): step_adjoint's PLANE and STANDARD
+// branches with the tilts, and a grating surface's diffraction in place of
+// the refraction or reflection (grat_adjoint), whose P_G1 and P_G2
+// cotangents go to gs[0] and gs[1]. A function of its own, so the other
+// builds' step_adjoint keeps the code it had before gratings: the same
+// branch under a template flag of step_adjoint and step_fwd, even one
+// that if constexpr leaves out of the other builds, changed the machine
+// code of 33 of their 208 functions (PERF.md §6, ``torch_build_compare.py
+// sass``). A change to step_adjoint's or step_fwd's PLANE and STANDARD
+// code is made here too; the grat build's parity checks against the
+// shared plain step (test_torch_cuda.py, chip_smoke.py phase 25) catch
+// the two drifting apart.
+template <typename T, bool FULL>
+__device__ __forceinline__ void step_adjoint_grat(
+    int code, int refl, int absorbs, int tilted, const T* p, const T* rot,
+    T n_pre, T npost, T x, T y, T z, T L, T M, T N, T i_in, T* g, T* gc,
+    T* gs, int grat) {
+  const T R = p[P_RADIUS], k = p[P_CONIC], pos = p[P_POS];
+  const T dx = p[P_DX], dy = p[P_DY];
+  const bool std_ = code == STANDARD;
+  const T g_nn = g[6];
+
+  // ---- recompute the forward intermediates (in the surface's frame) ----
+  T xl = x - dx, yl = y - dy, zl = z - pos;
+  if (tilted) rot_local(rot, xl, yl, zl, L, M, N);
+  T cu = T(0), A = T(0), a = T(0), Bq = T(0), b = T(0), Cq = T(0), c = T(0);
+  T sd = T(0), sg = T(0), q = T(0), t1 = T(0), t2 = T(0), t, Ns = T(1);
+  bool use1 = false, a0 = false, q0 = false, big = false;
+  if (std_) {
+    cu = T(1) / R;
+    A = k * (N * N) + L * L + M * M + N * N;
+    a = cu * A;
+    Bq = k * N * zl + L * xl + M * yl + N * zl;
+    b = T(2) * (cu * Bq - N);
+    Cq = k * (zl * zl) + xl * xl + yl * yl + zl * zl;
+    c = cu * Cq - T(2) * zl;
+    const T d = b * b - T(4) * a * c;
+    sd = d < T(0) ? nan_<T>() : sqrt_(d);
+    sg = b >= T(0) ? T(1) : T(-1);
+    q = T(-0.5) * (b + sg * sd);
+    a0 = a == T(0);
+    q0 = q == T(0);
+    t1 = a0 ? inf_<T>() : q / a;
+    t2 = q0 ? T(0) : c / q;
+    use1 = abs_(zl + t1 * N) <= abs_(zl + t2 * N);
+    t = use1 ? t1 : t2;
+  } else {
+    big = abs_(N) > T(1e-14);
+    Ns = big ? N : T(1e-14);
+    t = -zl / Ns;
+  }
+  const T x1 = xl + t * L, y1 = yl + t * M, z1 = zl + t * N;
+  T r2 = T(0), rq = T(0), invd = T(0), fx = T(0), fy = T(0), im = T(1);
+  T nx = T(0), ny = T(0), nz = T(-1);
+  if (std_) {
+    r2 = x1 * x1 + y1 * y1;
+    rq = rsqrt_(T(1) - (T(1) + k) * (cu * cu) * r2);
+    invd = cu * rq;
+    fx = x1 * invd;
+    fy = y1 * invd;
+    im = rsqrt_(fx * fx + fy * fy + T(1));
+    nx = fx * im;
+    ny = fy * im;
+    nz = -im;
+  }
+  const T dot = L * nx + M * ny + N * nz;
+  const T sgn = sign_(dot);
+  const T nxs = nx * sgn, nys = ny * sgn, nzs = nz * sgn;
+  const T adot = abs_(dot);
+
+  // the local post-interaction directions
+  T Lo, Mo, No, u = T(0), root = T(1), w = T(0);
+  Grat<T> G;
+  if (grat) {
+    grat_fwd(code, refl, R, k, p, x1, y1, nx, ny, nz, L, M, N, nxs, nys, nzs,
+             adot, n_pre, npost, G, Lo, Mo, No);
+  } else if (refl) {
+    Lo = L - T(2) * adot * nxs;
+    Mo = M - T(2) * adot * nys;
+    No = N - T(2) * adot * nzs;
+  } else {
+    u = n_pre / npost;
+    root = sqrt_(T(1) - u * u * (T(1) - adot * adot));
+    w = root - u * adot;
+    Lo = u * L + nxs * w;
+    Mo = u * M + nys * w;
+    No = u * N + nzs * w;
+  }
+
+  // ---- globalize: rotate back (tilted), then translate ----
+  T go[6] = {g[0], g[1], g[2], g[3], g[4], g[5]};
+  T d_r[3] = {T(0), T(0), T(0)};
+  if (tilted) rot_global_adjoint(rot, x1, y1, z1, Lo, Mo, No, go, d_r);
+  T g_dx = g[0], g_dy = g[1], g_pos = g[2];
+  T g_x1 = go[0], g_y1 = go[1], g_z1 = go[2];
+  const T gLi = go[3], gMi = go[4], gNi = go[5];
+
+  // ---- interact ----
+  T gL, gM, gN, g_nxs, g_nys, g_nzs, g_adot, g_npre, g_npost;
+  // the grating's cotangents of the raw normal, the conic and the radius
+  // (its groove frame), P_G1 and P_G2
+  T gn0[3] = {T(0), T(0), T(0)}, g_kg = T(0), g_Rg = T(0), g_p1 = T(0),
+    g_p2 = T(0);
+  if (grat) {
+    const T gi[3] = {gLi, gMi, gNi};
+    T gk[3], gn[3];
+    grat_adjoint(code, refl, R, k, p, x1, y1, nx, ny, nz, nxs, nys, nzs, adot,
+                 n_pre, G, Lo, Mo, No, gi, g_nn, gk, gn, gn0, g_adot, g_npre,
+                 g_npost, g_x1, g_y1, g_kg, g_Rg, g_p1, g_p2);
+    gL = gk[0];
+    gM = gk[1];
+    gN = gk[2];
+    g_nxs = gn[0];
+    g_nys = gn[1];
+    g_nzs = gn[2];
+  } else if (refl) {
+    gL = gLi;
+    gM = gMi;
+    gN = gNi;
+    g_nxs = T(-2) * adot * gLi;
+    g_nys = T(-2) * adot * gMi;
+    g_nzs = T(-2) * adot * gNi;
+    g_adot = T(-2) * (nxs * gLi + nys * gMi + nzs * gNi);
+    g_npre = g_nn;
+    g_npost = T(0);
+  } else {
+    gL = u * gLi;
+    gM = u * gMi;
+    gN = u * gNi;
+    g_nxs = w * gLi;
+    g_nys = w * gMi;
+    g_nzs = w * gNi;
+    const T g_w = nxs * gLi + nys * gMi + nzs * gNi;
+    T g_u = L * gLi + M * gMi + N * gNi - adot * g_w;
+    g_adot = -u * g_w;
+    g_u = g_u - g_w * u * (T(1) - adot * adot) / root;
+    g_adot = g_adot + g_w * u * u * adot / root;
+    g_npre = g_u / npost;
+    g_npost = g_nn - g_u * u / npost;
+  }
+  gL += nxs * g_adot;
+  gM += nys * g_adot;
+  gN += nzs * g_adot;
+  g_nxs += L * g_adot;
+  g_nys += M * g_adot;
+  g_nzs += N * g_adot;
+
+  T g_k = T(0) + g_kg, g_cu = T(0);
+  // ---- normal (STANDARD; the plane normal is constant) ----
+  if (std_) {
+    const T g_nx = sgn * g_nxs + gn0[0], g_ny = sgn * g_nys + gn0[1],
+            g_nz = sgn * g_nzs + gn0[2];
+    T g_fx = g_nx * im;
+    T g_fy = g_ny * im;
+    const T g_im = g_nx * fx + g_ny * fy - g_nz;
+    const T g_mg = T(-0.5) * g_im * im * im * im;
+    g_fx += T(2) * fx * g_mg;
+    g_fy += T(2) * fy * g_mg;
+    g_x1 += g_fx * invd;
+    g_y1 += g_fy * invd;
+    const T g_invd = g_fx * x1 + g_fy * y1;
+    g_cu += g_invd * rq;
+    const T g_qn = T(-0.5) * g_invd * cu * rq * rq * rq;
+    g_k -= g_qn * (cu * cu) * r2;
+    g_cu -= g_qn * (T(1) + k) * T(2) * cu * r2;
+    const T g_r2 = -g_qn * (T(1) + k) * (cu * cu);
+    g_x1 += T(2) * x1 * g_r2;
+    g_y1 += T(2) * y1 * g_r2;
+  }
+
+  // ---- propagate ----
+  T g_xl = g_x1, g_yl = g_y1, g_zl = g_z1;
+  T g_t = g_x1 * L + g_y1 * M + g_z1 * N;
+  gL += g_x1 * t;
+  gM += g_y1 * t;
+  gN += g_z1 * t;
+
+  // ---- clip, absorption, OPD (FULL) ----
+  T g_i = T(0), g_kpre = T(0);
+  if constexpr (FULL) {
+    const T ap = p[P_APMAX];
+    g_i = x1 * x1 + y1 * y1 > ap * ap ? T(0) : g[7];
+    if (grat && !G.ok) g_i = T(0);  // an evanescent order
+    if (absorbs) {
+      const T kpre = p[P_KPRE];
+      const T e = exp_(T(ABS) * kpre * t * T(1e3));
+      const T g_a = g_i * i_in * e;
+      g_t += g_a * (T(ABS) * kpre * T(1e3));
+      g_kpre = g_a * (T(ABS) * t * T(1e3));
+      g_i = g_i * e;
+    }
+    const T s_tn = sign_(t * n_pre);
+    g_t += g[8] * s_tn * n_pre;
+    g_npre += g[8] * s_tn * t;
+  }
+
+  // ---- intersect ----
+  T g_R;
+  if (std_) {
+    const bool ok1 = use1 && !a0;
+    const bool ok2 = !use1 && !q0;
+    const T g_q = ok1 ? g_t / a : (ok2 ? -g_t * t2 / q : T(0));
+    T g_a = ok1 ? -g_t * t1 / a : T(0);
+    T g_c = ok2 ? g_t / q : T(0);
+    T g_b = T(-0.5) * g_q;
+    const T g_sd = T(-0.5) * sg * g_q;
+    const T g_d = g_sd * T(0.5) / sd;
+    g_b += T(2) * b * g_d;
+    g_a -= T(4) * c * g_d;
+    g_c -= T(4) * a * g_d;
+    // a = cu A
+    g_cu += g_a * A;
+    const T g_A = g_a * cu;
+    g_k += g_A * (N * N);
+    gL += T(2) * L * g_A;
+    gM += T(2) * M * g_A;
+    gN += T(2) * N * (k + T(1)) * g_A;
+    // b = 2 (cu B - N)
+    g_cu += T(2) * g_b * Bq;
+    const T g_B = T(2) * g_b * cu;
+    gN -= T(2) * g_b;
+    g_k += g_B * N * zl;
+    gN += g_B * (k * zl + zl);
+    g_zl += g_B * (k * N + N);
+    gL += g_B * xl;
+    g_xl += g_B * L;
+    gM += g_B * yl;
+    g_yl += g_B * M;
+    // c = cu C - 2 zl
+    g_cu += g_c * Cq;
+    const T g_C = g_c * cu;
+    g_zl -= T(2) * g_c;
+    g_k += g_C * (zl * zl);
+    g_xl += T(2) * xl * g_C;
+    g_yl += T(2) * yl * g_C;
+    g_zl += T(2) * zl * (k + T(1)) * g_C;
+    g_R = -g_cu * (cu * cu);
+  } else {
+    g_zl -= g_t / Ns;
+    if (big) gN += g_t * zl / (Ns * Ns);
+    g_R = T(0);
+  }
+
+  // ---- tilts: through the rotations (tilted), or at zero, where each
+  // rotation's generator acts on the state ----
+  T gi[6] = {g_xl, g_yl, g_zl, gL, gM, gN};
+  if (tilted) {
+    rot_local_adjoint(rot, xl, yl, zl, L, M, N, gi, d_r);
+  } else {
+    d_r[0] = g_yl * zl - g_zl * yl + gM * N - gN * M - go[1] * z1 +
+             go[2] * y1 - go[4] * No + go[5] * Mo;
+    d_r[1] = -g_xl * zl + g_zl * xl - gL * N + gN * L + go[0] * z1 -
+             go[2] * x1 + go[3] * No - go[5] * Lo;
+    d_r[2] = g_xl * yl - g_yl * xl + gL * M - gM * L - go[0] * y1 +
+             go[1] * x1 - go[3] * Mo + go[4] * Lo;
+  }
+
+  // ---- localize ----
+  g_dx -= gi[0];
+  g_dy -= gi[1];
+  g_pos -= gi[2];
+#pragma unroll
+  for (int c2 = 0; c2 < 6; ++c2) g[c2] = gi[c2];
+  g[6] = g_npre;
+  gc[0] = g_R + g_Rg;
+  gc[1] = g_k;
+  gc[2] = g_pos;
+  gc[3] = g_npost;
+  gc[4] = g_dx;
+  gc[5] = g_dy;
+  gc[6] = d_r[0];
+  gc[7] = d_r[1];
+  gc[8] = d_r[2];
+  if constexpr (FULL) {
+    g[7] = g_i;  // g[8], the opd cotangent, passes through unchanged
+    gc[9] = g_kpre;
+  }
+  gs[0] = g_p1;
+  gs[1] = g_p2;
+}
+
 // ---------------------------------------------------------------------------
 // Reductions
 // ---------------------------------------------------------------------------
@@ -2236,8 +2787,10 @@ __device__ __forceinline__ void store_partial_row(const T* acc, int stride,
 // columns, and where ncb = nc + 2 (the free and deep_free builds) its P_G1
 // and P_G2 columns; then n_extra entries), one block per compact column. The
 // sum is scattered into the (S*NUM_P + S*nc [+ extras]) layout, whose other
-// entries the caller has zeroed.
-template <typename T, int NG>
+// entries the caller has zeroed. GR (the grating build): the blocks are the
+// grating surfaces' (``codes`` is the grating flag row), ncb = N_GRAT_COLS
+// columns each, P_G1 and P_G2.
+template <typename T, int NG, bool GR = false>
 __global__ void __launch_bounds__(RED_BLOCK)
 grad_reduce_kernel(const T* __restrict__ partial, int nblocks, int S, int nc,
                    int ncb, int nsagc, const int* __restrict__ codes,
@@ -2255,11 +2808,12 @@ grad_reduce_kernel(const T* __restrict__ partial, int nblocks, int S, int nc,
       dst = (col / NG) * NUM_P + kGradCol[col % NG];
     } else if (col < S * NG + nsagc) {
       const int kk = (col - S * NG) / ncb, j = (col - S * NG) % ncb;
+      const int ncoef = GR ? 0 : nc;  // the block's coefficient columns
       int s = 0, seen = -1;
       for (; s < S; ++s)
-        if (is_newton(codes[s]) && ++seen == kk) break;
-      dst = j < nc ? S * NUM_P + s * nc + j
-                   : s * NUM_P + (j == nc ? P_G1 : P_G2);
+        if ((GR ? codes[s] != 0 : is_newton(codes[s])) && ++seen == kk) break;
+      dst = j < ncoef ? S * NUM_P + s * nc + j
+                      : s * NUM_P + (j == ncoef ? P_G1 : P_G2);
     } else {
       dst = S * (NUM_P + nc) + (col - S * NG - nsagc);
     }
@@ -2267,14 +2821,38 @@ grad_reduce_kernel(const T* __restrict__ partial, int nblocks, int S, int nc,
   }
 }
 
+// The grating surfaces' column blocks of a backward's partial row (the
+// grating build): sidx[s] the index of surface s among them (``grat`` its
+// flag row).
+__device__ __forceinline__ void fill_grat(const int* grat, int S, int* sidx) {
+  int n = 0;
+  for (int s = 0; s < S; ++s) {
+    sidx[s] = n;
+    if (grat[s]) ++n;
+  }
+}
+
+// Add a grating surface's P_G1 and P_G2 cotangents (step_adjoint's gs[0],
+// gs[1]) as warp sums to the warp's row ``row`` from column ``base``.
+template <typename T>
+__device__ __forceinline__ void add_grat_cols(const T* gs, int lane, T* row,
+                                              int base) {
+  const T v1 = warp_sum(gs[0]);
+  const T v2 = warp_sum(gs[1]);
+  if (lane == 0) {
+    row[base] += v1;
+    row[base + 1] += v2;
+  }
+}
+
 // Launch the reduction of a backward's partial rows (launchers' tail).
-template <typename T, int NG>
+template <typename T, int NG, bool GR = false>
 int reduce_launch(const T* partial, int nblocks, int S, int nc, int ncb,
                   int nsagc, const int* codes, int n_extra, T* out,
                   cudaStream_t stream) {
-  grad_reduce_kernel<T, NG><<<S * NG + nsagc + n_extra, RED_BLOCK, 0,
-                              stream>>>(partial, nblocks, S, nc, ncb, nsagc,
-                                        codes, n_extra, out);
+  grad_reduce_kernel<T, NG, GR><<<S * NG + nsagc + n_extra, RED_BLOCK, 0,
+                                  stream>>>(partial, nblocks, S, nc, ncb,
+                                            nsagc, codes, n_extra, out);
   return (int)cudaGetLastError();
 }
 

@@ -36,7 +36,10 @@ the Cartesian freeforms, which read the (S, nc) coefficient table (and
 the freeforms the P_G1 and P_G2 columns; the aux-bearing ones their
 laid-out rows and the layout table, ``launch.kernel_tables``); the
 backwards give their
-gradients. As in
+gradients. A grating surface (K6c, the spec's grating flags) diffracts in
+the monochromatic kernels' grating build, with P_MLAM the order times the
+wavelength, and the backwards give its P_G1 and P_G2 gradients; the
+polychromatic kernels take no grating, as in the JAX package. As in
 the JAX package's kernels, the
 Beer-Lambert factor is applied only where the medium before the surface
 absorbs, read from the k tables' values; when the k tables are
@@ -58,23 +61,26 @@ from optiland_torch.ops.fused_trace import (
     coef_row,
 )
 from optiland_torch.ops.launch import (
-    BWD_BLOCK, BWD_MAX_BLOCKS, N_AIM, build_of, check_cuda_inputs, covered,
-    device_of, device_table, flags, inner_flags, kernel_tables,
-    launch_from_pupil, launch_key, lay_row, sag_columns, sag_surfaces,
-    unsupported, with_builds,
+    BWD_BLOCK, BWD_MAX_BLOCKS, GRAT, N_AIM, TRACE_BUILDS, build_of,
+    check_cuda_inputs, covered, device_of, device_table, flags,
+    grating_flags, inner_flags, kernel_tables, launch_from_pupil, launch_key,
+    lay_row, sag_columns, sag_surfaces, unsupported, with_builds,
 )
 from optiland_torch.ops.step import (
     FULL_GRAD_COLS, NUM_P, P_NPOST, split_cols, step_adjoint_plain,
     step_plain,
 )
 
-# Launch counts of the six kernels per build (``launch.launch_key``); each
-# wrapper adds one where it launches its kernel and nowhere else (a backward
-# counts its partial-row launch together with the fixed-order reduction
-# launch that follows it).
-LAUNCHES = with_builds(("trace_fwd", "trace_bwd", "trace_field_fwd",
-                        "trace_field_bwd", "trace_fwd_poly",
-                        "trace_bwd_poly"))
+# Launch counts of the six kernels per build (``launch.launch_key``; the
+# grating build of the four monochromatic ones only); each wrapper adds one
+# where it launches its kernel and nowhere else (a backward counts its
+# partial-row launch together with the fixed-order reduction launch that
+# follows it).
+LAUNCHES = {
+    **with_builds(("trace_fwd", "trace_bwd", "trace_field_fwd",
+                   "trace_field_bwd"), TRACE_BUILDS + (GRAT,)),
+    **with_builds(("trace_fwd_poly", "trace_bwd_poly")),
+}
 
 # Formula codes the polychromatic kernels evaluate (all but TABULATED_N),
 # and the widest coefficient row they take (csrc/step.cuh: MAX_NM)
@@ -125,29 +131,34 @@ def _masks(system):
 
 def fast_spec(system, field=False, newton_iters=10):
     """The kernels' static spec (geometry codes, reflective flags, absorb
-    flags, tilt flags, annular flags, Newton iterations) when they cover
-    this system, else None; the first four rows go to the kernels as
-    flags. ``field`` asks for the field kernels, which also need an
-    infinite-conjugate angle field. Coverage is that of the merit kernels:
-    PLANE, STANDARD and the Newton families (EVEN_ASPHERE, ODD_ASPHERE,
-    POLYNOMIAL_XY, CHEBYSHEV, TOROIDAL, BICONIC, ZERNIKE_SAG, FORBES_QBFS,
-    FORBES_Q2D) surfaces, tilted or not,
-    RadialAperture objects and no others, no interactions or BSDFs (the
-    other families of kernel K6 come in a later slice), and no coatings or
-    polarization (the polarized kernels of ``ops/pol_trace.py`` take
-    those)."""
+    flags, tilt flags, grating flags, annular flags, Newton iterations)
+    when they cover this system, else None; the first five rows go to the
+    kernels as flags. ``field`` asks for the field kernels, which also need
+    an infinite-conjugate angle field. Coverage is that of the merit
+    kernels: PLANE, STANDARD and the Newton families (EVEN_ASPHERE,
+    ODD_ASPHERE, POLYNOMIAL_XY, CHEBYSHEV, TOROIDAL, BICONIC, ZERNIKE_SAG,
+    FORBES_QBFS, FORBES_Q2D) surfaces, tilted or not, RadialAperture
+    objects and no others, no interactions but gratings on PLANE and
+    STANDARD surfaces, no BSDFs (the other families of kernel K6 come in a
+    later slice), and no coatings or polarization (the polarized kernels
+    of ``ops/pol_trace.py`` take those)."""
     cfg = system.cfg
     if not covered(cfg, field):
         return None
     tilted, absorbs = _masks(system)
     return (tuple(cfg.geom_codes), tuple(cfg.reflective), absorbs,
-            tuple(bool(t) for t in tilted), inner_flags(cfg),
-            int(newton_iters))
+            tuple(bool(t) for t in tilted), grating_flags(cfg),
+            inner_flags(cfg), int(newton_iters))
+
+
+def _grat(spec):
+    """The grating flags of a fast or poly spec (third from its end)."""
+    return spec[-3]
 
 
 def _build(spec):
     """The build a fast or poly spec launches."""
-    return build_of(spec[0], spec[3], spec[-2])
+    return build_of(spec[0], spec[3], spec[-2], _grat(spec))
 
 
 def fast_supported(system, field=False) -> bool:
@@ -158,19 +169,22 @@ def fast_supported(system, field=False) -> bool:
 
 
 def poly_spec(system, newton_iters=10):
-    """The polychromatic kernels' spec: ``fast_spec``'s four flag rows,
-    the per-surface dispersion formula codes (the poly entries of the JAX
-    package's ``_spec_of``; a fifth flag row), then the annular flags and
-    the Newton iterations, or None when the kernels do not cover the
-    structure or a material is tabulated (TABULATED_N has no formula to
-    evaluate per ray). The absorb flags are kept and ignored: the
+    """The polychromatic kernels' spec: ``fast_spec``'s first four flag
+    rows, the per-surface dispersion formula codes (the poly entries of the
+    JAX package's ``_spec_of``; a fifth flag row), then the grating flags
+    (all False), the annular flags and the Newton iterations, or None when
+    the kernels do not cover the structure, it has a grating (the JAX
+    package's poly kernels take none either) or a material is tabulated
+    (TABULATED_N has no formula to evaluate per ray). The absorb flags are
+    kept and ignored: the
     polychromatic trace applies no absorption. Nothing here reads
     ``cfg.has_absorption``: as the JAX package's ``trace_fast_poly``, the
     kernels trace an absorbing system without its absorption (see
     ``poly_supported``)."""
     spec = fast_spec(system, newton_iters=newton_iters)
     formulas = tuple(int(f) for f in system.cfg.mat_formulas)
-    if spec is None or any(f not in POLY_FORMULAS for f in formulas):
+    if (spec is None or any(_grat(spec))
+            or any(f not in POLY_FORMULAS for f in formulas)):
         return None
     return spec[:4] + (formulas,) + spec[4:]
 
@@ -202,7 +216,7 @@ def _chain_plain(params, spec, st, keep=False, mats=None, w=None,
     absorbs. ``coeffs`` is the geometry coefficient table, ``lay`` the
     layout table of its aux-bearing rows (``launch.kernel_tables``)."""
     codes, refl, absorbs = spec[:3]
-    inner, niters = spec[-2], spec[-1]
+    grat, inner, niters = spec[-3:]
     poly = w is not None
     n_pre = _n_of(spec, mats, 0, w) if poly else params[0, P_NPOST]
     states = []
@@ -213,7 +227,8 @@ def _chain_plain(params, spec, st, keep=False, mats=None, w=None,
         st, n_pre = step_plain(codes[s], refl[s], params[s], n_pre, st,
                                absorbs[s] and not poly, n_post=n_post,
                                c=coef_row(coeffs, s), newton_iters=niters,
-                               inner=inner[s], lay=lay_row(lay, codes[s], s))
+                               inner=inner[s], lay=lay_row(lay, codes[s], s),
+                               grating=grat[s])
     return (st, states) if keep else st
 
 
@@ -244,7 +259,7 @@ def _sweep_plain(params, spec, st0, cots, mats=None, w=None, coeffs=None,
     rows ``mats``, which takes the index cotangents (in the monochromatic
     chain the P_NPOST column's)."""
     codes, refl, absorbs, tilted = spec[:4]
-    inner, niters = spec[-2], spec[-1]
+    grat, inner, niters = spec[-3:]
     S = len(codes)
     poly = w is not None
     with torch.no_grad():
@@ -270,9 +285,10 @@ def _sweep_plain(params, spec, st0, cots, mats=None, w=None, coeffs=None,
                 codes[s], refl[s], params[s], n_pre, st, g,
                 absorbs[s] and not poly, tilted=tilted[s], n_post=n_post,
                 c=coef_row(coeffs, s), newton_iters=niters, inner=inner[s],
-                lay=lay_row(lay, codes[s], s),
+                lay=lay_row(lay, codes[s], s), grating=grat[s],
             )
-            pairs, coef = split_cols(codes[s], cols, FULL_GRAD_COLS, nc)
+            pairs, coef = split_cols(codes[s], cols, FULL_GRAD_COLS, nc,
+                                     grat[s])
             for j, v in enumerate(coef):
                 dcoeffs[s, j] = v.sum()
             for col, v in pairs:
@@ -362,6 +378,7 @@ def _launch(name, params, spec, coeffs, lay, before, rest):
         rc = _cuda.call(
             name, params.dtype, params.data_ptr(), *before,
             # the flag rows: all but the annular flags and newton_iters
+            # (the grating row last, which only the grating build reads)
             flags(spec[:-2], params.device).data_ptr(), len(spec[0]), build,
             table.data_ptr(), coeffs.shape[1], spec[-1], *rest,
             _cuda.stream(),
@@ -372,11 +389,13 @@ def _launch(name, params, spec, coeffs, lay, before, rest):
 
 def _partial(params, spec, nc, n_extra, R):
     """A backward's per-block partial rows, their count, and the count of
-    Newton-family surfaces: FULL_GRAD_COLS per surface, the block of each
-    Newton-family surface (``launch.block_width``), then ``n_extra``."""
-    S, nsag = len(spec[0]), len(sag_surfaces(spec[0]))
-    ncomp = (S * len(FULL_GRAD_COLS) + sag_columns(spec[0], nc, _build(spec))
-             + n_extra)
+    surfaces with a block: FULL_GRAD_COLS per surface, the block of each
+    Newton-family surface or, in the grating build, grating
+    (``launch.block_width``), then ``n_extra``."""
+    S, build = len(spec[0]), _build(spec)
+    nsag = len(sag_surfaces(spec[0], build, _grat(spec)))
+    ncomp = (S * len(FULL_GRAD_COLS)
+             + sag_columns(spec[0], nc, build, _grat(spec)) + n_extra)
     nb = _bwd_blocks(R)
     return params.new_empty((nb, ncomp)), nb, nsag
 
@@ -468,9 +487,12 @@ def _check_nc(coeffs, nc):
 
 def _check_poly(params, mats, spec, arrays, coeffs, lay):
     check_cuda_inputs(params, spec, arrays, coeffs=coeffs, lay=lay)
-    if len(spec) != 7 or any(f not in POLY_FORMULAS for f in spec[4]):
+    if len(spec) != 8 or any(f not in POLY_FORMULAS for f in spec[4]):
         raise ValueError("the polychromatic kernels take a spec with a "
                          "formula code (not TABULATED_N) per surface")
+    if any(_grat(spec)):
+        raise NotImplementedError("the polychromatic kernels take no "
+                                  "grating, as the JAX package's do not")
     if (mats.device != params.device or mats.dtype != params.dtype
             or not mats.is_contiguous() or mats.dim() != 2
             or mats.shape[0] != len(spec[0])
@@ -673,7 +695,7 @@ def trace_fast_poly(system, rays, newton_iters: int = 10):
     on the CPU. ``newton_iters`` is the Newton families' step count."""
     spec = poly_spec(system, newton_iters)
     if spec is None:
-        raise unsupported("trace_fast_poly (no tabulated material)")
+        raise unsupported("trace_fast_poly (no tabulated material, no grating)")
     dt = rays.x.dtype
     params = build_poly_table(system).to(dt)
     mats = system.stack.mat_coeffs.to(dt)

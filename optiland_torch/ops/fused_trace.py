@@ -37,7 +37,8 @@ CHEBYSHEV, TOROIDAL, BICONIC, ZERNIKE_SAG, FORBES_QBFS, FORBES_Q2D; the
 last three laid out, with the layout table ``lay``) reads its row of the
 coefficient table (the
 Cartesian ones also P_G1 and P_G2), and the backward gives their
-gradients.
+gradients. A grating surface (K6c) diffracts in the merit kernels' grating
+build, and the backward gives its P_G1 and P_G2 gradients.
 """
 
 from __future__ import annotations
@@ -51,10 +52,10 @@ from optiland_torch.core.system import (
     k_all, n_all, positions, scalar_like, static_tensor,
 )
 from optiland_torch.ops.launch import (
-    BWD_BLOCK, BWD_MAX_BLOCKS, FWD_BLOCK, N_AIM, build_of, check_cuda_inputs,
-    check_dtype, covered, device_of, device_table, flags, kernel_tables,
-    launch_from_pupil, launch_key, lay_row, sag_columns, sag_surfaces,
-    unsupported, with_builds,
+    BWD_BLOCK, BWD_MAX_BLOCKS, FWD_BLOCK, GRAT, N_AIM, TRACE_BUILDS, build_of,
+    check_cuda_inputs, check_dtype, covered, device_of, device_table, flags,
+    grating_flags, kernel_tables, launch_from_pupil, launch_key, lay_row,
+    sag_columns, sag_surfaces, unsupported, with_builds,
 )
 from optiland_torch.ops.step import (
     GRAD_COLS, NUM_P, P_NPOST, split_cols, step_adjoint_plain, step_plain,
@@ -67,10 +68,11 @@ SUB_RAYS = 4096
 
 # Launch counts of the three kernels, the merit kernels per build
 # (``launch.launch_key``: "", "_tilt", "_sag", "_free", "_deep",
-# "_deep_free"); each wrapper adds one where it launches its kernel and
-# nowhere else (merit_bwd counts its partial-row launch together with the
-# fixed-order reduction launch that follows it).
-LAUNCHES = {"prng_disk": 0, **with_builds(("merit_fwd", "merit_bwd"))}
+# "_deep_free", "_aux", "_deep_aux", "_grat"); each wrapper adds one where
+# it launches its kernel and nowhere else (merit_bwd counts its partial-row
+# launch together with the fixed-order reduction launch that follows it).
+LAUNCHES = {"prng_disk": 0,
+            **with_builds(("merit_fwd", "merit_bwd"), TRACE_BUILDS + (GRAT,))}
 
 
 def reset_launch_counts():
@@ -93,26 +95,28 @@ def _tilt_mask(system):
 
 def _spec_of(system, newton_iters=10):
     """The static kernel spec: (geometry codes, reflective flags, tilt
-    flags, Newton iterations), the part of the JAX package's spec that the
-    merit kernels read; the three flag rows go to the kernels. Its other
-    entries (geometry extras, absorption, annular apertures, gratings,
-    polychromatic formulas) the merit does not read, or describe families
-    that ``fused_supported`` refuses until a later slice ports them."""
+    flags, grating flags, Newton iterations), the part of the JAX package's
+    spec that the merit kernels read; the four flag rows go to the kernels
+    (the grating row only the grating build reads). Its other entries
+    (geometry extras, absorption, annular apertures, polychromatic
+    formulas) the merit does not read, or describe families that
+    ``fused_supported`` refuses until a later slice ports them."""
     cfg = system.cfg
     return (tuple(cfg.geom_codes), tuple(cfg.reflective),
-            tuple(bool(t) for t in _tilt_mask(system)), int(newton_iters))
+            tuple(bool(t) for t in _tilt_mask(system)), grating_flags(cfg),
+            int(newton_iters))
 
 
 def _build(spec):
-    return build_of(spec[0], spec[2])
+    return build_of(spec[0], spec[2], (), spec[3])
 
 
 def fused_supported(system) -> bool:
     """True when the fused merit kernels cover this system: what
     ``launch.covered`` lists, tilted surfaces, the radial aspheres, the
     Cartesian freeforms (the aux-bearing ZERNIKE_SAG and Forbes families
-    among them) and RadialAperture objects included. The other families
-    of kernel K6 (gratings, NURBS) come in a later slice."""
+    among them), gratings and RadialAperture objects included. The other
+    families of kernel K6 (NURBS, grid sag) come in a later slice."""
     return covered(system.cfg)
 
 
@@ -148,12 +152,11 @@ def build_param_table(system, wavelength):
     differentiable with respect to every stack leaf)."""
     stack, cfg = system.stack, system.cfg
     S = cfg.num_surfaces
-    if cfg.interactions is not None and any(
-        i is not None for i in cfg.interactions
-    ):
+    inter = cfg.interactions or (None,) * S
+    if not all(i is None or g for i, g in zip(inter, grating_flags(cfg))):
         raise NotImplementedError(
-            "surface interactions (gratings, thin lenses, phase) are ported "
-            "in a later slice"
+            "surface interactions other than gratings (thin lenses, phase) "
+            "are ported in a later slice"
         )
     wl = scalar_like(wavelength, stack.radius)
     n = n_all(stack, cfg, wl)
@@ -162,7 +165,12 @@ def build_param_table(system, wavelength):
     # with 1/wavelength; row 0 never applies absorption
     k_pre = torch.cat([wl.new_zeros(1), k_all(stack, wl)[: S - 1] / wl])
     ap_max, ap_min = _aperture_columns(system)
-    mlam = torch.zeros_like(stack.radius)
+    # m times the wavelength on a grating's row, as a constant (the JAX
+    # package forms it from float(wavelength))
+    orders = static_tensor(tuple(float(i[1]) if g else 0.0 for i, g in
+                                 zip(inter, grating_flags(cfg))),
+                           stack.radius.dtype, stack.radius.device)
+    mlam = orders * wl.detach()
     # reflective surfaces keep the incident medium
     n_eff = torch.where(static_tensor(cfg.reflective, torch.bool, n.device),
                         torch.roll(n, 1), n)
@@ -341,7 +349,7 @@ def trace_xy_plain(params, aim, spec, Px, Py, keep=False, coeffs=None,
     states (x, y, z, L, M, N, n_pre) that the adjoint replays. ``coeffs``
     is the (S, nc) coefficient table the Newton families read, ``lay``
     the layout table of its aux-bearing rows (``launch.kernel_tables``)."""
-    codes, refl = spec[0], spec[1]
+    codes, refl, _, grat, niters = spec
     st = launch_from_pupil(aim, Px, Py)
     n_pre = params[0, P_NPOST]
     states = []
@@ -349,8 +357,8 @@ def trace_xy_plain(params, aim, spec, Px, Py, keep=False, coeffs=None,
         if keep:
             states.append((st, n_pre))
         st, n_pre = step_plain(codes[s], refl[s], params[s], n_pre, st,
-                               c=coef_row(coeffs, s), newton_iters=spec[-1],
-                               lay=lay_row(lay, codes[s], s))
+                               c=coef_row(coeffs, s), newton_iters=niters,
+                               lay=lay_row(lay, codes[s], s), grating=grat[s])
     return (st[0], st[1], states) if keep else (st[0], st[1])
 
 
@@ -431,7 +439,7 @@ def merit_bwd_plain(params, aim, stats, spec, nc, R, seed=0, offset=0,
     in torch tensor ops, one tensor per ray quantity. Returns the flat
     gradient in the layout (S * NUM_P params, S * nc coeffs, N_AIM aim)."""
     S = len(spec[0])
-    codes, refl, tilted, niters = spec
+    codes, refl, tilted, grat, niters = spec
     Px, Py = _pupil(R, seed, offset, Px, Py, params.dtype, params.device)
     dcoeffs = torch.zeros((S, nc), dtype=params.dtype, device=params.device)
     with torch.no_grad():
@@ -448,9 +456,9 @@ def merit_bwd_plain(params, aim, stats, spec, nc, R, seed=0, offset=0,
             g_in, g_npre, g6 = step_adjoint_plain(
                 codes[s], refl[s], params[s], n_pre, st, g, tilted=tilted[s],
                 c=coef_row(coeffs, s), newton_iters=niters,
-                lay=lay_row(lay, codes[s], s),
+                lay=lay_row(lay, codes[s], s), grating=grat[s],
             )
-            pairs, coef = split_cols(codes[s], g6, GRAD_COLS, nc)
+            pairs, coef = split_cols(codes[s], g6, GRAD_COLS, nc, grat[s])
             for col, v in pairs:
                 dparams[s, col] = v.sum()
             for j, v in enumerate(coef):
@@ -493,9 +501,9 @@ def merit_bwd(params, aim, stats, spec, nc, R, seed=0, offset=0, Px=None,
     check_cuda_inputs(params, spec, (Px, Py), aim, coeffs, lay)
     if coeffs.shape[1] != nc:
         raise ValueError("nc must be the coefficient table's width")
-    S = len(spec[0])
+    S, build = len(spec[0]), _build(spec)
     stats = stats.to(dtype=params.dtype).contiguous()
-    ncomp = (S * len(GRAD_COLS) + sag_columns(spec[0], nc, _build(spec))
+    ncomp = (S * len(GRAD_COLS) + sag_columns(spec[0], nc, build, spec[3])
              + N_AIM)
     # the grid keeps BWD_MAX_BLOCKS x BWD_BLOCK threads whatever the block
     nb = min(-(-R // block), BWD_MAX_BLOCKS * (BWD_BLOCK // block))
@@ -503,13 +511,13 @@ def merit_bwd(params, aim, stats, spec, nc, R, seed=0, offset=0, Px=None,
     out = torch.zeros(S * (NUM_P + nc) + N_AIM, dtype=params.dtype,
                       device=params.device)
     prng = Px is None
-    build = _build(spec)
     table = device_table(coeffs, lay)  # held until the launch is queued
     with torch.cuda.device(params.device):
         rc = _cuda.call(
             "merit_bwd", params.dtype, params.data_ptr(), aim.data_ptr(),
             stats.data_ptr(), flags(spec[:-1], params.device).data_ptr(), S,
-            build, table.data_ptr(), nc, spec[-1], len(sag_surfaces(spec[0])),
+            build, table.data_ptr(), nc, spec[-1],
+            len(sag_surfaces(spec[0], build, spec[3])),
             None if prng else Px.data_ptr(), None if prng else Py.data_ptr(),
             int(R), int(seed) & ((1 << 64) - 1), int(offset), int(prng),
             partial.data_ptr(), nb, int(block), out.data_ptr(), _cuda.stream(),

@@ -5,9 +5,10 @@ the launch of a ray from its pupil sample and the aim vector, the
 per-surface flag table, and the checks a wrapper runs before it launches
 a kernel on a CUDA device.
 
-Every trace kernel is compiled in eight builds (``csrc/step.cuh``), each an
-OR of flag bits, and a launch takes the least one that covers its spec
-(``build_of``):
+Every trace kernel is compiled in eight builds (``csrc/step.cuh``), and the
+monochromatic ones (merit_fwd/merit_bwd, trace_fwd/trace_bwd,
+trace_field_fwd/trace_field_bwd) in a ninth, each an OR of flag bits, and
+a launch takes the least one that covers its spec (``build_of``):
 
   * stock: PLANE and STANDARD surfaces, untilted, at most STOCK_SURF;
   * tilt (BIT_TILT): also the tilt rotations;
@@ -20,14 +21,22 @@ OR of flag bits, and a launch takes the least one that covers its spec
   * aux (BIT_AUX): free with the aux-bearing Cartesian families too
     (ZERNIKE_SAG, FORBES_QBFS, FORBES_Q2D);
   * deep, deep_free and deep_aux (BIT_DEEP): sag, free and aux for up to
-    MAX_SURF surfaces.
+    MAX_SURF surfaces;
+  * grat (BIT_GRAT, with the tilts): grating diffraction (K6c) on PLANE
+    and STANDARD surfaces beside PLANE and STANDARD ones, at most
+    STOCK_SURF surfaces and no annular clip, in the monochromatic kernels
+    only (the JAX package's poly and polarized kernels take no grating
+    either); its backwards sum the P_G1 and P_G2 columns of each grating
+    surface. A grating beside a Newton family, an annular clip or past
+    STOCK_SURF surfaces is a combination no build covers yet: ``build_of``
+    raises for it (ROADMAP Queue 1).
 
 Each branch is a flag of its own, so a system runs code that carries no
 branch it does not use (the free builds compile to the code they had
 before the aux-bearing families). A kernel counts its launches under
 ``launch_key(name, build)``: the name, then the build's suffix
 (``BUILD_SUFFIX``: "_tilt", "_sag", "_free", "_aux", "_deep",
-"_deep_free" or "_deep_aux"; none for the stock build).
+"_deep_free", "_deep_aux" or "_grat"; none for the stock build).
 
 An aux-bearing surface reads its coefficient row laid out
 (``geom.aux_layout``) and the layout table that says how: ``kernel_tables``
@@ -42,8 +51,8 @@ import functools
 import torch
 
 from optiland_torch.core import geometry as geom
-from optiland_torch.core.system import carried_aux, static_tensor
-from optiland_torch.ops.step import NUM_P
+from optiland_torch.core.system import carried_aux, is_grating, static_tensor
+from optiland_torch.ops.step import CART_COLS, NUM_P
 from optiland_torch.physical_apertures import radial_only
 
 # The 8-scalar aim vector of an infinite-conjugate angle field: launch point,
@@ -61,7 +70,7 @@ NC_MAX = 36  # coefficient columns the kernels take (a 6 x 6 table)
 
 # the builds (csrc/step.cuh: B_STOCK .. B_DEEP_AUX): each an OR of the
 # flag bits of the branches it compiles in and of its reach
-BIT_TILT, BIT_SAG, BIT_CART, BIT_AUX, BIT_DEEP = 1, 2, 4, 8, 16
+BIT_TILT, BIT_SAG, BIT_CART, BIT_AUX, BIT_DEEP, BIT_GRAT = 1, 2, 4, 8, 16, 32
 STOCK = 0
 TILT = BIT_TILT
 SAG = TILT | BIT_SAG
@@ -70,10 +79,13 @@ DEEP = SAG | BIT_DEEP
 DEEP_FREE = FREE | BIT_DEEP
 AUX = FREE | BIT_AUX
 DEEP_AUX = DEEP_FREE | BIT_AUX
+GRAT = TILT | BIT_GRAT
 # the launch-key suffix of each build
 BUILD_SUFFIX = {STOCK: "", TILT: "_tilt", SAG: "_sag", FREE: "_free",
                 DEEP: "_deep", DEEP_FREE: "_deep_free", AUX: "_aux",
-                DEEP_AUX: "_deep_aux"}
+                DEEP_AUX: "_deep_aux", GRAT: "_grat"}
+# the builds of every trace kernel; GRAT is the monochromatic kernels' own
+TRACE_BUILDS = tuple(b for b in BUILD_SUFFIX if b != GRAT)
 
 
 def inner_flags(cfg):
@@ -83,25 +95,40 @@ def inner_flags(cfg):
                  for a in (cfg.apertures or (None,) * cfg.num_surfaces))
 
 
+def grating_flags(cfg):
+    """Per surface: True where the interaction is a grating (the JAX
+    package's ``grat`` spec entry)."""
+    return tuple(is_grating(i)
+                 for i in (cfg.interactions or (None,) * cfg.num_surfaces))
+
+
 def covered(cfg, field=True, coated=False) -> bool:
     """True when the kernels' step covers this structure: PLANE, STANDARD
     and the Newton families (the radial aspheres and the Cartesian
     freeforms) surfaces, tilted or not, RadialAperture
-    objects and no others, no interactions or BSDFs, at most MAX_SURF
-    surfaces, and (with ``field``) an infinite-conjugate angle field, which
-    the aim vector describes. The unpolarized kernels take no coatings and
-    no polarization; ``coated`` asks for the polarized kernels, which take
-    both (their coat kinds are checked by ``ops/pol_trace.py``)."""
+    objects and no others, no interactions but gratings on PLANE and
+    STANDARD surfaces, no BSDFs, at most MAX_SURF surfaces, and (with
+    ``field``) an infinite-conjugate angle field, which the aim vector
+    describes. The unpolarized kernels take no coatings and no
+    polarization; ``coated`` asks for the polarized kernels, which take
+    both (their coat kinds are checked by ``ops/pol_trace.py``) and no
+    grating. Which gratings the grating build takes is ``build_of``'s
+    check."""
 
     def all_none(vals):
         return vals is None or all(v is None for v in vals)
 
     aux = cfg.geom_aux or (None,) * cfg.num_surfaces
+    grat = grating_flags(cfg)
     return (
         all(c in geom.SUPPORTED_CODES for c in cfg.geom_codes)
         and all(carried_aux(c, a) for c, a in zip(cfg.geom_codes, aux))
         and radial_only(cfg.apertures)
-        and all_none(cfg.interactions)
+        and all(i is None or g for i, g in zip(
+            cfg.interactions or (None,) * cfg.num_surfaces, grat))
+        and all(c in (geom.PLANE, geom.STANDARD)
+                for c, g in zip(cfg.geom_codes, grat) if g)
+        and not (coated and any(grat))
         and (coated or all_none(cfg.coatings))
         and all_none(cfg.bsdfs)
         and (coated or not cfg.polarized)
@@ -113,9 +140,16 @@ def covered(cfg, field=True, coated=False) -> bool:
 
 
 # The geometry families the kernels cover, as the errors name them
-FAMILY_NAMES = ("PLANE, STANDARD, EVEN_ASPHERE, ODD_ASPHERE, POLYNOMIAL_XY, "
-                "CHEBYSHEV, TOROIDAL, BICONIC, ZERNIKE_SAG, FORBES_QBFS and "
-                "FORBES_Q2D")
+CODE_NAMES = {geom.PLANE: "PLANE", geom.STANDARD: "STANDARD",
+              geom.EVEN_ASPHERE: "EVEN_ASPHERE",
+              geom.ODD_ASPHERE: "ODD_ASPHERE",
+              geom.POLYNOMIAL_XY: "POLYNOMIAL_XY",
+              geom.CHEBYSHEV: "CHEBYSHEV", geom.TOROIDAL: "TOROIDAL",
+              geom.BICONIC: "BICONIC", geom.ZERNIKE_SAG: "ZERNIKE_SAG",
+              geom.FORBES_QBFS: "FORBES_QBFS",
+              geom.FORBES_Q2D: "FORBES_Q2D"}
+FAMILY_NAMES = (", ".join(list(CODE_NAMES.values())[:-1]) + " and "
+                + CODE_NAMES[geom.FORBES_Q2D])
 
 
 def unsupported(what):
@@ -123,9 +157,10 @@ def unsupported(what):
     return NotImplementedError(
         f"{what} covers {FAMILY_NAMES} systems of at most {MAX_SURF} "
         "surfaces (tilted or not) with no aperture objects but "
-        "RadialAperture and no interactions; the other families of kernel "
-        "K6 (grating, NURBS, grid sag) come in a later slice (ROADMAP "
-        "Queue 2)"
+        "RadialAperture and no interactions but gratings on PLANE and "
+        "STANDARD surfaces (the unpolarized monochromatic kernels only); "
+        "the other families of kernel K6 (NURBS, grid sag) come in a later "
+        "slice (ROADMAP Queue 2)"
     )
 
 
@@ -206,30 +241,52 @@ def kernel_tables(system, dtype):
     return buf[:S * W].view(S, W), buf[S * W:].view(S, W, geom.LAY_COLS)
 
 
-def sag_surfaces(codes):
-    """The surfaces of a Newton family, in order: the k-th of them owns the
-    k-th block of coefficient columns of a backward's partial rows."""
+def sag_surfaces(codes, build=STOCK, grat=()):
+    """The surfaces that own a block of a backward's partial rows, in
+    order (the k-th of them the k-th block): those of a Newton family, or
+    in the grating build the gratings (``grat``, their flags)."""
+    if build & BIT_GRAT:
+        return tuple(s for s, g in enumerate(grat) if g)
     return tuple(s for s, c in enumerate(codes) if c in geom.NEWTON_CODES)
 
 
 def block_width(nc, build):
-    """Columns of a Newton surface's block in a backward's partial rows:
-    its nc coefficient columns, then in the builds with the Cartesian
-    branch its P_G1 and P_G2 columns."""
+    """Columns of a surface's block in a backward's partial rows: a Newton
+    surface's nc coefficient columns, then in the builds with the
+    Cartesian branch its P_G1 and P_G2 columns; a grating's P_G1 and P_G2
+    columns in the grating build."""
+    if build & BIT_GRAT:
+        return len(CART_COLS)
     return nc + 2 if build & BIT_CART else nc
 
 
-def sag_columns(codes, nc, build):
-    """Columns of all the Newton surfaces' blocks of a backward's partial
-    rows."""
-    return len(sag_surfaces(codes)) * block_width(nc, build)
+def sag_columns(codes, nc, build, grat=()):
+    """Columns of all the blocks of a backward's partial rows."""
+    return len(sag_surfaces(codes, build, grat)) * block_width(nc, build)
 
 
-def build_of(codes, tilted, inner=()):
+def build_of(codes, tilted, inner=(), grat=()):
     """The build a spec launches: the least one that compiles in each
     branch it takes (TILT a tilted surface, SAG a radial asphere or an
     annular clip (``inner``), FREE a Cartesian surface, AUX an aux-bearing
-    one) and, past STOCK_SURF surfaces, the deep reach."""
+    one, GRAT a grating (``grat``, its flags)) and, past STOCK_SURF
+    surfaces, the deep reach. Raises NotImplementedError for a grating
+    beside a branch that the grating build does not compile in."""
+    if any(grat):
+        beside = sorted({CODE_NAMES[c] for c in codes
+                         if c in geom.NEWTON_CODES})
+        if any(inner):
+            beside.append("an annular clip (a RadialAperture with r_min > 0)")
+        if len(codes) > STOCK_SURF:
+            beside.append(f"{len(codes)} surfaces (more than STOCK_SURF = "
+                          f"{STOCK_SURF})")
+        if beside:
+            raise NotImplementedError(
+                "the kernels' grating build takes gratings beside PLANE and "
+                f"STANDARD surfaces only, at most STOCK_SURF = {STOCK_SURF} "
+                "surfaces and no annular clip; this system has a grating "
+                f"beside {', '.join(beside)} (ROADMAP Queue 1)")
+        return GRAT
     build = TILT if any(tilted) else STOCK
     if any(c in geom.RADIAL_CODES for c in codes) or any(inner):
         build |= SAG
@@ -266,10 +323,10 @@ def flags(rows, device):
                          torch.int32, device)
 
 
-def with_builds(names):
-    """Launch-count keys for kernels ``names``: each kernel in each build
-    (``launch_key``), each a separately compiled kernel."""
-    return {n + suf: 0 for n in names for suf in BUILD_SUFFIX.values()}
+def with_builds(names, builds=TRACE_BUILDS):
+    """Launch-count keys for kernels ``names``: each kernel in each of
+    ``builds`` (``launch_key``), each a separately compiled kernel."""
+    return {launch_key(n, b): 0 for n in names for b in builds}
 
 
 def launch_key(name, build):

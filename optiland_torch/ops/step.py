@@ -32,6 +32,20 @@ P_G1 and P_G2). With the ``inner`` flag (an
 annular aperture) the full step also zeroes the intensity of a ray with
 x^2 + y^2 < ap_min^2, after the circular clip.
 
+With the ``grating`` flag (K6c: a PLANE or STANDARD surface whose
+interaction is a grating, ``("grating", m)``) the step diffracts instead of
+refracting or reflecting: the groove vector of period P_G1 (um) and groove
+angle P_G2 (``kernels.grating_vector``, on a STANDARD substrate from the
+raw, unflipped normal) and the vector diffraction with P_MLAM = m times the
+wavelength (``kernels.grating_diffract``); the full step zeroes the
+intensity of an evanescent order, and a reflective grating keeps n_pre.
+Its adjoint gives the P_G1 and P_G2 cotangents after the param columns
+(and, through the groove frame, more of the radius and conic ones); none
+for P_MLAM, which the JAX package builds from a float. The sign of the
+normal and the two clamps (1e-14 under the substrate's root, 1e-12 under
+d_eff's) pass no derivative where they bind, and an evanescent order's
+zero root none.
+
 For the polarized traces (``ops/pol_trace.py``) the step also gives its
 "extras": the local pre- and post-interaction directions and adot, the
 cosine of the angle of incidence; and its adjoint takes their cotangents.
@@ -83,12 +97,14 @@ ABS = -4 * np.pi
 CART_COLS = (P_G1, P_G2)
 
 
-def split_cols(code, cols, base, nc):
+def split_cols(code, cols, base, nc, grating=False):
     """``step_adjoint_plain``'s cotangents as ((param column, value) pairs,
     coefficient cotangents): the ``base`` columns (GRAD_COLS or
-    FULL_GRAD_COLS), then for a Cartesian family P_G1 and P_G2; the nc
-    coefficient cotangents of a Newton family, else none."""
+    FULL_GRAD_COLS), then for a Cartesian family or a grating P_G1 and
+    P_G2; the nc coefficient cotangents of a Newton family, else none."""
     pairs = list(zip(base, cols))
+    if grating:
+        return pairs + list(zip(CART_COLS, cols[len(base):])), ()
     coef = cols[len(base):len(base) + nc]
     if code in geom.CART_CODES:
         pairs += list(zip(CART_COLS, cols[len(base) + nc:]))
@@ -170,7 +186,8 @@ def _rot_local_adjoint(p, v, g):
 
 
 def step_plain(code, refl, p, n_pre, st, absorbs=False, extras=False,
-               n_post=None, c=None, newton_iters=10, inner=False, lay=None):
+               n_post=None, c=None, newton_iters=10, inner=False, lay=None,
+               grating=False):
     """One surface step on per-ray tensors; returns (state, n_next), and
     with ``extras`` also (L0, M0, N0, L1, M1, N1, adot): the local-frame
     pre- and post-interaction directions and |cos| of the angle of
@@ -183,7 +200,8 @@ def step_plain(code, refl, p, n_pre, st, absorbs=False, extras=False,
     surface's coefficient row (read by the Newton families, which take
     ``newton_iters`` steps; an aux-bearing family's laid-out row, whose
     slots are ``lay``); ``inner`` (full step only) applies the annular
-    clip on ``p[P_APMIN]``. The tilt rotations
+    clip on ``p[P_APMIN]``; ``grating`` diffracts (P_G1, P_G2, P_MLAM).
+    The tilt rotations
     always run, as in the JAX package under ``jax.grad``, where traced
     tilts keep the rotation code: at zero tilt they are exact identities
     (the kernels skip them there), and autograd through them gives the tilt
@@ -216,12 +234,25 @@ def step_plain(code, refl, p, n_pre, st, absorbs=False, extras=False,
         extra = (i, opd)
     nx, ny, nz = geom.surface_normal_static(code, radius, conic, c, x, y,
                                             p1, p2, lay=lay)
+    raw = (nx, ny, nz)  # the groove frame reads the unflipped normal
     dot = L * nx + M * ny + N * nz
     sgn = torch.sign(dot)
     nx, ny, nz = nx * sgn, ny * sgn, nz * sgn
     adot = torch.abs(dot)
     k0 = (L, M, N)
-    if refl:
+    if grating:
+        if refl:
+            n_post = n_pre
+        elif n_post is None:
+            n_post = p[P_NPOST]
+        f = kernels.grating_vector(code, radius, conic, p2, x, y, *raw)
+        L, M, N, ok = kernels.grating_diffract(L, M, N, nx, ny, nz, adot, f,
+                                               p1, p[P_MLAM], n_pre, n_post,
+                                               refl)
+        if full:
+            extra = (torch.where(ok, extra[0], 0.0), extra[1])
+        n_next = n_post
+    elif refl:
         L = L - 2 * adot * nx
         M = M - 2 * adot * ny
         N = N - 2 * adot * nz
@@ -245,7 +276,8 @@ def step_plain(code, refl, p, n_pre, st, absorbs=False, extras=False,
 
 def step_adjoint_plain(code, refl, p, n_pre, st, g, absorbs=False,
                        g_ext=None, tilted=False, n_post=None, c=None,
-                       newton_iters=10, inner=False, lay=None):
+                       newton_iters=10, inner=False, lay=None,
+                       grating=False):
     """Reverse sweep through one surface step.
 
     ``st`` is the step's input state, ``g`` the cotangents of its outputs:
@@ -263,8 +295,9 @@ def step_adjoint_plain(code, refl, p, n_pre, st, g, absorbs=False,
     intensity, and none to the positions that decide it. For a Newton
     family the param columns are followed by the cotangents of the
     coefficient row ``c`` (one per coefficient), for a Cartesian one then
-    by those of P_G1 and P_G2 (``split_cols`` takes them apart). The CUDA
-    kernels' reverse step is a line-by-line transcription of this one."""
+    by those of P_G1 and P_G2, and for a ``grating`` by those of P_G1 and
+    P_G2 (``split_cols`` takes them apart). The CUDA kernels' reverse step
+    is a line-by-line transcription of this one."""
     full = len(g) == 9
     x, y, z, L, M, N = st[:6]
     gx, gy, gz, gL_o, gM_o, gN_o, g_nn = g[:7]
@@ -373,7 +406,45 @@ def step_adjoint_plain(code, refl, p, n_pre, st, g, absorbs=False,
 
     z1 = zl + t * N
     # the local post-interaction directions
-    if refl:
+    if grating:
+        # the groove vector (from the raw normal), d_eff, the tangential
+        # momentum P, its root and D = d_eff n_post
+        mlam = p[P_MLAM]
+        if refl:
+            npost = n_pre
+        if std:
+            qg = 1 - (1 + k) * r2 / R**2
+            sqq = torch.sqrt(torch.clamp(qg, min=1e-14))
+            den_g = R * sqq
+            ta = torch.tan(p2)
+            dzd = (x1 + y1 * ta) / den_g
+            tmag = torch.sqrt(1 + ta * ta + dzd * dzd)
+            tv = (1.0 / tmag, ta / tmag, dzd / tmag)
+            gv = (ny * tv[2] - nz * tv[1], -nx * tv[2] + nz * tv[0],
+                  nx * tv[1] - ny * tv[0])
+            gmag = torch.sqrt(gv[0]**2 + gv[1]**2 + gv[2]**2)
+            fv = tuple(-v / gmag for v in gv)
+        else:
+            ones = torch.ones_like(x1)
+            fv = (-torch.sin(p2) * ones, torch.cos(p2) * ones,
+                  torch.zeros_like(x1))
+        ffg = fv[0]**2 + fv[1]**2
+        ffc = torch.clamp(ffg, min=1e-12)
+        d_eff = p1 / torch.sqrt(ffc)
+        fn = fv[0] * nxs + fv[1] * nys + fv[2] * nzs
+        kv = (L - adot * nxs, M - adot * nys, N - adot * nzs)
+        Pv = tuple(d_eff * n_pre * kv[j] + mlam * (fv[j] - fn * ns)
+                   for j, ns in enumerate((nxs, nys, nzs)))
+        D = d_eff * npost
+        rad = D * D - (Pv[0]**2 + Pv[1]**2 + Pv[2]**2)
+        ok_g = rad >= 0
+        root = torch.where(ok_g, torch.sqrt(torch.where(ok_g, rad, 1.0)),
+                           0.0)
+        spg = -1.0 if refl else 1.0
+        Lo = (spg * Pv[0] + nxs * root) / D
+        Mo = (spg * Pv[1] + nys * root) / D
+        No = (spg * Pv[2] + nzs * root) / D
+    elif refl:
         Lo = L - 2 * adot * nxs
         Mo = M - 2 * adot * nys
         No = N - 2 * adot * nzs
@@ -401,7 +472,47 @@ def step_adjoint_plain(code, refl, p, n_pre, st, g, absorbs=False,
         gL_i, gM_i, gN_i = gL_o + g_ext[3], gM_o + g_ext[4], gN_o + g_ext[5]
 
     # ---- interact ----
-    if refl:
+    if grating:
+        # k_out = (+-P + ns root) / D
+        g_P = [spg * v / D for v in (gL_i, gM_i, gN_i)]
+        g_nxs = gL_i * root / D
+        g_nys = gM_i * root / D
+        g_nzs = gN_i * root / D
+        g_root = (gL_i * nxs + gM_i * nys + gN_i * nzs) / D
+        g_D = -(gL_i * Lo + gM_i * Mo + gN_i * No) / D
+        # root = sqrt(rad) where the order propagates, else 0
+        g_rad = torch.where(
+            ok_g, g_root * 0.5 / torch.sqrt(torch.where(ok_g, rad, 1.0)), 0.0)
+        g_D = g_D + 2 * D * g_rad
+        g_P = [gp - 2 * pv * g_rad for gp, pv in zip(g_P, Pv)]
+        # D = d_eff n_post; P = d_eff n_pre (k - adot ns) + mlam (f - fn ns)
+        g_deff = g_D * npost + n_pre * (g_P[0] * kv[0] + g_P[1] * kv[1]
+                                        + g_P[2] * kv[2])
+        g_npost_g = g_D * d_eff
+        g_npre = d_eff * (g_P[0] * kv[0] + g_P[1] * kv[1] + g_P[2] * kv[2])
+        gL, gM, gN = (d_eff * n_pre * v for v in g_P)
+        gPn = g_P[0] * nxs + g_P[1] * nys + g_P[2] * nzs
+        g_adot = -d_eff * n_pre * gPn
+        g_fn = -mlam * gPn
+        g_nxs = g_nxs - (d_eff * n_pre * adot + mlam * fn) * g_P[0]
+        g_nys = g_nys - (d_eff * n_pre * adot + mlam * fn) * g_P[1]
+        g_nzs = g_nzs - (d_eff * n_pre * adot + mlam * fn) * g_P[2]
+        g_f = [mlam * g_P[0] + g_fn * nxs, mlam * g_P[1] + g_fn * nys,
+               mlam * g_P[2] + g_fn * nzs]
+        g_nxs = g_nxs + g_fn * fv[0]
+        g_nys = g_nys + g_fn * fv[1]
+        g_nzs = g_nzs + g_fn * fv[2]
+        # d_eff = d / sqrt(max(fx^2 + fy^2, 1e-12))
+        g_p1 = g_deff / torch.sqrt(ffc)
+        g_ff = torch.where(ffg > 1e-12, -0.5 * g_deff * d_eff / ffc, 0.0)
+        g_f[0] = g_f[0] + 2 * fv[0] * g_ff
+        g_f[1] = g_f[1] + 2 * fv[1] * g_ff
+        if refl:
+            g_npre = g_npre + g_nn + g_npost_g
+            g_npost = torch.zeros_like(gx)
+        else:
+            g_npost = g_nn + g_npost_g
+    elif refl:
         gL, gM, gN = gL_i, gM_i, gN_i
         g_nxs = -2 * adot * gL_i
         g_nys = -2 * adot * gM_i
@@ -435,9 +546,43 @@ def step_adjoint_plain(code, refl, p, n_pre, st, g, absorbs=False,
 
     g_k = torch.zeros_like(gx)
     g_cu = torch.zeros_like(gx)
+    g_Rg = 0.0
+    g_nraw = (0.0, 0.0, 0.0)
+    if grating and std:
+        # the groove frame: f = -g / |g|, g = n x t (raw n),
+        # t = (1, ta, dzd) / tmag
+        g_gh = [-v for v in g_f]
+        gh = [v / gmag for v in gv]
+        ghd = gh[0] * g_gh[0] + gh[1] * g_gh[1] + gh[2] * g_gh[2]
+        g_g = [(g_gh[j] - gh[j] * ghd) / gmag for j in range(3)]
+        g_nraw = (tv[1] * g_g[2] - tv[2] * g_g[1],
+                  tv[2] * g_g[0] - tv[0] * g_g[2],
+                  tv[0] * g_g[1] - tv[1] * g_g[0])
+        g_t = (g_g[1] * nz - g_g[2] * ny, g_g[2] * nx - g_g[0] * nz,
+               g_g[0] * ny - g_g[1] * nx)
+        gtd = tv[0] * g_t[0] + tv[1] * g_t[1] + tv[2] * g_t[2]
+        g_ta = (g_t[1] - tv[1] * gtd) / tmag
+        g_dzd = (g_t[2] - tv[2] * gtd) / tmag
+        # dzd = (x1 + y1 ta) / den_g, den_g = R sqrt(max(qg, 1e-14))
+        g_x1 = g_x1 + g_dzd / den_g
+        g_y1 = g_y1 + g_dzd * ta / den_g
+        g_ta = g_ta + g_dzd * y1 / den_g
+        g_den = -g_dzd * dzd / den_g
+        g_p2 = g_ta * (1 + ta * ta)
+        g_Rg = g_den * sqq
+        g_qg = torch.where(qg > 1e-14, g_den * R * 0.5 / sqq, 0.0)
+        g_k = g_k - g_qg * r2 / R**2
+        g_Rg = g_Rg + g_qg * 2 * (1 + k) * r2 / R**3
+        g_x1 = g_x1 - 2 * x1 * g_qg * (1 + k) / R**2
+        g_y1 = g_y1 - 2 * y1 * g_qg * (1 + k) / R**2
+    elif grating:
+        # f = (-sin p2, cos p2, 0)
+        g_p2 = -torch.cos(p2) * g_f[0] - torch.sin(p2) * g_f[1]
     # ---- normal (STANDARD; the plane normal is constant) ----
     if std:
-        g_nx, g_ny, g_nz = sgn * g_nxs, sgn * g_nys, sgn * g_nzs
+        g_nx = sgn * g_nxs + g_nraw[0]
+        g_ny = sgn * g_nys + g_nraw[1]
+        g_nz = sgn * g_nzs + g_nraw[2]
         g_fx = g_nx * im
         g_fy = g_ny * im
         g_im = g_nx * fx + g_ny * fy - g_nz
@@ -504,6 +649,8 @@ def step_adjoint_plain(code, refl, p, n_pre, st, g, absorbs=False,
         clipped = r2c > p[P_APMAX] * p[P_APMAX]
         if inner:
             clipped = clipped | (r2c < p[P_APMIN] * p[P_APMIN])
+        if grating:
+            clipped = clipped | ~ok_g
         g_i = torch.where(clipped, 0.0, g_i)
         g_kpre = torch.zeros_like(gx)
         if absorbs:
@@ -651,10 +798,12 @@ def step_adjoint_plain(code, refl, p, n_pre, st, g, absorbs=False,
     g_dy = g_dy - g_yl
     g_pos = g_pos - g_zl
     g_in = (g_xl, g_yl, g_zl, gL, gM, gN)
-    cols = (g_R, g_k, g_pos, g_npost, g_dx, g_dy, g_rx, g_ry, g_rz)
+    cols = (g_R + g_Rg, g_k, g_pos, g_npost, g_dx, g_dy, g_rx, g_ry, g_rz)
     if full:
         g_in = g_in + (g_i, g_opd)
         cols = cols + (g_kpre,)
     if newton or cart:
         cols = cols + tuple(g_coef)
+    if grating:
+        cols = cols + (g_p1, g_p2)
     return g_in, g_npre, cols

@@ -3,8 +3,8 @@
 Counterpart of ``optiland_tpu/optic/optic.py`` (a subset): ``SurfaceDef``,
 ``SurfaceGroup.add`` for the "standard", "plane", "even_asphere",
 "odd_asphere", "polynomial", "chebyshev", "toroidal", "biconic",
-"zernike", "forbes_qbfs" and "forbes_q2d" surface types (with the JAX
-package's arguments),
+"zernike", "forbes_qbfs", "forbes_q2d" and "grating" surface types (with
+the JAX package's arguments),
 a semi-diameter or a ``RadialAperture`` as the physical aperture, and an
 optional coating (a coating object or the "fresnel" shorthand), the field,
 wavelength and aperture groups, and ``Optic`` with ``set_aperture``,
@@ -51,7 +51,7 @@ _GEOM_CODES = {
     "forbes_q2d": geom.FORBES_Q2D,
 }
 # the JAX package's other surface types, and what they wait for
-_QUEUE2_TYPES = ("grating", "nurbs", "grid_sag")
+_QUEUE2_TYPES = ("nurbs", "grid_sag")
 
 
 def _later(what: str) -> NotImplementedError:
@@ -83,7 +83,7 @@ class SurfaceDef:
     geo_p1: float = 1.0
     geo_p2: float = 1.0
     # static extras (the JAX package's geom_aux): a Zernike scheme, a Qbfs
-    # term count, a Q2d (n, m) layout
+    # term count, a Q2d (n, m) layout, a grating's ("grating", order)
     geo_aux: Any = None
 
     # resolved at compile time
@@ -141,17 +141,21 @@ class SurfaceGroup:
             "standard", "noll");
           * "forbes_qbfs": ``radial_terms`` {n: a_n}, ``norm_radius``;
           * "forbes_q2d": ``freeform_coeffs`` {("a" | "b", m, n): c},
-            ``norm_radius``.
+            ``norm_radius``;
+          * "grating": ``grating_period`` (um, into geo_p1),
+            ``groove_orientation_angle`` (rad, into geo_p2) and
+            ``grating_order`` (into geo_aux, ("grating", m)) on a plane
+            (infinite ``radius``) or conic substrate.
 
-        The other types of the JAX package ("grating", "nurbs",
-        "grid_sag") come in a later slice (ROADMAP Queue 2) and raise."""
+        The other types of the JAX package ("nurbs", "grid_sag") come in a
+        later slice (ROADMAP Queue 2) and raise."""
         from optiland_torch.physical_apertures import RadialAperture
 
         if surface_type in _QUEUE2_TYPES:
             raise NotImplementedError(
                 f"surface_type {surface_type!r} is ported in a later slice "
                 "(ROADMAP Queue 2)")
-        if surface_type not in _GEOM_CODES:
+        if surface_type not in _GEOM_CODES and surface_type != "grating":
             raise _later(f"surface_type {surface_type!r}")
         geo_p1, geo_p2, geo_aux = 1.0, 1.0, None
         coeff_arr = np.asarray(coefficients, dtype=float)
@@ -201,6 +205,12 @@ class SurfaceGroup:
                 vals.append(v)
             coeff_arr = np.asarray(vals, float)
             geo_aux = ("q2d", tuple(nms))
+        elif surface_type == "grating":
+            # the period and groove angle are differentiable parameters,
+            # the order a static extra
+            geo_p1 = kwargs.pop("grating_period", np.inf)
+            geo_p2 = kwargs.pop("groove_orientation_angle", 0.0)
+            geo_aux = ("grating", int(kwargs.pop("grating_order", 0)))
         if kwargs:
             raise _later(f"surface argument(s) {sorted(kwargs)}")
         if aperture is not None and not isinstance(
@@ -486,7 +496,9 @@ class Optic:
 
         geom_code = []
         for s in surfs:
-            code = _GEOM_CODES[s.surface_type]
+            # a grating's substrate is a plane or a conic; the diffraction is
+            # its interaction
+            code = _GEOM_CODES.get(s.surface_type, geom.STANDARD)
             if code == geom.STANDARD and np.isinf(s.radius):
                 code = geom.PLANE
             geom_code.append(code)
@@ -536,7 +548,9 @@ class Optic:
             geom_aux=tuple(s.geo_aux for s in surfs),
             apertures=tuple(None if s.aperture is None or numeric_ap(s)
                             else s.aperture for s in surfs),
-            interactions=none,
+            interactions=tuple(
+                s.geo_aux if s.surface_type == "grating" else None
+                for s in surfs),
             coatings=tuple(coatings),
             bsdfs=none,
             polarized=self.polarization != "ignore",

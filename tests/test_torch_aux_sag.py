@@ -365,8 +365,8 @@ def test_vertex_ray_matches_jax(monkeypatch):
 def test_optic_builder_round_trip():
     """surfaces.add builds the three types (and the three Zernike schemes)
     with JAX's keyword arguments into the same stack and extras,
-    system_from_numpy carries them, and grating, NURBS and grid sag still
-    raise naming ROADMAP Queue 2."""
+    system_from_numpy carries them, and NURBS and grid sag still raise
+    naming ROADMAP Queue 2."""
     cases = [(fam, {}) for fam in AUX] + [
         ("zernike", {"zernike_type": s}) for s in ("standard", "noll")]
     for fam, kw in cases:
@@ -399,8 +399,7 @@ def test_optic_builder_round_trip():
             system_from_numpy(arrays, bad)
     o = TOptic()
     o.surfaces.add(index=0, radius=np.inf, thickness=np.inf)
-    for kind, kw in (("grating", {"grating_period": 10.0}), ("nurbs", {}),
-                     ("grid_sag", {})):
+    for kind, kw in (("nurbs", {}), ("grid_sag", {})):
         with pytest.raises(NotImplementedError, match="Queue 2"):
             o.surfaces.add(index=1, surface_type=kind, **kw)
 
@@ -469,11 +468,14 @@ def test_kernel_tables_share_one_buffer_and_builds_are_flag_bits():
     bits[launch.AUX] = bits[launch.FREE] | launch.BIT_AUX
     bits.update({launch.DEEP: bits[launch.SAG] | launch.BIT_DEEP,
                  launch.DEEP_FREE: bits[launch.FREE] | launch.BIT_DEEP,
-                 launch.DEEP_AUX: bits[launch.AUX] | launch.BIT_DEEP})
+                 launch.DEEP_AUX: bits[launch.AUX] | launch.BIT_DEEP,
+                 launch.GRAT: launch.BIT_TILT | launch.BIT_GRAT})
     assert all(b == v for b, v in bits.items())
     assert set(bits) == set(launch.BUILD_SUFFIX)
     for b in bits:
-        assert launch.block_width(9, b) == (11 if b & launch.BIT_CART else 9)
+        # a grating's block in the grating build: P_G1 and P_G2
+        assert launch.block_width(9, b) == (
+            2 if b & launch.BIT_GRAT else 11 if b & launch.BIT_CART else 9)
     P, S, E = tg.PLANE, tg.STANDARD, tg.EVEN_ASPHERE
     deep = launch.STOCK_SURF + 1
     for codes, tilted, inner, build in (

@@ -30,7 +30,9 @@ surfaces): as the trace kernels; their f32 kernels against the f32 plain
 versions (the f32 Newton iteration converges to ~1e-7 relative), to 2e-4
 of each array's scale and 1e-3 in the gradients' L2 norm. The free build
 (the Cartesian freeforms): as the trace kernels, every gradient column,
-P_G1, P_G2 and each coefficient column included.
+P_G1, P_G2 and each coefficient column included. The grating build
+(K6c): as the trace kernels, the grating surface's P_G1 and P_G2 columns
+among the summed gradients.
 """
 
 import dataclasses
@@ -50,7 +52,7 @@ from optiland_torch.ops import huygens as hu
 from optiland_torch.optic import Optic
 from optiland_torch.polarization import create_polarization
 from optiland_torch.samples import (
-    AsphericSinglet, CookeTriplet, freeform, perturbed, registry,
+    AsphericSinglet, CookeTriplet, freeform, grating, perturbed, registry,
 )
 
 H = (0.0, 0.7)
@@ -1675,3 +1677,154 @@ def test_deep_build_takes_the_aux_families(cuda_device):
                 "deep aux merit_bwd")
     assert ftr.LAUNCHES == _only(ftr.LAUNCHES, trace_fwd_deep_aux=1,
                                  trace_bwd_deep_aux=1)
+
+
+# ---------------------------------------------------------------------------
+# K6c: gratings in the monochromatic kernels (the grat build)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", grating.NAMES)
+def test_grat_kernels_match_plain_f64(cuda_device, kind):
+    system = grating.BUILDERS[kind]().system
+    R = 20001
+    wl, params, aim, coeffs, Px, Py, ins, cots = _k6_inputs(
+        system, freeform.H, R, 7)
+    nc = coeffs.shape[1]
+    spec = ftr.fast_spec(system, field=True)
+    S = len(spec[0])
+    g = spec[4].index(True)  # the grating surface
+    ftr.reset_launch_counts()
+    ft.reset_launch_counts()
+    _close(ftr.trace_fwd(params, spec, ins, coeffs),
+           ftr.trace_fast_plain(params, spec, ins, coeffs), 1e-10,
+           f"{kind} trace_fwd")
+    din, flat = ftr.trace_bwd(params, spec, nc, ins, cots, coeffs)
+    din_p, flat_p = ftr.trace_fast_bwd_plain(params, spec, nc, ins, cots,
+                                             coeffs)
+    _close(din, din_p, 1e-10, f"{kind} trace_bwd input cotangent",
+           positions=False)
+    _flat_close(flat, flat_p, f"{kind} trace_bwd")
+    # the grating's P_G1 (period) and P_G2 (groove angle) columns
+    assert float(flat_p[:S * 15].reshape(S, 15)[g, 11:13].abs().min()) > 0
+    out = ftr.trace_field_fwd(params, aim, spec, Px, Py, coeffs)
+    _close(out, ftr.trace_fast_field_plain(params, aim, spec, Px, Py, coeffs),
+           1e-10, f"{kind} trace_field_fwd")
+    _flat_close(ftr.trace_field_bwd(params, aim, spec, nc, Px, Py, cots,
+                                    coeffs),
+                ftr.trace_fast_field_bwd_plain(params, aim, spec, nc, Px, Py,
+                                               cots, coeffs),
+                f"{kind} trace_field_bwd")
+    mspec = ft._spec_of(system)
+    rows = ft.merit_fwd(params, aim, mspec, R, Px=Px, Py=Py, coeffs=coeffs)
+    rows_p = ft.merit_fwd_plain(params, aim, mspec, R, Px=Px, Py=Py,
+                                coeffs=coeffs)
+    loss, xbar, ybar = ft._chan_combine(rows, R)
+    assert float(loss) == pytest.approx(
+        float(ft._chan_combine(rows_p, R)[0]), rel=1e-12)
+    stats = torch.stack([xbar, ybar, 1.0 / R + 0 * xbar, 0 * xbar])
+    mflat_p = ft.merit_bwd_plain(params, aim, stats, mspec, nc, R, Px=Px,
+                                 Py=Py, coeffs=coeffs)
+    _flat_close(ft.merit_bwd(params, aim, stats, mspec, nc, R, Px=Px, Py=Py,
+                             coeffs=coeffs), mflat_p, f"{kind} merit_bwd")
+    assert float(mflat_p[:S * 15].reshape(S, 15)[g, 11:13].abs().min()) > 0
+    names = ("trace_fwd", "trace_bwd", "trace_field_fwd", "trace_field_bwd")
+    assert ftr.LAUNCHES == _only(ftr.LAUNCHES,
+                                 **{n + "_grat": 1 for n in names})
+    assert ft.LAUNCHES == _only(ft.LAUNCHES, merit_fwd_grat=1,
+                                merit_bwd_grat=1)
+
+
+@pytest.mark.cuda
+def test_grat_entry_points_launch_the_grat_build(cuda_device):
+    """spot_rms_fast_field, trace_fast_field and Optic.trace of the curved
+    grating run the grat build and nothing else, and match the plain
+    versions on the CPU; the grating's period and groove angle get a
+    finite, nonzero gradient."""
+    lens = grating.curved_grating()
+    system = lens.system
+    ftr.reset_launch_counts()
+    ft.reset_launch_counts()
+    Px, Py = ft.prng_disk(5, 4001, 0, torch.float64, cuda_device)
+    st = system.stack
+    p1 = st.geo_p1.clone().requires_grad_()
+    p2 = st.geo_p2.clone().requires_grad_()
+    s2 = system.replace(stack=st.replace(geo_p1=p1, geo_p2=p2))
+    loss = ft.spot_rms_fast_field(s2, *freeform.H, WL, Px=Px, Py=Py)
+    loss.backward()
+    f = ftr.trace_fast_field(system, *freeform.H, Px, Py, WL)
+    res = lens.trace(Hx=0.3, Hy=0.7, num_rays=8, record=False)
+    assert torch.isfinite(loss) and torch.isfinite(f.x).all()
+    assert torch.isfinite(res.x).all()
+    for v in (p1.grad[1], p2.grad[1]):
+        assert bool(torch.isfinite(v)) and float(v) != 0
+    assert ft.LAUNCHES == _only(ft.LAUNCHES, prng_disk=1, merit_fwd_grat=1,
+                                merit_bwd_grat=1)
+    assert ftr.LAUNCHES == _only(ftr.LAUNCHES, trace_field_fwd_grat=1,
+                                 trace_fwd_grat=1)
+    config.set_device("cpu")
+    ref = grating.curved_grating().system
+    loss_p = ft.spot_rms_fast_field(ref, *freeform.H, WL, Px=Px.cpu(),
+                                    Py=Py.cpu())
+    assert float(loss) == pytest.approx(float(loss_p), rel=1e-12)
+
+
+def _grating_beside_asphere():
+    """plane_grating with its first lens surface an even asphere."""
+    lens = grating.plane_grating()
+    s1 = lens.surfaces.surfaces[1]
+    s1.surface_type, s1.coefficients = "even_asphere", (1e-5, -2e-8)
+    lens._invalidate()
+    return lens
+
+
+@pytest.mark.cuda
+def test_grat_refusals_and_plain_paths_on_the_card(cuda_device):
+    """On a CUDA bundle a grating beside an asphere raises naming the
+    combination, from every entry point, and launches nothing; the poly
+    and polarized grating traces, which the JAX package's kernels do not
+    take either, run the plain engine on the card and match it on the
+    CPU."""
+    lens = _grating_beside_asphere()
+    system = lens.system
+    Px, Py = ft.prng_disk_plain(5, 501, 0, torch.float64, cuda_device)
+    rays = raygen.generate_rays(system, *freeform.H, Px, Py, WL)
+    ftr.reset_launch_counts()
+    ft.reset_launch_counts()
+    for call in (lambda: ftr.trace_fast(system, rays, WL),
+                 lambda: trace_core.trace(system, rays, record=False,
+                                          wavelength=WL),
+                 lambda: ftr.trace_fast_field(system, *freeform.H, Px, Py,
+                                              WL),
+                 lambda: ft.spot_rms_fast_field(system, *freeform.H, WL,
+                                                Px=Px, Py=Py)):
+        with pytest.raises(NotImplementedError,
+                           match="grating beside EVEN_ASPHERE"):
+            call()
+    assert not any(ftr.LAUNCHES.values()) and not any(ft.LAUNCHES.values())
+    # a wavelength per ray, and a polarized coated grating
+    lens = grating.plane_grating()
+    w = torch.tensor([0.48, 0.55, 0.65], dtype=torch.float64,
+                     device=cuda_device)[torch.arange(501) % 3]
+    poly_rays = raygen.generate_rays(lens.system, *freeform.H, Px, Py,
+                                     WL).replace(w=w)
+    out_poly, _ = trace_core.trace(lens.system, poly_rays, record=False)
+    coated = grating.coated_grating("H")
+    out_pol = coated.trace(Hx=0.3, Hy=0.7, num_rays=6, record=False)
+    assert not any(ftr.LAUNCHES.values())
+    config.set_device("cpu")
+    ref_poly, _ = trace_core.trace(
+        grating.plane_grating().system,
+        poly_rays.replace(**{k: getattr(poly_rays, k).cpu() for k in
+                             ("x", "y", "z", "L", "M", "N", "i", "w",
+                              "opd")}), record=False)
+    ref_pol = grating.coated_grating("H").trace(Hx=0.3, Hy=0.7, num_rays=6,
+                                                record=False)
+    for got, ref in ((out_poly, ref_poly), (out_pol.rays, ref_pol.rays)):
+        for k in ftr.RAY_FIELDS:
+            a, b = getattr(got, k).cpu(), getattr(ref, k)
+            assert torch.isfinite(a).all()
+            torch.testing.assert_close(a, b, rtol=1e-12,
+                                       atol=1e-12 * float(b.abs().max()),
+                                       msg=f"plain engine on the card: {k}")

@@ -600,7 +600,7 @@ def test_toroid_nan_set_matches_jax(radius_x, monkeypatch):
 def test_optic_builder_round_trip():
     """surfaces.add builds the four types with JAX's keyword arguments
     into the same stack, system_from_numpy carries it, and the types of
-    a later slice (grating, NURBS) raise naming ROADMAP Queue 2."""
+    a later slice (NURBS) raise naming ROADMAP Queue 2."""
     for fam in FAMS:
         tsys, jsys = singlets(fam)
         assert tsys.cfg.geom_codes == tuple(jsys.cfg.geom_codes)
@@ -621,7 +621,7 @@ def test_optic_builder_round_trip():
                                        atol=0)
     o = TOptic()
     o.surfaces.add(index=0, radius=np.inf, thickness=np.inf)
-    for kind, kw in (("grating", {"grating_period": 10.0}), ("nurbs", {})):
+    for kind, kw in (("nurbs", {}),):
         with pytest.raises(NotImplementedError, match="Queue 2"):
             o.surfaces.add(index=1, surface_type=kind, **kw)
 

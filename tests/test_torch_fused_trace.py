@@ -178,7 +178,7 @@ def test_chan_combine_matches_jax():
 def test_spec_and_support():
     system = TorchCooke().system
     assert ft._spec_of(system) == ((0, 1, 1, 1, 1, 1, 1, 0), (False,) * 8,
-                                   (False,) * 8, 10)
+                                   (False,) * 8, (False,) * 8, 10)
     assert ft._tilt_mask(system) == [False] * 8
     assert ft.fused_supported(system)
     # tilted surfaces are flagged and covered (a nonzero or non-finite angle)
@@ -366,6 +366,6 @@ def test_cpu_wrappers_run_the_plain_versions():
     assert ft.LAUNCHES == {"prng_disk": 0, **{
         n + suf: 0 for n in ("merit_fwd", "merit_bwd")
         for suf in ("", "_tilt", "_sag", "_free", "_deep", "_deep_free",
-                    "_aux", "_deep_aux")}}
+                    "_aux", "_deep_aux", "_grat")}}
     with pytest.raises(TypeError, match="float32 or float64"):
         ft.prng_disk(1, 10, 0, torch.float16, "cpu")

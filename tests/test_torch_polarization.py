@@ -8,6 +8,7 @@ passes between them as numpy arrays. Tolerance: rtol 1e-12 with atol 1e-14
 noted.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -22,11 +23,13 @@ from optiland_torch.materials import IdealMaterial as TIdeal
 from optiland_torch.materials import Material as TMaterial
 from optiland_torch.materials import material_from_record
 from optiland_torch.thin_film import ThinFilmStack as TStack
+from optiland_torch.ops import pol_trace as tpt
 from optiland_torch.thin_film import tmm_coherent as t_tmm
 from optiland_tpu import coatings as jc
 from optiland_tpu import polarization as jpol
 from optiland_tpu.materials import IdealMaterial as JIdeal
 from optiland_tpu.materials import Material as JMaterial
+from optiland_tpu.ops import pallas_pol as jpp
 from optiland_tpu.thin_film import ThinFilmStack as JStack
 from optiland_tpu.thin_film import tmm_coherent as j_tmm
 
@@ -299,3 +302,65 @@ def test_optic_coatings_need_polarization():
     assert isinstance(o.system.cfg.coatings[1], tc.FresnelCoating)
     o = tps.pol_doublet("torch", pol=None, coat=tc.SimpleCoating(0.9))
     assert not o.system.cfg.polarized and o.polarization_state is None
+
+
+def _basis_vjps(theta, seed=9, n=256):
+    """The cotangents of (k0, k1) of the local s/p basis for directions
+    theta apart and seeded cotangents of (s, p0, p1): jax.vjp of the JAX
+    package's in-kernel basis (``_local_basis_tile``, which K9 transposes)
+    and the port's hand adjoint (``pol_trace._basis_adjoint``, which its
+    K9 transcribes), each in float32 and float64, as float64 arrays."""
+    rng = np.random.default_rng(seed)
+    k0 = rng.normal(size=(3, n))
+    k0 /= np.linalg.norm(k0, axis=0)
+    ax = rng.normal(size=(3, n))
+    ax -= k0 * (ax * k0).sum(0)
+    ax /= np.linalg.norm(ax, axis=0)
+    k1 = np.cos(theta) * k0 + np.sin(theta) * ax
+    gs = [rng.normal(size=(3, n)) for _ in range(3)]
+
+    def jax_vjp(dt):
+        a, b = (tuple(jnp.asarray(v.astype(dt)) for v in k) for k in (k0, k1))
+        _, pull = jax.vjp(jpp._local_basis_tile, a, b)
+        ga, gb = pull(tuple(tuple(jnp.asarray(v.astype(dt)) for v in g)
+                            for g in gs))
+        return np.asarray(jnp.stack(ga + gb), np.float64)
+
+    def port_vjp(dt):
+        a, b = (tuple(torch.tensor(v, dtype=dt) for v in k) for k in (k0, k1))
+        basis, aux = tpt._basis(a, b)
+        ga, gb = tpt._basis_adjoint(
+            a, b, basis, aux, *(tuple(torch.tensor(v, dtype=dt) for v in g)
+                                for g in gs))
+        return torch.stack(ga + gb).double().numpy()
+
+    return {(pkg, dt.__name__ if pkg == "jax" else str(dt)): f(dt)
+            for pkg, f, dts in (("jax", jax_vjp, (np.float32, np.float64)),
+                                ("port", port_vjp,
+                                 (torch.float32, torch.float64)))
+            for dt in dts}
+
+
+def test_k9_f32_basis_adjoint_loses_accuracy_as_the_reference_does():
+    """K9's f32 adjoint of the s/p basis s = k0 x k1 / |k0 x k1| divides
+    by |k0 x k1|, which nears 0 at near-normal incidence: at |k0 x k1| ~
+    1e-4 the float32 cotangents of k0 and k1 lose ~4 decimal digits
+    against float64, in the JAX package's kernel basis (jax.vjp of
+    ``_local_basis_tile``) as in the port's hand adjoint, by the same
+    amount (within a factor 2); at 0.3 rad both keep float32's accuracy.
+    In float64 the two agree to 1e-12. This pins the loss as the
+    reference's own: a K9 redesign must form the basis adjoint in closed
+    form, in the kernel and its plain version together."""
+    errs = {}
+    for theta in (1e-4, 0.3):
+        v = _basis_vjps(theta)
+        j64, p64 = v[("jax", "float64")], v[("port", "torch.float64")]
+        np.testing.assert_allclose(p64, j64, rtol=1e-12,
+                                   atol=1e-12 * np.abs(j64).max())
+        errs[theta] = [np.abs(v[k] - ref).max() / np.abs(ref).max()
+                       for k, ref in ((("jax", "float32"), j64),
+                                      (("port", "torch.float32"), p64))]
+    (ej, ep), (wj, wp) = errs[1e-4], errs[0.3]
+    assert ej > 1e-5 and ep > 1e-5, errs
+    assert 0.5 < ep / ej < 2.0, errs
+    assert wj < 1e-6 and wp < 1e-6 and ej > 100 * wj, errs

@@ -208,7 +208,7 @@ def test_system_from_numpy_matches(jax_cooke):
 def test_system_from_numpy_rejects_objects(jax_cooke, field):
     arrays, cfg = jax_to_numpy(jax_cooke)
     vals = list(cfg[field])
-    vals[2] = ("grating", 1) if field == "interactions" else object()
+    vals[2] = ("thin_lens",) if field == "interactions" else object()
     cfg[field] = tuple(vals)
     with pytest.raises(NotImplementedError, match=field):
         system_from_numpy(arrays, cfg)

@@ -7,8 +7,14 @@ of their kernels and the times of their merit and trace kernels.
       and write the tree's build names and nvcc's log to OUT;
   python3 tools/torch_build_compare.py ptxas OLD NEW
       match the kernels of two such logs by name, type, template flags
-      and build name (whatever number each tree gives a build) and print
+      (trailing false flags dropped) and build name (whatever number each
+      tree gives a build) and print
       how many have the same registers, stack frame and spills;
+  python3 tools/torch_build_compare.py sass OLD NEW
+      match the functions of the two logs' libraries in the same way and
+      print how many have the same machine code (``cuobjdump -sass``, the
+      hex encodings and the anonymous namespaces' hashes left out): the
+      exact check, where equal ptxas lines may still hide other code;
   python3 tools/torch_build_compare.py time ROOT TAG [--aux]
       time merit_fwd, merit_bwd, trace_fwd, trace_bwd, trace_field_fwd and
       trace_field_bwd of ROOT at 2^24 rays, float32 (median of 10 CUDA
@@ -29,6 +35,8 @@ coefficient table.
 import json
 import os
 import re
+import shutil
+import subprocess
 import sys
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -42,12 +50,34 @@ def build(root, out):
     suffix = launch.BUILD_SUFFIX
     names = dict(suffix.items() if isinstance(suffix, dict)
                  else enumerate(suffix))
-    _cuda.library()
+    lib = _cuda.library()
     with open(out, "w") as f:
         f.write("builds " + json.dumps(
             {b: s[1:] or "stock" for b, s in names.items()}) + "\n")
+        f.write(f"library {os.path.abspath(lib._name)}\n")
         f.write(f"nvcc {_cuda.BUILD_SECONDS:.1f} s\n" + _cuda.BUILD_LOG)
     print(root, "built in", round(_cuda.BUILD_SECONDS, 1), "s", flush=True)
+
+
+# an anonymous namespace's mangled name: its hashes differ between trees
+ANON = re.compile(r"_GLOBAL__N__[0-9a-f]{8}_(\d+_\w+?_cu)_[0-9a-f]{8}")
+
+
+def kernel_key(mangled, names):
+    """(kernel, type, template flags, build name) of a mangled kernel name,
+    or the name without its namespace's hashes for another function."""
+    mm = re.search(r"\d([a-z_]+_kernel)I([fd])((?:L[bi]\d+E)*)E", mangled)
+    if mm is None:
+        return ANON.sub(r"ANON_\1", mangled)
+    name, targs = mm.group(1), re.findall(r"L[bi]\d+", mm.group(3))
+    if name.startswith(("trace_", "pol_", "merit_")) and targs:
+        targs[-1] = names.get(int(targs[-1][2:]), targs[-1])
+    else:
+        # a template flag added later, false by default, leaves the kernel
+        # the tree without it had
+        while targs and targs[-1] == "Lb0":
+            targs.pop()
+    return (name, mm.group(2), tuple(targs))
 
 
 def parse(path):
@@ -59,16 +89,7 @@ def parse(path):
             continue
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            mm = re.search(r"\d([a-z_]+_kernel)I([fd])((?:L[bi]\d+E)*)E",
-                           m.group(1))
-            if mm is None:
-                cur = m.group(1)
-            else:
-                name, targs = mm.group(1), re.findall(r"L[bi]\d+",
-                                                      mm.group(3))
-                if name.startswith(("trace_", "pol_", "merit_")) and targs:
-                    targs[-1] = names.get(int(targs[-1][2:]), targs[-1])
-                cur = (name, mm.group(2), tuple(targs))
+            cur = kernel_key(m.group(1), names)
             entries[cur] = []
         elif cur is not None and ("registers" in line
                                   or "stack frame" in line):
@@ -92,6 +113,48 @@ def ptxas(old, new):
           f"missing, {sum(k not in a for k in b)} only in {new}")
     for line in diffs:
         print("  " + line)
+
+
+def sass_of(log):
+    """{(source, function key): machine code lines} of a log's library."""
+    names, lib = {}, None
+    for line in open(log):
+        if line.startswith("builds "):
+            names = {int(k): v for k, v in json.loads(line[7:]).items()}
+        elif line.startswith("library "):
+            lib = line.split(" ", 1)[1].strip()
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    text = subprocess.run([tool, "-sass", lib], capture_output=True,
+                          text=True, check=True).stdout
+    funcs, cur = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            src = ANON.search(m.group(1))
+            cur = (src.group(1) if src else "", kernel_key(m.group(1), names))
+            funcs[cur] = []
+        elif cur is not None and re.match(r"\s*/\*[0-9a-f]{4,}\*/", line):
+            code = re.sub(r"/\* 0x[0-9a-f]+ \*/", "", line)
+            funcs[cur].append(ANON.sub(r"ANON_\1", code).strip())
+    return funcs
+
+
+def sass(old, new):
+    a, b = sass_of(old), sass_of(new)
+    same = [k for k in a if k in b and a[k] == b[k]]
+    diff = [k for k in a if k in b and a[k] != b[k]]
+    gone = [k for k in a if k not in b]
+    print(f"sass: {len(same)} functions identical, {len(diff)} differ, "
+          f"{len(gone)} missing in {new}, {sum(k not in a for k in b)} only "
+          f"in {new}")
+    for k in diff:
+        i = next((i for i, (x, y) in enumerate(zip(a[k], b[k])) if x != y),
+                 min(len(a[k]), len(b[k])))
+        n = sum(x != y for x, y in zip(a[k], b[k]))
+        print(f"  differs {k}: {len(a[k])} -> {len(b[k])} instructions, "
+              f"{n} differ, the first: {a[k][i:i + 1]} -> {b[k][i:i + 1]}")
+    for k in gone:
+        print(f"  missing {k}")
 
 
 def time_tree(root, tag, aux):
@@ -213,6 +276,8 @@ def main(argv):
         build(argv[1], argv[2])
     elif len(argv) == 3 and argv[0] == "ptxas":
         ptxas(argv[1], argv[2])
+    elif len(argv) == 3 and argv[0] == "sass":
+        sass(argv[1], argv[2])
     elif len(argv) >= 3 and argv[0] == "time":
         time_tree(argv[1], argv[2], "--aux" in argv[3:])
     else:
