@@ -93,7 +93,21 @@ to 0 just before it and read just after:
     and generic value+grad steps of the three golden lenses at full width
     over every stack leaf (the period's and groove angle's gradients
     finite and nonzero), and the grat kernels on each lens timed against
-    their f32 plain versions with their bounds (rows tagged with the lens).
+    their f32 plain versions with their bounds (rows tagged with the lens);
+  * the NURBS steps (phases 27-28): the nurbs build of every trace kernel
+    (K6d, the two-plane (u, v) solve on a NURBS net; its own sources
+    ``csrc/nurbs_*.cu``) on the three lenses of ``samples/nurbs.py`` and
+    the tilted rational one against their plain versions at check size in
+    f64 to 1e-11 per ray and per gradient column (the net's 4 nu nv
+    columns included) and in f32 against the f64 plain versions, the poly
+    mode on the rational lens, K8/K9 on its Fresnel-coated variant, and a
+    NURBS surface beside an asphere raising on the card with no launch;
+    then the merit, field and generic value+grad steps of the golden
+    rational and conic-fit lenses at full width over every stack leaf
+    (the net's gradient finite and nonzero), the poly and polarized steps
+    of the rational lens, and each nurbs kernel's full-width launch held
+    against its f32 plain version chunk by chunk (2^22 rays each) and
+    timed against it, with its bound (rows tagged with the lens).
 
 It prints:
 
@@ -330,20 +344,69 @@ OPS_GRAT_ADJ = {0: 114,  # the diffraction's adjoint 109 (the cotangents of
 #                          two cross products 18, the tangent's norm 13, dz/
 #                          dxi 11, tan 3, the root and its clamp 20, the raw
 #                          normal's cotangent 3)
+# Operations per ray of a NURBS surface (K6d, code 12) in the NURBS build,
+# counted from csrc/nurbs_step.cuh as above for degrees (p, q): what the
+# function needs on the ray's span, not the columns the kernel sweeps. A
+# basis entry of the Cox-de Boor triangle (p (p + 3) / 2 per direction,
+# the derivatives carried along) is 2 knot differences, 2 divides, the
+# value 3 and the first derivative 6 (20 with the reciprocals), 26 with
+# the second; a control point of the span adds its products b, b_u, b_v
+# (3) and per sum W b and its 4 FMAs (8: 3 sums, 6 with the second
+# derivatives); the quotient S, S_u, S_v 20 (50 with the second
+# derivatives). The forward: the planes 30, the corner guess 10, then
+# newton_iters + 1 steps (an evaluation and the residuals 30, det 3,
+# clamp 2, du and dv 8, clips 4: 47) and the point's evaluation, t 8 and
+# the normal 22, in place of the plane's intersection (4). The adjoint:
+# the corrected point's second-order evaluation, the chain back through
+# the normal, t, the clip, the correction and the planes (150), and per
+# control point of the span at both points its 4 columns (30 each point).
+OPS_NU_ENTRY = (20, 26)
+OPS_NU_CTRL = (27, 54)
+OPS_NU_QUOT = (20, 50)
+OPS_NU_STEP = 47
+OPS_NU_FWD_BASE = 30 + 10 + 8 + 22 - 4
+OPS_NU_ADJ = 150
+OPS_NU_COL = 60
+
+
+def nurbs_ops(net, niters):
+    """(forward, adjoint) operations per ray of a NURBS surface's geometry
+    beyond the plane step's (OPS_FWD_PLANE, OPS_STEP_ADJ[0])."""
+    _, _, _, p, q, _, _ = net
+    ctrl = (p + 1) * (q + 1)
+    tri = p * (p + 3) // 2 + q * (q + 3) // 2
+
+    def point(o):
+        return OPS_NU_ENTRY[o] * tri + OPS_NU_CTRL[o] * ctrl + OPS_NU_QUOT[o]
+
+    fwd = OPS_NU_FWD_BASE + (niters + 1) * (point(0) + OPS_NU_STEP) + point(0)
+    return fwd, point(1) + OPS_NU_ADJ + OPS_NU_COL * ctrl
+
+
 POL_NAMES = ("pol_fwd", "pol_fwd_intensity", "pol_bwd", "pol_bwd_intensity")
 # the golden grating lenses of phase 26 (samples/grating.py)
 GRAT_NAMES = ("plane_grating", "curved_grating", "refl_grating")
+# the NURBS lenses of phase 28 (samples/nurbs.py: the golden rational net
+# and the golden conic fit), and the nurbs build's sources by kernel family
+NURBS_TAGS = ("rational", "fitted")
+NURBS_SOURCES = {"merit": "optiland_torch/csrc/nurbs_merit.cu",
+                 "trace": "optiland_torch/csrc/nurbs_trace.cu",
+                 "pol": "optiland_torch/csrc/nurbs_pol.cu"}
 NEWTON_CODES = (2, 3, 4, 5, 6, 7, 8, 9, 10)  # radial and Cartesian families
 
 
-def geo_ops(code, nc, niters, grating=False):
+def geo_ops(code, nc, niters, grating=False, net=None):
     """(forward, adjoint) operations per ray of one surface step's geometry
     by its code: PLANE and STANDARD as counted above (a ``grating`` one
     diffracting in place of the refraction), a Newton family
     (codes 2, 3 radial; 4, 5, 7, 8 Cartesian; 6, 9, 10 aux-bearing, nc the
     slots of the laid-out table) with its newton_iters + 1 steps and nc
-    coefficients. The adjoint excludes the recomputed forward
+    coefficients, a NURBS surface (12) of net structure ``net``
+    (nurbs_ops). The adjoint excludes the recomputed forward
     (OPS_STEP_ADJ)."""
+    if code == 12:
+        fwd, adj = nurbs_ops(net, niters)
+        return OPS_FWD_PLANE + fwd, OPS_STEP_ADJ[0] + adj
     if grating:
         fwd, adj = geo_ops(code, nc, niters)
         return (fwd - OPS_REFRACT[0] + OPS_GRAT_FWD[code],
@@ -561,9 +624,15 @@ def main(argv=None):
     from optiland_torch.ops import launch as launch_build
     from optiland_torch.core import trace as trace_core
     from optiland_torch.samples import (
-        AsphericSinglet, CookeTriplet, freeform, grating, perturbed,
+        AsphericSinglet, CookeTriplet, freeform, grating, nurbs, perturbed,
         registry,
     )
+
+    # the NURBS lenses of phases 27-28 (samples/nurbs.py)
+    NURBS_LENSES = {"rational": nurbs.rational_nurbs,
+                    "fitted": nurbs.fitted_nurbs,
+                    "bspline": nurbs.bspline_nurbs,
+                    "tilted": nurbs.tilted_nurbs}
 
     def reset_counts():
         ft.reset_launch_counts()
@@ -914,8 +983,12 @@ def main(argv=None):
              for _ in range(8)]
     del rays8
 
-    def time_ms(fn, reps, per_event=1):
-        fn(0)
+    def time_ms(fn, reps, per_event=1, warm=False):
+        """Median ms of ``fn`` over ``reps`` timed runs of ``per_event``
+        calls each, after one warm-up call unless ``warm`` (the caller has
+        just run it)."""
+        if not warm:
+            fn(0)
         torch.cuda.synchronize()
         ev0 = torch.cuda.Event(enable_timing=True)
         ev1 = torch.cuda.Event(enable_timing=True)
@@ -961,6 +1034,41 @@ def main(argv=None):
         return max(float((u.double() - v.double()).abs().max())
                    / max(float(v.abs().max()), top, 1e-300)
                    for u, v in zip(a, b))
+
+    def chunk_spans(chunk):
+        """The full width's spans of ``chunk`` rays (None: one span)."""
+        Rk = chunk or Rf
+        return [(k * Rk, (k + 1) * Rk) for k in range(Rf // Rk)]
+
+    def chunked_fwd(out_k, outs, spans, what, flip_rate=1e-4):
+        """A full-width forward's arrays ``out_k`` against the plain
+        version's ``outs`` over ``spans``, chunk by chunk (near32, up to
+        ``flip_rate`` of each chunk's rays flipping in intensity); returns
+        max |kernel - plain|."""
+        e = 0.0
+        for k, ((a, b), o) in enumerate(zip(spans, outs)):
+            got = [t[a:b] for t in out_k]
+            near32(got, o, f"{what}, chunk {k}", int((b - a) * flip_rate))
+            e = max(e, max_abs(got, o))
+        return e
+
+    def chunked_bwd(din_k, outs, spans, floor=1e-6):
+        """A full-width adjoint's input cotangents ``din_k`` against the
+        plain version's (din, flat) ``outs`` over ``spans``, chunk by
+        chunk: (arr_err of the whole arrays with ``floor``, max |kernel -
+        plain|, the plain version's flat gradient summed over the
+        chunks)."""
+        d_max, r_max = [0.0] * len(din_k), [0.0] * len(din_k)
+        flat = None
+        for (a, b), (din_c, fl_c) in zip(spans, outs):
+            for j, (u, v) in enumerate(zip(din_k, din_c)):
+                d_max[j] = max(d_max[j], float(
+                    (u[a:b].double() - v.double()).abs().max()))
+                r_max[j] = max(r_max[j], float(v.abs().max()))
+            flat = fl_c if flat is None else flat + fl_c
+        top = floor * max(r_max)
+        return (max(d / max(r, top, 1e-300) for d, r in zip(d_max, r_max)),
+                max(d_max), flat)
 
     with torch.no_grad():
         # kernel vs plain at the paths' shapes (f32, 2^24 rays)
@@ -1864,23 +1972,20 @@ def main(argv=None):
         cots_p = [torch.randn(Rf, generator=gen15, device=dev) / Rf
                   for _ in range(pt.N_POL)]
         st_h = pt.pol_states(STATE_H)
-        nchunk = 4
-        cs = Rf // nchunk
+        spans = chunk_spans(Rf // 4)
 
         def chunked_plain(kind, intensity, i=0):
-            """The plain version over the chunks: the outputs and the
-            summed flat gradient (fwd: per-ray arrays; bwd: (din,
-            flat))."""
+            """The plain version over the chunks: the outputs (fwd: per-ray
+            arrays; bwd: (din, flat))."""
             outs = []
-            for k in range(nchunk):
-                sl_ = slice(k * cs, (k + 1) * cs)
-                ins_c = [t[sl_] for t in ins_p]
+            for a, b in spans:
+                ins_c = [t[a:b] for t in ins_p]
                 if kind == "fwd":
                     outs.append(pt.pol_fwd_plain(pp, coat_p, spec_p, ins_c,
                                                  st_h, intensity, cf_p,
                                                  lay_p))
                 else:
-                    c = [t[sl_] for t in (cots_p[:8] if intensity
+                    c = [t[a:b] for t in (cots_p[:8] if intensity
                                           else cots_p)]
                     outs.append(pt.pol_bwd_plain(pp, coat_p, spec_p, ins_c,
                                                  c, st_h, intensity, cf_p,
@@ -1907,33 +2012,19 @@ def main(argv=None):
                 c = cots_p[:8] if intensity else cots_p
                 out_k = pt.pol_fwd(pp, coat_p, spec_p, ins_p, st_h,
                                    intensity, cf_p, lay_p)
-                e = 0.0
-                for k, o in enumerate(chunked_plain("fwd", intensity)):
-                    sl_ = slice(k * cs, (k + 1) * cs)
-                    got_c = [a[sl_] for a in out_k]
-                    near32(got_c, o, f"{name} full width, chunk {k}",
-                           0 if intensity and not tilt else cs // 10_000)
-                    e = max(e, max_abs(got_c, o))
-                kerr[name] = e
-                del out_k, got_c
+                kerr[name] = chunked_fwd(
+                    out_k, chunked_plain("fwd", intensity), spans,
+                    f"{name} full width",
+                    0.0 if intensity and not tilt else 1e-4)
+                del out_k
                 din_k, fl_k = pt.pol_bwd(pp, coat_p, spec_p, nc_p, ins_p, c,
                                          st_h, intensity, cf_p, lay_p)
-                fl_sum = None
-                d_max, r_max = [0.0] * 8, [0.0] * 8
-                for k, (din_c, fl_c) in enumerate(chunked_plain("bwd",
-                                                                intensity)):
-                    sl_ = slice(k * cs, (k + 1) * cs)
-                    for j, (a, b) in enumerate(zip(din_k, din_c)):
-                        d_max[j] = max(d_max[j],
-                                       float((a[sl_] - b).abs().max()))
-                        r_max[j] = max(r_max[j], float(b.abs().max()))
-                    fl_sum = fl_c if fl_sum is None else fl_sum + fl_c
-                errs[bname] = max(d / max(r, 1e-300)
-                                  for d, r in zip(d_max, r_max))
+                errs[bname], din_abs, fl_sum = chunked_bwd(
+                    din_k, chunked_plain("bwd", intensity), spans, 0.0)
                 check(errs[bname] <= 1e-3, f"{bname} full width: input "
                       f"cotangents, max |d| / max |ref| {errs[bname]} > "
                       f"1e-3")
-                kerr[bname] = max(max(d_max),
+                kerr[bname] = max(din_abs,
                                   float((fl_k - fl_sum).abs().max()))
                 g_l2 = l2(fl_k, fl_sum)
                 check(g_l2 <= 1e-3, f"{bname} full width: gradient L2 rel "
@@ -1966,17 +2057,19 @@ def main(argv=None):
             {k: round(plain_ms[k], 2) for k in POL_NAMES},
             {k: float(f"{kerr[k]:.4g}") for k in POL_NAMES}))
 
-    def pol_ops(spec_k, n_states, nc_k=1):
+    def pol_ops(spec_k, n_states, nc_k=1, nets=None):
         """Operations per ray of (pol_fwd, pol_fwd_intensity, pol_bwd,
         pol_bwd_intensity) for the kernels' spec, surface by surface: its
-        geometry code (``geo_ops``, nc_k coefficients), absorption, coat
+        geometry code (``geo_ops``, nc_k coefficients, a NURBS surface's
+        structure from ``nets``, its system's geom_aux), absorption, coat
         kind and tilt."""
+        nets = nets or (None,) * len(spec_k[0])
         codes, _, absorbs, kinds, layers, tilted = spec_k[:6]
         names = {pt.NONE: "none", pt.SIMPLE: "simple", pt.FRESNEL: "fresnel",
                  pt.POLARIZER: "polarizer", pt.RETARDER: "retarder"}
         fwd = adj = 0
         for s in range(1, len(codes)):
-            g_f, g_a = geo_ops(codes[s], nc_k, spec_k[-1])
+            g_f, g_a = geo_ops(codes[s], nc_k, spec_k[-1], net=nets[s])
             if kinds[s] == pt.TMM:
                 jones = OPS_TMM_BASE + OPS_TMM_LAYER * layers[s]
                 jones_adj = OPS_TMM_ADJ_BASE + OPS_TMM_ADJ_LAYER * layers[s]
@@ -2768,12 +2861,14 @@ def main(argv=None):
     def bound_ms_of(ops, nbytes):
         return max(ops / PEAK_F32_OPS, nbytes / PEAK_BYTES) * 1e3
 
-    def trace_work(spec_k, mspec_k, nc_k, R):
+    def trace_work(spec_k, mspec_k, nc_k, R, nets=None):
         """(operations, bytes) at R rays of the six kernels of a system's
         build (keys with its launch suffixes), counted per surface from its
         geometry code, tilt, absorption and build, as phase 8 counts the
         stock triplet's; a Newton surface counts its newton_iters + 1
-        forward steps and its adjoint (OPS_NEWTON_*)."""
+        forward steps and its adjoint (OPS_NEWTON_*), a NURBS surface its
+        solve on its structure in ``nets`` (nurbs_ops)."""
+        nets = nets or (None,) * len(spec_k[0])
         codes, absorbs, tilted = spec_k[0], spec_k[2], spec_k[3]
         niters, grat = spec_k[-1], ftr._grat(spec_k)
         build = ftr._build(spec_k)
@@ -2783,21 +2878,22 @@ def main(argv=None):
         n_sag = len(launch_build.sag_surfaces(codes, build, grat))
         ncb = launch_build.block_width(nc_k, build)
 
-        def fwd(c, g):
-            return geo_ops(c, nc_k, niters, g)[0]
+        def fwd(c, g, net):
+            return geo_ops(c, nc_k, niters, g, net)[0]
 
-        def bwd(c, g):
-            if c in NEWTON_CODES:
-                return sum(geo_ops(c, nc_k, niters))
+        def bwd(c, g, net):
+            if c in NEWTON_CODES or c == 12:
+                return sum(geo_ops(c, nc_k, niters, net=net))
             base = OPS_BWD_STANDARD if c == 1 else OPS_BWD_PLANE
             # a grating: its forward and adjoint for the refraction's
             return base + ((OPS_GRAT_FWD[c] + OPS_GRAT_ADJ[c]
                             - sum(OPS_REFRACT)) if g else 0)
 
-        geo_f = sum(fwd(c, g) + OPS_TILT_FWD * t
-                    for c, t, g in zip(codes[1:], tilted[1:], grat[1:]))
-        geo_b = sum(bwd(c, g) + (OPS_TILT_FWD + OPS_TILT_ADJ) * t
-                    for c, t, g in zip(codes[1:], tilted[1:], grat[1:]))
+        geo_f = sum(fwd(c, g, n) + OPS_TILT_FWD * t for c, t, g, n in zip(
+            codes[1:], tilted[1:], grat[1:], nets[1:]))
+        geo_b = sum(bwd(c, g, n) + (OPS_TILT_FWD + OPS_TILT_ADJ) * t
+                    for c, t, g, n in zip(codes[1:], tilted[1:], grat[1:],
+                                          nets[1:]))
         ann = OPS_ANNULAR if build & launch_build.BIT_SAG else 0
         full_f = geo_f + (S_k - 1) * (OPS_FULL_FWD + ann) + OPS_ABS_FWD * sum(
             absorbs[1:])
@@ -3141,14 +3237,19 @@ def main(argv=None):
     # the sag build (tilted asphere) and the deep build (ObjectiveUS008879901)
     # of each kernel at full width, on the generic path's launch bundle and
     # cotangents of a mean's size: held against the f32 plain versions on
-    # the inputs they are timed on, timed, with their bounds
-    def kernels_full_width(sys32, field, suf, gen, full, tag=""):
+    # the launches they are timed on, timed, with their bounds
+    def kernels_full_width(sys32, field, suf, gen, full, tag="", chunk=None):
         """The merit and trace kernels of ``sys32``'s build (launch suffix
         ``suf``) at full width, on the generic path's launch bundle and
-        cotangents of a mean's size: held against the f32 plain versions on
-        the inputs they are timed on (errors into ``full`` and kerr), timed
-        (ms, plain_ms), with their bounds (work), under each kernel's launch
-        key and ``tag``."""
+        cotangents of a mean's size: each full-width launch held against
+        the f32 plain versions chunk by chunk (errors into ``full`` and
+        kerr), timed (ms, plain_ms), with their bounds (work), under each
+        kernel's launch key and ``tag``. The plain versions run over the
+        full width in chunks of ``chunk`` rays (None: one chunk; the NURBS
+        build's plain versions at full width would not fit): the per-ray
+        outputs are compared chunk by chunk and the gradients summed over
+        the chunks. The comparison's run is the warm-up of the plain
+        versions' timing (one timed run where chunked, else two)."""
         spec_k = ftr.fast_spec(sys32, field=True)
         mspec_k = ft._spec_of(sys32)
         check(launch_suffix(ftr._build(spec_k)) == suf,
@@ -3158,14 +3259,39 @@ def main(argv=None):
         _, pk, ak, _, ins8, cots8 = k6_inputs(sys32, field, Px8, Py8, gen)
         ck, lk = launch_build.kernel_tables(sys32, torch.float32)
         nck = ck.shape[1]
+        spans = chunk_spans(chunk)
+        Rk = spans[0][1]
+        reps = 1 if chunk else 2
         mname = "merit_fwd" + launch_suffix(ft._build(mspec_k)) + tag
         bname = "merit_bwd" + launch_suffix(ft._build(mspec_k)) + tag
         suf = suf + tag
+        stats_t = None
+        # each kernel's plain version over the spans (fn(i): seed i)
+        plain = {
+            mname: lambda i: [ft.merit_fwd_plain(
+                pk, ak, mspec_k, Rk, seed=i, offset=a, coeffs=ck, lay=lk)
+                for a, b in spans],
+            bname: lambda i: [ft.merit_bwd_plain(
+                pk, ak, stats_t, mspec_k, nck, Rk, seed=i, offset=a,
+                coeffs=ck, lay=lk) for a, b in spans],
+            "trace_fwd" + suf: lambda i: [ftr.trace_fast_plain(
+                pk, spec_k, [t[a:b] for t in ins8], ck, lk)
+                for a, b in spans],
+            "trace_bwd" + suf: lambda i: [ftr.trace_fast_bwd_plain(
+                pk, spec_k, nck, [t[a:b] for t in ins8],
+                [t[a:b] for t in cots8], ck, lk) for a, b in spans],
+            "trace_field_fwd" + suf: lambda i: [ftr.trace_fast_field_plain(
+                pk, ak, spec_k, Px8[a:b], Py8[a:b], ck, lk)
+                for a, b in spans],
+            "trace_field_bwd" + suf: lambda i: [
+                ftr.trace_fast_field_bwd_plain(
+                    pk, ak, spec_k, nck, Px8[a:b], Py8[a:b],
+                    [t[a:b] for t in cots8], ck, lk) for a, b in spans],
+        }
         with torch.no_grad():
             rows_t = ft.merit_fwd(pk, ak, mspec_k, Rf, seed=9, coeffs=ck,
                                   lay=lk)
-            rows_p = ft.merit_fwd_plain(pk, ak, mspec_k, Rf, seed=9,
-                                        coeffs=ck, lay=lk)
+            rows_p = torch.cat(plain[mname](9))
             kerr[mname] = float((rows_t - rows_p).abs().max())
             lt, xbt, ybt = ft._chan_combine(rows_t, Rf)
             full[f"{mname}_loss_rel"] = rel(lt, ft._chan_combine(
@@ -3178,37 +3304,34 @@ def main(argv=None):
                                    torch.zeros((), device=dev)])
             fk = ft.merit_bwd(pk, ak, stats_t, mspec_k, nck, Rf, seed=9,
                               coeffs=ck, lay=lk)
-            fp = ft.merit_bwd_plain(pk, ak, stats_t, mspec_k, nck, Rf,
-                                    seed=9, coeffs=ck, lay=lk)
+            fp = sum(plain[bname](9))
             kerr[bname] = float((fk - fp).abs().max())
             full[f"{bname}_l2"] = l2(fk, fp)
             del fk, fp
             k5a = ftr.trace_fwd(pk, spec_k, ins8, ck, lk)
-            ref = ftr.trace_fast_plain(pk, spec_k, ins8, ck, lk)
-            kerr["trace_fwd" + suf] = max_abs(k5a, ref)
-            near32(k5a, ref, f"trace_fwd{suf} full width", Rf // 10_000)
+            kerr["trace_fwd" + suf] = chunked_fwd(
+                k5a, plain["trace_fwd" + suf](0), spans,
+                f"trace_fwd{suf} full width")
+            del k5a
             k1 = ftr.trace_field_fwd(pk, ak, spec_k, Px8, Py8, ck, lk)
-            ref = ftr.trace_fast_field_plain(pk, ak, spec_k, Px8, Py8, ck, lk)
-            kerr["trace_field_fwd" + suf] = max_abs(k1, ref)
-            near32(k1, ref, f"trace_field_fwd{suf} full width",
-                   Rf // 10_000)
-            del k5a, k1, ref
+            kerr["trace_field_fwd" + suf] = chunked_fwd(
+                k1, plain["trace_field_fwd" + suf](0), spans,
+                f"trace_field_fwd{suf} full width")
+            del k1
             din_k, flat_k = ftr.trace_bwd(pk, spec_k, nck, ins8, cots8, ck,
                                           lk)
-            din_p, flat_p = ftr.trace_fast_bwd_plain(pk, spec_k, nck, ins8,
-                                                     cots8, ck, lk)
+            din_e, din_abs, flat_p = chunked_bwd(
+                din_k, plain["trace_bwd" + suf](0), spans)
             kerr["trace_bwd" + suf] = max(float((flat_k - flat_p).abs().max()),
-                                          max_abs(din_k, din_p))
-            full[f"trace_bwd{suf}_din"] = arr_err(din_k, din_p, 1e-6)
-            check(full[f"trace_bwd{suf}_din"] <= 1e-3, f"trace_bwd{suf} "
-                  f"full width: input cotangents, max |d| / max |ref| "
-                  f"{full[f'trace_bwd{suf}_din']} > 1e-3")
+                                          din_abs)
+            full[f"trace_bwd{suf}_din"] = din_e
+            check(din_e <= 1e-3, f"trace_bwd{suf} full width: input "
+                  f"cotangents, max |d| / max |ref| {din_e} > 1e-3")
             full[f"trace_bwd{suf}_l2"] = l2(flat_k, flat_p)
-            del din_k, din_p
+            del din_k, flat_k, flat_p
             flat_k = ftr.trace_field_bwd(pk, ak, spec_k, nck, Px8, Py8,
                                          cots8, ck, lk)
-            flat_p = ftr.trace_fast_field_bwd_plain(pk, ak, spec_k, nck, Px8,
-                                                    Py8, cots8, ck, lk)
+            flat_p = sum(plain["trace_field_bwd" + suf](0))
             kerr["trace_field_bwd" + suf] = float(
                 (flat_k - flat_p).abs().max())
             full[f"trace_field_bwd{suf}_l2"] = l2(flat_k, flat_p)
@@ -3234,31 +3357,16 @@ def main(argv=None):
                     lambda i: ftr.trace_field_bwd(pk, ak, spec_k, nck, Px8,
                                                   Py8, cots8, ck, lk), 10, 3),
             })
-            plain_ms.update({
-                mname: time_ms(lambda i: ft.merit_fwd_plain(
-                    pk, ak, mspec_k, Rf, seed=i, coeffs=ck, lay=lk), 2),
-                bname: time_ms(lambda i: ft.merit_bwd_plain(
-                    pk, ak, stats_t, mspec_k, nck, Rf, seed=i, coeffs=ck,
-                    lay=lk), 2),
-                "trace_fwd" + suf: time_ms(lambda i: ftr.trace_fast_plain(
-                    pk, spec_k, ins8, ck, lk), 2),
-                "trace_bwd" + suf: time_ms(
-                    lambda i: ftr.trace_fast_bwd_plain(pk, spec_k, nck, ins8,
-                                                       cots8, ck, lk), 2),
-                "trace_field_fwd" + suf: time_ms(
-                    lambda i: ftr.trace_fast_field_plain(pk, ak, spec_k, Px8,
-                                                         Py8, ck, lk), 2),
-                "trace_field_bwd" + suf: time_ms(
-                    lambda i: ftr.trace_fast_field_bwd_plain(
-                        pk, ak, spec_k, nck, Px8, Py8, cots8, ck, lk), 2),
-            })
+            plain_ms.update({k: time_ms(fn, reps, warm=True)
+                             for k, fn in plain.items()})
         work.update({k + tag: v for k, v in
-                     trace_work(spec_k, mspec_k, nck, Rf).items()})
-        del ins8, cots8, Px8, Py8
+                     trace_work(spec_k, mspec_k, nck, Rf,
+                                sys32.cfg.geom_aux).items()})
+        del ins8, cots8, Px8, Py8, plain
         torch.cuda.synchronize()
 
     def poly_pol_full_width(sys_q, sys_c, suf, field, gen, names, steps,
-                            seed, pol_seed, full, tag=""):
+                            seed, pol_seed, full, tag="", chunk=None):
         """The poly mode and the polarized kernels (intensity mode) of build
         ``suf``: bench's poly step on ``sys_q`` (None: none) and its
         polarized step on ``sys_c``, three counted value+grad steps each
@@ -3297,24 +3405,28 @@ def main(argv=None):
             steps[name] = {"value": float(v_.detach()),
                            "launches": {k: v for k, v in got.items() if v}}
         if sys_q is not None:
-            poly_full_width(sys_q, suf, field, gen, full, tag)
+            poly_full_width(sys_q, suf, field, gen, full, tag, chunk)
         spec_c, pol_errs = pol_full_width(sys_c, (True,), pol_seed, tag)
         full.update(pol_errs)
         with torch.no_grad():
             nc_c = launch_build.kernel_tables(sys_c, torch.float32)[0].shape[1]
-        _, ops_fi, _, ops_bi = pol_ops(spec_c, n_h, nc_c)
+        _, ops_fi, _, ops_bi = pol_ops(spec_c, n_h, nc_c,
+                                       sys_c.cfg.geom_aux)
         work["pol_fwd_intensity" + suf + tag] = (
             Rf * ops_fi, work["pol_fwd_intensity"][1])
         work["pol_bwd_intensity" + suf + tag] = (
             Rf * ops_bi, work["pol_bwd_intensity"][1])
 
-    def poly_full_width(sys_q, suf, field, gen, full, tag=""):
+    def poly_full_width(sys_q, suf, field, gen, full, tag="", chunk=None):
         """The poly mode's kernels of build ``suf`` at full width on
-        ``sys_q`` against their f32 plain versions, timed, with their
-        bounds (poly_pol_full_width)."""
+        ``sys_q`` against their f32 plain versions chunk by chunk, timed,
+        with their bounds (poly_pol_full_width); ``chunk`` as
+        kernels_full_width's."""
         spec_q = ftr.poly_spec(sys_q)
         fname = "trace_fwd_poly" + suf + tag
         bname = "trace_bwd_poly" + suf + tag
+        spans = chunk_spans(chunk)
+        reps = 1 if chunk else 2
         with torch.no_grad():
             pq = ftr.build_poly_table(sys_q).contiguous()
             Pxq, Pyq = ft.prng_disk(17, Rf, 0, torch.float32, dev)
@@ -3327,30 +3439,37 @@ def main(argv=None):
             del rays, Pxq, Pyq
             cots_q = [torch.randn(Rf, generator=gen, device=dev) / Rf
                       for _ in range(8)]
+
+            # the plain versions over the spans
+            def fwd_plain(i):
+                return [ftr.trace_fwd_poly_plain(
+                    pq, mq, spec_q, [t[a:b] for t in ins_q], cq, lq)
+                    for a, b in spans]
+
+            def bwd_plain(i):
+                return [ftr.trace_bwd_poly_plain(
+                    pq, mq, spec_q, ncq, [t[a:b] for t in ins_q],
+                    [t[a:b] for t in cots_q], cq, lq) for a, b in spans]
+
             k5a = ftr.trace_fwd_poly(pq, mq, spec_q, ins_q, cq, lq)
-            ref = ftr.trace_fwd_poly_plain(pq, mq, spec_q, ins_q, cq, lq)
-            kerr[fname] = max_abs(k5a, ref)
-            near32(k5a, ref, f"{fname} full width")
-            del k5a, ref
+            kerr[fname] = chunked_fwd(k5a, fwd_plain(0), spans,
+                                      f"{fname} full width", 0.0)
+            del k5a
             din_k, flat_k = ftr.trace_bwd_poly(pq, mq, spec_q, ncq, ins_q,
                                                cots_q, cq, lq)
-            din_p, flat_p = ftr.trace_bwd_poly_plain(pq, mq, spec_q, ncq,
-                                                     ins_q, cots_q, cq, lq)
-            kerr[bname] = max(float((flat_k - flat_p).abs().max()),
-                              max_abs(din_k, din_p))
-            full[f"{bname}_din"] = arr_err(din_k, din_p, 1e-6)
+            din_e, din_abs, flat_p = chunked_bwd(din_k, bwd_plain(0), spans)
+            kerr[bname] = max(float((flat_k - flat_p).abs().max()), din_abs)
+            full[f"{bname}_din"] = din_e
             full[f"{bname}_l2"] = l2(flat_k, flat_p)
             check(full[f"{bname}_din"] <= 1e-3 and full[f"{bname}_l2"] <= 1e-3,
                   f"{bname} full width: {full}")
-            del din_k, din_p, flat_k, flat_p
+            del din_k, flat_k, flat_p
             ms[fname] = time_ms(lambda i: ftr.trace_fwd_poly(
                 pq, mq, spec_q, ins_q, cq, lq), 10, 3)
             ms[bname] = time_ms(lambda i: ftr.trace_bwd_poly(
                 pq, mq, spec_q, ncq, ins_q, cots_q, cq, lq), 10, 3)
-            plain_ms[fname] = time_ms(lambda i: ftr.trace_fwd_poly_plain(
-                pq, mq, spec_q, ins_q, cq, lq), 2)
-            plain_ms[bname] = time_ms(lambda i: ftr.trace_bwd_poly_plain(
-                pq, mq, spec_q, ncq, ins_q, cots_q, cq, lq), 2)
+            plain_ms[fname] = time_ms(fwd_plain, reps, warm=True)
+            plain_ms[bname] = time_ms(bwd_plain, reps, warm=True)
         del ins_q, cots_q
         # the formulas' operations as phase 17 counts them, over the build's
         # geometry (no absorption in the poly mode)
@@ -3359,7 +3478,8 @@ def main(argv=None):
         evals = [0] + [s_ for s_ in range(1, S_q) if not spec_q[1][s_]]
         f_f = sum(formula_ops(spec_q[4][s_], nm)[0] for s_ in evals)
         f_b = f_f + sum(formula_ops(spec_q[4][s_], nm)[1] for s_ in evals)
-        tw = trace_work(spec_q, ft._spec_of(sys_q), ncq, Rf)
+        tw = trace_work(spec_q, ft._spec_of(sys_q), ncq, Rf,
+                        sys_q.cfg.geom_aux)
         n_abs = sum(spec_q[2][1:])
         work[fname] = (tw["trace_fwd" + suf][0] + Rf * (f_f - n_abs
                                                         * OPS_ABS_FWD),
@@ -4043,6 +4163,173 @@ def main(argv=None):
         f"{ {k: round(bound_ms_of(*work[k]), 4) for k in grat_names} }; "
         f"phase 26 wall {time.perf_counter() - t26:.1f} s")
 
+    # ---- phase 27: K6d, NURBS surfaces, at check size (f64) ----
+    # the nurbs build of every trace kernel against its plain version on
+    # the three lenses of samples/nurbs.py (the golden rational net, the
+    # golden conic fit, the B-spline paraboloid) and the tilted rational
+    # one at (Hx, Hy) = (0.3, 0.7): per-ray arrays and every gradient
+    # column (the net's 4 nu nv columns included) to 1e-11, trace_fwd/
+    # trace_bwd in f32 against the f64 plain versions; the poly mode on the
+    # rational lens; K8/K9 (both modes) on its Fresnel-coated variant; a
+    # NURBS surface beside an asphere raises on the card and launches
+    # nothing
+    t27 = time.perf_counter()
+    config.set_precision("float64")
+    res27 = {}
+    for nname, builder in NURBS_LENSES.items():
+        res27[nname] = free_parity(nname, builder().system,
+                                   launch_build.NURBS, "phase 27", f32=True,
+                                   rows=[1], poly=nname == "rational")
+    sys_n = nurbs.coated_nurbs("H").system
+    wl_n, pkn, _, _, ins, cots = k6_inputs(sys_n, HF, Px64, Py64, g21,
+                                           pt.N_POL)
+    cn, ln = launch_build.kernel_tables(sys_n, torch.float64)
+    spec_pn = pt.pol_spec(sys_n, wl_n)
+    check(spec_pn is not None and pt._build(spec_pn) == launch_build.NURBS,
+          "phase 27: the coated NURBS lens is not on the nurbs build")
+    coat_n = pt.build_coat_table(sys_n, wl_n, torch.float64, dev)
+    r = {}
+    for mode, states, intensity in (("full", None, False),
+                                    ("H", pt.pol_states(STATE_H), True)):
+        c = cots[:8] if intensity else cots
+        for key, v in pol_parity(pkn, coat_n, spec_pn, cn.shape[1], ins, c,
+                                 states, intensity,
+                                 f"coated rational NURBS {mode}", coeffs=cn,
+                                 lay=ln, f32_plain=True).items():
+            r[f"pol_{key}_{mode}"] = v
+        check(max(r[f"pol_{k}_{mode}"] for k in ("fwd", "bwd_din", "bwd"))
+              <= 1e-11, f"coated NURBS {mode}: {r}")
+    res27["coated"] = r
+    del ins, cots
+    # the refusal: the fitted lens with its back surface an even asphere
+    lens_n = nurbs.fitted_nurbs()
+    s2_ = lens_n.surfaces.surfaces[2]
+    s2_.surface_type, s2_.coefficients = "even_asphere", (1e-5, -2e-8)
+    lens_n._invalidate()
+    sys_na = lens_n.system
+    rays_na = raygen.generate_rays(sys_na, *HF, Px64[:4096], Py64[:4096], WL)
+    reset_counts()
+    refused27 = 0
+    for call in (lambda: trace_core.trace(sys_na, rays_na, record=False,
+                                          wavelength=WL),
+                 lambda: ft.spot_rms_fast_field(sys_na, *HF, WL,
+                                                Px=Px64[:4096],
+                                                Py=Py64[:4096])):
+        try:
+            call()
+        except NotImplementedError as e:
+            refused27 += "NURBS surface beside EVEN_ASPHERE" in str(e)
+    check(refused27 == 2 and not any(counts().values()),
+          f"phase 27: a NURBS surface beside an asphere ran on the card: "
+          f"{refused27} refusals, launches "
+          f"{ {k: v for k, v in counts().items() if v} }")
+    report["phases"]["nurbs_parity"] = res27
+    torch.cuda.synchronize()
+    log("phase 27 K8/K9 (coated rational NURBS lens, f64 vs plain tol 1e-11; "
+        "f32 as phase 14): " + ", ".join(f"{k} {v:.2e}" for k, v in r.items())
+        + f"; refusal beside an asphere on the card: {refused27} of 2 entry "
+        f"points raise, no launch; phase 27 wall "
+        f"{time.perf_counter() - t27:.1f} s")
+
+    # ---- phase 28: the NURBS lenses' steps at full width (f32) ----
+    # the merit, field and generic value+grad steps of the golden rational
+    # and conic-fit lenses at (Hx, Hy) = (0.3, 0.7) over every stack leaf
+    # (the net's gradient finite and nonzero), the poly step of the
+    # rational lens and the polarized step of its coated variant; then the
+    # nurbs build of each kernel at full width, timed, with its bound, the
+    # launch held against its f32 plain version chunk by chunk and the
+    # plain version timed over the full width in chunks of 2^22 rays (its
+    # per-ray net cotangents at 2^24 would not fit); rows tagged with the
+    # lens
+    t28 = time.perf_counter()
+    config.set_precision("float32")
+    steps28, full28 = {}, {}
+    nurbs32 = {}
+    chunk28 = min(Rf, 1 << 22)
+    for nname in NURBS_TAGS:
+        sys32 = NURBS_LENSES[nname]().system
+        nurbs32[nname] = sys32
+        for pname in ("merit", "field", "generic"):
+            loss_fn, kern = {
+                "merit": (merit22, ("merit_fwd_nurbs", "merit_bwd_nurbs")),
+                "field": (field22, ("prng_disk", "trace_field_fwd_nurbs",
+                                    "trace_field_bwd_nurbs")),
+                "generic": (generic22, ("prng_disk", "trace_fwd_nurbs",
+                                        "trace_bwd_nurbs"))}[pname]
+            name = f"{nname}_{pname}"
+            seed0 = 9900 + 100 * len(steps28)
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            sl, lv = leaf_system(sys32)
+            first = loss_fn(sl, seed0 - 100)
+            first.backward()
+            g_net = lv["coeffs"].grad[1]
+            check(bool(torch.isfinite(first))
+                  and all(bool(torch.isfinite(v.grad).all())
+                          for v in lv.values() if v.grad is not None)
+                  and bool((g_net != 0).any()), f"{name}: value "
+                  f"{float(first)} or a gradient not finite, or the net's "
+                  f"gradient 0")
+
+            def vg28(i, sysk=sys32, loss_fn=loss_fn):
+                s_, _ = leaf_system(sysk)
+                loss_fn(s_, i).backward()
+
+            times28 = timed(vg28, seed0)
+            got28 = counts()
+            n28 = 1 + 3 + args.steps
+            expect28 = {**dict.fromkeys(got28, 0),
+                        **dict.fromkeys(kern, n28)}
+            check(got28 == expect28, f"{name} launches {got28}, expected "
+                  f"{expect28}")
+            path_launches[name] = got28
+            step28 = float(np.median(times28))
+            steps28[name] = {"value": float(first.detach()),
+                             "step_ms": step28, "step_ms_all": times28,
+                             "launches": {k: v for k, v in got28.items()
+                                          if v},
+                             "steps": n28,
+                             "net_grad_max": float(g_net.abs().max())}
+            log(f"phase 28 {name}: {n28} value+grad steps over every stack "
+                f"leaf in {time.perf_counter() - t0:.1f} s, value "
+                f"{float(first.detach()):.9e}, max |d/d net| "
+                f"{float(g_net.abs().max()):.6e}; median step {step28:.3f} "
+                f"ms over {args.steps} steps; launches "
+                f"{ {k: v for k, v in got28.items() if v} }")
+    gen28 = torch.Generator(device=dev).manual_seed(280)
+    for nname in NURBS_TAGS:
+        kernels_full_width(nurbs32[nname], HF, "_nurbs", gen28, full28,
+                           tag=f"_{nname}", chunk=chunk28)
+    poly_pol_full_width(nurbs32["rational"], nurbs.coated_nurbs("H").system,
+                        "_nurbs", HF, gen28, ("rational_poly",
+                                              "rational_coated_pol"),
+                        steps28, 9990, 281, full28, tag="_rational",
+                        chunk=chunk28)
+    report["phases"]["nurbs_steps"] = steps28
+    report["phases"]["nurbs_full_width"] = full28
+    nurbs_names = [n + "_nurbs_" + t for t in NURBS_TAGS
+                   for n in ("merit_fwd", "merit_bwd", "trace_fwd",
+                             "trace_bwd", "trace_field_fwd",
+                             "trace_field_bwd")] + [
+        n + "_nurbs_rational" for n in ("trace_fwd_poly", "trace_bwd_poly",
+                                        "pol_fwd_intensity",
+                                        "pol_bwd_intensity")]
+    log(f"phase 28 nurbs kernels at 2^{args.full_log2} rays on the rational "
+        f"and conic-fit lenses (f32; poly mode on the rational lens, "
+        f"intensity mode on its coated variant) against the f32 plain "
+        f"versions chunk by chunk (2^22 rays each): forwards within "
+        f"2e-4 x max(1, max |ref|), input cotangents (tol 1e-3) and gradient "
+        f"L2 (tol 1e-3) "
+        f"{ {k: float(f'{v:.3e}') for k, v in full28.items()} }; max "
+        f"|kernel - plain| "
+        f"{ {k: float(f'{kerr[k]:.4g}') for k in nurbs_names} }; ms "
+        f"{ {k: round(ms[k], 4) for k in nurbs_names} }; plain ms (2^22-ray "
+        f"chunks) { {k: round(plain_ms[k], 2) for k in nurbs_names} }; "
+        f"bounds ms "
+        f"{ {k: round(bound_ms_of(*work[k]), 4) for k in nurbs_names} }; "
+        f"phase 28 wall {time.perf_counter() - t28:.1f} s")
+
     # ---- the kernels line ----
     replaces = {
         "prng_disk": "optiland_tpu/ops/pallas_trace.py:1100",
@@ -4080,11 +4367,13 @@ def main(argv=None):
                  "merit_fwd_tilt", "merit_bwd_tilt", "trace_field_fwd_tilt",
                  "trace_field_bwd_tilt", "trace_fwd_tilt", "trace_bwd_tilt",
                  "pol_fwd_intensity_tilt", "pol_bwd_intensity_tilt",
-                 *k6_names, *free_names, *aux_names, *grat_names):
-        # a row of an aux-bearing family (phase 24) or a grating lens
-        # (phase 26) counts the launches of its own paths
+                 *k6_names, *free_names, *aux_names, *grat_names,
+                 *nurbs_names):
+        # a row of an aux-bearing family (phase 24), a grating lens (phase
+        # 26) or a NURBS lens (phase 28) counts the launches of its own
+        # paths
         fam = next((f for f in freeform.AUX_FAMILIES + GRAT_NAMES
-                    if name.endswith("_" + f)), None)
+                    + NURBS_TAGS if name.endswith("_" + f)), None)
         key = name if fam is None else name.removesuffix("_" + fam)
         base_name = key.removesuffix(max(
             (suf for suf in BUILD_SUFFIX.values() if suf and key.endswith(suf)),
@@ -4096,8 +4385,11 @@ def main(argv=None):
         n_launch = sum(c[key] for p_, c in path_launches.items()
                        if fam is None or p_.startswith(fam + "_"))
         check(n_launch > 0, f"kernel {name} was not launched on any path")
+        source = sources[base_name]
+        if key.endswith("_nurbs"):  # the nurbs build's own sources
+            source = NURBS_SOURCES[base_name.split("_")[0]]
         kernels.append({
-            "name": name, "route": "cuda", "source": sources[base_name],
+            "name": name, "route": "cuda", "source": source,
             "replaces": replaces[base_name], "launches": n_launch,
             "max_abs_err": kerr[name], "ms": ms[name],
             "plain_ms": plain_ms[name], "bound_ms": max(t_ops, t_bytes),

@@ -1,7 +1,7 @@
 """Geometry: sag, surface normal and ray-surface intersection, PLANE,
 STANDARD (conic), the radial Newton-from-sag families EVEN_ASPHERE and
 ODD_ASPHERE, and the Cartesian ones POLYNOMIAL_XY, CHEBYSHEV, TOROIDAL and
-BICONIC.
+BICONIC, and NURBS.
 
 Counterpart of ``optiland_tpu/core/geometry.py``, with the same integer
 codes and the same formulas (curvature-form conic, closed-form root choice,
@@ -67,8 +67,15 @@ Every Newton family intersects by Newton's method from the conic (or
 plane) guess of the surface's radius and conic, with the clamp on |f'|,
 f' = N - (s_x L + s_y M), and the one stopped-then-differentiable
 correction step that gives the implicit-function gradient
-(``distance_static``). Grid sag and NURBS are ported in a later slice;
-asking for them raises.
+(``distance_static``).
+
+NURBS surfaces (``core/nurbs.py``; their ``geom_aux`` the static net
+structure ``("nurbs", nu, nv, p, q, u_knots, v_knots)``, their coefficient
+row the flat control points and weights) have their own solve: the sag and
+the normal by a 2x2 Newton on the parameters (u, v) whose surface point
+has the query's (x, y), the distance by the two-plane parameter solve of
+``nurbs.intersect``. Grid sag is ported in a later slice; asking for it
+raises.
 """
 
 from __future__ import annotations
@@ -80,7 +87,7 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
-from optiland_torch.core import forbes
+from optiland_torch.core import forbes, nurbs
 from optiland_torch.zernike import ZERNIKE_CLASSES, _radial_coeff_table
 
 # Geometry codes (stable; the JAX package's values)
@@ -106,7 +113,8 @@ AUX_CODES = frozenset({ZERNIKE_SAG, FORBES_QBFS, FORBES_Q2D})
 CART_CODES = frozenset({POLYNOMIAL_XY, CHEBYSHEV, TOROIDAL,
                         BICONIC}) | AUX_CODES
 NEWTON_CODES = RADIAL_CODES | CART_CODES
-SUPPORTED_CODES = frozenset({PLANE, STANDARD}) | NEWTON_CODES
+# NURBS is not a Newton family: it solves for its parameters (u, v)
+SUPPORTED_CODES = frozenset({PLANE, STANDARD, NURBS}) | NEWTON_CODES
 
 # Newton iterations of the plain engine's intersection (the JAX package's
 # XLA path; its kernels take ``newton_iters``, 10 by default).
@@ -115,8 +123,8 @@ NEWTON_ITERS = 16
 
 def _unsupported(code):
     return NotImplementedError(
-        f"geometry code {code} (grid sag or NURBS) is ported in a later "
-        "slice (ROADMAP Queue 2, kernel K6)"
+        f"geometry code {code} (grid sag) is ported in a later slice "
+        "(ROADMAP Queue 2)"
     )
 
 
@@ -910,6 +918,8 @@ def sag_static(code: int, radius, conic, coeffs, x, y, p1=1.0, p2=1.0,
         return _sag_forbes_qbfs(radius, conic, coeffs, p1, x, y, aux)
     if code == FORBES_Q2D:
         return _sag_forbes_q2d(radius, conic, coeffs, p1, x, y, aux)
+    if code == NURBS:
+        return nurbs.sag(coeffs, aux, x, y)
     raise _unsupported(code)
 
 
@@ -969,6 +979,8 @@ def surface_normal_static(code: int, radius, conic, coeffs, x, y, p1=1.0,
     if code in NEWTON_CODES:
         coeffs, lay = _laid_out(code, coeffs, aux, lay)
         return _normal_newton(code, radius, conic, coeffs, x, y, p1, p2, lay)
+    if code == NURBS:
+        return nurbs.surface_normal(coeffs, aux, x, y)
     raise _unsupported(code)
 
 
@@ -1040,6 +1052,8 @@ def distance_static(code: int, radius, conic, x, y, z, L, M, N, coeffs=None,
         return _distance_plane(x, y, z, L, M, N)
     if code == STANDARD:
         return _distance_standard(radius, conic, x, y, z, L, M, N)
+    if code == NURBS:
+        return nurbs.distance(coeffs, aux, x, y, z, L, M, N)
     if code not in NEWTON_CODES:
         raise _unsupported(code)
     coeffs, lay = _laid_out(code, coeffs, aux, lay)

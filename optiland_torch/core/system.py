@@ -243,18 +243,33 @@ def is_grating(entry):
             and isinstance(entry[1], (int, np.integer)))
 
 
+def is_nurbs_aux(aux):
+    """True for a NURBS net's static structure, ``("nurbs", nu, nv, p, q,
+    u_knots, v_knots)``: its control-point counts, degrees and knot
+    vectors (nu + p + 1 and nv + q + 1 knots)."""
+    if not (isinstance(aux, tuple) and len(aux) == 7 and aux[0] == "nurbs"):
+        return False
+    _, nu, nv, p, q, uk, vk = aux
+    return (all(isinstance(k, (int, np.integer)) for k in (nu, nv, p, q))
+            and isinstance(uk, tuple) and isinstance(vk, tuple)
+            and len(uk) == nu + p + 1 and len(vk) == nv + q + 1)
+
+
 def carried_aux(code, aux):
     """True for the geometry extras the port carries: a Zernike scheme
     ``(scheme,)``, ``("qbfs", n_terms)`` and ``("q2d", nms)`` on a surface
-    of that family, ``("grating", m)`` on a PLANE or STANDARD surface (None
-    anywhere)."""
+    of that family, ``("grating", m)`` on a PLANE or STANDARD surface, a
+    NURBS net's structure (``is_nurbs_aux``) on a NURBS surface, which
+    needs one (None anywhere else)."""
     from optiland_torch.core import geometry as geom
     from optiland_torch.zernike import ZERNIKE_CLASSES
 
     if aux is None:
-        return True
+        return code != geom.NURBS
     if not isinstance(aux, tuple) or not aux:
         return False
+    if code == geom.NURBS:
+        return is_nurbs_aux(aux)
     if is_grating(aux):
         return code in (geom.PLANE, geom.STANDARD)
     if code == geom.ZERNIKE_SAG:
@@ -264,6 +279,16 @@ def carried_aux(code, aux):
     if code == geom.FORBES_Q2D:
         return len(aux) == 2 and aux[0] == "q2d"
     return False
+
+
+def nurbs_aux_of(aux):
+    """A NURBS structure with plain Python numbers (other extras as they
+    are): another package's knots may be numpy scalars."""
+    if isinstance(aux, tuple) and len(aux) == 7 and aux[0] == "nurbs":
+        _, nu, nv, p, q, uk, vk = aux
+        return ("nurbs", int(nu), int(nv), int(p), int(q),
+                tuple(float(k) for k in uk), tuple(float(k) for k in vk))
+    return aux
 
 
 def system_from_numpy(arrays: dict, cfg_fields: dict) -> System:
@@ -280,8 +305,9 @@ def system_from_numpy(arrays: dict, cfg_fields: dict) -> System:
     not carry yet (other apertures, BSDFs, interactions but gratings,
     geometry extras) and for a coating record of a kind it does not have.
     Geometry extras are carried for the aux-bearing families (a Zernike
-    scheme, a Qbfs term count, a Q2d (n, m) layout) and gratings, as
-    tuples; interactions only as gratings, ``("grating", m)`` (the thin
+    scheme, a Qbfs term count, a Q2d (n, m) layout), NURBS surfaces (the
+    net's structure ``("nurbs", nu, nv, p, q, u_knots, v_knots)``, its
+    knots as floats) and gratings, as tuples; interactions only as gratings, ``("grating", m)`` (the thin
     lens and phase interactions come in a later slice).
     """
     from optiland_torch.coatings import coating_from_record
@@ -304,14 +330,14 @@ def system_from_numpy(arrays: dict, cfg_fields: dict) -> System:
             for a in aps)
     aux = cfg_fields.get("geom_aux")
     if aux is not None:
-        aux = tuple(aux)
+        aux = tuple(nurbs_aux_of(a) for a in aux)
         if not all(carried_aux(c, a)
                    for c, a in zip(cfg_fields["geom_codes"], aux)):
             raise NotImplementedError(
                 f"system_from_numpy: config entry 'geom_aux' holds {aux!r}; "
                 "only None entries, the extras of ZERNIKE_SAG, "
-                "FORBES_QBFS and FORBES_Q2D surfaces and gratings on PLANE "
-                "and STANDARD ones are carried so far"
+                "FORBES_QBFS, FORBES_Q2D and NURBS surfaces and gratings on "
+                "PLANE and STANDARD ones are carried so far"
             )
         cfg_fields["geom_aux"] = aux
     inter = cfg_fields.get("interactions")

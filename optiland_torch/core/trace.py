@@ -30,7 +30,9 @@ The port covers PLANE, STANDARD, the radial aspheres (EVEN_ASPHERE,
 ODD_ASPHERE) and the Cartesian freeforms (POLYNOMIAL_XY, CHEBYSHEV,
 TOROIDAL, BICONIC, and ZERNIKE_SAG, FORBES_QBFS, FORBES_Q2D with their
 ``geom_aux`` extras) surfaces (the Newton families by Newton's method,
-``geometry.NEWTON_ITERS`` steps, as the JAX package's XLA path),
+``geometry.NEWTON_ITERS`` steps, as the JAX package's XLA path), NURBS
+surfaces (one two-plane (u, v) solve of ``nurbs._uv_iters`` steps gives
+the distance and the normal),
 ``RadialAperture`` objects, whose clip replaces the circular one, and
 grating interactions ``("grating", m)`` on PLANE and STANDARD substrates:
 vector diffraction of order m (``kernels.grating_diffract``), evanescent
@@ -49,6 +51,7 @@ import numpy as np
 import torch
 
 from optiland_torch.core import geometry as geom
+from optiland_torch.core import nurbs
 from optiland_torch.core.rays import RealRays
 from optiland_torch.core.system import (
     System, is_grating, k_of, n_of, positions,
@@ -95,11 +98,17 @@ def _surface_step(stack, cfg, s, pos_s, state):
         x, z, L, N = kernels.rotate_y(x, z, L, N, -stack.ry[s])
         y, z, M, N = kernels.rotate_x(y, z, M, N, -stack.rx[s])
 
-    # Intersect + propagate
+    # Intersect + propagate. A NURBS surface fuses the distance solve with
+    # the normal: the converged parameter point gives both, so no second
+    # solve runs for the normal.
     p1, p2 = stack.geo_p1[s], stack.geo_p2[s]
     aux = cfg.geom_aux[s] if cfg.geom_aux is not None else None
-    t = geom.distance_static(code, radius, conic, x, y, z, L, M, N,
-                             coeffs=coeffs, p1=p1, p2=p2, aux=aux)
+    fused_normal = None
+    if code == geom.NURBS:
+        t, fused_normal = nurbs.intersect(coeffs, aux, x, y, z, L, M, N)
+    else:
+        t = geom.distance_static(code, radius, conic, x, y, z, L, M, N,
+                                 coeffs=coeffs, p1=p1, p2=p2, aux=aux)
     x = x + t * L
     y = y + t * M
     z = z + t * N
@@ -122,8 +131,11 @@ def _surface_step(stack, cfg, s, pos_s, state):
         inten = torch.where(x**2 + y**2 > ap**2, 0.0, inten)
 
     # Normal + interaction
-    nx, ny, nz = geom.surface_normal_static(code, radius, conic, coeffs, x, y,
-                                            p1, p2, aux=aux)
+    if fused_normal is not None:
+        nx, ny, nz = fused_normal
+    else:
+        nx, ny, nz = geom.surface_normal_static(code, radius, conic, coeffs,
+                                                x, y, p1, p2, aux=aux)
     L0, M0, N0 = L, M, N  # pre-interaction directions
     inter = cfg.interactions[s] if cfg.interactions is not None else None
     if inter is not None:

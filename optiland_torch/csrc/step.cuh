@@ -1,7 +1,8 @@
 // Device code shared by the port's trace kernels (sm_90a): the PLANE,
 // STANDARD, tilt, annular-aperture, EVEN_ASPHERE/ODD_ASPHERE,
-// POLYNOMIAL_XY/CHEBYSHEV/TOROIDAL/BICONIC and ZERNIKE_SAG/FORBES_QBFS/
-// FORBES_Q2D branches of _step_tile
+// POLYNOMIAL_XY/CHEBYSHEV/TOROIDAL/BICONIC, ZERNIKE_SAG/FORBES_QBFS/
+// FORBES_Q2D and grating branches of _step_tile (the NURBS branch is in
+// nurbs_step.cuh, which this header includes at its end)
 // (optiland_tpu/ops/pallas_trace.py), forward and hand-derived adjoint,
 // and what the kernels around the step share: the shared-memory table
 // loaders, the per-warp gradient rows of the backwards, and their
@@ -30,11 +31,13 @@
 // The TILT template flag of the step compiles the rotations in; the SAG
 // flag also the radial Newton families and, in the FULL form, the annular
 // clip; the CART flag the Cartesian families, the AUX flag their
-// aux-bearing ones. Every kernel is compiled in eight builds (Build<B>
+// aux-bearing ones. Every kernel is compiled in nine builds (Build<B>
 // below, each an OR of flag bits): stock (none), tilt, sag (tilt and
 // sag), free (tilt, sag and the Cartesian families), aux (free with the
-// aux-bearing families), and deep, deep_free and deep_aux (sag, free and
-// aux for up to DEEP_SURF surfaces). The launchers take the least build
+// aux-bearing families), deep, deep_free and deep_aux (sag, free and
+// aux for up to DEEP_SURF surfaces), and nurbs (tilt and K6d, NURBS
+// surfaces: nurbs_step.cuh); the monochromatic ones in a tenth, grat (tilt
+// and K6c, gratings). The launchers take the least build
 // that covers the spec (ops/launch.py: build_of), so a system without a
 // tilted surface, an asphere, a freeform or an annulus runs the stock
 // code, whose registers and local memory are those it had before the
@@ -110,6 +113,7 @@ constexpr int A_SX = 6, A_SY = 7;
 constexpr int PLANE = 0, STANDARD = 1, EVEN_ASPHERE = 2, ODD_ASPHERE = 3;
 constexpr int POLYNOMIAL_XY = 4, CHEBYSHEV = 5, TOROIDAL = 7, BICONIC = 8;
 constexpr int ZERNIKE_SAG = 6, FORBES_QBFS = 9, FORBES_Q2D = 10;
+constexpr int NURBS = 12;
 // an aux-bearing surface's layout table row per slot: the recurrence
 // constants (a, b, c, e), then the flag 4 |m| + 2 sin + pre
 // (geometry.py: LAY_COLS, Q2D_EPS)
@@ -122,6 +126,13 @@ constexpr double ABS = -12.566370614359172;  // -4 pi
 constexpr int STOCK_SURF = 16;  // surfaces of the stock, tilt and sag builds
 constexpr int DEEP_SURF = 64;   // surfaces of the deep build
 constexpr int NC_MAX = 36;      // geometry coefficients per surface
+// the nurbs build's bound on a net (ops/launch.py: NC_NURBS, NU_PMAX,
+// NU_KMAX, NU_KT): its row of 4 nu nv columns, its degrees, its knots each
+// way, and its knot table row (nu, nv, p, q, the u knots, the v knots)
+constexpr int NC_NURBS = 256;
+constexpr int NU_PMAX = 7;
+constexpr int NU_KMAX = 24;
+constexpr int NU_KT = 4 + 2 * NU_KMAX;
 // the per-ray record of a Newton surface's coefficient cotangents
 // (step_adjoint's gs): 5 scalars of a radial family, 12 of a Cartesian one
 constexpr int N_GS_RAD = 5, N_GS_CART = 12;
@@ -131,18 +142,20 @@ constexpr int FWD_BLOCK = 256;
 constexpr int BWD_BLOCK = 128;
 constexpr int RED_BLOCK = 256;
 
-// The builds of every kernel (ops/launch.py: STOCK .. DEEP_AUX): a build
-// is an OR of flags, each a branch of the step or the surface reach. TILT
-// the rotations, SAG the radial Newton families and the annular clip, CART
-// the Cartesian families, AUX their aux-bearing ones (ZERNIKE_SAG,
-// FORBES_QBFS, FORBES_Q2D), DEEP the reach of DEEP_SURF surfaces. Each flag
+// The builds of every kernel (ops/launch.py: STOCK .. DEEP_AUX, NURBS):
+// a build is an OR of flags, each a branch of the step or the surface
+// reach. TILT the rotations, SAG the radial Newton families and the
+// annular clip, CART the Cartesian families, AUX their aux-bearing ones
+// (ZERNIKE_SAG, FORBES_QBFS, FORBES_Q2D), DEEP the reach of DEEP_SURF
+// surfaces, NURBS the NURBS surfaces, GRAT the gratings. Each flag
 // is its own, so a deep system without a freeform runs the deep code that
 // carries no Cartesian branch, and a freeform without an aux-bearing
 // surface the code without their evaluator. DYN: the backwards keep their
-// per-warp gradient rows in dynamic shared memory (the Cartesian and the
-// deep builds; the polarized backward's sag build too, see pol_trace.cu).
+// per-warp gradient rows in dynamic shared memory (the Cartesian, the
+// deep and the nurbs builds; the polarized backward's sag build too, see
+// pol_trace.cuh).
 //
-// GRAT (the ninth build, B_GRAT: the tilts and K6c, grating diffraction)
+// GRAT (the tenth build, B_GRAT: the tilts and K6c, grating diffraction)
 // is compiled for the monochromatic kernels only (fast_trace.cu's mono
 // mode and fused_trace.cu; dispatch_build<true>): a grating surface (a
 // flag row of its own, F_GRAT) diffracts instead of refracting or
@@ -151,12 +164,29 @@ constexpr int RED_BLOCK = 256;
 // PLANE and STANDARD substrates need no other branch; the launchers refuse
 // a grating beside a Newton family, an annular clip or past STOCK_SURF
 // surfaces (ops/launch.py: build_of).
+//
+// NURBS (the ninth build, B_NURBS: the tilts and K6d, NURBS surfaces) is
+// compiled for every trace kernel, in source files of its own
+// (nurbs_trace.cu, nurbs_merit.cu, nurbs_pol.cu: the kernel templates of
+// fast_trace.cuh, fused_trace.cuh and pol_trace.cuh instantiated for it,
+// the launchers' NU flag), so the other
+// builds' sources and machine code stay as they were. A NURBS surface
+// solves for its parameters (u, v) on its control net (nurbs_step.cuh:
+// step_fwd_nurbs, step_adjoint_nurbs, functions of their own as the grat
+// build's), whose row and knot table the kernels keep in dynamic shared
+// memory; the backwards sum its 4 nu nv net columns in a block of nc
+// (grad_reduce_kernel, NU). Its PLANE and STANDARD neighbours need no
+// other branch; the launchers refuse a NURBS surface beside a Newton
+// family, a grating, an annular clip or past STOCK_SURF surfaces, and a
+// net past NC_NURBS columns, NU_PMAX degrees or NU_KMAX knots
+// (ops/launch.py: build_of, kernel_tables).
 constexpr int BIT_TILT = 1, BIT_SAG = 2, BIT_CART = 4, BIT_AUX = 8,
-              BIT_DEEP = 16, BIT_GRAT = 32;
+              BIT_DEEP = 16, BIT_GRAT = 32, BIT_NURBS = 64;
 constexpr int B_STOCK = 0, B_TILT = BIT_TILT, B_SAG = B_TILT | BIT_SAG,
               B_FREE = B_SAG | BIT_CART, B_DEEP = B_SAG | BIT_DEEP,
               B_DEEP_FREE = B_FREE | BIT_DEEP, B_AUX = B_FREE | BIT_AUX,
-              B_DEEP_AUX = B_DEEP_FREE | BIT_AUX, B_GRAT = B_TILT | BIT_GRAT;
+              B_DEEP_AUX = B_DEEP_FREE | BIT_AUX, B_GRAT = B_TILT | BIT_GRAT,
+              B_NURBS = B_TILT | BIT_NURBS;
 // a grating surface's block of a backward's partial row: P_G1, P_G2
 constexpr int N_GRAT_COLS = 2;
 template <int B>
@@ -167,16 +197,19 @@ struct Build {
   static constexpr bool AUX = B & BIT_AUX;
   static constexpr bool DEEP = B & BIT_DEEP;
   static constexpr bool GRAT = B & BIT_GRAT;
-  static constexpr bool DYN = FREE || DEEP;
+  static constexpr bool NURBS = B & BIT_NURBS;
+  static constexpr bool DYN = FREE || DEEP || NURBS;
   static constexpr int CAP = DEEP ? DEEP_SURF : STOCK_SURF;
   static __host__ __device__ int block(int nc) { return FREE ? nc + 2 : nc; }
 };
 
 // Columns of a Newton surface's block of a backward's partial row in build
 // ``build`` (Build<B>::block): nc coefficients, then (CART) P_G1 and P_G2;
-// a grating's in the grating build: P_G1 and P_G2.
+// a grating's in the grating build: P_G1 and P_G2; a NURBS surface's in
+// the nurbs build: nc (its net's 4 nu nv columns, zero-padded).
 inline int block_cols(int build, int nc) {
   if (build & BIT_GRAT) return N_GRAT_COLS;
+  if (build & BIT_NURBS) return nc;
   return build & BIT_CART ? nc + 2 : nc;
 }
 
@@ -206,8 +239,8 @@ int dispatch_build(int build, F&& f) {
 // The surface count, coefficient width and Newton steps a build takes.
 template <int B>
 bool shape_ok(int S, int nc, int niters) {
-  return S >= 2 && S <= Build<B>::CAP && nc >= 1 && nc <= NC_MAX &&
-         niters >= 0;
+  return S >= 2 && S <= Build<B>::CAP && nc >= 1 &&
+         nc <= (Build<B>::NURBS ? NC_NURBS : NC_MAX) && niters >= 0;
 }
 
 // Dynamic shared memory of a backward's per-warp rows: nw rows of ncomp
@@ -2789,8 +2822,9 @@ __device__ __forceinline__ void store_partial_row(const T* acc, int stride,
 // sum is scattered into the (S*NUM_P + S*nc [+ extras]) layout, whose other
 // entries the caller has zeroed. GR (the grating build): the blocks are the
 // grating surfaces' (``codes`` is the grating flag row), ncb = N_GRAT_COLS
-// columns each, P_G1 and P_G2.
-template <typename T, int NG, bool GR = false>
+// columns each, P_G1 and P_G2. NU (the nurbs build): the blocks are the
+// NURBS surfaces', ncb = nc coefficient columns each.
+template <typename T, int NG, bool GR = false, bool NU = false>
 __global__ void __launch_bounds__(RED_BLOCK)
 grad_reduce_kernel(const T* __restrict__ partial, int nblocks, int S, int nc,
                    int ncb, int nsagc, const int* __restrict__ codes,
@@ -2811,7 +2845,10 @@ grad_reduce_kernel(const T* __restrict__ partial, int nblocks, int S, int nc,
       const int ncoef = GR ? 0 : nc;  // the block's coefficient columns
       int s = 0, seen = -1;
       for (; s < S; ++s)
-        if ((GR ? codes[s] != 0 : is_newton(codes[s])) && ++seen == kk) break;
+        if ((GR ? codes[s] != 0
+                : (NU ? codes[s] == NURBS : is_newton(codes[s]))) &&
+            ++seen == kk)
+          break;
       dst = j < ncoef ? S * NUM_P + s * nc + j
                       : s * NUM_P + (j == ncoef ? P_G1 : P_G2);
     } else {
@@ -2846,14 +2883,16 @@ __device__ __forceinline__ void add_grat_cols(const T* gs, int lane, T* row,
 }
 
 // Launch the reduction of a backward's partial rows (launchers' tail).
-template <typename T, int NG, bool GR = false>
+template <typename T, int NG, bool GR = false, bool NU = false>
 int reduce_launch(const T* partial, int nblocks, int S, int nc, int ncb,
                   int nsagc, const int* codes, int n_extra, T* out,
                   cudaStream_t stream) {
-  grad_reduce_kernel<T, NG, GR><<<S * NG + nsagc + n_extra, RED_BLOCK, 0,
-                                  stream>>>(partial, nblocks, S, nc, ncb,
-                                            nsagc, codes, n_extra, out);
+  grad_reduce_kernel<T, NG, GR, NU><<<S * NG + nsagc + n_extra, RED_BLOCK, 0,
+                                      stream>>>(partial, nblocks, S, nc, ncb,
+                                                nsagc, codes, n_extra, out);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
+
+#include "nurbs_step.cuh"

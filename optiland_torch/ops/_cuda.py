@@ -86,6 +86,12 @@ _ARGTYPES = {
     "pol_bwd": [_VP, _VP, _VP, _I, _I, _VP, _I, _I, _I, _I, _PP, _PP, _I64,
                 _PP, _VP, _I, _VP, _I] + [_D] * 8 + [_I, _VP],
 }
+# the nurbs build's entries (csrc/nurbs_*.cu: launch.entry_name) take the
+# arguments of the other builds'
+_ARGTYPES.update({f"{name}_nurbs": _ARGTYPES[name] for name in (
+    "merit_fwd", "merit_bwd", "trace_fwd", "trace_field_fwd", "trace_bwd",
+    "trace_field_bwd", "trace_fwd_poly", "trace_bwd_poly", "pol_fwd",
+    "pol_bwd")})
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 

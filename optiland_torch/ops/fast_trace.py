@@ -39,7 +39,10 @@ backwards give their
 gradients. A grating surface (K6c, the spec's grating flags) diffracts in
 the monochromatic kernels' grating build, with P_MLAM the order times the
 wavelength, and the backwards give its P_G1 and P_G2 gradients; the
-polychromatic kernels take no grating, as in the JAX package. As in
+polychromatic kernels take no grating, as in the JAX package. A NURBS
+surface (K6d) intersects by the two-plane (u, v) solve on its net (its
+coefficient row, with the knot table as ``lay``) in every kernel's nurbs
+build, and the backwards give its net's gradient. As in
 the JAX package's kernels, the
 Beer-Lambert factor is applied only where the medium before the surface
 absorbs, read from the k tables' values; when the k tables are
@@ -62,7 +65,7 @@ from optiland_torch.ops.fused_trace import (
 )
 from optiland_torch.ops.launch import (
     BWD_BLOCK, BWD_MAX_BLOCKS, GRAT, N_AIM, TRACE_BUILDS, build_of,
-    check_cuda_inputs, covered, device_of, device_table, flags,
+    check_cuda_inputs, covered, device_of, device_table, entry_name, flags,
     grating_flags, inner_flags, kernel_tables, launch_from_pupil, launch_key,
     lay_row, sag_columns, sag_surfaces, unsupported, with_builds,
 )
@@ -135,13 +138,13 @@ def fast_spec(system, field=False, newton_iters=10):
     when they cover this system, else None; the first five rows go to the
     kernels as flags. ``field`` asks for the field kernels, which also need
     an infinite-conjugate angle field. Coverage is that of the merit
-    kernels: PLANE, STANDARD and the Newton families (EVEN_ASPHERE,
+    kernels: PLANE, STANDARD, the Newton families (EVEN_ASPHERE,
     ODD_ASPHERE, POLYNOMIAL_XY, CHEBYSHEV, TOROIDAL, BICONIC, ZERNIKE_SAG,
-    FORBES_QBFS, FORBES_Q2D) surfaces, tilted or not, RadialAperture
-    objects and no others, no interactions but gratings on PLANE and
-    STANDARD surfaces, no BSDFs (the other families of kernel K6 come in a
-    later slice), and no coatings or polarization (the polarized kernels
-    of ``ops/pol_trace.py`` take those)."""
+    FORBES_QBFS, FORBES_Q2D) and NURBS surfaces, tilted or not,
+    RadialAperture objects and no others, no interactions but gratings on
+    PLANE and STANDARD surfaces, no BSDFs (grid sag comes in a later
+    slice), and no coatings or polarization (the polarized kernels of
+    ``ops/pol_trace.py`` take those)."""
     cfg = system.cfg
     if not covered(cfg, field):
         return None
@@ -376,7 +379,7 @@ def _launch(name, params, spec, coeffs, lay, before, rest):
     table = device_table(coeffs, lay)  # held until the launch is queued
     with torch.cuda.device(params.device):
         rc = _cuda.call(
-            name, params.dtype, params.data_ptr(), *before,
+            entry_name(name, build), params.dtype, params.data_ptr(), *before,
             # the flag rows: all but the annular flags and newton_iters
             # (the grating row last, which only the grating build reads)
             flags(spec[:-2], params.device).data_ptr(), len(spec[0]), build,

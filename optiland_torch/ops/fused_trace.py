@@ -38,7 +38,10 @@ last three laid out, with the layout table ``lay``) reads its row of the
 coefficient table (the
 Cartesian ones also P_G1 and P_G2), and the backward gives their
 gradients. A grating surface (K6c) diffracts in the merit kernels' grating
-build, and the backward gives its P_G1 and P_G2 gradients.
+build, and the backward gives its P_G1 and P_G2 gradients. A NURBS surface
+(K6d) solves for its parameters on its net (its coefficient row, with the
+knot table ``lay``, ``launch.kernel_tables``) in the nurbs build, and the
+backward gives its net's gradient.
 """
 
 from __future__ import annotations
@@ -53,8 +56,8 @@ from optiland_torch.core.system import (
 )
 from optiland_torch.ops.launch import (
     BWD_BLOCK, BWD_MAX_BLOCKS, FWD_BLOCK, GRAT, N_AIM, TRACE_BUILDS, build_of,
-    check_cuda_inputs, check_dtype, covered, device_of, device_table, flags,
-    grating_flags, kernel_tables, launch_from_pupil, launch_key, lay_row,
+    check_cuda_inputs, check_dtype, covered, device_of, device_table,
+    entry_name, flags, grating_flags, kernel_tables, launch_from_pupil, launch_key, lay_row,
     sag_columns, sag_surfaces, unsupported, with_builds,
 )
 from optiland_torch.ops.step import (
@@ -115,8 +118,8 @@ def fused_supported(system) -> bool:
     """True when the fused merit kernels cover this system: what
     ``launch.covered`` lists, tilted surfaces, the radial aspheres, the
     Cartesian freeforms (the aux-bearing ZERNIKE_SAG and Forbes families
-    among them), gratings and RadialAperture objects included. The other
-    families of kernel K6 (NURBS, grid sag) come in a later slice."""
+    among them), NURBS surfaces, gratings and RadialAperture objects
+    included. Grid sag comes in a later slice."""
     return covered(system.cfg)
 
 
@@ -416,7 +419,7 @@ def merit_fwd(params, aim, spec, R, seed=0, offset=0, Px=None, Py=None,
     table = device_table(coeffs, lay)  # held until the launch is queued
     with torch.cuda.device(params.device):
         rc = _cuda.call(
-            "merit_fwd", params.dtype, params.data_ptr(), aim.data_ptr(),
+            entry_name("merit_fwd", build), params.dtype, params.data_ptr(), aim.data_ptr(),
             flags(spec[:-1], params.device).data_ptr(), len(spec[0]), build,
             table.data_ptr(), coeffs.shape[1], spec[-1],
             None if prng else Px.data_ptr(), None if prng else Py.data_ptr(),
@@ -514,7 +517,7 @@ def merit_bwd(params, aim, stats, spec, nc, R, seed=0, offset=0, Px=None,
     table = device_table(coeffs, lay)  # held until the launch is queued
     with torch.cuda.device(params.device):
         rc = _cuda.call(
-            "merit_bwd", params.dtype, params.data_ptr(), aim.data_ptr(),
+            entry_name("merit_bwd", build), params.dtype, params.data_ptr(), aim.data_ptr(),
             stats.data_ptr(), flags(spec[:-1], params.device).data_ptr(), S,
             build, table.data_ptr(), nc, spec[-1],
             len(sag_surfaces(spec[0], build, spec[3])),

@@ -42,6 +42,11 @@ plain version when, and only when, its tensors lie on the CPU, and counts
 its launches in ``LAUNCHES``. ``pol_bwd_plain`` is the adjoint by hand: the
 CUDA kernel transcribes it.
 
+The step is ``ops/step.py``'s full form with its extras, every family of
+``launch.covered`` (a NURBS surface in the kernels' nurbs build, its net's
+knot table as ``lay``) but gratings, which the JAX package's polarized
+kernels take neither.
+
 The kernel interface stays real; ``trace_fast_pol`` assembles the complex
 p = re + i im in torch, outside the autograd Function, so torch's complex
 autograd applies its own convention to it. As in the JAX package, the coat
@@ -72,9 +77,9 @@ from optiland_torch.ops.fused_trace import (
     _coeffs_or_zeros, build_param_table, coef_row,
 )
 from optiland_torch.ops.launch import (
-    build_of, check_cuda_inputs, covered, device_of, device_table, flags,
-    inner_flags, kernel_tables, launch_key, lay_row, sag_columns,
-    sag_surfaces, unsupported, with_builds,
+    build_of, check_cuda_inputs, covered, device_of, device_table,
+    entry_name, flags, inner_flags, kernel_tables, launch_key, lay_row,
+    sag_columns, sag_surfaces, unsupported, with_builds,
 )
 from optiland_torch.ops.step import (
     FULL_GRAD_COLS, NUM_P, P_NPOST, split_cols, step_adjoint_plain,
@@ -974,7 +979,7 @@ def pol_fwd(params, coat, spec, rays, states=None, intensity=False,
     table = device_table(coeffs, lay)  # held until the launch is queued
     with torch.cuda.device(params.device):
         rc = _cuda.call(
-            "pol_fwd", params.dtype, params.data_ptr(), coat.data_ptr(),
+            entry_name("pol_fwd", build), params.dtype, params.data_ptr(), coat.data_ptr(),
             flags(spec[:-2], params.device).data_ptr(), len(spec[0]), build,
             table.data_ptr(), coeffs.shape[1], spec[-1], coat.shape[1],
             _cuda.pointers(rays), rays[0].shape[0], _cuda.pointers(out),
@@ -1015,9 +1020,9 @@ def pol_bwd(params, coat, spec, nc, rays, cots, states=None, intensity=False,
     table = device_table(coeffs, lay)  # held until the launch is queued
     with torch.cuda.device(params.device):
         rc = _cuda.call(
-            "pol_bwd", params.dtype, params.data_ptr(), coat.data_ptr(),
+            entry_name("pol_bwd", build), params.dtype, params.data_ptr(), coat.data_ptr(),
             flags(spec[:-2], params.device).data_ptr(), S, build,
-            table.data_ptr(), nc, spec[-1], len(sag_surfaces(spec[0])),
+            table.data_ptr(), nc, spec[-1], len(sag_surfaces(spec[0], build)),
             ncoat, _cuda.pointers(rays),
             _cuda.pointers(cots), R, _cuda.pointers(din), partial.data_ptr(),
             nb, out.data_ptr(), int(intensity), *_state_args(states),

@@ -46,6 +46,19 @@ normal and the two clamps (1e-14 under the substrate's root, 1e-12 under
 d_eff's) pass no derivative where they bind, and an evanescent order's
 zero root none.
 
+A NURBS surface (K6d; ``lay`` its net's structure ``("nurbs", nu, nv, p,
+q, u_knots, v_knots)``, ``c`` its row, the control points then the
+weights) intersects by ``nurbs.intersect`` with ``newton_iters`` stopped
+steps of the two-plane (u, v) solve, which gives the normal too. Its
+adjoint (``nurbs_forward``, ``nurbs_adjoint``) takes the cotangents of t
+and of the normal through the one corrected step at the stopped point:
+the normal through the net's second derivatives, the clip as
+``jnp.clip``'s derivative, the correction through the Jacobian at the
+stopped point and the ray's planes, the residual term kept; the net's
+cotangents follow the rational quotient (``net_cotangent``) and are
+nonzero only on the ray's span. The cotangents of its coefficient row
+follow the param columns, as a Newton family's.
+
 For the polarized traces (``ops/pol_trace.py``) the step also gives its
 "extras": the local pre- and post-interaction directions and adot, the
 cosine of the angle of incidence; and its adjoint takes their cotangents.
@@ -72,7 +85,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from types import SimpleNamespace
+
 from optiland_torch.core import geometry as geom
+from optiland_torch.core import nurbs
+from optiland_torch.core.nurbs import cross3, dot3
 from optiland_torch.ops import kernels
 
 # param table columns (the JAX package's layout)
@@ -185,6 +202,167 @@ def _rot_local_adjoint(p, v, g):
     return (gx, gy, gz, gL, gM, gN), (d_rx, d_ry, d_rz)
 
 
+def clip01_grad(U):
+    """d clip(U, 0, 1) / dU as ``jnp.clip`` forms it: 1 inside, 1/2 at
+    exactly 0 or 1, 0 outside."""
+    lo = torch.where(U > 0, 1.0, torch.where(U == 0, 0.5, 0.0))
+    hi = torch.where(U < 1, 1.0, torch.where(U == 1, 0.5, 0.0))
+    return lo * hi
+
+
+def nurbs_forward(c, net, x, y, z, L, M, N, iters):
+    """The kernels' NURBS intersection (``nurbs.intersect`` with ``iters``
+    stopped steps) with the intermediates its adjoint reads: the planes,
+    the stopped point (us, vs) and the net's sums there, the correction
+    step, the corrected point (u1, v1) with the second derivatives, t and
+    the normal."""
+    P, W = nurbs.unpack_pw(c, net)
+    N1, N2, d1, d2 = nurbs._planes(x, y, z, L, M, N)
+    residual = nurbs.plane_residual(P, W, net, N1, N2, d1, d2)
+    us, vs = nurbs._param_guess(P, x, y)
+    for _ in range(iters):
+        us, vs = nurbs._uv_step(residual, us, vs)
+    hs = nurbs.homogeneous(P, W, net, us, vs, 1)
+    Ss, ws = nurbs.rational(hs)
+    f1, f2 = dot3(N1, Ss[""]) + d1, dot3(N2, Ss[""]) + d2
+    f1u, f2u = dot3(N1, Ss["u"]), dot3(N2, Ss["u"])
+    f1v, f2v = dot3(N1, Ss["v"]), dot3(N2, Ss["v"])
+    det = f1u * f2v - f1v * f2u
+    clamped = det.abs() < 1e-14
+    det = torch.where(clamped, 1e-14, det)
+    du = (f1 * f2v - f2 * f1v) / det
+    dv = (f2 * f1u - f1 * f2u) / det
+    U, V = us - du, vs - dv
+    u1, v1 = nurbs.clip01(U), nurbs.clip01(V)
+    h1 = nurbs.homogeneous(P, W, net, u1, v1, 2)
+    S1, w1 = nurbs.rational(h1)
+    D = tuple(a - b for a, b in zip(S1[""], (x, y, z)))
+    t = torch.sqrt(dot3(D, D))
+    n = cross3(S1["u"], S1["v"])
+    mag = torch.sqrt(dot3(n, n))
+    mag = torch.where(mag == 0, 1.0, mag)
+    nh = tuple(v / mag for v in n)
+    flip = torch.sign(torch.where(nh[2] == 0, 1.0, -nh[2]))
+    return SimpleNamespace(
+        P=P, W=W, net=net, r0=(x, y, z), k=(L, M, N), N1=N1, N2=N2,
+        us=us, vs=vs, hs=hs, Ss=Ss, ws=ws, f=(f1, f2, f1u, f2u, f1v, f2v),
+        det=det, clamped=clamped, du=du, dv=dv, U=U, V=V, u1=u1, v1=v1,
+        h1=h1, S1=S1, w1=w1, D=D, t=t, mag=mag, nh=nh, flip=flip,
+        normal=tuple(v * flip for v in nh))
+
+
+def net_cotangent(P, W, net, u, v, h, S, w, gS, gSu, gSv):
+    """The cotangents (g_P (3, nu, nv, R), g_W (nu, nv, R)) of the control
+    points and weights from those of the surface point S and its tangents
+    S_u, S_v at (u, v), through the rational quotient: with the homogeneous
+    cotangents g_H = (g_S - (w_u g_Su + w_v g_Sv) / w) / w, g_Hu = g_Su / w,
+    g_Hv = g_Sv / w, g_w, g_wu, g_wv (``nurbs.rational`` reversed), a
+    control point (i, j) takes W_ij (b g_H + b_u g_Hu + b_v g_Hv) and its
+    weight P_ij . (same) + b g_w + b_u g_wu + b_v g_wv, b = N_i(u) N_j(v),
+    b_u, b_v its derivatives: nonzero on the (p + 1)(q + 1) points of the
+    ray's span only."""
+    _, nu, nv, p, q, uk, vk = net
+    wu, wv = h["u"][1], h["v"][1]
+    gSt = tuple(a - (wu * b + wv * c) / w for a, b, c in zip(gS, gSu, gSv))
+    gH = torch.stack([a / w for a in gSt])
+    gHu = torch.stack([a / w for a in gSu])
+    gHv = torch.stack([a / w for a in gSv])
+    gw = -(dot3(gSt, S[""]) + dot3(gSu, S["u"]) + dot3(gSv, S["v"])) / w
+    gwu = -dot3(gSu, S[""]) / w
+    gwv = -dot3(gSv, S[""]) / w
+    Bu, dBu = (torch.stack(b) for b in nurbs.basis_ders(uk, nu - 1, p, u))
+    Bv, dBv = (torch.stack(b) for b in nurbs.basis_ders(vk, nv - 1, q, v))
+    b = Bu[:, None] * Bv[None]
+    bu = dBu[:, None] * Bv[None]
+    bv = Bu[:, None] * dBv[None]
+    G = (b[None] * gH[:, None, None] + bu[None] * gHu[:, None, None]
+         + bv[None] * gHv[:, None, None])
+    gP = W[None, :, :, None] * G
+    gW = (P[..., None] * G).sum(0) + b * gw + bu * gwu + bv * gwv
+    return gP, gW
+
+
+def nurbs_adjoint(fw, g_t, g_n):
+    """Reverse of ``nurbs_forward`` for the cotangents of t and of the
+    normal (before the step's sign alignment): returns those of the local
+    position (x, y, z), of the direction (L, M, N) and the (4 nu nv, R)
+    cotangents of the net's row [P.ravel(), W.ravel()]. The correction
+    step is differentiated at the stopped point, its Jacobian through the
+    net's tangents there and the planes, with the term proportional to
+    the residual f kept; the clip passes ``clip01_grad``, the det clamp
+    and the sign nothing."""
+    P, W, net = fw.P, fw.W, fw.net
+    f1, f2, f1u, f2u, f1v, f2v = fw.f
+    det, S1 = fw.det, fw.S1
+    # the normal: Su x Sv / |.|, flipped toward -z
+    g_nh = tuple(fw.flip * v for v in g_n)
+    nd = dot3(fw.nh, g_nh)
+    g_nr = tuple((a - h * nd) / fw.mag for a, h in zip(g_nh, fw.nh))
+    g_Su1 = cross3(S1["v"], g_nr)
+    g_Sv1 = cross3(g_nr, S1["u"])
+    # t = |S1 - r0|
+    g_S1 = tuple(g_t * d / fw.t for d in fw.D)
+    g_r0 = [-v for v in g_S1]
+    g_u1 = dot3(g_S1, S1["u"]) + dot3(g_Su1, S1["uu"]) + dot3(g_Sv1, S1["uv"])
+    g_v1 = dot3(g_S1, S1["v"]) + dot3(g_Su1, S1["uv"]) + dot3(g_Sv1, S1["vv"])
+    gP, gW = net_cotangent(P, W, net, fw.u1, fw.v1, fw.h1, S1, fw.w1, g_S1,
+                           g_Su1, g_Sv1)
+    # u1 = clip(us - du), v1 = clip(vs - dv), (us, vs) stopped
+    g_du = -g_u1 * clip01_grad(fw.U)
+    g_dv = -g_v1 * clip01_grad(fw.V)
+    # du = (f1 f2v - f2 f1v) / det, dv = (f2 f1u - f1 f2u) / det
+    g_f1 = (g_du * f2v - g_dv * f2u) / det
+    g_f2 = (g_dv * f1u - g_du * f1v) / det
+    g_f1u = g_dv * f2 / det
+    g_f2u = -g_dv * f1 / det
+    g_f1v = -g_du * f2 / det
+    g_f2v = g_du * f1 / det
+    g_det = torch.where(fw.clamped, 0.0,
+                        -(g_du * fw.du + g_dv * fw.dv) / det)
+    g_f1u = g_f1u + g_det * f2v
+    g_f2v = g_f2v + g_det * f1u
+    g_f1v = g_f1v - g_det * f2u
+    g_f2u = g_f2u - g_det * f1v
+    # f_k = N_k . S + d_k, f_ku = N_k . S_u, f_kv = N_k . S_v at (us, vs)
+    Ss, N1, N2 = fw.Ss, fw.N1, fw.N2
+    g_N1 = [g_f1 * a + g_f1u * b + g_f1v * c
+            for a, b, c in zip(Ss[""], Ss["u"], Ss["v"])]
+    g_N2 = [g_f2 * a + g_f2u * b + g_f2v * c
+            for a, b, c in zip(Ss[""], Ss["u"], Ss["v"])]
+    g_Ss = tuple(g_f1 * a + g_f2 * b for a, b in zip(N1, N2))
+    g_Sus = tuple(g_f1u * a + g_f2u * b for a, b in zip(N1, N2))
+    g_Svs = tuple(g_f1v * a + g_f2v * b for a, b in zip(N1, N2))
+    gPs, gWs = net_cotangent(P, W, net, fw.us, fw.vs, fw.hs, Ss, fw.ws,
+                             g_Ss, g_Sus, g_Svs)
+    # d_k = -N_k . r0
+    for j in range(3):
+        g_N1[j] = g_N1[j] - g_f1 * fw.r0[j]
+        g_N2[j] = g_N2[j] - g_f2 * fw.r0[j]
+        g_r0[j] = g_r0[j] - g_f1 * N1[j] - g_f2 * N2[j]
+    # N2 = N1 x k
+    k = fw.k
+    gk = list(cross3(g_N2, N1))
+    g_N1 = [a + b for a, b in zip(g_N1, cross3(k, g_N2))]
+    # N1 = (M, -L, 0) / |(L, M)| where L > M and L > N, else
+    # (0, N, -M) / |(N, M)|
+    L, M, N = k
+    mask = (L > M) & (L > N)
+    h1 = torch.sqrt(L * L + M * M)
+    h2 = torch.sqrt(N * N + M * M)
+    h1 = torch.where(h1 == 0, 1.0, h1)
+    h2 = torch.where(h2 == 0, 1.0, h2)
+    a1 = (N1[0] * g_N1[0] + N1[1] * g_N1[1])
+    ga = (g_N1[0] - N1[0] * a1) / h1, (g_N1[1] - N1[1] * a1) / h1
+    a2 = (N1[1] * g_N1[1] + N1[2] * g_N1[2])
+    gb = (g_N1[1] - N1[1] * a2) / h2, (g_N1[2] - N1[2] * a2) / h2
+    gk[0] = gk[0] + torch.where(mask, -ga[1], 0.0)
+    gk[1] = gk[1] + torch.where(mask, ga[0], -gb[1])
+    gk[2] = gk[2] + torch.where(mask, 0.0, gb[0])
+    g_net = torch.cat([(gP + gPs).reshape(-1, gP.shape[-1]),
+                       (gW + gWs).reshape(-1, gW.shape[-1])])
+    return tuple(g_r0), tuple(gk), g_net
+
+
 def step_plain(code, refl, p, n_pre, st, absorbs=False, extras=False,
                n_post=None, c=None, newton_iters=10, inner=False, lay=None,
                grating=False):
@@ -215,9 +393,14 @@ def step_plain(code, refl, p, n_pre, st, absorbs=False, extras=False,
     zl = z - pos
     x, y, zl, L, M, N = _rot_local(x, y, zl, L, M, N, *rot)
     p1, p2 = p[P_G1], p[P_G2]
-    t = geom.distance_static(code, radius, conic, x, y, zl, L, M, N,
-                             coeffs=c, newton_iters=newton_iters, p1=p1,
-                             p2=p2, lay=lay)
+    if code == geom.NURBS:
+        # the two-plane solve gives the normal too (``lay``: the net)
+        t, nrm = nurbs.intersect(c, lay, x, y, zl, L, M, N,
+                                 iters=newton_iters)
+    else:
+        t = geom.distance_static(code, radius, conic, x, y, zl, L, M, N,
+                                 coeffs=c, newton_iters=newton_iters, p1=p1,
+                                 p2=p2, lay=lay)
     x = x + t * L
     y = y + t * M
     zl = zl + t * N
@@ -232,8 +415,11 @@ def step_plain(code, refl, p, n_pre, st, absorbs=False, extras=False,
         if inner:
             i = torch.where(r2 < p[P_APMIN] * p[P_APMIN], 0.0, i)
         extra = (i, opd)
-    nx, ny, nz = geom.surface_normal_static(code, radius, conic, c, x, y,
-                                            p1, p2, lay=lay)
+    if code == geom.NURBS:
+        nx, ny, nz = nrm
+    else:
+        nx, ny, nz = geom.surface_normal_static(code, radius, conic, c, x, y,
+                                                p1, p2, lay=lay)
     raw = (nx, ny, nz)  # the groove frame reads the unflipped normal
     dot = L * nx + M * ny + N * nz
     sgn = torch.sign(dot)
@@ -307,6 +493,7 @@ def step_adjoint_plain(code, refl, p, n_pre, st, g, absorbs=False,
     std = code == geom.STANDARD
     newton = code in geom.RADIAL_CODES
     cart = code in geom.CART_CODES
+    nrb = code == geom.NURBS
     p1, p2 = p[P_G1], p[P_G2]
 
     # ---- recompute the forward intermediates (in the surface's frame) ----
@@ -365,6 +552,9 @@ def step_adjoint_plain(code, refl, p, n_pre, st, g, absorbs=False,
         okf = fp.abs() > 1e-14
         fp = torch.where(okf, fp, 1e-14)
         t = t_s - f / fp
+    elif nrb:
+        fw = nurbs_forward(c, lay, xl, yl, zl, L, M, N, newton_iters)
+        t = fw.t
     else:
         big = torch.abs(N) > 1e-14
         Ns = torch.where(big, N, 1e-14)
@@ -397,6 +587,8 @@ def step_adjoint_plain(code, refl, p, n_pre, st, g, absorbs=False,
         else:
             im = torch.rsqrt(fx**2 + fy**2 + 1)
         nx, ny, nz = fx * im, fy * im, -im
+    elif nrb:
+        nx, ny, nz = fw.normal
     else:
         nx, ny, nz = geom._normal_plane(x1)
     dot = L * nx + M * ny + N * nz
@@ -633,6 +825,9 @@ def step_adjoint_plain(code, refl, p, n_pre, st, g, absorbs=False,
         g_p1 = g_fx * p1n.dp1[1] + g_fy * p1n.dp1[2]
         g_p2 = g_fx * p1n.dp2[1] + g_fy * p1n.dp2[2]
         w1 = geom.coef_weights(code, p1n, 0.0 * g_fx, g_fx, g_fy)
+    elif nrb:
+        # the normal comes from the solve (its cotangent goes there)
+        g_nrb = (sgn * g_nxs, sgn * g_nys, sgn * g_nzs)
 
     # ---- propagate: x1 = xl + t L, y1 = yl + t M, z1 = zl + t N ----
     g_xl, g_yl, g_zl = g_x1, g_y1, g_z1
@@ -773,6 +968,17 @@ def step_adjoint_plain(code, refl, p, n_pre, st, g, absorbs=False,
         gM = gM + g_Y * t_s
         g_coef = geom.coef_columns(code, c.shape[-1], p1, p2, Xs, Ys, ws, x1,
                                    y1, w1, lay) + [g_p1, g_p2]
+    elif nrb:
+        g_r0, g_k3, g_net = nurbs_adjoint(fw, g_t, g_nrb)
+        g_xl = g_xl + g_r0[0]
+        g_yl = g_yl + g_r0[1]
+        g_zl = g_zl + g_r0[2]
+        gL = gL + g_k3[0]
+        gM = gM + g_k3[1]
+        gN = gN + g_k3[2]
+        g_R = torch.zeros_like(gx)
+        g_coef = list(g_net.unbind(0))
+        g_coef += [torch.zeros_like(gx)] * (c.shape[-1] - len(g_coef))
     else:
         g_zl = g_zl - g_t / Ns
         gN = gN + torch.where(big, g_t * zl / (Ns * Ns), 0.0)
@@ -802,7 +1008,7 @@ def step_adjoint_plain(code, refl, p, n_pre, st, g, absorbs=False,
     if full:
         g_in = g_in + (g_i, g_opd)
         cols = cols + (g_kpre,)
-    if newton or cart:
+    if newton or cart or nrb:
         cols = cols + tuple(g_coef)
     if grating:
         cols = cols + (g_p1, g_p2)

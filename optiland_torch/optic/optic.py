@@ -3,7 +3,7 @@
 Counterpart of ``optiland_tpu/optic/optic.py`` (a subset): ``SurfaceDef``,
 ``SurfaceGroup.add`` for the "standard", "plane", "even_asphere",
 "odd_asphere", "polynomial", "chebyshev", "toroidal", "biconic",
-"zernike", "forbes_qbfs", "forbes_q2d" and "grating" surface types (with
+"zernike", "forbes_qbfs", "forbes_q2d", "nurbs" and "grating" surface types (with
 the JAX package's arguments),
 a semi-diameter or a ``RadialAperture`` as the physical aperture, and an
 optional coating (a coating object or the "fresnel" shorthand), the field,
@@ -31,7 +31,10 @@ from optiland_torch.core import paraxial as paraxial_core
 from optiland_torch.core import raygen
 from optiland_torch.core import trace as trace_core
 from optiland_torch.core.distributions import create_distribution
-from optiland_torch.core.system import SurfaceStack, System, SystemConfig
+from optiland_torch.core.nurbs import build_nurbs_def
+from optiland_torch.core.system import (
+    SurfaceStack, System, SystemConfig, nurbs_aux_of,
+)
 from optiland_torch.materials import AIR, BaseMaterial, resolve_material
 from optiland_torch.polarization import (
     create_polarization, exit_fields, polarized_intensity,
@@ -49,9 +52,10 @@ _GEOM_CODES = {
     "zernike": geom.ZERNIKE_SAG,
     "forbes_qbfs": geom.FORBES_QBFS,
     "forbes_q2d": geom.FORBES_Q2D,
+    "nurbs": geom.NURBS,
 }
 # the JAX package's other surface types, and what they wait for
-_QUEUE2_TYPES = ("nurbs", "grid_sag")
+_QUEUE2_TYPES = ("grid_sag",)
 
 
 def _later(what: str) -> NotImplementedError:
@@ -145,10 +149,18 @@ class SurfaceGroup:
           * "grating": ``grating_period`` (um, into geo_p1),
             ``groove_orientation_angle`` (rad, into geo_p2) and
             ``grating_order`` (into geo_aux, ("grating", m)) on a plane
-            (infinite ``radius``) or conic substrate.
+            (infinite ``radius``) or conic substrate;
+          * "nurbs": ``control_points`` (3, nu, nv) and ``weights``
+            (nu, nv), ``u_degree``/``v_degree`` and ``u_knots``/
+            ``v_knots`` (Bezier when only the points are given, clamped
+            uniform knots by default), or without control points a fit of
+            the conic ``radius``/``conic`` over ``nurbs_norm_x``/``_y``
+            about ``nurbs_x_center``/``_y_center`` on ``n_points_u``/``_v``
+            + 1 samples (``core/nurbs.build_nurbs_def``); the coefficient
+            row is the flat net, the structure goes into geo_aux.
 
-        The other types of the JAX package ("nurbs", "grid_sag") come in a
-        later slice (ROADMAP Queue 2) and raise."""
+        The other type of the JAX package ("grid_sag") comes in a later
+        slice (ROADMAP Queue 2) and raises."""
         from optiland_torch.physical_apertures import RadialAperture
 
         if surface_type in _QUEUE2_TYPES:
@@ -211,6 +223,24 @@ class SurfaceGroup:
             geo_p1 = kwargs.pop("grating_period", np.inf)
             geo_p2 = kwargs.pop("groove_orientation_angle", 0.0)
             geo_aux = ("grating", int(kwargs.pop("grating_order", 0)))
+        elif surface_type == "nurbs":
+            coeff_arr, geo_aux = build_nurbs_def(
+                radius=radius,
+                conic=conic,
+                control_points=kwargs.pop("control_points", None),
+                weights=kwargs.pop("weights", None),
+                u_degree=kwargs.pop("u_degree", None),
+                v_degree=kwargs.pop("v_degree", None),
+                u_knots=kwargs.pop("u_knots", None),
+                v_knots=kwargs.pop("v_knots", None),
+                nurbs_norm_x=kwargs.pop("nurbs_norm_x", None),
+                nurbs_norm_y=kwargs.pop("nurbs_norm_y", None),
+                x_center=kwargs.pop("nurbs_x_center", 0.0),
+                y_center=kwargs.pop("nurbs_y_center", 0.0),
+                n_points_u=kwargs.pop("n_points_u", 5),
+                n_points_v=kwargs.pop("n_points_v", 5),
+            )
+            geo_aux = nurbs_aux_of(geo_aux)
         if kwargs:
             raise _later(f"surface argument(s) {sorted(kwargs)}")
         if aperture is not None and not isinstance(

@@ -365,8 +365,8 @@ def test_vertex_ray_matches_jax(monkeypatch):
 def test_optic_builder_round_trip():
     """surfaces.add builds the three types (and the three Zernike schemes)
     with JAX's keyword arguments into the same stack and extras,
-    system_from_numpy carries them, and NURBS and grid sag still raise
-    naming ROADMAP Queue 2."""
+    system_from_numpy carries them, and malformed extras and grid sag
+    still raise, grid sag naming ROADMAP Queue 2."""
     cases = [(fam, {}) for fam in AUX] + [
         ("zernike", {"zernike_type": s}) for s in ("standard", "noll")]
     for fam, kw in cases:
@@ -393,13 +393,14 @@ def test_optic_builder_round_trip():
         torch.testing.assert_close(back.stack.coeffs, tsys.stack.coeffs,
                                    rtol=0, atol=0)
     for aux in (("nurbs", 3), ["fringe"], ("qbfs", 5)):
-        # NURBS extras, a list, and Qbfs extras on a Zernike surface
+        # malformed NURBS extras, a list, and Qbfs extras on a Zernike
+        # surface
         bad = dict(cfg, geom_aux=(None, aux, None, None))
         with pytest.raises(NotImplementedError, match="geom_aux"):
             system_from_numpy(arrays, bad)
     o = TOptic()
     o.surfaces.add(index=0, radius=np.inf, thickness=np.inf)
-    for kind, kw in (("nurbs", {}), ("grid_sag", {})):
+    for kind, kw in (("grid_sag", {}),):
         with pytest.raises(NotImplementedError, match="Queue 2"):
             o.surfaces.add(index=1, surface_type=kind, **kw)
 
@@ -469,7 +470,8 @@ def test_kernel_tables_share_one_buffer_and_builds_are_flag_bits():
     bits.update({launch.DEEP: bits[launch.SAG] | launch.BIT_DEEP,
                  launch.DEEP_FREE: bits[launch.FREE] | launch.BIT_DEEP,
                  launch.DEEP_AUX: bits[launch.AUX] | launch.BIT_DEEP,
-                 launch.GRAT: launch.BIT_TILT | launch.BIT_GRAT})
+                 launch.GRAT: launch.BIT_TILT | launch.BIT_GRAT,
+                 launch.NURBS: launch.BIT_TILT | launch.BIT_NURBS})
     assert all(b == v for b, v in bits.items())
     assert set(bits) == set(launch.BUILD_SUFFIX)
     for b in bits:

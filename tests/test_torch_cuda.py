@@ -32,7 +32,10 @@ of each array's scale and 1e-3 in the gradients' L2 norm. The free build
 (the Cartesian freeforms): as the trace kernels, every gradient column,
 P_G1, P_G2 and each coefficient column included. The grating build
 (K6c): as the trace kernels, the grating surface's P_G1 and P_G2 columns
-among the summed gradients.
+among the summed gradients. The nurbs build (K6d): as the trace kernels,
+each of the net's columns among the summed gradients; its f32 kernels
+against the f64 plain versions to 2e-4 of each array's scale (at most 1 in
+1e4 entries off, a clip edge) and 1e-3 in the gradients' L2 norm.
 """
 
 import dataclasses
@@ -52,7 +55,8 @@ from optiland_torch.ops import huygens as hu
 from optiland_torch.optic import Optic
 from optiland_torch.polarization import create_polarization
 from optiland_torch.samples import (
-    AsphericSinglet, CookeTriplet, freeform, grating, perturbed, registry,
+    AsphericSinglet, CookeTriplet, freeform, grating, nurbs, perturbed,
+    registry,
 )
 
 H = (0.0, 0.7)
@@ -190,7 +194,7 @@ def test_entry_point_launches_both_kernels(cuda_device):
 @pytest.mark.cuda
 def test_wrapper_raises_instead_of_falling_back(cuda_device):
     _, params, aim, spec = _setup()
-    bad = ((0, 12) + spec[0][2:],) + spec[1:]  # NURBS: not yet
+    bad = ((0, 11) + spec[0][2:],) + spec[1:]  # grid sag: a later slice
     with pytest.raises(NotImplementedError):
         ft.merit_fwd(params, aim, bad, 100, seed=1)
     with pytest.raises(ValueError, match="float64 on cuda"):
@@ -363,7 +367,7 @@ def test_trace_wrappers_raise_instead_of_falling_back(cuda_device):
     with pytest.raises(ValueError, match="contiguous"):
         strided = torch.stack([cots[0], cots[0]], dim=1)[:, 0]
         ftr.trace_bwd(params, spec, 1, ins, [strided] + cots[1:])
-    bad = ((0, 12) + spec[0][2:],) + spec[1:]  # NURBS: not yet
+    bad = ((0, 11) + spec[0][2:],) + spec[1:]  # grid sag: a later slice
     with pytest.raises(NotImplementedError):
         ftr.trace_field_bwd(params, aim, bad, 1, Px, Py, cots)
     # a tilted system runs the kernels and agrees with their plain versions
@@ -1828,3 +1832,236 @@ def test_grat_refusals_and_plain_paths_on_the_card(cuda_device):
             torch.testing.assert_close(a, b, rtol=1e-12,
                                        atol=1e-12 * float(b.abs().max()),
                                        msg=f"plain engine on the card: {k}")
+
+
+# ---------------------------------------------------------------------------
+# K6d: NURBS surfaces in every trace kernel (the nurbs build)
+# ---------------------------------------------------------------------------
+
+NURBS_SYSTEMS = {"rational": nurbs.rational_nurbs,
+                 "fitted": nurbs.fitted_nurbs,
+                 "bspline": nurbs.bspline_nurbs,
+                 "tilted": nurbs.tilted_nurbs}
+
+
+def _nurbs_check(system, R, seed, what, dtype=torch.float64, rtol=1e-10):
+    """Every monochromatic kernel of the nurbs build on ``system`` against
+    its plain version (f64, or ``dtype`` against the f64 plain version
+    with ``rtol`` then ``_f32_close``); returns the plain trace_bwd's flat
+    gradient."""
+    wl, params, aim, _, Px, Py, ins, cots = _k6_inputs(system, freeform.H, R,
+                                                       seed)
+    coeffs, lay = _aux_tables(system)
+    nc = coeffs.shape[1]
+    spec = ftr.fast_spec(system, field=True)
+    cast = (lambda t: t.to(dtype).contiguous())
+    c32, l32 = _aux_tables(system, dtype)
+    args = [cast(t) for t in (params, aim, Px, Py)]
+    ins_d, cots_d = [cast(t) for t in ins], [cast(t) for t in cots]
+
+    def close(got, ref, name, **kw):
+        if dtype == torch.float64:
+            _close(got, ref, rtol, f"{what} {name}", **kw)
+        else:
+            _f32_close(got, ref, f"{what} {name}")
+
+    def flat_close(got, ref, name):
+        if dtype == torch.float64:
+            _flat_close(got, ref, f"{what} {name}")
+        else:
+            _f32_grad_close(got, ref, f"{what} {name}")
+
+    close(ftr.trace_fwd(args[0], spec, ins_d, c32, l32),
+          ftr.trace_fast_plain(params, spec, ins, coeffs, lay), "trace_fwd")
+    din, flat = ftr.trace_bwd(args[0], spec, nc, ins_d, cots_d, c32, l32)
+    din_p, flat_p = ftr.trace_fast_bwd_plain(params, spec, nc, ins, cots,
+                                             coeffs, lay)
+    close(din, din_p, "trace_bwd input cotangent", positions=False)
+    flat_close(flat, flat_p, "trace_bwd")
+    close(ftr.trace_field_fwd(args[0], args[1], spec, args[2], args[3], c32,
+                              l32),
+          ftr.trace_fast_field_plain(params, aim, spec, Px, Py, coeffs, lay),
+          "trace_field_fwd")
+    flat_close(ftr.trace_field_bwd(args[0], args[1], spec, nc, args[2],
+                                   args[3], cots_d, c32, l32),
+               ftr.trace_fast_field_bwd_plain(params, aim, spec, nc, Px, Py,
+                                              cots, coeffs, lay),
+               "trace_field_bwd")
+    mspec = ft._spec_of(system)
+    rows = ft.merit_fwd(args[0], args[1], mspec, R, Px=args[2], Py=args[3],
+                        coeffs=c32, lay=l32)
+    rows_p = ft.merit_fwd_plain(params, aim, mspec, R, Px=Px, Py=Py,
+                                coeffs=coeffs, lay=lay)
+    loss, xbar, ybar = ft._chan_combine(rows, R)
+    assert float(loss) == pytest.approx(
+        float(ft._chan_combine(rows_p, R)[0]),
+        rel=1e-12 if dtype == torch.float64 else 1e-3)
+    stats = torch.stack([xbar, ybar, 1.0 / R + 0 * xbar, 0 * xbar])
+    flat_close(ft.merit_bwd(args[0], args[1], stats, mspec, nc, R,
+                            Px=args[2], Py=args[3], coeffs=c32, lay=l32),
+               ft.merit_bwd_plain(params, aim, stats.to(torch.float64),
+                                  mspec, nc, R, Px=Px, Py=Py, coeffs=coeffs,
+                                  lay=lay), "merit_bwd")
+    return flat_p
+
+
+def _f32_close(got, ref, what):
+    """f32 against the f64 plain version: 2e-4 x max(1, the array's largest
+    entry), at most 1 in 1e4 entries off (a clip edge)."""
+    for k, (a, b) in enumerate(zip(got, ref)):
+        tol = 2e-4 * max(1.0, float(b.abs().max()))
+        bad = ((a.double() - b).abs() > tol) & torch.isfinite(b)
+        assert int(bad.sum()) <= max(1, b.numel() // 10000), (
+            f"{what} array {k}: {int(bad.sum())} entries off by more than "
+            f"{tol:.2e}")
+
+
+def _f32_grad_close(got, ref, what):
+    """f32 summed gradients to 1e-3 of the f64 plain version's L2 norm."""
+    d = float((got.double() - ref).norm())
+    assert d <= 1e-3 * float(ref.norm()), f"{what}: |d| {d:.3e}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", list(NURBS_SYSTEMS))
+def test_nurbs_kernels_match_plain_f64(cuda_device, kind):
+    """K1-K5 mono and K2/K3 in the nurbs build on each NURBS lens, per ray
+    and per gradient column (the net's 4 nu nv columns among them)."""
+    system = NURBS_SYSTEMS[kind]().system
+    ftr.reset_launch_counts()
+    ft.reset_launch_counts()
+    flat_p = _nurbs_check(system, 20001, 7, kind)
+    S, nc = system.cfg.num_surfaces, system.stack.coeffs.shape[1]
+    net = flat_p[S * 15:S * 15 + S * nc].reshape(S, nc)[1]
+    n = system.cfg.geom_aux[1][1] * system.cfg.geom_aux[1][2]
+    assert float(net[:4 * n].abs().max()) > 0 and torch.isfinite(net).all()
+    names = ("trace_fwd", "trace_bwd", "trace_field_fwd", "trace_field_bwd")
+    assert ftr.LAUNCHES == _only(ftr.LAUNCHES,
+                                 **{n + "_nurbs": 1 for n in names})
+    assert ft.LAUNCHES == _only(ft.LAUNCHES, merit_fwd_nurbs=1,
+                                merit_bwd_nurbs=1)
+
+
+@pytest.mark.cuda
+def test_nurbs_kernels_f32_match_f64(cuda_device):
+    """The f32 nurbs build against the f64 plain versions: per-ray arrays
+    to 2e-4 of their scale, gradients to 1e-3 in the L2 norm."""
+    _nurbs_check(nurbs.rational_nurbs().system, 20001, 8, "f32 rational",
+                 dtype=torch.float32)
+
+
+@pytest.mark.cuda
+def test_nurbs_poly_and_pol_kernels_match_plain(cuda_device):
+    """The nurbs build's poly mode on the rational lens and K8/K9 (both
+    modes) on its Fresnel-coated variant."""
+    system = nurbs.rational_nurbs().system
+    R = 20001
+    wl, _, _, _, _, _, ins, cots = _k6_inputs(system, freeform.H, R, 8)
+    coeffs, lay = _aux_tables(system)
+    nc = coeffs.shape[1]
+    spec = ftr.poly_spec(system)
+    params = ftr.build_poly_table(system).contiguous()
+    mats = system.stack.mat_coeffs.contiguous()
+    w = torch.tensor([0.48, 0.55, 0.65], dtype=torch.float64,
+                     device=cuda_device)[torch.arange(R, device=cuda_device)
+                                         % 3]
+    ins9 = ins + [w]
+    ftr.reset_launch_counts()
+    _close(ftr.trace_fwd_poly(params, mats, spec, ins9, coeffs, lay),
+           ftr.trace_fwd_poly_plain(params, mats, spec, ins9, coeffs, lay),
+           1e-10, "nurbs trace_fwd_poly")
+    din, flat = ftr.trace_bwd_poly(params, mats, spec, nc, ins9, cots,
+                                   coeffs, lay)
+    din_p, flat_p = ftr.trace_bwd_poly_plain(params, mats, spec, nc, ins9,
+                                             cots, coeffs, lay)
+    _close(din, din_p, 1e-10, "nurbs trace_bwd_poly input cotangent",
+           positions=False)
+    _flat_close(flat, flat_p, "nurbs trace_bwd_poly")
+    assert ftr.LAUNCHES == _only(ftr.LAUNCHES, trace_fwd_poly_nurbs=1,
+                                 trace_bwd_poly_nurbs=1)
+    from optiland_torch.ops import pol_trace as pt
+
+    csys = nurbs.coated_nurbs("H").system
+    wl, params, _, _, _, _, ins, _ = _k6_inputs(csys, freeform.H, R, 9)
+    coeffs, lay = _aux_tables(csys)
+    pspec = pt.pol_spec(csys, wl)
+    coat = pt.build_coat_table(csys, wl, torch.float64, cuda_device)
+    g = torch.Generator(device="cpu").manual_seed(9)
+    cots = [torch.randn(R, generator=g, dtype=torch.float64).to(
+        cuda_device) for _ in range(pt.N_POL)]
+    pt.reset_launch_counts()
+    for states, intensity in ((None, False),
+                              (pt.pol_states(create_polarization("H")),
+                               True)):
+        c = cots[:8] if intensity else cots
+        _pol_out_close(pt.pol_fwd(params, coat, pspec, ins, states,
+                                  intensity, coeffs, lay),
+                       pt.pol_fwd_plain(params, coat, pspec, ins, states,
+                                        intensity, coeffs, lay),
+                       "coated nurbs")
+        din, flat = pt.pol_bwd(params, coat, pspec, nc, ins, c, states,
+                               intensity, coeffs, lay)
+        din_p, flat_p = pt.pol_bwd_plain(params, coat, pspec, ins, c,
+                                         states, intensity, coeffs, nc,
+                                         with_coeffs=True, lay=lay)
+        _close(din, din_p, 1e-10, "coated nurbs pol_bwd input cotangent",
+               positions=False)
+        _flat_close(flat, flat_p, "coated nurbs pol_bwd")
+    assert pt.LAUNCHES == _only(pt.LAUNCHES, pol_fwd_nurbs=1,
+                                pol_bwd_nurbs=1, pol_fwd_intensity_nurbs=1,
+                                pol_bwd_intensity_nurbs=1)
+
+
+@pytest.mark.cuda
+def test_nurbs_entry_points_and_refusals(cuda_device):
+    """spot_rms_fast_field (value and the net's gradient), trace_fast_field
+    and Optic.trace of the fitted lens run the nurbs build and match the
+    plain versions on the CPU; a NURBS surface beside an asphere raises
+    naming the combination, from every entry point, and launches
+    nothing."""
+    lens = nurbs.fitted_nurbs()
+    system = lens.system
+    ftr.reset_launch_counts()
+    ft.reset_launch_counts()
+    Px, Py = ft.prng_disk(5, 4001, 0, torch.float64, cuda_device)
+    cf = system.stack.coeffs.clone().requires_grad_()
+    s2 = system.replace(stack=system.stack.replace(coeffs=cf))
+    loss = ft.spot_rms_fast_field(s2, *freeform.H, WL, Px=Px, Py=Py)
+    loss.backward()
+    f = ftr.trace_fast_field(system, *freeform.H, Px, Py, WL)
+    res = lens.trace(Hx=0.3, Hy=0.7, num_rays=8, record=False)
+    assert torch.isfinite(loss) and torch.isfinite(f.x).all()
+    assert torch.isfinite(res.x).all() and torch.isfinite(cf.grad).all()
+    assert float(cf.grad[1].abs().max()) > 0
+    assert ft.LAUNCHES == _only(ft.LAUNCHES, prng_disk=1,
+                                merit_fwd_nurbs=1, merit_bwd_nurbs=1)
+    assert ftr.LAUNCHES == _only(ftr.LAUNCHES, trace_field_fwd_nurbs=1,
+                                 trace_fwd_nurbs=1)
+    bad = nurbs.fitted_nurbs()
+    s3 = bad.surfaces.surfaces[2]
+    s3.surface_type, s3.coefficients = "even_asphere", (1e-5, -2e-8)
+    bad._invalidate()
+    bsys = bad.system
+    rays = raygen.generate_rays(bsys, *freeform.H, Px, Py, WL)
+    ftr.reset_launch_counts()
+    ft.reset_launch_counts()
+    for call in (lambda: ftr.trace_fast(bsys, rays, WL),
+                 lambda: trace_core.trace(bsys, rays, record=False,
+                                          wavelength=WL),
+                 lambda: ftr.trace_fast_field(bsys, *freeform.H, Px, Py, WL),
+                 lambda: ft.spot_rms_fast_field(bsys, *freeform.H, WL,
+                                                Px=Px, Py=Py)):
+        with pytest.raises(NotImplementedError,
+                           match="NURBS surface beside EVEN_ASPHERE"):
+            call()
+    assert not any(ftr.LAUNCHES.values()) and not any(ft.LAUNCHES.values())
+    config.set_device("cpu")
+    ref = nurbs.fitted_nurbs().system
+    cf_p = ref.stack.coeffs.clone().requires_grad_()
+    loss_p = ft.spot_rms_fast_field(
+        ref.replace(stack=ref.stack.replace(coeffs=cf_p)), *freeform.H, WL,
+        Px=Px.cpu(), Py=Py.cpu())
+    loss_p.backward()
+    assert float(loss) == pytest.approx(float(loss_p), rel=1e-12)
+    torch.testing.assert_close(cf.grad.cpu(), cf_p.grad, rtol=1e-9,
+                               atol=1e-12 * float(cf_p.grad.abs().max()))

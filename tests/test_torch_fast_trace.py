@@ -49,6 +49,7 @@ from optiland_tpu.core import trace as jtrace
 from optiland_tpu.ops import pallas_trace as jpt
 from optiland_tpu.optic import Optic as JOptic
 from optiland_tpu.samples import CookeTriplet as JCooke
+from tests.torch_shared import SharedRefs, shared
 
 H = (0.0, 0.7)
 WL = 0.55
@@ -119,20 +120,22 @@ def assert_rays(port, ref, rtol=1e-9):
 
 
 @pytest.fixture(scope="module")
-def jax_forward():
+def jax_forward(tmp_path_factory):
     """JAX trace_fast and trace_fast_field for each system, and the launch
-    bundle trace_fast was given."""
+    bundle trace_fast was given (per system, once per session:
+    ``torch_shared.SharedRefs``)."""
+    return SharedRefs(tmp_path_factory, "fast_forward", _jax_forward)
+
+
+def _jax_forward(kind):
     Px, Py = (jnp.asarray(a) for a in pupil())
-    out = {}
-    for kind in KINDS:
-        jsys = build(kind, "jax")
-        rays = jraygen.generate_rays(jsys, *H, Px, Py, WL)
-        out[kind] = {
-            "rays": rays,
-            "fast": jpt.trace_fast(jsys, rays, WL),
-            "field": jpt.trace_fast_field(jsys, *H, Px, Py, WL),
-        }
-    return out
+    jsys = build(kind, "jax")
+    rays = jraygen.generate_rays(jsys, *H, Px, Py, WL)
+    return {
+        "rays": rays,
+        "fast": jpt.trace_fast(jsys, rays, WL),
+        "field": jpt.trace_fast_field(jsys, *H, Px, Py, WL),
+    }
 
 
 def bundle_of(jrays):
@@ -188,28 +191,29 @@ def merit_of(m, f):
 
 
 @pytest.fixture(scope="module")
-def jax_grads():
+def jax_grads(tmp_path_factory):
     """jax.value_and_grad over every stack leaf of generate_rays + the XLA
-    trace with the tilt gate open (the kernels' gradient), per system."""
+    trace with the tilt gate open (the kernels' gradient), per system (once
+    per session: ``torch_shared.SharedRefs``)."""
+    return SharedRefs(tmp_path_factory, "fast_grads", _jax_grads)
+
+
+def _jax_grads(kind):
     mp = pytest.MonkeyPatch()
     mp.setenv("OPTILAND_TPU_TRACE_ENGINE", "unrolled")
     Px, Py = (jnp.asarray(a) for a in pupil())
-    out = {}
-    for kind in ("cooke", "vignetted"):
-        jsys = build(kind, "jax")
-        jsys = jsys.replace(cfg=dataclasses.replace(jsys.cfg, has_tilts=True))
+    jsys = build(kind, "jax")
+    jsys = jsys.replace(cfg=dataclasses.replace(jsys.cfg, has_tilts=True))
 
-        def merit(stack, jsys=jsys):
-            s = jsys.replace(stack=stack)
-            rays = jraygen.generate_rays(s, *H, Px, Py, WL)
-            f, _ = jtrace.trace(s, rays, record=False)
-            return merit_of(jnp, f)
+    def merit(stack):
+        s = jsys.replace(stack=stack)
+        rays = jraygen.generate_rays(s, *H, Px, Py, WL)
+        f, _ = jtrace.trace(s, rays, record=False)
+        return merit_of(jnp, f)
 
-        val, g = jax.value_and_grad(merit)(jsys.stack)
-        out[kind] = (float(val), {k: np.asarray(getattr(g, k))
-                                  for k in STACK_FIELDS})
+    val, g = jax.value_and_grad(merit)(jsys.stack)
     mp.undo()
-    return out
+    return float(val), {k: np.asarray(getattr(g, k)) for k in STACK_FIELDS}
 
 
 def with_leaves(system, skip=()):
@@ -437,7 +441,8 @@ def test_cpu_wrappers_run_the_plain_versions():
                           "trace_field_bwd", "trace_fwd_poly",
                           "trace_bwd_poly")
            for k in (n, n + "_tilt", n + "_sag", n + "_free", n + "_deep",
-                     n + "_deep_free", n + "_aux", n + "_deep_aux")},
+                     n + "_deep_free", n + "_aux", n + "_deep_aux",
+                     n + "_nurbs")},
         # the grating build: the monochromatic kernels only
         **{n + "_grat": 0 for n in ("trace_fwd", "trace_bwd",
                                     "trace_field_fwd", "trace_field_bwd")}}
@@ -451,7 +456,14 @@ def test_cpu_wrappers_run_the_plain_versions():
 
 
 @pytest.fixture(scope="module")
-def jax_rms():
+def jax_rms(tmp_path_factory):
+    """rms_spot_size's value, gradient and spot through JAX's XLA path
+    (once per session, ``torch_shared.shared``)."""
+    val, grads, xyi = shared(tmp_path_factory, "fast_rms", _jax_rms)
+    return val, grads, jspot.SpotData(*(jnp.asarray(a) for a in xyi))
+
+
+def _jax_rms():
     mp = pytest.MonkeyPatch()
     mp.setenv("OPTILAND_TPU_TRACE_ENGINE", "unrolled")
     jsys = JCooke().system
@@ -463,7 +475,7 @@ def jax_rms():
     val, g = jax.value_and_grad(f)(jsys.stack)
     x, y, i = jspot.spot_coordinates(jsys, *H, Px, Py, WL)
     ref = (float(val), {k: np.asarray(getattr(g, k)) for k in STACK_FIELDS},
-           jspot.SpotData(x, y, i))
+           (x, y, i))
     mp.undo()
     return ref
 

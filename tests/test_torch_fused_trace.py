@@ -35,6 +35,7 @@ from optiland_torch.optic import Optic
 from optiland_torch.samples import CookeTriplet as TorchCooke
 from optiland_tpu.ops import pallas_trace as jpt
 from optiland_tpu.samples import CookeTriplet as JaxCooke
+from tests.torch_shared import shared
 
 H = (0.0, 0.7)
 WL = 0.55
@@ -72,23 +73,29 @@ def with_leaves(system):
 
 
 @pytest.fixture(scope="module")
-def jax_reference():
+def jax_reference(tmp_path_factory):
     """jax.value_and_grad of the JAX package's spot_rms_fast_field over
-    every stack leaf (interpret mode on the CPU, f64)."""
+    every stack leaf (interpret mode on the CPU, f64), computed once per
+    session (``torch_shared.shared``), and the JAX system."""
     jsys = JaxCooke().system
-    Px, Py = pupil()
 
-    def merit(stack):
-        return jpt.spot_rms_fast_field(
-            jsys.replace(stack=stack), *H, WL, Px=jnp.asarray(Px),
-            Py=jnp.asarray(Py),
-        )
+    def compute():
+        Px, Py = pupil()
 
-    loss, grads = jax.value_and_grad(merit)(jsys.stack)
-    return {
-        "system": jsys, "Px": Px, "Py": Py, "loss": float(loss),
-        "grads": {k: np.asarray(getattr(grads, k)) for k in STACK_FIELDS},
-    }
+        def merit(stack):
+            return jpt.spot_rms_fast_field(
+                jsys.replace(stack=stack), *H, WL, Px=jnp.asarray(Px),
+                Py=jnp.asarray(Py),
+            )
+
+        loss, grads = jax.value_and_grad(merit)(jsys.stack)
+        return {
+            "Px": Px, "Py": Py, "loss": float(loss),
+            "grads": {k: np.asarray(getattr(grads, k)) for k in STACK_FIELDS},
+        }
+
+    return {**shared(tmp_path_factory, "fused_cooke_merit", compute),
+            "system": jsys}
 
 
 @pytest.fixture(scope="module")
@@ -152,15 +159,20 @@ def test_reference_nan_entries_are_the_known_ones(jax_reference):
 # ---------------------------------------------------------------------------
 
 
-def test_param_table_matches_jax(jax_reference):
-    a = np.asarray(jpt.build_param_table(jax_reference["system"], WL))
+@pytest.fixture(scope="module")
+def jax_system():
+    return JaxCooke().system
+
+
+def test_param_table_matches_jax(jax_system):
+    a = np.asarray(jpt.build_param_table(jax_system, WL))
     b = ft.build_param_table(TorchCooke().system, WL).numpy()
     np.testing.assert_allclose(b, a, rtol=1e-12, atol=0)
 
 
 @pytest.mark.parametrize("field", [(0.0, 0.0), (0.0, 0.7), (0.3, -1.0)])
-def test_aim_vector_matches_jax(jax_reference, field):
-    a = np.asarray(jpt.aim_vector(jax_reference["system"], *field))
+def test_aim_vector_matches_jax(jax_system, field):
+    a = np.asarray(jpt.aim_vector(jax_system, *field))
     b = ft.aim_vector(TorchCooke().system, *field).numpy()
     np.testing.assert_allclose(b, a, rtol=1e-12, atol=1e-15)
 
@@ -366,6 +378,6 @@ def test_cpu_wrappers_run_the_plain_versions():
     assert ft.LAUNCHES == {"prng_disk": 0, **{
         n + suf: 0 for n in ("merit_fwd", "merit_bwd")
         for suf in ("", "_tilt", "_sag", "_free", "_deep", "_deep_free",
-                    "_aux", "_deep_aux", "_grat")}}
+                    "_aux", "_deep_aux", "_nurbs", "_grat")}}
     with pytest.raises(TypeError, match="float32 or float64"):
         ft.prng_disk(1, 10, 0, torch.float16, "cpu")

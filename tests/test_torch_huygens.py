@@ -42,6 +42,7 @@ from optiland_tpu.psf import HuygensPSF as JHuygensPSF
 from optiland_tpu.psf import huygens_psf as j_psf
 from optiland_tpu.psf.huygens_fresnel import huygens_field as j_field
 from optiland_tpu.samples import CookeTriplet as JCooke
+from tests.torch_shared import shared
 
 
 @pytest.fixture(autouse=True)
@@ -103,7 +104,13 @@ def _loss(m, f):
 
 
 @pytest.fixture(scope="module")
-def jax_field_grads():
+def jax_field_grads(tmp_path_factory):
+    """jax.grad of each JAX field sum's loss (once per session,
+    ``torch_shared.shared``)."""
+    return shared(tmp_path_factory, "huygens_field_grads", _jax_field_grads)
+
+
+def _jax_field_grads():
     arrays, wl, Rp = _case(P=85, Q=137, seed=3)
     args = tuple(map(jnp.asarray, arrays))
     out = {}
@@ -303,7 +310,13 @@ PIXEL = (4, 4)
 
 
 @pytest.fixture(scope="module")
-def jax_psf_grads():
+def jax_psf_grads(tmp_path_factory):
+    """jax.value_and_grad of the JAX PSF's pixel over every stack leaf
+    (once per session, ``torch_shared.shared``)."""
+    return shared(tmp_path_factory, "huygens_psf_grads", _jax_psf_grads)
+
+
+def _jax_psf_grads():
     system = JCooke().system
 
     def pixel(stack):

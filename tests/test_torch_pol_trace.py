@@ -17,6 +17,7 @@ adjoint to rtol 1e-10 of autograd, every gradient to rtol 1e-8 with atol
 """
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -98,60 +99,75 @@ def assert_p(got, ref):
                                atol=1e-12)
 
 
-@pytest.fixture(scope="module")
-def jax_refs(unrolled):
-    """Per kernel kind: the JAX system, a 300-ray bundle, its XLA trace
-    (rays, p), the interpret-mode kernel's (rays, p) and for three of them
-    the interpret-mode intensity kernel of one state."""
-    refs = {}
-    for kind in KERNEL_KINDS:
-        jsys = tps.build(kind, "jax").system
-        rays = jax_bundle(jsys, 300, 11, Hy=0.0 if kind == "mirror" else 0.5)
-        xla, hist = jtrace.trace(jsys, rays, record=False)
-        fast, p = j_fast_pol(jsys, rays, WL)
-        refs[kind] = dict(system=jsys, rays=rays, xla=xla, p_xla=hist["p"],
-                          fast=fast, p_fast=p)
-    for st, kind in STATE_OF.items():
-        r = refs[kind]
-        r["intensity"] = j_fast_pol_intensity(r["system"], r["rays"], WL,
-                                              state=j_state(st)).i
-    return refs
+# The JAX references, per kernel kind, computed when a test first reads
+# them (each test reads only its kind's: under --dist load a module fixture
+# of every kind ran on every worker that got one of these tests).
+
+
+@functools.lru_cache(maxsize=None)
+def jax_case(kind):
+    """The JAX system of kernel kind ``kind`` and a 300-ray bundle."""
+    jsys = tps.build(kind, "jax").system
+    return jsys, jax_bundle(jsys, 300, 11, Hy=0.0 if kind == "mirror" else 0.5)
+
+
+@functools.lru_cache(maxsize=None)
+def jax_xla(kind):
+    """The XLA trace of ``jax_case(kind)``: (rays, p) (under ``unrolled``)."""
+    jsys, rays = jax_case(kind)
+    xla, hist = jtrace.trace(jsys, rays, record=False)
+    return xla, hist["p"]
+
+
+@functools.lru_cache(maxsize=None)
+def jax_fast(kind):
+    """The interpret-mode kernel's (rays, p) of ``jax_case(kind)``."""
+    return j_fast_pol(*jax_case(kind), WL)
+
+
+@functools.lru_cache(maxsize=None)
+def jax_intensity(state):
+    """The interpret-mode intensity kernel of ``state`` on its kind's case."""
+    jsys, rays = jax_case(STATE_OF[state])
+    return j_fast_pol_intensity(jsys, rays, WL, state=j_state(state)).i
 
 
 @pytest.mark.parametrize("kind", KERNEL_KINDS)
-def test_plain_engine_matches_jax_xla(jax_refs, kind):
-    ref = jax_refs[kind]
-    system = tps.carried(ref["system"])
-    rays = port_rays(ref["rays"])
+def test_plain_engine_matches_jax_xla(unrolled, kind):
+    jsys, jrays = jax_case(kind)
+    ref_xla, ref_p = jax_xla(kind)
+    system = tps.carried(jsys)
+    rays = port_rays(jrays)
     out, hist = ttrace.trace(system, rays, record=False)
-    assert_rays(out, ref["xla"])
-    assert_p(hist["p"], ref["p_xla"])
+    assert_rays(out, ref_xla)
+    assert_p(hist["p"], ref_p)
     for a, b in ((out.L0, rays.L), (out.N0, rays.N)):
         assert torch.equal(a, b)
     # with a history: the same rays and p
     out_h, hist_h = ttrace.trace(system, rays, record=True)
-    assert_p(hist_h["p"], ref["p_xla"])
+    assert_p(hist_h["p"], ref_p)
     assert hist_h["x"].shape == (system.cfg.num_surfaces, 300)
 
 
 @pytest.mark.parametrize("kind", KERNEL_KINDS)
-def test_kernel_plain_matches_jax_interpret(jax_refs, kind):
-    ref = jax_refs[kind]
-    system = tps.carried(ref["system"])
+def test_kernel_plain_matches_jax_interpret(unrolled, kind):
+    jsys, jrays = jax_case(kind)
+    ref_fast, ref_p = jax_fast(kind)
+    system = tps.carried(jsys)
     assert pt.pol_supported(system, WL)
-    out, p = pt.trace_fast_pol(system, port_rays(ref["rays"]), WL)
-    assert_rays(out, ref["fast"])
-    assert_p(p, ref["p_fast"])
+    out, p = pt.trace_fast_pol(system, port_rays(jrays), WL)
+    assert_rays(out, ref_fast)
+    assert_p(p, ref_p)
 
 
 @pytest.mark.parametrize("state", STATES)
-def test_kernel_plain_intensity_matches_jax_interpret(jax_refs, state):
-    ref = jax_refs[STATE_OF[state]]
-    system = tps.carried(ref["system"])
-    rays = port_rays(ref["rays"])
+def test_kernel_plain_intensity_matches_jax_interpret(unrolled, state):
+    jsys, jrays = jax_case(STATE_OF[state])
+    system = tps.carried(jsys)
+    rays = port_rays(jrays)
     st = None if state == "unpolarized" else t_state(state)
     out = pt.trace_fast_pol_intensity(system, rays, WL, state=st)
-    np.testing.assert_allclose(np_of(out.i), np.asarray(ref["intensity"]),
+    np.testing.assert_allclose(np_of(out.i), np.asarray(jax_intensity(state)),
                                rtol=1e-9, atol=1e-12)
     # = the full mode followed by the exit intensity of the launch state
     full, p = pt.trace_fast_pol(system, rays, WL)
@@ -205,13 +221,10 @@ def test_hand_adjoint_matches_autograd(kind, mode):
     _hand_vs_autograd(kind, states, mode != "full", 3)
 
 
-@pytest.fixture(scope="module")
-def singlet(unrolled):
+@functools.lru_cache(maxsize=None)
+def singlet_case():
     """The JAX suite's 3-surface Fresnel singlet (R 50, 45 mm to the
-    image, H), a fixed 150-ray bundle, and jax.grad over every stack leaf
-    of two merits of its XLA trace: the suite's y^2 i_pol + |p|^2 and
-    bench.py's spread of (x i_pol, y i_pol), the latter with the tilt gate
-    open as the kernels trace (their zero-tilt derivatives)."""
+    image, H) and a fixed 150-ray bundle."""
     from optiland_tpu.optic import Optic
 
     o = Optic()
@@ -225,7 +238,17 @@ def singlet(unrolled):
     o.wavelengths.add(0.55, is_primary=True)
     o.set_polarization("H")
     jsys = o.system
-    rays = jax_bundle(jsys, 150, 5)
+    return jsys, jax_bundle(jsys, 150, 5)
+
+
+@functools.lru_cache(maxsize=None)
+def singlet_grad(name):
+    """jax.value_and_grad over every stack leaf of one merit of the
+    singlet's XLA trace (under ``unrolled``; each test computes only its
+    own): "suite", the suite's y^2 i_pol + |p|^2; "bench", bench.py's
+    spread of (x i_pol, y i_pol), with the tilt gate open as the kernels
+    trace (their zero-tilt derivatives)."""
+    jsys, rays = singlet_case()
     state = j_state("H")
 
     def merit_suite(stack):
@@ -244,9 +267,8 @@ def singlet(unrolled):
         x, y = out.x * i, out.y * i
         return jnp.mean((x - jnp.mean(x)) ** 2 + (y - jnp.mean(y)) ** 2)
 
-    grads = {name: jax.value_and_grad(f)(jsys.stack)
-             for name, f in (("suite", merit_suite), ("bench", merit_bench))}
-    return jsys, rays, grads
+    merit = {"suite": merit_suite, "bench": merit_bench}[name]
+    return jax.value_and_grad(merit)(jsys.stack)
 
 
 def port_leaves(jsys):
@@ -270,9 +292,9 @@ def assert_grads(leaves, jgrad):
                                    atol=1e-12 * scale, err_msg=k)
 
 
-def test_polarized_merit_gradient_matches_jax(singlet):
-    jsys, jrays, grads = singlet
-    value, jgrad = grads["suite"]
+def test_polarized_merit_gradient_matches_jax(unrolled):
+    jsys, jrays = singlet_case()
+    value, jgrad = singlet_grad("suite")
     system, leaves = port_leaves(jsys)
     rays = port_rays(jrays)
     out, hist = ttrace.trace(system, rays, record=False)
@@ -284,12 +306,12 @@ def test_polarized_merit_gradient_matches_jax(singlet):
     assert_grads(leaves, jgrad)
 
 
-def test_kernel_merit_gradient_matches_jax(singlet):
+def test_kernel_merit_gradient_matches_jax(unrolled):
     # the bench step through the kernels' plain versions and the hand
     # adjoint (trace_fast_pol_intensity on CPU tensors) against jax.grad of
     # JAX's XLA path with the tilt gate open
-    jsys, jrays, grads = singlet
-    value, jgrad = grads["bench"]
+    jsys, jrays = singlet_case()
+    value, jgrad = singlet_grad("bench")
     system, leaves = port_leaves(jsys)
     out = pt.trace_fast_pol_intensity(system, port_rays(jrays), WL,
                                       state=t_state("H"))

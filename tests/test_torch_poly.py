@@ -48,6 +48,7 @@ from optiland_tpu.core import trace as jtrace
 from optiland_tpu.materials import dispersion as j_disp
 from optiland_tpu.ops import pallas_trace as jpt
 from optiland_tpu.samples import CookeTriplet as JCooke
+from tests.torch_shared import SharedRefs
 
 H = (0.0, 0.7)
 N_RAYS = 96
@@ -176,33 +177,39 @@ SYSTEMS = {"cooke": (lambda: JCooke().system, False),
 
 
 @pytest.fixture(scope="module")
-def jax_refs():
-    """Per system: the JAX system, its launch bundle with per-ray
-    wavelengths, JAX's trace_fast_poly of it (interpret mode), and the
-    value and gradient of the merit through JAX's XLA path."""
+def jax_refs(tmp_path_factory):
+    """Per system and part, each when a test first reads it (once per
+    session: ``torch_shared.SharedRefs``): "fast", its launch bundle with
+    per-ray wavelengths and JAX's trace_fast_poly of it (interpret mode);
+    "grads", the value and gradient of the merit through JAX's XLA path."""
+    return SharedRefs(tmp_path_factory, "poly", _jax_ref)
+
+
+def _jax_ref(key):
+    name, part = key
+    build, with_i = SYSTEMS[name]
     mp = pytest.MonkeyPatch()
     mp.setenv("OPTILAND_TPU_TRACE_ENGINE", "unrolled")
     Px, Py = (jnp.asarray(a) for a in pupil())
     w = jnp.asarray(wavelengths())
-    out = {}
-    for name, (build, with_i) in SYSTEMS.items():
-        # the tilt gate open: under jax.grad the kernels keep the rotation
-        # code, and so give the zero-tilt derivatives
-        jsys = build()
-        jsys = jsys.replace(cfg=dataclasses.replace(jsys.cfg, has_tilts=True))
+    # the tilt gate open: under jax.grad the kernels keep the rotation
+    # code, and so give the zero-tilt derivatives
+    jsys = build()
+    jsys = jsys.replace(cfg=dataclasses.replace(jsys.cfg, has_tilts=True))
+    if part == "fast":
         rays = jraygen.generate_rays(jsys, *H, Px, Py, 0.55).replace(w=w)
-        fast = jpt.trace_fast_poly(jsys, rays)
+        out = dict(rays=rays, fast=jpt.trace_fast_poly(jsys, rays))
+    else:
 
-        def merit(stack, jsys=jsys, with_i=with_i):
+        def merit(stack):
             s = jsys.replace(stack=stack)
             r = jraygen.generate_rays(s, *H, Px, Py, w)
             f, _ = jtrace.trace(s, r, record=False)
             return merit_of(jnp, f, with_i)
 
         val, g = jax.value_and_grad(merit)(jsys.stack)
-        out[name] = dict(system=jsys, rays=rays, fast=fast, value=float(val),
-                         grads={k: np.asarray(getattr(g, k))
-                                for k in STACK_FIELDS})
+        out = dict(value=float(val),
+                   grads={k: np.asarray(getattr(g, k)) for k in STACK_FIELDS})
     mp.undo()
     return out
 
@@ -236,7 +243,7 @@ def test_poly_spec_and_support():
 
 @pytest.mark.parametrize("name", SYSTEMS)
 def test_trace_fast_poly_matches_jax_kernel(jax_refs, name):
-    ref = jax_refs[name]
+    ref = jax_refs[name, "fast"]
     rays = TRays(**{k: torch.tensor(np.asarray(getattr(ref["rays"], k)))
                     for k in FIELDS + ("w",)})
     out = ftr.trace_fast_poly(port_system(name), rays)
@@ -253,7 +260,7 @@ def test_trace_fast_poly_matches_jax_kernel(jax_refs, name):
 
 @pytest.mark.parametrize("name", SYSTEMS)
 def test_trace_fast_poly_gradients_match_jax(jax_refs, name):
-    ref = jax_refs[name]
+    ref = jax_refs[name, "grads"]
     with_i = SYSTEMS[name][1]
     system = port_system(name)
     leaves = {k: v.detach().clone().requires_grad_(v.numel() > 0)

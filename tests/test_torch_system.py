@@ -324,8 +324,8 @@ def test_scalar_term_dispersion_matches_jax(code):
 
 def test_unported_surface_types_raise():
     lens = TorchCooke()
-    with pytest.raises(NotImplementedError, match="nurbs"):
-        lens.surfaces.add(index=2, surface_type="nurbs")
+    with pytest.raises(NotImplementedError, match="grid_sag"):
+        lens.surfaces.add(index=2, surface_type="grid_sag")
     # Optic.trace is ported; the image-height field types are not yet
     lens.fields.set_type("paraxial_image_height")
     with pytest.raises(NotImplementedError, match="later slice"):
@@ -375,7 +375,8 @@ def test_unsupported_geometry_codes_raise():
     from optiland_torch.core import geometry as t_geom
 
     x = torch.zeros(3, dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="K6"):
-        t_geom.surface_normal_static(t_geom.NURBS, 10.0, 0.0, None, x, x)
-    with pytest.raises(NotImplementedError, match="K6"):
-        t_geom.distance_static(t_geom.NURBS, 10.0, 0.0, x, x, x, x, x, x + 1)
+    with pytest.raises(NotImplementedError, match="grid sag"):
+        t_geom.surface_normal_static(t_geom.GRID_SAG, 10.0, 0.0, None, x, x)
+    with pytest.raises(NotImplementedError, match="grid sag"):
+        t_geom.distance_static(t_geom.GRID_SAG, 10.0, 0.0, x, x, x, x, x,
+                               x + 1)

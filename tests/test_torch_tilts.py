@@ -23,6 +23,8 @@ first surface tilted, built with either package's classes.
     angles, against the untilted code (rtol 1e-12).
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -51,6 +53,7 @@ from optiland_tpu.ops.pallas_pol import (
 from optiland_tpu.polarization import create_polarization as j_state
 from optiland_tpu.polarization import polarized_intensity as j_ipol
 from optiland_tpu.samples import CookeTriplet as JCooke
+from tests.torch_shared import SharedRefs
 
 H = (0.0, 0.7)
 WL = 0.55
@@ -116,20 +119,23 @@ def grads_of(leaves):
 
 
 @pytest.fixture(scope="module")
-def jax_cooke():
-    """The toleranced Cooke triplet in the JAX package: its launch bundle,
-    the interpret-mode kernels' outputs (K5a, K1, K2) and, through its XLA
-    path, the values and gradients of the two merits."""
+def jax_cooke(tmp_path_factory):
+    """The toleranced Cooke triplet in the JAX package, each part when a
+    test first reads it (once per session: ``torch_shared.SharedRefs``):
+    its launch bundle ("rays"), the interpret-mode kernels' outputs
+    ("fast", "field": K5a, K1; "merit": K2) and, through its XLA path, the
+    two merits' values ("values") and their values and gradients ("trace",
+    "spot")."""
+    return SharedRefs(tmp_path_factory, "tilts_cooke", _jax_cooke)
+
+
+def _jax_cooke(part):
     mp = pytest.MonkeyPatch()
     mp.setenv("OPTILAND_TPU_TRACE_ENGINE", "unrolled")
     jsys = perturbed.toleranced_cooke(JCooke).system
     assert jsys.cfg.has_tilts and jpt.pallas_supported(jsys)
     Px, Py = (jnp.asarray(a) for a in pupil())
     rays = jraygen.generate_rays(jsys, *H, Px, Py, WL)
-    out = {"rays": rays, "fast": jpt.trace_fast(jsys, rays, WL),
-           "field": jpt.trace_fast_field(jsys, *H, Px, Py, WL),
-           "merit": float(jpt.spot_rms_fast_field(jsys, *H, WL, Px=Px,
-                                                  Py=Py))}
 
     def merits(stack):
         s = jsys.replace(stack=stack)
@@ -137,42 +143,81 @@ def jax_cooke():
                             record=False)
         return jnp.stack([merit_of(jnp, f), spot_of(jnp, f)])
 
-    vals = merits(jsys.stack)
-    jac = jax.jacrev(merits)(jsys.stack)
-    for j, name in enumerate(("trace", "spot")):
-        out[name] = (float(vals[j]), {k: np.asarray(getattr(jac, k))[j]
-                                      for k in STACK_FIELDS})
+    if part == "rays":
+        out = rays
+    elif part == "fast":
+        out = jpt.trace_fast(jsys, rays, WL)
+    elif part == "field":
+        out = jpt.trace_fast_field(jsys, *H, Px, Py, WL)
+    elif part == "merit":
+        out = float(jpt.spot_rms_fast_field(jsys, *H, WL, Px=Px, Py=Py))
+    elif part == "values":
+        out = [float(v) for v in merits(jsys.stack)]
+    else:
+        vals, jac = _cooke_jacobian(merits, jsys)
+        j = ("trace", "spot").index(part)
+        out = (vals[j], {k: v[j] for k, v in jac.items()})
     mp.undo()
     return out
 
 
-@pytest.fixture(scope="module")
-def jax_singlet():
-    """The tilted singlet in the JAX package: a launch bundle, the
-    interpret-mode polarized kernel (both modes, H) and jax.grad of the
-    polarized merit through its XLA path."""
-    mp = pytest.MonkeyPatch()
-    mp.setenv("OPTILAND_TPU_TRACE_ENGINE", "unrolled")
+_COOKE_JACOBIAN = {}
+
+
+def _cooke_jacobian(merits, jsys):
+    """Both merits' values and Jacobian, computed once in a worker for
+    "trace" and "spot"."""
+    if not _COOKE_JACOBIAN:
+        vals = merits(jsys.stack)
+        jac = jax.jacrev(merits)(jsys.stack)
+        _COOKE_JACOBIAN["values"] = [float(v) for v in vals]
+        _COOKE_JACOBIAN["jac"] = {k: np.asarray(getattr(jac, k))
+                                  for k in STACK_FIELDS}
+    return _COOKE_JACOBIAN["values"], _COOKE_JACOBIAN["jac"]
+
+
+@functools.lru_cache(maxsize=None)
+def jax_singlet_system():
+    """The tilted singlet in the JAX package."""
     jsys = perturbed.tilted_singlet(classes=tps.classes("jax")).system
     assert jsys.cfg.has_tilts
+    return jsys
+
+
+@pytest.fixture(scope="module")
+def jax_singlet(tmp_path_factory):
+    """The tilted singlet's references, each part when a test first reads
+    it (once per session: ``torch_shared.SharedRefs``): "kernel", a launch
+    bundle and the interpret-mode polarized kernel (both modes, H);
+    "grads", jax.grad of the polarized merit through its XLA path."""
+    return SharedRefs(tmp_path_factory, "tilts_singlet", _jax_singlet)
+
+
+def _jax_singlet(part):
+    mp = pytest.MonkeyPatch()
+    mp.setenv("OPTILAND_TPU_TRACE_ENGINE", "unrolled")
+    jsys = jax_singlet_system()
     Px, Py = tps.pupil(N_RAYS, 7)
     rays = jraygen.generate_rays(jsys, *H, jnp.asarray(Px), jnp.asarray(Py),
                                  WL)
     state = j_state("H")
-    fast, p = j_fast_pol(jsys, rays, WL)
-    inten = j_fast_pol_intensity(jsys, rays, WL, state=state).i
+    if part == "kernel":
+        fast, p = j_fast_pol(jsys, rays, WL)
+        inten = j_fast_pol_intensity(jsys, rays, WL, state=state).i
+        out = dict(rays=rays, fast=fast, p=p, i=inten)
+    else:
 
-    def merit(stack):
-        out, hist = jtrace.trace(jsys.replace(stack=stack), rays,
-                                 record=False)
-        i = j_ipol(hist["p"], state, rays.L, rays.M, rays.N, rays.i)
-        return pol_merit(jnp, out.x, out.y, i)
+        def merit(stack):
+            out, hist = jtrace.trace(jsys.replace(stack=stack), rays,
+                                     record=False)
+            i = j_ipol(hist["p"], state, rays.L, rays.M, rays.N, rays.i)
+            return pol_merit(jnp, out.x, out.y, i)
 
-    val, g = jax.value_and_grad(merit)(jsys.stack)
+        val, g = jax.value_and_grad(merit)(jsys.stack)
+        out = dict(rays=rays, value=float(val),
+                   grads={k: np.asarray(getattr(g, k)) for k in STACK_FIELDS})
     mp.undo()
-    return dict(system=jsys, rays=rays, fast=fast, p=p, i=inten,
-                value=float(val),
-                grads={k: np.asarray(getattr(g, k)) for k in STACK_FIELDS})
+    return out
 
 
 def port_rays(jrays):
@@ -220,7 +265,7 @@ def test_tilted_merit_matches_jax_kernel(jax_cooke):
     Px, Py = (torch.tensor(a) for a in pupil())
     val = ft.spot_rms_fast_field(cooke(), *H, WL, Px=Px, Py=Py)
     assert float(val) == pytest.approx(jax_cooke["merit"], rel=1e-10)
-    assert float(val) == pytest.approx(jax_cooke["spot"][0], rel=1e-10)
+    assert float(val) == pytest.approx(jax_cooke["values"][1], rel=1e-10)
 
 
 @pytest.mark.parametrize("entry", ["trace_fast", "trace_fast_field",
@@ -248,31 +293,32 @@ def test_tilted_gradients_match_jax(jax_cooke, entry):
 
 
 def test_tilted_pol_matches_jax_kernel(jax_singlet):
-    system = tps.carried(jax_singlet["system"])
-    rays = port_rays(jax_singlet["rays"])
+    ref = jax_singlet["kernel"]
+    system = tps.carried(jax_singlet_system())
+    rays = port_rays(ref["rays"])
     out, p = pt.trace_fast_pol(system, rays, WL)
     for k in FIELDS:
         np.testing.assert_allclose(np_of(getattr(out, k)),
-                                   np.asarray(getattr(jax_singlet["fast"], k)),
+                                   np.asarray(getattr(ref["fast"], k)),
                                    rtol=1e-8, atol=1e-10, err_msg=k)
-    np.testing.assert_allclose(np_of(p), np.asarray(jax_singlet["p"]),
+    np.testing.assert_allclose(np_of(p), np.asarray(ref["p"]),
                                rtol=1e-9, atol=1e-12)
     out = pt.trace_fast_pol_intensity(system, rays, WL, state=t_state("H"))
-    np.testing.assert_allclose(np_of(out.i), np.asarray(jax_singlet["i"]),
+    np.testing.assert_allclose(np_of(out.i), np.asarray(ref["i"]),
                                rtol=1e-8, atol=1e-10)
 
 
 def test_tilted_pol_gradients_match_jax(jax_singlet):
-    system = tps.carried(jax_singlet["system"])
+    ref = jax_singlet["grads"]
+    system = tps.carried(jax_singlet_system())
     s2, leaves = with_leaves(system)
-    out = pt.trace_fast_pol_intensity(s2, port_rays(jax_singlet["rays"]), WL,
+    out = pt.trace_fast_pol_intensity(s2, port_rays(ref["rays"]), WL,
                                       state=t_state("H"))
     val = pol_merit(torch, out.x, out.y, out.i)
     val.backward()
-    assert float(val.detach()) == pytest.approx(jax_singlet["value"],
-                                                rel=1e-10)
+    assert float(val.detach()) == pytest.approx(ref["value"], rel=1e-10)
     got = grads_of(leaves)
-    assert_grads(got, jax_singlet["grads"])
+    assert_grads(got, ref["grads"])
     assert np.abs(got["rx"][1]) > 0 and np.abs(got["rz"][1]) > 0
 
 

@@ -39,6 +39,7 @@ from optiland_tpu.core import raygen as jraygen
 from optiland_tpu.core import trace as jtrace
 from optiland_tpu.optic import Optic as JOptic
 from optiland_tpu.samples import CookeTriplet as JCooke
+from tests.torch_shared import SharedRefs
 
 # the golden cases of tests/test_trace.py: (Hx, Hy, wavelength, rings)
 CASES = {
@@ -178,21 +179,27 @@ def test_generate_rays_later_slices_raise():
 
 
 @pytest.fixture(scope="module")
-def jax_traces(unrolled):
+def jax_traces(unrolled, tmp_path_factory):
     """JAX Optic.trace results (unrolled XLA engine) for the golden cases,
-    the vignetted case, several fields and trace_generic."""
-    out = {}
+    the vignetted case, several fields and trace_generic (each when a test
+    first reads it, once per session: ``torch_shared.SharedRefs``)."""
+    return SharedRefs(tmp_path_factory, "trace_optic", _jax_trace)
+
+
+def _jax_trace(case):
     lens = JCooke()
-    for case, (Hx, Hy, wl, rings) in CASES.items():
-        out[case] = lens.trace(Hx=Hx, Hy=Hy, wavelength=wl, num_rays=rings)
-    out["vignetted"] = vignetted(JCooke).trace(Hy=1.0, num_rays=8)
-    out["fields"] = lens.trace(Hx=[0.0, 0.2], Hy=[0.0, 1.0], num_rays=3,
-                               record=False)
-    out["generic"] = lens.trace_generic(
+    if case in CASES:
+        Hx, Hy, wl, rings = CASES[case]
+        return lens.trace(Hx=Hx, Hy=Hy, wavelength=wl, num_rays=rings)
+    if case == "vignetted":
+        return vignetted(JCooke).trace(Hy=1.0, num_rays=8)
+    if case == "fields":
+        return lens.trace(Hx=[0.0, 0.2], Hy=[0.0, 1.0], num_rays=3,
+                          record=False)
+    return lens.trace_generic(
         Hx=[0.0, 0.1, 0.2], Hy=0.5, Px=[0.0, 0.3, -0.7], Py=0.2,
         wavelength=0.6, record=False,
     )
-    return out
 
 
 @pytest.mark.parametrize("case", list(CASES))
@@ -321,24 +328,25 @@ def merit_of(m, x, y, i, opd):
 
 
 @pytest.fixture(scope="module")
-def jax_trace_grads(unrolled):
+def jax_trace_grads(unrolled, tmp_path_factory):
     """jax.value_and_grad over every stack leaf of generate_rays + the XLA
-    trace, for the Cooke triplet and its vignetted version."""
-    out = {}
+    trace, for the Cooke triplet and its vignetted version (each once per
+    session: ``torch_shared.SharedRefs``)."""
+    return SharedRefs(tmp_path_factory, "trace_grads", _jax_trace_grads)
+
+
+def _jax_trace_grads(kind):
     Px, Py = (jnp.asarray(a) for a in _pupil())
-    for kind, jsys in (("cooke", JCooke().system),
-                       ("vignetted", vignetted(JCooke).system)):
+    jsys = (JCooke() if kind == "cooke" else vignetted(JCooke)).system
 
-        def merit(stack, jsys=jsys):
-            s = jsys.replace(stack=stack)
-            rays = jraygen.generate_rays(s, *GRAD_FIELD, Px, Py, 0.55)
-            f, _ = jtrace.trace(s, rays, record=False)
-            return merit_of(jnp, f.x, f.y, f.i, f.opd)
+    def merit(stack):
+        s = jsys.replace(stack=stack)
+        rays = jraygen.generate_rays(s, *GRAD_FIELD, Px, Py, 0.55)
+        f, _ = jtrace.trace(s, rays, record=False)
+        return merit_of(jnp, f.x, f.y, f.i, f.opd)
 
-        val, g = jax.value_and_grad(merit)(jsys.stack)
-        out[kind] = (float(val), {k: np.asarray(getattr(g, k))
-                                  for k in STACK_FIELDS})
-    return out
+    val, g = jax.value_and_grad(merit)(jsys.stack)
+    return float(val), {k: np.asarray(getattr(g, k)) for k in STACK_FIELDS}
 
 
 def with_leaves(system):

@@ -13,6 +13,8 @@ tolerances (``tests/test_wavefront_psf.py``). ``EPL``, ``XPL`` and ``EPD``
 for the four aperture types to rtol 1e-12.
 """
 
+import functools
+
 import jax
 import numpy as np
 import pytest
@@ -55,29 +57,24 @@ def _close(got, ref, scale=1.0, what=""):
                                rtol=1e-10, atol=1e-10, err_msg=what)
 
 
-@pytest.fixture(scope="module")
-def jax_wavefronts():
-    system = JCooke().system
+@functools.lru_cache(maxsize=None)
+def jax_wavefront(strategy, ref, hy):
+    """JAX's wavefront data of one case (each test computes only its own:
+    under --dist load a module fixture of all twelve ran on every
+    worker)."""
     Px, Py = _pupil()
-    return {
-        (strategy, ref, hy): j_wavefront(system, 0.0, hy, 0.55, Px, Py,
-                                         strategy=strategy,
-                                         reference_type=ref)
-        for strategy in ("chief_ray", "centroid", "best_fit")
-        for ref in ("sphere", "plane")
-        for hy in (0.0, 1.0)
-    }
+    return j_wavefront(JCooke().system, 0.0, hy, 0.55, Px, Py,
+                       strategy=strategy, reference_type=ref)
 
 
 @pytest.mark.parametrize("hy", [0.0, 1.0])
 @pytest.mark.parametrize("ref", ["sphere", "plane"])
 @pytest.mark.parametrize("strategy", ["chief_ray", "centroid", "best_fit"])
-def test_compute_wavefront_data_matches_jax(jax_wavefronts, strategy, ref,
-                                            hy):
+def test_compute_wavefront_data_matches_jax(strategy, ref, hy):
     Px, Py = _pupil()
     got = t_wavefront(TCooke().system, 0.0, hy, 0.55, Px, Py,
                       strategy=strategy, reference_type=ref)
-    want = jax_wavefronts[(strategy, ref, hy)]
+    want = jax_wavefront(strategy, ref, hy)
     assert isinstance(got, WavefrontData)
     wl_mm = 0.55e-3
     for name in ARRAYS:
