@@ -1139,6 +1139,79 @@ def main(argv=None):
             f"of each array's largest (tol 1e-3), trace_bwd L2 rel err "
             f"{l2_5b:.2e}, trace_field_bwd {l2_4:.2e}")
 
+        # the redesigned backwards (per-thread sums: Build::PT in
+        # csrc/fused_trace.cuh, csrc/fast_trace.cuh) of the stock and tilt
+        # builds: their launch shapes, and two launches of each at full
+        # width give the same bits (a fixed grid, fixed summation orders,
+        # no atomics). The poly mode on the Cooke triplet's bundle, the
+        # tilt build on the toleranced triplet.
+        wl8 = torch.tensor(POLY_WLS, device=dev)[torch.arange(Rf, device=dev)
+                                                 % 3]
+        spec8p = ftr.poly_spec(base)
+        pq8 = ftr.build_poly_table(base).contiguous()
+        mq8 = base.stack.mat_coeffs.detach().contiguous()
+        tc8 = perturbed.toleranced_cooke().system
+        pt8, at8 = tables(tc8)
+        spec8t, mspec8t = ftr.fast_spec(tc8), ft._spec_of(tc8)
+        rows8t = ft.merit_fwd(pt8, at8, mspec8t, Rf, seed=9)
+        _, xb8, yb8 = ft._chan_combine(rows8t, Rf)
+        stats8t = torch.stack([xb8, yb8, torch.tensor(1.0 / Rf, device=dev),
+                               torch.zeros((), device=dev)])
+        twice = {
+            "merit_bwd": lambda: (ft.merit_bwd(
+                p32, a32, stats32, spec, nc, Rf, seed=9),),
+            "trace_bwd": lambda: ftr.trace_bwd(p32, spec32, nc, ins8,
+                                               cots8),
+            "trace_field_bwd": lambda: (ftr.trace_field_bwd(
+                p32, a32, spec32, nc, Px8, Py8, cots8),),
+            "trace_bwd_poly": lambda: ftr.trace_bwd_poly(
+                pq8, mq8, spec8p, nc, ins8 + [wl8], cots8),
+            "merit_bwd_tilt": lambda: (ft.merit_bwd(
+                pt8, at8, stats8t, mspec8t, nc, Rf, seed=9),),
+            "trace_bwd_tilt": lambda: ftr.trace_bwd(pt8, spec8t, nc, ins8,
+                                                    cots8),
+            "trace_field_bwd_tilt": lambda: (ftr.trace_field_bwd(
+                pt8, at8, spec8t, nc, Px8, Py8, cots8),),
+        }
+
+        def flat_of(out):
+            return torch.cat([torch.stack(list(o)).reshape(-1)
+                              if isinstance(o, (tuple, list))
+                              else o.reshape(-1) for o in out])
+
+        same8 = {k: torch.equal(flat_of(f()), flat_of(f()))
+                 for k, f in twice.items()}
+        check(all(same8.values()), f"phase 8: two launches of a redesigned "
+              f"backward differ: {same8}")
+        tilt8 = launch_build.TILT
+        shapes8 = {
+            "merit_bwd": launch_build.bwd_grid(
+                "merit_bwd", "merit", S, 0, torch.float32, ft._build(spec), Rf,
+                dev),
+            "trace_bwd": launch_build.bwd_grid(
+                "trace_bwd", "generic", S, 0, torch.float32,
+                ftr._build(spec32), Rf, dev),
+            "trace_field_bwd": launch_build.bwd_grid(
+                "trace_bwd", "field", S, 0, torch.float32,
+                ftr._build(spec32), Rf, dev),
+            "trace_bwd_poly": launch_build.bwd_grid(
+                "trace_bwd", "poly", S, mq8.shape[1], torch.float32,
+                ftr._build(spec8p), Rf, dev),
+            "merit_bwd_tilt": launch_build.bwd_grid(
+                "merit_bwd", "merit", S, 0, torch.float32, tilt8, Rf, dev),
+            "trace_bwd_tilt": launch_build.bwd_grid(
+                "trace_bwd", "generic", S, 0, torch.float32, tilt8, Rf, dev),
+            "trace_field_bwd_tilt": launch_build.bwd_grid(
+                "trace_bwd", "field", S, 0, torch.float32, tilt8, Rf, dev),
+        }
+        check(ft._build(mspec8t) == ftr._build(spec8t) == tilt8,
+              "phase 8: the toleranced triplet is not the tilt build")
+        log("phase 8 the redesigned backwards' launch shapes at 2^%d rays "
+            "(f32; block, blocks, dynamic shared bytes): %s; two launches "
+            "give identical bits: %s" % (args.full_log2, shapes8, same8))
+        report["phases"]["bwd_shapes"] = {"shapes": shapes8, "same": same8}
+        del wl8, pq8, mq8, rows8t, twice
+
         ms = {
             "prng_disk": time_ms(
                 lambda i: ft.prng_disk(i, Rf, 0, torch.float32, dev), 10, 5),
@@ -1189,7 +1262,9 @@ def main(argv=None):
     n_pl = len(codes) - n_std
     n_abs = sum(spec32[2][1:])
     nb_f = -(-Rf // ft.FWD_BLOCK)
-    nb_b = min(-(-Rf // ft.BWD_BLOCK), ft.BWD_MAX_BLOCKS)
+    # the backwards' grids (their partial rows)
+    nb_m, nb_g, nb_fl = (shapes8[k][1] for k in (
+        "merit_bwd", "trace_bwd", "trace_field_bwd"))
     ncomp = S * len(ft.GRAD_COLS) + ft.N_AIM
     ncomp_full = S * len(ftr.FULL_GRAD_COLS)
     table_bytes = (S * ft.NUM_P + ft.N_AIM + 2 * S) * 4
@@ -1205,19 +1280,19 @@ def main(argv=None):
                       table_bytes + nb_f * 5 * 4),
         "merit_bwd": (Rf * (OPS_PRNG + OPS_LAUNCH + OPS_SEED + OPS_AIM_BWD
                             + n_std * OPS_BWD_STANDARD + n_pl * OPS_BWD_PLANE),
-                      table_bytes + 16 + 2 * nb_b * ncomp * 4 + out_bytes),
+                      table_bytes + 16 + 2 * nb_m * ncomp * 4 + out_bytes),
         # 8 arrays in, 8 out
         "trace_fwd": (Rf * fwd_full, table_bytes + Rf * 16 * 4),
         # 8 arrays and 8 cotangents in, 8 input cotangents out
         "trace_bwd": (Rf * bwd_full, table_bytes + Rf * 24 * 4
-                      + 2 * nb_b * ncomp_full * 4 + out_bytes),
+                      + 2 * nb_g * ncomp_full * 4 + out_bytes),
         # Px, Py in, 8 arrays out
         "trace_field_fwd": (Rf * (OPS_LAUNCH + fwd_full),
                             table_bytes + Rf * 10 * 4),
         # Px, Py and 8 cotangents in
         "trace_field_bwd": (Rf * (OPS_LAUNCH + OPS_AIM_BWD + bwd_full),
                             table_bytes + Rf * 10 * 4
-                            + 2 * nb_b * (ncomp_full + ft.N_AIM) * 4
+                            + 2 * nb_fl * (ncomp_full + ft.N_AIM) * 4
                             + out_bytes),
     }
     for name, (ops, nbytes) in work.items():
@@ -2092,7 +2167,8 @@ def main(argv=None):
     ops_f, ops_fi, ops_b, ops_bi = pol_ops(spec_p, n_h)
     S_p = len(spec_p[0])
     tbl = (S_p * (ft.NUM_P + 4) + 6 * S_p) * 4
-    red = 2 * ft.BWD_MAX_BLOCKS * S_p * (len(ftr.FULL_GRAD_COLS) + 4) * 4
+    red = (2 * launch_build.BWD_MAX_BLOCKS * S_p
+           * (len(ftr.FULL_GRAD_COLS) + 4) * 4)
     work.update({
         # 8 arrays in, 26 out
         "pol_fwd": (Rf * ops_f, tbl + Rf * 34 * 4),
@@ -2498,7 +2574,9 @@ def main(argv=None):
         # 9 arrays and 8 cotangents in, 8 input cotangents out
         "trace_bwd_poly": (Rf * (bwd_full - n_abs * OPS_ABS_BWD + f_bwd),
                            table_bytes + S * nm_q * 4 + Rf * 25 * 4
-                           + 2 * nb_b * n_red * 4 + out_bytes
+                           + 2 * n_red * 4 * launch_build.bwd_grid(
+                               "trace_bwd", "poly", S, nm_q, torch.float32,
+                               ftr._build(spec_q), Rf, dev)[1] + out_bytes
                            + S * nm_q * 4),
     })
     report["phases"]["poly_full_width"] = {
@@ -2900,7 +2978,12 @@ def main(argv=None):
         full_b = geo_b + (S_k - 1) * (OPS_FULL_BWD + 2 * ann) \
             + OPS_ABS_BWD * sum(absorbs[1:])
         nb_f = -(-R // ft.FWD_BLOCK)
-        nb_b = min(-(-R // ft.BWD_BLOCK), ft.BWD_MAX_BLOCKS)
+
+        def nb_b(name, mode, b):
+            # the backward's grid: its partial rows
+            return launch_build.bwd_grid(name, mode, S_k, 0, torch.float32,
+                                         b, R, dev)[1]
+
         ncomp_m = S_k * len(ft.GRAD_COLS) + n_sag * ncb + ft.N_AIM
         ncomp_f = S_k * len(ftr.FULL_GRAD_COLS) + n_sag * ncb
         tb = (S_k * ft.NUM_P + ft.N_AIM + 2 * S_k + S_k * nc_k) * 4
@@ -2910,15 +2993,18 @@ def main(argv=None):
                                       + OPS_STATS), tb + nb_f * 5 * 4),
             "merit_bwd" + msuf: (R * (OPS_PRNG + OPS_LAUNCH + OPS_SEED
                                       + OPS_AIM_BWD + geo_b),
-                                 tb + 16 + 2 * nb_b * ncomp_m * 4 + ob),
+                                 tb + 16 + 2 * ncomp_m * 4 * nb_b(
+                                     "merit_bwd", "merit",
+                                     ft._build(mspec_k)) + ob),
             "trace_fwd" + suf: (R * full_f, tb + R * 16 * 4),
-            "trace_bwd" + suf: (R * full_b, tb + R * 24 * 4
-                                + 2 * nb_b * ncomp_f * 4 + ob),
+            "trace_bwd" + suf: (R * full_b, tb + R * 24 * 4 + 2 * ncomp_f * 4
+                                * nb_b("trace_bwd", "generic", build) + ob),
             "trace_field_fwd" + suf: (R * (OPS_LAUNCH + full_f),
                                       tb + R * 10 * 4),
             "trace_field_bwd" + suf: (R * (OPS_LAUNCH + OPS_AIM_BWD + full_b),
-                                      tb + R * 10 * 4 + 2 * nb_b
-                                      * (ncomp_f + ft.N_AIM) * 4 + ob),
+                                      tb + R * 10 * 4 + 2
+                                      * (ncomp_f + ft.N_AIM) * 4 * nb_b(
+                                          "trace_bwd", "field", build) + ob),
         }
 
     # ---- phase 19: K6a, K6b and the deep build at check size ----

@@ -40,7 +40,10 @@
 // by the build's capacity (16 surfaces, 64 in the deep build),
 // sum each surface's gradient columns with warp shuffles into per-warp
 // shared rows over a grid-stride loop, write one partial row per block, and
-// a second launch sums the rows in a fixed order: no float atomics.
+// a second launch sums the rows in a fixed order: no float atomics. The
+// stock and tilt builds, which the Cooke paths launch, sum per thread and
+// keep the forward pass's divides and square roots for the reverse one
+// (fast_trace.cuh: trace_bwd_kernel, Build::PT).
 //
 // Every extern "C" entry launches on the caller's stream, does not
 // synchronise, and returns cudaGetLastError().
@@ -55,3 +58,12 @@
 
 OTC_TRACE(f32, float, , false)
 OTC_TRACE(f64, double, , false)
+
+#define OTC_OCC(SUF, T)                                                      \
+  extern "C" int otc_trace_bwd_occupancy_##SUF(int mode, int build,          \
+                                               int block, int64_t dyn,       \
+                                               int* out) {                   \
+    return trace_bwd_occupancy<T>(mode, build, block, dyn, out);             \
+  }
+OTC_OCC(f32, float)
+OTC_OCC(f64, double)

@@ -31,7 +31,10 @@
 // and P_G2 columns.
 // The backward keeps each ray's per-surface input state in a local array
 // bounded by the build's surface capacity (Build<B>::CAP) for its reverse
-// sweep instead of re-tracing.
+// sweep instead of re-tracing, and sums its gradient columns across the
+// warp; the stock and tilt builds, which the Cooke paths launch, sum per
+// thread and keep the forward pass's divides and square roots for the
+// reverse one (fused_trace.cuh: merit_bwd_kernel, Build::PT).
 //
 // Every extern "C" entry launches on the caller's stream, does not
 // synchronise, and returns cudaGetLastError().
@@ -55,6 +58,14 @@ OTC_FWD(f32, float, , false)
 OTC_FWD(f64, double, , false)
 OTC_BWD(f32, float, , false)
 OTC_BWD(f64, double, , false)
+
+#define OTC_OCC(SUF, T)                                                      \
+  extern "C" int otc_merit_bwd_occupancy_##SUF(int build, int block,         \
+                                               int64_t dyn, int* out) {      \
+    return merit_bwd_occupancy<T>(build, block, dyn, out);                   \
+  }
+OTC_OCC(f32, float)
+OTC_OCC(f64, double)
 
 extern "C" const char* otc_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);

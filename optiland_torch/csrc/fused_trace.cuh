@@ -157,6 +157,25 @@ merit_fwd_kernel(const T* __restrict__ params, const T* __restrict__ aim,
 // coefficient columns for each of the nsag Newton surfaces (SAG), then N_AIM
 // aim entries. The block holds 32 to BWD_BLOCK threads, a multiple of 32.
 // The free and deep builds keep their per-warp rows in dynamic shared memory.
+//
+// The stock and tilt builds (Build::PT), which every Cooke path launches,
+// run a design of their own. On the H100 the per-warp design ran at ~9x its
+// bound; a throwaway ablation there priced its parts (PERF.md §6):
+// the per-ray warp sums of the columns ~10%, the states on the stack ~1%,
+// so the time is the step's own arithmetic, whose IEEE divides and square
+// roots are sequences of several instructions each, and the reverse sweep
+// ran the forward step again. So there: a thread sums its rays' columns
+// in dynamic shared memory of its own (the slots of surfaces 1 .. S-1,
+// warp-interleaved, strides known at compile time; the object slot and the
+// aim entries in registers), and the block reduces each column once, in a
+// fixed order (store_pt_row); the step (step_fwd_pt, step_adjoint_pt)
+// takes 1/R and n_pre / n_post per surface from shared memory and keeps
+// the forward pass's divides and square roots for the reverse one. No
+// float atomics, and the loop has no collective, so a thread takes only
+// its own rays. The launch takes the block that fits the bytes
+// (ops/launch.py: bwd_shape) and a grid from the kernel's occupancy
+// (bwd_grid), fixed for a card, build, dtype and shape: two launches give
+// the same bits.
 template <typename T, int B>
 __global__ void __launch_bounds__(BWD_BLOCK)
 merit_bwd_kernel(const T* __restrict__ params, const T* __restrict__ aim,
@@ -177,9 +196,9 @@ merit_bwd_kernel(const T* __restrict__ params, const T* __restrict__ aim,
   __shared__ T scf[Bd::SAG ? CAP * NC_MAX : 1];
   __shared__ int sf[NF * CAP];  // code, reflect, tilted (GRAT: grating)
   __shared__ int ssag[Bd::SAG || Bd::GRAT || Bd::NURBS ? CAP : 1];
-  // the per-warp rows in dynamic shared memory
+  // the per-warp rows (PT: the per-thread sums) in dynamic shared memory
   constexpr bool DYN = Bd::DYN;
-  __shared__ T acc_s[DYN ? 1 : NW_MAX * NCOMP_MAX];
+  __shared__ T acc_s[DYN || Bd::PT ? 1 : NW_MAX * NCOMP_MAX];
   __shared__ T npre[CAP];  // n_pre of surface s (uniform across rays)
   load_coefs<T, Bd::SAG>(cf, S, nc, scf);
   // the layout rows of the aux-bearing surfaces follow the table (AUX)
@@ -189,33 +208,34 @@ merit_bwd_kernel(const T* __restrict__ params, const T* __restrict__ aim,
                              : (Bd::GRAT ? nsag * N_GRAT_COLS
                                          : (Bd::NURBS ? nsag * nc : 0));
   const int ncomp = S * N_G + nsagc + N_AIM;
-  const int nw = blockDim.x >> 5;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  T* acc = acc_rows<T, DYN>(acc_s);
-  const int astride = DYN ? ncomp : NCOMP_MAX;
-  const int nacc = DYN ? nw * ncomp : NW_MAX * NCOMP_MAX;
-  for (int j = threadIdx.x; j < nacc; j += blockDim.x) acc[j] = T(0);
-  // the nets and knot rows of the NURBS surfaces after the rows (NURBS)
-  if constexpr (Bd::NURBS) nurbs_tables(cf, S, nc, acc + nacc);
-  if (threadIdx.x == 0) {
-    fill_npre(sp, sf, S, npre);
-    if constexpr (Bd::SAG) fill_sag<Bd::AUX>(sf, S, ssag);
-    if constexpr (Bd::GRAT) fill_grat(sf + F_GRAT * S, S, ssag);
-    if constexpr (Bd::NURBS) fill_nurbs(sf, S, ssag);
-  }
-  __syncthreads();
-  T* row = acc + warp * astride;
-  const T xbar = stats[0], ybar = stats[1], scale = stats[2];
-
-  T st[CAP][6];
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t base = (int64_t)blockIdx.x * blockDim.x; base < R;
-       base += stride) {
-    const int64_t i = base + threadIdx.x;
-    const bool valid = i < R;
-    T Px = T(0), Py = T(0);
-    T g[7] = {T(0), T(0), T(0), T(0), T(0), T(0), T(0)};
-    if (valid) {
+  if constexpr (Bd::PT) {
+    // column c of this thread at col[c * 32] (store_pt_row): the slots of
+    // surfaces 1 .. S-1; the object row's P_NPOST slot and the aim entries
+    // are summed in registers and stored after the last ray
+    const int ncols = (S - 1) * N_G + 1 + N_AIM;
+    T* const acc = acc_rows<T, true>(acc_s);
+    T* const col = acc + (threadIdx.x >> 5) * ncols * 32 + (threadIdx.x & 31);
+    for (int c = 0; c < ncols; ++c) col[c * 32] = T(0);
+    // each surface's row and flags for the step, uniform across the rays
+    __shared__ __align__(16) T pt_q[CAP * PT_ROW];
+    __shared__ int pt_f[CAP];
+    if (threadIdx.x == 0) {
+      fill_npre(sp, sf, S, npre);
+      for (int s = 1; s < S; ++s) {
+        fill_pt_row(sp + s * NUM_P, npre[s], pt_q + s * PT_ROW);
+        pt_f[s] = pt_flags(sf[s], sf[S + s], 0, sf[2 * S + s]);
+      }
+    }
+    __syncthreads();
+    const T xbar = stats[0], ybar = stats[1], scale = stats[2];
+    T g_obj = T(0), g_aim[N_AIM] = {};
+    // the input state (x, y, z, L, M, N) of surface s, then what its
+    // forward step saved
+    T st[CAP][6 + N_SV];
+    const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+    for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < R;
+         i += stride) {
+      T Px, Py;
       if (prng) {
         T v1, v2;
         disk_sample<T>(seed, i + offset, Px, Py, v1, v2);
@@ -234,93 +254,171 @@ merit_bwd_kernel(const T* __restrict__ params, const T* __restrict__ aim,
         st[s][3] = L;
         st[s][4] = M;
         st[s][5] = N;
+        const T* q = pt_q + s * PT_ROW;
+        step_fwd_pt<T, false, Bd::TILT>(pt_f[s], q, sr + s * N_ROT, q[Q_U],
+                                        q[Q_NPRE], q[Q_NPOST], x, y, z, L, M,
+                                        N, unused_i, unused_opd, st[s] + 6);
+      }
+      T g[7] = {T(2) * scale * (x - xbar), T(2) * scale * (y - ybar), T(0),
+                T(0), T(0), T(0), T(0)};
+      for (int s = S - 1; s >= 1; --s) {
+        T g6[N_G];
+        const T* q = pt_q + s * PT_ROW;
+        step_adjoint_pt<T, false, Bd::TILT>(
+            pt_f[s], q, sr + s * N_ROT, q[Q_U], q[Q_INP], q[Q_NPRE],
+            q[Q_NPOST], st[s][0], st[s][1], st[s][2], st[s][3], st[s][4],
+            st[s][5], T(0), st[s] + 6, g, g6);
+        T* c = col + (s - 1) * N_G * 32;
+#pragma unroll
+        for (int j = 0; j < N_G; ++j) c[j * 32] += g6[j];
+      }
+      // n_pre of surface 1 is the object row's n_post
+      g_obj += g[6];
+      const T ga[N_AIM] = {g[0], g[1], g[2], g[3], g[4], g[5], g[0] * Px,
+                           g[1] * Py};
+#pragma unroll
+      for (int j = 0; j < N_AIM; ++j) g_aim[j] += ga[j];
+    }
+    T* c = col + (S - 1) * N_G * 32;
+    c[0] = g_obj;
+#pragma unroll
+    for (int j = 0; j < N_AIM; ++j) c[(1 + j) * 32] = g_aim[j];
+    __syncthreads();
+    store_pt_row<T, N_G>(acc, ncols, S, N_AIM, nullptr, 0, partial);
+  } else {
+    const int nw = blockDim.x >> 5;
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    T* acc = acc_rows<T, DYN>(acc_s);
+    const int astride = DYN ? ncomp : NCOMP_MAX;
+    const int nacc = DYN ? nw * ncomp : NW_MAX * NCOMP_MAX;
+    for (int j = threadIdx.x; j < nacc; j += blockDim.x) acc[j] = T(0);
+    // the nets and knot rows of the NURBS surfaces after the rows (NURBS)
+    if constexpr (Bd::NURBS) nurbs_tables(cf, S, nc, acc + nacc);
+    if (threadIdx.x == 0) {
+      fill_npre(sp, sf, S, npre);
+      if constexpr (Bd::SAG) fill_sag<Bd::AUX>(sf, S, ssag);
+      if constexpr (Bd::GRAT) fill_grat(sf + F_GRAT * S, S, ssag);
+      if constexpr (Bd::NURBS) fill_nurbs(sf, S, ssag);
+    }
+    __syncthreads();
+    T* row = acc + warp * astride;
+    const T xbar = stats[0], ybar = stats[1], scale = stats[2];
+
+    T st[CAP][6];
+    const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+    for (int64_t base = (int64_t)blockIdx.x * blockDim.x; base < R;
+         base += stride) {
+      const int64_t i = base + threadIdx.x;
+      const bool valid = i < R;
+      T Px = T(0), Py = T(0);
+      T g[7] = {T(0), T(0), T(0), T(0), T(0), T(0), T(0)};
+      if (valid) {
+        if (prng) {
+          T v1, v2;
+          disk_sample<T>(seed, i + offset, Px, Py, v1, v2);
+        } else {
+          Px = px[i];
+          Py = py[i];
+        }
+        T x = Px * sa[A_SX] + sa[A_X0];
+        T y = Py * sa[A_SY] + sa[A_Y0];
+        T z = sa[A_Z0], L = sa[A_L], M = sa[A_M], N = sa[A_N];
+        T unused_i = T(0), unused_opd = T(0);  // the merit step traces geometry
+        for (int s = 1; s < S; ++s) {
+          st[s][0] = x;
+          st[s][1] = y;
+          st[s][2] = z;
+          st[s][3] = L;
+          st[s][4] = M;
+          st[s][5] = N;
+          if constexpr (Bd::GRAT)
+            step_fwd_grat<T, false>(sf[s], sf[S + s], 0, sf[2 * S + s],
+                                    sp + s * NUM_P, sr + s * N_ROT, npre[s],
+                                    sp[s * NUM_P + P_NPOST], x, y, z, L, M, N,
+                                    unused_i, unused_opd, sf[F_GRAT * S + s]);
+          else if constexpr (Bd::NURBS)
+            step_fwd_nurbs<T, false>(
+                sf[s], sf[S + s], 0, sf[2 * S + s], sp + s * NUM_P,
+                sr + s * N_ROT, acc + nacc + s * nc,
+                acc + nacc + S * nc + s * NU_KT, niters, npre[s],
+                sp[s * NUM_P + P_NPOST], x, y, z, L, M, N, unused_i,
+                unused_opd);
+          else
+          step_fwd<T, false, Bd::TILT, Bd::SAG, Bd::FREE, Bd::DEEP, Bd::AUX>(
+              sf[s], sf[S + s], 0, sf[2 * S + s], sp + s * NUM_P,
+              sr + s * N_ROT, scf + s * nc, lay_of(lay, s, nc), nc, niters,
+              npre[s],
+              sp[s * NUM_P + P_NPOST], x, y, z, L, M, N, unused_i, unused_opd);
+        }
+        g[0] = T(2) * scale * (x - xbar);
+        g[1] = T(2) * scale * (y - ybar);
+      }
+      for (int s = S - 1; s >= 1; --s) {
+        T g6[N_G] = {};
+        T gs[Bd::NURBS ? N_GS_NU : (Bd::FREE ? N_GS_CART : N_GS_RAD)] = {};
+        if constexpr (Bd::GRAT) {
+          if (valid)
+            step_adjoint_grat<T, false>(
+                sf[s], sf[S + s], 0, sf[2 * S + s], sp + s * NUM_P,
+                sr + s * N_ROT, npre[s], sp[s * NUM_P + P_NPOST], st[s][0],
+                st[s][1], st[s][2], st[s][3], st[s][4], st[s][5], T(0), g, g6,
+                gs, sf[F_GRAT * S + s]);
+        } else if constexpr (Bd::NURBS) {
+          if (valid)
+            step_adjoint_nurbs<T, false>(
+                sf[s], sf[S + s], 0, sf[2 * S + s], sp + s * NUM_P,
+                sr + s * N_ROT, acc + nacc + s * nc,
+                acc + nacc + S * nc + s * NU_KT, niters, npre[s],
+                sp[s * NUM_P + P_NPOST], st[s][0], st[s][1], st[s][2],
+                st[s][3], st[s][4], st[s][5], T(0), g, g6, gs);
+        } else {
+        if (valid)
+          step_adjoint<T, false, Bd::TILT, Bd::SAG, Bd::FREE, Bd::DEEP, Bd::AUX>(
+              sf[s], sf[S + s], 0, sf[2 * S + s], sp + s * NUM_P,
+              sr + s * N_ROT, scf + s * nc, lay_of(lay, s, nc), nc, niters,
+              npre[s],
+              sp[s * NUM_P + P_NPOST], st[s][0], st[s][1], st[s][2], st[s][3],
+              st[s][4], st[s][5], T(0), g, g6, gs);
+        }
+  #pragma unroll
+        for (int j = 0; j < N_G; ++j) {
+          const T v = warp_sum(g6[j]);
+          if (lane == 0) row[s * N_G + j] += v;
+        }
+        if constexpr (Bd::SAG) {
+          const int cb = S * N_G + ssag[s] * Bd::block(nc);
+          if (Bd::FREE && is_cart_of<Bd::AUX>(sf[s]))
+            add_cart_cols_at<T, Bd::DEEP, Bd::AUX>(
+                sf[s], gs, lay_of(lay, s, nc), nc, sp[s * NUM_P + P_G1],
+                sp[s * NUM_P + P_G2], lane, row, cb);
+          else if (is_newton_of<Bd::AUX>(sf[s]))
+            add_coef_cols(gs, nc, lane, row, cb);
+        }
         if constexpr (Bd::GRAT)
-          step_fwd_grat<T, false>(sf[s], sf[S + s], 0, sf[2 * S + s],
-                                  sp + s * NUM_P, sr + s * N_ROT, npre[s],
-                                  sp[s * NUM_P + P_NPOST], x, y, z, L, M, N,
-                                  unused_i, unused_opd, sf[F_GRAT * S + s]);
-        else if constexpr (Bd::NURBS)
-          step_fwd_nurbs<T, false>(
-              sf[s], sf[S + s], 0, sf[2 * S + s], sp + s * NUM_P,
-              sr + s * N_ROT, acc + nacc + s * nc,
-              acc + nacc + S * nc + s * NU_KT, niters, npre[s],
-              sp[s * NUM_P + P_NPOST], x, y, z, L, M, N, unused_i,
-              unused_opd);
-        else
-        step_fwd<T, false, Bd::TILT, Bd::SAG, Bd::FREE, Bd::DEEP, Bd::AUX>(
-            sf[s], sf[S + s], 0, sf[2 * S + s], sp + s * NUM_P,
-            sr + s * N_ROT, scf + s * nc, lay_of(lay, s, nc), nc, niters,
-            npre[s],
-            sp[s * NUM_P + P_NPOST], x, y, z, L, M, N, unused_i, unused_opd);
+          if (sf[F_GRAT * S + s])
+            add_grat_cols(gs, lane, row, S * N_G + ssag[s] * N_GRAT_COLS);
+        if constexpr (Bd::NURBS)
+          if (sf[s] == NURBS)
+            add_nurbs_cols(gs, acc + nacc + s * nc,
+                           acc + nacc + S * nc + s * NU_KT, lane, row,
+                           S * N_G + ssag[s] * nc);
       }
-      g[0] = T(2) * scale * (x - xbar);
-      g[1] = T(2) * scale * (y - ybar);
-    }
-    for (int s = S - 1; s >= 1; --s) {
-      T g6[N_G] = {};
-      T gs[Bd::NURBS ? N_GS_NU : (Bd::FREE ? N_GS_CART : N_GS_RAD)] = {};
-      if constexpr (Bd::GRAT) {
-        if (valid)
-          step_adjoint_grat<T, false>(
-              sf[s], sf[S + s], 0, sf[2 * S + s], sp + s * NUM_P,
-              sr + s * N_ROT, npre[s], sp[s * NUM_P + P_NPOST], st[s][0],
-              st[s][1], st[s][2], st[s][3], st[s][4], st[s][5], T(0), g, g6,
-              gs, sf[F_GRAT * S + s]);
-      } else if constexpr (Bd::NURBS) {
-        if (valid)
-          step_adjoint_nurbs<T, false>(
-              sf[s], sf[S + s], 0, sf[2 * S + s], sp + s * NUM_P,
-              sr + s * N_ROT, acc + nacc + s * nc,
-              acc + nacc + S * nc + s * NU_KT, niters, npre[s],
-              sp[s * NUM_P + P_NPOST], st[s][0], st[s][1], st[s][2],
-              st[s][3], st[s][4], st[s][5], T(0), g, g6, gs);
-      } else {
-      if (valid)
-        step_adjoint<T, false, Bd::TILT, Bd::SAG, Bd::FREE, Bd::DEEP, Bd::AUX>(
-            sf[s], sf[S + s], 0, sf[2 * S + s], sp + s * NUM_P,
-            sr + s * N_ROT, scf + s * nc, lay_of(lay, s, nc), nc, niters,
-            npre[s],
-            sp[s * NUM_P + P_NPOST], st[s][0], st[s][1], st[s][2], st[s][3],
-            st[s][4], st[s][5], T(0), g, g6, gs);
+      // n_pre of surface 1 is the object row's n_post
+      {
+        const T v = warp_sum(g[6]);
+        if (lane == 0) row[0 * N_G + 3] += v;
       }
-#pragma unroll
-      for (int j = 0; j < N_G; ++j) {
-        const T v = warp_sum(g6[j]);
-        if (lane == 0) row[s * N_G + j] += v;
+      const T ga[N_AIM] = {g[0], g[1], g[2], g[3], g[4], g[5], g[0] * Px,
+                           g[1] * Py};
+  #pragma unroll
+      for (int j = 0; j < N_AIM; ++j) {
+        const T v = warp_sum(ga[j]);
+        if (lane == 0) row[S * N_G + nsagc + j] += v;
       }
-      if constexpr (Bd::SAG) {
-        const int cb = S * N_G + ssag[s] * Bd::block(nc);
-        if (Bd::FREE && is_cart_of<Bd::AUX>(sf[s]))
-          add_cart_cols_at<T, Bd::DEEP, Bd::AUX>(
-              sf[s], gs, lay_of(lay, s, nc), nc, sp[s * NUM_P + P_G1],
-              sp[s * NUM_P + P_G2], lane, row, cb);
-        else if (is_newton_of<Bd::AUX>(sf[s]))
-          add_coef_cols(gs, nc, lane, row, cb);
-      }
-      if constexpr (Bd::GRAT)
-        if (sf[F_GRAT * S + s])
-          add_grat_cols(gs, lane, row, S * N_G + ssag[s] * N_GRAT_COLS);
-      if constexpr (Bd::NURBS)
-        if (sf[s] == NURBS)
-          add_nurbs_cols(gs, acc + nacc + s * nc,
-                         acc + nacc + S * nc + s * NU_KT, lane, row,
-                         S * N_G + ssag[s] * nc);
     }
-    // n_pre of surface 1 is the object row's n_post
-    {
-      const T v = warp_sum(g[6]);
-      if (lane == 0) row[0 * N_G + 3] += v;
-    }
-    const T ga[N_AIM] = {g[0], g[1], g[2], g[3], g[4], g[5], g[0] * Px,
-                         g[1] * Py};
-#pragma unroll
-    for (int j = 0; j < N_AIM; ++j) {
-      const T v = warp_sum(ga[j]);
-      if (lane == 0) row[S * N_G + nsagc + j] += v;
-    }
+    __syncthreads();
+    store_partial_row(acc, astride, nw, ncomp, partial);
   }
-  __syncthreads();
-  store_partial_row(acc, astride, nw, ncomp, partial);
 }
 
 template <typename T>
@@ -374,10 +472,16 @@ int merit_bwd_launch(const T* params, const T* aim, const T* stats,
     constexpr int B = decltype(b)::value;
     if (!shape_ok<B>(S, nc, niters)) return (int)cudaErrorInvalidValue;
     const auto kernel = merit_bwd_kernel<T, B>;
-    const size_t dyn =
-        dyn_bytes<T, Build<B>::DYN>(block / 32, S * N_G + nsagc + N_AIM) +
-        (Build<B>::NURBS ? nurbs_bytes<T>(S, nc) : 0);
-    if (int e2 = set_dyn_smem<Build<B>::DYN>(kernel, dyn)) return e2;
+    const int ncomp = S * N_G + nsagc + N_AIM;
+    size_t dyn;
+    if constexpr (Build<B>::PT) {
+      dyn = pt_bytes<T>(block, (S - 1) * N_G + 1 + N_AIM, 0);
+      if (int e2 = set_pt_smem(kernel, dyn)) return e2;
+    } else {
+      dyn = dyn_bytes<T, Build<B>::DYN>(block / 32, ncomp) +
+            (Build<B>::NURBS ? nurbs_bytes<T>(S, nc) : 0);
+      if (int e2 = set_dyn_smem<Build<B>::DYN>(kernel, dyn)) return e2;
+    }
     kernel<<<nblocks, block, dyn, stream>>>(params, aim, stats, flags, S, cf,
                                             nc, niters, nsag, px, py, R, seed,
                                             offset, prng, partial);
@@ -401,6 +505,17 @@ int merit_bwd_launch(const T* params, const T* aim, const T* stats,
     return reduce_launch<T, N_G>(partial, nblocks, S, nc, ncb, nsagc, flags,
                                  N_AIM, out, stream);
   }
+}
+
+// Resident blocks per SM of the per-thread-sum merit backward (the stock
+// and tilt builds) at ``block`` threads and ``dyn`` bytes (ops/launch.py:
+// bwd_grid).
+template <typename T>
+int merit_bwd_occupancy(int build, int block, int64_t dyn, int* out) {
+  return dispatch_in<B_STOCK, B_TILT>(build, [&](auto b) {
+    constexpr int B = decltype(b)::value;
+    return pt_occupancy(merit_bwd_kernel<T, B>, block, dyn, out);
+  });
 }
 
 }  // namespace

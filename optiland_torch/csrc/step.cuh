@@ -5,8 +5,11 @@
 // nurbs_step.cuh, which this header includes at its end)
 // (optiland_tpu/ops/pallas_trace.py), forward and hand-derived adjoint,
 // and what the kernels around the step share: the shared-memory table
-// loaders, the per-warp gradient rows of the backwards, and their
-// fixed-order reduction kernel. The step is a line-by-line transcription of
+// loaders, the per-warp gradient rows of the backwards (in the stock and
+// tilt builds of merit_bwd and trace_bwd, per-thread sums: Build::PT,
+// store_pt_row, and their own step, step_fwd_pt and step_adjoint_pt), and
+// their fixed-order reduction kernel. The step is a
+// line-by-line transcription of
 // optiland_torch/ops/step.py (step_plain, step_adjoint_plain) and of the
 // sag terms of optiland_torch/core/geometry.py (sag_point, cart_point);
 // change them together.
@@ -141,6 +144,8 @@ constexpr int N_ROT = 6;    // cos rx, sin rx, cos ry, sin ry, cos rz, sin rz
 constexpr int FWD_BLOCK = 256;
 constexpr int BWD_BLOCK = 128;
 constexpr int RED_BLOCK = 256;
+// shared memory a block may hold on sm_90 (227 KB), static and dynamic
+constexpr int SMEM_MAX = 232448;
 
 // The builds of every kernel (ops/launch.py: STOCK .. DEEP_AUX, NURBS):
 // a build is an OR of flags, each a branch of the step or the surface
@@ -199,6 +204,10 @@ struct Build {
   static constexpr bool GRAT = B & BIT_GRAT;
   static constexpr bool NURBS = B & BIT_NURBS;
   static constexpr bool DYN = FREE || DEEP || NURBS;
+  // the stock and tilt builds' backwards sum each thread's rays into
+  // columns of its own (pt_bytes, store_pt_row) and run step_fwd_pt and
+  // step_adjoint_pt
+  static constexpr bool PT = (B & ~BIT_TILT) == 0;
   static constexpr int CAP = DEEP ? DEEP_SURF : STOCK_SURF;
   static __host__ __device__ int block(int nc) { return FREE ? nc + 2 : nc; }
 };
@@ -257,6 +266,38 @@ int set_dyn_smem(K kernel, size_t bytes) {
         (const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)bytes);
   return 0;
+}
+
+// Dynamic shared memory of a per-thread-sum backward (Build::PT) of
+// ``block`` threads: each thread's ncols gradient columns and each warp's
+// row of nrow dispersion coefficient columns (store_pt_row; ops/launch.py:
+// bwd_shape, which picks the block).
+template <typename T>
+size_t pt_bytes(int block, int ncols, int nrow) {
+  return ((size_t)block * ncols + (size_t)(block / 32) * nrow) * sizeof(T);
+}
+
+// Set a per-thread-sum backward's dynamic shared memory to ``bytes``, or
+// refuse a launch whose static and dynamic shared memory pass SMEM_MAX.
+template <typename K>
+int set_pt_smem(K kernel, size_t bytes) {
+  cudaFuncAttributes a;
+  if (int e = (int)cudaFuncGetAttributes(&a, (const void*)kernel)) return e;
+  if (a.sharedSizeBytes + bytes > (size_t)SMEM_MAX)
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaFuncSetAttribute(
+      (const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)bytes);
+}
+
+// Resident blocks per SM of a per-thread-sum backward at ``block`` threads
+// and ``bytes`` of dynamic shared memory (its launch grid is that times the
+// card's SM count: ops/launch.py, bwd_grid).
+template <typename K>
+int pt_occupancy(K kernel, int block, size_t bytes, int* out) {
+  if (int e = set_pt_smem(kernel, bytes)) return e;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      out, (const void*)kernel, block, bytes);
 }
 
 // The Newton families: radial (sag_point) and Cartesian (cart_point).
@@ -2558,6 +2599,380 @@ __device__ __forceinline__ void step_adjoint_grat(
   gs[1] = g_p2;
 }
 
+// The stock and tilt builds' steps (Build::PT: merit_bwd_kernel and
+// trace_bwd_kernel, fused_trace.cuh and fast_trace.cuh): step_fwd's and
+// step_adjoint's PLANE and STANDARD branches with the tilts, the same
+// arithmetic but for the divides and square roots. The surface's row
+// ``qr`` (PT_ROW) holds its 1/R and the parameters the step reads, its
+// flags come in one int (pt_flags); where it refracts, n_pre / npost
+// (``u``) and 1 / npost (``inpost``) come in (the kernels form them once
+// per surface and block, and per ray in the polychromatic mode); the
+// forward step saves to ``sv``
+// (N_SV values) what the reverse step computed again: the quadratic's two
+// roots and its discriminant's square root (STANDARD) or the distance
+// (PLANE), and the refraction's square root; and the reverse step divides
+// by each of the refraction's root, the quadratic's root's denominator and
+// the plane's direction cosine once, multiplying by the reciprocal where
+// step_adjoint divided twice (a rounding apart).
+// Functions of their own, as the grat build's, so the other builds keep
+// their machine code; a change to step_fwd's or step_adjoint's PLANE and
+// STANDARD code is made here too, and the parity checks against the
+// shared plain step (test_torch_cuda.py, chip_smoke.py phases 5, 9, 17,
+// 18) catch the two drifting apart.
+constexpr int N_SV = 4;
+// The per-surface row these steps read (the kernels fill it once per block,
+// 16-byte aligned, so that its values load together): 1/R, n_pre / n_post,
+// 1 / n_post, n_pre, the conic, the position, the decentres, n_post, the
+// clip radius and k_pre; and its flags in one int, the geometry code, then
+// the reflect, absorb and tilt bits (pt_flags).
+constexpr int Q_CU = 0, Q_U = 1, Q_INP = 2, Q_NPRE = 3, Q_K = 4, Q_POS = 5,
+              Q_DX = 6, Q_DY = 7, Q_NPOST = 8, Q_APMAX = 9, Q_KPRE = 10,
+              PT_ROW = 12;
+__device__ __forceinline__ int pt_flags(int code, int refl, int absorbs,
+                                        int tilted) {
+  return code | (refl ? 16 : 0) | (absorbs ? 32 : 0) | (tilted ? 64 : 0);
+}
+template <typename T>
+__device__ __forceinline__ void fill_pt_row(const T* p, T npre, T* q) {
+  q[Q_CU] = T(1) / p[P_RADIUS];
+  q[Q_U] = npre / p[P_NPOST];
+  q[Q_INP] = T(1) / p[P_NPOST];
+  q[Q_NPRE] = npre;
+  q[Q_K] = p[P_CONIC];
+  q[Q_POS] = p[P_POS];
+  q[Q_DX] = p[P_DX];
+  q[Q_DY] = p[P_DY];
+  q[Q_NPOST] = p[P_NPOST];
+  q[Q_APMAX] = p[P_APMAX];
+  q[Q_KPRE] = p[P_KPRE];
+}
+
+template <typename T, bool FULL, bool TILT>
+__device__ __forceinline__ T step_fwd_pt(int fl, const T* qr, const T* rot,
+                                         T u, T n_pre, T npost, T& x, T& y,
+                                         T& z, T& L, T& M, T& N, T& inten,
+                                         T& opd, T* sv) {
+  const int code = fl & 15, refl = fl & 16, absorbs = fl & 32;
+  const int tilted = fl & 64;
+  const T cu = qr[Q_CU], k = qr[Q_K], pos = qr[Q_POS];
+  const T dx = qr[Q_DX], dy = qr[Q_DY];
+  T xl = x - dx, yl = y - dy, zl = z - pos;
+  if (TILT && tilted) rot_local(rot, xl, yl, zl, L, M, N);
+  T t;
+  if (code == STANDARD) {
+    const T a = cu * (k * (N * N) + L * L + M * M + N * N);
+    const T b = T(2) * (cu * (k * N * zl + L * xl + M * yl + N * zl) - N);
+    const T c = cu * (k * (zl * zl) + xl * xl + yl * yl + zl * zl) -
+                T(2) * zl;
+    const T d = b * b - T(4) * a * c;
+    const T sd = d < T(0) ? nan_<T>() : sqrt_(d);
+    const T s = b >= T(0) ? T(1) : T(-1);
+    const T q = T(-0.5) * (b + s * sd);
+    const T t1 = a == T(0) ? inf_<T>() : q / a;
+    const T t2 = q == T(0) ? T(0) : c / q;
+    t = abs_(zl + t1 * N) <= abs_(zl + t2 * N) ? t1 : t2;
+    sv[0] = t1;
+    sv[1] = t2;
+    sv[2] = sd;
+  } else {
+    t = dist_plane(zl, N);
+    sv[0] = t;
+  }
+  T x1 = xl + t * L, y1 = yl + t * M, z1 = zl + t * N;
+  if constexpr (FULL) {
+    if (absorbs) inten = inten * exp_(T(ABS) * qr[Q_KPRE] * t * T(1e3));
+    opd = opd + abs_(t * n_pre);
+    const T ap = qr[Q_APMAX];
+    if (x1 * x1 + y1 * y1 > ap * ap) inten = T(0);
+  }
+  T nx = T(0), ny = T(0), nz = T(-1);
+  if (code == STANDARD) {
+    const T r2 = x1 * x1 + y1 * y1;
+    const T invd = cu * rsqrt_(T(1) - (T(1) + k) * (cu * cu) * r2);
+    const T fx = x1 * invd, fy = y1 * invd;
+    const T im = rsqrt_(fx * fx + fy * fy + T(1));
+    nx = fx * im;
+    ny = fy * im;
+    nz = -im;
+  }
+  const T dot = L * nx + M * ny + N * nz;
+  const T sg = sign_(dot);
+  nx *= sg;
+  ny *= sg;
+  nz *= sg;
+  const T adot = abs_(dot);
+  T n_next;
+  if (refl) {
+    L = L - T(2) * adot * nx;
+    M = M - T(2) * adot * ny;
+    N = N - T(2) * adot * nz;
+    n_next = n_pre;
+  } else {
+    const T root = sqrt_(T(1) - u * u * (T(1) - adot * adot));
+    const T w = root - u * adot;
+    sv[3] = root;
+    L = u * L + nx * w;
+    M = u * M + ny * w;
+    N = u * N + nz * w;
+    n_next = npost;
+  }
+  if (TILT && tilted) rot_global(rot, x1, y1, z1, L, M, N);
+  x = x1 + dx;
+  y = y1 + dy;
+  z = z1 + pos;
+  return n_next;
+}
+
+// The reverse step of step_fwd_pt from the surface's input state and what
+// the forward step saved (``sv``): step_adjoint's PLANE and STANDARD
+// branches with the tilts (gc: the N_G or, FULL, N_GF slots).
+template <typename T, bool FULL, bool TILT>
+__device__ __forceinline__ void step_adjoint_pt(
+    int fl, const T* qr, const T* rot, T u, T inpost, T n_pre, T npost, T x,
+    T y, T z, T L, T M, T N, T i_in, const T* sv, T* g, T* gc) {
+  const int code = fl & 15, refl = fl & 16, absorbs = fl & 32;
+  const int tilted = fl & 64;
+  const T cu = qr[Q_CU], k = qr[Q_K], pos = qr[Q_POS];
+  const T dx = qr[Q_DX], dy = qr[Q_DY];
+  const bool std_ = code == STANDARD;
+  const T g_nn = g[6];
+
+  // ---- the forward intermediates (in the surface's frame) ----
+  T xl = x - dx, yl = y - dy, zl = z - pos;
+  if (TILT && tilted) rot_local(rot, xl, yl, zl, L, M, N);
+  T A = T(0), a = T(0), Bq = T(0), b = T(0), Cq = T(0), c = T(0);
+  T sd = T(0), sg = T(0), q = T(0), t1 = T(0), t2 = T(0), t, Ns = T(1);
+  bool use1 = false, a0 = false, q0 = false, big = false;
+  if (std_) {
+    A = k * (N * N) + L * L + M * M + N * N;
+    a = cu * A;
+    Bq = k * N * zl + L * xl + M * yl + N * zl;
+    b = T(2) * (cu * Bq - N);
+    Cq = k * (zl * zl) + xl * xl + yl * yl + zl * zl;
+    c = cu * Cq - T(2) * zl;
+    sd = sv[2];
+    sg = b >= T(0) ? T(1) : T(-1);
+    q = T(-0.5) * (b + sg * sd);
+    a0 = a == T(0);
+    q0 = q == T(0);
+    t1 = sv[0];
+    t2 = sv[1];
+    use1 = abs_(zl + t1 * N) <= abs_(zl + t2 * N);
+    t = use1 ? t1 : t2;
+  } else {
+    big = abs_(N) > T(1e-14);
+    Ns = big ? N : T(1e-14);
+    t = sv[0];
+  }
+  const T x1 = xl + t * L, y1 = yl + t * M, z1 = zl + t * N;
+  T r2 = T(0), rq = T(0), invd = T(0), fx = T(0), fy = T(0), im = T(1);
+  T nx = T(0), ny = T(0), nz = T(-1);
+  if (std_) {
+    r2 = x1 * x1 + y1 * y1;
+    rq = rsqrt_(T(1) - (T(1) + k) * (cu * cu) * r2);
+    invd = cu * rq;
+    fx = x1 * invd;
+    fy = y1 * invd;
+    im = rsqrt_(fx * fx + fy * fy + T(1));
+    nx = fx * im;
+    ny = fy * im;
+    nz = -im;
+  }
+  const T dot = L * nx + M * ny + N * nz;
+  const T sgn = sign_(dot);
+  const T nxs = nx * sgn, nys = ny * sgn, nzs = nz * sgn;
+  const T adot = abs_(dot);
+
+  // the local post-interaction directions
+  T Lo, Mo, No, root = T(1), w = T(0);
+  if (refl) {
+    Lo = L - T(2) * adot * nxs;
+    Mo = M - T(2) * adot * nys;
+    No = N - T(2) * adot * nzs;
+  } else {
+    root = sv[3];
+    w = root - u * adot;
+    Lo = u * L + nxs * w;
+    Mo = u * M + nys * w;
+    No = u * N + nzs * w;
+  }
+
+  // ---- globalize: rotate back (tilted), then translate ----
+  T go[6] = {g[0], g[1], g[2], g[3], g[4], g[5]};
+  T d_r[3] = {T(0), T(0), T(0)};
+  if (TILT && tilted) rot_global_adjoint(rot, x1, y1, z1, Lo, Mo, No, go, d_r);
+  T g_dx = g[0], g_dy = g[1], g_pos = g[2];
+  T g_x1 = go[0], g_y1 = go[1], g_z1 = go[2];
+  const T gLi = go[3], gMi = go[4], gNi = go[5];
+
+  // ---- interact ----
+  T gL, gM, gN, g_nxs, g_nys, g_nzs, g_adot, g_npre, g_npost;
+  if (refl) {
+    gL = gLi;
+    gM = gMi;
+    gN = gNi;
+    g_nxs = T(-2) * adot * gLi;
+    g_nys = T(-2) * adot * gMi;
+    g_nzs = T(-2) * adot * gNi;
+    g_adot = T(-2) * (nxs * gLi + nys * gMi + nzs * gNi);
+    g_npre = g_nn;
+    g_npost = T(0);
+  } else {
+    gL = u * gLi;
+    gM = u * gMi;
+    gN = u * gNi;
+    g_nxs = w * gLi;
+    g_nys = w * gMi;
+    g_nzs = w * gNi;
+    const T g_w = nxs * gLi + nys * gMi + nzs * gNi;
+    T g_u = L * gLi + M * gMi + N * gNi - adot * g_w;
+    g_adot = -u * g_w;
+    const T iroot = T(1) / root;
+    g_u = g_u - g_w * u * (T(1) - adot * adot) * iroot;
+    g_adot = g_adot + g_w * u * u * adot * iroot;
+    g_npre = g_u * inpost;
+    g_npost = g_nn - g_u * u * inpost;
+  }
+  gL += nxs * g_adot;
+  gM += nys * g_adot;
+  gN += nzs * g_adot;
+  g_nxs += L * g_adot;
+  g_nys += M * g_adot;
+  g_nzs += N * g_adot;
+
+  T g_k = T(0), g_cu = T(0);
+  // ---- normal (STANDARD; the plane normal is constant) ----
+  if (std_) {
+    const T g_nx = sgn * g_nxs, g_ny = sgn * g_nys, g_nz = sgn * g_nzs;
+    T g_fx = g_nx * im;
+    T g_fy = g_ny * im;
+    const T g_im = g_nx * fx + g_ny * fy - g_nz;
+    const T g_mg = T(-0.5) * g_im * im * im * im;
+    g_fx += T(2) * fx * g_mg;
+    g_fy += T(2) * fy * g_mg;
+    g_x1 += g_fx * invd;
+    g_y1 += g_fy * invd;
+    const T g_invd = g_fx * x1 + g_fy * y1;
+    g_cu += g_invd * rq;
+    const T g_qn = T(-0.5) * g_invd * cu * rq * rq * rq;
+    g_k -= g_qn * (cu * cu) * r2;
+    g_cu -= g_qn * (T(1) + k) * T(2) * cu * r2;
+    const T g_r2 = -g_qn * (T(1) + k) * (cu * cu);
+    g_x1 += T(2) * x1 * g_r2;
+    g_y1 += T(2) * y1 * g_r2;
+  }
+
+  // ---- propagate ----
+  T g_xl = g_x1, g_yl = g_y1, g_zl = g_z1;
+  T g_t = g_x1 * L + g_y1 * M + g_z1 * N;
+  gL += g_x1 * t;
+  gM += g_y1 * t;
+  gN += g_z1 * t;
+
+  // ---- clip, absorption, OPD (FULL) ----
+  T g_i = T(0), g_kpre = T(0);
+  if constexpr (FULL) {
+    const T ap = qr[Q_APMAX];
+    g_i = x1 * x1 + y1 * y1 > ap * ap ? T(0) : g[7];
+    if (absorbs) {
+      const T kpre = qr[Q_KPRE];
+      const T e = exp_(T(ABS) * kpre * t * T(1e3));
+      const T g_a = g_i * i_in * e;
+      g_t += g_a * (T(ABS) * kpre * T(1e3));
+      g_kpre = g_a * (T(ABS) * t * T(1e3));
+      g_i = g_i * e;
+    }
+    const T s_tn = sign_(t * n_pre);
+    g_t += g[8] * s_tn * n_pre;
+    g_npre += g[8] * s_tn * t;
+  }
+
+  // ---- intersect ----
+  T g_R;
+  if (std_) {
+    const bool ok1 = use1 && !a0;
+    const bool ok2 = !use1 && !q0;
+    // one reciprocal: of a (t = t1 = q / a) or of q (t = t2 = c / q)
+    const T rden = ok1 || ok2 ? T(1) / (ok1 ? a : q) : T(0);
+    const T g_q = ok1 ? g_t * rden : (ok2 ? -g_t * t2 * rden : T(0));
+    T g_a = ok1 ? -g_t * t1 * rden : T(0);
+    T g_c = ok2 ? g_t * rden : T(0);
+    T g_b = T(-0.5) * g_q;
+    const T g_sd = T(-0.5) * sg * g_q;
+    const T g_d = g_sd * T(0.5) / sd;
+    g_b += T(2) * b * g_d;
+    g_a -= T(4) * c * g_d;
+    g_c -= T(4) * a * g_d;
+    // a = cu A
+    g_cu += g_a * A;
+    const T g_A = g_a * cu;
+    g_k += g_A * (N * N);
+    gL += T(2) * L * g_A;
+    gM += T(2) * M * g_A;
+    gN += T(2) * N * (k + T(1)) * g_A;
+    // b = 2 (cu B - N)
+    g_cu += T(2) * g_b * Bq;
+    const T g_B = T(2) * g_b * cu;
+    gN -= T(2) * g_b;
+    g_k += g_B * N * zl;
+    gN += g_B * (k * zl + zl);
+    g_zl += g_B * (k * N + N);
+    gL += g_B * xl;
+    g_xl += g_B * L;
+    gM += g_B * yl;
+    g_yl += g_B * M;
+    // c = cu C - 2 zl
+    g_cu += g_c * Cq;
+    const T g_C = g_c * cu;
+    g_zl -= T(2) * g_c;
+    g_k += g_C * (zl * zl);
+    g_xl += T(2) * xl * g_C;
+    g_yl += T(2) * yl * g_C;
+    g_zl += T(2) * zl * (k + T(1)) * g_C;
+    g_R = -g_cu * (cu * cu);
+  } else {
+    const T iN = T(1) / Ns;
+    g_zl -= g_t * iN;
+    if (big) gN += g_t * zl * iN * iN;
+    g_R = T(0);
+  }
+
+  // ---- tilts: through the rotations (tilted), or at zero, where each
+  // rotation's generator acts on the state ----
+  T gi[6] = {g_xl, g_yl, g_zl, gL, gM, gN};
+  if (TILT && tilted) {
+    rot_local_adjoint(rot, xl, yl, zl, L, M, N, gi, d_r);
+  } else {
+    d_r[0] = g_yl * zl - g_zl * yl + gM * N - gN * M - go[1] * z1 +
+             go[2] * y1 - go[4] * No + go[5] * Mo;
+    d_r[1] = -g_xl * zl + g_zl * xl - gL * N + gN * L + go[0] * z1 -
+             go[2] * x1 + go[3] * No - go[5] * Lo;
+    d_r[2] = g_xl * yl - g_yl * xl + gL * M - gM * L - go[0] * y1 +
+             go[1] * x1 - go[3] * Mo + go[4] * Lo;
+  }
+
+  // ---- localize ----
+  g_dx -= gi[0];
+  g_dy -= gi[1];
+  g_pos -= gi[2];
+#pragma unroll
+  for (int c2 = 0; c2 < 6; ++c2) g[c2] = gi[c2];
+  g[6] = g_npre;
+  gc[0] = g_R;
+  gc[1] = g_k;
+  gc[2] = g_pos;
+  gc[3] = g_npost;
+  gc[4] = g_dx;
+  gc[5] = g_dy;
+  gc[6] = d_r[0];
+  gc[7] = d_r[1];
+  gc[8] = d_r[2];
+  if constexpr (FULL) {
+    g[7] = g_i;  // g[8], the opd cotangent, passes through unchanged
+    gc[9] = g_kpre;
+  }
+}
+
 // ---------------------------------------------------------------------------
 // Reductions
 // ---------------------------------------------------------------------------
@@ -2811,6 +3226,45 @@ __device__ __forceinline__ void store_partial_row(const T* acc, int stride,
     T v = T(0);
     for (int w = 0; w < nw; ++w) v += acc[w * stride + j];
     partial[(int64_t)blockIdx.x * ncomp + j] = v;
+  }
+}
+
+// The block's partial row of a per-thread-sum backward (Build::PT). Warp w
+// holds ncols columns per thread, warp-interleaved: column c of its lane l
+// at acc[(w * ncols + c) * 32 + l], the columns being the NG slots of
+// surfaces 1 .. S-1, then the object row's P_NPOST slot, then naim aim
+// entries; and (the polychromatic mode) a row of nrow dispersion
+// coefficient columns per warp after them (prow, warp w's at w * nrow).
+// Each warp sums its lanes' entries of every column (warp_sum's fixed
+// tree) into its lane 0's, then thread col sums column col over the warps
+// in warp order into the row's compact layout (ncomp columns: NG slots of
+// every surface, then the naim entries or the nrow columns), the object
+// row's other slots zero. Called by every thread after a __syncthreads.
+template <typename T, int NG>
+__device__ void store_pt_row(T* acc, int ncols, int S, int naim,
+                             const T* prow, int nrow, T* partial) {
+  const int lane = threadIdx.x & 31, nw = blockDim.x >> 5;
+  T* mine = acc + (threadIdx.x >> 5) * ncols * 32;
+  for (int c = 0; c < ncols; ++c) {
+    const T v = warp_sum(mine[c * 32 + lane]);
+    if (lane == 0) mine[c * 32] = v;
+  }
+  __syncthreads();
+  const int ncomp = S * NG + naim + nrow;
+  for (int col = threadIdx.x; col < ncomp; col += blockDim.x) {
+    T v = T(0);
+    if (col < S * NG + naim) {
+      const int s = col / NG, j = col % NG;
+      const int c = col >= S * NG ? (S - 1) * NG + 1 + (col - S * NG)
+                    : s >= 1  ? (s - 1) * NG + j
+                    : j == 3  ? (S - 1) * NG
+                              : -1;
+      if (c >= 0)
+        for (int w = 0; w < nw; ++w) v += acc[(w * ncols + c) * 32];
+    } else {
+      for (int w = 0; w < nw; ++w) v += prow[w * nrow + col - S * NG - naim];
+    }
+    partial[(int64_t)blockIdx.x * ncomp + col] = v;
   }
 }
 

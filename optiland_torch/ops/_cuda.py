@@ -39,6 +39,7 @@ BUILD_LOG = ""  # nvcc's output (ptxas register and spill counts) and the
 _VP, _I, _I64, _U64, _D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                            ctypes.c_ulonglong, ctypes.c_double)
 _PP = ctypes.POINTER(ctypes.c_void_p)  # host array of device pointers
+_IP = ctypes.POINTER(ctypes.c_int)  # an int the entry writes
 _ARGTYPES = {
     # seed, offset, R, px, py, u1, u2, stream
     "prng_disk": [_U64, _I64, _I64, _VP, _VP, _VP, _VP, _VP],
@@ -57,21 +58,25 @@ _ARGTYPES = {
     "trace_field_fwd": [_VP, _VP, _VP, _I, _I, _VP, _I, _I, _VP, _VP, _I64,
                         _PP, _VP],
     # params, flags, S, build, coeffs, nc, niters, nsag, in[8], cot[8], R,
-    # din[8], partial, nblocks, out, stream
+    # din[8], partial, nblocks, block, out, stream
     "trace_bwd": [_VP, _VP, _I, _I, _VP, _I, _I, _I, _PP, _PP, _I64, _PP,
-                  _VP, _I, _VP, _VP],
+                  _VP, _I, _I, _VP, _VP],
     # params, aim, flags, S, build, coeffs, nc, niters, nsag, px, py,
-    # cot[8], R, partial, nblocks, out, stream
+    # cot[8], R, partial, nblocks, block, out, stream
     "trace_field_bwd": [_VP, _VP, _VP, _I, _I, _VP, _I, _I, _I, _VP, _VP,
-                        _PP, _I64, _VP, _I, _VP, _VP],
+                        _PP, _I64, _VP, _I, _I, _VP, _VP],
     # params, mats, flags, S, build, coeffs, nc, niters, nm, in[9], R,
     # out[8], stream
     "trace_fwd_poly": [_VP, _VP, _VP, _I, _I, _VP, _I, _I, _I, _PP, _I64,
                        _PP, _VP],
     # params, mats, flags, S, build, coeffs, nc, niters, nsag, nm, in[9],
-    # cot[8], R, din[8], partial, nblocks, out, stream
+    # cot[8], R, din[8], partial, nblocks, block, out, stream
     "trace_bwd_poly": [_VP, _VP, _VP, _I, _I, _VP, _I, _I, _I, _I, _PP, _PP,
-                       _I64, _PP, _VP, _I, _VP, _VP],
+                       _I64, _PP, _VP, _I, _I, _VP, _VP],
+    # the per-thread-sum backwards' resident blocks per SM: (mode: 0
+    # generic, 1 field, 2 poly,) build, block, dynamic bytes, out
+    "merit_bwd_occupancy": [_I, _I, _I64, _IP],
+    "trace_bwd_occupancy": [_I, _I, _I, _I64, _IP],
     # img[3], pup[8], cot[2] (null for the forward), P, Q, 2/lambda, k,
     # chunk, nsplit, partial, out, stream
     **{name: [_PP, _PP, _PP, _I64, _I64, _D, _D, _I64, _I, _VP, _VP, _VP]

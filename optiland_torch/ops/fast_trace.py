@@ -65,7 +65,7 @@ from optiland_torch.ops.fused_trace import (
 )
 from optiland_torch.ops.launch import (
     BWD_BLOCK, BWD_MAX_BLOCKS, GRAT, N_AIM, TRACE_BUILDS, build_of,
-    check_cuda_inputs, covered, device_of, device_table, entry_name, flags,
+    bwd_grid, check_cuda_inputs, covered, device_of, device_table, entry_name, flags,
     grating_flags, inner_flags, kernel_tables, launch_from_pupil, launch_key,
     lay_row, sag_columns, sag_surfaces, unsupported, with_builds,
 )
@@ -390,17 +390,21 @@ def _launch(name, params, spec, coeffs, lay, before, rest):
     LAUNCHES[launch_key(name, build)] += 1
 
 
-def _partial(params, spec, nc, n_extra, R):
-    """A backward's per-block partial rows, their count, and the count of
-    surfaces with a block: FULL_GRAD_COLS per surface, the block of each
-    Newton-family surface or, in the grating build, grating
-    (``launch.block_width``), then ``n_extra``."""
+def _partial(params, spec, nc, mode, R, nm=0, block=None):
+    """A backward's per-block partial rows, their count, the count of
+    surfaces with a block, and the launch's block (``launch.bwd_grid``, at
+    most ``block``, BWD_BLOCK by default): FULL_GRAD_COLS per surface, the
+    block of each Newton-family surface or, in the grating build, grating
+    (``launch.block_width``), then the aim entries (``mode`` "field") or
+    the S * nm dispersion coefficients ("poly")."""
     S, build = len(spec[0]), _build(spec)
     nsag = len(sag_surfaces(spec[0], build, _grat(spec)))
+    n_extra = {"field": N_AIM, "poly": S * nm}.get(mode, 0)
     ncomp = (S * len(FULL_GRAD_COLS)
              + sag_columns(spec[0], nc, build, _grat(spec)) + n_extra)
-    nb = _bwd_blocks(R)
-    return params.new_empty((nb, ncomp)), nb, nsag
+    block, nb, _ = bwd_grid("trace_bwd", mode, S, nm, params.dtype, build, R,
+                            params.device, BWD_BLOCK if block is None else block)
+    return params.new_empty((nb, ncomp)), nb, nsag, block
 
 
 def trace_fwd(params, spec, rays, coeffs=None, lay=None):
@@ -421,10 +425,12 @@ def trace_fwd(params, spec, rays, coeffs=None, lay=None):
     return tuple(out)
 
 
-def trace_bwd(params, spec, nc, rays, cots, coeffs=None, lay=None):
+def trace_bwd(params, spec, nc, rays, cots, coeffs=None, lay=None,
+              block=None):
     """(8 per-ray input cotangents, flat (S * NUM_P + S * nc) gradient) for
     the 8 output cotangents ``cots``: the trace_bwd kernel and its
-    fixed-order reduction on a CUDA device, the plain version on the CPU."""
+    fixed-order reduction on a CUDA device, the plain version on the CPU.
+    ``block``: the largest block the kernel may take (BWD_BLOCK)."""
     if device_of(params.device, "trace_bwd") == "cpu":
         return trace_fast_bwd_plain(params, spec, nc, rays, cots, coeffs, lay)
     from optiland_torch.ops import _cuda
@@ -434,12 +440,14 @@ def trace_bwd(params, spec, nc, rays, cots, coeffs=None, lay=None):
     check_cuda_inputs(params, spec, rays + cots, coeffs=coeffs, lay=lay)
     _check_nc(coeffs, nc)
     S, R = len(spec[0]), rays[0].shape[0]
-    partial, nb, nsag = _partial(params, spec, nc, 0, R)
+    partial, nb, nsag, bd = _partial(params, spec, nc, "generic", R,
+                                     block=block)
     din = _empty8(rays[0])
     out = params.new_zeros(S * (NUM_P + nc))
     _launch("trace_bwd", params, spec, coeffs, lay, (),
             (nsag, _cuda.pointers(rays), _cuda.pointers(cots), R,
-             _cuda.pointers(din), partial.data_ptr(), nb, out.data_ptr()))
+             _cuda.pointers(din), partial.data_ptr(), nb, bd,
+             out.data_ptr()))
     return tuple(din), out
 
 
@@ -460,10 +468,11 @@ def trace_field_fwd(params, aim, spec, Px, Py, coeffs=None, lay=None):
 
 
 def trace_field_bwd(params, aim, spec, nc, Px, Py, cots, coeffs=None,
-                    lay=None):
+                    lay=None, block=None):
     """Flat (S * NUM_P + S * nc + N_AIM) gradient for the 8 output
     cotangents ``cots``: the trace_field_bwd kernel and its fixed-order
-    reduction on a CUDA device, the plain version on the CPU."""
+    reduction on a CUDA device, the plain version on the CPU. ``block``:
+    the largest block the kernel may take (BWD_BLOCK)."""
     if device_of(params.device, "trace_field_bwd") == "cpu":
         return trace_fast_field_bwd_plain(params, aim, spec, nc, Px, Py, cots,
                                           coeffs, lay)
@@ -474,11 +483,12 @@ def trace_field_bwd(params, aim, spec, nc, Px, Py, cots, coeffs=None,
     check_cuda_inputs(params, spec, (Px, Py) + cots, aim, coeffs, lay)
     _check_nc(coeffs, nc)
     S, R = len(spec[0]), Px.shape[0]
-    partial, nb, nsag = _partial(params, spec, nc, N_AIM, R)
+    partial, nb, nsag, bd = _partial(params, spec, nc, "field", R,
+                                     block=block)
     out = params.new_zeros(S * (NUM_P + nc) + N_AIM)
     _launch("trace_field_bwd", params, spec, coeffs, lay, (aim.data_ptr(),),
             (nsag, Px.data_ptr(), Py.data_ptr(), _cuda.pointers(cots), R,
-             partial.data_ptr(), nb, out.data_ptr()))
+             partial.data_ptr(), nb, bd, out.data_ptr()))
     return out
 
 
@@ -524,11 +534,12 @@ def trace_fwd_poly(params, mats, spec, rays, coeffs=None, lay=None):
 
 
 def trace_bwd_poly(params, mats, spec, nc, rays, cots, coeffs=None,
-                   lay=None):
+                   lay=None, block=None):
     """(8 per-ray input cotangents, flat (S * NUM_P + S * nc + S * nm)
     gradient) for the 8 output cotangents ``cots`` of a polychromatic
     trace: the trace_bwd_poly kernel and its fixed-order reduction on a
-    CUDA device, the plain version on the CPU."""
+    CUDA device, the plain version on the CPU. ``block``: the largest
+    block the kernel may take (BWD_BLOCK)."""
     if device_of(params.device, "trace_bwd_poly") == "cpu":
         return trace_bwd_poly_plain(params, mats, spec, nc, rays, cots,
                                     coeffs, lay)
@@ -539,12 +550,13 @@ def trace_bwd_poly(params, mats, spec, nc, rays, cots, coeffs=None,
     _check_poly(params, mats, spec, rays + cots, coeffs, lay)
     _check_nc(coeffs, nc)
     S, R, nm = len(spec[0]), rays[0].shape[0], mats.shape[1]
-    partial, nb, nsag = _partial(params, spec, nc, S * nm, R)
+    partial, nb, nsag, bd = _partial(params, spec, nc, "poly", R, nm, block)
     din = _empty8(rays[0])
     out = params.new_zeros(S * (NUM_P + nc + nm))
     _launch("trace_bwd_poly", params, spec, coeffs, lay, (mats.data_ptr(),),
             (nsag, nm, _cuda.pointers(rays), _cuda.pointers(cots), R,
-             _cuda.pointers(din), partial.data_ptr(), nb, out.data_ptr()))
+             _cuda.pointers(din), partial.data_ptr(), nb, bd,
+             out.data_ptr()))
     return tuple(din), out
 
 

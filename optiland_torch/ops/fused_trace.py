@@ -55,7 +55,7 @@ from optiland_torch.core.system import (
     k_all, n_all, positions, scalar_like, static_tensor,
 )
 from optiland_torch.ops.launch import (
-    BWD_BLOCK, BWD_MAX_BLOCKS, FWD_BLOCK, GRAT, N_AIM, TRACE_BUILDS, build_of,
+    BWD_BLOCK, FWD_BLOCK, GRAT, N_AIM, TRACE_BUILDS, build_of, bwd_grid,
     check_cuda_inputs, check_dtype, covered, device_of, device_table,
     entry_name, flags, grating_flags, kernel_tables, launch_from_pupil, launch_key, lay_row,
     sag_columns, sag_surfaces, unsupported, with_builds,
@@ -490,10 +490,11 @@ def merit_bwd(params, aim, stats, spec, nc, R, seed=0, offset=0, Px=None,
               Py=None, block=None, coeffs=None, lay=None):
     """Flat merit gradient (S * NUM_P + S * nc + N_AIM) for the seed
     ``stats`` = [xbar, ybar, g / R, 0]. CUDA kernels on a CUDA device (one
-    partial row per block of ``block`` rays, then a fixed-order sum of the
-    rows), plain version on the CPU, where there are no blocks. ``coeffs``
-    is the (S, nc) coefficient table (None: zeros); the rows sum nc
-    coefficient columns for each Newton-family surface only."""
+    partial row per block of at most ``block`` rays, then a fixed-order sum
+    of the rows; ``launch.bwd_grid`` gives the shape), plain version on the
+    CPU, where there are no blocks. ``coeffs`` is the (S, nc) coefficient
+    table (None: zeros); the rows sum nc coefficient columns for each
+    Newton-family surface only."""
     block = _bwd_block(block)
     if device_of(params.device, "merit_bwd") == "cpu":
         return merit_bwd_plain(params, aim, stats, spec, nc, R, seed, offset,
@@ -508,8 +509,8 @@ def merit_bwd(params, aim, stats, spec, nc, R, seed=0, offset=0, Px=None,
     stats = stats.to(dtype=params.dtype).contiguous()
     ncomp = (S * len(GRAD_COLS) + sag_columns(spec[0], nc, build, spec[3])
              + N_AIM)
-    # the grid keeps BWD_MAX_BLOCKS x BWD_BLOCK threads whatever the block
-    nb = min(-(-R // block), BWD_MAX_BLOCKS * (BWD_BLOCK // block))
+    block, nb, _ = bwd_grid("merit_bwd", "merit", S, 0, params.dtype, build,
+                            int(R), params.device, block)
     partial = torch.empty((nb, ncomp), dtype=params.dtype, device=params.device)
     out = torch.zeros(S * (NUM_P + nc) + N_AIM, dtype=params.dtype,
                       device=params.device)
@@ -576,9 +577,10 @@ def spot_rms_fast_field(system, Hx, Hy, wavelength, num_rays=None, seed=0,
     ``Px/Py`` the samples are read instead of drawn by the Philox PRNG. The
     dtype and device follow the system's stack: the merit kernels run on a
     CUDA device and their plain versions on the CPU. ``bwd_tile`` is the
-    backward kernel's block size in rays (a multiple of 32 up to
-    BWD_BLOCK, which is the default); the samples and the result do not
-    depend on it beyond rounding. ``newton_iters`` is the Newton step
+    largest block the backward kernel may take, in rays (a multiple of 32
+    up to BWD_BLOCK, which is the default; ``launch.bwd_shape`` may take
+    a smaller one where the block's shared memory needs it); the samples
+    and the result do not depend on it beyond rounding. ``newton_iters`` is the Newton step
     count of the Newton families' intersection (the closed-form ones do not
     read it).
     """

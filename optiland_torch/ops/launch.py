@@ -64,7 +64,7 @@ import torch
 
 from optiland_torch.core import geometry as geom
 from optiland_torch.core.system import carried_aux, is_grating, static_tensor
-from optiland_torch.ops.step import CART_COLS, NUM_P
+from optiland_torch.ops.step import CART_COLS, FULL_GRAD_COLS, GRAD_COLS, NUM_P
 from optiland_torch.physical_apertures import radial_only
 
 # The 8-scalar aim vector of an infinite-conjugate angle field: launch point,
@@ -75,7 +75,14 @@ A_X0, A_Y0, A_Z0, A_L, A_M, A_N, A_SX, A_SY = range(N_AIM)
 # Launch shapes of the kernels (csrc/step.cuh holds the same values).
 FWD_BLOCK = 256  # rays per forward block
 BWD_BLOCK = 128
-BWD_MAX_BLOCKS = 1056  # fixed grid of the backwards' grid-stride loop
+# fixed grid of the backwards' grid-stride loop, but in the stock and tilt
+# builds of merit_bwd and trace_bwd (bwd_grid)
+BWD_MAX_BLOCKS = 1056
+# shared memory a block may hold on sm_90 (227 KB), and what the stock and
+# tilt builds of merit_bwd and trace_bwd leave of it to their static tables
+# (at most 7.1 KB: the f64 poly trace_bwd's, 16 surfaces)
+SMEM_MAX = 232_448
+SMEM_STATIC = 8_192
 STOCK_SURF = 16  # surfaces of the stock, tilt, sag, nurbs and grat builds
 MAX_SURF = 64  # surfaces of the deep build: the kernels' bound
 NC_MAX = 36  # coefficient columns the kernels take (a 6 x 6 table)
@@ -414,6 +421,99 @@ def build_of(codes, tilted, inner=(), grat=()):
     if len(codes) > STOCK_SURF:
         build |= DEEP
     return build
+
+
+# The stock and tilt builds of merit_bwd and trace_bwd sum per thread
+# (csrc/fused_trace.cuh, csrc/fast_trace.cuh: Build::PT): each thread keeps
+# its rays' sums of the slots of surfaces 1 .. S-1, of the object row's
+# n_post slot and of the aim entries in dynamic shared memory, and each
+# warp a row of the dispersion coefficient columns (poly), so their block
+# follows from the bytes (bwd_shape) and their grid from the kernel's
+# occupancy (bwd_grid). Per mode: the slots per surface (GRAD_COLS,
+# FULL_GRAD_COLS), whether the aim entries follow, and whether the
+# dispersion coefficients do.
+BWD_MODES = {"merit": (len(GRAD_COLS), True, False),
+             "field": (len(FULL_GRAD_COLS), True, False),
+             "generic": (len(FULL_GRAD_COLS), False, False),
+             "poly": (len(FULL_GRAD_COLS), False, True)}
+
+
+def per_thread(build):
+    """True for the builds whose backwards sum per thread: stock and
+    tilt."""
+    return build in (STOCK, TILT)
+
+
+def bwd_shape(S, nm, mode, dtype, block=BWD_BLOCK):
+    """(block, dynamic shared bytes) of a per-thread-sum backward of S
+    surfaces in ``mode`` ("merit", "field", "generic" or "poly", with nm
+    dispersion coefficients per surface) and ``dtype``: the largest
+    multiple of 32 up to ``block`` whose threads' columns and warps'
+    dispersion rows fit in SMEM_MAX less SMEM_STATIC. Raises ValueError for a ``block`` that
+    is not a multiple of 32 from 32 to BWD_BLOCK, NotImplementedError
+    where 32 threads do not fit."""
+    block = int(block)
+    if block % 32 or not 32 <= block <= BWD_BLOCK:
+        raise ValueError(f"the backward block must be a multiple of 32 from "
+                         f"32 to {BWD_BLOCK} threads, got {block}")
+    slots, aim, poly = BWD_MODES[mode]
+    size = torch.finfo(dtype).bits // 8
+    # each thread's columns, and each warp's row of dispersion columns
+    per = ((S - 1) * slots + 1 + (N_AIM if aim else 0)) * size
+    per_warp = (S * nm if poly else 0) * size
+    room = SMEM_MAX - SMEM_STATIC
+
+    def nbytes(b):
+        return b * per + b // 32 * per_warp
+
+    while block > 32 and nbytes(block) > room:
+        block -= 32
+    if nbytes(block) > room:
+        raise NotImplementedError(
+            f"a {mode} backward of {S} surfaces needs {nbytes(32)} bytes of "
+            f"shared memory at 32 threads, more than the {room} bytes a "
+            "block has for them")
+    return block, nbytes(block)
+
+
+@functools.lru_cache(maxsize=None)
+def _resident(name, dtype, build, mode, block, dyn, device):
+    """Resident blocks per SM of backward ``name`` (a per-thread-sum
+    build) at ``block`` threads and ``dyn`` bytes, from the occupancy
+    calculator, and the card's SM count."""
+    import ctypes
+
+    from optiland_torch.ops import _cuda
+
+    n = ctypes.c_int(0)
+    args = (build, block, dyn, ctypes.byref(n))
+    if name != "merit_bwd":
+        args = (("generic", "field", "poly").index(mode),) + args
+    with torch.cuda.device(device):
+        _cuda.check(_cuda.call(name + "_occupancy", dtype, *args), name)
+    if n.value < 1:
+        raise RuntimeError(f"{name} fits no block of {block} threads and "
+                           f"{dyn} bytes of shared memory on an SM")
+    return n.value, torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def bwd_grid(name, mode, S, nm, dtype, build, R, device, block=BWD_BLOCK):
+    """(block, blocks, dynamic bytes) of backward ``name`` (merit_bwd or
+    trace_bwd, ``mode`` as bwd_shape's) launched for R rays on ``device``:
+    in the per-thread-sum builds the block of ``bwd_shape`` and one wave of
+    blocks (the resident blocks per SM times the SMs, no more than the rays
+    need), fixed for a card, build, dtype and shape, so that two launches
+    give the same bits; in the other builds ``block`` and the grid of
+    BWD_MAX_BLOCKS x BWD_BLOCK threads, whose per-warp rows size their
+    shared memory themselves."""
+    if not per_thread(build):
+        nb = min(-(-R // block), BWD_MAX_BLOCKS * (BWD_BLOCK // block))
+        return block, max(1, nb), 0
+    block, dyn = bwd_shape(S, nm, mode, dtype, block)
+    device = torch.device(device)
+    index = torch.cuda.current_device() if device.index is None else device.index
+    per_sm, sms = _resident(name, dtype, build, mode, block, dyn, index)
+    return block, max(1, min(-(-R // block), per_sm * sms)), dyn
 
 
 def launch_from_pupil(aim, Px, Py):

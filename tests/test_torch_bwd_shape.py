@@ -1,0 +1,83 @@
+"""The launch shape of the per-thread-sum backwards (the stock and tilt
+builds of merit_bwd and trace_bwd): ``launch.bwd_shape`` picks the block
+from the shared memory each thread needs, ``launch.bwd_grid`` the grid.
+These run without a card; the kernels' own checks are in
+``tests/test_torch_cuda.py``."""
+
+import pytest
+import torch
+
+from optiland_torch.ops import launch
+from optiland_torch.ops.step import FULL_GRAD_COLS, GRAD_COLS
+
+MODES = ("merit", "field", "generic", "poly")
+
+
+def _shared_bytes(S, nm, mode, dtype, block):
+    """A block's columns, counted from the kernels' layout
+    (csrc/fused_trace.cuh, csrc/fast_trace.cuh, store_pt_row): each
+    thread's slots of surfaces 1 .. S-1, the object row's n_post slot and
+    the aim entries, and each warp's row of dispersion columns."""
+    size = torch.finfo(dtype).bits // 8
+    slots = len(GRAD_COLS) if mode == "merit" else len(FULL_GRAD_COLS)
+    aim = launch.N_AIM if mode in ("merit", "field") else 0
+    row = S * nm if mode == "poly" else 0
+    return (block * ((S - 1) * slots + 1 + aim) + block // 32 * row) * size
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("mode", MODES)
+def test_bwd_shape_fits_every_stock_and_tilt_system(mode, dtype):
+    room = launch.SMEM_MAX - launch.SMEM_STATIC
+    for S in range(2, launch.STOCK_SURF + 1):
+        for nm in range(1, 21):
+            for want in range(32, launch.BWD_BLOCK + 1, 32):
+                block, dyn = launch.bwd_shape(S, nm, mode, dtype, want)
+                assert block % 32 == 0 and 32 <= block <= want
+                assert dyn == _shared_bytes(S, nm, mode, dtype, block)
+                assert dyn <= room <= launch.SMEM_MAX
+                # the largest block that fits
+                assert block == want or _shared_bytes(
+                    S, nm, mode, dtype, block + 32) > room
+
+
+def test_bwd_shape_of_the_cooke_triplet_and_the_widest_system():
+    # the Cooke triplet (8 surfaces) takes the full block in f32
+    assert launch.bwd_shape(8, 0, "merit", torch.float32) == (
+        128, 128 * (7 * 9 + 1 + 8) * 4)
+    assert launch.bwd_shape(8, 0, "field", torch.float32) == (
+        128, 128 * (7 * 10 + 1 + 8) * 4)
+    assert launch.bwd_shape(8, 20, "poly", torch.float32) == (
+        128, (128 * (7 * 10 + 1) + 4 * 8 * 20) * 4)
+    # the widest system the stock and tilt builds take, 16 surfaces and 20
+    # dispersion coefficients in f64: 151 columns per thread and 320 per
+    # warp still fit 128 threads
+    assert launch.bwd_shape(16, 20, "poly", torch.float64) == (
+        128, (128 * 151 + 4 * 320) * 8)
+    # where they would not, the block shrinks: 64 surfaces take 32 threads
+    assert launch.bwd_shape(64, 20, "poly", torch.float64) == (
+        32, (32 * 631 + 1280) * 8)
+    # the request bounds the block whatever fits
+    assert launch.bwd_shape(8, 0, "generic", torch.float32, 64)[0] == 64
+
+
+@pytest.mark.parametrize("block", [0, 16, 48, 100, 160, 256])
+def test_bwd_shape_refuses_blocks_that_are_not_a_multiple_of_32(block):
+    with pytest.raises(ValueError, match="multiple of 32"):
+        launch.bwd_shape(8, 0, "merit", torch.float32, block)
+
+
+def test_only_the_stock_and_tilt_builds_sum_per_thread():
+    assert [b for b in launch.BUILD_SUFFIX if launch.per_thread(b)] == [
+        launch.STOCK, launch.TILT]
+    # the other builds keep their grid of BWD_MAX_BLOCKS x BWD_BLOCK
+    # threads and their per-warp rows (no card needed to say so)
+    for build in (launch.SAG, launch.FREE, launch.DEEP, launch.NURBS,
+                  launch.GRAT):
+        for block in (32, 64, 128):
+            assert launch.bwd_grid("trace_bwd", "generic", 8, 0,
+                                   torch.float32, build, 1 << 24, "cpu",
+                                   block) == (
+                block, launch.BWD_MAX_BLOCKS * (launch.BWD_BLOCK // block), 0)
+        assert launch.bwd_grid("merit_bwd", "merit", 8, 0, torch.float32,
+                               build, 1000, "cpu") == (128, 8, 0)

@@ -52,6 +52,7 @@ from optiland_torch.ops import _cuda
 from optiland_torch.ops import fast_trace as ftr
 from optiland_torch.ops import fused_trace as ft
 from optiland_torch.ops import huygens as hu
+from optiland_torch.ops import launch
 from optiland_torch.optic import Optic
 from optiland_torch.polarization import create_polarization
 from optiland_torch.samples import (
@@ -2065,3 +2066,93 @@ def test_nurbs_entry_points_and_refusals(cuda_device):
     assert float(loss) == pytest.approx(float(loss_p), rel=1e-12)
     torch.testing.assert_close(cf.grad.cpu(), cf_p.grad, rtol=1e-9,
                                atol=1e-12 * float(cf_p.grad.abs().max()))
+
+
+# ---------------------------------------------------------------------------
+# The per-thread-sum backwards: the stock and tilt builds of merit_bwd and
+# trace_bwd (every mode), whose shape follows from their shared memory
+# (launch.bwd_shape, launch.bwd_grid)
+# ---------------------------------------------------------------------------
+
+
+def _pt_calls(kind, dtype, R, device):
+    """Each per-thread-sum backward on the Cooke triplet (the stock build)
+    or the toleranced triplet (tilt): name -> fn(block) giving its per-ray
+    input cotangents (an empty tuple for the field and merit modes) and
+    its summed gradient."""
+    system = _poly_system(kind, device)
+    params, mats, ins, cots = _poly_inputs(system, R, 7, device)
+    params, mats = params.to(dtype), mats.to(dtype)
+    ins, cots = [t.to(dtype) for t in ins], [t.to(dtype) for t in cots]
+    with torch.no_grad():
+        pk = ft.build_param_table(system, WL).to(dtype).contiguous()
+        aim = ft.aim_vector(system, *H).to(dtype).contiguous()
+    spec, mspec = ftr.fast_spec(system), ft._spec_of(system)
+    pspec = ftr.poly_spec(system)
+    assert {ft._build(mspec), ftr._build(spec), ftr._build(pspec)} == {
+        launch.TILT if kind == "tilted" else launch.STOCK}
+    Px, Py = ft.prng_disk_plain(3, R, 0, dtype, device)
+    rows = ft.merit_fwd(pk, aim, mspec, R, seed=5)
+    _, xb, yb = ft._chan_combine(rows, R)
+    stats = torch.stack([xb, yb, 1.0 / R + 0 * xb, 0 * xb])
+    return {
+        "merit_bwd": lambda b: ((), ft.merit_bwd(pk, aim, stats, mspec, 1,
+                                                 R, seed=5, block=b)),
+        "trace_bwd": lambda b: ftr.trace_bwd(pk, spec, 1, ins[:8], cots,
+                                             block=b),
+        "trace_field_bwd": lambda b: ((), ftr.trace_field_bwd(
+            pk, aim, spec, 1, Px, Py, cots, block=b)),
+        "trace_bwd_poly": lambda b: ftr.trace_bwd_poly(
+            params, mats, pspec, 1, ins, cots, block=b),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["cooke", "tilted"])
+def test_per_thread_backwards_repeat_bit_for_bit(cuda_device, kind):
+    for name, call in _pt_calls(kind, torch.float32, 200001,
+                                cuda_device).items():
+        (din, grad), (din2, grad2) = call(128), call(128)
+        assert torch.equal(grad, grad2), name
+        assert all(torch.equal(a, b) for a, b in zip(din, din2)), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["cooke", "tilted"])
+def test_per_thread_backwards_agree_across_blocks(cuda_device, kind):
+    calls = _pt_calls(kind, torch.float32, 100001, cuda_device)
+    refs = {name: call(128) for name, call in calls.items()}
+    for block in (32, 64):
+        for name, call in calls.items():
+            (din, grad), (din_r, grad_r) = call(block), refs[name]
+            # the per-ray input cotangents do not depend on the block
+            assert all(torch.equal(a, b) for a, b in zip(din, din_r)), name
+            # the summed gradients only in their order of summation
+            got, ref = grad.double(), grad_r.double()
+            fin = torch.isfinite(ref)
+            assert torch.equal(fin, torch.isfinite(got)), (name, block)
+            err = float(torch.linalg.vector_norm(got[fin] - ref[fin])
+                        / torch.linalg.vector_norm(ref[fin]))
+            assert err <= 1e-3, (name, block, err)
+
+
+@pytest.mark.cuda
+def test_widest_stock_system_launches_and_matches_plain(cuda_device):
+    # 16 surfaces in f64, poly mode, nm = 20: 151 columns per thread and
+    # 320 per warp
+    system = _plates(7)
+    spec = ftr.poly_spec(system)
+    assert len(spec[0]) == 16 and ftr._build(spec) == launch.STOCK
+    R, nc = 20001, system.stack.coeffs.shape[1]
+    params, mats, ins, cots = _poly_inputs(system, R, 8, cuda_device)
+    assert mats.shape == (16, 20)
+    assert launch.bwd_grid("trace_bwd", "poly", 16, 20, torch.float64,
+                           launch.STOCK, R, cuda_device)[0] == 128
+    din, flat = ftr.trace_bwd_poly(params, mats, spec, nc, ins, cots)
+    din_p, flat_p = ftr.trace_bwd_poly_plain(params, mats, spec, nc, ins,
+                                             cots)
+    _close(din, din_p, 1e-10, "trace_bwd_poly input cotangent")
+    fin = torch.isfinite(flat_p)
+    assert torch.equal(fin, torch.isfinite(flat))
+    torch.testing.assert_close(flat[fin], flat_p[fin], rtol=1e-9,
+                               atol=1e-12 * float(flat_p[fin].abs().max()))

@@ -15,21 +15,42 @@ of their kernels and the times of their merit and trace kernels.
       print how many have the same machine code (``cuobjdump -sass``, the
       hex encodings and the anonymous namespaces' hashes left out): the
       exact check, where equal ptxas lines may still hide other code;
-  python3 tools/torch_build_compare.py time ROOT TAG [--aux]
+  python3 tools/torch_build_compare.py mix LOG
+      for the backwards of the main path (merit_bwd and trace_bwd in the
+      stock and tilt builds) of a build log's library: the ptxas line
+      (registers, stack frame, spills, static shared memory), the resident
+      blocks per SM that the registers and static shared memory allow at
+      BWD_BLOCK threads, and the static instruction mix of the machine
+      code (SHFL, MUFU, LDL/STL, LDS/STS, FFMA/FADD/FMUL, DFMA/DADD/DMUL,
+      all);
+  python3 tools/torch_build_compare.py time ROOT TAG [--aux | --main]
       time merit_fwd, merit_bwd, trace_fwd, trace_bwd, trace_field_fwd and
       trace_field_bwd of ROOT at 2^24 rays, float32 (median of 10 CUDA
-      event timings after one warm-up), on the tilted asphere (sag build),
-      ObjectiveUS008879901 (deep), and the XY and toroidal singlets
-      (free); with ``--aux`` on the Zernike, Qbfs and Q2d singlets in the
-      aux build and forced to the deep_aux build, in the order aux,
-      deep_aux, deep_aux, aux. Prints one line per system and writes
+      event timings after one warm-up), on the main path's builds: the
+      Cooke triplet (stock build), the toleranced Cooke triplet
+      (samples/perturbed.py, tilt build), and bench.py's poly step on the
+      Cooke triplet (trace_fwd_poly, trace_bwd_poly; wavelengths 0.48,
+      0.55, 0.65 um cycling by ray); then on the tilted asphere (sag
+      build), ObjectiveUS008879901 (deep), and the XY and toroidal
+      singlets (free); with ``--main`` on the main path's builds only;
+      with ``--aux`` on the Zernike, Qbfs and Q2d singlets in the aux build
+      and forced to the deep_aux build, in the order aux, deep_aux,
+      deep_aux, aux. Prints one line per system and writes
       ``chiprun_out/compare_<TAG>.json``.
 
 To compare a commit with its parent, unpack the parent into a directory
-that .gitignore lists (``git archive``), build both at once, then time
-parent, change, change, parent in one call. The trees' own wrappers are
-used; an older tree without ``launch.kernel_tables`` gets its stack's
-coefficient table.
+that .gitignore lists (``git archive HEAD~1 | tar -x -C _archive/parent``),
+then, in one run on the card, build both at once and time parent,
+change, change, parent:
+
+  python3 tools/torch_build_compare.py build _archive/parent chiprun_out/old.log &
+  python3 tools/torch_build_compare.py build . chiprun_out/new.log; wait
+  python3 tools/torch_build_compare.py sass chiprun_out/old.log chiprun_out/new.log
+  for t in _archive/parent:parent .:change .:change _archive/parent:parent; do
+    python3 tools/torch_build_compare.py time ${t%%:*} ${t##*:} --main; done
+
+The trees' own wrappers are used; an older tree without
+``launch.kernel_tables`` gets its stack's coefficient table.
 """
 
 import json
@@ -157,7 +178,49 @@ def sass(old, new):
         print(f"  missing {k}")
 
 
-def time_tree(root, tag, aux):
+# the main path's backwards, whose machine code ``mix`` counts: the merit and
+# trace kernels' stock and tilt builds
+MIX_KERNELS = ("merit_bwd_kernel", "trace_bwd_kernel")
+MIX_CLASSES = {"SHFL": ("SHFL",), "MUFU": ("MUFU",), "LDL/STL": ("LDL", "STL"),
+               "LDS/STS": ("LDS", "STS"), "FFMA/FADD/FMUL": ("FFMA", "FADD",
+                                                             "FMUL"),
+               "DFMA/DADD/DMUL": ("DFMA", "DADD", "DMUL")}
+
+
+def mix(log):
+    names = {}
+    for line in open(log):
+        if line.startswith("builds "):
+            names = {int(k): v for k, v in json.loads(line[7:]).items()}
+    lines = parse(log)
+    code = sass_of(log)
+    for (src, key), instrs in sorted(code.items(), key=str):
+        if not (isinstance(key, tuple) and key[0] in MIX_KERNELS
+                and key[2] and key[2][-1] in ("stock", "tilt")):
+            continue
+        ops = [re.sub(r"^@!?U?P\w+\s+", "", i.split(";")[0].split("*/", 1)[-1]
+                      .strip()).split(" ")[0].split(".")[0] for i in instrs]
+        counts = {c: sum(o in ops_ for o in ops)
+                  for c, ops_ in MIX_CLASSES.items()}
+        counts["all"] = len(ops)
+        ptx = " | ".join(lines.get(key, []))
+        regs = re.search(r"Used (\d+) registers", ptx)
+        smem = re.search(r"(\d+) bytes smem", ptx)
+        per_sm = None
+        if regs:
+            # registers go to a warp in units of 256, 64K on an SM; 228 KB
+            # of shared memory, 1 KB of it reserved for each block
+            per_warp = -(-int(regs.group(1)) * 32 // 256) * 256
+            warps = 128 // 32
+            per_sm = min(65536 // per_warp // warps, 64 // warps, 32,
+                         233472 // ((int(smem.group(1)) if smem else 0)
+                                    + 1024))
+        print(f"mix {src} {key}: {ptx}; resident blocks per SM at 128 "
+              f"threads from registers and static smem {per_sm}; "
+              f"instructions {counts}", flush=True)
+
+
+def time_tree(root, tag, aux, main=False):
     sys.path.insert(0, os.path.abspath(root))
     import torch
 
@@ -231,9 +294,41 @@ def time_tree(root, tag, aux):
         torch.cuda.synchronize()
         return res
 
+    def poly_kernels(system):
+        # bench.py's poly step: the Cooke triplet's rays, wavelengths
+        # cycling by ray
+        wl = torch.tensor((0.48, 0.55, 0.65), device=dev)[
+            torch.arange(R, device=dev) % 3]
+        with torch.no_grad():
+            pk = ftr.build_poly_table(system).contiguous()
+            mk = system.stack.mat_coeffs.detach().contiguous()
+            Px, Py = ft.prng_disk(17, R, 0, torch.float32, dev)
+            rays = raygen.generate_rays(system, 0.0, 0.7, Px, Py, 0.55)
+            ins = [getattr(rays, k).contiguous() for k in ftr.RAY_FIELDS]
+            ins.append(wl)
+            del rays, Px, Py
+            cots = [torch.randn(R, generator=gen, device=dev) / R
+                    for _ in range(8)]
+            spec = ftr.poly_spec(system)
+            nc = system.stack.coeffs.shape[1]
+            res = {
+                "trace_fwd_poly": time_ms(lambda: ftr.trace_fwd_poly(
+                    pk, mk, spec, ins)),
+                "trace_bwd_poly": time_ms(lambda: ftr.trace_bwd_poly(
+                    pk, mk, spec, nc, ins, cots)),
+            }
+        torch.cuda.synchronize()
+        return res
+
+    from optiland_torch.samples import CookeTriplet
+
     out = {}
     if not aux:
-        for name, make, field in (
+        out["cooke"] = kernels(CookeTriplet().system, (0.0, 0.7))
+        out["toleranced_cooke"] = kernels(
+            perturbed.toleranced_cooke().system, (0.0, 0.7))
+        out["cooke_poly"] = poly_kernels(CookeTriplet().system)
+    for name, make, field in () if aux or main else (
                 ("tilted_asphere", perturbed.tilted_asphere, (0.0, 0.0)),
                 ("objective26", lambda: registry.build_sample(
                     "ObjectiveUS008879901"), (0.0, 0.7)),
@@ -241,8 +336,8 @@ def time_tree(root, tag, aux):
                     "polynomial"), freeform.H),
                 ("toroidal", lambda: freeform.freeform_singlet("toroidal"),
                  freeform.H)):
-            out[name] = kernels(make().system, field)
-    else:
+        out[name] = kernels(make().system, field)
+    if aux:
         least = launch.build_of
 
         def deep(*a, **k):
@@ -278,8 +373,10 @@ def main(argv):
         ptxas(argv[1], argv[2])
     elif len(argv) == 3 and argv[0] == "sass":
         sass(argv[1], argv[2])
+    elif len(argv) == 2 and argv[0] == "mix":
+        mix(argv[1])
     elif len(argv) >= 3 and argv[0] == "time":
-        time_tree(argv[1], argv[2], "--aux" in argv[3:])
+        time_tree(argv[1], argv[2], "--aux" in argv[3:], "--main" in argv[3:])
     else:
         print(__doc__, file=sys.stderr)
         return 2
