@@ -107,7 +107,9 @@ to 0 just before it and read just after:
     (the net's gradient finite and nonzero), the poly and polarized steps
     of the rational lens, and each nurbs kernel's full-width launch held
     against its f32 plain version chunk by chunk (2^22 rays each) and
-    timed against it, with its bound (rows tagged with the lens).
+    timed against it, with its bound (rows tagged with the lens); the
+    nurbs backwards' launch shapes, and two full-width launches of each
+    (merit, generic, field, poly, polarized) giving the same bits.
 
 It prints:
 
@@ -4392,6 +4394,70 @@ def main(argv=None):
                                               "rational_coated_pol"),
                         steps28, 9990, 281, full28, tag="_rational",
                         chunk=chunk28)
+    # the redesigned NURBS adjoints (csrc/nurbs_step.cuh: the saved (u, v),
+    # the staged records and the columns each lane owns): their launch
+    # shapes, and two launches of each at full width give the same bits,
+    # on the rational lens and its coated variant
+    sys28 = nurbs32["rational"]
+    with torch.no_grad():
+        Px28, Py28 = ft.prng_disk(28, Rf, 0, torch.float32, dev)
+        _, p28, a28, _, ins28, cots28 = k6_inputs(sys28, HF, Px28, Py28,
+                                                  gen28)
+        c28, l28 = launch_build.kernel_tables(sys28, torch.float32)
+        nc28 = c28.shape[1]
+        spec28, mspec28 = ftr.fast_spec(sys28, field=True), ft._spec_of(sys28)
+        stats28 = torch.tensor([0.1, -0.2, 1.0 / Rf, 0.0], device=dev)
+        wl28 = torch.tensor(POLY_WLS, device=dev)[
+            torch.arange(Rf, device=dev) % 3]
+        pq28 = ftr.build_poly_table(sys28).contiguous()
+        mq28 = sys28.stack.mat_coeffs.detach().contiguous()
+        sys28c = nurbs.coated_nurbs("H").system
+        _, pc28, _, _, insc28, _ = k6_inputs(sys28c, HF, Px28, Py28, gen28)
+        cc28, lc28 = launch_build.kernel_tables(sys28c, torch.float32)
+        pspec28 = pt.pol_spec(sys28c, WL)
+        coat28 = pt.build_coat_table(sys28c, WL, torch.float32, dev)
+        twice28 = {
+            "merit_bwd_nurbs": lambda: (ft.merit_bwd(
+                p28, a28, stats28, mspec28, nc28, Rf, seed=9, coeffs=c28,
+                lay=l28),),
+            "trace_bwd_nurbs": lambda: ftr.trace_bwd(
+                p28, spec28, nc28, ins28, cots28, c28, l28),
+            "trace_field_bwd_nurbs": lambda: (ftr.trace_field_bwd(
+                p28, a28, spec28, nc28, Px28, Py28, cots28, c28, l28),),
+            "trace_bwd_poly_nurbs": lambda: ftr.trace_bwd_poly(
+                pq28, mq28, ftr.poly_spec(sys28), nc28, ins28 + [wl28],
+                cots28, c28, l28),
+            "pol_bwd_intensity_nurbs": lambda: pt.pol_bwd(
+                pc28, coat28, pspec28, cc28.shape[1], insc28, cots28,
+                pt.pol_states(STATE_H), True, cc28, lc28),
+        }
+
+        def flat28(out):
+            return torch.cat([torch.stack(list(o)).reshape(-1)
+                              if isinstance(o, (tuple, list))
+                              else o.reshape(-1) for o in out])
+
+        same28 = {k: torch.equal(flat28(f()), flat28(f()))
+                  for k, f in twice28.items()}
+    check(all(same28.values()), f"phase 28: two launches of a redesigned "
+          f"NURBS backward differ: {same28}")
+    S28, build28 = len(spec28[0]), ftr._build(spec28)
+    nsag28 = len(launch_build.sag_surfaces(spec28[0], build28))
+    shapes28 = {
+        f"{name}_{mode}": launch_build.bwd_grid(
+            name, mode, S28, 0, torch.float32, build28, Rf, dev, nc=nc28,
+            ncomp=S28 * slots + nsag28 * nc28 + extra)
+        for name, mode, slots, extra in (
+            ("merit_bwd", "merit", 9, launch_build.N_AIM),
+            ("trace_bwd", "generic", 10, 0),
+            ("trace_bwd", "field", 10, launch_build.N_AIM))}
+    log(f"phase 28 the redesigned NURBS backwards' launch shapes at "
+        f"2^{args.full_log2} rays (f32, rational lens; block, blocks, "
+        f"dynamic shared bytes): {shapes28}; two launches give identical "
+        f"bits: {same28}")
+    report["phases"]["nurbs_bwd_shapes"] = {"shapes": shapes28,
+                                            "same": same28}
+    del ins28, cots28, insc28, twice28, wl28
     report["phases"]["nurbs_steps"] = steps28
     report["phases"]["nurbs_full_width"] = full28
     nurbs_names = [n + "_nurbs_" + t for t in NURBS_TAGS

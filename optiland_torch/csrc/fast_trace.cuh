@@ -332,8 +332,10 @@ trace_bwd_kernel(const T* __restrict__ params, const T* __restrict__ aim,
     const int astride = DYN ? ncomp : NCOMP_MAX;
     const int nacc = DYN ? nw * ncomp : NW_MAX * NCOMP_MAX;
     for (int j = threadIdx.x; j < nacc; j += blockDim.x) acc[j] = T(0);
-    // the nets and knot rows of the NURBS surfaces after the rows (NURBS)
-    if constexpr (Bd::NURBS) nurbs_tables(cf, S, nc, acc + nacc);
+    // the nets and knot rows of the NURBS surfaces after the rows, then
+    // the warps' staged records (NURBS: nurbs_bwd_bytes)
+    T* const nets = acc + nacc;
+    if constexpr (Bd::NURBS) nurbs_tables(cf, S, nc, nets);
     if (threadIdx.x == 0) {
       fill_npre(sp, sf, S, npre);
       if constexpr (Bd::SAG) fill_sag<Bd::AUX>(sf, S, ssag);
@@ -343,10 +345,20 @@ trace_bwd_kernel(const T* __restrict__ params, const T* __restrict__ aim,
     __syncthreads();
     T* row = acc + warp * astride;
     const int xbase = S * N_GF + nsagc;  // the aim or dispersion columns
+    // NURBS: the warp's staged records for the net columns (lane r's at
+    // srec + r * 2 NU_PT, its spans at sidx + 4 r), this lane's at rec, idx
+    T* const srec = nets + S * (nc + NU_KT) + warp * 32 * 2 * NU_PT;
+    int* const sidx = reinterpret_cast<int*>(
+        nets + S * (nc + NU_KT) + nw * 32 * 2 * NU_PT) + warp * 32 * 4;
+    T* const rec = srec + lane * 2 * NU_PT;
+    int* const idx = sidx + lane * 4;
 
     // the input state (x, y, z, L, M, N) of surface s, then its input
     // intensity (mono) or its n_pre (POLY)
     T st[CAP][7];
+    // NURBS: each NURBS surface's stopped iterate (us, vs) from the forward
+    // sweep, from which the reverse step takes its corrected step
+    T suv[Bd::NURBS ? CAP : 1][2];
     const int64_t stride = (int64_t)gridDim.x * blockDim.x;
     for (int64_t base = (int64_t)blockIdx.x * blockDim.x; base < R;
          base += stride) {
@@ -383,7 +395,8 @@ trace_bwd_kernel(const T* __restrict__ params, const T* __restrict__ aim,
                 sf[s], refl, POLY ? 0 : sf[F_ABS * S + s], sf[F_TILT * S + s],
                 sp + s * NUM_P, sr + s * N_ROT, acc + nacc + s * nc,
                 acc + nacc + S * nc + s * NU_KT, niters, POLY ? n : npre[s],
-                npost, v[0], v[1], v[2], v[3], v[4], v[5], v[6], v[7]);
+                npost, v[0], v[1], v[2], v[3], v[4], v[5], v[6], v[7],
+                nullptr, nullptr, suv[s]);
           else
           n = step_fwd<T, true, Bd::TILT, Bd::SAG, Bd::FREE, Bd::DEEP, Bd::AUX>(
               sf[s], refl, POLY ? 0 : sf[F_ABS * S + s], sf[F_TILT * S + s],
@@ -401,7 +414,7 @@ trace_bwd_kernel(const T* __restrict__ params, const T* __restrict__ aim,
       for (int s = S - 1; s >= 1; --s) {
         const int refl = sf[S + s];
         T gc[N_GF] = {};
-        T gs[Bd::NURBS ? N_GS_NU : (Bd::FREE ? N_GS_CART : N_GS_RAD)] = {};
+        T gs[Bd::NURBS ? 1 : (Bd::FREE ? N_GS_CART : N_GS_RAD)] = {};
         T n_pre = npre[s], npost = sp[s * NUM_P + P_NPOST];
         if constexpr (POLY) {
           n_pre = valid ? st[s][6] : T(1);
@@ -418,10 +431,12 @@ trace_bwd_kernel(const T* __restrict__ params, const T* __restrict__ aim,
           if (valid)
             step_adjoint_nurbs<T, true>(
                 sf[s], refl, POLY ? 0 : sf[F_ABS * S + s], sf[F_TILT * S + s],
-                sp + s * NUM_P, sr + s * N_ROT, acc + nacc + s * nc,
-                acc + nacc + S * nc + s * NU_KT, niters, n_pre, npost,
-                st[s][0], st[s][1], st[s][2], st[s][3], st[s][4], st[s][5],
-                POLY ? T(0) : st[s][6], g, gc, gs);
+                sp + s * NUM_P, sr + s * N_ROT, nets + s * nc,
+                nets + S * nc + s * NU_KT, suv[s], n_pre, npost, st[s][0],
+                st[s][1], st[s][2], st[s][3], st[s][4], st[s][5],
+                POLY ? T(0) : st[s][6], g, gc, rec, idx);
+          else
+            nu_rec_none(idx);
         } else {
         if (valid)
           step_adjoint<T, true, Bd::TILT, Bd::SAG, Bd::FREE, Bd::DEEP, Bd::AUX>(
@@ -455,9 +470,9 @@ trace_bwd_kernel(const T* __restrict__ params, const T* __restrict__ aim,
             add_grat_cols(gs, lane, row, S * N_GF + ssag[s] * N_GRAT_COLS);
         if constexpr (Bd::NURBS)
           if (sf[s] == NURBS)
-            add_nurbs_cols(gs, acc + nacc + s * nc,
-                           acc + nacc + S * nc + s * NU_KT, lane, row,
-                           S * N_GF + ssag[s] * nc);
+            nurbs_warp_cols(srec, sidx, nets + s * nc,
+                            nets + S * nc + s * NU_KT, lane, row,
+                            S * N_GF + ssag[s] * nc);
         if constexpr (POLY) {
           if (!refl) {
             const int fc = sf[F_FORMULA * S + s];
@@ -565,9 +580,11 @@ int bwd_launch(const T* params, const T* aim, const T* mats, const int* flags,
       dyn = pt_bytes<T>(block, (S - 1) * N_GF + 1 + (FIELD ? N_AIM : 0),
                         POLY ? S * nm : 0);
       if (int e2 = set_pt_smem(kernel, dyn)) return e2;
+    } else if constexpr (Build<B>::NURBS) {
+      dyn = nurbs_bwd_bytes<T>(block, ncomp, S, nc);
+      if (int e2 = set_pt_smem(kernel, dyn)) return e2;
     } else {
-      dyn = dyn_bytes<T, Build<B>::DYN>(block / 32, ncomp) +
-            (Build<B>::NURBS ? nurbs_bytes<T>(S, nc) : 0);
+      dyn = dyn_bytes<T, Build<B>::DYN>(block / 32, ncomp);
       if (int e2 = set_dyn_smem<Build<B>::DYN>(kernel, dyn)) return e2;
     }
     kernel<<<nblocks, block, dyn, stream>>>(
@@ -597,12 +614,12 @@ int bwd_launch(const T* params, const T* aim, const T* mats, const int* flags,
 }
 
 // Resident blocks per SM of the per-thread-sum backward (the stock and tilt
-// builds) of ``mode`` (0 generic, 1 field, 2 poly) at ``block`` threads
-// and ``dyn`` bytes (ops/launch.py: bwd_grid).
-template <typename T>
+// builds; NU: the nurbs build) of ``mode`` (0 generic, 1 field, 2 poly) at
+// ``block`` threads and ``dyn`` bytes (ops/launch.py: bwd_grid).
+template <typename T, bool NU = false>
 int trace_bwd_occupancy(int mode, int build, int block, int64_t dyn,
                         int* out) {
-  return dispatch_in<B_STOCK, B_TILT>(build, [&](auto b) {
+  const auto body = [&](auto b) {
     constexpr int B = decltype(b)::value;
     if (mode == 1)
       return pt_occupancy(trace_bwd_kernel<T, true, false, B>, block, dyn,
@@ -612,7 +629,11 @@ int trace_bwd_occupancy(int mode, int build, int block, int64_t dyn,
                           out);
     return pt_occupancy(trace_bwd_kernel<T, false, false, B>, block, dyn,
                         out);
-  });
+  };
+  if constexpr (NU)
+    return dispatch_in<B_NURBS>(build, body);
+  else
+    return dispatch_in<B_STOCK, B_TILT>(build, body);
 }
 
 }  // namespace

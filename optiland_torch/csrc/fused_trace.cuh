@@ -292,8 +292,10 @@ merit_bwd_kernel(const T* __restrict__ params, const T* __restrict__ aim,
     const int astride = DYN ? ncomp : NCOMP_MAX;
     const int nacc = DYN ? nw * ncomp : NW_MAX * NCOMP_MAX;
     for (int j = threadIdx.x; j < nacc; j += blockDim.x) acc[j] = T(0);
-    // the nets and knot rows of the NURBS surfaces after the rows (NURBS)
-    if constexpr (Bd::NURBS) nurbs_tables(cf, S, nc, acc + nacc);
+    // the nets and knot rows of the NURBS surfaces after the rows, then
+    // the warps' staged records (NURBS: nurbs_bwd_bytes)
+    T* const nets = acc + nacc;
+    if constexpr (Bd::NURBS) nurbs_tables(cf, S, nc, nets);
     if (threadIdx.x == 0) {
       fill_npre(sp, sf, S, npre);
       if constexpr (Bd::SAG) fill_sag<Bd::AUX>(sf, S, ssag);
@@ -303,8 +305,18 @@ merit_bwd_kernel(const T* __restrict__ params, const T* __restrict__ aim,
     __syncthreads();
     T* row = acc + warp * astride;
     const T xbar = stats[0], ybar = stats[1], scale = stats[2];
+    // NURBS: the warp's staged records for the net columns (lane r's at
+    // srec + r * 2 NU_PT, its spans at sidx + 4 r), this lane's at rec, idx
+    T* const srec = nets + S * (nc + NU_KT) + warp * 32 * 2 * NU_PT;
+    int* const sidx = reinterpret_cast<int*>(
+        nets + S * (nc + NU_KT) + nw * 32 * 2 * NU_PT) + warp * 32 * 4;
+    T* const rec = srec + lane * 2 * NU_PT;
+    int* const idx = sidx + lane * 4;
 
     T st[CAP][6];
+    // NURBS: each NURBS surface's stopped iterate (us, vs) from the forward
+    // sweep, from which the reverse step takes its corrected step
+    T suv[Bd::NURBS ? CAP : 1][2];
     const int64_t stride = (int64_t)gridDim.x * blockDim.x;
     for (int64_t base = (int64_t)blockIdx.x * blockDim.x; base < R;
          base += stride) {
@@ -342,7 +354,7 @@ merit_bwd_kernel(const T* __restrict__ params, const T* __restrict__ aim,
                 sr + s * N_ROT, acc + nacc + s * nc,
                 acc + nacc + S * nc + s * NU_KT, niters, npre[s],
                 sp[s * NUM_P + P_NPOST], x, y, z, L, M, N, unused_i,
-                unused_opd);
+                unused_opd, nullptr, nullptr, suv[s]);
           else
           step_fwd<T, false, Bd::TILT, Bd::SAG, Bd::FREE, Bd::DEEP, Bd::AUX>(
               sf[s], sf[S + s], 0, sf[2 * S + s], sp + s * NUM_P,
@@ -355,7 +367,7 @@ merit_bwd_kernel(const T* __restrict__ params, const T* __restrict__ aim,
       }
       for (int s = S - 1; s >= 1; --s) {
         T g6[N_G] = {};
-        T gs[Bd::NURBS ? N_GS_NU : (Bd::FREE ? N_GS_CART : N_GS_RAD)] = {};
+        T gs[Bd::NURBS ? 1 : (Bd::FREE ? N_GS_CART : N_GS_RAD)] = {};
         if constexpr (Bd::GRAT) {
           if (valid)
             step_adjoint_grat<T, false>(
@@ -367,10 +379,12 @@ merit_bwd_kernel(const T* __restrict__ params, const T* __restrict__ aim,
           if (valid)
             step_adjoint_nurbs<T, false>(
                 sf[s], sf[S + s], 0, sf[2 * S + s], sp + s * NUM_P,
-                sr + s * N_ROT, acc + nacc + s * nc,
-                acc + nacc + S * nc + s * NU_KT, niters, npre[s],
-                sp[s * NUM_P + P_NPOST], st[s][0], st[s][1], st[s][2],
-                st[s][3], st[s][4], st[s][5], T(0), g, g6, gs);
+                sr + s * N_ROT, nets + s * nc, nets + S * nc + s * NU_KT,
+                suv[s], npre[s], sp[s * NUM_P + P_NPOST], st[s][0],
+                st[s][1], st[s][2], st[s][3], st[s][4], st[s][5], T(0), g,
+                g6, rec, idx);
+          else
+            nu_rec_none(idx);
         } else {
         if (valid)
           step_adjoint<T, false, Bd::TILT, Bd::SAG, Bd::FREE, Bd::DEEP, Bd::AUX>(
@@ -399,9 +413,9 @@ merit_bwd_kernel(const T* __restrict__ params, const T* __restrict__ aim,
             add_grat_cols(gs, lane, row, S * N_G + ssag[s] * N_GRAT_COLS);
         if constexpr (Bd::NURBS)
           if (sf[s] == NURBS)
-            add_nurbs_cols(gs, acc + nacc + s * nc,
-                           acc + nacc + S * nc + s * NU_KT, lane, row,
-                           S * N_G + ssag[s] * nc);
+            nurbs_warp_cols(srec, sidx, nets + s * nc,
+                            nets + S * nc + s * NU_KT, lane, row,
+                            S * N_G + ssag[s] * nc);
       }
       // n_pre of surface 1 is the object row's n_post
       {
@@ -477,9 +491,11 @@ int merit_bwd_launch(const T* params, const T* aim, const T* stats,
     if constexpr (Build<B>::PT) {
       dyn = pt_bytes<T>(block, (S - 1) * N_G + 1 + N_AIM, 0);
       if (int e2 = set_pt_smem(kernel, dyn)) return e2;
+    } else if constexpr (Build<B>::NURBS) {
+      dyn = nurbs_bwd_bytes<T>(block, ncomp, S, nc);
+      if (int e2 = set_pt_smem(kernel, dyn)) return e2;
     } else {
-      dyn = dyn_bytes<T, Build<B>::DYN>(block / 32, ncomp) +
-            (Build<B>::NURBS ? nurbs_bytes<T>(S, nc) : 0);
+      dyn = dyn_bytes<T, Build<B>::DYN>(block / 32, ncomp);
       if (int e2 = set_dyn_smem<Build<B>::DYN>(kernel, dyn)) return e2;
     }
     kernel<<<nblocks, block, dyn, stream>>>(params, aim, stats, flags, S, cf,
@@ -508,14 +524,18 @@ int merit_bwd_launch(const T* params, const T* aim, const T* stats,
 }
 
 // Resident blocks per SM of the per-thread-sum merit backward (the stock
-// and tilt builds) at ``block`` threads and ``dyn`` bytes (ops/launch.py:
-// bwd_grid).
-template <typename T>
+// and tilt builds; NU: the nurbs build) at ``block`` threads and ``dyn``
+// bytes (ops/launch.py: bwd_grid).
+template <typename T, bool NU = false>
 int merit_bwd_occupancy(int build, int block, int64_t dyn, int* out) {
-  return dispatch_in<B_STOCK, B_TILT>(build, [&](auto b) {
+  const auto body = [&](auto b) {
     constexpr int B = decltype(b)::value;
     return pt_occupancy(merit_bwd_kernel<T, B>, block, dyn, out);
-  });
+  };
+  if constexpr (NU)
+    return dispatch_in<B_NURBS>(build, body);
+  else
+    return dispatch_in<B_STOCK, B_TILT>(build, body);
 }
 
 }  // namespace

@@ -16,3 +16,11 @@ OTC_FWD(f32, float, _nurbs, true)
 OTC_FWD(f64, double, _nurbs, true)
 OTC_BWD(f32, float, _nurbs, true)
 OTC_BWD(f64, double, _nurbs, true)
+
+#define OTC_OCC(SUF, T)                                                      \
+  extern "C" int otc_merit_bwd_occupancy_nurbs_##SUF(                        \
+      int build, int block, int64_t dyn, int* out) {                         \
+    return merit_bwd_occupancy<T, true>(build, block, dyn, out);             \
+  }
+OTC_OCC(f32, float)
+OTC_OCC(f64, double)

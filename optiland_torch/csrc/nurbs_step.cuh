@@ -27,22 +27,39 @@
 // al.), the guess from the net's corner points, ``niters`` clipped 2x2
 // Newton steps (|det| < 1e-14 clamped to 1e-14), then one more from that
 // stopped point, through which the adjoint runs; t = |S - r0| and the
-// normal Su x Sv / |.|, flipped toward -z. The adjoint (nurbs_adjoint)
-// differentiates that one step: the normal through the second
+// normal Su x Sv / |.|, flipped toward -z.
+//
+// The backwards' forward sweep keeps each NURBS surface's stopped point
+// (us, vs) (step_fwd_nurbs' uv), and the reverse step takes the one
+// corrected step from it (nurbs_corrected: two evaluations of the net in
+// place of the solve's niters + 2 and two more) and differentiates it
+// (nurbs_adjoint, which evaluates nothing): the normal through the second
 // derivatives, the clip as jnp.clip's derivative (1/2 at exactly 0 or 1),
 // the correction through the Jacobian at the stopped point (the residual
-// term kept) and the planes; it records, per ray, both points and the
-// homogeneous cotangents of the net's sums there (N_GS_NU scalars), which
-// add_nurbs_cols expands into the 4 nu nv net columns, a warp sum per
-// column in column order (no float atomics).
+// term kept) and the planes. The two evaluations leave the ray's record:
+// the spans and basis values of both points, beside the homogeneous
+// cotangents of the net's sums there. A warp stages its rays' records in
+// shared memory, and each lane owns some of the net's control points and
+// adds, in lane order, the records whose spans cover them ((p + 1)(q + 1)
+// control points a point, not the whole net) into their 4 columns of the
+// warp's row (nurbs_own_cols): no float atomics, no shuffles, and two
+// launches give the same bits.
 
 #pragma once
 
 namespace {
 
-// the per-ray record of a NURBS surface's net cotangents: us, vs, u1, v1,
-// then at each point g_H (3), g_Hu (3), g_Hv (3), g_w, g_wu, g_wv
-constexpr int N_GS_NU = 28;
+// A ray's record of a NURBS surface's adjoint for its net columns
+// (nurbs_own_cols): the spans (idx: those of u and v at the stopped point,
+// then at the corrected one) and, in ``rec``, NU_PT values per point: the
+// homogeneous cotangents of the net's sums there (g_H (3), g_Hu (3), g_Hv
+// (3), g_w, g_wu, g_wv: nu_homog_cot), then the basis values and first
+// derivatives of u and of v, NU_PMAX + 1 slots each (p + 1 or q + 1 of
+// them written).
+constexpr int NU_OFF_NU = 12, NU_OFF_DU = NU_OFF_NU + NU_PMAX + 1,
+              NU_OFF_NV = NU_OFF_DU + NU_PMAX + 1,
+              NU_OFF_DV = NU_OFF_NV + NU_PMAX + 1,
+              NU_PT = NU_OFF_DV + NU_PMAX + 1;
 
 // The knot table rows and the nets of the nurbs build: copied into the
 // dynamic shared memory at ``dyn`` (S nc net entries, then S NU_KT knot
@@ -125,16 +142,6 @@ __device__ __forceinline__ void nu_basis(const T* U, int n, int p, T u,
   }
 }
 
-// Entry r of a basis array (0 outside 0..NU_PMAX), without a dynamic index.
-template <typename T>
-__device__ __forceinline__ T nu_pick(const T (&a)[NU_PMAX + 1], int r) {
-  T v = T(0);
-#pragma unroll
-  for (int e = 0; e <= NU_PMAX; ++e)
-    if (e == r) v = a[e];
-  return v;
-}
-
 // The net's point at (u, v): S and its u- and v-derivatives (ORD 2: also
 // the second ones), the weight sum w (1 where it is 0) and its
 // derivatives wu, wv (core/nurbs.py: homogeneous, rational).
@@ -144,15 +151,32 @@ struct NuPt {
   T w, wu, wv;
 };
 
-template <typename T, int ORD>
-__device__ __noinline__ NuPt<T> nu_eval(const T* net, const T* kn, T u,
-                                        T v) {
+template <typename T, int ORD, bool REC>
+__device__ __forceinline__ NuPt<T> nu_eval_at(const T* net, const T* kn, T u,
+                                              T v, T* rec, int* idx) {
   const int nu = (int)kn[0], nv = (int)kn[1];
   const int p = min((int)kn[2], NU_PMAX), q = min((int)kn[3], NU_PMAX);
   const int npw = nu * nv;
   NuB<T> bu, bv;
   nu_basis<T, ORD>(kn + 4, nu - 1, p, u, bu);
   nu_basis<T, ORD>(kn + 4 + NU_KMAX, nv - 1, q, v, bv);
+  if constexpr (REC) {
+    // the spans and the 1-D values and first derivatives, for the column
+    // sums (nurbs_cols)
+    idx[0] = bu.i0;
+    idx[1] = bv.i0;
+#pragma unroll
+    for (int r = 0; r <= NU_PMAX; ++r) {
+      if (r <= p) {
+        rec[NU_OFF_NU + r] = bu.N[r];
+        rec[NU_OFF_DU + r] = bu.D[r];
+      }
+      if (r <= q) {
+        rec[NU_OFF_NV + r] = bv.N[r];
+        rec[NU_OFF_DV + r] = bv.D[r];
+      }
+    }
+  }
   // homogeneous sums: [0] value, [1] d/du, [2] d/dv, [3] uu, [4] uv, [5] vv
   constexpr int NS = ORD >= 2 ? 6 : 3;
   T H[NS][3], w[NS];
@@ -215,6 +239,20 @@ __device__ __noinline__ NuPt<T> nu_eval(const T* net, const T* kn, T u,
     }
   }
   return pt;
+}
+
+template <typename T, int ORD>
+__device__ __noinline__ NuPt<T> nu_eval(const T* net, const T* kn, T u,
+                                        T v) {
+  return nu_eval_at<T, ORD, false>(net, kn, u, v, nullptr, nullptr);
+}
+
+// nu_eval, writing the point's spans to idx[0..1] and its basis values and
+// first derivatives to the record point ``rec`` (NU_OFF_NU ..).
+template <typename T, int ORD>
+__device__ __noinline__ NuPt<T> nu_eval_rec(const T* net, const T* kn, T u,
+                                            T v, T* rec, int* idx) {
+  return nu_eval_at<T, ORD, true>(net, kn, u, v, rec, idx);
 }
 
 // The two planes whose intersection line is the ray: normals N1, N2 and
@@ -365,22 +403,70 @@ __device__ __forceinline__ void nu_homog_cot(const NuPt<T>& e, const T* gS,
   o[11] = -nu_dot(gSv, e.S) / e.w;
 }
 
-// Reverse of the intersection from the stopped point (us, vs) for the
-// cotangents of t and of the normal ``g_n`` (before the step's sign
-// alignment): adds those of the local position to g_r0 and of the
-// direction to g_k, and writes the net's record gs (N_GS_NU scalars)
-// (ops/step.py: nurbs_adjoint).
+// t = |S - r0| and the unit normal Su x Sv / |.| (flipped toward -z) at the
+// net's point e.
 template <typename T>
-__device__ __noinline__ void nurbs_adjoint(const T* net, const T* kn, T x,
-                                           T y, T z, T L, T M, T N, T us,
-                                           T vs, T g_t, const T* g_n, T* g_r0,
-                                           T* g_k, T* gs) {
-  const NuPlanes<T> pl = nu_planes(x, y, z, L, M, N);
-  const NuPt<T> es = nu_eval<T, 1>(net, kn, us, vs);
-  const NuStep<T> st = nu_step(pl, es);
-  const T U = us - st.du, V = vs - st.dv;
-  const T u1 = nu_clip(U), v1 = nu_clip(V);
-  const NuPt<T> e1 = nu_eval<T, 2>(net, kn, u1, v1);
+__device__ __forceinline__ NuHit<T> nu_hit(const NuPt<T>& e, T x, T y, T z) {
+  NuHit<T> h;
+  const T D[3] = {e.S[0] - x, e.S[1] - y, e.S[2] - z};
+  h.t = sqrt_(nu_dot(D, D));
+  T n[3];
+  nu_cross(e.Su, e.Sv, n);
+  T mag = sqrt_(nu_dot(n, n));
+  mag = mag == T(0) ? T(1) : mag;
+  const T nz = n[2] / mag;
+  const T flip = sign_(nz == T(0) ? T(1) : -nz);
+#pragma unroll
+  for (int d = 0; d < 3; ++d) h.n[d] = n[d] / mag * flip;
+  return h;
+}
+
+// The one corrected step from the stopped point (us, vs), which the adjoint
+// differentiates (ops/step.py: nurbs_forward after the solve): the planes,
+// the net at (us, vs) to first order, the step, and the net at the clipped
+// corrected point (u1, v1) to second order; t and the normal are nu_hit's
+// of that point. Two evaluations, where the solve took niters + 2; they
+// write the spans and basis of both points to the ray's record (rec,
+// idx), for the net's columns.
+template <typename T>
+struct NuFwd {
+  NuPlanes<T> pl;
+  NuPt<T> es, e1;
+  NuStep<T> st;
+  T U, V;  // the corrected point before the clip
+};
+
+template <typename T>
+__device__ __noinline__ void nurbs_corrected(const T* net, const T* kn, T x,
+                                             T y, T z, T L, T M, T N, T us,
+                                             T vs, NuFwd<T>& f, T* rec,
+                                             int* idx) {
+  f.pl = nu_planes(x, y, z, L, M, N);
+  f.es = nu_eval_rec<T, 1>(net, kn, us, vs, rec, idx);
+  f.st = nu_step(f.pl, f.es);
+  f.U = us - f.st.du;
+  f.V = vs - f.st.dv;
+  f.e1 = nu_eval_rec<T, 2>(net, kn, nu_clip(f.U), nu_clip(f.V), rec + NU_PT,
+                           idx + 2);
+}
+
+// Reverse of the intersection through the corrected step ``f``
+// (nurbs_corrected, from the local position (x, y, z) and direction (L, M,
+// N)) for the cotangents of t and of the normal ``g_n`` (before the step's
+// sign alignment): adds those of the local position to g_r0 and of the
+// direction to g_k, and writes the homogeneous cotangents of both points
+// to the ray's record ``rec`` (ops/step.py: nurbs_adjoint). It evaluates
+// nothing.
+template <typename T>
+__device__ __noinline__ void nurbs_adjoint(const NuFwd<T>& f, T x, T y, T z,
+                                           T L, T M, T N, T g_t,
+                                           const T* g_n, T* g_r0, T* g_k,
+                                           T* rec) {
+  const NuPlanes<T>& pl = f.pl;
+  const NuPt<T>& es = f.es;
+  const NuPt<T>& e1 = f.e1;
+  const NuStep<T>& st = f.st;
+  const T U = f.U, V = f.V;
   const T r0[3] = {x, y, z};
   const T D[3] = {e1.S[0] - x, e1.S[1] - y, e1.S[2] - z};
   const T t = sqrt_(nu_dot(D, D));
@@ -411,7 +497,7 @@ __device__ __noinline__ void nurbs_adjoint(const T* net, const T* kn, T x,
                  nu_dot(g_Sv1, e1.Suv);
   const T g_v1 = nu_dot(g_S1, e1.Sv) + nu_dot(g_Su1, e1.Suv) +
                  nu_dot(g_Sv1, e1.Svv);
-  nu_homog_cot(e1, g_S1, g_Su1, g_Sv1, gs + 16);
+  nu_homog_cot(e1, g_S1, g_Su1, g_Sv1, rec + NU_PT);
   // u1 = clip(us - du), v1 = clip(vs - dv)
   const T g_du = -g_u1 * nu_clip_grad(U);
   const T g_dv = -g_v1 * nu_clip_grad(V);
@@ -439,7 +525,7 @@ __device__ __noinline__ void nurbs_adjoint(const T* net, const T* kn, T x,
     g_Sus[d] = g_f1u * pl.N1[d] + g_f2u * pl.N2[d];
     g_Svs[d] = g_f1v * pl.N1[d] + g_f2v * pl.N2[d];
   }
-  nu_homog_cot(es, g_Ss, g_Sus, g_Svs, gs + 4);
+  nu_homog_cot(es, g_Ss, g_Sus, g_Svs, rec);
   // d_k = -N_k . r0
 #pragma unroll
   for (int d = 0; d < 3; ++d) {
@@ -471,63 +557,90 @@ __device__ __noinline__ void nurbs_adjoint(const T* net, const T* kn, T x,
   }
 #pragma unroll
   for (int d = 0; d < 3; ++d) g_k[d] += gk[d];
-  gs[0] = us;
-  gs[1] = vs;
-  gs[2] = u1;
-  gs[3] = v1;
 }
 
-// Expand a NURBS surface's record gs (nurbs_adjoint) into its 4 nu nv net
-// columns (the control points, then the weights; ops/step.py:
-// net_cotangent at both points), a warp sum per column in column order,
-// added by lane 0 to the warp's row ``row`` from column ``base``. Every
-// lane of the warp calls it (a lane without a ray with gs zero).
+// A NURBS surface's net columns from the records of the warp's rays
+// (nurbs_corrected, nurbs_adjoint), staged in shared memory: lane r's
+// record at srec + r * 2 NU_PT, its spans at sidx + 4 r (a lane without a
+// ray: nu_rec_none). Each lane owns the control points cp = lane, lane +
+// 32, ... and sums, over the records in lane order, both points of each
+// (the stopped before the corrected) whose span covers cp ((p + 1)(q + 1)
+// control points a point): G_d of b g_H + b_u g_Hu + b_v g_Hv (d = x, y,
+// z; b = N_i(u) N_j(v), b_u and b_v its derivatives) and g of b g_w + b_u
+// g_wu + b_v g_wv; then it adds cp's columns W G_d and its weight's
+// P . G + g to the warp's row ``row`` from column ``base`` (ops/step.py:
+// net_cotangent at both points). No float atomics and no shuffles, in a
+// fixed order. Called by every lane of the warp between two __syncwarp
+// (nurbs_warp_cols).
 template <typename T>
-__device__ __noinline__ void add_nurbs_cols(const T* gs, const T* net,
-                                            const T* kn, int lane, T* row,
-                                            int base) {
-  const int nu = (int)kn[0], nv = (int)kn[1];
+__device__ __noinline__ void nurbs_own_cols(const T* srec, const int* sidx,
+                                            const T* net, const T* kn,
+                                            int lane, T* row, int base) {
+  const int nv = (int)kn[1], npw = (int)kn[0] * nv;
   const int p = min((int)kn[2], NU_PMAX), q = min((int)kn[3], NU_PMAX);
-  const int npw = nu * nv;
-  NuB<T> us, u1, vs, v1;
-  nu_basis<T, 1>(kn + 4, nu - 1, p, gs[0], us);
-  nu_basis<T, 1>(kn + 4, nu - 1, p, gs[2], u1);
-  nu_basis<T, 1>(kn + 4 + NU_KMAX, nv - 1, q, gs[1], vs);
-  nu_basis<T, 1>(kn + 4 + NU_KMAX, nv - 1, q, gs[3], v1);
-  const T* cs = gs + 4;
-  const T* c1 = gs + 16;
-  for (int i = 0; i < nu; ++i) {
-    const T Bs = nu_pick(us.N, us.i0 - i), dBs = nu_pick(us.D, us.i0 - i);
-    const T B1 = nu_pick(u1.N, u1.i0 - i), dB1 = nu_pick(u1.D, u1.i0 - i);
-    for (int j = 0; j < nv; ++j) {
-      const T Cs = nu_pick(vs.N, vs.i0 - j), dCs = nu_pick(vs.D, vs.i0 - j);
-      const T C1 = nu_pick(v1.N, v1.i0 - j), dC1 = nu_pick(v1.D, v1.i0 - j);
-      const T bs = Bs * Cs, bus = dBs * Cs, bvs = Bs * dCs;
-      const T b1 = B1 * C1, bu1 = dB1 * C1, bv1 = B1 * dC1;
-      const int ij = i * nv + j;
-      const T W = net[3 * npw + ij];
-      T gW = bs * cs[9] + bus * cs[10] + bvs * cs[11] +
-             (b1 * c1[9] + bu1 * c1[10] + bv1 * c1[11]);
+  for (int cp = lane; cp < npw; cp += 32) {
+    const int i = cp / nv, j = cp - i * nv;
+    T G[3] = {T(0), T(0), T(0)}, g = T(0);
+#pragma unroll 1
+    for (int r = 0; r < 32; ++r) {
 #pragma unroll
-      for (int d = 0; d < 3; ++d) {
-        const T G = bs * cs[d] + bus * cs[3 + d] + bvs * cs[6 + d] +
-                    (b1 * c1[d] + bu1 * c1[3 + d] + bv1 * c1[6 + d]);
-        gW += net[d * npw + ij] * G;
-        const T v = warp_sum(W * G);
-        if (lane == 0) row[base + d * npw + ij] += v;
+      for (int k = 0; k < 2; ++k) {
+        const int ru = sidx[4 * r + 2 * k] - i;
+        const int rv = sidx[4 * r + 2 * k + 1] - j;
+        if (ru < 0 || ru > p || rv < 0 || rv > q) continue;
+        const T* pt = srec + (r * 2 + k) * NU_PT;
+        const T Bu = pt[NU_OFF_NU + ru], dBu = pt[NU_OFF_DU + ru];
+        const T Bv = pt[NU_OFF_NV + rv], dBv = pt[NU_OFF_DV + rv];
+        const T b = Bu * Bv, bu = dBu * Bv, bv = Bu * dBv;
+#pragma unroll
+        for (int d = 0; d < 3; ++d)
+          G[d] += b * pt[d] + bu * pt[3 + d] + bv * pt[6 + d];
+        g += b * pt[9] + bu * pt[10] + bv * pt[11];
       }
-      const T v = warp_sum(gW);
-      if (lane == 0) row[base + 3 * npw + ij] += v;
     }
+    const T W = net[3 * npw + cp];
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      row[base + d * npw + cp] += W * G[d];
+      g += net[d * npw + cp] * G[d];
+    }
+    row[base + 3 * npw + cp] += g;
   }
+}
+
+// A lane without a ray: spans that cover no control point.
+__device__ __forceinline__ void nu_rec_none(int* idx) {
+  idx[0] = idx[1] = idx[2] = idx[3] = -(1 << 20);
+}
+
+// nurbs_own_cols of the warp's staged records, once every lane has written
+// its own and before any lane writes its next.
+template <typename T>
+__device__ __forceinline__ void nurbs_warp_cols(const T* srec,
+                                                const int* sidx,
+                                                const T* net, const T* kn,
+                                                int lane, T* row, int base) {
+  __syncwarp();
+  nurbs_own_cols(srec, sidx, net, kn, lane, row, base);
+  __syncwarp();
+}
+
+// Dynamic shared memory of a nurbs-build backward of ``block`` threads:
+// its per-warp rows of ncomp columns, the nets and knot rows, then each
+// lane's staged record (ops/launch.py: nurbs_bwd_bytes).
+template <typename T>
+size_t nurbs_bwd_bytes(int block, int ncomp, int S, int nc) {
+  return (size_t)(block / 32) * ncomp * sizeof(T) + nurbs_bytes<T>(S, nc) +
+         (size_t)block * (2 * NU_PT * sizeof(T) + 4 * sizeof(int));
 }
 
 // The nurbs build's forward step (ops/step.py: step_plain with a NURBS
 // surface): step_fwd's PLANE and STANDARD branches with the tilts, and a
 // NURBS surface's intersection and normal from one parameter solve on its
 // net ``net`` (knot row ``kn``) with ``niters`` stopped steps. The extras
-// (adot_out, kloc) as step_fwd's. A function of its own, as
-// step_fwd_grat, so the other builds' step keeps its code.
+// (adot_out, kloc) as step_fwd's; ``uv`` takes a NURBS surface's stopped
+// point (us, vs) for the backwards' reverse step. A function of its own,
+// as step_fwd_grat, so the other builds' step keeps its code.
 template <typename T, bool FULL>
 __device__ __forceinline__ T step_fwd_nurbs(int code, int refl, int absorbs,
                                             int tilted, const T* p,
@@ -536,7 +649,8 @@ __device__ __forceinline__ T step_fwd_nurbs(int code, int refl, int absorbs,
                                             T npost, T& x, T& y, T& z, T& L,
                                             T& M, T& N, T& inten, T& opd,
                                             T* adot_out = nullptr,
-                                            T* kloc = nullptr) {
+                                            T* kloc = nullptr,
+                                            T* uv = nullptr) {
   const T R = p[P_RADIUS], k = p[P_CONIC], pos = p[P_POS];
   T xl = x - p[P_DX], yl = y - p[P_DY], zl = z - pos;
   if (tilted) rot_local(rot, xl, yl, zl, L, M, N);
@@ -549,6 +663,10 @@ __device__ __forceinline__ T step_fwd_nurbs(int code, int refl, int absorbs,
     nx = h.n[0];
     ny = h.n[1];
     nz = h.n[2];
+    if (uv) {
+      uv[0] = us;
+      uv[1] = vs;
+    }
   } else {
     t = code == STANDARD ? dist_standard(R, k, xl, yl, zl, L, M, N)
                          : dist_plane(zl, N);
@@ -611,14 +729,17 @@ __device__ __forceinline__ T step_fwd_nurbs(int code, int refl, int absorbs,
 // The nurbs build's reverse step (ops/step.py: step_adjoint_plain with a
 // NURBS surface): step_adjoint's PLANE and STANDARD branches with the
 // tilts, ``gext`` as there, and a NURBS surface's intersection and normal
-// reversed through nurbs_adjoint, whose record goes to gs (N_GS_NU
-// scalars: add_nurbs_cols). A change to step_adjoint's PLANE and STANDARD
-// code is made here too (and in step_adjoint_grat).
+// taken again from its stopped point ``uv`` (the forward sweep's:
+// nurbs_corrected) and reversed through nurbs_adjoint, which with the
+// evaluations writes the ray's record (rec, idx: nurbs_own_cols). A
+// change to step_adjoint's PLANE and STANDARD code is made here too (and
+// in step_adjoint_grat).
 template <typename T, bool FULL>
 __device__ __forceinline__ void step_adjoint_nurbs(
     int code, int refl, int absorbs, int tilted, const T* p, const T* rot,
-    const T* net, const T* kn, int niters, T n_pre, T npost, T x, T y, T z,
-    T L, T M, T N, T i_in, T* g, T* gc, T* gs, const T* gext = nullptr) {
+    const T* net, const T* kn, const T* uv, T n_pre, T npost, T x, T y, T z,
+    T L, T M, T N, T i_in, T* g, T* gc, T* rec, int* idx,
+    const T* gext = nullptr) {
   const T R = p[P_RADIUS], k = p[P_CONIC], pos = p[P_POS];
   const T dx = p[P_DX], dy = p[P_DY];
   const bool std_ = code == STANDARD;
@@ -631,7 +752,7 @@ __device__ __forceinline__ void step_adjoint_nurbs(
   T cu = T(0), A = T(0), a = T(0), Bq = T(0), b = T(0), Cq = T(0), c = T(0);
   T sd = T(0), sg = T(0), q = T(0), t1 = T(0), t2 = T(0), t, Ns = T(1);
   bool use1 = false, a0 = false, q0 = false, big = false;
-  T us = T(0), vs = T(0);
+  NuFwd<T> fw;
   T nx = T(0), ny = T(0), nz = T(-1);
   if (std_) {
     cu = T(1) / R;
@@ -652,8 +773,9 @@ __device__ __forceinline__ void step_adjoint_nurbs(
     use1 = abs_(zl + t1 * N) <= abs_(zl + t2 * N);
     t = use1 ? t1 : t2;
   } else if (nrb) {
-    nurbs_solve(net, kn, niters, xl, yl, zl, L, M, N, us, vs);
-    const NuHit<T> h = nurbs_finish(net, kn, xl, yl, zl, L, M, N, us, vs);
+    nurbs_corrected(net, kn, xl, yl, zl, L, M, N, uv[0], uv[1], fw, rec,
+                    idx);
+    const NuHit<T> h = nu_hit(fw.e1, xl, yl, zl);
     t = h.t;
     nx = h.n[0];
     ny = h.n[1];
@@ -839,8 +961,7 @@ __device__ __forceinline__ void step_adjoint_nurbs(
   } else if (nrb) {
     const T g_n[3] = {sgn * g_nxs, sgn * g_nys, sgn * g_nzs};
     T g_r0[3] = {T(0), T(0), T(0)}, g_kk[3] = {T(0), T(0), T(0)};
-    nurbs_adjoint(net, kn, xl, yl, zl, L, M, N, us, vs, g_t, g_n, g_r0, g_kk,
-                  gs);
+    nurbs_adjoint(fw, xl, yl, zl, L, M, N, g_t, g_n, g_r0, g_kk, rec);
     g_xl += g_r0[0];
     g_yl += g_r0[1];
     g_zl += g_r0[2];

@@ -14,3 +14,11 @@
 
 OTC_TRACE(f32, float, _nurbs, true)
 OTC_TRACE(f64, double, _nurbs, true)
+
+#define OTC_OCC(SUF, T)                                                      \
+  extern "C" int otc_trace_bwd_occupancy_nurbs_##SUF(                        \
+      int mode, int build, int block, int64_t dyn, int* out) {               \
+    return trace_bwd_occupancy<T, true>(mode, build, block, dyn, out);       \
+  }
+OTC_OCC(f32, float)
+OTC_OCC(f64, double)

@@ -944,8 +944,10 @@ pol_bwd_kernel(const T* __restrict__ params, const T* __restrict__ coat,
   const int astride = DYN ? ncomp : NCOMP_MAX;
   const int nacc = DYN ? nw * ncomp : NW_MAX * NCOMP_MAX;
   for (int j = threadIdx.x; j < nacc; j += blockDim.x) acc[j] = T(0);
-  // the nets and knot rows of the NURBS surfaces after the rows (NURBS)
-  if constexpr (Bd::NURBS) nurbs_tables(cf, S, nc, acc + nacc);
+  // the nets and knot rows of the NURBS surfaces after the rows, then
+  // the warps' staged records (NURBS: nurbs_bwd_bytes)
+  T* const nets = acc + nacc;
+  if constexpr (Bd::NURBS) nurbs_tables(cf, S, nc, nets);
   if (threadIdx.x == 0) {
     fill_npre(sp, sf, S, npre);
     if constexpr (Bd::SAG) fill_sag<Bd::AUX>(sf, S, ssag);
@@ -953,12 +955,22 @@ pol_bwd_kernel(const T* __restrict__ params, const T* __restrict__ coat,
   }
   __syncthreads();
   T* row = acc + warp * astride;
+  // NURBS: the warp's staged records for the net columns (lane r's at
+  // srec + r * 2 NU_PT, its spans at sidx + 4 r), this lane's at rec, idx
+  T* const srec = nets + S * (nc + NU_KT) + warp * 32 * 2 * NU_PT;
+  int* const sidx = reinterpret_cast<int*>(
+      nets + S * (nc + NU_KT) + nw * 32 * 2 * NU_PT) + warp * 32 * 4;
+  T* const rec = srec + lane * 2 * NU_PT;
+  int* const idx = sidx + lane * 4;
   const int cbase = S * N_GF + nsagc;  // the coat columns
 
   T st[CAP][7];    // input state (x, y, z, L, M, N, i) of surface s
   T ps[CAP][18];   // p before surface s (9 real, 9 imaginary)
   T ad[CAP];       // adot of surface s
   T istep[CAP];    // intensity after the step, before the coating
+  // NURBS: each NURBS surface's stopped iterate (us, vs) from the forward
+  // sweep, from which the reverse step takes its corrected step
+  T suv[Bd::NURBS ? CAP : 1][2];
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   for (int64_t base = (int64_t)blockIdx.x * blockDim.x; base < R;
        base += stride) {
@@ -997,7 +1009,7 @@ pol_bwd_kernel(const T* __restrict__ params, const T* __restrict__ coat,
               sp + s * NUM_P, sr + s * N_ROT, acc + nacc + s * nc,
               acc + nacc + S * nc + s * NU_KT, niters, npre[s],
               sp[s * NUM_P + P_NPOST], v[0], v[1], v[2], v[3], v[4], v[5],
-              v[6], v[7], &ad[s], kl);
+              v[6], v[7], &ad[s], kl, suv[s]);
         else
         step_fwd<T, true, Bd::TILT, Bd::SAG, Bd::FREE, Bd::DEEP, Bd::AUX>(
             sf[s], sf[S + s], sf[2 * S + s], sf[F_TILT * S + s],
@@ -1031,7 +1043,7 @@ pol_bwd_kernel(const T* __restrict__ params, const T* __restrict__ coat,
     }
     for (int s = S - 1; s >= 1; --s) {
       T gc[N_GF] = {};
-      T gs[Bd::NURBS ? N_GS_NU : (Bd::FREE ? N_GS_CART : N_GS_RAD)] = {};
+      T gs[Bd::NURBS ? 1 : (Bd::FREE ? N_GS_CART : N_GS_RAD)] = {};
       T gco[NCOAT_MAX];
       for (int c = 0; c < ncoat; ++c) gco[c] = T(0);
       if (valid) {
@@ -1092,10 +1104,10 @@ pol_bwd_kernel(const T* __restrict__ params, const T* __restrict__ coat,
         if constexpr (Bd::NURBS)
           step_adjoint_nurbs<T, true>(
               sf[s], refl, sf[2 * S + s], tilted, sp + s * NUM_P,
-              sr + s * N_ROT, acc + nacc + s * nc,
-              acc + nacc + S * nc + s * NU_KT, niters, npre[s],
-              sp[s * NUM_P + P_NPOST], st[s][0], st[s][1], st[s][2],
-              st[s][3], st[s][4], st[s][5], st[s][6], g, gc, gs, gext);
+              sr + s * N_ROT, nets + s * nc, nets + S * nc + s * NU_KT,
+              suv[s], npre[s], sp[s * NUM_P + P_NPOST], st[s][0], st[s][1],
+              st[s][2], st[s][3], st[s][4], st[s][5], st[s][6], g, gc, rec,
+              idx, gext);
         else
         step_adjoint<T, true, Bd::TILT, Bd::SAG, Bd::FREE, Bd::DEEP, Bd::AUX>(
             sf[s], refl, sf[2 * S + s], tilted, sp + s * NUM_P,
@@ -1118,11 +1130,13 @@ pol_bwd_kernel(const T* __restrict__ params, const T* __restrict__ coat,
         else if (is_newton_of<Bd::AUX>(sf[s]))
           add_coef_cols(gs, nc, lane, row, cb);
       }
-      if constexpr (Bd::NURBS)
+      if constexpr (Bd::NURBS) {
+        if (!valid) nu_rec_none(idx);
         if (sf[s] == NURBS)
-          add_nurbs_cols(gs, acc + nacc + s * nc,
-                         acc + nacc + S * nc + s * NU_KT, lane, row,
-                         S * N_GF + ssag[s] * nc);
+          nurbs_warp_cols(srec, sidx, nets + s * nc,
+                          nets + S * nc + s * NU_KT, lane, row,
+                          S * N_GF + ssag[s] * nc);
+      }
       for (int c = 0; c < ncoat; ++c) {
         const T v = warp_sum(gco[c]);
         if (lane == 0) row[cbase + s * ncoat + c] += v;
@@ -1218,10 +1232,15 @@ int bwd_launch(const T* params, const T* coat, const int* flags, int S,
     if (!shape_ok<B>(S, nc, niters)) return (int)cudaErrorInvalidValue;
     const auto kernel =
         intensity ? pol_bwd_kernel<T, true, B> : pol_bwd_kernel<T, false, B>;
-    const size_t dyn =
-        dyn_bytes<T, DYN>(BWD_BLOCK / 32, S * (N_GF + ncoat) + nsagc) +
-        (Build<B>::NURBS ? nurbs_bytes<T>(S, nc) : 0);
-    if (int e2 = set_dyn_smem<DYN>(kernel, dyn)) return e2;
+    const int ncomp = S * (N_GF + ncoat) + nsagc;
+    size_t dyn;
+    if constexpr (Build<B>::NURBS) {
+      dyn = nurbs_bwd_bytes<T>(BWD_BLOCK, ncomp, S, nc);
+      if (int e2 = set_pt_smem(kernel, dyn)) return e2;
+    } else {
+      dyn = dyn_bytes<T, DYN>(BWD_BLOCK / 32, ncomp);
+      if (int e2 = set_dyn_smem<DYN>(kernel, dyn)) return e2;
+    }
     kernel<<<nblocks, BWD_BLOCK, dyn, stream>>>(
         params, coat, flags, S, ncoat, cf, nc, niters, nsag,
         ptrs<const T*, 8>(in, 8),

@@ -73,10 +73,12 @@ _ARGTYPES = {
     # cot[8], R, din[8], partial, nblocks, block, out, stream
     "trace_bwd_poly": [_VP, _VP, _VP, _I, _I, _VP, _I, _I, _I, _I, _PP, _PP,
                        _I64, _PP, _VP, _I, _I, _VP, _VP],
-    # the per-thread-sum backwards' resident blocks per SM: (mode: 0
-    # generic, 1 field, 2 poly,) build, block, dynamic bytes, out
+    # the per-thread-sum and nurbs backwards' resident blocks per SM: (mode:
+    # 0 generic, 1 field, 2 poly,) build, block, dynamic bytes, out
     "merit_bwd_occupancy": [_I, _I, _I64, _IP],
     "trace_bwd_occupancy": [_I, _I, _I, _I64, _IP],
+    "merit_bwd_occupancy_nurbs": [_I, _I, _I64, _IP],
+    "trace_bwd_occupancy_nurbs": [_I, _I, _I, _I64, _IP],
     # img[3], pup[8], cot[2] (null for the forward), P, Q, 2/lambda, k,
     # chunk, nsplit, partial, out, stream
     **{name: [_PP, _PP, _PP, _I64, _I64, _D, _D, _I64, _I, _VP, _VP, _VP]

@@ -403,7 +403,8 @@ def _partial(params, spec, nc, mode, R, nm=0, block=None):
     ncomp = (S * len(FULL_GRAD_COLS)
              + sag_columns(spec[0], nc, build, _grat(spec)) + n_extra)
     block, nb, _ = bwd_grid("trace_bwd", mode, S, nm, params.dtype, build, R,
-                            params.device, BWD_BLOCK if block is None else block)
+                            params.device,
+                            BWD_BLOCK if block is None else block, nc, ncomp)
     return params.new_empty((nb, ncomp)), nb, nsag, block
 
 

@@ -510,7 +510,7 @@ def merit_bwd(params, aim, stats, spec, nc, R, seed=0, offset=0, Px=None,
     ncomp = (S * len(GRAD_COLS) + sag_columns(spec[0], nc, build, spec[3])
              + N_AIM)
     block, nb, _ = bwd_grid("merit_bwd", "merit", S, 0, params.dtype, build,
-                            int(R), params.device, block)
+                            int(R), params.device, block, nc, ncomp)
     partial = torch.empty((nb, ncomp), dtype=params.dtype, device=params.device)
     out = torch.zeros(S * (NUM_P + nc) + N_AIM, dtype=params.dtype,
                       device=params.device)

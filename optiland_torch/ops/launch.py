@@ -75,12 +75,12 @@ A_X0, A_Y0, A_Z0, A_L, A_M, A_N, A_SX, A_SY = range(N_AIM)
 # Launch shapes of the kernels (csrc/step.cuh holds the same values).
 FWD_BLOCK = 256  # rays per forward block
 BWD_BLOCK = 128
-# fixed grid of the backwards' grid-stride loop, but in the stock and tilt
-# builds of merit_bwd and trace_bwd (bwd_grid)
+# fixed grid of the backwards' grid-stride loop, but in the stock, tilt and
+# nurbs builds of merit_bwd and trace_bwd (bwd_grid)
 BWD_MAX_BLOCKS = 1056
-# shared memory a block may hold on sm_90 (227 KB), and what the stock and
-# tilt builds of merit_bwd and trace_bwd leave of it to their static tables
-# (at most 7.1 KB: the f64 poly trace_bwd's, 16 surfaces)
+# shared memory a block may hold on sm_90 (227 KB), and what the stock,
+# tilt and nurbs builds of merit_bwd and trace_bwd leave of it to their
+# static tables (at most 7.1 KB: the f64 poly trace_bwd's, 16 surfaces)
 SMEM_MAX = 232_448
 SMEM_STATIC = 8_192
 STOCK_SURF = 16  # surfaces of the stock, tilt, sag, nurbs and grat builds
@@ -444,6 +444,26 @@ def per_thread(build):
     return build in (STOCK, TILT)
 
 
+# The nurbs build's backwards (csrc/nurbs_step.cuh) keep each NURBS
+# surface's stopped (u, v) from their forward sweep, and each warp stages
+# its rays' records (the spans, basis values and net cotangents at both
+# points) in shared memory, where each lane sums the net columns it owns,
+# beside their per-warp rows and the nets' tables: the block follows from
+# those bytes (nurbs_bwd_bytes) and the grid from the kernel's occupancy
+# (bwd_grid). NU_PT: a record's values per point.
+NU_PT = 12 + 4 * (NU_PMAX + 1)
+
+
+def nurbs_bwd_bytes(block, ncomp, S, nc, dtype):
+    """Dynamic shared memory of a nurbs-build backward of ``block`` threads
+    (csrc/nurbs_step.cuh: nurbs_bwd_bytes): the per-warp rows of ncomp
+    columns, the nets and knot rows of S surfaces of nc net columns, and
+    each lane's staged record (2 NU_PT values and 4 int spans)."""
+    size = torch.finfo(dtype).bits // 8
+    return ((block // 32 * ncomp + S * (nc + NU_KT) + block * 2 * NU_PT)
+            * size + block * 16)
+
+
 def bwd_shape(S, nm, mode, dtype, block=BWD_BLOCK):
     """(block, dynamic shared bytes) of a per-thread-sum backward of S
     surfaces in ``mode`` ("merit", "field", "generic" or "poly", with nm
@@ -478,9 +498,9 @@ def bwd_shape(S, nm, mode, dtype, block=BWD_BLOCK):
 
 @functools.lru_cache(maxsize=None)
 def _resident(name, dtype, build, mode, block, dyn, device):
-    """Resident blocks per SM of backward ``name`` (a per-thread-sum
-    build) at ``block`` threads and ``dyn`` bytes, from the occupancy
-    calculator, and the card's SM count."""
+    """Resident blocks per SM of backward ``name`` (a per-thread-sum or
+    the nurbs build) at ``block`` threads and ``dyn`` bytes, from the
+    occupancy calculator, and the card's SM count."""
     import ctypes
 
     from optiland_torch.ops import _cuda
@@ -490,26 +510,51 @@ def _resident(name, dtype, build, mode, block, dyn, device):
     if name != "merit_bwd":
         args = (("generic", "field", "poly").index(mode),) + args
     with torch.cuda.device(device):
-        _cuda.check(_cuda.call(name + "_occupancy", dtype, *args), name)
+        _cuda.check(_cuda.call(entry_name(name + "_occupancy", build), dtype,
+                               *args), name)
     if n.value < 1:
         raise RuntimeError(f"{name} fits no block of {block} threads and "
                            f"{dyn} bytes of shared memory on an SM")
     return n.value, torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def bwd_grid(name, mode, S, nm, dtype, build, R, device, block=BWD_BLOCK):
+def nurbs_shape(S, nc, ncomp, dtype, block=BWD_BLOCK):
+    """(block, dynamic shared bytes) of a nurbs-build backward (ncomp
+    columns of its partial rows): the largest multiple of 32 up to
+    ``block`` whose bytes (``nurbs_bwd_bytes``) fit in SMEM_MAX less
+    SMEM_STATIC. Raises NotImplementedError where 32 threads do not fit."""
+    room = SMEM_MAX - SMEM_STATIC
+    while block > 32 and nurbs_bwd_bytes(block, ncomp, S, nc, dtype) > room:
+        block -= 32
+    need = nurbs_bwd_bytes(block, ncomp, S, nc, dtype)
+    if need > room:
+        raise NotImplementedError(
+            f"a nurbs-build backward of {S} surfaces ({nc} net columns, "
+            f"{ncomp} partial columns) needs {need} bytes of shared memory "
+            f"at 32 threads, more than the {room} bytes a block has for "
+            "them")
+    return block, need
+
+
+def bwd_grid(name, mode, S, nm, dtype, build, R, device, block=BWD_BLOCK,
+             nc=0, ncomp=0):
     """(block, blocks, dynamic bytes) of backward ``name`` (merit_bwd or
     trace_bwd, ``mode`` as bwd_shape's) launched for R rays on ``device``:
-    in the per-thread-sum builds the block of ``bwd_shape`` and one wave of
-    blocks (the resident blocks per SM times the SMs, no more than the rays
-    need), fixed for a card, build, dtype and shape, so that two launches
-    give the same bits; in the other builds ``block`` and the grid of
+    in the per-thread-sum builds the block of ``bwd_shape``, in the nurbs
+    build that of ``nurbs_shape`` (nc net columns per surface, ncomp
+    columns of the partial rows), each with one wave of blocks (the
+    resident blocks per SM times the SMs, no more than the rays need),
+    fixed for a card, build, dtype and shape, so that two launches give
+    the same bits; in the other builds ``block`` and the grid of
     BWD_MAX_BLOCKS x BWD_BLOCK threads, whose per-warp rows size their
     shared memory themselves."""
-    if not per_thread(build):
+    if build == NURBS:
+        block, dyn = nurbs_shape(S, nc, ncomp, dtype, block)
+    elif not per_thread(build):
         nb = min(-(-R // block), BWD_MAX_BLOCKS * (BWD_BLOCK // block))
         return block, max(1, nb), 0
-    block, dyn = bwd_shape(S, nm, mode, dtype, block)
+    else:
+        block, dyn = bwd_shape(S, nm, mode, dtype, block)
     device = torch.device(device)
     index = torch.cuda.current_device() if device.index is None else device.index
     per_sm, sms = _resident(name, dtype, build, mode, block, dyn, index)

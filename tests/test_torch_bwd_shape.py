@@ -70,10 +70,9 @@ def test_bwd_shape_refuses_blocks_that_are_not_a_multiple_of_32(block):
 def test_only_the_stock_and_tilt_builds_sum_per_thread():
     assert [b for b in launch.BUILD_SUFFIX if launch.per_thread(b)] == [
         launch.STOCK, launch.TILT]
-    # the other builds keep their grid of BWD_MAX_BLOCKS x BWD_BLOCK
-    # threads and their per-warp rows (no card needed to say so)
-    for build in (launch.SAG, launch.FREE, launch.DEEP, launch.NURBS,
-                  launch.GRAT):
+    # the other builds but nurbs (below) keep their grid of BWD_MAX_BLOCKS
+    # x BWD_BLOCK threads and their per-warp rows (no card needed to say so)
+    for build in (launch.SAG, launch.FREE, launch.DEEP, launch.GRAT):
         for block in (32, 64, 128):
             assert launch.bwd_grid("trace_bwd", "generic", 8, 0,
                                    torch.float32, build, 1 << 24, "cpu",
@@ -81,3 +80,56 @@ def test_only_the_stock_and_tilt_builds_sum_per_thread():
                 block, launch.BWD_MAX_BLOCKS * (launch.BWD_BLOCK // block), 0)
         assert launch.bwd_grid("merit_bwd", "merit", 8, 0, torch.float32,
                                build, 1000, "cpu") == (128, 8, 0)
+
+
+def _nurbs_bytes(block, ncomp, S, nc, dtype):
+    """A nurbs-build backward's shared memory, counted from the kernels'
+    layout (csrc/nurbs_step.cuh: nurbs_bwd_bytes, nurbs_own_cols;
+    csrc/fused_trace.cuh, csrc/fast_trace.cuh): each warp's row of ncomp
+    columns, each surface's net row of nc columns and knot row of NU_KT,
+    then each lane's staged record, two points of NU_PT values (12 net
+    cotangents, then the 1-D basis values and derivatives in u and v,
+    NU_PMAX + 1 each) and four int spans."""
+    size = torch.finfo(dtype).bits // 8
+    per_point = 12 + 4 * (launch.NU_PMAX + 1)
+    return ((block // 32 * ncomp + S * (nc + launch.NU_KT)
+             + block * 2 * per_point) * size + block * 4 * 4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_nurbs_shape_fits_or_refuses(dtype):
+    """The nurbs build's block: the largest multiple of 32 up to the
+    request whose rows, tables and staged records fit, for every system
+    the build takes (up to STOCK_SURF surfaces, NC_NURBS net columns);
+    where 32 threads would not fit (wider than the build takes),
+    NotImplementedError: the launch does not fall back."""
+    room = launch.SMEM_MAX - launch.SMEM_STATIC
+    for S in (2, 4, 9, launch.STOCK_SURF):
+        for nsag in range(1, S):
+            for nc in (16, 100, 196, launch.NC_NURBS):
+                ncomp = S * len(FULL_GRAD_COLS) + nsag * nc + launch.N_AIM
+                for want in (32, 64, 128):
+                    block, dyn = launch.nurbs_shape(S, nc, ncomp, dtype,
+                                                    want)
+                    assert block % 32 == 0 and 32 <= block <= want
+                    assert dyn == _nurbs_bytes(block, ncomp, S, nc,
+                                               dtype) <= room
+                    assert block == want or _nurbs_bytes(
+                        block + 32, ncomp, S, nc, dtype) > room
+    wide = 40 * launch.NC_NURBS
+    with pytest.raises(NotImplementedError, match="shared memory"):
+        launch.nurbs_shape(launch.STOCK_SURF, wide, 15 * wide, dtype)
+
+
+def test_nurbs_shape_of_the_golden_lenses():
+    """The golden NURBS lenses (4 surfaces, one 7 x 7 net: nc = 196) take
+    the full block in both types, and a second NURBS surface adds only its
+    columns to the rows: the warps' records are staged one surface at a
+    time."""
+    ncomp = 4 * len(GRAD_COLS) + 196 + launch.N_AIM
+    for dtype, size in ((torch.float32, 4), (torch.float64, 8)):
+        assert launch.nurbs_shape(4, 196, ncomp, dtype) == (
+            128, (4 * ncomp + 4 * (196 + launch.NU_KT) + 128 * 88) * size
+            + 128 * 16)
+        assert launch.nurbs_shape(4, 196, ncomp + 196, dtype) == (
+            128, _nurbs_bytes(128, ncomp + 196, 4, 196, dtype))

@@ -52,7 +52,7 @@ from optiland_torch.ops import _cuda
 from optiland_torch.ops import fast_trace as ftr
 from optiland_torch.ops import fused_trace as ft
 from optiland_torch.ops import huygens as hu
-from optiland_torch.ops import launch
+from optiland_torch.ops import launch, step
 from optiland_torch.optic import Optic
 from optiland_torch.polarization import create_polarization
 from optiland_torch.samples import (
@@ -490,14 +490,17 @@ def _k6_system(kind):
     }[kind]()
 
 
-def _k6_inputs(system, field, R, seed, dtype=torch.float64):
+def _k6_inputs(system, field, R, seed, dtype=torch.float64, pupil=None):
     wl = float(system.wavelengths[system.cfg.primary_index])
     with torch.no_grad():
         params = ft.build_param_table(system, wl).contiguous()
         aim = ft.aim_vector(system, *field).contiguous()
     coeffs = system.stack.coeffs.contiguous()
-    Px, Py = ft.prng_disk_plain(seed, R, 0, torch.float64, params.device)
-    Px, Py = Px * 0.98, Py * 0.98
+    if pupil is None:
+        Px, Py = ft.prng_disk_plain(seed, R, 0, torch.float64, params.device)
+        Px, Py = Px * 0.98, Py * 0.98
+    else:
+        Px, Py = (t.to(params.device) for t in pupil)
     g = torch.Generator(device="cpu").manual_seed(seed)
     with torch.no_grad():
         rays = raygen.generate_rays(system, *field, Px, Py, wl)
@@ -1842,16 +1845,19 @@ def test_grat_refusals_and_plain_paths_on_the_card(cuda_device):
 NURBS_SYSTEMS = {"rational": nurbs.rational_nurbs,
                  "fitted": nurbs.fitted_nurbs,
                  "bspline": nurbs.bspline_nurbs,
+                 "bspline4": lambda: nurbs.bspline_nurbs(nn=4),
                  "tilted": nurbs.tilted_nurbs}
 
 
-def _nurbs_check(system, R, seed, what, dtype=torch.float64, rtol=1e-10):
+def _nurbs_check(system, R, seed, what, dtype=torch.float64, rtol=1e-10,
+                 field=freeform.H, pupil=None):
     """Every monochromatic kernel of the nurbs build on ``system`` against
     its plain version (f64, or ``dtype`` against the f64 plain version
-    with ``rtol`` then ``_f32_close``); returns the plain trace_bwd's flat
-    gradient."""
-    wl, params, aim, _, Px, Py, ins, cots = _k6_inputs(system, freeform.H, R,
-                                                       seed)
+    with ``rtol`` then ``_f32_close``), at ``field`` from R pupil samples
+    drawn from ``seed`` or (``pupil``) given; returns the plain
+    trace_bwd's flat gradient."""
+    wl, params, aim, _, Px, Py, ins, cots = _k6_inputs(system, field, R,
+                                                       seed, pupil=pupil)
     coeffs, lay = _aux_tables(system)
     nc = coeffs.shape[1]
     spec = ftr.fast_spec(system, field=True)
@@ -2066,6 +2072,112 @@ def test_nurbs_entry_points_and_refusals(cuda_device):
     assert float(loss) == pytest.approx(float(loss_p), rel=1e-12)
     torch.testing.assert_close(cf.grad.cpu(), cf_p.grad, rtol=1e-9,
                                atol=1e-12 * float(cf_p.grad.abs().max()))
+
+
+@pytest.mark.cuda
+def test_nurbs_kernels_at_the_net_edges(cuda_device):
+    """On axis, pupil samples that meet the rational net at its corners
+    (x, y = +-7 mm: the stopped and corrected u and v exactly 0 or 1, the
+    last knot's span, the clip's derivative 1/2) and others inside and
+    past its edges (u or v clipped, the clip's derivative 0): each
+    monochromatic kernel of the nurbs build against its plain version in
+    f64, per gradient column. No sample lands within rounding of an edge
+    without landing on it, where the clip's derivative would follow the
+    rounding (1, 1/2 or 0) and two correct versions could differ."""
+    system = nurbs.rational_nurbs().system
+    v = torch.tensor((-1.5, -1.0, -0.3, 0.0, 0.3, 1.0, 1.5),
+                     dtype=torch.float64)
+    c = torch.tensor((-1.4, 1.4), dtype=torch.float64)
+    grid = [t.reshape(-1) for t in torch.meshgrid(v, v, indexing="ij")]
+    corners = [t.reshape(-1) for t in torch.meshgrid(c, c, indexing="ij")]
+    Px, Py = (torch.cat([a, b]).repeat(60) for a, b in zip(grid, corners))
+    with torch.no_grad():
+        rays = raygen.generate_rays(system, 0.0, 0.0, Px, Py, WL)
+        params = ft.build_param_table(system, WL)
+        coeffs, _ = _aux_tables(system)
+        fw = step.nurbs_forward(coeffs[1].cpu(), system.cfg.geom_aux[1],
+                                rays.x.cpu(), rays.y.cpu(),
+                                (rays.z - params[1, 2]).cpu(), rays.L.cpu(),
+                                rays.M.cpu(), rays.N.cpu(), 10)
+    # the corrected points on the edges, and none within rounding of one
+    dist = torch.stack([fw.U, fw.V, fw.U - 1, fw.V - 1]).abs()
+    assert bool(((fw.us == 0) | (fw.us == 1)).any())
+    assert int((dist == 0).any(0).sum()) == 4 * 60
+    assert not bool(((dist > 0) & (dist < 1e-9)).any())
+    _nurbs_check(system, Px.shape[0], 11, "edges", field=(0.0, 0.0),
+                 pupil=(Px, Py))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_nurbs_backwards_repeat_their_bits(cuda_device, dtype):
+    """Two launches of each backward of the nurbs build (merit, field,
+    generic and poly; K9 in both modes on the coated variant) on the
+    fitted and coated rational lenses give the same bits: a launch shape
+    fixed for the card and shape, fixed summation orders, no float
+    atomics."""
+    from optiland_torch.ops import pol_trace as pt
+
+    R = 200001
+    system = nurbs.fitted_nurbs().system
+    wl, params, aim, _, Px, Py, ins, cots = _k6_inputs(system, freeform.H, R,
+                                                       13, dtype)
+    coeffs, lay = _aux_tables(system, dtype)
+    nc = coeffs.shape[1]
+    spec = ftr.fast_spec(system, field=True)
+    mspec = ft._spec_of(system)
+    stats = torch.tensor([0.1, -0.2, 1.0 / R, 0.0], dtype=dtype,
+                         device=cuda_device)
+    w = torch.tensor([0.48, 0.55, 0.65], dtype=dtype,
+                     device=cuda_device)[torch.arange(R, device=cuda_device)
+                                         % 3]
+    pq = ftr.build_poly_table(system).to(dtype).contiguous()
+    mq = system.stack.mat_coeffs.to(dtype).contiguous()
+    csys = nurbs.coated_nurbs("H").system
+    _, pc, _, _, _, _, ins_c, _ = _k6_inputs(csys, freeform.H, R, 14, dtype)
+    cc, lc = _aux_tables(csys, dtype)
+    pspec = pt.pol_spec(csys, wl)
+    coat = pt.build_coat_table(csys, wl, dtype, cuda_device)
+    states = pt.pol_states(create_polarization("H"))
+    g = torch.Generator(device="cpu").manual_seed(15)
+    pcots = [torch.randn(R, generator=g, dtype=dtype).to(cuda_device)
+             for _ in range(pt.N_POL)]
+    calls = {
+        "merit_bwd": lambda: [ft.merit_bwd(params, aim, stats, mspec, nc, R,
+                                           Px=Px, Py=Py, coeffs=coeffs,
+                                           lay=lay)],
+        "trace_field_bwd": lambda: [ftr.trace_field_bwd(
+            params, aim, spec, nc, Px, Py, cots, coeffs, lay)],
+        "trace_bwd": lambda: ftr.trace_bwd(params, spec, nc, ins, cots,
+                                           coeffs, lay),
+        "trace_bwd_poly": lambda: ftr.trace_bwd_poly(
+            pq, mq, ftr.poly_spec(system), nc, ins + [w], cots, coeffs,
+            lay),
+        "pol_bwd": lambda: pt.pol_bwd(pc, coat, pspec, cc.shape[1], ins_c,
+                                      pcots, None, False, cc, lc),
+        "pol_bwd_intensity": lambda: pt.pol_bwd(
+            pc, coat, pspec, cc.shape[1], ins_c, pcots[:8], states, True,
+            cc, lc),
+    }
+
+    def flat(out):
+        return torch.cat([torch.stack(list(o)).reshape(-1)
+                          if isinstance(o, (tuple, list)) else o.reshape(-1)
+                          for o in out])
+
+    ftr.reset_launch_counts()
+    ft.reset_launch_counts()
+    pt.reset_launch_counts()
+    for name, call in calls.items():
+        a, b = flat(call()), flat(call())
+        assert torch.isfinite(a).all(), name
+        assert torch.equal(a, b), (
+            f"{name}: two launches differ in {int((a != b).sum())} entries")
+    assert ft.LAUNCHES == _only(ft.LAUNCHES, merit_bwd_nurbs=2)
+    assert ftr.LAUNCHES == _only(ftr.LAUNCHES, trace_field_bwd_nurbs=2,
+                                 trace_bwd_nurbs=2, trace_bwd_poly_nurbs=2)
+    assert pt.LAUNCHES == _only(pt.LAUNCHES, pol_bwd_nurbs=2,
+                                pol_bwd_intensity_nurbs=2)
 
 
 # ---------------------------------------------------------------------------

@@ -339,6 +339,149 @@ def test_step_at_the_det_clamp():
     _assert_step_vs_jax(_params(False), st, c, net, False, True, False, 6)
 
 
+# ---------------------------------------------------------------------------
+# The kernels' span-local net columns (csrc/nurbs_step.cuh), transcribed
+# ---------------------------------------------------------------------------
+
+
+def _span_basis(U, n, p, u):
+    """csrc/nurbs_step.cuh: nu_basis<T, 1> at one u: the span i0 (that of
+    the knot interval [U_i, U_i+1) holding u, n at the last knot, -1
+    outside) and the values N[r] and first derivatives D[r] of basis
+    function i0 - r, r = 0..p, by the triangle on the span."""
+    m = n + p + 1
+    i0 = -1
+    for i in range(m):
+        if U[i] <= u < U[i + 1]:
+            i0 = i
+    if u == U[m]:
+        i0 = n
+    N, D = [0.0] * (p + 1), [0.0] * (p + 1)
+    if i0 >= 0:
+        N[0] = 1.0
+    for k in range(1, p + 1):
+        for r in range(k, -1, -1):
+            i = i0 - r
+            nv = dv = 0.0
+            if 0 <= i <= m - 1 - k:
+                d1 = U[i + k] - U[i]
+                if d1 != 0:
+                    a, da = (u - U[i]) / d1, 1.0 / d1
+                    nv, dv = a * N[r], da * N[r] + a * D[r]
+                if r >= 1:
+                    d2 = U[i + k + 1] - U[i + 1]
+                    if d2 != 0:
+                        c, dc = (U[i + k + 1] - u) / d2, -1.0 / d2
+                        nv += c * N[r - 1]
+                        dv += dc * N[r - 1] + c * D[r - 1]
+            N[r], D[r] = nv, dv
+    return i0, N, D
+
+
+def _homog_cot(S, Su, Sv, w, wu, wv, gS, gSu, gSv):
+    """csrc/nurbs_step.cuh: nu_homog_cot: g_H, g_Hu, g_Hv, g_w, g_wu, g_wv
+    of one point."""
+    gSt = gS - (wu * gSu + wv * gSv) / w
+    return (list(gSt / w) + list(gSu / w) + list(gSv / w)
+            + [-(gSt @ S + gSu @ Su + gSv @ Sv) / w, -(gSu @ S) / w,
+               -(gSv @ S) / w])
+
+
+def _span_columns(P, W, net, rays):
+    """The kernels' net columns, transcribed (csrc/nurbs_step.cuh:
+    nurbs_own_cols): each ray's record (the spans and basis of both its
+    points, the homogeneous cotangents there) adds, on the (p + 1)(q + 1)
+    control points of each point's span only, to the sums G (of b g_H +
+    b_u g_Hu + b_v g_Hv) and g (of b g_w + b_u g_wu + b_v g_wv) of the
+    control point, rays in order, the stopped point before the corrected
+    one; then the control points' columns are W G and the weights' P . G
+    + g."""
+    _, nu, nv, p, q, uk, vk = net
+    G = np.zeros((3, nu, nv))
+    g = np.zeros((nu, nv))
+    for points in rays:
+        for (u, v), cot in points:
+            iu, Nu, Du = _span_basis(uk, nu - 1, p, u)
+            iv, Nv, Dv = _span_basis(vk, nv - 1, q, v)
+            for ru in range(p + 1):
+                for rv in range(q + 1):
+                    i, j = iu - ru, iv - rv
+                    if i < 0 or j < 0:
+                        continue
+                    b, bu = Nu[ru] * Nv[rv], Du[ru] * Nv[rv]
+                    bv = Nu[ru] * Dv[rv]
+                    for d in range(3):
+                        G[d, i, j] += (b * cot[d] + bu * cot[3 + d]
+                                       + bv * cot[6 + d])
+                    g[i, j] += b * cot[9] + bu * cot[10] + bv * cot[11]
+    return W[None] * G, (P * G).sum(0) + g
+
+
+def _random_net(rng, nu, nv, p, q, knots):
+    """(coefficient row, structure) of a random rational nu x nv net of
+    degrees (p, q) on clamped knots: uniform, random interior ones, or
+    with an interior knot repeated."""
+    def kv(n, deg):
+        inner = n - deg - 1
+        if knots == "uniform" or inner == 0:
+            mid = np.linspace(0, 1, inner + 2)[1:-1]
+        else:
+            mid = np.sort(rng.uniform(0.1, 0.9, inner))
+            if knots == "repeated" and inner >= 2:
+                mid[1] = mid[0]
+        return tuple(float(k) for k in np.concatenate(
+            [np.zeros(deg + 1), mid, np.ones(deg + 1)]))
+
+    xs, ys = np.linspace(-4, 4, nu), np.linspace(-3, 3, nv)
+    X, Y = np.meshgrid(xs, ys, indexing="ij")
+    Z = 0.05 * (X**2 + Y**2) + 0.1 * rng.normal(size=X.shape)
+    Wt = 0.7 + 0.6 * rng.random((nu, nv))
+    c = np.concatenate([np.stack([X, Y, Z]).ravel(), Wt.ravel()])
+    return c, ("nurbs", nu, nv, p, q, kv(nu, p), kv(nv, q))
+
+
+@pytest.mark.parametrize("nu,nv,p,q,knots", [
+    (2, 2, 1, 1, "uniform"), (4, 3, 2, 1, "random"),
+    (5, 4, 1, 3, "random"), (4, 4, 3, 3, "uniform"),
+    (6, 5, 2, 3, "repeated"), (7, 7, 3, 3, "random"),
+    (6, 7, 3, 2, "repeated")])
+def test_span_columns_match_dense_net_cotangent(nu, nv, p, q, knots):
+    """The kernels' span-local column arithmetic (the spans of both
+    points, the last knot's span at u or v = 1, the box's edge at 0, at
+    interior and repeated knots) against the dense net_cotangent of
+    ops/step.py, summed over 64 random rays, to 1e-12."""
+    rng = np.random.default_rng(nu * 100 + nv * 10 + p + q)
+    c, net = _random_net(rng, nu, nv, p, q, knots)
+    _, _, _, _, _, uk, vk = net
+    R = 64
+    edges = np.array([0.0, 1.0] + list(uk[p + 1:nu]) + list(vk[q + 1:nv]))
+    uv = rng.random((2, 2, R))
+    uv[:, :, :len(edges)] = rng.choice(edges, size=(2, 2, len(edges)))
+    uv[0, 0, :4], uv[1, 0, :4] = (0.0, 1.0, 1.0, 0.0), (1.0, 0.0, 1.0, 0.0)
+    P, W = tn.unpack_pw(f64(c), net)
+    gP = torch.zeros_like(P)
+    gW = torch.zeros_like(W)
+    records = [[] for _ in range(R)]
+    for k in range(2):
+        u, v = f64(uv[0, k]), f64(uv[1, k])
+        h = tn.homogeneous(P, W, net, u, v, 1)
+        S, w = tn.rational(h)
+        gS, gSu, gSv = (f64(rng.normal(size=(3, R))) for _ in range(3))
+        a, b = step.net_cotangent(P, W, net, u, v, h, S, w, tuple(gS),
+                                  tuple(gSu), tuple(gSv))
+        gP, gW = gP + a.sum(-1), gW + b.sum(-1)
+        Sx, Sux, Svx = (S[d].numpy() for d in ("", "u", "v"))
+        wu, wv = h["u"][1].numpy(), h["v"][1].numpy()
+        for r in range(R):
+            records[r].append(((uv[0, k, r], uv[1, k, r]), _homog_cot(
+                Sx[:, r], Sux[:, r], Svx[:, r], float(w[r]), wu[r], wv[r],
+                gS[:, r].numpy(), gSu[:, r].numpy(), gSv[:, r].numpy())))
+    sP, sW = _span_columns(P.numpy(), W.numpy(), net, records)
+    scale = max(float(gP.abs().max()), float(gW.abs().max()))
+    np.testing.assert_allclose(sP, gP.numpy(), rtol=0, atol=1e-12 * scale)
+    np.testing.assert_allclose(sW, gW.numpy(), rtol=0, atol=1e-12 * scale)
+
+
 @pytest.mark.parametrize("form", ["merit", "full"])
 @pytest.mark.parametrize("tilted", [False, True])
 @pytest.mark.parametrize("refl", [False, True])

@@ -17,12 +17,22 @@ of their kernels and the times of their merit and trace kernels.
       exact check, where equal ptxas lines may still hide other code;
   python3 tools/torch_build_compare.py mix LOG
       for the backwards of the main path (merit_bwd and trace_bwd in the
-      stock and tilt builds) of a build log's library: the ptxas line
+      stock and tilt builds) and of the nurbs build (merit_bwd, trace_bwd
+      in every mode, pol_bwd) of a build log's library: the ptxas line
       (registers, stack frame, spills, static shared memory), the resident
       blocks per SM that the registers and static shared memory allow at
-      BWD_BLOCK threads, and the static instruction mix of the machine
-      code (SHFL, MUFU, LDL/STL, LDS/STS, FFMA/FADD/FMUL, DFMA/DADD/DMUL,
-      all);
+      BWD_BLOCK threads (the dynamic shared memory of the per-thread and
+      nurbs designs not counted: ``time`` prints their launch shapes), and
+      the static instruction mix of the machine code (SHFL, MUFU, LDL/STL,
+      LDS/STS, FFMA/FADD/FMUL, DFMA/DADD/DMUL, all);
+  python3 tools/torch_build_compare.py time ROOT TAG --nurbs [--kernels K,..]
+      time the nurbs build's kernels of ROOT at 2^24 rays, float32, on the
+      golden rational and conic-fit lenses (samples/nurbs.py) at (0.3, 0.7):
+      the six of ``time`` below, then on the rational lens trace_fwd_poly
+      and trace_bwd_poly (wavelengths cycling by ray) and on its coated
+      variant pol_fwd and pol_bwd in the intensity mode; ``--kernels``
+      times only the named ones (a tree whose library holds only some
+      sources, as a throwaway copy may);
   python3 tools/torch_build_compare.py time ROOT TAG [--aux | --main]
       time merit_fwd, merit_bwd, trace_fwd, trace_bwd, trace_field_fwd and
       trace_field_bwd of ROOT at 2^24 rays, float32 (median of 10 CUDA
@@ -59,6 +69,7 @@ import re
 import shutil
 import subprocess
 import sys
+import time
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -180,7 +191,7 @@ def sass(old, new):
 
 # the main path's backwards, whose machine code ``mix`` counts: the merit and
 # trace kernels' stock and tilt builds
-MIX_KERNELS = ("merit_bwd_kernel", "trace_bwd_kernel")
+MIX_KERNELS = ("merit_bwd_kernel", "trace_bwd_kernel", "pol_bwd_kernel")
 MIX_CLASSES = {"SHFL": ("SHFL",), "MUFU": ("MUFU",), "LDL/STL": ("LDL", "STL"),
                "LDS/STS": ("LDS", "STS"), "FFMA/FADD/FMUL": ("FFMA", "FADD",
                                                              "FMUL"),
@@ -196,7 +207,9 @@ def mix(log):
     code = sass_of(log)
     for (src, key), instrs in sorted(code.items(), key=str):
         if not (isinstance(key, tuple) and key[0] in MIX_KERNELS
-                and key[2] and key[2][-1] in ("stock", "tilt")):
+                and key[2] and key[2][-1] in (
+                    ("nurbs",) if key[0] == "pol_bwd_kernel"
+                    else ("stock", "tilt", "nurbs"))):
             continue
         ops = [re.sub(r"^@!?U?P\w+\s+", "", i.split(";")[0].split("*/", 1)[-1]
                       .strip()).split(" ")[0].split(".")[0] for i in instrs]
@@ -220,7 +233,7 @@ def mix(log):
               f"instructions {counts}", flush=True)
 
 
-def time_tree(root, tag, aux, main=False):
+def time_tree(root, tag, aux, main=False, nurbs=False, only=None):
     sys.path.insert(0, os.path.abspath(root))
     import torch
 
@@ -229,7 +242,7 @@ def time_tree(root, tag, aux, main=False):
     from optiland_torch.ops import fast_trace as ftr
     from optiland_torch.ops import fused_trace as ft
     from optiland_torch.ops import launch
-    from optiland_torch.samples import freeform, perturbed, registry
+    from optiland_torch.samples import freeform, perturbed
 
     config.set_device("cuda")
     config.set_precision("float32")
@@ -256,6 +269,20 @@ def time_tree(root, tag, aux, main=False):
             ts.append(e0.elapsed_time(e1))
         return sorted(ts)[len(ts) // 2]
 
+    t_start = time.perf_counter()
+
+    def timed(res):
+        """{name: ms} of the {name: fn} in ``res`` that ``only`` names,
+        each reported on stderr as it is timed."""
+        out = {}
+        for k, fn in res.items():
+            if only is None or k in only:
+                out[k] = time_ms(fn)
+                print(f"{tag} {k} {out[k]:.4f} ms at "
+                      f"{time.perf_counter() - t_start:.1f} s",
+                      file=sys.stderr, flush=True)
+        return out
+
     def kernels(system, field):
         wl = float(system.wavelengths[system.cfg.primary_index])
         with torch.no_grad():
@@ -277,20 +304,92 @@ def time_tree(root, tag, aux, main=False):
             _, xb, yb = ft._chan_combine(rows, R)
             st = torch.stack([xb, yb, torch.tensor(1.0 / R, device=dev),
                               torch.zeros((), device=dev)])
-            res = {
-                "merit_fwd": time_ms(lambda: ft.merit_fwd(
-                    pk, ak, mspec, R, seed=9, coeffs=ck, **mlay)),
-                "merit_bwd": time_ms(lambda: ft.merit_bwd(
-                    pk, ak, st, mspec, nc, R, seed=9, coeffs=ck, **mlay)),
-                "trace_fwd": time_ms(lambda: ftr.trace_fwd(
-                    pk, spec, ins, ck, *lay)),
-                "trace_bwd": time_ms(lambda: ftr.trace_bwd(
-                    pk, spec, nc, ins, cots, ck, *lay)),
-                "trace_field_fwd": time_ms(lambda: ftr.trace_field_fwd(
-                    pk, ak, spec, Px, Py, ck, *lay)),
-                "trace_field_bwd": time_ms(lambda: ftr.trace_field_bwd(
-                    pk, ak, spec, nc, Px, Py, cots, ck, *lay)),
-            }
+            res = timed({
+                "merit_fwd": lambda: ft.merit_fwd(
+                    pk, ak, mspec, R, seed=9, coeffs=ck, **mlay),
+                "merit_bwd": lambda: ft.merit_bwd(
+                    pk, ak, st, mspec, nc, R, seed=9, coeffs=ck, **mlay),
+                "trace_fwd": lambda: ftr.trace_fwd(pk, spec, ins, ck, *lay),
+                "trace_bwd": lambda: ftr.trace_bwd(
+                    pk, spec, nc, ins, cots, ck, *lay),
+                "trace_field_fwd": lambda: ftr.trace_field_fwd(
+                    pk, ak, spec, Px, Py, ck, *lay),
+                "trace_field_bwd": lambda: ftr.trace_field_bwd(
+                    pk, ak, spec, nc, Px, Py, cots, ck, *lay),
+            })
+            if nurbs:
+                res["shapes"] = shapes(spec, mspec, nc)
+        torch.cuda.synchronize()
+        return res
+
+    def shapes(spec, mspec, nc):
+        """(block, blocks, dynamic bytes) of the nurbs backwards' launches,
+        where the tree's bwd_grid takes the nurbs build's shape."""
+        import inspect
+
+        if "ncomp" not in inspect.signature(launch.bwd_grid).parameters:
+            return None
+        from optiland_torch.ops.step import FULL_GRAD_COLS, GRAD_COLS
+
+        S = len(spec[0])
+        out = {}
+        for name, mode, sp, build, slots, extra in (
+                ("merit_bwd", "merit", mspec, ft._build(mspec), GRAD_COLS,
+                 launch.N_AIM),
+                ("trace_bwd", "generic", spec, ftr._build(spec),
+                 FULL_GRAD_COLS, 0),
+                ("trace_bwd", "field", spec, ftr._build(spec),
+                 FULL_GRAD_COLS, launch.N_AIM)):
+            grat = sp[3] if mode == "merit" else ftr._grat(sp)
+            ncomp = (S * len(slots) + extra
+                     + launch.sag_columns(sp[0], nc, build, grat))
+            out[f"{name}_{mode}"] = launch.bwd_grid(
+                name, mode, S, 0, torch.float32, build, R, dev, nc=nc,
+                ncomp=ncomp)
+        return out
+
+    def nurbs_poly_pol(system, coated):
+        """The rational lens's poly kernels and its coated variant's
+        polarized ones (intensity mode), with their tables."""
+        from optiland_torch.ops import pol_trace as pt
+        from optiland_torch.polarization import create_polarization
+
+        wl = torch.tensor((0.48, 0.55, 0.65), device=dev)[
+            torch.arange(R, device=dev) % 3]
+        with torch.no_grad():
+            ck, lk = tables(system)
+            nc = ck.shape[1]
+            pk = ftr.build_poly_table(system).contiguous()
+            mk = system.stack.mat_coeffs.detach().contiguous()
+            Px, Py = ft.prng_disk(17, R, 0, torch.float32, dev)
+            rays = raygen.generate_rays(system, 0.3, 0.7, Px, Py, 0.55)
+            ins = [getattr(rays, k).contiguous() for k in ftr.RAY_FIELDS]
+            del rays
+            cots = [torch.randn(R, generator=gen, device=dev) / R
+                    for _ in range(8)]
+            spec = ftr.poly_spec(system)
+            res = timed({
+                "trace_fwd_poly": lambda: ftr.trace_fwd_poly(
+                    pk, mk, spec, ins + [wl], ck, lk),
+                "trace_bwd_poly": lambda: ftr.trace_bwd_poly(
+                    pk, mk, spec, nc, ins + [wl], cots, ck, lk),
+            })
+            wl0 = float(coated.wavelengths[coated.cfg.primary_index])
+            pq = ft.build_param_table(coated, wl0).contiguous()
+            rays = raygen.generate_rays(coated, 0.3, 0.7, Px, Py, wl0)
+            ins = [getattr(rays, k).contiguous() for k in ftr.RAY_FIELDS]
+            del rays
+            pspec = pt.pol_spec(coated, wl0)
+            coat = pt.build_coat_table(coated, wl0, torch.float32, dev)
+            states = pt.pol_states(create_polarization("H"))
+            cc, lc = tables(coated)
+            res.update(timed({
+                "pol_fwd_intensity": lambda: pt.pol_fwd(
+                    pq, coat, pspec, ins, states, True, cc, lc),
+                "pol_bwd_intensity": lambda: pt.pol_bwd(
+                    pq, coat, pspec, cc.shape[1], ins, cots, states, True,
+                    cc, lc),
+            }))
         torch.cuda.synchronize()
         return res
 
@@ -322,22 +421,38 @@ def time_tree(root, tag, aux, main=False):
 
     from optiland_torch.samples import CookeTriplet
 
+    def objective26():
+        # the registry reads its prescriptions where the tree keeps them
+        from optiland_torch.samples import registry
+
+        return registry.build_sample("ObjectiveUS008879901")
+
     out = {}
-    if not aux:
+    if nurbs:
+        from optiland_torch.samples import nurbs as ns
+
+        for name, make in (("rational", ns.rational_nurbs),
+                           ("fitted", ns.fitted_nurbs)):
+            out[name] = kernels(make().system, (0.3, 0.7))
+        if only is None or {"trace_fwd_poly", "trace_bwd_poly",
+                            "pol_fwd_intensity",
+                            "pol_bwd_intensity"} & set(only):
+            out["rational_poly_pol"] = nurbs_poly_pol(
+                ns.rational_nurbs().system, ns.coated_nurbs("H").system)
+    elif not aux:
         out["cooke"] = kernels(CookeTriplet().system, (0.0, 0.7))
         out["toleranced_cooke"] = kernels(
             perturbed.toleranced_cooke().system, (0.0, 0.7))
         out["cooke_poly"] = poly_kernels(CookeTriplet().system)
-    for name, make, field in () if aux or main else (
+    for name, make, field in () if aux or main or nurbs else (
                 ("tilted_asphere", perturbed.tilted_asphere, (0.0, 0.0)),
-                ("objective26", lambda: registry.build_sample(
-                    "ObjectiveUS008879901"), (0.0, 0.7)),
+                ("objective26", objective26, (0.0, 0.7)),
                 ("polynomial", lambda: freeform.freeform_singlet(
                     "polynomial"), freeform.H),
                 ("toroidal", lambda: freeform.freeform_singlet("toroidal"),
                  freeform.H)):
         out[name] = kernels(make().system, field)
-    if aux:
+    if aux and not nurbs:
         least = launch.build_of
 
         def deep(*a, **k):
@@ -364,6 +479,10 @@ def time_tree(root, tag, aux, main=False):
     for k, v in out.items():
         print(tag, k, {kk: round(vv, 4) if isinstance(vv, float) else vv
                        for kk, vv in v.items()}, flush=True)
+    print(tag, "card", torch.cuda.get_device_name(0), subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True,
+        text=True).stdout.strip(), flush=True)
 
 
 def main(argv):
@@ -376,7 +495,11 @@ def main(argv):
     elif len(argv) == 2 and argv[0] == "mix":
         mix(argv[1])
     elif len(argv) >= 3 and argv[0] == "time":
-        time_tree(argv[1], argv[2], "--aux" in argv[3:], "--main" in argv[3:])
+        rest = argv[3:]
+        only = (rest[rest.index("--kernels") + 1].split(",")
+                if "--kernels" in rest else None)
+        time_tree(argv[1], argv[2], "--aux" in rest, "--main" in rest,
+                  "--nurbs" in rest, only)
     else:
         print(__doc__, file=sys.stderr)
         return 2
