@@ -3326,6 +3326,22 @@ def main(argv=None):
     # of each kernel at full width, on the generic path's launch bundle and
     # cotangents of a mean's size: held against the f32 plain versions on
     # the launches they are timed on, timed, with their bounds
+    # the Newton builds' backwards (sag, deep, free, deep_free, aux,
+    # deep_aux), which keep each Newton surface's stopped iterate from
+    # their forward sweep: whether two full-width launches of each give the
+    # same bits (a fixed grid, fixed summation orders, no atomics), by
+    # launch key and tag (kernels_full_width, poly_full_width)
+    same_newton = {}
+
+    def same_bits(fn):
+        """Whether two runs of ``fn`` give identical outputs (a tensor, or
+        tuples of tensors)."""
+        def flat(o):
+            if isinstance(o, (tuple, list)):
+                return torch.cat([flat(v) for v in o])
+            return o.reshape(-1)
+        return torch.equal(flat(fn()), flat(fn()))
+
     def kernels_full_width(sys32, field, suf, gen, full, tag="", chunk=None):
         """The merit and trace kernels of ``sys32``'s build (launch suffix
         ``suf``) at full width, on the generic path's launch bundle and
@@ -3447,6 +3463,17 @@ def main(argv=None):
             })
             plain_ms.update({k: time_ms(fn, reps, warm=True)
                              for k, fn in plain.items()})
+            if ftr._build(spec_k) & launch_build.BIT_SAG:
+                same_newton.update({
+                    bname: same_bits(lambda: ft.merit_bwd(
+                        pk, ak, stats_t, mspec_k, nck, Rf, seed=9,
+                        coeffs=ck, lay=lk)),
+                    "trace_bwd" + suf: same_bits(lambda: ftr.trace_bwd(
+                        pk, spec_k, nck, ins8, cots8, ck, lk)),
+                    "trace_field_bwd" + suf: same_bits(
+                        lambda: ftr.trace_field_bwd(pk, ak, spec_k, nck, Px8,
+                                                    Py8, cots8, ck, lk)),
+                })
         work.update({k + tag: v for k, v in
                      trace_work(spec_k, mspec_k, nck, Rf,
                                 sys32.cfg.geom_aux).items()})
@@ -3558,6 +3585,9 @@ def main(argv=None):
                 pq, mq, spec_q, ncq, ins_q, cots_q, cq, lq), 10, 3)
             plain_ms[fname] = time_ms(fwd_plain, reps, warm=True)
             plain_ms[bname] = time_ms(bwd_plain, reps, warm=True)
+            if ftr._build(spec_q) & launch_build.BIT_SAG:
+                same_newton[bname] = same_bits(lambda: ftr.trace_bwd_poly(
+                    pq, mq, spec_q, ncq, ins_q, cots_q, cq, lq))
         del ins_q, cots_q
         # the formulas' operations as phase 17 counts them, over the build's
         # geometry (no absorption in the poly mode)
@@ -3587,6 +3617,8 @@ def main(argv=None):
                         gen20, ("tilted_asphere_poly", "coated_asphere_pol"),
                         steps20, 7300, 201, full20)
     report["phases"]["k6_full_width"] = full20
+    check(all(same_newton.values()), f"phase 20: two launches of a Newton "
+          f"build's backward differ: {same_newton}")
     k6_names = [n + s for s in ("_sag", "_deep")
                 for n in ("merit_fwd", "merit_bwd", "trace_fwd", "trace_bwd",
                           "trace_field_fwd", "trace_field_bwd")] + [
@@ -3601,7 +3633,9 @@ def main(argv=None):
         f"|kernel - plain| { {k: float(f'{kerr[k]:.4g}') for k in k6_names} }"
         f"; ms { {k: round(ms[k], 4) for k in k6_names} }; plain ms "
         f"{ {k: round(plain_ms[k], 2) for k in k6_names} }; bounds ms "
-        f"{ {k: round(bound_ms_of(*work[k]), 4) for k in k6_names} }")
+        f"{ {k: round(bound_ms_of(*work[k]), 4) for k in k6_names} }; "
+        f"two full-width launches of each backward give identical bits: "
+        f"{same_newton}")
 
     # ---- phase 21: K6b's Cartesian families at check size (f64) ----
     # the free build of every trace kernel against its plain version on the
@@ -3868,6 +3902,8 @@ def main(argv=None):
                         ("polynomial_poly", "coated_polynomial_pol"),
                         steps22, 8900, 221, full22)
     report["phases"]["free_full_width"] = full22
+    check(all(same_newton.values()), f"phase 22: two launches of a Newton "
+          f"build's backward differ: {same_newton}")
     free_names = [n + "_free" for n in (
         "merit_fwd", "merit_bwd", "trace_fwd", "trace_bwd", "trace_field_fwd",
         "trace_field_bwd", "trace_fwd_poly", "trace_bwd_poly",
@@ -3882,6 +3918,8 @@ def main(argv=None):
         f"{ {k: round(ms[k], 4) for k in free_names} }; plain ms "
         f"{ {k: round(plain_ms[k], 2) for k in free_names} }; bounds ms "
         f"{ {k: round(bound_ms_of(*work[k]), 4) for k in free_names} }; "
+        f"two full-width launches of each backward give identical bits: "
+        f"{ {k: v for k, v in same_newton.items() if '_free' in k} }; "
         f"phase 22 wall {time.perf_counter() - t22:.1f} s")
 
     # ---- phase 23: K6b's aux-bearing families at check size (f64) ----
@@ -4067,6 +4105,9 @@ def main(argv=None):
             9900 + 10 * k, 241 + k, full24, tag=f"_{fname}")
     report["phases"]["aux_steps"] = steps24
     report["phases"]["aux_full_width"] = full24
+    check(all(same_newton.values()), f"phase 24: two launches of a Newton "
+          f"build's backward differ: {same_newton}")
+    report["phases"]["newton_bwd_same_bits"] = same_newton
     aux_names = [n + "_aux_" + fam for fam in freeform.AUX_FAMILIES
                  for n in ("merit_fwd", "merit_bwd", "trace_fwd",
                            "trace_bwd", "trace_field_fwd",
@@ -4084,6 +4125,8 @@ def main(argv=None):
         f"{ {k: round(ms[k], 4) for k in aux_names} }; plain ms "
         f"{ {k: round(plain_ms[k], 2) for k in aux_names} }; bounds ms "
         f"{ {k: round(bound_ms_of(*work[k]), 4) for k in aux_names} }; "
+        f"two full-width launches of each backward give identical bits: "
+        f"{ {k: v for k, v in same_newton.items() if '_aux' in k} }; "
         f"phase 24 wall {time.perf_counter() - t24:.1f} s")
 
     # ---- phase 25: K6c, gratings, at check size (f64) ----

@@ -1038,28 +1038,43 @@ def newton_start(radius, conic, x, y, z, L, M, N):
                        _distance_plane(x, y, z, L, M, N))
 
 
+def newton_stopped(code, radius, conic, coeffs, x, y, z, L, M, N,
+                   newton_iters=NEWTON_ITERS, p1=1.0, p2=1.0, lay=None):
+    """The stopped iterate of a Newton family: ``newton_iters`` steps from
+    ``newton_start`` without a gradient (``coeffs`` and ``lay`` as
+    ``cart_point`` reads them)."""
+    with torch.no_grad():
+        t = newton_start(radius, conic, x, y, z, L, M, N)
+        for _ in range(newton_iters):
+            t = newton_step(code, radius, conic, coeffs, x, y, z, L, M, N, t,
+                            p1, p2, lay)
+    return t
+
+
 def distance_static(code: int, radius, conic, x, y, z, L, M, N, coeffs=None,
                     newton_iters=NEWTON_ITERS, p1=1.0, p2=1.0, aux=None,
-                    lay=None):
+                    lay=None, stopped=False):
     """Ray parameter t to the surface in its local frame. The Newton
     families take ``newton_iters`` steps from ``newton_start`` (the
     surface's radius and conic) without a gradient, then one
     differentiable step: the implicit-function gradient dt/dtheta =
     -f_theta / f_t (plus the f f'_theta / f'^2 term of that step), as the
     JAX package forms it. ``aux`` and ``lay`` as in
-    ``surface_normal_static``."""
+    ``surface_normal_static``. With ``stopped``: (t, the stopped iterate
+    ``newton_stopped``, None for a family that takes no Newton step)."""
+    t_s = None
     if code == PLANE:
-        return _distance_plane(x, y, z, L, M, N)
-    if code == STANDARD:
-        return _distance_standard(radius, conic, x, y, z, L, M, N)
-    if code == NURBS:
-        return nurbs.distance(coeffs, aux, x, y, z, L, M, N)
-    if code not in NEWTON_CODES:
+        t = _distance_plane(x, y, z, L, M, N)
+    elif code == STANDARD:
+        t = _distance_standard(radius, conic, x, y, z, L, M, N)
+    elif code == NURBS:
+        t = nurbs.distance(coeffs, aux, x, y, z, L, M, N)
+    elif code not in NEWTON_CODES:
         raise _unsupported(code)
-    coeffs, lay = _laid_out(code, coeffs, aux, lay)
-    args = (code, radius, conic, coeffs, x, y, z, L, M, N)
-    with torch.no_grad():
-        t = newton_start(radius, conic, x, y, z, L, M, N)
-        for _ in range(newton_iters):
-            t = newton_step(*args, t, p1, p2, lay)
-    return newton_step(*args, t.detach(), p1, p2, lay)
+    else:
+        coeffs, lay = _laid_out(code, coeffs, aux, lay)
+        t_s = newton_stopped(code, radius, conic, coeffs, x, y, z, L, M, N,
+                             newton_iters, p1, p2, lay)
+        t = newton_step(code, radius, conic, coeffs, x, y, z, L, M, N, t_s,
+                        p1, p2, lay)
+    return (t, t_s) if stopped else t

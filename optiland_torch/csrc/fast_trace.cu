@@ -43,7 +43,9 @@
 // a second launch sums the rows in a fixed order: no float atomics. The
 // stock and tilt builds, which the Cooke paths launch, sum per thread and
 // keep the forward pass's divides and square roots for the reverse one
-// (fast_trace.cuh: trace_bwd_kernel, Build::PT).
+// (fast_trace.cuh: trace_bwd_kernel, Build::PT); the Newton builds keep
+// each Newton surface's stopped iterate for the reverse step and sum their
+// columns by a butterfly (fused_trace.cuh: merit_bwd_kernel).
 //
 // Every extern "C" entry launches on the caller's stream, does not
 // synchronise, and returns cudaGetLastError().

@@ -357,8 +357,15 @@ trace_bwd_kernel(const T* __restrict__ params, const T* __restrict__ aim,
     // intensity (mono) or its n_pre (POLY)
     T st[CAP][7];
     // NURBS: each NURBS surface's stopped iterate (us, vs) from the forward
-    // sweep, from which the reverse step takes its corrected step
+    // sweep, from which the reverse step takes its corrected step; the
+    // Newton builds (SAG): each Newton surface's stopped iterate t_s, and in
+    // the Cartesian builds the rest of its record, N_KEEP values (step_fwd
+    // with KEEP and step_adjoint_kept, which only they run)
     T suv[Bd::NURBS ? CAP : 1][2];
+    T ts[Bd::SAG ? CAP : 1][Bd::FREE ? N_KEEP : 1];
+    // the Newton builds: a Newton surface's block of columns, this lane's
+    // values (add_*_cols with STAGE), for warp_cols_staged
+    T cv[Bd::SAG ? N_STAGE : 1];
     const int64_t stride = (int64_t)gridDim.x * blockDim.x;
     for (int64_t base = (int64_t)blockIdx.x * blockDim.x; base < R;
          base += stride) {
@@ -398,12 +405,13 @@ trace_bwd_kernel(const T* __restrict__ params, const T* __restrict__ aim,
                 npost, v[0], v[1], v[2], v[3], v[4], v[5], v[6], v[7],
                 nullptr, nullptr, suv[s]);
           else
-          n = step_fwd<T, true, Bd::TILT, Bd::SAG, Bd::FREE, Bd::DEEP, Bd::AUX>(
+          n = step_fwd<T, true, Bd::TILT, Bd::SAG, Bd::FREE, Bd::DEEP, Bd::AUX,
+                       true>(
               sf[s], refl, POLY ? 0 : sf[F_ABS * S + s], sf[F_TILT * S + s],
               sp + s * NUM_P, sr + s * N_ROT, scf + s * nc, lay_of(lay, s, nc),
               nc, niters,
               POLY ? n : npre[s], npost, v[0], v[1], v[2], v[3], v[4], v[5],
-              v[6], v[7]);
+              v[6], v[7], nullptr, nullptr, ts[s]);
         }
         n_last = n;
   #pragma unroll
@@ -439,31 +447,41 @@ trace_bwd_kernel(const T* __restrict__ params, const T* __restrict__ aim,
             nu_rec_none(idx);
         } else {
         if (valid)
-          step_adjoint<T, true, Bd::TILT, Bd::SAG, Bd::FREE, Bd::DEEP, Bd::AUX>(
+          step_adjoint_kept<T, true, Bd::TILT, Bd::SAG, Bd::FREE, Bd::DEEP,
+                            Bd::AUX>(
               sf[s], refl, POLY ? 0 : sf[F_ABS * S + s], sf[F_TILT * S + s],
               sp + s * NUM_P, sr + s * N_ROT, scf + s * nc, lay_of(lay, s, nc),
-              nc, niters, n_pre,
-              npost, st[s][0], st[s][1], st[s][2], st[s][3], st[s][4],
-              st[s][5], POLY ? T(0) : st[s][6], g, gc, gs);
+              nc, n_pre, npost, st[s][0], st[s][1], st[s][2], st[s][3],
+              st[s][4], st[s][5], POLY ? T(0) : st[s][6], g, gc, gs, ts[s]);
         }
         T g_np = T(0);  // POLY: the cotangent of npost, for the coefficients
         if constexpr (POLY) {
           g_np = gc[3];
           gc[3] = T(0);
         }
-  #pragma unroll
-        for (int j = 0; j < N_GF; ++j) {
-          const T v = warp_sum(gc[j]);
-          if (lane == 0) row[s * N_GF + j] += v;
-        }
         if constexpr (Bd::SAG) {
-          const int cb = S * N_GF + ssag[s] * Bd::block(nc);
-          if (Bd::FREE && is_cart_of<Bd::AUX>(sf[s]))
-            add_cart_cols_at<T, Bd::DEEP, Bd::AUX>(
+          // the slots, then the block's columns staged per lane, each
+          // summed by the butterfly (warp_cols_add)
+          T v16[16];
+#pragma unroll
+          for (int j = 0; j < 16; ++j) v16[j] = j < N_GF ? gc[j] : T(0);
+          warp_cols_add<T, 16>(v16, N_GF, lane, row + s * N_GF);
+          T* const cb = row + S * N_GF + ssag[s] * Bd::block(nc);
+          if (Bd::FREE && is_cart_of<Bd::AUX>(sf[s])) {
+            add_cart_cols_at<T, Bd::DEEP, Bd::AUX, true>(
                 sf[s], gs, lay_of(lay, s, nc), nc, sp[s * NUM_P + P_G1],
-                sp[s * NUM_P + P_G2], lane, row, cb);
-          else if (is_newton_of<Bd::AUX>(sf[s]))
-            add_coef_cols(gs, nc, lane, row, cb);
+                sp[s * NUM_P + P_G2], lane, cv, 0);
+            warp_cols_staged(cv, nc + 2, lane, cb);
+          } else if (is_newton_of<Bd::AUX>(sf[s])) {
+            add_coef_cols<T, true>(gs, nc, lane, cv, 0);
+            warp_cols_staged(cv, nc, lane, cb);
+          }
+        } else {
+  #pragma unroll
+          for (int j = 0; j < N_GF; ++j) {
+            const T v = warp_sum(gc[j]);
+            if (lane == 0) row[s * N_GF + j] += v;
+          }
         }
         if constexpr (GR)
           if (sf[F_GRAT * S + s])
@@ -501,12 +519,18 @@ trace_bwd_kernel(const T* __restrict__ params, const T* __restrict__ aim,
         if (lane == 0) row[0 * N_GF + 3] += v;
       }
       if constexpr (FIELD) {
-        const T ga[N_AIM] = {g[0], g[1], g[2], g[3], g[4], g[5], g[0] * Px,
-                             g[1] * Py};
+        if constexpr (Bd::SAG) {
+          T ga[N_AIM] = {g[0], g[1], g[2], g[3], g[4], g[5], g[0] * Px,
+                         g[1] * Py};
+          warp_cols_add<T, N_AIM>(ga, N_AIM, lane, row + xbase);
+        } else {
+          const T ga[N_AIM] = {g[0], g[1], g[2], g[3], g[4], g[5],
+                               g[0] * Px, g[1] * Py};
   #pragma unroll
-        for (int j = 0; j < N_AIM; ++j) {
-          const T v = warp_sum(ga[j]);
-          if (lane == 0) row[xbase + j] += v;
+          for (int j = 0; j < N_AIM; ++j) {
+            const T v = warp_sum(ga[j]);
+            if (lane == 0) row[xbase + j] += v;
+          }
         }
       } else if (valid) {
   #pragma unroll
@@ -613,7 +637,7 @@ int bwd_launch(const T* params, const T* aim, const T* mats, const int* flags,
   }
 }
 
-// Resident blocks per SM of the per-thread-sum backward (the stock and tilt
+// Resident blocks per SM of the backward (the stock, tilt and Newton
 // builds; NU: the nurbs build) of ``mode`` (0 generic, 1 field, 2 poly) at
 // ``block`` threads and ``dyn`` bytes (ops/launch.py: bwd_grid).
 template <typename T, bool NU = false>
@@ -633,7 +657,8 @@ int trace_bwd_occupancy(int mode, int build, int block, int64_t dyn,
   if constexpr (NU)
     return dispatch_in<B_NURBS>(build, body);
   else
-    return dispatch_in<B_STOCK, B_TILT>(build, body);
+    return dispatch_in<B_STOCK, B_TILT, B_SAG, B_FREE, B_DEEP, B_DEEP_FREE,
+                       B_AUX, B_DEEP_AUX>(build, body);
 }
 
 }  // namespace

@@ -176,6 +176,16 @@ merit_fwd_kernel(const T* __restrict__ params, const T* __restrict__ aim,
 // (ops/launch.py: bwd_shape) and a grid from the kernel's occupancy
 // (bwd_grid), fixed for a card, build, dtype and shape: two launches give
 // the same bits.
+//
+// The Newton builds (sag, free, aux and the deep ones) keep each Newton
+// surface's record from their forward sweep (step_fwd with KEEP), from
+// which step_adjoint_kept takes the one corrected step where the reverse
+// sweep used to solve again (on the H100 the re-solve was 20-40% of their
+// time, PERF.md §6); they sum each surface's slots, the aim entries and a
+// Newton surface's coefficient columns (staged per lane by add_*_cols with
+// STAGE) with a butterfly, K columns in K - 1 shuffles where K warp sums
+// took 5 K (warp_cols_add), into the per-warp rows, and take one wave of
+// blocks from their occupancy (bwd_grid).
 template <typename T, int B>
 __global__ void __launch_bounds__(BWD_BLOCK)
 merit_bwd_kernel(const T* __restrict__ params, const T* __restrict__ aim,
@@ -315,8 +325,15 @@ merit_bwd_kernel(const T* __restrict__ params, const T* __restrict__ aim,
 
     T st[CAP][6];
     // NURBS: each NURBS surface's stopped iterate (us, vs) from the forward
-    // sweep, from which the reverse step takes its corrected step
+    // sweep, from which the reverse step takes its corrected step; the
+    // Newton builds (SAG): each Newton surface's stopped iterate t_s, and in
+    // the Cartesian builds the rest of its record, N_KEEP values (step_fwd
+    // with KEEP and step_adjoint_kept, which only they run)
     T suv[Bd::NURBS ? CAP : 1][2];
+    T ts[Bd::SAG ? CAP : 1][Bd::FREE ? N_KEEP : 1];
+    // the Newton builds: a Newton surface's block of columns, this lane's
+    // values (add_*_cols with STAGE), for warp_cols_staged
+    T cv[Bd::SAG ? N_STAGE : 1];
     const int64_t stride = (int64_t)gridDim.x * blockDim.x;
     for (int64_t base = (int64_t)blockIdx.x * blockDim.x; base < R;
          base += stride) {
@@ -356,11 +373,13 @@ merit_bwd_kernel(const T* __restrict__ params, const T* __restrict__ aim,
                 sp[s * NUM_P + P_NPOST], x, y, z, L, M, N, unused_i,
                 unused_opd, nullptr, nullptr, suv[s]);
           else
-          step_fwd<T, false, Bd::TILT, Bd::SAG, Bd::FREE, Bd::DEEP, Bd::AUX>(
+          step_fwd<T, false, Bd::TILT, Bd::SAG, Bd::FREE, Bd::DEEP, Bd::AUX,
+                   true>(
               sf[s], sf[S + s], 0, sf[2 * S + s], sp + s * NUM_P,
               sr + s * N_ROT, scf + s * nc, lay_of(lay, s, nc), nc, niters,
               npre[s],
-              sp[s * NUM_P + P_NPOST], x, y, z, L, M, N, unused_i, unused_opd);
+              sp[s * NUM_P + P_NPOST], x, y, z, L, M, N, unused_i, unused_opd,
+              nullptr, nullptr, ts[s]);
         }
         g[0] = T(2) * scale * (x - xbar);
         g[1] = T(2) * scale * (y - ybar);
@@ -387,26 +406,36 @@ merit_bwd_kernel(const T* __restrict__ params, const T* __restrict__ aim,
             nu_rec_none(idx);
         } else {
         if (valid)
-          step_adjoint<T, false, Bd::TILT, Bd::SAG, Bd::FREE, Bd::DEEP, Bd::AUX>(
+          step_adjoint_kept<T, false, Bd::TILT, Bd::SAG, Bd::FREE, Bd::DEEP,
+                            Bd::AUX>(
               sf[s], sf[S + s], 0, sf[2 * S + s], sp + s * NUM_P,
-              sr + s * N_ROT, scf + s * nc, lay_of(lay, s, nc), nc, niters,
-              npre[s],
+              sr + s * N_ROT, scf + s * nc, lay_of(lay, s, nc), nc, npre[s],
               sp[s * NUM_P + P_NPOST], st[s][0], st[s][1], st[s][2], st[s][3],
-              st[s][4], st[s][5], T(0), g, g6, gs);
-        }
-  #pragma unroll
-        for (int j = 0; j < N_G; ++j) {
-          const T v = warp_sum(g6[j]);
-          if (lane == 0) row[s * N_G + j] += v;
+              st[s][4], st[s][5], T(0), g, g6, gs, ts[s]);
         }
         if constexpr (Bd::SAG) {
-          const int cb = S * N_G + ssag[s] * Bd::block(nc);
-          if (Bd::FREE && is_cart_of<Bd::AUX>(sf[s]))
-            add_cart_cols_at<T, Bd::DEEP, Bd::AUX>(
+          // the slots, then the block's columns staged per lane, each
+          // summed by the butterfly (warp_cols_add)
+          T v16[16];
+#pragma unroll
+          for (int j = 0; j < 16; ++j) v16[j] = j < N_G ? g6[j] : T(0);
+          warp_cols_add<T, 16>(v16, N_G, lane, row + s * N_G);
+          T* const cb = row + S * N_G + ssag[s] * Bd::block(nc);
+          if (Bd::FREE && is_cart_of<Bd::AUX>(sf[s])) {
+            add_cart_cols_at<T, Bd::DEEP, Bd::AUX, true>(
                 sf[s], gs, lay_of(lay, s, nc), nc, sp[s * NUM_P + P_G1],
-                sp[s * NUM_P + P_G2], lane, row, cb);
-          else if (is_newton_of<Bd::AUX>(sf[s]))
-            add_coef_cols(gs, nc, lane, row, cb);
+                sp[s * NUM_P + P_G2], lane, cv, 0);
+            warp_cols_staged(cv, nc + 2, lane, cb);
+          } else if (is_newton_of<Bd::AUX>(sf[s])) {
+            add_coef_cols<T, true>(gs, nc, lane, cv, 0);
+            warp_cols_staged(cv, nc, lane, cb);
+          }
+        } else {
+  #pragma unroll
+          for (int j = 0; j < N_G; ++j) {
+            const T v = warp_sum(g6[j]);
+            if (lane == 0) row[s * N_G + j] += v;
+          }
         }
         if constexpr (Bd::GRAT)
           if (sf[F_GRAT * S + s])
@@ -422,12 +451,18 @@ merit_bwd_kernel(const T* __restrict__ params, const T* __restrict__ aim,
         const T v = warp_sum(g[6]);
         if (lane == 0) row[0 * N_G + 3] += v;
       }
-      const T ga[N_AIM] = {g[0], g[1], g[2], g[3], g[4], g[5], g[0] * Px,
-                           g[1] * Py};
+      if constexpr (Bd::SAG) {
+        T ga[N_AIM] = {g[0], g[1], g[2], g[3], g[4], g[5], g[0] * Px,
+                       g[1] * Py};
+        warp_cols_add<T, N_AIM>(ga, N_AIM, lane, row + S * N_G + nsagc);
+      } else {
+        const T ga[N_AIM] = {g[0], g[1], g[2], g[3], g[4], g[5], g[0] * Px,
+                             g[1] * Py};
   #pragma unroll
-      for (int j = 0; j < N_AIM; ++j) {
-        const T v = warp_sum(ga[j]);
-        if (lane == 0) row[S * N_G + nsagc + j] += v;
+        for (int j = 0; j < N_AIM; ++j) {
+          const T v = warp_sum(ga[j]);
+          if (lane == 0) row[S * N_G + nsagc + j] += v;
+        }
       }
     }
     __syncthreads();
@@ -523,9 +558,9 @@ int merit_bwd_launch(const T* params, const T* aim, const T* stats,
   }
 }
 
-// Resident blocks per SM of the per-thread-sum merit backward (the stock
-// and tilt builds; NU: the nurbs build) at ``block`` threads and ``dyn``
-// bytes (ops/launch.py: bwd_grid).
+// Resident blocks per SM of the merit backward (the stock, tilt and Newton
+// builds; NU: the nurbs build) at ``block`` threads and ``dyn`` bytes
+// (ops/launch.py: bwd_grid).
 template <typename T, bool NU = false>
 int merit_bwd_occupancy(int build, int block, int64_t dyn, int* out) {
   const auto body = [&](auto b) {
@@ -535,7 +570,8 @@ int merit_bwd_occupancy(int build, int block, int64_t dyn, int* out) {
   if constexpr (NU)
     return dispatch_in<B_NURBS>(build, body);
   else
-    return dispatch_in<B_STOCK, B_TILT>(build, body);
+    return dispatch_in<B_STOCK, B_TILT, B_SAG, B_FREE, B_DEEP, B_DEEP_FREE,
+                       B_AUX, B_DEEP_AUX>(build, body);
 }
 
 }  // namespace

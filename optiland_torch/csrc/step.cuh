@@ -7,8 +7,11 @@
 // and what the kernels around the step share: the shared-memory table
 // loaders, the per-warp gradient rows of the backwards (in the stock and
 // tilt builds of merit_bwd and trace_bwd, per-thread sums: Build::PT,
-// store_pt_row, and their own step, step_fwd_pt and step_adjoint_pt), and
-// their fixed-order reduction kernel. The step is a
+// store_pt_row, and their own step, step_fwd_pt and step_adjoint_pt; in
+// their Newton builds, each Newton surface's record kept from the forward
+// sweep, step_fwd with KEEP and step_adjoint_kept, and the columns summed
+// by a butterfly, warp_cols_add), and their fixed-order reduction kernel.
+// The step is a
 // line-by-line transcription of
 // optiland_torch/ops/step.py (step_plain, step_adjoint_plain) and of the
 // sag terms of optiland_torch/core/geometry.py (sag_point, cart_point);
@@ -792,6 +795,23 @@ __device__ __forceinline__ T newton_t(int code, T R, T k, const T* cf, int nc,
   return t;
 }
 
+// newton_t with ``steps`` + 1 steps, the (steps)-th iterate, the stopped
+// one, written to ``ts`` (step_fwd with KEEP): one loop, so the sag's
+// evaluation is inlined once.
+template <typename T>
+__device__ __forceinline__ T newton_t_kept(int code, T R, T k, const T* cf,
+                                           int nc, int steps, T xl, T yl,
+                                           T zl, T L, T M, T N, T& ts) {
+  T t = dist_standard(R, k, xl, yl, zl, L, M, N);
+  if (!isfinite(t)) t = dist_plane(zl, N);
+  const T cu = T(1) / R;
+  for (int it = 0; it <= steps; ++it) {
+    if (it == steps) ts = t;
+    t = newton_step(code, cu, k, cf, nc, xl, yl, zl, L, M, N, t);
+  }
+  return t;
+}
+
 // ---------------------------------------------------------------------------
 // K6b, the Cartesian Newton families (geometry.py: cart_point, the basis
 // recurrences _basis_1d, the row sums _table_sums, coef_weights and
@@ -1505,6 +1525,44 @@ __device__ __forceinline__ T cart_newton_at(int code, T R, T k, T p1, T p2,
                                  yl, zl, L, M, N);
 }
 
+// The record a Cartesian Newton surface keeps from the Newton builds'
+// backward sweep (step_fwd with KEEP) for its reverse step: the stopped
+// iterate t_s, f and the clamped f' there, the slopes (sx, sy) there, and
+// the normal's slopes at the intersection (x1, y1); a radial surface keeps
+// t_s alone.
+constexpr int K_TS = 0, K_F = 1, K_FP = 2, K_SX = 3, K_SY = 4, K_NX = 5,
+              K_NY = 6, N_KEEP = 7;
+
+// cart_newton_at with ``steps`` + 1 steps, recording t_s, f, f', sx and sy
+// of the last step (at the (steps)-th iterate) in ``rec`` (CALL: the
+// evaluations out of line).
+template <typename T, bool CALL, bool AUX>
+__device__ __forceinline__ T cart_newton_kept_at(int code, T R, T k, T p1,
+                                                 T p2, const T* cf,
+                                                 const T* lay, int nc,
+                                                 int steps, T xl, T yl, T zl,
+                                                 T L, T M, T N, T* rec) {
+  T t = dist_standard(R, k, xl, yl, zl, L, M, N);
+  if (!isfinite(t)) t = dist_plane(zl, N);
+  for (int it = 0; it <= steps; ++it) {
+    CartPt<T> cp;
+    cart_point_at<T, false, false, CALL, AUX>(code, R, k, p1, p2, cf, lay,
+                                              nc, xl + t * L, yl + t * M, cp);
+    T fp = N - (cp.sx * L + cp.sy * M);
+    const T f = zl + t * N - cp.s;
+    fp = abs_(fp) > T(1e-14) ? fp : T(1e-14);
+    if (it == steps) {
+      rec[K_TS] = t;
+      rec[K_F] = f;
+      rec[K_FP] = fp;
+      rec[K_SX] = cp.sx;
+      rec[K_SY] = cp.sy;
+    }
+    t = t - f / fp;
+  }
+  return t;
+}
+
 // ---------------------------------------------------------------------------
 // K6c: grating diffraction (ops/step.py's grating branch, kernels.py's
 // grating_vector and grating_diffract)
@@ -1694,8 +1752,13 @@ __device__ __forceinline__ void grat_adjoint(
 // compiles in the radial Newton families, which read the surface's nc
 // coefficients ``cf`` and take ``niters`` steps, and the annular clip; CART
 // the Cartesian ones, which also read P_G1 and P_G2 (CALL: out of line).
+// KEEP (the Newton builds' backward sweeps): a Newton surface writes its
+// stopped iterate, the niters-th, to ``ts`` (a Cartesian one its record of
+// N_KEEP values: t_s, f, f' and the slopes there, the normal's slopes), the
+// same arithmetic as niters + 1 steps; step_adjoint_kept starts from the
+// record instead of solving again.
 template <typename T, bool FULL, bool TILT, bool SAG, bool CART = false,
-          bool CALL = false, bool AUX = false>
+          bool CALL = false, bool AUX = false, bool KEEP = false>
 __device__ __forceinline__ T step_fwd(int code, int refl, int absorbs,
                                       int tilted, const T* p, const T* rot,
                                       const T* cf, const T* lay, int nc,
@@ -1703,17 +1766,26 @@ __device__ __forceinline__ T step_fwd(int code, int refl, int absorbs,
                                       T n_pre, T npost, T& x, T& y, T& z,
                                       T& L, T& M, T& N, T& inten, T& opd,
                                       T* adot_out = nullptr,
-                                      T* kloc = nullptr) {
+                                      T* kloc = nullptr, T* ts = nullptr) {
   const T R = p[P_RADIUS], k = p[P_CONIC], pos = p[P_POS];
   T xl = x - p[P_DX], yl = y - p[P_DY], zl = z - pos;
   if (TILT && tilted) rot_local(rot, xl, yl, zl, L, M, N);
   T t;
-  if (SAG && is_radial(code))
-    t = newton_t(code, R, k, cf, nc, niters + 1, xl, yl, zl, L, M, N);
-  else if (CART && is_cart_of<AUX>(code))
-    t = cart_newton_at<T, CALL, AUX>(code, R, k, p[P_G1], p[P_G2], cf, lay, nc,
-                                niters + 1, xl, yl, zl, L, M, N);
-  else
+  if (SAG && is_radial(code)) {
+    if constexpr (KEEP)
+      t = newton_t_kept(code, R, k, cf, nc, niters, xl, yl, zl, L, M, N,
+                        *ts);
+    else
+      t = newton_t(code, R, k, cf, nc, niters + 1, xl, yl, zl, L, M, N);
+  } else if (CART && is_cart_of<AUX>(code)) {
+    if constexpr (KEEP)
+      t = cart_newton_kept_at<T, CALL, AUX>(code, R, k, p[P_G1], p[P_G2], cf,
+                                            lay, nc, niters, xl, yl, zl, L,
+                                            M, N, ts);
+    else
+      t = cart_newton_at<T, CALL, AUX>(code, R, k, p[P_G1], p[P_G2], cf, lay,
+                                       nc, niters + 1, xl, yl, zl, L, M, N);
+  } else
     t = code == STANDARD ? dist_standard(R, k, xl, yl, zl, L, M, N)
                          : dist_plane(zl, N);
   T x1 = xl + t * L, y1 = yl + t * M, z1 = zl + t * N;
@@ -1739,6 +1811,10 @@ __device__ __forceinline__ T step_fwd(int code, int refl, int absorbs,
     nx = cp.sx * im;
     ny = cp.sy * im;
     nz = -im;
+    if constexpr (KEEP) {
+      ts[K_NX] = cp.sx;
+      ts[K_NY] = cp.sy;
+    }
   } else if (SAG && is_radial(code)) {
     SagPt<T> sp;
     sag_point<T, false>(code, T(1) / R, k, cf, nc, x1 * x1 + y1 * y1, sp);
@@ -2062,6 +2138,434 @@ __device__ __forceinline__ void step_adjoint(int code, int refl, int absorbs,
     gM += gext[1];
     gN += gext[2];
     g_adot += gext[6];
+  }
+  gL += nxs * g_adot;
+  gM += nys * g_adot;
+  gN += nzs * g_adot;
+  g_nxs += L * g_adot;
+  g_nys += M * g_adot;
+  g_nzs += N * g_adot;
+
+  T g_k = T(0), g_cu = T(0);
+  // ---- normal ----
+  if (std_) {
+    const T g_nx = sgn * g_nxs, g_ny = sgn * g_nys, g_nz = sgn * g_nzs;
+    T g_fx = g_nx * im;
+    T g_fy = g_ny * im;
+    const T g_im = g_nx * fx + g_ny * fy - g_nz;
+    const T g_mg = T(-0.5) * g_im * im * im * im;
+    g_fx += T(2) * fx * g_mg;
+    g_fy += T(2) * fy * g_mg;
+    g_x1 += g_fx * invd;
+    g_y1 += g_fy * invd;
+    const T g_invd = g_fx * x1 + g_fy * y1;
+    g_cu += g_invd * rq;
+    const T g_qn = T(-0.5) * g_invd * cu * rq * rq * rq;
+    g_k -= g_qn * (cu * cu) * r2;
+    g_cu -= g_qn * (T(1) + k) * T(2) * cu * r2;
+    const T g_r2 = -g_qn * (T(1) + k) * (cu * cu);
+    g_x1 += T(2) * x1 * g_r2;
+    g_y1 += T(2) * y1 * g_r2;
+  }
+  T c_sag = T(0);
+  if (newton) {
+    // n = (x1 W1, y1 W1, -1) rsqrt(.), W1 = W(x1^2 + y1^2)
+    const T g_nx = sgn * g_nxs, g_ny = sgn * g_nys, g_nz = sgn * g_nzs;
+    T g_fx = g_nx * im;
+    T g_fy = g_ny * im;
+    const T g_im = g_nx * fx + g_ny * fy - g_nz;
+    const T g_mg = T(-0.5) * g_im * im * im * im;
+    g_fx += T(2) * fx * g_mg;
+    g_fy += T(2) * fy * g_mg;
+    g_x1 += g_fx * sp1.W;
+    g_y1 += g_fy * sp1.W;
+    const T g_W1 = g_fx * x1 + g_fy * y1;
+    const T g_r2 = g_W1 * sp1.Wr;
+    g_x1 += T(2) * x1 * g_r2;
+    g_y1 += T(2) * y1 * g_r2;
+    g_cu += g_W1 * sp1.W_cu;
+    g_k += g_W1 * sp1.W_k;
+    c_sag = g_W1 * sp1.beta;
+  }
+  // CART: the radius, p1 and p2 cotangents of the normal, and its
+  // coefficient weights
+  T g_Rd = T(0), g_p1 = T(0), g_p2 = T(0), w1[3] = {T(0), T(0), T(0)};
+  if (cart) {
+    // n = (fx, fy, -1) im, (fx, fy) the normal's slopes at (x1, y1)
+    const T g_nx = sgn * g_nxs, g_ny = sgn * g_nys, g_nz = sgn * g_nzs;
+    T g_fx = g_nx * im;
+    T g_fy = g_ny * im;
+    const T g_im = g_nx * fx + g_ny * fy - g_nz;
+    const T g_mg = T(-0.5) * g_im * im * im * im;
+    g_fx += T(2) * fx * g_mg;
+    g_fy += T(2) * fy * g_mg;
+    CartPt<T> cp;
+    cart_point_at<T, true, true, CALL, AUX>(code, R, k, p1, p2, cf, lay, nc,
+                                            x1, y1,
+                                       cp);
+    g_x1 += g_fx * cp.hxx + g_fy * cp.hyx;
+    g_y1 += g_fx * cp.hxy + g_fy * cp.hyy;
+    g_Rd = g_fx * cp.dR[1] + g_fy * cp.dR[2];
+    g_k += g_fx * cp.dk[1] + g_fy * cp.dk[2];
+    g_p1 = g_fx * cp.dp1[1] + g_fy * cp.dp1[2];
+    g_p2 = g_fx * cp.dp2[1] + g_fy * cp.dp2[2];
+    coef_weights<T, AUX>(code, cp, T(0) * g_fx, g_fx, g_fy, w1);
+  }
+
+  // ---- propagate ----
+  T g_xl = g_x1, g_yl = g_y1, g_zl = g_z1;
+  T g_t = g_x1 * L + g_y1 * M + g_z1 * N;
+  gL += g_x1 * t;
+  gM += g_y1 * t;
+  gN += g_z1 * t;
+
+  // ---- clip, absorption, OPD (FULL) ----
+  T g_i = T(0), g_kpre = T(0);
+  if constexpr (FULL) {
+    const T ap = p[P_APMAX];
+    g_i = x1 * x1 + y1 * y1 > ap * ap ? T(0) : g[7];
+    if constexpr (SAG) {
+      const T am = p[P_APMIN];
+      if (x1 * x1 + y1 * y1 < am * am) g_i = T(0);
+    }
+    if (absorbs) {
+      const T kpre = p[P_KPRE];
+      const T e = exp_(T(ABS) * kpre * t * T(1e3));
+      const T g_a = g_i * i_in * e;
+      g_t += g_a * (T(ABS) * kpre * T(1e3));
+      g_kpre = g_a * (T(ABS) * t * T(1e3));
+      g_i = g_i * e;
+    }
+    const T s_tn = sign_(t * n_pre);
+    g_t += g[8] * s_tn * n_pre;
+    g_npre += g[8] * s_tn * t;
+  }
+
+  // ---- intersect ----
+  T g_R;
+  if (std_) {
+    const bool ok1 = use1 && !a0;
+    const bool ok2 = !use1 && !q0;
+    const T g_q = ok1 ? g_t / a : (ok2 ? -g_t * t2 / q : T(0));
+    T g_a = ok1 ? -g_t * t1 / a : T(0);
+    T g_c = ok2 ? g_t / q : T(0);
+    T g_b = T(-0.5) * g_q;
+    const T g_sd = T(-0.5) * sg * g_q;
+    const T g_d = g_sd * T(0.5) / sd;
+    g_b += T(2) * b * g_d;
+    g_a -= T(4) * c * g_d;
+    g_c -= T(4) * a * g_d;
+    // a = cu A
+    g_cu += g_a * A;
+    const T g_A = g_a * cu;
+    g_k += g_A * (N * N);
+    gL += T(2) * L * g_A;
+    gM += T(2) * M * g_A;
+    gN += T(2) * N * (k + T(1)) * g_A;
+    // b = 2 (cu B - N)
+    g_cu += T(2) * g_b * Bq;
+    const T g_B = T(2) * g_b * cu;
+    gN -= T(2) * g_b;
+    g_k += g_B * N * zl;
+    gN += g_B * (k * zl + zl);
+    g_zl += g_B * (k * N + N);
+    gL += g_B * xl;
+    g_xl += g_B * L;
+    gM += g_B * yl;
+    g_yl += g_B * M;
+    // c = cu C - 2 zl
+    g_cu += g_c * Cq;
+    const T g_C = g_c * cu;
+    g_zl -= T(2) * g_c;
+    g_k += g_C * (zl * zl);
+    g_xl += T(2) * xl * g_C;
+    g_yl += T(2) * yl * g_C;
+    g_zl += T(2) * zl * (k + T(1)) * g_C;
+    g_R = -g_cu * (cu * cu);
+  } else if (newton) {
+    // t = t_s - f / f' at the stopped t_s: f = zl + t_s N - s(X, Y),
+    // f' = N - W (X L + Y M), X = xl + t_s L, Y = yl + t_s M
+    const T g_f = -g_t / fpN;
+    const T g_fp = okf ? g_t * fN / (fpN * fpN) : T(0);
+    g_zl += g_f;
+    gN += g_f * t_s + g_fp;
+    const T g_s = -g_f;
+    const T g_W = -g_fp * (Xs * L + Ys * M);
+    gL -= g_fp * sps.W * Xs;
+    gM -= g_fp * sps.W * Ys;
+    T g_X = -g_fp * sps.W * L;
+    T g_Y = -g_fp * sps.W * M;
+    const T g_r2 = g_s * sps.W * T(0.5) + g_W * sps.Wr;  // ds/dr2 = W / 2
+    g_X += T(2) * Xs * g_r2;
+    g_Y += T(2) * Ys * g_r2;
+    g_cu += g_s * sps.s_cu + g_W * sps.W_cu;
+    g_k += g_s * sps.s_k + g_W * sps.W_k;
+    g_xl += g_X;
+    g_yl += g_Y;
+    gL += g_X * t_s;
+    gM += g_Y * t_s;
+    g_R = -g_cu * (cu * cu);
+    gs[0] = g_s;
+    gs[1] = g_W * sps.beta;
+    gs[2] = c_sag;
+    gs[3] = sps.rho;
+    gs[4] = sp1.rho;
+  } else if (cart) {
+    // t = t_s - f / f' at the stopped t_s: f = zl + t_s N - s(X, Y),
+    // f' = N - (sx L + sy M), X = xl + t_s L, Y = yl + t_s M
+    const T g_f = -g_t / fpN;
+    const T g_fp = okf ? g_t * fN / (fpN * fpN) : T(0);
+    g_zl += g_f;
+    gN += g_f * t_s + g_fp;
+    const T g_s = -g_f;
+    const T g_sx = -g_fp * L;
+    const T g_sy = -g_fp * M;
+    gL -= g_fp * sxs;
+    gM -= g_fp * sys;
+    CartPt<T> cp;
+    cart_point_at<T, true, false, CALL, AUX>(code, R, k, p1, p2, cf, lay, nc,
+                                             Xs, Ys,
+                                        cp);
+    const T g_X = g_s * cp.sx + g_sx * cp.hxx + g_sy * cp.hyx;
+    const T g_Y = g_s * cp.sy + g_sx * cp.hxy + g_sy * cp.hyy;
+    g_R = g_Rd + g_s * cp.dR[0] + g_sx * cp.dR[1] + g_sy * cp.dR[2];
+    g_k += g_s * cp.dk[0] + g_sx * cp.dk[1] + g_sy * cp.dk[2];
+    g_p1 += g_s * cp.dp1[0] + g_sx * cp.dp1[1] + g_sy * cp.dp1[2];
+    g_p2 += g_s * cp.dp2[0] + g_sx * cp.dp2[1] + g_sy * cp.dp2[2];
+    coef_weights<T, AUX>(code, cp, g_s, g_sx, g_sy, gs);
+    // a parameter the family's sag does not read gets no cotangent
+    // (geometry.py: cart_reads)
+    if (code == TOROIDAL) g_k = T(0);
+    if (code == POLYNOMIAL_XY) g_p1 = g_p2 = T(0);
+    if (AUX && is_aux(code)) g_p2 = T(0);
+    g_xl += g_X;
+    g_yl += g_Y;
+    gL += g_X * t_s;
+    gM += g_Y * t_s;
+    gs[3] = Xs;
+    gs[4] = Ys;
+    gs[5] = w1[0];
+    gs[6] = w1[1];
+    gs[7] = w1[2];
+    gs[8] = x1;
+    gs[9] = y1;
+    gs[10] = g_p1;
+    gs[11] = g_p2;
+  } else {
+    g_zl -= g_t / Ns;
+    if (big) gN += g_t * zl / (Ns * Ns);
+    g_R = T(0);
+  }
+
+  // ---- tilts: through the rotations (tilted), or at zero, where each
+  // rotation's generator acts on the state ----
+  T gi[6] = {g_xl, g_yl, g_zl, gL, gM, gN};
+  if (TILT && tilted) {
+    rot_local_adjoint(rot, xl, yl, zl, L, M, N, gi, d_r);
+  } else {
+    d_r[0] = g_yl * zl - g_zl * yl + gM * N - gN * M - go[1] * z1 +
+             go[2] * y1 - go[4] * No + go[5] * Mo;
+    d_r[1] = -g_xl * zl + g_zl * xl - gL * N + gN * L + go[0] * z1 -
+             go[2] * x1 + go[3] * No - go[5] * Lo;
+    d_r[2] = g_xl * yl - g_yl * xl + gL * M - gM * L - go[0] * y1 +
+             go[1] * x1 - go[3] * Mo + go[4] * Lo;
+  }
+
+  // ---- localize ----
+  g_dx -= gi[0];
+  g_dy -= gi[1];
+  g_pos -= gi[2];
+#pragma unroll
+  for (int c2 = 0; c2 < 6; ++c2) g[c2] = gi[c2];
+  g[6] = g_npre;
+  gc[0] = g_R;
+  gc[1] = g_k;
+  gc[2] = g_pos;
+  gc[3] = g_npost;
+  gc[4] = g_dx;
+  gc[5] = g_dy;
+  gc[6] = d_r[0];
+  gc[7] = d_r[1];
+  gc[8] = d_r[2];
+  if constexpr (FULL) {
+    g[7] = g_i;  // g[8], the opd cotangent, passes through unchanged
+    gc[9] = g_kpre;
+  }
+}
+
+// step_adjoint of the Newton builds' merit_bwd and trace_bwd (step_fwd with
+// KEEP before it): a Newton surface starts from ``ts``, the record of its
+// forward sweep, instead of taking niters steps again (step.py:
+// step_adjoint_plain with ``t_s``; a Cartesian one also takes f, f' and the
+// slopes at t_s and the normal's slopes from it, where it evaluated its sag
+// again); no extras. A function of its own, as step_adjoint_grat: a flag in
+// step_adjoint, even one that if constexpr leaves out, moved pol_bwd's
+// machine code (PERF.md §6). A change to step_adjoint is made here too; the
+// Newton builds' parity checks against the shared plain step
+// (test_torch_cuda.py, chip_smoke.py phases 19, 21 and 23) catch the two
+// drifting apart.
+template <typename T, bool FULL, bool TILT, bool SAG, bool CART = false,
+          bool CALL = false, bool AUX = false>
+__device__ __forceinline__ void step_adjoint_kept(
+    int code, int refl, int absorbs, int tilted, const T* p, const T* rot,
+    const T* cf, const T* lay, int nc, T n_pre, T npost, T x, T y, T z, T L,
+    T M, T N, T i_in, T* g, T* gc, T* gs, const T* ts) {
+  const T R = p[P_RADIUS], k = p[P_CONIC], pos = p[P_POS];
+  const T dx = p[P_DX], dy = p[P_DY];
+  const bool std_ = code == STANDARD;
+  const bool newton = SAG && is_radial(code);
+  const bool cart = CART && is_cart_of<AUX>(code);
+  const T p1 = p[P_G1], p2 = p[P_G2];
+  const T g_nn = g[6];
+
+  // ---- recompute the forward intermediates (in the surface's frame) ----
+  T xl = x - dx, yl = y - dy, zl = z - pos;
+  if (TILT && tilted) rot_local(rot, xl, yl, zl, L, M, N);
+  T cu = T(0), A = T(0), a = T(0), Bq = T(0), b = T(0), Cq = T(0), c = T(0);
+  T sd = T(0), sg = T(0), q = T(0), t1 = T(0), t2 = T(0), t, Ns = T(1);
+  bool use1 = false, a0 = false, q0 = false, big = false;
+  if (std_) {
+    cu = T(1) / R;
+    A = k * (N * N) + L * L + M * M + N * N;
+    a = cu * A;
+    Bq = k * N * zl + L * xl + M * yl + N * zl;
+    b = T(2) * (cu * Bq - N);
+    Cq = k * (zl * zl) + xl * xl + yl * yl + zl * zl;
+    c = cu * Cq - T(2) * zl;
+    const T d = b * b - T(4) * a * c;
+    sd = d < T(0) ? nan_<T>() : sqrt_(d);
+    sg = b >= T(0) ? T(1) : T(-1);
+    q = T(-0.5) * (b + sg * sd);
+    a0 = a == T(0);
+    q0 = q == T(0);
+    t1 = a0 ? inf_<T>() : q / a;
+    t2 = q0 ? T(0) : c / q;
+    use1 = abs_(zl + t1 * N) <= abs_(zl + t2 * N);
+    t = use1 ? t1 : t2;
+  } else if (newton || cart) {
+    // the stopped iterate t_s, then the one step the gradient runs through
+    t = T(0);
+  } else {
+    big = abs_(N) > T(1e-14);
+    Ns = big ? N : T(1e-14);
+    t = -zl / Ns;
+  }
+  T t_s = T(0), Xs = T(0), Ys = T(0), fN = T(0), fpN = T(1);
+  bool okf = false;
+  SagPt<T> sps = {}, sp1 = {};
+  if (newton) {
+    cu = T(1) / R;
+    t_s = ts[K_TS];
+    Xs = xl + t_s * L;
+    Ys = yl + t_s * M;
+    sag_point<T, true>(code, cu, k, cf, nc, Xs * Xs + Ys * Ys, sps);
+    fN = zl + t_s * N - sps.s;
+    const T fp = N - sps.W * (Xs * L + Ys * M);
+    okf = abs_(fp) > T(1e-14);
+    fpN = okf ? fp : T(1e-14);
+    t = t_s - fN / fpN;
+  }
+  T sxs = T(0), sys = T(0);  // the slopes at the Newton point (CART)
+  if (cart) {
+    // the record of the forward sweep's last step: f' was clamped where
+    // |f'| <= 1e-14, to 1e-14 exactly
+    t_s = ts[K_TS];
+    Xs = xl + t_s * L;
+    Ys = yl + t_s * M;
+    fN = ts[K_F];
+    fpN = ts[K_FP];
+    okf = fpN != T(1e-14);
+    sxs = ts[K_SX];
+    sys = ts[K_SY];
+    t = t_s - fN / fpN;
+  }
+  const T x1 = xl + t * L, y1 = yl + t * M, z1 = zl + t * N;
+  T r2 = T(0), rq = T(0), invd = T(0), fx = T(0), fy = T(0), im = T(1);
+  T nx = T(0), ny = T(0), nz = T(-1);
+  if (std_) {
+    r2 = x1 * x1 + y1 * y1;
+    rq = rsqrt_(T(1) - (T(1) + k) * (cu * cu) * r2);
+    invd = cu * rq;
+    fx = x1 * invd;
+    fy = y1 * invd;
+    im = rsqrt_(fx * fx + fy * fy + T(1));
+    nx = fx * im;
+    ny = fy * im;
+    nz = -im;
+  } else if (newton) {
+    sag_point<T, true>(code, cu, k, cf, nc, x1 * x1 + y1 * y1, sp1);
+    fx = x1 * sp1.W;
+    fy = y1 * sp1.W;
+    im = rsqrt_(fx * fx + fy * fy + T(1));
+    nx = fx * im;
+    ny = fy * im;
+    nz = -im;
+  } else if (cart) {
+    // the normal's slopes (CHEBYSHEV: the reference's, and 1 / sqrt)
+    fx = ts[K_NX];
+    fy = ts[K_NY];
+    const T m2 = fx * fx + fy * fy + T(1);
+    im = code == CHEBYSHEV ? T(1) / sqrt_(m2) : rsqrt_(m2);
+    nx = fx * im;
+    ny = fy * im;
+    nz = -im;
+  }
+  const T dot = L * nx + M * ny + N * nz;
+  const T sgn = sign_(dot);
+  const T nxs = nx * sgn, nys = ny * sgn, nzs = nz * sgn;
+  const T adot = abs_(dot);
+
+  // the local post-interaction directions
+  T Lo, Mo, No, u = T(0), root = T(1), w = T(0);
+  if (refl) {
+    Lo = L - T(2) * adot * nxs;
+    Mo = M - T(2) * adot * nys;
+    No = N - T(2) * adot * nzs;
+  } else {
+    u = n_pre / npost;
+    root = sqrt_(T(1) - u * u * (T(1) - adot * adot));
+    w = root - u * adot;
+    Lo = u * L + nxs * w;
+    Mo = u * M + nys * w;
+    No = u * N + nzs * w;
+  }
+
+  // ---- globalize: rotate back (tilted), then translate ----
+  T go[6] = {g[0], g[1], g[2], g[3], g[4], g[5]};
+  T d_r[3] = {T(0), T(0), T(0)};
+  if (TILT && tilted)
+    rot_global_adjoint(rot, x1, y1, z1, Lo, Mo, No, go, d_r);
+  T g_dx = g[0], g_dy = g[1], g_pos = g[2];
+  T g_x1 = go[0], g_y1 = go[1], g_z1 = go[2];
+  // cotangents of the local post-interaction directions
+  const T gLi = go[3], gMi = go[4], gNi = go[5];
+
+  // ---- interact ----
+  T gL, gM, gN, g_nxs, g_nys, g_nzs, g_adot, g_npre, g_npost;
+  if (refl) {
+    gL = gLi;
+    gM = gMi;
+    gN = gNi;
+    g_nxs = T(-2) * adot * gLi;
+    g_nys = T(-2) * adot * gMi;
+    g_nzs = T(-2) * adot * gNi;
+    g_adot = T(-2) * (nxs * gLi + nys * gMi + nzs * gNi);
+    g_npre = g_nn;
+    g_npost = T(0);
+  } else {
+    gL = u * gLi;
+    gM = u * gMi;
+    gN = u * gNi;
+    g_nxs = w * gLi;
+    g_nys = w * gMi;
+    g_nzs = w * gNi;
+    const T g_w = nxs * gLi + nys * gMi + nzs * gNi;
+    T g_u = L * gLi + M * gMi + N * gNi - adot * g_w;
+    g_adot = -u * g_w;
+    g_u = g_u - g_w * u * (T(1) - adot * adot) / root;
+    g_adot = g_adot + g_w * u * u * adot / root;
+    g_npre = g_u / npost;
+    g_npost = g_nn - g_u * u / npost;
   }
   gL += nxs * g_adot;
   gM += nys * g_adot;
@@ -3082,8 +3586,10 @@ __device__ __forceinline__ T* acc_rows(T* acc_static) {
 
 // Expand a Newton surface's five coefficient scalars gs (step_adjoint) into
 // its nc columns, warp sums in column order, added by lane 0 to the warp's
-// row ``row`` from column ``base``.
-template <typename T>
+// row ``row`` from column ``base``. STAGE (the Newton builds' K3/K4/K5b):
+// this lane's values are written to ``row`` from ``base`` instead, for
+// warp_cols_staged.
+template <typename T, bool STAGE = false>
 __device__ __forceinline__ void add_coef_cols(const T* gs, int nc, int lane,
                                               T* row, int base) {
   T ps = T(1), p1 = T(1);
@@ -3091,8 +3597,12 @@ __device__ __forceinline__ void add_coef_cols(const T* gs, int nc, int lane,
     T v = gs[0] * ps * gs[3] + T(j + 1) * (gs[1] * ps + gs[2] * p1);
     ps *= gs[3];
     p1 *= gs[4];
-    v = warp_sum(v);
-    if (lane == 0) row[base + j] += v;
+    if constexpr (STAGE) {
+      row[base + j] = v;
+    } else {
+      v = warp_sum(v);
+      if (lane == 0) row[base + j] += v;
+    }
   }
 }
 
@@ -3106,8 +3616,8 @@ __device__ __forceinline__ void add_coef_cols(const T* gs, int nc, int lane,
 // the normal's point) into its nc slot columns (geometry.py: coef_columns):
 // slot j takes a psi_j + b d psi_j/dx + c d psi_j/dy at each point, warp
 // sums in column order, added by lane 0 to ``row`` from column ``base``.
-// Out of line, as aux_point_call.
-template <typename T>
+// Out of line, as aux_point_call. STAGE as add_coef_cols'.
+template <typename T, bool STAGE = false>
 __device__ __noinline__ void add_aux_cols(int code, const T* gs, const T* lay,
                                           int nc, T p1, int lane, T* row,
                                           int base) {
@@ -3127,17 +3637,22 @@ __device__ __noinline__ void add_aux_cols(int code, const T* gs, const T* lay,
     v = v + (gs[5] * (s1.A[0] * s1.F[0]) +
              gs[6] * (s1.A[1] * s1.F[0] + s1.A[0] * s1.F[1] * vx1) +
              gs[7] * (s1.A[2] * s1.F[0] + s1.A[0] * s1.F[1] * vy1));
-    v = warp_sum(v);
-    if (lane == 0) row[base + j] += v;
+    if constexpr (STAGE) {
+      row[base + j] = v;
+    } else {
+      v = warp_sum(v);
+      if (lane == 0) row[base + j] += v;
+    }
   }
 }
-template <typename T, bool AUX = false>
+// STAGE as add_coef_cols'.
+template <typename T, bool AUX = false, bool STAGE = false>
 __device__ __forceinline__ void add_cart_cols(int code, const T* gs,
                                               const T* lay, int nc, T p1,
                                               T p2, int lane, T* row,
                                               int base) {
   if (AUX && is_aux(code)) {
-    add_aux_cols(code, gs, lay, nc, p1, lane, row, base);
+    add_aux_cols<T, STAGE>(code, gs, lay, nc, p1, lane, row, base);
   } else if (code == TOROIDAL) {
     T pw_s = gs[4], pw_1 = gs[9];
     for (int i = 0; i < nc; ++i) {
@@ -3145,8 +3660,12 @@ __device__ __forceinline__ void add_cart_cols(int code, const T* gs,
       v = v + (gs[5] * pw_1 * gs[9] + gs[6] * T(2 * i + 2) * pw_1);
       pw_s = pw_s * (gs[4] * gs[4]);
       pw_1 = pw_1 * (gs[9] * gs[9]);
-      v = warp_sum(v);
-      if (lane == 0) row[base + i] += v;
+      if constexpr (STAGE) {
+        row[base + i] = v;
+      } else {
+        v = warp_sum(v);
+        if (lane == 0) row[base + i] += v;
+      }
     }
   } else if (code != BICONIC) {
     const int side = table_side(nc);
@@ -3170,51 +3689,122 @@ __device__ __forceinline__ void add_cart_cols(int code, const T* gs,
               gs[2] * (bxs.f() * bys.f1());
         v = v + (gs[5] * (bx1.f() * by1.f()) + gs[6] * (dx1 * by1.f()) +
                  gs[7] * (bx1.f() * dy1));
-        v = warp_sum(v);
-        if (lane == 0) row[base + i * side + j] += v;
+        if constexpr (STAGE) {
+          row[base + i * side + j] = v;
+        } else {
+          v = warp_sum(v);
+          if (lane == 0) row[base + i * side + j] += v;
+        }
         bys.next();
         by1.next();
       }
       bxs.next();
       bx1.next();
     }
+  } else if constexpr (STAGE) {
+    // BICONIC reads no coefficient: its staged columns are zero
+    for (int j = 0; j < nc; ++j) row[base + j] = T(0);
   }
-  const T v1 = warp_sum(gs[10]);
-  const T v2 = warp_sum(gs[11]);
-  if (lane == 0) {
-    row[base + nc] += v1;
-    row[base + nc + 1] += v2;
+  if constexpr (STAGE) {
+    row[base + nc] = gs[10];
+    row[base + nc + 1] = gs[11];
+  } else {
+    const T v1 = warp_sum(gs[10]);
+    const T v2 = warp_sum(gs[11]);
+    if (lane == 0) {
+      row[base + nc] += v1;
+      row[base + nc + 1] += v2;
+    }
   }
 }
 
 // add_cart_cols out of line (the deep builds, see cart_point_call).
-template <typename T>
+template <typename T, bool STAGE = false>
 __device__ __noinline__ void add_cart_cols_call(int code, const T* gs, int nc,
                                                 T p1, T p2, int lane, T* row,
                                                 int base) {
-  add_cart_cols<T>(code, gs, nullptr, nc, p1, p2, lane, row, base);
+  add_cart_cols<T, false, STAGE>(code, gs, nullptr, nc, p1, p2, lane, row,
+                                 base);
 }
-template <typename T>
+template <typename T, bool STAGE = false>
 __device__ __noinline__ void add_cart_cols_aux_call(int code, const T* gs,
                                                     const T* lay, int nc,
                                                     T p1, T p2, int lane,
                                                     T* row, int base) {
-  add_cart_cols<T, true>(code, gs, lay, nc, p1, p2, lane, row, base);
+  add_cart_cols<T, true, STAGE>(code, gs, lay, nc, p1, p2, lane, row, base);
 }
 
 // add_cart_cols, in line or (CALL) out of line.
-template <typename T, bool CALL, bool AUX>
+template <typename T, bool CALL, bool AUX, bool STAGE = false>
 __device__ __forceinline__ void add_cart_cols_at(int code, const T* gs,
                                                  const T* lay, int nc, T p1,
                                                  T p2, int lane, T* row,
                                                  int base) {
   if constexpr (CALL && AUX)
-    add_cart_cols_aux_call(code, gs, lay, nc, p1, p2, lane, row, base);
+    add_cart_cols_aux_call<T, STAGE>(code, gs, lay, nc, p1, p2, lane, row,
+                                     base);
   else if constexpr (CALL)
-    add_cart_cols_call(code, gs, nc, p1, p2, lane, row, base);
+    add_cart_cols_call<T, STAGE>(code, gs, nc, p1, p2, lane, row, base);
   else
-    add_cart_cols<T, AUX>(code, gs, lay, nc, p1, p2, lane, row, base);
+    add_cart_cols<T, AUX, STAGE>(code, gs, lay, nc, p1, p2, lane, row, base);
 }
+
+// The Newton builds' column sums (merit_bwd and trace_bwd with KEEP): K
+// values of each lane (K a power of 2 up to 32) summed over the warp by a
+// reduce-scatter butterfly, K - 1 shuffles where K warp_sums take 5 K: at
+// each step a lane keeps half of its values, sends the other half to the
+// lane d apart and adds what that lane sends, then the steps left add the
+// one value. Lane l ends with the sum of value l / (32 / K), in an order
+// fixed for every launch, and the first lane of each group of 32 / K adds
+// it to row[c] for c < n: one shared-memory add per column, the columns'
+// lanes in parallel, where warp_sum's lane 0 adds them one by one.
+// One step of warp_cols_add's butterfly with H of its values kept, the
+// lane 32 H / K apart its partner, then the steps after it; H a template
+// constant, so every index into ``v`` is one and ``v`` stays in registers.
+template <int H, typename T, int K>
+__device__ __forceinline__ void warp_cols_steps(T (&v)[K], int lane) {
+  if constexpr (H >= 1) {
+    constexpr int D = 32 * H / K;
+    const bool hi = lane & D;
+#pragma unroll
+    for (int i = 0; i < H; ++i) {
+      const T send = hi ? v[i] : v[i + H];
+      const T keep = hi ? v[i + H] : v[i];
+      v[i] = keep + __shfl_xor_sync(0xffffffffu, send, D);
+    }
+    warp_cols_steps<H / 2>(v, lane);
+  } else {
+#pragma unroll
+    for (int d = 16 / K; d >= 1; d /= 2)
+      v[0] += __shfl_xor_sync(0xffffffffu, v[0], d);
+  }
+}
+
+template <typename T, int K>
+__device__ __forceinline__ void warp_cols_add(T (&v)[K], int n, int lane,
+                                              T* row) {
+  static_assert(K >= 1 && K <= 32 && (K & (K - 1)) == 0,
+                "K must be a power of 2 up to 32");
+  warp_cols_steps<K / 2>(v, lane);
+  constexpr int G = 32 / K;  // the lanes that end with one column's sum
+  if (lane % G == 0 && lane / G < n) row[lane / G] += v[0];
+}
+
+// warp_cols_add of the n values staged in ``cv`` (add_*_cols with STAGE),
+// 16 columns at a time; ``cv`` holds a multiple of 16 values.
+template <typename T>
+__device__ __forceinline__ void warp_cols_staged(const T* cv, int n, int lane,
+                                                 T* row) {
+  for (int g = 0; g < n; g += 16) {
+    T v[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) v[i] = g + i < n ? cv[g + i] : T(0);
+    warp_cols_add<T, 16>(v, n - g, lane, row + g);
+  }
+}
+// the staging array of a Newton surface's block: Build::block(NC_MAX)
+// values, rounded up to 16
+constexpr int N_STAGE = (NC_MAX + 2 + 15) / 16 * 16;
 
 // The block's partial row of the summed gradients: the sum of the nw
 // per-warp rows of acc (``stride`` apart), in warp order.

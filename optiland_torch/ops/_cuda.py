@@ -138,9 +138,9 @@ def _build() -> str:
     outs = [f"{obj}.log" for obj in objs]
     t0 = time.perf_counter()
     procs = []
-    for src, obj, out in zip(sources, objs, outs):
+    for src, obj, log in zip(sources, objs, outs):
         cmd = [nvcc, *NVCC_FLAGS, "-c", src, "-o", obj]
-        with open(out, "w") as f:
+        with open(log, "w") as f:
             procs.append((cmd, subprocess.Popen(cmd, stdout=f,
                                                 stderr=subprocess.STDOUT)))
     # each source's wall seconds, from the common start
@@ -151,10 +151,10 @@ def _build() -> str:
                 secs[k] = time.perf_counter() - t0
         time.sleep(0.05)
     logs, failed = [], []
-    for (cmd, proc), out, src, sec in zip(procs, outs, sources, secs):
-        with open(out) as f:
+    for (cmd, proc), log, src, sec in zip(procs, outs, sources, secs):
+        with open(log) as f:
             logs.append(f.read())
-        os.remove(out)
+        os.remove(log)
         logs.append(f"nvcc {os.path.basename(src)}: {sec:.1f} s\n")
         if proc.returncode != 0:
             failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}")

@@ -212,8 +212,9 @@ def _n_of(spec, mats, s, w):
 
 def _chain_plain(params, spec, st, keep=False, mats=None, w=None,
                  coeffs=None, lay=None):
-    """Final state of the full chain; with ``keep`` also the per-surface
-    input states and n_pre that the adjoint replays. With the per-ray
+    """Final state of the full chain; with ``keep`` also, per surface, the
+    input state, n_pre and a Newton family's stopped iterate (None for the
+    others) that the adjoint replays. With the per-ray
     wavelengths ``w`` (and the coefficient rows ``mats``) the chain is
     polychromatic: every index comes from its formula and nothing
     absorbs. ``coeffs`` is the geometry coefficient table, ``lay`` the
@@ -224,14 +225,16 @@ def _chain_plain(params, spec, st, keep=False, mats=None, w=None,
     n_pre = _n_of(spec, mats, 0, w) if poly else params[0, P_NPOST]
     states = []
     for s in range(1, len(codes)):
-        if keep:
-            states.append((st, n_pre))
+        st_in, n_in = st, n_pre
         n_post = _n_of(spec, mats, s, w) if poly and not refl[s] else None
-        st, n_pre = step_plain(codes[s], refl[s], params[s], n_pre, st,
-                               absorbs[s] and not poly, n_post=n_post,
-                               c=coef_row(coeffs, s), newton_iters=niters,
-                               inner=inner[s], lay=lay_row(lay, codes[s], s),
-                               grating=grat[s])
+        st, n_pre, ext = step_plain(codes[s], refl[s], params[s], n_pre, st,
+                                    absorbs[s] and not poly, extras=True,
+                                    n_post=n_post, c=coef_row(coeffs, s),
+                                    newton_iters=niters, inner=inner[s],
+                                    lay=lay_row(lay, codes[s], s),
+                                    grating=grat[s])
+        if keep:
+            states.append((st_in, n_in, ext[7]))
     return (st, states) if keep else st
 
 
@@ -282,13 +285,13 @@ def _sweep_plain(params, spec, st0, cots, mats=None, w=None, coeffs=None,
                     dmats[s, j] = (g_n * d).sum()
 
         for s in range(S - 1, 0, -1):
-            st, n_pre = states[s - 1]
+            st, n_pre, t_s = states[s - 1]
             n_post = _n_of(spec, mats, s, w) if poly and not refl[s] else None
             g_in, g_npre, cols = step_adjoint_plain(
                 codes[s], refl[s], params[s], n_pre, st, g,
                 absorbs[s] and not poly, tilted=tilted[s], n_post=n_post,
                 c=coef_row(coeffs, s), newton_iters=niters, inner=inner[s],
-                lay=lay_row(lay, codes[s], s), grating=grat[s],
+                lay=lay_row(lay, codes[s], s), grating=grat[s], t_s=t_s,
             )
             pairs, coef = split_cols(codes[s], cols, FULL_GRAD_COLS, nc,
                                      grat[s])

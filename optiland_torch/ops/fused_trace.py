@@ -348,8 +348,9 @@ def coef_row(coeffs, s):
 
 def trace_xy_plain(params, aim, spec, Px, Py, keep=False, coeffs=None,
                    lay=None):
-    """Final (x, y) of every ray; with ``keep`` also the per-surface input
-    states (x, y, z, L, M, N, n_pre) that the adjoint replays. ``coeffs``
+    """Final (x, y) of every ray; with ``keep`` also, per surface, the
+    input state (x, y, z, L, M, N), n_pre and a Newton family's stopped
+    iterate (None for the others) that the adjoint replays. ``coeffs``
     is the (S, nc) coefficient table the Newton families read, ``lay``
     the layout table of its aux-bearing rows (``launch.kernel_tables``)."""
     codes, refl, _, grat, niters = spec
@@ -357,11 +358,14 @@ def trace_xy_plain(params, aim, spec, Px, Py, keep=False, coeffs=None,
     n_pre = params[0, P_NPOST]
     states = []
     for s in range(1, len(codes)):
+        st_in, n_in = st, n_pre
+        st, n_pre, ext = step_plain(codes[s], refl[s], params[s], n_pre, st,
+                                    extras=True, c=coef_row(coeffs, s),
+                                    newton_iters=niters,
+                                    lay=lay_row(lay, codes[s], s),
+                                    grating=grat[s])
         if keep:
-            states.append((st, n_pre))
-        st, n_pre = step_plain(codes[s], refl[s], params[s], n_pre, st,
-                               c=coef_row(coeffs, s), newton_iters=niters,
-                               lay=lay_row(lay, codes[s], s), grating=grat[s])
+            states.append((st_in, n_in, ext[7]))
     return (st[0], st[1], states) if keep else (st[0], st[1])
 
 
@@ -455,11 +459,11 @@ def merit_bwd_plain(params, aim, stats, spec, nc, R, seed=0, offset=0,
         dparams = torch.zeros((S, NUM_P), dtype=params.dtype,
                               device=params.device)
         for s in range(S - 1, 0, -1):
-            st, n_pre = states[s - 1]
+            st, n_pre, t_s = states[s - 1]
             g_in, g_npre, g6 = step_adjoint_plain(
                 codes[s], refl[s], params[s], n_pre, st, g, tilted=tilted[s],
                 c=coef_row(coeffs, s), newton_iters=niters,
-                lay=lay_row(lay, codes[s], s), grating=grat[s],
+                lay=lay_row(lay, codes[s], s), grating=grat[s], t_s=t_s,
             )
             pairs, coef = split_cols(codes[s], g6, GRAD_COLS, nc, grat[s])
             for col, v in pairs:

@@ -75,8 +75,8 @@ A_X0, A_Y0, A_Z0, A_L, A_M, A_N, A_SX, A_SY = range(N_AIM)
 # Launch shapes of the kernels (csrc/step.cuh holds the same values).
 FWD_BLOCK = 256  # rays per forward block
 BWD_BLOCK = 128
-# fixed grid of the backwards' grid-stride loop, but in the stock, tilt and
-# nurbs builds of merit_bwd and trace_bwd (bwd_grid)
+# fixed grid of the backwards' grid-stride loop, but in the stock, tilt,
+# Newton and nurbs builds of merit_bwd and trace_bwd (bwd_grid)
 BWD_MAX_BLOCKS = 1056
 # shared memory a block may hold on sm_90 (227 KB), and what the stock,
 # tilt and nurbs builds of merit_bwd and trace_bwd leave of it to their
@@ -498,9 +498,9 @@ def bwd_shape(S, nm, mode, dtype, block=BWD_BLOCK):
 
 @functools.lru_cache(maxsize=None)
 def _resident(name, dtype, build, mode, block, dyn, device):
-    """Resident blocks per SM of backward ``name`` (a per-thread-sum or
-    the nurbs build) at ``block`` threads and ``dyn`` bytes, from the
-    occupancy calculator, and the card's SM count."""
+    """Resident blocks per SM of backward ``name`` (a per-thread-sum,
+    Newton or nurbs build) at ``block`` threads and ``dyn`` bytes, from
+    the occupancy calculator, and the card's SM count."""
     import ctypes
 
     from optiland_torch.ops import _cuda
@@ -536,20 +536,34 @@ def nurbs_shape(S, nc, ncomp, dtype, block=BWD_BLOCK):
     return block, need
 
 
+def newton_bwd_bytes(block, ncomp, build, dtype):
+    """Dynamic shared memory of a Newton build's backward of ``block``
+    threads (csrc/step.cuh: Build::DYN, dyn_bytes): its per-warp rows of
+    ncomp columns where they are dynamic (the Cartesian and deep builds),
+    none in the sag build, whose rows are static."""
+    if not build & (BIT_CART | BIT_DEEP):
+        return 0
+    return block // 32 * ncomp * (torch.finfo(dtype).bits // 8)
+
+
 def bwd_grid(name, mode, S, nm, dtype, build, R, device, block=BWD_BLOCK,
              nc=0, ncomp=0):
     """(block, blocks, dynamic bytes) of backward ``name`` (merit_bwd or
     trace_bwd, ``mode`` as bwd_shape's) launched for R rays on ``device``:
     in the per-thread-sum builds the block of ``bwd_shape``, in the nurbs
     build that of ``nurbs_shape`` (nc net columns per surface, ncomp
-    columns of the partial rows), each with one wave of blocks (the
-    resident blocks per SM times the SMs, no more than the rays need),
-    fixed for a card, build, dtype and shape, so that two launches give
-    the same bits; in the other builds ``block`` and the grid of
-    BWD_MAX_BLOCKS x BWD_BLOCK threads, whose per-warp rows size their
-    shared memory themselves."""
+    columns of the partial rows), in the Newton builds (sag, free, aux
+    and the deep ones) ``block`` with the bytes of its per-warp rows
+    (``newton_bwd_bytes``), each with one wave of blocks (the resident
+    blocks per SM times the SMs, no more than the rays need), fixed for a
+    card, build, dtype and shape, so that two launches give the same
+    bits; in the grating build ``block`` and the grid of BWD_MAX_BLOCKS x
+    BWD_BLOCK threads, whose per-warp rows size their shared memory
+    themselves."""
     if build == NURBS:
         block, dyn = nurbs_shape(S, nc, ncomp, dtype, block)
+    elif build & BIT_SAG:
+        dyn = newton_bwd_bytes(block, ncomp, build, dtype)
     elif not per_thread(build):
         nb = min(-(-R // block), BWD_MAX_BLOCKS * (BWD_BLOCK // block))
         return block, max(1, nb), 0

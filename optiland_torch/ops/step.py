@@ -367,9 +367,11 @@ def step_plain(code, refl, p, n_pre, st, absorbs=False, extras=False,
                n_post=None, c=None, newton_iters=10, inner=False, lay=None,
                grating=False):
     """One surface step on per-ray tensors; returns (state, n_next), and
-    with ``extras`` also (L0, M0, N0, L1, M1, N1, adot): the local-frame
-    pre- and post-interaction directions and |cos| of the angle of
-    incidence.
+    with ``extras`` also (L0, M0, N0, L1, M1, N1, adot, t_s): the
+    local-frame pre- and post-interaction directions, |cos| of the angle of
+    incidence, and a Newton family's stopped iterate (None for the other
+    families), from which ``step_adjoint_plain`` may start its reverse
+    step.
 
     ``st`` is (x, y, z, L, M, N), or (x, y, z, L, M, N, i, opd) for the full
     step; ``absorbs`` (full step only) applies the Beer-Lambert factor of
@@ -393,14 +395,15 @@ def step_plain(code, refl, p, n_pre, st, absorbs=False, extras=False,
     zl = z - pos
     x, y, zl, L, M, N = _rot_local(x, y, zl, L, M, N, *rot)
     p1, p2 = p[P_G1], p[P_G2]
+    t_s = None
     if code == geom.NURBS:
         # the two-plane solve gives the normal too (``lay``: the net)
         t, nrm = nurbs.intersect(c, lay, x, y, zl, L, M, N,
                                  iters=newton_iters)
     else:
-        t = geom.distance_static(code, radius, conic, x, y, zl, L, M, N,
-                                 coeffs=c, newton_iters=newton_iters, p1=p1,
-                                 p2=p2, lay=lay)
+        t, t_s = geom.distance_static(code, radius, conic, x, y, zl, L, M, N,
+                                      coeffs=c, newton_iters=newton_iters,
+                                      p1=p1, p2=p2, lay=lay, stopped=True)
     x = x + t * L
     y = y + t * M
     zl = zl + t * N
@@ -452,7 +455,7 @@ def step_plain(code, refl, p, n_pre, st, absorbs=False, extras=False,
         M = u * M + ny * (root - u * adot)
         N = u * N + nz * (root - u * adot)
         n_next = n_post
-    ext = k0 + (L, M, N, adot)
+    ext = k0 + (L, M, N, adot, t_s)
     x, y, zl, L, M, N = _rot_global(x, y, zl, L, M, N, *rot)
     x = x + p[P_DX]
     y = y + p[P_DY]
@@ -463,7 +466,7 @@ def step_plain(code, refl, p, n_pre, st, absorbs=False, extras=False,
 def step_adjoint_plain(code, refl, p, n_pre, st, g, absorbs=False,
                        g_ext=None, tilted=False, n_post=None, c=None,
                        newton_iters=10, inner=False, lay=None,
-                       grating=False):
+                       grating=False, t_s=None):
     """Reverse sweep through one surface step.
 
     ``st`` is the step's input state, ``g`` the cotangents of its outputs:
@@ -482,8 +485,11 @@ def step_adjoint_plain(code, refl, p, n_pre, st, g, absorbs=False,
     family the param columns are followed by the cotangents of the
     coefficient row ``c`` (one per coefficient), for a Cartesian one then
     by those of P_G1 and P_G2, and for a ``grating`` by those of P_G1 and
-    P_G2 (``split_cols`` takes them apart). The CUDA kernels' reverse step
-    is a line-by-line transcription of this one."""
+    P_G2 (``split_cols`` takes them apart). ``t_s``, when given, is a
+    Newton family's stopped iterate from ``step_plain``'s extras, which the
+    reverse step starts from instead of solving again (the Newton builds'
+    backwards keep it from their forward sweep). The CUDA kernels' reverse
+    step is a line-by-line transcription of this one."""
     full = len(g) == 9
     x, y, z, L, M, N = st[:6]
     gx, gy, gz, gL_o, gM_o, gN_o, g_nn = g[:7]
@@ -525,9 +531,9 @@ def step_adjoint_plain(code, refl, p, n_pre, st, g, absorbs=False,
     elif newton:
         # the stopped iterate t_s, then the one step through which the
         # gradient runs
-        t_s = geom.newton_start(R, k, xl, yl, zl, L, M, N)
-        for _ in range(newton_iters):
-            t_s = geom.newton_step(code, R, k, c, xl, yl, zl, L, M, N, t_s)
+        if t_s is None:
+            t_s = geom.newton_stopped(code, R, k, c, xl, yl, zl, L, M, N,
+                                      newton_iters)
         cu = 1.0 / R
         Xs, Ys = xl + t_s * L, yl + t_s * M
         (s_s, W_s, Wr_s, scu_s, sk_s, Wcu_s, Wk_s, rho_s,
@@ -540,10 +546,9 @@ def step_adjoint_plain(code, refl, p, n_pre, st, g, absorbs=False,
     elif cart:
         # the stopped iterate, then the one step through which the gradient
         # runs: f' = N - (sx L + sy M) at (Xs, Ys)
-        t_s = geom.newton_start(R, k, xl, yl, zl, L, M, N)
-        for _ in range(newton_iters):
-            t_s = geom.newton_step(code, R, k, c, xl, yl, zl, L, M, N, t_s,
-                                   p1, p2, lay)
+        if t_s is None:
+            t_s = geom.newton_stopped(code, R, k, c, xl, yl, zl, L, M, N,
+                                      newton_iters, p1, p2, lay)
         Xs, Ys = xl + t_s * L, yl + t_s * M
         ps = geom.cart_point(code, R, k, c, p1, p2, Xs, Ys, grad=True,
                              lay=lay)

@@ -70,9 +70,10 @@ def test_bwd_shape_refuses_blocks_that_are_not_a_multiple_of_32(block):
 def test_only_the_stock_and_tilt_builds_sum_per_thread():
     assert [b for b in launch.BUILD_SUFFIX if launch.per_thread(b)] == [
         launch.STOCK, launch.TILT]
-    # the other builds but nurbs (below) keep their grid of BWD_MAX_BLOCKS
-    # x BWD_BLOCK threads and their per-warp rows (no card needed to say so)
-    for build in (launch.SAG, launch.FREE, launch.DEEP, launch.GRAT):
+    # the grating build keeps its grid of BWD_MAX_BLOCKS x BWD_BLOCK threads
+    # and its per-warp rows (no card needed to say so); the Newton builds
+    # (below) and nurbs take one wave of blocks from their occupancy
+    for build in (launch.GRAT,):
         for block in (32, 64, 128):
             assert launch.bwd_grid("trace_bwd", "generic", 8, 0,
                                    torch.float32, build, 1 << 24, "cpu",
@@ -80,6 +81,22 @@ def test_only_the_stock_and_tilt_builds_sum_per_thread():
                 block, launch.BWD_MAX_BLOCKS * (launch.BWD_BLOCK // block), 0)
         assert launch.bwd_grid("merit_bwd", "merit", 8, 0, torch.float32,
                                build, 1000, "cpu") == (128, 8, 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_newton_builds_size_their_per_warp_rows(dtype):
+    # the per-warp rows of ncomp columns: static in the sag build (no
+    # dynamic bytes), dynamic in the Cartesian and deep ones
+    size = torch.finfo(dtype).bits // 8
+    newton = (launch.SAG, launch.FREE, launch.AUX, launch.DEEP,
+              launch.DEEP_FREE, launch.DEEP_AUX)
+    assert {b for b in launch.BUILD_SUFFIX if b & launch.BIT_SAG} == set(
+        newton)
+    for build in newton:
+        for block, ncomp in ((32, 7), (64, 100), (128, 700)):
+            want = 0 if build == launch.SAG else block // 32 * ncomp * size
+            assert launch.newton_bwd_bytes(block, ncomp, build,
+                                           dtype) == want, build
 
 
 def _nurbs_bytes(block, ncomp, S, nc, dtype):

@@ -129,6 +129,30 @@ def test_cpu_work_never_builds_or_loads_the_library():
     assert "arch=compute_90a,code=sm_90a" in _cuda.NVCC_FLAGS
 
 
+def test_build_keeps_the_library_under_its_hash(tmp_path, monkeypatch):
+    """The build links the library to the name of its sources' and flags'
+    hash and finds it there the next time, so a later process loads it and
+    runs no nvcc (here a stand-in nvcc that writes each -o file)."""
+    fake = tmp_path / "nvcc"
+    fake.write_text('#!/bin/sh\nwhile [ $# -gt 0 ]; do\n  if [ "$1" = -o ]; '
+                    'then shift; echo stub > "$1"; fi\n  shift\ndone\n')
+    fake.chmod(0o755)
+    build_dir = tmp_path / "build"
+    monkeypatch.setattr(_cuda, "BUILD_DIR", str(build_dir))
+    monkeypatch.setattr(_cuda, "BUILD_SECONDS", None)
+    monkeypatch.setattr(_cuda, "BUILD_LOG", "")
+    monkeypatch.setattr(_cuda, "_nvcc", lambda: str(fake))
+    first = _cuda._build()
+    name = first.rsplit("/", 1)[-1]
+    assert name.startswith("liboptiland_torch_") and name.endswith(".so")
+    assert sorted(p.name for p in build_dir.iterdir()) == [name]
+    assert _cuda.BUILD_SECONDS > 0
+    runs = []
+    monkeypatch.setattr(_cuda, "_nvcc", lambda: runs.append(1) or str(fake))
+    assert _cuda._build() == first
+    assert _cuda.BUILD_SECONDS == 0.0 and not runs
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype, tol", [(torch.float32, 1e-6),
                                         (torch.float64, 1e-14)])
@@ -2178,6 +2202,70 @@ def test_nurbs_backwards_repeat_their_bits(cuda_device, dtype):
                                  trace_bwd_nurbs=2, trace_bwd_poly_nurbs=2)
     assert pt.LAUNCHES == _only(pt.LAUNCHES, pol_bwd_nurbs=2,
                                 pol_bwd_intensity_nurbs=2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_newton_backwards_repeat_their_bits(cuda_device, dtype):
+    """Two launches of each backward of the Newton builds (merit, field,
+    generic and, in the sag, free and aux builds, poly), which keep each
+    Newton surface's stopped iterate from their forward sweep, give the
+    same bits on the tilted asphere (sag), ObjectiveUS008879901 (deep),
+    the XY singlet (free) and the Q2d singlet (aux): a launch shape fixed
+    for the card and shape, fixed summation orders, no float atomics."""
+    R = 100001
+    cases = (("_sag", perturbed.tilted_asphere().system, (0.0, 0.0), True),
+             ("_deep", registry.build_sample(
+                 "ObjectiveUS008879901").system, (0.0, 0.7), False),
+             ("_free", freeform.freeform_singlet("polynomial").system,
+              freeform.H, True),
+             ("_aux", freeform.freeform_singlet("forbes_q2d").system,
+              freeform.H, True))
+    w = torch.tensor([0.48, 0.55, 0.65], dtype=dtype,
+                     device=cuda_device)[torch.arange(R, device=cuda_device)
+                                         % 3]
+
+    def flat(out):
+        return torch.cat([torch.stack(list(o)).reshape(-1)
+                          if isinstance(o, (tuple, list)) else o.reshape(-1)
+                          for o in out])
+
+    for k, (suf, system, field, poly) in enumerate(cases):
+        _, params, aim, _, Px, Py, ins, cots = _k6_inputs(
+            system, field, R, 21 + k, dtype)
+        coeffs, lay = _aux_tables(system, dtype)
+        nc = coeffs.shape[1]
+        spec = ftr.fast_spec(system, field=True)
+        mspec = ft._spec_of(system)
+        assert launch.launch_key("", ftr._build(spec)) == suf
+        stats = torch.tensor([0.1, -0.2, 1.0 / R, 0.0], dtype=dtype,
+                             device=cuda_device)
+        calls = {
+            "merit_bwd": lambda: [ft.merit_bwd(
+                params, aim, stats, mspec, nc, R, Px=Px, Py=Py,
+                coeffs=coeffs, lay=lay)],
+            "trace_field_bwd": lambda: [ftr.trace_field_bwd(
+                params, aim, spec, nc, Px, Py, cots, coeffs, lay)],
+            "trace_bwd": lambda: ftr.trace_bwd(params, spec, nc, ins, cots,
+                                               coeffs, lay),
+        }
+        if poly:
+            pq = ftr.build_poly_table(system).to(dtype).contiguous()
+            mq = system.stack.mat_coeffs.to(dtype).contiguous()
+            calls["trace_bwd_poly"] = lambda: ftr.trace_bwd_poly(
+                pq, mq, ftr.poly_spec(system), nc, ins + [w], cots, coeffs,
+                lay)
+        ftr.reset_launch_counts()
+        ft.reset_launch_counts()
+        for name, call in calls.items():
+            a, b = flat(call()), flat(call())
+            assert torch.isfinite(a).any(), (suf, name)
+            assert torch.equal(a, b), (
+                f"{name}{suf}: two launches differ in {int((a != b).sum())} "
+                "entries")
+        assert ft.LAUNCHES == _only(ft.LAUNCHES, **{"merit_bwd" + suf: 2})
+        assert ftr.LAUNCHES == _only(ftr.LAUNCHES, **{
+            n + suf: 2 for n in calls if n != "merit_bwd"})
 
 
 # ---------------------------------------------------------------------------

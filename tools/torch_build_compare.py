@@ -17,8 +17,10 @@ of their kernels and the times of their merit and trace kernels.
       exact check, where equal ptxas lines may still hide other code;
   python3 tools/torch_build_compare.py mix LOG
       for the backwards of the main path (merit_bwd and trace_bwd in the
-      stock and tilt builds) and of the nurbs build (merit_bwd, trace_bwd
-      in every mode, pol_bwd) of a build log's library: the ptxas line
+      stock and tilt builds), of the nurbs build (merit_bwd, trace_bwd
+      in every mode, pol_bwd) and of the Newton builds (merit_bwd and
+      trace_bwd in every mode in the sag, deep, free, deep_free, aux and
+      deep_aux builds, float32) of a build log's library: the ptxas line
       (registers, stack frame, spills, static shared memory), the resident
       blocks per SM that the registers and static shared memory allow at
       BWD_BLOCK threads (the dynamic shared memory of the per-thread and
@@ -33,6 +35,14 @@ of their kernels and the times of their merit and trace kernels.
       variant pol_fwd and pol_bwd in the intensity mode; ``--kernels``
       times only the named ones (a tree whose library holds only some
       sources, as a throwaway copy may);
+  python3 tools/torch_build_compare.py time ROOT TAG --newton [--kernels K,..]
+      time the Newton builds' kernels of ROOT at 2^24 rays, float32: the
+      six of ``time`` below on the tilted asphere (sag build),
+      ObjectiveUS008879901 (deep), the XY and toroidal singlets (free) and
+      the Zernike, Qbfs and Q2d singlets (aux), and trace_fwd_poly and
+      trace_bwd_poly (wavelengths 0.48, 0.55, 0.65 um cycling by ray) on
+      the tilted asphere, the XY singlet and the Q2d singlet; ``--kernels``
+      as for ``--nurbs``;
   python3 tools/torch_build_compare.py time ROOT TAG [--aux | --main]
       time merit_fwd, merit_bwd, trace_fwd, trace_bwd, trace_field_fwd and
       trace_field_bwd of ROOT at 2^24 rays, float32 (median of 10 CUDA
@@ -93,6 +103,10 @@ def build(root, out):
 
 # an anonymous namespace's mangled name: its hashes differ between trees
 ANON = re.compile(r"_GLOBAL__N__[0-9a-f]{8}_(\d+_\w+?_cu)_[0-9a-f]{8}")
+# trailing false template flags of a mangled device function's name (a flag
+# added later, false by default, leaves the function the tree without it
+# had), in its key and where a kernel calls it
+FALSE_TAIL = re.compile(r"(?:Lb0E)+E")
 
 
 def kernel_key(mangled, names):
@@ -100,7 +114,7 @@ def kernel_key(mangled, names):
     or the name without its namespace's hashes for another function."""
     mm = re.search(r"\d([a-z_]+_kernel)I([fd])((?:L[bi]\d+E)*)E", mangled)
     if mm is None:
-        return ANON.sub(r"ANON_\1", mangled)
+        return FALSE_TAIL.sub("E", ANON.sub(r"ANON_\1", mangled))
     name, targs = mm.group(1), re.findall(r"L[bi]\d+", mm.group(3))
     if name.startswith(("trace_", "pol_", "merit_")) and targs:
         targs[-1] = names.get(int(targs[-1][2:]), targs[-1])
@@ -167,7 +181,8 @@ def sass_of(log):
             funcs[cur] = []
         elif cur is not None and re.match(r"\s*/\*[0-9a-f]{4,}\*/", line):
             code = re.sub(r"/\* 0x[0-9a-f]+ \*/", "", line)
-            funcs[cur].append(ANON.sub(r"ANON_\1", code).strip())
+            funcs[cur].append(FALSE_TAIL.sub(
+                "E", ANON.sub(r"ANON_\1", code)).strip())
     return funcs
 
 
@@ -192,6 +207,8 @@ def sass(old, new):
 # the main path's backwards, whose machine code ``mix`` counts: the merit and
 # trace kernels' stock and tilt builds
 MIX_KERNELS = ("merit_bwd_kernel", "trace_bwd_kernel", "pol_bwd_kernel")
+# the Newton builds, whose merit and trace backwards ``mix`` counts in f32
+NEWTON_BUILDS = ("sag", "deep", "free", "deep_free", "aux", "deep_aux")
 MIX_CLASSES = {"SHFL": ("SHFL",), "MUFU": ("MUFU",), "LDL/STL": ("LDL", "STL"),
                "LDS/STS": ("LDS", "STS"), "FFMA/FADD/FMUL": ("FFMA", "FADD",
                                                              "FMUL"),
@@ -207,9 +224,11 @@ def mix(log):
     code = sass_of(log)
     for (src, key), instrs in sorted(code.items(), key=str):
         if not (isinstance(key, tuple) and key[0] in MIX_KERNELS
-                and key[2] and key[2][-1] in (
+                and key[2] and (key[2][-1] in (
                     ("nurbs",) if key[0] == "pol_bwd_kernel"
-                    else ("stock", "tilt", "nurbs"))):
+                    else ("stock", "tilt", "nurbs"))
+                    or (key[0] != "pol_bwd_kernel" and key[1] == "f"
+                        and key[2][-1] in NEWTON_BUILDS))):
             continue
         ops = [re.sub(r"^@!?U?P\w+\s+", "", i.split(";")[0].split("*/", 1)[-1]
                       .strip()).split(" ")[0].split(".")[0] for i in instrs]
@@ -233,7 +252,8 @@ def mix(log):
               f"instructions {counts}", flush=True)
 
 
-def time_tree(root, tag, aux, main=False, nurbs=False, only=None):
+def time_tree(root, tag, aux, main=False, nurbs=False, only=None,
+              newton=False):
     sys.path.insert(0, os.path.abspath(root))
     import torch
 
@@ -393,29 +413,31 @@ def time_tree(root, tag, aux, main=False, nurbs=False, only=None):
         torch.cuda.synchronize()
         return res
 
-    def poly_kernels(system):
-        # bench.py's poly step: the Cooke triplet's rays, wavelengths
-        # cycling by ray
+    def poly_kernels(system, field=(0.0, 0.7)):
+        # bench.py's poly step: the system's rays, wavelengths cycling by
+        # ray
         wl = torch.tensor((0.48, 0.55, 0.65), device=dev)[
             torch.arange(R, device=dev) % 3]
         with torch.no_grad():
             pk = ftr.build_poly_table(system).contiguous()
             mk = system.stack.mat_coeffs.detach().contiguous()
             Px, Py = ft.prng_disk(17, R, 0, torch.float32, dev)
-            rays = raygen.generate_rays(system, 0.0, 0.7, Px, Py, 0.55)
+            rays = raygen.generate_rays(system, *field, Px, Py, 0.55)
             ins = [getattr(rays, k).contiguous() for k in ftr.RAY_FIELDS]
             ins.append(wl)
             del rays, Px, Py
             cots = [torch.randn(R, generator=gen, device=dev) / R
                     for _ in range(8)]
             spec = ftr.poly_spec(system)
-            nc = system.stack.coeffs.shape[1]
-            res = {
-                "trace_fwd_poly": time_ms(lambda: ftr.trace_fwd_poly(
-                    pk, mk, spec, ins)),
-                "trace_bwd_poly": time_ms(lambda: ftr.trace_bwd_poly(
-                    pk, mk, spec, nc, ins, cots)),
-            }
+            ck, lk = tables(system)
+            tab = (ck,) if lk is None else (ck, lk)
+            nc = ck.shape[1]
+            res = timed({
+                "trace_fwd_poly": lambda: ftr.trace_fwd_poly(
+                    pk, mk, spec, ins, *tab),
+                "trace_bwd_poly": lambda: ftr.trace_bwd_poly(
+                    pk, mk, spec, nc, ins, cots, *tab),
+            })
         torch.cuda.synchronize()
         return res
 
@@ -428,7 +450,24 @@ def time_tree(root, tag, aux, main=False, nurbs=False, only=None):
         return registry.build_sample("ObjectiveUS008879901")
 
     out = {}
-    if nurbs:
+    if newton:
+        for name, make, field, poly in (
+                ("tilted_asphere", perturbed.tilted_asphere, (0.0, 0.0),
+                 True),
+                ("objective26", objective26, (0.0, 0.7), False),
+                ("polynomial", lambda: freeform.freeform_singlet(
+                    "polynomial"), freeform.H, True),
+                ("toroidal", lambda: freeform.freeform_singlet("toroidal"),
+                 freeform.H, False),
+                *((fam, lambda fam=fam: freeform.freeform_singlet(fam),
+                   freeform.H, fam == "forbes_q2d")
+                  for fam in freeform.AUX_FAMILIES)):
+            system = make().system
+            out[name] = kernels(system, field)
+            if poly and (only is None or {"trace_fwd_poly",
+                                          "trace_bwd_poly"} & set(only)):
+                out[name + "_poly"] = poly_kernels(system, field)
+    elif nurbs:
         from optiland_torch.samples import nurbs as ns
 
         for name, make in (("rational", ns.rational_nurbs),
@@ -444,7 +483,7 @@ def time_tree(root, tag, aux, main=False, nurbs=False, only=None):
         out["toleranced_cooke"] = kernels(
             perturbed.toleranced_cooke().system, (0.0, 0.7))
         out["cooke_poly"] = poly_kernels(CookeTriplet().system)
-    for name, make, field in () if aux or main or nurbs else (
+    for name, make, field in () if aux or main or nurbs or newton else (
                 ("tilted_asphere", perturbed.tilted_asphere, (0.0, 0.0)),
                 ("objective26", objective26, (0.0, 0.7)),
                 ("polynomial", lambda: freeform.freeform_singlet(
@@ -479,10 +518,13 @@ def time_tree(root, tag, aux, main=False, nurbs=False, only=None):
     for k, v in out.items():
         print(tag, k, {kk: round(vv, 4) if isinstance(vv, float) else vv
                        for kk, vv in v.items()}, flush=True)
+    from optiland_torch.ops import _cuda
+
     print(tag, "card", torch.cuda.get_device_name(0), subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True,
-        text=True).stdout.strip(), flush=True)
+        text=True).stdout.strip(), "nvcc s", _cuda.BUILD_SECONDS, "wall s",
+        round(time.perf_counter() - t_start, 1), flush=True)
 
 
 def main(argv):
@@ -499,7 +541,7 @@ def main(argv):
         only = (rest[rest.index("--kernels") + 1].split(",")
                 if "--kernels" in rest else None)
         time_tree(argv[1], argv[2], "--aux" in rest, "--main" in rest,
-                  "--nurbs" in rest, only)
+                  "--nurbs" in rest, only, "--newton" in rest)
     else:
         print(__doc__, file=sys.stderr)
         return 2
