@@ -96,8 +96,10 @@ to 0 just before it and read just after:
     their f32 plain versions with their bounds (rows tagged with the lens);
   * the NURBS steps (phases 27-28): the nurbs build of every trace kernel
     (K6d, the two-plane (u, v) solve on a NURBS net; its own sources
-    ``csrc/nurbs_*.cu``) on the three lenses of ``samples/nurbs.py`` and
-    the tilted rational one against their plain versions at check size in
+    ``csrc/nurbs_*.cu``) on the lenses of ``samples/nurbs.py`` (the
+    golden rational and conic-fit nets, the B-spline paraboloid, the
+    tilted rational one, the non-uniform net with a repeated knot and the
+    net at the build's bounds) against their plain versions at check size in
     f64 to 1e-11 per ray and per gradient column (the net's 4 nu nv
     columns included) and in f32 against the f64 plain versions, the poly
     mode on the rational lens, K8/K9 on its Fresnel-coated variant, and a
@@ -109,7 +111,10 @@ to 0 just before it and read just after:
     against its f32 plain version chunk by chunk (2^22 rays each) and
     timed against it, with its bound (rows tagged with the lens); the
     nurbs backwards' launch shapes, and two full-width launches of each
-    (merit, generic, field, poly, polarized) giving the same bits.
+    (merit, generic, field, poly, polarized) giving the same bits; the
+    nurbs forwards' times beside their bounds and plain times, and their
+    machine code's mix (``tools/torch_build_compare.py mix``: registers,
+    stack, spills, LDL/STL, resident blocks per SM).
 
 It prints:
 
@@ -347,25 +352,30 @@ OPS_GRAT_ADJ = {0: 114,  # the diffraction's adjoint 109 (the cotangents of
 #                          dxi 11, tan 3, the root and its clamp 20, the raw
 #                          normal's cotangent 3)
 # Operations per ray of a NURBS surface (K6d, code 12) in the NURBS build,
-# counted from csrc/nurbs_step.cuh as above for degrees (p, q): what the
-# function needs on the ray's span, not the columns the kernel sweeps. A
-# basis entry of the Cox-de Boor triangle (p (p + 3) / 2 per direction,
-# the derivatives carried along) is 2 knot differences, 2 divides, the
-# value 3 and the first derivative 6 (20 with the reciprocals), 26 with
-# the second; a control point of the span adds its products b, b_u, b_v
-# (3) and per sum W b and its 4 FMAs (8: 3 sums, 6 with the second
-# derivatives); the quotient S, S_u, S_v 20 (50 with the second
-# derivatives). The forward: the planes 30, the corner guess 10, then
-# newton_iters + 1 steps (an evaluation and the residuals 30, det 3,
-# clamp 2, du and dv 8, clips 4: 47) and the point's evaluation, t 8 and
-# the normal 22, in place of the plane's intersection (4). The adjoint:
-# the corrected point's second-order evaluation, the chain back through
-# the normal, t, the clip, the correction and the planes (150), and per
-# control point of the span at both points its 4 columns (30 each point).
-OPS_NU_ENTRY = (20, 26)
-OPS_NU_CTRL = (27, 54)
-OPS_NU_QUOT = (20, 50)
-OPS_NU_STEP = 47
+# counted from csrc/nurbs_step.cuh as above (a fused multiply-add is 2) for
+# degrees (p, q): what the function needs on the ray's span, not the columns
+# the kernel sweeps; the span's binary search (comparisons) and the
+# per-block tables (the reciprocal knot differences, the points W P, W)
+# are not counted. The basis (nu_basis) per direction: each level k = 1..p
+# of the Cox-de Boor triangle takes k terms a N and k terms c N, a = (u -
+# U_i) x its stored reciprocal; a pair is the values 7 and the first
+# derivatives 7 (14), and 8 more with the second. The sums (nu_sums): per
+# row of the span the v basis contracted with its q + 1 homogeneous points
+# (x, y, z, w), 8 sums of 2 (q + 1) - 1 operations (12 with the second
+# derivatives), then the u basis with the p + 1 rows, 12 sums of 2 (p + 1)
+# - 1 (24). The quotient: one reciprocal of w, then S, S_u, S_v 21 (22),
+# and the second derivatives 53 more (75). The step (nu_step): the
+# residuals 32, det 3, its clamp 2, one reciprocal, du and dv 8, the
+# update 2 and the clips 4 (52). The forward: the planes 30, the corner
+# guess 10, then newton_iters + 1 steps (an evaluation and the step) and
+# the point's evaluation, t 8 and the normal 22, in place of the plane's
+# intersection (4). The adjoint: the corrected point's second-order
+# evaluation, the chain back through the normal, t, the clip, the
+# correction and the planes (150), and per control point of the span at
+# both points its 4 columns (30 each point).
+OPS_NU_PAIR = (14, 22)
+OPS_NU_QUOT = (22, 75)
+OPS_NU_STEP = 52
 OPS_NU_FWD_BASE = 30 + 10 + 8 + 22 - 4
 OPS_NU_ADJ = 150
 OPS_NU_COL = 60
@@ -376,10 +386,12 @@ def nurbs_ops(net, niters):
     beyond the plane step's (OPS_FWD_PLANE, OPS_STEP_ADJ[0])."""
     _, _, _, p, q, _, _ = net
     ctrl = (p + 1) * (q + 1)
-    tri = p * (p + 3) // 2 + q * (q + 3) // 2
+    pairs = p * (p + 1) // 2 + q * (q + 1) // 2
 
     def point(o):
-        return OPS_NU_ENTRY[o] * tri + OPS_NU_CTRL[o] * ctrl + OPS_NU_QUOT[o]
+        rows = (8 + 4 * o) * (p + 1) * (2 * q + 1)
+        cols = (12 + 12 * o) * (2 * p + 1)
+        return OPS_NU_PAIR[o] * pairs + rows + cols + OPS_NU_QUOT[o]
 
     fwd = OPS_NU_FWD_BASE + (niters + 1) * (point(0) + OPS_NU_STEP) + point(0)
     return fwd, point(1) + OPS_NU_ADJ + OPS_NU_COL * ctrl
@@ -470,6 +482,41 @@ def formula_ops(code, nm):
         9: (14, 72),
         11: (12, 60),
     }[code]
+
+
+def nurbs_fwd_mix():
+    """The machine-code mix of the nurbs build's forwards in the loaded
+    library (tools/torch_build_compare.py: mix; registers, stack, spills,
+    LDL/STL, resident blocks per SM), from this run's build log, or the
+    reason there is none: a report, not a check."""
+    import contextlib
+    import io
+
+    from optiland_torch.ops import _cuda
+    from optiland_torch.ops.launch import BUILD_SUFFIX
+
+    try:
+        sys.path.insert(0, os.path.join(HERE, "tools"))
+        import torch_build_compare as tbc
+
+        os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
+        path = os.path.join(HERE, "chiprun_out", "nurbs_build.log")
+        with open(path, "w") as f:
+            f.write("builds " + json.dumps(
+                {b: s[1:] or "stock" for b, s in BUILD_SUFFIX.items()}) + "\n")
+            f.write(f"library {os.path.abspath(_cuda.library()._name)}\n")
+            f.write(_cuda.BUILD_LOG)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            tbc.mix(path)
+        lines = [ln for ln in buf.getvalue().splitlines()
+                 if "_fwd_kernel" in ln and "nurbs" in ln]
+        if not _cuda.BUILD_LOG:
+            lines.append("(the library was loaded from an earlier build: no "
+                         "ptxas lines)")
+        return lines
+    except Exception as e:  # noqa: BLE001 (a report of the build)
+        return [f"mix unavailable: {type(e).__name__}: {e}"]
 
 
 def log(msg):
@@ -634,7 +681,9 @@ def main(argv=None):
     NURBS_LENSES = {"rational": nurbs.rational_nurbs,
                     "fitted": nurbs.fitted_nurbs,
                     "bspline": nurbs.bspline_nurbs,
-                    "tilted": nurbs.tilted_nurbs}
+                    "tilted": nurbs.tilted_nurbs,
+                    "nonuniform": nurbs.nonuniform_nurbs,
+                    "bound": nurbs.bound_nurbs}
 
     def reset_counts():
         ft.reset_launch_counts()
@@ -2981,10 +3030,16 @@ def main(argv=None):
             + OPS_ABS_BWD * sum(absorbs[1:])
         nb_f = -(-R // ft.FWD_BLOCK)
 
-        def nb_b(name, mode, b):
+        # the nurbs build's tables: its knot table's rows and NURBS surfaces
+        kt_k = launch_build.knot_rows(launch_build._knot_table(
+            tuple(codes), tuple(nets), torch.float32, "cpu")) if (
+                build == launch_build.NURBS) else 0
+
+        def nb_b(name, mode, b, ncomp):
             # the backward's grid: its partial rows
             return launch_build.bwd_grid(name, mode, S_k, 0, torch.float32,
-                                         b, R, dev)[1]
+                                         b, R, dev, nc=nc_k, ncomp=ncomp,
+                                         kt=kt_k, ns=n_sag)[1]
 
         ncomp_m = S_k * len(ft.GRAD_COLS) + n_sag * ncb + ft.N_AIM
         ncomp_f = S_k * len(ftr.FULL_GRAD_COLS) + n_sag * ncb
@@ -2997,16 +3052,18 @@ def main(argv=None):
                                       + OPS_AIM_BWD + geo_b),
                                  tb + 16 + 2 * ncomp_m * 4 * nb_b(
                                      "merit_bwd", "merit",
-                                     ft._build(mspec_k)) + ob),
+                                     ft._build(mspec_k), ncomp_m) + ob),
             "trace_fwd" + suf: (R * full_f, tb + R * 16 * 4),
             "trace_bwd" + suf: (R * full_b, tb + R * 24 * 4 + 2 * ncomp_f * 4
-                                * nb_b("trace_bwd", "generic", build) + ob),
+                                * nb_b("trace_bwd", "generic", build,
+                                       ncomp_f) + ob),
             "trace_field_fwd" + suf: (R * (OPS_LAUNCH + full_f),
                                       tb + R * 10 * 4),
             "trace_field_bwd" + suf: (R * (OPS_LAUNCH + OPS_AIM_BWD + full_b),
                                       tb + R * 10 * 4 + 2
                                       * (ncomp_f + ft.N_AIM) * 4 * nb_b(
-                                          "trace_bwd", "field", build) + ob),
+                                          "trace_bwd", "field", build,
+                                          ncomp_f + ft.N_AIM) + ob),
         }
 
     # ---- phase 19: K6a, K6b and the deep build at check size ----
@@ -4296,9 +4353,10 @@ def main(argv=None):
 
     # ---- phase 27: K6d, NURBS surfaces, at check size (f64) ----
     # the nurbs build of every trace kernel against its plain version on
-    # the three lenses of samples/nurbs.py (the golden rational net, the
-    # golden conic fit, the B-spline paraboloid) and the tilted rational
-    # one at (Hx, Hy) = (0.3, 0.7): per-ray arrays and every gradient
+    # the lenses of samples/nurbs.py (the golden rational net, the golden
+    # conic fit, the B-spline paraboloid, the tilted rational one, the
+    # non-uniform net with a repeated knot and the net at the build's
+    # bounds) at (Hx, Hy) = (0.3, 0.7): per-ray arrays and every gradient
     # column (the net's 4 nu nv columns included) to 1e-11, trace_fwd/
     # trace_bwd in f32 against the f64 plain versions; the poly mode on the
     # rational lens; K8/K9 (both modes) on its Fresnel-coated variant; a
@@ -4489,7 +4547,8 @@ def main(argv=None):
     shapes28 = {
         f"{name}_{mode}": launch_build.bwd_grid(
             name, mode, S28, 0, torch.float32, build28, Rf, dev, nc=nc28,
-            ncomp=S28 * slots + nsag28 * nc28 + extra)
+            ncomp=S28 * slots + nsag28 * nc28 + extra,
+            kt=launch_build.knot_rows(l28), ns=nsag28)
         for name, mode, slots, extra in (
             ("merit_bwd", "merit", 9, launch_build.N_AIM),
             ("trace_bwd", "generic", 10, 0),
@@ -4524,6 +4583,20 @@ def main(argv=None):
         f"bounds ms "
         f"{ {k: round(bound_ms_of(*work[k]), 4) for k in nurbs_names} }; "
         f"phase 28 wall {time.perf_counter() - t28:.1f} s")
+    # the redesigned forwards (csrc/nurbs_step.cuh: the basis without
+    # divides, the span by search, the homogeneous net in shared memory,
+    # the evaluation inlined, 3 blocks an SM in f32): their times beside
+    # their bounds and plain times, and their machine code's mix
+    fwd28 = [n + "_nurbs_" + t for t in NURBS_TAGS
+             for n in ("merit_fwd", "trace_fwd", "trace_field_fwd")] + [
+        "trace_fwd_poly_nurbs_rational", "pol_fwd_intensity_nurbs_rational"]
+    log("phase 28 the redesigned NURBS forwards (ms / bound ms / plain ms): "
+        + "; ".join(f"{k} {ms[k]:.4f} / {bound_ms_of(*work[k]):.4f} / "
+                    f"{plain_ms[k]:.2f}" for k in fwd28))
+    mix28 = nurbs_fwd_mix()
+    for line in mix28:
+        log(f"phase 28 {line}")
+    report["phases"]["nurbs_fwd_mix"] = mix28
 
     # ---- the kernels line ----
     replaces = {

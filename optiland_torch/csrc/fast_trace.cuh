@@ -59,7 +59,7 @@ __device__ __forceinline__ void load_mats(const T* mats, int S, int nm,
 // POLY: each index is its surface's formula at the ray's wavelength ``wl``,
 // and nothing absorbs (the JAX package's poly body). B is the build.
 template <typename T, bool FIELD, bool POLY, int B>
-__global__ void __launch_bounds__(FWD_BLOCK)
+__global__ void __launch_bounds__(FWD_BLOCK, fwd_min_blocks<B>(sizeof(T)))
 trace_fwd_kernel(const T* __restrict__ params, const T* __restrict__ aim,
                  const T* __restrict__ mats, const int* __restrict__ flags,
                  int S, int nm, const T* __restrict__ cf, int nc, int niters,
@@ -77,7 +77,7 @@ trace_fwd_kernel(const T* __restrict__ params, const T* __restrict__ aim,
   __shared__ int sf[NF * CAP];
   load_mats<T, POLY>(mats, S, nm, sm);
   load_coefs<T, Bd::SAG>(cf, S, nc, scf);
-  // the nets and knot rows of the NURBS surfaces (NURBS)
+  // the homogeneous nets and knot rows of the NURBS surfaces (NURBS)
   if constexpr (Bd::NURBS) nurbs_tables(cf, S, nc, dyn_base<T>());
   // the layout rows of the aux-bearing surfaces follow the table (AUX)
   const T* lay = Bd::AUX ? cf + (int64_t)S * nc : nullptr;
@@ -105,9 +105,9 @@ trace_fwd_kernel(const T* __restrict__ params, const T* __restrict__ aim,
     else if constexpr (Bd::NURBS)
       n = step_fwd_nurbs<T, true>(
           sf[s], refl, POLY ? 0 : sf[F_ABS * S + s], sf[F_TILT * S + s],
-          sp + s * NUM_P, sr + s * N_ROT, dyn_base<T>() + s * nc,
-          dyn_base<T>() + S * nc + s * NU_KT, niters, n, npost, v[0], v[1],
-          v[2], v[3], v[4], v[5], v[6], v[7]);
+          sp + s * NUM_P, sr + s * N_ROT, NuTab<T>{dyn_base<T>(), cf, S, nc},
+          s, niters, n, npost, v[0], v[1], v[2], v[3], v[4], v[5], v[6],
+          v[7]);
     else
     n = step_fwd<T, true, Bd::TILT, Bd::SAG, Bd::FREE, Bd::DEEP, Bd::AUX>(
         sf[s], refl, POLY ? 0 : sf[F_ABS * S + s], sf[F_TILT * S + s],
@@ -332,10 +332,13 @@ trace_bwd_kernel(const T* __restrict__ params, const T* __restrict__ aim,
     const int astride = DYN ? ncomp : NCOMP_MAX;
     const int nacc = DYN ? nw * ncomp : NW_MAX * NCOMP_MAX;
     for (int j = threadIdx.x; j < nacc; j += blockDim.x) acc[j] = T(0);
-    // the nets and knot rows of the NURBS surfaces after the rows, then
-    // the warps' staged records (NURBS: nurbs_bwd_bytes)
-    T* const nets = acc + nacc;
-    if constexpr (Bd::NURBS) nurbs_tables(cf, S, nc, nets);
+    // the knot table and the NURBS surfaces' homogeneous nets after the
+    // rows (from a 4-vector boundary), then the warps' staged records
+    // (NURBS: nurbs_tables, nurbs_bwd_bytes)
+    T* const nets = acc + (Bd::NURBS ? nu_net_stride(nacc) : nacc);
+    int nwords = 0;
+    if constexpr (Bd::NURBS) nwords = nurbs_tables(cf, S, nc, nets);
+    const NuTab<T> ntab{nets, cf, S, nc};
     if (threadIdx.x == 0) {
       fill_npre(sp, sf, S, npre);
       if constexpr (Bd::SAG) fill_sag<Bd::AUX>(sf, S, ssag);
@@ -347,9 +350,9 @@ trace_bwd_kernel(const T* __restrict__ params, const T* __restrict__ aim,
     const int xbase = S * N_GF + nsagc;  // the aim or dispersion columns
     // NURBS: the warp's staged records for the net columns (lane r's at
     // srec + r * 2 NU_PT, its spans at sidx + 4 r), this lane's at rec, idx
-    T* const srec = nets + S * (nc + NU_KT) + warp * 32 * 2 * NU_PT;
+    T* const srec = nets + nwords + warp * 32 * 2 * NU_PT;
     int* const sidx = reinterpret_cast<int*>(
-        nets + S * (nc + NU_KT) + nw * 32 * 2 * NU_PT) + warp * 32 * 4;
+        nets + nwords + nw * 32 * 2 * NU_PT) + warp * 32 * 4;
     T* const rec = srec + lane * 2 * NU_PT;
     int* const idx = sidx + lane * 4;
 
@@ -400,10 +403,9 @@ trace_bwd_kernel(const T* __restrict__ params, const T* __restrict__ aim,
           else if constexpr (Bd::NURBS)
             n = step_fwd_nurbs<T, true>(
                 sf[s], refl, POLY ? 0 : sf[F_ABS * S + s], sf[F_TILT * S + s],
-                sp + s * NUM_P, sr + s * N_ROT, acc + nacc + s * nc,
-                acc + nacc + S * nc + s * NU_KT, niters, POLY ? n : npre[s],
-                npost, v[0], v[1], v[2], v[3], v[4], v[5], v[6], v[7],
-                nullptr, nullptr, suv[s]);
+                sp + s * NUM_P, sr + s * N_ROT, ntab, s, niters,
+                POLY ? n : npre[s], npost, v[0], v[1], v[2], v[3], v[4],
+                v[5], v[6], v[7], nullptr, nullptr, suv[s]);
           else
           n = step_fwd<T, true, Bd::TILT, Bd::SAG, Bd::FREE, Bd::DEEP, Bd::AUX,
                        true>(
@@ -439,9 +441,9 @@ trace_bwd_kernel(const T* __restrict__ params, const T* __restrict__ aim,
           if (valid)
             step_adjoint_nurbs<T, true>(
                 sf[s], refl, POLY ? 0 : sf[F_ABS * S + s], sf[F_TILT * S + s],
-                sp + s * NUM_P, sr + s * N_ROT, nets + s * nc,
-                nets + S * nc + s * NU_KT, suv[s], n_pre, npost, st[s][0],
-                st[s][1], st[s][2], st[s][3], st[s][4], st[s][5],
+                sp + s * NUM_P, sr + s * N_ROT, ntab, s, suv[s], n_pre,
+                npost, st[s][0], st[s][1], st[s][2], st[s][3], st[s][4],
+                st[s][5],
                 POLY ? T(0) : st[s][6], g, gc, rec, idx);
           else
             nu_rec_none(idx);
@@ -488,8 +490,7 @@ trace_bwd_kernel(const T* __restrict__ params, const T* __restrict__ aim,
             add_grat_cols(gs, lane, row, S * N_GF + ssag[s] * N_GRAT_COLS);
         if constexpr (Bd::NURBS)
           if (sf[s] == NURBS)
-            nurbs_warp_cols(srec, sidx, nets + s * nc,
-                            nets + S * nc + s * NU_KT, lane, row,
+            nurbs_warp_cols(srec, sidx, nu_surf(ntab, s), lane, row,
                             S * N_GF + ssag[s] * nc);
         if constexpr (POLY) {
           if (!refl) {
@@ -555,8 +556,8 @@ Rays8<P> rays8(void* const* ptrs) {
 // NU: the nurbs build's launcher (nurbs_trace.cu), which takes it alone.
 template <typename T, bool FIELD, bool POLY, bool NU = false>
 int fwd_launch(const T* params, const T* aim, const T* mats, const int* flags,
-               int S, int build, const T* cf, int nc, int niters, int nm,
-               const T* px, const T* py, void* const* in, int64_t R,
+               int S, int build, const T* cf, int nc, int kt, int niters,
+               int nm, const T* px, const T* py, void* const* in, int64_t R,
                void* const* out, cudaStream_t stream) {
   if (POLY && (nm < 1 || nm > MAX_NM)) return (int)cudaErrorInvalidValue;
   const auto body = [&](auto b) {
@@ -564,7 +565,10 @@ int fwd_launch(const T* params, const T* aim, const T* mats, const int* flags,
     if (!shape_ok<B>(S, nc, niters)) return (int)cudaErrorInvalidValue;
     const int64_t blocks = (R + FWD_BLOCK - 1) / FWD_BLOCK;
     const auto kernel = trace_fwd_kernel<T, FIELD, POLY, B>;
-    const size_t dyn = Build<B>::NURBS ? nurbs_bytes<T>(S, nc) : 0;
+    if (Build<B>::NURBS && kt <= S) return (int)cudaErrorInvalidValue;
+    // the tables, with room for a net on every surface (the forward's
+    // launch does not count the NURBS surfaces)
+    const size_t dyn = Build<B>::NURBS ? nurbs_bytes<T>(S, nc, kt) : 0;
     if (int e2 = set_dyn_smem<Build<B>::NURBS>(kernel, dyn)) return e2;
     if (blocks > 0)
       kernel<<<(unsigned)blocks, FWD_BLOCK, dyn, stream>>>(
@@ -583,8 +587,8 @@ int fwd_launch(const T* params, const T* aim, const T* mats, const int* flags,
 // per-thread-sum builds, Build::PT: ops/launch.py, bwd_shape).
 template <typename T, bool FIELD, bool POLY, bool NU = false>
 int bwd_launch(const T* params, const T* aim, const T* mats, const int* flags,
-               int S, int build, const T* cf, int nc, int niters, int nsag,
-               int nm, const T* px, const T* py, void* const* in,
+               int S, int build, const T* cf, int nc, int kt, int niters,
+               int nsag, int nm, const T* px, const T* py, void* const* in,
                void* const* cot, int64_t R, void* const* din, T* partial,
                int nblocks, int block, T* out, cudaStream_t stream) {
   if (nblocks < 1 || (POLY && (nm < 1 || nm > MAX_NM)) || nsag < 0 ||
@@ -605,7 +609,8 @@ int bwd_launch(const T* params, const T* aim, const T* mats, const int* flags,
                         POLY ? S * nm : 0);
       if (int e2 = set_pt_smem(kernel, dyn)) return e2;
     } else if constexpr (Build<B>::NURBS) {
-      dyn = nurbs_bwd_bytes<T>(block, ncomp, S, nc);
+      if (kt <= S || nsag < 1) return (int)cudaErrorInvalidValue;
+      dyn = nurbs_bwd_bytes<T>(block, ncomp, nsag, nc, kt);
       if (int e2 = set_pt_smem(kernel, dyn)) return e2;
     } else {
       dyn = dyn_bytes<T, Build<B>::DYN>(block / 32, ncomp);
@@ -668,58 +673,55 @@ int trace_bwd_occupancy(int mode, int build, int block, int64_t dyn,
 #define OTC_TRACE(SUF, T, NAME, NU)                                          \
   extern "C" int otc_trace_fwd##NAME##_##SUF(                                \
       const T* params, const int* flags, int S, int build, const T* cf,      \
-      int nc, int niters, void* const* in, int64_t R, void* const* out,      \
-      void* stream) {                                                        \
-    return fwd_launch<T, false, false, NU>(params, nullptr, nullptr, flags, S, \
-                                       build, cf, nc, niters, 0, nullptr,    \
-                                       nullptr, in, R, out,                  \
-                                       (cudaStream_t)stream);                \
+      int nc, int kt, int niters, void* const* in, int64_t R,                \
+      void* const* out, void* stream) {                                      \
+    return fwd_launch<T, false, false, NU>(                                  \
+        params, nullptr, nullptr, flags, S, build, cf, nc, kt, niters, 0,    \
+        nullptr, nullptr, in, R, out, (cudaStream_t)stream);                 \
   }                                                                          \
   extern "C" int otc_trace_field_fwd##NAME##_##SUF(                          \
       const T* params, const T* aim, const int* flags, int S, int build,     \
-      const T* cf, int nc, int niters, const T* px, const T* py, int64_t R,  \
-      void* const* out, void* stream) {                                      \
-    return fwd_launch<T, true, false, NU>(params, aim, nullptr, flags, S,    \
-                                          build,                             \
-                                      cf, nc, niters, 0, px, py, nullptr, R, \
-                                      out, (cudaStream_t)stream);            \
+      const T* cf, int nc, int kt, int niters, const T* px, const T* py,     \
+      int64_t R, void* const* out, void* stream) {                           \
+    return fwd_launch<T, true, false, NU>(                                   \
+        params, aim, nullptr, flags, S, build, cf, nc, kt, niters, 0, px,    \
+        py, nullptr, R, out, (cudaStream_t)stream);                          \
   }                                                                          \
   extern "C" int otc_trace_fwd_poly##NAME##_##SUF(                           \
       const T* params, const T* mats, const int* flags, int S, int build,    \
-      const T* cf, int nc, int niters, int nm, void* const* in, int64_t R,   \
-      void* const* out, void* stream) {                                      \
-    return fwd_launch<T, false, true, NU>(params, nullptr, mats, flags, S,   \
-                                      build, cf, nc, niters, nm, nullptr,    \
-                                      nullptr, in, R, out,                   \
-                                      (cudaStream_t)stream);                 \
+      const T* cf, int nc, int kt, int niters, int nm, void* const* in,      \
+      int64_t R, void* const* out, void* stream) {                           \
+    return fwd_launch<T, false, true, NU>(                                   \
+        params, nullptr, mats, flags, S, build, cf, nc, kt, niters, nm,      \
+        nullptr, nullptr, in, R, out, (cudaStream_t)stream);                 \
   }                                                                          \
   extern "C" int otc_trace_bwd##NAME##_##SUF(                                \
       const T* params, const int* flags, int S, int build, const T* cf,      \
-      int nc, int niters, int nsag, void* const* in, void* const* cot,       \
-      int64_t R, void* const* din, T* partial, int nblocks, int block,       \
-      T* out, void* stream) {                                                \
+      int nc, int kt, int niters, int nsag, void* const* in,                 \
+      void* const* cot, int64_t R, void* const* din, T* partial,             \
+      int nblocks, int block, T* out, void* stream) {                        \
     return bwd_launch<T, false, false, NU>(                                  \
-        params, nullptr, nullptr, flags, S, build, cf, nc, niters, nsag, 0,  \
-        nullptr, nullptr, in, cot, R, din, partial, nblocks, block, out,     \
+        params, nullptr, nullptr, flags, S, build, cf, nc, kt, niters, nsag, \
+        0, nullptr, nullptr, in, cot, R, din, partial, nblocks, block, out,  \
         (cudaStream_t)stream);                                               \
   }                                                                          \
   extern "C" int otc_trace_field_bwd##NAME##_##SUF(                          \
       const T* params, const T* aim, const int* flags, int S, int build,     \
-      const T* cf, int nc, int niters, int nsag, const T* px, const T* py,   \
-      void* const* cot, int64_t R, T* partial, int nblocks, int block,       \
-      T* out, void* stream) {                                                \
+      const T* cf, int nc, int kt, int niters, int nsag, const T* px,        \
+      const T* py, void* const* cot, int64_t R, T* partial, int nblocks,     \
+      int block, T* out, void* stream) {                                     \
     return bwd_launch<T, true, false, NU>(                                   \
-        params, aim, nullptr, flags, S, build, cf, nc, niters, nsag, 0, px,  \
-        py, nullptr, cot, R, nullptr, partial, nblocks, block, out,          \
+        params, aim, nullptr, flags, S, build, cf, nc, kt, niters, nsag, 0,  \
+        px, py, nullptr, cot, R, nullptr, partial, nblocks, block, out,      \
         (cudaStream_t)stream);                                               \
   }                                                                          \
   extern "C" int otc_trace_bwd_poly##NAME##_##SUF(                           \
       const T* params, const T* mats, const int* flags, int S, int build,    \
-      const T* cf, int nc, int niters, int nsag, int nm, void* const* in,    \
-      void* const* cot, int64_t R, void* const* din, T* partial,             \
-      int nblocks, int block, T* out, void* stream) {                        \
+      const T* cf, int nc, int kt, int niters, int nsag, int nm,             \
+      void* const* in, void* const* cot, int64_t R, void* const* din,        \
+      T* partial, int nblocks, int block, T* out, void* stream) {            \
     return bwd_launch<T, false, true, NU>(                                   \
-        params, nullptr, mats, flags, S, build, cf, nc, niters, nsag, nm,    \
-        nullptr, nullptr, in, cot, R, din, partial, nblocks, block, out,     \
+        params, nullptr, mats, flags, S, build, cf, nc, kt, niters, nsag,    \
+        nm, nullptr, nullptr, in, cot, R, din, partial, nblocks, block, out, \
         (cudaStream_t)stream);                                               \
   }

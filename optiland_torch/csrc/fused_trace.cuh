@@ -73,7 +73,7 @@ prng_disk_kernel(uint64_t seed, int64_t offset, int64_t R, T* px, T* py,
 }
 
 template <typename T, int B>
-__global__ void __launch_bounds__(FWD_BLOCK)
+__global__ void __launch_bounds__(FWD_BLOCK, fwd_min_blocks<B>(sizeof(T)))
 merit_fwd_kernel(const T* __restrict__ params, const T* __restrict__ aim,
                  const int* __restrict__ flags, int S,
                  const T* __restrict__ cf, int nc, int niters,
@@ -90,7 +90,7 @@ merit_fwd_kernel(const T* __restrict__ params, const T* __restrict__ aim,
   __shared__ int sf[NF * CAP];  // code, reflect, tilted (GRAT: grating)
   __shared__ T red[2][32];
   load_coefs<T, Bd::SAG>(cf, S, nc, scf);
-  // the nets and knot rows of the NURBS surfaces (NURBS)
+  // the homogeneous nets and knot rows of the NURBS surfaces (NURBS)
   if constexpr (Bd::NURBS) nurbs_tables(cf, S, nc, dyn_base<T>());
   // the layout rows of the aux-bearing surfaces follow the table (AUX)
   const T* lay = Bd::AUX ? cf + (int64_t)S * nc : nullptr;
@@ -124,8 +124,7 @@ merit_fwd_kernel(const T* __restrict__ params, const T* __restrict__ aim,
       else if constexpr (Bd::NURBS)
         n = step_fwd_nurbs<T, false>(
             sf[s], sf[S + s], 0, sf[2 * S + s], sp + s * NUM_P,
-            sr + s * N_ROT, dyn_base<T>() + s * nc,
-            dyn_base<T>() + S * nc + s * NU_KT, niters, n,
+            sr + s * N_ROT, NuTab<T>{dyn_base<T>(), cf, S, nc}, s, niters, n,
             sp[s * NUM_P + P_NPOST], x, y, z, L, M, N, unused_i, unused_opd);
       else
       n = step_fwd<T, false, Bd::TILT, Bd::SAG, Bd::FREE, Bd::DEEP, Bd::AUX>(
@@ -302,10 +301,13 @@ merit_bwd_kernel(const T* __restrict__ params, const T* __restrict__ aim,
     const int astride = DYN ? ncomp : NCOMP_MAX;
     const int nacc = DYN ? nw * ncomp : NW_MAX * NCOMP_MAX;
     for (int j = threadIdx.x; j < nacc; j += blockDim.x) acc[j] = T(0);
-    // the nets and knot rows of the NURBS surfaces after the rows, then
-    // the warps' staged records (NURBS: nurbs_bwd_bytes)
-    T* const nets = acc + nacc;
-    if constexpr (Bd::NURBS) nurbs_tables(cf, S, nc, nets);
+    // the knot table and the NURBS surfaces' homogeneous nets after the
+    // rows (from a 4-vector boundary), then the warps' staged records
+    // (NURBS: nurbs_tables, nurbs_bwd_bytes)
+    T* const nets = acc + (Bd::NURBS ? nu_net_stride(nacc) : nacc);
+    int nwords = 0;
+    if constexpr (Bd::NURBS) nwords = nurbs_tables(cf, S, nc, nets);
+    const NuTab<T> ntab{nets, cf, S, nc};
     if (threadIdx.x == 0) {
       fill_npre(sp, sf, S, npre);
       if constexpr (Bd::SAG) fill_sag<Bd::AUX>(sf, S, ssag);
@@ -317,9 +319,9 @@ merit_bwd_kernel(const T* __restrict__ params, const T* __restrict__ aim,
     const T xbar = stats[0], ybar = stats[1], scale = stats[2];
     // NURBS: the warp's staged records for the net columns (lane r's at
     // srec + r * 2 NU_PT, its spans at sidx + 4 r), this lane's at rec, idx
-    T* const srec = nets + S * (nc + NU_KT) + warp * 32 * 2 * NU_PT;
+    T* const srec = nets + nwords + warp * 32 * 2 * NU_PT;
     int* const sidx = reinterpret_cast<int*>(
-        nets + S * (nc + NU_KT) + nw * 32 * 2 * NU_PT) + warp * 32 * 4;
+        nets + nwords + nw * 32 * 2 * NU_PT) + warp * 32 * 4;
     T* const rec = srec + lane * 2 * NU_PT;
     int* const idx = sidx + lane * 4;
 
@@ -368,8 +370,7 @@ merit_bwd_kernel(const T* __restrict__ params, const T* __restrict__ aim,
           else if constexpr (Bd::NURBS)
             step_fwd_nurbs<T, false>(
                 sf[s], sf[S + s], 0, sf[2 * S + s], sp + s * NUM_P,
-                sr + s * N_ROT, acc + nacc + s * nc,
-                acc + nacc + S * nc + s * NU_KT, niters, npre[s],
+                sr + s * N_ROT, ntab, s, niters, npre[s],
                 sp[s * NUM_P + P_NPOST], x, y, z, L, M, N, unused_i,
                 unused_opd, nullptr, nullptr, suv[s]);
           else
@@ -398,10 +399,9 @@ merit_bwd_kernel(const T* __restrict__ params, const T* __restrict__ aim,
           if (valid)
             step_adjoint_nurbs<T, false>(
                 sf[s], sf[S + s], 0, sf[2 * S + s], sp + s * NUM_P,
-                sr + s * N_ROT, nets + s * nc, nets + S * nc + s * NU_KT,
-                suv[s], npre[s], sp[s * NUM_P + P_NPOST], st[s][0],
-                st[s][1], st[s][2], st[s][3], st[s][4], st[s][5], T(0), g,
-                g6, rec, idx);
+                sr + s * N_ROT, ntab, s, suv[s], npre[s],
+                sp[s * NUM_P + P_NPOST], st[s][0], st[s][1], st[s][2],
+                st[s][3], st[s][4], st[s][5], T(0), g, g6, rec, idx);
           else
             nu_rec_none(idx);
         } else {
@@ -442,8 +442,7 @@ merit_bwd_kernel(const T* __restrict__ params, const T* __restrict__ aim,
             add_grat_cols(gs, lane, row, S * N_G + ssag[s] * N_GRAT_COLS);
         if constexpr (Bd::NURBS)
           if (sf[s] == NURBS)
-            nurbs_warp_cols(srec, sidx, nets + s * nc,
-                            nets + S * nc + s * NU_KT, lane, row,
+            nurbs_warp_cols(srec, sidx, nu_surf(ntab, s), lane, row,
                             S * N_G + ssag[s] * nc);
       }
       // n_pre of surface 1 is the object row's n_post
@@ -483,15 +482,18 @@ int prng_disk_launch(uint64_t seed, int64_t offset, int64_t R, T* px, T* py,
 // NU: the nurbs build's launchers (nurbs_merit.cu), which take it alone.
 template <typename T, bool NU = false>
 int merit_fwd_launch(const T* params, const T* aim, const int* flags, int S,
-                     int build, const T* cf, int nc, int niters, const T* px,
-                     const T* py, int64_t R, uint64_t seed, int64_t offset,
-                     int prng, T* rows, cudaStream_t stream) {
+                     int build, const T* cf, int nc, int kt, int niters,
+                     const T* px, const T* py, int64_t R, uint64_t seed,
+                     int64_t offset, int prng, T* rows, cudaStream_t stream) {
   const auto body = [&](auto b) {
     constexpr int B = decltype(b)::value;
     if (!shape_ok<B>(S, nc, niters)) return (int)cudaErrorInvalidValue;
     const int64_t blocks = (R + FWD_BLOCK - 1) / FWD_BLOCK;
     const auto kernel = merit_fwd_kernel<T, B>;
-    const size_t dyn = Build<B>::NURBS ? nurbs_bytes<T>(S, nc) : 0;
+    if (Build<B>::NURBS && kt <= S) return (int)cudaErrorInvalidValue;
+    // the tables, with room for a net on every surface (the forward's
+    // launch does not count the NURBS surfaces)
+    const size_t dyn = Build<B>::NURBS ? nurbs_bytes<T>(S, nc, kt) : 0;
     if (int e2 = set_dyn_smem<Build<B>::NURBS>(kernel, dyn)) return e2;
     if (blocks > 0)
       kernel<<<(unsigned)blocks, FWD_BLOCK, dyn, stream>>>(
@@ -508,9 +510,10 @@ int merit_fwd_launch(const T* params, const T* aim, const int* flags, int S,
 template <typename T, bool NU = false>
 int merit_bwd_launch(const T* params, const T* aim, const T* stats,
                      const int* flags, int S, int build, const T* cf, int nc,
-                     int niters, int nsag, const T* px, const T* py, int64_t R,
-                     uint64_t seed, int64_t offset, int prng, T* partial,
-                     int nblocks, int block, T* out, cudaStream_t stream) {
+                     int kt, int niters, int nsag, const T* px, const T* py,
+                     int64_t R, uint64_t seed, int64_t offset, int prng,
+                     T* partial, int nblocks, int block, T* out,
+                     cudaStream_t stream) {
   if (nblocks < 1 || block < 32 || block > BWD_BLOCK || block % 32 ||
       nsag < 0 || nsag > S)
     return (int)cudaErrorInvalidValue;
@@ -527,7 +530,8 @@ int merit_bwd_launch(const T* params, const T* aim, const T* stats,
       dyn = pt_bytes<T>(block, (S - 1) * N_G + 1 + N_AIM, 0);
       if (int e2 = set_pt_smem(kernel, dyn)) return e2;
     } else if constexpr (Build<B>::NURBS) {
-      dyn = nurbs_bwd_bytes<T>(block, ncomp, S, nc);
+      if (kt <= S || nsag < 1) return (int)cudaErrorInvalidValue;
+      dyn = nurbs_bwd_bytes<T>(block, ncomp, nsag, nc, kt);
       if (int e2 = set_pt_smem(kernel, dyn)) return e2;
     } else {
       dyn = dyn_bytes<T, Build<B>::DYN>(block / 32, ncomp);
@@ -581,22 +585,21 @@ int merit_bwd_occupancy(int build, int block, int64_t dyn, int* out) {
 #define OTC_FWD(SUF, T, NAME, NU)                                            \
   extern "C" int otc_merit_fwd##NAME##_##SUF(                                \
       const T* params, const T* aim, const int* flags, int S, int build,     \
-      const T* cf, int nc, int niters, const T* px, const T* py, int64_t R,  \
-      uint64_t seed, int64_t offset, int prng, T* rows, void* stream) {      \
-    return merit_fwd_launch<T, NU>(params, aim, flags, S, build, cf, nc,     \
-                                   niters,                                   \
-                               px, py, R, seed, offset, prng, rows,          \
-                               (cudaStream_t)stream);                        \
+      const T* cf, int nc, int kt, int niters, const T* px, const T* py,     \
+      int64_t R, uint64_t seed, int64_t offset, int prng, T* rows,           \
+      void* stream) {                                                        \
+    return merit_fwd_launch<T, NU>(params, aim, flags, S, build, cf, nc, kt, \
+                                   niters, px, py, R, seed, offset, prng,    \
+                                   rows, (cudaStream_t)stream);              \
   }
 #define OTC_BWD(SUF, T, NAME, NU)                                            \
   extern "C" int otc_merit_bwd##NAME##_##SUF(                                \
       const T* params, const T* aim, const T* stats, const int* flags,       \
-      int S, int build, const T* cf, int nc, int niters, int nsag,           \
+      int S, int build, const T* cf, int nc, int kt, int niters, int nsag,   \
       const T* px, const T* py, int64_t R, uint64_t seed, int64_t offset,    \
       int prng, T* partial, int nblocks, int block, T* out, void* stream) {  \
     return merit_bwd_launch<T, NU>(params, aim, stats, flags, S, build, cf,  \
-                                   nc,                                       \
-                               niters, nsag, px, py, R, seed, offset, prng,  \
-                               partial, nblocks, block, out,                 \
-                               (cudaStream_t)stream);                        \
+                                   nc, kt, niters, nsag, px, py, R, seed,    \
+                                   offset, prng, partial, nblocks, block,    \
+                                   out, (cudaStream_t)stream);               \
   }

@@ -11,23 +11,38 @@
 // A surface's net is its coefficient row: the control points P[d, i, j] at
 // d nu nv + i nv + j (d = x, y, z), then the weights W[i, j] at 3 nu nv +
 // i nv + j. Its knot table row (ops/launch.py: kernel_tables) holds nu, nv,
-// p, q, the u knots from column 4 and the v knots from column 4 + NU_KMAX.
-// Both live in the kernels' dynamic shared memory (nurbs_tables).
+// p, q, the u knots from column 4 and the v knots from column 4 + NU_KMAX;
+// the rows after the S surfaces' (the tail) hold the reciprocal knot
+// differences (nu_tail). Each block copies the knot table into its dynamic
+// shared memory and forms after it each net's homogeneous points (W P, W),
+// one 4-vector a control point, the nets of the NURBS surfaces only
+// (nurbs_tables); the raw net stays in global memory, where the guess and
+// the backwards' column sums read it.
 //
-// The basis (nu_basis): Cox-de Boor on the span only. The degree-0
-// indicator is that of the knot interval [U_i, U_i+1) holding u (and of i
-// = n at the last knot, as the JAX package's basis_list); the p + 1
-// functions i0 - r (r = 0..p) of degree p that can be nonzero there come
-// from the triangle N_{i,k} = a N_{i,k-1} + c N_{i+1,k-1}, differentiated
-// forward in u (to second order for the adjoint's corrected point), in
-// registers: every loop runs to the compile-time bound NU_PMAX, guarded by
-// the surface's degree.
+// The evaluation, shared by every nurbs kernel (nu_eval, nu_eval_rec):
+//  * the span (nu_span): the last knot interval [U_i, U_i+1) holding u, and
+//    i = n at the last knot (the JAX package's basis_list), by a binary
+//    search of the knot row, five fixed steps for NU_KMAX knots;
+//  * the basis (nu_basis): Cox-de Boor on the span only, the p + 1
+//    functions i0 - r (r = 0..p) of degree p that can be nonzero there, from
+//    the triangle N_{i,k} = a N_{i,k-1} + c N_{i+1,k-1}, differentiated
+//    forward in u (to second order for the adjoint's corrected point), in
+//    registers; a and c multiply by the reciprocal knot differences of the
+//    tail (0 for an empty interval: the term the recurrence skips), so the
+//    basis divides by nothing;
+//  * the sums (nu_sums): the span's v basis contracted row by row with the
+//    homogeneous points, then the u basis with the rows (core/nurbs.py:
+//    homogeneous), and one reciprocal of the weight sum for S, S_u, S_v.
+// Every loop runs to the compile-time bound NU_PMAX, guarded by the
+// surface's degree, and the solve's evaluations are inlined, so no point
+// passes through local memory; the forwards ask ptxas for 3 resident
+// blocks an SM in f32 and 2 in f64 (step.cuh: fwd_min_blocks).
 //
 // The solve (nurbs_solve, nurbs_finish): the planes of the ray (Martin et
 // al.), the guess from the net's corner points, ``niters`` clipped 2x2
-// Newton steps (|det| < 1e-14 clamped to 1e-14), then one more from that
-// stopped point, through which the adjoint runs; t = |S - r0| and the
-// normal Su x Sv / |.|, flipped toward -z.
+// Newton steps (|det| < 1e-14 clamped to 1e-14, one reciprocal of det),
+// then one more from that stopped point, through which the adjoint runs;
+// t = |S - r0| and the normal Su x Sv / |.|, flipped toward -z.
 //
 // The backwards' forward sweep keeps each NURBS surface's stopped point
 // (us, vs) (step_fwd_nurbs' uv), and the reverse step takes the one
@@ -61,15 +76,71 @@ constexpr int NU_OFF_NU = 12, NU_OFF_DU = NU_OFF_NU + NU_PMAX + 1,
               NU_OFF_DV = NU_OFF_NV + NU_PMAX + 1,
               NU_PT = NU_OFF_DV + NU_PMAX + 1;
 
-// The knot table rows and the nets of the nurbs build: copied into the
-// dynamic shared memory at ``dyn`` (S nc net entries, then S NU_KT knot
-// entries) from the kernel's coefficient buffer (the knot table follows
-// the (S, nc) table there); the caller synchronises.
+// The binary span search's first step: the largest power of two below
+// NU_KMAX, so that its five steps reach every index of a knot row.
+constexpr int NU_SPAN_STEP = 16;
+static_assert(2 * NU_SPAN_STEP - 1 >= NU_KMAX, "the span search's steps");
+
+// The stride of a surface's homogeneous net in shared memory: its nc
+// columns rounded up to 4-vectors, so that every control point's (W P, W)
+// lies on a 16-byte boundary.
+__host__ __device__ inline int nu_net_stride(int nc) { return (nc + 3) & ~3; }
+
+// The values of a nurbs build's tables in dynamic shared memory: the kt
+// rows of the knot table (the S surfaces' rows and the tail's), then ns
+// homogeneous nets (the NURBS surfaces', or a bound on their count).
+__host__ __device__ inline int64_t nurbs_words(int ns, int nc, int kt) {
+  return (int64_t)kt * NU_KT + (int64_t)ns * nu_net_stride(nc);
+}
+
+// Bytes of a nurbs build's tables (nurbs_words) in dynamic shared memory.
 template <typename T>
-__device__ __forceinline__ void nurbs_tables(const T* cf, int S, int nc,
-                                             T* dyn) {
-  const int n = S * (nc + NU_KT);
-  for (int i = threadIdx.x; i < n; i += blockDim.x) dyn[i] = cf[i];
+size_t nurbs_bytes(int ns, int nc, int kt) {
+  return (size_t)nurbs_words(ns, nc, kt) * sizeof(T);
+}
+
+// The tail of the knot table (ops/launch.py: _knot_tail), after the S
+// surfaces' rows: its row count E and the count ns of NURBS surfaces, then
+// for each surface s the offset in the tail of its reciprocal knot
+// differences, then for each surface s the slot of its homogeneous net
+// among the ns (both 0 for a surface without a net), then each NURBS
+// surface's reciprocals: in u, for k = 1..p, the nk_u values
+// 1 / (U[i + k] - U[i]) (i = 0..nk_u - 1; 0 where the interval is empty
+// or i + k passes the last knot), then the same in v.
+template <typename T>
+__device__ __forceinline__ const T* nu_tail(const T* kt_rows, int S) {
+  return kt_rows + S * NU_KT;
+}
+
+// Load a nurbs build's tables into the dynamic shared memory at ``dyn``
+// from the kernel's coefficient buffer ``cf`` (the (S, nc) table, then the
+// knot table with its tail): the knot table as it is, then each NURBS
+// surface's homogeneous points (W P_x, W P_y, W P_z, W) at 4 cp of its
+// net's slot. Returns the values it takes (nurbs_words); the caller
+// synchronises.
+template <typename T>
+__device__ __forceinline__ int nurbs_tables(const T* cf, int S, int nc,
+                                            T* dyn) {
+  const int ncq = nu_net_stride(nc);
+  const T* gk = cf + (int64_t)S * nc;
+  const T* gt = nu_tail(gk, S);
+  const int kt = S + (int)gt[0], ns = (int)gt[1];
+  for (int i = threadIdx.x; i < kt * NU_KT; i += blockDim.x) dyn[i] = gk[i];
+  T* const nets = dyn + kt * NU_KT;
+  const int q = ncq / 4;
+  for (int i = threadIdx.x; i < S * q; i += blockDim.x) {
+    const int s = i / q, cp = i - s * q;
+    const int npw = (int)gk[s * NU_KT] * (int)gk[s * NU_KT + 1];
+    if (cp >= npw) continue;
+    const T* r = cf + (int64_t)s * nc;
+    const T W = r[3 * npw + cp];
+    T* h = nets + (int)gt[2 + S + s] * ncq + 4 * cp;
+    h[0] = W * r[cp];
+    h[1] = W * r[npw + cp];
+    h[2] = W * r[2 * npw + cp];
+    h[3] = W;
+  }
+  return (int)nurbs_words(ns, nc, kt);
 }
 
 // The dynamic shared memory of a kernel, as T.
@@ -79,10 +150,71 @@ __device__ __forceinline__ T* dyn_base() {
   return reinterpret_cast<T*>(dyn_smem);
 }
 
-// Bytes of a nurbs build's net and knot tables in dynamic shared memory.
+// A kernel's nurbs tables: the shared ones at ``tab`` (nurbs_tables) and
+// the coefficient buffer ``cf`` in global memory, of S surfaces of nc
+// columns.
 template <typename T>
-size_t nurbs_bytes(int S, int nc) {
-  return (size_t)S * (nc + NU_KT) * sizeof(T);
+struct NuTab {
+  const T* tab;
+  const T* cf;
+  int S, nc;
+};
+
+// Surface s's part of them: its homogeneous net ``h``, knot row ``kn`` and
+// reciprocal knot differences ``rc`` in shared memory, its raw net row
+// ``raw`` in global memory.
+template <typename T>
+struct NuSurf {
+  const T* h;
+  const T* kn;
+  const T* rc;
+  const T* raw;
+};
+
+template <typename T>
+__device__ __forceinline__ NuSurf<T> nu_surf(const NuTab<T>& t, int s) {
+  const T* tail = nu_tail(t.tab, t.S);
+  const int kt = t.S + (int)tail[0];
+  NuSurf<T> f;
+  f.h = t.tab + kt * NU_KT + (int)tail[2 + t.S + s] * nu_net_stride(t.nc);
+  f.kn = t.tab + s * NU_KT;
+  f.rc = tail + (int)tail[2 + s];
+  f.raw = t.cf + (int64_t)s * t.nc;
+  return f;
+}
+
+// A control point's homogeneous 4-vector from shared memory.
+__device__ __forceinline__ void nu_ld4(const float* h, float* c) {
+  const float4 v = *reinterpret_cast<const float4*>(h);
+  c[0] = v.x;
+  c[1] = v.y;
+  c[2] = v.z;
+  c[3] = v.w;
+}
+__device__ __forceinline__ void nu_ld4(const double* h, double* c) {
+  const double2 a = *reinterpret_cast<const double2*>(h);
+  const double2 b = *reinterpret_cast<const double2*>(h + 2);
+  c[0] = a.x;
+  c[1] = a.y;
+  c[2] = b.x;
+  c[3] = b.y;
+}
+
+// The span of u in the knot row U of m degree-0 intervals (m + 1 knots,
+// n + 1 basis functions): the last i < m with U[i] <= u < U[i + 1], n at
+// u = U[m], -1 where neither holds (u outside the knots, or NaN). The
+// knots do not decrease (ops/launch.py: _nurbs_bound), so the largest k
+// with U[k] <= u comes from a binary search in fixed steps, and it is the
+// span where k < m: the interval [U[k], U[k + 1]) is then not empty.
+template <typename T, typename S>
+__device__ __forceinline__ int nu_span(const S* U, int m, int n, T u) {
+  int k = -1;
+#pragma unroll
+  for (int step = NU_SPAN_STEP; step >= 1; step >>= 1)
+    if (k + step <= m && U[k + step] <= u) k += step;
+  int i0 = k < m ? k : -1;
+  if (u == U[m]) i0 = n;
+  return i0;
 }
 
 // The basis functions i0 - r (r = 0..p) of degree p at u and their
@@ -93,14 +225,14 @@ struct NuB {
   T N[NU_PMAX + 1], D[NU_PMAX + 1], D2[NU_PMAX + 1];
 };
 
-template <typename T, int ORD>
-__device__ __forceinline__ void nu_basis(const T* U, int n, int p, T u,
-                                         NuB<T>& b) {
-  const int m = n + p + 1;  // the degree-0 intervals
-  int i0 = -1;
-  for (int i = 0; i < m; ++i)
-    if (U[i] <= u && u < U[i + 1]) i0 = i;
-  if (u == U[m]) i0 = n;
+// The basis of the knot row U (n + p + 2 knots) at u, with the row's
+// reciprocal knot differences rc (nu_tail), in T from tables of S.
+template <typename T, int ORD, typename S>
+__device__ __forceinline__ void nu_basis(const S* U, const S* rc, int n,
+                                         int p, T u, NuB<T>& b) {
+  const int nk = n + p + 2;
+  const int m = nk - 1;  // the degree-0 intervals
+  const int i0 = nu_span(U, m, n, u);
   b.i0 = i0;
 #pragma unroll
   for (int r = 0; r <= NU_PMAX; ++r) {
@@ -112,27 +244,25 @@ __device__ __forceinline__ void nu_basis(const T* U, int n, int p, T u,
 #pragma unroll
   for (int k = 1; k <= NU_PMAX; ++k) {
     if (k > p) break;
+    const S* rk = rc + (k - 1) * nk;
 #pragma unroll
     for (int r = NU_PMAX; r >= 0; --r) {
       if (r > k) continue;
       const int i = i0 - r;
       T nv = T(0), dv = T(0), d2v = T(0);
       if (i >= 0 && i <= m - 1 - k) {
-        const T d1 = U[i + k] - U[i];
-        if (d1 != T(0)) {
-          const T a = (u - U[i]) / d1, da = T(1) / d1;
-          nv = a * b.N[r];
-          if (ORD >= 1) dv = da * b.N[r] + a * b.D[r];
-          if (ORD >= 2) d2v = T(2) * da * b.D[r] + a * b.D2[r];
-        }
+        // a = (u - U_i) / (U_i+k - U_i), 0 for an empty interval
+        const T da = T(rk[i]), a = (u - T(U[i])) * da;
+        nv = a * b.N[r];
+        if (ORD >= 1) dv = da * b.N[r] + a * b.D[r];
+        if (ORD >= 2) d2v = T(2) * da * b.D[r] + a * b.D2[r];
         if (r >= 1) {
-          const T d2 = U[i + k + 1] - U[i + 1];
-          if (d2 != T(0)) {
-            const T c = (U[i + k + 1] - u) / d2, dc = T(-1) / d2;
-            nv = nv + c * b.N[r - 1];
-            if (ORD >= 1) dv = dv + dc * b.N[r - 1] + c * b.D[r - 1];
-            if (ORD >= 2) d2v = d2v + T(2) * dc * b.D[r - 1] + c * b.D2[r - 1];
-          }
+          // c = (U_i+k+1 - u) / (U_i+k+1 - U_i+1)
+          const T rcc = T(rk[i + 1]), c = (T(U[i + k + 1]) - u) * rcc;
+          const T dc = -rcc;
+          nv = nv + c * b.N[r - 1];
+          if (ORD >= 1) dv = dv + dc * b.N[r - 1] + c * b.D[r - 1];
+          if (ORD >= 2) d2v = d2v + T(2) * dc * b.D[r - 1] + c * b.D2[r - 1];
         }
       }
       b.N[r] = nv;
@@ -151,108 +281,120 @@ struct NuPt {
   T w, wu, wv;
 };
 
-template <typename T, int ORD, bool REC>
-__device__ __forceinline__ NuPt<T> nu_eval_at(const T* net, const T* kn, T u,
-                                              T v, T* rec, int* idx) {
-  const int nu = (int)kn[0], nv = (int)kn[1];
-  const int p = min((int)kn[2], NU_PMAX), q = min((int)kn[3], NU_PMAX);
-  const int npw = nu * nv;
-  NuB<T> bu, bv;
-  nu_basis<T, ORD>(kn + 4, nu - 1, p, u, bu);
-  nu_basis<T, ORD>(kn + 4 + NU_KMAX, nv - 1, q, v, bv);
-  if constexpr (REC) {
-    // the spans and the 1-D values and first derivatives, for the column
-    // sums (nurbs_cols)
-    idx[0] = bu.i0;
-    idx[1] = bv.i0;
-#pragma unroll
-    for (int r = 0; r <= NU_PMAX; ++r) {
-      if (r <= p) {
-        rec[NU_OFF_NU + r] = bu.N[r];
-        rec[NU_OFF_DU + r] = bu.D[r];
-      }
-      if (r <= q) {
-        rec[NU_OFF_NV + r] = bv.N[r];
-        rec[NU_OFF_DV + r] = bv.D[r];
-      }
-    }
-  }
-  // homogeneous sums: [0] value, [1] d/du, [2] d/dv, [3] uu, [4] uv, [5] vv
+// The homogeneous sums of the span's control points (x, y, z, w): H[0]
+// the value, [1] d/du, [2] d/dv, (ORD 2) [3] uu, [4] uv, [5] vv; the v
+// basis contracted with each row of the span first, then the u basis with
+// the rows; in T from points of S.
+template <typename T, int ORD, typename S>
+__device__ __forceinline__ void nu_sums(const S* h, int nu, int nv, int p,
+                                        int q, const NuB<T>& bu,
+                                        const NuB<T>& bv,
+                                        T (&H)[ORD >= 2 ? 6 : 3][4]) {
   constexpr int NS = ORD >= 2 ? 6 : 3;
-  T H[NS][3], w[NS];
 #pragma unroll
-  for (int o = 0; o < NS; ++o) {
-    w[o] = T(0);
-    H[o][0] = H[o][1] = H[o][2] = T(0);
-  }
+  for (int o = 0; o < NS; ++o) H[o][0] = H[o][1] = H[o][2] = H[o][3] = T(0);
 #pragma unroll
   for (int ru = 0; ru <= NU_PMAX; ++ru) {
     if (ru > p) break;
     const int i = bu.i0 - ru;
     if (i < 0 || i >= nu) continue;
+    // the row's v sums: A0 of N_j(v), A1 of N_j'(v), (ORD 2) A2 of N_j''(v)
+    T A0[4] = {T(0), T(0), T(0), T(0)}, A1[4] = {T(0), T(0), T(0), T(0)};
+    T A2[4] = {T(0), T(0), T(0), T(0)};
 #pragma unroll
     for (int rv = 0; rv <= NU_PMAX; ++rv) {
       if (rv > q) break;
       const int j = bv.i0 - rv;
       if (j < 0 || j >= nv) continue;
-      const int ij = i * nv + j;
-      const T W = net[3 * npw + ij];
-      const T P[3] = {net[ij], net[npw + ij], net[2 * npw + ij]};
-      T b[NS];
-      b[0] = bu.N[ru] * bv.N[rv];
-      b[1] = bu.D[ru] * bv.N[rv];
-      b[2] = bu.N[ru] * bv.D[rv];
-      if constexpr (ORD >= 2) {
-        b[3] = bu.D2[ru] * bv.N[rv];
-        b[4] = bu.D[ru] * bv.D[rv];
-        b[5] = bu.N[ru] * bv.D2[rv];
-      }
+      S c[4];
+      nu_ld4(h + 4 * (i * nv + j), c);
 #pragma unroll
-      for (int o = 0; o < NS; ++o) {
-        const T wb = W * b[o];
-        w[o] += wb;
-        H[o][0] += P[0] * wb;
-        H[o][1] += P[1] * wb;
-        H[o][2] += P[2] * wb;
+      for (int d = 0; d < 4; ++d) {
+        A0[d] += bv.N[rv] * c[d];
+        A1[d] += bv.D[rv] * c[d];
+        if constexpr (ORD >= 2) A2[d] += bv.D2[rv] * c[d];
+      }
+    }
+#pragma unroll
+    for (int d = 0; d < 4; ++d) {
+      H[0][d] += bu.N[ru] * A0[d];
+      H[1][d] += bu.D[ru] * A0[d];
+      H[2][d] += bu.N[ru] * A1[d];
+      if constexpr (ORD >= 2) {
+        H[3][d] += bu.D2[ru] * A0[d];
+        H[4][d] += bu.D[ru] * A1[d];
+        H[5][d] += bu.N[ru] * A2[d];
       }
     }
   }
-  NuPt<T> pt;
-  const T ww = w[0] == T(0) ? T(1) : w[0];
+}
+
+// The point in C (the compute type) from the tables of T.
+template <typename T, int ORD, bool REC, typename C = T>
+__device__ __forceinline__ NuPt<C> nu_eval_at(const NuSurf<T>& f, C u, C v,
+                                              T* rec, int* idx) {
+  const T* kn = f.kn;
+  const int nu = (int)kn[0], nv = (int)kn[1];
+  const int p = min((int)kn[2], NU_PMAX), q = min((int)kn[3], NU_PMAX);
+  NuB<C> bu, bv;
+  nu_basis<C, ORD>(kn + 4, f.rc, nu - 1, p, u, bu);
+  nu_basis<C, ORD>(kn + 4 + NU_KMAX, f.rc + p * (nu + p + 1), nv - 1, q, v,
+                   bv);
+  if constexpr (REC) {
+    // the spans and the 1-D values and first derivatives, for the column
+    // sums (nurbs_own_cols)
+    idx[0] = bu.i0;
+    idx[1] = bv.i0;
+#pragma unroll
+    for (int r = 0; r <= NU_PMAX; ++r) {
+      if (r <= p) {
+        rec[NU_OFF_NU + r] = T(bu.N[r]);
+        rec[NU_OFF_DU + r] = T(bu.D[r]);
+      }
+      if (r <= q) {
+        rec[NU_OFF_NV + r] = T(bv.N[r]);
+        rec[NU_OFF_DV + r] = T(bv.D[r]);
+      }
+    }
+  }
+  C H[ORD >= 2 ? 6 : 3][4];
+  nu_sums<C, ORD>(f.h, nu, nv, p, q, bu, bv, H);
+  NuPt<C> pt;
+  const C ww = H[0][3] == C(0) ? C(1) : H[0][3];
+  const C rw = C(1) / ww;
   pt.w = ww;
-  pt.wu = w[1];
-  pt.wv = w[2];
+  pt.wu = H[1][3];
+  pt.wv = H[2][3];
 #pragma unroll
   for (int d = 0; d < 3; ++d) {
-    pt.S[d] = H[0][d] / ww;
-    pt.Su[d] = (H[1][d] - pt.S[d] * w[1]) / ww;
-    pt.Sv[d] = (H[2][d] - pt.S[d] * w[2]) / ww;
+    pt.S[d] = H[0][d] * rw;
+    pt.Su[d] = (H[1][d] - pt.S[d] * pt.wu) * rw;
+    pt.Sv[d] = (H[2][d] - pt.S[d] * pt.wv) * rw;
     if constexpr (ORD >= 2) {
-      pt.Suu[d] = (H[3][d] - pt.Su[d] * w[1] - pt.Su[d] * w[1] -
-                   pt.S[d] * w[3]) / ww;
-      pt.Suv[d] = (H[4][d] - pt.Su[d] * w[2] - pt.Sv[d] * w[1] -
-                   pt.S[d] * w[4]) / ww;
-      pt.Svv[d] = (H[5][d] - pt.Sv[d] * w[2] - pt.Sv[d] * w[2] -
-                   pt.S[d] * w[5]) / ww;
+      pt.Suu[d] = (H[3][d] - pt.Su[d] * pt.wu - pt.Su[d] * pt.wu -
+                   pt.S[d] * H[3][3]) * rw;
+      pt.Suv[d] = (H[4][d] - pt.Su[d] * pt.wv - pt.Sv[d] * pt.wu -
+                   pt.S[d] * H[4][3]) * rw;
+      pt.Svv[d] = (H[5][d] - pt.Sv[d] * pt.wv - pt.Sv[d] * pt.wv -
+                   pt.S[d] * H[5][3]) * rw;
     } else {
-      pt.Suu[d] = pt.Suv[d] = pt.Svv[d] = T(0);
+      pt.Suu[d] = pt.Suv[d] = pt.Svv[d] = C(0);
     }
   }
   return pt;
 }
 
-template <typename T, int ORD>
-__device__ __noinline__ NuPt<T> nu_eval(const T* net, const T* kn, T u,
-                                        T v) {
-  return nu_eval_at<T, ORD, false>(net, kn, u, v, nullptr, nullptr);
+template <typename T, int ORD, typename C = T>
+__device__ __forceinline__ NuPt<C> nu_eval(const NuSurf<T>& f, C u, C v) {
+  return nu_eval_at<T, ORD, false, C>(f, u, v, nullptr, nullptr);
 }
 
 // nu_eval, writing the point's spans to idx[0..1] and its basis values and
 // first derivatives to the record point ``rec`` (NU_OFF_NU ..).
 template <typename T, int ORD>
-__device__ __noinline__ NuPt<T> nu_eval_rec(const T* net, const T* kn, T u,
-                                            T v, T* rec, int* idx) {
-  return nu_eval_at<T, ORD, true>(net, kn, u, v, rec, idx);
+__device__ __noinline__ NuPt<T> nu_eval_rec(const NuSurf<T>& f, T u, T v,
+                                            T* rec, int* idx) {
+  return nu_eval_at<T, ORD, true>(f, u, v, rec, idx);
 }
 
 // The two planes whose intersection line is the ray: normals N1, N2 and
@@ -328,25 +470,26 @@ __device__ __forceinline__ NuStep<T> nu_step(const NuPlanes<T>& pl,
   const T det = st.f[2] * st.f[5] - st.f[4] * st.f[3];
   st.clamped = abs_(det) < T(1e-14);
   st.det = st.clamped ? T(1e-14) : det;
-  st.du = (st.f[0] * st.f[5] - st.f[1] * st.f[4]) / st.det;
-  st.dv = (st.f[1] * st.f[2] - st.f[0] * st.f[3]) / st.det;
+  const T rdet = T(1) / st.det;
+  st.du = (st.f[0] * st.f[5] - st.f[1] * st.f[4]) * rdet;
+  st.dv = (st.f[1] * st.f[2] - st.f[0] * st.f[3]) * rdet;
   return st;
 }
 
-// The stopped point (us, vs): the guess from the net's corner points and
-// ``niters`` clipped Newton steps.
+// The stopped point (us, vs): the guess from the net's corner points (the
+// raw net's first and last x and y) and ``niters`` clipped Newton steps.
 template <typename T>
-__device__ __noinline__ void nurbs_solve(const T* net, const T* kn,
-                                         int niters, T x, T y, T z, T L, T M,
-                                         T N, T& us, T& vs) {
-  const int npw = (int)kn[0] * (int)kn[1];
+__device__ __forceinline__ void nurbs_solve(const NuSurf<T>& f, int niters,
+                                            T x, T y, T z, T L, T M, T N,
+                                            T& us, T& vs) {
+  const int npw = (int)f.kn[0] * (int)f.kn[1];
   const NuPlanes<T> pl = nu_planes(x, y, z, L, M, N);
-  const T x0 = net[0], x1 = net[npw - 1];
-  const T y0 = net[npw], y1 = net[2 * npw - 1];
+  const T x0 = f.raw[0], x1 = f.raw[npw - 1];
+  const T y0 = f.raw[npw], y1 = f.raw[2 * npw - 1];
   T u = nu_clip((x - x0) / (x1 - x0 == T(0) ? T(1) : x1 - x0));
   T v = nu_clip((y - y0) / (y1 - y0 == T(0) ? T(1) : y1 - y0));
   for (int it = 0; it < niters; ++it) {
-    const NuStep<T> st = nu_step(pl, nu_eval<T, 1>(net, kn, u, v));
+    const NuStep<T> st = nu_step(pl, nu_eval<T, 1>(f, u, v));
     u = nu_clip(u - st.du);
     v = nu_clip(v - st.dv);
   }
@@ -361,14 +504,10 @@ struct NuHit {
   T t, n[3];
 };
 
+// t = |S - r0| and the unit normal Su x Sv / |.| (flipped toward -z) at the
+// net's point e.
 template <typename T>
-__device__ __noinline__ NuHit<T> nurbs_finish(const T* net, const T* kn,
-                                              T x, T y, T z, T L, T M, T N,
-                                              T us, T vs) {
-  const NuPlanes<T> pl = nu_planes(x, y, z, L, M, N);
-  const NuStep<T> st = nu_step(pl, nu_eval<T, 1>(net, kn, us, vs));
-  const NuPt<T> e = nu_eval<T, 1>(net, kn, nu_clip(us - st.du),
-                                  nu_clip(vs - st.dv));
+__device__ __forceinline__ NuHit<T> nu_hit(const NuPt<T>& e, T x, T y, T z) {
   NuHit<T> h;
   const T D[3] = {e.S[0] - x, e.S[1] - y, e.S[2] - z};
   h.t = sqrt_(nu_dot(D, D));
@@ -381,6 +520,39 @@ __device__ __noinline__ NuHit<T> nurbs_finish(const T* net, const T* kn,
 #pragma unroll
   for (int d = 0; d < 3; ++d) h.n[d] = n[d] / mag * flip;
   return h;
+}
+
+// t and the unit normal after the correction step from the stopped point
+// (us, vs), computed in C.
+template <typename T, typename C = T>
+__device__ __forceinline__ NuHit<T> nurbs_finish(const NuSurf<T>& f, T x, T y,
+                                                 T z, T L, T M, T N, T us,
+                                                 T vs) {
+  const NuPlanes<C> pl = nu_planes(C(x), C(y), C(z), C(L), C(M), C(N));
+  const NuStep<C> st = nu_step(pl, nu_eval<T, 1>(f, C(us), C(vs)));
+  const NuHit<C> h = nu_hit(
+      nu_eval<T, 1>(f, nu_clip(C(us) - st.du), nu_clip(C(vs) - st.dv)), C(x),
+      C(y), C(z));
+  NuHit<T> o;
+  o.t = T(h.t);
+#pragma unroll
+  for (int d = 0; d < 3; ++d) o.n[d] = T(h.n[d]);
+  return o;
+}
+
+// pol_bwd's forward sweep: the hit in double whatever T, out of line. The
+// float gradient of the exit intensity is ill-conditioned where the s/p
+// basis nearly degenerates (near-normal incidence near the vertex of a
+// polarized NURBS lens): there a few ulps in the states the forward sweep
+// leaves move pol_bwd's float input cotangents by up to 1e-3 of their
+// largest, in the plain version's float as much as in the kernel's. The
+// states of a hit taken in double are near the exact ones; the reverse's
+// precision moved nothing (PERF.md: the NURBS forwards).
+template <typename T>
+__device__ __noinline__ NuHit<T> nurbs_finish_bwd(const NuSurf<T>& f, T x,
+                                                  T y, T z, T L, T M, T N,
+                                                  T us, T vs) {
+  return nurbs_finish<T, double>(f, x, y, z, L, M, N, us, vs);
 }
 
 // The homogeneous cotangents of a point's sums (ops/step.py:
@@ -403,24 +575,6 @@ __device__ __forceinline__ void nu_homog_cot(const NuPt<T>& e, const T* gS,
   o[11] = -nu_dot(gSv, e.S) / e.w;
 }
 
-// t = |S - r0| and the unit normal Su x Sv / |.| (flipped toward -z) at the
-// net's point e.
-template <typename T>
-__device__ __forceinline__ NuHit<T> nu_hit(const NuPt<T>& e, T x, T y, T z) {
-  NuHit<T> h;
-  const T D[3] = {e.S[0] - x, e.S[1] - y, e.S[2] - z};
-  h.t = sqrt_(nu_dot(D, D));
-  T n[3];
-  nu_cross(e.Su, e.Sv, n);
-  T mag = sqrt_(nu_dot(n, n));
-  mag = mag == T(0) ? T(1) : mag;
-  const T nz = n[2] / mag;
-  const T flip = sign_(nz == T(0) ? T(1) : -nz);
-#pragma unroll
-  for (int d = 0; d < 3; ++d) h.n[d] = n[d] / mag * flip;
-  return h;
-}
-
 // The one corrected step from the stopped point (us, vs), which the adjoint
 // differentiates (ops/step.py: nurbs_forward after the solve): the planes,
 // the net at (us, vs) to first order, the step, and the net at the clipped
@@ -437,16 +591,15 @@ struct NuFwd {
 };
 
 template <typename T>
-__device__ __noinline__ void nurbs_corrected(const T* net, const T* kn, T x,
-                                             T y, T z, T L, T M, T N, T us,
-                                             T vs, NuFwd<T>& f, T* rec,
-                                             int* idx) {
+__device__ __noinline__ void nurbs_corrected(const NuSurf<T>& sf, T x, T y,
+                                             T z, T L, T M, T N, T us, T vs,
+                                             NuFwd<T>& f, T* rec, int* idx) {
   f.pl = nu_planes(x, y, z, L, M, N);
-  f.es = nu_eval_rec<T, 1>(net, kn, us, vs, rec, idx);
+  f.es = nu_eval_rec<T, 1>(sf, us, vs, rec, idx);
   f.st = nu_step(f.pl, f.es);
   f.U = us - f.st.du;
   f.V = vs - f.st.dv;
-  f.e1 = nu_eval_rec<T, 2>(net, kn, nu_clip(f.U), nu_clip(f.V), rec + NU_PT,
+  f.e1 = nu_eval_rec<T, 2>(sf, nu_clip(f.U), nu_clip(f.V), rec + NU_PT,
                            idx + 2);
 }
 
@@ -569,13 +722,15 @@ __device__ __noinline__ void nurbs_adjoint(const NuFwd<T>& f, T x, T y, T z,
 // z; b = N_i(u) N_j(v), b_u and b_v its derivatives) and g of b g_w + b_u
 // g_wu + b_v g_wv; then it adds cp's columns W G_d and its weight's
 // P . G + g to the warp's row ``row`` from column ``base`` (ops/step.py:
-// net_cotangent at both points). No float atomics and no shuffles, in a
-// fixed order. Called by every lane of the warp between two __syncwarp
-// (nurbs_warp_cols).
+// net_cotangent at both points), P and W from the raw net in global
+// memory. No float atomics and no shuffles, in a fixed order. Called by
+// every lane of the warp between two __syncwarp (nurbs_warp_cols).
 template <typename T>
 __device__ __noinline__ void nurbs_own_cols(const T* srec, const int* sidx,
-                                            const T* net, const T* kn,
-                                            int lane, T* row, int base) {
+                                            const NuSurf<T>& f, int lane,
+                                            T* row, int base) {
+  const T* kn = f.kn;
+  const T* net = f.raw;
   const int nv = (int)kn[1], npw = (int)kn[0] * nv;
   const int p = min((int)kn[2], NU_PMAX), q = min((int)kn[3], NU_PMAX);
   for (int cp = lane; cp < npw; cp += 32) {
@@ -618,34 +773,39 @@ __device__ __forceinline__ void nu_rec_none(int* idx) {
 template <typename T>
 __device__ __forceinline__ void nurbs_warp_cols(const T* srec,
                                                 const int* sidx,
-                                                const T* net, const T* kn,
-                                                int lane, T* row, int base) {
+                                                const NuSurf<T>& f, int lane,
+                                                T* row, int base) {
   __syncwarp();
-  nurbs_own_cols(srec, sidx, net, kn, lane, row, base);
+  nurbs_own_cols(srec, sidx, f, lane, row, base);
   __syncwarp();
 }
 
 // Dynamic shared memory of a nurbs-build backward of ``block`` threads:
-// its per-warp rows of ncomp columns, the nets and knot rows, then each
-// lane's staged record (ops/launch.py: nurbs_bwd_bytes).
+// its per-warp rows of ncomp columns (rounded up to 4-vectors, where the
+// tables start), the tables of kt knot rows and ns nets of nc columns
+// (nurbs_bytes), then each lane's staged record (ops/launch.py:
+// nurbs_bwd_bytes).
 template <typename T>
-size_t nurbs_bwd_bytes(int block, int ncomp, int S, int nc) {
-  return (size_t)(block / 32) * ncomp * sizeof(T) + nurbs_bytes<T>(S, nc) +
+size_t nurbs_bwd_bytes(int block, int ncomp, int ns, int nc, int kt) {
+  return (size_t)nu_net_stride((block / 32) * ncomp) * sizeof(T) +
+         nurbs_bytes<T>(ns, nc, kt) +
          (size_t)block * (2 * NU_PT * sizeof(T) + 4 * sizeof(int));
 }
 
 // The nurbs build's forward step (ops/step.py: step_plain with a NURBS
 // surface): step_fwd's PLANE and STANDARD branches with the tilts, and a
 // NURBS surface's intersection and normal from one parameter solve on its
-// net ``net`` (knot row ``kn``) with ``niters`` stopped steps. The extras
-// (adot_out, kloc) as step_fwd's; ``uv`` takes a NURBS surface's stopped
-// point (us, vs) for the backwards' reverse step. A function of its own,
-// as step_fwd_grat, so the other builds' step keeps its code.
-template <typename T, bool FULL>
+// net (surface s of the tables ``tb``) with ``niters`` stopped steps. The
+// extras (adot_out, kloc) as step_fwd's; ``uv`` takes a NURBS surface's
+// stopped point (us, vs) for the backwards' reverse step; with HIT64
+// (pol_bwd's forward sweep) its hit is taken in double (nurbs_finish_bwd).
+// A function of its own, as step_fwd_grat, so the other builds' step keeps
+// its code.
+template <typename T, bool FULL, bool HIT64 = false>
 __device__ __forceinline__ T step_fwd_nurbs(int code, int refl, int absorbs,
                                             int tilted, const T* p,
-                                            const T* rot, const T* net,
-                                            const T* kn, int niters, T n_pre,
+                                            const T* rot, const NuTab<T>& tb,
+                                            int s, int niters, T n_pre,
                                             T npost, T& x, T& y, T& z, T& L,
                                             T& M, T& N, T& inten, T& opd,
                                             T* adot_out = nullptr,
@@ -656,9 +816,12 @@ __device__ __forceinline__ T step_fwd_nurbs(int code, int refl, int absorbs,
   if (tilted) rot_local(rot, xl, yl, zl, L, M, N);
   T t, nx = T(0), ny = T(0), nz = T(-1);
   if (code == NURBS) {
+    const NuSurf<T> f = nu_surf(tb, s);
     T us, vs;
-    nurbs_solve(net, kn, niters, xl, yl, zl, L, M, N, us, vs);
-    const NuHit<T> h = nurbs_finish(net, kn, xl, yl, zl, L, M, N, us, vs);
+    nurbs_solve(f, niters, xl, yl, zl, L, M, N, us, vs);
+    const NuHit<T> h =
+        HIT64 && uv ? nurbs_finish_bwd(f, xl, yl, zl, L, M, N, us, vs)
+                    : nurbs_finish(f, xl, yl, zl, L, M, N, us, vs);
     t = h.t;
     nx = h.n[0];
     ny = h.n[1];
@@ -728,16 +891,17 @@ __device__ __forceinline__ T step_fwd_nurbs(int code, int refl, int absorbs,
 
 // The nurbs build's reverse step (ops/step.py: step_adjoint_plain with a
 // NURBS surface): step_adjoint's PLANE and STANDARD branches with the
-// tilts, ``gext`` as there, and a NURBS surface's intersection and normal
-// taken again from its stopped point ``uv`` (the forward sweep's:
-// nurbs_corrected) and reversed through nurbs_adjoint, which with the
-// evaluations writes the ray's record (rec, idx: nurbs_own_cols). A
+// tilts, ``gext`` as there, and a NURBS surface's (surface s of the tables
+// ``tb``) intersection and normal taken again from its stopped point
+// ``uv`` (the forward sweep's: nurbs_corrected) and reversed through
+// nurbs_adjoint, which with the evaluations writes the ray's record (rec,
+// idx: nurbs_own_cols). A
 // change to step_adjoint's PLANE and STANDARD code is made here too (and
 // in step_adjoint_grat).
 template <typename T, bool FULL>
 __device__ __forceinline__ void step_adjoint_nurbs(
     int code, int refl, int absorbs, int tilted, const T* p, const T* rot,
-    const T* net, const T* kn, const T* uv, T n_pre, T npost, T x, T y, T z,
+    const NuTab<T>& tb, int s, const T* uv, T n_pre, T npost, T x, T y, T z,
     T L, T M, T N, T i_in, T* g, T* gc, T* rec, int* idx,
     const T* gext = nullptr) {
   const T R = p[P_RADIUS], k = p[P_CONIC], pos = p[P_POS];
@@ -773,8 +937,8 @@ __device__ __forceinline__ void step_adjoint_nurbs(
     use1 = abs_(zl + t1 * N) <= abs_(zl + t2 * N);
     t = use1 ? t1 : t2;
   } else if (nrb) {
-    nurbs_corrected(net, kn, xl, yl, zl, L, M, N, uv[0], uv[1], fw, rec,
-                    idx);
+    nurbs_corrected(nu_surf(tb, s), xl, yl, zl, L, M, N, uv[0], uv[1], fw,
+                    rec, idx);
     const NuHit<T> h = nu_hit(fw.e1, xl, yl, zl);
     t = h.t;
     nx = h.n[0];

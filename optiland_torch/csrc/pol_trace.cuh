@@ -834,7 +834,7 @@ __device__ __forceinline__ void pol_surface_fwd(const T* sc, const int* sf,
 // 8 ray arrays and p's 18 parts, or (INTENSITY) the 8 ray arrays with the
 // exit intensity of the launch intensity and directions.
 template <typename T, bool INTENSITY, int B>
-__global__ void __launch_bounds__(FWD_BLOCK)
+__global__ void __launch_bounds__(FWD_BLOCK, fwd_min_blocks<B>(sizeof(T)))
 pol_fwd_kernel(const T* __restrict__ params, const T* __restrict__ coat,
                const int* __restrict__ flags, int S, int ncoat,
                const T* __restrict__ cf, int nc, int niters,
@@ -848,7 +848,7 @@ pol_fwd_kernel(const T* __restrict__ params, const T* __restrict__ coat,
   __shared__ T scf[Bd::SAG ? CAP * NC_MAX : 1];
   __shared__ int sf[NFLAG * CAP];
   load_coefs<T, Bd::SAG>(cf, S, nc, scf);
-  // the nets and knot rows of the NURBS surfaces (NURBS)
+  // the homogeneous nets and knot rows of the NURBS surfaces (NURBS)
   if constexpr (Bd::NURBS) nurbs_tables(cf, S, nc, dyn_base<T>());
   // the layout rows of the aux-bearing surfaces follow the table (AUX)
   const T* lay = Bd::AUX ? cf + (int64_t)S * nc : nullptr;
@@ -872,10 +872,9 @@ pol_fwd_kernel(const T* __restrict__ params, const T* __restrict__ coat,
     if constexpr (Bd::NURBS)
       n = step_fwd_nurbs<T, true>(
           sf[s], sf[S + s], sf[2 * S + s], sf[F_TILT * S + s],
-          sp + s * NUM_P, sr + s * N_ROT, dyn_base<T>() + s * nc,
-          dyn_base<T>() + S * nc + s * NU_KT, niters, n,
-          sp[s * NUM_P + P_NPOST], v[0], v[1], v[2], v[3], v[4], v[5], v[6],
-          v[7], &adot, kl);
+          sp + s * NUM_P, sr + s * N_ROT, NuTab<T>{dyn_base<T>(), cf, S, nc},
+          s, niters, n, sp[s * NUM_P + P_NPOST], v[0], v[1], v[2], v[3],
+          v[4], v[5], v[6], v[7], &adot, kl);
     else
     n = step_fwd<T, true, Bd::TILT, Bd::SAG, Bd::FREE, Bd::DEEP, Bd::AUX>(
         sf[s], sf[S + s], sf[2 * S + s], sf[F_TILT * S + s], sp + s * NUM_P,
@@ -944,10 +943,13 @@ pol_bwd_kernel(const T* __restrict__ params, const T* __restrict__ coat,
   const int astride = DYN ? ncomp : NCOMP_MAX;
   const int nacc = DYN ? nw * ncomp : NW_MAX * NCOMP_MAX;
   for (int j = threadIdx.x; j < nacc; j += blockDim.x) acc[j] = T(0);
-  // the nets and knot rows of the NURBS surfaces after the rows, then
-  // the warps' staged records (NURBS: nurbs_bwd_bytes)
-  T* const nets = acc + nacc;
-  if constexpr (Bd::NURBS) nurbs_tables(cf, S, nc, nets);
+  // the knot table and the NURBS surfaces' homogeneous nets after the
+  // rows (from a 4-vector boundary), then the warps' staged records
+  // (NURBS: nurbs_tables, nurbs_bwd_bytes)
+  T* const nets = acc + (Bd::NURBS ? nu_net_stride(nacc) : nacc);
+  int nwords = 0;
+  if constexpr (Bd::NURBS) nwords = nurbs_tables(cf, S, nc, nets);
+  const NuTab<T> ntab{nets, cf, S, nc};
   if (threadIdx.x == 0) {
     fill_npre(sp, sf, S, npre);
     if constexpr (Bd::SAG) fill_sag<Bd::AUX>(sf, S, ssag);
@@ -957,9 +959,9 @@ pol_bwd_kernel(const T* __restrict__ params, const T* __restrict__ coat,
   T* row = acc + warp * astride;
   // NURBS: the warp's staged records for the net columns (lane r's at
   // srec + r * 2 NU_PT, its spans at sidx + 4 r), this lane's at rec, idx
-  T* const srec = nets + S * (nc + NU_KT) + warp * 32 * 2 * NU_PT;
+  T* const srec = nets + nwords + warp * 32 * 2 * NU_PT;
   int* const sidx = reinterpret_cast<int*>(
-      nets + S * (nc + NU_KT) + nw * 32 * 2 * NU_PT) + warp * 32 * 4;
+      nets + nwords + nw * 32 * 2 * NU_PT) + warp * 32 * 4;
   T* const rec = srec + lane * 2 * NU_PT;
   int* const idx = sidx + lane * 4;
   const int cbase = S * N_GF + nsagc;  // the coat columns
@@ -1004,10 +1006,9 @@ pol_bwd_kernel(const T* __restrict__ params, const T* __restrict__ coat,
         }
         T kl[6];
         if constexpr (Bd::NURBS)
-          step_fwd_nurbs<T, true>(
+          step_fwd_nurbs<T, true, true>(
               sf[s], sf[S + s], sf[2 * S + s], sf[F_TILT * S + s],
-              sp + s * NUM_P, sr + s * N_ROT, acc + nacc + s * nc,
-              acc + nacc + S * nc + s * NU_KT, niters, npre[s],
+              sp + s * NUM_P, sr + s * N_ROT, ntab, s, niters, npre[s],
               sp[s * NUM_P + P_NPOST], v[0], v[1], v[2], v[3], v[4], v[5],
               v[6], v[7], &ad[s], kl, suv[s]);
         else
@@ -1104,8 +1105,8 @@ pol_bwd_kernel(const T* __restrict__ params, const T* __restrict__ coat,
         if constexpr (Bd::NURBS)
           step_adjoint_nurbs<T, true>(
               sf[s], refl, sf[2 * S + s], tilted, sp + s * NUM_P,
-              sr + s * N_ROT, nets + s * nc, nets + S * nc + s * NU_KT,
-              suv[s], npre[s], sp[s * NUM_P + P_NPOST], st[s][0], st[s][1],
+              sr + s * N_ROT, ntab, s, suv[s], npre[s],
+              sp[s * NUM_P + P_NPOST], st[s][0], st[s][1],
               st[s][2], st[s][3], st[s][4], st[s][5], st[s][6], g, gc, rec,
               idx, gext);
         else
@@ -1133,8 +1134,7 @@ pol_bwd_kernel(const T* __restrict__ params, const T* __restrict__ coat,
       if constexpr (Bd::NURBS) {
         if (!valid) nu_rec_none(idx);
         if (sf[s] == NURBS)
-          nurbs_warp_cols(srec, sidx, nets + s * nc,
-                          nets + S * nc + s * NU_KT, lane, row,
+          nurbs_warp_cols(srec, sidx, nu_surf(ntab, s), lane, row,
                           S * N_GF + ssag[s] * nc);
       }
       for (int c = 0; c < ncoat; ++c) {
@@ -1186,7 +1186,7 @@ int check_shape(int ncoat, int nstates) {
 // NU: the nurbs build's launchers (nurbs_pol.cu), which take it alone.
 template <typename T, bool NU = false>
 int fwd_launch(const T* params, const T* coat, const int* flags, int S,
-               int build, const T* cf, int nc, int niters, int ncoat,
+               int build, const T* cf, int nc, int kt, int niters, int ncoat,
                void* const* in, int64_t R, void* const* out, int intensity,
                const double* c, int nstates, cudaStream_t stream) {
   if (int e = check_shape(ncoat, nstates)) return e;
@@ -1199,7 +1199,10 @@ int fwd_launch(const T* params, const T* coat, const int* flags, int S,
     if (!shape_ok<B>(S, nc, niters)) return (int)cudaErrorInvalidValue;
     const auto kernel =
         intensity ? pol_fwd_kernel<T, true, B> : pol_fwd_kernel<T, false, B>;
-    const size_t dyn = Build<B>::NURBS ? nurbs_bytes<T>(S, nc) : 0;
+    if (Build<B>::NURBS && kt <= S) return (int)cudaErrorInvalidValue;
+    // the tables, with room for a net on every surface (the forward's
+    // launch does not count the NURBS surfaces)
+    const size_t dyn = Build<B>::NURBS ? nurbs_bytes<T>(S, nc, kt) : 0;
     if (int e2 = set_dyn_smem<Build<B>::NURBS>(kernel, dyn)) return e2;
     kernel<<<(unsigned)blocks, FWD_BLOCK, dyn, stream>>>(
         params, coat, flags, S, ncoat, cf, nc, niters,
@@ -1215,7 +1218,7 @@ int fwd_launch(const T* params, const T* coat, const int* flags, int S,
 
 template <typename T, bool NU = false>
 int bwd_launch(const T* params, const T* coat, const int* flags, int S,
-               int build, const T* cf, int nc, int niters, int nsag,
+               int build, const T* cf, int nc, int kt, int niters, int nsag,
                int ncoat, void* const* in, void* const* cot, int64_t R,
                void* const* din, T* partial, int nblocks, T* out,
                int intensity, const double* c, int nstates,
@@ -1235,7 +1238,8 @@ int bwd_launch(const T* params, const T* coat, const int* flags, int S,
     const int ncomp = S * (N_GF + ncoat) + nsagc;
     size_t dyn;
     if constexpr (Build<B>::NURBS) {
-      dyn = nurbs_bwd_bytes<T>(BWD_BLOCK, ncomp, S, nc);
+      if (kt <= S || nsag < 1) return (int)cudaErrorInvalidValue;
+      dyn = nurbs_bwd_bytes<T>(BWD_BLOCK, ncomp, nsag, nc, kt);
       if (int e2 = set_pt_smem(kernel, dyn)) return e2;
     } else {
       dyn = dyn_bytes<T, DYN>(BWD_BLOCK / 32, ncomp);
@@ -1266,24 +1270,25 @@ int bwd_launch(const T* params, const T* coat, const int* flags, int S,
 #define OTC_POL(SUF, T, NAME, NU)                                            \
   extern "C" int otc_pol_fwd##NAME##_##SUF(                                  \
       const T* params, const T* coat, const int* flags, int S, int build,    \
-      const T* cf, int nc, int niters, int ncoat, void* const* in,           \
+      const T* cf, int nc, int kt, int niters, int ncoat, void* const* in,   \
       int64_t R, void* const* out, int intensity, double c0, double c1,      \
       double c2, double c3, double c4, double c5, double c6, double c7,      \
       int nstates, void* stream) {                                           \
     const double c[8] = {c0, c1, c2, c3, c4, c5, c6, c7};                    \
-    return fwd_launch<T, NU>(params, coat, flags, S, build, cf, nc, niters,  \
-                         ncoat, in, R, out, intensity, c, nstates,           \
-                         (cudaStream_t)stream);                              \
+    return fwd_launch<T, NU>(params, coat, flags, S, build, cf, nc, kt,      \
+                             niters, ncoat, in, R, out, intensity, c,        \
+                             nstates, (cudaStream_t)stream);                 \
   }                                                                          \
   extern "C" int otc_pol_bwd##NAME##_##SUF(                                  \
       const T* params, const T* coat, const int* flags, int S, int build,    \
-      const T* cf, int nc, int niters, int nsag, int ncoat, void* const* in, \
-      void* const* cot, int64_t R, void* const* din, T* partial,             \
-      int nblocks, T* out, int intensity, double c0, double c1, double c2,   \
-      double c3, double c4, double c5, double c6, double c7, int nstates,    \
-      void* stream) {                                                        \
+      const T* cf, int nc, int kt, int niters, int nsag, int ncoat,          \
+      void* const* in, void* const* cot, int64_t R, void* const* din,        \
+      T* partial, int nblocks, T* out, int intensity, double c0, double c1,  \
+      double c2, double c3, double c4, double c5, double c6, double c7,      \
+      int nstates, void* stream) {                                           \
     const double c[8] = {c0, c1, c2, c3, c4, c5, c6, c7};                    \
-    return bwd_launch<T, NU>(params, coat, flags, S, build, cf, nc, niters,  \
-                         nsag, ncoat, in, cot, R, din, partial, nblocks,     \
-                         out, intensity, c, nstates, (cudaStream_t)stream);  \
+    return bwd_launch<T, NU>(params, coat, flags, S, build, cf, nc, kt,      \
+                             niters, nsag, ncoat, in, cot, R, din, partial,  \
+                             nblocks, out, intensity, c, nstates,            \
+                             (cudaStream_t)stream);                          \
   }

@@ -215,6 +215,20 @@ struct Build {
   static __host__ __device__ int block(int nc) { return FREE ? nc + 2 : nc; }
 };
 
+// The resident blocks of FWD_BLOCK threads an SM that a build's forward
+// kernels ask of ptxas (their __launch_bounds__ minimum), by the size of
+// their type. The nurbs build's
+// ask for 3 in f32 (so at most 80 registers a thread, where they took
+// 117-128 at 2 blocks) and 2 in f64 (128 registers, where they took
+// 200-242 at 1); on the H100 both ran faster, their spills included
+// (PERF.md: step 0 of the NURBS forwards). Every other build asks for
+// none: a minimum of 0 leaves the bound of FWD_BLOCK alone, and with it
+// their machine code (a minimum of 1 moved 93 of their functions).
+template <int B>
+constexpr int fwd_min_blocks(size_t type_size) {
+  return Build<B>::NURBS ? (type_size == 4 ? 3 : 2) : 0;
+}
+
 // Columns of a Newton surface's block of a backward's partial row in build
 // ``build`` (Build<B>::block): nc coefficients, then (CART) P_G1 and P_G2;
 // a grating's in the grating build: P_G1 and P_G2; a NURBS surface's in

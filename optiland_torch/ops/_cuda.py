@@ -43,36 +43,38 @@ _IP = ctypes.POINTER(ctypes.c_int)  # an int the entry writes
 _ARGTYPES = {
     # seed, offset, R, px, py, u1, u2, stream
     "prng_disk": [_U64, _I64, _I64, _VP, _VP, _VP, _VP, _VP],
-    # params, aim, flags, S, build, coeffs, nc, niters, px, py, R, seed,
-    # offset, prng, rows, stream
-    "merit_fwd": [_VP, _VP, _VP, _I, _I, _VP, _I, _I, _VP, _VP, _I64, _U64,
-                  _I64, _I, _VP, _VP],
-    # params, aim, stats, flags, S, build, coeffs, nc, niters, nsag, px, py,
-    # R, seed, offset, prng, partial, nblocks, block, out, stream
-    "merit_bwd": [_VP, _VP, _VP, _VP, _I, _I, _VP, _I, _I, _I, _VP, _VP,
-                  _I64, _U64, _I64, _I, _VP, _I, _I, _VP, _VP],
-    # params, flags, S, build, coeffs, nc, niters, in[8], R, out[8], stream
-    "trace_fwd": [_VP, _VP, _I, _I, _VP, _I, _I, _PP, _I64, _PP, _VP],
-    # params, aim, flags, S, build, coeffs, nc, niters, px, py, R, out[8],
+    # params, aim, flags, S, build, coeffs, nc, kt, niters, px, py, R,
+    # seed, offset, prng, rows, stream (kt: the knot table's rows, 0
+    # without one: launch.knot_rows)
+    "merit_fwd": [_VP, _VP, _VP, _I, _I, _VP, _I, _I, _I, _VP, _VP, _I64,
+                  _U64, _I64, _I, _VP, _VP],
+    # params, aim, stats, flags, S, build, coeffs, nc, kt, niters, nsag, px,
+    # py, R, seed, offset, prng, partial, nblocks, block, out, stream
+    "merit_bwd": [_VP, _VP, _VP, _VP, _I, _I, _VP, _I, _I, _I, _I, _VP,
+                  _VP, _I64, _U64, _I64, _I, _VP, _I, _I, _VP, _VP],
+    # params, flags, S, build, coeffs, nc, kt, niters, in[8], R, out[8],
     # stream
-    "trace_field_fwd": [_VP, _VP, _VP, _I, _I, _VP, _I, _I, _VP, _VP, _I64,
-                        _PP, _VP],
-    # params, flags, S, build, coeffs, nc, niters, nsag, in[8], cot[8], R,
-    # din[8], partial, nblocks, block, out, stream
-    "trace_bwd": [_VP, _VP, _I, _I, _VP, _I, _I, _I, _PP, _PP, _I64, _PP,
-                  _VP, _I, _I, _VP, _VP],
-    # params, aim, flags, S, build, coeffs, nc, niters, nsag, px, py,
-    # cot[8], R, partial, nblocks, block, out, stream
-    "trace_field_bwd": [_VP, _VP, _VP, _I, _I, _VP, _I, _I, _I, _VP, _VP,
-                        _PP, _I64, _VP, _I, _I, _VP, _VP],
-    # params, mats, flags, S, build, coeffs, nc, niters, nm, in[9], R,
+    "trace_fwd": [_VP, _VP, _I, _I, _VP, _I, _I, _I, _PP, _I64, _PP, _VP],
+    # params, aim, flags, S, build, coeffs, nc, kt, niters, px, py, R,
     # out[8], stream
-    "trace_fwd_poly": [_VP, _VP, _VP, _I, _I, _VP, _I, _I, _I, _PP, _I64,
-                       _PP, _VP],
-    # params, mats, flags, S, build, coeffs, nc, niters, nsag, nm, in[9],
-    # cot[8], R, din[8], partial, nblocks, block, out, stream
-    "trace_bwd_poly": [_VP, _VP, _VP, _I, _I, _VP, _I, _I, _I, _I, _PP, _PP,
-                       _I64, _PP, _VP, _I, _I, _VP, _VP],
+    "trace_field_fwd": [_VP, _VP, _VP, _I, _I, _VP, _I, _I, _I, _VP, _VP,
+                        _I64, _PP, _VP],
+    # params, flags, S, build, coeffs, nc, kt, niters, nsag, in[8], cot[8],
+    # R, din[8], partial, nblocks, block, out, stream
+    "trace_bwd": [_VP, _VP, _I, _I, _VP, _I, _I, _I, _I, _PP, _PP, _I64,
+                  _PP, _VP, _I, _I, _VP, _VP],
+    # params, aim, flags, S, build, coeffs, nc, kt, niters, nsag, px, py,
+    # cot[8], R, partial, nblocks, block, out, stream
+    "trace_field_bwd": [_VP, _VP, _VP, _I, _I, _VP, _I, _I, _I, _I, _VP,
+                        _VP, _PP, _I64, _VP, _I, _I, _VP, _VP],
+    # params, mats, flags, S, build, coeffs, nc, kt, niters, nm, in[9], R,
+    # out[8], stream
+    "trace_fwd_poly": [_VP, _VP, _VP, _I, _I, _VP, _I, _I, _I, _I, _PP,
+                       _I64, _PP, _VP],
+    # params, mats, flags, S, build, coeffs, nc, kt, niters, nsag, nm,
+    # in[9], cot[8], R, din[8], partial, nblocks, block, out, stream
+    "trace_bwd_poly": [_VP, _VP, _VP, _I, _I, _VP, _I, _I, _I, _I, _I, _PP,
+                       _PP, _I64, _PP, _VP, _I, _I, _VP, _VP],
     # the per-thread-sum and nurbs backwards' resident blocks per SM: (mode:
     # 0 generic, 1 field, 2 poly,) build, block, dynamic bytes, out
     "merit_bwd_occupancy": [_I, _I, _I64, _IP],
@@ -83,15 +85,15 @@ _ARGTYPES = {
     # chunk, nsplit, partial, out, stream
     **{name: [_PP, _PP, _PP, _I64, _I64, _D, _D, _I64, _I, _VP, _VP, _VP]
        for name in ("huygens_fwd", "huygens_bwd_img", "huygens_bwd_pup")},
-    # params, coat, flags, S, build, coeffs, nc, niters, ncoat, in[8], R,
-    # out[26 or 8], intensity, 8 state coefficients, nstates, stream
-    "pol_fwd": [_VP, _VP, _VP, _I, _I, _VP, _I, _I, _I, _PP, _I64, _PP, _I]
-    + [_D] * 8 + [_I, _VP],
-    # params, coat, flags, S, build, coeffs, nc, niters, nsag, ncoat, in[8],
-    # cot[26 or 8], R, din[8], partial, nblocks, out, intensity, 8 state
-    # coefficients, nstates, stream
-    "pol_bwd": [_VP, _VP, _VP, _I, _I, _VP, _I, _I, _I, _I, _PP, _PP, _I64,
-                _PP, _VP, _I, _VP, _I] + [_D] * 8 + [_I, _VP],
+    # params, coat, flags, S, build, coeffs, nc, kt, niters, ncoat, in[8],
+    # R, out[26 or 8], intensity, 8 state coefficients, nstates, stream
+    "pol_fwd": [_VP, _VP, _VP, _I, _I, _VP, _I, _I, _I, _I, _PP, _I64, _PP,
+                _I] + [_D] * 8 + [_I, _VP],
+    # params, coat, flags, S, build, coeffs, nc, kt, niters, nsag, ncoat,
+    # in[8], cot[26 or 8], R, din[8], partial, nblocks, out, intensity, 8
+    # state coefficients, nstates, stream
+    "pol_bwd": [_VP, _VP, _VP, _I, _I, _VP, _I, _I, _I, _I, _I, _PP, _PP,
+                _I64, _PP, _VP, _I, _VP, _I] + [_D] * 8 + [_I, _VP],
 }
 # the nurbs build's entries (csrc/nurbs_*.cu: launch.entry_name) take the
 # arguments of the other builds'

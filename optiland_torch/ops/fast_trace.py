@@ -66,7 +66,7 @@ from optiland_torch.ops.fused_trace import (
 from optiland_torch.ops.launch import (
     BWD_BLOCK, BWD_MAX_BLOCKS, GRAT, N_AIM, TRACE_BUILDS, build_of,
     bwd_grid, check_cuda_inputs, covered, device_of, device_table, entry_name, flags,
-    grating_flags, inner_flags, kernel_tables, launch_from_pupil, launch_key,
+    grating_flags, inner_flags, kernel_tables, knot_rows, launch_from_pupil, launch_key,
     lay_row, sag_columns, sag_surfaces, unsupported, with_builds,
 )
 from optiland_torch.ops.step import (
@@ -375,7 +375,8 @@ def _bwd_blocks(R):
 
 def _launch(name, params, spec, coeffs, lay, before, rest):
     """Launch kernel ``name`` with (params, ``before``, flags, S, build,
-    the coefficient and layout tables, nc, newton_iters, ``rest``)."""
+    the coefficient and layout tables, nc, the knot table's rows,
+    newton_iters, ``rest``)."""
     from optiland_torch.ops import _cuda
 
     build = _build(spec)
@@ -386,17 +387,19 @@ def _launch(name, params, spec, coeffs, lay, before, rest):
             # the flag rows: all but the annular flags and newton_iters
             # (the grating row last, which only the grating build reads)
             flags(spec[:-2], params.device).data_ptr(), len(spec[0]), build,
-            table.data_ptr(), coeffs.shape[1], spec[-1], *rest,
+            table.data_ptr(), coeffs.shape[1], knot_rows(lay), spec[-1],
+            *rest,
             _cuda.stream(),
         )
     _cuda.check(rc, name)
     LAUNCHES[launch_key(name, build)] += 1
 
 
-def _partial(params, spec, nc, mode, R, nm=0, block=None):
+def _partial(params, spec, nc, mode, R, nm=0, block=None, kt=0):
     """A backward's per-block partial rows, their count, the count of
     surfaces with a block, and the launch's block (``launch.bwd_grid``, at
-    most ``block``, BWD_BLOCK by default): FULL_GRAD_COLS per surface, the
+    most ``block``, BWD_BLOCK by default; kt the knot table's rows, 0
+    without one): FULL_GRAD_COLS per surface, the
     block of each Newton-family surface or, in the grating build, grating
     (``launch.block_width``), then the aim entries (``mode`` "field") or
     the S * nm dispersion coefficients ("poly")."""
@@ -407,7 +410,8 @@ def _partial(params, spec, nc, mode, R, nm=0, block=None):
              + sag_columns(spec[0], nc, build, _grat(spec)) + n_extra)
     block, nb, _ = bwd_grid("trace_bwd", mode, S, nm, params.dtype, build, R,
                             params.device,
-                            BWD_BLOCK if block is None else block, nc, ncomp)
+                            BWD_BLOCK if block is None else block, nc, ncomp,
+                            kt, nsag)
     return params.new_empty((nb, ncomp)), nb, nsag, block
 
 
@@ -445,7 +449,7 @@ def trace_bwd(params, spec, nc, rays, cots, coeffs=None, lay=None,
     _check_nc(coeffs, nc)
     S, R = len(spec[0]), rays[0].shape[0]
     partial, nb, nsag, bd = _partial(params, spec, nc, "generic", R,
-                                     block=block)
+                                     block=block, kt=knot_rows(lay))
     din = _empty8(rays[0])
     out = params.new_zeros(S * (NUM_P + nc))
     _launch("trace_bwd", params, spec, coeffs, lay, (),
@@ -488,7 +492,7 @@ def trace_field_bwd(params, aim, spec, nc, Px, Py, cots, coeffs=None,
     _check_nc(coeffs, nc)
     S, R = len(spec[0]), Px.shape[0]
     partial, nb, nsag, bd = _partial(params, spec, nc, "field", R,
-                                     block=block)
+                                     block=block, kt=knot_rows(lay))
     out = params.new_zeros(S * (NUM_P + nc) + N_AIM)
     _launch("trace_field_bwd", params, spec, coeffs, lay, (aim.data_ptr(),),
             (nsag, Px.data_ptr(), Py.data_ptr(), _cuda.pointers(cots), R,
@@ -554,7 +558,8 @@ def trace_bwd_poly(params, mats, spec, nc, rays, cots, coeffs=None,
     _check_poly(params, mats, spec, rays + cots, coeffs, lay)
     _check_nc(coeffs, nc)
     S, R, nm = len(spec[0]), rays[0].shape[0], mats.shape[1]
-    partial, nb, nsag, bd = _partial(params, spec, nc, "poly", R, nm, block)
+    partial, nb, nsag, bd = _partial(params, spec, nc, "poly", R, nm, block,
+                                     knot_rows(lay))
     din = _empty8(rays[0])
     out = params.new_zeros(S * (NUM_P + nc + nm))
     _launch("trace_bwd_poly", params, spec, coeffs, lay, (mats.data_ptr(),),

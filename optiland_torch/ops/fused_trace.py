@@ -57,7 +57,7 @@ from optiland_torch.core.system import (
 from optiland_torch.ops.launch import (
     BWD_BLOCK, FWD_BLOCK, GRAT, N_AIM, TRACE_BUILDS, build_of, bwd_grid,
     check_cuda_inputs, check_dtype, covered, device_of, device_table,
-    entry_name, flags, grating_flags, kernel_tables, launch_from_pupil, launch_key, lay_row,
+    entry_name, flags, grating_flags, kernel_tables, knot_rows, launch_from_pupil, launch_key, lay_row,
     sag_columns, sag_surfaces, unsupported, with_builds,
 )
 from optiland_torch.ops.step import (
@@ -425,7 +425,7 @@ def merit_fwd(params, aim, spec, R, seed=0, offset=0, Px=None, Py=None,
         rc = _cuda.call(
             entry_name("merit_fwd", build), params.dtype, params.data_ptr(), aim.data_ptr(),
             flags(spec[:-1], params.device).data_ptr(), len(spec[0]), build,
-            table.data_ptr(), coeffs.shape[1], spec[-1],
+            table.data_ptr(), coeffs.shape[1], knot_rows(lay), spec[-1],
             None if prng else Px.data_ptr(), None if prng else Py.data_ptr(),
             int(R), int(seed) & ((1 << 64) - 1), int(offset), int(prng),
             rows.data_ptr(), _cuda.stream(),
@@ -513,8 +513,10 @@ def merit_bwd(params, aim, stats, spec, nc, R, seed=0, offset=0, Px=None,
     stats = stats.to(dtype=params.dtype).contiguous()
     ncomp = (S * len(GRAD_COLS) + sag_columns(spec[0], nc, build, spec[3])
              + N_AIM)
+    nsag = len(sag_surfaces(spec[0], build, spec[3]))
     block, nb, _ = bwd_grid("merit_bwd", "merit", S, 0, params.dtype, build,
-                            int(R), params.device, block, nc, ncomp)
+                            int(R), params.device, block, nc, ncomp,
+                            knot_rows(lay), nsag)
     partial = torch.empty((nb, ncomp), dtype=params.dtype, device=params.device)
     out = torch.zeros(S * (NUM_P + nc) + N_AIM, dtype=params.dtype,
                       device=params.device)
@@ -524,8 +526,7 @@ def merit_bwd(params, aim, stats, spec, nc, R, seed=0, offset=0, Px=None,
         rc = _cuda.call(
             entry_name("merit_bwd", build), params.dtype, params.data_ptr(), aim.data_ptr(),
             stats.data_ptr(), flags(spec[:-1], params.device).data_ptr(), S,
-            build, table.data_ptr(), nc, spec[-1],
-            len(sag_surfaces(spec[0], build, spec[3])),
+            build, table.data_ptr(), nc, knot_rows(lay), spec[-1], nsag,
             None if prng else Px.data_ptr(), None if prng else Py.data_ptr(),
             int(R), int(seed) & ((1 << 64) - 1), int(offset), int(prng),
             partial.data_ptr(), nb, int(block), out.data_ptr(), _cuda.stream(),

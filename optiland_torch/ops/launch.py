@@ -89,7 +89,8 @@ NC_MAX = 36  # coefficient columns the kernels take (a 6 x 6 table)
 # The nurbs build's bound on a net: its row of 4 nu nv columns (every net of
 # up to 8 x 8 control points), its degrees, its knots in each direction
 # (nu + p + 1), and the width of its knot table row (nu, nv, p, q, then the
-# u and v knots, each padded to NU_KMAX).
+# u and v knots, each padded to NU_KMAX); the knot table's rows after the
+# surfaces' hold its tail (``_knot_tail``).
 NC_NURBS = 256
 NU_PMAX = 7
 NU_KMAX = 24
@@ -256,15 +257,59 @@ def _nurbs_bound(aux):
         over.append(f"degree {max(p, q)} (NU_PMAX = {NU_PMAX})")
     if max(len(uk), len(vk)) > NU_KMAX:
         over.append(f"{max(len(uk), len(vk))} knots (NU_KMAX = {NU_KMAX})")
+    if any(b < a for k in (uk, vk) for a, b in zip(k, k[1:])):
+        over.append("knots that decrease (the kernels search the span)")
     return ", ".join(over) or None
+
+
+def _recips(knots, n, p):
+    """A knot row's reciprocal knot differences for the basis of degree p
+    of n control points (nk = n + p + 1 knots): for k = 1..p, the nk
+    values 1 / (U[i + k] - U[i]), i = 0..nk - 1, 0 where the interval is
+    empty or i + k passes the last knot (csrc/nurbs_step.cuh: nu_basis)."""
+    nk = n + p + 1
+    out = []
+    for k in range(1, p + 1):
+        for i in range(nk):
+            d = knots[i + k] - knots[i] if i + k < min(nk, len(knots)) else 0
+            out.append(1.0 / d if d != 0 else 0.0)
+    return out
+
+
+def _knot_tail(codes, aux, width):
+    """The knot table's tail, rows of ``width`` after the S surfaces' rows
+    (csrc/nurbs_step.cuh: nu_tail): its row count E and the count ns of
+    NURBS surfaces, then for each surface the offset in the tail of its
+    reciprocal knot differences, then for each surface the slot of its
+    homogeneous net among the ns (both 0 without a net), then each NURBS
+    surface's reciprocals (``_recips``: u, then v), zero-padded to E
+    rows."""
+    S = len(codes)
+    offsets, slots, vals = [], [], []
+    for c, a in zip(codes, aux):
+        if c == geom.NURBS:
+            _, nu, nv, p, q, uk, vk = a
+            offsets.append(2 + 2 * S + len(vals))
+            slots.append(sum(k == geom.NURBS for k in codes[:len(slots)]))
+            vals += _recips(uk, nu, p) + _recips(vk, nv, q)
+        else:
+            offsets.append(0)
+            slots.append(0)
+    n = 2 + 2 * S + len(vals)
+    E = -(-n // width)
+    tail = [float(v) for v in [E, codes.count(geom.NURBS)] + offsets + slots]
+    tail += vals + [0.0] * (E * width - n)
+    return [tail[r * width:(r + 1) * width] for r in range(E)]
 
 
 @functools.lru_cache(maxsize=64)
 def _knot_table(codes, aux, dtype, device):
-    """The (S, NU_KT) knot table of a structure's NURBS surfaces (every
-    other row zero): nu, nv, p, q, then the u knots from column 4 and the
-    v knots from column 4 + NU_KMAX, zero-padded; wider where a net has
-    more knots (which the kernels do not take: ``check_cuda_inputs``)."""
+    """The (S + E, NU_KT) knot table of a structure's NURBS surfaces: row s
+    (zero for a surface without a net) holds nu, nv, p, q, then the u
+    knots from column 4 and the v knots from column 4 + NU_KMAX,
+    zero-padded; the E rows after them its tail (``_knot_tail``). Wider
+    where a net has more knots (which the kernels do not take:
+    ``check_cuda_inputs``)."""
     kmax = max([NU_KMAX] + [len(k) for c, a in zip(codes, aux)
                             if c == geom.NURBS for k in a[5:]])
     rows = []
@@ -276,13 +321,21 @@ def _knot_table(codes, aux, dtype, device):
             row[4:4 + len(uk)] = uk
             row[4 + kmax:4 + kmax + len(vk)] = vk
         rows.append(row)
+    rows += _knot_tail(codes, aux, 4 + 2 * kmax)
     return torch.tensor(rows, dtype=dtype, device=device)
+
+
+def knot_rows(lay):
+    """The rows of a knot table (the surfaces' and its tail's): what the
+    nurbs build's launches size their shared memory by; 0 without one
+    (None, or an aux-bearing surface's layout table)."""
+    return 0 if lay is None or lay.dim() != 2 else int(lay.shape[0])
 
 
 def kernel_tables(system, dtype):
     """(coeffs, lay): the (S, W) coefficient table the kernels read and
     the (S, W, LAY_COLS) layout table of its aux-bearing rows, or with a
-    NURBS surface the (S, NU_KT) knot table of its nets (None without
+    NURBS surface the (S + E, NU_KT) knot table of its nets (None without
     either), the two back to back in one buffer (``device_table``). A
     NURBS row is the stack's own (the control points, then the weights);
     a NURBS surface beside an aux-bearing one raises NotImplementedError,
@@ -454,14 +507,30 @@ def per_thread(build):
 NU_PT = 12 + 4 * (NU_PMAX + 1)
 
 
-def nurbs_bwd_bytes(block, ncomp, S, nc, dtype):
+def _vec4(n):
+    """n values rounded up to whole 4-vectors (csrc/nurbs_step.cuh:
+    nu_net_stride)."""
+    return (n + 3) // 4 * 4
+
+
+def nurbs_bytes(ns, nc, kt, dtype):
+    """Dynamic shared memory of the nurbs build's tables (csrc/
+    nurbs_step.cuh: nurbs_bytes): the kt rows of the knot table with its
+    tail (``knot_rows``), then the homogeneous nets of ns surfaces of nc
+    net columns, each rounded up to 4-vectors (a forward, whose launch
+    does not count the NURBS surfaces, takes room for S)."""
+    return (kt * NU_KT + ns * _vec4(nc)) * (torch.finfo(dtype).bits // 8)
+
+
+def nurbs_bwd_bytes(block, ncomp, ns, nc, kt, dtype):
     """Dynamic shared memory of a nurbs-build backward of ``block`` threads
     (csrc/nurbs_step.cuh: nurbs_bwd_bytes): the per-warp rows of ncomp
-    columns, the nets and knot rows of S surfaces of nc net columns, and
-    each lane's staged record (2 NU_PT values and 4 int spans)."""
+    columns (rounded up to 4-vectors), the tables of its ns NURBS surfaces
+    (``nurbs_bytes``), and each lane's staged record (2 NU_PT values and 4
+    int spans)."""
     size = torch.finfo(dtype).bits // 8
-    return ((block // 32 * ncomp + S * (nc + NU_KT) + block * 2 * NU_PT)
-            * size + block * 16)
+    return (_vec4(block // 32 * ncomp) * size + nurbs_bytes(ns, nc, kt, dtype)
+            + block * (2 * NU_PT * size + 16))
 
 
 def bwd_shape(S, nm, mode, dtype, block=BWD_BLOCK):
@@ -518,21 +587,23 @@ def _resident(name, dtype, build, mode, block, dyn, device):
     return n.value, torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def nurbs_shape(S, nc, ncomp, dtype, block=BWD_BLOCK):
-    """(block, dynamic shared bytes) of a nurbs-build backward (ncomp
-    columns of its partial rows): the largest multiple of 32 up to
-    ``block`` whose bytes (``nurbs_bwd_bytes``) fit in SMEM_MAX less
-    SMEM_STATIC. Raises NotImplementedError where 32 threads do not fit."""
+def nurbs_shape(ns, nc, kt, ncomp, dtype, block=BWD_BLOCK):
+    """(block, dynamic shared bytes) of a nurbs-build backward (ns NURBS
+    surfaces of nc net columns, a knot table of kt rows, ncomp columns of
+    its partial rows): the largest multiple of 32 up to ``block`` whose
+    bytes (``nurbs_bwd_bytes``) fit in SMEM_MAX less SMEM_STATIC. Raises
+    NotImplementedError where 32 threads do not fit."""
     room = SMEM_MAX - SMEM_STATIC
-    while block > 32 and nurbs_bwd_bytes(block, ncomp, S, nc, dtype) > room:
+    while block > 32 and nurbs_bwd_bytes(block, ncomp, ns, nc, kt,
+                                         dtype) > room:
         block -= 32
-    need = nurbs_bwd_bytes(block, ncomp, S, nc, dtype)
+    need = nurbs_bwd_bytes(block, ncomp, ns, nc, kt, dtype)
     if need > room:
         raise NotImplementedError(
-            f"a nurbs-build backward of {S} surfaces ({nc} net columns, "
-            f"{ncomp} partial columns) needs {need} bytes of shared memory "
-            f"at 32 threads, more than the {room} bytes a block has for "
-            "them")
+            f"a nurbs-build backward of {ns} NURBS surfaces ({nc} net "
+            f"columns, {ncomp} partial columns) needs {need} bytes of shared "
+            f"memory at 32 threads, more than the {room} bytes a block has "
+            "for them")
     return block, need
 
 
@@ -547,12 +618,13 @@ def newton_bwd_bytes(block, ncomp, build, dtype):
 
 
 def bwd_grid(name, mode, S, nm, dtype, build, R, device, block=BWD_BLOCK,
-             nc=0, ncomp=0):
+             nc=0, ncomp=0, kt=0, ns=0):
     """(block, blocks, dynamic bytes) of backward ``name`` (merit_bwd or
     trace_bwd, ``mode`` as bwd_shape's) launched for R rays on ``device``:
     in the per-thread-sum builds the block of ``bwd_shape``, in the nurbs
-    build that of ``nurbs_shape`` (nc net columns per surface, ncomp
-    columns of the partial rows), in the Newton builds (sag, free, aux
+    build that of ``nurbs_shape`` (ns NURBS surfaces of nc net columns, a
+    knot table of kt rows: ``knot_rows``, ncomp columns of the partial
+    rows; ValueError without them), in the Newton builds (sag, free, aux
     and the deep ones) ``block`` with the bytes of its per-warp rows
     (``newton_bwd_bytes``), each with one wave of blocks (the resident
     blocks per SM times the SMs, no more than the rays need), fixed for a
@@ -561,7 +633,10 @@ def bwd_grid(name, mode, S, nm, dtype, build, R, device, block=BWD_BLOCK,
     BWD_BLOCK threads, whose per-warp rows size their shared memory
     themselves."""
     if build == NURBS:
-        block, dyn = nurbs_shape(S, nc, ncomp, dtype, block)
+        if kt <= S or ns < 1:
+            raise ValueError("a nurbs-build backward's shape needs its NURBS "
+                             "surfaces and its knot table's rows (knot_rows)")
+        block, dyn = nurbs_shape(ns, nc, kt, ncomp, dtype, block)
     elif build & BIT_SAG:
         dyn = newton_bwd_bytes(block, ncomp, build, dtype)
     elif not per_thread(build):
@@ -633,7 +708,8 @@ def check_cuda_inputs(params, spec, arrays=(), aim=None, coeffs=None,
     of the table's dtype and device, contiguous, the (S, nc)
     coefficient table, 1 <= nc <= NC_MAX (NC_NURBS with a NURBS surface),
     with an aux-bearing surface the (S, nc, LAY_COLS) layout table ``lay``
-    and with a NURBS surface the (S, NU_KT) knot table."""
+    and with a NURBS surface the (S + E, NU_KT) knot table with its tail
+    (``kernel_tables``: E >= 1)."""
     S = len(spec[0])
     check_dtype(params.dtype)
     if S > MAX_SURF:
@@ -664,10 +740,11 @@ def check_cuda_inputs(params, spec, arrays=(), aim=None, coeffs=None,
             f"{coeffs.shape[1]}")
     if nurbs and (lay is None or lay.device != params.device
                   or lay.dtype != params.dtype or not lay.is_contiguous()
-                  or tuple(lay.shape) != (S, NU_KT)):
-        raise ValueError(f"a NURBS surface needs the contiguous (S, {NU_KT})"
-                         f" {params.dtype} knot table on {params.device} "
-                         "(kernel_tables)")
+                  or lay.dim() != 2 or lay.shape[0] <= S
+                  or lay.shape[1] != NU_KT):
+        raise ValueError(f"a NURBS surface needs the contiguous (S + E, "
+                         f"{NU_KT}) {params.dtype} knot table with its tail "
+                         f"on {params.device} (kernel_tables)")
     if any(c in geom.AUX_CODES for c in spec[0]) and (
             lay is None or lay.device != params.device
             or lay.dtype != params.dtype or not lay.is_contiguous()

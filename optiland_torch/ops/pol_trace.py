@@ -78,7 +78,7 @@ from optiland_torch.ops.fused_trace import (
 )
 from optiland_torch.ops.launch import (
     build_of, check_cuda_inputs, covered, device_of, device_table,
-    entry_name, flags, inner_flags, kernel_tables, launch_key, lay_row,
+    entry_name, flags, inner_flags, kernel_tables, knot_rows, launch_key, lay_row,
     sag_columns, sag_surfaces, unsupported, with_builds,
 )
 from optiland_torch.ops.step import (
@@ -981,7 +981,8 @@ def pol_fwd(params, coat, spec, rays, states=None, intensity=False,
         rc = _cuda.call(
             entry_name("pol_fwd", build), params.dtype, params.data_ptr(), coat.data_ptr(),
             flags(spec[:-2], params.device).data_ptr(), len(spec[0]), build,
-            table.data_ptr(), coeffs.shape[1], spec[-1], coat.shape[1],
+            table.data_ptr(), coeffs.shape[1], knot_rows(lay), spec[-1],
+            coat.shape[1],
             _cuda.pointers(rays), rays[0].shape[0], _cuda.pointers(out),
             int(intensity), *_state_args(states), _cuda.stream(),
         )
@@ -1022,7 +1023,8 @@ def pol_bwd(params, coat, spec, nc, rays, cots, states=None, intensity=False,
         rc = _cuda.call(
             entry_name("pol_bwd", build), params.dtype, params.data_ptr(), coat.data_ptr(),
             flags(spec[:-2], params.device).data_ptr(), S, build,
-            table.data_ptr(), nc, spec[-1], len(sag_surfaces(spec[0], build)),
+            table.data_ptr(), nc, knot_rows(lay), spec[-1],
+            len(sag_surfaces(spec[0], build)),
             ncoat, _cuda.pointers(rays),
             _cuda.pointers(cots), R, _cuda.pointers(din), partial.data_ptr(),
             nb, out.data_ptr(), int(intensity), *_state_args(states),

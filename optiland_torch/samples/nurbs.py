@@ -20,7 +20,15 @@ and 3 degrees:
   * ``tilted_nurbs``: ``rational_nurbs`` with the NURBS surface tilted by
     ``TILT_RX`` (3 degrees) about x;
   * ``coated_nurbs``: ``rational_nurbs`` with Fresnel coatings on both
-    lens surfaces, polarized.
+    lens surfaces, polarized;
+  * ``nonuniform_nurbs``: a rational 6 x 5 net on [-7, 7]^2 of degree 2 in
+    u and 3 in v on non-uniform clamped knots, one interior u knot
+    repeated (``nonuniform_net``); its interior knots are dyadic, so that
+    a ray at x = 14 u - 7 (y = 14 v - 7) guesses u (v) exactly;
+  * ``bound_nurbs``: a 16 x 4 net of degree 7 in u on 24 non-uniform
+    knots and degree 3 in v (a Bezier direction), 256 coefficient
+    columns: the kernels' nurbs build at each of its bounds (NC_NURBS,
+    NU_PMAX, NU_KMAX in ops/launch.py).
 
 The builders take the class they build with (the port's ``Optic`` by
 default), so another package with the same API builds the same
@@ -105,6 +113,43 @@ def coated_nurbs(polarization="H", optic=None):
         o.surfaces.surfaces[k].coating = "fresnel"
     o.set_polarization(polarization)
     return o
+
+
+def nonuniform_net():
+    """(P, W, u knots, v knots) of the non-uniform rational net: 6 x 5
+    control points on [-7, 7]^2 with z = r^2 / 160 + 1e-3 x y, weights
+    from 0.8 to 1.3, degree 2 in u on (0, 0, 0, 1/4, 1/4, 5/8, 1, 1, 1)
+    and degree 3 in v on (0, 0, 0, 0, 3/8, 1, 1, 1, 1)."""
+    xs, ys = np.linspace(-7, 7, 6), np.linspace(-7, 7, 5)
+    X, Y = np.meshgrid(xs, ys, indexing="ij")
+    P = np.stack([X, Y, (X**2 + Y**2) / 160.0 + 1e-3 * X * Y])
+    W = 0.8 + 0.5 * np.cos(0.7 * X + 0.3 * Y) ** 2
+    uk = (0.0, 0.0, 0.0, 0.25, 0.25, 0.625, 1.0, 1.0, 1.0)
+    vk = (0.0, 0.0, 0.0, 0.0, 0.375, 1.0, 1.0, 1.0, 1.0)
+    return P, W, uk, vk
+
+
+def nonuniform_nurbs(optic=None):
+    P, W, uk, vk = nonuniform_net()
+    return _singlet(_optic(optic), control_points=P.tolist(),
+                    weights=W.tolist(), u_degree=2, v_degree=3,
+                    u_knots=list(uk), v_knots=list(vk))
+
+
+def bound_nurbs(optic=None):
+    """The net at the nurbs build's bounds: 16 x 4 control points on
+    [-7, 7]^2 (a paraboloid, unit weights but a heavier centre), degree 7
+    in u on 24 clamped knots with 8 non-uniform interior ones, degree 3
+    in v (4 points: a Bezier direction)."""
+    xs, ys = np.linspace(-7, 7, 16), np.linspace(-7, 7, 4)
+    X, Y = np.meshgrid(xs, ys, indexing="ij")
+    P = np.stack([X, Y, (X**2 + Y**2) / 180.0])
+    W = 1.0 + 0.2 * np.exp(-(X**2 + Y**2) / 20.0)
+    inner = (0.1, 0.2, 0.25, 0.4, 0.5, 0.7, 0.75, 0.9)
+    uk = (0.0,) * 8 + inner + (1.0,) * 8
+    return _singlet(_optic(optic), epd=8.0, control_points=P.tolist(),
+                    weights=W.tolist(), u_degree=7, v_degree=3,
+                    u_knots=list(uk), v_knots=[0.0] * 4 + [1.0] * 4)
 
 
 BUILDERS = {"rational_nurbs": rational_nurbs, "fitted_nurbs": fitted_nurbs,

@@ -99,17 +99,20 @@ def test_newton_builds_size_their_per_warp_rows(dtype):
                                            dtype) == want, build
 
 
-def _nurbs_bytes(block, ncomp, S, nc, dtype):
+def _nurbs_bytes(block, ncomp, ns, nc, kt, dtype):
     """A nurbs-build backward's shared memory, counted from the kernels'
-    layout (csrc/nurbs_step.cuh: nurbs_bwd_bytes, nurbs_own_cols;
-    csrc/fused_trace.cuh, csrc/fast_trace.cuh): each warp's row of ncomp
-    columns, each surface's net row of nc columns and knot row of NU_KT,
-    then each lane's staged record, two points of NU_PT values (12 net
-    cotangents, then the 1-D basis values and derivatives in u and v,
-    NU_PMAX + 1 each) and four int spans."""
+    layout (csrc/nurbs_step.cuh: nurbs_bwd_bytes, nurbs_tables,
+    nurbs_own_cols; csrc/fused_trace.cuh, csrc/fast_trace.cuh): each
+    warp's row of ncomp columns, rounded up to a 4-vector, the kt rows of
+    the knot table (NU_KT wide, the surfaces' and the tail's), the ns NURBS
+    surfaces' homogeneous nets of nc columns (each rounded up to a
+    4-vector), then each lane's staged record, two points of NU_PT values
+    (12 net cotangents, then the 1-D basis values and derivatives in u and
+    v, NU_PMAX + 1 each) and four int spans."""
     size = torch.finfo(dtype).bits // 8
     per_point = 12 + 4 * (launch.NU_PMAX + 1)
-    return ((block // 32 * ncomp + S * (nc + launch.NU_KT)
+    rows = -(-(block // 32 * ncomp) // 4) * 4
+    return ((rows + kt * launch.NU_KT + ns * (-(-nc // 4) * 4)
              + block * 2 * per_point) * size + block * 4 * 4)
 
 
@@ -117,36 +120,82 @@ def _nurbs_bytes(block, ncomp, S, nc, dtype):
 def test_nurbs_shape_fits_or_refuses(dtype):
     """The nurbs build's block: the largest multiple of 32 up to the
     request whose rows, tables and staged records fit, for every system
-    the build takes (up to STOCK_SURF surfaces, NC_NURBS net columns);
-    where 32 threads would not fit (wider than the build takes),
-    NotImplementedError: the launch does not fall back."""
+    the build takes (up to STOCK_SURF surfaces, NC_NURBS net columns, a
+    knot table with a tail of 1 to 5 rows); where 32 threads would not fit
+    (wider than the build takes), NotImplementedError: the launch does not
+    fall back."""
     room = launch.SMEM_MAX - launch.SMEM_STATIC
     for S in (2, 4, 9, launch.STOCK_SURF):
         for nsag in range(1, S):
-            for nc in (16, 100, 196, launch.NC_NURBS):
+            for nc in (16, 99, 196, launch.NC_NURBS):
                 ncomp = S * len(FULL_GRAD_COLS) + nsag * nc + launch.N_AIM
+                kt = S + 1 + nsag % 5
                 for want in (32, 64, 128):
-                    block, dyn = launch.nurbs_shape(S, nc, ncomp, dtype,
-                                                    want)
+                    block, dyn = launch.nurbs_shape(nsag, nc, kt, ncomp,
+                                                    dtype, want)
                     assert block % 32 == 0 and 32 <= block <= want
-                    assert dyn == _nurbs_bytes(block, ncomp, S, nc,
+                    assert dyn == _nurbs_bytes(block, ncomp, nsag, nc, kt,
                                                dtype) <= room
                     assert block == want or _nurbs_bytes(
-                        block + 32, ncomp, S, nc, dtype) > room
+                        block + 32, ncomp, nsag, nc, kt, dtype) > room
     wide = 40 * launch.NC_NURBS
     with pytest.raises(NotImplementedError, match="shared memory"):
-        launch.nurbs_shape(launch.STOCK_SURF, wide, 15 * wide, dtype)
+        launch.nurbs_shape(launch.STOCK_SURF - 1, wide, launch.STOCK_SURF + 9,
+                           15 * wide, dtype)
 
 
 def test_nurbs_shape_of_the_golden_lenses():
-    """The golden NURBS lenses (4 surfaces, one 7 x 7 net: nc = 196) take
-    the full block in both types, and a second NURBS surface adds only its
-    columns to the rows: the warps' records are staged one surface at a
-    time."""
+    """The golden NURBS lenses (4 surfaces, one 7 x 7 net: nc = 196; a knot
+    table of 4 + 2 rows) take the full block in both types, and a second
+    NURBS surface adds only its columns to the rows and its net to the
+    tables: the warps' records are staged one surface at a time."""
     ncomp = 4 * len(GRAD_COLS) + 196 + launch.N_AIM
     for dtype, size in ((torch.float32, 4), (torch.float64, 8)):
-        assert launch.nurbs_shape(4, 196, ncomp, dtype) == (
-            128, (4 * ncomp + 4 * (196 + launch.NU_KT) + 128 * 88) * size
+        assert launch.nurbs_shape(1, 196, 6, ncomp, dtype) == (
+            128, (4 * ncomp + 6 * launch.NU_KT + 196 + 128 * 88) * size
             + 128 * 16)
-        assert launch.nurbs_shape(4, 196, ncomp + 196, dtype) == (
-            128, _nurbs_bytes(128, ncomp + 196, 4, 196, dtype))
+        assert launch.nurbs_shape(2, 196, 7, ncomp + 196, dtype) == (
+            128, _nurbs_bytes(128, ncomp + 196, 2, 196, 7, dtype))
+
+
+def test_nurbs_bytes_count_the_knot_table_tail():
+    """The nurbs build's tables in shared memory, from the knot tables the
+    kernels get (launch.kernel_tables: the surfaces' rows, then the tail
+    of E, ns, offsets, net slots and reciprocal knot differences): the
+    golden rational lens (a 7 x 7 net of degree 3: 2 tail rows) and the
+    net at the build's bounds (16 x 4, degree 7 on 24 knots: 4 rows), the
+    forward's room for a net on every surface, a backward's for its NURBS
+    surfaces only."""
+    from optiland_torch import config
+    from optiland_torch.samples import nurbs
+
+    prev = config.get_device()
+    config.set_device("cpu")
+    try:
+        systems = [(nurbs.rational_nurbs().system, 196, 6),
+                   (nurbs.bound_nurbs().system, 256, 8)]
+    finally:
+        config.set_device(prev)
+    for system, nc, kt in systems:
+        coeffs, lay = launch.kernel_tables(system, torch.float64)
+        assert coeffs.shape[1] == nc and launch.knot_rows(lay) == kt
+        tail = lay[4:].reshape(-1)
+        n_rc = sum(p * (n + p + 1) for n, p in ((system.cfg.geom_aux[1][1],
+                                                 system.cfg.geom_aux[1][3]),
+                                                (system.cfg.geom_aux[1][2],
+                                                 system.cfg.geom_aux[1][4])))
+        assert int(tail[0]) == kt - 4 == -(-(2 + 2 * 4 + n_rc)
+                                          // launch.NU_KT)
+        assert int(tail[1]) == 1
+        for dtype, size in ((torch.float32, 4), (torch.float64, 8)):
+            assert launch.nurbs_bytes(4, nc, kt, dtype) == (
+                kt * launch.NU_KT + 4 * nc) * size
+            ncomp = 4 * len(GRAD_COLS) + nc + launch.N_AIM
+            assert launch.nurbs_bwd_bytes(128, ncomp, 1, nc, kt, dtype) == (
+                (4 * ncomp + kt * launch.NU_KT + nc + 128 * 88) * size
+                + 128 * 16)
+    # one row's width not a multiple of 4: the nets start on a 4-vector
+    assert launch.nurbs_bytes(3, 13, 5, torch.float32) == (
+        5 * launch.NU_KT + 3 * 16) * 4
+    assert launch.nurbs_bwd_bytes(32, 7, 1, 13, 5, torch.float32) == (
+        8 + 5 * launch.NU_KT + 16 + 32 * 88) * 4 + 32 * 16

@@ -1874,17 +1874,20 @@ NURBS_SYSTEMS = {"rational": nurbs.rational_nurbs,
 
 
 def _nurbs_check(system, R, seed, what, dtype=torch.float64, rtol=1e-10,
-                 field=freeform.H, pupil=None):
+                 field=freeform.H, pupil=None, iters=10, xy=None):
     """Every monochromatic kernel of the nurbs build on ``system`` against
     its plain version (f64, or ``dtype`` against the f64 plain version
     with ``rtol`` then ``_f32_close``), at ``field`` from R pupil samples
-    drawn from ``seed`` or (``pupil``) given; returns the plain
-    trace_bwd's flat gradient."""
+    drawn from ``seed`` or (``pupil``) given, with ``iters`` stopped Newton
+    steps, the generic kernels' rays starting at ``xy`` where it is given;
+    returns the plain trace_bwd's flat gradient."""
     wl, params, aim, _, Px, Py, ins, cots = _k6_inputs(system, field, R,
                                                        seed, pupil=pupil)
+    if xy is not None:
+        ins[0], ins[1] = (t.to(ins[0]).contiguous() for t in xy)
     coeffs, lay = _aux_tables(system)
     nc = coeffs.shape[1]
-    spec = ftr.fast_spec(system, field=True)
+    spec = ftr.fast_spec(system, field=True, newton_iters=iters)
     cast = (lambda t: t.to(dtype).contiguous())
     c32, l32 = _aux_tables(system, dtype)
     args = [cast(t) for t in (params, aim, Px, Py)]
@@ -1918,7 +1921,7 @@ def _nurbs_check(system, R, seed, what, dtype=torch.float64, rtol=1e-10,
                ftr.trace_fast_field_bwd_plain(params, aim, spec, nc, Px, Py,
                                               cots, coeffs, lay),
                "trace_field_bwd")
-    mspec = ft._spec_of(system)
+    mspec = ft._spec_of(system, iters)
     rows = ft.merit_fwd(args[0], args[1], mspec, R, Px=args[2], Py=args[3],
                         coeffs=c32, lay=l32)
     rows_p = ft.merit_fwd_plain(params, aim, mspec, R, Px=Px, Py=Py,
@@ -2130,6 +2133,70 @@ def test_nurbs_kernels_at_the_net_edges(cuda_device):
     assert not bool(((dist > 0) & (dist < 1e-9)).any())
     _nurbs_check(system, Px.shape[0], 11, "edges", field=(0.0, 0.0),
                  pupil=(Px, Py))
+
+
+@pytest.mark.cuda
+def test_nurbs_kernels_on_a_nonuniform_net(cuda_device):
+    """The non-uniform net (degree 2 x 3, an interior u knot repeated,
+    rational): each monochromatic kernel of the nurbs build against its
+    plain version in f64, per ray and per gradient column, on rays in and
+    past the net; then with no Newton step, so that the stopped point is
+    the guess: on rays that start on the dyadic grid of the interior knots
+    the stopped u and v are exactly those knots (the span search at a knot
+    and at the repeated knot, the empty intervals' zero reciprocals), on
+    rays past the net exactly 0 or 1 (the last knot's span), checked on
+    the plain side. As in the edge test, no corrected point lands within
+    rounding of the box's edge, where the clip's derivative would follow
+    the rounding."""
+    system = nurbs.nonuniform_nurbs().system
+    _nurbs_check(system, 20001, 12, "nonuniform")
+    _nurbs_check(system, 20001, 12, "nonuniform f32", dtype=torch.float32)
+    _, _, _, _, uk, vk = system.cfg.geom_aux[1][1:]
+    ku = torch.tensor([k for k in sorted(set(uk)) if 0 < k < 1],
+                      dtype=torch.float64)
+    kv = torch.tensor([k for k in sorted(set(vk)) if 0 < k < 1],
+                      dtype=torch.float64)
+    gx, gy = (t.reshape(-1) for t in torch.meshgrid(14 * ku - 7, 14 * kv - 7,
+                                                    indexing="ij"))
+    # then past the net (stopped at 0 or 1), and one knot with a point past
+    # the net in the other direction
+    n_grid = gx.shape[0]
+    gx = torch.cat([gx, torch.tensor([-9.0, 9.0, -9.0, 9.0, -3.5, 1.75])])
+    gy = torch.cat([gy, torch.tensor([-9.0, 9.0, 9.0, -9.0, 9.0, -9.0])])
+    xy = (gx.repeat(40), gy.repeat(40))
+    R = xy[0].shape[0]
+    _, params, _, _, _, _, ins, _ = _k6_inputs(system, (0.0, 0.0), R, 13)
+    with torch.no_grad():
+        fw = step.nurbs_forward(system.stack.coeffs[1].cpu(),
+                                system.cfg.geom_aux[1], xy[0], xy[1],
+                                (ins[2] - params[1, 2]).cpu(), ins[3].cpu(),
+                                ins[4].cpu(), ins[5].cpu(), 0)
+    on_u = (fw.us[:, None] == ku).any(1)
+    on_v = (fw.vs[:, None] == kv).any(1)
+    grid = (torch.arange(R) % gx.shape[0]) < n_grid
+    assert bool((on_u & on_v)[grid].all())
+    edge = (fw.us == 0) | (fw.us == 1) | (fw.vs == 0) | (fw.vs == 1)
+    assert bool(edge[~grid].all())
+    assert bool((fw.us == 0.25).any()) and bool((fw.vs == 1.0).any())
+    dist = torch.stack([fw.U, fw.V, fw.U - 1, fw.V - 1]).abs()
+    assert not bool(((dist > 0) & (dist < 1e-9)).any())
+    _nurbs_check(system, R, 13, "nonuniform at the knots", field=(0.0, 0.0),
+                 iters=0, xy=xy)
+
+
+@pytest.mark.cuda
+def test_nurbs_kernels_at_the_build_bounds(cuda_device):
+    """A net at each of the nurbs build's bounds (degree NU_PMAX = 7 on
+    NU_KMAX = 24 knots, 256 = NC_NURBS columns): each monochromatic
+    kernel against its plain version in f64, per ray and per gradient
+    column, and in f32 against the f64 plain versions."""
+    system = nurbs.bound_nurbs().system
+    _, nu, nv, p, q, uk, vk = system.cfg.geom_aux[1]
+    assert (p, len(uk), 4 * nu * nv) == (launch.NU_PMAX, launch.NU_KMAX,
+                                         launch.NC_NURBS)
+    _nurbs_check(system, 20001, 14, "bound", field=(0.0, 0.0))
+    _nurbs_check(system, 20001, 14, "bound f32", dtype=torch.float32,
+                 field=(0.0, 0.0))
 
 
 @pytest.mark.cuda

@@ -35,7 +35,7 @@ from optiland_torch.optic import Optic
 from optiland_torch.samples import CookeTriplet as TorchCooke
 from optiland_tpu.ops import pallas_trace as jpt
 from optiland_tpu.samples import CookeTriplet as JaxCooke
-from tests.torch_shared import shared
+from tests.torch_shared import run_compiled_once, shared
 
 H = (0.0, 0.7)
 WL = 0.55
@@ -88,7 +88,8 @@ def jax_reference(tmp_path_factory):
                 Py=jnp.asarray(Py),
             )
 
-        loss, grads = jax.value_and_grad(merit)(jsys.stack)
+        loss, grads = run_compiled_once(jax.value_and_grad(merit),
+                                        jsys.stack)
         return {
             "Px": Px, "Py": Py, "loss": float(loss),
             "grads": {k: np.asarray(getattr(grads, k)) for k in STACK_FIELDS},

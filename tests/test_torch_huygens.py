@@ -324,7 +324,9 @@ def _jax_psf_grads():
                           num_rays=16, image_size=8)
         return psf[PIXEL]
 
-    val, g = jax.value_and_grad(pixel)(system.stack)
+    # one jitted computation: dispatched one operation at a time, the JAX
+    # PSF's gradient takes twice as long
+    val, g = jax.jit(jax.value_and_grad(pixel))(system.stack)
     return float(val), {k: np.asarray(getattr(g, k)) for k in STACK_FIELDS}
 
 

@@ -154,6 +154,55 @@ def test_sag_normal_intersect_match_jax():
                                    atol=1e-13)
 
 
+def test_nonuniform_net_matches_jax():
+    """The non-uniform net of samples/nurbs.py (degree 2 x 3, a repeated
+    interior u knot, rational): basis values and derivatives, the net's
+    point and the intersection (24 Newton steps in f64) against the JAX
+    package's core/nurbs, at its knots (the repeated one too), at 0 and 1,
+    inside spans and past the box."""
+    P, W, uk, vk = ns.nonuniform_net()
+    net = ("nurbs", 6, 5, 2, 3, uk, vk)
+    c = np.concatenate([P.ravel(), W.ravel()])
+    u = np.array([0.0, 0.1, 0.25, 0.3, 0.625, 0.9, 1.0, 0.375])
+    for knots, n, deg in ((uk, 5, 2), (vk, 4, 3)):
+        got = tn.basis_ders(knots, n, deg, f64(u), 2)
+
+        def basis(w, knots=knots, n=n, deg=deg):
+            return jn.basis_list(knots, n, deg, w)
+
+        ones = jnp.ones(u.shape)
+
+        def ders(w, basis=basis, ones=ones):
+            return (basis(w), jax.jvp(basis, (w,), (ones,))[1],
+                    jax.jvp(lambda w: jax.jvp(basis, (w,), (ones,))[1],
+                            (w,), (ones,))[1])
+
+        for order, ref in enumerate(ders(jnp.asarray(u))):
+            for a, b in zip(got[order], ref):
+                np.testing.assert_allclose(np_of(a), np.asarray(b),
+                                           rtol=1e-13, atol=1e-12,
+                                           err_msg=f"order {order}")
+    v = u[::-1].copy()
+    Pt, Wt = tn.unpack_pw(f64(c), net)
+    Pj, Wj = jn.unpack_pw(jnp.asarray(c), net)
+    np.testing.assert_allclose(
+        np_of(tn.nurbs_eval(Pt, Wt, net, f64(u), f64(v))),
+        np.asarray(jn.nurbs_eval(Pj, Wj, net, *_jnp(u, v))), rtol=1e-13,
+        atol=1e-13)
+    x = np.resize([-7.0, -3.5, 1.75, 0.2, 5.0, 7.0, 8.0], N_JAX)
+    y = np.resize([-1.75, 7.0, -7.0, 0.0, 3.0, -2.0, 1.0], N_JAX)
+    z = np.full(N_JAX, -1.0)
+    L = np.resize([0.0, 0.05, -0.1, 0.1, 0.0, -0.05, 0.02], N_JAX)
+    M = np.resize([0.0, -0.05, 0.1, 0.0, 0.1, 0.05, -0.02], N_JAX)
+    N = np.sqrt(1 - L**2 - M**2)
+    t, nrm = tn.intersect(f64(c), net, *(f64(w) for w in (x, y, z, L, M, N)))
+    jt, jnrm = jn.intersect(jnp.asarray(c), net, *_jnp(x, y, z, L, M, N))
+    np.testing.assert_allclose(np_of(t), np.asarray(jt), rtol=1e-13)
+    for a, b in zip(nrm, jnrm):
+        np.testing.assert_allclose(np_of(a), np.asarray(b), rtol=1e-13,
+                                   atol=1e-13)
+
+
 def test_fit_matches_jax():
     """The conic fit (A9.7) and every construction mode's row and
     structure, exactly."""
@@ -344,38 +393,77 @@ def test_step_at_the_det_clamp():
 # ---------------------------------------------------------------------------
 
 
+def _span(U, m, n, u):
+    """csrc/nurbs_step.cuh: nu_span, the binary search in fixed steps: the
+    largest k with U[k] <= u, the span where k < m, n at u = U[m], else
+    -1."""
+    k, step = -1, 16
+    while step:
+        if k + step <= m and U[k + step] <= u:
+            k += step
+        step //= 2
+    i0 = k if k < m else -1
+    return n if u == U[m] else i0
+
+
 def _span_basis(U, n, p, u):
     """csrc/nurbs_step.cuh: nu_basis<T, 1> at one u: the span i0 (that of
     the knot interval [U_i, U_i+1) holding u, n at the last knot, -1
-    outside) and the values N[r] and first derivatives D[r] of basis
-    function i0 - r, r = 0..p, by the triangle on the span."""
-    m = n + p + 1
-    i0 = -1
-    for i in range(m):
-        if U[i] <= u < U[i + 1]:
-            i0 = i
-    if u == U[m]:
-        i0 = n
+    outside: nu_span) and the values N[r] and first derivatives D[r] of
+    basis function i0 - r, r = 0..p, by the triangle on the span, whose a
+    and c multiply by the knot table's reciprocal knot differences
+    (ops/launch.py: _recips; 0 for an empty interval)."""
+    nk = n + p + 2
+    m = nk - 1
+    rc = launch._recips(U, n + 1, p)
+    i0 = _span(U, m, n, u)
     N, D = [0.0] * (p + 1), [0.0] * (p + 1)
     if i0 >= 0:
         N[0] = 1.0
     for k in range(1, p + 1):
+        rk = rc[(k - 1) * nk:k * nk]
         for r in range(k, -1, -1):
             i = i0 - r
             nv = dv = 0.0
             if 0 <= i <= m - 1 - k:
-                d1 = U[i + k] - U[i]
-                if d1 != 0:
-                    a, da = (u - U[i]) / d1, 1.0 / d1
-                    nv, dv = a * N[r], da * N[r] + a * D[r]
+                da = rk[i]
+                a = (u - U[i]) * da
+                nv, dv = a * N[r], da * N[r] + a * D[r]
                 if r >= 1:
-                    d2 = U[i + k + 1] - U[i + 1]
-                    if d2 != 0:
-                        c, dc = (U[i + k + 1] - u) / d2, -1.0 / d2
-                        nv += c * N[r - 1]
-                        dv += dc * N[r - 1] + c * D[r - 1]
+                    dc = rk[i + 1]
+                    c = (U[i + k + 1] - u) * dc
+                    nv += c * N[r - 1]
+                    dv += -dc * N[r - 1] + c * D[r - 1]
             N[r], D[r] = nv, dv
     return i0, N, D
+
+
+@pytest.mark.parametrize("knots", [
+    (0.0, 0.0, 0.0, 0.25, 0.25, 0.625, 1.0, 1.0, 1.0),
+    (0.0,) * 4 + (0.375,) + (1.0,) * 4,
+    (0.0,) * 8 + (0.1, 0.2, 0.25, 0.4, 0.5, 0.7, 0.75, 0.9) + (1.0,) * 8,
+    (0.0, 0.1, 0.2, 0.2, 0.2, 0.6, 0.7, 1.0, 1.3),
+    (0.0, 1.0)])
+def test_span_search_matches_the_scan(knots):
+    """The kernels' binary span search (nu_span) finds the span of the
+    linear scan it replaced (the last i with U[i] <= u < U[i + 1], n at
+    the last knot, -1 outside) for every u: at each knot (repeated ones
+    too), between them, at 0 and 1, past both ends and NaN; clamped and
+    unclamped rows, 2 to NU_KMAX knots."""
+    U = knots
+    m = len(U) - 1
+    n = m - 1  # any n: the last knot's span
+    us = sorted(set(U)) + [(a + b) / 2 for a, b in zip(U, U[1:])] + [
+        -0.5, -1e-300, 0.0, 1.0, 1.0 + 1e-16, 2.0, float("nan"),
+        float(np.nextafter(1.0, 0.0)), float(np.nextafter(U[-1], 2.0))]
+    for u in us:
+        scan = -1
+        for i in range(m):
+            if U[i] <= u < U[i + 1]:
+                scan = i
+        if u == U[m]:
+            scan = n
+        assert _span(U, m, n, u) == scan, u
 
 
 def _homog_cot(S, Su, Sv, w, wu, wv, gS, gSu, gSv):
@@ -759,7 +847,16 @@ def test_launch_checks_take_nurbs():
     covers, each named."""
     system = ns.rational_nurbs().system
     coeffs, kn = launch.kernel_tables(system, torch.float64)
-    assert tuple(kn.shape) == (4, launch.NU_KT)
+    # the surfaces' rows, then the tail's two (csrc/nurbs_step.cuh:
+    # nu_tail): E, ns, the offsets and net slots, the reciprocal knot
+    # differences of the clamped uniform knots (0, 0, 0, 0, 1/4, .., 1, 1)
+    assert tuple(kn.shape) == (6, launch.NU_KT) and launch.knot_rows(kn) == 6
+    tail = kn[4:].reshape(-1).tolist()
+    assert tail[:10] == [2, 1, 0, 10, 0, 0, 0, 0, 0, 0]
+    rc = ([0.0] * 3 + [4.0] * 4 + [0.0] * 4
+          + [0.0] * 2 + [4.0, 2, 2, 2, 4] + [0.0] * 4
+          + [0.0, 4, 2, 4 / 3, 4 / 3, 2, 4] + [0.0] * 4)
+    assert tail[10:43] == rc and tail[43:76] == rc
     assert launch.net_of(kn[1]) == system.cfg.geom_aux[1]
     assert float(kn[0].abs().max()) == 0 and coeffs.shape[1] == 4 * 49
     assert launch.lay_row(kn, tg.NURBS, 1) == system.cfg.geom_aux[1]
@@ -789,6 +886,8 @@ def test_launch_checks_take_nurbs():
                                              (0.0,) * 18, (0.0,) * 4))
     assert "NU_KMAX" in launch._nurbs_bound(("nurbs", 30, 2, 1, 1,
                                              (0.0,) * 32, (0.0,) * 4))
+    assert "decrease" in launch._nurbs_bound(("nurbs", 2, 2, 1, 1,
+                                              (0.0, 0, 1, 0.5), (0.0,) * 4))
     with pytest.raises(ValueError, match="knot table"):
         launch.check_cuda_inputs(ft.build_param_table(system, WL),
                                  ftr.fast_spec(system), coeffs=coeffs)

@@ -125,11 +125,13 @@ def jax_cooke(tmp_path_factory):
     its launch bundle ("rays"), the interpret-mode kernels' outputs
     ("fast", "field": K5a, K1; "merit": K2) and, through its XLA path, the
     two merits' values ("values") and their values and gradients ("trace",
-    "spot")."""
-    return SharedRefs(tmp_path_factory, "tilts_cooke", _jax_cooke)
+    "spot", both rows of one Jacobian, "jacobian")."""
+    refs = SharedRefs(tmp_path_factory, "tilts_cooke",
+                      lambda part: _jax_cooke(part, refs))
+    return refs
 
 
-def _jax_cooke(part):
+def _jax_cooke(part, refs):
     mp = pytest.MonkeyPatch()
     mp.setenv("OPTILAND_TPU_TRACE_ENGINE", "unrolled")
     jsys = perturbed.toleranced_cooke(JCooke).system
@@ -153,27 +155,16 @@ def _jax_cooke(part):
         out = float(jpt.spot_rms_fast_field(jsys, *H, WL, Px=Px, Py=Py))
     elif part == "values":
         out = [float(v) for v in merits(jsys.stack)]
+    elif part == "jacobian":
+        jac = jax.jacrev(merits)(jsys.stack)
+        out = ([float(v) for v in merits(jsys.stack)],
+               {k: np.asarray(getattr(jac, k)) for k in STACK_FIELDS})
     else:
-        vals, jac = _cooke_jacobian(merits, jsys)
+        vals, jac = refs["jacobian"]
         j = ("trace", "spot").index(part)
         out = (vals[j], {k: v[j] for k, v in jac.items()})
     mp.undo()
     return out
-
-
-_COOKE_JACOBIAN = {}
-
-
-def _cooke_jacobian(merits, jsys):
-    """Both merits' values and Jacobian, computed once in a worker for
-    "trace" and "spot"."""
-    if not _COOKE_JACOBIAN:
-        vals = merits(jsys.stack)
-        jac = jax.jacrev(merits)(jsys.stack)
-        _COOKE_JACOBIAN["values"] = [float(v) for v in vals]
-        _COOKE_JACOBIAN["jac"] = {k: np.asarray(getattr(jac, k))
-                                  for k in STACK_FIELDS}
-    return _COOKE_JACOBIAN["values"], _COOKE_JACOBIAN["jac"]
 
 
 @functools.lru_cache(maxsize=None)

@@ -29,6 +29,7 @@ from optiland_torch import zernike as tz
 from optiland_torch.core import geometry as tg
 from optiland_tpu import zernike as jz
 from optiland_tpu.core import geometry as jg
+from tests.torch_shared import value_and_jacfwd
 
 ZC = np.array([0.001, -0.002, 0.0005, 0.0003, 0.0001, 0.0002])
 SCHEMES = ("standard", "fringe", "noll")
@@ -146,10 +147,9 @@ def test_geometry_matches_jax_and_goldens(scheme):
         return torch.cat([t, sg, *nr])
 
     theta = np.concatenate([[50.0, -0.5, p1], c])
-    ref = np.asarray(jfun(jnp.asarray(theta)))
+    ref, jac_ref = value_and_jacfwd(jfun, theta)
     np.testing.assert_allclose(tfun(torch.tensor(theta)).numpy(), ref,
                                rtol=1e-12, atol=1e-13)
-    jac_ref = np.asarray(jax.jacfwd(jfun)(jnp.asarray(theta)))
     jac = torch.autograd.functional.jacobian(tfun, torch.tensor(theta))
     np.testing.assert_allclose(jac.numpy(), jac_ref, rtol=1e-9,
                                atol=1e-12 * np.abs(jac_ref).max())
@@ -227,14 +227,13 @@ def test_padded_slots_and_the_origin_match_jax():
                            f64(8.0), aux=aux)
         return torch.cat([sg, *nr])
 
-    ref = np.asarray(jfun(jnp.asarray(cpad)))
+    ref, jac_ref = value_and_jacfwd(jfun, cpad)
     got = tfun(f64(cpad)).numpy()
     np.testing.assert_allclose(got, ref, rtol=1e-12, atol=1e-15)
     nx, ny, nz = got[4:8], got[8:12], got[12:16]
     assert (nx[0], ny[0], nz[0]) == (0.0, 0.0, -1.0)
     np.testing.assert_allclose([nx[1], ny[1]], [-2.5e-4, 6.25e-5],
                                rtol=1e-6)
-    jac_ref = np.asarray(jax.jacfwd(jfun)(jnp.asarray(cpad)))
     jac = torch.autograd.functional.jacobian(tfun, f64(cpad)).numpy()
     np.testing.assert_allclose(jac, jac_ref, rtol=1e-9,
                                atol=1e-13 * np.abs(jac_ref).max())

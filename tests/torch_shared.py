@@ -85,3 +85,29 @@ class SharedRefs:
             self._values[key] = shared(self._factory, f"{self._name}_{tag}",
                                        lambda: self._compute(key))
         return self._values[key]
+
+
+def value_and_jacfwd(fn, x):
+    """(fn(x), jax.jacfwd(fn)(x)) as numpy arrays, from one jitted
+    computation: a JAX reference of many small operations runs several
+    times faster compiled once than dispatched one operation at a time."""
+    import jax
+    import jax.numpy as jnp
+
+    val, jac = jax.jit(lambda a: (fn(a), jax.jacfwd(fn)(a)))(jnp.asarray(x))
+    return np.asarray(val), np.asarray(jac)
+
+
+# XLA:CPU options for a reference that is compiled and run once, and whose
+# compile dominates (the interpret-mode Pallas kernels): LLVM's
+# optimizations off
+FAST_COMPILE = {"xla_backend_optimization_level": 0,
+                "xla_llvm_disable_expensive_passes": True}
+
+
+def run_compiled_once(fn, *args):
+    """fn(*args) from one jitted computation compiled with FAST_COMPILE."""
+    import jax
+
+    return jax.jit(fn).lower(*args).compile(
+        compiler_options=FAST_COMPILE)(*args)

@@ -20,15 +20,20 @@ of their kernels and the times of their merit and trace kernels.
       stock and tilt builds), of the nurbs build (merit_bwd, trace_bwd
       in every mode, pol_bwd) and of the Newton builds (merit_bwd and
       trace_bwd in every mode in the sag, deep, free, deep_free, aux and
-      deep_aux builds, float32) of a build log's library: the ptxas line
-      (registers, stack frame, spills, static shared memory), the resident
-      blocks per SM that the registers and static shared memory allow at
-      BWD_BLOCK threads (the dynamic shared memory of the per-thread and
-      nurbs designs not counted: ``time`` prints their launch shapes), and
-      the static instruction mix of the machine code (SHFL, MUFU, LDL/STL,
-      LDS/STS, FFMA/FADD/FMUL, DFMA/DADD/DMUL, all);
+      deep_aux builds, float32), and for the nurbs build's forwards
+      (merit_fwd, trace_fwd in every mode, pol_fwd; both types) of a build
+      log's library: the ptxas line (registers, stack frame, spills,
+      static shared memory), the resident blocks per SM that the registers
+      and shared memory allow at BWD_BLOCK threads (the dynamic shared
+      memory of the per-thread and nurbs designs not counted: ``time``
+      prints their launch shapes) or, for the forwards, at FWD_BLOCK with
+      a golden NURBS lens's tables, and the static instruction mix of the
+      machine code (SHFL, MUFU, LDL/STL, LDS/STS, FFMA/FADD/FMUL,
+      DFMA/DADD/DMUL, CALL, all);
   python3 tools/torch_build_compare.py time ROOT TAG --nurbs [--kernels K,..]
-      time the nurbs build's kernels of ROOT at 2^24 rays, float32, on the
+                                                            [--f64]
+      time the nurbs build's kernels of ROOT at 2^24 rays, float32 (with
+      ``--f64`` float64, as ``--newton`` and the others take it too), on the
       golden rational and conic-fit lenses (samples/nurbs.py) at (0.3, 0.7):
       the six of ``time`` below, then on the rational lens trace_fwd_poly
       and trace_bwd_poly (wavelengths cycling by ray) and on its coated
@@ -209,10 +214,30 @@ def sass(old, new):
 MIX_KERNELS = ("merit_bwd_kernel", "trace_bwd_kernel", "pol_bwd_kernel")
 # the Newton builds, whose merit and trace backwards ``mix`` counts in f32
 NEWTON_BUILDS = ("sag", "deep", "free", "deep_free", "aux", "deep_aux")
+# the nurbs build's forwards (merit_fwd; trace_fwd, trace_field_fwd and
+# trace_fwd_poly; pol_fwd in both modes), which ``mix`` counts in both types
+# at FWD_BLOCK threads with the golden lenses' tables in dynamic shared
+# memory (4 surfaces, nc = 196, a knot table of 6 rows)
+FWD_KERNELS = ("merit_fwd_kernel", "trace_fwd_kernel", "pol_fwd_kernel")
 MIX_CLASSES = {"SHFL": ("SHFL",), "MUFU": ("MUFU",), "LDL/STL": ("LDL", "STL"),
                "LDS/STS": ("LDS", "STS"), "FFMA/FADD/FMUL": ("FFMA", "FADD",
                                                              "FMUL"),
-               "DFMA/DADD/DMUL": ("DFMA", "DADD", "DMUL")}
+               "DFMA/DADD/DMUL": ("DFMA", "DADD", "DMUL"), "CALL": ("CALL",)}
+
+
+def golden_tables(size):
+    """Dynamic shared memory of a nurbs forward on a golden NURBS lens, by
+    the launch side of this tree (before its knot table had a tail: the
+    nets and knot rows of 4 surfaces)."""
+    sys.path.insert(0, HERE)
+    from optiland_torch.ops import launch
+
+    if hasattr(launch, "nurbs_bytes"):
+        import torch
+
+        return launch.nurbs_bytes(4, 196, 6, {4: torch.float32,
+                                              8: torch.float64}[size])
+    return 4 * (196 + launch.NU_KT) * size
 
 
 def mix(log):
@@ -223,7 +248,9 @@ def mix(log):
     lines = parse(log)
     code = sass_of(log)
     for (src, key), instrs in sorted(code.items(), key=str):
-        if not (isinstance(key, tuple) and key[0] in MIX_KERNELS
+        fwd = (isinstance(key, tuple) and key[0] in FWD_KERNELS and key[2]
+               and key[2][-1] == "nurbs")
+        if not fwd and not (isinstance(key, tuple) and key[0] in MIX_KERNELS
                 and key[2] and (key[2][-1] in (
                     ("nurbs",) if key[0] == "pol_bwd_kernel"
                     else ("stock", "tilt", "nurbs"))
@@ -239,21 +266,24 @@ def mix(log):
         regs = re.search(r"Used (\d+) registers", ptx)
         smem = re.search(r"(\d+) bytes smem", ptx)
         per_sm = None
+        threads = 256 if fwd else 128
+        dyn = golden_tables(4 if key[1] == "f" else 8) if fwd else 0
         if regs:
             # registers go to a warp in units of 256, 64K on an SM; 228 KB
             # of shared memory, 1 KB of it reserved for each block
             per_warp = -(-int(regs.group(1)) * 32 // 256) * 256
-            warps = 128 // 32
+            warps = threads // 32
             per_sm = min(65536 // per_warp // warps, 64 // warps, 32,
                          233472 // ((int(smem.group(1)) if smem else 0)
-                                    + 1024))
-        print(f"mix {src} {key}: {ptx}; resident blocks per SM at 128 "
-              f"threads from registers and static smem {per_sm}; "
+                                    + dyn + 1024))
+        print(f"mix {src} {key}: {ptx}; resident blocks per SM at {threads} "
+              f"threads from registers and static smem"
+              f"{f' and {dyn} B of dynamic' if fwd else ''} {per_sm}; "
               f"instructions {counts}", flush=True)
 
 
 def time_tree(root, tag, aux, main=False, nurbs=False, only=None,
-              newton=False):
+              newton=False, f64=False):
     sys.path.insert(0, os.path.abspath(root))
     import torch
 
@@ -265,14 +295,15 @@ def time_tree(root, tag, aux, main=False, nurbs=False, only=None,
     from optiland_torch.samples import freeform, perturbed
 
     config.set_device("cuda")
-    config.set_precision("float32")
+    config.set_precision("float64" if f64 else "float32")
+    dt = torch.float64 if f64 else torch.float32
     R = 1 << 24
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(5)
 
     def tables(system):
         if hasattr(launch, "kernel_tables"):
-            return launch.kernel_tables(system, torch.float32)
+            return launch.kernel_tables(system, dt)
         return system.stack.coeffs.contiguous(), None
 
     def time_ms(fn, reps=10):
@@ -308,11 +339,11 @@ def time_tree(root, tag, aux, main=False, nurbs=False, only=None,
         with torch.no_grad():
             pk = ft.build_param_table(system, wl).contiguous()
             ak = ft.aim_vector(system, *field).contiguous()
-            Px, Py = ft.prng_disk(8, R, 0, torch.float32, dev)
+            Px, Py = ft.prng_disk(8, R, 0, dt, dev)
             rays = raygen.generate_rays(system, *field, Px, Py, wl)
             ins = [getattr(rays, k).contiguous() for k in ftr.RAY_FIELDS]
             del rays
-            cots = [torch.randn(R, generator=gen, device=dev) / R
+            cots = [torch.randn(R, generator=gen, device=dev, dtype=dt) / R
                     for _ in range(8)]
             ck, lk = tables(system)
             lay = () if lk is None else (lk,)
@@ -322,8 +353,9 @@ def time_tree(root, tag, aux, main=False, nurbs=False, only=None,
             mspec = ft._spec_of(system)
             rows = ft.merit_fwd(pk, ak, mspec, R, seed=9, coeffs=ck, **mlay)
             _, xb, yb = ft._chan_combine(rows, R)
-            st = torch.stack([xb, yb, torch.tensor(1.0 / R, device=dev),
-                              torch.zeros((), device=dev)])
+            st = torch.stack([xb, yb,
+                              torch.tensor(1.0 / R, device=dev, dtype=dt),
+                              torch.zeros((), device=dev, dtype=dt)])
             res = timed({
                 "merit_fwd": lambda: ft.merit_fwd(
                     pk, ak, mspec, R, seed=9, coeffs=ck, **mlay),
@@ -337,17 +369,19 @@ def time_tree(root, tag, aux, main=False, nurbs=False, only=None,
                 "trace_field_bwd": lambda: ftr.trace_field_bwd(
                     pk, ak, spec, nc, Px, Py, cots, ck, *lay),
             })
-            if nurbs:
-                res["shapes"] = shapes(spec, mspec, nc)
+            if nurbs and (only is None or any("bwd" in k for k in only)):
+                res["shapes"] = shapes(spec, mspec, nc, lk)
         torch.cuda.synchronize()
         return res
 
-    def shapes(spec, mspec, nc):
+    def shapes(spec, mspec, nc, lk):
         """(block, blocks, dynamic bytes) of the nurbs backwards' launches,
-        where the tree's bwd_grid takes the nurbs build's shape."""
+        where the tree's bwd_grid takes the nurbs build's shape (and, where
+        it takes them, the knot table's rows and the NURBS surfaces)."""
         import inspect
 
-        if "ncomp" not in inspect.signature(launch.bwd_grid).parameters:
+        params = inspect.signature(launch.bwd_grid).parameters
+        if "ncomp" not in params:
             return None
         from optiland_torch.ops.step import FULL_GRAD_COLS, GRAD_COLS
 
@@ -363,9 +397,12 @@ def time_tree(root, tag, aux, main=False, nurbs=False, only=None,
             grat = sp[3] if mode == "merit" else ftr._grat(sp)
             ncomp = (S * len(slots) + extra
                      + launch.sag_columns(sp[0], nc, build, grat))
+            tables = {"kt": launch.knot_rows(lk), "ns": len(
+                launch.sag_surfaces(sp[0], build, grat))} if "kt" in params \
+                else {}
             out[f"{name}_{mode}"] = launch.bwd_grid(
-                name, mode, S, 0, torch.float32, build, R, dev, nc=nc,
-                ncomp=ncomp)
+                name, mode, S, 0, dt, build, R, dev, nc=nc,
+                ncomp=ncomp, **tables)
         return out
 
     def nurbs_poly_pol(system, coated):
@@ -374,18 +411,18 @@ def time_tree(root, tag, aux, main=False, nurbs=False, only=None,
         from optiland_torch.ops import pol_trace as pt
         from optiland_torch.polarization import create_polarization
 
-        wl = torch.tensor((0.48, 0.55, 0.65), device=dev)[
+        wl = torch.tensor((0.48, 0.55, 0.65), device=dev, dtype=dt)[
             torch.arange(R, device=dev) % 3]
         with torch.no_grad():
             ck, lk = tables(system)
             nc = ck.shape[1]
             pk = ftr.build_poly_table(system).contiguous()
             mk = system.stack.mat_coeffs.detach().contiguous()
-            Px, Py = ft.prng_disk(17, R, 0, torch.float32, dev)
+            Px, Py = ft.prng_disk(17, R, 0, dt, dev)
             rays = raygen.generate_rays(system, 0.3, 0.7, Px, Py, 0.55)
             ins = [getattr(rays, k).contiguous() for k in ftr.RAY_FIELDS]
             del rays
-            cots = [torch.randn(R, generator=gen, device=dev) / R
+            cots = [torch.randn(R, generator=gen, device=dev, dtype=dt) / R
                     for _ in range(8)]
             spec = ftr.poly_spec(system)
             res = timed({
@@ -400,7 +437,7 @@ def time_tree(root, tag, aux, main=False, nurbs=False, only=None,
             ins = [getattr(rays, k).contiguous() for k in ftr.RAY_FIELDS]
             del rays
             pspec = pt.pol_spec(coated, wl0)
-            coat = pt.build_coat_table(coated, wl0, torch.float32, dev)
+            coat = pt.build_coat_table(coated, wl0, dt, dev)
             states = pt.pol_states(create_polarization("H"))
             cc, lc = tables(coated)
             res.update(timed({
@@ -416,17 +453,17 @@ def time_tree(root, tag, aux, main=False, nurbs=False, only=None,
     def poly_kernels(system, field=(0.0, 0.7)):
         # bench.py's poly step: the system's rays, wavelengths cycling by
         # ray
-        wl = torch.tensor((0.48, 0.55, 0.65), device=dev)[
+        wl = torch.tensor((0.48, 0.55, 0.65), device=dev, dtype=dt)[
             torch.arange(R, device=dev) % 3]
         with torch.no_grad():
             pk = ftr.build_poly_table(system).contiguous()
             mk = system.stack.mat_coeffs.detach().contiguous()
-            Px, Py = ft.prng_disk(17, R, 0, torch.float32, dev)
+            Px, Py = ft.prng_disk(17, R, 0, dt, dev)
             rays = raygen.generate_rays(system, *field, Px, Py, 0.55)
             ins = [getattr(rays, k).contiguous() for k in ftr.RAY_FIELDS]
             ins.append(wl)
             del rays, Px, Py
-            cots = [torch.randn(R, generator=gen, device=dev) / R
+            cots = [torch.randn(R, generator=gen, device=dev, dtype=dt) / R
                     for _ in range(8)]
             spec = ftr.poly_spec(system)
             ck, lk = tables(system)
@@ -541,7 +578,8 @@ def main(argv):
         only = (rest[rest.index("--kernels") + 1].split(",")
                 if "--kernels" in rest else None)
         time_tree(argv[1], argv[2], "--aux" in rest, "--main" in rest,
-                  "--nurbs" in rest, only, "--newton" in rest)
+                  "--nurbs" in rest, only, "--newton" in rest,
+                  "--f64" in rest)
     else:
         print(__doc__, file=sys.stderr)
         return 2
