@@ -31,8 +31,9 @@ to 0 just before it and read just after:
     their plain versions;
   * the vectorial Huygens PSF path (phase 16): the value and gradient of
     the centre pixel of ``HuygensPSF`` of a polarized optic at its defaults
-    (the polarized traces on pol_fwd/pol_bwd, three field sums per state on
-    the Huygens kernels).
+    (examples/08's coated doublet at EPD 4, brought to focus by
+    ``Optic.image_solve`` as the example does; the polarized traces on
+    pol_fwd/pol_bwd, three field sums per state on the Huygens kernels).
   * the polychromatic step (phase 17): ``bench.py``'s poly class, the
     Cooke triplet at 2^24 rays with wavelengths 0.48/0.55/0.65 um cycling by
     ray, the value and gradient (``mat_coeffs`` included) of the RMS-spot
@@ -188,7 +189,7 @@ OPS_PUP_EXTRA = 21  # normal cotangents 3, pre/pim cotangents 10, 8 sums
 # csrc/pol_trace.cu as above (a 3-term dot product 5, a complex multiply 6,
 # a complex divide 11). The backward is counted as the forward once plus the
 # adjoint of each part; what the kernel recomputes (the step's forward in
-# step_adjoint, the basis, the Jones matrix, q and r) is not work the
+# its reverse, the basis, the Jones matrix, q and r) is not work the
 # function needs and is not counted again.
 OPS_STEP_ADJ = {1: 170, 0: 50}  # the step's adjoint by geometry code
 #                                 (standard, plane): OPS_BWD_* less the
@@ -200,9 +201,6 @@ OPS_POL_BASIS = 46  # k0 x k1 9, the fallback test 4, |s| 6, 3 divides, two
 #                     cross products 18, the degenerate test and selects 6
 OPS_POL_BASIS_ADJ = 86  # 4 crosses added 48, s.g 5, the normalization 9,
 #                         the cross product's adjoint 24
-OPS_POL_UPDATE = 282  # q = O_in p 90, r = J q 102, O_out^T r 90
-OPS_POL_UPDATE_ADJ = 593  # g_r 90, g_Oout 99, g_q 102, g_J 110, g_Oin 99,
-#                           the cotangent of p 90, the basis rows 3
 OPS_POL_JONES = {"none": 0, "simple": 1, "fresnel": 35, "polarizer": 35,
                  "retarder": 40}  # tmm: OPS_TMM_BASE + OPS_TMM_LAYER x L
 OPS_POL_JONES_ADJ = {"none": 0, "simple": 3, "fresnel": 93,
@@ -218,10 +216,11 @@ OPS_TMM_ADJ_BASE = 130  # per polarization the output's adjoint 23, the
 #                         substrate cosine's adjoint and the coat row 27
 OPS_TMM_ADJ_LAYER = 141  # per layer, 2 x 57 (the product's adjoint), and
 #                          the phase and cosine adjoints 27
-OPS_POL_EXIT = (17, 96)  # (launch basis 15 and the scale 2, per state:
-#                           field 12, p E 72, |E|^2 12)
-OPS_POL_EXIT_ADJ = (41, 180)  # (the launch basis' adjoint 37 and 4, per
-#                               state: g_E 12, g_p 72, the field's 96)
+OPS_POL_EXIT = (17, 24)  # the intensity mode's (launch basis 15 and the
+#                           scale 2, per state: its launch field 12, |e|^2
+#                           12)
+OPS_POL_EXIT_ADJ = (41, 36)  # (the launch basis' adjoint 37 and 4, per
+#                              state: g_e 12, the launch field's adjoint 24)
 # Operations per ray added by a tilted surface in every kernel's TILT
 # instantiation, counted from csrc/step.cuh (a plane rotation rot_ab is 4
 # multiplies and 2 adds). A backward counts the forward's once and their
@@ -232,6 +231,20 @@ OPS_TILT_ADJ = 147  # rot_global_adjoint and rot_local_adjoint: 6 angle
 #                     48, 24 back-rotations of the state and its cotangents
 #                     144, less the zero-tilt generator terms they replace
 #                     (3 x 15)
+
+
+def pol_update_ops(ncols):
+    """(forward, adjoint) operations per ray of one surface's polarization
+    update on ncols columns: p's three in the full mode, the launch states'
+    fields (one or two) in the intensity mode, whose exit reads p only
+    through them (pol_trace.py's ``fields`` form). Per column q = O_in e
+    30, r = J q 34 and O_out^T r 30; the adjoint's g_r 30, g_q 34 and the
+    column's cotangent 30 per column, the sums over the columns of g_Oout
+    and g_Oin (9 entries, 4 ncols - 1 each) and of g_J (5 complex entries,
+    8 ncols - 2 each), and the basis rows 3: (282, 593) for p."""
+    return 94 * ncols, 206 * ncols - 25
+
+
 # Operations per ray of a surface of a Newton family (EVEN/ODD_ASPHERE) in
 # the SAG and DEEP builds, counted from csrc/step.cuh as above, for nc
 # coefficients and newton_iters steps: the forward takes newton_iters + 1
@@ -2188,7 +2201,8 @@ def main(argv=None):
         pol_bwd_intensity) for the kernels' spec, surface by surface: its
         geometry code (``geo_ops``, nc_k coefficients, a NURBS surface's
         structure from ``nets``, its system's geom_aux), absorption, coat
-        kind and tilt."""
+        kind and tilt, and the polarization update on p (the full modes) or
+        on the n_states launch fields (the intensity modes)."""
         nets = nets or (None,) * len(spec_k[0])
         codes, _, absorbs, kinds, layers, tilted = spec_k[:6]
         names = {pt.NONE: "none", pt.SIMPLE: "simple", pt.FRESNEL: "fresnel",
@@ -2203,23 +2217,32 @@ def main(argv=None):
                 jones = OPS_POL_JONES[names[kinds[s]]]
                 jones_adj = OPS_POL_JONES_ADJ[names[kinds[s]]]
             fwd += (g_f + OPS_FULL_FWD + OPS_ABS_FWD * bool(absorbs[s])
-                    + OPS_POL_BASIS + OPS_POL_UPDATE + jones)
+                    + OPS_POL_BASIS + jones)
             adj += (g_a + OPS_FULL_ADJ + OPS_EXTRAS_ADJ
                     + (OPS_ABS_BWD - OPS_ABS_FWD) * bool(absorbs[s])
-                    + OPS_POL_BASIS_ADJ + OPS_POL_UPDATE_ADJ + jones_adj)
+                    + OPS_POL_BASIS_ADJ + jones_adj)
             if tilted[s]:
                 fwd += OPS_TILT_FWD
                 adj += OPS_TILT_ADJ
-        exit_f = OPS_POL_EXIT[0] + OPS_POL_EXIT[1] * n_states
-        exit_a = OPS_POL_EXIT_ADJ[0] + OPS_POL_EXIT_ADJ[1] * n_states
-        return fwd, fwd + exit_f, fwd + adj, fwd + exit_f + adj + exit_a
+        n_surf = len(codes) - 1
+        p_f, p_a = (n_surf * n for n in pol_update_ops(3))
+        e_f, e_a = (n_surf * n for n in pol_update_ops(n_states))
+        e_f += OPS_POL_EXIT[0] + OPS_POL_EXIT[1] * n_states
+        e_a += OPS_POL_EXIT_ADJ[0] + OPS_POL_EXIT_ADJ[1] * n_states
+        return (fwd + p_f, fwd + e_f, fwd + p_f + adj + p_a,
+                fwd + e_f + adj + e_a)
 
     n_h = len(pt.pol_states(STATE_H))
     ops_f, ops_fi, ops_b, ops_bi = pol_ops(spec_p, n_h)
     S_p = len(spec_p[0])
     tbl = (S_p * (ft.NUM_P + 4) + 6 * S_p) * 4
-    red = (2 * launch_build.BWD_MAX_BLOCKS * S_p
-           * (len(ftr.FULL_GRAD_COLS) + 4) * 4)
+    # the partial rows written and read again: one a block of the wave
+    ncoat_p = pt.build_coat_table(pol_samples.bench_polarized().system, WL,
+                                  torch.float32, dev).shape[1]
+    red, red_i = (2 * pt.pol_grid(spec_p, 1, ncoat_p, Rf, inten,
+                                  torch.float32, dev)[1]
+                  * S_p * (len(ftr.FULL_GRAD_COLS) + ncoat_p) * 4
+                  for inten in (False, True))
     work.update({
         # 8 arrays in, 26 out
         "pol_fwd": (Rf * ops_f, tbl + Rf * 34 * 4),
@@ -2228,16 +2251,26 @@ def main(argv=None):
         # 8 arrays and 26 cotangents in, 8 input cotangents out
         "pol_bwd": (Rf * ops_b, tbl + Rf * 42 * 4 + red),
         # 8 arrays and 8 cotangents in, 8 out, the exit intensity's adjoint
-        "pol_bwd_intensity": (Rf * ops_bi, tbl + Rf * 24 * 4 + red),
+        "pol_bwd_intensity": (Rf * ops_bi, tbl + Rf * 24 * 4 + red_i),
     })
     log(f"phase 15 operations per ray (from the spec: codes {spec_p[0]}, "
         f"coat kinds {spec_p[3]}): pol_fwd {ops_f}, pol_fwd_intensity "
         f"{ops_fi}, pol_bwd {ops_b}, pol_bwd_intensity {ops_bi}")
 
     # ---- phase 16: the vectorial Huygens PSF path ----
-    # examples/08's coated doublet in H polarization at EPD 4, without its
-    # image solve
+    # examples/08's coated doublet in H polarization at EPD 4, brought to
+    # focus by its image solve as the example does (solved in float64; the
+    # f64 copy below takes the same thickness)
     lens16 = pol_samples.coated_doublet("H", epd=4.0)
+    t16_before = lens16.surfaces.surfaces[-2].thickness
+    config.set_precision("float64")
+    lens16.image_solve()
+    config.set_precision("float32")
+    t16 = lens16.surfaces.surfaces[-2].thickness
+    check(np.isfinite(t16) and abs(t16 - t16_before) < 5.0,
+          f"vectorial PSF: image solve thickness {t16} (was {t16_before})")
+    log(f"phase 16 image solve: thickness before the image plane "
+        f"{t16_before:.6f} -> {t16:.9f} mm")
     psf16_base = lens16.system
 
     def psf16_vg(system):
@@ -2307,6 +2340,8 @@ def main(argv=None):
     _, calls32 = captured(lambda: psf16_vg(psf16_base))
     config.set_precision("float64")
     lens64 = pol_samples.coated_doublet("H", epd=4.0)
+    lens64.surfaces.surfaces[-2].thickness = t16
+    lens64._invalidate()
     sys64 = lens64.system
     (psf64, _, _, norm64), calls64 = captured(lambda: psf16_vg(sys64))
     check(len(calls32) == len(calls64) == 4, f"vectorial PSF: "

@@ -890,13 +890,13 @@ __device__ __forceinline__ T step_fwd_nurbs(int code, int refl, int absorbs,
 }
 
 // The nurbs build's reverse step (ops/step.py: step_adjoint_plain with a
-// NURBS surface): step_adjoint's PLANE and STANDARD branches with the
+// NURBS surface): step_adjoint_kept's PLANE and STANDARD branches with the
 // tilts, ``gext`` as there, and a NURBS surface's (surface s of the tables
 // ``tb``) intersection and normal taken again from its stopped point
 // ``uv`` (the forward sweep's: nurbs_corrected) and reversed through
 // nurbs_adjoint, which with the evaluations writes the ray's record (rec,
 // idx: nurbs_own_cols). A
-// change to step_adjoint's PLANE and STANDARD code is made here too (and
+// change to step_adjoint_kept's PLANE and STANDARD code is made here too (and
 // in step_adjoint_grat).
 template <typename T, bool FULL>
 __device__ __forceinline__ void step_adjoint_nurbs(

@@ -17,23 +17,34 @@
 // for the p update (three 3x3 products of real pairs, two of them with a
 // real matrix) and 20-100 for the coating's Jones matrix; a ray moves 64
 // bytes in and 208 (full) or 64 (intensity) out in float32. The adjoint
-// does about three times the work and keeps each ray's per-surface state
-// (7 ray values, adot, the intensity before the coating and p's 18 reals)
-// in a local array bounded by the build's capacity (16 surfaces, 64 in the
-// deep build). Both are bound by operations. So,
-// as the other trace kernels: one thread per ray with its state and p in
+// does about three times the work. Both are bound by operations. So, as
+// the other trace kernels: one thread per ray with its state and p in
 // registers, coalesced structure-of-arrays loads and stores, the param
 // table, the tilts' cosines and sines, the coat table and the per-surface
 // flags (geometry code, reflect, absorb, coat kind, thin-film layers,
 // tilted) in shared memory, uniform across the block so the per-surface
 // branches (coat kind included) do not diverge. The p update of a tilted
 // surface takes the local-frame directions (the step's extras, as the JAX
-// package's kernels do); the adjoint rotates the stored global directions
-// into the surface's frame again rather than keep them.
-// The adjoint sums each surface's gradient columns with warp shuffles into
-// per-warp shared rows over a grid-stride loop, writes one partial row per
-// block, and a second launch (grad_reduce_kernel, its coat columns after the
-// parameter slots) sums the rows in a fixed order: no float atomics.
+// package's kernels do).
+// The adjoint (pol_trace.cuh: pol_bwd_kernel) keeps per ray and surface,
+// in a local array bounded by the build's capacity (16 surfaces, 64 in the
+// deep build), the input state, adot, what its step's reverse would
+// compute again (the stock and tilt builds: step_fwd_pt_ext's roots; the
+// Newton builds: step_fwd's KEEP record; nurbs: the stopped (u, v)), the
+// intensity before the coating and the polarization before the surface:
+// p's 18 reals, or in the intensity mode each launch state's field p E0
+// (6 reals), the only part of p the exit intensity reads (but the nurbs
+// build, which keeps p and Fresnel's divides: its f32 check sits near a
+// nearly degenerate basis). Its reverse forms each surface's basis and
+// Jones matrix once (a Fresnel surface's coefficients with one reciprocal
+// per denominator), updates p (or the fields) column by column, and hands
+// the kept step's reverse the cotangents of its extras
+// (step_adjoint_pt_ext, step_adjoint_kept_ext). Each warp sums a surface's
+// gradient slots and coat columns by a butterfly of shuffles into its
+// shared row; the launch takes one wave of blocks (ops/launch.py:
+// bwd_grid), each writes one partial row, and a second launch
+// (grad_reduce_kernel, its coat columns after the parameter slots) sums
+// the rows in a fixed order: no float atomics.
 //
 // Every extern "C" entry launches on the caller's stream, does not
 // synchronise, and returns cudaGetLastError().

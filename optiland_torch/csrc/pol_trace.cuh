@@ -10,6 +10,16 @@
 
 namespace {
 
+// The polarized backward's steps: step_fwd_pt_ext (the extras written),
+// step_adjoint_pt_ext and step_adjoint_kept_ext (the extras' cotangents
+// taken), the merit and trace backwards' steps read again with STEP_EXT
+#define STEP_EXT 1
+#define STEP_NAME(f) f##_ext
+#include "step_kept.cuh"
+#include "step_pt.cuh"
+#undef STEP_EXT
+#undef STEP_NAME
+
 // coat kinds (optiland_torch/ops/pol_trace.py holds the same values)
 constexpr int K_NONE = 0, K_SIMPLE = 1, K_FRESNEL = 2, K_POLARIZER = 3,
               K_RETARDER = 4, K_TMM = 5;
@@ -226,39 +236,6 @@ __device__ __forceinline__ void fresnel_fwd(T n1, T n2, T adot, int refl,
     J.j00 = f.js;
     J.j11 = f.jq;
   }
-}
-
-template <typename T>
-__device__ __forceinline__ void fresnel_adjoint(T n1, T n2, T adot, int refl,
-                                                const FresnelV<T>& f,
-                                                Cx<T> g_js, Cx<T> g_jp,
-                                                T& g_n1, T& g_n2, T& g_adot) {
-  const T c = adot;
-  T g_c, g_nn, g_n = T(0);
-  Cx<T> g_root;
-  if (refl) {
-    Cx<T> gA, gB, gC, gD;
-    div_adjoint(g_js, f.B, f.js, gA, gB);
-    div_adjoint(cneg(g_jp), f.D, f.jq, gC, gD);
-    g_c = gA.r + gB.r + f.nn * (gC.r + gD.r);
-    g_nn = c * (gC.r + gD.r);
-    g_root = cadd(csub(gB, gA), csub(gD, gC));
-  } else {
-    Cx<T> gnum, gB, gnum2, gD;
-    div_adjoint(g_js, f.B, f.js, gnum, gB);
-    div_adjoint(g_jp, f.D, f.jq, gnum2, gD);
-    g_c = T(2) * gnum.r + gB.r + T(2) * f.n * gnum2.r + f.nn * gD.r;
-    g_n = T(2) * c * gnum2.r;
-    g_nn = c * gD.r;
-    g_root = cadd(gB, gD);
-  }
-  const T g_arg = f.pos ? g_root.r * T(0.5) / f.rr
-                        : -g_root.i * T(0.5) / f.ri;
-  g_nn += g_arg;
-  g_adot = g_c + T(2) * adot * g_arg;
-  g_n += T(2) * f.n * g_nn;
-  g_n1 = -g_n * n2 / (n1 * n1);
-  g_n2 = g_n / n1;
 }
 
 // Thin-film stack by the real-index transfer matrix (pol_trace._tmm)
@@ -623,69 +600,8 @@ __device__ __forceinline__ void update_fwd(T* pr, T* pim, const Basis<T>& b,
     }
 }
 
-// From G (Gr, Gi), the cotangent of the new p: G becomes that of the p
-// before the update; gJ, gBin, gBout receive their cotangents.
-template <typename T>
-__device__ __forceinline__ void update_adjoint(const T* pr, const T* pim,
-                                               T (*Bin)[3],
-                                               T (*Bout)[3],
-                                               const Jones<T>& J, T* Gr,
-                                               T* Gi, Jones<T>& gJ,
-                                               T (*gBin)[3], T (*gBout)[3]) {
-  Cx<T> q[3][3], r[3][3];
-  update_qr(Bin, pr, pim, J, q, r);
-  Cx<T> gr[3][3];
-  for (int aa = 0; aa < 3; ++aa)
-    for (int l = 0; l < 3; ++l) {
-      T a = T(0), c = T(0);
-      for (int i = 0; i < 3; ++i) {
-        a += Bout[aa][i] * Gr[i * 3 + l];
-        c += Bout[aa][i] * Gi[i * 3 + l];
-      }
-      gr[aa][l] = {a, c};
-    }
-  for (int aa = 0; aa < 3; ++aa)
-    for (int i = 0; i < 3; ++i) {
-      T a = T(0);
-      for (int l = 0; l < 3; ++l)
-        a += r[aa][l].r * Gr[i * 3 + l] + r[aa][l].i * Gi[i * 3 + l];
-      gBout[aa][i] = a;
-    }
-  Cx<T> gq[3][3];
-  Cx<T> s00 = {T(0), T(0)}, s01 = s00, s10 = s00, s11 = s00, s22 = s00;
-  for (int l = 0; l < 3; ++l) {
-    gq[0][l] = cadd(cjmul(J.j00, gr[0][l]), cjmul(J.j10, gr[1][l]));
-    gq[1][l] = cadd(cjmul(J.j01, gr[0][l]), cjmul(J.j11, gr[1][l]));
-    gq[2][l] = cjmul(J.j22, gr[2][l]);
-    // g_jab = sum_l g_r[a][l] conj(q[b][l])
-    s00 = cadd(s00, cjmul(q[0][l], gr[0][l]));
-    s01 = cadd(s01, cjmul(q[1][l], gr[0][l]));
-    s10 = cadd(s10, cjmul(q[0][l], gr[1][l]));
-    s11 = cadd(s11, cjmul(q[1][l], gr[1][l]));
-    s22 = cadd(s22, cjmul(q[2][l], gr[2][l]));
-  }
-  gJ = {s00, s01, s10, s11, s22};
-  for (int bb = 0; bb < 3; ++bb)
-    for (int k = 0; k < 3; ++k) {
-      T a = T(0);
-      for (int l = 0; l < 3; ++l)
-        a += gq[bb][l].r * pr[k * 3 + l] + gq[bb][l].i * pim[k * 3 + l];
-      gBin[bb][k] = a;
-    }
-  for (int k = 0; k < 3; ++k)
-    for (int l = 0; l < 3; ++l) {
-      T a = T(0), c = T(0);
-      for (int bb = 0; bb < 3; ++bb) {
-        a += Bin[bb][k] * gq[bb][l].r;
-        c += Bin[bb][k] * gq[bb][l].i;
-      }
-      Gr[k * 3 + l] = a;
-      Gi[k * 3 + l] = c;
-    }
-}
-
 // ---------------------------------------------------------------------------
-// Exit intensity (pol_trace._exit_intensity, _exit_intensity_adjoint)
+// Exit intensity (pol_trace._exit_intensity)
 // ---------------------------------------------------------------------------
 
 // launch-space (s, p): p = k x xhat normalized (kept where it vanishes),
@@ -734,65 +650,6 @@ __device__ __forceinline__ T exit_intensity(const T* pr, const T* pim,
       total += Er[row] * Er[row] + Ei[row] * Ei[row];
   }
   return total * i0 / T(st.n);
-}
-
-// Gr, Gi: the cotangent of p; g_k: of the launch directions; g_i0: of the
-// launch intensity, for the cotangent g_out of the exit intensity
-template <typename T>
-__device__ __forceinline__ void exit_intensity_adjoint(
-    const T* pr, const T* pim, const T* k, T i0, const States<T>& st,
-    T g_out, T* Gr, T* Gi, T* g_k, T& g_i0) {
-  T sl[3], pl[3];
-  const T nrm = launch_basis(k, sl, pl);
-  T total = T(0);
-  for (int m = 0; m < st.n; ++m) {
-    T er[3], ei[3], Er[3], Ei[3];
-    exit_field(pr, pim, sl, pl, st.c[m], er, ei, Er, Ei);
-    for (int row = 0; row < 3; ++row)
-      total += Er[row] * Er[row] + Ei[row] * Ei[row];
-  }
-  const T n = T(st.n);
-  const T g_tot = g_out * i0 / n;
-  g_i0 = g_out * total / n;
-  for (int j = 0; j < 9; ++j) Gr[j] = Gi[j] = T(0);
-  T g_sl[3] = {T(0), T(0), T(0)}, g_pl[3] = {T(0), T(0), T(0)};
-  for (int m = 0; m < st.n; ++m) {
-    const T* cs = st.c[m];
-    T er[3], ei[3], Er[3], Ei[3];
-    exit_field(pr, pim, sl, pl, cs, er, ei, Er, Ei);
-    T gEr[3], gEi[3];
-    for (int row = 0; row < 3; ++row) {
-      gEr[row] = T(2) * g_tot * Er[row];
-      gEi[row] = T(2) * g_tot * Ei[row];
-    }
-    for (int row = 0; row < 3; ++row)
-      for (int col = 0; col < 3; ++col) {
-        Gr[row * 3 + col] += gEr[row] * er[col] + gEi[row] * ei[col];
-        Gi[row * 3 + col] += gEi[row] * er[col] - gEr[row] * ei[col];
-      }
-    for (int col = 0; col < 3; ++col) {
-      T ger = T(0), gei = T(0);
-      for (int row = 0; row < 3; ++row) {
-        ger += pr[row * 3 + col] * gEr[row] + pim[row * 3 + col] * gEi[row];
-        gei += pr[row * 3 + col] * gEi[row] - pim[row * 3 + col] * gEr[row];
-      }
-      g_sl[col] += cs[0] * ger + cs[1] * gei;
-      g_pl[col] += cs[2] * ger + cs[3] * gei;
-    }
-  }
-  // s = pl x k
-  cross(g_sl, pl, g_k);
-  cross_add(k, g_sl, g_pl);
-  // pl = (0, N, -M) / |.| (a zero norm taken as 1)
-  T g_pr[3];
-  if (nrm != T(0)) {
-    const T proj = dot3(pl, g_pl);
-    for (int c = 0; c < 3; ++c) g_pr[c] = (g_pl[c] - pl[c] * proj) / nrm;
-  } else {
-    for (int c = 0; c < 3; ++c) g_pr[c] = g_pl[c];
-  }
-  g_k[1] -= g_pr[2];
-  g_k[2] += g_pr[1];
 }
 
 // ---------------------------------------------------------------------------
@@ -898,14 +755,446 @@ pol_fwd_kernel(const T* __restrict__ params, const T* __restrict__ coat,
   }
 }
 
-// Backward: retrace each ray keeping its per-surface input state, adot, the
-// intensity before the coating and the p before the surface, then run the
-// reverse sweep seeded with its output cotangents. One partial row per
-// block over a grid-stride loop of ray chunks, compact layout: [s * N_GF +
-// j] for surface s and parameter slot j, then (SAG) nc coefficient columns
-// for each of the nsag Newton surfaces, then [.. + s * ncoat + c] for its
-// coat column c; the 8 per-ray input cotangents are written too. The deep
-// build keeps its per-warp rows in dynamic shared memory.
+// The backward's update, one column at a time: p <- O_out J O_in p acts
+// on each column of p alone, so the full mode updates p's three columns
+// and the intensity mode each launch state's field e_m = p E0_m in place
+// of p (6 reals each where p has 18; the exit intensity reads p only
+// through them: the same function summed in another order, whose plain
+// twin is pol_trace.py's ``fields`` form). Per column the arithmetic of
+// update_qr, update_fwd and update_adjoint.
+
+// q = Bin e, r = J q
+template <typename T>
+__device__ __forceinline__ void vec_qr(T (*Bin)[3], const T* er,
+                                       const T* ei, const Jones<T>& J,
+                                       Cx<T>* q, Cx<T>* r) {
+  for (int b = 0; b < 3; ++b) {
+    T a = T(0), c = T(0);
+    for (int k = 0; k < 3; ++k) {
+      a += Bin[b][k] * er[k];
+      c += Bin[b][k] * ei[k];
+    }
+    q[b] = {a, c};
+  }
+  r[0] = cadd(cmul(J.j00, q[0]), cmul(J.j01, q[1]));
+  r[1] = cadd(cmul(J.j10, q[0]), cmul(J.j11, q[1]));
+  r[2] = cmul(J.j22, q[2]);
+}
+
+template <typename T>
+__device__ __forceinline__ void vec_update(T (*Bin)[3], T (*Bout)[3],
+                                           const Jones<T>& J, T* er, T* ei) {
+  Cx<T> q[3], r[3];
+  vec_qr(Bin, er, ei, J, q, r);
+  for (int i = 0; i < 3; ++i) {
+    T a = T(0), c = T(0);
+    for (int aa = 0; aa < 3; ++aa) {
+      a += Bout[aa][i] * r[aa].r;
+      c += Bout[aa][i] * r[aa].i;
+    }
+    er[i] = a;
+    ei[i] = c;
+  }
+}
+
+// From (Ger, Gei), the cotangent of the column after the update, that of
+// the column (er, ei) before it; gJ, gBin, gBout += their cotangents.
+template <typename T>
+__device__ __forceinline__ void vec_update_adjoint(
+    T (*Bin)[3], T (*Bout)[3], const Jones<T>& J, const T* er, const T* ei,
+    T* Ger, T* Gei, Jones<T>& gJ, T (*gBin)[3], T (*gBout)[3]) {
+  Cx<T> q[3], r[3];
+  vec_qr(Bin, er, ei, J, q, r);
+  Cx<T> gr[3];
+  for (int aa = 0; aa < 3; ++aa) {
+    T a = T(0), c = T(0);
+    for (int i = 0; i < 3; ++i) {
+      a += Bout[aa][i] * Ger[i];
+      c += Bout[aa][i] * Gei[i];
+    }
+    gr[aa] = {a, c};
+  }
+  for (int aa = 0; aa < 3; ++aa)
+    for (int i = 0; i < 3; ++i)
+      gBout[aa][i] += r[aa].r * Ger[i] + r[aa].i * Gei[i];
+  Cx<T> gq[3];
+  gq[0] = cadd(cjmul(J.j00, gr[0]), cjmul(J.j10, gr[1]));
+  gq[1] = cadd(cjmul(J.j01, gr[0]), cjmul(J.j11, gr[1]));
+  gq[2] = cjmul(J.j22, gr[2]);
+  gJ.j00 = cadd(gJ.j00, cjmul(q[0], gr[0]));
+  gJ.j01 = cadd(gJ.j01, cjmul(q[1], gr[0]));
+  gJ.j10 = cadd(gJ.j10, cjmul(q[0], gr[1]));
+  gJ.j11 = cadd(gJ.j11, cjmul(q[1], gr[1]));
+  gJ.j22 = cadd(gJ.j22, cjmul(q[2], gr[2]));
+  for (int b = 0; b < 3; ++b)
+    for (int k = 0; k < 3; ++k)
+      gBin[b][k] += gq[b].r * er[k] + gq[b].i * ei[k];
+  for (int k = 0; k < 3; ++k) {
+    T a = T(0), c = T(0);
+    for (int b = 0; b < 3; ++b) {
+      a += Bin[b][k] * gq[b].r;
+      c += Bin[b][k] * gq[b].i;
+    }
+    Ger[k] = a;
+    Gei[k] = c;
+  }
+}
+
+// Column m of the polarization ``pol``: p's column m (18 reals, row-major,
+// real parts first) or VEC field m (6 reals each); get and set.
+template <bool VEC, typename T>
+__device__ __forceinline__ void col_get(const T* pol, int m, T* er, T* ei) {
+  for (int k = 0; k < 3; ++k) {
+    er[k] = VEC ? pol[6 * m + k] : pol[3 * k + m];
+    ei[k] = VEC ? pol[6 * m + 3 + k] : pol[9 + 3 * k + m];
+  }
+}
+template <bool VEC, typename T>
+__device__ __forceinline__ void col_set(T* pol, int m, const T* er,
+                                        const T* ei) {
+  for (int k = 0; k < 3; ++k) {
+    (VEC ? pol[6 * m + k] : pol[3 * k + m]) = er[k];
+    (VEC ? pol[6 * m + 3 + k] : pol[9 + 3 * k + m]) = ei[k];
+  }
+}
+
+// The backward's Fresnel coefficients: fresnel_fwd's, with one reciprocal
+// of each denominator (|B|^2, |D|^2 and n1) where the coefficients and
+// their adjoint divide by it several times (a rounding apart), or (DIV)
+// with fresnel_fwd's own divides: the nurbs build's, whose phase 28 check
+// holds it within 1e-3 of the plain version's f32 rounding near a nearly
+// degenerate basis (PERF.md §6). The backward forms a Fresnel surface's
+// coefficients in its forward sweep and again in reverse.
+template <typename T>
+struct FresnelR {
+  T n, nn, rr, ri, in1, iB, iD;
+  bool pos;
+  Cx<T> B, D, js, jq;
+};
+
+// a / b by the reciprocal ib of |b|^2, or (DIV) by cdiv
+template <bool DIV, typename T>
+__device__ __forceinline__ Cx<T> cdiv_r(Cx<T> a, Cx<T> b, T ib) {
+  if constexpr (DIV) return cdiv(a, b);
+  return {(a.r * b.r + a.i * b.i) * ib, (a.i * b.r - a.r * b.i) * ib};
+}
+
+template <bool DIV, typename T>
+__device__ __forceinline__ void fresnel_fwd_r(T n1, T n2, T adot, int refl,
+                                              FresnelR<T>& f, Jones<T>& J) {
+  f.in1 = DIV ? T(0) : T(1) / n1;
+  f.n = DIV ? n2 / n1 : n2 * f.in1;
+  f.nn = f.n * f.n;
+  const T arg = f.nn - T(1) + adot * adot;
+  f.pos = arg >= T(0);
+  f.rr = f.pos ? sqrt_(arg) : T(0);
+  f.ri = f.pos ? T(0) : sqrt_(-arg);
+  const T c = adot;
+  J = jones_identity<T>();
+  f.B = {c + f.rr, f.ri};
+  f.D = {f.nn * c + f.rr, f.ri};
+  f.iB = DIV ? T(0) : T(1) / (f.B.r * f.B.r + f.B.i * f.B.i);
+  f.iD = DIV ? T(0) : T(1) / (f.D.r * f.D.r + f.D.i * f.D.i);
+  if (refl) {
+    f.js = cdiv_r<DIV>(Cx<T>{c - f.rr, -f.ri}, f.B, f.iB);
+    f.jq = cdiv_r<DIV>(Cx<T>{f.nn * c - f.rr, -f.ri}, f.D, f.iD);
+    J.j00 = f.js;
+    J.j11 = cneg(f.jq);
+    J.j22 = {T(-1), T(0)};
+  } else {
+    f.js = cdiv_r<DIV>(Cx<T>{T(2) * c, T(0)}, f.B, f.iB);
+    f.jq = cdiv_r<DIV>(Cx<T>{T(2) * f.n * c, T(0)}, f.D, f.iD);
+    J.j00 = f.js;
+    J.j11 = f.jq;
+  }
+}
+
+// q = a / b: the cotangents g / conj(b) of a and -g conj(q) / conj(b) of b
+// (div_adjoint; with the reciprocal ib of |b|^2 unless DIV)
+template <bool DIV, typename T>
+__device__ __forceinline__ void div_adjoint_r(Cx<T> g, Cx<T> b, T ib, Cx<T> q,
+                                              Cx<T>& ga, Cx<T>& gb) {
+  const Cx<T> bc = {b.r, -b.i};
+  ga = cdiv_r<DIV>(g, bc, ib);
+  gb = cneg(cdiv_r<DIV>(cmul(g, Cx<T>{q.r, -q.i}), bc, ib));
+}
+
+template <bool DIV, typename T>
+__device__ __forceinline__ void fresnel_adjoint_r(T n1, T n2, T adot,
+                                                  int refl,
+                                                  const FresnelR<T>& f,
+                                                  Cx<T> g_js, Cx<T> g_jp,
+                                                  T& g_n1, T& g_n2,
+                                                  T& g_adot) {
+  const T c = adot;
+  T g_c, g_nn, g_n = T(0);
+  Cx<T> g_root;
+  if (refl) {
+    Cx<T> gA, gB, gC, gD;
+    div_adjoint_r<DIV>(g_js, f.B, f.iB, f.js, gA, gB);
+    div_adjoint_r<DIV>(cneg(g_jp), f.D, f.iD, f.jq, gC, gD);
+    g_c = gA.r + gB.r + f.nn * (gC.r + gD.r);
+    g_nn = c * (gC.r + gD.r);
+    g_root = cadd(csub(gB, gA), csub(gD, gC));
+  } else {
+    Cx<T> gnum, gB, gnum2, gD;
+    div_adjoint_r<DIV>(g_js, f.B, f.iB, f.js, gnum, gB);
+    div_adjoint_r<DIV>(g_jp, f.D, f.iD, f.jq, gnum2, gD);
+    g_c = T(2) * gnum.r + gB.r + T(2) * f.n * gnum2.r + f.nn * gD.r;
+    g_n = T(2) * c * gnum2.r;
+    g_nn = c * gD.r;
+    g_root = cadd(gB, gD);
+  }
+  const T g_arg = f.pos ? g_root.r * T(0.5) / f.rr
+                        : -g_root.i * T(0.5) / f.ri;
+  g_nn += g_arg;
+  g_adot = g_c + T(2) * adot * g_arg;
+  g_n += T(2) * f.n * g_nn;
+  g_n1 = DIV ? -g_n * n2 / (n1 * n1) : -g_n * n2 * f.in1 * f.in1;
+  g_n2 = DIV ? g_n / n1 : g_n * f.in1;
+}
+
+// The launch fields E0_m of the states (exit_field's er, ei): state m's
+// (re, im) at e[6 m], e[6 m + 3]
+template <typename T>
+__device__ __forceinline__ void launch_fields(const T* k, const States<T>& st,
+                                              T* e) {
+  T sl[3], pl[3];
+  launch_basis(k, sl, pl);
+  for (int m = 0; m < 2; ++m)
+    if (m < st.n)
+      for (int c = 0; c < 3; ++c) {
+        e[6 * m + c] = st.c[m][0] * sl[c] + st.c[m][2] * pl[c];
+        e[6 * m + 3 + c] = st.c[m][1] * sl[c] + st.c[m][3] * pl[c];
+      }
+}
+
+// g_k = the launch directions' cotangent for (g_sl, g_pl), those of the
+// launch basis (s, p) of launch_basis(k) (nrm: its |k x xhat|); g_pl is
+// modified
+template <typename T>
+__device__ __forceinline__ void launch_basis_adjoint(const T* k, const T* pl,
+                                                     T nrm, const T* g_sl,
+                                                     T* g_pl, T* g_k) {
+  // s = pl x k
+  cross(g_sl, pl, g_k);
+  cross_add(k, g_sl, g_pl);
+  // pl = (0, N, -M) / |.| (a zero norm taken as 1)
+  T g_pr[3];
+  if (nrm != T(0)) {
+    const T proj = dot3(pl, g_pl);
+    for (int c = 0; c < 3; ++c) g_pr[c] = (g_pl[c] - pl[c] * proj) / nrm;
+  } else {
+    for (int c = 0; c < 3; ++c) g_pr[c] = g_pl[c];
+  }
+  g_k[1] -= g_pr[2];
+  g_k[2] += g_pr[1];
+}
+
+// g_k: the launch directions' cotangent for Ge, that of the launch fields
+// (the vector form's)
+template <typename T>
+__device__ __forceinline__ void launch_fields_adjoint(const T* k,
+                                                      const States<T>& st,
+                                                      const T* Ge, T* g_k) {
+  T sl[3], pl[3];
+  const T nrm = launch_basis(k, sl, pl);
+  T g_sl[3] = {T(0), T(0), T(0)}, g_pl[3] = {T(0), T(0), T(0)};
+  for (int m = 0; m < 2; ++m)
+    if (m < st.n) {
+      const T* cs = st.c[m];
+      for (int c = 0; c < 3; ++c) {
+        g_sl[c] += cs[0] * Ge[6 * m + c] + cs[1] * Ge[6 * m + 3 + c];
+        g_pl[c] += cs[2] * Ge[6 * m + c] + cs[3] * Ge[6 * m + 3 + c];
+      }
+    }
+  launch_basis_adjoint(k, pl, nrm, g_sl, g_pl, g_k);
+}
+
+// Gr, Gi: the cotangent of p; g_k: of the launch directions; g_i0: of the
+// launch intensity, for the cotangent g_out of the exit intensity (the
+// matrix form's: the nurbs build's intensity mode)
+template <typename T>
+__device__ __forceinline__ void exit_intensity_adjoint(
+    const T* pr, const T* pim, const T* k, T i0, const States<T>& st,
+    T g_out, T* Gr, T* Gi, T* g_k, T& g_i0) {
+  T sl[3], pl[3];
+  const T nrm = launch_basis(k, sl, pl);
+  T total = T(0);
+  for (int m = 0; m < st.n; ++m) {
+    T er[3], ei[3], Er[3], Ei[3];
+    exit_field(pr, pim, sl, pl, st.c[m], er, ei, Er, Ei);
+    for (int row = 0; row < 3; ++row)
+      total += Er[row] * Er[row] + Ei[row] * Ei[row];
+  }
+  const T n = T(st.n);
+  const T g_tot = g_out * i0 / n;
+  g_i0 = g_out * total / n;
+  for (int j = 0; j < 9; ++j) Gr[j] = Gi[j] = T(0);
+  T g_sl[3] = {T(0), T(0), T(0)}, g_pl[3] = {T(0), T(0), T(0)};
+  for (int m = 0; m < st.n; ++m) {
+    const T* cs = st.c[m];
+    T er[3], ei[3], Er[3], Ei[3];
+    exit_field(pr, pim, sl, pl, cs, er, ei, Er, Ei);
+    T gEr[3], gEi[3];
+    for (int row = 0; row < 3; ++row) {
+      gEr[row] = T(2) * g_tot * Er[row];
+      gEi[row] = T(2) * g_tot * Ei[row];
+    }
+    for (int row = 0; row < 3; ++row)
+      for (int col = 0; col < 3; ++col) {
+        Gr[row * 3 + col] += gEr[row] * er[col] + gEi[row] * ei[col];
+        Gi[row * 3 + col] += gEi[row] * er[col] - gEr[row] * ei[col];
+      }
+    for (int col = 0; col < 3; ++col) {
+      T ger = T(0), gei = T(0);
+      for (int row = 0; row < 3; ++row) {
+        ger += pr[row * 3 + col] * gEr[row] + pim[row * 3 + col] * gEi[row];
+        gei += pr[row * 3 + col] * gEi[row] - pim[row * 3 + col] * gEr[row];
+      }
+      g_sl[col] += cs[0] * ger + cs[1] * gei;
+      g_pl[col] += cs[2] * ger + cs[3] * gei;
+    }
+  }
+  launch_basis_adjoint(k, pl, nrm, g_sl, g_pl, g_k);
+}
+
+// One surface's polarization update in the backward's forward sweep: p's
+// three columns (``pol``'s 18 reals), or VEC the nst fields (6 reals
+// each); a Fresnel surface's J by fresnel_fwd_r<DIV>
+template <typename T, bool VEC, bool DIV>
+__device__ __forceinline__ void pol_update_fwd(int kind, const T* cr, int nl,
+                                               int refl, const T* k0,
+                                               const T* k1, T adot, T* pol,
+                                               int nst) {
+  Basis<T> b;
+  basis_fwd(k0, k1, b);
+  Jones<T> J;
+  FresnelR<T> f;
+  if (kind == K_FRESNEL)
+    fresnel_fwd_r<DIV>(cr[0], cr[1], adot, refl, f, J);
+  else
+    jones_fwd(kind, cr, nl, adot, refl, b, J);
+  T Bin[3][3], Bout[3][3];
+  rows_of(b, k0, k1, Bin, Bout);
+  for (int m = 0; m < (VEC ? 2 : 3); ++m)
+    if (!VEC || m < nst) {
+      T er[3], ei[3];
+      col_get<VEC>(pol, m, er, ei);
+      vec_update(Bin, Bout, J, er, ei);
+      col_set<VEC>(pol, m, er, ei);
+    }
+}
+
+// The reverse of one surface's polarization update from its local
+// directions k0, k1 and adot and the polarization before it, ``pb``: G,
+// the cotangent of the polarization after the surface (in ``pol``'s
+// layout), becomes that before it; gco += the coat row's cotangents; gext
+// = those of (k0, k1, adot), for the step's reverse. A Fresnel surface
+// forms its coefficients once, for J and its adjoint.
+template <typename T, bool VEC, bool DIV>
+__device__ __forceinline__ void pol_update_adjoint(int kind, const T* cr,
+                                                   int nl, int refl,
+                                                   const T* k0, const T* k1,
+                                                   T adot, const T* pb,
+                                                   int nst, T* G, T* gco,
+                                                   T* gext) {
+  Basis<T> b;
+  basis_fwd(k0, k1, b);
+  Jones<T> J;
+  FresnelR<T> f;
+  if (kind == K_FRESNEL)
+    fresnel_fwd_r<DIV>(cr[0], cr[1], adot, refl, f, J);
+  else
+    jones_fwd(kind, cr, nl, adot, refl, b, J);
+  T Bin[3][3], Bout[3][3], gBin[3][3], gBout[3][3];
+  rows_of(b, k0, k1, Bin, Bout);
+  const Cx<T> z = {T(0), T(0)};
+  Jones<T> gJ = {z, z, z, z, z};
+  for (int a = 0; a < 3; ++a)
+    for (int c = 0; c < 3; ++c) gBin[a][c] = gBout[a][c] = T(0);
+  for (int m = 0; m < (VEC ? 2 : 3); ++m)
+    if (!VEC || m < nst) {
+      T er[3], ei[3], Ger[3], Gei[3];
+      col_get<VEC>(pb, m, er, ei);
+      col_get<VEC>(G, m, Ger, Gei);
+      vec_update_adjoint(Bin, Bout, J, er, ei, Ger, Gei, gJ, gBin, gBout);
+      col_set<VEC>(G, m, Ger, Gei);
+    }
+  T g_s[3], g_p0[3], g_p1[3];
+  for (int c = 0; c < 3; ++c) {
+    g_s[c] = gBin[0][c] + gBout[0][c];
+    g_p0[c] = gBin[1][c];
+    g_p1[c] = gBout[1][c];
+    gext[c] = gBin[2][c];
+    gext[3 + c] = gBout[2][c];
+  }
+  gext[6] = T(0);
+  if (kind == K_FRESNEL) {
+    T gn1, gn2, ga;
+    fresnel_adjoint_r<DIV>(cr[0], cr[1], adot, refl, f, gJ.j00, gJ.j11, gn1,
+                           gn2, ga);
+    gco[0] += gn1;
+    gco[1] += gn2;
+    gext[6] += ga;
+  } else if (kind == K_TMM) {
+    tmm_adjoint(cr, nl, adot, refl, gJ.j00, gJ.j11, gco, gext[6]);
+  } else if (kind == K_POLARIZER || kind == K_RETARDER) {
+    axis_adjoint(kind, cr, b, gJ, gco, g_s, g_p0, g_p1);
+  }
+  basis_adjoint(k0, k1, b, g_s, g_p0, g_p1, gext, gext + 3);
+}
+
+// A surface's N_GF slots and ncoat coat columns, summed over the warp by
+// the butterfly (warp_cols_steps): the slots and the first 16 - N_GF coat
+// columns in one pass of 16 values, the others 16 at a time; one
+// shared-memory add per column, into the warp's row at ``slots`` and
+// ``coats``.
+template <typename T>
+__device__ __forceinline__ void pol_cols_add(const T* gc, const T* gco,
+                                             int ncoat, int lane, T* slots,
+                                             T* coats) {
+  constexpr int NF = 16 - N_GF;  // the coat columns of the first pass
+  T v[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i)
+    v[i] = i < N_GF ? gc[i] : (i - N_GF < ncoat ? gco[i - N_GF] : T(0));
+  warp_cols_steps<8>(v, lane);
+  const int c = lane >> 1;  // lane 2 c ends with column c's sum
+  if ((lane & 1) == 0) {
+    if (c < N_GF)
+      slots[c] += v[0];
+    else if (c - N_GF < ncoat)
+      coats[c - N_GF] += v[0];
+  }
+  for (int g0 = NF; g0 < ncoat; g0 += 16) {
+    T w[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) w[i] = g0 + i < ncoat ? gco[g0 + i] : T(0);
+    warp_cols_add<T, 16>(w, ncoat - g0, lane, coats + g0);
+  }
+}
+
+// Backward: retrace each ray keeping, per surface, its input state, adot,
+// what its step's reverse would compute again (the stock and tilt builds:
+// step_fwd_pt's roots and distance; the Newton builds: step_fwd's KEEP
+// record; nurbs: the stopped (u, v)), the intensity before the coating and
+// the polarization before the surface (p, or INTENSITY the launch states'
+// fields: the vector form, VEC, in every build but nurbs), then run the
+// reverse sweep seeded with its output cotangents: per surface the
+// polarization's reverse, from the local directions (the kept states,
+// rotated into a tilted surface's frame) and adot, then the step's reverse
+// with the cotangents of those extras (step_adjoint_pt_ext,
+// step_adjoint_kept_ext, step_adjoint_nurbs).
+// One partial row per block over a grid-stride loop of ray chunks (one
+// wave of blocks: ops/launch.py, bwd_grid), compact layout: [s * N_GF
+// + j] for surface s and parameter slot j, then (SAG) ncb coefficient
+// columns for each of the nsag Newton surfaces (NURBS: nc net columns for
+// each NURBS surface), then [.. + s * ncoat + c] for its coat column c;
+// each warp sums a surface's slots and coat columns by the butterfly
+// (pol_cols_add), the Newton columns staged (warp_cols_staged). The 8
+// per-ray input cotangents are written too. The sag, deep and nurbs builds
+// keep their per-warp rows in dynamic shared memory.
 template <typename T, bool INTENSITY, int B>
 __global__ void __launch_bounds__(BWD_BLOCK)
 pol_bwd_kernel(const T* __restrict__ params, const T* __restrict__ coat,
@@ -918,12 +1207,24 @@ pol_bwd_kernel(const T* __restrict__ params, const T* __restrict__ coat,
   constexpr int NW_MAX = BWD_BLOCK / 32;
   constexpr int NCOMP_MAX =
       CAP * (N_GF + NCOAT_MAX) + (Bd::SAG ? CAP * NC_MAX : 0);
+  // the stock and tilt builds' step: step_fwd_pt, step_adjoint_pt
+  constexpr bool PTS = Bd::PT;
+  // the intensity mode's vector form: the launch states' fields in place
+  // of p (VEC), but in the nurbs build, which keeps p and Fresnel's
+  // divides (DIV: fresnel_fwd_r)
+  constexpr bool VEC = INTENSITY && !Bd::NURBS;
+  constexpr bool DIV = Bd::NURBS;
+  // the polarization per surface: p's 18 reals, or the fields' 6 each
+  constexpr int NPOL = VEC ? 12 : 18;
   __shared__ T sp[CAP * NUM_P];
   __shared__ T sr[CAP * N_ROT];
   __shared__ T sc[CAP * NCOAT_MAX];
   __shared__ T scf[Bd::SAG ? CAP * NC_MAX : 1];
   __shared__ int sf[NFLAG * CAP];
   __shared__ int ssag[Bd::SAG || Bd::NURBS ? CAP : 1];
+  // each surface's row and flags for step_fwd_pt (PTS)
+  __shared__ __align__(16) T pt_q[PTS ? CAP * PT_ROW : 1];
+  __shared__ int pt_f[PTS ? CAP : 1];
   // the per-warp rows in dynamic shared memory from the sag build up: at
   // NC_MAX = 36 the sag build's static rows would pass 48 KB (the nurbs
   // build's too, its nets and knot rows after them)
@@ -954,6 +1255,12 @@ pol_bwd_kernel(const T* __restrict__ params, const T* __restrict__ coat,
     fill_npre(sp, sf, S, npre);
     if constexpr (Bd::SAG) fill_sag<Bd::AUX>(sf, S, ssag);
     if constexpr (Bd::NURBS) fill_nurbs(sf, S, ssag);
+    if constexpr (PTS)
+      for (int s = 1; s < S; ++s) {
+        fill_pt_row(sp + s * NUM_P, npre[s], pt_q + s * PT_ROW);
+        pt_f[s] = pt_flags(sf[s], sf[S + s], sf[2 * S + s],
+                           sf[F_TILT * S + s]);
+      }
   }
   __syncthreads();
   T* row = acc + warp * astride;
@@ -965,81 +1272,113 @@ pol_bwd_kernel(const T* __restrict__ params, const T* __restrict__ coat,
   T* const rec = srec + lane * 2 * NU_PT;
   int* const idx = sidx + lane * 4;
   const int cbase = S * N_GF + nsagc;  // the coat columns
+  const int nst = INTENSITY ? stt.n : 0;
 
-  T st[CAP][7];    // input state (x, y, z, L, M, N, i) of surface s
-  T ps[CAP][18];   // p before surface s (9 real, 9 imaginary)
-  T ad[CAP];       // adot of surface s
-  T istep[CAP];    // intensity after the step, before the coating
-  // NURBS: each NURBS surface's stopped iterate (us, vs) from the forward
-  // sweep, from which the reverse step takes its corrected step
+  // the input state (x, y, z, L, M, N, i) of surface s, then (PTS) what
+  // step_fwd_pt saved
+  T st[CAP][7 + (PTS ? N_SV : 0)];
+  // the Newton builds: each Newton surface's record (step_fwd with KEEP);
+  // NURBS: each NURBS surface's stopped (us, vs)
+  T ts[Bd::SAG ? CAP : 1][Bd::FREE ? N_KEEP : 1];
   T suv[Bd::NURBS ? CAP : 1][2];
+  T ad[CAP];  // adot of surface s
+  T ps[CAP][NPOL];  // the polarization before surface s
+  T istep[CAP];     // intensity after the step, before the coating
+  // the Newton builds: a Newton surface's block of columns, this lane's
+  // values (add_*_cols with STAGE), for warp_cols_staged
+  T cv[Bd::SAG ? N_STAGE : 1];
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   for (int64_t base = (int64_t)blockIdx.x * blockDim.x; base < R;
        base += stride) {
     const int64_t i = base + threadIdx.x;
     const bool valid = i < R;
-    // cotangents of (x, y, z, L, M, N, n, i, opd), of p, and of the launch
-    // directions and intensity through the exit intensity
+    // cotangents of (x, y, z, L, M, N, n, i, opd), of the polarization,
+    // and of the launch directions and intensity through the exit
+    // intensity
     T g[9] = {T(0), T(0), T(0), T(0), T(0), T(0), T(0), T(0), T(0)};
-    T Gr[9], Gi[9];
+    T G[NPOL];
     T g_kl[3] = {T(0), T(0), T(0)}, g_il = T(0);
     T kfin[3] = {T(0), T(0), T(0)};
+    T k_launch[3] = {T(0), T(0), T(0)};
     if (valid) {
       T v[8];
 #pragma unroll
       for (int k = 0; k < 8; ++k) v[k] = in.p[k][i];
-      const T k_launch[3] = {v[3], v[4], v[5]};
+      k_launch[0] = v[3];
+      k_launch[1] = v[4];
+      k_launch[2] = v[5];
       const T i0 = v[6];
-      T pr[9], pim[9];
+      T pol[NPOL] = {};
+      if constexpr (VEC) {
+        launch_fields(k_launch, stt, pol);
+      } else {
 #pragma unroll
-      for (int j = 0; j < 9; ++j) {
-        pr[j] = (j % 4 == 0) ? T(1) : T(0);
-        pim[j] = T(0);
+        for (int j = 0; j < 9; ++j) {
+          pol[j] = (j % 4 == 0) ? T(1) : T(0);
+          pol[9 + j] = T(0);
+        }
       }
       for (int s = 1; s < S; ++s) {
 #pragma unroll
         for (int k = 0; k < 7; ++k) st[s][k] = v[k];
 #pragma unroll
-        for (int j = 0; j < 9; ++j) {
-          ps[s][j] = pr[j];
-          ps[s][9 + j] = pim[j];
-        }
+        for (int j = 0; j < NPOL; ++j) ps[s][j] = pol[j];
         T kl[6];
-        if constexpr (Bd::NURBS)
+        if constexpr (Bd::NURBS) {
           step_fwd_nurbs<T, true, true>(
               sf[s], sf[S + s], sf[2 * S + s], sf[F_TILT * S + s],
               sp + s * NUM_P, sr + s * N_ROT, ntab, s, niters, npre[s],
               sp[s * NUM_P + P_NPOST], v[0], v[1], v[2], v[3], v[4], v[5],
               v[6], v[7], &ad[s], kl, suv[s]);
-        else
-        step_fwd<T, true, Bd::TILT, Bd::SAG, Bd::FREE, Bd::DEEP, Bd::AUX>(
-            sf[s], sf[S + s], sf[2 * S + s], sf[F_TILT * S + s],
-            sp + s * NUM_P, sr + s * N_ROT, scf + s * nc, lay_of(lay, s, nc),
-            nc, niters, npre[s],
-            sp[s * NUM_P + P_NPOST], v[0], v[1], v[2], v[3], v[4], v[5], v[6],
-            v[7], &ad[s], kl);
+        } else if constexpr (PTS) {
+          const T* q = pt_q + s * PT_ROW;
+          step_fwd_pt_ext<T, true, Bd::TILT>(
+              pt_f[s], q, sr + s * N_ROT, q[Q_U], q[Q_NPRE], q[Q_NPOST],
+              v[0], v[1], v[2], v[3], v[4], v[5], v[6], v[7], st[s] + 7,
+              &ad[s], kl);
+        } else {
+          step_fwd<T, true, Bd::TILT, Bd::SAG, Bd::FREE, Bd::DEEP, Bd::AUX,
+                   true>(
+              sf[s], sf[S + s], sf[2 * S + s], sf[F_TILT * S + s],
+              sp + s * NUM_P, sr + s * N_ROT, scf + s * nc,
+              lay_of(lay, s, nc), nc, niters, npre[s],
+              sp[s * NUM_P + P_NPOST], v[0], v[1], v[2], v[3], v[4], v[5],
+              v[6], v[7], &ad[s], kl, ts[s]);
+        }
         istep[s] = v[6];
-        pol_surface_fwd(sc, sf, S, ncoat, s, kl, kl + 3, ad[s], v[6], pr,
-                        pim);
+        const int refl = sf[S + s], kind = sf[3 * S + s];
+        const T* cr = sc + s * ncoat;
+        if (kind == K_SIMPLE) v[6] *= cr[refl ? 1 : 0];
+        pol_update_fwd<T, VEC, DIV>(kind, cr, sf[4 * S + s], refl, kl,
+                                    kl + 3, ad[s], pol, nst);
       }
       kfin[0] = v[3];
       kfin[1] = v[4];
       kfin[2] = v[5];
 #pragma unroll
       for (int k = 0; k < 6; ++k) g[k] = cot.p[k][i];
-      if constexpr (INTENSITY) {
+      if constexpr (INTENSITY && !VEC) {
         // the chain's own intensity reaches no output
         g[8] = cot.p[7][i];
-        exit_intensity_adjoint(pr, pim, k_launch, i0, stt, cot.p[6][i], Gr,
-                               Gi, g_kl, g_il);
+        exit_intensity_adjoint(pol, pol + 9, k_launch, i0, stt, cot.p[6][i],
+                               G, G + 9, g_kl, g_il);
+      } else if constexpr (VEC) {
+        // the chain's own intensity reaches no output; the exit intensity
+        // i0 / n sum_m |e_m|^2
+        g[8] = cot.p[7][i];
+        T total = T(0);
+        for (int j = 0; j < NPOL; ++j)
+          if (j < 6 * nst) total += pol[j] * pol[j];
+        const T g_out = cot.p[6][i];
+        const T g_tot = g_out * i0 / T(nst);
+        g_il = g_out * total / T(nst);
+#pragma unroll
+        for (int j = 0; j < NPOL; ++j) G[j] = T(2) * g_tot * pol[j];
       } else {
         g[7] = cot.p[6][i];
         g[8] = cot.p[7][i];
 #pragma unroll
-        for (int j = 0; j < 9; ++j) {
-          Gr[j] = cot.p[8 + j][i];
-          Gi[j] = cot.p[17 + j][i];
-        }
+        for (int j = 0; j < 18; ++j) G[j] = cot.p[8 + j][i];
       }
     }
     for (int s = S - 1; s >= 1; --s) {
@@ -1051,6 +1390,12 @@ pol_bwd_kernel(const T* __restrict__ params, const T* __restrict__ coat,
         const int refl = sf[S + s], kind = sf[3 * S + s];
         const int tilted = sf[F_TILT * S + s];
         const T* cr = sc + s * ncoat;
+        const int nl = sf[4 * S + s];
+        if (kind == K_SIMPLE) {
+          const int col = refl ? 1 : 0;
+          gco[col] += g[7] * istep[s];
+          g[7] *= cr[col];
+        }
         // the local pre- and post-interaction directions: the step's input
         // and output directions, rotated into a tilted surface's frame
         T k0[3] = {st[s][3], st[s][4], st[s][5]};
@@ -1061,85 +1406,51 @@ pol_bwd_kernel(const T* __restrict__ params, const T* __restrict__ coat,
           rot_local_dir(sr + s * N_ROT, k0);
           rot_local_dir(sr + s * N_ROT, k1);
         }
-        const T adot = ad[s];
-        Basis<T> b;
-        basis_fwd(k0, k1, b);
-        Jones<T> J;
-        jones_fwd(kind, cr, sf[4 * S + s], adot, refl, b, J);
-        T Bin[3][3], Bout[3][3], gBin[3][3], gBout[3][3];
-        rows_of(b, k0, k1, Bin, Bout);
-        Jones<T> gJ;
-        update_adjoint(ps[s], ps[s] + 9, Bin, Bout, J, Gr, Gi, gJ, gBin,
-                       gBout);
-        T g_s[3], g_p0[3], g_p1[3], gext[7];
-        for (int c = 0; c < 3; ++c) {
-          g_s[c] = gBin[0][c] + gBout[0][c];
-          g_p0[c] = gBin[1][c];
-          g_p1[c] = gBout[1][c];
-          gext[c] = gBin[2][c];
-          gext[3 + c] = gBout[2][c];
-        }
-        gext[6] = T(0);
-        if (kind == K_FRESNEL) {
-          FresnelV<T> f;
-          Jones<T> Jf;
-          fresnel_fwd(cr[0], cr[1], adot, refl, f, Jf);
-          T gn1, gn2, ga;
-          fresnel_adjoint(cr[0], cr[1], adot, refl, f, gJ.j00, gJ.j11, gn1,
-                          gn2, ga);
-          gco[0] += gn1;
-          gco[1] += gn2;
-          gext[6] += ga;
-        } else if (kind == K_TMM) {
-          tmm_adjoint(cr, sf[4 * S + s], adot, refl, gJ.j00, gJ.j11, gco,
-                      gext[6]);
-        } else if (kind == K_POLARIZER || kind == K_RETARDER) {
-          axis_adjoint(kind, cr, b, gJ, gco, g_s, g_p0, g_p1);
-        }
-        basis_adjoint(k0, k1, b, g_s, g_p0, g_p1, gext, gext + 3);
-        if (kind == K_SIMPLE) {
-          const int col = refl ? 1 : 0;
-          gco[col] += g[7] * istep[s];
-          g[7] *= cr[col];
-        }
-        if constexpr (Bd::NURBS)
+        T gext[7];
+        pol_update_adjoint<T, VEC, DIV>(kind, cr, nl, refl, k0, k1, ad[s],
+                                        ps[s], nst, G, gco, gext);
+        if constexpr (Bd::NURBS) {
           step_adjoint_nurbs<T, true>(
               sf[s], refl, sf[2 * S + s], tilted, sp + s * NUM_P,
               sr + s * N_ROT, ntab, s, suv[s], npre[s],
-              sp[s * NUM_P + P_NPOST], st[s][0], st[s][1],
-              st[s][2], st[s][3], st[s][4], st[s][5], st[s][6], g, gc, rec,
-              idx, gext);
-        else
-        step_adjoint<T, true, Bd::TILT, Bd::SAG, Bd::FREE, Bd::DEEP, Bd::AUX>(
-            sf[s], refl, sf[2 * S + s], tilted, sp + s * NUM_P,
-            sr + s * N_ROT, scf + s * nc, lay_of(lay, s, nc), nc, niters,
-            npre[s],
-            sp[s * NUM_P + P_NPOST], st[s][0], st[s][1], st[s][2], st[s][3],
-            st[s][4], st[s][5], st[s][6], g, gc, gs, gext);
+              sp[s * NUM_P + P_NPOST], st[s][0], st[s][1], st[s][2],
+              st[s][3], st[s][4], st[s][5], st[s][6], g, gc, rec, idx, gext);
+        } else if constexpr (PTS) {
+          const T* q = pt_q + s * PT_ROW;
+          step_adjoint_pt_ext<T, true, Bd::TILT>(
+              pt_f[s], q, sr + s * N_ROT, q[Q_U], q[Q_INP], q[Q_NPRE],
+              q[Q_NPOST], st[s][0], st[s][1], st[s][2], st[s][3], st[s][4],
+              st[s][5], st[s][6], st[s] + 7, g, gc, gext);
+        } else {
+          step_adjoint_kept_ext<T, true, Bd::TILT, Bd::SAG, Bd::FREE,
+                                Bd::DEEP, Bd::AUX>(
+              sf[s], refl, sf[2 * S + s], tilted, sp + s * NUM_P,
+              sr + s * N_ROT, scf + s * nc, lay_of(lay, s, nc), nc, npre[s],
+              sp[s * NUM_P + P_NPOST], st[s][0], st[s][1], st[s][2],
+              st[s][3], st[s][4], st[s][5], st[s][6], g, gc, gs, ts[s],
+              gext);
+        }
       }
-#pragma unroll
-      for (int j = 0; j < N_GF; ++j) {
-        const T v = warp_sum(gc[j]);
-        if (lane == 0) row[s * N_GF + j] += v;
-      }
+      pol_cols_add(gc, gco, ncoat, lane, row + s * N_GF,
+                   row + cbase + s * ncoat);
       if constexpr (Bd::SAG) {
-        const int cb = S * N_GF + ssag[s] * Bd::block(nc);
-        if (Bd::FREE && is_cart_of<Bd::AUX>(sf[s]))
-          add_cart_cols_at<T, Bd::DEEP, Bd::AUX>(
+        // the block's columns staged per lane, summed by the butterfly
+        T* const cb = row + S * N_GF + ssag[s] * Bd::block(nc);
+        if (Bd::FREE && is_cart_of<Bd::AUX>(sf[s])) {
+          add_cart_cols_at<T, Bd::DEEP, Bd::AUX, true>(
               sf[s], gs, lay_of(lay, s, nc), nc, sp[s * NUM_P + P_G1],
-              sp[s * NUM_P + P_G2], lane, row, cb);
-        else if (is_newton_of<Bd::AUX>(sf[s]))
-          add_coef_cols(gs, nc, lane, row, cb);
+              sp[s * NUM_P + P_G2], lane, cv, 0);
+          warp_cols_staged(cv, nc + 2, lane, cb);
+        } else if (is_newton_of<Bd::AUX>(sf[s])) {
+          add_coef_cols<T, true>(gs, nc, lane, cv, 0);
+          warp_cols_staged(cv, nc, lane, cb);
+        }
       }
       if constexpr (Bd::NURBS) {
         if (!valid) nu_rec_none(idx);
         if (sf[s] == NURBS)
           nurbs_warp_cols(srec, sidx, nu_surf(ntab, s), lane, row,
                           S * N_GF + ssag[s] * nc);
-      }
-      for (int c = 0; c < ncoat; ++c) {
-        const T v = warp_sum(gco[c]);
-        if (lane == 0) row[cbase + s * ncoat + c] += v;
       }
     }
     // n_pre of surface 1 is the object row's n_post
@@ -1148,6 +1459,7 @@ pol_bwd_kernel(const T* __restrict__ params, const T* __restrict__ coat,
       if (lane == 0) row[0 * N_GF + 3] += v;
     }
     if (valid) {
+      if constexpr (VEC) launch_fields_adjoint(k_launch, stt, G, g_kl);
 #pragma unroll
       for (int k = 0; k < 3; ++k) din.p[k][i] = g[k];
 #pragma unroll
@@ -1263,6 +1575,24 @@ int bwd_launch(const T* params, const T* coat, const int* flags, int S,
                                            stream);
 }
 
+// Resident blocks per SM of pol_bwd (NU: the nurbs build) in ``intensity``
+// mode at ``block`` threads and ``dyn`` bytes (ops/launch.py: bwd_grid,
+// which launches one wave of them).
+template <typename T, bool NU = false>
+int pol_bwd_occupancy(int intensity, int build, int block, int64_t dyn,
+                      int* out) {
+  const auto body = [&](auto b) {
+    constexpr int B = decltype(b)::value;
+    if (intensity)
+      return pt_occupancy(pol_bwd_kernel<T, true, B>, block, dyn, out);
+    return pt_occupancy(pol_bwd_kernel<T, false, B>, block, dyn, out);
+  };
+  if constexpr (NU)
+    return dispatch_in<B_NURBS>(build, body);
+  else
+    return dispatch_build(build, body);
+}
+
 }  // namespace
 
 // The polarized C entries of a build set: otc_pol_<fwd|bwd>NAME_<SUF>
@@ -1291,4 +1621,8 @@ int bwd_launch(const T* params, const T* coat, const int* flags, int S,
                              niters, nsag, ncoat, in, cot, R, din, partial,  \
                              nblocks, out, intensity, c, nstates,            \
                              (cudaStream_t)stream);                          \
+  }                                                                          \
+  extern "C" int otc_pol_bwd_occupancy##NAME##_##SUF(                        \
+      int intensity, int build, int block, int64_t dyn, int* out) {          \
+    return pol_bwd_occupancy<T, NU>(intensity, build, block, dyn, out);      \
   }

@@ -81,6 +81,8 @@ _ARGTYPES = {
     "trace_bwd_occupancy": [_I, _I, _I, _I64, _IP],
     "merit_bwd_occupancy_nurbs": [_I, _I, _I64, _IP],
     "trace_bwd_occupancy_nurbs": [_I, _I, _I, _I64, _IP],
+    # pol_bwd's: intensity, build, block, dynamic bytes, out
+    "pol_bwd_occupancy": [_I, _I, _I, _I64, _IP],
     # img[3], pup[8], cot[2] (null for the forward), P, Q, 2/lambda, k,
     # chunk, nsplit, partial, out, stream
     **{name: [_PP, _PP, _PP, _I64, _I64, _D, _D, _I64, _I, _VP, _VP, _VP]
@@ -100,7 +102,7 @@ _ARGTYPES = {
 _ARGTYPES.update({f"{name}_nurbs": _ARGTYPES[name] for name in (
     "merit_fwd", "merit_bwd", "trace_fwd", "trace_field_fwd", "trace_bwd",
     "trace_field_bwd", "trace_fwd_poly", "trace_bwd_poly", "pol_fwd",
-    "pol_bwd")})
+    "pol_bwd", "pol_bwd_occupancy")})
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 

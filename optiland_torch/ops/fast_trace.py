@@ -64,7 +64,7 @@ from optiland_torch.ops.fused_trace import (
     coef_row,
 )
 from optiland_torch.ops.launch import (
-    BWD_BLOCK, BWD_MAX_BLOCKS, GRAT, N_AIM, TRACE_BUILDS, build_of,
+    BWD_BLOCK, GRAT, N_AIM, TRACE_BUILDS, build_of,
     bwd_grid, check_cuda_inputs, covered, device_of, device_table, entry_name, flags,
     grating_flags, inner_flags, kernel_tables, knot_rows, launch_from_pupil, launch_key,
     lay_row, sag_columns, sag_surfaces, unsupported, with_builds,
@@ -367,10 +367,6 @@ def trace_bwd_poly_plain(params, mats, spec, nc, rays, cots, coeffs=None,
 
 def _empty8(like):
     return [torch.empty_like(like) for _ in range(8)]
-
-
-def _bwd_blocks(R):
-    return max(1, min(-(-R // BWD_BLOCK), BWD_MAX_BLOCKS))
 
 
 def _launch(name, params, spec, coeffs, lay, before, rest):

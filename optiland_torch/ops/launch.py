@@ -568,15 +568,18 @@ def bwd_shape(S, nm, mode, dtype, block=BWD_BLOCK):
 @functools.lru_cache(maxsize=None)
 def _resident(name, dtype, build, mode, block, dyn, device):
     """Resident blocks per SM of backward ``name`` (a per-thread-sum,
-    Newton or nurbs build) at ``block`` threads and ``dyn`` bytes, from
-    the occupancy calculator, and the card's SM count."""
+    Newton or nurbs build; pol_bwd in any, ``mode`` "full" or
+    "intensity") at ``block`` threads and ``dyn`` bytes, from the
+    occupancy calculator, and the card's SM count."""
     import ctypes
 
     from optiland_torch.ops import _cuda
 
     n = ctypes.c_int(0)
     args = (build, block, dyn, ctypes.byref(n))
-    if name != "merit_bwd":
+    if name == "pol_bwd":
+        args = (("full", "intensity").index(mode),) + args
+    elif name != "merit_bwd":
         args = (("generic", "field", "poly").index(mode),) + args
     with torch.cuda.device(device):
         _cuda.check(_cuda.call(entry_name(name + "_occupancy", build), dtype,
@@ -617,14 +620,28 @@ def newton_bwd_bytes(block, ncomp, build, dtype):
     return block // 32 * ncomp * (torch.finfo(dtype).bits // 8)
 
 
+def pol_bwd_bytes(block, ncomp, build, dtype, nc=0, kt=0, ns=0):
+    """Dynamic shared memory of pol_bwd of ``block`` threads (csrc/
+    pol_trace.cuh: bwd_launch): in the nurbs build ``nurbs_bwd_bytes``, in
+    the Newton builds the per-warp rows of ncomp columns, none in the stock
+    and tilt builds, whose rows are static."""
+    if build == NURBS:
+        return nurbs_bwd_bytes(block, ncomp, ns, nc, kt, dtype)
+    if build & BIT_SAG:
+        return block // 32 * ncomp * (torch.finfo(dtype).bits // 8)
+    return 0
+
+
 def bwd_grid(name, mode, S, nm, dtype, build, R, device, block=BWD_BLOCK,
              nc=0, ncomp=0, kt=0, ns=0):
     """(block, blocks, dynamic bytes) of backward ``name`` (merit_bwd or
-    trace_bwd, ``mode`` as bwd_shape's) launched for R rays on ``device``:
-    in the per-thread-sum builds the block of ``bwd_shape``, in the nurbs
-    build that of ``nurbs_shape`` (ns NURBS surfaces of nc net columns, a
-    knot table of kt rows: ``knot_rows``, ncomp columns of the partial
-    rows; ValueError without them), in the Newton builds (sag, free, aux
+    trace_bwd, ``mode`` as bwd_shape's; pol_bwd, ``mode`` "full" or
+    "intensity") launched for R rays on ``device``: pol_bwd in every build
+    ``block`` with ``pol_bwd_bytes``; in the per-thread-sum builds the
+    block of ``bwd_shape``, in the nurbs build that of ``nurbs_shape`` (ns
+    NURBS surfaces of nc net columns, a knot table of kt rows:
+    ``knot_rows``, ncomp columns of the partial rows; ValueError without
+    them), in the Newton builds (sag, free, aux
     and the deep ones) ``block`` with the bytes of its per-warp rows
     (``newton_bwd_bytes``), each with one wave of blocks (the resident
     blocks per SM times the SMs, no more than the rays need), fixed for a
@@ -632,10 +649,12 @@ def bwd_grid(name, mode, S, nm, dtype, build, R, device, block=BWD_BLOCK,
     bits; in the grating build ``block`` and the grid of BWD_MAX_BLOCKS x
     BWD_BLOCK threads, whose per-warp rows size their shared memory
     themselves."""
-    if build == NURBS:
-        if kt <= S or ns < 1:
-            raise ValueError("a nurbs-build backward's shape needs its NURBS "
-                             "surfaces and its knot table's rows (knot_rows)")
+    if build == NURBS and (kt <= S or ns < 1):
+        raise ValueError("a nurbs-build backward's shape needs its NURBS "
+                         "surfaces and its knot table's rows (knot_rows)")
+    if name == "pol_bwd":
+        dyn = pol_bwd_bytes(block, ncomp, build, dtype, nc, kt, ns)
+    elif build == NURBS:
         block, dyn = nurbs_shape(ns, nc, kt, ncomp, dtype, block)
     elif build & BIT_SAG:
         dyn = newton_bwd_bytes(block, ncomp, build, dtype)

@@ -71,14 +71,15 @@ from optiland_torch.coatings import (
 from optiland_torch.core.rays import RealRays
 from optiland_torch.core.system import static_tensor
 from optiland_torch.ops.fast_trace import (
-    RAY_FIELDS, _bwd_blocks, _check_nc, _masks, _split,
+    RAY_FIELDS, _check_nc, _masks, _split,
 )
 from optiland_torch.ops.fused_trace import (
     _coeffs_or_zeros, build_param_table, coef_row,
 )
 from optiland_torch.ops.launch import (
-    build_of, check_cuda_inputs, covered, device_of, device_table,
-    entry_name, flags, inner_flags, kernel_tables, knot_rows, launch_key, lay_row,
+    BWD_BLOCK, build_of, bwd_grid, check_cuda_inputs,
+    covered, device_of, device_table, entry_name, flags, inner_flags,
+    kernel_tables, knot_rows, launch_key, lay_row,
     sag_columns, sag_surfaces, unsupported, with_builds,
 )
 from optiland_torch.ops.step import (
@@ -755,6 +756,12 @@ def _exit_intensity_adjoint(p, L, M, N, i0, states, aux, g_out):
         for c in range(3):
             g_sl[c] = g_sl[c] + ex_re * ge_re[:, c] + ex_im * ge_im[:, c]
             g_pl[c] = g_pl[c] + ey_re * ge_re[:, c] + ey_im * ge_im[:, c]
+    return ((G_re, G_im),) + _launch_basis_adjoint(L, M, N, pl, nrm, g_sl,
+                                                   g_pl) + (g_i0,)
+
+
+def _launch_basis_adjoint(L, M, N, pl, nrm, g_sl, g_pl):
+    """(g_L, g_M, g_N) of the launch basis' cotangents g_sl, g_pl."""
     k = (L, M, N)
     # s = pl x k
     g_k = _cross(g_sl, pl)
@@ -764,7 +771,35 @@ def _exit_intensity_adjoint(p, L, M, N, i0, states, aux, g_out):
     proj = _dot(pl, g_pl)
     g_pr = tuple(torch.where(nz, (g - c * proj) / torch.where(nz, nrm, 1.0),
                              g) for g, c in zip(g_pl, pl))
-    return ((G_re, G_im), g_k[0], g_k[1] - g_pr[2], g_k[2] + g_pr[1], g_i0)
+    return g_k[0], g_k[1] - g_pr[2], g_k[2] + g_pr[1]
+
+
+def _launch_fields(L, M, N, states):
+    """The intensity mode's vector form: the launch fields E0_m of the
+    states as the columns of an (R, 3, n) pair (re, im), and the launch
+    basis (sl, pl, |k x xhat|). p E0 carried through the surfaces is the
+    chain's update applied to these columns in place of p
+    (``_chain``'s ``p0``; the kernel's vec_update)."""
+    sl, pl, nrm = _launch_basis(L, M, N)
+    e_re, e_im = [], []
+    for ex_re, ex_im, ey_re, ey_im in states:
+        e_re.append(torch.stack([ex_re * a + ey_re * b
+                                 for a, b in zip(sl, pl)], 1))
+        e_im.append(torch.stack([ex_im * a + ey_im * b
+                                 for a, b in zip(sl, pl)], 1))
+    return (torch.stack(e_re, 2), torch.stack(e_im, 2)), (sl, pl, nrm)
+
+
+def _launch_fields_adjoint(L, M, N, states, basis, G):
+    """(g_L, g_M, g_N) for G, the cotangent of the launch fields."""
+    _, pl, nrm = basis
+    g_sl = [torch.zeros_like(L) for _ in range(3)]
+    g_pl = [torch.zeros_like(L) for _ in range(3)]
+    for m, (ex_re, ex_im, ey_re, ey_im) in enumerate(states):
+        for c in range(3):
+            g_sl[c] = g_sl[c] + ex_re * G[0][:, c, m] + ex_im * G[1][:, c, m]
+            g_pl[c] = g_pl[c] + ey_re * G[0][:, c, m] + ey_im * G[1][:, c, m]
+    return _launch_basis_adjoint(L, M, N, pl, nrm, g_sl, g_pl)
 
 
 # ---------------------------------------------------------------------------
@@ -778,13 +813,16 @@ def _identity_p(like):
     return eye, torch.zeros_like(eye)
 
 
-def _chain(params, coat, spec, st, keep=False, coeffs=None, lay=None):
+def _chain(params, coat, spec, st, keep=False, coeffs=None, lay=None,
+           p0=None):
     """The polarized chain: final state, final p (re, im), and with
-    ``keep`` per surface what the adjoint replays."""
+    ``keep`` per surface what the adjoint replays (a Newton surface's
+    stopped iterate among it). ``p0``: the (R, 3, n) pair the updates
+    start from in place of the identity (``_launch_fields``)."""
     codes, refl, absorbs, kinds, layers = spec[:5]
     inner, niters = spec[-2], spec[-1]
     n_pre = params[0, P_NPOST]
-    p = _identity_p(st[0])
+    p = _identity_p(st[0]) if p0 is None else p0
     saved = []
     for s in range(1, len(codes)):
         st_in = st
@@ -816,20 +854,28 @@ def _chain(params, coat, spec, st, keep=False, coeffs=None, lay=None):
         p, uaux = _update(p, basis, k0, k1, j)
         if keep:
             saved.append(dict(st=st_in, n_pre=n_pre, k0=k0, k1=k1, adot=adot,
-                              i_step=i_step, p=p_in, basis=basis, baux=baux,
-                              jaux=jaux, uaux=uaux))
+                              t_s=ext[7], i_step=i_step, p=p_in, basis=basis,
+                              baux=baux, jaux=jaux, uaux=uaux))
         n_pre = n_next
     return st, p, saved
 
 
 def pol_fwd_plain(params, coat, spec, rays, states=None, intensity=False,
-                  coeffs=None, lay=None):
+                  coeffs=None, lay=None, fields=False):
     """Plain version of the pol_fwd kernel: 26 arrays (the 8 ray arrays,
     then p's 9 real and 9 imaginary parts, row-major) of the 8 launch
     arrays ``rays``; with ``intensity``, the 8 ray arrays with the
     intensity replaced by the exit intensity of the polarization ``states``
-    (``pol_states``) from the launch intensity and directions."""
+    (``pol_states``) from the launch intensity and directions; with
+    ``fields`` too, by the vector form pol_bwd's forward sweep runs
+    (``pol_bwd_plain``)."""
     rays = tuple(rays)
+    if intensity and fields:
+        p0, _ = _launch_fields(rays[3], rays[4], rays[5], states)
+        st, e, _ = _chain(params, coat, spec, rays, coeffs=coeffs, lay=lay,
+                          p0=p0)
+        total = (e[0] * e[0] + e[1] * e[1]).sum((1, 2))
+        return st[:6] + (total * rays[6] / len(states), st[7])
     st, p, _ = _chain(params, coat, spec, rays, coeffs=coeffs, lay=lay)
     if intensity:
         i_pol, _ = _exit_intensity(p, rays[3], rays[4], rays[5], rays[6],
@@ -841,24 +887,39 @@ def pol_fwd_plain(params, coat, spec, rays, states=None, intensity=False,
 
 def pol_bwd_plain(params, coat, spec, rays, cots, states=None,
                   intensity=False, coeffs=None, nc=1, with_coeffs=False,
-                  lay=None):
+                  lay=None, fields=False):
     """Plain version of the pol_bwd kernel, the adjoint by hand: for the
     output cotangents ``cots`` (26, or 8 in the intensity mode), the 8
     per-ray input cotangents and the flat gradient in the layout (S * NUM_P
     params, S * ncoat coat table), which the wrapper widens with the
     (S, nc) block of the coefficient table ``coeffs``; with
-    ``with_coeffs`` that block comes back too."""
+    ``with_coeffs`` that block comes back too. A Newton surface's reverse
+    step starts from the forward's stopped iterate. ``fields`` (the
+    intensity mode): the vector form the kernel runs, the launch states'
+    fields carried through the surfaces in place of p, the same function
+    summed in another order (the matrix form, the default, is the
+    reference)."""
     codes, refl, absorbs, kinds, layers, tilted, inner, niters = spec
     S, ncoat = len(codes), coat.shape[1]
     if coeffs is not None:
         nc = coeffs.shape[1]
     rays, cots = tuple(rays), tuple(cots)
     with torch.no_grad():
+        p0 = lbasis = None
+        if intensity and fields:
+            p0, lbasis = _launch_fields(rays[3], rays[4], rays[5], states)
         st, p, saved = _chain(params, coat, spec, rays, keep=True,
-                              coeffs=coeffs, lay=lay)
+                              coeffs=coeffs, lay=lay, p0=p0)
         zero = torch.zeros_like(rays[0])
         g_launch = [zero] * 8
-        if intensity:
+        if intensity and fields:
+            n = len(states)
+            total = (p[0] * p[0] + p[1] * p[1]).sum((1, 2))
+            g_tot = (cots[6] * rays[6] / n)[:, None, None]
+            G = (2 * g_tot * p[0], 2 * g_tot * p[1])
+            g_launch[6] = cots[6] * total / n
+            g = list(cots[:6]) + [zero, zero, cots[7]]
+        elif intensity:
             _, iaux = _exit_intensity(p, rays[3], rays[4], rays[5], rays[6],
                                       states)
             G, gL, gM, gN, gi = _exit_intensity_adjoint(
@@ -911,13 +972,16 @@ def pol_bwd_plain(params, coat, spec, rays, cots, states=None,
                 codes[s], refl[s], params[s], sv["n_pre"], sv["st"],
                 tuple(g), absorbs[s], g_ext=g_k0 + g_k1 + (g_adot,),
                 tilted=tilted[s], c=coef_row(coeffs, s), newton_iters=niters,
-                inner=inner[s], lay=lay_row(lay, codes[s], s))
+                inner=inner[s], lay=lay_row(lay, codes[s], s), t_s=sv["t_s"])
             pairs, coef = split_cols(codes[s], cols, FULL_GRAD_COLS, nc)
             for col, v in pairs:
                 dparams[s, col] = v.sum()
             for j, v in enumerate(coef):
                 dcoeffs[s, j] = v.sum()
             g = list(g_in[:6]) + [g_npre] + list(g_in[6:])
+        if intensity and fields:
+            g_launch[3:6] = _launch_fields_adjoint(rays[3], rays[4], rays[5],
+                                                   states, lbasis, G)
         # n_pre of surface 1 is the object row's n_post
         dparams[0, P_NPOST] = g[6].sum()
         din = [a + b for a, b in zip(g[:6] + g[7:], g_launch)]
@@ -991,6 +1055,19 @@ def pol_fwd(params, coat, spec, rays, states=None, intensity=False,
     return tuple(out)
 
 
+def pol_grid(spec, nc, ncoat, R, intensity, dtype, device, lay=None):
+    """(block, blocks, dynamic bytes) of pol_bwd launched for R rays on
+    ``device`` in ``intensity`` mode or the full one: ``launch.bwd_grid``
+    with the columns of its partial rows, its Newton or NURBS surfaces and
+    its knot table's rows."""
+    build = _build(spec)
+    ncomp = (len(spec[0]) * (len(FULL_GRAD_COLS) + ncoat)
+             + sag_columns(spec[0], nc, build))
+    return bwd_grid("pol_bwd", "intensity" if intensity else "full",
+                    len(spec[0]), 0, dtype, build, R, device, BWD_BLOCK, nc,
+                    ncomp, knot_rows(lay), len(sag_surfaces(spec[0], build)))
+
+
 def pol_bwd(params, coat, spec, nc, rays, cots, states=None, intensity=False,
             coeffs=None, lay=None):
     """(8 per-ray input cotangents, flat (S * NUM_P + S * nc + S * ncoat)
@@ -1011,7 +1088,8 @@ def pol_bwd(params, coat, spec, nc, rays, cots, states=None, intensity=False,
                8 + (8 if intensity else N_POL), coeffs, lay)
     _check_nc(coeffs, nc)
     R = rays[0].shape[0]
-    nb = _bwd_blocks(R)
+    _, nb, _ = pol_grid(spec, nc, ncoat, R, intensity, params.dtype,
+                        params.device, lay)
     din = [torch.empty_like(rays[0]) for _ in range(8)]
     partial = params.new_empty(
         (nb, S * (len(FULL_GRAD_COLS) + ncoat)

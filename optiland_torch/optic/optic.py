@@ -670,3 +670,11 @@ class Optic:
         )
         return self._run_trace(Hx, Hy, Px, Py,
                                _concrete_wavelength(wavelength), record)
+
+    def image_solve(self):
+        """Quick-focus the image plane: move it to the axial position of
+        least RMS spot of an on-axis hexapolar fan
+        (``solves.QuickFocusSolve``)."""
+        from optiland_torch.solves import QuickFocusSolve
+
+        QuickFocusSolve(self).apply()

@@ -6,7 +6,9 @@
 uncoated. ``polarized_system`` gives that singlet, or a two-mirror system,
 for one coat kind of ``KINDS`` (the polarized kernels' coat branches).
 ``bench_polarized`` gives the polarized step classes of ``bench.py``: the
-same singlet with the field 0 alone, in H polarization.
+same singlet with the field 0 alone, in H polarization. ``coated_plates``
+stacks Fresnel-coated N-BK7 plates, more surfaces than the kernels' stock
+build holds.
 
 Every builder takes ``classes``, the (Optic, coatings module,
 IdealMaterial, ThinFilmStack) it builds with: the port's by default.
@@ -134,3 +136,24 @@ def bench_polarized(name="polarized", classes=None):
         "polarized_tmm": (ar_coating(classes=cl), ar_coating(classes=cl)),
     }[name]
     return coated_doublet("H", c1, c2, fields=(0.0,), classes=cl)
+
+
+def coated_plates(polarization="H", n=8, classes=None):
+    """``n`` Fresnel-coated plates of N-BK7 (a plane face, 1 mm of glass,
+    then a face of R -200 k for plate k, and 2 mm of air): 2 n + 2
+    surfaces, EPD 10, the field 0, 0.55 um; 8 plates take the kernels' deep
+    build."""
+    Optic = _classes(classes)[0]
+    o = Optic()
+    o.surfaces.add(index=0, radius=np.inf, thickness=np.inf)
+    for k in range(n):
+        o.surfaces.add(radius=np.inf, thickness=1.0, material="N-BK7",
+                       is_stop=k == 0, coating="fresnel")
+        o.surfaces.add(radius=-200.0 * (k + 1), thickness=2.0,
+                       coating="fresnel")
+    o.surfaces.add()
+    o.set_aperture(aperture_type="EPD", value=10)
+    o.fields.add(y=0)
+    o.wavelengths.add(value=0.55, is_primary=True)
+    o.set_polarization(polarization)
+    return o

@@ -2423,3 +2423,61 @@ def test_widest_stock_system_launches_and_matches_plain(cuda_device):
     assert torch.equal(fin, torch.isfinite(flat))
     torch.testing.assert_close(flat[fin], flat_p[fin], rtol=1e-9,
                                atol=1e-12 * float(flat_p[fin].abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,build", [
+    ("bench_axis", "stock"), ("tilted_singlet", "tilt"),
+    ("coated_asphere", "sag"), ("plates", "deep"), ("coated_xy", "free"),
+    ("coated_q2d", "aux"), ("coated_nurbs", "nurbs")])
+def test_pol_bwd_builds_match_both_plain_forms(cuda_device, case, build):
+    """pol_bwd of every build (f64, 5003 rays: not a multiple of the block)
+    against pol_bwd_plain, the full mode and the intensity mode of one and
+    of two states, the latter against the matrix form and the vector form
+    (``fields``) both, as the trace kernels' tolerances; it launches the
+    one wave of ``pol_grid`` on its build, and two launches give the same
+    bits (the fixed-order reduce)."""
+    from optiland_torch.ops import pol_trace as pt
+    from optiland_torch.samples import polarized
+
+    lens = {"bench_axis": lambda: polarized.bench_polarized(
+                "polarized_axis"),
+            "tilted_singlet": perturbed.tilted_singlet,
+            "coated_asphere": lambda: perturbed.coated_asphere("H"),
+            "plates": polarized.coated_plates,
+            "coated_xy": lambda: freeform.coated_freeform("polynomial", "H"),
+            "coated_q2d": lambda: freeform.coated_freeform("forbes_q2d",
+                                                           "H"),
+            "coated_nurbs": lambda: nurbs.coated_nurbs("H")}[case]()
+    system = lens.system
+    R = 5003
+    wl, params, _, _, _, _, ins, _ = _k6_inputs(system, freeform.H, R, 15)
+    coeffs, lay = _aux_tables(system)
+    nc = coeffs.shape[1]
+    spec = pt.pol_spec(system, wl)
+    assert launch.BUILD_SUFFIX[pt._build(spec)] == (
+        "" if build == "stock" else "_" + build)
+    coat = pt.build_coat_table(system, wl, torch.float64, cuda_device)
+    g = torch.Generator(device="cpu").manual_seed(15)
+    cots = [torch.randn(R, generator=g, dtype=torch.float64).to(
+        cuda_device) for _ in range(pt.N_POL)]
+    block, nb, _ = pt.pol_grid(spec, nc, coat.shape[1], R, True,
+                               torch.float64, cuda_device, lay)
+    assert block == launch.BWD_BLOCK and 1 <= nb <= -(-R // block)
+    for states, intensity in (
+            (None, False), (pt.pol_states(create_polarization("H")), True),
+            (pt.pol_states(None), True)):
+        c = cots[:8] if intensity else cots
+        din, flat = pt.pol_bwd(params, coat, spec, nc, ins, c, states,
+                               intensity, coeffs, lay)
+        din2, flat2 = pt.pol_bwd(params, coat, spec, nc, ins, c, states,
+                                 intensity, coeffs, lay)
+        assert torch.equal(flat, flat2) and all(
+            torch.equal(a, b) for a, b in zip(din, din2))
+        for fields in (False, True) if intensity else (False,):
+            din_p, flat_p = pt.pol_bwd_plain(
+                params, coat, spec, ins, c, states, intensity, coeffs, nc,
+                with_coeffs=True, lay=lay, fields=fields)
+            what = f"{case} pol_bwd intensity={intensity} fields={fields}"
+            _close(din, din_p, 1e-10, what, positions=False)
+            _flat_close(flat, flat_p, what)

@@ -19,7 +19,15 @@ batch of rays through the full step (absorption, OPD and the clip):
     rotation there, the port gives the zero-tilt generators);
   * the plain backwards (``merit_bwd_plain``, ``trace_fast_bwd_plain``) of
     the XY and Q2d singlets against the same sweeps solving again in
-    reverse, within 1e-13 of the largest entry.
+    reverse, within 1e-13 of the largest entry;
+  * the step with its extras, as the polarized backward runs it (the stock
+    and tilt builds' STANDARD step, untilted and tilted, and the even
+    asphere's kept Newton step, tilted): ``step_plain``'s extras (the local
+    pre- and post-interaction directions and adot) against the JAX step's
+    ``want_extras`` to rtol 1e-12 with atol 1e-14, and
+    ``step_adjoint_plain`` fed the extras' cotangents ``g_ext`` and the
+    kept t_s against ``jax.vjp`` of the step and its extras at the step
+    tests' tolerance.
 """
 
 import jax
@@ -64,6 +72,10 @@ CASES = {
                             (1, -2)))),
 }
 TILT_COLS = (step.P_RX, step.P_RY, step.P_RZ)
+# and the STANDARD step of the stock and tilt builds (one unread
+# coefficient), for the step with its extras
+ALL_CASES = dict(CASES, standard=(tg.STANDARD, 25.0, -0.7, (0.0,), 0.0,
+                                  0.0, None))
 
 
 @pytest.fixture(autouse=True)
@@ -76,7 +88,7 @@ def _cpu_f64():
 def surface(fam, tilted):
     """(code, param row, raw coefficients, the kernels' row, its slots,
     aux) of the case's surface."""
-    code, R, k, C, p1, p2, aux = CASES[fam]
+    code, R, k, C, p1, p2, aux = ALL_CASES[fam]
     p = torch.zeros(step.NUM_P, dtype=torch.float64)
     p[step.P_RADIUS], p[step.P_CONIC], p[step.P_POS] = R, k, 3.0
     p[step.P_NPOST], p[step.P_APMAX] = 1.6, 6.0
@@ -232,3 +244,42 @@ def test_plain_backwards_keep_the_iterate(fam, monkeypatch):
         assert_close(a, b, 0.0, 1e-13, f"output {k}")
     assert float(kept[0][system.cfg.num_surfaces * step.NUM_P:].abs().max()
                  ) > 0  # the coefficient gradient is there
+
+
+@pytest.mark.parametrize("fam,tilted", [("standard", False),
+                                        ("standard", True), ("even", True)])
+def test_step_extras_match_jax(fam, tilted):
+    code, p, C, q, slots, aux = surface(fam, tilted)
+    st, g = rays()
+    gx = rays(seed=12)[1][:7]  # the extras' cotangents
+    n_pre = torch.tensor(1.0, dtype=torch.float64)
+    _, _, ext = step.step_plain(code, False, p, n_pre, st, absorbs=True,
+                                extras=True, c=q, lay=slots,
+                                newton_iters=NITERS)
+    g_in, g_npre, cols = step.step_adjoint_plain(
+        code, False, p, n_pre, st, g, absorbs=True, g_ext=tuple(gx),
+        tilted=tilted, c=q, lay=slots, newton_iters=NITERS, t_s=ext[7])
+    pairs, _ = step.split_cols(code, cols, step.FULL_GRAD_COLS, q.shape[0])
+    cols = {col: v.sum() for col, v in pairs}
+
+    def f(pv, cv, *state):
+        out, extras = jpt._step_tile(
+            1, code, False, tilted, aux, lambda s, col: pv[col],
+            lambda s, ci: cv[ci], C.shape[0], tuple(state) + (None,),
+            NITERS, want_extras=True)
+        return tuple(out[:9]) + tuple(extras)
+
+    args = [jnp.asarray(p.numpy()), jnp.asarray(C.numpy())] + [
+        jnp.asarray(v.numpy()) for v in st] + [jnp.ones(st[0].shape[0])]
+    jout, pull = jax.vjp(f, *args)
+    for k in range(7):
+        assert_close(ext[k], jout[9 + k], 1e-12, 1e-14, f"extra {k}")
+    cot = [jnp.asarray(v.numpy()) for v in g[:6] + g[7:]] + [
+        jnp.asarray(float(g[6].sum()))] + [jnp.asarray(v.numpy()) for v in gx]
+    gp, _, *gs = pull(tuple(cot))
+    for k, (a, b) in enumerate(zip(g_in, gs)):
+        assert_close(a, b, 1e-10, 1e-12, f"state {k} against JAX")
+    assert_close(g_npre, gs[8], 1e-10, 1e-12, "n_pre against JAX")
+    keys = [c for c in cols if tilted or c not in TILT_COLS]
+    assert_close(torch.stack([cols[c] for c in keys]), np.asarray(gp)[keys],
+                 1e-10, 1e-12, "param columns against JAX")

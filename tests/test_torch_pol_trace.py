@@ -13,7 +13,14 @@ seeds. The JAX side runs its unrolled engine
 (``OPTILAND_TPU_TRACE_ENGINE=unrolled``). Tolerances: rays to rtol 1e-9
 with atol 1e-11 and p to atol 1e-12 (the JAX suite's own), the hand
 adjoint to rtol 1e-10 of autograd, every gradient to rtol 1e-8 with atol
-1e-12 x the largest entry where JAX's is finite.
+1e-12 x the largest entry where JAX's is finite. The intensity mode's
+vector form (``fields``: the launch states' fields carried through the
+surfaces in place of p, as pol_bwd's kernel runs it) against ``jax.vjp``
+of the JAX package's plain intensity chain (``_chain_pol_intensity``) on
+the tilted singlet, one and two states: the exit intensity to 1e-13 of
+the largest, every cotangent to 1e-12 of its array's largest (1e-12 of
+the largest entry for the parameter and coat gradients, the untilted
+surfaces' tilt columns left out: the JAX step runs no rotation there).
 """
 
 import dataclasses
@@ -27,6 +34,7 @@ import torch
 
 import torch_pol_systems as tps
 from optiland_torch import config
+from optiland_torch.core import raygen as traygen
 from optiland_torch.core import trace as ttrace
 from optiland_torch.core.rays import RealRays as TRays
 from optiland_torch.core.system import STACK_FIELDS
@@ -36,6 +44,8 @@ from optiland_torch.polarization import create_polarization as t_state
 from optiland_torch.polarization import polarized_intensity as t_ipol
 from optiland_tpu.core import raygen as jraygen
 from optiland_tpu.core import trace as jtrace
+from optiland_torch.samples import perturbed
+from optiland_tpu.ops import pallas_pol as jpp
 from optiland_tpu.ops.pallas_pol import (
     trace_fast_pol as j_fast_pol,
     trace_fast_pol_intensity as j_fast_pol_intensity,
@@ -219,6 +229,66 @@ def test_hand_adjoint_matches_autograd(kind, mode):
     states = None if mode == "full" else pt.pol_states(
         None if mode == "unpolarized" else t_state(mode))
     _hand_vs_autograd(kind, states, mode != "full", 3)
+
+
+@pytest.mark.parametrize("state", ["H", "unpolarized"])
+def test_fields_form_matches_jax_plain_chain(state):
+    jsys = perturbed.tilted_singlet(classes=tps.classes("jax")).system
+    system = perturbed.tilted_singlet().system
+    n = 16
+    Px, Py = tps.pupil(n, 7)
+    rays = traygen.generate_rays(system, 0.0, 0.7, torch.tensor(Px),
+                                 torch.tensor(Py), WL)
+    ins = [getattr(rays, k) for k in FIELDS]
+    rng = np.random.default_rng(3)
+    cots = [rng.normal(size=n) for _ in range(8)]
+    spec = jpp._spec_of(jsys, 10, poly=False)
+    kinds = jpp._coat_kinds(jsys, WL)
+    scalars = jpp._pol_scalars_of(None if state == "unpolarized"
+                                  else j_state(state))
+    S = jsys.cfg.num_surfaces
+
+    def chain(pv, cv, cov, *r):
+        return jpp._chain_pol_intensity(
+            spec, kinds, scalars, lambda s, c: pv[s, c],
+            lambda s, c: cv[s, c], lambda s, c: cov[s, c], *r)
+
+    coeffs = jsys.stack.coeffs
+    out, pull = jax.vjp(chain, jpp.build_param_table(jsys, WL),
+                        coeffs if coeffs.shape[1] else jnp.zeros((S, 1)),
+                        jpp.build_coat_table(jsys, WL),
+                        *[jnp.asarray(t.numpy()) for t in ins])
+    gp, _, gcoat, *gin = pull(tuple(jnp.asarray(c) for c in cots))
+
+    tspec = pt.pol_spec(system, WL)
+    params = ft.build_param_table(system, WL)
+    coat = pt.build_coat_table(system, WL, torch.float64, "cpu")
+    states = pt.pol_states(None if state == "unpolarized"
+                           else t_state(state))
+    assert len(states) == (2 if state == "unpolarized" else 1)
+    got = pt.pol_fwd_plain(params, coat, tspec, ins, states, True,
+                           fields=True)
+    np.testing.assert_allclose(got[6].numpy(), np.asarray(out[6]), rtol=0,
+                               atol=1e-13 * float(np.abs(out[6]).max()))
+    din, flat = pt.pol_bwd_plain(params, coat, tspec, ins,
+                                 [torch.tensor(c) for c in cots], states,
+                                 True, fields=True)
+    for k, (a, b) in enumerate(zip(din, gin)):
+        b = np.asarray(b)
+        np.testing.assert_allclose(a.numpy(), b, rtol=0,
+                                   atol=1e-12 * float(np.abs(b).max()),
+                                   err_msg=FIELDS[k])
+    gp, gcoat = np.asarray(gp), np.asarray(gcoat)
+    dp = flat[:S * 15].reshape(S, 15).numpy()
+    dcoat = flat[S * 15:].reshape(S, -1).numpy()
+    keep = np.ones_like(gp, dtype=bool)
+    untilted = [s for s in range(S) if not tspec[5][s]]
+    keep[np.ix_(untilted, [8, 9, 10])] = False
+    assert any(tspec[5])
+    np.testing.assert_allclose(dp[keep], gp[keep], rtol=0,
+                               atol=1e-12 * float(np.abs(gp).max()))
+    np.testing.assert_allclose(dcoat, gcoat[:, :dcoat.shape[1]], rtol=0,
+                               atol=1e-12 * float(np.abs(gcoat).max()))
 
 
 @functools.lru_cache(maxsize=None)

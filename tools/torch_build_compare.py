@@ -20,7 +20,9 @@ of their kernels and the times of their merit and trace kernels.
       stock and tilt builds), of the nurbs build (merit_bwd, trace_bwd
       in every mode, pol_bwd) and of the Newton builds (merit_bwd and
       trace_bwd in every mode in the sag, deep, free, deep_free, aux and
-      deep_aux builds, float32), and for the nurbs build's forwards
+      deep_aux builds, float32), for the polarized kernels (pol_fwd and
+      pol_bwd, both modes, in the stock, tilt and Newton builds,
+      float32), and for the nurbs build's forwards
       (merit_fwd, trace_fwd in every mode, pol_fwd; both types) of a build
       log's library: the ptxas line (registers, stack frame, spills,
       static shared memory), the resident blocks per SM that the registers
@@ -48,6 +50,20 @@ of their kernels and the times of their merit and trace kernels.
       trace_bwd_poly (wavelengths 0.48, 0.55, 0.65 um cycling by ray) on
       the tilted asphere, the XY singlet and the Q2d singlet; ``--kernels``
       as for ``--nurbs``;
+  python3 tools/torch_build_compare.py time ROOT TAG --pol [--kernels K,..]
+                                                         [--systems S,..]
+      time the polarized kernels of ROOT at 2^24 rays, float32: pol_fwd,
+      pol_bwd, pol_fwd_intensity and pol_bwd_intensity (H) on bench.py's
+      three polarized classes, phase 18's tilted singlet, phase 16's coated
+      doublet at EPD 4 (brought to focus by ``Optic.image_solve`` where
+      the tree has it), the Fresnel-coated asphere (sag build), a stack of
+      eight Fresnel-coated plates (18 surfaces: deep build;
+      ``samples/polarized.py: coated_plates``, where the tree has it), the
+      coated XY singlet (free), the coated Zernike, Qbfs and Q2d singlets
+      (aux) and the coated rational NURBS lens (nurbs), with pol_bwd's launch
+      shape where the tree gives it (``pol_trace.pol_grid``);
+      ``--systems`` times only the named ones (a tree with only some
+      builds, as a throwaway copy may);
   python3 tools/torch_build_compare.py time ROOT TAG [--aux | --main]
       time merit_fwd, merit_bwd, trace_fwd, trace_bwd, trace_field_fwd and
       trace_field_bwd of ROOT at 2^24 rays, float32 (median of 10 CUDA
@@ -212,6 +228,9 @@ def sass(old, new):
 # the main path's backwards, whose machine code ``mix`` counts: the merit and
 # trace kernels' stock and tilt builds
 MIX_KERNELS = ("merit_bwd_kernel", "trace_bwd_kernel", "pol_bwd_kernel")
+# the polarized kernels, whose machine code ``mix`` counts in f32 in every
+# build but nurbs (whose pol_bwd it counts in both types with the others)
+POL_KERNELS = ("pol_fwd_kernel", "pol_bwd_kernel")
 # the Newton builds, whose merit and trace backwards ``mix`` counts in f32
 NEWTON_BUILDS = ("sag", "deep", "free", "deep_free", "aux", "deep_aux")
 # the nurbs build's forwards (merit_fwd; trace_fwd, trace_field_fwd and
@@ -250,7 +269,11 @@ def mix(log):
     for (src, key), instrs in sorted(code.items(), key=str):
         fwd = (isinstance(key, tuple) and key[0] in FWD_KERNELS and key[2]
                and key[2][-1] == "nurbs")
-        if not fwd and not (isinstance(key, tuple) and key[0] in MIX_KERNELS
+        pol = (isinstance(key, tuple) and key[0] in POL_KERNELS
+               and key[1] == "f" and key[2] and key[2][-1] in (
+                   ("stock", "tilt") + NEWTON_BUILDS))
+        if not fwd and not pol and not (
+                isinstance(key, tuple) and key[0] in MIX_KERNELS
                 and key[2] and (key[2][-1] in (
                     ("nurbs",) if key[0] == "pol_bwd_kernel"
                     else ("stock", "tilt", "nurbs"))
@@ -266,7 +289,8 @@ def mix(log):
         regs = re.search(r"Used (\d+) registers", ptx)
         smem = re.search(r"(\d+) bytes smem", ptx)
         per_sm = None
-        threads = 256 if fwd else 128
+        threads = 256 if fwd or (pol and key[0] == "pol_fwd_kernel") \
+            else 128
         dyn = golden_tables(4 if key[1] == "f" else 8) if fwd else 0
         if regs:
             # registers go to a warp in units of 256, 64K on an SM; 228 KB
@@ -283,7 +307,7 @@ def mix(log):
 
 
 def time_tree(root, tag, aux, main=False, nurbs=False, only=None,
-              newton=False, f64=False):
+              newton=False, f64=False, pol=False, systems=None):
     sys.path.insert(0, os.path.abspath(root))
     import torch
 
@@ -478,6 +502,53 @@ def time_tree(root, tag, aux, main=False, nurbs=False, only=None,
         torch.cuda.synchronize()
         return res
 
+    def pol_kernels(system, field):
+        """pol_fwd and pol_bwd in both modes (H) on a coated system, with
+        pol_bwd's launch shapes where the tree's wrapper gives them."""
+        from optiland_torch.ops import pol_trace as pt
+        from optiland_torch.polarization import create_polarization
+
+        wl = float(system.wavelengths[system.cfg.primary_index])
+        with torch.no_grad():
+            pk = ft.build_param_table(system, wl).contiguous()
+            Px, Py = ft.prng_disk(15, R, 0, dt, dev)
+            rays = raygen.generate_rays(system, *field, Px, Py, wl)
+            ins = [getattr(rays, k).contiguous() for k in ftr.RAY_FIELDS]
+            del rays, Px, Py
+            cots = [torch.randn(R, generator=gen, device=dev, dtype=dt) / R
+                    for _ in range(pt.N_POL)]
+            spec = pt.pol_spec(system, wl)
+            coat = pt.build_coat_table(system, wl, dt, dev)
+            states = pt.pol_states(create_polarization("H"))
+            ck, lk = tables(system)
+            nc = ck.shape[1]
+            res = timed({
+                "pol_fwd": lambda: pt.pol_fwd(pk, coat, spec, ins, None,
+                                              False, ck, lk),
+                "pol_bwd": lambda: pt.pol_bwd(pk, coat, spec, nc, ins, cots,
+                                              None, False, ck, lk),
+                "pol_fwd_intensity": lambda: pt.pol_fwd(
+                    pk, coat, spec, ins, states, True, ck, lk),
+                "pol_bwd_intensity": lambda: pt.pol_bwd(
+                    pk, coat, spec, nc, ins, cots[:8], states, True, ck, lk),
+            })
+            res["build"] = launch.BUILD_SUFFIX[pt._build(spec)][1:] or "stock"
+            if hasattr(pt, "pol_grid"):
+                for intensity in (False, True):
+                    res[f"shape_{'intensity' if intensity else 'full'}"] = \
+                        pt.pol_grid(spec, nc, coat.shape[1], R, intensity,
+                                    dt, dev, lk)
+        torch.cuda.synchronize()
+        return res
+
+    def doublet16():
+        from optiland_torch.samples import polarized as ps
+
+        lens = ps.coated_doublet("H", epd=4.0)
+        if hasattr(lens, "image_solve"):
+            lens.image_solve()
+        return lens
+
     from optiland_torch.samples import CookeTriplet
 
     def objective26():
@@ -487,7 +558,26 @@ def time_tree(root, tag, aux, main=False, nurbs=False, only=None,
         return registry.build_sample("ObjectiveUS008879901")
 
     out = {}
-    if newton:
+    if pol:
+        from optiland_torch.samples import nurbs as ns
+        from optiland_torch.samples import polarized as ps
+
+        for name, make, field in (
+                *((cls, lambda cls=cls: ps.bench_polarized(cls), (0.0, 0.7))
+                  for cls in ps.BENCH_CLASSES),
+                ("tilted_singlet", perturbed.tilted_singlet, (0.0, 0.7)),
+                ("doublet16", doublet16, (0.0, 0.0)),
+                ("coated_asphere", lambda: perturbed.coated_asphere("H"),
+                 (0.0, 0.7)),
+                ("plates", getattr(ps, "coated_plates", None),
+                 (0.0, 0.7)),
+                *((f"coated_{fam}", lambda fam=fam: freeform.coated_freeform(
+                    fam, "H"), freeform.H)
+                  for fam in ("polynomial",) + freeform.AUX_FAMILIES),
+                ("coated_nurbs", lambda: ns.coated_nurbs("H"), (0.3, 0.7))):
+            if make is not None and (systems is None or name in systems):
+                out[name] = pol_kernels(make().system, field)
+    elif newton:
         for name, make, field, poly in (
                 ("tilted_asphere", perturbed.tilted_asphere, (0.0, 0.0),
                  True),
@@ -520,7 +610,8 @@ def time_tree(root, tag, aux, main=False, nurbs=False, only=None,
         out["toleranced_cooke"] = kernels(
             perturbed.toleranced_cooke().system, (0.0, 0.7))
         out["cooke_poly"] = poly_kernels(CookeTriplet().system)
-    for name, make, field in () if aux or main or nurbs or newton else (
+    for name, make, field in () if aux or main or nurbs or newton or pol \
+            else (
                 ("tilted_asphere", perturbed.tilted_asphere, (0.0, 0.0)),
                 ("objective26", objective26, (0.0, 0.7)),
                 ("polynomial", lambda: freeform.freeform_singlet(
@@ -528,7 +619,7 @@ def time_tree(root, tag, aux, main=False, nurbs=False, only=None,
                 ("toroidal", lambda: freeform.freeform_singlet("toroidal"),
                  freeform.H)):
         out[name] = kernels(make().system, field)
-    if aux and not nurbs:
+    if aux and not nurbs and not pol:
         least = launch.build_of
 
         def deep(*a, **k):
@@ -579,7 +670,9 @@ def main(argv):
                 if "--kernels" in rest else None)
         time_tree(argv[1], argv[2], "--aux" in rest, "--main" in rest,
                   "--nurbs" in rest, only, "--newton" in rest,
-                  "--f64" in rest)
+                  "--f64" in rest, "--pol" in rest,
+                  rest[rest.index("--systems") + 1].split(",")
+                  if "--systems" in rest else None)
     else:
         print(__doc__, file=sys.stderr)
         return 2
